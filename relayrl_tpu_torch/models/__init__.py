@@ -1,0 +1,16 @@
+"""Policy model registry (the model-ABI layer).
+
+Importing this package registers the ported model families.
+"""
+
+from relayrl_tpu_torch.models.base import (
+    Policy,
+    build_policy,
+    register_model,
+    resolve_device,
+    validate_policy,
+)
+import relayrl_tpu_torch.models.transformer  # noqa: F401  (registers transformer_discrete)
+
+__all__ = ["Policy", "build_policy", "register_model", "resolve_device",
+           "validate_policy"]

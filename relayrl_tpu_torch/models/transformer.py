@@ -1,0 +1,312 @@
+"""Decoder-only transformer sequence policy (``transformer_discrete``).
+
+Counterpart of :mod:`relayrl_tpu.models.transformer`: the same causal
+transformer over the trajectory time axis, the same parameter names (so
+one flax params tree loads into both, see :mod:`relayrl_tpu_torch.weights`)
+and the same numerics:
+
+* LayerNorms (epsilon 1e-6, flax's) compute in f32;
+* under ``precision: bfloat16`` the ``qkv``, ``attn_out`` and ``mlp_*``
+  layers compute in bf16 from f32 params, with the bias added after the
+  matmul as flax's Dense does; the embedding and heads stay f32 and so
+  does the residual stream;
+* GELU is the tanh approximation (flax's ``nn.gelu`` default).
+
+Attention backends by arch ``attention``: ``"dense"``, ``"blockwise"``, and
+``"flash"`` — the flash kernel (:mod:`relayrl_tpu_torch.ops.flash`) when the
+window length tiles by ``flash_block`` (every ``T <= flash_block`` does),
+else blockwise or dense, the reference's rule. The ``"ring"`` backend,
+the KV-cache decode path and the MoE and pipeline families are not ported
+yet.
+
+Sequence ABI (see :class:`~relayrl_tpu_torch.models.base.Policy`):
+``evaluate(params, obs[B,T,D], act[B,T], mask[B,T,A]) -> (logp, ent, v)``;
+``step`` treats the second-to-last axis as time and acts at the last
+position; the window paths read out one row per window. Actions come back
+as int64 tensors; the actors put int32 on the wire, as the JAX actors do.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Mapping
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from relayrl_tpu_torch.models.base import Policy, register_model
+from relayrl_tpu_torch.models.mlp import (
+    _MASK_FILL,
+    _categorical_entropy,
+    _categorical_logp,
+    _categorical_sample,
+    _compute_dtype,
+)
+from relayrl_tpu_torch.ops.attention import blockwise_attention, dense_attention
+from relayrl_tpu_torch.ops.flash import flash_attention
+from relayrl_tpu_torch.weights import params_from_jax
+
+_LN_EPS = 1e-6  # flax nn.LayerNorm's default; torch's is 1e-5
+
+
+def _resolve_attention(arch: Mapping[str, Any]) -> Callable:
+    """Arch config -> [B,T,H,D]x3 -> [B,T,H,D] causal attention callable."""
+    kind = arch.get("attention", "dense")
+    block = int(arch.get("attention_block", 128))
+    if kind == "dense":
+        return lambda q, k, v: dense_attention(q, k, v, causal=True)
+    if kind == "blockwise":
+        return lambda q, k, v: blockwise_attention(q, k, v, block, causal=True)
+    if kind == "flash":
+        fblock = int(arch.get("flash_block", 1024))
+
+        def flash_or_local(q, k, v):
+            T = q.shape[1]
+            if T % min(fblock, T) == 0:
+                return flash_attention(q, k, v, causal=True)[0]
+            if T % block == 0:
+                return blockwise_attention(q, k, v, block, causal=True)
+            return dense_attention(q, k, v, causal=True)
+        return flash_or_local
+    raise ValueError(f"attention kind {kind!r} is unknown or not ported")
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: input and f32 params cast to ``dtype``,
+    the matmul, then the bias added in ``dtype``."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
+def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+                        ln.eps)
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, d_model: int, n_heads: int, mlp_ratio: int,
+                 attn_fn: Callable, compute_dtype: torch.dtype):
+        super().__init__()
+        self.n_heads = n_heads
+        self.attn_fn = attn_fn
+        self.compute_dtype = compute_dtype
+        self.ln_attn = nn.LayerNorm(d_model, eps=_LN_EPS)
+        self.qkv = nn.Linear(d_model, 3 * d_model)
+        self.attn_out = nn.Linear(d_model, d_model)
+        self.ln_mlp = nn.LayerNorm(d_model, eps=_LN_EPS)
+        self.mlp_up = nn.Linear(d_model, mlp_ratio * d_model)
+        self.mlp_down = nn.Linear(mlp_ratio * d_model, d_model)
+
+    def forward(self, x: torch.Tensor, readout_idx: torch.Tensor | None = None):
+        """Full mode: x ``[B, T, d]`` -> ``[B, T, d]``.
+
+        Readout mode (``readout_idx [B]``, the final layer of the window
+        path): k and v project over every row, while the query, output
+        projection and MLP run for each lane's one readout row, attended
+        densely with that lane's causal offset. Returns ``[B, 1, d]``."""
+        B, T, d = x.shape
+        cd = self.compute_dtype
+        h = _layer_norm(self.ln_attn, x).to(cd)
+        # Column thirds of the fused projection, each [B, T, H, hd]: views
+        # that share strides, which the flash kernel reads in place.
+        q, k, v = _dense(self.qkv, h, cd).view(
+            B, T, 3, self.n_heads, d // self.n_heads).unbind(2)
+        if readout_idx is not None:
+            lanes = torch.arange(B, device=x.device)
+            q_row = q[lanes, readout_idx][:, None]
+            attn = dense_attention(q_row, k, v, causal=True,
+                                   q_offset=readout_idx).reshape(B, 1, d)
+            x = x[lanes, readout_idx][:, None]
+        else:
+            attn = self.attn_fn(q, k, v).reshape(B, T, d)
+        x = x + _dense(self.attn_out, attn, cd).to(x.dtype)
+        h = _layer_norm(self.ln_mlp, x).to(cd)
+        h = F.gelu(_dense(self.mlp_up, h, cd), approximate="tanh")
+        return x + _dense(self.mlp_down, h, cd).to(x.dtype)
+
+
+class TransformerCore(nn.Module):
+    """Obs sequence -> per-step (logits, v). Residual stream stays f32."""
+
+    def __init__(self, arch: Mapping[str, Any]):
+        super().__init__()
+        d_model = int(arch.get("d_model", 128))
+        self.n_layers = int(arch.get("n_layers", 2))
+        self.has_critic = bool(arch.get("has_critic", True))
+        attn_fn = _resolve_attention(arch)
+        cd = _compute_dtype(arch)
+        self.obs_embed = nn.Linear(int(arch["obs_dim"]), d_model)
+        self.pos_embed = nn.Parameter(
+            torch.empty(int(arch.get("max_seq_len", 1024)), d_model))
+        for i in range(self.n_layers):
+            self.add_module(f"block_{i}", TransformerBlock(
+                d_model, int(arch.get("n_heads", 4)),
+                int(arch.get("mlp_ratio", 4)), attn_fn, cd))
+        self.ln_final = nn.LayerNorm(d_model, eps=_LN_EPS)
+        self.pi_head = nn.Linear(d_model, int(arch["act_dim"]))
+        if self.has_critic:
+            self.vf_head_up = nn.Linear(d_model, d_model)
+            self.vf_head = nn.Linear(d_model, 1)
+
+    def blocks(self) -> list[TransformerBlock]:
+        return [getattr(self, f"block_{i}") for i in range(self.n_layers)]
+
+    def _heads(self, x, mask):
+        x = _layer_norm(self.ln_final, x)
+        logits = _dense(self.pi_head, x, torch.float32)
+        if mask is not None:
+            logits = torch.where(mask > 0, logits, _MASK_FILL)
+        if self.has_critic:
+            h = torch.tanh(_dense(self.vf_head_up, x, torch.float32))
+            v = _dense(self.vf_head, h, torch.float32).squeeze(-1)
+        else:
+            v = torch.zeros(logits.shape[:-1], dtype=torch.float32,
+                            device=logits.device)
+        return logits, v
+
+    def forward(self, obs, mask=None, readout_t=None):
+        """Full mode: obs ``[B, T, D]`` -> (logits ``[B, T, A]``, v ``[B, T]``).
+
+        Readout mode (``readout_t [B]``, each lane's row): layers
+        ``0..L-2`` run over every row, the final layer and the heads run
+        for the one row; returns (logits ``[B, A]``, v ``[B]``)."""
+        T = obs.shape[1]
+        x = _dense(self.obs_embed, obs, torch.float32) + self.pos_embed[:T][None]
+        blocks = self.blocks()
+        if readout_t is None:
+            for block in blocks:
+                x = block(x)
+            return self._heads(x, mask)
+        for block in blocks[:-1]:
+            x = block(x)
+        x = blocks[-1](x, readout_idx=readout_t)
+        if mask is not None:
+            # dynamic_slice semantics: the row index clamps into the mask.
+            lanes = torch.arange(mask.shape[0], device=mask.device)
+            mask = mask[lanes, readout_t.clamp(max=mask.shape[1] - 1)][:, None]
+        logits, v = self._heads(x, mask)
+        return logits[:, 0], v[:, 0]
+
+
+def _init_core(core: TransformerCore, generator: torch.Generator) -> None:
+    """flax's initializers: Dense kernels lecun-normal (truncated at two
+    standard deviations), biases zero, LayerNorm scale one, ``pos_embed``
+    normal(0.02)."""
+    for module in core.modules():
+        if isinstance(module, nn.Linear):
+            std = module.in_features ** -0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(module.weight, std=std, a=-2 * std,
+                                  b=2 * std, generator=generator)
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, nn.LayerNorm):
+            nn.init.ones_(module.weight)
+            nn.init.zeros_(module.bias)
+    nn.init.normal_(core.pos_embed, std=0.02, generator=generator)
+
+
+def _as_btd(obs, mask, device):
+    """Normalize step/evaluate inputs to [B, T, D] (+ mask [B, T, A])."""
+    obs = torch.as_tensor(obs, dtype=torch.float32, device=device)
+    if obs.ndim == 1:          # [D] -> context of one
+        obs, lead = obs[None, None], "scalar"
+    elif obs.ndim == 2:        # [T, D]
+        obs, lead = obs[None], "seq"
+    else:                      # [B, T, D]
+        lead = "batch"
+    if mask is not None:
+        mask = torch.as_tensor(mask, dtype=torch.float32, device=device)
+        while mask.ndim < 3:
+            mask = mask[None]
+    return obs, mask, lead
+
+
+def _build_core_policy(arch: Mapping[str, Any], device: torch.device) -> Policy:
+    def init_params(generator: torch.Generator) -> TransformerCore:
+        with torch.device("meta"):
+            core = TransformerCore(arch)
+        core = core.to_empty(device="cpu")
+        _init_core(core, generator)
+        return core.to(device)
+
+    def load_params(tree) -> TransformerCore:
+        with torch.device("meta"):
+            core = TransformerCore(arch)
+        core = core.to_empty(device=device)
+        core.load_state_dict(params_from_jax(tree))
+        return core
+
+    def step(params, generator, obs, mask=None):
+        obs, mask, lead = _as_btd(obs, mask, device)
+        logits, v = params(obs, mask)
+        logits_last, v_last = logits[:, -1], v[:, -1]
+        act = _categorical_sample(generator, logits_last)
+        logp = _categorical_logp(logits_last, act)
+        if lead != "batch":
+            act, logp, v_last = act[0], logp[0], v_last[0]
+        return act, {"logp_a": logp, "v": v_last}
+
+    def evaluate(params, obs, act, mask=None):
+        obs, mask, lead = _as_btd(obs, mask, device)
+        act_b = torch.as_tensor(act, device=device)
+        while act_b.ndim < 2:  # scalar -> [1,1], [T] -> [1,T]
+            act_b = act_b[None]
+        logits, v = params(obs, mask)
+        logp = _categorical_logp(logits, act_b)
+        ent = _categorical_entropy(logits)
+        if lead != "batch":
+            logp, ent, v = logp[0], ent[0], v[0]
+        if lead == "scalar":
+            logp, ent, v = logp[0], ent[0], v[0]
+        return logp, ent, v
+
+    def mode(params, obs, mask=None):
+        obs, mask, lead = _as_btd(obs, mask, device)
+        logits, _ = params(obs, mask)
+        act = logits[:, -1].argmax(dim=-1)
+        return act if lead == "batch" else act[0]
+
+    def _window_logits(params, window, t, mask):
+        """Readout logits and v of one window ``[W, D]`` (scalar ``t``) or
+        of stacked windows ``[N, W, D]`` (``t [N]``), each read at row
+        ``clip(t - 1, 0, W - 1)``."""
+        windows = torch.as_tensor(window, dtype=torch.float32, device=device)
+        single = windows.ndim == 2
+        if single:
+            windows = windows[None]
+        t = torch.as_tensor(t, device=device).reshape(-1).long()
+        idx = (t - 1).clamp(0, windows.shape[1] - 1)
+        if mask is not None:
+            mask = torch.as_tensor(mask, dtype=torch.float32, device=device)
+            if single:
+                while mask.ndim < 3:
+                    mask = mask[None]
+            elif mask.ndim == 2:   # [N, A]: one mask row per lane
+                mask = mask[:, None]
+        logits, v = params(windows, mask, readout_t=idx)
+        return logits, v, single
+
+    def step_window(params, generator, window, t, mask=None):
+        """Act from right-zero-padded history windows with ``t`` real rows:
+        the readout position t-1 attends only positions < t (causal), so
+        the padding is never seen and one shape serves every length."""
+        logits, v, single = _window_logits(params, window, t, mask)
+        act = _categorical_sample(generator, logits)
+        aux = {"logp_a": _categorical_logp(logits, act), "v": v}
+        if single:
+            return act[0], {k: a[0] for k, a in aux.items()}
+        return act, aux
+
+    def mode_window(params, window, t, mask=None):
+        """Greedy readout from history windows."""
+        logits, _, single = _window_logits(params, window, t, mask)
+        act = logits.argmax(dim=-1)
+        return act[0] if single else act
+
+    return Policy(arch=dict(arch), device=device, init_params=init_params,
+                  load_params=load_params, step=step, evaluate=evaluate,
+                  mode=mode, step_window=step_window, mode_window=mode_window)
+
+
+@register_model("transformer_discrete")
+def build_transformer_discrete(arch: Mapping[str, Any],
+                               device: torch.device) -> Policy:
+    return _build_core_policy(arch, device)

@@ -1,0 +1,228 @@
+"""Trajectory type + wire codec.
+
+Capability parity with the reference's ``RelayRLTrajectory``
+(reference: relayrl_framework/src/types/trajectory.rs:95-203 — Vec of actions
++ max_length + `add_action(action, send_if_done)` which serializes and PUSHes
+to the trajectory server when a done action arrives).
+
+Deliberate departures from the reference (documented per SURVEY.md §7.5):
+
+* **msgpack, not pickle.** The reference pickles `Vec<RelayRLAction>`
+  (trajectory.rs:50-55); unpickling network input is code execution on the
+  training server. The wire format here is msgpack + tensor ext frames.
+* **Transport-agnostic send hook.** The reference hardcodes a fresh ZMQ PUSH
+  socket per send (trajectory.rs:69-90); here the owner injects an
+  ``on_send(bytes)`` callable so the same type serves ZMQ, gRPC, the native
+  C++ transport, and in-process tests.
+* **Buffer always clears after send.** The reference clears only when
+  ``len >= max_length`` so earlier episodes are re-sent cumulatively
+  (trajectory.rs:196-202) — a bug we do not replicate.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable
+
+from relayrl_tpu_torch.types.action import ActionRecord, _ext_hook
+
+WIRE_VERSION = 1
+
+
+class Trajectory:
+    """Ordered actions for one (or part of one) episode."""
+
+    def __init__(
+        self,
+        max_length: int = 1000,
+        on_send: Callable[[bytes], None] | None = None,
+    ):
+        if max_length <= 0:
+            raise ValueError("max_length must be positive")
+        self.max_length = int(max_length)
+        self._on_send = on_send
+        self._actions: list[ActionRecord] = []
+        # Tracing stamps (telemetry/trace.py): born_ns marks the first
+        # step of the chunk currently buffering, encode_t0/t1_ns bracket
+        # the last flush's serialize. Read by the owning agent's send
+        # hook when it mints a trajectory trace context; one clock read
+        # per chunk/flush, never per step beyond the emptiness check.
+        self.born_ns = 0
+        self.encode_t0_ns = 0
+        self.encode_t1_ns = 0
+
+    # -- reference API parity (trajectory.rs:95-203) --
+    @property
+    def actions(self) -> list[ActionRecord]:
+        return self._actions
+
+    def get_actions(self) -> list[ActionRecord]:
+        return self._actions
+
+    def __len__(self) -> int:
+        return len(self._actions)
+
+    def add_action(self, action: ActionRecord, send_if_done: bool = True) -> bool:
+        """Append; on a done action (or overflow) ship and clear.
+
+        Returns True only when the trajectory was actually handed to a
+        transport. Without an ``on_send`` hook the actions are retained for
+        the caller to read (local/offline collection), bounded by eviction of
+        the oldest entries at capacity.
+
+        Capacity is enforced *before* appending a real step, so chunks
+        never exceed ``max_length`` steps — but a terminal marker (act-less
+        record from ``flag_last_action``) always joins the chunk it ends:
+        markers fold into the preceding step learner-side, so the chunk
+        still pads into its ``max_length`` bucket, and flushing before the
+        marker instead would strand it in a marker-only send that loses
+        the final reward and bootstrap obs.
+        """
+        is_marker = action.act is None
+        if not is_marker and len(self._actions) >= self.max_length:
+            self._flush_or_evict_at_capacity(send_if_done)
+        if not self._actions:
+            import time
+
+            self.born_ns = time.monotonic_ns()
+        self._actions.append(action)
+        if action.done and send_if_done and self._on_send is not None:
+            self.flush()
+            return True
+        return False
+
+    def _flush_or_evict_at_capacity(self, send_if_done: bool) -> bool:
+        """The ONE copy of the capacity rule (a real step arriving at
+        ``max_length``): flush to the transport when one is attached,
+        else evict the oldest half rather than grow unbounded. Shared by
+        :meth:`add_action` and :meth:`add_actions` so the per-step and
+        bulk wire chunking can never diverge. Returns True iff a
+        transport flush happened."""
+        if send_if_done and self._on_send is not None:
+            self.flush()
+            return True
+        del self._actions[: max(1, self.max_length // 2)]
+        return False
+
+    def add_actions(self, records: list[ActionRecord],
+                    send_if_done: bool = True) -> int:
+        """Bulk append: wire-identical to calling :meth:`add_action` per
+        record, but runs of non-terminal steps extend the buffer in one
+        slice, so the Python overhead is O(flushes), not O(steps) — the
+        anakin fallback unstacker's path (runtime/anakin.py). Returns
+        the number of transport flushes performed."""
+        acts = self._actions
+        if not acts and records:
+            import time
+
+            self.born_ns = time.monotonic_ns()
+        flushes = 0
+        i, n = 0, len(records)
+        while i < n:
+            rec = records[i]
+            is_marker = rec.act is None
+            if not is_marker and len(acts) >= self.max_length:
+                flushes += self._flush_or_evict_at_capacity(send_if_done)
+            if rec.done or is_marker:
+                acts.append(rec)
+                i += 1
+                if rec.done and send_if_done and self._on_send is not None:
+                    self.flush()
+                    flushes += 1
+                continue
+            # run of plain steps: extend up to capacity / the next record
+            # that needs per-record handling (done or marker)
+            j = i
+            stop = min(n, i + self.max_length - len(acts))
+            while (j < stop and not records[j].done
+                   and records[j].act is not None):
+                j += 1
+            acts.extend(records[i:j])
+            i = j
+        return flushes
+
+    def flush(self) -> None:
+        """Serialize + hand off to the transport, then clear.
+
+        No-op without a transport — data is never silently discarded; use
+        :meth:`clear` to drop it explicitly.
+        """
+        if not self._actions or self._on_send is None:
+            return
+        import time
+
+        self.encode_t0_ns = time.monotonic_ns()
+        buf = self.to_bytes()
+        self.encode_t1_ns = time.monotonic_ns()
+        self._on_send(buf)
+        self._actions.clear()
+
+    def clear(self) -> None:
+        self._actions.clear()
+
+    # -- wire codec --
+    def to_bytes(self) -> bytes:
+        return serialize_actions(self._actions)
+
+    @classmethod
+    def from_bytes(cls, buf: bytes, max_length: int | None = None) -> "Trajectory":
+        actions = deserialize_actions(buf)
+        traj = cls(max_length=max_length or max(len(actions), 1))
+        traj._actions = actions
+        return traj
+
+    # -- JSON codec. Method-name parity with the reference's surface
+    #    (PyRelayRLTrajectory.to_json / traj_from_json,
+    #    bindings/python/o3_trajectory.rs:113-166), NOT format parity —
+    #    a deliberate departure (see the action.py JSON codec note and
+    #    this module's docstring): from_json takes the JSON string
+    #    to_json produced, carries a version field, and uses the tagged
+    #    tensor form. Debug/interop surface; the hot path stays msgpack
+    #    (to_bytes). --
+    def to_json(self) -> str:
+        import json
+
+        return json.dumps(
+            {
+                "version": WIRE_VERSION,
+                "max_length": self.max_length,
+                "actions": [a.to_jsonable() for a in self._actions],
+            },
+            allow_nan=False,
+        )
+
+    @classmethod
+    def from_json(cls, text: str) -> "Trajectory":
+        import json
+
+        obj = json.loads(text)
+        version = obj.get("version")
+        if version != WIRE_VERSION:
+            raise ValueError(
+                f"unsupported trajectory json version: {version}")
+        actions = [
+            ActionRecord.from_jsonable(a) for a in obj.get("actions", [])
+        ]
+        traj = cls(max_length=obj.get("max_length") or max(len(actions), 1))
+        traj._actions = actions
+        return traj
+
+    # reference static-method name (o3_trajectory.rs `traj_from_json`)
+    traj_from_json = from_json
+
+
+def serialize_actions(actions: Iterable[ActionRecord]) -> bytes:
+    """Actions → one msgpack frame (ref codec: trajectory.rs:50-55)."""
+    import msgpack
+
+    wire = {"v": WIRE_VERSION, "acts": [a.to_wire() for a in actions]}
+    return msgpack.packb(wire, use_bin_type=True)
+
+
+def deserialize_actions(buf: bytes | memoryview) -> list[ActionRecord]:
+    import msgpack
+
+    wire = msgpack.unpackb(buf, raw=False, ext_hook=_ext_hook, strict_map_key=False)
+    version = wire.get("v")
+    if version != WIRE_VERSION:
+        raise ValueError(f"unsupported trajectory wire version: {version}")
+    return [ActionRecord.from_wire(w) for w in wire["acts"]]
