@@ -8,19 +8,28 @@ Run from the root of a checkout, with no arguments::
 Phases, each of which fails the run:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: every CUDA kernel of the serving slice, from
-   ``relayrl_tpu_torch/csrc``, one ``nvcc`` per source, all started
-   together;
-3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, at the serving slice's shapes and at edge shapes, with the
-   kernel's time, the plain version's, a library call's and the bound;
+2. build: every CUDA kernel of the port (``flash_fwd``, ``flash_bwd``),
+   from ``relayrl_tpu_torch/csrc``, one ``nvcc`` per source, all started
+   together; prints ``nvcc -Xptxas -v``'s registers and spills;
+3. kernel vs plain: each kernel (K1 forward, K2 dq, K3 dk/dv) against its
+   plain PyTorch version on the card, at the slices' shapes and at edge
+   shapes, with the kernel's time, the plain version's, a library call's
+   and the bound;
 4. serving slice: a 64-lane ``VectorActorHost`` over ``RecallEnv`` at the
    flagship transformer's widths (``__graft_entry__.entry()``'s arch: d_model
    256, 4 layers, 8 heads, max_seq_len 256, bf16, flash attention) for 320
    dispatches with a hot swap halfway; checks the records, the shipped
    trajectories and the kernel launch counts, compares one ``evaluate``
    forward through the kernel with the same forward through the plain
-   attention, and breaks a dispatch's time down.
+   attention, and breaks a dispatch's time down;
+5. learner slice: the port's ``REINFORCE`` at the same arch (value
+   baseline, 8 episodes per epoch, 80 value iterations, one 256 bucket)
+   trains on the episodes of its own 64-lane actor host, two waves of 64
+   ``RecallEnv(255)`` episodes, 16 updates, with a hot swap after each;
+   checks the launch counts of every update (336 K1, 4 K2, 4 K3), the
+   versions, the metrics and the params, compares the first update through
+   the kernels with the same update through the plain attention, and
+   times and profiles an update.
 
 The second-to-last line is the kernels' JSON; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
@@ -35,6 +44,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 LANES = 64
 DISPATCHES = 320
@@ -52,8 +62,31 @@ SLICE_ARCH = {
     "has_critic": True,
     "precision": "bfloat16",
 }
+# The learner slice: REINFORCE's defaults plus these (one [8, 256] batch
+# per update; horizon 255 ships 255 steps and the done marker).
+LEARNER = {"with_vf_baseline": True, "traj_per_epoch": 8,
+           "train_vf_iters": 80, "bucket_lengths": [256]}
+LEARNER_HORIZON = 255
+LEARNER_WAVES = 2
 # The bars of tests/test_flash.py: 3e-2 for bf16, 2e-5 for f32.
 TOLERANCE = {"bfloat16": 3e-2, "float32": 2e-5}
+# Gradients: 5e-5 in f32 (tests/test_flash.py's gradient bar); in bf16 3e-2
+# of each gradient tensor's max |value| (ds, p and the outputs each take
+# one bf16 rounding), and never below the f32 bar (at T = 1 dq is zero up
+# to rounding, so its max |value| is itself rounding noise).
+GRAD_TOLERANCE_F32 = 5e-5
+# One learner update through the kernels vs through the plain attention
+# (bf16): metrics within 1e-2 (relative and absolute); every parameter
+# within twice Adam's step bound of its optimizer (a small gradient that
+# rounds differently flips the sign of its normalized step), and the mean
+# |difference| within 5% of the mean movement.
+UPDATE_METRIC_TOL = 1e-2
+UPDATE_MEAN_DIFF_SHARE = 0.05
+# The first update of each wave trains on episodes the actors drew from
+# the learner's current version, so KL (behavior log-probs from the
+# actors' window readout vs the learner's full forward) is zero up to bf16
+# rounding.
+ON_POLICY_KL_TOL = 1e-3
 # H100 SXM published peaks (dense): HBM bytes/s; FLOP/s by operand type
 # (bf16 on the tensor cores, f32 outside them).
 HBM_BYTES_PER_S = 3.35e12
@@ -115,6 +148,107 @@ def flash_bound(B, T, H, D, dtype_name, causal) -> tuple[float, str]:
     t_bytes = moved / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_bwd_bound(B, T, H, D, dtype_name, causal, kernel) -> tuple[float, str]:
+    """Least time for one backward pass on these inputs. Each reads q, k,
+    v and do once and lse2 and delta (f32) once; dq writes dq, dkv writes
+    dk and dv. FLOPs on the causally live (query, key) pairs: dq 3
+    products (scores, dp, ds.k), dkv 4 (scores, dp, p^T.do, ds^T.q)."""
+    elt = 2 if dtype_name == "bfloat16" else 4
+    outputs = 1 if kernel == "dq" else 2
+    moved = (4 + outputs) * B * T * H * D * elt + 2 * B * H * T * 4
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    flops = (6 if kernel == "dq" else 8) * D * pairs
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_flash_bwd(device) -> dict:
+    """K2 and K3 against their plain versions at the learner slice's shape
+    (``[8, 256, 8, 32]`` bf16 causal) and at T = 1, 17, 130 (f32 and bf16,
+    causal and not, and head dim 64 at T = 130); times at the slice's
+    shape. Returns {"flash_dq": ..., "flash_dkv": ...} for that shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from relayrl_tpu_torch.ops.flash import (
+        _launch_dkv,
+        _launch_dq,
+        flash_attention_delta,
+        flash_attention_dkv_plain,
+        flash_attention_dq_plain,
+        flash_attention_plain,
+    )
+
+    B, H = LEARNER["traj_per_epoch"], SLICE_ARCH["n_heads"]
+    D = SLICE_ARCH["d_model"] // H
+    T_main = SLICE_ARCH["max_seq_len"]
+    gen = torch.Generator().manual_seed(SEED + 1)
+    cases = [(torch.bfloat16, True, T_main, D)]
+    cases += [(dtype, causal, T, D) for dtype in (torch.bfloat16, torch.float32)
+              for causal in (True, False) for T in (1, 17, 130)]
+    cases += [(torch.bfloat16, True, 130, 64), (torch.float32, False, 130, 64)]
+    main = {}
+    for dtype, causal, T, d in cases:
+        name = _dtype_name(dtype)
+        q, k, v = fused_qkv(B, T, H, d, dtype, device, gen)
+        out, lse2 = flash_attention_plain(q, k, v, causal)
+        do = torch.randn((B, T, H, d), generator=gen).to(device, dtype)
+        delta = flash_attention_delta(out, do)
+        args = (q, k, v, lse2, do, delta, causal)
+        got = {"flash_dq": (_launch_dq(*args),),
+               "flash_dkv": _launch_dkv(*args)}
+        torch.cuda.synchronize()
+        want = {"flash_dq": (flash_attention_dq_plain(*args),),
+                "flash_dkv": flash_attention_dkv_plain(*args)}
+        for kernel in got:
+            errs, bars = [], []
+            for g, w in zip(got[kernel], want[kernel]):
+                bar = GRAD_TOLERANCE_F32
+                if dtype == torch.bfloat16:
+                    bar = max(bar, TOLERANCE["bfloat16"] * w.float().abs().max().item())
+                err = (g.float() - w.float()).abs().max().item()
+                if not (g.shape == w.shape and g.dtype == dtype
+                        and math.isfinite(err) and err <= bar):
+                    raise AssertionError(
+                        f"{kernel} {name} causal={causal} T={T} D={d}: max "
+                        f"abs err {err} above {bar}")
+                errs.append(err)
+                bars.append(bar)
+            line = (f"[kernel] {kernel} {name} causal={causal} "
+                    f"q,k,v,do=[{B},{T},{H},{d}] max_abs_err "
+                    + "/".join(f"{e:.3e}" for e in errs) + " (tol "
+                    + "/".join(f"{b:.3e}" for b in bars) + ")")
+            if T == T_main:
+                launch = _launch_dq if kernel == "flash_dq" else _launch_dkv
+                plain = (flash_attention_dq_plain if kernel == "flash_dq"
+                         else flash_attention_dkv_plain)
+                ms = time_ms(lambda: launch(*args))
+                plain_ms = time_ms(lambda: plain(*args), iters=20)
+                bound_ms, bound_by = flash_bwd_bound(
+                    B, T, H, d, name, causal, kernel.removeprefix("flash_"))
+                main[kernel] = {"max_abs_err": max(errs), "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by}
+                line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                         f"bound_ms={bound_ms:.4f} ({bound_by})")
+            print(line, flush=True)
+        if T == T_main:
+            # The yardstick: SDPA's backward for the same q, k, v and do
+            # (it computes dq, dk and dv in one call).
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                          for x in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            dot = do.transpose(1, 2)
+            library_ms = time_ms(lambda: torch.autograd.grad(
+                sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+            print(f"[kernel] sdpa backward {name} causal={causal} "
+                  f"[{B},{T},{H},{d}] ms={library_ms:.4f}", flush=True)
+            for kernel in main:
+                main[kernel]["library_ms"] = library_ms
+    return main
 
 
 def check_flash(device) -> dict:
@@ -312,39 +446,233 @@ def dispatch_breakdown(host, device) -> dict:
     return out
 
 
-def profile_dispatches(host, n: int = 10) -> None:
-    """Device busy share of ``n`` back-to-back dispatches and the kernels
-    that take the device time, from ``torch.profiler`` (whose own cost
-    lengthens the wall time it is divided by)."""
-    import numpy as np
+def profile_device(fn, n: int, unit: str) -> None:
+    """Device busy share of ``n`` back-to-back calls of ``fn`` and the
+    kernels that take the device time, from ``torch.profiler`` (whose own
+    cost lengthens the wall time it is divided by). Annotated ranges on
+    the device timeline (``Optimizer.step#Adam.step``) span kernels
+    counted on their own, so they are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    obs = np.zeros((host.num_envs, host.arch["obs_dim"]), np.float32)
-    host.request_for_actions(obs)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            host.request_for_actions(obs)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
         print("[profile] device time: not measured (the profiler saw no "
               "device activity)")
         return
     launches = sum(e.count for e in kernels) / n
-    print(f"[profile] {n} dispatches: wall {wall_us / n / 1e3:.4f} ms, device "
-          f"busy {busy_us / n / 1e3:.4f} ms per dispatch "
+    print(f"[profile] {n} {unit}(s): wall {wall_us / n / 1e3:.4f} ms, device "
+          f"busy {busy_us / n / 1e3:.4f} ms per {unit} "
           f"({100 * busy_us / wall_us:.1f}% busy), {launches:.0f} device "
-          f"operations per dispatch")
+          f"operations per {unit}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[profile]   {e.self_device_time_total / n / 1e3:8.4f} ms "
               f"{100 * e.self_device_time_total / busy_us:5.1f}%  "
-              f"x{e.count // n:<3d} {e.key[:90]}")
+              f"x{e.count / n:<7.1f} {e.key[:90]}")
+
+
+def profile_dispatches(host, n: int = 10) -> None:
+    import numpy as np
+
+    obs = np.zeros((host.num_envs, host.arch["obs_dim"]), np.float32)
+    profile_device(lambda: host.request_for_actions(obs), n, "dispatch")
+
+
+def flash_counts() -> tuple[int, int, int]:
+    from relayrl_tpu_torch.ops.flash import flash_attention
+
+    return (flash_attention.launches, flash_attention.dq_launches,
+            flash_attention.dkv_launches)
+
+
+def zero_flash_counts() -> None:
+    from relayrl_tpu_torch.ops.flash import flash_attention
+
+    flash_attention.launches = 0
+    flash_attention.dq_launches = 0
+    flash_attention.dkv_launches = 0
+
+
+def build_learner(device, workdir: Path):
+    """The port's REINFORCE at the slice's arch, on ``device``; the bf16
+    compute dtype comes from the config's ``learner.precision``, as in the
+    JAX package."""
+    from relayrl_tpu_torch.algorithms import build_algorithm
+    from relayrl_tpu_torch.envs import RecallEnv
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    config = workdir / "relayrl_config.json"
+    config.write_text(json.dumps(
+        {"learner": {"precision": SLICE_ARCH["precision"]}}))
+    env = RecallEnv(LEARNER_HORIZON, N_CUES)
+    overrides = {k: v for k, v in SLICE_ARCH.items()
+                 if k not in ("kind", "has_critic", "precision")}
+    algo = build_algorithm(
+        "REINFORCE", env_dir=str(workdir), config_path=str(config),
+        obs_dim=int(env.observation_space.shape[0]),
+        act_dim=int(env.action_space.n), device=device,
+        model_kind=SLICE_ARCH["kind"], seed=SEED, seed_salt=0,
+        **overrides, **LEARNER)
+    for key, value in SLICE_ARCH.items():
+        if algo.arch[key] != value:
+            raise AssertionError(f"learner arch {key}={algo.arch[key]!r}, "
+                                 f"expected {value!r}")
+    return algo
+
+
+def compare_update(algo, params0, batch, device) -> dict:
+    """The learner's first update through the kernels against the same
+    update through the plain attention (autograd through
+    ``flash_attention_plain``), both from ``params0`` with fresh Adam
+    state. Returns the largest metric and parameter differences."""
+    import torch
+
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+    from relayrl_tpu_torch.algorithms.reinforce import (
+        ReinforceState,
+        make_optimizers,
+        make_reinforce_update,
+    )
+    from relayrl_tpu_torch.ops.flash import flash_attention_plain
+
+    update = make_reinforce_update(algo.policy, algo.train_vf_iters,
+                                   algo.gamma, algo.lam, algo.with_baseline)
+    sides = {}
+    for side in ("kernel", "plain"):
+        params = copy.deepcopy(params0)
+        if side == "plain":
+            for block in params.blocks():
+                block.attn_fn = lambda q, k, v: flash_attention_plain(q, k, v, True)[0]
+        state = ReinforceState(params, *make_optimizers(params, algo.pi_lr, algo.vf_lr))
+        state, metrics = update(state, {key: torch.as_tensor(val, device=device)
+                                        for key, val in batch.items()})
+        sides[side] = (dict(state.params.named_parameters()), read_metrics(metrics))
+    (got, got_m), (want, want_m) = sides["kernel"], sides["plain"]
+    metric_err = 0.0
+    for key, value in want_m.items():
+        err = abs(got_m[key] - value)
+        if not err <= UPDATE_METRIC_TOL * max(1.0, abs(value)):
+            raise AssertionError(f"update metric {key}: kernel {got_m[key]} vs "
+                                 f"plain {value}")
+        metric_err = max(metric_err, err)
+    start = dict(params0.named_parameters())
+    diff_sum = moved_sum = 0.0
+    param_err = 0.0
+    for name, w in want.items():
+        steps = algo.train_vf_iters if name.startswith("vf") else 1
+        bound = 2 * steps * (algo.vf_lr if name.startswith("vf") else algo.pi_lr)
+        err = (got[name] - w).abs().max().item()
+        if not err <= bound:
+            raise AssertionError(f"update param {name}: kernel vs plain {err} "
+                                 f"above {bound}")
+        param_err = max(param_err, err)
+        diff_sum += (got[name] - w).abs().mean().item()
+        moved_sum += (w - start[name]).abs().mean().item()
+    share = diff_sum / moved_sum
+    if not share <= UPDATE_MEAN_DIFF_SHARE:
+        raise AssertionError(f"update params: mean |kernel - plain| is "
+                             f"{share:.4f} of the mean movement")
+    return {"metric_err": metric_err, "param_err": param_err,
+            "mean_diff_share": share}
+
+
+def learn(device, workdir: Path) -> dict:
+    """Drive the learner slice: actors serve from the learner's bundle,
+    every shipped episode goes to ``receive_trajectory``, and the host
+    swaps to each new bundle. Checks counts, versions, metrics and params.
+    Returns the launch counts, the update times, the algorithm and the
+    first epoch's batch."""
+    import numpy as np
+    import torch
+
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+    from relayrl_tpu_torch.data import EpochBuffer
+    from relayrl_tpu_torch.envs import RecallEnv, SyncVectorEnv
+    from relayrl_tpu_torch.runtime.vector_actor import (
+        VectorActorHost,
+        run_vector_gym_loop,
+    )
+    from relayrl_tpu_torch.types import deserialize_actions
+
+    from relayrl_tpu_torch.ops.flash import flash_attention
+
+    algo = build_learner(device, workdir)
+    params0 = copy.deepcopy(algo.state.params)
+    flash_attention.do_copies = 0
+    sent = []
+    host = VectorActorHost(algo.bundle(), LANES, on_send=lambda lane, p: sent.append(p),
+                           seed=SEED, device=device)
+    venv = SyncVectorEnv([lambda: RecallEnv(LEARNER_HORIZON, N_CUES)] * LANES)
+    per_update, seconds, kls, first_batch = [], [], [], None
+    for wave in range(LEARNER_WAVES):
+        sent.clear()
+        run_vector_gym_loop(host, venv, LEARNER_HORIZON, seed=SEED + wave)
+        if len(sent) != LANES:
+            raise AssertionError(f"wave {wave}: {len(sent)} episodes shipped")
+        episodes = [deserialize_actions(p) for p in sent]
+        if first_batch is None:
+            # The first epoch's batch, assembled apart for compare_update.
+            buf = EpochBuffer(algo.obs_dim, algo.act_dim, LEARNER["traj_per_epoch"],
+                              buckets=LEARNER["bucket_lengths"])
+            for records in episodes[:LEARNER["traj_per_epoch"]]:
+                buf.add_episode(records)
+            first_batch = {k: np.array(v) for k, v in buf.drain().as_dict().items()}
+        for records in episodes:
+            if len(records) != LEARNER_HORIZON + 1 or not records[-1].done:
+                raise AssertionError(f"shipped episode of {len(records)} records")
+            zero_flash_counts()
+            t0 = time.perf_counter()
+            updated = algo.receive_trajectory(records)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            counts = flash_counts()
+            if not updated:
+                if counts != (0, 0, 0):
+                    raise AssertionError(f"launches {counts} without an update")
+                continue
+            per_update.append(counts)
+            seconds.append(elapsed)
+            kls.append(read_metrics(algo._last_metrics)["KL"])
+            if not host.maybe_swap(algo.bundle()):
+                raise AssertionError(f"hot swap to version {algo.version} refused")
+    n_layers = SLICE_ARCH["n_layers"]
+    evaluates = 4 + LEARNER["train_vf_iters"]
+    expected = (n_layers * evaluates, n_layers, n_layers)
+    updates = LEARNER_WAVES * LANES // LEARNER["traj_per_epoch"]
+    if len(per_update) != updates or any(c != expected for c in per_update):
+        raise AssertionError(f"launches per update {per_update}; expected "
+                             f"{updates} x {expected}")
+    if not algo.version == host.version == updates:
+        raise AssertionError(f"versions: learner {algo.version}, host {host.version}")
+    per_wave = updates // LEARNER_WAVES
+    on_policy = kls[::per_wave]
+    if not all(abs(kl) <= ON_POLICY_KL_TOL for kl in on_policy):
+        raise AssertionError(f"KL of the first update of each wave {on_policy}: "
+                             f"learner and actors disagree on the same params")
+    metrics = read_metrics(algo._last_metrics)
+    if len(metrics) != 8 or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"metrics {metrics}")
+    if getattr(algo, "freeze_info", None) is not None:
+        raise AssertionError(f"frozen leaves {algo.freeze_info}")
+    start = dict(params0.named_parameters())
+    for name, param in algo.state.params.named_parameters():
+        if not torch.isfinite(param).all() or torch.equal(param, start[name]):
+            raise AssertionError(f"param {name} not finite or unchanged")
+    return {"algo": algo, "params0": params0, "batch": first_batch,
+            "do_copies": flash_attention.do_copies, "on_policy_kl": on_policy,
+            "per_update": per_update, "seconds": seconds, "metrics": metrics,
+            "launches": tuple(sum(c[i] for c in per_update) for i in range(3))}
 
 
 def main() -> int:
@@ -372,14 +700,22 @@ def main() -> int:
     seconds = _kernels.build()
     print(f"[build] {list(_kernels.KERNELS)} in {time.perf_counter() - t0:.2f} s "
           f"(per source: {seconds})", flush=True)
+    for name, log in _kernels.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[build] {name}: {line.strip()}")
 
     # 3. kernel vs plain
     main_flash = check_flash(device)
+    main_bwd = check_flash_bwd(device)
 
     # 4. serving slice
     arch = slice_arch()
+    zero_flash_counts()
     run = serve(device, arch, LANES, DISPATCHES)
     expected = 3 * DISPATCHES + run["validate_launches"]
+    if flash_counts()[1:] != (0, 0):
+        raise AssertionError(f"backward kernels launched while serving: {flash_counts()}")
     if run["validate_launches"] != arch["n_layers"] or run["launches"] != expected:
         raise AssertionError(
             f"flash_fwd launched {run['launches']} times over {DISPATCHES} "
@@ -400,13 +736,56 @@ def main() -> int:
         f"{k}={v:.4f}" for k, v in parts.items()), flush=True)
     profile_dispatches(run["host"])
 
+    # 5. learner slice
+    learned = learn(device, Path(__file__).resolve().parent / "build" / "chip_smoke")
+    algo, seconds = learned["algo"], learned["seconds"]
+    fwd, dq, dkv = learned["launches"]
+    print(f"[learn] {len(seconds)} updates of [{LEARNER['traj_per_epoch']}, "
+          f"{LEARNER['bucket_lengths'][0]}] fed by {LANES} port actors x "
+          f"{LEARNER_WAVES} waves: launches per update (flash_fwd, flash_dq, "
+          f"flash_dkv) {learned['per_update'][0]}, total {fwd}/{dq}/{dkv}; "
+          f"upstream-gradient copies before the backward kernels "
+          f"{learned['do_copies']}; learner and host at version "
+          f"{algo.version}", flush=True)
+    print("[learn] last metrics: " + ", ".join(
+        f"{k}={v:.6g}" for k, v in learned["metrics"].items()))
+    print(f"[learn] KL of the first update of each wave (same params as the "
+          f"actors): {learned['on_policy_kl']} (tol {ON_POLICY_KL_TOL:g})")
+    cmp = compare_update(algo, learned["params0"], learned["batch"], device)
+    print(f"[learn] first update, kernels vs plain attention: max metric diff "
+          f"{cmp['metric_err']:.3e} (tol {UPDATE_METRIC_TOL:g} x max(1, |m|)), "
+          f"max param diff {cmp['param_err']:.3e} (tol 2 x Adam step bound), "
+          f"mean param diff {cmp['mean_diff_share']:.4f} of the mean movement "
+          f"(tol {UPDATE_MEAN_DIFF_SHARE:g})", flush=True)
+    steady = seconds[1:]
+    print(f"[learn] {len(steady) / sum(steady):.3f} updates/s "
+          f"({1e3 * sum(steady) / len(steady):.2f} ms per update over updates "
+          f"2-{len(seconds)}, ingest and epoch log included; first update "
+          f"{1e3 * seconds[0]:.2f} ms) on {smi.splitlines()[0]}", flush=True)
+    batch = learned["batch"]
+    profile_device(lambda: algo.train_on_batch(batch), 1, "update")
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:116",
-        "launches": run["launches"],
+        "launches": run["launches"] + fwd,
         **main_flash,
+    }, {
+        "name": "flash_dq",
+        "route": "cuda",
+        "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "relayrl_tpu/ops/flash.py:223",
+        "launches": dq,
+        **main_bwd["flash_dq"],
+    }, {
+        "name": "flash_dkv",
+        "route": "cuda",
+        "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "relayrl_tpu/ops/flash.py:255",
+        "launches": dkv,
+        **main_bwd["flash_dkv"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

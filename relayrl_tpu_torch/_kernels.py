@@ -25,12 +25,16 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "relayrl_tpu_torch"
-KERNELS = ("flash_fwd",)
+KERNELS = ("flash_fwd", "flash_bwd")
+# -Xptxas=-v prints each kernel's registers, shared memory and spills
+# into the build log (BUILD_LOGS).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# nvcc's output of each source built by this process.
+BUILD_LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -74,6 +78,7 @@ def build(names=KERNELS) -> dict[str, float]:
     for name, (proc, tmp, out, t0) in running.items():
         log, _ = proc.communicate()
         seconds[name] = time.monotonic() - t0
+        BUILD_LOGS[name] = log
         if proc.returncode != 0:
             failures.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
         else:

@@ -1,0 +1,213 @@
+"""Shared host-side orchestration for the on-policy algorithm family.
+
+Counterpart of :mod:`relayrl_tpu.algorithms.onpolicy`: episodes stream into
+an :class:`~relayrl_tpu_torch.data.EpochBuffer`, every full epoch drains
+into one update on the device, and ``receive_trajectory -> True`` is the
+publish signal. Subclasses implement ``_setup`` (arch, policy, state and
+the ``(state, batch) -> (state, metrics)`` update) and ``_log_keys``.
+
+The update is issued synchronously (the JAX package's in-flight window is
+not ported yet): a drained batch moves to the device once, in
+:meth:`OnPolicyAlgorithm.train_on_batch`, and its metrics stay 0-d device
+tensors until :meth:`OnPolicyAlgorithm.log_epoch` reads them all in one
+transfer. So the epoch buffer needs one staging slab: by the next drain
+the update that read the last one has consumed it.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from relayrl_tpu_torch.algorithms.base import AlgorithmBase, anchor_path
+from relayrl_tpu_torch.config import ConfigLoader
+from relayrl_tpu_torch.data import EpochBuffer
+from relayrl_tpu_torch.models import resolve_device
+from relayrl_tpu_torch.types.columnar import trajectory_is_finite
+from relayrl_tpu_torch.types.model_bundle import ModelBundle
+from relayrl_tpu_torch.utils import EpochLogger, setup_logger_kwargs
+from relayrl_tpu_torch.weights import params_to_jax
+
+
+def read_metrics(metrics: Mapping[str, Any]) -> dict[str, float]:
+    """0-d device metrics -> floats, in one device-to-host transfer."""
+    if not metrics:
+        return {}
+    values = torch.stack([torch.as_tensor(v).float().reshape(())
+                          for v in metrics.values()]).tolist()
+    return dict(zip(metrics, values))
+
+
+class OnPolicyAlgorithm(AlgorithmBase):
+    """Epoch-buffer learner loop of the on-policy family.
+
+    ``device`` defaults to the GPU; without one the caller must pass
+    ``device="cpu"``. Seeds: the initial weights are drawn from a CPU
+    ``torch.Generator`` seeded by ``seed`` and ``seed_salt`` (the process
+    id unless given), as the JAX package folds the salt into its key.
+    """
+
+    ALGO_NAME = "ONPOLICY"  # subclasses override
+
+    def __init__(
+        self,
+        env_dir: str | None = None,
+        config_path: str | None = None,
+        obs_dim: int = 4,
+        act_dim: int = 2,
+        buf_size: int | None = None,
+        logger_kwargs: Mapping[str, Any] | None = None,
+        device=None,
+        **overrides,
+    ):
+        loader = ConfigLoader(self.ALGO_NAME, config_path,
+                              create_if_missing=False)
+        params = loader.get_algorithm_params()
+        params.update(overrides)
+        learner = loader.get_learner_params()
+
+        self.device = resolve_device(device)
+        self.obs_dim, self.act_dim = int(obs_dim), int(act_dim)
+        self.discrete = bool(params.get("discrete", True))
+        self.traj_per_epoch = int(params.get("traj_per_epoch", 8))
+        self.gamma = float(params.get("gamma", 0.99))
+        seed = int(params.get("seed", 1))
+        salt = int(params.get("seed_salt", os.getpid()))
+        generator = torch.Generator().manual_seed(int(
+            np.random.SeedSequence([seed, salt]).generate_state(1, np.uint64)[0]))
+
+        # Subclass: sets self.arch, self.policy, self.state, self._update.
+        self._setup(params, learner, generator)
+
+        self.buffer = EpochBuffer(
+            obs_dim=self.obs_dim,
+            act_dim=self.act_dim,
+            traj_per_epoch=self.traj_per_epoch,
+            discrete=self.discrete,
+            buckets=params.get(
+                "bucket_lengths",
+                learner.get("bucket_lengths", (64, 256, 1000))),
+            max_traj_length=loader.get_max_traj_length(),
+            staging_slots=1,
+        )
+
+        lk = dict(logger_kwargs) if logger_kwargs else setup_logger_kwargs(
+            f"relayrl-{self.ALGO_NAME.lower()}", seed,
+            data_dir=os.path.join(env_dir or ".", "logs"))
+        self.logger = EpochLogger(**lk)
+        self.logger.save_config({"algorithm": self.ALGO_NAME, **params,
+                                 "obs_dim": obs_dim, "act_dim": act_dim})
+        self.epoch = 0
+        self._last_metrics: Mapping[str, torch.Tensor] = {}
+        self.server_model_path = anchor_path(
+            loader.get_server_model_path(), env_dir)
+
+    # -- subclass contract --
+    def _setup(self, params: dict, learner: dict,
+               generator: torch.Generator) -> None:
+        raise NotImplementedError
+
+    def _resolve_freeze(self, params: dict, learner: dict,
+                        module) -> tuple[str, ...]:
+        """The ``learner.freeze`` knob (per-algorithm ``freeze`` override
+        wins): validated regex patterns over flax leaf paths. Records
+        ``self.freeze_info``, the JAX package's accounting."""
+        from relayrl_tpu_torch.algorithms.freeze import (
+            freeze_info,
+            normalize_freeze_spec,
+        )
+
+        patterns = normalize_freeze_spec(
+            params.get("freeze", learner.get("freeze")))
+        if not patterns:
+            return ()
+        self.freeze_info = freeze_info(module, patterns)
+        if self.freeze_info["frozen_leaves"] == 0:
+            import warnings
+
+            warnings.warn(
+                f"learner.freeze patterns {list(patterns)} matched no "
+                f"param leaves — check them against e.g. "
+                f"'params/block_0/qkv/kernel' style paths")
+        print(f"[{self.ALGO_NAME}] learner.freeze: "
+              f"{self.freeze_info['frozen_leaves']}/"
+              f"{self.freeze_info['total_leaves']} leaves frozen "
+              f"({self.freeze_info['frozen_bytes']} bytes) by "
+              f"{list(patterns)}", flush=True)
+        return patterns
+
+    def _log_keys(self) -> Sequence[str]:
+        return ("LossPi",)
+
+    # -- reference contract --
+    def receive_trajectory(self, actions) -> bool:
+        """Buffer one episode (a sequence of ``ActionRecord``); at a full
+        epoch, train and log. Returns True when an update ran."""
+        batch = self.accumulate(actions)
+        if batch is None:
+            return False
+        self.train_on_batch(batch)
+        self.log_epoch()
+        return True
+
+    def accumulate(self, item):
+        """Buffer one trajectory without training; returns the drained
+        epoch batch dict when the buffer fills, else None. Marker-only
+        trajectories carry no steps and are skipped; non-finite ones are
+        dropped and counted."""
+        if not item or all(a.act is None for a in item):
+            return None
+        if not trajectory_is_finite(item):
+            self._drop_nonfinite()
+            return None
+        if self.buffer.add_episode(item):
+            return self.buffer.drain().as_dict()
+        return None
+
+    def _to_device(self, host_batch: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+        """The one host-to-device move of a batch: every later use of it in
+        the update sees device tensors."""
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in host_batch.items()}
+
+    def train_on_batch(self, host_batch: Mapping[str, Any]) -> Mapping[str, torch.Tensor]:
+        """One update on an assembled batch dict; returns its metrics as
+        0-d device tensors."""
+        self.state, metrics = self._update(self.state,
+                                           self._to_device(host_batch))
+        self._last_metrics = metrics
+        return metrics
+
+    def train_model(self) -> Mapping[str, torch.Tensor]:
+        return self.train_on_batch(self.buffer.drain().as_dict())
+
+    def log_epoch(self) -> None:
+        """One row of the epoch log: the episode stats since the last row
+        and the latest update's metrics, read from the device in one
+        transfer."""
+        rets, lens = self.buffer.pop_episode_stats()
+        values = read_metrics(self._last_metrics)
+        self.epoch += 1
+        self.logger.store(EpRet=rets or [0.0], EpLen=lens or [0])
+        self.logger.log_tabular("Epoch", self.epoch)
+        self.logger.log_tabular("EpRet", with_min_and_max=True)
+        self.logger.log_tabular("EpLen", average_only=True)
+        for key in self._log_keys():
+            self.logger.log_tabular(key, values.get(key, 0.0))
+        self.logger.dump_tabular()
+
+    def save(self, path=None) -> None:
+        self.bundle().save(path or self.server_model_path)
+
+    def bundle(self) -> ModelBundle:
+        """The current policy for actors: params as the flax tree of numpy
+        arrays, so port and JAX actors both load it."""
+        return ModelBundle(version=self.version, arch=self.arch,
+                           params=params_to_jax(self.state.params))
+
+    @property
+    def version(self) -> int:
+        return int(self.state.step)

@@ -1,0 +1,691 @@
+"""Embedded default configuration.
+
+A copy of :mod:`relayrl_tpu.config.default_config`: the same schema and
+defaults, so one config file drives both packages. Sections name the JAX
+package's subsystems; the port reads the ones it has ported.
+
+Schema parity with the reference's embedded default
+(reference: relayrl_framework/src/default_config.json and the
+DEFAULT_CONFIG_CONTENT string in src/sys_utils/config_loader.rs:66-113):
+per-algorithm hyperparams, three endpoint addresses, model paths, tensorboard
+settings, max trajectory length. TPU-native additions live under "learner"
+(mesh/batching knobs absent from the reference, which has no device story).
+
+Model artifacts are `.rlx` ModelBundles (params + arch + version), not
+TorchScript `.pt`.
+"""
+
+from __future__ import annotations
+
+import copy
+
+DEFAULT_CONFIG: dict = {
+    "algorithms": {
+        "REINFORCE": {
+            "discrete": True,
+            "with_vf_baseline": False,
+            "seed": 1,
+            "traj_per_epoch": 8,
+            "gamma": 0.98,
+            "lam": 0.97,
+            "pi_lr": 3e-4,
+            "vf_lr": 1e-3,
+            "train_vf_iters": 80,
+            "hidden_sizes": [128, 128],
+        },
+        "PPO": {
+            "discrete": True,
+            "seed": 1,
+            "traj_per_epoch": 8,
+            "gamma": 0.99,
+            "lam": 0.95,
+            "clip_ratio": 0.2,
+            "pi_lr": 3e-4,
+            "vf_lr": 1e-3,
+            "train_iters": 4,
+            "minibatch_count": 4,
+            "ent_coef": 0.0,
+            "vf_coef": 0.5,
+            "target_kl": 0.015,
+            "hidden_sizes": [128, 128],
+        },
+        "DQN": {
+            "discrete": True,
+            "seed": 1,
+            "gamma": 0.99,
+            "lr": 1e-3,
+            "batch_size": 256,
+            "buffer_size": 100_000,
+            "update_after": 1000,
+            "updates_per_step": 1.0,
+            "updates_per_dispatch": 1,
+            "polyak": 0.995,
+            "double_q": True,
+            "epsilon_start": 1.0,
+            "epsilon_end": 0.05,
+            "epsilon_decay_steps": 10_000,
+            "traj_per_epoch": 8,
+            "hidden_sizes": [128, 128],
+        },
+        "C51": {
+            "discrete": True,
+            "seed": 1,
+            "gamma": 0.99,
+            "lr": 1e-3,
+            "batch_size": 256,
+            "buffer_size": 100_000,
+            "update_after": 1000,
+            "updates_per_step": 1.0,
+            "updates_per_dispatch": 1,
+            "polyak": 0.995,
+            "n_atoms": 51,
+            "v_min": -10.0,
+            "v_max": 10.0,
+            "epsilon_start": 1.0,
+            "epsilon_end": 0.05,
+            "epsilon_decay_steps": 10_000,
+            "traj_per_epoch": 8,
+            "hidden_sizes": [128, 128],
+        },
+        "DDPG": {
+            "discrete": False,
+            "seed": 1,
+            "gamma": 0.99,
+            "pi_lr": 1e-3,
+            "q_lr": 1e-3,
+            "batch_size": 256,
+            "buffer_size": 100_000,
+            "update_after": 1000,
+            "updates_per_step": 1.0,
+            "updates_per_dispatch": 1,
+            "polyak": 0.995,
+            "act_limit": 1.0,
+            "act_noise": 0.1,
+            "traj_per_epoch": 8,
+            "hidden_sizes": [128, 128],
+        },
+        "TD3": {
+            "discrete": False,
+            "seed": 1,
+            "gamma": 0.99,
+            "pi_lr": 1e-3,
+            "q_lr": 1e-3,
+            "batch_size": 256,
+            "buffer_size": 100_000,
+            "update_after": 1000,
+            "updates_per_step": 1.0,
+            "updates_per_dispatch": 1,
+            "polyak": 0.995,
+            "act_limit": 1.0,
+            "act_noise": 0.1,
+            "target_noise": 0.2,
+            "noise_clip": 0.5,
+            "policy_delay": 2,
+            "traj_per_epoch": 8,
+            "hidden_sizes": [128, 128],
+        },
+        "IMPALA": {
+            "discrete": True,
+            "seed": 1,
+            "traj_per_epoch": 16,
+            "gamma": 0.99,
+            "lr": 3e-4,
+            "vf_coef": 0.5,
+            "ent_coef": 0.01,
+            "rho_bar": 1.0,
+            "c_bar": 1.0,
+            "max_grad_norm": 40.0,
+            "hidden_sizes": [128, 128],
+        },
+        "SAC": {
+            "discrete": False,
+            "seed": 1,
+            "gamma": 0.99,
+            "pi_lr": 3e-4,
+            "q_lr": 3e-4,
+            "alpha_lr": 3e-4,
+            "alpha": 0.2,
+            "batch_size": 256,
+            "buffer_size": 100_000,
+            "update_after": 1000,
+            "updates_per_step": 1.0,
+            "updates_per_dispatch": 1,
+            "polyak": 0.995,
+            "act_limit": 1.0,
+            "traj_per_epoch": 8,
+            "hidden_sizes": [128, 128],
+        },
+    },
+    "grpc_idle_timeout_s": 30.0,
+    "max_traj_length": 1000,
+    # -- actor plane (docs/architecture.md "actor topology") --
+    "actor": {
+        # Environment lanes per actor process. 1 = the reference's
+        # one-env-per-process shape; >1 turns the process into a vector
+        # actor host: one batched jitted policy step serves num_envs
+        # logical agents over a single transport connection
+        # (runtime/vector_actor.py). The north-star "64 actors" row runs
+        # as e.g. 4 processes x 16 lanes instead of 64 processes.
+        "num_envs": 1,
+        # "process" = one Agent per env (reference parity);
+        # "vector" = VectorAgent host stepping num_envs lanes;
+        # "anakin" = fused on-device rollout (runtime/anakin.py): the env
+        # itself runs as pure JAX (actor.jax_env) and one
+        # jit(vmap(lax.scan)) dispatch produces num_envs x unroll_length
+        # env steps — the fastest tier, for envs in the JAX registry;
+        # "remote" = thin client (runtime/inference.py
+        # RemoteActorClient): no local params or model subscription —
+        # actions come from the serving plane (serving.enabled on the
+        # training server), the "millions of users" topology.
+        # examples/train_distributed.py reads it to pick the actor
+        # topology (--num-envs overrides); benches/bench_soak.py's
+        # --vector/--anakin flags are the bench-plane equivalents.
+        "host_mode": "process",
+        # -- anakin tier (actor.host_mode: "anakin") --
+        # Env steps per lane per fused dispatch: each dispatch returns a
+        # [num_envs, unroll_length] trajectory window. Bigger amortizes
+        # the dispatch further but widens the model-staleness window (a
+        # hot-swap lands between windows, never inside one) and the
+        # host-side unstack burst. 32 is past the knee of the committed
+        # scaling curve (benches/results/anakin_rollout.json).
+        "unroll_length": 32,
+        # On-device env id for the anakin tier, resolved through the JAX
+        # env registry (envs/jax/__init__.py; see envs.list_envs()).
+        "jax_env": "CartPole-v1",
+        # Rolling observation-window rows for sequence policies
+        # (windowed transformers), shared by every tier that serves
+        # them: the vector host's stacked per-lane windows, the serving
+        # plane's session windows, and the anakin scan carry. null (the
+        # default) uses the model's full serving context
+        # (min(actor_context, max_seq_len)); an explicit value narrows
+        # it — it is clamped to [1, model context], never widened.
+        # Narrower windows cut the fused step's attention cost
+        # (O(W^2 d) per step) at the price of shorter memory.
+        "window_size": None,
+        # Anakin host shave (ROADMAP item 1): move the frame
+        # encode/unstack + send onto a dedicated emitter thread so it
+        # overlaps the next window's device dispatch (bounded depth-2
+        # hand-off — a slow wire backpressures the rollout loop).
+        # Worth it when host_share_of_wall is high and a spare core
+        # exists; single-core hosts should leave it off. False is the
+        # MEASURED default: the committed A/B
+        # (benches/results/anakin_rollout.json,
+        # speedup_async_emit_vs_sync) shows 0.89-1.18x (median ~0.97)
+        # on the soak host — the hand-off overhead eats the overlap
+        # when rollout and emitter share a core.
+        "async_emit": False,
+        # Coalesce up to this many completed columnar segments (per
+        # logical lane, per rollout window) into ONE transport send —
+        # the ROADMAP item 5 host-emit shave: short-episode envs can
+        # complete many segments per window, and each send pays the
+        # envelope + spool + socket path. 1 keeps the one-frame-per-send
+        # behavior; relays batch-forward the same container upstream
+        # (relay.batch_max), so the framing helper is shared. 1 is the
+        # MEASURED default: the committed A/B (anakin_rollout.json,
+        # speedup_emit_coalesce_vs_single) is neutral at 0.87-1.13x
+        # (median ~0.99) on CartPole-length episodes — raise it only
+        # when episodes are much shorter than unroll_length AND the
+        # per-send envelope cost shows up in host_share_of_wall.
+        "emit_coalesce_frames": 1,
+        # Trajectory wire form. "auto" (the default) picks per tier:
+        # anakin hosts ship whole rollout segments as contiguous columnar
+        # frames (types/columnar.py — decoded server-side straight into
+        # the staging slabs, no per-step objects or per-record msgpack
+        # on either end); process/vector hosts keep the per-record
+        # ActionRecord wire (their steps are host-bound anyway). true /
+        # false force the form on anakin hosts (false = rolling compat
+        # with pre-columnar servers).
+        "columnar_wire": "auto",
+        # -- trajectory spool (runtime/spool.py, crash-recovery plane) --
+        # Outbound trajectories are retained in a bounded window and
+        # replayed on reconnect; the server's sequence-number dedup makes
+        # the replay exactly-once. spool_entries=0 disables the spool
+        # entirely (sends go straight to the transport, untagged — the
+        # pre-recovery wire shape).
+        "spool_entries": 512,
+        "spool_bytes": 67108864,  # 64 MiB retained-payload bound
+        # Directory for the file-backed spool (survives an actor process
+        # crash — the restarted actor replays what the dead one had in
+        # flight). null = in-memory only.
+        "spool_dir": None,
+    },
+    # -- transport plane (docs/operations.md knob table) --
+    "transport": {
+        # Native-transport liveness cadence: the agent pings the control
+        # channel every heartbeat_s from its SUB thread (detects a dead
+        # server and heals the connection C++-side; the server's idle
+        # reaper keys off the same traffic). Was a hard-coded 5.0 in
+        # native_bindings.start_model_listener. <= 0 disables the beat.
+        "heartbeat_s": 5.0,
+        # -- model-wire v2 (transport/modelwire.py, docs/architecture.md
+        #    "model distribution") --
+        # 2 = delta-compressed per-leaf publish frames with periodic
+        # keyframes; 1 = the legacy full-ModelBundle blob every publish
+        # (the rolling-compat escape hatch — v2 actors still decode it).
+        "wire_version": 2,
+        # Every Nth publish is a full keyframe; it bounds how long a
+        # broadcast subscriber that missed a delta (drop, late join)
+        # stays stale before resyncing. <= 1 makes every frame a
+        # keyframe (== v1 bytes, framed).
+        "keyframe_interval": 10,
+        # Per-frame payload codec: "auto" walks zstd > lz4 > zlib
+        # (stdlib; Z_RLE strategy for delta planes), a codec name pins
+        # it, false/"none" ships raw. Incompressible payloads are
+        # skipped automatically; the codec id rides the frame header.
+        "compress": "auto",
+        # Models whose raw params are smaller than this ship as v1
+        # passthrough instead of delta frames (at two-packet sizes the
+        # encode work only costs publish→swap latency — the measured
+        # policy). null = the encoder's built-in 256 KiB. Scenarios that
+        # must measure delta-plane accounting (frozen-leaf savings) on a
+        # small model set 0 to force the delta path.
+        "small_model_bytes": None,
+        # Split broadcast frames larger than this many bytes into
+        # ordered chunk frames (ZMQ HWM-friendly bounded messages; the
+        # native plane passes them through opaquely and Python listeners
+        # reassemble). 0 disables chunking.
+        "chunk_bytes": 0,
+        # Broadcast-plane resync requests (CMD_RESYNC): a diverged
+        # subscriber asks the publisher to make its NEXT publish a
+        # keyframe (blackout <= 1 publish instead of <= the interval).
+        # Requests inside this window of an already-granted force
+        # coalesce away — one subtree-wide divergence storm costs one
+        # keyframe.
+        "resync_min_interval_s": 0.25,
+        # -- unified retry/backoff (transport/retry.py) --
+        # One policy drives every bounded retry loop on the agent side
+        # (handshake, connect, spooled sends): jittered exponential
+        # backoff base*multiplier^k capped at max_delay_s, bounded by
+        # deadline_s per op (max_attempts=0 = deadline-only). The breaker
+        # knobs bound how fast a dead learner trips send paths into
+        # spool-only mode and how often a half-open probe retests it.
+        "retry": {
+            "base_delay_s": 0.05,
+            "max_delay_s": 2.0,
+            "multiplier": 2.0,
+            "jitter": 0.5,
+            "deadline_s": 30.0,
+            "max_attempts": 0,
+            "breaker_threshold": 3,
+            "breaker_reset_s": 2.0,
+        },
+    },
+    # -- training-health guardrails (relayrl_tpu/guardrails/,
+    #    docs/operations.md "Training-health guardrails") --
+    "guardrails": {
+        # false = no guardrail object is built at all: ingest validation,
+        # quarantine, watchdog, rollback, and backpressure all disappear
+        # and every hook site costs one identity check (the telemetry/
+        # faults process-model precedent).
+        "enabled": True,
+        # Ingest validation posture: "enforce" rejects invalid
+        # trajectories before they touch the staging slabs; "warn"
+        # counts + strikes but ADMITS them (observe-only — the
+        # defense-in-depth drill posture; also stands the per-algorithm
+        # finite guard down); "off" skips validation entirely.
+        "ingest_validation": "enforce",
+        # Per-trajectory length bound for the validator; null derives
+        # from max_traj_length.
+        "max_steps": None,
+        # -- poison-agent quarantine --
+        # Strikes (validation rejections) within strike_window_s before
+        # an agent is quarantined; quarantined sends are rejected (typed
+        # nack on ack-capable transports) until the cooldown paroles it.
+        "strike_threshold": 3,
+        "strike_window_s": 60.0,
+        "quarantine_cooldown_s": 300.0,
+        # -- divergence watchdog --
+        "watchdog": True,
+        # Device-side probes merged into each update's metrics (resolved
+        # lazily at the in-flight fence; observers — bit-identical
+        # params on vs off). update_norm_probe adds a pre-update D2D
+        # params copy to compute ||new - old|| (the grad-norm proxy).
+        "probes": True,
+        "update_norm_probe": True,
+        # Trip thresholds; 0/null disables that detector. param-norm
+        # and update-norm are global L2 over float leaves.
+        "max_param_norm": 1000000.0,
+        "max_update_norm": 0,
+        # Loss spike: |loss| beyond factor x rolling-median(loss_window)
+        # trips; loss_key "auto" picks LossPi/LossQ/Loss. 0 = off
+        # (non-finite loss always trips while the watchdog is on).
+        "loss_spike_factor": 0,
+        "loss_window": 16,
+        "loss_key": "auto",
+        # Reward collapse: rolling mean (reward_window trajectories)
+        # dropping more than this many reward units below its best trips
+        # the watchdog. Workload-specific — 0 = off by default.
+        "reward_collapse_drop": 0,
+        "reward_window": 32,
+        # -- last-known-good auto-rollback --
+        "rollback": True,
+        # Retained checkpoints (the ring the rollback searches for the
+        # newest healthy-tagged step); raises the effective orbax
+        # max_to_keep to at least this.
+        "checkpoint_ring": 5,
+        # Rollbacks allowed within rollback_window_s before guardrails
+        # degrade to halt-and-alarm (training stops, process survives).
+        "max_rollbacks": 3,
+        "rollback_window_s": 600.0,
+        # -- ingest backpressure --
+        # Soft admission bound on the raw ingest queue (the 100k hard
+        # cap is the OOM guard, not a policy). 0 disables backpressure.
+        "ingest_soft_limit": 8192,
+        # "drop_oldest" evicts the globally oldest queued trajectory
+        # (freshest-wins; the victim's seq is retracted so spool replay
+        # can redeliver) | "nack" refuses the arrival with a typed
+        # retry-after where the transport can answer.
+        "shed_policy": "drop_oldest",
+        # One agent may hold at most this fraction of the soft limit;
+        # beyond it the agent sheds its OWN arrivals (flood fairness).
+        "agent_share": 0.5,
+        "nack_retry_after_s": 1.0,
+    },
+    # -- disaggregated batched-inference serving plane
+    #    (runtime/inference.py, docs/architecture.md "serving tier") --
+    "serving": {
+        # false = no InferenceService is built: the training server
+        # serves no action plane and thin clients cannot connect.
+        "enabled": False,
+        # Batch close triggers (TorchBeast's dynamic-batching server):
+        # a batch closes at max_batch requests OR batch_timeout_ms after
+        # its first request enqueued, whichever fires first. Bigger
+        # batches amortize the dispatch; the timeout bounds worst-case
+        # action latency (see docs/operations.md sizing note).
+        "max_batch": 16,
+        "batch_timeout_ms": 5.0,
+        # Compiled batch shapes (pick_bucket): null derives powers of
+        # two up to max_batch. Short batches pad to the nearest bucket
+        # (pad rows are sliced off; vmap rows are independent).
+        "buckets": None,
+        # Requests allowed to wait in the batching queue; beyond it new
+        # arrivals nack NACK_OVERLOADED with retry_after_s — bounded
+        # queue = bounded worst-case latency, and an inference flood
+        # cannot starve the learner's ingest plane.
+        "queue_limit": 1024,
+        "retry_after_s": 0.05,
+        # Ghost-work guard: a queued request older than this was
+        # abandoned by its timed-out client (whose retry is already
+        # queued behind it) — it is nacked unserved at batch-gather
+        # time instead of double-serving every retry round under
+        # backlog. Keep it above request_timeout_s. 0 disables.
+        "stale_after_s": 5.0,
+        # Thin-client budgets: per-attempt wire timeout, and the total
+        # per-action budget (covers a service restart window before the
+        # env loop gives up).
+        "request_timeout_s": 2.0,
+        "infer_deadline_s": 60.0,
+        # -- serving v2: sessions / streaming / replicas --
+        # Server-side session table (sequence policies): one rolling
+        # observation window per client session, LRU-evicted past
+        # max_sessions and reaped after session_ttl_s idle. Eviction is
+        # a resync, not a failure — the client answers the typed
+        # NACK_SESSION_EVICTED by resending its episode window. Size it
+        # to the concurrent-client count; each session costs
+        # ctx * obs_dim float32s.
+        "max_sessions": 4096,
+        "session_ttl_s": 600.0,
+        # Streamed channel: in-flight requests per client connection
+        # before the multiplexing client stops submitting and drains —
+        # bounds client-side memory and keeps a dead service from
+        # swallowing an unbounded pipeline.
+        "stream_window": 32,
+        # Horizontal serving: list of replica serving endpoints (e.g.
+        # ["tcp://hostA:6671", "tcp://hostB:6671"]). null = single
+        # endpoint (server.inference_server). Clients route
+        # session-affine by crc32(session_id) % len(replicas) and
+        # rotate + resync on replica death.
+        "replicas": None,
+    },
+    # -- hierarchical relay tree (relayrl_tpu/relay/,
+    #    docs/architecture.md "relay tree") --
+    "relay": {
+        # false = this process is not a relay. A relay stands between
+        # the training server (or a parent relay) and an actor subtree:
+        # it subscribes ONCE upstream and re-broadcasts verbatim model
+        # frames to its own fan-out plane (publisher cost becomes
+        # O(relays), not O(actors)), and batch-forwards the subtree's
+        # trajectory envelopes upstream over one connection with its
+        # own spool (a relay crash is the learner-crash drill one level up).
+        # Start one with `python -m relayrl_tpu.relay`.
+        "enabled": False,
+        # Operator-visible relay name (telemetry run id, logs); null
+        # derives one from pid.
+        "name": None,
+        # Upstream (parent) endpoint: the transport kind plus the same
+        # agent-side address overrides an actor would use to reach the
+        # parent (zmq: agent_listener_addr/trajectory_addr/
+        # model_sub_addr; grpc/native: server_addr). Empty = the
+        # config's server.* endpoints — i.e. the root training server.
+        "upstream_type": "zmq",
+        "upstream": {},
+        # Downstream (fan-out) plane this relay BINDS for its subtree.
+        # Actors point their normal transport config at these addresses
+        # — a relay is indistinguishable from a training server on the
+        # wire. fanout_port > 0 binds the zmq triple at three
+        # consecutive ports (listener, trajectory, model pub); the
+        # "downstream" dict overrides individual addresses instead.
+        "downstream_type": "zmq",
+        "fanout_port": 0,
+        "downstream": {},
+        # Serve subtree resyncs and late joiners from the relay's cached
+        # keyframe (false = forward every resync upstream — only useful
+        # for measuring what the cache saves).
+        "keyframe_cache": True,
+        # Batch-forward: coalesce up to batch_max subtree envelopes
+        # (waiting at most batch_linger_ms for siblings) into one
+        # upstream send. 1 forwards each envelope individually.
+        "batch_max": 8,
+        "batch_linger_ms": 5.0,
+        # The relay's own trajectory spool (runtime/spool.py), retained
+        # at BATCH granularity with leaf seq tags carried verbatim:
+        # size it >= the subtree's in-flight window (docs/operations.md
+        # sizing rule). spool_dir makes it survive a relay crash.
+        "spool_entries": 2048,
+        "spool_bytes": 134217728,  # 128 MiB
+        "spool_dir": None,
+        # Rate limit for serving cached-keyframe resyncs downstream
+        # (one re-broadcast per window, shared by the whole subtree).
+        "resync_min_interval_s": 0.25,
+    },
+    # -- RLHF workload plane (relayrl_tpu/rlhf/, docs/operations.md
+    #    "RLHF workload plane") --
+    "rlhf": {
+        # Token-level generation env knobs (envs/tokengen.py + the pure-
+        # JAX twin): vocabulary INCLUDING the reserved EOS/pad token 0,
+        # sampled-prompt length, and the generation budget per episode.
+        "vocab_size": 8,
+        "prompt_len": 3,
+        "max_new_tokens": 8,
+        # Terminal-boundary scorer: "programmatic" (all-integer
+        # successor-pattern count — the CI scorer) or "reward_model"
+        # (frozen randomly-initialized transformer critic holding its
+        # OWN params — rlhf/scorers.py; rm_* size it, rm_seed fixes it
+        # so the score stage and any self-contained env agree).
+        "scorer": "programmatic",
+        "rm_d_model": 32,
+        "rm_n_layers": 1,
+        "rm_seed": 7,
+        # Generation lanes per scheduler (the vector host's batched
+        # step_window width for sequence policies).
+        "lanes": 4,
+        # "vector" = local batched generation (sequence policies: the
+        # vmapped step_window path); "anakin" = fused on-device
+        # generation (runtime/anakin.py): TokenGen-v0 runs inside the
+        # lax.scan with the rolling-window carry, so generate throughput
+        # is fused tokens/s instead of per-step round-trips — per-token
+        # logp_a/bver evidence still rides each record and episodes
+        # still withhold/score/re-inject through the interceptor seam;
+        # "remote" = thin clients against the serving plane
+        # (serving.enabled on the training server) — sequence policies
+        # serve through the per-session window table; keep
+        # serving.max_sessions at or above the lane count.
+        "generation_tier": "vector",
+        # Fused-tier scan length: env steps (= tokens) per lane per
+        # rollout dispatch when generation_tier is "anakin". One
+        # dispatch emits `lanes x generation_unroll` tokens under ONE
+        # behavior version, so this is the burst size the pacing loop
+        # and the learner's queue see — a whole actor.unroll_length
+        # window (32) at short TokenGen episodes is ~50-100 episodes
+        # per burst, which blows straight through
+        # max_episodes_per_version inside a single dispatch and trains
+        # the learner on 100+-version-stale data. Keep it near
+        # max_new_tokens (about one episode per lane per dispatch);
+        # raise it only if dispatch overhead dominates generate time.
+        "generation_unroll": 8,
+        # Bounded-staleness pacing: once this many episodes have been
+        # scored under ONE behavior version, generation pauses until a
+        # newer model swap lands (or pace_timeout_s passes — a dead
+        # learner must not wedge the scheduler; the episodes still ship
+        # and V-trace corrects what lag remains). Unthrottled generation
+        # on a fast actor host can outrun the learner by 10-30x, burning
+        # episodes against a stale policy; the clipped-rho correction
+        # tolerates lag, it does not make free throughput of it. 0
+        # disables pacing.
+        "max_episodes_per_version": 64,
+        "pace_timeout_s": 5.0,
+        # Score stage: completed generations per batched scorer dispatch
+        # (padded to this size so the jitted vmap compiles once), and
+        # the bound on episodes parked between generate and score
+        # (backpressure: generation blocks rather than grow unbounded).
+        "score_batch": 8,
+        "score_queue": 256,
+    },
+    # -- observability (relayrl_tpu/telemetry/, docs/observability.md) --
+    "telemetry": {
+        # false = the process-global registry stays a NullRegistry: every
+        # instrumentation site holds a no-op metric and the hot-path cost
+        # is a single attribute call (benches/bench_telemetry.py).
+        "enabled": False,
+        # Exporter port for /metrics (Prometheus text) + /snapshot
+        # (JSON), served by the training-server process; 0 binds an
+        # ephemeral port (logged at startup).
+        "port": 9100,
+        "host": "127.0.0.1",
+        # NDJSON run-event journal (model publish/swap, agent register/
+        # unregister/reconnect, drop, checkpoint, drain). null disables.
+        "events_path": None,
+        # Size bound for the journal: past this many bytes the file
+        # rotates once to `<events_path>.1` (torn-tail-tolerant across
+        # the boundary; read_events stitches both generations), so
+        # multi-hour soaks and the trace-span NDJSON export can't grow
+        # it unbounded. 0 = no rotation.
+        "events_max_bytes": 0,
+        # Run identity stamped on every snapshot and journal line; null
+        # derives one from pid + start time.
+        "run_id": None,
+        # Distributed tracing (telemetry/trace.py): the fraction of
+        # trajectories/versions that draw a trace context (0 = the null
+        # tracer, every span site a single attribute check; 1 = trace
+        # everything — drills and tests). Sampled trajectory contexts
+        # ride the envelope id beside the #s seq tag; model versions
+        # sample by a deterministic hash so every process agrees.
+        "trace_sample_rate": 0.0,
+        # Flight-recorder capacity (spans, oldest evicted) behind the
+        # /traces endpoint and the Chrome-trace dump.
+        "trace_ring": 4096,
+        # Fleet aggregation (telemetry/aggregate.py): every process's
+        # registry ships a compact snapshot frame through its agent
+        # transport (beside trajectories, no new socket) at this
+        # cadence; relays merge their subtree's frames so root ingest
+        # is O(relays); the root training server holds the fleet table
+        # behind /fleet + /fleet/metrics and evaluates the SLO alert
+        # rules each interval. 0 (the default) disables the plane —
+        # the trace_sample_rate opt-in convention.
+        "fleet_interval_s": 0.0,
+        # A proc silent this long leaves the fleet table (its counters
+        # leave the merged totals with it — eviction, not restart).
+        "fleet_stale_s": 15.0,
+        # SLO alert rules evaluated at the root over the MERGED fleet
+        # snapshot: a list of {name, metric, agg, op, threshold, for_s,
+        # labels} objects (docs/observability.md "Fleet aggregation"
+        # has the syntax). null = just the default pack below.
+        "alerts": None,
+        # false drops the stock rule pack (drops / breaker open /
+        # guardrail halt / non-finite publish blocked / ingest queue
+        # depth / trace data-age p95) and runs only telemetry.alerts.
+        "alerts_default_pack": True,
+    },
+    "model_paths": {
+        "client_model": "client_model.rlx",
+        "server_model": "server_model.rlx",
+    },
+    "server": {
+        "training_server": {"prefix": "tcp://", "host": "127.0.0.1", "port": "50051"},
+        "trajectory_server": {"prefix": "tcp://", "host": "127.0.0.1", "port": "7776"},
+        "agent_listener": {"prefix": "tcp://", "host": "127.0.0.1", "port": "7777"},
+        # Serving-plane action channel (zmq ROUTER/DEALER; also the
+        # native fleets' passthrough plane — grpc fleets ride the
+        # in-band GetActions RPC on training_server instead).
+        "inference_server": {"prefix": "tcp://", "host": "127.0.0.1", "port": "7778"},
+    },
+    "training_tensorboard": {
+        "launch_tb_on_startup": False,
+        "scalar_tags": "AverageEpRet;LossPi",
+        "global_step_tag": "Epoch",
+    },
+    "learner": {
+        "bucket_lengths": [64, 256, 1000],
+        # Frozen-layer optimizer mask (the RLHF fine-tune recipe,
+        # algorithms/freeze.py): a regex — or list of regexes — matched
+        # against "/"-joined param leaf paths (e.g.
+        # "params/(obs_embed|pos_embed|block_[01])/"); matching leaves
+        # go to optax.set_to_zero via multi_transform, so they never
+        # move, stay bit-identical across updates, and cost zero bytes
+        # on the wire-v2 delta plane (counted in publish_bytes_saved).
+        # Validated at config load; recorded in every checkpoint's
+        # extras and enforced equal on resume. null disables.
+        "freeze": None,
+        "mesh": {"dp": -1, "fsdp": 1, "ep": 1, "tp": 1, "sp": 1, "pp": 1},
+        # compute dtype for policy trunks: float32 on CPU actors/tests;
+        # set "bfloat16" on TPU learners to feed the MXU (bench configs do).
+        "precision": "float32",
+        "checkpoint_dir": "checkpoints",
+        "checkpoint_every_epochs": 10,
+        # Replay-buffer snapshot cadence (off-policy): the ring copy is a
+        # synchronous host memcpy on the learner thread, ~buffer_size ×
+        # transition_bytes per save — raise this for big buffers so only
+        # every Nth periodic checkpoint carries experience.
+        "checkpoint_aux_every": 1,
+        # -- pipelined learner hot path (docs/architecture.md) --
+        # Dispatched-but-unfenced updates the learner thread may run
+        # ahead of the device; 0 restores the synchronous fence-every-
+        # update behavior (and shrinks the staging-slab ring to 1).
+        "max_inflight_updates": 2,
+        # Model publish (params gather + serialize + socket + artifact
+        # write) on a dedicated latest-wins thread; false publishes
+        # synchronously on the learner thread.
+        "async_publish": True,
+        # jax.device_put assembled batches at dispatch time so the H2D
+        # copy overlaps in-flight device compute.
+        "device_prefetch": True,
+        # Ingest decode workers feeding the learner thread (the native
+        # decoder drops the GIL, so extra workers scale on real cores).
+        "ingest_staging_threads": 1,
+        # Idempotent-ingest dedup window (runtime/spool.SequenceLedger):
+        # per-agent out-of-order tolerance for sequence-tagged
+        # trajectories; replays beyond max_seq - window drop as
+        # duplicates. 0 disables dedup (every tagged send trains).
+        "ingest_dedup_window": 4096,
+        # multi-host learner bring-up (jax.distributed); single-process when
+        # coordinator is null. Env overrides: RELAYRL_COORDINATOR,
+        # RELAYRL_NUM_PROCESSES. The per-host rank is deliberately NOT a
+        # config key (configs are shared between hosts): set
+        # RELAYRL_PROCESS_ID per host or pass process_id= explicitly.
+        "distributed": {
+            "coordinator": None,
+            "num_processes": 1,
+        },
+    },
+}
+
+# Algorithm whitelist, matching the reference's registry
+# (config_loader.rs:397-433 lists C51/DDPG/DQN/PPO/REINFORCE/SAC/TD3 even
+# though only REINFORCE is implemented there).
+SUPPORTED_ALGORITHMS = (
+    "C51", "DDPG", "DQN", "IMPALA", "PPO", "REINFORCE", "SAC", "TD3",
+)
+
+
+def default_config() -> dict:
+    return copy.deepcopy(DEFAULT_CONFIG)

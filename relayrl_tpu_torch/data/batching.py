@@ -1,0 +1,318 @@
+"""Variable-length trajectories → fixed-shape padded/masked batches.
+
+A copy of :mod:`relayrl_tpu.data.batching` without ``pad_decoded``, the
+columnar-decode path, which comes with the port's ``types/columnar.py``.
+Batches stay host (numpy) arrays; the learner moves each one to the
+device once.
+
+The reference pickles arbitrary-length ``Vec<RelayRLAction>`` and loops over
+actions in Python (reference: relayrl_framework/src/native/python/algorithms/
+REINFORCE/REINFORCE.py:70-95 unpacks one action at a time into the buffer).
+Under XLA every distinct shape is a recompilation, so here trajectories are
+padded to **bucketed** lengths with a validity mask and stacked into
+``[B, T, ...]`` batches — the learner compiles once per bucket, not once per
+episode length (SURVEY.md §7.4 item 3).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+
+from relayrl_tpu_torch.types.action import ActionRecord
+
+
+@dataclasses.dataclass
+class PaddedTrajectory:
+    """One episode padded to ``T`` with host (numpy) arrays."""
+
+    obs: np.ndarray        # [T, obs_dim] f32
+    act: np.ndarray        # [T] i32 (discrete) or [T, act_dim] f32
+    act_mask: np.ndarray   # [T, act_dim] f32
+    rew: np.ndarray        # [T] f32
+    val: np.ndarray        # [T] f32 — critic value stored at sample time
+    logp: np.ndarray       # [T] f32 — behavior log-prob stored at sample time
+    valid: np.ndarray      # [T] f32
+    length: int
+    terminated: bool       # final action had done=True
+    last_val: float        # bootstrap value for truncated episodes
+
+
+@dataclasses.dataclass
+class TrajectoryBatch:
+    """Stacked episodes ``[B, T, ...]`` — the learner-step input."""
+
+    obs: np.ndarray        # [B, T, obs_dim]
+    act: np.ndarray        # [B, T] or [B, T, act_dim]
+    act_mask: np.ndarray   # [B, T, act_dim]
+    rew: np.ndarray        # [B, T]
+    val: np.ndarray        # [B, T]
+    logp: np.ndarray       # [B, T]
+    valid: np.ndarray      # [B, T]
+    last_val: np.ndarray   # [B]
+
+    @property
+    def batch_size(self) -> int:
+        return self.obs.shape[0]
+
+    @property
+    def horizon(self) -> int:
+        return self.obs.shape[1]
+
+    def as_dict(self) -> dict[str, np.ndarray]:
+        # Shallow on purpose: dataclasses.asdict would deep-copy every
+        # array, silently undoing the staging-slab zero-alloc path (the
+        # batch must stay a VIEW of the persistent buffers all the way
+        # to device placement). Consumers only read.
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+
+    @classmethod
+    def zeros(cls, batch_size: int, horizon: int, obs_dim: int, act_dim: int,
+              discrete: bool = True) -> dict[str, np.ndarray]:
+        """Zero batch dict with this schema's exact keys/dtypes/shapes —
+        the single owner used by the multi-host broadcast protocol, where
+        non-coordinator processes must hold a pytree-identical template
+        before ``broadcast_one_to_all`` fills it."""
+        b, t = int(batch_size), int(horizon)
+        act = (np.zeros((b, t), np.int32) if discrete
+               else np.zeros((b, t, act_dim), np.float32))
+        return {
+            "obs": np.zeros((b, t, obs_dim), np.float32),
+            "act": act,
+            "act_mask": np.zeros((b, t, act_dim), np.float32),
+            "rew": np.zeros((b, t), np.float32),
+            "val": np.zeros((b, t), np.float32),
+            "logp": np.zeros((b, t), np.float32),
+            "valid": np.zeros((b, t), np.float32),
+            "last_val": np.zeros((b,), np.float32),
+        }
+
+
+def fold_trailing_markers(
+    actions: Sequence[ActionRecord],
+) -> tuple[list[ActionRecord], np.ndarray | None, bool, np.ndarray | None]:
+    """Fold ``flag_last_action`` markers (act-less records) into the last
+    real step.
+
+    The marker's reward is added to the preceding step and its done /
+    truncated flags OR-merged in. Returns ``(steps, final_obs, truncated,
+    final_mask)`` where ``final_obs`` is the post-step observation a
+    truncation marker may carry (the off-policy bootstrap successor),
+    ``truncated`` is True if any marker flagged a time-limit ending, and
+    ``final_mask`` is the marker's action mask for that successor state
+    (action-masked envs). Shared by the epoch and step replay buffers so
+    marker semantics cannot diverge between them.
+    """
+    steps = list(actions)
+    final_obs: np.ndarray | None = None
+    final_mask: np.ndarray | None = None
+    truncated = False
+    while steps and steps[-1].act is None:
+        marker = steps.pop()
+        truncated = truncated or marker.truncated
+        if marker.obs is not None:
+            final_obs = np.asarray(marker.obs, np.float32)
+        if marker.mask is not None:
+            final_mask = np.asarray(marker.mask, np.float32)
+        if steps:
+            last = steps[-1]
+            steps[-1] = ActionRecord(
+                obs=last.obs, act=last.act, mask=last.mask,
+                rew=last.rew + marker.rew, data=last.data,
+                done=last.done or marker.done,
+                truncated=last.truncated or marker.truncated,
+            )
+    return steps, final_obs, truncated, final_mask
+
+
+def pick_bucket(length: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket ≥ length (lengths above the largest clamp to it).
+
+    One scan, no per-call ``sorted()`` — this runs once per ingested
+    trajectory and the old re-sort was pure hot-path overhead
+    (:class:`~relayrl_tpu_torch.data.EpochBuffer` sorts its buckets once at
+    construction; the scan keeps the public API order-independent for
+    any other caller)."""
+    best = largest = None
+    for b in buckets:
+        b = int(b)
+        if length <= b and (best is None or b < best):
+            best = b
+        if largest is None or b > largest:
+            largest = b
+    return best if best is not None else largest
+
+
+def pad_trajectory(
+    actions: Sequence[ActionRecord],
+    horizon: int,
+    obs_dim: int,
+    act_dim: int,
+    discrete: bool = True,
+) -> PaddedTrajectory:
+    """ActionRecords → fixed-shape padded arrays.
+
+    Aux ``logp_a``/``v`` come from the action's data dict (the reference's
+    REINFORCE reads ``data['v']``/``data['logp_a']`` the same way). Episodes
+    longer than ``horizon`` are truncated (bootstrapped from the stored value
+    of the last kept step).
+    """
+    if not actions:
+        raise ValueError("empty trajectory")
+    # ``flag_last_action`` terminates an episode with a marker record that
+    # carries only the final reward + done flag (no obs/act — ref:
+    # agent_zmq.rs:605-610). Markers are not steps: fold their reward into
+    # the preceding real step so the policy-gradient loss never sees a
+    # fictitious action at a zero observation.
+    actions, _, _, _ = fold_trailing_markers(actions)
+    if not actions:
+        raise ValueError("trajectory contained only terminal markers")
+    n = min(len(actions), horizon)
+
+    obs = np.zeros((horizon, obs_dim), dtype=np.float32)
+    act = np.zeros((horizon,), dtype=np.int32) if discrete else np.zeros(
+        (horizon, act_dim), dtype=np.float32)
+    act_mask = np.zeros((horizon, act_dim), dtype=np.float32)
+    act_mask[:n] = 1.0
+    rew = np.zeros((horizon,), dtype=np.float32)
+    val = np.zeros((horizon,), dtype=np.float32)
+    logp = np.zeros((horizon,), dtype=np.float32)
+    valid = np.zeros((horizon,), dtype=np.float32)
+
+    for t in range(n):
+        a = actions[t]
+        if a.obs is not None:
+            obs[t] = np.asarray(a.obs, dtype=np.float32).reshape(-1)[:obs_dim]
+        if a.act is not None:
+            if discrete:
+                act[t] = int(np.asarray(a.act).reshape(-1)[0])
+            else:
+                act[t] = np.asarray(a.act, dtype=np.float32).reshape(-1)[:act_dim]
+        if a.mask is not None:
+            act_mask[t] = np.asarray(a.mask, dtype=np.float32).reshape(-1)[:act_dim]
+        rew[t] = float(a.rew)
+        data = a.data or {}
+        val[t] = float(np.asarray(data.get("v", 0.0)).reshape(-1)[0]) if "v" in data else 0.0
+        logp[t] = (
+            float(np.asarray(data.get("logp_a", 0.0)).reshape(-1)[0])
+            if "logp_a" in data else 0.0
+        )
+        valid[t] = 1.0
+
+    # ``terminated`` means a true terminal state: the value target stops
+    # there. A time-limit truncation (Gymnasium ``truncated``) must still
+    # bootstrap — v(s_{T+1}) is unavailable on the wire, so the stored
+    # v(s_T) is the standard stand-in (the reference never bootstraps:
+    # finish_path(last_val=0)).
+    terminated = (bool(actions[n - 1].done)
+                  and not bool(actions[n - 1].truncated)
+                  and n == len(actions))
+    last_val = 0.0 if terminated else float(val[n - 1])
+    return PaddedTrajectory(
+        obs=obs, act=act, act_mask=act_mask, rew=rew, val=val, logp=logp,
+        valid=valid, length=n, terminated=terminated, last_val=last_val,
+    )
+
+
+_BATCH_FIELDS = ("obs", "act", "act_mask", "rew", "val", "logp", "valid")
+
+
+def stack_trajectories(
+    trajs: Sequence[PaddedTrajectory],
+    out: dict[str, np.ndarray] | None = None,
+) -> TrajectoryBatch:
+    """Padded episodes → one ``[B, T, ...]`` batch.
+
+    Without ``out`` this is the original allocate-per-call path (eight
+    fresh ``np.stack``/``asarray`` allocations; requires same-horizon
+    inputs). With ``out`` — a persistent staging dict from
+    :class:`BatchStaging` — every row writes in place (shorter episodes
+    zero-fill their tail, subsuming :func:`repad_trajectory`), and the
+    returned batch VIEWS the staging arrays: it is valid until the
+    staging slot is reused (see :meth:`EpochBuffer.drain`'s contract).
+    """
+    if out is None:
+        horizons = {t.obs.shape[0] for t in trajs}
+        if len(horizons) != 1:
+            raise ValueError(f"mixed horizons in batch: {sorted(horizons)}")
+        return TrajectoryBatch(
+            obs=np.stack([t.obs for t in trajs]),
+            act=np.stack([t.act for t in trajs]),
+            act_mask=np.stack([t.act_mask for t in trajs]),
+            rew=np.stack([t.rew for t in trajs]),
+            val=np.stack([t.val for t in trajs]),
+            logp=np.stack([t.logp for t in trajs]),
+            valid=np.stack([t.valid for t in trajs]),
+            last_val=np.asarray([t.last_val for t in trajs], dtype=np.float32),
+        )
+    b, horizon = out["obs"].shape[:2]
+    if len(trajs) != b:
+        raise ValueError(f"staging batch is {b} rows, got {len(trajs)} episodes")
+    for i, t in enumerate(trajs):
+        n = t.obs.shape[0]
+        if n > horizon:
+            raise ValueError(f"cannot shrink padded trajectory {n} -> {horizon}")
+        for name in _BATCH_FIELDS:
+            dst, src = out[name][i], getattr(t, name)
+            dst[:n] = src
+            if n < horizon:
+                dst[n:] = 0  # stale rows from the slab's previous epoch
+        out["last_val"][i] = t.last_val
+    return TrajectoryBatch(**{name: out[name] for name in _BATCH_FIELDS},
+                           last_val=out["last_val"])
+
+
+class BatchStaging:
+    """Ring of persistent ``[B, T, ...]`` host staging slabs, one ring
+    per distinct (batch, horizon) shape — the zero-alloc steady state
+    for epoch assembly. A slab is handed out round-robin and REUSED
+    after ``slots`` further acquires of the same shape; the owner must
+    guarantee the slab's previous consumer is done by then (the
+    algorithm in-flight window provides exactly that: with window W and
+    ``slots = W + 1``, the update that read slab k has been fenced
+    before drain k+W+1 overwrites it)."""
+
+    def __init__(self, slots: int, obs_dim: int, act_dim: int,
+                 discrete: bool = True):
+        if slots < 1:
+            raise ValueError("BatchStaging needs at least one slot")
+        self.slots = int(slots)
+        self.obs_dim, self.act_dim = int(obs_dim), int(act_dim)
+        self.discrete = bool(discrete)
+        self._rings: dict[tuple[int, int], list[dict[str, np.ndarray]]] = {}
+        self._next: dict[tuple[int, int], int] = {}
+
+    def acquire(self, batch_size: int, horizon: int) -> dict[str, np.ndarray]:
+        key = (int(batch_size), int(horizon))
+        ring = self._rings.setdefault(key, [])
+        if len(ring) < self.slots:
+            ring.append(TrajectoryBatch.zeros(
+                key[0], key[1], self.obs_dim, self.act_dim, self.discrete))
+            return ring[-1]
+        i = self._next.get(key, 0)
+        self._next[key] = (i + 1) % self.slots
+        return ring[i]
+
+
+def repad_trajectory(traj: PaddedTrajectory, horizon: int) -> PaddedTrajectory:
+    """Grow (or validate) a padded episode to a new horizon."""
+    cur = traj.obs.shape[0]
+    if cur == horizon:
+        return traj
+    if cur > horizon:
+        raise ValueError(f"cannot shrink padded trajectory {cur} -> {horizon}")
+    pad = horizon - cur
+
+    def _grow(arr):
+        width = [(0, pad)] + [(0, 0)] * (arr.ndim - 1)
+        return np.pad(arr, width)
+
+    return PaddedTrajectory(
+        obs=_grow(traj.obs), act=_grow(traj.act), act_mask=_grow(traj.act_mask),
+        rew=_grow(traj.rew), val=_grow(traj.val), logp=_grow(traj.logp),
+        valid=_grow(traj.valid), length=traj.length, terminated=traj.terminated,
+        last_val=traj.last_val,
+    )

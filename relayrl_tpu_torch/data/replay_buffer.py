@@ -1,0 +1,144 @@
+"""Epoch buffer: accumulate episodes host-side, emit device-ready batches.
+
+A copy of :mod:`relayrl_tpu.data.replay_buffer` for ``ActionRecord``
+episodes only: the ``DecodedTrajectory`` branch comes with the port's
+``types/columnar.py``, and until then :meth:`EpochBuffer.add_episode`
+refuses anything else with ``TypeError`` instead of mis-padding it.
+
+Capability parity with the reference's REINFORCE buffer
+(reference: relayrl_framework/src/native/python/algorithms/REINFORCE/
+replay_buffer.py — per-step store, GAE on finish_path at :48-79, normalized
+get() at :81-111), restructured for TPU: the host buffer only pads and
+stacks; **all math (GAE, normalization) happens inside the jitted learner
+step on device** so ingest overlaps compute and nothing round-trips
+(SURVEY.md §7.4 item 1).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+from relayrl_tpu_torch.data.batching import (
+    BatchStaging,
+    PaddedTrajectory,
+    TrajectoryBatch,
+    pad_trajectory,
+    pick_bucket,
+    repad_trajectory,
+    stack_trajectories,
+)
+from relayrl_tpu_torch.types.action import ActionRecord
+
+DEFAULT_BUCKETS = (64, 256, 1000)
+
+
+class EpochBuffer:
+    """Collects ``traj_per_epoch`` episodes, then drains one batch.
+
+    Bucketing: each episode pads to the smallest configured bucket that fits;
+    the drained batch uses the largest bucket present, so the learner step
+    compiles once per (batch_size, bucket) pair.
+    """
+
+    def __init__(
+        self,
+        obs_dim: int,
+        act_dim: int,
+        traj_per_epoch: int,
+        discrete: bool = True,
+        buckets: Sequence[int] = DEFAULT_BUCKETS,
+        max_traj_length: int | None = None,
+        staging_slots: int = 3,
+    ):
+        self.obs_dim = int(obs_dim)
+        self.act_dim = int(act_dim)
+        self.traj_per_epoch = int(traj_per_epoch)
+        self.discrete = bool(discrete)
+        # Sorted (and deduped) ONCE here; pick_bucket and warmup's
+        # smallest-first early stop rely on ascending order instead of
+        # re-sorting per trajectory on the ingest path.
+        self.buckets = tuple(sorted({int(b) for b in buckets}))
+        if max_traj_length is not None:
+            self.buckets = tuple(b for b in self.buckets if b <= max_traj_length) or (
+                int(max_traj_length),
+            )
+        # Construction-time invariant for every later ascending-order
+        # consumer (guards future edits to the two rebuilds above).
+        assert all(a < b for a, b in zip(self.buckets, self.buckets[1:])), \
+            f"bucket lengths must be strictly ascending: {self.buckets}"
+        # Zero-alloc assembly: drained batches write into a ring of
+        # persistent staging slabs instead of eight np.stack allocations
+        # per epoch. staging_slots=0 disables (every drain allocates —
+        # required when drained batches outlive `slots` further drains,
+        # e.g. the multi-host broadcast queue).
+        self._staging = (BatchStaging(staging_slots, self.obs_dim,
+                                      self.act_dim, self.discrete)
+                         if staging_slots else None)
+        self._pending: list[PaddedTrajectory] = []
+        self.episode_returns: list[float] = []
+        self.episode_lengths: list[int] = []
+
+    def disable_staging(self) -> None:
+        """Switch drain() back to allocate-per-call (consumers that hold
+        drained batches across drains — the multi-host ready queue)."""
+        self._staging = None
+
+    def __len__(self) -> int:
+        return len(self._pending)
+
+    @property
+    def ready(self) -> bool:
+        return len(self._pending) >= self.traj_per_epoch
+
+    def add_episode(self, actions: Sequence[ActionRecord]) -> bool:
+        """Pad + buffer one episode (a sequence of ``ActionRecord``); True
+        when a batch is ready to drain. Bucketing reads the raw record
+        count, terminal markers included."""
+        if not isinstance(actions, Sequence) or not all(
+                isinstance(a, ActionRecord) for a in actions):
+            raise TypeError(
+                "EpochBuffer.add_episode takes a sequence of ActionRecord; "
+                f"got {type(actions).__name__} (columnar trajectories are "
+                "not ported yet)")
+        bucket = pick_bucket(len(actions), self.buckets)
+        padded = pad_trajectory(
+            actions, bucket, self.obs_dim, self.act_dim, self.discrete
+        )
+        self._pending.append(padded)
+        self.episode_returns.append(float(padded.rew.sum()))
+        self.episode_lengths.append(padded.length)
+        return self.ready
+
+    def drain(self) -> TrajectoryBatch:
+        """Emit the epoch batch (and clear). All episodes pad to the
+        largest bucket present so the stack is rectangular.
+
+        With staging enabled (the default), the batch views a persistent
+        slab that is REUSED after ``staging_slots`` further drains of
+        the same shape — valid under the algorithm in-flight window
+        (``slots = window + 1``: the update that consumed this slab is
+        fenced before it can be overwritten), but callers that hold
+        batches longer (multi-host ready queues) must
+        :meth:`disable_staging` first."""
+        if not self._pending:
+            raise ValueError("drain() on empty buffer")
+        take = self._pending[: self.traj_per_epoch]
+        self._pending = self._pending[self.traj_per_epoch:]
+        horizon = max(t.obs.shape[0] for t in take)
+        if self._staging is not None:
+            return stack_trajectories(
+                take, out=self._staging.acquire(len(take), horizon))
+        return stack_trajectories([repad_trajectory(t, horizon) for t in take])
+
+    def pop_episode_stats(self) -> tuple[list[float], list[int]]:
+        rets, lens = self.episode_returns, self.episode_lengths
+        self.episode_returns, self.episode_lengths = [], []
+        return rets, lens
+
+    def reset(self) -> None:
+        """Drop the part-filled epoch (and its stats) — the guardrail
+        rollback path: episodes buffered on a rolled-back line of
+        history must not leak into the restored line's first epoch."""
+        self._pending.clear()
+        self.episode_returns.clear()
+        self.episode_lengths.clear()

@@ -5,6 +5,7 @@ Importing this package registers the ported model families.
 
 from relayrl_tpu_torch.models.base import (
     Policy,
+    apply_arch_overrides,
     build_policy,
     register_model,
     resolve_device,
@@ -12,5 +13,5 @@ from relayrl_tpu_torch.models.base import (
 )
 import relayrl_tpu_torch.models.transformer  # noqa: F401  (registers transformer_discrete)
 
-__all__ = ["Policy", "build_policy", "register_model", "resolve_device",
+__all__ = ["Policy", "apply_arch_overrides", "build_policy", "register_model", "resolve_device",
            "validate_policy"]

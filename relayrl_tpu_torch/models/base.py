@@ -52,6 +52,26 @@ def build_policy(arch: Mapping[str, Any], device=None) -> "Policy":
     return _REGISTRY[kind](arch, resolve_device(device))
 
 
+# Model-shape hyperparams that algorithms forward verbatim from their
+# hyperparam dict into the arch config when present (the JAX package's
+# list), so any policy family is reachable through the algorithm ctor.
+ARCH_PASSTHROUGH_KEYS = (
+    "d_model", "n_layers", "n_heads", "mlp_ratio", "max_seq_len",
+    "attention", "attention_block", "actor_context",
+    "moe_experts", "moe_top_k", "pp_microbatches",
+)
+
+
+def apply_arch_overrides(arch: dict, params: Mapping[str, Any]) -> dict:
+    """Copy any present :data:`ARCH_PASSTHROUGH_KEYS` from hyperparams into
+    ``arch``. (The JAX package also warns when they land on an MLP or CNN
+    kind, which the port does not have yet.)"""
+    for key in ARCH_PASSTHROUGH_KEYS:
+        if key in params:
+            arch[key] = params[key]
+    return arch
+
+
 @dataclasses.dataclass(frozen=True)
 class Policy:
     """Policy bundle; ``params`` below is the module ``init_params`` or

@@ -1,23 +1,35 @@
-"""Flash-attention forward: the CUDA kernel, its plain version, the wrapper.
+"""Flash attention, forward and backward: CUDA kernels, plain versions, wrapper.
 
-Counterpart of :mod:`relayrl_tpu.ops.flash`. The kernel
-(``csrc/flash_fwd.cu``) replaces the Pallas TPU forward kernel
-``relayrl_tpu/ops/flash.py::_fwd_kernel``; its source note gives the design
-and what bounds it on the H100. Both compute, on ``[B, T, H, D]`` inputs,
-the attention output in the input dtype and the log2-space log-sum-exp
-``lse2 [B, H, T]`` (f32) — what ``relayrl_tpu.ops.flash._fwd`` returns:
+Counterpart of :mod:`relayrl_tpu.ops.flash`. Three kernels replace the
+Pallas TPU kernels of ``relayrl_tpu/ops/flash.py``; each source note gives
+its design and what bounds it on the H100:
+
+* K1, the forward (``csrc/flash_fwd.cu`` ← ``_fwd_kernel``): on ``[B, T, H,
+  D]`` inputs, the attention output in the input dtype and the log2-space
+  log-sum-exp ``lse2 [B, H, T]`` (f32), what ``relayrl_tpu.ops.flash._fwd``
+  returns;
+* K2, the dq pass, and K3, the dk/dv pass (``csrc/flash_bwd.cu`` ←
+  ``_dq_kernel`` and ``_dkv_kernel``): the two-pass backward that
+  ``relayrl_tpu.ops.flash._bwd_pallas`` runs, recomputing ``p`` from
+  ``lse2`` and using ``ds = p * (dp - delta)`` with ``delta = rowsum(do *
+  o)``, which is computed outside the kernels as the JAX package does.
+
+The numbers they share with the TPU kernels:
 
 * q is scaled by ``log2(e)/sqrt(D)`` and rounded back to its dtype, so the
   softmax runs in log2 space on ``exp2``;
-* scores, the running max and the sum are f32; ``p`` is rounded to v's
-  dtype before the PV product; masked scores are -1e30; ``l`` is clamped
-  at 1e-30.
+* scores, the running max and the sum are f32; masked scores are -1e30, so
+  ``p`` is exactly 0 there; ``l`` is clamped at 1e-30;
+* the forward rounds ``p`` to v's dtype before the PV product; the backward
+  rounds ``ds`` to k's dtype before ``ds.k``, ``p`` to do's dtype before
+  ``p^T.do`` and ``ds`` to q's dtype before ``ds^T.q``; ``dq = acc/sqrt(D)``
+  and ``dk = acc/log2(e)`` (dk contracts against the prescaled q);
+* outputs are in the input dtype.
 
-:func:`flash_attention` runs the plain version for CPU tensors and the
-kernel for CUDA tensors; on a CUDA tensor it launches the kernel or raises.
-Only the forward is ported: the dq and dk/dv kernels
-(``relayrl_tpu/ops/flash.py::_dq_kernel`` and ``::_dkv_kernel``) come with
-the learner slice, and until then a backward through the CUDA path raises.
+:func:`flash_attention` goes through one ``autograd.Function`` for every
+device: CPU tensors take the plain versions forward and backward, CUDA
+tensors launch the kernels or raise. ``flash_attention.launches``,
+``.dq_launches`` and ``.dkv_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -30,7 +42,7 @@ import torch
 
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
-# Head widths the kernel is instantiated for (csrc/flash_fwd.cu).
+# Head widths the kernels are instantiated for (csrc/flash_{fwd,bwd}.cu).
 KERNEL_HEAD_DIMS = (16, 32, 64)
 
 
@@ -38,21 +50,64 @@ def _q_scale(head_dim: int) -> float:
     return _LOG2E / math.sqrt(head_dim)
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True):
-    """The kernel's function as plain tensor code: ``(O, lse2)``."""
-    B, T, H, D = q.shape
-    qs = (q.float() * _q_scale(D)).to(q.dtype)
-    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+def _scores2(q: torch.Tensor, k: torch.Tensor, causal: bool):
+    """(q prescaled and rounded to its dtype, as f32; log2-space scores
+    ``[B, H, Tq, Tk]`` in f32, masked to -1e30)."""
+    T, D = q.shape[1], q.shape[3]
+    qs = (q.float() * _q_scale(D)).to(q.dtype).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
     if causal:
         pos = torch.arange(T, device=q.device)
         s = torch.where(pos[:, None] >= pos[None, :], s, _NEG_INF)
+    return qs, s
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True):
+    """K1's function as plain tensor code: ``(O, lse2)``."""
+    _, s = _scores2(q, k, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)      # [B, H, T, 1]
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     o = o / l.permute(0, 2, 1, 3)
     return o.to(q.dtype), (m + torch.log2(l)).squeeze(-1)
+
+
+def flash_attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(do * o)`` in f32, as contiguous ``[B, H, T]``."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _probs_and_ds(q, k, v, lse2, do, delta, causal):
+    qs, s = _scores2(q, k, causal)
+    p = torch.exp2(s - lse2[..., None])                    # [B, H, Tq, Tk]
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return qs, p, p * (dp - delta[..., None])
+
+
+def flash_attention_dq_plain(q, k, v, lse2, do, delta, causal: bool = True):
+    """K2's function as plain tensor code: dq in q's dtype."""
+    _, _, ds = _probs_and_ds(q, k, v, lse2, do, delta, causal)
+    acc = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+    return (acc * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
+
+
+def flash_attention_dkv_plain(q, k, v, lse2, do, delta, causal: bool = True):
+    """K3's function as plain tensor code: ``(dk, dv)`` in k's and v's
+    dtypes."""
+    qs, p, ds = _probs_and_ds(q, k, v, lse2, do, delta, causal)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qs)
+    return (dk * (1.0 / _LOG2E)).to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse2, do, causal: bool = True):
+    """The backward as plain tensor code: ``(dq, dk, dv)`` for upstream
+    gradient ``do`` of the forward's ``(out, lse2)``."""
+    delta = flash_attention_delta(out, do)
+    dk, dv = flash_attention_dkv_plain(q, k, v, lse2, do, delta, causal)
+    return flash_attention_dq_plain(q, k, v, lse2, do, delta, causal), dk, dv
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,6 +121,24 @@ def _library() -> ctypes.CDLL:
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    from relayrl_tpu_torch import _kernels
+
+    lib = _kernels.load("flash_bwd")
+    strides = [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6
+    lib.relayrl_flash_bwd_dq.argtypes = (
+        [ctypes.c_void_p] * 7 + strides
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p])
+    lib.relayrl_flash_bwd_dkv.argtypes = (
+        [ctypes.c_void_p] * 8 + strides
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.relayrl_flash_bwd_dq.restype = ctypes.c_int
+    lib.relayrl_flash_bwd_dkv.restype = ctypes.c_int
     return lib
 
 
@@ -109,37 +182,110 @@ def _launch(q, k, v, causal: bool):
     return out, lse2
 
 
+def _check_bwd_inputs(q, lse2, do, delta) -> torch.Tensor:
+    """Checks what the backward kernels take beyond q, k, v; returns ``do``
+    with a contiguous head dim (copied only when it has none, counted in
+    ``flash_attention.do_copies``)."""
+    B, T, H, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must match q's shape, dtype and device; got "
+                         f"{tuple(do.shape)} {do.dtype} {do.device}")
+    for name, x in (("lse2", lse2), ("delta", delta)):
+        if (x.shape != (B, H, T) or x.dtype != torch.float32
+                or x.device != q.device or not x.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous f32 [B, H, T] on "
+                             f"q's device; got {tuple(x.shape)} {x.dtype}")
+    if do.stride(-1) == 1:
+        return do
+    flash_attention.do_copies += 1
+    return do.contiguous()
+
+
+def _bwd_dims(q, do) -> tuple:
+    B, T, H, D = q.shape
+    return (B, H, T, D, *q.stride()[:3], *do.stride()[:3])
+
+
+def _launch_dq(q, k, v, lse2, do, delta, causal: bool) -> torch.Tensor:
+    """K2: dq ``[B, T, H, D]`` in q's dtype."""
+    do = _check_bwd_inputs(q, lse2, do, delta)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    D = q.shape[-1]
+    with torch.cuda.device(q.device):
+        err = _bwd_library().relayrl_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_bwd_dims(q, do), _q_scale(D), 1.0 / math.sqrt(D), int(causal),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_dq kernel launch failed (cudaError {err})")
+    flash_attention.dq_launches += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, lse2, do, delta, causal: bool):
+    """K3: ``(dk, dv)``, each ``[B, T, H, D]`` in the input dtype."""
+    do = _check_bwd_inputs(q, lse2, do, delta)
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _bwd_library().relayrl_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse2.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_bwd_dims(q, do), _q_scale(q.shape[-1]), int(causal),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_dkv kernel launch failed (cudaError {err})")
+    flash_attention.dkv_launches += 1
+    return dk, dv
+
+
 class _FlashForward(torch.autograd.Function):
-    """The kernel under autograd: a backward through it raises rather
-    than return silently wrong (absent) gradients."""
+    """Forward and backward of every device: the plain versions for CPU
+    tensors, K1 forward and K2/K3 backward for CUDA tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out, lse2 = _launch(q, k, v, causal)
+        if q.is_cuda:
+            out, lse2 = _launch(q, k, v, causal)
+        else:
+            out, lse2 = flash_attention_plain(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse2)
         ctx.mark_non_differentiable(lse2)
         return out, lse2
 
     @staticmethod
-    def backward(ctx, d_out, d_lse2):
-        raise NotImplementedError(
-            "flash-attention backward on CUDA is not ported yet: the dq and "
-            "dk/dv kernels (relayrl_tpu/ops/flash.py::_dq_kernel and "
-            "::_dkv_kernel, K2/K3) come with the learner slice")
+    def backward(ctx, d_out, _d_lse2):
+        q, k, v, out, lse2 = ctx.saved_tensors
+        if not q.is_cuda:
+            return (*flash_attention_bwd_plain(q, k, v, out, lse2, d_out,
+                                               ctx.causal), None)
+        delta = flash_attention_delta(out, d_out)
+        dq = _launch_dq(q, k, v, lse2, d_out, delta, ctx.causal)
+        dk, dv = _launch_dkv(q, k, v, lse2, d_out, delta, ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True):
-    """Fused attention on ``[B, T, H, D]``: ``(O [B,T,H,D], lse2 [B,H,T])``.
+    """Fused attention on ``[B, T, H, D]``: ``(O [B,T,H,D], lse2 [B,H,T])``,
+    differentiable in q, k and v.
 
-    CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
-    kernel, which takes any ``T >= 1``, float32 or bfloat16, head dims
+    CPU tensors take the plain versions; CUDA tensors launch the kernels,
+    which take any ``T >= 1``, float32 or bfloat16, head dims
     :data:`KERNEL_HEAD_DIMS`, and q, k, v that share strides with a
-    contiguous head dim. ``flash_attention.launches`` counts kernel
-    launches."""
-    if q.device.type == k.device.type == v.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
-    _check_kernel_inputs(q, k, v)
+    contiguous head dim (the upstream gradient may have strides of its
+    own). ``flash_attention.launches`` counts K1 launches,
+    ``.dq_launches`` K2's and ``.dkv_launches`` K3's."""
+    if not q.device.type == k.device.type == v.device.type == "cpu":
+        _check_kernel_inputs(q, k, v)
     return _FlashForward.apply(q, k, v, bool(causal))
 
 
 flash_attention.launches = 0
+flash_attention.dq_launches = 0
+flash_attention.dkv_launches = 0
+flash_attention.do_copies = 0

@@ -71,6 +71,21 @@ class ModelBundle:
         return cls(version=int(wire["ver"]), arch=dict(wire["arch"]),
                    params=params)
 
+    def save(self, path) -> None:
+        """Write :meth:`to_bytes` to ``path`` atomically (temp file, then
+        rename), as the JAX package's bundle does."""
+        import os
+
+        tmp = f"{path}.tmp"
+        with open(tmp, "wb") as f:
+            f.write(self.to_bytes())
+        os.replace(tmp, path)
+
+    @classmethod
+    def load(cls, path) -> "ModelBundle":
+        with open(path, "rb") as f:
+            return cls.from_bytes(f.read())
+
 
 def _state_dict(tree):
     """flax ``to_state_dict`` for trees of dicts, lists and tuples."""

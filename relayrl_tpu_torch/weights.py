@@ -55,19 +55,29 @@ def _sorted_tree(node):
     return node
 
 
+def flax_path(module: nn.Module, key: str) -> tuple[str, ...]:
+    """The flax tree path of state-dict entry ``key`` of ``module``, below
+    ``"params"``: ``"block_0.qkv.weight"`` -> ``("block_0", "qkv",
+    "kernel")``."""
+    owner_path, _, name = key.rpartition(".")
+    owner = module.get_submodule(owner_path)
+    if name == "weight" and isinstance(owner, nn.Linear):
+        name = "kernel"
+    elif name == "weight" and isinstance(owner, nn.LayerNorm):
+        name = "scale"
+    return (*filter(None, owner_path.split(".")), name)
+
+
 def params_to_jax(module: nn.Module) -> dict[str, Any]:
     """Module -> flax params tree of numpy arrays, keys sorted at every
     level (the order JAX's tree utilities give a params dict)."""
     tree: dict[str, Any] = {}
     for key, tensor in module.state_dict().items():
-        owner_path, _, name = key.rpartition(".")
-        owner = module.get_submodule(owner_path)
-        if name == "weight" and isinstance(owner, nn.Linear):
-            name, tensor = "kernel", tensor.T
-        elif name == "weight" and isinstance(owner, nn.LayerNorm):
-            name = "scale"
+        *scopes, name = flax_path(module, key)
+        if name == "kernel":
+            tensor = tensor.T
         node = tree
-        for part in filter(None, owner_path.split(".")):
+        for part in scopes:
             node = node.setdefault(part, {})
         node[name] = tensor.detach().cpu().numpy().copy()  # owns its memory
     return {"params": _sorted_tree(tree)}

@@ -1,26 +1,46 @@
 """The port's attention ops (relayrl_tpu_torch.ops) against the JAX package's.
 
-On the CPU the port's ``flash_attention`` runs the kernel's plain version,
-which is held here to the Pallas forward kernel run in interpret mode (as
-tests/test_flash.py runs it) and to the JAX dense attention. The CUDA
-kernel is held to that plain version by the last test, which needs a GPU
-and the CUDA toolkit (chip_smoke.py runs the same comparison on the card).
+On the CPU the port's ``flash_attention`` runs the kernels' plain versions,
+forward and backward, through the same ``autograd.Function`` the CUDA path
+takes. They are held here to the Pallas kernels run in interpret mode (as
+tests/test_flash.py runs them), to the JAX dense attention and its
+``jax.grad``, and to torch autograd through the plain forward. The CUDA
+kernels are held to the plain versions by the last test, which needs a GPU
+and the CUDA toolkit (chip_smoke.py runs the same comparisons on the card).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from relayrl_tpu.ops import attention as jax_attention
+from relayrl_tpu.ops.flash import _bwd_pallas as jax_flash_bwd
 from relayrl_tpu.ops.flash import _fwd as jax_flash_fwd
 from relayrl_tpu_torch.ops import attention as port_attention
-from relayrl_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+from relayrl_tpu_torch.ops.flash import (
+    flash_attention,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+)
 
 # The bars of tests/test_flash.py. f32: the same arithmetic summed in
 # another order. bf16: p and O each take one bf16 rounding, at points that
 # move with the block structure (the running max differs per block).
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# Gradients: 5e-5 in f32, the gradient bar of tests/test_flash.py (the
+# backward sums over T keys and queries, in another order). bf16: 3e-2 of
+# each gradient's max |value| — ds, p and the outputs each take one bf16
+# rounding, at points that move with the summation order — and never below
+# the f32 bar (at T = 1 dq is zero up to rounding).
+GRAD_TOL = 5e-5
+
+
+def _grad_tol(dtype, want) -> float:
+    if dtype == "float32":
+        return GRAD_TOL
+    return max(GRAD_TOL, TOL[dtype] * float(np.abs(_f32(want)).max()))
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -85,6 +105,69 @@ def test_plain_matches_pallas_interpret(dtype, causal, T, block_q, block_kv):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T,block_q,block_kv", [
+    (32, 16, 16),
+    (32, 16, 8),    # uneven blocks: the cross-block causal predicate
+    (17, 17, 17),   # ragged length
+    (1, 1, 1),      # one step
+])
+def test_plain_bwd_matches_pallas_interpret(dtype, causal, T, block_q, block_kv):
+    """The backward's plain version against the dq and dk/dv Pallas
+    kernels, on one forward's (O, lse2) and one upstream gradient."""
+    arrays = _qkv(2, T, 2, 16, seed=10 + T)
+    do = np.random.default_rng(T).standard_normal((2, T, 2, 16)).astype(np.float32)
+    jq, jk, jv, jdo = _to_jax(arrays + [do], dtype)
+    j_out, j_lse2 = jax_flash_fwd(jq, jk, jv, causal, block_q, block_kv, True)
+    want = jax_flash_bwd(jq, jk, jv, j_out, j_lse2, jdo, causal, block_q,
+                         block_kv, True)
+    q, k, v, out, t_do = _to_torch(arrays + [np.array(_f32(j_out)), do], dtype)
+    got = flash_attention_bwd_plain(q, k, v, out, torch.from_numpy(np.array(j_lse2)),
+                                    t_do, causal)
+    for g, w in zip(got, want):
+        assert g.dtype == _TORCH[dtype] and g.shape == (2, T, 2, 16)
+        np.testing.assert_allclose(_f32(g), _f32(w), atol=_grad_tol(dtype, w),
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_grads_match_jax_dense_grad(causal):
+    """Gradients through the port's ``flash_attention`` (the plain backward
+    on the CPU) against ``jax.grad`` of the JAX dense attention, f32."""
+    arrays = _qkv(2, 24, 2, 16, seed=11)
+    do = np.random.default_rng(12).standard_normal((2, 24, 2, 16)).astype(np.float32)
+
+    def loss(q, k, v):
+        return jnp.sum(jax_attention.dense_attention(q, k, v, causal=causal) * do)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*_to_jax(arrays, "float32"))
+    q, k, v = (x.requires_grad_() for x in _to_torch(arrays, "float32"))
+    out, _ = flash_attention(q, k, v, causal)
+    got = torch.autograd.grad(out, (q, k, v), torch.from_numpy(do))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [1, 17, 32])
+def test_plain_bwd_matches_autograd_of_plain_fwd(causal, T):
+    """The plain backward equals torch autograd through the plain forward
+    (f32), and ``flash_attention``'s CPU backward is the plain backward."""
+    q, k, v = (x.requires_grad_() for x in _to_torch(_qkv(2, T, 2, 16, seed=13), "float32"))
+    do = torch.from_numpy(
+        np.random.default_rng(14).standard_normal((2, T, 2, 16)).astype(np.float32))
+    out, lse2 = flash_attention_plain(q, k, v, causal)
+    want = torch.autograd.grad(out, (q, k, v), do)
+    got = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                    out.detach(), lse2.detach(), do, causal)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=GRAD_TOL, rtol=0)
+    out, _ = flash_attention(q, k, v, causal)
+    for g, w in zip(torch.autograd.grad(out, (q, k, v), do), got):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_matches_jax_dense(causal):
     arrays = _qkv(2, 24, 2, 16, seed=1)
@@ -146,21 +229,29 @@ def test_wrapper_takes_plain_version_on_cpu():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_gpu(cuda_device, dtype):
-    """The kernel on q, k, v laid out as the model passes them (views of one
-    fused qkv projection), at the T = 1, ragged and tiled lengths."""
+    """The kernels on q, k, v laid out as the model passes them (views of
+    one fused qkv projection), at the T = 1, ragged and tiled lengths and
+    head dims 32 and 64: K1 against the plain forward, K2 and K3 (the
+    backward through ``flash_attention``) against the plain backward."""
     gen = torch.Generator().manual_seed(5)
     for causal in (True, False):
-        for T in (1, 17, 64, 130):
-            qkv = torch.randn((3, T, 3, 2, 32), generator=gen)
-            q, k, v = qkv.to(cuda_device, _TORCH[dtype]).unbind(2)
-            before = flash_attention.launches
+        for T, D in ((1, 32), (17, 32), (64, 32), (130, 32), (130, 64)):
+            qkv = torch.randn((3, T, 3, 2, D), generator=gen)
+            q, k, v = (x.requires_grad_() for x in
+                       qkv.to(cuda_device, _TORCH[dtype]).unbind(2))
+            before = (flash_attention.launches, flash_attention.dq_launches,
+                      flash_attention.dkv_launches)
             out, lse2 = flash_attention(q, k, v, causal)
-            assert flash_attention.launches == before + 1
             ref_out, ref_lse2 = flash_attention_plain(q, k, v, causal)
             torch.testing.assert_close(out.float(), ref_out.float(),
                                        atol=TOL[dtype], rtol=0)
             torch.testing.assert_close(lse2, ref_lse2, atol=TOL[dtype], rtol=0)
-    q = q.detach().requires_grad_(True)
-    out, _ = flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="K2/K3"):
-        out.float().sum().backward()
+            do = torch.randn(out.shape, generator=gen).to(cuda_device, _TORCH[dtype])
+            got = torch.autograd.grad(out, (q, k, v), do)
+            assert (flash_attention.launches, flash_attention.dq_launches,
+                    flash_attention.dkv_launches) == tuple(n + 1 for n in before)
+            want = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                             out.detach(), lse2, do, causal)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.float(), w.float(),
+                                           atol=_grad_tol(dtype, w.cpu()), rtol=0)
