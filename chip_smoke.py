@@ -8,9 +8,10 @@ Run from the root of a checkout, with no arguments::
 Phases, each of which fails the run:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: every CUDA kernel of the port (``flash_fwd``, ``flash_bwd``),
-   from ``relayrl_tpu_torch/csrc``, one ``nvcc`` per source, all started
-   together; prints ``nvcc -Xptxas -v``'s registers and spills;
+2. build: every CUDA kernel of the port (``flash_fwd``, ``flash_bwd``,
+   ``ring_flash``), from ``relayrl_tpu_torch/csrc``, one ``nvcc`` per
+   source, all started together; prints ``nvcc -Xptxas -v``'s registers
+   and spills;
 3. kernel vs plain: each kernel (K1 forward, K2 dq, K3 dk/dv) against its
    plain PyTorch version on the card, at the slices' shapes and at edge
    shapes, with the kernel's time, the plain version's, a library call's
@@ -29,7 +30,19 @@ Phases, each of which fails the run:
    checks the launch counts of every update (336 K1, 4 K2, 4 K3), the
    versions, the metrics and the params, compares the first update through
    the kernels with the same update through the plain attention, and
-   times and profiles an update.
+   times and profiles an update;
+6. ring kernels vs plain: K4, K5 and K6 (the ring's chunk forward, dq and
+   dk/dv) against their plain versions at the sp learner's chunk shape and
+   at edge shapes, with times, plain times and bounds; then
+   ``chunked_flash_local`` (K4 over every chunk pair of one sequence)
+   against K1 at the serving shape;
+7. sequence-parallel learner: the same REINFORCE with ``attention="ring"``
+   through ``make_sharded_update(..., shard_time=True)`` over an sp = 4 mesh
+   of the one card, 4 updates on phase 5's first wave; checks the launch
+   counts of every update (3360 K4, 40 K5, 40 K6, no K1-K3), compares the
+   first update through the kernels with the same update through the
+   chunk kernels' plain versions and ``evaluate`` through the ring with
+   ``evaluate`` through K1, and times and profiles an update.
 
 The second-to-last line is the kernels' JSON; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
@@ -68,6 +81,11 @@ LEARNER = {"with_vf_baseline": True, "traj_per_epoch": 8,
            "train_vf_iters": 80, "bucket_lengths": [256]}
 LEARNER_HORIZON = 255
 LEARNER_WAVES = 2
+# The sequence-parallel learner: the same learner with attention="ring"
+# over an sp mesh of SP shards of the one card (local chunks of 64 rows),
+# trained for SP_UPDATES updates on batches of phase 5's first wave.
+SP = 4
+SP_UPDATES = 4
 # The bars of tests/test_flash.py: 3e-2 for bf16, 2e-5 for f32.
 TOLERANCE = {"bfloat16": 3e-2, "float32": 2e-5}
 # Gradients: 5e-5 in f32 (tests/test_flash.py's gradient bar); in bf16 3e-2
@@ -91,6 +109,9 @@ ON_POLICY_KL_TOL = 1e-3
 # (bf16 on the tensor cores, f32 outside them).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# Device clock cycles per second for torch.cuda._sleep: the H100 SXM's top
+# SM clock (1.98 GHz), so a sleep lasts at least the seconds asked for.
+SLEEP_CYCLES_PER_S = 1.98e9
 
 
 def _dtype_name(dtype) -> str:
@@ -100,14 +121,19 @@ def _dtype_name(dtype) -> str:
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
     events; the inputs stay where the previous call left them, L2
-    included)."""
+    included). The timed calls queue up behind a device sleep that
+    outlasts their host issue time, so a kernel shorter than its launch's
+    host cost is timed on the device, not at the host's issue rate."""
     import torch
 
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) / warmup * iters
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.5 * host_s, 1.0) * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(iters):
         fn()
@@ -300,6 +326,153 @@ def check_flash(device) -> dict:
                                 "bound_by": bound_by, "library_ms": library_ms}
                 print(line, flush=True)
     return main
+
+
+def ring_chunk_bound(B, C, H, D, dtype_name, kernel, mode) -> tuple[float, str]:
+    """Least time for one ring chunk kernel on these inputs. Each reads its
+    bf16/f32 inputs once (K4: q, k, v; K5, K6: q, k, v, do) and its f32
+    carried state once (K4: acc, m, l; K5: lse2, delta, dq; K6: lse2,
+    delta, dk, dv), and writes its f32 state once. FLOPs on the live
+    (query, key) pairs (every pair under FULL, the causal half under DIAG):
+    K4 2 products, K5 3, K6 4."""
+    from relayrl_tpu_torch.parallel.ring_flash import MODE_FULL
+
+    elt = 2 if dtype_name == "bfloat16" else 4
+    n, rows = B * C * H * D, B * H * C
+    moved = {"fwd": 3 * n * elt + 2 * (n + 2 * rows) * 4,
+             "dq": 4 * n * elt + (2 * rows + 2 * n) * 4,
+             "dkv": 4 * n * elt + (2 * rows + 4 * n) * 4}[kernel]
+    pairs = B * H * (C * C if mode == MODE_FULL else C * (C + 1) // 2)
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}[kernel] * D * pairs
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ring_chunk_inputs(B, C, H, D, dtype, device, gen, carried: bool) -> dict:
+    """One chunk round's inputs as the ring passes them: q, k, v views of
+    one fused projection (q prescaled), the K4 state and the K5/K6
+    accumulators after one FULL round on another K/V chunk (fresh when not
+    ``carried``), do, and lse2 and delta of the forward over both chunks."""
+    import torch
+
+    from relayrl_tpu_torch.ops.flash import flash_attention_delta
+    from relayrl_tpu_torch.parallel import ring_flash as rf
+
+    q, k0, v0 = fused_qkv(B, C, H, D, dtype, device, gen)
+    _, k, v = fused_qkv(B, C, H, D, dtype, device, gen)
+    qs = rf.prescale_q(q)
+    state = rf.chunk_fwd_plain(rf.MODE_FULL, qs, k0, v0, *rf._init_state(qs))
+    both = rf.chunk_fwd_plain(rf.MODE_FULL, qs, k, v, *state)
+    out, l_safe = rf._finalize_chunk_state(both[0], both[2], dtype)
+    lse2 = both[1] + torch.log2(l_safe)
+    do = torch.randn((B, C, H, D), generator=gen).to(device, dtype)
+    delta = flash_attention_delta(out, do)
+    zero = rf._zero_acc(qs)
+    dq, dkv = zero, (zero, zero)
+    if carried:
+        dq = rf.chunk_dq_plain(rf.MODE_FULL, qs, k0, v0, do, lse2, delta, zero)
+        dkv = rf.chunk_dkv_plain(rf.MODE_FULL, qs, k0, v0, do, lse2, delta, zero, zero)
+    else:
+        state = rf._init_state(qs)
+    return {"fwd": (qs, k, v, *state), "dq": (qs, k, v, do, lse2, delta, dq),
+            "dkv": (qs, k, v, do, lse2, delta, *dkv)}
+
+
+def check_ring_chunks(device) -> dict:
+    """K4, K5 and K6 against their plain versions: at the learner's chunk
+    shape ([8, 64, 8, 32], sp 4 over T 256) in bf16 and f32, FULL and DIAG
+    on a carried state and FULL on a fresh one (a non-causal ring's first
+    round); at C 8 and 128; at head dims 16 and 64. Times, bounds and plain
+    times at the learner's shape, bf16, FULL (6 of a ring's 10 rounds) and
+    DIAG. Returns {"ring_chunk_fwd": ..., ...} for bf16 FULL."""
+    import torch
+
+    from relayrl_tpu_torch.parallel import ring_flash as rf
+
+    B, H = LEARNER["traj_per_epoch"], SLICE_ARCH["n_heads"]
+    D, C = SLICE_ARCH["d_model"] // H, SLICE_ARCH["max_seq_len"] // SP
+    wrappers = {"fwd": rf.chunk_fwd, "dq": rf.chunk_dq, "dkv": rf.chunk_dkv}
+    plains = {"fwd": rf.chunk_fwd_plain, "dq": rf.chunk_dq_plain,
+              "dkv": rf.chunk_dkv_plain}
+    gen = torch.Generator().manual_seed(SEED + 2)
+    cases = [(dtype, mode, True, C, D) for dtype in (torch.bfloat16, torch.float32)
+             for mode in (rf.MODE_FULL, rf.MODE_DIAG)]
+    cases += [(dtype, rf.MODE_FULL, False, C, D) for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(dtype, mode, True, c, d) for dtype in (torch.bfloat16, torch.float32)
+              for mode in (rf.MODE_FULL, rf.MODE_DIAG)
+              for c, d in ((8, D), (128, D), (C, 16), (C, 64))]
+    main = {}
+    for dtype, mode, carried, c, d in cases:
+        name = _dtype_name(dtype)
+        inputs = ring_chunk_inputs(B, c, H, d, dtype, device, gen, carried)
+        for kernel, args in inputs.items():
+            got = wrappers[kernel](mode, *args)
+            torch.cuda.synchronize()
+            want = plains[kernel](mode, *args)
+            got, want = ((x,) if kernel == "dq" else x for x in (got, want))
+            if kernel == "fwd":
+                # The state the ring finalizes: acc / l and m + log2(l).
+                (o, m, l), (wo, wm, wl) = got, want
+                errs = [((o / l[..., None]) - (wo / wl[..., None])).abs().max().item(),
+                        ((m + torch.log2(l)) - (wm + torch.log2(wl))).abs().max().item()]
+                bars = [TOLERANCE[name]] * 2
+            else:
+                errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+                bars = [GRAD_TOLERANCE_F32 if dtype == torch.float32 else max(
+                    GRAD_TOLERANCE_F32, TOLERANCE[name] * w.abs().max().item())
+                    for w in want]
+            if not all(g.shape == w.shape and g.dtype == torch.float32
+                       for g, w in zip(got, want)) or not all(
+                           math.isfinite(e) and e <= b for e, b in zip(errs, bars)):
+                raise AssertionError(
+                    f"ring_chunk_{kernel} {name} mode={mode} carried={carried} "
+                    f"C={c} D={d}: max abs errs {errs} above {bars}")
+            line = (f"[ring] ring_chunk_{kernel} {name} mode="
+                    f"{'FULL' if mode == rf.MODE_FULL else 'DIAG'} "
+                    f"{'carried' if carried else 'fresh'} [{B},{c},{H},{d}] max_abs_err "
+                    + "/".join(f"{e:.3e}" for e in errs) + " (tol "
+                    + "/".join(f"{b:.3e}" for b in bars) + ")")
+            if (c, d, carried, dtype) == (C, D, True, torch.bfloat16):
+                ms = time_ms(lambda: wrappers[kernel](mode, *args))
+                plain_ms = time_ms(lambda: plains[kernel](mode, *args), iters=20)
+                bound_ms, bound_by = ring_chunk_bound(B, c, H, d, name, kernel, mode)
+                line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                         f"bound_ms={bound_ms:.4f} ({bound_by})")
+                if mode == rf.MODE_FULL:
+                    main[f"ring_chunk_{kernel}"] = {
+                        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            print(line, flush=True)
+    return main
+
+
+def check_chunked_local(device) -> None:
+    """``chunked_flash_local`` (K4 over every chunk pair on one device, the
+    ring's cost model without transfers) against K1 on the serving shape."""
+    import torch
+
+    from relayrl_tpu_torch.ops.flash import flash_attention
+    from relayrl_tpu_torch.parallel.ring_flash import chunked_flash_local
+
+    B, T, H = LANES, SLICE_ARCH["max_seq_len"], SLICE_ARCH["n_heads"]
+    D = SLICE_ARCH["d_model"] // H
+    gen = torch.Generator().manual_seed(SEED + 3)
+    q, k, v = fused_qkv(B, T, H, D, torch.bfloat16, device, gen)
+    want = flash_attention(q, k, v, True)[0]
+    k1_ms = time_ms(lambda: flash_attention(q, k, v, True))
+    for n in (2, 4):
+        got = chunked_flash_local(q, k, v, n)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not (got.shape == want.shape and math.isfinite(err)
+                and err <= TOLERANCE["bfloat16"]):
+            raise AssertionError(f"chunked_flash_local n={n} vs flash_fwd: {err}")
+        ms = time_ms(lambda: chunked_flash_local(q, k, v, n))
+        print(f"[ring] chunked_flash_local bf16 causal [{B},{T},{H},{D}] n_chunks={n} "
+              f"({n * (n + 1) // 2} K4 launches) vs flash_fwd: max abs diff "
+              f"{err:.3e} (tol {TOLERANCE['bfloat16']:g}); ms={ms:.4f}, "
+              f"flash_fwd ms={k1_ms:.4f}", flush=True)
 
 
 class SwapHalfway:
@@ -504,10 +677,10 @@ def zero_flash_counts() -> None:
     flash_attention.dkv_launches = 0
 
 
-def build_learner(device, workdir: Path):
-    """The port's REINFORCE at the slice's arch, on ``device``; the bf16
-    compute dtype comes from the config's ``learner.precision``, as in the
-    JAX package."""
+def build_learner(device, workdir: Path, attention: str = SLICE_ARCH["attention"]):
+    """The port's REINFORCE at the slice's arch (with ``attention``), on
+    ``device``; the bf16 compute dtype comes from the config's
+    ``learner.precision``, as in the JAX package."""
     from relayrl_tpu_torch.algorithms import build_algorithm
     from relayrl_tpu_torch.envs import RecallEnv
 
@@ -516,7 +689,8 @@ def build_learner(device, workdir: Path):
     config.write_text(json.dumps(
         {"learner": {"precision": SLICE_ARCH["precision"]}}))
     env = RecallEnv(LEARNER_HORIZON, N_CUES)
-    overrides = {k: v for k, v in SLICE_ARCH.items()
+    arch = {**SLICE_ARCH, "attention": attention}
+    overrides = {k: v for k, v in arch.items()
                  if k not in ("kind", "has_critic", "precision")}
     algo = build_algorithm(
         "REINFORCE", env_dir=str(workdir), config_path=str(config),
@@ -524,18 +698,19 @@ def build_learner(device, workdir: Path):
         act_dim=int(env.action_space.n), device=device,
         model_kind=SLICE_ARCH["kind"], seed=SEED, seed_salt=0,
         **overrides, **LEARNER)
-    for key, value in SLICE_ARCH.items():
+    for key, value in arch.items():
         if algo.arch[key] != value:
             raise AssertionError(f"learner arch {key}={algo.arch[key]!r}, "
                                  f"expected {value!r}")
     return algo
 
 
-def compare_update(algo, params0, batch, device) -> dict:
+def compare_update(algo, params0, batch, device, plain_attn, wrap=None) -> dict:
     """The learner's first update through the kernels against the same
-    update through the plain attention (autograd through
-    ``flash_attention_plain``), both from ``params0`` with fresh Adam
-    state. Returns the largest metric and parameter differences."""
+    update with every block's attention replaced by ``plain_attn`` (which
+    runs the kernels' plain versions), both from ``params0`` with fresh
+    Adam state; ``wrap`` wraps the update (the sharded update of phase 7).
+    Returns the largest metric and parameter differences."""
     import torch
 
     from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
@@ -544,16 +719,17 @@ def compare_update(algo, params0, batch, device) -> dict:
         make_optimizers,
         make_reinforce_update,
     )
-    from relayrl_tpu_torch.ops.flash import flash_attention_plain
 
     update = make_reinforce_update(algo.policy, algo.train_vf_iters,
                                    algo.gamma, algo.lam, algo.with_baseline)
+    if wrap is not None:
+        update = wrap(update)
     sides = {}
     for side in ("kernel", "plain"):
         params = copy.deepcopy(params0)
         if side == "plain":
             for block in params.blocks():
-                block.attn_fn = lambda q, k, v: flash_attention_plain(q, k, v, True)[0]
+                block.attn_fn = plain_attn
         state = ReinforceState(params, *make_optimizers(params, algo.pi_lr, algo.vf_lr))
         state, metrics = update(state, {key: torch.as_tensor(val, device=device)
                                         for key, val in batch.items()})
@@ -587,17 +763,33 @@ def compare_update(algo, params0, batch, device) -> dict:
             "mean_diff_share": share}
 
 
+def epoch_batches(algo, episodes, n: int) -> list[dict]:
+    """The first ``n`` epoch batches of ``episodes``, padded by an
+    ``EpochBuffer`` as the learner pads them."""
+    import numpy as np
+
+    from relayrl_tpu_torch.data import EpochBuffer
+
+    per = LEARNER["traj_per_epoch"]
+    batches = []
+    for i in range(n):
+        buf = EpochBuffer(algo.obs_dim, algo.act_dim, per,
+                          buckets=LEARNER["bucket_lengths"])
+        for records in episodes[i * per:(i + 1) * per]:
+            buf.add_episode(records)
+        batches.append({k: np.array(v) for k, v in buf.drain().as_dict().items()})
+    return batches
+
+
 def learn(device, workdir: Path) -> dict:
     """Drive the learner slice: actors serve from the learner's bundle,
     every shipped episode goes to ``receive_trajectory``, and the host
     swaps to each new bundle. Checks counts, versions, metrics and params.
-    Returns the launch counts, the update times, the algorithm and the
-    first epoch's batch."""
-    import numpy as np
+    Returns the launch counts, the update times, the algorithm, the first
+    epoch's batch and the first wave's episodes."""
     import torch
 
     from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
-    from relayrl_tpu_torch.data import EpochBuffer
     from relayrl_tpu_torch.envs import RecallEnv, SyncVectorEnv
     from relayrl_tpu_torch.runtime.vector_actor import (
         VectorActorHost,
@@ -623,11 +815,8 @@ def learn(device, workdir: Path) -> dict:
         episodes = [deserialize_actions(p) for p in sent]
         if first_batch is None:
             # The first epoch's batch, assembled apart for compare_update.
-            buf = EpochBuffer(algo.obs_dim, algo.act_dim, LEARNER["traj_per_epoch"],
-                              buckets=LEARNER["bucket_lengths"])
-            for records in episodes[:LEARNER["traj_per_epoch"]]:
-                buf.add_episode(records)
-            first_batch = {k: np.array(v) for k, v in buf.drain().as_dict().items()}
+            first_batch = epoch_batches(algo, episodes, 1)[0]
+            first_wave = episodes
         for records in episodes:
             if len(records) != LEARNER_HORIZON + 1 or not records[-1].done:
                 raise AssertionError(f"shipped episode of {len(records)} records")
@@ -670,9 +859,105 @@ def learn(device, workdir: Path) -> dict:
         if not torch.isfinite(param).all() or torch.equal(param, start[name]):
             raise AssertionError(f"param {name} not finite or unchanged")
     return {"algo": algo, "params0": params0, "batch": first_batch,
+            "first_wave": first_wave,
             "do_copies": flash_attention.do_copies, "on_policy_kl": on_policy,
             "per_update": per_update, "seconds": seconds, "metrics": metrics,
             "launches": tuple(sum(c[i] for c in per_update) for i in range(3))}
+
+
+def ring_counts() -> tuple[int, int, int]:
+    from relayrl_tpu_torch.parallel import ring_flash as rf
+
+    return rf.chunk_fwd.launches, rf.chunk_dq.launches, rf.chunk_dkv.launches
+
+
+def zero_ring_counts() -> None:
+    from relayrl_tpu_torch.parallel import ring_flash as rf
+
+    rf.chunk_fwd.launches = rf.chunk_dq.launches = rf.chunk_dkv.launches = 0
+
+
+def learn_sp(device, workdir: Path, learned: dict) -> dict:
+    """Drive the sequence-parallel learner: REINFORCE at the slice's arch
+    with ``attention="ring"``, its update run by ``make_sharded_update(...,
+    shard_time=True)`` over an sp mesh of ``SP`` shards of the one card,
+    for ``SP_UPDATES`` updates on epoch batches of phase 5's first wave,
+    which the actors drew from the initial params this learner starts
+    from. Checks the launch counts of every update, the first update's KL,
+    the metrics and the params."""
+    import torch
+
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+    from relayrl_tpu_torch.algorithms.reinforce import make_reinforce_update
+    from relayrl_tpu_torch.parallel import make_mesh, make_sharded_update, place_state
+
+    algo = build_learner(device, workdir, attention="ring")
+    params0 = copy.deepcopy(algo.state.params)
+    for (name, p), q in zip(params0.named_parameters(), learned["params0"].parameters()):
+        if not torch.equal(p, q):
+            raise AssertionError(f"initial {name} differs from the flash learner's")
+    mesh = make_mesh({"sp": SP}, [device] * SP)
+    update = make_reinforce_update(algo.policy, algo.train_vf_iters, algo.gamma,
+                                   algo.lam, algo.with_baseline)
+    sharded = make_sharded_update(update, mesh, algo.state, shard_time=True)
+    state = place_state(algo.state, mesh)
+    batches = epoch_batches(algo, learned["first_wave"], SP_UPDATES)
+    per_update, seconds, metrics = [], [], []
+    for batch in batches:
+        zero_flash_counts()
+        zero_ring_counts()
+        t0 = time.perf_counter()
+        state, out = sharded(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        per_update.append(flash_counts() + ring_counts())
+        metrics.append(read_metrics(out))
+    n_layers = SLICE_ARCH["n_layers"]
+    pairs = SP * (SP + 1) // 2  # causal: shard i attends chunks 0..i
+    evaluates = 4 + LEARNER["train_vf_iters"]
+    expected = (0, 0, 0, evaluates * n_layers * pairs, n_layers * pairs,
+                n_layers * pairs)
+    if any(c != expected for c in per_update):
+        raise AssertionError(f"launches per update {per_update}; expected {expected}")
+    if state.step != SP_UPDATES:
+        raise AssertionError(f"sp learner at step {state.step}")
+    if not abs(metrics[0]["KL"]) <= ON_POLICY_KL_TOL:
+        raise AssertionError(f"KL of the first sp update {metrics[0]['KL']}: the "
+                             f"ring learner and the actors disagree on the same params")
+    for m in metrics:
+        if len(m) != 8 or not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"sp metrics {m}")
+    start = dict(params0.named_parameters())
+    for name, param in state.params.named_parameters():
+        if not torch.isfinite(param).all() or torch.equal(param, start[name]):
+            raise AssertionError(f"sp param {name} not finite or unchanged")
+    return {"algo": algo, "mesh": mesh, "sharded": sharded, "state": state,
+            "params0": params0, "batches": batches, "per_update": per_update,
+            "seconds": seconds, "metrics": metrics,
+            "launches": tuple(sum(c[i] for c in per_update) for i in range(6))}
+
+
+def compare_ring_evaluate(algo, params, mesh, device) -> float:
+    """``evaluate`` at ``[LANES, max_seq_len]`` through the ring (under the
+    sp mesh) against the same params through K1; returns the max abs
+    difference over (logp, entropy, v)."""
+    import torch
+
+    from relayrl_tpu_torch.ops.flash import flash_attention
+    from relayrl_tpu_torch.parallel import use_mesh
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    obs = torch.randn((LANES, SLICE_ARCH["max_seq_len"], algo.obs_dim),
+                      generator=gen).to(device)
+    act = torch.randint(0, algo.act_dim, obs.shape[:2], generator=gen).to(device)
+    flash = copy.deepcopy(params)
+    for block in flash.blocks():
+        block.attn_fn = lambda q, k, v: flash_attention(q, k, v, True)[0]
+    with torch.inference_mode():
+        with use_mesh(mesh):
+            got = algo.policy.evaluate(params, obs, act)
+        want = algo.policy.evaluate(flash, obs, act)
+    return max((a - b).abs().max().item() for a, b in zip(got, want))
 
 
 def main() -> int:
@@ -751,7 +1036,10 @@ def main() -> int:
         f"{k}={v:.6g}" for k, v in learned["metrics"].items()))
     print(f"[learn] KL of the first update of each wave (same params as the "
           f"actors): {learned['on_policy_kl']} (tol {ON_POLICY_KL_TOL:g})")
-    cmp = compare_update(algo, learned["params0"], learned["batch"], device)
+    from relayrl_tpu_torch.ops.flash import flash_attention_plain
+
+    cmp = compare_update(algo, learned["params0"], learned["batch"], device,
+                         lambda q, k, v: flash_attention_plain(q, k, v, True)[0])
     print(f"[learn] first update, kernels vs plain attention: max metric diff "
           f"{cmp['metric_err']:.3e} (tol {UPDATE_METRIC_TOL:g} x max(1, |m|)), "
           f"max param diff {cmp['param_err']:.3e} (tol 2 x Adam step bound), "
@@ -764,6 +1052,51 @@ def main() -> int:
           f"{1e3 * seconds[0]:.2f} ms) on {smi.splitlines()[0]}", flush=True)
     batch = learned["batch"]
     profile_device(lambda: algo.train_on_batch(batch), 1, "update")
+
+    # 6. ring kernels vs plain
+    main_ring = check_ring_chunks(device)
+    check_chunked_local(device)
+
+    # 7. sequence-parallel learner
+    from relayrl_tpu_torch.parallel import make_sharded_update
+    from relayrl_tpu_torch.parallel import ring_flash as rf
+
+    sp = learn_sp(device, Path(__file__).resolve().parent / "build" / "chip_smoke_sp",
+                  learned)
+    sp_algo, sp_seconds, mesh = sp["algo"], sp["seconds"], sp["mesh"]
+    print(f"[sp-learn] {SP_UPDATES} updates of [{LEARNER['traj_per_epoch']}, "
+          f"{LEARNER['bucket_lengths'][0]}] through make_sharded_update(..., "
+          f"shard_time=True) over sp={SP} shards of one card: launches per update "
+          f"(flash_fwd, flash_dq, flash_dkv, ring_chunk_fwd, ring_chunk_dq, "
+          f"ring_chunk_dkv) {sp['per_update'][0]}; KL of the first update "
+          f"{sp['metrics'][0]['KL']:.3e} (tol {ON_POLICY_KL_TOL:g})", flush=True)
+    print("[sp-learn] last metrics: " + ", ".join(
+        f"{k}={v:.6g}" for k, v in sp["metrics"][-1].items()))
+    plain_ring = rf._make_ring_flash(mesh, "sp", True, ("dp", "fsdp"),
+                                     rf.PLAIN_CHUNK_CALLS)
+    cmp = compare_update(sp_algo, sp["params0"], sp["batches"][0], device, plain_ring,
+                         wrap=lambda u: make_sharded_update(u, mesh, None, shard_time=True))
+    print(f"[sp-learn] first update, ring kernels vs plain chunk versions: max metric "
+          f"diff {cmp['metric_err']:.3e} (tol {UPDATE_METRIC_TOL:g} x max(1, |m|)), "
+          f"max param diff {cmp['param_err']:.3e} (tol 2 x Adam step bound), mean "
+          f"param diff {cmp['mean_diff_share']:.4f} of the mean movement (tol "
+          f"{UPDATE_MEAN_DIFF_SHARE:g})", flush=True)
+    err = compare_ring_evaluate(sp_algo, sp["state"].params, mesh, device)
+    if not err <= TOLERANCE["bfloat16"]:
+        raise AssertionError(f"evaluate ring vs flash_fwd: {err}")
+    print(f"[sp-learn] evaluate [{LANES}, {SLICE_ARCH['max_seq_len']}] through the "
+          f"ring vs through flash_fwd: max abs diff {err:.3e} (tol "
+          f"{TOLERANCE['bfloat16']:g})")
+    sp_steady = sp_seconds[1:]
+    print(f"[sp-learn] {len(sp_steady) / sum(sp_steady):.3f} updates/s "
+          f"({1e3 * sum(sp_steady) / len(sp_steady):.2f} ms per update over updates "
+          f"2-{len(sp_seconds)}; first update {1e3 * sp_seconds[0]:.2f} ms) beside "
+          f"the flash learner's {len(steady) / sum(steady):.3f} updates/s "
+          f"({1e3 * sum(steady) / len(steady):.2f} ms) on {smi.splitlines()[0]}",
+          flush=True)
+    sp_batch = sp["batches"][0]
+    profile_device(lambda: sp["sharded"](sp["state"], sp_batch), 1, "update")
+    _, _, _, ring_fwd, ring_dq, ring_dkv = sp["launches"]
 
     kernels = [{
         "name": "flash_fwd",
@@ -786,7 +1119,17 @@ def main() -> int:
         "replaces": "relayrl_tpu/ops/flash.py:255",
         "launches": dkv,
         **main_bwd["flash_dkv"],
-    }]
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "relayrl_tpu_torch/csrc/ring_flash.cu",
+        "replaces": replaces,
+        "launches": launches,
+        **main_ring[name],
+    } for name, replaces, launches in (
+        ("ring_chunk_fwd", "relayrl_tpu/parallel/ring_flash.py:86", ring_fwd),
+        ("ring_chunk_dq", "relayrl_tpu/parallel/ring_flash.py:119", ring_dq),
+        ("ring_chunk_dkv", "relayrl_tpu/parallel/ring_flash.py:147", ring_dkv))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "relayrl_tpu_torch"
-KERNELS = ("flash_fwd", "flash_bwd")
+KERNELS = ("flash_fwd", "flash_bwd", "ring_flash")
 # -Xptxas=-v prints each kernel's registers, shared memory and spills
 # into the build log (BUILD_LOGS).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

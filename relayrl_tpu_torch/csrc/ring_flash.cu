@@ -1,0 +1,585 @@
+// Ring-attention chunk kernels for Hopper (sm_90a): one ring round of the
+// flash forward (K4), of the dq pass (K5) and of the dk/dv pass (K6), with
+// a plain C interface that relayrl_tpu_torch/parallel/ring_flash.py loads
+// through ctypes.
+//
+// Replaces the Pallas TPU kernels relayrl_tpu/parallel/ring_flash.py::
+// _chunk_fwd_kernel (K4), ::_chunk_dq_kernel (K5) and ::_chunk_dkv_kernel
+// (K6), built by _build_chunk_calls and driven by _make_ring_flash. Each
+// attends the local queries of one sequence shard to one visiting K/V
+// chunk of length C under a mode: 1 FULL (every key; a chunk in the past)
+// or 2 DIAG (key <= query on local positions; the shard's own chunk). The
+// wrapper never launches for SKIP. Math, as in the TPU kernels:
+//
+//   qs arrives prescaled by log2(e)/sqrt(D) and rounded to the input dtype
+//   s  = qs.k                          (log2 space, f32)
+//   K4: resume (acc, m, l) from o_in, m_in, l_in; online softmax on exp2;
+//       p rounded to v's dtype before p.v; flush acc, m, l unfinalized
+//   p  = exp2(s - lse2), dp = do.v, ds = p * (dp - delta)
+//   K5: dq_out = dq_in + sum_j round(ds).k_j         ds rounded to k's dtype
+//   K6: dv_out = dv_in + sum_i round(p).do_i         p rounded to do's dtype
+//       dk_out = dk_in + sum_i round(ds).qs_i        ds rounded to q's dtype
+//
+// Every carried buffer and output is f32 and unscaled (the ring applies
+// 1/sqrt(D) to dq and 1/log2(e) to dk once, at its end). Each kernel reads
+// its *_in buffers and writes separate *_out buffers: on a ring whose
+// shards share one card the buffer a shard receives is the tensor its
+// predecessor wrote, so nothing is updated in place.
+//
+// Design. The design of flash_bwd.cu. The TPU kernels' sequential grid
+// axis (KV for K4 and K5, Q for K6) becomes a loop inside the block, and
+// each output row belongs to one block, so no kernel needs atomics. K4 and
+// K5: a block owns one (batch*head, 64-row query tile); each row's q, its
+// state and (K5) its do, lse2, delta stay in registers while the block
+// walks 64-key tiles of K and V staged in shared memory as f32, up to the
+// row's diagonal under DIAG. K6: a block owns a 64-row key tile; each
+// row's k, v and its dk and dv accumulators stay in registers while the
+// block walks 64-row query tiles of qs, do, lse2 and delta, from its own
+// tile on under DIAG. One thread owns a row, two at D = 64 (each holds
+// every other head dim; the pair adds its halves of a dot product with one
+// shuffle). Every key loop starts at the chunk's key 0, which is live for
+// every row in both modes, so K4's running max is finite before a masked
+// score is exponentiated: exp2(-1e30 - m) flushes to exactly 0. Keys past
+// C, and above the diagonal under DIAG, are skipped or masked, so any C
+// works. q, k, v and do are read through their own (batch, time, head)
+// element strides (views of the fused qkv projection, cut by chunk); the
+// state is contiguous [B, H, C, D] and [B, H, C].
+//
+// Bound on the H100 at the learner's chunk shape (B*H = 64, C = 64,
+// D = 32, bf16, FULL): K4 moves about 1.9 MB (the f32 state in and out is
+// more than half of it) and does 34 MFLOP, K5 about 2.1 MB and 50 MFLOP,
+// K6 about 3.2 MB and 67 MFLOP, so all three are memory-bound with floors
+// of 0.6-1 us at 3.35 TB/s. These first kernels run their products as scalar
+// FMAs on the CUDA cores with operands read from shared memory, on 64
+// blocks of 64 threads at that shape, so issue rate, occupancy and launch
+// latency limit them rather than memory; mma/wgmma tiles, TMA staging and
+// fusing a ring's rounds into one launch are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kRows = 64;   // output rows a block owns
+constexpr int kTile = 64;   // rows of the other side per shared-memory tile
+constexpr int kChunk = 16;  // keys per online-softmax update (K4)
+constexpr float kNegInf = -1e30f;
+constexpr int kModeFull = 1;
+constexpr int kModeDiag = 2;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as astype does
+}
+
+// An f32 value rounded through the input dtype.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// Threads per row: a thread holds at most 32 head dims of each vector.
+// Thread `part` of a row holds dims part, part + k, part + 2k, ... so the
+// threads of a row read neighbouring shared-memory words.
+template <int D>
+struct Split {
+  static constexpr int k = D > 32 ? D / 32 : 1;
+  static constexpr int dims = D / k;
+};
+
+// Sum of x over the S adjacent lanes that share one row. Only those lanes
+// take part, so rows of one warp may leave their loops at different keys.
+template <int S>
+__device__ __forceinline__ float row_sum(float x) {
+  if constexpr (S > 1) {
+    const unsigned lane = threadIdx.x & 31u;
+    const unsigned group = ((1u << S) - 1u) << (lane & ~(unsigned)(S - 1));
+#pragma unroll
+    for (int off = 1; off < S; off <<= 1) x += __shfl_xor_sync(group, x, off);
+  }
+  return x;
+}
+
+// Element strides of one [B, C, H, D] tensor with a contiguous head dim.
+struct Strides {
+  long long b, t, h;
+  __device__ __forceinline__ long long at(int bb, int tt, int hh) const {
+    return (long long)bb * b + (long long)tt * t + (long long)hh * h;
+  }
+};
+
+struct FwdArgs {
+  const void* q;  // prescaled
+  const void* k;
+  const void* v;
+  const float* o_in;  // [B, H, C, D]
+  const float* m_in;  // [B, H, C]
+  const float* l_in;  // [B, H, C]
+  float* o_out;
+  float* m_out;
+  float* l_out;
+  int H, C;
+  Strides qs, ks, vs;
+  bool diag;
+};
+
+struct BwdArgs {
+  const void* q;  // prescaled
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;    // [B, H, C]
+  const float* delta;  // [B, H, C]
+  const float* a_in;   // K5: dq_in; K6: dk_in   [B, H, C, D]
+  const float* b_in;   // K6: dv_in
+  float* a_out;        // K5: dq_out; K6: dk_out
+  float* b_out;        // K6: dv_out
+  int H, C;
+  Strides qs, ks, vs, ds;
+  bool diag;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kRows* Split<D>::k)
+    ring_chunk_fwd_kernel(const FwdArgs a) {
+  constexpr int S = Split<D>::k;
+  constexpr int DD = Split<D>::dims;
+  __shared__ __align__(16) float ks[kTile][D];
+  __shared__ __align__(16) float vs[kTile][D];
+
+  const T* __restrict__ q = static_cast<const T*>(a.q);
+  const T* __restrict__ k = static_cast<const T*>(a.k);
+  const T* __restrict__ v = static_cast<const T*>(a.v);
+  const int C = a.C;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int q0 = blockIdx.y * kRows;
+  const int part = threadIdx.x % S;
+  const int row = q0 + threadIdx.x / S;
+  const bool live = row < C;
+  const long long srow = (long long)bh * C + row;  // row of the state
+
+  float qr[DD];
+  float acc[DD];
+  float m = kNegInf;
+  float l = 0.f;
+#pragma unroll
+  for (int i = 0; i < DD; ++i) {
+    qr[i] = 0.f;
+    acc[i] = 0.f;
+  }
+  if (live) {
+    const T* qp = q + a.qs.at(b, row, h);
+#pragma unroll
+    for (int i = 0; i < DD; ++i) {
+      const int d = i * S + part;
+      qr[i] = to_float(qp[d]);
+      acc[i] = a.o_in[srow * D + d];
+    }
+    m = a.m_in[srow];
+    l = a.l_in[srow];
+  }
+
+  // Under DIAG a block needs keys only up to its last row's diagonal.
+  const int kv_end = a.diag ? min(C, q0 + kRows) : C;
+  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int e = threadIdx.x; e < kTile * D; e += blockDim.x) {
+      const int r = e / D;
+      const int c = e - r * D;
+      const int t = k0 + r;
+      float kv = 0.f;
+      float vv = 0.f;
+      if (t < kv_end) {
+        kv = to_float(k[a.ks.at(b, t, h) + c]);
+        vv = to_float(v[a.vs.at(b, t, h) + c]);
+      }
+      ks[r][c] = kv;
+      vs[r][c] = vv;
+    }
+    __syncthreads();
+    if (!live) continue;
+    const int n = min(kTile, kv_end - k0);
+    for (int c0 = 0; c0 < n; c0 += kChunk) {
+      const int j0 = k0 + c0;
+      // Every key from here on is above this row's diagonal. No barrier
+      // follows inside this loop, so rows may leave it independently.
+      if (a.diag && j0 > row) break;
+      float s[kChunk];
+      float mx = m;
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < DD; ++i) dot = fmaf(qr[i], ks[c0 + jj][i * S + part], dot);
+        dot = row_sum<S>(dot);
+        const int j = j0 + jj;
+        const bool valid = j < kv_end && (!a.diag || j <= row);
+        s[jj] = valid ? dot : kNegInf;
+        mx = fmaxf(mx, s[jj]);
+      }
+      // Key j0 is valid for this row, so mx is finite and every masked
+      // p = exp2(-1e30 - mx) flushes to exactly 0; so does corr while m is
+      // still the initial -1e30.
+      const float corr = exp2f(m - mx);
+      l *= corr;
+#pragma unroll
+      for (int i = 0; i < DD; ++i) acc[i] *= corr;
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const float p = exp2f(s[jj] - mx);
+        l += p;
+        const float pv = round_to<T>(p);
+#pragma unroll
+        for (int i = 0; i < DD; ++i) acc[i] = fmaf(pv, vs[c0 + jj][i * S + part], acc[i]);
+      }
+      m = mx;
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < DD; ++i) a.o_out[srow * D + i * S + part] = acc[i];
+    if (part == 0) {
+      a.m_out[srow] = m;
+      a.l_out[srow] = l;
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kRows* Split<D>::k)
+    ring_chunk_dq_kernel(const BwdArgs a) {
+  constexpr int S = Split<D>::k;
+  constexpr int DD = Split<D>::dims;
+  __shared__ __align__(16) float ks[kTile][D];
+  __shared__ __align__(16) float vs[kTile][D];
+
+  const T* __restrict__ q = static_cast<const T*>(a.q);
+  const T* __restrict__ k = static_cast<const T*>(a.k);
+  const T* __restrict__ v = static_cast<const T*>(a.v);
+  const T* __restrict__ dout = static_cast<const T*>(a.dout);
+  const int C = a.C;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int q0 = blockIdx.y * kRows;
+  const int part = threadIdx.x % S;
+  const int row = q0 + threadIdx.x / S;
+  const bool live = row < C;
+  const long long srow = (long long)bh * C + row;
+
+  float qr[DD];
+  float dor[DD];
+  float acc[DD];
+  float lse = 0.f;
+  float delta = 0.f;
+#pragma unroll
+  for (int i = 0; i < DD; ++i) {
+    qr[i] = 0.f;
+    dor[i] = 0.f;
+    acc[i] = 0.f;
+  }
+  if (live) {
+    const T* qp = q + a.qs.at(b, row, h);
+    const T* dp = dout + a.ds.at(b, row, h);
+#pragma unroll
+    for (int i = 0; i < DD; ++i) {
+      const int d = i * S + part;
+      qr[i] = to_float(qp[d]);
+      dor[i] = to_float(dp[d]);
+      acc[i] = a.a_in[srow * D + d];
+    }
+    lse = a.lse[srow];
+    delta = a.delta[srow];
+  }
+
+  const int kv_end = a.diag ? min(C, q0 + kRows) : C;
+  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int e = threadIdx.x; e < kTile * D; e += blockDim.x) {
+      const int r = e / D;
+      const int c = e - r * D;
+      const int t = k0 + r;
+      float kv = 0.f;
+      float vv = 0.f;
+      if (t < kv_end) {
+        kv = to_float(k[a.ks.at(b, t, h) + c]);
+        vv = to_float(v[a.vs.at(b, t, h) + c]);
+      }
+      ks[r][c] = kv;
+      vs[r][c] = vv;
+    }
+    __syncthreads();
+    if (!live) continue;
+    const int n = min(kTile, kv_end - k0);
+    for (int jj = 0; jj < n; ++jj) {
+      // Keys ascend: under DIAG every key from here on is above this
+      // row's diagonal. No barrier follows inside this loop.
+      if (a.diag && k0 + jj > row) break;
+      float s = 0.f;
+      float dp = 0.f;
+#pragma unroll
+      for (int i = 0; i < DD; ++i) {
+        const int d = i * S + part;
+        s = fmaf(qr[i], ks[jj][d], s);
+        dp = fmaf(dor[i], vs[jj][d], dp);
+      }
+      s = row_sum<S>(s);
+      dp = row_sum<S>(dp);
+      const float ds = round_to<T>(exp2f(s - lse) * (dp - delta));
+#pragma unroll
+      for (int i = 0; i < DD; ++i) acc[i] = fmaf(ds, ks[jj][i * S + part], acc[i]);
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < DD; ++i) a.a_out[srow * D + i * S + part] = acc[i];
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kRows* Split<D>::k)
+    ring_chunk_dkv_kernel(const BwdArgs a) {
+  constexpr int S = Split<D>::k;
+  constexpr int DD = Split<D>::dims;
+  __shared__ __align__(16) float qs[kTile][D];
+  __shared__ __align__(16) float dos[kTile][D];
+  __shared__ float lse_s[kTile];
+  __shared__ float delta_s[kTile];
+
+  const T* __restrict__ q = static_cast<const T*>(a.q);
+  const T* __restrict__ k = static_cast<const T*>(a.k);
+  const T* __restrict__ v = static_cast<const T*>(a.v);
+  const T* __restrict__ dout = static_cast<const T*>(a.dout);
+  const int C = a.C;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int k0 = blockIdx.y * kRows;
+  const int part = threadIdx.x % S;
+  const int key = k0 + threadIdx.x / S;
+  const bool live = key < C;
+  const long long srow = (long long)bh * C + key;
+  const long long row0 = (long long)bh * C;
+
+  float kr[DD];
+  float vr[DD];
+  float dk_acc[DD];
+  float dv_acc[DD];
+#pragma unroll
+  for (int i = 0; i < DD; ++i) {
+    kr[i] = 0.f;
+    vr[i] = 0.f;
+    dk_acc[i] = 0.f;
+    dv_acc[i] = 0.f;
+  }
+  if (live) {
+    const T* kp = k + a.ks.at(b, key, h);
+    const T* vp = v + a.vs.at(b, key, h);
+#pragma unroll
+    for (int i = 0; i < DD; ++i) {
+      const int d = i * S + part;
+      kr[i] = to_float(kp[d]);
+      vr[i] = to_float(vp[d]);
+      dk_acc[i] = a.a_in[srow * D + d];
+      dv_acc[i] = a.b_in[srow * D + d];
+    }
+  }
+
+  // Under DIAG a block needs queries only from its first key's diagonal on.
+  for (int t0 = a.diag ? k0 : 0; t0 < C; t0 += kTile) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int e = threadIdx.x; e < kTile * D; e += blockDim.x) {
+      const int r = e / D;
+      const int c = e - r * D;
+      const int t = t0 + r;
+      float qv = 0.f;
+      float dov = 0.f;
+      if (t < C) {
+        qv = to_float(q[a.qs.at(b, t, h) + c]);
+        dov = to_float(dout[a.ds.at(b, t, h) + c]);
+      }
+      qs[r][c] = qv;
+      dos[r][c] = dov;
+    }
+    for (int r = threadIdx.x; r < kTile; r += blockDim.x) {
+      const bool in = t0 + r < C;
+      lse_s[r] = in ? a.lse[row0 + t0 + r] : 0.f;
+      delta_s[r] = in ? a.delta[row0 + t0 + r] : 0.f;
+    }
+    __syncthreads();
+    if (!live) continue;
+    const int n = min(kTile, C - t0);
+    for (int ii = 0; ii < n; ++ii) {
+      // Under DIAG queries before this key do not see it.
+      if (a.diag && t0 + ii < key) continue;
+      float s = 0.f;
+      float dp = 0.f;
+#pragma unroll
+      for (int i = 0; i < DD; ++i) {
+        const int d = i * S + part;
+        s = fmaf(kr[i], qs[ii][d], s);
+        dp = fmaf(vr[i], dos[ii][d], dp);
+      }
+      s = row_sum<S>(s);
+      dp = row_sum<S>(dp);
+      const float p = exp2f(s - lse_s[ii]);
+      const float pr = round_to<T>(p);
+      const float ds = round_to<T>(p * (dp - delta_s[ii]));
+#pragma unroll
+      for (int i = 0; i < DD; ++i) {
+        const int d = i * S + part;
+        dv_acc[i] = fmaf(pr, dos[ii][d], dv_acc[i]);
+        dk_acc[i] = fmaf(ds, qs[ii][d], dk_acc[i]);
+      }
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < DD; ++i) {
+      a.a_out[srow * D + i * S + part] = dk_acc[i];
+      a.b_out[srow * D + i * S + part] = dv_acc[i];
+    }
+  }
+}
+
+enum class Kernel { kFwd, kDq, kDkv };
+
+template <Kernel K, typename T, int D, typename Args>
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  const dim3 grid(B * a.H, (a.C + kRows - 1) / kRows);
+  const int threads = kRows * Split<D>::k;
+  if constexpr (K == Kernel::kFwd) {
+    ring_chunk_fwd_kernel<T, D><<<grid, threads, 0, stream>>>(a);
+  } else if constexpr (K == Kernel::kDq) {
+    ring_chunk_dq_kernel<T, D><<<grid, threads, 0, stream>>>(a);
+  } else {
+    ring_chunk_dkv_kernel<T, D><<<grid, threads, 0, stream>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+template <Kernel K, typename T, typename Args>
+cudaError_t launch_for_dim(int D, const Args& a, int B, cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch<K, T, 16>(a, B, s);
+    case 32:
+      return launch<K, T, 32>(a, B, s);
+    case 64:
+      return launch<K, T, 64>(a, B, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Sets the mode, checks the launch's dimensions and launches on `stream`.
+template <Kernel K, typename Args>
+int run(Args a, int B, int D, int mode, int is_bf16, void* stream) {
+  if (B <= 0 || a.H <= 0 || a.C <= 0 || (long long)B * a.H > 0x7fffffffLL ||
+      (a.C + kRows - 1) / kRows > 65535 || (mode != kModeFull && mode != kModeDiag)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.diag = mode == kModeDiag;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = is_bf16 ? launch_for_dim<K, __nv_bfloat16>(D, a, B, s)
+                                  : launch_for_dim<K, float>(D, a, B, s);
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+// q (prescaled), k, v, dout: [B, C, H, D] elements at b*sB + t*sT + h*sH + d,
+// each with its own strides; the carried state and the outputs: contiguous
+// f32, [B, H, C, D] (o, dq, dk, dv) and [B, H, C] (m, l, lse, delta). mode:
+// 1 FULL, 2 DIAG. Each launches on `stream` and returns the cudaError_t of
+// the launch (0 on success).
+extern "C" int relayrl_ring_chunk_fwd(
+    const void* q, const void* k, const void* v, const void* o_in,
+    const void* m_in, const void* l_in, void* o_out, void* m_out, void* l_out,
+    int B, int H, int C, int D, long long qB, long long qT, long long qH,
+    long long kB, long long kT, long long kH, long long vB, long long vT,
+    long long vH, int mode, int is_bf16, void* stream) {
+  const FwdArgs a{q,
+                  k,
+                  v,
+                  static_cast<const float*>(o_in),
+                  static_cast<const float*>(m_in),
+                  static_cast<const float*>(l_in),
+                  static_cast<float*>(o_out),
+                  static_cast<float*>(m_out),
+                  static_cast<float*>(l_out),
+                  H,
+                  C,
+                  {qB, qT, qH},
+                  {kB, kT, kH},
+                  {vB, vT, vH},
+                  false};
+  return run<Kernel::kFwd>(a, B, D, mode, is_bf16, stream);
+}
+
+extern "C" int relayrl_ring_chunk_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* dq_in, void* dq_out, int B,
+    int H, int C, int D, long long qB, long long qT, long long qH, long long kB,
+    long long kT, long long kH, long long vB, long long vT, long long vH,
+    long long dB, long long dT, long long dH, int mode, int is_bf16,
+    void* stream) {
+  const BwdArgs a{q,
+                  k,
+                  v,
+                  dout,
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(delta),
+                  static_cast<const float*>(dq_in),
+                  nullptr,
+                  static_cast<float*>(dq_out),
+                  nullptr,
+                  H,
+                  C,
+                  {qB, qT, qH},
+                  {kB, kT, kH},
+                  {vB, vT, vH},
+                  {dB, dT, dH},
+                  false};
+  return run<Kernel::kDq>(a, B, D, mode, is_bf16, stream);
+}
+
+extern "C" int relayrl_ring_chunk_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* dk_in, const void* dv_in,
+    void* dk_out, void* dv_out, int B, int H, int C, int D, long long qB,
+    long long qT, long long qH, long long kB, long long kT, long long kH,
+    long long vB, long long vT, long long vH, long long dB, long long dT,
+    long long dH, int mode, int is_bf16, void* stream) {
+  const BwdArgs a{q,
+                  k,
+                  v,
+                  dout,
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(delta),
+                  static_cast<const float*>(dk_in),
+                  static_cast<const float*>(dv_in),
+                  static_cast<float*>(dk_out),
+                  static_cast<float*>(dv_out),
+                  H,
+                  C,
+                  {qB, qT, qH},
+                  {kB, kT, kH},
+                  {vB, vT, vH},
+                  {dB, dT, dH},
+                  false};
+  return run<Kernel::kDkv>(a, B, D, mode, is_bf16, stream);
+}

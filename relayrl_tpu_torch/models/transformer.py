@@ -12,12 +12,17 @@ and the same numerics:
   does the residual stream;
 * GELU is the tanh approximation (flax's ``nn.gelu`` default).
 
-Attention backends by arch ``attention``: ``"dense"``, ``"blockwise"``, and
+Attention backends by arch ``attention``: ``"dense"``, ``"blockwise"``,
 ``"flash"`` — the flash kernel (:mod:`relayrl_tpu_torch.ops.flash`) when the
 window length tiles by ``flash_block`` (every ``T <= flash_block`` does),
-else blockwise or dense, the reference's rule. The ``"ring"`` backend,
-the KV-cache decode path and the MoE and pipeline families are not ported
-yet.
+else blockwise or dense, the reference's rule — and ``"ring"``: ring
+attention over the ambient mesh's ``sp`` axis
+(:func:`relayrl_tpu_torch.parallel.use_mesh`), as the chunk-kernel ring
+(:mod:`relayrl_tpu_torch.parallel.ring_flash`) when the local chunk tiles
+by 8, else the scan ring (:mod:`relayrl_tpu_torch.parallel.ring`); with no
+mesh, or ``sp`` 1, blockwise or dense, so actors serve the arch the
+learner trains. The KV-cache decode path and the MoE and pipeline families
+are not ported yet.
 
 Sequence ABI (see :class:`~relayrl_tpu_torch.models.base.Policy`):
 ``evaluate(params, obs[B,T,D], act[B,T], mask[B,T,A]) -> (logp, ent, v)``;
@@ -44,6 +49,12 @@ from relayrl_tpu_torch.models.mlp import (
 )
 from relayrl_tpu_torch.ops.attention import blockwise_attention, dense_attention
 from relayrl_tpu_torch.ops.flash import flash_attention
+from relayrl_tpu_torch.parallel.context import current_mesh
+from relayrl_tpu_torch.parallel.ring import make_ring_attention
+from relayrl_tpu_torch.parallel.ring_flash import (
+    make_ring_flash_attention,
+    pick_chunk_block,
+)
 from relayrl_tpu_torch.weights import params_from_jax
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm's default; torch's is 1e-5
@@ -68,6 +79,19 @@ def _resolve_attention(arch: Mapping[str, Any]) -> Callable:
                 return blockwise_attention(q, k, v, block, causal=True)
             return dense_attention(q, k, v, causal=True)
         return flash_or_local
+    if kind == "ring":
+        def ring_or_local(q, k, v):
+            mesh = current_mesh()
+            if mesh is None or mesh.shape.get("sp", 1) <= 1:
+                if q.shape[1] % block == 0:
+                    return blockwise_attention(q, k, v, block, causal=True)
+                return dense_attention(q, k, v, causal=True)
+            # The chunk kernels when the local chunk tiles; the scan ring
+            # is the portable fallback.
+            if pick_chunk_block(q.shape[1] // mesh.shape["sp"]) is not None:
+                return make_ring_flash_attention(mesh)(q, k, v)
+            return make_ring_attention(mesh)(q, k, v)
+        return ring_or_local
     raise ValueError(f"attention kind {kind!r} is unknown or not ported")
 
 

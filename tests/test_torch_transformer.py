@@ -197,5 +197,5 @@ def test_flash_dispatch_rule(monkeypatch):
         out = attn(q, k, v)
         assert out.shape == (1, T, 2, 16)
     assert calls == [1, 5, 8, 16]
-    with pytest.raises(ValueError):
-        transformer._resolve_attention({"attention": "ring"})
+    with pytest.raises(ValueError, match="unknown"):
+        transformer._resolve_attention({"attention": "no_such_kind"})
