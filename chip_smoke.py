@@ -11,11 +11,14 @@ Phases, each of which fails the run:
 2. build: every CUDA kernel of the port (``flash_fwd``, ``flash_bwd``,
    ``ring_flash``), from ``relayrl_tpu_torch/csrc``, one ``nvcc`` per
    source, all started together; prints ``nvcc -Xptxas -v``'s registers
-   and spills;
+   and spills; counts the tensor-core instructions in the SASS of each
+   bf16 instantiation of K2 and K3 (``cuobjdump -sass``) and fails on a
+   zero count or a spill;
 3. kernel vs plain: each kernel (K1 forward, K2 dq, K3 dk/dv) against its
    plain PyTorch version on the card, at the slices' shapes and at edge
    shapes, with the kernel's time, the plain version's, a library call's
-   and the bound;
+   and the bound; the whole backward as the learner runs it (delta, the
+   prescaled q, K2 and K3 through ``torch.autograd.grad``) beside SDPA's;
 4. serving slice: a 64-lane ``VectorActorHost`` over ``RecallEnv`` at the
    flagship transformer's widths (``__graft_entry__.entry()``'s arch: d_model
    256, 4 layers, 8 heads, max_seq_len 256, bf16, flash attention) for 320
@@ -191,41 +194,84 @@ def flash_bwd_bound(B, T, H, D, dtype_name, causal, kernel) -> tuple[float, str]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def check_tensor_cores() -> None:
+    """Prints the tensor-core instructions (HMMA or HGMMA) in the SASS of
+    each bf16 instantiation of K2 and K3 (``cuobjdump -sass`` of the built
+    ``flash_bwd`` library, counted per function section) and ptxas's
+    spills for them. Fails when ``cuobjdump`` is missing, an instantiation
+    is missing, a count is 0 or ptxas reports a spill."""
+    import re
+
+    from relayrl_tpu_torch import _kernels
+    from relayrl_tpu_torch.ops.flash import KERNEL_HEAD_DIMS
+
+    counts = _kernels.count_sass(_kernels.sass("flash_bwd"))
+    spills = _kernels.ptxas_spills(_kernels.build_log("flash_bwd"))
+    found = {"flash_dq": {}, "flash_dkv": {}}
+    for fn, n in counts.items():
+        m = re.search(r"flash_(dq|dkv)_bf16_kernelILi(\d+)E", fn)
+        if m is None:
+            continue
+        kernel, d = f"flash_{m.group(1)}", int(m.group(2))
+        spill = spills.get(fn)
+        print(f"[sass] {kernel} bf16 D={d}: {n} tensor-core instructions "
+              f"(HMMA/HGMMA); ptxas spill stores/loads {spill}", flush=True)
+        if n == 0 or spill != (0, 0):
+            raise AssertionError(f"{fn}: {n} tensor-core instructions, spills {spill}")
+        found[kernel][d] = n
+    for kernel, dims in found.items():
+        if sorted(dims) != sorted(KERNEL_HEAD_DIMS):
+            raise AssertionError(f"{kernel} bf16 instantiations in the SASS: "
+                                 f"{sorted(dims)}, expected {KERNEL_HEAD_DIMS}")
+
+
 def check_flash_bwd(device) -> dict:
     """K2 and K3 against their plain versions at the learner slice's shape
-    (``[8, 256, 8, 32]`` bf16 causal) and at T = 1, 17, 130 (f32 and bf16,
-    causal and not, and head dim 64 at T = 130); times at the slice's
-    shape. Returns {"flash_dq": ..., "flash_dkv": ...} for that shape."""
+    (``[8, 256, 8, 32]`` bf16 causal) and at edge shapes: T = 1, 17, 130
+    (f32 and bf16, causal and not), head dim 64 at T = 130, and in bf16,
+    causal and not, the tensor-core kernels' tile edges: T = 64 (one whole
+    tile), T = 65 (one row past it) and head dim 16. Times at the slice's
+    shape: each kernel alone (on a prescaled q), and the whole backward as the
+    learner runs it (``torch.autograd.grad`` through ``flash_attention``:
+    delta, the prescaled q, K2 and K3) beside SDPA's backward. Returns
+    {"flash_dq": ..., "flash_dkv": ...} for that shape."""
     import torch
     import torch.nn.functional as F
 
     from relayrl_tpu_torch.ops.flash import (
         _launch_dkv,
         _launch_dq,
+        flash_attention,
         flash_attention_delta,
         flash_attention_dkv_plain,
         flash_attention_dq_plain,
         flash_attention_plain,
+        prescale_q,
     )
 
     B, H = LEARNER["traj_per_epoch"], SLICE_ARCH["n_heads"]
     D = SLICE_ARCH["d_model"] // H
     T_main = SLICE_ARCH["max_seq_len"]
     gen = torch.Generator().manual_seed(SEED + 1)
-    cases = [(torch.bfloat16, True, T_main, D)]
+    main_case = (torch.bfloat16, True, T_main, D)
+    cases = [main_case]
     cases += [(dtype, causal, T, D) for dtype in (torch.bfloat16, torch.float32)
               for causal in (True, False) for T in (1, 17, 130)]
     cases += [(torch.bfloat16, True, 130, 64), (torch.float32, False, 130, 64)]
+    cases += [(torch.bfloat16, causal, T, d) for causal in (True, False)
+              for T, d in ((64, D), (65, D), (65, 16), (130, 16))]
     main = {}
-    for dtype, causal, T, d in cases:
+    for case in cases:
+        dtype, causal, T, d = case
         name = _dtype_name(dtype)
         q, k, v = fused_qkv(B, T, H, d, dtype, device, gen)
         out, lse2 = flash_attention_plain(q, k, v, causal)
         do = torch.randn((B, T, H, d), generator=gen).to(device, dtype)
         delta = flash_attention_delta(out, do)
         args = (q, k, v, lse2, do, delta, causal)
-        got = {"flash_dq": (_launch_dq(*args),),
-               "flash_dkv": _launch_dkv(*args)}
+        kernel_args = (prescale_q(q), *args[1:])
+        got = {"flash_dq": (_launch_dq(*kernel_args),),
+               "flash_dkv": _launch_dkv(*kernel_args)}
         torch.cuda.synchronize()
         want = {"flash_dq": (flash_attention_dq_plain(*args),),
                 "flash_dkv": flash_attention_dkv_plain(*args)}
@@ -247,11 +293,11 @@ def check_flash_bwd(device) -> dict:
                     f"q,k,v,do=[{B},{T},{H},{d}] max_abs_err "
                     + "/".join(f"{e:.3e}" for e in errs) + " (tol "
                     + "/".join(f"{b:.3e}" for b in bars) + ")")
-            if T == T_main:
+            if case == main_case:
                 launch = _launch_dq if kernel == "flash_dq" else _launch_dkv
                 plain = (flash_attention_dq_plain if kernel == "flash_dq"
                          else flash_attention_dkv_plain)
-                ms = time_ms(lambda: launch(*args))
+                ms = time_ms(lambda: launch(*kernel_args))
                 plain_ms = time_ms(lambda: plain(*args), iters=20)
                 bound_ms, bound_by = flash_bwd_bound(
                     B, T, H, d, name, causal, kernel.removeprefix("flash_"))
@@ -261,7 +307,7 @@ def check_flash_bwd(device) -> dict:
                 line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
                          f"bound_ms={bound_ms:.4f} ({bound_by})")
             print(line, flush=True)
-        if T == T_main:
+        if case == main_case:
             # The yardstick: SDPA's backward for the same q, k, v and do
             # (it computes dq, dk and dv in one call).
             qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
@@ -270,10 +316,21 @@ def check_flash_bwd(device) -> dict:
             dot = do.transpose(1, 2)
             library_ms = time_ms(lambda: torch.autograd.grad(
                 sdpa_out, (qt, kt, vt), dot, retain_graph=True))
-            print(f"[kernel] sdpa backward {name} causal={causal} "
-                  f"[{B},{T},{H},{d}] ms={library_ms:.4f}", flush=True)
+            # The port's whole backward on the same inputs, as the learner
+            # runs it.
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+            flash_out, _ = flash_attention(qg, kg, vg, causal)
+            backward_ms = time_ms(lambda: torch.autograd.grad(
+                flash_out, (qg, kg, vg), do, retain_graph=True))
+            print(f"[kernel] backward {name} causal={causal} [{B},{T},{H},{d}]: "
+                  f"flash_attention (delta + prescale + flash_dq + flash_dkv) "
+                  f"ms={backward_ms:.4f}, sdpa backward ms={library_ms:.4f} "
+                  f"({backward_ms / library_ms:.2f}x)", flush=True)
+            profile_device(lambda: torch.autograd.grad(
+                flash_out, (qg, kg, vg), do, retain_graph=True), 20, "backward")
             for kernel in main:
                 main[kernel]["library_ms"] = library_ms
+                main[kernel]["backward_ms"] = backward_ms
     return main
 
 
@@ -989,6 +1046,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {name}: {line.strip()}")
+    check_tensor_cores()
 
     # 3. kernel vs plain
     main_flash = check_flash(device)

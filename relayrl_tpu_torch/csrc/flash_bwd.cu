@@ -6,7 +6,9 @@
 // and ::_dkv_kernel (K3), built by _build_bwd and driven by _bwd_pallas. It
 // computes the same functions, causal or full, for bf16 or f32 inputs,
 // from the forward's log2-space log-sum-exp lse2 and delta = rowsum(do*o)
-// (both f32, computed before the launch as the JAX package does):
+// (both f32, computed before the launch as the JAX package does), and from
+// qs, q prescaled once outside the kernels as the JAX package's _prescale_q
+// does:
 //
 //   qs = q * log2(e)/sqrt(D), rounded back to the input dtype
 //   p  = exp2(qs.k - lse2)            masked scores are -1e30, so p = 0
@@ -19,63 +21,454 @@
 // Scores, p, ds and every accumulator are f32; outputs are in the input
 // dtype.
 //
-// Design. K1's design, mirrored. The TPU kernels' sequential grid axis
-// (KV for dq, Q for dk/dv) becomes a loop inside the block, and the two
-// passes keep the TPU's split: each output row is owned by one block, so
-// neither pass needs atomics. K2: a block owns one (batch*head, 64-row
-// query tile); each row's scaled q, its do, lse2, delta and dq accumulator
-// stay in registers while the block walks 64-key tiles of K and V (staged
-// in shared memory as f32) up to the causal diagonal. K3: a block owns a
-// 64-row key tile; each row's k, v and the dk and dv accumulators stay in
-// registers while the block walks 64-row query tiles of scaled q, do, lse2
-// and delta from the diagonal to T. For D = 64 two adjacent threads share a
-// row, each holding every other head dim, and add their halves of the two
-// dot products with one shuffle: four 64-wide f32 vectors per thread would
-// not fit K3 in registers. Keys or queries past T and above the diagonal
-// are skipped, which equals the TPU kernels' masked p = 0, so every T >= 1
-// works. q, k and v are read through (batch, time, head) element strides
-// (views of the model's fused qkv projection), do through its own; lse2
-// and delta are contiguous [B, H, T]; dq, dk, dv are written as contiguous
-// [B, T, H, D].
-//
 // Bound on the H100 at the learner slice's shape (B*H = 64, T = 256,
 // D = 32, bf16, causal): the dq pass moves about 5.4 MB and does about
 // 0.40 GFLOP, the dk/dv pass about 6.4 MB and 0.54 GFLOP, so both are
-// memory-bound with floors near 2 us at 3.35 TB/s. This first kernel runs
-// its products as scalar FMAs on the CUDA cores with operands read from
-// shared memory, so issue rate and occupancy limit it rather than memory;
-// mma/wgmma tiles, TMA staging and pipelining are later work.
+// memory-bound with floors near 2 us at 3.35 TB/s. At that size a kernel
+// is short and its grid small (256 blocks), so what limits it is latency:
+// of the loads, of the products, and of the chain s -> p -> ds -> product
+// in each tile. The bf16 kernels below measured 6.8 us (dq) and 8.3 us
+// (dk/dv) there on an H100 SXM at 700 W, about 4x the byte floor.
+//
+// bf16 design (the main path). Both passes keep the TPU kernels' split:
+// each output row is owned by one block, so neither needs atomics, and
+// the output is deterministic. A block of 4 warps owns 64 output rows, 16
+// per warp, and walks 64-row tiles of the other side: of 32, 64 and 128
+// output rows against tiles of 32 and 64 rows, the shape measured fastest
+// at the learner slice's shape (scripts/tune_flash_bwd.py; 128 rows leave
+// SMs idle, 32 rows and 32-row tiles add copies and barriers).
+//
+// - Products on the tensor cores: mma.sync m16n8k16, bf16 operands, f32
+//   accumulators, with ldmatrix fragments from shared memory. Chosen over
+//   wgmma because every product here has a 16-row A operand per warp that
+//   is already in registers (q and do, or k and v, loaded once; ds and p
+//   produced by the previous product), and at D <= 64 the kernel is far
+//   from the compute roof: wgmma's 64-row warpgroup tiles, its shared
+//   memory descriptors and its asynchronous waits would buy nothing here.
+//   The operand roundings come for free: round(ds) and round(p) are the
+//   bf16 A fragments, and the f32 accumulators are the f32 sums.
+// - K2 (dq): a warp's 16 rows of qs and do stay in registers as A
+//   fragments, with lse2 and delta per row. For each 16-key chunk of a K/V
+//   tile up to the causal diagonal: S = qs.K^T and dP = do.V^T on the
+//   tensor cores, P and dS elementwise on the accumulator fragments, dS
+//   rounded and repacked as an A fragment in registers, dQ += dS.K on the
+//   tensor cores (K through a transposing ldmatrix).
+// - K3 (dk/dv): a warp's 16 key rows of k and v stay in registers as A
+//   fragments. For each 16-query chunk of a qs/do tile from the diagonal to
+//   T: S^T = K.qs^T and dP^T = V.do^T, P and dS with lse2 and delta read
+//   per query from shared memory, then dV += round(P^T).do and
+//   dK += round(dS^T).qs (do and qs through a transposing ldmatrix).
+// - Staging: each tile of K and V (K2) or of qs, do, lse2 and delta (K3)
+//   is copied to shared memory in bf16 (f32 for lse2 and delta) with
+//   cp.async, 16 bytes a copy, double-buffered: the next tile loads while
+//   the current one computes. Rows at or past T are zero-filled. A tile
+//   row is padded by 16 bytes, which puts the 8 rows an ldmatrix reads in
+//   8 distinct bank groups. q, k and v are read through (batch, time,
+//   head) strides; the copies need 16-byte aligned rows, which the
+//   wrapper checks (and run() refuses otherwise).
+// - Masks only where needed: the causal mask on the diagonal tile and the
+//   T mask on a ragged last tile; every other tile takes an unmasked body.
+//   On the diagonal tile a warp skips the 16-row chunks that lie wholly
+//   beyond its rows' diagonal. Causal tiles are scheduled longest first
+//   (the last query tile of K2, the first key tile of K3).
+//
+// f32 design. No tensor-core product meets the f32 bar of 5e-5 (TF32 keeps
+// about three decimal digits), so f32 inputs keep the first port's design:
+// one thread per output row (two at D = 64, each holding every other head
+// dim, adding their halves of the dot products with one shuffle), the
+// other side staged in shared memory as f32, products as scalar FMAs on
+// the CUDA cores. Keys or queries past T and above the diagonal are
+// skipped, which equals the TPU kernels' masked p = 0.
+//
+// Both designs take every T >= 1 and head dims 16, 32 and 64; lse2 and
+// delta are contiguous [B, H, T]; dq, dk, dv are written as contiguous
+// [B, T, H, D].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kRows = 64;  // output rows a block owns
-constexpr int kTile = 64;  // rows of the other side per shared-memory tile
+constexpr int kTile = 64;  // rows of the other side per tile
+constexpr int kThreads = 2 * kRows;  // bf16 kernels: a warp per 16 rows
 constexpr float kInvLog2e = 0.6931471805599453f;  // 1 / log2(e)
+static_assert(kRows % 16 == 0 && kTile % 16 == 0, "whole 16-row fragments");
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+struct BwdArgs {
+  const void* q;  // qs: q prescaled and rounded
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;    // [B, H, T]
+  const float* delta;  // [B, H, T]
+  void* dq;
+  void* dk;
+  void* dv;
+  int H, len;            // heads, sequence length
+  long long qB, qT, qH;  // qs element strides
+  long long sB, sT, sH;  // k, v element strides
+  long long dB, dT, dH;  // do element strides
+  float dq_scale;        // 1 / sqrt(D)
+  bool causal;
+};
+
+// -- bf16: tensor cores ------------------------------------------------------
+
+// Row stride of a shared-memory tile in elements: D plus 16 bytes.
+template <int D>
+constexpr int kStride = D + 8;
+
+// Starts the copies of rows [t0, t0 + kTile) of one (batch, head) slice
+// `src` (row stride sT elements) into dst[kTile][kStride<D>]; rows at or
+// past T are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long sT,
+                                           int t0, int T_len) {
+  constexpr int kCopies = kTile * (D / 8);  // 16-byte copies per tile
+#pragma unroll
+  for (int i = 0; i < (kCopies + kThreads - 1) / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    if (kCopies % kThreads != 0 && e >= kCopies) break;
+    const int r = e / (D / 8);
+    const int c = e - r * (D / 8);
+    const bool in = t0 + r < T_len;
+    const bf16* row = src + (in ? (long long)(t0 + r) * sT : 0);
+    tc::cp_async_16(dst + r * kStride<D> + c * 8, row + c * 8, in);
+  }
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
+// A fragments of 16 rows [r0, r0 + 16) of one slice (row stride sT), over
+// the D / 16 k-steps of the head dim; rows at or past T are zero.
+template <int D>
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4], const bf16* src,
+                                             long long sT, int r0, int T_len) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    const uint32_t* row = reinterpret_cast<const uint32_t*>(src + (long long)r * sT);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      f[kk][half] = r < T_len ? row[kk * 8 + tq] : 0u;
+      f[kk][2 + half] = r < T_len ? row[kk * 8 + 4 + tq] : 0u;
+    }
+  }
 }
 
-// An f32 value rounded through the input dtype.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
+// S and dP of one 16 x 16 chunk: a_s . Bs^T and a_d . Bd^T, where Bs and Bd
+// are 16 rows of two shared-memory tiles starting at `rows` (n-tile 0 the
+// first 8 rows, n-tile 1 the next 8).
+template <int D>
+__device__ __forceinline__ void chunk_scores(float (&s)[2][4], float (&dp)[2][4],
+                                             const uint32_t (&a_s)[D / 16][4],
+                                             const uint32_t (&a_d)[D / 16][4],
+                                             const bf16* bs, const bf16* bd) {
+  const int lane = threadIdx.x & 31;
+  // ldmatrix row addresses: matrices (rows 0-7, dims 0-7), (rows 0-7,
+  // dims 8-15), (rows 8-15, dims 0-7), (rows 8-15, dims 8-15).
+  const int off = ((lane & 7) + ((lane >> 4) << 3)) * kStride<D> + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = 0.f;
+      dp[n][e] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t b[4];
+    tc::ldmatrix_x4(b, bs + off + kk * 16);
+    tc::mma_bf16(s[0], a_s[kk], b[0], b[1]);
+    tc::mma_bf16(s[1], a_s[kk], b[2], b[3]);
+    tc::ldmatrix_x4(b, bd + off + kk * 16);
+    tc::mma_bf16(dp[0], a_d[kk], b[0], b[1]);
+    tc::mma_bf16(dp[1], a_d[kk], b[2], b[3]);
+  }
 }
+
+// acc[16 x D] += a (16 x 16) . B, where B is 16 rows of a shared-memory
+// tile starting at `rows` (k = tile row, n = head dim), read transposed.
+template <int D>
+__device__ __forceinline__ void chunk_accumulate(float (&acc)[D / 8][4],
+                                                 const uint32_t (&a)[4], const bf16* rows) {
+  const int lane = threadIdx.x & 31;
+  // Matrices (rows 0-7, dims 0-7), (rows 8-15, dims 0-7), (rows 0-7,
+  // dims 8-15), (rows 8-15, dims 8-15) of each 16-dim pair of n-tiles.
+  const int off = ((lane & 7) + ((lane >> 3) & 1) * 8) * kStride<D> + (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < D / 16; ++np) {
+    uint32_t b[4];
+    tc::ldmatrix_x4_trans(b, rows + off + np * 16);
+    tc::mma_bf16(acc[2 * np], a, b[0], b[1]);
+    tc::mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// Rounds acc * scale of rows r0 (c0, c1) and r0 + 8 (c2, c3) to bf16 and
+// stores them to out [B, T, H, D] at (b, h).
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float scale,
+                                           bf16* out, int b, int h, int H, int T_len,
+                                           int r0) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= T_len) continue;
+    uint32_t* row = reinterpret_cast<uint32_t*>(out + (((long long)b * T_len + r) * H + h) * D);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      row[n * 4 + tq] =
+          tc::pack_bf16(acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
+    }
+  }
+}
+
+// One K/V tile of the dq pass: keys [k0, k0 + kTile) against this warp's
+// rows. kMask: the diagonal or ragged tile, which masks keys past T and,
+// when causal, keys above a row's diagonal; warp_last is the warp's last
+// row.
+template <int D, bool kMask>
+__device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4], const uint32_t (&qa)[D / 16][4],
+                                        const uint32_t (&da)[D / 16][4],
+                                        const float (&lse)[2], const float (&delta)[2],
+                                        const bf16* kt, const bf16* vt, int k0, int r0,
+                                        int warp_last, int T_len, bool causal) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int c = 0; c < kTile / 16; ++c) {
+    const int key0 = k0 + 16 * c;
+    // Keys ascend: past T, or above the warp's last row, every later key is
+    // masked for all 16 rows.
+    if (kMask && (key0 >= T_len || (causal && key0 > warp_last))) break;
+    float s[2][4], dp[2][4];
+    chunk_scores<D>(s, dp, qa, da, kt + 16 * c * kStride<D>, vt + 16 * c * kStride<D>);
+    uint32_t dsa[4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;  // row r0 or r0 + 8
+        float p = exp2f(s[n][e] - lse[half]);
+        if (kMask) {
+          const int key = key0 + 8 * n + 2 * tq + (e & 1);
+          if (key >= T_len || (causal && key > r0 + 8 * half)) p = 0.f;
+        }
+        ds[e] = p * (dp[n][e] - delta[half]);
+      }
+      dsa[2 * n] = tc::pack_bf16(ds[0], ds[1]);
+      dsa[2 * n + 1] = tc::pack_bf16(ds[2], ds[3]);
+    }
+    chunk_accumulate<D>(acc, dsa, kt + 16 * c * kStride<D>);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dq_bf16_kernel(const BwdArgs a) {
+  __shared__ __align__(16) bf16 ks[2][kTile * kStride<D>];
+  __shared__ __align__(16) bf16 vs[2][kTile * kStride<D>];
+
+  const int T_len = a.len;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  // The last query tile walks the most keys: launch it first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = q0 + 16 * warp + (lane >> 2);  // this thread's rows r0, r0 + 8
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sB + h * a.sH;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sB + h * a.sH;
+
+  uint32_t qa[D / 16][4];
+  uint32_t da[D / 16][4];
+  load_a_frags<D>(qa, static_cast<const bf16*>(a.q) + b * a.qB + h * a.qH, a.qT,
+                  q0 + 16 * warp, T_len);
+  load_a_frags<D>(da, static_cast<const bf16*>(a.dout) + b * a.dB + h * a.dH, a.dT,
+                  q0 + 16 * warp, T_len);
+  float lse[2], delta[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    lse[half] = r < T_len ? a.lse[(long long)bh * T_len + r] : 0.f;
+    delta[half] = r < T_len ? a.delta[(long long)bh * T_len + r] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+
+  // A causal block needs keys only up to its last row's diagonal.
+  const int kv_end = a.causal ? min(T_len, q0 + kRows) : T_len;
+  const int n_tiles = (kv_end + kTile - 1) / kTile;
+  stage_rows<D>(ks[0], kb, a.sT, 0, T_len);
+  stage_rows<D>(vs[0], vb, a.sT, 0, T_len);
+  tc::cp_async_commit();
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      // The buffer was last read in iteration j - 1, before its barrier.
+      stage_rows<D>(ks[(j + 1) & 1], kb, a.sT, (j + 1) * kTile, T_len);
+      stage_rows<D>(vs[(j + 1) & 1], vb, a.sT, (j + 1) * kTile, T_len);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = j * kTile;
+    const int warp_last = q0 + 16 * warp + 15;
+    if ((a.causal && k0 + kTile > q0) || k0 + kTile > T_len) {
+      dq_tile<D, true>(acc, qa, da, lse, delta, ks[j & 1], vs[j & 1], k0, r0, warp_last,
+                       T_len, a.causal);
+    } else {
+      dq_tile<D, false>(acc, qa, da, lse, delta, ks[j & 1], vs[j & 1], k0, r0, warp_last,
+                        T_len, a.causal);
+    }
+    __syncthreads();
+  }
+  store_rows<D>(acc, a.dq_scale, static_cast<bf16*>(a.dq), b, h, a.H, T_len, r0);
+}
+
+// One qs/do tile of the dk/dv pass: queries [t0, t0 + kTile) against this
+// warp's keys. kMask: the diagonal or ragged tile, which masks queries past
+// T and, when causal, queries before a key; warp_first is the warp's first
+// key.
+template <int D, bool kMask>
+__device__ __forceinline__ void dkv_tile(float (&dk)[D / 8][4], float (&dv)[D / 8][4],
+                                         const uint32_t (&ka)[D / 16][4],
+                                         const uint32_t (&va)[D / 16][4], const bf16* qt,
+                                         const bf16* dot, const float* lse_t,
+                                         const float* delta_t, int t0, int r0,
+                                         int warp_first, int T_len, bool causal) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int c = 0; c < kTile / 16; ++c) {
+    const int qc0 = t0 + 16 * c;
+    if (kMask) {
+      if (qc0 >= T_len) break;
+      // Every query of the chunk comes before every key of the warp.
+      if (causal && qc0 + 15 < warp_first) continue;
+    }
+    float s[2][4], dp[2][4];
+    chunk_scores<D>(s, dp, ka, va, qt + 16 * c * kStride<D>, dot + 16 * c * kStride<D>);
+    uint32_t pa[4], dsa[4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int col = 16 * c + 8 * n + 2 * tq;  // tile-local query of e = 0, 2
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_t + col);
+      const float2 dl = *reinterpret_cast<const float2*>(delta_t + col);
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;  // key r0 or r0 + 8
+        p[e] = exp2f(s[n][e] - ((e & 1) ? l2.y : l2.x));
+        if (kMask) {
+          const int query = t0 + col + (e & 1);
+          if (query >= T_len || (causal && query < r0 + 8 * half)) p[e] = 0.f;
+        }
+        ds[e] = p[e] * (dp[n][e] - ((e & 1) ? dl.y : dl.x));
+      }
+      pa[2 * n] = tc::pack_bf16(p[0], p[1]);
+      pa[2 * n + 1] = tc::pack_bf16(p[2], p[3]);
+      dsa[2 * n] = tc::pack_bf16(ds[0], ds[1]);
+      dsa[2 * n + 1] = tc::pack_bf16(ds[2], ds[3]);
+    }
+    chunk_accumulate<D>(dv, pa, dot + 16 * c * kStride<D>);
+    chunk_accumulate<D>(dk, dsa, qt + 16 * c * kStride<D>);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dkv_bf16_kernel(const BwdArgs a) {
+  __shared__ __align__(16) bf16 qsm[2][kTile * kStride<D>];
+  __shared__ __align__(16) bf16 dosm[2][kTile * kStride<D>];
+  __shared__ __align__(16) float lse_s[2][kTile];
+  __shared__ __align__(16) float delta_s[2][kTile];
+
+  const int T_len = a.len;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  // The first key tile walks the most queries: it has blockIdx.y 0.
+  const int k0 = blockIdx.y * kRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = k0 + 16 * warp + (lane >> 2);  // this thread's keys r0, r0 + 8
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qB + h * a.qH;
+  const bf16* db = static_cast<const bf16*>(a.dout) + b * a.dB + h * a.dH;
+  const long long row0 = (long long)bh * T_len;
+
+  uint32_t ka[D / 16][4];
+  uint32_t va[D / 16][4];
+  load_a_frags<D>(ka, static_cast<const bf16*>(a.k) + b * a.sB + h * a.sH, a.sT,
+                  k0 + 16 * warp, T_len);
+  load_a_frags<D>(va, static_cast<const bf16*>(a.v) + b * a.sB + h * a.sH, a.sT,
+                  k0 + 16 * warp, T_len);
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk[n][e] = 0.f;
+      dv[n][e] = 0.f;
+    }
+  }
+
+  // Tile rows of qs and do, and lse2 and delta of queries [t0, t0 + kTile)
+  // with one 4-byte copy each.
+  auto stage = [&](int buf, int t0) {
+    stage_rows<D>(qsm[buf], qb, a.qT, t0, T_len);
+    stage_rows<D>(dosm[buf], db, a.dT, t0, T_len);
+    for (int e = threadIdx.x; e < 2 * kTile; e += kThreads) {
+      const int i = e % kTile;
+      const bool in = t0 + i < T_len;
+      const float* src = (e < kTile ? a.lse : a.delta) + row0 + (in ? t0 + i : 0);
+      tc::cp_async_4(e < kTile ? &lse_s[buf][i] : &delta_s[buf][i], src, in);
+    }
+    tc::cp_async_commit();
+  };
+
+  // A causal block needs queries only from its first key's diagonal on.
+  const int t_begin = a.causal ? k0 : 0;
+  const int n_tiles = (T_len - t_begin + kTile - 1) / kTile;
+  stage(0, t_begin);
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      stage((j + 1) & 1, t_begin + (j + 1) * kTile);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int t0 = t_begin + j * kTile;
+    const int buf = j & 1;
+    const int warp_first = k0 + 16 * warp;
+    if ((a.causal && t0 < k0 + kRows) || t0 + kTile > T_len) {
+      dkv_tile<D, true>(dk, dv, ka, va, qsm[buf], dosm[buf], lse_s[buf], delta_s[buf], t0,
+                        r0, warp_first, T_len, a.causal);
+    } else {
+      dkv_tile<D, false>(dk, dv, ka, va, qsm[buf], dosm[buf], lse_s[buf], delta_s[buf], t0,
+                         r0, warp_first, T_len, a.causal);
+    }
+    __syncthreads();
+  }
+  store_rows<D>(dk, kInvLog2e, static_cast<bf16*>(a.dk), b, h, a.H, T_len, r0);
+  store_rows<D>(dv, 1.f, static_cast<bf16*>(a.dv), b, h, a.H, T_len, r0);
+}
+
+// -- f32: CUDA cores ---------------------------------------------------------
 
 // Threads per row: a thread holds at most 32 head dims of each vector.
 // Thread `part` of a row holds dims part, part + kSplit, part + 2*kSplit...
@@ -99,36 +492,18 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-struct BwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;    // [B, H, T]
-  const float* delta;  // [B, H, T]
-  void* dq;
-  void* dk;
-  void* dv;
-  int H, len;  // heads, sequence length
-  long long sB, sT, sH;  // q, k, v element strides
-  long long dB, dT, dH;  // do element strides
-  float q_scale;         // log2(e) / sqrt(D)
-  float dq_scale;        // 1 / sqrt(D)
-  bool causal;
-};
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kRows* Split<D>::k)
-    flash_dq_kernel(const BwdArgs a) {
+    flash_dq_f32_kernel(const BwdArgs a) {
   constexpr int S = Split<D>::k;
   constexpr int DD = Split<D>::dims;
   __shared__ __align__(16) float ks[kTile][D];
   __shared__ __align__(16) float vs[kTile][D];
 
-  const T* __restrict__ q = static_cast<const T*>(a.q);
-  const T* __restrict__ k = static_cast<const T*>(a.k);
-  const T* __restrict__ v = static_cast<const T*>(a.v);
-  const T* __restrict__ dout = static_cast<const T*>(a.dout);
+  const float* __restrict__ q = static_cast<const float*>(a.q);
+  const float* __restrict__ k = static_cast<const float*>(a.k);
+  const float* __restrict__ v = static_cast<const float*>(a.v);
+  const float* __restrict__ dout = static_cast<const float*>(a.dout);
   const int T_len = a.len;
   const int bh = blockIdx.x;
   const int b = bh / a.H;
@@ -138,7 +513,6 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
   const int row = q0 + threadIdx.x / S;
   const bool live = row < T_len;
   const long long base = (long long)b * a.sB + (long long)h * a.sH;
-  const long long dbase = (long long)b * a.dB + (long long)h * a.dH;
 
   float qr[DD];
   float dor[DD];
@@ -152,13 +526,13 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
     acc[i] = 0.f;
   }
   if (live) {
-    const T* qp = q + base + (long long)row * a.sT;
-    const T* dp = dout + dbase + (long long)row * a.dT;
+    const float* qp = q + (long long)b * a.qB + (long long)h * a.qH + (long long)row * a.qT;
+    const float* dp = dout + (long long)b * a.dB + (long long)h * a.dH + (long long)row * a.dT;
 #pragma unroll
     for (int i = 0; i < DD; ++i) {
       const int d = i * S + part;
-      qr[i] = round_to<T>(to_float(qp[d]) * a.q_scale);
-      dor[i] = to_float(dp[d]);
+      qr[i] = qp[d];
+      dor[i] = dp[d];
     }
     lse = a.lse[(long long)bh * T_len + row];
     delta = a.delta[(long long)bh * T_len + row];
@@ -176,8 +550,8 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
       float vv = 0.f;
       if (t < kv_end) {
         const long long off = base + (long long)t * a.sT + c;
-        kv = to_float(k[off]);
-        vv = to_float(v[off]);
+        kv = k[off];
+        vv = v[off];
       }
       ks[r][c] = kv;
       vs[r][c] = vv;
@@ -199,21 +573,21 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
       }
       s = row_sum<S>(s);
       dp = row_sum<S>(dp);
-      const float ds = round_to<T>(exp2f(s - lse) * (dp - delta));
+      const float ds = exp2f(s - lse) * (dp - delta);
 #pragma unroll
       for (int i = 0; i < DD; ++i) acc[i] = fmaf(ds, ks[jj][i * S + part], acc[i]);
     }
   }
   if (live) {
-    T* out = static_cast<T*>(a.dq) + (((long long)b * T_len + row) * a.H + h) * D;
+    float* out = static_cast<float*>(a.dq) + (((long long)b * T_len + row) * a.H + h) * D;
 #pragma unroll
-    for (int i = 0; i < DD; ++i) out[i * S + part] = from_float<T>(acc[i] * a.dq_scale);
+    for (int i = 0; i < DD; ++i) out[i * S + part] = acc[i] * a.dq_scale;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kRows* Split<D>::k)
-    flash_dkv_kernel(const BwdArgs a) {
+    flash_dkv_f32_kernel(const BwdArgs a) {
   constexpr int S = Split<D>::k;
   constexpr int DD = Split<D>::dims;
   __shared__ __align__(16) float qs[kTile][D];
@@ -221,10 +595,10 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
   __shared__ float lse_s[kTile];
   __shared__ float delta_s[kTile];
 
-  const T* __restrict__ q = static_cast<const T*>(a.q);
-  const T* __restrict__ k = static_cast<const T*>(a.k);
-  const T* __restrict__ v = static_cast<const T*>(a.v);
-  const T* __restrict__ dout = static_cast<const T*>(a.dout);
+  const float* __restrict__ q = static_cast<const float*>(a.q);
+  const float* __restrict__ k = static_cast<const float*>(a.k);
+  const float* __restrict__ v = static_cast<const float*>(a.v);
+  const float* __restrict__ dout = static_cast<const float*>(a.dout);
   const int T_len = a.len;
   const int bh = blockIdx.x;
   const int b = bh / a.H;
@@ -234,6 +608,7 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
   const int key = k0 + threadIdx.x / S;
   const bool live = key < T_len;
   const long long base = (long long)b * a.sB + (long long)h * a.sH;
+  const long long qbase = (long long)b * a.qB + (long long)h * a.qH;
   const long long dbase = (long long)b * a.dB + (long long)h * a.dH;
   const long long row0 = (long long)bh * T_len;
 
@@ -253,8 +628,8 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
 #pragma unroll
     for (int i = 0; i < DD; ++i) {
       const int d = i * S + part;
-      kr[i] = to_float(k[off + d]);
-      vr[i] = to_float(v[off + d]);
+      kr[i] = k[off + d];
+      vr[i] = v[off + d];
     }
   }
 
@@ -268,8 +643,8 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
       float qv = 0.f;
       float dov = 0.f;
       if (t < T_len) {
-        qv = round_to<T>(to_float(q[base + (long long)t * a.sT + c]) * a.q_scale);
-        dov = to_float(dout[dbase + (long long)t * a.dT + c]);
+        qv = q[qbase + (long long)t * a.qT + c];
+        dov = dout[dbase + (long long)t * a.dT + c];
       }
       qs[r][c] = qv;
       dos[r][c] = dov;
@@ -296,52 +671,66 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
       s = row_sum<S>(s);
       dp = row_sum<S>(dp);
       const float p = exp2f(s - lse_s[ii]);
-      const float pr = round_to<T>(p);
-      const float ds = round_to<T>(p * (dp - delta_s[ii]));
+      const float ds = p * (dp - delta_s[ii]);
 #pragma unroll
       for (int i = 0; i < DD; ++i) {
         const int d = i * S + part;
-        dv_acc[i] = fmaf(pr, dos[ii][d], dv_acc[i]);
+        dv_acc[i] = fmaf(p, dos[ii][d], dv_acc[i]);
         dk_acc[i] = fmaf(ds, qs[ii][d], dk_acc[i]);
       }
     }
   }
   if (live) {
     const long long out = (((long long)b * T_len + key) * a.H + h) * D;
-    T* dk = static_cast<T*>(a.dk) + out;
-    T* dv = static_cast<T*>(a.dv) + out;
+    float* dk = static_cast<float*>(a.dk) + out;
+    float* dv = static_cast<float*>(a.dv) + out;
 #pragma unroll
     for (int i = 0; i < DD; ++i) {
-      dk[i * S + part] = from_float<T>(dk_acc[i] * kInvLog2e);
-      dv[i * S + part] = from_float<T>(dv_acc[i]);
+      dk[i * S + part] = dk_acc[i] * kInvLog2e;
+      dv[i * S + part] = dv_acc[i];
     }
   }
 }
 
-template <bool kDq, typename T, int D>
+// -- launch ------------------------------------------------------------------
+
+template <bool kDq, bool kBf16, int D>
 cudaError_t launch(const BwdArgs& a, int B, cudaStream_t stream) {
   const dim3 grid(B * a.H, (a.len + kRows - 1) / kRows);
-  const int threads = kRows * Split<D>::k;
-  if constexpr (kDq) {
-    flash_dq_kernel<T, D><<<grid, threads, 0, stream>>>(a);
+  if constexpr (kBf16 && kDq) {
+    flash_dq_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(a);
+  } else if constexpr (kBf16) {
+    flash_dkv_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(a);
+  } else if constexpr (kDq) {
+    flash_dq_f32_kernel<D><<<grid, kRows * Split<D>::k, 0, stream>>>(a);
   } else {
-    flash_dkv_kernel<T, D><<<grid, threads, 0, stream>>>(a);
+    flash_dkv_f32_kernel<D><<<grid, kRows * Split<D>::k, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
 
-template <bool kDq, typename T>
+template <bool kDq, bool kBf16>
 cudaError_t launch_for_dim(int D, const BwdArgs& a, int B, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<kDq, T, 16>(a, B, s);
+      return launch<kDq, kBf16, 16>(a, B, s);
     case 32:
-      return launch<kDq, T, 32>(a, B, s);
+      return launch<kDq, kBf16, 32>(a, B, s);
     case 64:
-      return launch<kDq, T, 64>(a, B, s);
+      return launch<kDq, kBf16, 64>(a, B, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The bf16 kernels' 16-byte copies and 4-byte fragment loads need every
+// row of qs, k, v and do to start on a 16-byte boundary.
+bool rows_aligned(const BwdArgs& a) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v) |
+                         reinterpret_cast<uintptr_t>(a.dout);
+  const long long strides = a.qB | a.qT | a.qH | a.sB | a.sT | a.sH | a.dB | a.dT | a.dH;
+  return (ptrs & 15u) == 0 && (strides & 7) == 0;
 }
 
 template <bool kDq>
@@ -349,46 +738,43 @@ int run(const BwdArgs& a, int B, int D, int is_bf16, void* stream) {
   if (B <= 0 || a.H <= 0 || a.len <= 0 || (a.len + kRows - 1) / kRows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (is_bf16 && !rows_aligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = is_bf16
-                              ? launch_for_dim<kDq, __nv_bfloat16>(D, a, B, s)
-                              : launch_for_dim<kDq, float>(D, a, B, s);
+  const cudaError_t err = is_bf16 ? launch_for_dim<kDq, true>(D, a, B, s)
+                                  : launch_for_dim<kDq, false>(D, a, B, s);
   return static_cast<int>(err);
 }
 
 }  // namespace
 
-// q, k, v: [B, T, H, D] elements at offset b*sB + t*sT + h*sH + d (the
-// three share strides); dout: the same at b*dB + t*dT + h*dH + d; lse and
-// delta: contiguous [B, H, T] f32; dq (and dk, dv): contiguous
-// [B, T, H, D] in the input dtype. Each launches on `stream` and returns
-// the cudaError_t of the launch (0 on success).
-extern "C" int relayrl_flash_bwd_dq(const void* q, const void* k,
-                                    const void* v, const void* dout,
-                                    const void* lse, const void* delta,
-                                    void* dq, int B, int H, int T, int D,
-                                    long long sB, long long sT, long long sH,
-                                    long long dB, long long dT, long long dH,
-                                    float q_scale, float dq_scale, int causal,
-                                    int is_bf16, void* stream) {
-  const BwdArgs a{q,  k,  v,  dout, static_cast<const float*>(lse),
+// qs: q prescaled by log2(e)/sqrt(D) and rounded to the input dtype,
+// [B, T, H, D] elements at offset b*qB + t*qT + h*qH + d; k, v: the same at
+// b*sB + t*sT + h*sH + d (the two share strides); dout: the same at
+// b*dB + t*dT + h*dH + d; lse and delta: contiguous [B, H, T] f32; dq (and
+// dk, dv): contiguous [B, T, H, D] in the input dtype. bf16 inputs need
+// 16-byte aligned pointers and strides that are multiples of 8 elements.
+// Each launches on `stream` and returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int relayrl_flash_bwd_dq(const void* qs, const void* k, const void* v,
+                                    const void* dout, const void* lse, const void* delta,
+                                    void* dq, int B, int H, int T, int D, long long qB,
+                                    long long qT, long long qH, long long sB, long long sT,
+                                    long long sH, long long dB, long long dT, long long dH,
+                                    float dq_scale, int causal, int is_bf16, void* stream) {
+  const BwdArgs a{qs, k,  v,  dout, static_cast<const float*>(lse),
                   static_cast<const float*>(delta), dq, nullptr, nullptr,
-                  H,  T,  sB, sT,   sH, dB, dT, dH, q_scale, dq_scale,
-                  causal != 0};
+                  H,  T,  qB, qT,   qH, sB, sT, sH, dB, dT, dH, dq_scale, causal != 0};
   return run<true>(a, B, D, is_bf16, stream);
 }
 
-extern "C" int relayrl_flash_bwd_dkv(const void* q, const void* k,
-                                     const void* v, const void* dout,
-                                     const void* lse, const void* delta,
-                                     void* dk, void* dv, int B, int H, int T,
-                                     int D, long long sB, long long sT,
-                                     long long sH, long long dB, long long dT,
-                                     long long dH, float q_scale, int causal,
-                                     int is_bf16, void* stream) {
-  const BwdArgs a{q,  k,  v,  dout, static_cast<const float*>(lse),
+extern "C" int relayrl_flash_bwd_dkv(const void* qs, const void* k, const void* v,
+                                     const void* dout, const void* lse, const void* delta,
+                                     void* dk, void* dv, int B, int H, int T, int D,
+                                     long long qB, long long qT, long long qH, long long sB,
+                                     long long sT, long long sH, long long dB, long long dT,
+                                     long long dH, int causal, int is_bf16, void* stream) {
+  const BwdArgs a{qs, k,  v,  dout, static_cast<const float*>(lse),
                   static_cast<const float*>(delta), nullptr, dk, dv,
-                  H,  T,  sB, sT,   sH, dB, dT, dH, q_scale, 0.f,
-                  causal != 0};
+                  H,  T,  qB, qT,   qH, sB, sT, sH, dB, dT, dH, 0.f, causal != 0};
   return run<false>(a, B, D, is_bf16, stream);
 }

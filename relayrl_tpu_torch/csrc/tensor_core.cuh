@@ -1,0 +1,90 @@
+// Warp-level tensor-core and asynchronous-copy primitives for sm_80 and
+// later (used here for sm_90a), as inline PTX: 16-byte and 4-byte cp.async
+// with zero-fill, ldmatrix (plain and transposed), and the bf16 -> f32
+// mma.sync m16n8k16.
+//
+// Fragment layouts of mma.sync.m16n8k16 (lane = threadIdx.x % 32,
+// g = lane / 4, tq = lane % 4; each 32-bit register holds two bf16, the
+// lower column in the lower half):
+//
+//   A (16 x 16, row-major): a0 = (row g, cols 2tq, 2tq+1), a1 = (row g+8,
+//     same cols), a2 = (row g, cols 2tq+8, 2tq+9), a3 = (row g+8, same);
+//   B (16 x 8, k x n):      b0 = (k 2tq, 2tq+1; col g), b1 = (k 2tq+8,
+//     2tq+9; col g);
+//   C (16 x 8, f32):        c0, c1 = (row g, cols 2tq, 2tq+1), c2, c3 =
+//     (row g+8, same cols).
+//
+// So the C fragments of two adjacent n-tiles, rounded to bf16 and packed
+// in pairs, are the A fragment of one 16 x 16 k-step: a product's output
+// feeds the next product from registers.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace tc {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, bypassing L1; when !in, the 16
+// bytes are zero-filled and nothing is read (src must still be a valid
+// address).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+// 4 bytes from global to shared memory; zero-filled when !in.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i (16 bytes each), and register i receives matrix
+// i's (row g, cols 2tq, 2tq+1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// The same, each matrix transposed: register i receives matrix i's
+// (rows 2tq, 2tq+1; col g).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// c += a . b on the tensor cores: bf16 operands, f32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values rounded to bf16 (to nearest even) and packed, lo in the
+// lower half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+}  // namespace tc

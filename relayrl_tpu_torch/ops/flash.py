@@ -12,7 +12,10 @@ its design and what bounds it on the H100:
   ``_dq_kernel`` and ``_dkv_kernel``): the two-pass backward that
   ``relayrl_tpu.ops.flash._bwd_pallas`` runs, recomputing ``p`` from
   ``lse2`` and using ``ds = p * (dp - delta)`` with ``delta = rowsum(do *
-  o)``, which is computed outside the kernels as the JAX package does.
+  o)``, which is computed outside the kernels as the JAX package does, as
+  is the prescaled q (:func:`prescale_q`, one copy read by both passes).
+  Their bf16 kernels run the products on the tensor cores and need every
+  q, k, v and do row on a 16-byte boundary; the wrapper raises otherwise.
 
 The numbers they share with the TPU kernels:
 
@@ -128,15 +131,18 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     from relayrl_tpu_torch import _kernels
 
-    lib = _kernels.load("flash_bwd")
-    strides = [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6
+    return bind_bwd_library(_kernels.load("flash_bwd"))
+
+
+def bind_bwd_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the C signatures of a loaded ``flash_bwd`` library."""
+    strides = [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
     lib.relayrl_flash_bwd_dq.argtypes = (
         [ctypes.c_void_p] * 7 + strides
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.relayrl_flash_bwd_dkv.argtypes = (
         [ctypes.c_void_p] * 8 + strides
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.relayrl_flash_bwd_dq.restype = ctypes.c_int
     lib.relayrl_flash_bwd_dkv.restype = ctypes.c_int
     return lib
@@ -182,41 +188,67 @@ def _launch(q, k, v, causal: bool):
     return out, lse2
 
 
-def _check_bwd_inputs(q, lse2, do, delta) -> torch.Tensor:
-    """Checks what the backward kernels take beyond q, k, v; returns ``do``
-    with a contiguous head dim (copied only when it has none, counted in
-    ``flash_attention.do_copies``)."""
-    B, T, H, _ = q.shape
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+def prescale_q(q: torch.Tensor) -> torch.Tensor:
+    """q scaled by ``log2(e)/sqrt(D)`` and rounded to its dtype, contiguous:
+    the one copy both backward kernels read, made once outside them as the
+    JAX package's ``_prescale_q`` does (the plain versions round q the same
+    way)."""
+    return torch.mul(q, _q_scale(q.shape[-1])).contiguous()
+
+
+def _rows_aligned(x: torch.Tensor) -> bool:
+    """Every ``[B, T, H]`` row of ``x`` starts on a 16-byte boundary."""
+    step = 16 // x.element_size()
+    return x.data_ptr() % 16 == 0 and all(s % step == 0 for s in x.stride()[:3])
+
+
+def _check_bwd_inputs(qs, k, v, lse2, do, delta) -> torch.Tensor:
+    """Checks what the backward kernels take beyond the forward's checks of
+    q, k, v: the prescaled q, do, lse2, delta, and the bf16 kernels' row
+    alignment. Returns ``do`` with a contiguous head dim (copied only when
+    it has none, counted in ``flash_attention.do_copies``)."""
+    B, T, H, _ = qs.shape
+    if do.shape != qs.shape or do.dtype != qs.dtype or do.device != qs.device:
         raise ValueError(f"do must match q's shape, dtype and device; got "
                          f"{tuple(do.shape)} {do.dtype} {do.device}")
+    if (qs.shape != k.shape or qs.dtype != k.dtype or qs.device != k.device
+            or qs.stride(-1) != 1):
+        raise ValueError("the prescaled q must match k's shape, dtype and "
+                         "device, with a contiguous head dim")
     for name, x in (("lse2", lse2), ("delta", delta)):
         if (x.shape != (B, H, T) or x.dtype != torch.float32
-                or x.device != q.device or not x.is_contiguous()):
+                or x.device != qs.device or not x.is_contiguous()):
             raise ValueError(f"{name} must be contiguous f32 [B, H, T] on "
                              f"q's device; got {tuple(x.shape)} {x.dtype}")
-    if do.stride(-1) == 1:
-        return do
-    flash_attention.do_copies += 1
-    return do.contiguous()
+    if do.stride(-1) != 1:
+        flash_attention.do_copies += 1
+        do = do.contiguous()
+    # The bf16 kernels stage rows with 16-byte asynchronous copies.
+    if qs.dtype == torch.bfloat16 and not all(
+            _rows_aligned(x) for x in (qs, k, v, do)):
+        raise ValueError(
+            "the bf16 backward kernels need q, k, v and do rows on 16-byte "
+            "boundaries (16-byte aligned data and row strides that are "
+            "multiples of 8 elements)")
+    return do
 
 
-def _bwd_dims(q, do) -> tuple:
-    B, T, H, D = q.shape
-    return (B, H, T, D, *q.stride()[:3], *do.stride()[:3])
+def _bwd_dims(qs, k, do) -> tuple:
+    B, T, H, D = qs.shape
+    return (B, H, T, D, *qs.stride()[:3], *k.stride()[:3], *do.stride()[:3])
 
 
-def _launch_dq(q, k, v, lse2, do, delta, causal: bool) -> torch.Tensor:
-    """K2: dq ``[B, T, H, D]`` in q's dtype."""
-    do = _check_bwd_inputs(q, lse2, do, delta)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    D = q.shape[-1]
-    with torch.cuda.device(q.device):
+def _launch_dq(qs, k, v, lse2, do, delta, causal: bool) -> torch.Tensor:
+    """K2: dq ``[B, T, H, D]`` in q's dtype, from ``qs = prescale_q(q)``."""
+    do = _check_bwd_inputs(qs, k, v, lse2, do, delta)
+    dq = torch.empty(qs.shape, dtype=qs.dtype, device=qs.device)
+    D = qs.shape[-1]
+    with torch.cuda.device(qs.device):
         err = _bwd_library().relayrl_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_bwd_dims(q, do), _q_scale(D), 1.0 / math.sqrt(D), int(causal),
-            int(q.dtype == torch.bfloat16),
+            *_bwd_dims(qs, k, do), 1.0 / math.sqrt(D), int(causal),
+            int(qs.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_dq kernel launch failed (cudaError {err})")
@@ -224,17 +256,17 @@ def _launch_dq(q, k, v, lse2, do, delta, causal: bool) -> torch.Tensor:
     return dq
 
 
-def _launch_dkv(q, k, v, lse2, do, delta, causal: bool):
-    """K3: ``(dk, dv)``, each ``[B, T, H, D]`` in the input dtype."""
-    do = _check_bwd_inputs(q, lse2, do, delta)
-    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
+def _launch_dkv(qs, k, v, lse2, do, delta, causal: bool):
+    """K3: ``(dk, dv)``, each ``[B, T, H, D]`` in the input dtype, from
+    ``qs = prescale_q(q)``."""
+    do = _check_bwd_inputs(qs, k, v, lse2, do, delta)
+    dk = torch.empty(qs.shape, dtype=qs.dtype, device=qs.device)
+    dv = torch.empty(qs.shape, dtype=qs.dtype, device=qs.device)
+    with torch.cuda.device(qs.device):
         err = _bwd_library().relayrl_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse2.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_bwd_dims(q, do), _q_scale(q.shape[-1]), int(causal),
-            int(q.dtype == torch.bfloat16),
+            *_bwd_dims(qs, k, do), int(causal), int(qs.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_dkv kernel launch failed (cudaError {err})")
@@ -255,6 +287,8 @@ class _FlashForward(torch.autograd.Function):
         ctx.causal = causal
         ctx.save_for_backward(q, k, v, out, lse2)
         ctx.mark_non_differentiable(lse2)
+        # lse2 takes no gradient: no zeros are made for it.
+        ctx.set_materialize_grads(False)
         return out, lse2
 
     @staticmethod
@@ -264,8 +298,9 @@ class _FlashForward(torch.autograd.Function):
             return (*flash_attention_bwd_plain(q, k, v, out, lse2, d_out,
                                                ctx.causal), None)
         delta = flash_attention_delta(out, d_out)
-        dq = _launch_dq(q, k, v, lse2, d_out, delta, ctx.causal)
-        dk, dv = _launch_dkv(q, k, v, lse2, d_out, delta, ctx.causal)
+        qs = prescale_q(q)
+        dq = _launch_dq(qs, k, v, lse2, d_out, delta, ctx.causal)
+        dk, dv = _launch_dkv(qs, k, v, lse2, d_out, delta, ctx.causal)
         return dq, dk, dv, None
 
 
