@@ -57,6 +57,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -115,6 +116,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # Device clock cycles per second for torch.cuda._sleep: the H100 SXM's top
 # SM clock (1.98 GHz), so a sleep lasts at least the seconds asked for.
 SLEEP_CYCLES_PER_S = 1.98e9
+# A tensor-core product in SASS: mma.sync (HMMA) or wgmma (HGMMA).
+TENSOR_CORE_OP = re.compile(r"\b(?:HMMA|HGMMA)\b")
 
 
 def _dtype_name(dtype) -> str:
@@ -194,19 +197,73 @@ def flash_bwd_bound(B, T, H, D, dtype_name, causal, kernel) -> tuple[float, str]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def build_log(name: str) -> str:
+    """nvcc's output for the built library of kernel ``name``: this
+    process's, or the one kept beside the library by the build that made
+    it."""
+    from relayrl_tpu_torch import _kernels
+
+    if name in _kernels.BUILD_LOGS:
+        return _kernels.BUILD_LOGS[name]
+    return _kernels.library_path(name).with_suffix(".log").read_text()
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the built library of kernel ``name``, with the
+    ``cuobjdump`` of the toolkit whose ``nvcc`` built it."""
+    from relayrl_tpu_torch import _kernels
+
+    tool = Path(_kernels._nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        raise RuntimeError(f"cuobjdump not found next to nvcc ({tool})")
+    return subprocess.run([str(tool), "-sass", str(_kernels.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
+def count_tensor_core_ops(text: str) -> dict[str, int]:
+    """Per function section of ``cuobjdump -sass`` output (keyed by the
+    mangled name), the count of tensor-core products (``HMMA``, ``HGMMA``);
+    functions without one count 0."""
+    counts: dict[str, int] = {}
+    name = None
+    for line in text.splitlines():
+        header = re.search(r"Function\s*:\s*(\S+)", line)
+        if header:
+            name = header.group(1)
+            counts.setdefault(name, 0)
+        elif name is not None and TENSOR_CORE_OP.search(line):
+            counts[name] += 1
+    return counts
+
+
+def ptxas_spills(log: str) -> dict[str, tuple[int, int]]:
+    """Per function in ``nvcc -Xptxas=-v`` output (mangled name), ptxas's
+    ``(spill store bytes, spill load bytes)``."""
+    spills: dict[str, tuple[int, int]] = {}
+    name = None
+    for line in log.splitlines():
+        header = re.search(r"(?:Compiling entry function|Function properties for)"
+                           r"\s+'?([^'\s]+)'?", line)
+        if header:
+            name = header.group(1)
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if found and name is not None:
+            spills[name] = (int(found.group(1)), int(found.group(2)))
+    return spills
+
+
 def check_tensor_cores() -> None:
     """Prints the tensor-core instructions (HMMA or HGMMA) in the SASS of
     each bf16 instantiation of K2 and K3 (``cuobjdump -sass`` of the built
     ``flash_bwd`` library, counted per function section) and ptxas's
     spills for them. Fails when ``cuobjdump`` is missing, an instantiation
     is missing, a count is 0 or ptxas reports a spill."""
-    import re
-
-    from relayrl_tpu_torch import _kernels
     from relayrl_tpu_torch.ops.flash import KERNEL_HEAD_DIMS
 
-    counts = _kernels.count_sass(_kernels.sass("flash_bwd"))
-    spills = _kernels.ptxas_spills(_kernels.build_log("flash_bwd"))
+    counts = count_tensor_core_ops(sass("flash_bwd"))
+    spills = ptxas_spills(build_log("flash_bwd"))
     found = {"flash_dq": {}, "flash_dkv": {}}
     for fn, n in counts.items():
         m = re.search(r"flash_(dq|dkv)_bf16_kernelILi(\d+)E", fn)

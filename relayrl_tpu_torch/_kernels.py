@@ -7,11 +7,8 @@ seconds. Libraries go to ``build/relayrl_tpu_torch/`` at the root of the
 checkout (``.gitignore`` lists ``build/``), named by a hash of the source,
 the shared headers of ``csrc/`` (``*.cuh``) and the flags, so an edited
 source or header builds anew; nvcc's log (``-Xptxas=-v``: registers and
-spills) is kept beside each library. ``nvcc`` is found through
-``CUDA_HOME``, then ``PATH``, then ``/usr/local/cuda``; ``cuobjdump`` next
-to it disassembles a built library (:func:`sass`), and
-:func:`count_sass` and :func:`ptxas_spills` read what it and ptxas
-print.
+spills) is kept beside each library (``.log``). ``nvcc`` is found through
+``CUDA_HOME``, then ``PATH``, then ``/usr/local/cuda``.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on hosts without a CUDA toolkit.
@@ -22,7 +19,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import threading
@@ -107,54 +103,3 @@ def load(name: str) -> ctypes.CDLL:
             lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return lib
 
-
-def build_log(name: str) -> str:
-    """nvcc's output for the built library of ``name``: this process's, or
-    the one kept beside the library by the process that built it."""
-    if name in BUILD_LOGS:
-        return BUILD_LOGS[name]
-    return library_path(name).with_suffix(".log").read_text()
-
-
-def sass(name: str) -> str:
-    """``cuobjdump -sass`` of the built library of ``name``, with the
-    ``cuobjdump`` of the toolkit that :func:`_nvcc` finds."""
-    tool = Path(_nvcc()).with_name("cuobjdump")
-    if not tool.is_file():
-        raise RuntimeError(f"cuobjdump not found next to nvcc ({tool})")
-    return subprocess.run([str(tool), "-sass", str(library_path(name))],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-
-
-def count_sass(text: str, pattern: str = r"\b(?:HMMA|HGMMA)\b") -> dict[str, int]:
-    """Per function section of ``cuobjdump -sass`` output (keyed by the
-    mangled name), the count of instructions matching ``pattern`` (by
-    default the tensor-core products); functions without one count 0."""
-    counts: dict[str, int] = {}
-    name = None
-    for line in text.splitlines():
-        header = re.search(r"Function\s*:\s*(\S+)", line)
-        if header:
-            name = header.group(1)
-            counts.setdefault(name, 0)
-        elif name is not None and re.search(pattern, line):
-            counts[name] += 1
-    return counts
-
-
-def ptxas_spills(log: str) -> dict[str, tuple[int, int]]:
-    """Per function in ``nvcc -Xptxas=-v`` output (mangled name), ptxas's
-    ``(spill store bytes, spill load bytes)``."""
-    spills: dict[str, tuple[int, int]] = {}
-    name = None
-    for line in log.splitlines():
-        header = re.search(r"(?:Compiling entry function|Function properties for)"
-                           r"\s+'?([^'\s]+)'?", line)
-        if header:
-            name = header.group(1)
-            continue
-        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if found and name is not None:
-            spills[name] = (int(found.group(1)), int(found.group(2)))
-    return spills

@@ -35,8 +35,9 @@
 // the output is deterministic. A block of 4 warps owns 64 output rows, 16
 // per warp, and walks 64-row tiles of the other side: of 32, 64 and 128
 // output rows against tiles of 32 and 64 rows, the shape measured fastest
-// at the learner slice's shape (scripts/tune_flash_bwd.py; 128 rows leave
-// SMs idle, 32 rows and 32-row tiles add copies and barriers).
+// at the learner slice's shape (a sweep of kRows and kTile recorded in
+// PERF.md; 128 rows leave SMs idle, 32 rows and 32-row tiles add copies
+// and barriers).
 //
 // - Products on the tensor cores: mma.sync m16n8k16, bf16 operands, f32
 //   accumulators, with ldmatrix fragments from shared memory. Chosen over

@@ -131,11 +131,7 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     from relayrl_tpu_torch import _kernels
 
-    return bind_bwd_library(_kernels.load("flash_bwd"))
-
-
-def bind_bwd_library(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Sets the C signatures of a loaded ``flash_bwd`` library."""
+    lib = _kernels.load("flash_bwd")
     strides = [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
     lib.relayrl_flash_bwd_dq.argtypes = (
         [ctypes.c_void_p] * 7 + strides

@@ -1,5 +1,6 @@
-"""The port's kernel build plumbing (relayrl_tpu_torch._kernels) and the
-host side of the flash backward kernels, on the CPU.
+"""The port's kernel build plumbing (relayrl_tpu_torch._kernels), the
+SASS and ptxas readers of chip_smoke.py, and the host side of the flash
+backward kernels, on the CPU.
 
 No test here needs a GPU or the CUDA toolkit: the library name is a hash
 of files, the SASS and ptxas readers parse text, and the backward's
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from relayrl_tpu.ops.flash import _prescale_q as jax_prescale_q
 from relayrl_tpu_torch import _kernels
 from relayrl_tpu_torch.ops.flash import _rows_aligned, prescale_q
@@ -84,29 +86,26 @@ def test_build_log_is_read_beside_the_library(csrc_copy, monkeypatch):
     log = _kernels.library_path("flash_bwd").with_suffix(".log")
     log.parent.mkdir(parents=True)
     log.write_text(PTXAS)
-    assert _kernels.build_log("flash_bwd") == PTXAS
+    assert chip_smoke.build_log("flash_bwd") == PTXAS
     _kernels.BUILD_LOGS["flash_bwd"] = "this process's log"
-    assert _kernels.build_log("flash_bwd") == "this process's log"
+    assert chip_smoke.build_log("flash_bwd") == "this process's log"
 
 
 def test_sass_needs_cuobjdump_beside_nvcc(tmp_path, monkeypatch):
     monkeypatch.setattr(_kernels, "_nvcc", lambda: str(tmp_path / "bin" / "nvcc"))
     with pytest.raises(RuntimeError, match="cuobjdump"):
-        _kernels.sass("flash_bwd")
+        chip_smoke.sass("flash_bwd")
 
 
 def test_count_sass_counts_tensor_core_products_per_function():
-    counts = _kernels.count_sass(SASS)
-    assert counts == {
+    assert chip_smoke.count_tensor_core_ops(SASS) == {
         "_ZN12_GLOBAL__N_120flash_dq_bf16_kernelILi32EEEvNS_7BwdArgsE": 3,
         "_ZN12_GLOBAL__N_119flash_dq_f32_kernelILi32EEEvNS_7BwdArgsE": 0,
     }
-    assert _kernels.count_sass(SASS, r"\bFFMA\b")[
-        "_ZN12_GLOBAL__N_119flash_dq_f32_kernelILi32EEEvNS_7BwdArgsE"] == 1
 
 
 def test_ptxas_spills_per_function():
-    assert _kernels.ptxas_spills(PTXAS) == {"_Z3fooPf": (0, 0), "_Z3barPf": (4, 12)}
+    assert chip_smoke.ptxas_spills(PTXAS) == {"_Z3fooPf": (0, 0), "_Z3barPf": (4, 12)}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
