@@ -12,12 +12,14 @@ Phases, each of which fails the run:
    ``ring_flash``), from ``relayrl_tpu_torch/csrc``, one ``nvcc`` per
    source, all started together; prints ``nvcc -Xptxas -v``'s registers
    and spills; counts the tensor-core instructions in the SASS of each
-   bf16 instantiation of K2 and K3 (``cuobjdump -sass``) and fails on a
-   zero count or a spill;
+   bf16 instantiation of K1, K2, K3 and K4 (``cuobjdump -sass``) and fails
+   on a zero count or a spill;
 3. kernel vs plain: each kernel (K1 forward, K2 dq, K3 dk/dv) against its
    plain PyTorch version on the card, at the slices' shapes and at edge
-   shapes, with the kernel's time, the plain version's, a library call's
-   and the bound; the whole backward as the learner runs it (delta, the
+   shapes (head dims 8 and 24 through ``flash_attention``'s padding,
+   forward and gradients), with the kernel's time, the plain version's, a
+   library call's and the bound, and K1's time at each rows-per-block
+   choice; the whole backward as the learner runs it (delta, the
    prescaled q, K2 and K3 through ``torch.autograd.grad``) beside SDPA's;
 4. serving slice: a 64-lane ``VectorActorHost`` over ``RecallEnv`` at the
    flagship transformer's widths (``__graft_entry__.entry()``'s arch: d_model
@@ -36,7 +38,9 @@ Phases, each of which fails the run:
    times and profiles an update;
 6. ring kernels vs plain: K4, K5 and K6 (the ring's chunk forward, dq and
    dk/dv) against their plain versions at the sp learner's chunk shape and
-   at edge shapes, with times, plain times and bounds; then
+   at edge shapes, with times, plain times and bounds, and K4's time at
+   each rows-per-block choice; the flash ring at head dim 8 (padded)
+   against the ring of plain chunk versions, forward and gradients; then
    ``chunked_flash_local`` (K4 over every chunk pair of one sequence)
    against K1 at the serving shape;
 7. sequence-parallel learner: the same REINFORCE with ``attention="ring"``
@@ -118,6 +122,17 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SLEEP_CYCLES_PER_S = 1.98e9
 # A tensor-core product in SASS: mma.sync (HMMA) or wgmma (HGMMA).
 TENSOR_CORE_OP = re.compile(r"\b(?:HMMA|HGMMA)\b")
+# The bf16 tensor-core kernels: (library, the mangled name of an
+# instantiation with the kernel's name and head dim as groups 1 and 2, the
+# kernels' names).
+TENSOR_CORE_KERNELS = (
+    ("flash_fwd", r"(flash_fwd)_bf16_kernelILi(\d+)E", ("flash_fwd",)),
+    ("flash_bwd", r"(flash_(?:dq|dkv))_bf16_kernelILi(\d+)E", ("flash_dq", "flash_dkv")),
+    ("ring_flash", r"(ring_chunk_fwd)_bf16_kernelILi(\d+)E", ("ring_chunk_fwd",)),
+)
+# The query rows per block that K1's and K4's bf16 kernels take: each is
+# timed at the main-path shapes, beside the shipped choice.
+BLOCK_ROWS = (16, 32, 64, 128)
 
 
 def _dtype_name(dtype) -> str:
@@ -254,32 +269,47 @@ def ptxas_spills(log: str) -> dict[str, tuple[int, int]]:
     return spills
 
 
-def check_tensor_cores() -> None:
+def check_tensor_cores() -> dict[str, dict[int, int]]:
     """Prints the tensor-core instructions (HMMA or HGMMA) in the SASS of
-    each bf16 instantiation of K2 and K3 (``cuobjdump -sass`` of the built
-    ``flash_bwd`` library, counted per function section) and ptxas's
-    spills for them. Fails when ``cuobjdump`` is missing, an instantiation
-    is missing, a count is 0 or ptxas reports a spill."""
+    each bf16 instantiation of K1, K2, K3 and K4 (``cuobjdump -sass`` of the
+    built ``flash_fwd``, ``flash_bwd`` and ``ring_flash`` libraries, counted
+    per function section) and ptxas's spills for them. Fails when
+    ``cuobjdump`` is missing, an instantiation is missing, a count is 0 or
+    ptxas reports a spill. Returns {kernel: {head dim: count}}."""
     from relayrl_tpu_torch.ops.flash import KERNEL_HEAD_DIMS
 
-    counts = count_tensor_core_ops(sass("flash_bwd"))
-    spills = ptxas_spills(build_log("flash_bwd"))
-    found = {"flash_dq": {}, "flash_dkv": {}}
-    for fn, n in counts.items():
-        m = re.search(r"flash_(dq|dkv)_bf16_kernelILi(\d+)E", fn)
-        if m is None:
-            continue
-        kernel, d = f"flash_{m.group(1)}", int(m.group(2))
-        spill = spills.get(fn)
-        print(f"[sass] {kernel} bf16 D={d}: {n} tensor-core instructions "
-              f"(HMMA/HGMMA); ptxas spill stores/loads {spill}", flush=True)
-        if n == 0 or spill != (0, 0):
-            raise AssertionError(f"{fn}: {n} tensor-core instructions, spills {spill}")
-        found[kernel][d] = n
+    found: dict[str, dict[int, int]] = {}
+    for library, pattern, kernels in TENSOR_CORE_KERNELS:
+        counts = count_tensor_core_ops(sass(library))
+        spills = ptxas_spills(build_log(library))
+        for kernel in kernels:
+            found[kernel] = {}
+        for fn, n in counts.items():
+            m = re.search(pattern, fn)
+            if m is None:
+                continue
+            kernel, d = m.group(1), int(m.group(2))
+            spill = spills.get(fn)
+            print(f"[sass] {kernel} bf16 D={d}: {n} tensor-core instructions "
+                  f"(HMMA/HGMMA); ptxas spill stores/loads {spill}", flush=True)
+            if n == 0 or spill != (0, 0):
+                raise AssertionError(f"{fn}: {n} tensor-core instructions, spills {spill}")
+            found[kernel][d] = n
     for kernel, dims in found.items():
         if sorted(dims) != sorted(KERNEL_HEAD_DIMS):
             raise AssertionError(f"{kernel} bf16 instantiations in the SASS: "
                                  f"{sorted(dims)}, expected {KERNEL_HEAD_DIMS}")
+    return found
+
+
+def grad_bar(dtype, want) -> float:
+    """The gradient bar: 5e-5 in f32; in bf16 3e-2 of the gradient's max
+    |value|, never below the f32 bar."""
+    import torch
+
+    if dtype == torch.float32:
+        return GRAD_TOLERANCE_F32
+    return max(GRAD_TOLERANCE_F32, TOLERANCE["bfloat16"] * want.float().abs().max().item())
 
 
 def check_flash_bwd(device) -> dict:
@@ -335,9 +365,7 @@ def check_flash_bwd(device) -> dict:
         for kernel in got:
             errs, bars = [], []
             for g, w in zip(got[kernel], want[kernel]):
-                bar = GRAD_TOLERANCE_F32
-                if dtype == torch.bfloat16:
-                    bar = max(bar, TOLERANCE["bfloat16"] * w.float().abs().max().item())
+                bar = grad_bar(dtype, w)
                 err = (g.float() - w.float()).abs().max().item()
                 if not (g.shape == w.shape and g.dtype == dtype
                         and math.isfinite(err) and err <= bar):
@@ -391,54 +419,108 @@ def check_flash_bwd(device) -> dict:
     return main
 
 
+def time_block_rows(module, attr: str, fn) -> dict[int, float]:
+    """``time_ms(fn)`` with ``module.attr`` (a kernel's query rows per
+    block) set to each of :data:`BLOCK_ROWS` in turn, then restored."""
+    shipped = getattr(module, attr)
+    times = {}
+    try:
+        for rows in BLOCK_ROWS:
+            setattr(module, attr, rows)
+            times[rows] = time_ms(fn)
+    finally:
+        setattr(module, attr, shipped)
+    return times
+
+
 def check_flash(device) -> dict:
-    """Kernel vs plain version at the slice's shape and the edge shapes;
-    times at the slice's shape. Returns the measurements of the shape the
-    serving slice runs (bf16, causal, T = 256)."""
+    """K1 against its plain version on q, k, v laid out as the model passes
+    them, in bf16 and f32, causal and not: at the serving slice's shape
+    ([64, 256, 8, 32]) and at T = 17 and 1 there; at the learner slice's
+    ([8, 256, 8, 32]); and at [8, T, 8, D] for the tensor-core kernel's
+    tile edges (T = 64, 65), head dims 16 and 64 (T = 130), and head dims
+    8 and 24 (T = 65, padded to 16 and 32 by ``flash_attention``), where
+    the gradients through ``flash_attention`` are held to the plain
+    backward too. Times at the serving shape (K1, the plain version, SDPA,
+    the bound) and, bf16 causal, at both main-path shapes, with K1 at each
+    rows-per-block choice. Returns the serving shape's bf16 causal
+    measurements, with the learner shape's beside them."""
     import torch
     import torch.nn.functional as F
 
-    from relayrl_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+    from relayrl_tpu_torch.ops import flash
+    from relayrl_tpu_torch.ops.flash import (
+        flash_attention,
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
 
-    B, H, D = LANES, SLICE_ARCH["n_heads"], SLICE_ARCH["d_model"] // SLICE_ARCH["n_heads"]
+    H, D = SLICE_ARCH["n_heads"], SLICE_ARCH["d_model"] // SLICE_ARCH["n_heads"]
+    T_main, B_learn = SLICE_ARCH["max_seq_len"], LEARNER["traj_per_epoch"]
+    serving = (torch.bfloat16, True, LANES, T_main, D)
+    learner = (torch.bfloat16, True, B_learn, T_main, D)
+    dtypes = (torch.bfloat16, torch.float32)
+    cases = [serving, learner]
+    cases += [(dtype, causal, LANES, T, D) for dtype in dtypes for causal in (True, False)
+              for T in (T_main, 17, 1) if (dtype, causal, LANES, T, D) != serving]
+    cases += [(dtype, causal, B_learn, T, d) for dtype in dtypes for causal in (True, False)
+              for T, d in ((64, D), (65, D), (130, 16), (130, 64), (65, 8), (65, 24))]
     gen = torch.Generator().manual_seed(SEED)
-    main = None
-    for dtype in (torch.bfloat16, torch.float32):
+    main = {}
+    for case in cases:
+        dtype, causal, B, T, d = case
         name = _dtype_name(dtype)
-        for causal in (True, False):
-            for T in (SLICE_ARCH["max_seq_len"], 17, 1):
-                q, k, v = fused_qkv(B, T, H, D, dtype, device, gen)
-                out, lse2 = flash_attention(q, k, v, causal)
-                torch.cuda.synchronize()
-                ref_out, ref_lse2 = flash_attention_plain(q, k, v, causal)
-                err_out = (out.float() - ref_out.float()).abs().max().item()
-                err_lse2 = (lse2 - ref_lse2).abs().max().item()
-                err = max(err_out, err_lse2)
-                if not (out.shape == ref_out.shape and lse2.shape == ref_lse2.shape
-                        and out.dtype == dtype and math.isfinite(err)
-                        and err <= TOLERANCE[name]):
-                    raise AssertionError(
-                        f"flash_fwd {name} causal={causal} T={T}: max abs err "
-                        f"{err} above {TOLERANCE[name]}")
-                line = (f"[kernel] flash_fwd {name} causal={causal} "
-                        f"q,k,v=[{B},{T},{H},{D}] max_abs_err O={err_out:.3e} "
-                        f"lse2={err_lse2:.3e} (tol {TOLERANCE[name]:g})")
-                if T == SLICE_ARCH["max_seq_len"]:
-                    ms = time_ms(lambda: flash_attention(q, k, v, causal))
-                    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal),
-                                       iters=20)
-                    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-                    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=causal))
-                    bound_ms, bound_by = flash_bound(B, T, H, D, name, causal)
-                    line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                             f"sdpa_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
-                             f"({bound_by})")
-                    if dtype == torch.bfloat16 and causal:
-                        main = {"max_abs_err": err, "ms": ms,
-                                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                "bound_by": bound_by, "library_ms": library_ms}
-                print(line, flush=True)
+        padded = d not in flash.KERNEL_HEAD_DIMS
+        q, k, v = (x.detach().requires_grad_(padded)
+                   for x in fused_qkv(B, T, H, d, dtype, device, gen))
+        out, lse2 = flash_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        ref_out, ref_lse2 = flash_attention_plain(q.detach(), k.detach(), v.detach(), causal)
+        errs = [(out.float() - ref_out.float()).abs().max().item(),
+                (lse2 - ref_lse2).abs().max().item()]
+        bars = [TOLERANCE[name]] * 2
+        shapes_ok = (out.shape == ref_out.shape and lse2.shape == ref_lse2.shape
+                     and out.dtype == dtype)
+        if padded:
+            do = torch.randn((B, T, H, d), generator=gen).to(device, dtype)
+            got = torch.autograd.grad(out, (q, k, v), do)
+            want = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                             out.detach(), lse2, do, causal)
+            for g, w in zip(got, want):
+                errs.append((g.float() - w.float()).abs().max().item())
+                bars.append(grad_bar(dtype, w))
+                shapes_ok = shapes_ok and g.shape == w.shape and g.dtype == dtype
+        if not shapes_ok or not all(math.isfinite(e) and e <= b for e, b in zip(errs, bars)):
+            raise AssertionError(
+                f"flash_fwd {name} causal={causal} [{B},{T},{H},{d}]: max abs errs "
+                f"{errs} above {bars}")
+        line = (f"[kernel] flash_fwd {name} causal={causal} q,k,v=[{B},{T},{H},{d}]"
+                + (" (padded; O, lse2, dq, dk, dv)" if padded else " (O, lse2)")
+                + " max_abs_err " + "/".join(f"{e:.3e}" for e in errs) + " (tol "
+                + "/".join(f"{b:.3e}" for b in bars) + ")")
+        if (B, T) in ((LANES, T_main), (B_learn, T_main)):
+            ms = time_ms(lambda: flash_attention(q, k, v, causal))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))
+            bound_ms, bound_by = flash_bound(B, T, H, d, name, causal)
+            line += (f" ms={ms:.4f} sdpa_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
+                     f"({bound_by})")
+            if case == serving:
+                plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal), iters=20)
+                line += f" plain_ms={plain_ms:.4f}"
+                main.update({"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": library_ms})
+            elif case == learner:
+                main.update({"learner_ms": ms, "learner_library_ms": library_ms,
+                             "learner_bound_ms": bound_ms})
+            if case in (serving, learner):
+                rows = time_block_rows(flash, "FWD_BLOCK_ROWS",
+                                       lambda: flash_attention(q, k, v, causal))
+                line += (f"; ms by rows per block (shipped {flash.FWD_BLOCK_ROWS}): "
+                         + ", ".join(f"{r}: {t:.4f}" for r, t in rows.items()))
+        print(line, flush=True)
     return main
 
 
@@ -497,9 +579,13 @@ def check_ring_chunks(device) -> dict:
     """K4, K5 and K6 against their plain versions: at the learner's chunk
     shape ([8, 64, 8, 32], sp 4 over T 256) in bf16 and f32, FULL and DIAG
     on a carried state and FULL on a fresh one (a non-causal ring's first
-    round); at C 8 and 128; at head dims 16 and 64. Times, bounds and plain
-    times at the learner's shape, bf16, FULL (6 of a ring's 10 rounds) and
-    DIAG. Returns {"ring_chunk_fwd": ..., ...} for bf16 FULL."""
+    round); at C 8, 65 (one row past K4's 64-key tile) and 128; at head
+    dims 16 and 64. Times, bounds and plain times at the learner's shape,
+    bf16, FULL (6 of a ring's 10 rounds) and DIAG, with K4 at each
+    rows-per-block choice. Then the flash ring at head dim 8 (padded to
+    16) through ``ring_flash_attention_sharded`` against the ring of plain
+    chunk versions, forward and gradients. Returns {"ring_chunk_fwd": ...,
+    ...} for bf16 FULL."""
     import torch
 
     from relayrl_tpu_torch.parallel import ring_flash as rf
@@ -515,7 +601,7 @@ def check_ring_chunks(device) -> dict:
     cases += [(dtype, rf.MODE_FULL, False, C, D) for dtype in (torch.bfloat16, torch.float32)]
     cases += [(dtype, mode, True, c, d) for dtype in (torch.bfloat16, torch.float32)
               for mode in (rf.MODE_FULL, rf.MODE_DIAG)
-              for c, d in ((8, D), (128, D), (C, 16), (C, 64))]
+              for c, d in ((8, D), (65, D), (128, D), (C, 16), (C, 64))]
     main = {}
     for dtype, mode, carried, c, d in cases:
         name = _dtype_name(dtype)
@@ -533,9 +619,7 @@ def check_ring_chunks(device) -> dict:
                 bars = [TOLERANCE[name]] * 2
             else:
                 errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
-                bars = [GRAD_TOLERANCE_F32 if dtype == torch.float32 else max(
-                    GRAD_TOLERANCE_F32, TOLERANCE[name] * w.abs().max().item())
-                    for w in want]
+                bars = [grad_bar(dtype, w) for w in want]
             if not all(g.shape == w.shape and g.dtype == torch.float32
                        for g, w in zip(got, want)) or not all(
                            math.isfinite(e) and e <= b for e, b in zip(errs, bars)):
@@ -553,12 +637,57 @@ def check_ring_chunks(device) -> dict:
                 bound_ms, bound_by = ring_chunk_bound(B, c, H, d, name, kernel, mode)
                 line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
                          f"bound_ms={bound_ms:.4f} ({bound_by})")
+                if kernel == "fwd":
+                    rows = time_block_rows(rf, "CHUNK_FWD_BLOCK_ROWS",
+                                           lambda: rf.chunk_fwd(mode, *args))
+                    line += (f"; ms by rows per block (shipped {rf.CHUNK_FWD_BLOCK_ROWS}): "
+                             + ", ".join(f"{r}: {t:.4f}" for r, t in rows.items()))
                 if mode == rf.MODE_FULL:
                     main[f"ring_chunk_{kernel}"] = {
                         "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
             print(line, flush=True)
+    check_padded_ring(device, gen)
     return main
+
+
+def check_padded_ring(device, gen) -> None:
+    """The causal flash ring over SP shards of the card at head dim 8
+    (``[8, 256, 8, 8]``, padded to 16) through ``ring_flash_attention_sharded``
+    (the kernels: 10 launches of each) against the same ring through the
+    plain chunk versions, forward and the gradients of ``sum(out * w)``."""
+    import torch
+
+    from relayrl_tpu_torch.parallel import ring_flash as rf
+
+    B, H, T = LEARNER["traj_per_epoch"], SLICE_ARCH["n_heads"], SLICE_ARCH["max_seq_len"]
+    C, d, devices = T // SP, 8, [device] * SP
+    for dtype in (torch.bfloat16, torch.float32):
+        name = _dtype_name(dtype)
+        q, k, v = (x.detach().requires_grad_() for x in fused_qkv(B, T, H, d, dtype, device, gen))
+        w = torch.randn((B, T, H, d), generator=gen).to(device, dtype)
+        shards = [[x[:, i * C:(i + 1) * C] for i in range(SP)] for x in (q, k, v)]
+        before = ring_counts()
+        got = torch.cat(rf.ring_flash_attention_sharded(*shards, devices), dim=1)
+        got_grads = torch.autograd.grad(got, (q, k, v), w)
+        torch.cuda.synchronize()
+        launches = tuple(a - b for a, b in zip(ring_counts(), before))
+        want = torch.cat(rf._ring_flash(*shards, devices, True, rf.PLAIN_CHUNK_CALLS), dim=1)
+        want_grads = torch.autograd.grad(want, (q, k, v), w)
+        errs = [(got.float() - want.float()).abs().max().item()]
+        bars = [TOLERANCE[name]]
+        for g, wg in zip(got_grads, want_grads):
+            errs.append((g.float() - wg.float()).abs().max().item())
+            bars.append(grad_bar(dtype, wg))
+        pairs = SP * (SP + 1) // 2
+        if (got.shape != q.shape or launches != (pairs,) * 3
+                or not all(math.isfinite(e) and e <= b for e, b in zip(errs, bars))):
+            raise AssertionError(f"padded ring {name} D={d}: launches {launches}, max abs "
+                                 f"errs {errs} above {bars}")
+        print(f"[ring] ring_flash_attention_sharded {name} causal sp={SP} [{B},{T},{H},{d}] "
+              f"(padded to 16; launches {launches}) vs the plain chunk ring: max_abs_err "
+              "out/dq/dk/dv " + "/".join(f"{e:.3e}" for e in errs) + " (tol "
+              + "/".join(f"{b:.3e}" for b in bars) + ")", flush=True)
 
 
 def check_chunked_local(device) -> None:

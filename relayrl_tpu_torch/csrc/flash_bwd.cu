@@ -121,13 +121,9 @@ struct BwdArgs {
 
 // -- bf16: tensor cores ------------------------------------------------------
 
-// Row stride of a shared-memory tile in elements: D plus 16 bytes.
-template <int D>
-constexpr int kStride = D + 8;
-
 // Starts the copies of rows [t0, t0 + kTile) of one (batch, head) slice
-// `src` (row stride sT elements) into dst[kTile][kStride<D>]; rows at or
-// past T are zero-filled.
+// `src` (row stride sT elements) into dst[kTile][tc::kStride<D>]; rows at
+// or past T are zero-filled.
 template <int D>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long sT,
                                            int t0, int T_len) {
@@ -140,27 +136,7 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long
     const int c = e - r * (D / 8);
     const bool in = t0 + r < T_len;
     const bf16* row = src + (in ? (long long)(t0 + r) * sT : 0);
-    tc::cp_async_16(dst + r * kStride<D> + c * 8, row + c * 8, in);
-  }
-}
-
-// A fragments of 16 rows [r0, r0 + 16) of one slice (row stride sT), over
-// the D / 16 k-steps of the head dim; rows at or past T are zero.
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4], const bf16* src,
-                                             long long sT, int r0, int T_len) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + g + 8 * half;
-    const uint32_t* row = reinterpret_cast<const uint32_t*>(src + (long long)r * sT);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      f[kk][half] = r < T_len ? row[kk * 8 + tq] : 0u;
-      f[kk][2 + half] = r < T_len ? row[kk * 8 + 4 + tq] : 0u;
-    }
+    tc::cp_async_16(dst + r * tc::kStride<D> + c * 8, row + c * 8, in);
   }
 }
 
@@ -175,7 +151,7 @@ __device__ __forceinline__ void chunk_scores(float (&s)[2][4], float (&dp)[2][4]
   const int lane = threadIdx.x & 31;
   // ldmatrix row addresses: matrices (rows 0-7, dims 0-7), (rows 0-7,
   // dims 8-15), (rows 8-15, dims 0-7), (rows 8-15, dims 8-15).
-  const int off = ((lane & 7) + ((lane >> 4) << 3)) * kStride<D> + ((lane >> 3) & 1) * 8;
+  const int off = ((lane & 7) + ((lane >> 4) << 3)) * tc::kStride<D> + ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int n = 0; n < 2; ++n) {
 #pragma unroll
@@ -193,24 +169,6 @@ __device__ __forceinline__ void chunk_scores(float (&s)[2][4], float (&dp)[2][4]
     tc::ldmatrix_x4(b, bd + off + kk * 16);
     tc::mma_bf16(dp[0], a_d[kk], b[0], b[1]);
     tc::mma_bf16(dp[1], a_d[kk], b[2], b[3]);
-  }
-}
-
-// acc[16 x D] += a (16 x 16) . B, where B is 16 rows of a shared-memory
-// tile starting at `rows` (k = tile row, n = head dim), read transposed.
-template <int D>
-__device__ __forceinline__ void chunk_accumulate(float (&acc)[D / 8][4],
-                                                 const uint32_t (&a)[4], const bf16* rows) {
-  const int lane = threadIdx.x & 31;
-  // Matrices (rows 0-7, dims 0-7), (rows 8-15, dims 0-7), (rows 0-7,
-  // dims 8-15), (rows 8-15, dims 8-15) of each 16-dim pair of n-tiles.
-  const int off = ((lane & 7) + ((lane >> 3) & 1) * 8) * kStride<D> + (lane >> 4) * 8;
-#pragma unroll
-  for (int np = 0; np < D / 16; ++np) {
-    uint32_t b[4];
-    tc::ldmatrix_x4_trans(b, rows + off + np * 16);
-    tc::mma_bf16(acc[2 * np], a, b[0], b[1]);
-    tc::mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
   }
 }
 
@@ -252,7 +210,7 @@ __device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4], const uint32_t (
     // masked for all 16 rows.
     if (kMask && (key0 >= T_len || (causal && key0 > warp_last))) break;
     float s[2][4], dp[2][4];
-    chunk_scores<D>(s, dp, qa, da, kt + 16 * c * kStride<D>, vt + 16 * c * kStride<D>);
+    chunk_scores<D>(s, dp, qa, da, kt + 16 * c * tc::kStride<D>, vt + 16 * c * tc::kStride<D>);
     uint32_t dsa[4];
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
@@ -270,14 +228,14 @@ __device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4], const uint32_t (
       dsa[2 * n] = tc::pack_bf16(ds[0], ds[1]);
       dsa[2 * n + 1] = tc::pack_bf16(ds[2], ds[3]);
     }
-    chunk_accumulate<D>(acc, dsa, kt + 16 * c * kStride<D>);
+    tc::chunk_accumulate<D>(acc, dsa, kt + 16 * c * tc::kStride<D>);
   }
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_bf16_kernel(const BwdArgs a) {
-  __shared__ __align__(16) bf16 ks[2][kTile * kStride<D>];
-  __shared__ __align__(16) bf16 vs[2][kTile * kStride<D>];
+  __shared__ __align__(16) bf16 ks[2][kTile * tc::kStride<D>];
+  __shared__ __align__(16) bf16 vs[2][kTile * tc::kStride<D>];
 
   const int T_len = a.len;
   const int bh = blockIdx.x;
@@ -293,10 +251,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq_bf16_kernel(const BwdArgs a
 
   uint32_t qa[D / 16][4];
   uint32_t da[D / 16][4];
-  load_a_frags<D>(qa, static_cast<const bf16*>(a.q) + b * a.qB + h * a.qH, a.qT,
-                  q0 + 16 * warp, T_len);
-  load_a_frags<D>(da, static_cast<const bf16*>(a.dout) + b * a.dB + h * a.dH, a.dT,
-                  q0 + 16 * warp, T_len);
+  tc::load_a_frags<D>(qa, static_cast<const bf16*>(a.q) + b * a.qB + h * a.qH, a.qT,
+                      q0 + 16 * warp, T_len);
+  tc::load_a_frags<D>(da, static_cast<const bf16*>(a.dout) + b * a.dB + h * a.dH, a.dT,
+                      q0 + 16 * warp, T_len);
   float lse[2], delta[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -363,7 +321,7 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[D / 8][4], float (&dv)[D / 
       if (causal && qc0 + 15 < warp_first) continue;
     }
     float s[2][4], dp[2][4];
-    chunk_scores<D>(s, dp, ka, va, qt + 16 * c * kStride<D>, dot + 16 * c * kStride<D>);
+    chunk_scores<D>(s, dp, ka, va, qt + 16 * c * tc::kStride<D>, dot + 16 * c * tc::kStride<D>);
     uint32_t pa[4], dsa[4];
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
@@ -386,15 +344,15 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[D / 8][4], float (&dv)[D / 
       dsa[2 * n] = tc::pack_bf16(ds[0], ds[1]);
       dsa[2 * n + 1] = tc::pack_bf16(ds[2], ds[3]);
     }
-    chunk_accumulate<D>(dv, pa, dot + 16 * c * kStride<D>);
-    chunk_accumulate<D>(dk, dsa, qt + 16 * c * kStride<D>);
+    tc::chunk_accumulate<D>(dv, pa, dot + 16 * c * tc::kStride<D>);
+    tc::chunk_accumulate<D>(dk, dsa, qt + 16 * c * tc::kStride<D>);
   }
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_dkv_bf16_kernel(const BwdArgs a) {
-  __shared__ __align__(16) bf16 qsm[2][kTile * kStride<D>];
-  __shared__ __align__(16) bf16 dosm[2][kTile * kStride<D>];
+  __shared__ __align__(16) bf16 qsm[2][kTile * tc::kStride<D>];
+  __shared__ __align__(16) bf16 dosm[2][kTile * tc::kStride<D>];
   __shared__ __align__(16) float lse_s[2][kTile];
   __shared__ __align__(16) float delta_s[2][kTile];
 
@@ -413,10 +371,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_bf16_kernel(const BwdArgs 
 
   uint32_t ka[D / 16][4];
   uint32_t va[D / 16][4];
-  load_a_frags<D>(ka, static_cast<const bf16*>(a.k) + b * a.sB + h * a.sH, a.sT,
-                  k0 + 16 * warp, T_len);
-  load_a_frags<D>(va, static_cast<const bf16*>(a.v) + b * a.sB + h * a.sH, a.sT,
-                  k0 + 16 * warp, T_len);
+  tc::load_a_frags<D>(ka, static_cast<const bf16*>(a.k) + b * a.sB + h * a.sH, a.sT,
+                      k0 + 16 * warp, T_len);
+  tc::load_a_frags<D>(va, static_cast<const bf16*>(a.v) + b * a.sB + h * a.sH, a.sT,
+                      k0 + 16 * warp, T_len);
   float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {

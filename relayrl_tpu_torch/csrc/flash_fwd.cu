@@ -8,81 +8,152 @@
 //
 // Math, as in the TPU kernel: q is scaled by log2(e)/sqrt(D) and rounded
 // back to the input dtype, so scores come out in log2 space and the online
-// softmax runs on exp2; the running (acc, m, l) are f32; p is rounded to
-// the input dtype before the PV product; l is clamped at 1e-30; masked
-// scores are -1e30; lse2 = m + log2(l); O is acc / l in the input dtype.
-//
-// Design. The TPU kernel's sequential KV grid axis becomes a loop inside
-// the block. One block owns one (batch*head, 64-row query tile) and each
-// of its 64 threads owns one query row: its scaled q and its f32
-// accumulator stay in registers. The block walks 64-key tiles of K and V
-// up to the causal diagonal, staging each tile in shared memory as f32.
-// Each thread scores 16 keys at a time (FMA dot products against
-// shared-memory reads that all threads of a warp share), moves its running
-// max once per 16 keys, and accumulates p*V. Keys past T and above the
-// diagonal are masked in the kernel, so every T >= 1 works (the model's
-// T = 1 validation step and ragged lengths such as 17 included).
-// q, k and v are read through (batch, time, head) element strides: the
-// model passes views of its fused qkv projection, so no transpose or copy
-// runs before the kernel. O is written as contiguous [B, T, H, D] and lse2
-// as contiguous [B, H, T].
+// softmax runs on exp2; the running (acc, m, l) are f32; l sums the
+// unrounded p; p is rounded to the input dtype before the PV product; l is
+// clamped at 1e-30; masked scores are -1e30; lse2 = m + log2(l); O is
+// acc / l in the input dtype.
 //
 // Bound on the H100 at the serving slice's shape (B*H = 512, T = 256,
-// D = 32, bf16, causal): about 2.2 GFLOP against about 34 MB of q, k, v,
-// O and lse2 traffic, so the function is memory-bound with a floor near
-// 10 us at 3.35 TB/s. This first kernel does its arithmetic on the CUDA
-// cores, not the tensor cores, so its FMA and shared-memory issue rate
-// limits it rather than memory; mma/wgmma tiles, TMA staging and
-// pipelining are later work.
+// D = 32, bf16, causal): about 1.1 GFLOP on the live (query, key) pairs
+// against about 34 MB of q, k, v, O and lse2, so the function is
+// memory-bound with a floor near 10 us at 3.35 TB/s; at the learner's
+// shape (B*H = 64) the floor is near 1.3 us and a launch has few blocks,
+// so latency (of the loads and of the chain S -> p -> PV in each tile)
+// limits it.
+//
+// bf16 design (the main path), the forward half of flash_bwd.cu's:
+//
+// - A block owns one (batch*head, query tile) of 16 rows per warp. The
+//   rows per block are a launch argument (16, 32, 64 or 128), chosen by the
+//   timings in PERF.md, which chip_smoke.py measures at the main-path
+//   shapes; the wrapper passes ops/flash.py's FWD_BLOCK_ROWS.
+// - Each warp loads its 16 rows of q, scales them by log2(e)/sqrt(D) and
+//   rounds them to bf16 at the load, into registers as mma.sync m16n8k16
+//   A fragments; its O accumulator stays in registers too. The tile step
+//   (flash_fwd_tile.cuh, shared with the ring's K4) runs S = qs.K^T and
+//   O += round(P).V on the tensor cores, with round(P) repacked from the S
+//   accumulator in registers and the row max and sum reduced over a quad
+//   with shuffles. mma.sync rather than wgmma: a warp's A operand is
+//   already in registers, and at D <= 64 the kernel is far from the
+//   compute roof.
+// - K/V tiles of 64 keys arrive by 16-byte cp.async, double-buffered into
+//   rows padded by 16 bytes (no ldmatrix bank conflicts), zero-filled past
+//   T. q, k and v are read through (batch, time, head) strides, views of
+//   the fused qkv projection; rows must start on 16-byte boundaries, which
+//   the wrapper checks (and relayrl_flash_fwd refuses otherwise).
+// - Only the diagonal tile and a ragged last tile take the masked body; the
+//   tiles walk from key 0, so the running max is finite before a masked
+//   score is exponentiated. Causal query tiles are launched longest first.
+//
+// O is written as contiguous [B, T, H, D] and lse2 as contiguous [B, H, T].
+//
+// f32 design. No tensor-core type meets the f32 bar of 2e-5 (TF32 keeps
+// about three decimal digits), so f32 inputs keep the first port's design:
+// one thread per query row, q and the accumulator in registers, K and V
+// staged in shared memory as f32, scores and p.V as scalar FMAs on the
+// CUDA cores, the running max moved once per 16 keys.
+//
+// Both designs take every T >= 1 and head dims 16, 32 and 64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "flash_fwd_tile.cuh"
 
 namespace {
 
-constexpr int kRows = 64;   // query rows per block, one per thread
-constexpr int kKeys = 64;   // keys per shared-memory tile
-constexpr int kChunk = 16;  // keys per online-softmax update
-constexpr float kNegInf = -1e30f;
+using bf16 = __nv_bfloat16;
+using fwd::kNegInf;
+using fwd::kTile;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+struct FwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;           // [B, T, H, D]
+  float* lse;        // [B, H, T]
+  int H, len;        // heads, sequence length
+  long long sB, sT, sH;  // q, k, v element strides
+  float q_scale;     // log2(e) / sqrt(D)
+  bool causal;
+};
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
+// -- bf16: tensor cores ------------------------------------------------------
 
-// An f32 value rounded through the input dtype.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
+template <int D>
+__global__ void __launch_bounds__(fwd::kMaxThreads) flash_fwd_bf16_kernel(const FwdArgs a) {
+  __shared__ __align__(16) bf16 ks[2][kTile * tc::kStride<D>];
+  __shared__ __align__(16) bf16 vs[2][kTile * tc::kStride<D>];
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kRows)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int H, int T_len, long long sB,
-                     long long sT, long long sH, float q_scale, bool causal) {
-  __shared__ __align__(16) float ks[kKeys][D];
-  __shared__ __align__(16) float vs[kKeys][D];
-
+  const int len = a.len;
+  const int rows = blockDim.x / 2;  // 16 per warp
   const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.y * kRows;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  // The last query tile walks the most keys: launch it first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * rows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int w0 = q0 + 16 * warp;
+  const long long base = (long long)b * a.sB + (long long)h * a.sH;
+
+  uint32_t qa[D / 16][4];
+  fwd::load_scaled_a_frags<D>(qa, static_cast<const bf16*>(a.q) + base, a.sT, w0, len,
+                              a.q_scale);
+  fwd::State<D> st;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st.acc[n][e] = 0.f;
+  }
+  st.m[0] = st.m[1] = kNegInf;
+  st.l[0] = st.l[1] = 0.f;
+
+  // A causal block needs keys only up to its last row's diagonal.
+  const int kv_end = a.causal ? min(len, q0 + rows) : len;
+  fwd::walk_tiles<D>(st, qa, ks, vs, static_cast<const bf16*>(a.k) + base,
+                     static_cast<const bf16*>(a.v) + base, a.sT, kv_end, q0, w0, len,
+                     a.causal);
+
+  fwd::quad_sum_l<D>(st);
+  const int tq = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = w0 + (lane >> 2) + 8 * half;
+    if (r >= len) continue;
+    const float lc = fmaxf(st.l[half], 1e-30f);
+    uint32_t* row = reinterpret_cast<uint32_t*>(static_cast<bf16*>(a.o) +
+                                                (((long long)b * len + r) * a.H + h) * D);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      row[n * 4 + tq] = tc::pack_bf16(st.acc[n][2 * half] / lc, st.acc[n][2 * half + 1] / lc);
+    }
+    if (tq == 0) a.lse[(long long)bh * len + r] = st.m[half] + log2f(lc);
+  }
+}
+
+// -- f32: CUDA cores ---------------------------------------------------------
+
+constexpr int kRowsF32 = 64;   // query rows per block, one per thread
+constexpr int kChunkF32 = 16;  // keys per online-softmax update
+
+template <int D>
+__global__ void __launch_bounds__(kRowsF32) flash_fwd_f32_kernel(const FwdArgs a) {
+  __shared__ __align__(16) float ks[kTile][D];
+  __shared__ __align__(16) float vs[kTile][D];
+
+  const float* __restrict__ q = static_cast<const float*>(a.q);
+  const float* __restrict__ k = static_cast<const float*>(a.k);
+  const float* __restrict__ v = static_cast<const float*>(a.v);
+  const int T_len = a.len;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int q0 = blockIdx.y * kRowsF32;
   const int row = q0 + threadIdx.x;
   const bool live = row < T_len;
-  const long long base = (long long)b * sB + (long long)h * sH;
+  const long long base = (long long)b * a.sB + (long long)h * a.sH;
 
   float qr[D];
   float acc[D];
@@ -92,47 +163,47 @@ __global__ void __launch_bounds__(kRows)
     acc[d] = 0.f;
   }
   if (live) {
-    const T* qp = q + base + (long long)row * sT;
+    const float* qp = q + base + (long long)row * a.sT;
 #pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = round_to<T>(to_float(qp[d]) * q_scale);
+    for (int d = 0; d < D; ++d) qr[d] = qp[d] * a.q_scale;
   }
   float m = kNegInf;
   float l = 0.f;
 
   // A causal block needs keys only up to its last row's diagonal.
-  const int kv_end = causal ? min(T_len, q0 + kRows) : T_len;
-  for (int k0 = 0; k0 < kv_end; k0 += kKeys) {
+  const int kv_end = a.causal ? min(T_len, q0 + kRowsF32) : T_len;
+  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int e = threadIdx.x; e < kKeys * D; e += kRows) {
+    for (int e = threadIdx.x; e < kTile * D; e += kRowsF32) {
       const int r = e / D;
       const int c = e - r * D;
       const int t = k0 + r;
       float kv = 0.f;
       float vv = 0.f;
       if (t < kv_end) {
-        const long long off = base + (long long)t * sT + c;
-        kv = to_float(k[off]);
-        vv = to_float(v[off]);
+        const long long off = base + (long long)t * a.sT + c;
+        kv = k[off];
+        vv = v[off];
       }
       ks[r][c] = kv;
       vs[r][c] = vv;
     }
     __syncthreads();
-    const int n = min(kKeys, kv_end - k0);
-    for (int c0 = 0; c0 < n; c0 += kChunk) {
+    const int n = min(kTile, kv_end - k0);
+    for (int c0 = 0; c0 < n; c0 += kChunkF32) {
       const int j0 = k0 + c0;
       // Every key from here on is above this row's diagonal. No barrier
       // follows inside this loop, so threads may leave it independently.
-      if (causal && j0 > row) break;
-      float s[kChunk];
+      if (a.causal && j0 > row) break;
+      float s[kChunkF32];
       float mx = m;
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
+      for (int jj = 0; jj < kChunkF32; ++jj) {
         float dot = 0.f;
 #pragma unroll
         for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[c0 + jj][d], dot);
         const int j = j0 + jj;
-        const bool valid = j < kv_end && (!causal || j <= row);
+        const bool valid = j < kv_end && (!a.causal || j <= row);
         s[jj] = valid ? dot : kNegInf;
         mx = fmaxf(mx, s[jj]);
       }
@@ -143,53 +214,47 @@ __global__ void __launch_bounds__(kRows)
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] *= corr;
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
+      for (int jj = 0; jj < kChunkF32; ++jj) {
         const float p = exp2f(s[jj] - mx);
         l += p;
-        const float pv = round_to<T>(p);
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] = fmaf(pv, vs[c0 + jj][d], acc[d]);
+        for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vs[c0 + jj][d], acc[d]);
       }
       m = mx;
     }
   }
   if (live) {
     const float lc = fmaxf(l, 1e-30f);
-    T* op = o + (((long long)b * T_len + row) * H + h) * D;
+    float* op = static_cast<float*>(a.o) + (((long long)b * T_len + row) * a.H + h) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = from_float<T>(acc[d] / lc);
-    lse[(long long)bh * T_len + row] = m + log2f(lc);
+    for (int d = 0; d < D; ++d) op[d] = acc[d] / lc;
+    a.lse[(long long)bh * T_len + row] = m + log2f(lc);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int B, int H, int T_len, long long sB,
-                   long long sT, long long sH, float q_scale, bool causal,
-                   cudaStream_t stream) {
-  const dim3 grid(B * H, (T_len + kRows - 1) / kRows);
-  flash_fwd_kernel<T, D><<<grid, kRows, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      H, T_len, sB, sT, sH, q_scale, causal);
+// -- launch ------------------------------------------------------------------
+
+template <bool kBf16, int D>
+cudaError_t launch(const FwdArgs& a, int B, int block_rows, cudaStream_t stream) {
+  if constexpr (kBf16) {
+    const dim3 grid(B * a.H, (a.len + block_rows - 1) / block_rows);
+    flash_fwd_bf16_kernel<D><<<grid, 2 * block_rows, 0, stream>>>(a);
+  } else {
+    const dim3 grid(B * a.H, (a.len + kRowsF32 - 1) / kRowsF32);
+    flash_fwd_f32_kernel<D><<<grid, kRowsF32, 0, stream>>>(a);
+  }
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_for_dim(int D, const void* q, const void* k, const void* v,
-                           void* o, void* lse, int B, int H, int T_len,
-                           long long sB, long long sT, long long sH,
-                           float q_scale, bool causal, cudaStream_t stream) {
+template <bool kBf16>
+cudaError_t launch_for_dim(int D, const FwdArgs& a, int B, int block_rows, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, lse, B, H, T_len, sB, sT, sH, q_scale,
-                           causal, stream);
+      return launch<kBf16, 16>(a, B, block_rows, s);
     case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, H, T_len, sB, sT, sH, q_scale,
-                           causal, stream);
+      return launch<kBf16, 32>(a, B, block_rows, s);
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, H, T_len, sB, sT, sH, q_scale,
-                           causal, stream);
+      return launch<kBf16, 64>(a, B, block_rows, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -199,21 +264,29 @@ cudaError_t launch_for_dim(int D, const void* q, const void* k, const void* v,
 
 // q, k, v: [B, T, H, D] elements at offset b*sB + t*sT + h*sH + d (the
 // three share strides); o: contiguous [B, T, H, D] in the input dtype;
-// lse: contiguous [B, H, T] f32. Launches on `stream` and returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int relayrl_flash_fwd(const void* q, const void* k, const void* v,
-                                 void* o, void* lse, int B, int H, int T,
-                                 int D, long long sB, long long sT,
-                                 long long sH, float q_scale, int causal,
-                                 int is_bf16, void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || (T + kRows - 1) / kRows > 65535) {
+// lse: contiguous [B, H, T] f32. block_rows: query rows per block of the
+// bf16 kernel (16, 32, 64 or 128; the f32 kernel takes 64). bf16 inputs
+// need 16-byte aligned pointers and strides that are multiples of 8
+// elements. Launches on `stream` and returns the cudaError_t of the launch
+// (0 on success).
+extern "C" int relayrl_flash_fwd(const void* q, const void* k, const void* v, void* o,
+                                 void* lse, int B, int H, int T, int D, long long sB,
+                                 long long sT, long long sH, float q_scale, int causal,
+                                 int is_bf16, int block_rows, void* stream) {
+  const bool rows_ok = block_rows == 16 || block_rows == 32 || block_rows == 64 ||
+                       block_rows == 128;
+  const int tile_rows = is_bf16 ? block_rows : kRowsF32;
+  if (B <= 0 || H <= 0 || T <= 0 || !rows_ok || (T + tile_rows - 1) / tile_rows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v);
+  if (is_bf16 && ((ptrs & 15u) != 0 || ((sB | sT | sH) & 7) != 0)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const FwdArgs a{q, k, v, o, static_cast<float*>(lse), H, T, sB, sT, sH, q_scale, causal != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_for_dim<__nv_bfloat16>(D, q, k, v, o, lse, B, H, T, sB,
-                                              sT, sH, q_scale, causal != 0, s)
-              : launch_for_dim<float>(D, q, k, v, o, lse, B, H, T, sB, sT, sH,
-                                      q_scale, causal != 0, s);
+  const cudaError_t err = is_bf16 ? launch_for_dim<true>(D, a, B, block_rows, s)
+                                  : launch_for_dim<false>(D, a, B, block_rows, s);
   return static_cast<int>(err);
 }

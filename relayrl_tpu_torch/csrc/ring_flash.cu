@@ -26,39 +26,65 @@
 // shards share one card the buffer a shard receives is the tensor its
 // predecessor wrote, so nothing is updated in place.
 //
-// Design. The design of flash_bwd.cu. The TPU kernels' sequential grid
-// axis (KV for K4 and K5, Q for K6) becomes a loop inside the block, and
-// each output row belongs to one block, so no kernel needs atomics. K4 and
-// K5: a block owns one (batch*head, 64-row query tile); each row's q, its
-// state and (K5) its do, lse2, delta stay in registers while the block
-// walks 64-key tiles of K and V staged in shared memory as f32, up to the
-// row's diagonal under DIAG. K6: a block owns a 64-row key tile; each
-// row's k, v and its dk and dv accumulators stay in registers while the
-// block walks 64-row query tiles of qs, do, lse2 and delta, from its own
-// tile on under DIAG. One thread owns a row, two at D = 64 (each holds
-// every other head dim; the pair adds its halves of a dot product with one
-// shuffle). Every key loop starts at the chunk's key 0, which is live for
-// every row in both modes, so K4's running max is finite before a masked
-// score is exponentiated: exp2(-1e30 - m) flushes to exactly 0. Keys past
-// C, and above the diagonal under DIAG, are skipped or masked, so any C
-// works. q, k, v and do are read through their own (batch, time, head)
-// element strides (views of the fused qkv projection, cut by chunk); the
-// state is contiguous [B, H, C, D] and [B, H, C].
+// Design. The TPU kernels' sequential grid axis (KV for K4 and K5, Q for K6)
+// becomes a loop inside the block, and each output row belongs to one
+// block, so no kernel needs atomics. Every key loop starts at the chunk's
+// key 0, which is live for every row in both modes, so K4's running max is
+// finite before a masked score is exponentiated: exp2(-1e30 - m) flushes to
+// exactly 0. Keys past C, and above the diagonal under DIAG, are skipped or
+// masked, so any C works. q, k, v and do are read through their own
+// (batch, time, head) element strides (views of the fused qkv projection,
+// cut by chunk); the state is contiguous [B, H, C, D] and [B, H, C].
+//
+// K4 in bf16 (the main path) runs on the tensor cores: K1's tile step
+// (flash_fwd_tile.cuh, mma.sync m16n8k16 with ldmatrix fragments), with
+// a prologue that resumes the carried state and an epilogue that flushes
+// it. A warp owns 16 query rows: their prescaled q as A fragments, their
+// acc as C fragments, loaded from o_in in place (each lane reads the
+// float2 pairs its fragments hold), m from m_in, and l from l_in into one
+// lane of each quad (the tile step keeps each lane's share of l and sums
+// the quad at the flush). K/V tiles of 64 keys arrive by double-buffered
+// 16-byte cp.async into padded rows, zero-filled past C; only a DIAG tile
+// on the diagonal and a ragged last tile take the masked body. The rows
+// per block are a launch argument (16, 32, 64 or 128) so that the ring's
+// small chunks still fill the card: at B*H = 64 and C = 64, 64 rows per
+// block give 64 blocks for 132 SMs. The wrapper passes
+// parallel/ring_flash.py's CHUNK_FWD_BLOCK_ROWS, chosen by the timings in
+// PERF.md (chip_smoke.py measures each choice at the main-path shape).
+// q, k and v rows must start on 16-byte boundaries, which the wrapper
+// checks (and relayrl_ring_chunk_fwd refuses otherwise).
+//
+// K4 in f32, K5 and K6 keep the first port's design: one thread per row,
+// two at D = 64 (each holds every other head dim; the pair adds its halves
+// of a dot product with one shuffle), the other side staged in shared
+// memory as f32, products as scalar FMAs on the CUDA cores. K5 and K6: a
+// block owns a 64-row query (K5) or key (K6) tile; each row's q, do, lse2,
+// delta (K5) or k, v (K6) and its accumulators stay in registers while the
+// block walks 64-row tiles of the other side, up to (K5) or from (K6) the
+// diagonal under DIAG. f32 K4 stays on the CUDA cores because no
+// tensor-core type meets the f32 bar of 2e-5.
 //
 // Bound on the H100 at the learner's chunk shape (B*H = 64, C = 64,
 // D = 32, bf16, FULL): K4 moves about 1.9 MB (the f32 state in and out is
 // more than half of it) and does 34 MFLOP, K5 about 2.1 MB and 50 MFLOP,
 // K6 about 3.2 MB and 67 MFLOP, so all three are memory-bound with floors
-// of 0.6-1 us at 3.35 TB/s. These first kernels run their products as scalar
-// FMAs on the CUDA cores with operands read from shared memory, on 64
-// blocks of 64 threads at that shape, so issue rate, occupancy and launch
-// latency limit them rather than memory; mma/wgmma tiles, TMA staging and
-// fusing a ring's rounds into one launch are later work.
+// of 0.6-1 us at 3.35 TB/s. At that size a launch is short and its grid
+// small, so latency limits the tensor-core K4 (the state's loads, one tile's
+// chain S -> p -> PV, the flush); K5 and K6, still on the CUDA cores, are
+// limited by their issue rate. Fusing a ring's rounds into one launch and
+// K5/K6 on the tensor cores are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "flash_fwd_tile.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;   // output rows a block owns
 constexpr int kTile = 64;   // rows of the other side per shared-memory tile
@@ -131,6 +157,7 @@ struct FwdArgs {
   float* l_out;
   int H, C;
   Strides qs, ks, vs;
+  int block_rows;  // query rows per block of the bf16 kernel
   bool diag;
 };
 
@@ -150,6 +177,68 @@ struct BwdArgs {
   bool diag;
 };
 
+// K4 in bf16: K1's tile step between a resume and a flush of the carried
+// state (see the note at the top).
+template <int D>
+__global__ void __launch_bounds__(fwd::kMaxThreads) ring_chunk_fwd_bf16_kernel(const FwdArgs a) {
+  __shared__ __align__(16) bf16 ks[2][fwd::kTile * tc::kStride<D>];
+  __shared__ __align__(16) bf16 vs[2][fwd::kTile * tc::kStride<D>];
+
+  const int C = a.C;
+  const int rows = blockDim.x / 2;  // 16 per warp
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int q0 = blockIdx.y * rows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const int w0 = q0 + 16 * warp;
+
+  uint32_t qa[D / 16][4];
+  tc::load_a_frags<D>(qa, static_cast<const bf16*>(a.q) + a.qs.at(b, 0, h), a.qs.t, w0, C);
+  fwd::State<D> st;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = w0 + (lane >> 2) + 8 * half;
+    const bool live = r < C;
+    const long long srow = (long long)bh * C + r;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float2 o = live ? *reinterpret_cast<const float2*>(a.o_in + srow * D + n * 8 + 2 * tq)
+                            : make_float2(0.f, 0.f);
+      st.acc[n][2 * half] = o.x;
+      st.acc[n][2 * half + 1] = o.y;
+    }
+    st.m[half] = live ? a.m_in[srow] : fwd::kNegInf;
+    st.l[half] = live && tq == 0 ? a.l_in[srow] : 0.f;
+  }
+
+  // Under DIAG a block needs keys only up to its last row's diagonal.
+  const int kv_end = a.diag ? min(C, q0 + rows) : C;
+  fwd::walk_tiles<D>(st, qa, ks, vs, static_cast<const bf16*>(a.k) + a.ks.at(b, 0, h),
+                     static_cast<const bf16*>(a.v) + a.vs.at(b, 0, h), a.ks.t, kv_end, q0, w0,
+                     C, a.diag);
+
+  fwd::quad_sum_l<D>(st);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = w0 + (lane >> 2) + 8 * half;
+    if (r >= C) continue;
+    const long long srow = (long long)bh * C + r;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(a.o_out + srow * D + n * 8 + 2 * tq) =
+          make_float2(st.acc[n][2 * half], st.acc[n][2 * half + 1]);
+    }
+    if (tq == 0) {
+      a.m_out[srow] = st.m[half];
+      a.l_out[srow] = st.l[half];
+    }
+  }
+}
+
+// K4 in f32.
 template <typename T, int D>
 __global__ void __launch_bounds__(kRows* Split<D>::k)
     ring_chunk_fwd_kernel(const FwdArgs a) {
@@ -461,7 +550,10 @@ template <Kernel K, typename T, int D, typename Args>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const dim3 grid(B * a.H, (a.C + kRows - 1) / kRows);
   const int threads = kRows * Split<D>::k;
-  if constexpr (K == Kernel::kFwd) {
+  if constexpr (K == Kernel::kFwd && std::is_same_v<T, bf16>) {
+    const dim3 tc_grid(B * a.H, (a.C + a.block_rows - 1) / a.block_rows);
+    ring_chunk_fwd_bf16_kernel<D><<<tc_grid, 2 * a.block_rows, 0, stream>>>(a);
+  } else if constexpr (K == Kernel::kFwd) {
     ring_chunk_fwd_kernel<T, D><<<grid, threads, 0, stream>>>(a);
   } else if constexpr (K == Kernel::kDq) {
     ring_chunk_dq_kernel<T, D><<<grid, threads, 0, stream>>>(a);
@@ -489,7 +581,7 @@ cudaError_t launch_for_dim(int D, const Args& a, int B, cudaStream_t s) {
 template <Kernel K, typename Args>
 int run(Args a, int B, int D, int mode, int is_bf16, void* stream) {
   if (B <= 0 || a.H <= 0 || a.C <= 0 || (long long)B * a.H > 0x7fffffffLL ||
-      (a.C + kRows - 1) / kRows > 65535 || (mode != kModeFull && mode != kModeDiag)) {
+      (a.C + 15) / 16 > 65535 || (mode != kModeFull && mode != kModeDiag)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.diag = mode == kModeDiag;
@@ -506,12 +598,27 @@ int run(Args a, int B, int D, int mode, int is_bf16, void* stream) {
 // f32, [B, H, C, D] (o, dq, dk, dv) and [B, H, C] (m, l, lse, delta). mode:
 // 1 FULL, 2 DIAG. Each launches on `stream` and returns the cudaError_t of
 // the launch (0 on success).
+//
+// relayrl_ring_chunk_fwd: block_rows is the bf16 kernel's query rows per
+// block (16, 32, 64 or 128); bf16 q, k, v need 16-byte aligned pointers
+// and strides that are multiples of 8 elements, and k and v one stride.
 extern "C" int relayrl_ring_chunk_fwd(
     const void* q, const void* k, const void* v, const void* o_in,
     const void* m_in, const void* l_in, void* o_out, void* m_out, void* l_out,
     int B, int H, int C, int D, long long qB, long long qT, long long qH,
     long long kB, long long kT, long long kH, long long vB, long long vT,
-    long long vH, int mode, int is_bf16, void* stream) {
+    long long vH, int mode, int is_bf16, int block_rows, void* stream) {
+  if (is_bf16) {
+    const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                           reinterpret_cast<uintptr_t>(v);
+    if ((ptrs & 15u) != 0 || ((qB | qT | qH | kB | kT | kH) & 7) != 0 || kB != vB ||
+        kT != vT || kH != vH) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+    if (block_rows != 16 && block_rows != 32 && block_rows != 64 && block_rows != 128) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   const FwdArgs a{q,
                   k,
                   v,
@@ -526,6 +633,7 @@ extern "C" int relayrl_ring_chunk_fwd(
                   {qB, qT, qH},
                   {kB, kT, kH},
                   {vB, vT, vH},
+                  block_rows,
                   false};
   return run<Kernel::kFwd>(a, B, D, mode, is_bf16, stream);
 }

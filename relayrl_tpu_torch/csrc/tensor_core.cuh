@@ -1,7 +1,8 @@
 // Warp-level tensor-core and asynchronous-copy primitives for sm_80 and
 // later (used here for sm_90a), as inline PTX: 16-byte and 4-byte cp.async
 // with zero-fill, ldmatrix (plain and transposed), and the bf16 -> f32
-// mma.sync m16n8k16.
+// mma.sync m16n8k16; and the fragment loads and the transposed product
+// that the flash kernels (flash_fwd_tile.cuh, flash_bwd.cu) share.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = threadIdx.x % 32,
 // g = lane / 4, tq = lane % 4; each 32-bit register holds two bf16, the
@@ -85,6 +86,53 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// -- tiles of D-wide bf16 rows ------------------------------------------------
+
+// Row stride of a shared-memory tile in elements: D plus 16 bytes, which
+// puts the 8 rows an ldmatrix reads in 8 distinct bank groups at D = 16,
+// 32 and 64.
+template <int D>
+constexpr int kStride = D + 8;
+
+// A fragments of 16 rows [r0, r0 + 16) of one slice (row stride sT), over
+// the D / 16 k-steps of the head dim; rows at or past T are zero.
+template <int D>
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4],
+                                             const __nv_bfloat16* src, long long sT, int r0,
+                                             int T_len) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    const uint32_t* row = reinterpret_cast<const uint32_t*>(src + (long long)r * sT);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      f[kk][half] = r < T_len ? row[kk * 8 + tq] : 0u;
+      f[kk][2 + half] = r < T_len ? row[kk * 8 + 4 + tq] : 0u;
+    }
+  }
+}
+
+// acc[16 x D] += a (16 x 16) . B, where B is 16 rows of a shared-memory
+// tile starting at `rows` (k = tile row, n = head dim), read transposed.
+template <int D>
+__device__ __forceinline__ void chunk_accumulate(float (&acc)[D / 8][4], const uint32_t (&a)[4],
+                                                 const __nv_bfloat16* rows) {
+  const int lane = threadIdx.x & 31;
+  // Matrices (rows 0-7, dims 0-7), (rows 8-15, dims 0-7), (rows 0-7,
+  // dims 8-15), (rows 8-15, dims 8-15) of each 16-dim pair of n-tiles.
+  const int off = ((lane & 7) + ((lane >> 3) & 1) * 8) * kStride<D> + (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < D / 16; ++np) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, rows + off + np * 16);
+    mma_bf16(acc[2 * np], a, b[0], b[1]);
+    mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+  }
 }
 
 }  // namespace tc

@@ -21,8 +21,10 @@ attention over the ambient mesh's ``sp`` axis
 (:mod:`relayrl_tpu_torch.parallel.ring_flash`) when the local chunk tiles
 by 8, else the scan ring (:mod:`relayrl_tpu_torch.parallel.ring`); with no
 mesh, or ``sp`` 1, blockwise or dense, so actors serve the arch the
-learner trains. The KV-cache decode path and the MoE and pipeline families
-are not ported yet.
+learner trains. On a CUDA device ``"flash"`` and ``"ring"`` take head dims
+up to 64, the flash kernels' widest (narrower ones are zero-padded to a
+kernel width); the builder refuses a wider one. The KV-cache decode path
+and the MoE and pipeline families are not ported yet.
 
 Sequence ABI (see :class:`~relayrl_tpu_torch.models.base.Policy`):
 ``evaluate(params, obs[B,T,D], act[B,T], mask[B,T,A]) -> (logp, ent, v)``;
@@ -48,7 +50,7 @@ from relayrl_tpu_torch.models.mlp import (
     _compute_dtype,
 )
 from relayrl_tpu_torch.ops.attention import blockwise_attention, dense_attention
-from relayrl_tpu_torch.ops.flash import flash_attention
+from relayrl_tpu_torch.ops.flash import KERNEL_HEAD_DIMS, flash_attention
 from relayrl_tpu_torch.parallel.context import current_mesh
 from relayrl_tpu_torch.parallel.ring import make_ring_attention
 from relayrl_tpu_torch.parallel.ring_flash import (
@@ -243,7 +245,27 @@ def _as_btd(obs, mask, device):
     return obs, mask, lead
 
 
+def _check_kernel_head_dim(arch: Mapping[str, Any], device: torch.device) -> None:
+    """On a CUDA device, ``attention="flash"`` and ``"ring"`` run the flash
+    kernels, which take head dims up to the widest of
+    :data:`KERNEL_HEAD_DIMS` (narrower ones are padded): refuse a wider one
+    here, before anything lands on the device, rather than in the first
+    forward. The CPU runs the plain versions, which take any head dim."""
+    kind = arch.get("attention", "dense")
+    if device.type != "cuda" or kind not in ("flash", "ring"):
+        return
+    d_model, n_heads = int(arch.get("d_model", 128)), int(arch.get("n_heads", 4))
+    head_dim, limit = d_model // n_heads, max(KERNEL_HEAD_DIMS)
+    if head_dim > limit:
+        raise ValueError(
+            f"attention={kind!r} on a CUDA device takes head dims up to {limit} "
+            f"(the flash kernels' widest); d_model {d_model} / n_heads {n_heads} "
+            f"gives head dim {head_dim}")
+
+
 def _build_core_policy(arch: Mapping[str, Any], device: torch.device) -> Policy:
+    _check_kernel_head_dim(arch, device)
+
     def init_params(generator: torch.Generator) -> TransformerCore:
         with torch.device("meta"):
             core = TransformerCore(arch)

@@ -7,20 +7,28 @@ its design and what bounds it on the H100:
 * K1, the forward (``csrc/flash_fwd.cu`` ← ``_fwd_kernel``): on ``[B, T, H,
   D]`` inputs, the attention output in the input dtype and the log2-space
   log-sum-exp ``lse2 [B, H, T]`` (f32), what ``relayrl_tpu.ops.flash._fwd``
-  returns;
+  returns. Its bf16 kernel runs the products on the tensor cores, with the
+  tile step it shares with the ring's K4 (``csrc/flash_fwd_tile.cuh``);
 * K2, the dq pass, and K3, the dk/dv pass (``csrc/flash_bwd.cu`` ←
   ``_dq_kernel`` and ``_dkv_kernel``): the two-pass backward that
   ``relayrl_tpu.ops.flash._bwd_pallas`` runs, recomputing ``p`` from
   ``lse2`` and using ``ds = p * (dp - delta)`` with ``delta = rowsum(do *
   o)``, which is computed outside the kernels as the JAX package does, as
   is the prescaled q (:func:`prescale_q`, one copy read by both passes).
-  Their bf16 kernels run the products on the tensor cores and need every
-  q, k, v and do row on a 16-byte boundary; the wrapper raises otherwise.
+  Their bf16 kernels run the products on the tensor cores.
+
+Every bf16 kernel needs each q, k, v (and do) row on a 16-byte boundary;
+the wrappers raise otherwise. The kernels are instantiated for head dims
+:data:`KERNEL_HEAD_DIMS`; :func:`flash_attention` zero-pads a narrower head
+dim to the next of them (:func:`pad_head_dim`) and slices the results back,
+on every device, so the CPU runs the same padding through the plain
+versions. Every scale uses the true head dim.
 
 The numbers they share with the TPU kernels:
 
 * q is scaled by ``log2(e)/sqrt(D)`` and rounded back to its dtype, so the
-  softmax runs in log2 space on ``exp2``;
+  softmax runs in log2 space on ``exp2`` (the forward kernels prescale q at
+  their load, the backward reads one prescaled copy);
 * scores, the running max and the sum are f32; masked scores are -1e30, so
   ``p`` is exactly 0 there; ``l`` is clamped at 1e-30;
 * the forward rounds ``p`` to v's dtype before the PV product; the backward
@@ -42,22 +50,44 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
-# Head widths the kernels are instantiated for (csrc/flash_{fwd,bwd}.cu).
+# Head widths the kernels are instantiated for (csrc/flash_{fwd,bwd}.cu,
+# csrc/ring_flash.cu).
 KERNEL_HEAD_DIMS = (16, 32, 64)
+# Query rows per block of K1's bf16 kernel (16, 32, 64 or 128): the fastest
+# at both main-path shapes in chip_smoke.py's timings (PERF.md).
+FWD_BLOCK_ROWS = 64
 
 
 def _q_scale(head_dim: int) -> float:
     return _LOG2E / math.sqrt(head_dim)
 
 
-def _scores2(q: torch.Tensor, k: torch.Tensor, causal: bool):
+def pad_head_dim(*xs: torch.Tensor) -> tuple[list[torch.Tensor], int]:
+    """``(xs, D)``: tensors of one head dim D (the last axis), zero-padded
+    to the narrowest of :data:`KERNEL_HEAD_DIMS` that holds D (8 -> 16,
+    24 -> 32, 48 -> 64), or unchanged when D is one of them or wider than
+    all. Zero columns of q, k, v and do leave the scores, p, delta and the
+    live columns of O, dq, dk and dv as they are, and the padded columns
+    come out zero: slice results back with ``[..., :D]``, and compute every
+    scale from D. The pad and the slice are autograd ops, so gradients
+    slice back too. Works on any device."""
+    D = xs[0].shape[-1]
+    width = next((w for w in KERNEL_HEAD_DIMS if w >= D), D)
+    if width == D:
+        return list(xs), D
+    return [F.pad(x, (0, width - D)) for x in xs], D
+
+
+def _scores2(q: torch.Tensor, k: torch.Tensor, causal: bool, head_dim: int | None):
     """(q prescaled and rounded to its dtype, as f32; log2-space scores
-    ``[B, H, Tq, Tk]`` in f32, masked to -1e30)."""
-    T, D = q.shape[1], q.shape[3]
-    qs = (q.float() * _q_scale(D)).to(q.dtype).float()
+    ``[B, H, Tq, Tk]`` in f32, masked to -1e30). ``head_dim`` (default q's)
+    sets the scale."""
+    T = q.shape[1]
+    qs = (q.float() * _q_scale(head_dim or q.shape[3])).to(q.dtype).float()
     s = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
     if causal:
         pos = torch.arange(T, device=q.device)
@@ -66,9 +96,10 @@ def _scores2(q: torch.Tensor, k: torch.Tensor, causal: bool):
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True):
-    """K1's function as plain tensor code: ``(O, lse2)``."""
-    _, s = _scores2(q, k, causal)
+                          causal: bool = True, head_dim: int | None = None):
+    """K1's function as plain tensor code: ``(O, lse2)``. ``head_dim``
+    (default q's) sets the scale, for q, k, v padded along the head dim."""
+    _, s = _scores2(q, k, causal, head_dim)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)      # [B, H, T, 1]
@@ -82,35 +113,40 @@ def flash_attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _probs_and_ds(q, k, v, lse2, do, delta, causal):
-    qs, s = _scores2(q, k, causal)
+def _probs_and_ds(q, k, v, lse2, do, delta, causal, head_dim):
+    qs, s = _scores2(q, k, causal, head_dim)
     p = torch.exp2(s - lse2[..., None])                    # [B, H, Tq, Tk]
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     return qs, p, p * (dp - delta[..., None])
 
 
-def flash_attention_dq_plain(q, k, v, lse2, do, delta, causal: bool = True):
+def flash_attention_dq_plain(q, k, v, lse2, do, delta, causal: bool = True,
+                             head_dim: int | None = None):
     """K2's function as plain tensor code: dq in q's dtype."""
-    _, _, ds = _probs_and_ds(q, k, v, lse2, do, delta, causal)
+    head_dim = head_dim or q.shape[-1]
+    _, _, ds = _probs_and_ds(q, k, v, lse2, do, delta, causal, head_dim)
     acc = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
-    return (acc * (1.0 / math.sqrt(q.shape[-1]))).to(q.dtype)
+    return (acc * (1.0 / math.sqrt(head_dim))).to(q.dtype)
 
 
-def flash_attention_dkv_plain(q, k, v, lse2, do, delta, causal: bool = True):
+def flash_attention_dkv_plain(q, k, v, lse2, do, delta, causal: bool = True,
+                              head_dim: int | None = None):
     """K3's function as plain tensor code: ``(dk, dv)`` in k's and v's
     dtypes."""
-    qs, p, ds = _probs_and_ds(q, k, v, lse2, do, delta, causal)
+    qs, p, ds = _probs_and_ds(q, k, v, lse2, do, delta, causal, head_dim)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qs)
     return (dk * (1.0 / _LOG2E)).to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd_plain(q, k, v, out, lse2, do, causal: bool = True):
+def flash_attention_bwd_plain(q, k, v, out, lse2, do, causal: bool = True,
+                              head_dim: int | None = None):
     """The backward as plain tensor code: ``(dq, dk, dv)`` for upstream
     gradient ``do`` of the forward's ``(out, lse2)``."""
     delta = flash_attention_delta(out, do)
-    dk, dv = flash_attention_dkv_plain(q, k, v, lse2, do, delta, causal)
-    return flash_attention_dq_plain(q, k, v, lse2, do, delta, causal), dk, dv
+    dk, dv = flash_attention_dkv_plain(q, k, v, lse2, do, delta, causal, head_dim)
+    return (flash_attention_dq_plain(q, k, v, lse2, do, delta, causal, head_dim),
+            dk, dv)
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,8 +157,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.relayrl_flash_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -160,14 +195,16 @@ def _check_kernel_inputs(q, k, v) -> None:
                          f"{tuple(v.shape)}")
     if q.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {q.shape[-1]} not in the kernel's "
-                         f"{KERNEL_HEAD_DIMS}")
+                         f"{KERNEL_HEAD_DIMS} (narrower ones are padded; "
+                         f"wider ones have no kernel)")
     if q.stride(-1) != 1 or k.stride() != q.stride() or v.stride() != q.stride():
         raise ValueError(
             "q, k, v must share strides with a contiguous head dim (views "
             "of one fused qkv projection, or contiguous tensors)")
+    check_rows_aligned("flash_attention", q, k, v)
 
 
-def _launch(q, k, v, causal: bool):
+def _launch(q, k, v, causal: bool, head_dim: int):
     B, T, H, D = q.shape
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse2 = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -176,26 +213,37 @@ def _launch(q, k, v, causal: bool):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().relayrl_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse2.data_ptr(), B, H, T, D, s_b, s_t, s_h, _q_scale(D),
-            int(causal), int(q.dtype == torch.bfloat16), stream)
+            lse2.data_ptr(), B, H, T, D, s_b, s_t, s_h, _q_scale(head_dim),
+            int(causal), int(q.dtype == torch.bfloat16), FWD_BLOCK_ROWS, stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed (cudaError {err})")
     flash_attention.launches += 1
     return out, lse2
 
 
-def prescale_q(q: torch.Tensor) -> torch.Tensor:
-    """q scaled by ``log2(e)/sqrt(D)`` and rounded to its dtype, contiguous:
-    the one copy both backward kernels read, made once outside them as the
-    JAX package's ``_prescale_q`` does (the plain versions round q the same
-    way)."""
-    return torch.mul(q, _q_scale(q.shape[-1])).contiguous()
+def prescale_q(q: torch.Tensor, head_dim: int | None = None) -> torch.Tensor:
+    """q scaled by ``log2(e)/sqrt(D)`` (D: ``head_dim``, default q's) and
+    rounded to its dtype, contiguous: the one copy both backward kernels
+    read, made once outside them as the JAX package's ``_prescale_q`` does
+    (the plain versions round q the same way)."""
+    return torch.mul(q, _q_scale(head_dim or q.shape[-1])).contiguous()
 
 
 def _rows_aligned(x: torch.Tensor) -> bool:
     """Every ``[B, T, H]`` row of ``x`` starts on a 16-byte boundary."""
     step = 16 // x.element_size()
     return x.data_ptr() % 16 == 0 and all(s % step == 0 for s in x.stride()[:3])
+
+
+def check_rows_aligned(name: str, *xs: torch.Tensor) -> None:
+    """Raises unless every ``[B, T, H]`` row of each bf16 tensor in ``xs``
+    starts on a 16-byte boundary: the bf16 kernels stage rows with 16-byte
+    asynchronous copies."""
+    if xs[0].dtype == torch.bfloat16 and not all(_rows_aligned(x) for x in xs):
+        raise ValueError(
+            f"{name}: the bf16 kernels need every q, k, v (and do) row on a "
+            f"16-byte boundary (16-byte aligned data and row strides that "
+            f"are multiples of 8 elements)")
 
 
 def _check_bwd_inputs(qs, k, v, lse2, do, delta) -> torch.Tensor:
@@ -219,13 +267,7 @@ def _check_bwd_inputs(qs, k, v, lse2, do, delta) -> torch.Tensor:
     if do.stride(-1) != 1:
         flash_attention.do_copies += 1
         do = do.contiguous()
-    # The bf16 kernels stage rows with 16-byte asynchronous copies.
-    if qs.dtype == torch.bfloat16 and not all(
-            _rows_aligned(x) for x in (qs, k, v, do)):
-        raise ValueError(
-            "the bf16 backward kernels need q, k, v and do rows on 16-byte "
-            "boundaries (16-byte aligned data and row strides that are "
-            "multiples of 8 elements)")
+    check_rows_aligned("flash_attention backward", qs, k, v, do)
     return do
 
 
@@ -234,17 +276,18 @@ def _bwd_dims(qs, k, do) -> tuple:
     return (B, H, T, D, *qs.stride()[:3], *k.stride()[:3], *do.stride()[:3])
 
 
-def _launch_dq(qs, k, v, lse2, do, delta, causal: bool) -> torch.Tensor:
-    """K2: dq ``[B, T, H, D]`` in q's dtype, from ``qs = prescale_q(q)``."""
+def _launch_dq(qs, k, v, lse2, do, delta, causal: bool,
+               head_dim: int | None = None) -> torch.Tensor:
+    """K2: dq ``[B, T, H, D]`` in q's dtype, from ``qs = prescale_q(q)``;
+    ``head_dim`` (default qs's) sets the 1/sqrt(D) scale."""
     do = _check_bwd_inputs(qs, k, v, lse2, do, delta)
     dq = torch.empty(qs.shape, dtype=qs.dtype, device=qs.device)
-    D = qs.shape[-1]
     with torch.cuda.device(qs.device):
         err = _bwd_library().relayrl_flash_bwd_dq(
             qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_bwd_dims(qs, k, do), 1.0 / math.sqrt(D), int(causal),
-            int(qs.dtype == torch.bfloat16),
+            *_bwd_dims(qs, k, do), 1.0 / math.sqrt(head_dim or qs.shape[-1]),
+            int(causal), int(qs.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_dq kernel launch failed (cudaError {err})")
@@ -275,12 +318,12 @@ class _FlashForward(torch.autograd.Function):
     tensors, K1 forward and K2/K3 backward for CUDA tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, head_dim):
         if q.is_cuda:
-            out, lse2 = _launch(q, k, v, causal)
+            out, lse2 = _launch(q, k, v, causal, head_dim)
         else:
-            out, lse2 = flash_attention_plain(q, k, v, causal)
-        ctx.causal = causal
+            out, lse2 = flash_attention_plain(q, k, v, causal, head_dim)
+        ctx.causal, ctx.head_dim = causal, head_dim
         ctx.save_for_backward(q, k, v, out, lse2)
         ctx.mark_non_differentiable(lse2)
         # lse2 takes no gradient: no zeros are made for it.
@@ -292,12 +335,12 @@ class _FlashForward(torch.autograd.Function):
         q, k, v, out, lse2 = ctx.saved_tensors
         if not q.is_cuda:
             return (*flash_attention_bwd_plain(q, k, v, out, lse2, d_out,
-                                               ctx.causal), None)
+                                               ctx.causal, ctx.head_dim), None, None)
         delta = flash_attention_delta(out, d_out)
-        qs = prescale_q(q)
-        dq = _launch_dq(qs, k, v, lse2, d_out, delta, ctx.causal)
+        qs = prescale_q(q, ctx.head_dim)
+        dq = _launch_dq(qs, k, v, lse2, d_out, delta, ctx.causal, ctx.head_dim)
         dk, dv = _launch_dkv(qs, k, v, lse2, d_out, delta, ctx.causal)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -306,14 +349,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     differentiable in q, k and v.
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels,
-    which take any ``T >= 1``, float32 or bfloat16, head dims
-    :data:`KERNEL_HEAD_DIMS`, and q, k, v that share strides with a
-    contiguous head dim (the upstream gradient may have strides of its
-    own). ``flash_attention.launches`` counts K1 launches,
-    ``.dq_launches`` K2's and ``.dkv_launches`` K3's."""
+    which take any ``T >= 1``, float32 or bfloat16, head dims up to the
+    widest of :data:`KERNEL_HEAD_DIMS` (a narrower one is zero-padded to
+    the next of them on every device, :func:`pad_head_dim`), and q, k, v
+    that share strides with a contiguous head dim (the upstream gradient
+    may have strides of its own). ``flash_attention.launches`` counts K1
+    launches, ``.dq_launches`` K2's and ``.dkv_launches`` K3's."""
+    (q, k, v), D = pad_head_dim(q, k, v)
     if not q.device.type == k.device.type == v.device.type == "cpu":
         _check_kernel_inputs(q, k, v)
-    return _FlashForward.apply(q, k, v, bool(causal))
+    out, lse2 = _FlashForward.apply(q, k, v, bool(causal), D)
+    return (out if out.shape[-1] == D else out[..., :D]), lse2
 
 
 flash_attention.launches = 0

@@ -9,7 +9,8 @@ kernels in ``csrc/ring_flash.cu`` replace the Pallas TPU kernels of
 ``relayrl_tpu/parallel/ring_flash.py``:
 
 * K4, :func:`chunk_fwd` (← ``_chunk_fwd_kernel``): resume the unfinalized
-  ``(acc, m, l)``, attend one K/V chunk, flush the state unfinalized;
+  ``(acc, m, l)``, attend one K/V chunk, flush the state unfinalized; in
+  bf16 on the tensor cores, with K1's tile step (``csrc/flash_fwd_tile.cuh``);
 * K5, :func:`chunk_dq` (← ``_chunk_dq_kernel``): the dq pass of one
   (q-chunk, kv-chunk) pair, accumulated into a carried f32 buffer;
 * K6, :func:`chunk_dkv` (← ``_chunk_dkv_kernel``): the dk/dv pass of one
@@ -26,8 +27,14 @@ CUDA tensors launch the kernel or raise. ``chunk_fwd.launches``,
 
 Layouts: q, k, v, do are ``[B, C, H, D]`` in bf16 or f32, with any
 (batch, time, head) strides and a contiguous head dim (views of the fused
-qkv projection, split by chunk); the carried state is f32, contiguous
-``[B, H, C, D]`` (acc, dq, dk, dv) and ``[B, H, C]`` (m, l, lse2, delta).
+qkv projection, split by chunk; bf16 K4 needs its q, k, v rows on 16-byte
+boundaries, and k and v of one stride); the carried state is f32,
+contiguous ``[B, H, C, D]`` (acc, dq, dk, dv) and ``[B, H, C]`` (m, l,
+lse2, delta). The kernels take head dims
+:data:`~relayrl_tpu_torch.ops.flash.KERNEL_HEAD_DIMS`; the rings zero-pad a
+narrower one to the next of them on every device
+(:func:`~relayrl_tpu_torch.ops.flash.pad_head_dim`) and slice the results
+back, with every scale from the true head dim.
 
 The numbers, in one place, as the JAX package has them:
 
@@ -69,7 +76,12 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
-from relayrl_tpu_torch.ops.flash import flash_attention_delta
+from relayrl_tpu_torch.ops.flash import (
+    KERNEL_HEAD_DIMS,
+    check_rows_aligned,
+    flash_attention_delta,
+    pad_head_dim,
+)
 from relayrl_tpu_torch.parallel.mesh import Mesh
 from relayrl_tpu_torch.parallel.ring import (
     ring_groups,
@@ -82,14 +94,16 @@ from relayrl_tpu_torch.parallel.ring import (
 MODE_SKIP, MODE_FULL, MODE_DIAG = 0, 1, 2
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
-# Head widths the kernels are instantiated for (csrc/ring_flash.cu).
-KERNEL_HEAD_DIMS = (16, 32, 64)
+# Query rows per block of K4's bf16 kernel (16, 32, 64 or 128): the fastest
+# at the ring learner's chunk shape in chip_smoke.py's timings (PERF.md).
+CHUNK_FWD_BLOCK_ROWS = 32
 
 
-def prescale_q(q: torch.Tensor) -> torch.Tensor:
-    """Fold the softmax scale and the exp -> exp2 base change into q, and
-    round back to q's dtype: ``[B, C, H, D]``, contiguous."""
-    return (q.float() * (_LOG2E / math.sqrt(q.shape[-1]))).to(q.dtype)
+def prescale_q(q: torch.Tensor, head_dim: int | None = None) -> torch.Tensor:
+    """Fold the softmax scale (``head_dim``, default q's) and the exp ->
+    exp2 base change into q, and round back to q's dtype: ``[B, C, H, D]``,
+    contiguous."""
+    return (q.float() * (_LOG2E / math.sqrt(head_dim or q.shape[-1]))).to(q.dtype)
 
 
 # -- plain versions ---------------------------------------------------------
@@ -156,7 +170,9 @@ def _library() -> ctypes.CDLL:
     dims = [ctypes.c_int] * 4                    # B, H, C, D
     strides = [ctypes.c_longlong] * 3            # one tensor's (b, t, h)
     tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # mode, is_bf16, stream
-    lib.relayrl_ring_chunk_fwd.argtypes = [ctypes.c_void_p] * 9 + dims + strides * 3 + tail
+    # K4 also takes its bf16 kernel's rows per block, before the stream.
+    lib.relayrl_ring_chunk_fwd.argtypes = (
+        [ctypes.c_void_p] * 9 + dims + strides * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.relayrl_ring_chunk_dq.argtypes = [ctypes.c_void_p] * 8 + dims + strides * 4 + tail
     lib.relayrl_ring_chunk_dkv.argtypes = [ctypes.c_void_p] * 10 + dims + strides * 4 + tail
     for fn in (lib.relayrl_ring_chunk_fwd, lib.relayrl_ring_chunk_dq,
@@ -209,8 +225,8 @@ def _strides(*tensors) -> tuple:
     return tuple(s for t in tensors for s in t.stride()[:3])
 
 
-def _tail(mode, qs) -> tuple:
-    return (int(mode), int(qs.dtype == torch.bfloat16),
+def _tail(mode, qs, *ints) -> tuple:
+    return (int(mode), int(qs.dtype == torch.bfloat16), *ints,
             torch.cuda.current_stream(qs.device).cuda_stream)
 
 
@@ -228,11 +244,14 @@ def chunk_fwd(mode: int, qs, k, v, o, m, l):
     if _on_cpu(qs, k, v, o, m, l):
         return chunk_fwd_plain(mode, qs, k, v, o, m, l)
     _check_inputs("ring_chunk_fwd", mode, (qs, k, v), (o, m, l))
+    check_rows_aligned("ring_chunk_fwd", qs, k, v)
+    if qs.dtype == torch.bfloat16 and k.stride() != v.stride():
+        raise ValueError("ring_chunk_fwd: bf16 k and v must share strides")
     out = (torch.empty_like(o), torch.empty_like(m), torch.empty_like(l))
     with torch.cuda.device(qs.device):
         err = _library().relayrl_ring_chunk_fwd(
             *(t.data_ptr() for t in (qs, k, v, o, m, l, *out)), *_dims(qs),
-            *_strides(qs, k, v), *_tail(mode, qs))
+            *_strides(qs, k, v), *_tail(mode, qs, CHUNK_FWD_BLOCK_ROWS))
     _raise_on(err, "ring_chunk_fwd")
     chunk_fwd.launches += 1
     return out
@@ -394,14 +413,16 @@ class _RingFlash(torch.autograd.Function):
     chunks, then their k chunks, then their v chunks."""
 
     @staticmethod
-    def forward(ctx, devices, causal, calls, *qkv):
+    def forward(ctx, devices, causal, calls, head_dim, *qkv):
         n = len(devices)
         q, k, v = qkv[:n], qkv[n:2 * n], qkv[2 * n:]
-        results = run_ring([_ring_fwd_body(i, n, causal, calls, prescale_q(q[i]),
-                                           k[i], v[i]) for i in range(n)], devices)
+        results = run_ring([_ring_fwd_body(i, n, causal, calls,
+                                           prescale_q(q[i], head_dim), k[i], v[i])
+                            for i in range(n)], devices)
         outs = [out for out, _ in results]
         ctx.save_for_backward(*qkv, *outs, *(lse2 for _, lse2 in results))
         ctx.devices, ctx.causal, ctx.calls = devices, causal, calls
+        ctx.head_dim = head_dim
         return tuple(outs)
 
     @staticmethod
@@ -413,20 +434,22 @@ class _RingFlash(torch.autograd.Function):
         for i in range(n):
             do = d_outs[i] if d_outs[i].stride(-1) == 1 else d_outs[i].contiguous()
             bodies.append(_ring_bwd_body(
-                i, n, ctx.causal, ctx.calls, prescale_q(q[i]), k[i], v[i], do,
-                lse2[i], flash_attention_delta(out[i], do)))
+                i, n, ctx.causal, ctx.calls, prescale_q(q[i], ctx.head_dim), k[i], v[i],
+                do, lse2[i], flash_attention_delta(out[i], do)))
         grads = run_ring(bodies, ctx.devices)
-        scale = 1.0 / math.sqrt(q[0].shape[-1])
+        scale = 1.0 / math.sqrt(ctx.head_dim)
         dq = [_bhcd_to_bchd(g[0] * scale, q[i].dtype) for i, g in enumerate(grads)]
         dk = [_bhcd_to_bchd(g[1] * (1.0 / _LOG2E), k[i].dtype) for i, g in enumerate(grads)]
         dv = [_bhcd_to_bchd(g[2], v[i].dtype) for i, g in enumerate(grads)]
-        return (None, None, None, *dq, *dk, *dv)
+        return (None, None, None, None, *dq, *dk, *dv)
 
 
 def _ring_flash(q_shards, k_shards, v_shards, devices, causal, calls):
     _check_chunk_tiles(q_shards[0].shape[1])
-    return list(_RingFlash.apply(tuple(devices), bool(causal), calls,
-                                 *q_shards, *k_shards, *v_shards))
+    n = len(devices)
+    padded, D = pad_head_dim(*q_shards, *k_shards, *v_shards)
+    outs = _RingFlash.apply(tuple(devices), bool(causal), calls, D, *padded)
+    return [out if out.shape[-1] == D else out[..., :D] for out in outs[:n]]
 
 
 def ring_flash_attention_sharded(q_shards: Sequence[torch.Tensor],
@@ -454,12 +477,13 @@ def chunked_flash_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`relayrl_tpu_torch.ops.flash.flash_attention` at equal T it
     measures what ring chunking costs per device (state traffic and
     per-call overhead), without the transfers."""
-    B, T, H, D = q.shape
+    T = q.shape[1]
     if T % n_chunks:
         raise ValueError(f"T={T} not divisible by n_chunks={n_chunks}")
     C = T // n_chunks
     _check_chunk_tiles(C)
-    qs = prescale_q(q)
+    (q, k, v), D = pad_head_dim(q, k, v)
+    qs = prescale_q(q, D)
     outs = []
     for iq in range(n_chunks):
         qc = qs[:, iq * C:(iq + 1) * C]
@@ -470,7 +494,7 @@ def chunked_flash_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             chunk = slice(kv * C, (kv + 1) * C)
             oml = chunk_fwd(mode, qc, k[:, chunk], v[:, chunk], *oml)
         outs.append(_finalize_chunk_state(oml[0], oml[2], q.dtype)[0])
-    return torch.cat(outs, dim=1)
+    return torch.cat(outs, dim=1)[..., :D]
 
 
 def _make_ring_flash(mesh: Mesh, axis_name: str, causal: bool, batch_axes,

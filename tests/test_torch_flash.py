@@ -231,13 +231,13 @@ def test_wrapper_takes_plain_version_on_cpu():
 def test_kernel_matches_plain_on_gpu(cuda_device, dtype):
     """The kernels on q, k, v laid out as the model passes them (views of
     one fused qkv projection), at the T = 1, ragged and tiled lengths (one
-    64-row tile, one row past it) and head dims 16, 32 and 64: K1 against
-    the plain forward, K2 and K3 (the backward through ``flash_attention``)
-    against the plain backward."""
+    64-row tile, one row past it) and head dims 16, 32 and 64, and 8 and 24
+    (padded to 16 and 32): K1 against the plain forward, K2 and K3 (the
+    backward through ``flash_attention``) against the plain backward."""
     gen = torch.Generator().manual_seed(5)
     for causal in (True, False):
         for T, D in ((1, 32), (17, 32), (64, 32), (65, 32), (130, 32), (65, 16),
-                     (130, 64)):
+                     (130, 64), (17, 8), (65, 24)):
             qkv = torch.randn((3, T, 3, 2, D), generator=gen)
             q, k, v = (x.requires_grad_() for x in
                        qkv.to(cuda_device, _TORCH[dtype]).unbind(2))
