@@ -18,9 +18,9 @@ Phases, each of which fails the run:
    plain PyTorch version on the card, at the slices' shapes and at edge
    shapes (head dims 8 and 24 through ``flash_attention``'s padding,
    forward and gradients), with the kernel's time, the plain version's, a
-   library call's and the bound, and K1's time at each rows-per-block
-   choice; the whole backward as the learner runs it (delta, the
-   prescaled q, K2 and K3 through ``torch.autograd.grad``) beside SDPA's;
+   library call's and the bound; the whole backward as the learner runs
+   it (delta, the prescaled q, K2 and K3 through ``torch.autograd.grad``)
+   beside SDPA's;
 4. serving slice: a 64-lane ``VectorActorHost`` over ``RecallEnv`` at the
    flagship transformer's widths (``__graft_entry__.entry()``'s arch: d_model
    256, 4 layers, 8 heads, max_seq_len 256, bf16, flash attention) for 320
@@ -38,9 +38,9 @@ Phases, each of which fails the run:
    times and profiles an update;
 6. ring kernels vs plain: K4, K5 and K6 (the ring's chunk forward, dq and
    dk/dv) against their plain versions at the sp learner's chunk shape and
-   at edge shapes, with times, plain times and bounds, and K4's time at
-   each rows-per-block choice; the flash ring at head dim 8 (padded)
-   against the ring of plain chunk versions, forward and gradients; then
+   at edge shapes, with times, plain times and bounds; the flash ring at
+   head dim 8 (padded) against the ring of plain chunk versions, forward
+   and gradients; then
    ``chunked_flash_local`` (K4 over every chunk pair of one sequence)
    against K1 at the serving shape;
 7. sequence-parallel learner: the same REINFORCE with ``attention="ring"``
@@ -130,9 +130,6 @@ TENSOR_CORE_KERNELS = (
     ("flash_bwd", r"(flash_(?:dq|dkv))_bf16_kernelILi(\d+)E", ("flash_dq", "flash_dkv")),
     ("ring_flash", r"(ring_chunk_fwd)_bf16_kernelILi(\d+)E", ("ring_chunk_fwd",)),
 )
-# The query rows per block that K1's and K4's bf16 kernels take: each is
-# timed at the main-path shapes, beside the shipped choice.
-BLOCK_ROWS = (16, 32, 64, 128)
 
 
 def _dtype_name(dtype) -> str:
@@ -419,20 +416,6 @@ def check_flash_bwd(device) -> dict:
     return main
 
 
-def time_block_rows(module, attr: str, fn) -> dict[int, float]:
-    """``time_ms(fn)`` with ``module.attr`` (a kernel's query rows per
-    block) set to each of :data:`BLOCK_ROWS` in turn, then restored."""
-    shipped = getattr(module, attr)
-    times = {}
-    try:
-        for rows in BLOCK_ROWS:
-            setattr(module, attr, rows)
-            times[rows] = time_ms(fn)
-    finally:
-        setattr(module, attr, shipped)
-    return times
-
-
 def check_flash(device) -> dict:
     """K1 against its plain version on q, k, v laid out as the model passes
     them, in bf16 and f32, causal and not: at the serving slice's shape
@@ -441,10 +424,10 @@ def check_flash(device) -> dict:
     tile edges (T = 64, 65), head dims 16 and 64 (T = 130), and head dims
     8 and 24 (T = 65, padded to 16 and 32 by ``flash_attention``), where
     the gradients through ``flash_attention`` are held to the plain
-    backward too. Times at the serving shape (K1, the plain version, SDPA,
-    the bound) and, bf16 causal, at both main-path shapes, with K1 at each
-    rows-per-block choice. Returns the serving shape's bf16 causal
-    measurements, with the learner shape's beside them."""
+    backward too. Times K1 and SDPA, with the bound, at the serving shape
+    (and the plain version, bf16 causal) and at the learner's (bf16
+    causal). Returns the serving shape's bf16 causal measurements, with the
+    learner shape's beside them."""
     import torch
     import torch.nn.functional as F
 
@@ -515,11 +498,6 @@ def check_flash(device) -> dict:
             elif case == learner:
                 main.update({"learner_ms": ms, "learner_library_ms": library_ms,
                              "learner_bound_ms": bound_ms})
-            if case in (serving, learner):
-                rows = time_block_rows(flash, "FWD_BLOCK_ROWS",
-                                       lambda: flash_attention(q, k, v, causal))
-                line += (f"; ms by rows per block (shipped {flash.FWD_BLOCK_ROWS}): "
-                         + ", ".join(f"{r}: {t:.4f}" for r, t in rows.items()))
         print(line, flush=True)
     return main
 
@@ -581,8 +559,7 @@ def check_ring_chunks(device) -> dict:
     on a carried state and FULL on a fresh one (a non-causal ring's first
     round); at C 8, 65 (one row past K4's 64-key tile) and 128; at head
     dims 16 and 64. Times, bounds and plain times at the learner's shape,
-    bf16, FULL (6 of a ring's 10 rounds) and DIAG, with K4 at each
-    rows-per-block choice. Then the flash ring at head dim 8 (padded to
+    bf16, FULL (6 of a ring's 10 rounds) and DIAG. Then the flash ring at head dim 8 (padded to
     16) through ``ring_flash_attention_sharded`` against the ring of plain
     chunk versions, forward and gradients. Returns {"ring_chunk_fwd": ...,
     ...} for bf16 FULL."""
@@ -637,11 +614,6 @@ def check_ring_chunks(device) -> dict:
                 bound_ms, bound_by = ring_chunk_bound(B, c, H, d, name, kernel, mode)
                 line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
                          f"bound_ms={bound_ms:.4f} ({bound_by})")
-                if kernel == "fwd":
-                    rows = time_block_rows(rf, "CHUNK_FWD_BLOCK_ROWS",
-                                           lambda: rf.chunk_fwd(mode, *args))
-                    line += (f"; ms by rows per block (shipped {rf.CHUNK_FWD_BLOCK_ROWS}): "
-                             + ", ".join(f"{r}: {t:.4f}" for r, t in rows.items()))
                 if mode == rf.MODE_FULL:
                     main[f"ring_chunk_{kernel}"] = {
                         "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,

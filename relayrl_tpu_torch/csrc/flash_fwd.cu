@@ -23,10 +23,11 @@
 //
 // bf16 design (the main path), the forward half of flash_bwd.cu's:
 //
-// - A block owns one (batch*head, query tile) of 16 rows per warp. The
-//   rows per block are a launch argument (16, 32, 64 or 128), chosen by the
-//   timings in PERF.md, which chip_smoke.py measures at the main-path
-//   shapes; the wrapper passes ops/flash.py's FWD_BLOCK_ROWS.
+// - A block of 4 warps owns one (batch*head, 64-row query tile), 16 rows
+//   per warp: of 16, 32, 64 and 128 rows per block, timed at both
+//   main-path shapes (PERF.md), 64 was the fastest (fewer rows re-stage
+//   the same K/V tiles for fewer queries; 128 leave SMs idle behind the
+//   longest causal blocks).
 // - Each warp loads its 16 rows of q, scales them by log2(e)/sqrt(D) and
 //   rounds them to bf16 at the load, into registers as mma.sync m16n8k16
 //   A fragments; its O accumulator stays in registers too. The tile step
@@ -65,6 +66,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using fwd::kNegInf;
+using fwd::kRows;
 using fwd::kTile;
 
 struct FwdArgs {
@@ -82,17 +84,16 @@ struct FwdArgs {
 // -- bf16: tensor cores ------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(fwd::kMaxThreads) flash_fwd_bf16_kernel(const FwdArgs a) {
+__global__ void __launch_bounds__(fwd::kThreads) flash_fwd_bf16_kernel(const FwdArgs a) {
   __shared__ __align__(16) bf16 ks[2][kTile * tc::kStride<D>];
   __shared__ __align__(16) bf16 vs[2][kTile * tc::kStride<D>];
 
   const int len = a.len;
-  const int rows = blockDim.x / 2;  // 16 per warp
   const int bh = blockIdx.x;
   const int b = bh / a.H;
   const int h = bh - b * a.H;
   // The last query tile walks the most keys: launch it first.
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * rows;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int w0 = q0 + 16 * warp;
@@ -111,7 +112,7 @@ __global__ void __launch_bounds__(fwd::kMaxThreads) flash_fwd_bf16_kernel(const 
   st.l[0] = st.l[1] = 0.f;
 
   // A causal block needs keys only up to its last row's diagonal.
-  const int kv_end = a.causal ? min(len, q0 + rows) : len;
+  const int kv_end = a.causal ? min(len, q0 + kRows) : len;
   fwd::walk_tiles<D>(st, qa, ks, vs, static_cast<const bf16*>(a.k) + base,
                      static_cast<const bf16*>(a.v) + base, a.sT, kv_end, q0, w0, len,
                      a.causal);
@@ -135,11 +136,11 @@ __global__ void __launch_bounds__(fwd::kMaxThreads) flash_fwd_bf16_kernel(const 
 
 // -- f32: CUDA cores ---------------------------------------------------------
 
-constexpr int kRowsF32 = 64;   // query rows per block, one per thread
 constexpr int kChunkF32 = 16;  // keys per online-softmax update
 
+// A block owns 64 query rows, one per thread.
 template <int D>
-__global__ void __launch_bounds__(kRowsF32) flash_fwd_f32_kernel(const FwdArgs a) {
+__global__ void __launch_bounds__(kRows) flash_fwd_f32_kernel(const FwdArgs a) {
   __shared__ __align__(16) float ks[kTile][D];
   __shared__ __align__(16) float vs[kTile][D];
 
@@ -150,7 +151,7 @@ __global__ void __launch_bounds__(kRowsF32) flash_fwd_f32_kernel(const FwdArgs a
   const int bh = blockIdx.x;
   const int b = bh / a.H;
   const int h = bh - b * a.H;
-  const int q0 = blockIdx.y * kRowsF32;
+  const int q0 = blockIdx.y * kRows;
   const int row = q0 + threadIdx.x;
   const bool live = row < T_len;
   const long long base = (long long)b * a.sB + (long long)h * a.sH;
@@ -171,10 +172,10 @@ __global__ void __launch_bounds__(kRowsF32) flash_fwd_f32_kernel(const FwdArgs a
   float l = 0.f;
 
   // A causal block needs keys only up to its last row's diagonal.
-  const int kv_end = a.causal ? min(T_len, q0 + kRowsF32) : T_len;
+  const int kv_end = a.causal ? min(T_len, q0 + kRows) : T_len;
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int e = threadIdx.x; e < kTile * D; e += kRowsF32) {
+    for (int e = threadIdx.x; e < kTile * D; e += kRows) {
       const int r = e / D;
       const int c = e - r * D;
       const int t = k0 + r;
@@ -235,26 +236,25 @@ __global__ void __launch_bounds__(kRowsF32) flash_fwd_f32_kernel(const FwdArgs a
 // -- launch ------------------------------------------------------------------
 
 template <bool kBf16, int D>
-cudaError_t launch(const FwdArgs& a, int B, int block_rows, cudaStream_t stream) {
+cudaError_t launch(const FwdArgs& a, int B, cudaStream_t stream) {
+  const dim3 grid(B * a.H, (a.len + kRows - 1) / kRows);
   if constexpr (kBf16) {
-    const dim3 grid(B * a.H, (a.len + block_rows - 1) / block_rows);
-    flash_fwd_bf16_kernel<D><<<grid, 2 * block_rows, 0, stream>>>(a);
+    flash_fwd_bf16_kernel<D><<<grid, fwd::kThreads, 0, stream>>>(a);
   } else {
-    const dim3 grid(B * a.H, (a.len + kRowsF32 - 1) / kRowsF32);
-    flash_fwd_f32_kernel<D><<<grid, kRowsF32, 0, stream>>>(a);
+    flash_fwd_f32_kernel<D><<<grid, kRows, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
 
 template <bool kBf16>
-cudaError_t launch_for_dim(int D, const FwdArgs& a, int B, int block_rows, cudaStream_t s) {
+cudaError_t launch_for_dim(int D, const FwdArgs& a, int B, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<kBf16, 16>(a, B, block_rows, s);
+      return launch<kBf16, 16>(a, B, s);
     case 32:
-      return launch<kBf16, 32>(a, B, block_rows, s);
+      return launch<kBf16, 32>(a, B, s);
     case 64:
-      return launch<kBf16, 64>(a, B, block_rows, s);
+      return launch<kBf16, 64>(a, B, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -264,19 +264,14 @@ cudaError_t launch_for_dim(int D, const FwdArgs& a, int B, int block_rows, cudaS
 
 // q, k, v: [B, T, H, D] elements at offset b*sB + t*sT + h*sH + d (the
 // three share strides); o: contiguous [B, T, H, D] in the input dtype;
-// lse: contiguous [B, H, T] f32. block_rows: query rows per block of the
-// bf16 kernel (16, 32, 64 or 128; the f32 kernel takes 64). bf16 inputs
-// need 16-byte aligned pointers and strides that are multiples of 8
-// elements. Launches on `stream` and returns the cudaError_t of the launch
-// (0 on success).
+// lse: contiguous [B, H, T] f32. bf16 inputs need 16-byte aligned pointers
+// and strides that are multiples of 8 elements. Launches on `stream` and
+// returns the cudaError_t of the launch (0 on success).
 extern "C" int relayrl_flash_fwd(const void* q, const void* k, const void* v, void* o,
                                  void* lse, int B, int H, int T, int D, long long sB,
                                  long long sT, long long sH, float q_scale, int causal,
-                                 int is_bf16, int block_rows, void* stream) {
-  const bool rows_ok = block_rows == 16 || block_rows == 32 || block_rows == 64 ||
-                       block_rows == 128;
-  const int tile_rows = is_bf16 ? block_rows : kRowsF32;
-  if (B <= 0 || H <= 0 || T <= 0 || !rows_ok || (T + tile_rows - 1) / tile_rows > 65535) {
+                                 int is_bf16, void* stream) {
+  if (B <= 0 || H <= 0 || T <= 0 || (T + kRows - 1) / kRows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -286,7 +281,7 @@ extern "C" int relayrl_flash_fwd(const void* q, const void* k, const void* v, vo
   }
   const FwdArgs a{q, k, v, o, static_cast<float*>(lse), H, T, sB, sT, sH, q_scale, causal != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = is_bf16 ? launch_for_dim<true>(D, a, B, block_rows, s)
-                                  : launch_for_dim<false>(D, a, B, block_rows, s);
+  const cudaError_t err = is_bf16 ? launch_for_dim<true>(D, a, B, s)
+                                  : launch_for_dim<false>(D, a, B, s);
   return static_cast<int>(err);
 }

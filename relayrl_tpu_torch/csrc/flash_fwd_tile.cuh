@@ -34,10 +34,10 @@ namespace fwd {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTile = 64;  // keys per shared-memory tile
+constexpr int kRows = 64;             // query rows a block owns, 16 per warp
+constexpr int kThreads = 2 * kRows;   // 4 warps
+constexpr int kTile = 64;             // keys per shared-memory tile
 constexpr float kNegInf = -1e30f;
-// Query rows a block may own: 16 per warp, 1 to 8 warps.
-constexpr int kMaxThreads = 256;
 
 // Starts this block's 16-byte copies of rows [t0, t0 + kTile) of one
 // (batch, head) slice `src` (row stride sT elements) into
@@ -47,7 +47,8 @@ template <int D>
 __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, long long sT, int t0,
                                            int len) {
   constexpr int kCopies = kTile * (D / 8);
-  for (int e = threadIdx.x; e < kCopies; e += blockDim.x) {
+#pragma unroll
+  for (int e = threadIdx.x; e < kCopies; e += kThreads) {
     const int r = e / (D / 8);
     const int c = e - r * (D / 8);
     const bool in = t0 + r < len;
@@ -202,7 +203,7 @@ __device__ __forceinline__ void tile_step(State<D>& st, const uint32_t (&qa)[D /
 // Walks the K/V tiles [0, kv_end) of one (batch, head) slice (k and v rows
 // at stride sT) in order, double-buffered through ks and vs: the next tile's
 // copies are in flight while the current one computes. The tiles that may
-// hold a masked key for some row of the block (rows [q0, q0 + rows)) take
+// hold a masked key for some row of the block (rows [q0, q0 + kRows)) take
 // the masked body; warps whose rows all lie at or past `len` only help
 // stage.
 template <int D>

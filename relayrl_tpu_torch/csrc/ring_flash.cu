@@ -45,12 +45,12 @@
 // lane of each quad (the tile step keeps each lane's share of l and sums
 // the quad at the flush). K/V tiles of 64 keys arrive by double-buffered
 // 16-byte cp.async into padded rows, zero-filled past C; only a DIAG tile
-// on the diagonal and a ragged last tile take the masked body. The rows
-// per block are a launch argument (16, 32, 64 or 128) so that the ring's
-// small chunks still fill the card: at B*H = 64 and C = 64, 64 rows per
-// block give 64 blocks for 132 SMs. The wrapper passes
-// parallel/ring_flash.py's CHUNK_FWD_BLOCK_ROWS, chosen by the timings in
-// PERF.md (chip_smoke.py measures each choice at the main-path shape).
+// on the diagonal and a ragged last tile take the masked body. A block
+// owns 64 query rows, as in K1: at the ring's chunk shape (B*H = 64,
+// C = 64) that is 64 blocks for 132 SMs, yet 16 and 32 rows per block (256
+// and 128 blocks) timed no faster (PERF.md): a launch this short is bound
+// by the latency of one block's chain (the state's loads, S -> p -> PV,
+// the flush), not by the SMs it leaves idle.
 // q, k and v rows must start on 16-byte boundaries, which the wrapper
 // checks (and relayrl_ring_chunk_fwd refuses otherwise).
 //
@@ -157,7 +157,6 @@ struct FwdArgs {
   float* l_out;
   int H, C;
   Strides qs, ks, vs;
-  int block_rows;  // query rows per block of the bf16 kernel
   bool diag;
 };
 
@@ -180,16 +179,15 @@ struct BwdArgs {
 // K4 in bf16: K1's tile step between a resume and a flush of the carried
 // state (see the note at the top).
 template <int D>
-__global__ void __launch_bounds__(fwd::kMaxThreads) ring_chunk_fwd_bf16_kernel(const FwdArgs a) {
+__global__ void __launch_bounds__(fwd::kThreads) ring_chunk_fwd_bf16_kernel(const FwdArgs a) {
   __shared__ __align__(16) bf16 ks[2][fwd::kTile * tc::kStride<D>];
   __shared__ __align__(16) bf16 vs[2][fwd::kTile * tc::kStride<D>];
 
   const int C = a.C;
-  const int rows = blockDim.x / 2;  // 16 per warp
   const int bh = blockIdx.x;
   const int b = bh / a.H;
   const int h = bh - b * a.H;
-  const int q0 = blockIdx.y * rows;
+  const int q0 = blockIdx.y * fwd::kRows;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int tq = lane & 3;
@@ -215,7 +213,7 @@ __global__ void __launch_bounds__(fwd::kMaxThreads) ring_chunk_fwd_bf16_kernel(c
   }
 
   // Under DIAG a block needs keys only up to its last row's diagonal.
-  const int kv_end = a.diag ? min(C, q0 + rows) : C;
+  const int kv_end = a.diag ? min(C, q0 + fwd::kRows) : C;
   fwd::walk_tiles<D>(st, qa, ks, vs, static_cast<const bf16*>(a.k) + a.ks.at(b, 0, h),
                      static_cast<const bf16*>(a.v) + a.vs.at(b, 0, h), a.ks.t, kv_end, q0, w0,
                      C, a.diag);
@@ -551,8 +549,8 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const dim3 grid(B * a.H, (a.C + kRows - 1) / kRows);
   const int threads = kRows * Split<D>::k;
   if constexpr (K == Kernel::kFwd && std::is_same_v<T, bf16>) {
-    const dim3 tc_grid(B * a.H, (a.C + a.block_rows - 1) / a.block_rows);
-    ring_chunk_fwd_bf16_kernel<D><<<tc_grid, 2 * a.block_rows, 0, stream>>>(a);
+    static_assert(fwd::kRows == kRows, "one grid for every chunk kernel");
+    ring_chunk_fwd_bf16_kernel<D><<<grid, fwd::kThreads, 0, stream>>>(a);
   } else if constexpr (K == Kernel::kFwd) {
     ring_chunk_fwd_kernel<T, D><<<grid, threads, 0, stream>>>(a);
   } else if constexpr (K == Kernel::kDq) {
@@ -581,7 +579,7 @@ cudaError_t launch_for_dim(int D, const Args& a, int B, cudaStream_t s) {
 template <Kernel K, typename Args>
 int run(Args a, int B, int D, int mode, int is_bf16, void* stream) {
   if (B <= 0 || a.H <= 0 || a.C <= 0 || (long long)B * a.H > 0x7fffffffLL ||
-      (a.C + 15) / 16 > 65535 || (mode != kModeFull && mode != kModeDiag)) {
+      (a.C + kRows - 1) / kRows > 65535 || (mode != kModeFull && mode != kModeDiag)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.diag = mode == kModeDiag;
@@ -599,24 +597,20 @@ int run(Args a, int B, int D, int mode, int is_bf16, void* stream) {
 // 1 FULL, 2 DIAG. Each launches on `stream` and returns the cudaError_t of
 // the launch (0 on success).
 //
-// relayrl_ring_chunk_fwd: block_rows is the bf16 kernel's query rows per
-// block (16, 32, 64 or 128); bf16 q, k, v need 16-byte aligned pointers
-// and strides that are multiples of 8 elements, and k and v one stride.
+// relayrl_ring_chunk_fwd: bf16 q, k, v need 16-byte aligned pointers and
+// strides that are multiples of 8 elements, and k and v one stride.
 extern "C" int relayrl_ring_chunk_fwd(
     const void* q, const void* k, const void* v, const void* o_in,
     const void* m_in, const void* l_in, void* o_out, void* m_out, void* l_out,
     int B, int H, int C, int D, long long qB, long long qT, long long qH,
     long long kB, long long kT, long long kH, long long vB, long long vT,
-    long long vH, int mode, int is_bf16, int block_rows, void* stream) {
+    long long vH, int mode, int is_bf16, void* stream) {
   if (is_bf16) {
     const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                            reinterpret_cast<uintptr_t>(v);
     if ((ptrs & 15u) != 0 || ((qB | qT | qH | kB | kT | kH) & 7) != 0 || kB != vB ||
         kT != vT || kH != vH) {
       return static_cast<int>(cudaErrorMisalignedAddress);
-    }
-    if (block_rows != 16 && block_rows != 32 && block_rows != 64 && block_rows != 128) {
-      return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   const FwdArgs a{q,
@@ -633,7 +627,6 @@ extern "C" int relayrl_ring_chunk_fwd(
                   {qB, qT, qH},
                   {kB, kT, kH},
                   {vB, vT, vH},
-                  block_rows,
                   false};
   return run<Kernel::kFwd>(a, B, D, mode, is_bf16, stream);
 }

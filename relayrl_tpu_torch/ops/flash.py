@@ -57,9 +57,6 @@ _LOG2E = 1.4426950408889634
 # Head widths the kernels are instantiated for (csrc/flash_{fwd,bwd}.cu,
 # csrc/ring_flash.cu).
 KERNEL_HEAD_DIMS = (16, 32, 64)
-# Query rows per block of K1's bf16 kernel (16, 32, 64 or 128): the fastest
-# at both main-path shapes in chip_smoke.py's timings (PERF.md).
-FWD_BLOCK_ROWS = 64
 
 
 def _q_scale(head_dim: int) -> float:
@@ -157,7 +154,8 @@ def _library() -> ctypes.CDLL:
     fn = lib.relayrl_flash_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 3
-                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -214,7 +212,7 @@ def _launch(q, k, v, causal: bool, head_dim: int):
         err = _library().relayrl_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse2.data_ptr(), B, H, T, D, s_b, s_t, s_h, _q_scale(head_dim),
-            int(causal), int(q.dtype == torch.bfloat16), FWD_BLOCK_ROWS, stream)
+            int(causal), int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed (cudaError {err})")
     flash_attention.launches += 1

@@ -94,9 +94,6 @@ from relayrl_tpu_torch.parallel.ring import (
 MODE_SKIP, MODE_FULL, MODE_DIAG = 0, 1, 2
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
-# Query rows per block of K4's bf16 kernel (16, 32, 64 or 128): the fastest
-# at the ring learner's chunk shape in chip_smoke.py's timings (PERF.md).
-CHUNK_FWD_BLOCK_ROWS = 32
 
 
 def prescale_q(q: torch.Tensor, head_dim: int | None = None) -> torch.Tensor:
@@ -170,9 +167,7 @@ def _library() -> ctypes.CDLL:
     dims = [ctypes.c_int] * 4                    # B, H, C, D
     strides = [ctypes.c_longlong] * 3            # one tensor's (b, t, h)
     tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # mode, is_bf16, stream
-    # K4 also takes its bf16 kernel's rows per block, before the stream.
-    lib.relayrl_ring_chunk_fwd.argtypes = (
-        [ctypes.c_void_p] * 9 + dims + strides * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.relayrl_ring_chunk_fwd.argtypes = [ctypes.c_void_p] * 9 + dims + strides * 3 + tail
     lib.relayrl_ring_chunk_dq.argtypes = [ctypes.c_void_p] * 8 + dims + strides * 4 + tail
     lib.relayrl_ring_chunk_dkv.argtypes = [ctypes.c_void_p] * 10 + dims + strides * 4 + tail
     for fn in (lib.relayrl_ring_chunk_fwd, lib.relayrl_ring_chunk_dq,
@@ -225,8 +220,8 @@ def _strides(*tensors) -> tuple:
     return tuple(s for t in tensors for s in t.stride()[:3])
 
 
-def _tail(mode, qs, *ints) -> tuple:
-    return (int(mode), int(qs.dtype == torch.bfloat16), *ints,
+def _tail(mode, qs) -> tuple:
+    return (int(mode), int(qs.dtype == torch.bfloat16),
             torch.cuda.current_stream(qs.device).cuda_stream)
 
 
@@ -251,7 +246,7 @@ def chunk_fwd(mode: int, qs, k, v, o, m, l):
     with torch.cuda.device(qs.device):
         err = _library().relayrl_ring_chunk_fwd(
             *(t.data_ptr() for t in (qs, k, v, o, m, l, *out)), *_dims(qs),
-            *_strides(qs, k, v), *_tail(mode, qs, CHUNK_FWD_BLOCK_ROWS))
+            *_strides(qs, k, v), *_tail(mode, qs))
     _raise_on(err, "ring_chunk_fwd")
     chunk_fwd.launches += 1
     return out
