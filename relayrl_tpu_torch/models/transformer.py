@@ -23,8 +23,9 @@ by 8, else the scan ring (:mod:`relayrl_tpu_torch.parallel.ring`); with no
 mesh, or ``sp`` 1, blockwise or dense, so actors serve the arch the
 learner trains. On a CUDA device ``"flash"`` and ``"ring"`` take head dims
 up to 64, the flash kernels' widest (narrower ones are zero-padded to a
-kernel width); the builder refuses a wider one. The KV-cache decode path
-and the MoE and pipeline families are not ported yet.
+kernel width); building the policy for a CUDA device refuses a wider one.
+The KV-cache decode path and the MoE and pipeline families are not ported
+yet.
 
 Sequence ABI (see :class:`~relayrl_tpu_torch.models.base.Policy`):
 ``evaluate(params, obs[B,T,D], act[B,T], mask[B,T,A]) -> (logp, ent, v)``;
