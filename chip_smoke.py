@@ -12,8 +12,8 @@ Phases, each of which fails the run:
    ``ring_flash``), from ``relayrl_tpu_torch/csrc``, one ``nvcc`` per
    source, all started together; prints ``nvcc -Xptxas -v``'s registers
    and spills; counts the tensor-core instructions in the SASS of each
-   bf16 instantiation of K1, K2, K3 and K4 (``cuobjdump -sass``) and fails
-   on a zero count or a spill;
+   bf16 instantiation of K1-K6 (``cuobjdump -sass``) and fails on a zero
+   count or a spill;
 3. kernel vs plain: each kernel (K1 forward, K2 dq, K3 dk/dv) against its
    plain PyTorch version on the card, at the slices' shapes and at edge
    shapes (head dims 8 and 24 through ``flash_attention``'s padding,
@@ -128,8 +128,12 @@ TENSOR_CORE_OP = re.compile(r"\b(?:HMMA|HGMMA)\b")
 TENSOR_CORE_KERNELS = (
     ("flash_fwd", r"(flash_fwd)_bf16_kernelILi(\d+)E", ("flash_fwd",)),
     ("flash_bwd", r"(flash_(?:dq|dkv))_bf16_kernelILi(\d+)E", ("flash_dq", "flash_dkv")),
-    ("ring_flash", r"(ring_chunk_fwd)_bf16_kernelILi(\d+)E", ("ring_chunk_fwd",)),
+    ("ring_flash", r"(ring_chunk_(?:fwd|dq|dkv))_bf16_kernelILi(\d+)E",
+     ("ring_chunk_fwd", "ring_chunk_dq", "ring_chunk_dkv")),
 )
+# The ring's backward kernels run the flash backward's tile steps
+# (csrc/flash_bwd_tile.cuh): {ring kernel: its flash counterpart}.
+SHARED_TILE_STEP = {"ring_chunk_dq": "flash_dq", "ring_chunk_dkv": "flash_dkv"}
 
 
 def _dtype_name(dtype) -> str:
@@ -268,11 +272,13 @@ def ptxas_spills(log: str) -> dict[str, tuple[int, int]]:
 
 def check_tensor_cores() -> dict[str, dict[int, int]]:
     """Prints the tensor-core instructions (HMMA or HGMMA) in the SASS of
-    each bf16 instantiation of K1, K2, K3 and K4 (``cuobjdump -sass`` of the
-    built ``flash_fwd``, ``flash_bwd`` and ``ring_flash`` libraries, counted
-    per function section) and ptxas's spills for them. Fails when
-    ``cuobjdump`` is missing, an instantiation is missing, a count is 0 or
-    ptxas reports a spill. Returns {kernel: {head dim: count}}."""
+    each bf16 instantiation of K1-K6 (``cuobjdump -sass`` of the built
+    ``flash_fwd``, ``flash_bwd`` and ``ring_flash`` libraries, counted per
+    function section) and ptxas's spills for them, and the ring backward's
+    counts beside those of the flash kernels whose tile steps they share.
+    Fails when ``cuobjdump`` is missing, an instantiation is missing, a
+    count is 0 or ptxas reports a spill. Returns {kernel: {head dim:
+    count}}."""
     from relayrl_tpu_torch.ops.flash import KERNEL_HEAD_DIMS
 
     found: dict[str, dict[int, int]] = {}
@@ -296,6 +302,9 @@ def check_tensor_cores() -> dict[str, dict[int, int]]:
         if sorted(dims) != sorted(KERNEL_HEAD_DIMS):
             raise AssertionError(f"{kernel} bf16 instantiations in the SASS: "
                                  f"{sorted(dims)}, expected {KERNEL_HEAD_DIMS}")
+    for ring, flash in SHARED_TILE_STEP.items():
+        print(f"[sass] {ring} HMMA per head dim {found[ring]}, {flash} (the same "
+              f"tile step) {found[flash]}", flush=True)
     return found
 
 

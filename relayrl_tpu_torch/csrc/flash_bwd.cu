@@ -48,17 +48,14 @@
 //   memory descriptors and its asynchronous waits would buy nothing here.
 //   The operand roundings come for free: round(ds) and round(p) are the
 //   bf16 A fragments, and the f32 accumulators are the f32 sums.
-// - K2 (dq): a warp's 16 rows of qs and do stay in registers as A
-//   fragments, with lse2 and delta per row. For each 16-key chunk of a K/V
-//   tile up to the causal diagonal: S = qs.K^T and dP = do.V^T on the
-//   tensor cores, P and dS elementwise on the accumulator fragments, dS
-//   rounded and repacked as an A fragment in registers, dQ += dS.K on the
-//   tensor cores (K through a transposing ldmatrix).
-// - K3 (dk/dv): a warp's 16 key rows of k and v stay in registers as A
-//   fragments. For each 16-query chunk of a qs/do tile from the diagonal to
-//   T: S^T = K.qs^T and dP^T = V.do^T, P and dS with lse2 and delta read
-//   per query from shared memory, then dV += round(P^T).do and
-//   dK += round(dS^T).qs (do and qs through a transposing ldmatrix).
+// - The tile steps and the walks over the other side's tiles live in
+//   flash_bwd_tile.cuh, shared with the ring's K5 and K6 (ring_flash.cu):
+//   K2 keeps a warp's 16 rows of qs and do as A fragments and computes
+//   S, dP, then dQ += round(dS).K per 16-key chunk; K3 keeps a warp's 16
+//   key rows of k and v and computes S^T, dP^T, then dV += round(P^T).do
+//   and dK += round(dS^T).qs per 16-query chunk. Here only the prologue
+//   (zero accumulators) and the epilogue (scaled bf16 rows) are K2's and
+//   K3's own.
 // - Staging: each tile of K and V (K2) or of qs, do, lse2 and delta (K3)
 //   is copied to shared memory in bf16 (f32 for lse2 and delta) with
 //   cp.async, 16 bytes a copy, double-buffered: the next tile loads while
@@ -89,17 +86,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tensor_core.cuh"
+#include "flash_bwd_tile.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 64;  // output rows a block owns
-constexpr int kTile = 64;  // rows of the other side per tile
-constexpr int kThreads = 2 * kRows;  // bf16 kernels: a warp per 16 rows
+constexpr int kRows = bwd::kRows;  // output rows a block owns
+constexpr int kTile = bwd::kTile;  // rows of the other side per tile
 constexpr float kInvLog2e = 0.6931471805599453f;  // 1 / log2(e)
-static_assert(kRows % 16 == 0 && kTile % 16 == 0, "whole 16-row fragments");
 
 struct BwdArgs {
   const void* q;  // qs: q prescaled and rounded
@@ -121,57 +116,6 @@ struct BwdArgs {
 
 // -- bf16: tensor cores ------------------------------------------------------
 
-// Starts the copies of rows [t0, t0 + kTile) of one (batch, head) slice
-// `src` (row stride sT elements) into dst[kTile][tc::kStride<D>]; rows at
-// or past T are zero-filled.
-template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long sT,
-                                           int t0, int T_len) {
-  constexpr int kCopies = kTile * (D / 8);  // 16-byte copies per tile
-#pragma unroll
-  for (int i = 0; i < (kCopies + kThreads - 1) / kThreads; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    if (kCopies % kThreads != 0 && e >= kCopies) break;
-    const int r = e / (D / 8);
-    const int c = e - r * (D / 8);
-    const bool in = t0 + r < T_len;
-    const bf16* row = src + (in ? (long long)(t0 + r) * sT : 0);
-    tc::cp_async_16(dst + r * tc::kStride<D> + c * 8, row + c * 8, in);
-  }
-}
-
-// S and dP of one 16 x 16 chunk: a_s . Bs^T and a_d . Bd^T, where Bs and Bd
-// are 16 rows of two shared-memory tiles starting at `rows` (n-tile 0 the
-// first 8 rows, n-tile 1 the next 8).
-template <int D>
-__device__ __forceinline__ void chunk_scores(float (&s)[2][4], float (&dp)[2][4],
-                                             const uint32_t (&a_s)[D / 16][4],
-                                             const uint32_t (&a_d)[D / 16][4],
-                                             const bf16* bs, const bf16* bd) {
-  const int lane = threadIdx.x & 31;
-  // ldmatrix row addresses: matrices (rows 0-7, dims 0-7), (rows 0-7,
-  // dims 8-15), (rows 8-15, dims 0-7), (rows 8-15, dims 8-15).
-  const int off = ((lane & 7) + ((lane >> 4) << 3)) * tc::kStride<D> + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int n = 0; n < 2; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[n][e] = 0.f;
-      dp[n][e] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t b[4];
-    tc::ldmatrix_x4(b, bs + off + kk * 16);
-    tc::mma_bf16(s[0], a_s[kk], b[0], b[1]);
-    tc::mma_bf16(s[1], a_s[kk], b[2], b[3]);
-    tc::ldmatrix_x4(b, bd + off + kk * 16);
-    tc::mma_bf16(dp[0], a_d[kk], b[0], b[1]);
-    tc::mma_bf16(dp[1], a_d[kk], b[2], b[3]);
-  }
-}
-
 // Rounds acc * scale of rows r0 (c0, c1) and r0 + 8 (c2, c3) to bf16 and
 // stores them to out [B, T, H, D] at (b, h).
 template <int D>
@@ -192,48 +136,8 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float s
   }
 }
 
-// One K/V tile of the dq pass: keys [k0, k0 + kTile) against this warp's
-// rows. kMask: the diagonal or ragged tile, which masks keys past T and,
-// when causal, keys above a row's diagonal; warp_last is the warp's last
-// row.
-template <int D, bool kMask>
-__device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4], const uint32_t (&qa)[D / 16][4],
-                                        const uint32_t (&da)[D / 16][4],
-                                        const float (&lse)[2], const float (&delta)[2],
-                                        const bf16* kt, const bf16* vt, int k0, int r0,
-                                        int warp_last, int T_len, bool causal) {
-  const int tq = threadIdx.x & 3;
-#pragma unroll
-  for (int c = 0; c < kTile / 16; ++c) {
-    const int key0 = k0 + 16 * c;
-    // Keys ascend: past T, or above the warp's last row, every later key is
-    // masked for all 16 rows.
-    if (kMask && (key0 >= T_len || (causal && key0 > warp_last))) break;
-    float s[2][4], dp[2][4];
-    chunk_scores<D>(s, dp, qa, da, kt + 16 * c * tc::kStride<D>, vt + 16 * c * tc::kStride<D>);
-    uint32_t dsa[4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;  // row r0 or r0 + 8
-        float p = exp2f(s[n][e] - lse[half]);
-        if (kMask) {
-          const int key = key0 + 8 * n + 2 * tq + (e & 1);
-          if (key >= T_len || (causal && key > r0 + 8 * half)) p = 0.f;
-        }
-        ds[e] = p * (dp[n][e] - delta[half]);
-      }
-      dsa[2 * n] = tc::pack_bf16(ds[0], ds[1]);
-      dsa[2 * n + 1] = tc::pack_bf16(ds[2], ds[3]);
-    }
-    tc::chunk_accumulate<D>(acc, dsa, kt + 16 * c * tc::kStride<D>);
-  }
-}
-
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_bf16_kernel(const BwdArgs a) {
+__global__ void __launch_bounds__(bwd::kThreads) flash_dq_bf16_kernel(const BwdArgs a) {
   __shared__ __align__(16) bf16 ks[2][kTile * tc::kStride<D>];
   __shared__ __align__(16) bf16 vs[2][kTile * tc::kStride<D>];
 
@@ -246,8 +150,6 @@ __global__ void __launch_bounds__(kThreads) flash_dq_bf16_kernel(const BwdArgs a
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int r0 = q0 + 16 * warp + (lane >> 2);  // this thread's rows r0, r0 + 8
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sB + h * a.sH;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sB + h * a.sH;
 
   uint32_t qa[D / 16][4];
   uint32_t da[D / 16][4];
@@ -271,90 +173,16 @@ __global__ void __launch_bounds__(kThreads) flash_dq_bf16_kernel(const BwdArgs a
 
   // A causal block needs keys only up to its last row's diagonal.
   const int kv_end = a.causal ? min(T_len, q0 + kRows) : T_len;
-  const int n_tiles = (kv_end + kTile - 1) / kTile;
-  stage_rows<D>(ks[0], kb, a.sT, 0, T_len);
-  stage_rows<D>(vs[0], vb, a.sT, 0, T_len);
-  tc::cp_async_commit();
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      // The buffer was last read in iteration j - 1, before its barrier.
-      stage_rows<D>(ks[(j + 1) & 1], kb, a.sT, (j + 1) * kTile, T_len);
-      stage_rows<D>(vs[(j + 1) & 1], vb, a.sT, (j + 1) * kTile, T_len);
-      tc::cp_async_commit();
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int k0 = j * kTile;
-    const int warp_last = q0 + 16 * warp + 15;
-    if ((a.causal && k0 + kTile > q0) || k0 + kTile > T_len) {
-      dq_tile<D, true>(acc, qa, da, lse, delta, ks[j & 1], vs[j & 1], k0, r0, warp_last,
-                       T_len, a.causal);
-    } else {
-      dq_tile<D, false>(acc, qa, da, lse, delta, ks[j & 1], vs[j & 1], k0, r0, warp_last,
-                        T_len, a.causal);
-    }
-    __syncthreads();
-  }
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sB + h * a.sH;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sB + h * a.sH;
+  bwd::walk_dq<D>(acc, qa, da, lse, delta, ks, vs, kb, a.sT, vb, a.sT, kv_end, q0, r0, T_len,
+                  a.causal);
   store_rows<D>(acc, a.dq_scale, static_cast<bf16*>(a.dq), b, h, a.H, T_len, r0);
 }
 
-// One qs/do tile of the dk/dv pass: queries [t0, t0 + kTile) against this
-// warp's keys. kMask: the diagonal or ragged tile, which masks queries past
-// T and, when causal, queries before a key; warp_first is the warp's first
-// key.
-template <int D, bool kMask>
-__device__ __forceinline__ void dkv_tile(float (&dk)[D / 8][4], float (&dv)[D / 8][4],
-                                         const uint32_t (&ka)[D / 16][4],
-                                         const uint32_t (&va)[D / 16][4], const bf16* qt,
-                                         const bf16* dot, const float* lse_t,
-                                         const float* delta_t, int t0, int r0,
-                                         int warp_first, int T_len, bool causal) {
-  const int tq = threadIdx.x & 3;
-#pragma unroll
-  for (int c = 0; c < kTile / 16; ++c) {
-    const int qc0 = t0 + 16 * c;
-    if (kMask) {
-      if (qc0 >= T_len) break;
-      // Every query of the chunk comes before every key of the warp.
-      if (causal && qc0 + 15 < warp_first) continue;
-    }
-    float s[2][4], dp[2][4];
-    chunk_scores<D>(s, dp, ka, va, qt + 16 * c * tc::kStride<D>, dot + 16 * c * tc::kStride<D>);
-    uint32_t pa[4], dsa[4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      const int col = 16 * c + 8 * n + 2 * tq;  // tile-local query of e = 0, 2
-      const float2 l2 = *reinterpret_cast<const float2*>(lse_t + col);
-      const float2 dl = *reinterpret_cast<const float2*>(delta_t + col);
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;  // key r0 or r0 + 8
-        p[e] = exp2f(s[n][e] - ((e & 1) ? l2.y : l2.x));
-        if (kMask) {
-          const int query = t0 + col + (e & 1);
-          if (query >= T_len || (causal && query < r0 + 8 * half)) p[e] = 0.f;
-        }
-        ds[e] = p[e] * (dp[n][e] - ((e & 1) ? dl.y : dl.x));
-      }
-      pa[2 * n] = tc::pack_bf16(p[0], p[1]);
-      pa[2 * n + 1] = tc::pack_bf16(p[2], p[3]);
-      dsa[2 * n] = tc::pack_bf16(ds[0], ds[1]);
-      dsa[2 * n + 1] = tc::pack_bf16(ds[2], ds[3]);
-    }
-    tc::chunk_accumulate<D>(dv, pa, dot + 16 * c * tc::kStride<D>);
-    tc::chunk_accumulate<D>(dk, dsa, qt + 16 * c * tc::kStride<D>);
-  }
-}
-
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv_bf16_kernel(const BwdArgs a) {
-  __shared__ __align__(16) bf16 qsm[2][kTile * tc::kStride<D>];
-  __shared__ __align__(16) bf16 dosm[2][kTile * tc::kStride<D>];
-  __shared__ __align__(16) float lse_s[2][kTile];
-  __shared__ __align__(16) float delta_s[2][kTile];
+__global__ void __launch_bounds__(bwd::kThreads) flash_dkv_bf16_kernel(const BwdArgs a) {
+  __shared__ __align__(16) bwd::DkvTiles<D> sm;
 
   const int T_len = a.len;
   const int bh = blockIdx.x;
@@ -365,8 +193,6 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_bf16_kernel(const BwdArgs 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int r0 = k0 + 16 * warp + (lane >> 2);  // this thread's keys r0, r0 + 8
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qB + h * a.qH;
-  const bf16* db = static_cast<const bf16*>(a.dout) + b * a.dB + h * a.dH;
   const long long row0 = (long long)bh * T_len;
 
   uint32_t ka[D / 16][4];
@@ -385,44 +211,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_bf16_kernel(const BwdArgs 
     }
   }
 
-  // Tile rows of qs and do, and lse2 and delta of queries [t0, t0 + kTile)
-  // with one 4-byte copy each.
-  auto stage = [&](int buf, int t0) {
-    stage_rows<D>(qsm[buf], qb, a.qT, t0, T_len);
-    stage_rows<D>(dosm[buf], db, a.dT, t0, T_len);
-    for (int e = threadIdx.x; e < 2 * kTile; e += kThreads) {
-      const int i = e % kTile;
-      const bool in = t0 + i < T_len;
-      const float* src = (e < kTile ? a.lse : a.delta) + row0 + (in ? t0 + i : 0);
-      tc::cp_async_4(e < kTile ? &lse_s[buf][i] : &delta_s[buf][i], src, in);
-    }
-    tc::cp_async_commit();
-  };
-
   // A causal block needs queries only from its first key's diagonal on.
-  const int t_begin = a.causal ? k0 : 0;
-  const int n_tiles = (T_len - t_begin + kTile - 1) / kTile;
-  stage(0, t_begin);
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      stage((j + 1) & 1, t_begin + (j + 1) * kTile);
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int t0 = t_begin + j * kTile;
-    const int buf = j & 1;
-    const int warp_first = k0 + 16 * warp;
-    if ((a.causal && t0 < k0 + kRows) || t0 + kTile > T_len) {
-      dkv_tile<D, true>(dk, dv, ka, va, qsm[buf], dosm[buf], lse_s[buf], delta_s[buf], t0,
-                        r0, warp_first, T_len, a.causal);
-    } else {
-      dkv_tile<D, false>(dk, dv, ka, va, qsm[buf], dosm[buf], lse_s[buf], delta_s[buf], t0,
-                         r0, warp_first, T_len, a.causal);
-    }
-    __syncthreads();
-  }
+  bwd::walk_dkv<D>(dk, dv, ka, va, sm, static_cast<const bf16*>(a.q) + b * a.qB + h * a.qH,
+                   a.qT, static_cast<const bf16*>(a.dout) + b * a.dB + h * a.dH, a.dT,
+                   a.lse + row0, a.delta + row0, a.causal ? k0 : 0, k0, r0, T_len, a.causal);
   store_rows<D>(dk, kInvLog2e, static_cast<bf16*>(a.dk), b, h, a.H, T_len, r0);
   store_rows<D>(dv, 1.f, static_cast<bf16*>(a.dv), b, h, a.H, T_len, r0);
 }
@@ -657,9 +449,9 @@ template <bool kDq, bool kBf16, int D>
 cudaError_t launch(const BwdArgs& a, int B, cudaStream_t stream) {
   const dim3 grid(B * a.H, (a.len + kRows - 1) / kRows);
   if constexpr (kBf16 && kDq) {
-    flash_dq_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(a);
+    flash_dq_bf16_kernel<D><<<grid, bwd::kThreads, 0, stream>>>(a);
   } else if constexpr (kBf16) {
-    flash_dkv_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(a);
+    flash_dkv_bf16_kernel<D><<<grid, bwd::kThreads, 0, stream>>>(a);
   } else if constexpr (kDq) {
     flash_dq_f32_kernel<D><<<grid, kRows * Split<D>::k, 0, stream>>>(a);
   } else {

@@ -1,0 +1,285 @@
+// The flash backward's warp-level tile steps on Hopper's tensor cores, shared
+// by K2 and K3 (flash_bwd.cu, which start from zero and write scaled bf16
+// rows) and K5 and K6 (ring_flash.cu, which resume carried f32 accumulators
+// and flush them unscaled).
+//
+// A block of 4 warps owns kRows output rows, 16 per warp, and walks kTile-row
+// tiles of the other side, staged in shared memory by double-buffered 16-byte
+// cp.async (lse2 and delta by 4-byte copies), rows past `len` zero-filled.
+// Products are mma.sync m16n8k16 with bf16 operands and f32 accumulators:
+//
+//   dq pass (K2, K5): a warp's qs and do rows are A fragments, with lse2 and
+//     delta per row. Per 16-key chunk: S = qs.K^T and dP = do.V^T, then
+//     p = exp2(S - lse2) and dS = p * (dP - delta) on the accumulator
+//     fragments, round(dS) repacked as an A fragment, dQ += round(dS).K
+//     (K through a transposing ldmatrix).
+//   dk/dv pass (K3, K6): a warp's k and v rows are A fragments. Per 16-query
+//     chunk: S^T = K.qs^T and dP^T = V.do^T, p and dS with lse2 and delta
+//     read per query from shared memory, dV += round(p^T).do and
+//     dK += round(dS^T).qs (do and qs through a transposing ldmatrix).
+//
+// Those are the reference kernels' rounding points: ds rounded to k's dtype
+// before ds.k, p to do's before p^T.do, ds to q's before ds^T.qs; scores, p,
+// ds and every accumulator in f32. Under `causal` a key sees the queries at
+// or after it (local positions); only the diagonal tile and a ragged last
+// tile take the masked body, and the walks' bounds skip what lies wholly
+// beyond the diagonal.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "tensor_core.cuh"
+
+namespace bwd {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kRows = 64;            // output rows a block owns, 16 per warp
+constexpr int kTile = 64;            // rows of the other side per tile
+constexpr int kThreads = 2 * kRows;  // 4 warps
+static_assert(kRows % 16 == 0 && kTile % 16 == 0, "whole 16-row fragments");
+
+// Starts the copies of rows [t0, t0 + kTile) of one (batch, head) slice
+// `src` (row stride sT elements) into dst[kTile][tc::kStride<D>]; rows at
+// or past `len` are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long sT, int t0,
+                                           int len) {
+  constexpr int kCopies = kTile * (D / 8);  // 16-byte copies per tile
+#pragma unroll
+  for (int i = 0; i < (kCopies + kThreads - 1) / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    if (kCopies % kThreads != 0 && e >= kCopies) break;
+    const int r = e / (D / 8);
+    const int c = e - r * (D / 8);
+    const bool in = t0 + r < len;
+    const bf16* row = src + (in ? (long long)(t0 + r) * sT : 0);
+    tc::cp_async_16(dst + r * tc::kStride<D> + c * 8, row + c * 8, in);
+  }
+}
+
+// S and dP of one 16 x 16 chunk: a_s . Bs^T and a_d . Bd^T, where Bs and Bd
+// are 16 rows of two shared-memory tiles starting at `bs` and `bd` (n-tile
+// 0 the first 8 rows, n-tile 1 the next 8).
+template <int D>
+__device__ __forceinline__ void chunk_scores(float (&s)[2][4], float (&dp)[2][4],
+                                             const uint32_t (&a_s)[D / 16][4],
+                                             const uint32_t (&a_d)[D / 16][4],
+                                             const bf16* bs, const bf16* bd) {
+  const int lane = threadIdx.x & 31;
+  // ldmatrix row addresses: matrices (rows 0-7, dims 0-7), (rows 0-7,
+  // dims 8-15), (rows 8-15, dims 0-7), (rows 8-15, dims 8-15).
+  const int off = ((lane & 7) + ((lane >> 4) << 3)) * tc::kStride<D> + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = 0.f;
+      dp[n][e] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t b[4];
+    tc::ldmatrix_x4(b, bs + off + kk * 16);
+    tc::mma_bf16(s[0], a_s[kk], b[0], b[1]);
+    tc::mma_bf16(s[1], a_s[kk], b[2], b[3]);
+    tc::ldmatrix_x4(b, bd + off + kk * 16);
+    tc::mma_bf16(dp[0], a_d[kk], b[0], b[1]);
+    tc::mma_bf16(dp[1], a_d[kk], b[2], b[3]);
+  }
+}
+
+// One K/V tile of the dq pass: keys [k0, k0 + kTile) against this warp's
+// rows. kMask: the diagonal or ragged tile, which masks keys at or past
+// `len` and, when causal, keys above a row's diagonal; warp_last is the
+// warp's last row.
+template <int D, bool kMask>
+__device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4], const uint32_t (&qa)[D / 16][4],
+                                        const uint32_t (&da)[D / 16][4],
+                                        const float (&lse)[2], const float (&delta)[2],
+                                        const bf16* kt, const bf16* vt, int k0, int r0,
+                                        int warp_last, int len, bool causal) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int c = 0; c < kTile / 16; ++c) {
+    const int key0 = k0 + 16 * c;
+    // Keys ascend: past `len`, or above the warp's last row, every later
+    // key is masked for all 16 rows.
+    if (kMask && (key0 >= len || (causal && key0 > warp_last))) break;
+    float s[2][4], dp[2][4];
+    chunk_scores<D>(s, dp, qa, da, kt + 16 * c * tc::kStride<D>, vt + 16 * c * tc::kStride<D>);
+    uint32_t dsa[4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;  // row r0 or r0 + 8
+        float p = exp2f(s[n][e] - lse[half]);
+        if (kMask) {
+          const int key = key0 + 8 * n + 2 * tq + (e & 1);
+          if (key >= len || (causal && key > r0 + 8 * half)) p = 0.f;
+        }
+        ds[e] = p * (dp[n][e] - delta[half]);
+      }
+      dsa[2 * n] = tc::pack_bf16(ds[0], ds[1]);
+      dsa[2 * n + 1] = tc::pack_bf16(ds[2], ds[3]);
+    }
+    tc::chunk_accumulate<D>(acc, dsa, kt + 16 * c * tc::kStride<D>);
+  }
+}
+
+// The dq pass of one block: walks the K/V tiles [0, kv_end) of one (batch,
+// head) slice (k rows at stride kT from kb, v rows at stride vT from vb) in
+// order, double-buffered through ks and vs, accumulating into acc. The block
+// owns query rows [q0, q0 + kRows); this thread holds rows r0 and r0 + 8.
+template <int D>
+__device__ __forceinline__ void walk_dq(float (&acc)[D / 8][4], const uint32_t (&qa)[D / 16][4],
+                                        const uint32_t (&da)[D / 16][4],
+                                        const float (&lse)[2], const float (&delta)[2],
+                                        bf16 (&ks)[2][kTile * tc::kStride<D>],
+                                        bf16 (&vs)[2][kTile * tc::kStride<D>], const bf16* kb,
+                                        long long kT, const bf16* vb, long long vT, int kv_end,
+                                        int q0, int r0, int len, bool causal) {
+  const int warp_last = q0 + 16 * (threadIdx.x >> 5) + 15;
+  const int n_tiles = (kv_end + kTile - 1) / kTile;
+  stage_rows<D>(ks[0], kb, kT, 0, len);
+  stage_rows<D>(vs[0], vb, vT, 0, len);
+  tc::cp_async_commit();
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      // The buffer was last read in iteration j - 1, before its barrier.
+      stage_rows<D>(ks[(j + 1) & 1], kb, kT, (j + 1) * kTile, len);
+      stage_rows<D>(vs[(j + 1) & 1], vb, vT, (j + 1) * kTile, len);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = j * kTile;
+    if ((causal && k0 + kTile > q0) || k0 + kTile > len) {
+      dq_tile<D, true>(acc, qa, da, lse, delta, ks[j & 1], vs[j & 1], k0, r0, warp_last, len,
+                       causal);
+    } else {
+      dq_tile<D, false>(acc, qa, da, lse, delta, ks[j & 1], vs[j & 1], k0, r0, warp_last, len,
+                        causal);
+    }
+    __syncthreads();
+  }
+}
+
+// One qs/do tile of the dk/dv pass: queries [t0, t0 + kTile) against this
+// warp's keys. kMask: the diagonal or ragged tile, which masks queries at
+// or past `len` and, when causal, queries before a key; warp_first is the
+// warp's first key.
+template <int D, bool kMask>
+__device__ __forceinline__ void dkv_tile(float (&dk)[D / 8][4], float (&dv)[D / 8][4],
+                                         const uint32_t (&ka)[D / 16][4],
+                                         const uint32_t (&va)[D / 16][4], const bf16* qt,
+                                         const bf16* dot, const float* lse_t,
+                                         const float* delta_t, int t0, int r0,
+                                         int warp_first, int len, bool causal) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int c = 0; c < kTile / 16; ++c) {
+    const int qc0 = t0 + 16 * c;
+    if (kMask) {
+      if (qc0 >= len) break;
+      // Every query of the chunk comes before every key of the warp.
+      if (causal && qc0 + 15 < warp_first) continue;
+    }
+    float s[2][4], dp[2][4];
+    chunk_scores<D>(s, dp, ka, va, qt + 16 * c * tc::kStride<D>, dot + 16 * c * tc::kStride<D>);
+    uint32_t pa[4], dsa[4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int col = 16 * c + 8 * n + 2 * tq;  // tile-local query of e = 0, 2
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_t + col);
+      const float2 dl = *reinterpret_cast<const float2*>(delta_t + col);
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;  // key r0 or r0 + 8
+        p[e] = exp2f(s[n][e] - ((e & 1) ? l2.y : l2.x));
+        if (kMask) {
+          const int query = t0 + col + (e & 1);
+          if (query >= len || (causal && query < r0 + 8 * half)) p[e] = 0.f;
+        }
+        ds[e] = p[e] * (dp[n][e] - ((e & 1) ? dl.y : dl.x));
+      }
+      pa[2 * n] = tc::pack_bf16(p[0], p[1]);
+      pa[2 * n + 1] = tc::pack_bf16(p[2], p[3]);
+      dsa[2 * n] = tc::pack_bf16(ds[0], ds[1]);
+      dsa[2 * n + 1] = tc::pack_bf16(ds[2], ds[3]);
+    }
+    tc::chunk_accumulate<D>(dv, pa, dot + 16 * c * tc::kStride<D>);
+    tc::chunk_accumulate<D>(dk, dsa, qt + 16 * c * tc::kStride<D>);
+  }
+}
+
+// The shared-memory tiles of the dk/dv pass: two buffers of qs and do rows,
+// lse2 and delta.
+template <int D>
+struct DkvTiles {
+  bf16 q[2][kTile * tc::kStride<D>];
+  bf16 d[2][kTile * tc::kStride<D>];
+  float lse[2][kTile];
+  float delta[2][kTile];
+};
+
+// The dk/dv pass of one block: walks the qs/do tiles from query t_begin to
+// `len` of one (batch, head) slice (qs rows at stride qT from qb, do rows at
+// stride dT from db; lse2 and delta contiguous from lse_row and delta_row)
+// in order, double-buffered through `sm`, accumulating into dk and dv. The
+// block owns keys [k0, k0 + kRows); this thread holds keys r0 and r0 + 8.
+template <int D>
+__device__ __forceinline__ void walk_dkv(float (&dk)[D / 8][4], float (&dv)[D / 8][4],
+                                         const uint32_t (&ka)[D / 16][4],
+                                         const uint32_t (&va)[D / 16][4], DkvTiles<D>& sm,
+                                         const bf16* qb, long long qT, const bf16* db,
+                                         long long dT, const float* lse_row,
+                                         const float* delta_row, int t_begin, int k0, int r0,
+                                         int len, bool causal) {
+  // Tile rows of qs and do, and lse2 and delta of queries [t0, t0 + kTile)
+  // with one 4-byte copy each.
+  auto stage = [&](int buf, int t0) {
+    stage_rows<D>(sm.q[buf], qb, qT, t0, len);
+    stage_rows<D>(sm.d[buf], db, dT, t0, len);
+    for (int e = threadIdx.x; e < 2 * kTile; e += kThreads) {
+      const int i = e % kTile;
+      const bool in = t0 + i < len;
+      const float* src = (e < kTile ? lse_row : delta_row) + (in ? t0 + i : 0);
+      tc::cp_async_4(e < kTile ? &sm.lse[buf][i] : &sm.delta[buf][i], src, in);
+    }
+    tc::cp_async_commit();
+  };
+
+  const int warp_first = k0 + 16 * (threadIdx.x >> 5);
+  const int n_tiles = (len - t_begin + kTile - 1) / kTile;
+  stage(0, t_begin);
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      stage((j + 1) & 1, t_begin + (j + 1) * kTile);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int t0 = t_begin + j * kTile;
+    const int buf = j & 1;
+    if ((causal && t0 < k0 + kRows) || t0 + kTile > len) {
+      dkv_tile<D, true>(dk, dv, ka, va, sm.q[buf], sm.d[buf], sm.lse[buf], sm.delta[buf], t0, r0,
+                        warp_first, len, causal);
+    } else {
+      dkv_tile<D, false>(dk, dv, ka, va, sm.q[buf], sm.d[buf], sm.lse[buf], sm.delta[buf], t0, r0,
+                         warp_first, len, causal);
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace bwd

@@ -36,84 +36,71 @@
 // (batch, time, head) element strides (views of the fused qkv projection,
 // cut by chunk); the state is contiguous [B, H, C, D] and [B, H, C].
 //
-// K4 in bf16 (the main path) runs on the tensor cores: K1's tile step
-// (flash_fwd_tile.cuh, mma.sync m16n8k16 with ldmatrix fragments), with
-// a prologue that resumes the carried state and an epilogue that flushes
-// it. A warp owns 16 query rows: their prescaled q as A fragments, their
-// acc as C fragments, loaded from o_in in place (each lane reads the
-// float2 pairs its fragments hold), m from m_in, and l from l_in into one
-// lane of each quad (the tile step keeps each lane's share of l and sums
-// the quad at the flush). K/V tiles of 64 keys arrive by double-buffered
-// 16-byte cp.async into padded rows, zero-filled past C; only a DIAG tile
-// on the diagonal and a ragged last tile take the masked body. A block
-// owns 64 query rows, as in K1: at the ring's chunk shape (B*H = 64,
-// C = 64) that is 64 blocks for 132 SMs, yet 16 and 32 rows per block (256
-// and 128 blocks) timed no faster (PERF.md): a launch this short is bound
-// by the latency of one block's chain (the state's loads, S -> p -> PV,
-// the flush), not by the SMs it leaves idle.
-// q, k and v rows must start on 16-byte boundaries, which the wrapper
-// checks (and relayrl_ring_chunk_fwd refuses otherwise).
+// bf16 (the main path) runs on the tensor cores: each kernel is the tile
+// step of its flash counterpart (mma.sync m16n8k16 with ldmatrix fragments,
+// tiles of 64 rows by double-buffered 16-byte cp.async into padded rows,
+// zero-filled past C) between a prologue that resumes the carried state and
+// an epilogue that flushes it. A block of 4 warps owns 64 rows, 16 per warp,
+// and each lane loads the carried f32 rows its C fragments hold as float2
+// pairs (rows past C start at 0) and stores them back the same way. DIAG is
+// the flash kernels' causal on local positions, FULL their non-causal walk;
+// only a DIAG tile on the diagonal and a ragged last tile take the masked
+// body.
 //
-// K4 in f32, K5 and K6 keep the first port's design: one thread per row,
-// two at D = 64 (each holds every other head dim; the pair adds its halves
-// of a dot product with one shuffle), the other side staged in shared
-// memory as f32, products as scalar FMAs on the CUDA cores. K5 and K6: a
-// block owns a 64-row query (K5) or key (K6) tile; each row's q, do, lse2,
-// delta (K5) or k, v (K6) and its accumulators stay in registers while the
-// block walks 64-row tiles of the other side, up to (K5) or from (K6) the
-// diagonal under DIAG. f32 K4 stays on the CUDA cores because no
-// tensor-core type meets the f32 bar of 2e-5.
+// - K4, on K1's tile step (flash_fwd_tile.cuh): a warp's prescaled q as A
+//   fragments, its acc as C fragments from o_in, m from m_in, and l from
+//   l_in into one lane of each quad (the tile step keeps each lane's share
+//   of l and sums the quad at the flush). At the ring's chunk shape
+//   (B*H = 64, C = 64) that is 64 blocks for 132 SMs, yet 16 and 32 rows
+//   per block (256 and 128 blocks) timed no faster (PERF.md): a launch this
+//   short is bound by the latency of one block's chain (the state's loads,
+//   S -> p -> PV, the flush), not by the SMs it leaves idle.
+// - K5, on K2's (flash_bwd_tile.cuh): a warp's qs and do as A fragments,
+//   lse2 and delta per row, dq from dq_in as C fragments; K/V tiles up to
+//   min(C, q0 + 64) under DIAG, the last query tile launched first.
+// - K6, on K3's: a warp's k and v as A fragments, dk and dv from dk_in and
+//   dv_in as C fragments; qs/do/lse2/delta tiles from the block's first key
+//   under DIAG, the first key tile launched first.
+//
+// q, k, v and do rows must start on 16-byte boundaries, which the wrappers
+// check (and the C entries refuse otherwise); K4 also needs k and v of one
+// stride.
+//
+// f32 keeps the first port's design (ring_chunk_*_f32_kernel), because no
+// tensor-core type meets the f32 bars (2e-5 forward, 5e-5 accumulators):
+// one thread per row, two at D = 64 (each holds every other head dim; the
+// pair adds its halves of a dot product with one shuffle), the other side
+// staged in shared memory as f32, products as scalar FMAs on the CUDA
+// cores. A block owns 64 rows; each row's own vectors and accumulators stay
+// in registers while the block walks 64-row tiles of the other side, up to
+// (K4, K5) or from (K6) the diagonal under DIAG.
 //
 // Bound on the H100 at the learner's chunk shape (B*H = 64, C = 64,
 // D = 32, bf16, FULL): K4 moves about 1.9 MB (the f32 state in and out is
 // more than half of it) and does 34 MFLOP, K5 about 2.1 MB and 50 MFLOP,
 // K6 about 3.2 MB and 67 MFLOP, so all three are memory-bound with floors
 // of 0.6-1 us at 3.35 TB/s. At that size a launch is short and its grid
-// small, so latency limits the tensor-core K4 (the state's loads, one tile's
-// chain S -> p -> PV, the flush); K5 and K6, still on the CUDA cores, are
-// limited by their issue rate. Fusing a ring's rounds into one launch and
-// K5/K6 on the tensor cores are later work.
+// small, so latency limits them: the state's loads, one tile's chain of
+// products, the flush. Fusing a ring's rounds into one launch is later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
+#include "flash_bwd_tile.cuh"
 #include "flash_fwd_tile.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 64;   // output rows a block owns
+constexpr int kRows = 64;   // output rows a block owns (one grid for every kernel)
 constexpr int kTile = 64;   // rows of the other side per shared-memory tile
 constexpr int kChunk = 16;  // keys per online-softmax update (K4)
 constexpr float kNegInf = -1e30f;
 constexpr int kModeFull = 1;
 constexpr int kModeDiag = 2;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-// An f32 value rounded through the input dtype.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
 
 // Threads per row: a thread holds at most 32 head dims of each vector.
 // Thread `part` of a row holds dims part, part + k, part + 2k, ... so the
@@ -176,6 +163,47 @@ struct BwdArgs {
   bool diag;
 };
 
+// load_state_rows: this lane's C fragments of the warp's 16 rows
+// [w0, w0 + 16) of one (batch, head) slice of f32 [C, D] state (rows g and
+// g + 8, the float2 pair of cols 8n + 2tq, 8n + 2tq + 1 of each n-tile);
+// store_state_rows writes them back. Rows at or past C are not read (they
+// start at 0) and not written.
+template <int D>
+__device__ __forceinline__ void load_state_rows(float (&acc)[D / 8][4], const float* src, int w0,
+                                                int C) {
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = w0 + (lane >> 2) + 8 * half;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float2 x = r < C ? *reinterpret_cast<const float2*>(src + (long long)r * D + n * 8 +
+                                                                2 * tq)
+                             : make_float2(0.f, 0.f);
+      acc[n][2 * half] = x.x;
+      acc[n][2 * half + 1] = x.y;
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_state_rows(const float (&acc)[D / 8][4], float* dst, int w0,
+                                                 int C) {
+  const int lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = w0 + (lane >> 2) + 8 * half;
+    if (r >= C) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(dst + (long long)r * D + n * 8 + 2 * tq) =
+          make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
+  }
+}
+
 // K4 in bf16: K1's tile step between a resume and a flush of the carried
 // state (see the note at the top).
 template <int D>
@@ -236,18 +264,88 @@ __global__ void __launch_bounds__(fwd::kThreads) ring_chunk_fwd_bf16_kernel(cons
   }
 }
 
-// K4 in f32.
-template <typename T, int D>
+// K5 in bf16: K2's walk between a resume and a flush of the carried dq.
+template <int D>
+__global__ void __launch_bounds__(bwd::kThreads) ring_chunk_dq_bf16_kernel(const BwdArgs a) {
+  __shared__ __align__(16) bf16 ks[2][bwd::kTile * tc::kStride<D>];
+  __shared__ __align__(16) bf16 vs[2][bwd::kTile * tc::kStride<D>];
+
+  const int C = a.C;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  // Under DIAG the last query tile walks the most keys: launch it first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * bwd::kRows;
+  const int w0 = q0 + 16 * (threadIdx.x >> 5);
+  const int r0 = w0 + ((threadIdx.x & 31) >> 2);  // this thread's rows r0, r0 + 8
+  const long long row0 = (long long)bh * C;
+
+  uint32_t qa[D / 16][4];
+  uint32_t da[D / 16][4];
+  tc::load_a_frags<D>(qa, static_cast<const bf16*>(a.q) + a.qs.at(b, 0, h), a.qs.t, w0, C);
+  tc::load_a_frags<D>(da, static_cast<const bf16*>(a.dout) + a.ds.at(b, 0, h), a.ds.t, w0, C);
+  float lse[2], delta[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    lse[half] = r < C ? a.lse[row0 + r] : 0.f;
+    delta[half] = r < C ? a.delta[row0 + r] : 0.f;
+  }
+  float acc[D / 8][4];
+  load_state_rows<D>(acc, a.a_in + row0 * D, w0, C);
+
+  // Under DIAG a block needs keys only up to its last row's diagonal.
+  const int kv_end = a.diag ? min(C, q0 + bwd::kRows) : C;
+  bwd::walk_dq<D>(acc, qa, da, lse, delta, ks, vs,
+                  static_cast<const bf16*>(a.k) + a.ks.at(b, 0, h), a.ks.t,
+                  static_cast<const bf16*>(a.v) + a.vs.at(b, 0, h), a.vs.t, kv_end, q0, r0, C,
+                  a.diag);
+  store_state_rows<D>(acc, a.a_out + row0 * D, w0, C);
+}
+
+// K6 in bf16: K3's walk between a resume and a flush of the carried dk, dv.
+template <int D>
+__global__ void __launch_bounds__(bwd::kThreads) ring_chunk_dkv_bf16_kernel(const BwdArgs a) {
+  __shared__ __align__(16) bwd::DkvTiles<D> sm;
+
+  const int C = a.C;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  // Under DIAG the first key tile walks the most queries: it has blockIdx.y 0.
+  const int k0 = blockIdx.y * bwd::kRows;
+  const int w0 = k0 + 16 * (threadIdx.x >> 5);
+  const int r0 = w0 + ((threadIdx.x & 31) >> 2);  // this thread's keys r0, r0 + 8
+  const long long row0 = (long long)bh * C;
+
+  uint32_t ka[D / 16][4];
+  uint32_t va[D / 16][4];
+  tc::load_a_frags<D>(ka, static_cast<const bf16*>(a.k) + a.ks.at(b, 0, h), a.ks.t, w0, C);
+  tc::load_a_frags<D>(va, static_cast<const bf16*>(a.v) + a.vs.at(b, 0, h), a.vs.t, w0, C);
+  float dk[D / 8][4], dv[D / 8][4];
+  load_state_rows<D>(dk, a.a_in + row0 * D, w0, C);
+  load_state_rows<D>(dv, a.b_in + row0 * D, w0, C);
+
+  // Under DIAG a block needs queries only from its first key's diagonal on.
+  bwd::walk_dkv<D>(dk, dv, ka, va, sm, static_cast<const bf16*>(a.q) + a.qs.at(b, 0, h),
+                   a.qs.t, static_cast<const bf16*>(a.dout) + a.ds.at(b, 0, h), a.ds.t,
+                   a.lse + row0, a.delta + row0, a.diag ? k0 : 0, k0, r0, C, a.diag);
+  store_state_rows<D>(dk, a.a_out + row0 * D, w0, C);
+  store_state_rows<D>(dv, a.b_out + row0 * D, w0, C);
+}
+
+// K4, K5 and K6 in f32: the CUDA-core design (see the note at the top).
+template <int D>
 __global__ void __launch_bounds__(kRows* Split<D>::k)
-    ring_chunk_fwd_kernel(const FwdArgs a) {
+    ring_chunk_fwd_f32_kernel(const FwdArgs a) {
   constexpr int S = Split<D>::k;
   constexpr int DD = Split<D>::dims;
   __shared__ __align__(16) float ks[kTile][D];
   __shared__ __align__(16) float vs[kTile][D];
 
-  const T* __restrict__ q = static_cast<const T*>(a.q);
-  const T* __restrict__ k = static_cast<const T*>(a.k);
-  const T* __restrict__ v = static_cast<const T*>(a.v);
+  const float* __restrict__ q = static_cast<const float*>(a.q);
+  const float* __restrict__ k = static_cast<const float*>(a.k);
+  const float* __restrict__ v = static_cast<const float*>(a.v);
   const int C = a.C;
   const int bh = blockIdx.x;
   const int b = bh / a.H;
@@ -268,11 +366,11 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
     acc[i] = 0.f;
   }
   if (live) {
-    const T* qp = q + a.qs.at(b, row, h);
+    const float* qp = q + a.qs.at(b, row, h);
 #pragma unroll
     for (int i = 0; i < DD; ++i) {
       const int d = i * S + part;
-      qr[i] = to_float(qp[d]);
+      qr[i] = qp[d];
       acc[i] = a.o_in[srow * D + d];
     }
     m = a.m_in[srow];
@@ -290,8 +388,8 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
       float kv = 0.f;
       float vv = 0.f;
       if (t < kv_end) {
-        kv = to_float(k[a.ks.at(b, t, h) + c]);
-        vv = to_float(v[a.vs.at(b, t, h) + c]);
+        kv = k[a.ks.at(b, t, h) + c];
+        vv = v[a.vs.at(b, t, h) + c];
       }
       ks[r][c] = kv;
       vs[r][c] = vv;
@@ -328,9 +426,8 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
       for (int jj = 0; jj < kChunk; ++jj) {
         const float p = exp2f(s[jj] - mx);
         l += p;
-        const float pv = round_to<T>(p);
-#pragma unroll
-        for (int i = 0; i < DD; ++i) acc[i] = fmaf(pv, vs[c0 + jj][i * S + part], acc[i]);
+        #pragma unroll
+        for (int i = 0; i < DD; ++i) acc[i] = fmaf(p, vs[c0 + jj][i * S + part], acc[i]);
       }
       m = mx;
     }
@@ -345,18 +442,18 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kRows* Split<D>::k)
-    ring_chunk_dq_kernel(const BwdArgs a) {
+    ring_chunk_dq_f32_kernel(const BwdArgs a) {
   constexpr int S = Split<D>::k;
   constexpr int DD = Split<D>::dims;
   __shared__ __align__(16) float ks[kTile][D];
   __shared__ __align__(16) float vs[kTile][D];
 
-  const T* __restrict__ q = static_cast<const T*>(a.q);
-  const T* __restrict__ k = static_cast<const T*>(a.k);
-  const T* __restrict__ v = static_cast<const T*>(a.v);
-  const T* __restrict__ dout = static_cast<const T*>(a.dout);
+  const float* __restrict__ q = static_cast<const float*>(a.q);
+  const float* __restrict__ k = static_cast<const float*>(a.k);
+  const float* __restrict__ v = static_cast<const float*>(a.v);
+  const float* __restrict__ dout = static_cast<const float*>(a.dout);
   const int C = a.C;
   const int bh = blockIdx.x;
   const int b = bh / a.H;
@@ -379,13 +476,13 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
     acc[i] = 0.f;
   }
   if (live) {
-    const T* qp = q + a.qs.at(b, row, h);
-    const T* dp = dout + a.ds.at(b, row, h);
+    const float* qp = q + a.qs.at(b, row, h);
+    const float* dp = dout + a.ds.at(b, row, h);
 #pragma unroll
     for (int i = 0; i < DD; ++i) {
       const int d = i * S + part;
-      qr[i] = to_float(qp[d]);
-      dor[i] = to_float(dp[d]);
+      qr[i] = qp[d];
+      dor[i] = dp[d];
       acc[i] = a.a_in[srow * D + d];
     }
     lse = a.lse[srow];
@@ -402,8 +499,8 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
       float kv = 0.f;
       float vv = 0.f;
       if (t < kv_end) {
-        kv = to_float(k[a.ks.at(b, t, h) + c]);
-        vv = to_float(v[a.vs.at(b, t, h) + c]);
+        kv = k[a.ks.at(b, t, h) + c];
+        vv = v[a.vs.at(b, t, h) + c];
       }
       ks[r][c] = kv;
       vs[r][c] = vv;
@@ -425,7 +522,7 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
       }
       s = row_sum<S>(s);
       dp = row_sum<S>(dp);
-      const float ds = round_to<T>(exp2f(s - lse) * (dp - delta));
+      const float ds = exp2f(s - lse) * (dp - delta);
 #pragma unroll
       for (int i = 0; i < DD; ++i) acc[i] = fmaf(ds, ks[jj][i * S + part], acc[i]);
     }
@@ -436,9 +533,9 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kRows* Split<D>::k)
-    ring_chunk_dkv_kernel(const BwdArgs a) {
+    ring_chunk_dkv_f32_kernel(const BwdArgs a) {
   constexpr int S = Split<D>::k;
   constexpr int DD = Split<D>::dims;
   __shared__ __align__(16) float qs[kTile][D];
@@ -446,10 +543,10 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
   __shared__ float lse_s[kTile];
   __shared__ float delta_s[kTile];
 
-  const T* __restrict__ q = static_cast<const T*>(a.q);
-  const T* __restrict__ k = static_cast<const T*>(a.k);
-  const T* __restrict__ v = static_cast<const T*>(a.v);
-  const T* __restrict__ dout = static_cast<const T*>(a.dout);
+  const float* __restrict__ q = static_cast<const float*>(a.q);
+  const float* __restrict__ k = static_cast<const float*>(a.k);
+  const float* __restrict__ v = static_cast<const float*>(a.v);
+  const float* __restrict__ dout = static_cast<const float*>(a.dout);
   const int C = a.C;
   const int bh = blockIdx.x;
   const int b = bh / a.H;
@@ -473,13 +570,13 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
     dv_acc[i] = 0.f;
   }
   if (live) {
-    const T* kp = k + a.ks.at(b, key, h);
-    const T* vp = v + a.vs.at(b, key, h);
+    const float* kp = k + a.ks.at(b, key, h);
+    const float* vp = v + a.vs.at(b, key, h);
 #pragma unroll
     for (int i = 0; i < DD; ++i) {
       const int d = i * S + part;
-      kr[i] = to_float(kp[d]);
-      vr[i] = to_float(vp[d]);
+      kr[i] = kp[d];
+      vr[i] = vp[d];
       dk_acc[i] = a.a_in[srow * D + d];
       dv_acc[i] = a.b_in[srow * D + d];
     }
@@ -495,8 +592,8 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
       float qv = 0.f;
       float dov = 0.f;
       if (t < C) {
-        qv = to_float(q[a.qs.at(b, t, h) + c]);
-        dov = to_float(dout[a.ds.at(b, t, h) + c]);
+        qv = q[a.qs.at(b, t, h) + c];
+        dov = dout[a.ds.at(b, t, h) + c];
       }
       qs[r][c] = qv;
       dos[r][c] = dov;
@@ -523,12 +620,11 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
       s = row_sum<S>(s);
       dp = row_sum<S>(dp);
       const float p = exp2f(s - lse_s[ii]);
-      const float pr = round_to<T>(p);
-      const float ds = round_to<T>(p * (dp - delta_s[ii]));
+            const float ds = p * (dp - delta_s[ii]);
 #pragma unroll
       for (int i = 0; i < DD; ++i) {
         const int d = i * S + part;
-        dv_acc[i] = fmaf(pr, dos[ii][d], dv_acc[i]);
+        dv_acc[i] = fmaf(p, dos[ii][d], dv_acc[i]);
         dk_acc[i] = fmaf(ds, qs[ii][d], dk_acc[i]);
       }
     }
@@ -544,48 +640,75 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
 
 enum class Kernel { kFwd, kDq, kDkv };
 
-template <Kernel K, typename T, int D, typename Args>
+template <Kernel K, bool kBf16, int D, typename Args>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  static_assert(fwd::kRows == kRows && bwd::kRows == kRows, "one grid for every chunk kernel");
   const dim3 grid(B * a.H, (a.C + kRows - 1) / kRows);
-  const int threads = kRows * Split<D>::k;
-  if constexpr (K == Kernel::kFwd && std::is_same_v<T, bf16>) {
-    static_assert(fwd::kRows == kRows, "one grid for every chunk kernel");
-    ring_chunk_fwd_bf16_kernel<D><<<grid, fwd::kThreads, 0, stream>>>(a);
-  } else if constexpr (K == Kernel::kFwd) {
-    ring_chunk_fwd_kernel<T, D><<<grid, threads, 0, stream>>>(a);
-  } else if constexpr (K == Kernel::kDq) {
-    ring_chunk_dq_kernel<T, D><<<grid, threads, 0, stream>>>(a);
+  if constexpr (kBf16) {
+    if constexpr (K == Kernel::kFwd) {
+      ring_chunk_fwd_bf16_kernel<D><<<grid, fwd::kThreads, 0, stream>>>(a);
+    } else if constexpr (K == Kernel::kDq) {
+      ring_chunk_dq_bf16_kernel<D><<<grid, bwd::kThreads, 0, stream>>>(a);
+    } else {
+      ring_chunk_dkv_bf16_kernel<D><<<grid, bwd::kThreads, 0, stream>>>(a);
+    }
   } else {
-    ring_chunk_dkv_kernel<T, D><<<grid, threads, 0, stream>>>(a);
+    const int threads = kRows * Split<D>::k;
+    if constexpr (K == Kernel::kFwd) {
+      ring_chunk_fwd_f32_kernel<D><<<grid, threads, 0, stream>>>(a);
+    } else if constexpr (K == Kernel::kDq) {
+      ring_chunk_dq_f32_kernel<D><<<grid, threads, 0, stream>>>(a);
+    } else {
+      ring_chunk_dkv_f32_kernel<D><<<grid, threads, 0, stream>>>(a);
+    }
   }
   return cudaGetLastError();
 }
 
-template <Kernel K, typename T, typename Args>
+template <Kernel K, bool kBf16, typename Args>
 cudaError_t launch_for_dim(int D, const Args& a, int B, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<K, T, 16>(a, B, s);
+      return launch<K, kBf16, 16>(a, B, s);
     case 32:
-      return launch<K, T, 32>(a, B, s);
+      return launch<K, kBf16, 32>(a, B, s);
     case 64:
-      return launch<K, T, 64>(a, B, s);
+      return launch<K, kBf16, 64>(a, B, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// Sets the mode, checks the launch's dimensions and launches on `stream`.
+// The bf16 kernels' 16-byte copies and 4-byte fragment loads need every row
+// of q, k, v (and do) to start on a 16-byte boundary; K4's walk also reads
+// k and v through one stride.
+bool row_aligned(const void* p, const Strides& s) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0 && ((s.b | s.t | s.h) & 7) == 0;
+}
+
+bool rows_aligned(const FwdArgs& a) {
+  return row_aligned(a.q, a.qs) && row_aligned(a.k, a.ks) && row_aligned(a.v, a.vs) &&
+         a.ks.b == a.vs.b && a.ks.t == a.vs.t && a.ks.h == a.vs.h;
+}
+
+bool rows_aligned(const BwdArgs& a) {
+  return row_aligned(a.q, a.qs) && row_aligned(a.k, a.ks) && row_aligned(a.v, a.vs) &&
+         row_aligned(a.dout, a.ds);
+}
+
+// Sets the mode, checks the launch's dimensions (and the bf16 row rule) and
+// launches on `stream`.
 template <Kernel K, typename Args>
 int run(Args a, int B, int D, int mode, int is_bf16, void* stream) {
   if (B <= 0 || a.H <= 0 || a.C <= 0 || (long long)B * a.H > 0x7fffffffLL ||
       (a.C + kRows - 1) / kRows > 65535 || (mode != kModeFull && mode != kModeDiag)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (is_bf16 && !rows_aligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
   a.diag = mode == kModeDiag;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = is_bf16 ? launch_for_dim<K, __nv_bfloat16>(D, a, B, s)
-                                  : launch_for_dim<K, float>(D, a, B, s);
+  const cudaError_t err = is_bf16 ? launch_for_dim<K, true>(D, a, B, s)
+                                  : launch_for_dim<K, false>(D, a, B, s);
   return static_cast<int>(err);
 }
 
@@ -595,24 +718,16 @@ int run(Args a, int B, int D, int mode, int is_bf16, void* stream) {
 // each with its own strides; the carried state and the outputs: contiguous
 // f32, [B, H, C, D] (o, dq, dk, dv) and [B, H, C] (m, l, lse, delta). mode:
 // 1 FULL, 2 DIAG. Each launches on `stream` and returns the cudaError_t of
-// the launch (0 on success).
-//
-// relayrl_ring_chunk_fwd: bf16 q, k, v need 16-byte aligned pointers and
-// strides that are multiples of 8 elements, and k and v one stride.
+// the launch (0 on success). bf16 q, k, v and dout need 16-byte aligned
+// pointers and strides that are multiples of 8 elements, and
+// relayrl_ring_chunk_fwd's k and v one stride (cudaErrorMisalignedAddress
+// otherwise).
 extern "C" int relayrl_ring_chunk_fwd(
     const void* q, const void* k, const void* v, const void* o_in,
     const void* m_in, const void* l_in, void* o_out, void* m_out, void* l_out,
     int B, int H, int C, int D, long long qB, long long qT, long long qH,
     long long kB, long long kT, long long kH, long long vB, long long vT,
     long long vH, int mode, int is_bf16, void* stream) {
-  if (is_bf16) {
-    const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                           reinterpret_cast<uintptr_t>(v);
-    if ((ptrs & 15u) != 0 || ((qB | qT | qH | kB | kT | kH) & 7) != 0 || kB != vB ||
-        kT != vT || kH != vH) {
-      return static_cast<int>(cudaErrorMisalignedAddress);
-    }
-  }
   const FwdArgs a{q,
                   k,
                   v,

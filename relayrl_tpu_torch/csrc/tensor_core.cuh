@@ -2,7 +2,7 @@
 // later (used here for sm_90a), as inline PTX: 16-byte and 4-byte cp.async
 // with zero-fill, ldmatrix (plain and transposed), and the bf16 -> f32
 // mma.sync m16n8k16; and the fragment loads and the transposed product
-// that the flash kernels (flash_fwd_tile.cuh, flash_bwd.cu) share.
+// that the flash kernels (flash_fwd_tile.cuh, flash_bwd_tile.cuh) share.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = threadIdx.x % 32,
 // g = lane / 4, tq = lane % 4; each 32-bit register holds two bf16, the

@@ -9,12 +9,16 @@ kernels in ``csrc/ring_flash.cu`` replace the Pallas TPU kernels of
 ``relayrl_tpu/parallel/ring_flash.py``:
 
 * K4, :func:`chunk_fwd` (← ``_chunk_fwd_kernel``): resume the unfinalized
-  ``(acc, m, l)``, attend one K/V chunk, flush the state unfinalized; in
-  bf16 on the tensor cores, with K1's tile step (``csrc/flash_fwd_tile.cuh``);
+  ``(acc, m, l)``, attend one K/V chunk, flush the state unfinalized;
 * K5, :func:`chunk_dq` (← ``_chunk_dq_kernel``): the dq pass of one
   (q-chunk, kv-chunk) pair, accumulated into a carried f32 buffer;
 * K6, :func:`chunk_dkv` (← ``_chunk_dkv_kernel``): the dk/dv pass of one
   pair, accumulated into carried f32 buffers.
+
+In bf16 all three run on the tensor cores, each on the tile step of its
+flash counterpart between a resume and a flush of the carried state: K4 on
+K1's (``csrc/flash_fwd_tile.cuh``), K5 on K2's and K6 on K3's
+(``csrc/flash_bwd_tile.cuh``). In f32 they run on the CUDA cores.
 
 Each takes a ``mode``: a chunk the shard attends at a round is entirely in
 the past (``MODE_FULL``, no mask), the shard's own chunk (``MODE_DIAG``,
@@ -27,10 +31,10 @@ CUDA tensors launch the kernel or raise. ``chunk_fwd.launches``,
 
 Layouts: q, k, v, do are ``[B, C, H, D]`` in bf16 or f32, with any
 (batch, time, head) strides and a contiguous head dim (views of the fused
-qkv projection, split by chunk; bf16 K4 needs its q, k, v rows on 16-byte
-boundaries, and k and v of one stride); the carried state is f32,
-contiguous ``[B, H, C, D]`` (acc, dq, dk, dv) and ``[B, H, C]`` (m, l,
-lse2, delta). The kernels take head dims
+qkv projection, split by chunk; in bf16 every q, k, v and do row must
+start on a 16-byte boundary, and K4 needs k and v of one stride); the
+carried state is f32, contiguous ``[B, H, C, D]`` (acc, dq, dk, dv) and
+``[B, H, C]`` (m, l, lse2, delta). The kernels take head dims
 :data:`~relayrl_tpu_torch.ops.flash.KERNEL_HEAD_DIMS`; the rings zero-pad a
 narrower one to the next of them on every device
 (:func:`~relayrl_tpu_torch.ops.flash.pad_head_dim`) and slice the results
@@ -260,6 +264,7 @@ def chunk_dq(mode: int, qs, k, v, do, lse2, delta, dq):
     if _on_cpu(qs, k, v, do, lse2, delta, dq):
         return chunk_dq_plain(mode, qs, k, v, do, lse2, delta, dq)
     _check_inputs("ring_chunk_dq", mode, (qs, k, v, do), (lse2, delta, dq))
+    check_rows_aligned("ring_chunk_dq", qs, k, v, do)
     out = torch.empty_like(dq)
     with torch.cuda.device(qs.device):
         err = _library().relayrl_ring_chunk_dq(
@@ -278,6 +283,7 @@ def chunk_dkv(mode: int, qs, k, v, do, lse2, delta, dk, dv):
     if _on_cpu(qs, k, v, do, lse2, delta, dk, dv):
         return chunk_dkv_plain(mode, qs, k, v, do, lse2, delta, dk, dv)
     _check_inputs("ring_chunk_dkv", mode, (qs, k, v, do), (lse2, delta, dk, dv))
+    check_rows_aligned("ring_chunk_dkv", qs, k, v, do)
     out = (torch.empty_like(dk), torch.empty_like(dv))
     with torch.cuda.device(qs.device):
         err = _library().relayrl_ring_chunk_dkv(

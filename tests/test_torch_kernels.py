@@ -1,12 +1,14 @@
 """The port's kernel build plumbing (relayrl_tpu_torch._kernels), the
-SASS and ptxas readers of chip_smoke.py, and the host side of the flash
-backward kernels, on the CPU.
+SASS and ptxas readers of chip_smoke.py and the bf16 kernels they must
+cover, and the host side of the flash backward kernels, on the CPU.
 
 No test here needs a GPU or the CUDA toolkit: the library name is a hash
-of files, the SASS and ptxas readers parse text, and the backward's
-prescaled q and its alignment rule are plain tensor code.
+of files, the SASS and ptxas readers parse text, the bf16 kernels are
+read from the sources, and the backward's prescaled q and its alignment
+rule are plain tensor code.
 """
 
+import re
 import shutil
 
 import jax.numpy as jnp
@@ -17,7 +19,7 @@ import torch
 import chip_smoke
 from relayrl_tpu.ops.flash import _prescale_q as jax_prescale_q
 from relayrl_tpu_torch import _kernels
-from relayrl_tpu_torch.ops.flash import _rows_aligned, prescale_q
+from relayrl_tpu_torch.ops.flash import KERNEL_HEAD_DIMS, _rows_aligned, prescale_q
 
 # What `cuobjdump -sass` prints for a library: one section per function.
 SASS = """
@@ -37,6 +39,23 @@ code version = [1,7]
 
 		Function : _ZN12_GLOBAL__N_119flash_dq_f32_kernelILi32EEEvNS_7BwdArgsE
 	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   FFMA R3, R4, R5, R3 ;
+		..........
+
+		Function : _ZN12_GLOBAL__N_126ring_chunk_fwd_bf16_kernelILi16EEEvNS_7FwdArgsE
+        /*0f10*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+		..........
+
+		Function : _ZN12_GLOBAL__N_125ring_chunk_dq_bf16_kernelILi32EEEvNS_7BwdArgsE
+        /*1a20*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+        /*1a30*/                   HMMA.16816.F32.BF16 R16, R4, R14, R16 ;
+		..........
+
+		Function : _ZN12_GLOBAL__N_126ring_chunk_dkv_bf16_kernelILi64EEEvNS_7BwdArgsE
+        /*2b40*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+		..........
+
+		Function : _ZN12_GLOBAL__N_125ring_chunk_dq_f32_kernelILi64EEEvNS_7BwdArgsE
         /*0000*/                   FFMA R3, R4, R5, R3 ;
 		..........
 """
@@ -98,10 +117,52 @@ def test_sass_needs_cuobjdump_beside_nvcc(tmp_path, monkeypatch):
 
 
 def test_count_sass_counts_tensor_core_products_per_function():
-    assert chip_smoke.count_tensor_core_ops(SASS) == {
+    counts = chip_smoke.count_tensor_core_ops(SASS)
+    assert counts == {
         "_ZN12_GLOBAL__N_120flash_dq_bf16_kernelILi32EEEvNS_7BwdArgsE": 3,
         "_ZN12_GLOBAL__N_119flash_dq_f32_kernelILi32EEEvNS_7BwdArgsE": 0,
+        "_ZN12_GLOBAL__N_126ring_chunk_fwd_bf16_kernelILi16EEEvNS_7FwdArgsE": 1,
+        "_ZN12_GLOBAL__N_125ring_chunk_dq_bf16_kernelILi32EEEvNS_7BwdArgsE": 2,
+        "_ZN12_GLOBAL__N_126ring_chunk_dkv_bf16_kernelILi64EEEvNS_7BwdArgsE": 1,
+        "_ZN12_GLOBAL__N_125ring_chunk_dq_f32_kernelILi64EEEvNS_7BwdArgsE": 0,
     }
+    # What check_tensor_cores reads from each name: the ring_flash pattern
+    # takes the three bf16 ring kernels with their head dims, and no f32 one.
+    pattern = dict((lib, p) for lib, p, _ in chip_smoke.TENSOR_CORE_KERNELS)["ring_flash"]
+    found = [m.groups() for m in map(lambda fn: re.search(pattern, fn), counts) if m]
+    assert found == [("ring_chunk_fwd", "16"), ("ring_chunk_dq", "32"),
+                     ("ring_chunk_dkv", "64")]
+
+
+def _bf16_kernels() -> list[tuple[str, str]]:
+    """(source stem, kernel name) of every ``__global__`` bf16 kernel
+    template in ``csrc/*.cu``."""
+    decl = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                      r"(\w+_bf16_kernel)\s*\(")
+    return sorted((path.stem, name) for path in _kernels.CSRC.glob("*.cu")
+                  for name in decl.findall(path.read_text()))
+
+
+def test_bf16_kernel_templates_are_found_in_the_sources():
+    assert {name for _, name in _bf16_kernels()} >= {
+        f"{k}_bf16_kernel" for k in ("flash_fwd", "flash_dq", "flash_dkv", "ring_chunk_fwd",
+                                     "ring_chunk_dq", "ring_chunk_dkv")}
+
+
+@pytest.mark.parametrize("source,kernel", _bf16_kernels())
+def test_every_bf16_kernel_is_covered_by_the_tensor_core_check(source, kernel):
+    """chip_smoke.check_tensor_cores finds a bf16 kernel's instantiations in
+    the SASS of its library by the library's pattern and requires one per
+    head dim: a bf16 kernel that no pattern matches would escape the HMMA
+    and spill check."""
+    entries = [(p, names) for lib, p, names in chip_smoke.TENSOR_CORE_KERNELS if lib == source]
+    assert len(entries) == 1, f"no TENSOR_CORE_KERNELS entry for {source}"
+    pattern, names = entries[0]
+    for d in KERNEL_HEAD_DIMS:
+        mangled = f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}ILi{d}EEEvNS_7BwdArgsE"
+        m = re.search(pattern, mangled)
+        assert m is not None and m.groups() == (kernel.removesuffix("_bf16_kernel"), str(d))
+        assert m.group(1) in names
 
 
 def test_ptxas_spills_per_function():

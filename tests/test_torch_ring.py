@@ -120,29 +120,34 @@ def _randn(rng, *shape):
 # -- the chunk kernels' plain versions vs the Pallas chunk kernels ------------
 
 B, C, H, D = 2, 16, 2, 16
+# (chunk length, head dim) of the plain-vs-Pallas chunk cases: every head
+# dim the CUDA kernels instantiate, and a chunk that is not a multiple of
+# 16 (the tensor-core kernels' fragment height).
+CHUNK_SHAPES = [(16, 16), (24, 32), (16, 64)]
 
 
 def _bhcd_to_jax(x: torch.Tensor):
     """Port state ``[B, H, C, D]`` / ``[B, H, C]`` -> the Pallas layout
     ``[BH, C, D]`` / ``[BH, C, 1]``."""
     a = _f32(x)
-    return jnp.asarray(a.reshape(B * H, C, -1))
+    return jnp.asarray(a.reshape(a.shape[0] * a.shape[1], a.shape[2], -1))
 
 
 def _bchd_to_jax(x: torch.Tensor, dtype):
-    return jnp.asarray(_f32(x).transpose(0, 2, 1, 3).reshape(B * H, C, D)).astype(_JNP[dtype])
+    b, c, h, d = x.shape
+    return jnp.asarray(_f32(x).transpose(0, 2, 1, 3).reshape(b * h, c, d)).astype(_JNP[dtype])
 
 
 def _from_jax(x, like: torch.Tensor) -> np.ndarray:
     return np.asarray(x).reshape(like.shape)
 
 
-def _chunk_inputs(dtype, seed):
+def _chunk_inputs(dtype, seed, c=C, d=D):
     """Prescaled queries, two K/V chunks, do, and lse2/delta of the
     forward over both chunks (so every p <= 1), in the port's layouts."""
     rng = np.random.default_rng(seed)
     t = _TORCH[dtype]
-    q, k0, v0, k1, v1, do = (torch.from_numpy(_randn(rng, B, C, H, D)).to(t)
+    q, k0, v0, k1, v1, do = (torch.from_numpy(_randn(rng, B, c, H, d)).to(t)
                              for _ in range(6))
     qs = prescale_q(q)
     oml = ring_flash._init_state(qs)
@@ -167,13 +172,15 @@ def test_prescale_matches_jax():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", [MODE_FULL, MODE_DIAG])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
-def test_chunk_plain_matches_pallas_interpret(kernel, mode, dtype):
-    """Each plain version against its Pallas kernel (two 8-row blocks per
-    chunk, so DIAG runs an interior, a masked and a skipped block), on a
-    carried state: one FULL call on chunk 0, then the call under test on
-    chunk 1."""
-    qs, (k0, v0), (k1, v1), do, lse2, delta = _chunk_inputs(dtype, seed=mode)
-    j_fwd, j_dq, j_dkv = _build_chunk_calls(C, D, 8, 8, dtype, True)
+@pytest.mark.parametrize("c,d", CHUNK_SHAPES, ids=[f"C{c}-D{d}" for c, d in CHUNK_SHAPES])
+def test_chunk_plain_matches_pallas_interpret(c, d, kernel, mode, dtype):
+    """Each plain version against its Pallas kernel (8-row blocks, two or
+    three per chunk, so DIAG runs interior, masked and skipped blocks), on
+    a carried state: one FULL call on chunk 0, then the call under test on
+    chunk 1. The chunk shapes cover every head dim the CUDA kernels
+    instantiate, which the card holds to these plain versions."""
+    qs, (k0, v0), (k1, v1), do, lse2, delta = _chunk_inputs(dtype, mode, c, d)
+    j_fwd, j_dq, j_dkv = _build_chunk_calls(c, d, 8, 8, dtype, True)
     jq, jk0, jv0, jk1, jv1, jdo = (_bchd_to_jax(x, dtype) for x in (qs, k0, v0, k1, v1, do))
     jlse, jdelta = _bhcd_to_jax(lse2), _bhcd_to_jax(delta)
     full, under_test = jnp.array([MODE_FULL], jnp.int32), jnp.array([mode], jnp.int32)
@@ -201,7 +208,7 @@ def test_chunk_plain_matches_pallas_interpret(kernel, mode, dtype):
                      *j_dkv(full, jq, jk0, jv0, jdo, jlse, jdelta, _bhcd_to_jax(zero),
                             _bhcd_to_jax(zero)))
     for g, w in zip(got, want):
-        assert g.dtype == torch.float32 and g.shape == (B, H, C, D)
+        assert g.dtype == torch.float32 and g.shape == (B, H, c, d)
         w = _from_jax(w, g)
         np.testing.assert_allclose(_f32(g), w, atol=_grad_tol(dtype, w), rtol=0)
 
@@ -562,12 +569,13 @@ def test_place_batch_checks_the_split():
 def test_ring_kernels_match_plain_on_gpu(cuda_device, dtype):
     """K4, K5 and K6 against their plain versions on the card, on q, k, v
     laid out as the model passes them (views of one fused projection) and
-    a carried state, in both modes, at C 8, 64 and 130 and head dims 32
-    and 64; then the flash ring through the kernels against dense
-    attention, forward and backward."""
+    a carried state, in both modes, at C 8, 64, 65 (one row past the
+    tensor-core kernels' 64-row tile) and 130 and head dims 16, 32 and 64;
+    then the flash ring through the kernels against dense attention,
+    forward and backward."""
     gen = torch.Generator().manual_seed(9)
     t = _TORCH[dtype]
-    for c, d in ((8, 32), (64, 32), (130, 64)):
+    for c, d in ((8, 32), (64, 32), (65, 32), (65, 16), (130, 64)):
         qkv = torch.randn((2, c, 3, 2, d), generator=gen).to(cuda_device, t)
         q, k, v = qkv.unbind(2)
         do = torch.randn((2, c, 2, d), generator=gen).to(cuda_device, t)
