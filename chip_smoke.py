@@ -12,8 +12,8 @@ Phases, each of which fails the run:
    ``ring_flash``), from ``relayrl_tpu_torch/csrc``, one ``nvcc`` per
    source, all started together; prints ``nvcc -Xptxas -v``'s registers
    and spills; counts the tensor-core instructions in the SASS of each
-   bf16 instantiation of K1-K6 (``cuobjdump -sass``) and fails on a zero
-   count or a spill;
+   bf16 instantiation of K1-K6 (``cuobjdump -sass``) and fails on a count
+   other than ``TENSOR_CORE_COUNTS``' or a spill;
 3. kernel vs plain: each kernel (K1 forward, K2 dq, K3 dk/dv) against its
    plain PyTorch version on the card, at the slices' shapes and at edge
    shapes (head dims 8 and 24 through ``flash_attention``'s padding,
@@ -49,7 +49,21 @@ Phases, each of which fails the run:
    counts of every update (3360 K4, 40 K5, 40 K6, no K1-K3), compares the
    first update through the kernels with the same update through the
    chunk kernels' plain versions and ``evaluate`` through the ring with
-   ``evaluate`` through K1, and times and profiles an update.
+   ``evaluate`` through K1, and times and profiles an update;
+8. head dim 128: the transformer at d_model 512 with 4 heads of 128 (2
+   layers, T 256, bf16, flash) builds on the card; 8 port actors serve it;
+   its ``evaluate`` and first REINFORCE update through K1-K3 match the
+   plain attention (phases 4 and 5's bars), with exact launch counts;
+9. the local loop: ``LocalRunner`` on CartPole-v1 (``mlp_discrete``, the
+   cartpole_reinforce_baseline golden's hyperparameters) for a few
+   updates; and ``LocalRunner`` on ``RecallEnv(8)`` with the
+   recall_transformer golden's flash transformer, its K1, K2 and K3
+   launches counted per update and over the run; in both, one update on
+   the card held to the same update on the CPU (f32).
+
+Phases 3 and 6 also hold every kernel to its plain version at head dim
+128 (bf16 and f32, [8, 256, 4, 128] and [8, 64, 4, 128] chunks, ragged T
+and C) and at head dim 96 (padded to 128), and time K1-K6 there.
 
 The second-to-last line is the kernels' JSON; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
@@ -134,6 +148,42 @@ TENSOR_CORE_KERNELS = (
 # The ring's backward kernels run the flash backward's tile steps
 # (csrc/flash_bwd_tile.cuh): {ring kernel: its flash counterpart}.
 SHARED_TILE_STEP = {"ring_chunk_dq": "flash_dq", "ring_chunk_dkv": "flash_dkv"}
+# Tensor-core instructions in the SASS of each bf16 instantiation, {kernel:
+# {head dim: count}}: the tile steps' products, unrolled over a 64-row tile
+# in a masked and an unmasked body, grow with D; K4, K5 and K6 share K1's,
+# K2's and K3's steps. At D = 128 a K3 or K6 block accumulates dk and dv
+# over half the head dim (bwd::kDkvCols), so 48 products per 16-query
+# chunk where all 128 columns would take 64.
+_FWD_HMMA = {16: 32, 32: 64, 64: 128, 128: 256}
+_DQ_HMMA = {16: 48, 32: 96, 64: 192, 128: 384}
+_DKV_HMMA = {16: 64, 32: 128, 64: 256, 128: 384}
+TENSOR_CORE_COUNTS = {"flash_fwd": _FWD_HMMA, "ring_chunk_fwd": _FWD_HMMA,
+                      "flash_dq": _DQ_HMMA, "ring_chunk_dq": _DQ_HMMA,
+                      "flash_dkv": _DKV_HMMA, "ring_chunk_dkv": _DKV_HMMA}
+# The widest head dim the kernels take, and the shapes phase 3 and 6 check
+# it at: [8, 256, 4, 128] for the flash kernels (a d_model 512, 4-head
+# transformer's), [8, 64, 4, 128] chunks for the ring's.
+WIDE_D, WIDE_H = 128, 4
+# The D = 128 transformer (phase 8): the widest head dim the kernels take,
+# at the flagship's context, trained by the same learner.
+WIDE_ARCH = {**SLICE_ARCH, "d_model": 512, "n_heads": 4, "n_layers": 2}
+# The local loop (phase 9): the cartpole_reinforce_baseline golden's
+# hyperparameters (examples/golden/cartpole_reinforce_baseline/config.json)
+# for LOCAL_UPDATES updates, and the recall_transformer golden's
+# (examples/train_memory.py --model transformer --attention flash, the
+# port's twin's recall_hyperparams) for RECALL_UPDATES.
+CARTPOLE_HP = {"with_vf_baseline": True, "gamma": 0.98, "lam": 0.97, "pi_lr": 3e-4,
+               "vf_lr": 1e-3, "train_vf_iters": 80, "traj_per_epoch": 8,
+               "hidden_sizes": [128, 128]}
+RECALL_HORIZON = 8
+LOCAL_UPDATES = 5
+RECALL_UPDATES = 3
+# One local-loop update on the card against the same update on the CPU,
+# f32 with TF32 off (tests/test_torch_mlp.py's bars): metrics at rtol 1e-4
+# plus atol 1e-6, a floor for the metrics that are ~0 by construction
+# (AdvMean; KL on this on-policy batch, rounding noise of order 1e-9);
+# params at atol 1e-5.
+MLP_METRIC_RTOL, MLP_METRIC_ATOL, MLP_PARAM_ATOL = 1e-4, 1e-6, 1e-5
 
 
 def _dtype_name(dtype) -> str:
@@ -253,10 +303,10 @@ def count_tensor_core_ops(text: str) -> dict[str, int]:
     return counts
 
 
-def ptxas_spills(log: str) -> dict[str, tuple[int, int]]:
-    """Per function in ``nvcc -Xptxas=-v`` output (mangled name), ptxas's
-    ``(spill store bytes, spill load bytes)``."""
-    spills: dict[str, tuple[int, int]] = {}
+def _ptxas_per_function(log: str, pattern: str, read) -> dict:
+    """``read(match)`` of the first line matching ``pattern`` after each
+    function header of ``nvcc -Xptxas=-v`` output, by mangled name."""
+    out = {}
     name = None
     for line in log.splitlines():
         header = re.search(r"(?:Compiling entry function|Function properties for)"
@@ -264,27 +314,40 @@ def ptxas_spills(log: str) -> dict[str, tuple[int, int]]:
         if header:
             name = header.group(1)
             continue
-        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        found = re.search(pattern, line)
         if found and name is not None:
-            spills[name] = (int(found.group(1)), int(found.group(2)))
-    return spills
+            out[name] = read(found)
+    return out
+
+
+def ptxas_spills(log: str) -> dict[str, tuple[int, int]]:
+    """Per function in ``nvcc -Xptxas=-v`` output (mangled name), ptxas's
+    ``(spill store bytes, spill load bytes)``."""
+    return _ptxas_per_function(log, r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                               lambda m: (int(m.group(1)), int(m.group(2))))
+
+
+def ptxas_registers(log: str) -> dict[str, int]:
+    """Per function in ``nvcc -Xptxas=-v`` output, the registers it uses."""
+    return _ptxas_per_function(log, r"Used (\d+) registers", lambda m: int(m.group(1)))
 
 
 def check_tensor_cores() -> dict[str, dict[int, int]]:
     """Prints the tensor-core instructions (HMMA or HGMMA) in the SASS of
     each bf16 instantiation of K1-K6 (``cuobjdump -sass`` of the built
     ``flash_fwd``, ``flash_bwd`` and ``ring_flash`` libraries, counted per
-    function section) and ptxas's spills for them, and the ring backward's
-    counts beside those of the flash kernels whose tile steps they share.
-    Fails when ``cuobjdump`` is missing, an instantiation is missing, a
-    count is 0 or ptxas reports a spill. Returns {kernel: {head dim:
-    count}}."""
+    function section), ptxas's registers and spills for them, and the ring
+    backward's counts beside those of the flash kernels whose tile steps
+    they share. Fails when ``cuobjdump`` is missing, an instantiation is
+    missing, a count is not :data:`TENSOR_CORE_COUNTS`' or ptxas reports a
+    spill. Returns {kernel: {head dim: count}}."""
     from relayrl_tpu_torch.ops.flash import KERNEL_HEAD_DIMS
 
     found: dict[str, dict[int, int]] = {}
     for library, pattern, kernels in TENSOR_CORE_KERNELS:
         counts = count_tensor_core_ops(sass(library))
-        spills = ptxas_spills(build_log(library))
+        log = build_log(library)
+        spills, registers = ptxas_spills(log), ptxas_registers(log)
         for kernel in kernels:
             found[kernel] = {}
         for fn, n in counts.items():
@@ -294,8 +357,10 @@ def check_tensor_cores() -> dict[str, dict[int, int]]:
             kernel, d = m.group(1), int(m.group(2))
             spill = spills.get(fn)
             print(f"[sass] {kernel} bf16 D={d}: {n} tensor-core instructions "
-                  f"(HMMA/HGMMA); ptxas spill stores/loads {spill}", flush=True)
-            if n == 0 or spill != (0, 0):
+                  f"(HMMA/HGMMA; expected {TENSOR_CORE_COUNTS[kernel].get(d)}); "
+                  f"{registers.get(fn)} registers; ptxas spill stores/loads {spill}",
+                  flush=True)
+            if n != TENSOR_CORE_COUNTS[kernel].get(d) or spill != (0, 0):
                 raise AssertionError(f"{fn}: {n} tensor-core instructions, spills {spill}")
             found[kernel][d] = n
     for kernel, dims in found.items():
@@ -323,11 +388,14 @@ def check_flash_bwd(device) -> dict:
     (``[8, 256, 8, 32]`` bf16 causal) and at edge shapes: T = 1, 17, 130
     (f32 and bf16, causal and not), head dim 64 at T = 130, and in bf16,
     causal and not, the tensor-core kernels' tile edges: T = 64 (one whole
-    tile), T = 65 (one row past it) and head dim 16. Times at the slice's
-    shape: each kernel alone (on a prescaled q), and the whole backward as the
-    learner runs it (``torch.autograd.grad`` through ``flash_attention``:
-    delta, the prescaled q, K2 and K3) beside SDPA's backward. Returns
-    {"flash_dq": ..., "flash_dkv": ...} for that shape."""
+    tile), T = 65 (one row past it) and head dim 16; and at the widest head
+    dim, [8, T, 4, 128] (T = 256 and 130, f32 and bf16, causal and not).
+    Times at the slice's shape and at [8, 256, 4, 128] (bf16 causal): each
+    kernel alone (on a prescaled q), and the whole backward as the learner
+    runs it (``torch.autograd.grad`` through ``flash_attention``: delta, the
+    prescaled q, K2 and K3) beside SDPA's backward. Returns {"flash_dq":
+    ..., "flash_dkv": ...} for the slice's shape, each with the head dim 128
+    measurements under ``"d128"``."""
     import torch
     import torch.nn.functional as F
 
@@ -346,16 +414,21 @@ def check_flash_bwd(device) -> dict:
     D = SLICE_ARCH["d_model"] // H
     T_main = SLICE_ARCH["max_seq_len"]
     gen = torch.Generator().manual_seed(SEED + 1)
-    main_case = (torch.bfloat16, True, T_main, D)
-    cases = [main_case]
-    cases += [(dtype, causal, T, D) for dtype in (torch.bfloat16, torch.float32)
+    main_case = (torch.bfloat16, True, T_main, H, D)
+    wide_case = (torch.bfloat16, True, T_main, WIDE_H, WIDE_D)
+    dtypes = (torch.bfloat16, torch.float32)
+    cases = [main_case, wide_case]
+    cases += [(dtype, causal, T, H, D) for dtype in dtypes
               for causal in (True, False) for T in (1, 17, 130)]
-    cases += [(torch.bfloat16, True, 130, 64), (torch.float32, False, 130, 64)]
-    cases += [(torch.bfloat16, causal, T, d) for causal in (True, False)
+    cases += [(torch.bfloat16, True, 130, H, 64), (torch.float32, False, 130, H, 64)]
+    cases += [(torch.bfloat16, causal, T, H, d) for causal in (True, False)
               for T, d in ((64, D), (65, D), (65, 16), (130, 16))]
-    main = {}
+    cases += [(dtype, causal, T, WIDE_H, WIDE_D) for dtype in dtypes
+              for causal in (True, False) for T in (T_main, 130)
+              if (dtype, causal, T, WIDE_H, WIDE_D) != wide_case]
+    main = {"flash_dq": {}, "flash_dkv": {}}
     for case in cases:
-        dtype, causal, T, d = case
+        dtype, causal, T, H, d = case
         name = _dtype_name(dtype)
         q, k, v = fused_qkv(B, T, H, d, dtype, device, gen)
         out, lse2 = flash_attention_plain(q, k, v, causal)
@@ -384,7 +457,7 @@ def check_flash_bwd(device) -> dict:
                     f"q,k,v,do=[{B},{T},{H},{d}] max_abs_err "
                     + "/".join(f"{e:.3e}" for e in errs) + " (tol "
                     + "/".join(f"{b:.3e}" for b in bars) + ")")
-            if case == main_case:
+            if case in (main_case, wide_case):
                 launch = _launch_dq if kernel == "flash_dq" else _launch_dkv
                 plain = (flash_attention_dq_plain if kernel == "flash_dq"
                          else flash_attention_dkv_plain)
@@ -392,13 +465,16 @@ def check_flash_bwd(device) -> dict:
                 plain_ms = time_ms(lambda: plain(*args), iters=20)
                 bound_ms, bound_by = flash_bwd_bound(
                     B, T, H, d, name, causal, kernel.removeprefix("flash_"))
-                main[kernel] = {"max_abs_err": max(errs), "ms": ms,
-                                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                "bound_by": bound_by}
+                timed = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+                if case == main_case:
+                    main[kernel].update(timed)
+                else:
+                    main[kernel]["d128"] = {"shape": [B, T, H, d], **timed}
                 line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
                          f"bound_ms={bound_ms:.4f} ({bound_by})")
             print(line, flush=True)
-        if case == main_case:
+        if case in (main_case, wide_case):
             # The yardstick: SDPA's backward for the same q, k, v and do
             # (it computes dq, dk and dv in one call).
             qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
@@ -417,11 +493,15 @@ def check_flash_bwd(device) -> dict:
                   f"flash_attention (delta + prescale + flash_dq + flash_dkv) "
                   f"ms={backward_ms:.4f}, sdpa backward ms={library_ms:.4f} "
                   f"({backward_ms / library_ms:.2f}x)", flush=True)
-            profile_device(lambda: torch.autograd.grad(
-                flash_out, (qg, kg, vg), do, retain_graph=True), 20, "backward")
+            if case == main_case:
+                profile_device(lambda: torch.autograd.grad(
+                    flash_out, (qg, kg, vg), do, retain_graph=True), 20, "backward")
             for kernel in main:
-                main[kernel]["library_ms"] = library_ms
-                main[kernel]["backward_ms"] = backward_ms
+                into = main[kernel] if case == main_case else main[kernel]["d128"]
+                into["library_ms"] = library_ms
+                into["backward_ms"] = backward_ms
+    for kernel in main:
+        main[kernel]["head_dims"] = sorted({case[-1] for case in cases})
     return main
 
 
@@ -429,14 +509,17 @@ def check_flash(device) -> dict:
     """K1 against its plain version on q, k, v laid out as the model passes
     them, in bf16 and f32, causal and not: at the serving slice's shape
     ([64, 256, 8, 32]) and at T = 17 and 1 there; at the learner slice's
-    ([8, 256, 8, 32]); and at [8, T, 8, D] for the tensor-core kernel's
-    tile edges (T = 64, 65), head dims 16 and 64 (T = 130), and head dims
-    8 and 24 (T = 65, padded to 16 and 32 by ``flash_attention``), where
-    the gradients through ``flash_attention`` are held to the plain
-    backward too. Times K1 and SDPA, with the bound, at the serving shape
-    (and the plain version, bf16 causal) and at the learner's (bf16
-    causal). Returns the serving shape's bf16 causal measurements, with the
-    learner shape's beside them."""
+    ([8, 256, 8, 32]); at [8, T, 8, D] for the tensor-core kernel's tile
+    edges (T = 64, 65), head dims 16 and 64 (T = 130), and head dims 8 and
+    24 (T = 65, padded to 16 and 32 by ``flash_attention``); and at the
+    widest head dim, [8, T, 4, 128] (T = 256 and 130), and head dim 96
+    (T = 65, padded to 128). At the padded head dims the gradients through
+    ``flash_attention`` are held to the plain backward too. Times K1 and
+    SDPA, with the bound, at the serving shape (and the plain version, bf16
+    causal), at the learner's and at [8, 256, 4, 128] (bf16 causal, and the
+    plain version). Returns the serving shape's bf16 causal measurements,
+    with the learner shape's and the head dim 128 ones (``"d128"``) beside
+    them."""
     import torch
     import torch.nn.functional as F
 
@@ -449,18 +532,22 @@ def check_flash(device) -> dict:
 
     H, D = SLICE_ARCH["n_heads"], SLICE_ARCH["d_model"] // SLICE_ARCH["n_heads"]
     T_main, B_learn = SLICE_ARCH["max_seq_len"], LEARNER["traj_per_epoch"]
-    serving = (torch.bfloat16, True, LANES, T_main, D)
-    learner = (torch.bfloat16, True, B_learn, T_main, D)
+    serving = (torch.bfloat16, True, LANES, T_main, H, D)
+    learner = (torch.bfloat16, True, B_learn, T_main, H, D)
+    wide = (torch.bfloat16, True, B_learn, T_main, WIDE_H, WIDE_D)
     dtypes = (torch.bfloat16, torch.float32)
-    cases = [serving, learner]
-    cases += [(dtype, causal, LANES, T, D) for dtype in dtypes for causal in (True, False)
-              for T in (T_main, 17, 1) if (dtype, causal, LANES, T, D) != serving]
-    cases += [(dtype, causal, B_learn, T, d) for dtype in dtypes for causal in (True, False)
+    cases = [serving, learner, wide]
+    cases += [(dtype, causal, LANES, T, H, D) for dtype in dtypes for causal in (True, False)
+              for T in (T_main, 17, 1) if (dtype, causal, LANES, T, H, D) != serving]
+    cases += [(dtype, causal, B_learn, T, H, d) for dtype in dtypes for causal in (True, False)
               for T, d in ((64, D), (65, D), (130, 16), (130, 64), (65, 8), (65, 24))]
+    cases += [(dtype, causal, B_learn, T, WIDE_H, d) for dtype in dtypes
+              for causal in (True, False) for T, d in ((T_main, WIDE_D), (130, WIDE_D), (65, 96))
+              if (dtype, causal, B_learn, T, WIDE_H, d) != wide]
     gen = torch.Generator().manual_seed(SEED)
     main = {}
     for case in cases:
-        dtype, causal, B, T, d = case
+        dtype, causal, B, T, H, d = case
         name = _dtype_name(dtype)
         padded = d not in flash.KERNEL_HEAD_DIMS
         q, k, v = (x.detach().requires_grad_(padded)
@@ -490,7 +577,7 @@ def check_flash(device) -> dict:
                 + (" (padded; O, lse2, dq, dk, dv)" if padded else " (O, lse2)")
                 + " max_abs_err " + "/".join(f"{e:.3e}" for e in errs) + " (tol "
                 + "/".join(f"{b:.3e}" for b in bars) + ")")
-        if (B, T) in ((LANES, T_main), (B_learn, T_main)):
+        if case in (serving, learner, wide):
             ms = time_ms(lambda: flash_attention(q, k, v, causal))
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -507,7 +594,14 @@ def check_flash(device) -> dict:
             elif case == learner:
                 main.update({"learner_ms": ms, "learner_library_ms": library_ms,
                              "learner_bound_ms": bound_ms})
+            else:
+                plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal), iters=20)
+                line += f" plain_ms={plain_ms:.4f}"
+                main["d128"] = {"shape": [B, T, H, d], "max_abs_err": max(errs), "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": library_ms}
         print(line, flush=True)
+    main["head_dims"] = sorted({case[-1] for case in cases})
     return main
 
 
@@ -567,11 +661,14 @@ def check_ring_chunks(device) -> dict:
     shape ([8, 64, 8, 32], sp 4 over T 256) in bf16 and f32, FULL and DIAG
     on a carried state and FULL on a fresh one (a non-causal ring's first
     round); at C 8, 65 (one row past K4's 64-key tile) and 128; at head
-    dims 16 and 64. Times, bounds and plain times at the learner's shape,
-    bf16, FULL (6 of a ring's 10 rounds) and DIAG. Then the flash ring at head dim 8 (padded to
-    16) through ``ring_flash_attention_sharded`` against the ring of plain
-    chunk versions, forward and gradients. Returns {"ring_chunk_fwd": ...,
-    ...} for bf16 FULL."""
+    dims 16 and 64; and at the widest head dim, [8, C, 4, 128] chunks (C =
+    64 and 65), FULL and DIAG on a carried state. Times, bounds and plain
+    times at the learner's shape, bf16, FULL (6 of a ring's 10 rounds) and
+    DIAG, and at [8, 64, 4, 128]. Then the flash ring at head dims 8 and 96
+    (padded to 16 and 128) through ``ring_flash_attention_sharded`` against
+    the ring of plain chunk versions, forward and gradients. Returns
+    {"ring_chunk_fwd": ..., ...} for bf16 FULL, each with its head dim 128
+    measurements under ``"d128"``."""
     import torch
 
     from relayrl_tpu_torch.parallel import ring_flash as rf
@@ -582,16 +679,17 @@ def check_ring_chunks(device) -> dict:
     plains = {"fwd": rf.chunk_fwd_plain, "dq": rf.chunk_dq_plain,
               "dkv": rf.chunk_dkv_plain}
     gen = torch.Generator().manual_seed(SEED + 2)
-    cases = [(dtype, mode, True, C, D) for dtype in (torch.bfloat16, torch.float32)
-             for mode in (rf.MODE_FULL, rf.MODE_DIAG)]
-    cases += [(dtype, rf.MODE_FULL, False, C, D) for dtype in (torch.bfloat16, torch.float32)]
-    cases += [(dtype, mode, True, c, d) for dtype in (torch.bfloat16, torch.float32)
-              for mode in (rf.MODE_FULL, rf.MODE_DIAG)
+    dtypes, modes = (torch.bfloat16, torch.float32), (rf.MODE_FULL, rf.MODE_DIAG)
+    cases = [(dtype, mode, True, C, H, D) for dtype in dtypes for mode in modes]
+    cases += [(dtype, rf.MODE_FULL, False, C, H, D) for dtype in dtypes]
+    cases += [(dtype, mode, True, c, H, d) for dtype in dtypes for mode in modes
               for c, d in ((8, D), (65, D), (128, D), (C, 16), (C, 64))]
-    main = {}
-    for dtype, mode, carried, c, d in cases:
+    cases += [(dtype, mode, True, c, WIDE_H, WIDE_D) for dtype in dtypes for mode in modes
+              for c in (C, 65)]
+    main = {f"ring_chunk_{kernel}": {} for kernel in wrappers}
+    for dtype, mode, carried, c, h, d in cases:
         name = _dtype_name(dtype)
-        inputs = ring_chunk_inputs(B, c, H, d, dtype, device, gen, carried)
+        inputs = ring_chunk_inputs(B, c, h, d, dtype, device, gen, carried)
         for kernel, args in inputs.items():
             got = wrappers[kernel](mode, *args)
             torch.cuda.synchronize()
@@ -614,36 +712,47 @@ def check_ring_chunks(device) -> dict:
                     f"C={c} D={d}: max abs errs {errs} above {bars}")
             line = (f"[ring] ring_chunk_{kernel} {name} mode="
                     f"{'FULL' if mode == rf.MODE_FULL else 'DIAG'} "
-                    f"{'carried' if carried else 'fresh'} [{B},{c},{H},{d}] max_abs_err "
+                    f"{'carried' if carried else 'fresh'} [{B},{c},{h},{d}] max_abs_err "
                     + "/".join(f"{e:.3e}" for e in errs) + " (tol "
                     + "/".join(f"{b:.3e}" for b in bars) + ")")
-            if (c, d, carried, dtype) == (C, D, True, torch.bfloat16):
+            if (c, d, carried, dtype) in ((C, D, True, torch.bfloat16),
+                                          (C, WIDE_D, True, torch.bfloat16)):
                 ms = time_ms(lambda: wrappers[kernel](mode, *args))
                 plain_ms = time_ms(lambda: plains[kernel](mode, *args), iters=20)
-                bound_ms, bound_by = ring_chunk_bound(B, c, H, d, name, kernel, mode)
+                bound_ms, bound_by = ring_chunk_bound(B, c, h, d, name, kernel, mode)
                 line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
                          f"bound_ms={bound_ms:.4f} ({bound_by})")
                 if mode == rf.MODE_FULL:
-                    main[f"ring_chunk_{kernel}"] = {
-                        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                    timed = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": None}
+                    if d == D:
+                        main[f"ring_chunk_{kernel}"].update(timed)
+                    else:
+                        main[f"ring_chunk_{kernel}"]["d128"] = {"shape": [B, c, h, d],
+                                                                **timed}
             print(line, flush=True)
-    check_padded_ring(device, gen)
+    padded = check_padded_ring(device, gen)
+    for entry in main.values():
+        entry["head_dims"] = sorted({case[-1] for case in cases} | set(padded))
     return main
 
 
-def check_padded_ring(device, gen) -> None:
-    """The causal flash ring over SP shards of the card at head dim 8
-    (``[8, 256, 8, 8]``, padded to 16) through ``ring_flash_attention_sharded``
-    (the kernels: 10 launches of each) against the same ring through the
-    plain chunk versions, forward and the gradients of ``sum(out * w)``."""
+def check_padded_ring(device, gen) -> tuple[int, ...]:
+    """The causal flash ring over SP shards of the card at head dims 8 and
+    96 (``[8, 256, 8, 8]`` and ``[8, 256, 4, 96]``, padded to 16 and 128)
+    through ``ring_flash_attention_sharded`` (the kernels: 10 launches of
+    each) against the same ring through the plain chunk versions, forward
+    and the gradients of ``sum(out * w)``. Returns the head dims."""
     import torch
 
     from relayrl_tpu_torch.parallel import ring_flash as rf
 
-    B, H, T = LEARNER["traj_per_epoch"], SLICE_ARCH["n_heads"], SLICE_ARCH["max_seq_len"]
-    C, d, devices = T // SP, 8, [device] * SP
-    for dtype in (torch.bfloat16, torch.float32):
+    B, T = LEARNER["traj_per_epoch"], SLICE_ARCH["max_seq_len"]
+    C, devices = T // SP, [device] * SP
+    cases = [(dtype, H, d) for H, d in ((SLICE_ARCH["n_heads"], 8), (WIDE_H, 96))
+             for dtype in (torch.bfloat16, torch.float32)]
+    for dtype, H, d in cases:
         name = _dtype_name(dtype)
         q, k, v = (x.detach().requires_grad_() for x in fused_qkv(B, T, H, d, dtype, device, gen))
         w = torch.randn((B, T, H, d), generator=gen).to(device, dtype)
@@ -666,37 +775,41 @@ def check_padded_ring(device, gen) -> None:
             raise AssertionError(f"padded ring {name} D={d}: launches {launches}, max abs "
                                  f"errs {errs} above {bars}")
         print(f"[ring] ring_flash_attention_sharded {name} causal sp={SP} [{B},{T},{H},{d}] "
-              f"(padded to 16; launches {launches}) vs the plain chunk ring: max_abs_err "
+              f"(padded; launches {launches}) vs the plain chunk ring: max_abs_err "
               "out/dq/dk/dv " + "/".join(f"{e:.3e}" for e in errs) + " (tol "
               + "/".join(f"{b:.3e}" for b in bars) + ")", flush=True)
+    return tuple(sorted({d for _, _, d in cases}))
 
 
 def check_chunked_local(device) -> None:
     """``chunked_flash_local`` (K4 over every chunk pair on one device, the
-    ring's cost model without transfers) against K1 on the serving shape."""
+    ring's cost model without transfers) against K1 on the serving shape
+    and on [64, 256, 4, 128], the widest head dim."""
     import torch
 
     from relayrl_tpu_torch.ops.flash import flash_attention
     from relayrl_tpu_torch.parallel.ring_flash import chunked_flash_local
 
-    B, T, H = LANES, SLICE_ARCH["max_seq_len"], SLICE_ARCH["n_heads"]
-    D = SLICE_ARCH["d_model"] // H
+    B, T = LANES, SLICE_ARCH["max_seq_len"]
     gen = torch.Generator().manual_seed(SEED + 3)
-    q, k, v = fused_qkv(B, T, H, D, torch.bfloat16, device, gen)
-    want = flash_attention(q, k, v, True)[0]
-    k1_ms = time_ms(lambda: flash_attention(q, k, v, True))
-    for n in (2, 4):
-        got = chunked_flash_local(q, k, v, n)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        if not (got.shape == want.shape and math.isfinite(err)
-                and err <= TOLERANCE["bfloat16"]):
-            raise AssertionError(f"chunked_flash_local n={n} vs flash_fwd: {err}")
-        ms = time_ms(lambda: chunked_flash_local(q, k, v, n))
-        print(f"[ring] chunked_flash_local bf16 causal [{B},{T},{H},{D}] n_chunks={n} "
-              f"({n * (n + 1) // 2} K4 launches) vs flash_fwd: max abs diff "
-              f"{err:.3e} (tol {TOLERANCE['bfloat16']:g}); ms={ms:.4f}, "
-              f"flash_fwd ms={k1_ms:.4f}", flush=True)
+    shapes = [(SLICE_ARCH["n_heads"], SLICE_ARCH["d_model"] // SLICE_ARCH["n_heads"], (2, 4)),
+              (WIDE_H, WIDE_D, (4,))]
+    for H, D, chunks in shapes:
+        q, k, v = fused_qkv(B, T, H, D, torch.bfloat16, device, gen)
+        want = flash_attention(q, k, v, True)[0]
+        k1_ms = time_ms(lambda: flash_attention(q, k, v, True))
+        for n in chunks:
+            got = chunked_flash_local(q, k, v, n)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not (got.shape == want.shape and math.isfinite(err)
+                    and err <= TOLERANCE["bfloat16"]):
+                raise AssertionError(f"chunked_flash_local n={n} D={D} vs flash_fwd: {err}")
+            ms = time_ms(lambda: chunked_flash_local(q, k, v, n))
+            print(f"[ring] chunked_flash_local bf16 causal [{B},{T},{H},{D}] n_chunks={n} "
+                  f"({n * (n + 1) // 2} K4 launches) vs flash_fwd: max abs diff "
+                  f"{err:.3e} (tol {TOLERANCE['bfloat16']:g}); ms={ms:.4f}, "
+                  f"flash_fwd ms={k1_ms:.4f}", flush=True)
 
 
 class SwapHalfway:
@@ -901,8 +1014,8 @@ def zero_flash_counts() -> None:
     flash_attention.dkv_launches = 0
 
 
-def build_learner(device, workdir: Path, attention: str = SLICE_ARCH["attention"]):
-    """The port's REINFORCE at the slice's arch (with ``attention``), on
+def build_learner(device, workdir: Path, arch: dict = SLICE_ARCH):
+    """The port's REINFORCE at ``arch`` (the slice's by default), on
     ``device``; the bf16 compute dtype comes from the config's
     ``learner.precision``, as in the JAX package."""
     from relayrl_tpu_torch.algorithms import build_algorithm
@@ -913,14 +1026,13 @@ def build_learner(device, workdir: Path, attention: str = SLICE_ARCH["attention"
     config.write_text(json.dumps(
         {"learner": {"precision": SLICE_ARCH["precision"]}}))
     env = RecallEnv(LEARNER_HORIZON, N_CUES)
-    arch = {**SLICE_ARCH, "attention": attention}
     overrides = {k: v for k, v in arch.items()
                  if k not in ("kind", "has_critic", "precision")}
     algo = build_algorithm(
         "REINFORCE", env_dir=str(workdir), config_path=str(config),
         obs_dim=int(env.observation_space.shape[0]),
         act_dim=int(env.action_space.n), device=device,
-        model_kind=SLICE_ARCH["kind"], seed=SEED, seed_salt=0,
+        model_kind=arch["kind"], seed=SEED, seed_salt=0,
         **overrides, **LEARNER)
     for key, value in arch.items():
         if algo.arch[key] != value:
@@ -994,11 +1106,10 @@ def epoch_batches(algo, episodes, n: int) -> list[dict]:
 
     from relayrl_tpu_torch.data import EpochBuffer
 
-    per = LEARNER["traj_per_epoch"]
+    per = algo.traj_per_epoch
     batches = []
     for i in range(n):
-        buf = EpochBuffer(algo.obs_dim, algo.act_dim, per,
-                          buckets=LEARNER["bucket_lengths"])
+        buf = EpochBuffer(algo.obs_dim, algo.act_dim, per, buckets=algo.buffer.buckets)
         for records in episodes[i * per:(i + 1) * per]:
             buf.add_episode(records)
         batches.append({k: np.array(v) for k, v in buf.drain().as_dict().items()})
@@ -1115,7 +1226,7 @@ def learn_sp(device, workdir: Path, learned: dict) -> dict:
     from relayrl_tpu_torch.algorithms.reinforce import make_reinforce_update
     from relayrl_tpu_torch.parallel import make_mesh, make_sharded_update, place_state
 
-    algo = build_learner(device, workdir, attention="ring")
+    algo = build_learner(device, workdir, {**SLICE_ARCH, "attention": "ring"})
     params0 = copy.deepcopy(algo.state.params)
     for (name, p), q in zip(params0.named_parameters(), learned["params0"].parameters()):
         if not torch.equal(p, q):
@@ -1184,6 +1295,215 @@ def compare_ring_evaluate(algo, params, mesh, device) -> float:
     return max((a - b).abs().max().item() for a, b in zip(got, want))
 
 
+def check_wide_transformer(device, workdir: Path) -> dict:
+    """The transformer at the widest head dim (``WIDE_ARCH``: d_model 512,
+    4 heads of 128, 2 layers, T 256, bf16, flash attention) builds on the
+    card and trains: 8 port actors serve one wave of ``RecallEnv(255)``
+    episodes from its learner's bundle; ``evaluate`` through K1 matches the
+    plain attention (phase 4's bar), and the learner's first update through
+    K1-K3 matches the same update through the plain attention (phase 5's
+    bars), launching n_layers x 84 K1 and n_layers K2 and K3."""
+    import torch
+
+    from relayrl_tpu_torch.envs import RecallEnv, SyncVectorEnv
+    from relayrl_tpu_torch.ops.flash import flash_attention_plain
+    from relayrl_tpu_torch.runtime.vector_actor import VectorActorHost, run_vector_gym_loop
+    from relayrl_tpu_torch.types import deserialize_actions
+
+    algo = build_learner(device, workdir, WIDE_ARCH)
+    params0 = copy.deepcopy(algo.state.params)
+    lanes = algo.traj_per_epoch
+    sent = []
+    host = VectorActorHost(algo.bundle(), lanes, on_send=lambda lane, p: sent.append(p),
+                           seed=SEED, device=device)
+    run_vector_gym_loop(host, SyncVectorEnv([lambda: RecallEnv(LEARNER_HORIZON, N_CUES)] * lanes),
+                        LEARNER_HORIZON, seed=SEED)
+    episodes = [deserialize_actions(p) for p in sent]
+    if len(episodes) != lanes or any(len(r) != LEARNER_HORIZON + 1 for r in episodes):
+        raise AssertionError(f"{len(episodes)} wide episodes shipped")
+    eval_err = compare_evaluate(host, device)
+    if not eval_err <= TOLERANCE["bfloat16"]:
+        raise AssertionError(f"wide evaluate kernel vs plain attention: {eval_err}")
+    zero_flash_counts()
+    cmp = compare_update(algo, params0, epoch_batches(algo, episodes, 1)[0], device,
+                         lambda q, k, v: flash_attention_plain(q, k, v, True)[0])
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    n_layers = WIDE_ARCH["n_layers"]
+    expected = (n_layers * (4 + algo.train_vf_iters), n_layers, n_layers)
+    if launches != expected:
+        raise AssertionError(f"wide update launches {launches}, expected {expected}")
+    return {"evaluate_err": eval_err, "launches": launches, **cmp}
+
+
+def _local_config(workdir: Path, precision: str = "float32") -> str:
+    workdir.mkdir(parents=True, exist_ok=True)
+    config = workdir / "relayrl_config.json"
+    config.write_text(json.dumps({"learner": {"precision": precision}}))
+    return str(config)
+
+
+def _spy_updates(runner, on_update) -> list:
+    """Wraps the runner's learner ingest: ``on_update(actions, counts)``
+    after each update, with the flash launch counts it made; every episode
+    it took is appended to the returned list."""
+    import torch
+
+    seen = []
+    ingest = runner.algorithm.receive_trajectory
+
+    def receive(actions):
+        seen.append(actions)
+        before = flash_counts()
+        updated = ingest(actions)
+        torch.cuda.synchronize()
+        counts = tuple(a - b for a, b in zip(flash_counts(), before))
+        if updated:
+            on_update(actions, counts)
+        elif counts != (0, 0, 0):
+            raise AssertionError(f"launches {counts} without an update")
+        return updated
+
+    runner.algorithm.receive_trajectory = receive
+    return seen
+
+
+def local_cartpole(device, workdir: Path) -> dict:
+    """``LocalRunner`` on CartPole-v1 (``mlp_discrete``, the
+    cartpole_reinforce_baseline golden's hyperparameters) for
+    ``LOCAL_UPDATES`` updates on the card: learner, actor and runner
+    versions advance together, episodes cross the wire codec, no flash
+    kernel runs. Then the learner's first update, from its initial params
+    on its first epoch's batch, on the card against the same update on the
+    CPU (f32, TF32 off; :func:`compare_update_to_cpu`)."""
+    import torch
+
+    from relayrl_tpu_torch.envs import make
+    from relayrl_tpu_torch.runtime import LocalRunner
+
+    runner = LocalRunner(make("CartPole-v1"), "REINFORCE", config_path=_local_config(workdir),
+                         env_dir=str(workdir), seed=1, device=device, **CARTPOLE_HP)
+    algo = runner.algorithm
+    if algo.arch["kind"] != "mlp_discrete" or runner.actor.policy.device != device:
+        raise AssertionError(f"CartPole learner {algo.arch['kind']} on "
+                             f"{runner.actor.policy.device}")
+    params0 = copy.deepcopy(algo.state.params)
+    versions = []
+    episodes = _spy_updates(runner, lambda actions, counts: versions.append(
+        (algo.version, counts)))
+    zero_flash_counts()
+    t0 = time.perf_counter()
+    result = runner.train(epochs=LOCAL_UPDATES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = runner.actor.steps_served
+    if (runner.updates != LOCAL_UPDATES or algo.version != LOCAL_UPDATES
+            or runner.actor.version != LOCAL_UPDATES
+            or [v for v, _ in versions] != list(range(1, LOCAL_UPDATES + 1))
+            or flash_counts() != (0, 0, 0)
+            or not all(math.isfinite(r) for r in result["returns"])):
+        raise AssertionError(f"CartPole loop: updates {runner.updates}, versions {versions}, "
+                             f"actor {runner.actor.version}, flash launches {flash_counts()}")
+
+    cmp = compare_update_to_cpu(algo, params0, epoch_batches(algo, episodes, 1)[0])
+    return {"wall": wall, "steps": steps, "updates": runner.updates,
+            "avg_return": result["avg_return_last_window"], **cmp}
+
+
+def compare_update_to_cpu(algo, params0, batch) -> dict:
+    """The learner's update from ``params0`` on ``batch`` on its device
+    against the same update on the CPU, both with fresh Adam state, in f32:
+    metrics within ``MLP_METRIC_RTOL`` plus ``MLP_METRIC_ATOL``, every
+    parameter within ``MLP_PARAM_ATOL``, except a transformer's qkv bias:
+    the key third of its gradient is zero in exact arithmetic (a softmax
+    does not change when one constant is added to all of a query's
+    scores), so both sides take Adam's normalized step on rounding noise
+    there, held to Adam's step bound ``pi_lr`` (tests/test_torch_reinforce.py
+    holds the JAX package the same way). Returns the largest differences."""
+    import torch
+
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+    from relayrl_tpu_torch.algorithms.reinforce import (
+        ReinforceState,
+        make_optimizers,
+        make_reinforce_update,
+    )
+    from relayrl_tpu_torch.models import build_policy
+    from relayrl_tpu_torch.weights import params_to_jax
+
+    sides = {}
+    for side in ("card", "cpu"):
+        policy = algo.policy if side == "card" else build_policy(algo.arch, "cpu")
+        params = policy.load_params(params_to_jax(params0))
+        state = ReinforceState(params, *make_optimizers(params, algo.pi_lr, algo.vf_lr))
+        update = make_reinforce_update(policy, algo.train_vf_iters, algo.gamma, algo.lam,
+                                       algo.with_baseline)
+        state, metrics = update(state, {k: torch.as_tensor(v, device=policy.device)
+                                        for k, v in batch.items()})
+        sides[side] = ({name: p.detach().cpu() for name, p in state.params.named_parameters()},
+                       read_metrics(metrics))
+    (got, got_m), (want, want_m) = sides["card"], sides["cpu"]
+    metric_err = param_err = 0.0
+    for key, value in want_m.items():
+        err = abs(got_m[key] - value)
+        if not err <= MLP_METRIC_RTOL * abs(value) + MLP_METRIC_ATOL:
+            raise AssertionError(f"update metric {key}: card {got_m[key]} vs cpu {value}")
+        metric_err = max(metric_err, err)
+    for name, w in want.items():
+        err = (got[name] - w).abs().max().item()
+        bound = algo.pi_lr if name.endswith("qkv.bias") else MLP_PARAM_ATOL
+        if not err <= bound:
+            raise AssertionError(f"update param {name}: card vs cpu {err} above {bound}")
+        if not name.endswith("qkv.bias"):
+            param_err = max(param_err, err)
+    return {"metric_err": metric_err, "param_err": param_err}
+
+
+def local_recall(device, workdir: Path) -> dict:
+    """``LocalRunner`` on ``RecallEnv(horizon=8)`` with the
+    recall_transformer golden's flash transformer (d_model 32, 2 heads:
+    head dim 16) for ``RECALL_UPDATES`` updates on the card. The flash
+    counts are 0 before the runner is built and read after: each update
+    launches n_layers x (4 + train_vf_iters) K1 and n_layers K2 and K3, and
+    every K1 launch of the run is accounted for: one per layer for the
+    actor's validation, one per layer but the last per env step (the
+    window's readout layer attends for one row, without K1), and the
+    updates'. Then the first update on the card against the same update on
+    the CPU (f32; :func:`compare_update_to_cpu`)."""
+    import torch
+
+    from relayrl_tpu_torch.envs import RecallEnv
+    from relayrl_tpu_torch.examples.train_memory import recall_hyperparams
+    from relayrl_tpu_torch.runtime import LocalRunner
+
+    hp = recall_hyperparams("transformer", RECALL_HORIZON, "flash")
+    zero_flash_counts()
+    runner = LocalRunner(RecallEnv(horizon=RECALL_HORIZON), "REINFORCE",
+                         config_path=_local_config(workdir), env_dir=str(workdir), seed=0,
+                         device=device, **hp)
+    params0 = copy.deepcopy(runner.algorithm.state.params)
+    per_update = []
+    episodes = _spy_updates(runner, lambda actions, counts: per_update.append(counts))
+    result = runner.train(epochs=RECALL_UPDATES)
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    n_layers = hp["n_layers"]
+    expected = (n_layers * (4 + hp["train_vf_iters"]), n_layers, n_layers)
+    steps = runner.actor.steps_served
+    total_k1 = n_layers + (n_layers - 1) * steps + RECALL_UPDATES * expected[0]
+    if (per_update != [expected] * RECALL_UPDATES
+            or launches != (total_k1, RECALL_UPDATES * n_layers, RECALL_UPDATES * n_layers)
+            or runner.actor.version != RECALL_UPDATES):
+        raise AssertionError(f"recall loop: launches per update {per_update} (expected "
+                             f"{expected}), total {launches} (expected K1 {total_k1}), "
+                             f"actor version {runner.actor.version}")
+    cmp = compare_update_to_cpu(runner.algorithm, params0,
+                                epoch_batches(runner.algorithm, episodes, 1)[0])
+    return {"per_update": per_update, "launches": launches, "steps": steps,
+            "head_dim": hp["d_model"] // hp["n_heads"], "episodes": len(result["returns"]),
+            "avg_return": result["avg_return_last_window"], **cmp}
+
+
 def main() -> int:
     import torch
 
@@ -1247,7 +1567,8 @@ def main() -> int:
     profile_dispatches(run["host"])
 
     # 5. learner slice
-    learned = learn(device, Path(__file__).resolve().parent / "build" / "chip_smoke")
+    root = Path(__file__).resolve().parent
+    learned = learn(device, root / "build" / "chip_smoke")
     algo, seconds = learned["algo"], learned["seconds"]
     fwd, dq, dkv = learned["launches"]
     print(f"[learn] {len(seconds)} updates of [{LEARNER['traj_per_epoch']}, "
@@ -1286,7 +1607,7 @@ def main() -> int:
     from relayrl_tpu_torch.parallel import make_sharded_update
     from relayrl_tpu_torch.parallel import ring_flash as rf
 
-    sp = learn_sp(device, Path(__file__).resolve().parent / "build" / "chip_smoke_sp",
+    sp = learn_sp(device, root / "build" / "chip_smoke_sp",
                   learned)
     sp_algo, sp_seconds, mesh = sp["algo"], sp["seconds"], sp["mesh"]
     print(f"[sp-learn] {SP_UPDATES} updates of [{LEARNER['traj_per_epoch']}, "
@@ -1323,26 +1644,57 @@ def main() -> int:
     profile_device(lambda: sp["sharded"](sp["state"], sp_batch), 1, "update")
     _, _, _, ring_fwd, ring_dq, ring_dkv = sp["launches"]
 
+    # 8. the transformer at head dim 128
+    wide = check_wide_transformer(device, root / "build" / "chip_smoke_wide")
+    print(f"[wide] transformer_discrete d_model {WIDE_ARCH['d_model']}, {WIDE_ARCH['n_heads']} "
+          f"heads of {WIDE_D}, {WIDE_ARCH['n_layers']} layers, T {WIDE_ARCH['max_seq_len']}, "
+          f"bf16, flash: evaluate kernel vs plain attention max abs diff "
+          f"{wide['evaluate_err']:.3e} (tol {TOLERANCE['bfloat16']:g}); first update "
+          f"launches (flash_fwd, flash_dq, flash_dkv) {wide['launches']}, max metric diff "
+          f"{wide['metric_err']:.3e}, max param diff {wide['param_err']:.3e}, mean param "
+          f"diff {wide['mean_diff_share']:.4f} of the mean movement", flush=True)
+
+    # 9. the local loop
+    cart = local_cartpole(device, root / "build" / "chip_smoke_cartpole")
+    print(f"[local] LocalRunner CartPole-v1 mlp_discrete: {cart['updates']} updates, "
+          f"{cart['steps']} env steps in {cart['wall']:.3f} s ({cart['steps'] / cart['wall']:.1f} "
+          f"env steps/s, learner updates included) on {smi.splitlines()[0]}; avg return "
+          f"{cart['avg_return']:.2f}; first update cuda vs cpu (f32): max metric diff "
+          f"{cart['metric_err']:.3e}, max param diff {cart['param_err']:.3e} (tol "
+          f"{MLP_PARAM_ATOL:g})", flush=True)
+    recall = local_recall(device, root / "build" / "chip_smoke_recall")
+    print(f"[local] LocalRunner RecallEnv({RECALL_HORIZON}) transformer flash (head dim "
+          f"{recall['head_dim']}): {len(recall['per_update'])} "
+          f"updates over {recall['episodes']} episodes, {recall['steps']} env steps; launches "
+          f"per update (flash_fwd, flash_dq, flash_dkv) {recall['per_update'][0]}, run total "
+          f"{recall['launches']}; avg return {recall['avg_return']:.2f}; first update card vs "
+          f"cpu (f32): max metric diff {recall['metric_err']:.3e}, max param diff "
+          f"{recall['param_err']:.3e} (tol {MLP_PARAM_ATOL:g})", flush=True)
+    r_fwd, r_dq, r_dkv = recall["launches"]
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:116",
-        "launches": run["launches"] + fwd,
+        "launches": run["launches"] + fwd + r_fwd,
+        "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd},
         **main_flash,
     }, {
         "name": "flash_dq",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:223",
-        "launches": dq,
+        "launches": dq + r_dq,
+        "launches_by_path": {"learner": dq, "local_loop": r_dq},
         **main_bwd["flash_dq"],
     }, {
         "name": "flash_dkv",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:255",
-        "launches": dkv,
+        "launches": dkv + r_dkv,
+        "launches_by_path": {"learner": dkv, "local_loop": r_dkv},
         **main_bwd["flash_dkv"],
     }] + [{
         "name": name,
@@ -1350,6 +1702,7 @@ def main() -> int:
         "source": "relayrl_tpu_torch/csrc/ring_flash.cu",
         "replaces": replaces,
         "launches": launches,
+        "launches_by_path": {"sp_learner": launches},
         **main_ring[name],
     } for name, replaces, launches in (
         ("ring_chunk_fwd", "relayrl_tpu/parallel/ring_flash.py:86", ring_fwd),

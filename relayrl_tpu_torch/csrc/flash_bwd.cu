@@ -55,7 +55,10 @@
 //   key rows of k and v and computes S^T, dP^T, then dV += round(P^T).do
 //   and dK += round(dS^T).qs per 16-query chunk. Here only the prologue
 //   (zero accumulators) and the epilogue (scaled bf16 rows) are K2's and
-//   K3's own.
+//   K3's own. At D = 128 a warp's own rows are read from shared memory
+//   per k-step rather than held in registers (bwd::OwnRows), and a K3
+//   block owns half of the head dim's dk and dv columns (bwd::kDkvCols; the
+//   grid's z picks the half), which keep both kernels from spilling.
 // - Staging: each tile of K and V (K2) or of qs, do, lse2 and delta (K3)
 //   is copied to shared memory in bf16 (f32 for lse2 and delta) with
 //   cp.async, 16 bytes a copy, double-buffered: the next tile loads while
@@ -72,13 +75,15 @@
 //
 // f32 design. No tensor-core product meets the f32 bar of 5e-5 (TF32 keeps
 // about three decimal digits), so f32 inputs keep the first port's design:
-// one thread per output row (two at D = 64, each holding every other head
-// dim, adding their halves of the dot products with one shuffle), the
-// other side staged in shared memory as f32, products as scalar FMAs on
-// the CUDA cores. Keys or queries past T and above the diagonal are
-// skipped, which equals the TPU kernels' masked p = 0.
+// one thread per output row (D / 32 at D = 64 and 128, each holding every
+// D / 32-th head dim, adding their parts of the dot products with
+// shuffles), the other side staged in shared memory as f32 (32-row tiles at
+// D = 128, which keeps them within 48 KB of static shared memory),
+// products as scalar FMAs on the CUDA cores. Keys or queries past T and
+// above the diagonal are skipped, which equals the TPU kernels' masked
+// p = 0.
 //
-// Both designs take every T >= 1 and head dims 16, 32 and 64; lse2 and
+// Both designs take every T >= 1 and head dims 16, 32, 64 and 128; lse2 and
 // delta are contiguous [B, H, T]; dq, dk, dv are written as contiguous
 // [B, T, H, D].
 
@@ -86,6 +91,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "f32_rows.cuh"
 #include "flash_bwd_tile.cuh"
 
 namespace {
@@ -117,29 +123,37 @@ struct BwdArgs {
 // -- bf16: tensor cores ------------------------------------------------------
 
 // Rounds acc * scale of rows r0 (c0, c1) and r0 + 8 (c2, c3) to bf16 and
-// stores them to out [B, T, H, D] at (b, h).
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float scale,
-                                           bf16* out, int b, int h, int H, int T_len,
-                                           int r0) {
+// stores them to out [B, T, H, D] at (b, h), columns [col0, col0 + N).
+template <int D, int N = D>
+__device__ __forceinline__ void store_rows(const float (&acc)[N / 8][4], float scale,
+                                           bf16* out, int b, int h, int H, int T_len, int r0,
+                                           int col0 = 0) {
   const int tq = threadIdx.x & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half;
     if (r >= T_len) continue;
-    uint32_t* row = reinterpret_cast<uint32_t*>(out + (((long long)b * T_len + r) * H + h) * D);
+    uint32_t* row =
+        reinterpret_cast<uint32_t*>(out + (((long long)b * T_len + r) * H + h) * D + col0);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < N / 8; ++n) {
       row[n * 4 + tq] =
           tc::pack_bf16(acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
     }
   }
 }
 
+// Dynamic shared memory of each bf16 kernel: its tiles, then its own rows.
+template <int D>
+constexpr size_t kDqSmem = sizeof(tc::KvTiles<D, kTile>) + bwd::kOwnRowsBytes<D>;
+template <int D>
+constexpr size_t kDkvSmem = sizeof(bwd::DkvTiles<D>) + bwd::kOwnRowsBytes<D>;
+
 template <int D>
 __global__ void __launch_bounds__(bwd::kThreads) flash_dq_bf16_kernel(const BwdArgs a) {
-  __shared__ __align__(16) bf16 ks[2][kTile * tc::kStride<D>];
-  __shared__ __align__(16) bf16 vs[2][kTile * tc::kStride<D>];
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& sm = *reinterpret_cast<tc::KvTiles<D, kTile>*>(smem);
+  bf16* own = reinterpret_cast<bf16*>(smem + sizeof(sm));
 
   const int T_len = a.len;
   const int bh = blockIdx.x;
@@ -151,12 +165,11 @@ __global__ void __launch_bounds__(bwd::kThreads) flash_dq_bf16_kernel(const BwdA
   const int lane = threadIdx.x & 31;
   const int r0 = q0 + 16 * warp + (lane >> 2);  // this thread's rows r0, r0 + 8
 
-  uint32_t qa[D / 16][4];
-  uint32_t da[D / 16][4];
-  tc::load_a_frags<D>(qa, static_cast<const bf16*>(a.q) + b * a.qB + h * a.qH, a.qT,
-                      q0 + 16 * warp, T_len);
-  tc::load_a_frags<D>(da, static_cast<const bf16*>(a.dout) + b * a.dB + h * a.dH, a.dT,
-                      q0 + 16 * warp, T_len);
+  bwd::OwnRows<D> qa, da;
+  bwd::load_own_rows<D>(qa, own, 0, static_cast<const bf16*>(a.q) + b * a.qB + h * a.qH, a.qT,
+                        q0 + 16 * warp, T_len);
+  bwd::load_own_rows<D>(da, own, 1, static_cast<const bf16*>(a.dout) + b * a.dB + h * a.dH,
+                        a.dT, q0 + 16 * warp, T_len);
   float lse[2], delta[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -175,14 +188,16 @@ __global__ void __launch_bounds__(bwd::kThreads) flash_dq_bf16_kernel(const BwdA
   const int kv_end = a.causal ? min(T_len, q0 + kRows) : T_len;
   const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sB + h * a.sH;
   const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sB + h * a.sH;
-  bwd::walk_dq<D>(acc, qa, da, lse, delta, ks, vs, kb, a.sT, vb, a.sT, kv_end, q0, r0, T_len,
+  bwd::walk_dq<D>(acc, qa, da, lse, delta, sm, kb, a.sT, vb, a.sT, kv_end, q0, r0, T_len,
                   a.causal);
   store_rows<D>(acc, a.dq_scale, static_cast<bf16*>(a.dq), b, h, a.H, T_len, r0);
 }
 
 template <int D>
 __global__ void __launch_bounds__(bwd::kThreads) flash_dkv_bf16_kernel(const BwdArgs a) {
-  __shared__ __align__(16) bwd::DkvTiles<D> sm;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& sm = *reinterpret_cast<bwd::DkvTiles<D>*>(smem);
+  bf16* own = reinterpret_cast<bf16*>(smem + sizeof(sm));
 
   const int T_len = a.len;
   const int bh = blockIdx.x;
@@ -190,20 +205,21 @@ __global__ void __launch_bounds__(bwd::kThreads) flash_dkv_bf16_kernel(const Bwd
   const int h = bh - b * a.H;
   // The first key tile walks the most queries: it has blockIdx.y 0.
   const int k0 = blockIdx.y * kRows;
+  constexpr int kCols = bwd::kDkvCols<D>;
+  const int c0 = blockIdx.z * kCols;  // this block's dk and dv columns
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int r0 = k0 + 16 * warp + (lane >> 2);  // this thread's keys r0, r0 + 8
   const long long row0 = (long long)bh * T_len;
 
-  uint32_t ka[D / 16][4];
-  uint32_t va[D / 16][4];
-  tc::load_a_frags<D>(ka, static_cast<const bf16*>(a.k) + b * a.sB + h * a.sH, a.sT,
-                      k0 + 16 * warp, T_len);
-  tc::load_a_frags<D>(va, static_cast<const bf16*>(a.v) + b * a.sB + h * a.sH, a.sT,
-                      k0 + 16 * warp, T_len);
-  float dk[D / 8][4], dv[D / 8][4];
+  bwd::OwnRows<D> ka, va;
+  bwd::load_own_rows<D>(ka, own, 0, static_cast<const bf16*>(a.k) + b * a.sB + h * a.sH, a.sT,
+                        k0 + 16 * warp, T_len);
+  bwd::load_own_rows<D>(va, own, 1, static_cast<const bf16*>(a.v) + b * a.sB + h * a.sH, a.sT,
+                        k0 + 16 * warp, T_len);
+  float dk[kCols / 8][4], dv[kCols / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < kCols / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       dk[n][e] = 0.f;
@@ -212,44 +228,24 @@ __global__ void __launch_bounds__(bwd::kThreads) flash_dkv_bf16_kernel(const Bwd
   }
 
   // A causal block needs queries only from its first key's diagonal on.
-  bwd::walk_dkv<D>(dk, dv, ka, va, sm, static_cast<const bf16*>(a.q) + b * a.qB + h * a.qH,
-                   a.qT, static_cast<const bf16*>(a.dout) + b * a.dB + h * a.dH, a.dT,
-                   a.lse + row0, a.delta + row0, a.causal ? k0 : 0, k0, r0, T_len, a.causal);
-  store_rows<D>(dk, kInvLog2e, static_cast<bf16*>(a.dk), b, h, a.H, T_len, r0);
-  store_rows<D>(dv, 1.f, static_cast<bf16*>(a.dv), b, h, a.H, T_len, r0);
+  bwd::walk_dkv<D>(dk, dv, ka, va, c0, sm,
+                   static_cast<const bf16*>(a.q) + b * a.qB + h * a.qH, a.qT,
+                   static_cast<const bf16*>(a.dout) + b * a.dB + h * a.dH, a.dT, a.lse + row0,
+                   a.delta + row0, a.causal ? k0 : 0, k0, r0, T_len, a.causal);
+  store_rows<D, kCols>(dk, kInvLog2e, static_cast<bf16*>(a.dk), b, h, a.H, T_len, r0, c0);
+  store_rows<D, kCols>(dv, 1.f, static_cast<bf16*>(a.dv), b, h, a.H, T_len, r0, c0);
 }
 
 // -- f32: CUDA cores ---------------------------------------------------------
 
-// Threads per row: a thread holds at most 32 head dims of each vector.
-// Thread `part` of a row holds dims part, part + kSplit, part + 2*kSplit...
-// so the threads of a row read neighbouring shared-memory words.
 template <int D>
-struct Split {
-  static constexpr int k = D > 32 ? D / 32 : 1;
-  static constexpr int dims = D / k;
-};
-
-// Sum of x over the S adjacent lanes that share one row. Only those lanes
-// take part, so rows of one warp may leave their loops at different keys.
-template <int S>
-__device__ __forceinline__ float row_sum(float x) {
-  if constexpr (S > 1) {
-    const unsigned lane = threadIdx.x & 31u;
-    const unsigned group = ((1u << S) - 1u) << (lane & ~(unsigned)(S - 1));
-#pragma unroll
-    for (int off = 1; off < S; off <<= 1) x += __shfl_xor_sync(group, x, off);
-  }
-  return x;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kRows* Split<D>::k)
+__global__ void __launch_bounds__(kRows* f32::Split<D>::k)
     flash_dq_f32_kernel(const BwdArgs a) {
-  constexpr int S = Split<D>::k;
-  constexpr int DD = Split<D>::dims;
-  __shared__ __align__(16) float ks[kTile][D];
-  __shared__ __align__(16) float vs[kTile][D];
+  constexpr int S = f32::Split<D>::k;
+  constexpr int DD = f32::Split<D>::dims;
+  constexpr int kTileF = f32::kTile<D>;
+  __shared__ __align__(16) float ks[kTileF][D];
+  __shared__ __align__(16) float vs[kTileF][D];
 
   const float* __restrict__ q = static_cast<const float*>(a.q);
   const float* __restrict__ k = static_cast<const float*>(a.k);
@@ -291,9 +287,9 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
 
   // A causal block needs keys only up to its last row's diagonal.
   const int kv_end = a.causal ? min(T_len, q0 + kRows) : T_len;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+  for (int k0 = 0; k0 < kv_end; k0 += kTileF) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int e = threadIdx.x; e < kTile * D; e += blockDim.x) {
+    for (int e = threadIdx.x; e < kTileF * D; e += blockDim.x) {
       const int r = e / D;
       const int c = e - r * D;
       const int t = k0 + r;
@@ -309,7 +305,7 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
     }
     __syncthreads();
     if (!live) continue;
-    const int n = min(kTile, kv_end - k0);
+    const int n = min(kTileF, kv_end - k0);
     for (int jj = 0; jj < n; ++jj) {
       // Keys ascend: from here on every key is above this row's diagonal.
       // No barrier follows inside this loop, so rows may leave it apart.
@@ -322,8 +318,8 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
         s = fmaf(qr[i], ks[jj][d], s);
         dp = fmaf(dor[i], vs[jj][d], dp);
       }
-      s = row_sum<S>(s);
-      dp = row_sum<S>(dp);
+      s = f32::row_sum<S>(s);
+      dp = f32::row_sum<S>(dp);
       const float ds = exp2f(s - lse) * (dp - delta);
 #pragma unroll
       for (int i = 0; i < DD; ++i) acc[i] = fmaf(ds, ks[jj][i * S + part], acc[i]);
@@ -337,14 +333,15 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kRows* Split<D>::k)
+__global__ void __launch_bounds__(kRows* f32::Split<D>::k)
     flash_dkv_f32_kernel(const BwdArgs a) {
-  constexpr int S = Split<D>::k;
-  constexpr int DD = Split<D>::dims;
-  __shared__ __align__(16) float qs[kTile][D];
-  __shared__ __align__(16) float dos[kTile][D];
-  __shared__ float lse_s[kTile];
-  __shared__ float delta_s[kTile];
+  constexpr int S = f32::Split<D>::k;
+  constexpr int DD = f32::Split<D>::dims;
+  constexpr int kTileF = f32::kTile<D>;
+  __shared__ __align__(16) float qs[kTileF][D];
+  __shared__ __align__(16) float dos[kTileF][D];
+  __shared__ float lse_s[kTileF];
+  __shared__ float delta_s[kTileF];
 
   const float* __restrict__ q = static_cast<const float*>(a.q);
   const float* __restrict__ k = static_cast<const float*>(a.k);
@@ -385,9 +382,9 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
   }
 
   // A causal block needs queries only from its first key's diagonal on.
-  for (int t0 = a.causal ? k0 : 0; t0 < T_len; t0 += kTile) {
+  for (int t0 = a.causal ? k0 : 0; t0 < T_len; t0 += kTileF) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int e = threadIdx.x; e < kTile * D; e += blockDim.x) {
+    for (int e = threadIdx.x; e < kTileF * D; e += blockDim.x) {
       const int r = e / D;
       const int c = e - r * D;
       const int t = t0 + r;
@@ -400,14 +397,14 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
       qs[r][c] = qv;
       dos[r][c] = dov;
     }
-    for (int r = threadIdx.x; r < kTile; r += blockDim.x) {
+    for (int r = threadIdx.x; r < kTileF; r += blockDim.x) {
       const bool in = t0 + r < T_len;
       lse_s[r] = in ? a.lse[row0 + t0 + r] : 0.f;
       delta_s[r] = in ? a.delta[row0 + t0 + r] : 0.f;
     }
     __syncthreads();
     if (!live) continue;
-    const int n = min(kTile, T_len - t0);
+    const int n = min(kTileF, T_len - t0);
     for (int ii = 0; ii < n; ++ii) {
       // Queries before this key do not see it.
       if (a.causal && t0 + ii < key) continue;
@@ -419,8 +416,8 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
         s = fmaf(kr[i], qs[ii][d], s);
         dp = fmaf(vr[i], dos[ii][d], dp);
       }
-      s = row_sum<S>(s);
-      dp = row_sum<S>(dp);
+      s = f32::row_sum<S>(s);
+      dp = f32::row_sum<S>(dp);
       const float p = exp2f(s - lse_s[ii]);
       const float ds = p * (dp - delta_s[ii]);
 #pragma unroll
@@ -449,13 +446,16 @@ template <bool kDq, bool kBf16, int D>
 cudaError_t launch(const BwdArgs& a, int B, cudaStream_t stream) {
   const dim3 grid(B * a.H, (a.len + kRows - 1) / kRows);
   if constexpr (kBf16 && kDq) {
-    flash_dq_bf16_kernel<D><<<grid, bwd::kThreads, 0, stream>>>(a);
+    return tc::launch_kernel(flash_dq_bf16_kernel<D>, grid, bwd::kThreads, kDqSmem<D>, stream,
+                             a);
   } else if constexpr (kBf16) {
-    flash_dkv_bf16_kernel<D><<<grid, bwd::kThreads, 0, stream>>>(a);
+    const dim3 halves(grid.x, grid.y, D / bwd::kDkvCols<D>);
+    return tc::launch_kernel(flash_dkv_bf16_kernel<D>, halves, bwd::kThreads, kDkvSmem<D>,
+                             stream, a);
   } else if constexpr (kDq) {
-    flash_dq_f32_kernel<D><<<grid, kRows * Split<D>::k, 0, stream>>>(a);
+    flash_dq_f32_kernel<D><<<grid, kRows * f32::Split<D>::k, 0, stream>>>(a);
   } else {
-    flash_dkv_f32_kernel<D><<<grid, kRows * Split<D>::k, 0, stream>>>(a);
+    flash_dkv_f32_kernel<D><<<grid, kRows * f32::Split<D>::k, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
@@ -469,6 +469,8 @@ cudaError_t launch_for_dim(int D, const BwdArgs& a, int B, cudaStream_t s) {
       return launch<kDq, kBf16, 32>(a, B, s);
     case 64:
       return launch<kDq, kBf16, 64>(a, B, s);
+    case 128:
+      return launch<kDq, kBf16, 128>(a, B, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -24,11 +24,28 @@
 // or after it (local positions); only the diagonal tile and a ragged last
 // tile take the masked body, and the walks' bounds skip what lies wholly
 // beyond the diagonal.
+//
+// Head dim 128. A warp's two sets of own rows as A fragments take 64
+// registers there, beside 64 (dq) or 128 (dk and dv) of accumulators: the
+// dk/dv pass would need over 255 and spill. So at D = 128 (OwnRows) each
+// warp stages its own rows in shared memory once and reads each k-step's A
+// fragment by ldmatrix where a product needs it; at D <= 64 they stay in
+// registers, loaded once. That keeps the dq pass within 255 registers, not
+// the dk/dv pass: with dk and dv over all 128 columns it still held 255
+// and spilled. So at D = 128 a dk/dv block owns half the head dim's output
+// columns (kDkvCols; the grid's third axis picks the half): it computes S^T
+// and dP^T over the whole head dim, as before, and accumulates dV and dK
+// over its 64 columns alone, at 1.5x the products of one block over all
+// 128. Every tile set is in dynamic shared memory (over 48 KB at D = 128;
+// tc::launch_kernel).
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tensor_core.cuh"
 
@@ -40,6 +57,73 @@ constexpr int kRows = 64;            // output rows a block owns, 16 per warp
 constexpr int kTile = 64;            // rows of the other side per tile
 constexpr int kThreads = 2 * kRows;  // 4 warps
 static_assert(kRows % 16 == 0 && kTile % 16 == 0, "whole 16-row fragments");
+
+// A warp's own 16 rows of one operand (qs or do for the dq pass, k or v for
+// the dk/dv pass) as the A operand of its products, k-step by k-step.
+// RegRows holds the fragments in registers.
+template <int D>
+struct RegRows {
+  uint32_t f[D / 16][4];
+  __device__ __forceinline__ void frag(uint32_t (&a)[4], int kk) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = f[kk][i];
+  }
+};
+
+// SmemRows reads them by ldmatrix from the warp's 16 rows staged in shared
+// memory (row stride tc::kStride<D>).
+template <int D>
+struct SmemRows {
+  const bf16* rows;
+  __device__ __forceinline__ void frag(uint32_t (&a)[4], int kk) const {
+    tc::ldmatrix_a_frag<D>(a, rows, kk);
+  }
+};
+
+template <int D>
+constexpr bool kOwnRowsInSmem = D > 64;
+
+// Output columns of dk and dv a dk/dv block owns: all of them at D <= 64,
+// half at D = 128 (see the note at the top).
+template <int D>
+constexpr int kDkvCols = D > 64 ? D / 2 : D;
+
+template <int D>
+using OwnRows = std::conditional_t<kOwnRowsInSmem<D>, SmemRows<D>, RegRows<D>>;
+
+// Shared memory for the block's own rows of both operands (none at
+// D <= 64): it follows the kernel's tiles in its dynamic shared memory.
+template <int D>
+constexpr size_t kOwnRowsBytes = kOwnRowsInSmem<D> ? 2 * kRows * tc::kStride<D> * sizeof(bf16) : 0;
+
+// Loads the rows [w0, w0 + 16) of one (batch, head) slice (row stride sT)
+// that this warp owns, rows at or past `len` zero, as operand `which` (0 or
+// 1) of the block's own rows at `own` (shared memory, kOwnRowsBytes).
+template <int D>
+__device__ __forceinline__ void load_own_rows(RegRows<D>& a, bf16* /*own*/, int /*which*/,
+                                              const bf16* src, long long sT, int w0, int len) {
+  tc::load_a_frags<D>(a.f, src, sT, w0, len);
+}
+
+template <int D>
+__device__ __forceinline__ void load_own_rows(SmemRows<D>& a, bf16* own, int which,
+                                              const bf16* src, long long sT, int w0, int len) {
+  constexpr int kCopies = 16 * (D / 8);  // 16-byte copies of the warp's rows
+  bf16* dst = own + (which * kRows + (w0 % kRows)) * tc::kStride<D>;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int e = lane; e < kCopies; e += 32) {
+    const int r = e / (D / 8);
+    const int c = e - r * (D / 8);
+    const bool in = w0 + r < len;
+    const bf16* row = src + (in ? (long long)(w0 + r) * sT : 0);
+    tc::cp_async_16(dst + r * tc::kStride<D> + c * 8, row + c * 8, in);
+  }
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncwarp();
+  a.rows = dst;
+}
 
 // Starts the copies of rows [t0, t0 + kTile) of one (batch, head) slice
 // `src` (row stride sT elements) into dst[kTile][tc::kStride<D>]; rows at
@@ -65,8 +149,7 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long
 // 0 the first 8 rows, n-tile 1 the next 8).
 template <int D>
 __device__ __forceinline__ void chunk_scores(float (&s)[2][4], float (&dp)[2][4],
-                                             const uint32_t (&a_s)[D / 16][4],
-                                             const uint32_t (&a_d)[D / 16][4],
+                                             const OwnRows<D>& a_s, const OwnRows<D>& a_d,
                                              const bf16* bs, const bf16* bd) {
   const int lane = threadIdx.x & 31;
   // ldmatrix row addresses: matrices (rows 0-7, dims 0-7), (rows 0-7,
@@ -82,13 +165,15 @@ __device__ __forceinline__ void chunk_scores(float (&s)[2][4], float (&dp)[2][4]
   }
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t b[4];
+    uint32_t a[4], b[4];
+    a_s.frag(a, kk);
     tc::ldmatrix_x4(b, bs + off + kk * 16);
-    tc::mma_bf16(s[0], a_s[kk], b[0], b[1]);
-    tc::mma_bf16(s[1], a_s[kk], b[2], b[3]);
+    tc::mma_bf16(s[0], a, b[0], b[1]);
+    tc::mma_bf16(s[1], a, b[2], b[3]);
+    a_d.frag(a, kk);
     tc::ldmatrix_x4(b, bd + off + kk * 16);
-    tc::mma_bf16(dp[0], a_d[kk], b[0], b[1]);
-    tc::mma_bf16(dp[1], a_d[kk], b[2], b[3]);
+    tc::mma_bf16(dp[0], a, b[0], b[1]);
+    tc::mma_bf16(dp[1], a, b[2], b[3]);
   }
 }
 
@@ -97,8 +182,8 @@ __device__ __forceinline__ void chunk_scores(float (&s)[2][4], float (&dp)[2][4]
 // `len` and, when causal, keys above a row's diagonal; warp_last is the
 // warp's last row.
 template <int D, bool kMask>
-__device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4], const uint32_t (&qa)[D / 16][4],
-                                        const uint32_t (&da)[D / 16][4],
+__device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4], const OwnRows<D>& qa,
+                                        const OwnRows<D>& da,
                                         const float (&lse)[2], const float (&delta)[2],
                                         const bf16* kt, const bf16* vt, int k0, int r0,
                                         int warp_last, int len, bool causal) {
@@ -134,16 +219,17 @@ __device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4], const uint32_t (
 
 // The dq pass of one block: walks the K/V tiles [0, kv_end) of one (batch,
 // head) slice (k rows at stride kT from kb, v rows at stride vT from vb) in
-// order, double-buffered through ks and vs, accumulating into acc. The block
+// order, double-buffered through `sm`, accumulating into acc. The block
 // owns query rows [q0, q0 + kRows); this thread holds rows r0 and r0 + 8.
 template <int D>
-__device__ __forceinline__ void walk_dq(float (&acc)[D / 8][4], const uint32_t (&qa)[D / 16][4],
-                                        const uint32_t (&da)[D / 16][4],
-                                        const float (&lse)[2], const float (&delta)[2],
-                                        bf16 (&ks)[2][kTile * tc::kStride<D>],
-                                        bf16 (&vs)[2][kTile * tc::kStride<D>], const bf16* kb,
-                                        long long kT, const bf16* vb, long long vT, int kv_end,
-                                        int q0, int r0, int len, bool causal) {
+__device__ __forceinline__ void walk_dq(float (&acc)[D / 8][4], const OwnRows<D>& qa,
+                                        const OwnRows<D>& da, const float (&lse)[2],
+                                        const float (&delta)[2], tc::KvTiles<D, kTile>& sm,
+                                        const bf16* kb, long long kT, const bf16* vb,
+                                        long long vT, int kv_end, int q0, int r0, int len,
+                                        bool causal) {
+  auto& ks = sm.k;
+  auto& vs = sm.v;
   const int warp_last = q0 + 16 * (threadIdx.x >> 5) + 15;
   const int n_tiles = (kv_end + kTile - 1) / kTile;
   stage_rows<D>(ks[0], kb, kT, 0, len);
@@ -173,13 +259,15 @@ __device__ __forceinline__ void walk_dq(float (&acc)[D / 8][4], const uint32_t (
 }
 
 // One qs/do tile of the dk/dv pass: queries [t0, t0 + kTile) against this
-// warp's keys. kMask: the diagonal or ragged tile, which masks queries at
-// or past `len` and, when causal, queries before a key; warp_first is the
-// warp's first key.
+// warp's keys, accumulating dk and dv over the kDkvCols<D> columns from c0.
+// kMask: the diagonal or ragged tile, which masks queries at or past `len`
+// and, when causal, queries before a key; warp_first is the warp's first
+// key.
 template <int D, bool kMask>
-__device__ __forceinline__ void dkv_tile(float (&dk)[D / 8][4], float (&dv)[D / 8][4],
-                                         const uint32_t (&ka)[D / 16][4],
-                                         const uint32_t (&va)[D / 16][4], const bf16* qt,
+__device__ __forceinline__ void dkv_tile(float (&dk)[kDkvCols<D> / 8][4],
+                                         float (&dv)[kDkvCols<D> / 8][4],
+                                         const OwnRows<D>& ka, const OwnRows<D>& va, int c0,
+                                         const bf16* qt,
                                          const bf16* dot, const float* lse_t,
                                          const float* delta_t, int t0, int r0,
                                          int warp_first, int len, bool causal) {
@@ -216,8 +304,8 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[D / 8][4], float (&dv)[D / 
       dsa[2 * n] = tc::pack_bf16(ds[0], ds[1]);
       dsa[2 * n + 1] = tc::pack_bf16(ds[2], ds[3]);
     }
-    tc::chunk_accumulate<D>(dv, pa, dot + 16 * c * tc::kStride<D>);
-    tc::chunk_accumulate<D>(dk, dsa, qt + 16 * c * tc::kStride<D>);
+    tc::chunk_accumulate<D, kDkvCols<D>>(dv, pa, dot + 16 * c * tc::kStride<D> + c0);
+    tc::chunk_accumulate<D, kDkvCols<D>>(dk, dsa, qt + 16 * c * tc::kStride<D> + c0);
   }
 }
 
@@ -234,12 +322,14 @@ struct DkvTiles {
 // The dk/dv pass of one block: walks the qs/do tiles from query t_begin to
 // `len` of one (batch, head) slice (qs rows at stride qT from qb, do rows at
 // stride dT from db; lse2 and delta contiguous from lse_row and delta_row)
-// in order, double-buffered through `sm`, accumulating into dk and dv. The
-// block owns keys [k0, k0 + kRows); this thread holds keys r0 and r0 + 8.
+// in order, double-buffered through `sm`, accumulating into dk and dv
+// (columns [c0, c0 + kDkvCols<D>)). The block owns keys [k0, k0 + kRows);
+// this thread holds keys r0 and r0 + 8.
 template <int D>
-__device__ __forceinline__ void walk_dkv(float (&dk)[D / 8][4], float (&dv)[D / 8][4],
-                                         const uint32_t (&ka)[D / 16][4],
-                                         const uint32_t (&va)[D / 16][4], DkvTiles<D>& sm,
+__device__ __forceinline__ void walk_dkv(float (&dk)[kDkvCols<D> / 8][4],
+                                         float (&dv)[kDkvCols<D> / 8][4],
+                                         const OwnRows<D>& ka, const OwnRows<D>& va, int c0,
+                                         DkvTiles<D>& sm,
                                          const bf16* qb, long long qT, const bf16* db,
                                          long long dT, const float* lse_row,
                                          const float* delta_row, int t_begin, int k0, int r0,
@@ -272,11 +362,11 @@ __device__ __forceinline__ void walk_dkv(float (&dk)[D / 8][4], float (&dv)[D / 
     const int t0 = t_begin + j * kTile;
     const int buf = j & 1;
     if ((causal && t0 < k0 + kRows) || t0 + kTile > len) {
-      dkv_tile<D, true>(dk, dv, ka, va, sm.q[buf], sm.d[buf], sm.lse[buf], sm.delta[buf], t0, r0,
-                        warp_first, len, causal);
+      dkv_tile<D, true>(dk, dv, ka, va, c0, sm.q[buf], sm.d[buf], sm.lse[buf], sm.delta[buf],
+                        t0, r0, warp_first, len, causal);
     } else {
-      dkv_tile<D, false>(dk, dv, ka, va, sm.q[buf], sm.d[buf], sm.lse[buf], sm.delta[buf], t0, r0,
-                         warp_first, len, causal);
+      dkv_tile<D, false>(dk, dv, ka, va, c0, sm.q[buf], sm.d[buf], sm.lse[buf], sm.delta[buf],
+                         t0, r0, warp_first, len, causal);
     }
     __syncthreads();
   }

@@ -39,7 +39,10 @@
 //   compute roof.
 // - K/V tiles of 64 keys arrive by 16-byte cp.async, double-buffered into
 //   rows padded by 16 bytes (no ldmatrix bank conflicts), zero-filled past
-//   T. q, k and v are read through (batch, time, head) strides, views of
+//   T, in dynamic shared memory: 69.6 KB at D = 128, above the 48 KB a
+//   block gets without asking (tc::launch_kernel raises the limit). At
+//   D = 128 a warp holds 32 registers of q and 64 of O beside the 32 of a
+//   tile's scores, which still fits without a spill. q, k and v are read through (batch, time, head) strides, views of
 //   the fused qkv projection; rows must start on 16-byte boundaries, which
 //   the wrapper checks (and relayrl_flash_fwd refuses otherwise).
 // - Only the diagonal tile and a ragged last tile take the masked body; the
@@ -50,16 +53,19 @@
 //
 // f32 design. No tensor-core type meets the f32 bar of 2e-5 (TF32 keeps
 // about three decimal digits), so f32 inputs keep the first port's design:
-// one thread per query row, q and the accumulator in registers, K and V
-// staged in shared memory as f32, scores and p.V as scalar FMAs on the
-// CUDA cores, the running max moved once per 16 keys.
+// q and the accumulator of each query row in registers (one thread per row
+// at D <= 32, D / 32 at D = 64 and 128, f32_rows.cuh), K and V staged in
+// shared memory as f32 (32-key tiles at D = 128, within 48 KB of static
+// shared memory), scores and p.V as scalar FMAs on the CUDA cores, the
+// running max moved once per 16 keys.
 //
-// Both designs take every T >= 1 and head dims 16, 32 and 64.
+// Both designs take every T >= 1 and head dims 16, 32, 64 and 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "f32_rows.cuh"
 #include "flash_fwd_tile.cuh"
 
 namespace {
@@ -85,8 +91,8 @@ struct FwdArgs {
 
 template <int D>
 __global__ void __launch_bounds__(fwd::kThreads) flash_fwd_bf16_kernel(const FwdArgs a) {
-  __shared__ __align__(16) bf16 ks[2][kTile * tc::kStride<D>];
-  __shared__ __align__(16) bf16 vs[2][kTile * tc::kStride<D>];
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& sm = *reinterpret_cast<tc::KvTiles<D, kTile>*>(smem);
 
   const int len = a.len;
   const int bh = blockIdx.x;
@@ -113,7 +119,7 @@ __global__ void __launch_bounds__(fwd::kThreads) flash_fwd_bf16_kernel(const Fwd
 
   // A causal block needs keys only up to its last row's diagonal.
   const int kv_end = a.causal ? min(len, q0 + kRows) : len;
-  fwd::walk_tiles<D>(st, qa, ks, vs, static_cast<const bf16*>(a.k) + base,
+  fwd::walk_tiles<D>(st, qa, sm, static_cast<const bf16*>(a.k) + base,
                      static_cast<const bf16*>(a.v) + base, a.sT, kv_end, q0, w0, len,
                      a.causal);
 
@@ -138,11 +144,15 @@ __global__ void __launch_bounds__(fwd::kThreads) flash_fwd_bf16_kernel(const Fwd
 
 constexpr int kChunkF32 = 16;  // keys per online-softmax update
 
-// A block owns 64 query rows, one per thread.
+// A block owns 64 query rows, f32::Split<D>::k threads per row.
 template <int D>
-__global__ void __launch_bounds__(kRows) flash_fwd_f32_kernel(const FwdArgs a) {
-  __shared__ __align__(16) float ks[kTile][D];
-  __shared__ __align__(16) float vs[kTile][D];
+__global__ void __launch_bounds__(kRows* f32::Split<D>::k)
+    flash_fwd_f32_kernel(const FwdArgs a) {
+  constexpr int S = f32::Split<D>::k;
+  constexpr int DD = f32::Split<D>::dims;
+  constexpr int kTileF = f32::kTile<D>;
+  __shared__ __align__(16) float ks[kTileF][D];
+  __shared__ __align__(16) float vs[kTileF][D];
 
   const float* __restrict__ q = static_cast<const float*>(a.q);
   const float* __restrict__ k = static_cast<const float*>(a.k);
@@ -152,30 +162,31 @@ __global__ void __launch_bounds__(kRows) flash_fwd_f32_kernel(const FwdArgs a) {
   const int b = bh / a.H;
   const int h = bh - b * a.H;
   const int q0 = blockIdx.y * kRows;
-  const int row = q0 + threadIdx.x;
+  const int part = threadIdx.x % S;
+  const int row = q0 + threadIdx.x / S;
   const bool live = row < T_len;
   const long long base = (long long)b * a.sB + (long long)h * a.sH;
 
-  float qr[D];
-  float acc[D];
+  float qr[DD];
+  float acc[DD];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = 0.f;
-    acc[d] = 0.f;
+  for (int i = 0; i < DD; ++i) {
+    qr[i] = 0.f;
+    acc[i] = 0.f;
   }
   if (live) {
     const float* qp = q + base + (long long)row * a.sT;
 #pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = qp[d] * a.q_scale;
+    for (int i = 0; i < DD; ++i) qr[i] = qp[i * S + part] * a.q_scale;
   }
   float m = kNegInf;
   float l = 0.f;
 
   // A causal block needs keys only up to its last row's diagonal.
   const int kv_end = a.causal ? min(T_len, q0 + kRows) : T_len;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+  for (int k0 = 0; k0 < kv_end; k0 += kTileF) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int e = threadIdx.x; e < kTile * D; e += kRows) {
+    for (int e = threadIdx.x; e < kTileF * D; e += blockDim.x) {
       const int r = e / D;
       const int c = e - r * D;
       const int t = k0 + r;
@@ -190,11 +201,12 @@ __global__ void __launch_bounds__(kRows) flash_fwd_f32_kernel(const FwdArgs a) {
       vs[r][c] = vv;
     }
     __syncthreads();
-    const int n = min(kTile, kv_end - k0);
+    if (!live) continue;
+    const int n = min(kTileF, kv_end - k0);
     for (int c0 = 0; c0 < n; c0 += kChunkF32) {
       const int j0 = k0 + c0;
       // Every key from here on is above this row's diagonal. No barrier
-      // follows inside this loop, so threads may leave it independently.
+      // follows inside this loop, so rows may leave it independently.
       if (a.causal && j0 > row) break;
       float s[kChunkF32];
       float mx = m;
@@ -202,7 +214,8 @@ __global__ void __launch_bounds__(kRows) flash_fwd_f32_kernel(const FwdArgs a) {
       for (int jj = 0; jj < kChunkF32; ++jj) {
         float dot = 0.f;
 #pragma unroll
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[c0 + jj][d], dot);
+        for (int i = 0; i < DD; ++i) dot = fmaf(qr[i], ks[c0 + jj][i * S + part], dot);
+        dot = f32::row_sum<S>(dot);
         const int j = j0 + jj;
         const bool valid = j < kv_end && (!a.causal || j <= row);
         s[jj] = valid ? dot : kNegInf;
@@ -213,13 +226,13 @@ __global__ void __launch_bounds__(kRows) flash_fwd_f32_kernel(const FwdArgs a) {
       const float corr = exp2f(m - mx);
       l *= corr;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= corr;
+      for (int i = 0; i < DD; ++i) acc[i] *= corr;
 #pragma unroll
       for (int jj = 0; jj < kChunkF32; ++jj) {
         const float p = exp2f(s[jj] - mx);
         l += p;
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vs[c0 + jj][d], acc[d]);
+        for (int i = 0; i < DD; ++i) acc[i] = fmaf(p, vs[c0 + jj][i * S + part], acc[i]);
       }
       m = mx;
     }
@@ -228,8 +241,8 @@ __global__ void __launch_bounds__(kRows) flash_fwd_f32_kernel(const FwdArgs a) {
     const float lc = fmaxf(l, 1e-30f);
     float* op = static_cast<float*>(a.o) + (((long long)b * T_len + row) * a.H + h) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = acc[d] / lc;
-    a.lse[(long long)bh * T_len + row] = m + log2f(lc);
+    for (int i = 0; i < DD; ++i) op[i * S + part] = acc[i] / lc;
+    if (part == 0) a.lse[(long long)bh * T_len + row] = m + log2f(lc);
   }
 }
 
@@ -239,11 +252,12 @@ template <bool kBf16, int D>
 cudaError_t launch(const FwdArgs& a, int B, cudaStream_t stream) {
   const dim3 grid(B * a.H, (a.len + kRows - 1) / kRows);
   if constexpr (kBf16) {
-    flash_fwd_bf16_kernel<D><<<grid, fwd::kThreads, 0, stream>>>(a);
+    return tc::launch_kernel(flash_fwd_bf16_kernel<D>, grid, fwd::kThreads,
+                             sizeof(tc::KvTiles<D, kTile>), stream, a);
   } else {
-    flash_fwd_f32_kernel<D><<<grid, kRows, 0, stream>>>(a);
+    flash_fwd_f32_kernel<D><<<grid, kRows * f32::Split<D>::k, 0, stream>>>(a);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <bool kBf16>
@@ -255,6 +269,8 @@ cudaError_t launch_for_dim(int D, const FwdArgs& a, int B, cudaStream_t s) {
       return launch<kBf16, 32>(a, B, s);
     case 64:
       return launch<kBf16, 64>(a, B, s);
+    case 128:
+      return launch<kBf16, 128>(a, B, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -201,17 +201,18 @@ __device__ __forceinline__ void tile_step(State<D>& st, const uint32_t (&qa)[D /
 }
 
 // Walks the K/V tiles [0, kv_end) of one (batch, head) slice (k and v rows
-// at stride sT) in order, double-buffered through ks and vs: the next tile's
+// at stride sT) in order, double-buffered through `sm`: the next tile's
 // copies are in flight while the current one computes. The tiles that may
 // hold a masked key for some row of the block (rows [q0, q0 + kRows)) take
 // the masked body; warps whose rows all lie at or past `len` only help
 // stage.
 template <int D>
 __device__ __forceinline__ void walk_tiles(State<D>& st, const uint32_t (&qa)[D / 16][4],
-                                           bf16 (&ks)[2][kTile * tc::kStride<D>],
-                                           bf16 (&vs)[2][kTile * tc::kStride<D>],
-                                           const bf16* kb, const bf16* vb, long long sT,
-                                           int kv_end, int q0, int w0, int len, bool causal) {
+                                           tc::KvTiles<D, kTile>& sm, const bf16* kb,
+                                           const bf16* vb, long long sT, int kv_end, int q0,
+                                           int w0, int len, bool causal) {
+  auto& ks = sm.k;
+  auto& vs = sm.v;
   const int n_tiles = (kv_end + kTile - 1) / kTile;
   stage_tile<D>(ks[0], kb, sT, 0, len);
   stage_tile<D>(vs[0], vb, sT, 0, len);

@@ -62,18 +62,26 @@
 //   dv_in as C fragments; qs/do/lse2/delta tiles from the block's first key
 //   under DIAG, the first key tile launched first.
 //
+// Head dim 128 takes the same steps: every bf16 kernel's tiles are in
+// dynamic shared memory (over 48 KB there; tc::launch_kernel), K5's and
+// K6's own rows are read from shared memory per k-step, as K2's and K3's
+// are (bwd::OwnRows), and a K6 block owns half of the head dim's dk and dv
+// columns, as a K3 block does (bwd::kDkvCols; the grid's z picks the
+// half).
+//
 // q, k, v and do rows must start on 16-byte boundaries, which the wrappers
 // check (and the C entries refuse otherwise); K4 also needs k and v of one
 // stride.
 //
 // f32 keeps the first port's design (ring_chunk_*_f32_kernel), because no
 // tensor-core type meets the f32 bars (2e-5 forward, 5e-5 accumulators):
-// one thread per row, two at D = 64 (each holds every other head dim; the
-// pair adds its halves of a dot product with one shuffle), the other side
-// staged in shared memory as f32, products as scalar FMAs on the CUDA
+// one thread per row, D / 32 at D = 64 and 128 (each holds every D / 32-th
+// head dim; they add their parts of a dot product with shuffles), the other
+// side staged in shared memory as f32, products as scalar FMAs on the CUDA
 // cores. A block owns 64 rows; each row's own vectors and accumulators stay
-// in registers while the block walks 64-row tiles of the other side, up to
-// (K4, K5) or from (K6) the diagonal under DIAG.
+// in registers while the block walks 64-row tiles of the other side (32 at
+// D = 128, within 48 KB of static shared memory), up to (K4, K5) or from
+// (K6) the diagonal under DIAG.
 //
 // Bound on the H100 at the learner's chunk shape (B*H = 64, C = 64,
 // D = 32, bf16, FULL): K4 moves about 1.9 MB (the f32 state in and out is
@@ -88,6 +96,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "f32_rows.cuh"
 #include "flash_bwd_tile.cuh"
 #include "flash_fwd_tile.cuh"
 
@@ -101,28 +110,6 @@ constexpr int kChunk = 16;  // keys per online-softmax update (K4)
 constexpr float kNegInf = -1e30f;
 constexpr int kModeFull = 1;
 constexpr int kModeDiag = 2;
-
-// Threads per row: a thread holds at most 32 head dims of each vector.
-// Thread `part` of a row holds dims part, part + k, part + 2k, ... so the
-// threads of a row read neighbouring shared-memory words.
-template <int D>
-struct Split {
-  static constexpr int k = D > 32 ? D / 32 : 1;
-  static constexpr int dims = D / k;
-};
-
-// Sum of x over the S adjacent lanes that share one row. Only those lanes
-// take part, so rows of one warp may leave their loops at different keys.
-template <int S>
-__device__ __forceinline__ float row_sum(float x) {
-  if constexpr (S > 1) {
-    const unsigned lane = threadIdx.x & 31u;
-    const unsigned group = ((1u << S) - 1u) << (lane & ~(unsigned)(S - 1));
-#pragma unroll
-    for (int off = 1; off < S; off <<= 1) x += __shfl_xor_sync(group, x, off);
-  }
-  return x;
-}
 
 // Element strides of one [B, C, H, D] tensor with a contiguous head dim.
 struct Strides {
@@ -164,22 +151,22 @@ struct BwdArgs {
 };
 
 // load_state_rows: this lane's C fragments of the warp's 16 rows
-// [w0, w0 + 16) of one (batch, head) slice of f32 [C, D] state (rows g and
-// g + 8, the float2 pair of cols 8n + 2tq, 8n + 2tq + 1 of each n-tile);
-// store_state_rows writes them back. Rows at or past C are not read (they
-// start at 0) and not written.
-template <int D>
-__device__ __forceinline__ void load_state_rows(float (&acc)[D / 8][4], const float* src, int w0,
-                                                int C) {
+// [w0, w0 + 16) of one (batch, head) slice of f32 [C, D] state, columns
+// [col0, col0 + N) (rows g and g + 8, the float2 pair of cols 8n + 2tq,
+// 8n + 2tq + 1 of each n-tile); store_state_rows writes them back. Rows at
+// or past C are not read (they start at 0) and not written.
+template <int D, int N = D>
+__device__ __forceinline__ void load_state_rows(float (&acc)[N / 8][4], const float* src, int w0,
+                                                int C, int col0 = 0) {
   const int lane = threadIdx.x & 31;
   const int tq = lane & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = w0 + (lane >> 2) + 8 * half;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const float2 x = r < C ? *reinterpret_cast<const float2*>(src + (long long)r * D + n * 8 +
-                                                                2 * tq)
+    for (int n = 0; n < N / 8; ++n) {
+      const float2 x = r < C ? *reinterpret_cast<const float2*>(src + (long long)r * D + col0 +
+                                                                n * 8 + 2 * tq)
                              : make_float2(0.f, 0.f);
       acc[n][2 * half] = x.x;
       acc[n][2 * half + 1] = x.y;
@@ -187,9 +174,9 @@ __device__ __forceinline__ void load_state_rows(float (&acc)[D / 8][4], const fl
   }
 }
 
-template <int D>
-__device__ __forceinline__ void store_state_rows(const float (&acc)[D / 8][4], float* dst, int w0,
-                                                 int C) {
+template <int D, int N = D>
+__device__ __forceinline__ void store_state_rows(const float (&acc)[N / 8][4], float* dst, int w0,
+                                                 int C, int col0 = 0) {
   const int lane = threadIdx.x & 31;
   const int tq = lane & 3;
 #pragma unroll
@@ -197,8 +184,8 @@ __device__ __forceinline__ void store_state_rows(const float (&acc)[D / 8][4], f
     const int r = w0 + (lane >> 2) + 8 * half;
     if (r >= C) continue;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<float2*>(dst + (long long)r * D + n * 8 + 2 * tq) =
+    for (int n = 0; n < N / 8; ++n) {
+      *reinterpret_cast<float2*>(dst + (long long)r * D + col0 + n * 8 + 2 * tq) =
           make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
     }
   }
@@ -208,8 +195,8 @@ __device__ __forceinline__ void store_state_rows(const float (&acc)[D / 8][4], f
 // state (see the note at the top).
 template <int D>
 __global__ void __launch_bounds__(fwd::kThreads) ring_chunk_fwd_bf16_kernel(const FwdArgs a) {
-  __shared__ __align__(16) bf16 ks[2][fwd::kTile * tc::kStride<D>];
-  __shared__ __align__(16) bf16 vs[2][fwd::kTile * tc::kStride<D>];
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& sm = *reinterpret_cast<tc::KvTiles<D, fwd::kTile>*>(smem);
 
   const int C = a.C;
   const int bh = blockIdx.x;
@@ -242,7 +229,7 @@ __global__ void __launch_bounds__(fwd::kThreads) ring_chunk_fwd_bf16_kernel(cons
 
   // Under DIAG a block needs keys only up to its last row's diagonal.
   const int kv_end = a.diag ? min(C, q0 + fwd::kRows) : C;
-  fwd::walk_tiles<D>(st, qa, ks, vs, static_cast<const bf16*>(a.k) + a.ks.at(b, 0, h),
+  fwd::walk_tiles<D>(st, qa, sm, static_cast<const bf16*>(a.k) + a.ks.at(b, 0, h),
                      static_cast<const bf16*>(a.v) + a.vs.at(b, 0, h), a.ks.t, kv_end, q0, w0,
                      C, a.diag);
 
@@ -267,8 +254,9 @@ __global__ void __launch_bounds__(fwd::kThreads) ring_chunk_fwd_bf16_kernel(cons
 // K5 in bf16: K2's walk between a resume and a flush of the carried dq.
 template <int D>
 __global__ void __launch_bounds__(bwd::kThreads) ring_chunk_dq_bf16_kernel(const BwdArgs a) {
-  __shared__ __align__(16) bf16 ks[2][bwd::kTile * tc::kStride<D>];
-  __shared__ __align__(16) bf16 vs[2][bwd::kTile * tc::kStride<D>];
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& sm = *reinterpret_cast<tc::KvTiles<D, bwd::kTile>*>(smem);
+  bf16* own = reinterpret_cast<bf16*>(smem + sizeof(sm));
 
   const int C = a.C;
   const int bh = blockIdx.x;
@@ -280,10 +268,11 @@ __global__ void __launch_bounds__(bwd::kThreads) ring_chunk_dq_bf16_kernel(const
   const int r0 = w0 + ((threadIdx.x & 31) >> 2);  // this thread's rows r0, r0 + 8
   const long long row0 = (long long)bh * C;
 
-  uint32_t qa[D / 16][4];
-  uint32_t da[D / 16][4];
-  tc::load_a_frags<D>(qa, static_cast<const bf16*>(a.q) + a.qs.at(b, 0, h), a.qs.t, w0, C);
-  tc::load_a_frags<D>(da, static_cast<const bf16*>(a.dout) + a.ds.at(b, 0, h), a.ds.t, w0, C);
+  bwd::OwnRows<D> qa, da;
+  bwd::load_own_rows<D>(qa, own, 0, static_cast<const bf16*>(a.q) + a.qs.at(b, 0, h), a.qs.t,
+                        w0, C);
+  bwd::load_own_rows<D>(da, own, 1, static_cast<const bf16*>(a.dout) + a.ds.at(b, 0, h),
+                        a.ds.t, w0, C);
   float lse[2], delta[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -296,7 +285,7 @@ __global__ void __launch_bounds__(bwd::kThreads) ring_chunk_dq_bf16_kernel(const
 
   // Under DIAG a block needs keys only up to its last row's diagonal.
   const int kv_end = a.diag ? min(C, q0 + bwd::kRows) : C;
-  bwd::walk_dq<D>(acc, qa, da, lse, delta, ks, vs,
+  bwd::walk_dq<D>(acc, qa, da, lse, delta, sm,
                   static_cast<const bf16*>(a.k) + a.ks.at(b, 0, h), a.ks.t,
                   static_cast<const bf16*>(a.v) + a.vs.at(b, 0, h), a.vs.t, kv_end, q0, r0, C,
                   a.diag);
@@ -306,7 +295,9 @@ __global__ void __launch_bounds__(bwd::kThreads) ring_chunk_dq_bf16_kernel(const
 // K6 in bf16: K3's walk between a resume and a flush of the carried dk, dv.
 template <int D>
 __global__ void __launch_bounds__(bwd::kThreads) ring_chunk_dkv_bf16_kernel(const BwdArgs a) {
-  __shared__ __align__(16) bwd::DkvTiles<D> sm;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& sm = *reinterpret_cast<bwd::DkvTiles<D>*>(smem);
+  bf16* own = reinterpret_cast<bf16*>(smem + sizeof(sm));
 
   const int C = a.C;
   const int bh = blockIdx.x;
@@ -314,34 +305,38 @@ __global__ void __launch_bounds__(bwd::kThreads) ring_chunk_dkv_bf16_kernel(cons
   const int h = bh - b * a.H;
   // Under DIAG the first key tile walks the most queries: it has blockIdx.y 0.
   const int k0 = blockIdx.y * bwd::kRows;
+  constexpr int kCols = bwd::kDkvCols<D>;
+  const int c0 = blockIdx.z * kCols;  // this block's dk and dv columns
   const int w0 = k0 + 16 * (threadIdx.x >> 5);
   const int r0 = w0 + ((threadIdx.x & 31) >> 2);  // this thread's keys r0, r0 + 8
   const long long row0 = (long long)bh * C;
 
-  uint32_t ka[D / 16][4];
-  uint32_t va[D / 16][4];
-  tc::load_a_frags<D>(ka, static_cast<const bf16*>(a.k) + a.ks.at(b, 0, h), a.ks.t, w0, C);
-  tc::load_a_frags<D>(va, static_cast<const bf16*>(a.v) + a.vs.at(b, 0, h), a.vs.t, w0, C);
-  float dk[D / 8][4], dv[D / 8][4];
-  load_state_rows<D>(dk, a.a_in + row0 * D, w0, C);
-  load_state_rows<D>(dv, a.b_in + row0 * D, w0, C);
+  bwd::OwnRows<D> ka, va;
+  bwd::load_own_rows<D>(ka, own, 0, static_cast<const bf16*>(a.k) + a.ks.at(b, 0, h), a.ks.t,
+                        w0, C);
+  bwd::load_own_rows<D>(va, own, 1, static_cast<const bf16*>(a.v) + a.vs.at(b, 0, h), a.vs.t,
+                        w0, C);
+  float dk[kCols / 8][4], dv[kCols / 8][4];
+  load_state_rows<D, kCols>(dk, a.a_in + row0 * D, w0, C, c0);
+  load_state_rows<D, kCols>(dv, a.b_in + row0 * D, w0, C, c0);
 
   // Under DIAG a block needs queries only from its first key's diagonal on.
-  bwd::walk_dkv<D>(dk, dv, ka, va, sm, static_cast<const bf16*>(a.q) + a.qs.at(b, 0, h),
+  bwd::walk_dkv<D>(dk, dv, ka, va, c0, sm, static_cast<const bf16*>(a.q) + a.qs.at(b, 0, h),
                    a.qs.t, static_cast<const bf16*>(a.dout) + a.ds.at(b, 0, h), a.ds.t,
                    a.lse + row0, a.delta + row0, a.diag ? k0 : 0, k0, r0, C, a.diag);
-  store_state_rows<D>(dk, a.a_out + row0 * D, w0, C);
-  store_state_rows<D>(dv, a.b_out + row0 * D, w0, C);
+  store_state_rows<D, kCols>(dk, a.a_out + row0 * D, w0, C, c0);
+  store_state_rows<D, kCols>(dv, a.b_out + row0 * D, w0, C, c0);
 }
 
 // K4, K5 and K6 in f32: the CUDA-core design (see the note at the top).
 template <int D>
-__global__ void __launch_bounds__(kRows* Split<D>::k)
+__global__ void __launch_bounds__(kRows* f32::Split<D>::k)
     ring_chunk_fwd_f32_kernel(const FwdArgs a) {
-  constexpr int S = Split<D>::k;
-  constexpr int DD = Split<D>::dims;
-  __shared__ __align__(16) float ks[kTile][D];
-  __shared__ __align__(16) float vs[kTile][D];
+  constexpr int S = f32::Split<D>::k;
+  constexpr int DD = f32::Split<D>::dims;
+  constexpr int kTileF = f32::kTile<D>;
+  __shared__ __align__(16) float ks[kTileF][D];
+  __shared__ __align__(16) float vs[kTileF][D];
 
   const float* __restrict__ q = static_cast<const float*>(a.q);
   const float* __restrict__ k = static_cast<const float*>(a.k);
@@ -379,9 +374,9 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
 
   // Under DIAG a block needs keys only up to its last row's diagonal.
   const int kv_end = a.diag ? min(C, q0 + kRows) : C;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+  for (int k0 = 0; k0 < kv_end; k0 += kTileF) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int e = threadIdx.x; e < kTile * D; e += blockDim.x) {
+    for (int e = threadIdx.x; e < kTileF * D; e += blockDim.x) {
       const int r = e / D;
       const int c = e - r * D;
       const int t = k0 + r;
@@ -396,7 +391,7 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
     }
     __syncthreads();
     if (!live) continue;
-    const int n = min(kTile, kv_end - k0);
+    const int n = min(kTileF, kv_end - k0);
     for (int c0 = 0; c0 < n; c0 += kChunk) {
       const int j0 = k0 + c0;
       // Every key from here on is above this row's diagonal. No barrier
@@ -409,7 +404,7 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
         float dot = 0.f;
 #pragma unroll
         for (int i = 0; i < DD; ++i) dot = fmaf(qr[i], ks[c0 + jj][i * S + part], dot);
-        dot = row_sum<S>(dot);
+        dot = f32::row_sum<S>(dot);
         const int j = j0 + jj;
         const bool valid = j < kv_end && (!a.diag || j <= row);
         s[jj] = valid ? dot : kNegInf;
@@ -443,12 +438,13 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kRows* Split<D>::k)
+__global__ void __launch_bounds__(kRows* f32::Split<D>::k)
     ring_chunk_dq_f32_kernel(const BwdArgs a) {
-  constexpr int S = Split<D>::k;
-  constexpr int DD = Split<D>::dims;
-  __shared__ __align__(16) float ks[kTile][D];
-  __shared__ __align__(16) float vs[kTile][D];
+  constexpr int S = f32::Split<D>::k;
+  constexpr int DD = f32::Split<D>::dims;
+  constexpr int kTileF = f32::kTile<D>;
+  __shared__ __align__(16) float ks[kTileF][D];
+  __shared__ __align__(16) float vs[kTileF][D];
 
   const float* __restrict__ q = static_cast<const float*>(a.q);
   const float* __restrict__ k = static_cast<const float*>(a.k);
@@ -490,9 +486,9 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
   }
 
   const int kv_end = a.diag ? min(C, q0 + kRows) : C;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+  for (int k0 = 0; k0 < kv_end; k0 += kTileF) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int e = threadIdx.x; e < kTile * D; e += blockDim.x) {
+    for (int e = threadIdx.x; e < kTileF * D; e += blockDim.x) {
       const int r = e / D;
       const int c = e - r * D;
       const int t = k0 + r;
@@ -507,7 +503,7 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
     }
     __syncthreads();
     if (!live) continue;
-    const int n = min(kTile, kv_end - k0);
+    const int n = min(kTileF, kv_end - k0);
     for (int jj = 0; jj < n; ++jj) {
       // Keys ascend: under DIAG every key from here on is above this
       // row's diagonal. No barrier follows inside this loop.
@@ -520,8 +516,8 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
         s = fmaf(qr[i], ks[jj][d], s);
         dp = fmaf(dor[i], vs[jj][d], dp);
       }
-      s = row_sum<S>(s);
-      dp = row_sum<S>(dp);
+      s = f32::row_sum<S>(s);
+      dp = f32::row_sum<S>(dp);
       const float ds = exp2f(s - lse) * (dp - delta);
 #pragma unroll
       for (int i = 0; i < DD; ++i) acc[i] = fmaf(ds, ks[jj][i * S + part], acc[i]);
@@ -534,14 +530,15 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kRows* Split<D>::k)
+__global__ void __launch_bounds__(kRows* f32::Split<D>::k)
     ring_chunk_dkv_f32_kernel(const BwdArgs a) {
-  constexpr int S = Split<D>::k;
-  constexpr int DD = Split<D>::dims;
-  __shared__ __align__(16) float qs[kTile][D];
-  __shared__ __align__(16) float dos[kTile][D];
-  __shared__ float lse_s[kTile];
-  __shared__ float delta_s[kTile];
+  constexpr int S = f32::Split<D>::k;
+  constexpr int DD = f32::Split<D>::dims;
+  constexpr int kTileF = f32::kTile<D>;
+  __shared__ __align__(16) float qs[kTileF][D];
+  __shared__ __align__(16) float dos[kTileF][D];
+  __shared__ float lse_s[kTileF];
+  __shared__ float delta_s[kTileF];
 
   const float* __restrict__ q = static_cast<const float*>(a.q);
   const float* __restrict__ k = static_cast<const float*>(a.k);
@@ -583,9 +580,9 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
   }
 
   // Under DIAG a block needs queries only from its first key's diagonal on.
-  for (int t0 = a.diag ? k0 : 0; t0 < C; t0 += kTile) {
+  for (int t0 = a.diag ? k0 : 0; t0 < C; t0 += kTileF) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int e = threadIdx.x; e < kTile * D; e += blockDim.x) {
+    for (int e = threadIdx.x; e < kTileF * D; e += blockDim.x) {
       const int r = e / D;
       const int c = e - r * D;
       const int t = t0 + r;
@@ -598,14 +595,14 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
       qs[r][c] = qv;
       dos[r][c] = dov;
     }
-    for (int r = threadIdx.x; r < kTile; r += blockDim.x) {
+    for (int r = threadIdx.x; r < kTileF; r += blockDim.x) {
       const bool in = t0 + r < C;
       lse_s[r] = in ? a.lse[row0 + t0 + r] : 0.f;
       delta_s[r] = in ? a.delta[row0 + t0 + r] : 0.f;
     }
     __syncthreads();
     if (!live) continue;
-    const int n = min(kTile, C - t0);
+    const int n = min(kTileF, C - t0);
     for (int ii = 0; ii < n; ++ii) {
       // Under DIAG queries before this key do not see it.
       if (a.diag && t0 + ii < key) continue;
@@ -617,8 +614,8 @@ __global__ void __launch_bounds__(kRows* Split<D>::k)
         s = fmaf(kr[i], qs[ii][d], s);
         dp = fmaf(vr[i], dos[ii][d], dp);
       }
-      s = row_sum<S>(s);
-      dp = row_sum<S>(dp);
+      s = f32::row_sum<S>(s);
+      dp = f32::row_sum<S>(dp);
       const float p = exp2f(s - lse_s[ii]);
             const float ds = p * (dp - delta_s[ii]);
 #pragma unroll
@@ -646,14 +643,19 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const dim3 grid(B * a.H, (a.C + kRows - 1) / kRows);
   if constexpr (kBf16) {
     if constexpr (K == Kernel::kFwd) {
-      ring_chunk_fwd_bf16_kernel<D><<<grid, fwd::kThreads, 0, stream>>>(a);
+      return tc::launch_kernel(ring_chunk_fwd_bf16_kernel<D>, grid, fwd::kThreads,
+                               sizeof(tc::KvTiles<D, fwd::kTile>), stream, a);
     } else if constexpr (K == Kernel::kDq) {
-      ring_chunk_dq_bf16_kernel<D><<<grid, bwd::kThreads, 0, stream>>>(a);
+      return tc::launch_kernel(ring_chunk_dq_bf16_kernel<D>, grid, bwd::kThreads,
+                               sizeof(tc::KvTiles<D, bwd::kTile>) + bwd::kOwnRowsBytes<D>,
+                               stream, a);
     } else {
-      ring_chunk_dkv_bf16_kernel<D><<<grid, bwd::kThreads, 0, stream>>>(a);
+      const dim3 halves(grid.x, grid.y, D / bwd::kDkvCols<D>);
+      return tc::launch_kernel(ring_chunk_dkv_bf16_kernel<D>, halves, bwd::kThreads,
+                               sizeof(bwd::DkvTiles<D>) + bwd::kOwnRowsBytes<D>, stream, a);
     }
   } else {
-    const int threads = kRows * Split<D>::k;
+    const int threads = kRows * f32::Split<D>::k;
     if constexpr (K == Kernel::kFwd) {
       ring_chunk_fwd_f32_kernel<D><<<grid, threads, 0, stream>>>(a);
     } else if constexpr (K == Kernel::kDq) {
@@ -674,6 +676,8 @@ cudaError_t launch_for_dim(int D, const Args& a, int B, cudaStream_t s) {
       return launch<K, kBf16, 32>(a, B, s);
     case 64:
       return launch<K, kBf16, 64>(a, B, s);
+    case 128:
+      return launch<K, kBf16, 128>(a, B, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,8 +1,9 @@
 // Warp-level tensor-core and asynchronous-copy primitives for sm_80 and
 // later (used here for sm_90a), as inline PTX: 16-byte and 4-byte cp.async
 // with zero-fill, ldmatrix (plain and transposed), and the bf16 -> f32
-// mma.sync m16n8k16; and the fragment loads and the transposed product
-// that the flash kernels (flash_fwd_tile.cuh, flash_bwd_tile.cuh) share.
+// mma.sync m16n8k16; the fragment loads and the transposed product that
+// the flash kernels (flash_fwd_tile.cuh, flash_bwd_tile.cuh) share; and the
+// launch of a kernel on dynamic shared memory.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = threadIdx.x % 32,
 // g = lane / 4, tq = lane % 4; each 32-bit register holds two bf16, the
@@ -22,6 +23,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace tc {
@@ -92,9 +95,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Row stride of a shared-memory tile in elements: D plus 16 bytes, which
 // puts the 8 rows an ldmatrix reads in 8 distinct bank groups at D = 16,
-// 32 and 64.
+// 32, 64 and 128.
 template <int D>
 constexpr int kStride = D + 8;
+
+// Double-buffered shared-memory tiles of kTile K and V rows (69.6 KB at
+// D = 128 and kTile = 64, so the kernels take them as dynamic shared
+// memory; see launch_kernel).
+template <int D, int kTile>
+struct KvTiles {
+  __nv_bfloat16 k[2][kTile * kStride<D>];
+  __nv_bfloat16 v[2][kTile * kStride<D>];
+};
 
 // A fragments of 16 rows [r0, r0 + 16) of one slice (row stride sT), over
 // the D / 16 k-steps of the head dim; rows at or past T are zero.
@@ -117,22 +129,54 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4],
   }
 }
 
-// acc[16 x D] += a (16 x 16) . B, where B is 16 rows of a shared-memory
-// tile starting at `rows` (k = tile row, n = head dim), read transposed.
-template <int D>
-__device__ __forceinline__ void chunk_accumulate(float (&acc)[D / 8][4], const uint32_t (&a)[4],
+// acc[16 x N] += a (16 x 16) . B, where B is 16 rows of a shared-memory
+// tile of D-wide rows starting at `rows` (k = tile row, n = the N head dims
+// from `rows`' column: all D by default), read transposed.
+template <int D, int N = D>
+__device__ __forceinline__ void chunk_accumulate(float (&acc)[N / 8][4], const uint32_t (&a)[4],
                                                  const __nv_bfloat16* rows) {
   const int lane = threadIdx.x & 31;
   // Matrices (rows 0-7, dims 0-7), (rows 8-15, dims 0-7), (rows 0-7,
   // dims 8-15), (rows 8-15, dims 8-15) of each 16-dim pair of n-tiles.
   const int off = ((lane & 7) + ((lane >> 3) & 1) * 8) * kStride<D> + (lane >> 4) * 8;
 #pragma unroll
-  for (int np = 0; np < D / 16; ++np) {
+  for (int np = 0; np < N / 16; ++np) {
     uint32_t b[4];
     ldmatrix_x4_trans(b, rows + off + np * 16);
     mma_bf16(acc[2 * np], a, b[0], b[1]);
     mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
   }
+}
+
+// A fragment of 16 rows of a shared-memory tile starting at `rows` (row
+// stride kStride<D>), k-step kk: matrices (rows 0-7, cols 0-7), (rows 8-15,
+// cols 0-7), (rows 0-7, cols 8-15), (rows 8-15, cols 8-15) of its 16 dims,
+// the layout load_a_frags gives.
+template <int D>
+__device__ __forceinline__ void ldmatrix_a_frag(uint32_t (&a)[4], const __nv_bfloat16* rows,
+                                                int kk) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(a, rows + (lane & 15) * kStride<D> + (lane >> 4) * 8 + kk * 16);
+}
+
+// -- launch ---------------------------------------------------------------
+
+// Launches kernel<<<grid, threads, bytes, stream>>>(a) on `bytes` of
+// dynamic shared memory. A block may take more than 48 KB (up to 227 KB on
+// Hopper) only after the kernel's limit is raised, which the head dim 128
+// tiles need; the limit is set before each such launch, for the current
+// device. Returns the first error (0 on success), so a refused launch
+// raises in the wrapper.
+template <typename Args>
+inline cudaError_t launch_kernel(void (*kernel)(Args), dim3 grid, int threads, size_t bytes,
+                                 cudaStream_t stream, const Args& a) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, threads, bytes, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace tc

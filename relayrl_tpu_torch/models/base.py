@@ -134,3 +134,7 @@ def validate_policy(policy: Policy, params) -> None:
     act_arr = np.asarray(act.cpu())
     if act_arr.ndim > 1:
         raise ValueError(f"policy step returned act of rank {act_arr.ndim} for single obs")
+
+
+def mlp_sizes(arch: Mapping[str, Any]) -> tuple[int, ...]:
+    return tuple(int(h) for h in arch.get("hidden_sizes", (128, 128)))

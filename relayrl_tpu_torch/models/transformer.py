@@ -22,7 +22,7 @@ attention over the ambient mesh's ``sp`` axis
 by 8, else the scan ring (:mod:`relayrl_tpu_torch.parallel.ring`); with no
 mesh, or ``sp`` 1, blockwise or dense, so actors serve the arch the
 learner trains. On a CUDA device ``"flash"`` and ``"ring"`` take head dims
-up to 64, the flash kernels' widest (narrower ones are zero-padded to a
+up to 128, the flash kernels' widest (narrower ones are zero-padded to a
 kernel width); building the policy for a CUDA device refuses a wider one.
 The KV-cache decode path and the MoE and pipeline families are not ported
 yet.
@@ -49,6 +49,8 @@ from relayrl_tpu_torch.models.mlp import (
     _categorical_logp,
     _categorical_sample,
     _compute_dtype,
+    _dense,
+    init_dense,
 )
 from relayrl_tpu_torch.ops.attention import blockwise_attention, dense_attention
 from relayrl_tpu_torch.ops.flash import KERNEL_HEAD_DIMS, flash_attention
@@ -96,12 +98,6 @@ def _resolve_attention(arch: Mapping[str, Any]) -> Callable:
             return make_ring_attention(mesh)(q, k, v)
         return ring_or_local
     raise ValueError(f"attention kind {kind!r} is unknown or not ported")
-
-
-def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=...)``: input and f32 params cast to ``dtype``,
-    the matmul, then the bias added in ``dtype``."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -220,10 +216,7 @@ def _init_core(core: TransformerCore, generator: torch.Generator) -> None:
     normal(0.02)."""
     for module in core.modules():
         if isinstance(module, nn.Linear):
-            std = module.in_features ** -0.5 / 0.87962566103423978
-            nn.init.trunc_normal_(module.weight, std=std, a=-2 * std,
-                                  b=2 * std, generator=generator)
-            nn.init.zeros_(module.bias)
+            init_dense(module, generator)
         elif isinstance(module, nn.LayerNorm):
             nn.init.ones_(module.weight)
             nn.init.zeros_(module.bias)

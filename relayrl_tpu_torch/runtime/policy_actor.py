@@ -1,15 +1,17 @@
 """Actor-side policy holder: inference + ActionRecord assembly + hot-swap.
 
-Counterpart of :mod:`relayrl_tpu.runtime.policy_actor`, on the window path:
-a sequence policy acts from a rolling observation-history window, each
-step one forward over the padded window (the KV-cache decode path is not
-ported yet, so ``Policy.step_cached`` is None and the window path is the
-only one, as in the JAX actor when it has no cache). The model-wire v2
-swap and the telemetry and trace hooks come with the transport slice;
-plain integer counters stand in for the telemetry counters.
+Counterpart of :mod:`relayrl_tpu.runtime.policy_actor`. A per-step policy
+(the MLP families) acts on each observation alone; a sequence policy acts
+from a rolling observation-history window, each step one forward over the
+padded window (the KV-cache decode path is not ported yet, so
+``Policy.step_cached`` is None and the window path is the only one, as in
+the JAX actor when it has no cache). The model-wire v2 swap and the
+telemetry and trace hooks come with the transport slice; plain integer
+counters stand in for the telemetry counters.
 
-Records carry what the JAX actors put on the wire: ``act`` an int32 array,
-``logp_a`` and ``v`` float32 0-d arrays, so per-record bytes match.
+Records carry what the JAX actors put on the wire: ``act`` an int32 array
+(discrete) or a float32 vector (continuous), ``logp_a`` and ``v`` float32
+0-d arrays, so per-record bytes match.
 """
 
 from __future__ import annotations
@@ -93,26 +95,37 @@ def normalize_obs(obs) -> np.ndarray:
             else obs.astype(np.float32, copy=False))
 
 
+def _act_to_host(act: torch.Tensor) -> np.ndarray:
+    """Actions as the JAX actors ship them: int32 (discrete) or float32
+    (continuous)."""
+    return act.to(torch.float32 if act.is_floating_point() else torch.int32).cpu().numpy()
+
+
 def _to_host(act: torch.Tensor, aux: dict[str, torch.Tensor]):
-    """Batched step outputs -> (int32 actions [N], {key: float32 [N]})."""
-    return (act.to(torch.int32).cpu().numpy(),
+    """Batched step outputs -> (actions [N, ...], {key: float32 [N]})."""
+    return (_act_to_host(act),
             {k: a.to(torch.float32).cpu().numpy() for k, a in aux.items()})
 
 
 def make_batched_step(policy):
-    """Sampling step over stacked per-lane observations, each lane a
-    context of one: ``fn(params, generator, obs[N, ...], masks, explore)
-    -> (acts[N] int32, {logp_a, v: [N] float32})`` as numpy. ``masks`` is
-    None or ``[N, act_dim]``; ``explore`` is the
-    :func:`exploration_kwargs` dict."""
+    """Sampling step over stacked per-lane observations, each lane acting
+    on its observation alone (a sequence policy's context of one):
+    ``fn(params, generator, obs[N, ...], masks, explore) -> (acts[N, ...],
+    {logp_a, v: [N] float32})`` as numpy, actions int32 (discrete) or
+    float32 (continuous). ``masks`` is None or ``[N, act_dim]``;
+    ``explore`` is the :func:`exploration_kwargs` dict."""
+    # A sequence policy reads the second-to-last axis as time.
+    sequence = policy.step_window is not None
+
     def fn(params, generator, obs, masks, explore):
         obs = torch.as_tensor(obs, dtype=torch.float32, device=policy.device)
         if masks is not None:
-            masks = torch.as_tensor(masks, dtype=torch.float32,
-                                    device=policy.device)[:, None]
+            masks = torch.as_tensor(masks, dtype=torch.float32, device=policy.device)
+        if sequence:
+            obs = obs[:, None]
+            masks = None if masks is None else masks[:, None]
         with torch.inference_mode():
-            act, aux = policy.step(params, generator, obs[:, None], masks,
-                                   **explore)
+            act, aux = policy.step(params, generator, obs, masks, **explore)
         return _to_host(act, aux)
     return fn
 
@@ -260,9 +273,9 @@ class PolicyActor:
                 self._window_len = 0
 
     def deterministic_action(self, obs, mask=None) -> np.ndarray:
-        """Greedy action (int32). For sequence policies this ADVANCES the
-        history window; call flag_last_action or reset_episode at episode
-        end to reset it."""
+        """Greedy action (int32, or float32 for a continuous policy). For
+        sequence policies this ADVANCES the history window; call
+        flag_last_action or reset_episode at episode end to reset it."""
         obs_arr = np.asarray(obs, np.float32)
         mask_arr = None if mask is None else np.asarray(mask, np.float32)
         with self._lock, torch.inference_mode():
@@ -272,5 +285,5 @@ class PolicyActor:
                                               self._window_len, mask_arr)
             else:
                 act = self.policy.mode(self.params, obs_arr, mask_arr)
-            return act.to(torch.int32).cpu().numpy()
+            return _act_to_host(act)
 

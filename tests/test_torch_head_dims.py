@@ -1,14 +1,15 @@
-"""Head dims the flash kernels are not instantiated for: the port against the JAX package.
+"""Head dims the flash kernels are not instantiated for, and the widest
+one: the port against the JAX package.
 
-The port's kernels take head dims 16, 32 and 64. ``flash_attention`` and
-the flash rings zero-pad a narrower head dim to the next of them, on every
-device, run the kernels (on the CPU: their plain versions) with every scale
-from the true head dim, and slice the results back; a transformer asked to
-run the flash kernels on a CUDA device with a wider head dim is refused when
-it is built. Here, on the CPU, the padded path is held to the JAX package's
-Pallas kernels in interpret mode, which take any head dim, at the f32 bars
-of tests/test_flash.py; and the refusal is checked without a GPU (building
-a policy allocates nothing).
+The port's kernels take head dims 16, 32, 64 and 128. ``flash_attention``
+and the flash rings zero-pad a narrower head dim to the next of them, on
+every device, run the kernels (on the CPU: their plain versions) with every
+scale from the true head dim, and slice the results back; a transformer
+asked to run the flash kernels on a CUDA device with a head dim above 128
+is refused when it is built. Here, on the CPU, the padded path and head dim
+128 are held to the JAX package's Pallas kernels in interpret mode, which
+take any head dim, at the f32 bars of tests/test_flash.py; and the refusal
+is checked without a GPU (building a policy allocates nothing).
 """
 
 import jax
@@ -52,7 +53,8 @@ def _arrays(shape, seed, n=4):
     return [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
 
 
-@pytest.mark.parametrize("D,width", [(8, 16), (24, 32), (48, 64), (1, 16)])
+@pytest.mark.parametrize("D,width", [(8, 16), (24, 32), (48, 64), (1, 16), (96, 128),
+                                     (65, 128)])
 def test_pad_head_dim_pads_to_the_next_kernel_width(D, width):
     q, k = (torch.from_numpy(x) for x in _arrays((2, 5, 3, D), seed=D, n=2))
     (qp, kp), got_d = pad_head_dim(q, k)
@@ -62,7 +64,7 @@ def test_pad_head_dim_pads_to_the_next_kernel_width(D, width):
         assert torch.equal(xp[..., :D], x) and not xp[..., D:].any()
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
 def test_pad_head_dim_keeps_kernel_widths_and_wider(D):
     q = torch.zeros((1, 2, 1, D))
     (qp,), got_d = pad_head_dim(q)
@@ -70,12 +72,12 @@ def test_pad_head_dim_keeps_kernel_widths_and_wider(D):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [8, 24])
+@pytest.mark.parametrize("D", [8, 24, 96, 128])
 def test_padded_flash_matches_pallas_interpret(D, causal):
     """O, lse2 and the gradients of ``sum(O * w)`` in q, k and v through
-    the port's ``flash_attention`` at head dims 8 and 24 (padded to 16 and
-    32, plain versions) against the JAX package's ``flash_attention`` in
-    interpret mode."""
+    the port's ``flash_attention`` at head dims 8, 24 and 96 (padded to 16,
+    32 and 128) and 128 (the widest kernel width, unpadded), plain versions,
+    against the JAX package's ``flash_attention`` in interpret mode."""
     q, k, v, w = _arrays((2, 17, 2, D), seed=D + causal)
 
     def out_and_grads(q, k, v):
@@ -112,7 +114,17 @@ def test_padded_ring_flash_matches_jax(causal):
     ring at head dim 8 (padded to 16, plain chunk versions) over an sp 4
     mesh of the CPU, against the JAX package's flash ring in interpret
     mode on 4 CPU devices."""
-    q, k, v, w = _arrays((2, 64, 2, 8), seed=7 + causal)
+    _check_ring_flash_matches_jax(8, causal)
+
+
+@pytest.mark.parametrize("D", [96, 128])
+def test_wide_ring_flash_matches_jax(D):
+    """The same causal ring at head dims 96 (padded to 128) and 128."""
+    _check_ring_flash_matches_jax(D, True)
+
+
+def _check_ring_flash_matches_jax(D, causal):
+    q, k, v, w = _arrays((2, 64, 2, D), seed=7 + causal)
     jax_mesh = jax_make_mesh({"dp": 1, "fsdp": 1, "tp": 1, "sp": 4}, jax.devices()[:4])
     jax_ring = jax_make_ring_flash(jax_mesh, causal=causal, interpret=True)
 
@@ -134,7 +146,16 @@ def test_padded_ring_flash_matches_jax(causal):
 
 
 def test_padded_chunked_flash_local_matches_jax():
-    q, k, v, _ = _arrays((2, 32, 2, 8), seed=11)
+    _check_chunked_flash_local_matches_jax(8)
+
+
+@pytest.mark.parametrize("D", [96, 128])
+def test_wide_chunked_flash_local_matches_jax(D):
+    _check_chunked_flash_local_matches_jax(D)
+
+
+def _check_chunked_flash_local_matches_jax(D):
+    q, k, v, _ = _arrays((2, 32, 2, D), seed=11)
     want = jax.jit(lambda q, k, v: jax_chunked_flash_local(
         q, k, v, n_chunks=2, causal=True, interpret=True))(q, k, v)
     got = chunked_flash_local(*(torch.from_numpy(x) for x in (q, k, v)), 2, True)
@@ -160,12 +181,13 @@ def _arch(attention, d_model, n_heads):
 @pytest.mark.parametrize("attention", ["flash", "ring"])
 def test_cuda_transformer_refuses_head_dims_above_64(attention):
     """Asked for a CUDA device, a transformer whose flash or ring attention
-    would run the kernels at head dim 128 is refused when it is built,
-    with the head dim and the limit named; nothing touches the device, so
-    this holds on a machine without a GPU. On the CPU the same arch builds
-    and runs (the plain versions take any head dim)."""
-    arch = _arch(attention, d_model=256, n_heads=2)
-    with pytest.raises(ValueError, match=r"up to 64.*head dim 128"):
+    would run the kernels at head dim 256, above the widest kernel (128),
+    is refused when it is built, with the head dim and the limit named;
+    nothing touches the device, so this holds on a machine without a GPU.
+    On the CPU the same arch builds and runs (the plain versions take any
+    head dim)."""
+    arch = _arch(attention, d_model=512, n_heads=2)
+    with pytest.raises(ValueError, match=r"up to 128.*head dim 256"):
         build_policy(arch, device="cuda")
     policy = build_policy(arch, device="cpu")
     params = policy.init_params(torch.Generator().manual_seed(0))
@@ -178,7 +200,9 @@ def test_cuda_transformer_refuses_head_dims_above_64(attention):
 
 @pytest.mark.parametrize("attention,d_model,n_heads", [
     ("flash", 16, 2),     # head dim 8, tests/test_anakin.py's arch: padded
-    ("ring", 128, 2),     # head dim 64, the widest kernel
+    ("ring", 128, 2),     # head dim 64
+    ("flash", 256, 2),    # head dim 128, the widest kernel
+    ("ring", 256, 2),
     ("dense", 256, 2),    # head dim 128 without the flash kernels
 ])
 def test_cuda_transformer_builds_within_the_limit(attention, d_model, n_heads):

@@ -123,7 +123,7 @@ B, C, H, D = 2, 16, 2, 16
 # (chunk length, head dim) of the plain-vs-Pallas chunk cases: every head
 # dim the CUDA kernels instantiate, and a chunk that is not a multiple of
 # 16 (the tensor-core kernels' fragment height).
-CHUNK_SHAPES = [(16, 16), (24, 32), (16, 64)]
+CHUNK_SHAPES = [(16, 16), (24, 32), (16, 64), (16, 128)]
 
 
 def _bhcd_to_jax(x: torch.Tensor):
@@ -570,12 +570,13 @@ def test_ring_kernels_match_plain_on_gpu(cuda_device, dtype):
     """K4, K5 and K6 against their plain versions on the card, on q, k, v
     laid out as the model passes them (views of one fused projection) and
     a carried state, in both modes, at C 8, 64, 65 (one row past the
-    tensor-core kernels' 64-row tile) and 130 and head dims 16, 32 and 64;
+    tensor-core kernels' 64-row tile) and 130 and head dims 16, 32, 64 and
+    128;
     then the flash ring through the kernels against dense attention,
     forward and backward."""
     gen = torch.Generator().manual_seed(9)
     t = _TORCH[dtype]
-    for c, d in ((8, 32), (64, 32), (65, 32), (65, 16), (130, 64)):
+    for c, d in ((8, 32), (64, 32), (65, 32), (65, 16), (130, 64), (65, 128)):
         qkv = torch.randn((2, c, 3, 2, d), generator=gen).to(cuda_device, t)
         q, k, v = qkv.unbind(2)
         do = torch.randn((2, c, 2, d), generator=gen).to(cuda_device, t)
