@@ -50,20 +50,29 @@ Phases, each of which fails the run:
    first update through the kernels with the same update through the
    chunk kernels' plain versions and ``evaluate`` through the ring with
    ``evaluate`` through K1, and times and profiles an update;
-8. head dim 128: the transformer at d_model 512 with 4 heads of 128 (2
-   layers, T 256, bf16, flash) builds on the card; 8 port actors serve it;
-   its ``evaluate`` and first REINFORCE update through K1-K3 match the
-   plain attention (phases 4 and 5's bars), with exact launch counts;
+8. wide heads: the transformer at d_model 512 with 4 heads of 128 and at
+   d_model 1024 with 4 heads of 256 (2 layers, T 256, bf16, flash) builds
+   on the card; 8 port actors serve it; its ``evaluate`` and first
+   REINFORCE update through K1-K3 match the plain attention (phases 4 and
+   5's bars), with exact launch counts;
 9. the local loop: ``LocalRunner`` on CartPole-v1 (``mlp_discrete``, the
    cartpole_reinforce_baseline golden's hyperparameters) for a few
    updates; and ``LocalRunner`` on ``RecallEnv(8)`` with the
-   recall_transformer golden's flash transformer, its K1, K2 and K3
-   launches counted per update and over the run; in both, one update on
-   the card held to the same update on the CPU (f32).
+   recall_transformer golden's flash transformer, its actor serving
+   through the KV cache, its K1, K2 and K3 launches counted per update and
+   over the run; in both, one update on the card held to the same update
+   on the CPU (f32);
+10. cached decode: a ``PolicyActor`` serving the flagship arch through its
+   KV cache beside one serving through the window, over ``RecallEnv``
+   episodes that outgrow the window, with a hot swap: the same values
+   before the window rolls (the bf16 bar), one prefill for the swap, no
+   flash kernel on the cached path, and the ms per env step of both.
 
-Phases 3 and 6 also hold every kernel to its plain version at head dim
-128 (bf16 and f32, [8, 256, 4, 128] and [8, 64, 4, 128] chunks, ragged T
-and C) and at head dim 96 (padded to 128), and time K1-K6 there.
+Phases 3 and 6 also hold every kernel to its plain version at head dims
+128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
+128] and [8, 64, 2, 256] chunks, ragged T and C, and the sp = 4 ring at
+head dim 256, whose chunk kernels resume their state over 4 rounds) and
+at head dims 96 and 192 (padded to 128 and 256), and time K1-K6 there.
 
 The second-to-last line is the kernels' JSON; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
@@ -86,6 +95,11 @@ DISPATCHES = 320
 HORIZON = 300     # RecallEnv episode length: above max_seq_len, so windows roll
 N_CUES = 16
 SEED = 0
+# The cached-decode phase (10): CACHED_EPISODES RecallEnv(HORIZON) episodes
+# served by one actor through the KV cache and one through the window, a
+# hot swap at step CACHED_SWAP_AT of the first.
+CACHED_EPISODES = 2
+CACHED_SWAP_AT = 128
 SLICE_ARCH = {
     "kind": "transformer_discrete",
     "d_model": 256,
@@ -153,20 +167,29 @@ SHARED_TILE_STEP = {"ring_chunk_dq": "flash_dq", "ring_chunk_dkv": "flash_dkv"}
 # in a masked and an unmasked body, grow with D; K4, K5 and K6 share K1's,
 # K2's and K3's steps. At D = 128 a K3 or K6 block accumulates dk and dv
 # over half the head dim (bwd::kDkvCols), so 48 products per 16-query
-# chunk where all 128 columns would take 64.
-_FWD_HMMA = {16: 32, 32: 64, 64: 128, 128: 256}
-_DQ_HMMA = {16: 48, 32: 96, 64: 192, 128: 384}
-_DKV_HMMA = {16: 64, 32: 128, 64: 256, 128: 384}
+# chunk where all 128 columns would take 64. At D = 256 every block owns
+# part of its output's columns: K1/K4 128 of O's (32 products of S and 16
+# of P.V per 16-key chunk), K2/K5 128 of dq's (16 of dS.K), K3/K6 64 of
+# dk's and dv's (8 + 8); the backward's S and dP run as a loop of 4 unrolled
+# k-steps a trip (bwd::kScoreSteps), so 16 products of them in the SASS.
+_FWD_HMMA = {16: 32, 32: 64, 64: 128, 128: 256, 256: 384}
+_DQ_HMMA = {16: 48, 32: 96, 64: 192, 128: 384, 256: 256}
+_DKV_HMMA = {16: 64, 32: 128, 64: 256, 128: 384, 256: 256}
 TENSOR_CORE_COUNTS = {"flash_fwd": _FWD_HMMA, "ring_chunk_fwd": _FWD_HMMA,
                       "flash_dq": _DQ_HMMA, "ring_chunk_dq": _DQ_HMMA,
                       "flash_dkv": _DKV_HMMA, "ring_chunk_dkv": _DKV_HMMA}
-# The widest head dim the kernels take, and the shapes phase 3 and 6 check
-# it at: [8, 256, 4, 128] for the flash kernels (a d_model 512, 4-head
-# transformer's), [8, 64, 4, 128] chunks for the ring's.
+# The wide head dims the kernels take, and the shapes phases 3 and 6 check
+# them at: [8, 256, 4, 128] and [8, 256, 2, 256] for the flash kernels (a
+# d_model 512 transformer's 4 heads, a d_model 512 one's 2 heads),
+# [8, 64, 4, 128] and [8, 64, 2, 256] chunks for the ring's. Head dims 96
+# and 192 reach them through the padding.
 WIDE_D, WIDE_H = 128, 4
-# The D = 128 transformer (phase 8): the widest head dim the kernels take,
-# at the flagship's context, trained by the same learner.
+WIDEST_D, WIDEST_H = 256, 2
+# The wide transformers (phase 8), at the flagship's context, trained by
+# the same learner: head dim 128 (d_model 512, 4 heads) and 256, the
+# widest kernel (d_model 1024, 4 heads).
 WIDE_ARCH = {**SLICE_ARCH, "d_model": 512, "n_heads": 4, "n_layers": 2}
+WIDEST_ARCH = {**SLICE_ARCH, "d_model": 1024, "n_heads": 4, "n_layers": 2}
 # The local loop (phase 9): the cartpole_reinforce_baseline golden's
 # hyperparameters (examples/golden/cartpole_reinforce_baseline/config.json)
 # for LOCAL_UPDATES updates, and the recall_transformer golden's
@@ -396,13 +419,14 @@ def check_flash_bwd(device) -> dict:
     (f32 and bf16, causal and not), head dim 64 at T = 130, and in bf16,
     causal and not, the tensor-core kernels' tile edges: T = 64 (one whole
     tile), T = 65 (one row past it) and head dim 16; and at the widest head
-    dim, [8, T, 4, 128] (T = 256 and 130, f32 and bf16, causal and not).
-    Times at the slice's shape and at [8, 256, 4, 128] (bf16 causal): each
-    kernel alone (on a prescaled q), and the whole backward as the learner
-    runs it (``torch.autograd.grad`` through ``flash_attention``: delta, the
-    prescaled q, K2 and K3) beside SDPA's backward. Returns {"flash_dq":
-    ..., "flash_dkv": ...} for the slice's shape, each with the head dim 128
-    measurements under ``"d128"``."""
+    dims, [8, T, 4, 128] and [8, T, 2, 256] (T = 256 and 130, f32 and bf16,
+    causal and not). Times at the slice's shape, at [8, 256, 4, 128] and at
+    [8, 256, 2, 256] (bf16 causal): each kernel alone (on a prescaled q),
+    and the whole backward as the learner runs it (``torch.autograd.grad``
+    through ``flash_attention``: delta, the prescaled q, K2 and K3) beside
+    SDPA's backward. Returns {"flash_dq": ..., "flash_dkv": ...} for the
+    slice's shape, each with the head dim 128 and 256 measurements under
+    ``"d128"`` and ``"d256"``."""
     import torch
     import torch.nn.functional as F
 
@@ -423,16 +447,18 @@ def check_flash_bwd(device) -> dict:
     gen = torch.Generator().manual_seed(SEED + 1)
     main_case = (torch.bfloat16, True, T_main, H, D)
     wide_case = (torch.bfloat16, True, T_main, WIDE_H, WIDE_D)
+    widest_case = (torch.bfloat16, True, T_main, WIDEST_H, WIDEST_D)
+    timed = {wide_case: "d128", widest_case: "d256"}
     dtypes = (torch.bfloat16, torch.float32)
-    cases = [main_case, wide_case]
+    cases = [main_case, wide_case, widest_case]
     cases += [(dtype, causal, T, H, D) for dtype in dtypes
               for causal in (True, False) for T in (1, 17, 130)]
     cases += [(torch.bfloat16, True, 130, H, 64), (torch.float32, False, 130, H, 64)]
     cases += [(torch.bfloat16, causal, T, H, d) for causal in (True, False)
               for T, d in ((64, D), (65, D), (65, 16), (130, 16))]
-    cases += [(dtype, causal, T, WIDE_H, WIDE_D) for dtype in dtypes
-              for causal in (True, False) for T in (T_main, 130)
-              if (dtype, causal, T, WIDE_H, WIDE_D) != wide_case]
+    cases += [(dtype, causal, T, h, d) for h, d in ((WIDE_H, WIDE_D), (WIDEST_H, WIDEST_D))
+              for dtype in dtypes for causal in (True, False) for T in (T_main, 130)
+              if (dtype, causal, T, h, d) not in (wide_case, widest_case)]
     main = {"flash_dq": {}, "flash_dkv": {}}
     for case in cases:
         dtype, causal, T, H, d = case
@@ -464,7 +490,7 @@ def check_flash_bwd(device) -> dict:
                     f"q,k,v,do=[{B},{T},{H},{d}] max_abs_err "
                     + "/".join(f"{e:.3e}" for e in errs) + " (tol "
                     + "/".join(f"{b:.3e}" for b in bars) + ")")
-            if case in (main_case, wide_case):
+            if case == main_case or case in timed:
                 launch = _launch_dq if kernel == "flash_dq" else _launch_dkv
                 plain = (flash_attention_dq_plain if kernel == "flash_dq"
                          else flash_attention_dkv_plain)
@@ -472,16 +498,16 @@ def check_flash_bwd(device) -> dict:
                 plain_ms = time_ms(lambda: plain(*args), iters=20)
                 bound_ms, bound_by = flash_bwd_bound(
                     B, T, H, d, name, causal, kernel.removeprefix("flash_"))
-                timed = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by}
+                measured = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by}
                 if case == main_case:
-                    main[kernel].update(timed)
+                    main[kernel].update(measured)
                 else:
-                    main[kernel]["d128"] = {"shape": [B, T, H, d], **timed}
+                    main[kernel][timed[case]] = {"shape": [B, T, H, d], **measured}
                 line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
                          f"bound_ms={bound_ms:.4f} ({bound_by})")
             print(line, flush=True)
-        if case in (main_case, wide_case):
+        if case == main_case or case in timed:
             # The yardstick: SDPA's backward for the same q, k, v and do
             # (it computes dq, dk and dv in one call).
             qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
@@ -504,7 +530,7 @@ def check_flash_bwd(device) -> dict:
                 profile_device(lambda: torch.autograd.grad(
                     flash_out, (qg, kg, vg), do, retain_graph=True), 20, "backward")
             for kernel in main:
-                into = main[kernel] if case == main_case else main[kernel]["d128"]
+                into = main[kernel] if case == main_case else main[kernel][timed[case]]
                 into["library_ms"] = library_ms
                 into["backward_ms"] = backward_ms
     for kernel in main:
@@ -519,14 +545,15 @@ def check_flash(device) -> dict:
     ([8, 256, 8, 32]); at [8, T, 8, D] for the tensor-core kernel's tile
     edges (T = 64, 65), head dims 16 and 64 (T = 130), and head dims 8 and
     24 (T = 65, padded to 16 and 32 by ``flash_attention``); and at the
-    widest head dim, [8, T, 4, 128] (T = 256 and 130), and head dim 96
-    (T = 65, padded to 128). At the padded head dims the gradients through
-    ``flash_attention`` are held to the plain backward too. Times K1 and
-    SDPA, with the bound, at the serving shape (and the plain version, bf16
-    causal), at the learner's and at [8, 256, 4, 128] (bf16 causal, and the
-    plain version). Returns the serving shape's bf16 causal measurements,
-    with the learner shape's and the head dim 128 ones (``"d128"``) beside
-    them."""
+    wide head dims, [8, T, 4, 128] and [8, T, 2, 256] (T = 256 and 130), and
+    head dims 96 and 192 (T = 65, padded to 128 and 256). At the padded
+    head dims the gradients through ``flash_attention`` are held to the
+    plain backward too. Times K1 and SDPA, with the bound, at the serving
+    shape (and the plain version, bf16 causal), at the learner's and at
+    [8, 256, 4, 128] and [8, 256, 2, 256] (bf16 causal, and the plain
+    version). Returns the serving shape's bf16 causal measurements, with
+    the learner shape's and the head dim 128 and 256 ones (``"d128"``,
+    ``"d256"``) beside them."""
     import torch
     import torch.nn.functional as F
 
@@ -542,15 +569,20 @@ def check_flash(device) -> dict:
     serving = (torch.bfloat16, True, LANES, T_main, H, D)
     learner = (torch.bfloat16, True, B_learn, T_main, H, D)
     wide = (torch.bfloat16, True, B_learn, T_main, WIDE_H, WIDE_D)
+    widest = (torch.bfloat16, True, B_learn, T_main, WIDEST_H, WIDEST_D)
+    timed = {wide: "d128", widest: "d256"}
     dtypes = (torch.bfloat16, torch.float32)
-    cases = [serving, learner, wide]
+    cases = [serving, learner, wide, widest]
     cases += [(dtype, causal, LANES, T, H, D) for dtype in dtypes for causal in (True, False)
               for T in (T_main, 17, 1) if (dtype, causal, LANES, T, H, D) != serving]
     cases += [(dtype, causal, B_learn, T, H, d) for dtype in dtypes for causal in (True, False)
               for T, d in ((64, D), (65, D), (130, 16), (130, 64), (65, 8), (65, 24))]
-    cases += [(dtype, causal, B_learn, T, WIDE_H, d) for dtype in dtypes
-              for causal in (True, False) for T, d in ((T_main, WIDE_D), (130, WIDE_D), (65, 96))
-              if (dtype, causal, B_learn, T, WIDE_H, d) != wide]
+    cases += [(dtype, causal, B_learn, T, h, d) for dtype in dtypes
+              for causal in (True, False)
+              for h, T, d in ((WIDE_H, T_main, WIDE_D), (WIDE_H, 130, WIDE_D), (WIDE_H, 65, 96),
+                              (WIDEST_H, T_main, WIDEST_D), (WIDEST_H, 130, WIDEST_D),
+                              (WIDEST_H, 65, 192))
+              if (dtype, causal, B_learn, T, h, d) not in timed]
     gen = torch.Generator().manual_seed(SEED)
     main = {}
     for case in cases:
@@ -584,7 +616,7 @@ def check_flash(device) -> dict:
                 + (" (padded; O, lse2, dq, dk, dv)" if padded else " (O, lse2)")
                 + " max_abs_err " + "/".join(f"{e:.3e}" for e in errs) + " (tol "
                 + "/".join(f"{b:.3e}" for b in bars) + ")")
-        if case in (serving, learner, wide):
+        if case in (serving, learner) or case in timed:
             ms = time_ms(lambda: flash_attention(q, k, v, causal))
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -604,9 +636,9 @@ def check_flash(device) -> dict:
             else:
                 plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal), iters=20)
                 line += f" plain_ms={plain_ms:.4f}"
-                main["d128"] = {"shape": [B, T, H, d], "max_abs_err": max(errs), "ms": ms,
-                                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                "bound_by": bound_by, "library_ms": library_ms}
+                main[timed[case]] = {"shape": [B, T, H, d], "max_abs_err": max(errs),
+                                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                     "bound_by": bound_by, "library_ms": library_ms}
         print(line, flush=True)
     main["head_dims"] = sorted({case[-1] for case in cases})
     return main
@@ -668,14 +700,15 @@ def check_ring_chunks(device) -> dict:
     shape ([8, 64, 8, 32], sp 4 over T 256) in bf16 and f32, FULL and DIAG
     on a carried state and FULL on a fresh one (a non-causal ring's first
     round); at C 8, 65 (one row past K4's 64-key tile) and 128; at head
-    dims 16 and 64; and at the widest head dim, [8, C, 4, 128] chunks (C =
-    64 and 65), FULL and DIAG on a carried state. Times, bounds and plain
-    times at the learner's shape, bf16, FULL (6 of a ring's 10 rounds) and
-    DIAG, and at [8, 64, 4, 128]. Then the flash ring at head dims 8 and 96
-    (padded to 16 and 128) through ``ring_flash_attention_sharded`` against
-    the ring of plain chunk versions, forward and gradients. Returns
+    dims 16 and 64; and at the wide head dims, [8, C, 4, 128] and [8, C, 2,
+    256] chunks (C = 64 and 65), FULL and DIAG on a carried state. Times,
+    bounds and plain times at the learner's shape, bf16, FULL (6 of a
+    ring's 10 rounds) and DIAG, and at [8, 64, 4, 128] and [8, 64, 2, 256].
+    Then the flash ring through ``ring_flash_attention_sharded`` against
+    the ring of plain chunk versions, forward and gradients
+    (:func:`check_padded_ring`). Returns
     {"ring_chunk_fwd": ..., ...} for bf16 FULL, each with its head dim 128
-    measurements under ``"d128"``."""
+    and 256 measurements under ``"d128"`` and ``"d256"``."""
     import torch
 
     from relayrl_tpu_torch.parallel import ring_flash as rf
@@ -691,8 +724,9 @@ def check_ring_chunks(device) -> dict:
     cases += [(dtype, rf.MODE_FULL, False, C, H, D) for dtype in dtypes]
     cases += [(dtype, mode, True, c, H, d) for dtype in dtypes for mode in modes
               for c, d in ((8, D), (65, D), (128, D), (C, 16), (C, 64))]
-    cases += [(dtype, mode, True, c, WIDE_H, WIDE_D) for dtype in dtypes for mode in modes
-              for c in (C, 65)]
+    cases += [(dtype, mode, True, c, h, d) for h, d in ((WIDE_H, WIDE_D), (WIDEST_H, WIDEST_D))
+              for dtype in dtypes for mode in modes for c in (C, 65)]
+    timed = {D: None, WIDE_D: "d128", WIDEST_D: "d256"}
     main = {f"ring_chunk_{kernel}": {} for kernel in wrappers}
     for dtype, mode, carried, c, h, d in cases:
         name = _dtype_name(dtype)
@@ -722,22 +756,21 @@ def check_ring_chunks(device) -> dict:
                     f"{'carried' if carried else 'fresh'} [{B},{c},{h},{d}] max_abs_err "
                     + "/".join(f"{e:.3e}" for e in errs) + " (tol "
                     + "/".join(f"{b:.3e}" for b in bars) + ")")
-            if (c, d, carried, dtype) in ((C, D, True, torch.bfloat16),
-                                          (C, WIDE_D, True, torch.bfloat16)):
+            if c == C and d in timed and carried and dtype == torch.bfloat16:
                 ms = time_ms(lambda: wrappers[kernel](mode, *args))
                 plain_ms = time_ms(lambda: plains[kernel](mode, *args), iters=20)
                 bound_ms, bound_by = ring_chunk_bound(B, c, h, d, name, kernel, mode)
                 line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
                          f"bound_ms={bound_ms:.4f} ({bound_by})")
                 if mode == rf.MODE_FULL:
-                    timed = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": bound_ms, "bound_by": bound_by,
-                             "library_ms": None}
-                    if d == D:
-                        main[f"ring_chunk_{kernel}"].update(timed)
+                    measured = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bound_ms, "bound_by": bound_by,
+                                "library_ms": None}
+                    if timed[d] is None:
+                        main[f"ring_chunk_{kernel}"].update(measured)
                     else:
-                        main[f"ring_chunk_{kernel}"]["d128"] = {"shape": [B, c, h, d],
-                                                                **timed}
+                        main[f"ring_chunk_{kernel}"][timed[d]] = {"shape": [B, c, h, d],
+                                                                  **measured}
             print(line, flush=True)
     padded = check_padded_ring(device, gen)
     for entry in main.values():
@@ -746,18 +779,26 @@ def check_ring_chunks(device) -> dict:
 
 
 def check_padded_ring(device, gen) -> tuple[int, ...]:
-    """The causal flash ring over SP shards of the card at head dims 8 and
-    96 (``[8, 256, 8, 8]`` and ``[8, 256, 4, 96]``, padded to 16 and 128)
+    """The causal flash ring over SP shards of the card at head dims 8, 96
+    and 192 (``[8, 256, 8, 8]``, ``[8, 256, 4, 96]`` and ``[8, 256, 2,
+    192]``, padded to 16, 128 and 256) and 256 (``[8, 256, 2, 256]``)
     through ``ring_flash_attention_sharded`` (the kernels: 10 launches of
     each) against the same ring through the plain chunk versions, forward
-    and the gradients of ``sum(out * w)``. Returns the head dims."""
+    and the gradients of ``sum(out * w)``. The last shard's K4, K5 and K6
+    resume their carried state over 4 rounds (3 FULL, then DIAG): at head
+    dim 256 two K4 column blocks of a row read the carried m and l and
+    write the new ones, and a block that overwrote m before its twin read
+    it would corrupt the twin's rescale in the next round. Returns the head
+    dims."""
     import torch
 
+    from relayrl_tpu_torch.ops.flash import KERNEL_HEAD_DIMS
     from relayrl_tpu_torch.parallel import ring_flash as rf
 
     B, T = LEARNER["traj_per_epoch"], SLICE_ARCH["max_seq_len"]
     C, devices = T // SP, [device] * SP
-    cases = [(dtype, H, d) for H, d in ((SLICE_ARCH["n_heads"], 8), (WIDE_H, 96))
+    cases = [(dtype, H, d) for H, d in ((SLICE_ARCH["n_heads"], 8), (WIDE_H, 96),
+                                        (WIDEST_H, 192), (WIDEST_H, WIDEST_D))
              for dtype in (torch.bfloat16, torch.float32)]
     for dtype, H, d in cases:
         name = _dtype_name(dtype)
@@ -782,7 +823,8 @@ def check_padded_ring(device, gen) -> tuple[int, ...]:
             raise AssertionError(f"padded ring {name} D={d}: launches {launches}, max abs "
                                  f"errs {errs} above {bars}")
         print(f"[ring] ring_flash_attention_sharded {name} causal sp={SP} [{B},{T},{H},{d}] "
-              f"(padded; launches {launches}) vs the plain chunk ring: max_abs_err "
+              f"({'padded; ' if d not in KERNEL_HEAD_DIMS else ''}launches {launches}) vs the "
+              f"plain chunk ring: max_abs_err "
               "out/dq/dk/dv " + "/".join(f"{e:.3e}" for e in errs) + " (tol "
               + "/".join(f"{b:.3e}" for b in bars) + ")", flush=True)
     return tuple(sorted({d for _, _, d in cases}))
@@ -791,7 +833,7 @@ def check_padded_ring(device, gen) -> tuple[int, ...]:
 def check_chunked_local(device) -> None:
     """``chunked_flash_local`` (K4 over every chunk pair on one device, the
     ring's cost model without transfers) against K1 on the serving shape
-    and on [64, 256, 4, 128], the widest head dim."""
+    and on [64, 256, 4, 128] and [64, 256, 2, 256], the wide head dims."""
     import torch
 
     from relayrl_tpu_torch.ops.flash import flash_attention
@@ -800,7 +842,7 @@ def check_chunked_local(device) -> None:
     B, T = LANES, SLICE_ARCH["max_seq_len"]
     gen = torch.Generator().manual_seed(SEED + 3)
     shapes = [(SLICE_ARCH["n_heads"], SLICE_ARCH["d_model"] // SLICE_ARCH["n_heads"], (2, 4)),
-              (WIDE_H, WIDE_D, (4,))]
+              (WIDE_H, WIDE_D, (4,)), (WIDEST_H, WIDEST_D, (4,))]
     for H, D, chunks in shapes:
         q, k, v = fused_qkv(B, T, H, D, torch.bfloat16, device, gen)
         want = flash_attention(q, k, v, True)[0]
@@ -1302,14 +1344,15 @@ def compare_ring_evaluate(algo, params, mesh, device) -> float:
     return max((a - b).abs().max().item() for a, b in zip(got, want))
 
 
-def check_wide_transformer(device, workdir: Path) -> dict:
-    """The transformer at the widest head dim (``WIDE_ARCH``: d_model 512,
-    4 heads of 128, 2 layers, T 256, bf16, flash attention) builds on the
-    card and trains: 8 port actors serve one wave of ``RecallEnv(255)``
-    episodes from its learner's bundle; ``evaluate`` through K1 matches the
-    plain attention (phase 4's bar), and the learner's first update through
-    K1-K3 matches the same update through the plain attention (phase 5's
-    bars), launching n_layers x 84 K1 and n_layers K2 and K3."""
+def check_wide_transformer(device, workdir: Path, arch: dict) -> dict:
+    """A transformer at a wide head dim (``WIDE_ARCH``: d_model 512, 4 heads
+    of 128; ``WIDEST_ARCH``: d_model 1024, 4 heads of 256; 2 layers, T 256,
+    bf16, flash attention) builds on the card and trains: 8 port actors
+    serve one wave of ``RecallEnv(255)`` episodes from its learner's
+    bundle; ``evaluate`` through K1 matches the plain attention (phase 4's
+    bar), and the learner's first update through K1-K3 matches the same
+    update through the plain attention (phase 5's bars), launching n_layers
+    x 84 K1 and n_layers K2 and K3."""
     import torch
 
     from relayrl_tpu_torch.envs import RecallEnv, SyncVectorEnv
@@ -1317,7 +1360,7 @@ def check_wide_transformer(device, workdir: Path) -> dict:
     from relayrl_tpu_torch.runtime.vector_actor import VectorActorHost, run_vector_gym_loop
     from relayrl_tpu_torch.types import deserialize_actions
 
-    algo = build_learner(device, workdir, WIDE_ARCH)
+    algo = build_learner(device, workdir, arch)
     params0 = copy.deepcopy(algo.state.params)
     lanes = algo.traj_per_epoch
     sent = []
@@ -1336,11 +1379,131 @@ def check_wide_transformer(device, workdir: Path) -> dict:
                          lambda q, k, v: flash_attention_plain(q, k, v, True)[0])
     torch.cuda.synchronize()
     launches = flash_counts()
-    n_layers = WIDE_ARCH["n_layers"]
+    n_layers = arch["n_layers"]
     expected = (n_layers * (4 + algo.train_vf_iters), n_layers, n_layers)
     if launches != expected:
         raise AssertionError(f"wide update launches {launches}, expected {expected}")
     return {"evaluate_err": eval_err, "launches": launches, **cmp}
+
+
+def _spy_calls(actor, name: str, logits: list | None = None) -> list:
+    """Replaces the actor's ``name`` function (``_cached_fn``,
+    ``_window_fn``, ``_prefill_fn``) with a wrapper that appends one entry
+    per call to the returned list; with ``logits``, each call's readout
+    logits (the last row of the model's logits, f32) are appended there."""
+    fn, calls = getattr(actor, name), []
+
+    def keep(module, inputs, out):
+        # Readout mode returns (logits, v); decode mode ((logits, v), cache).
+        rows = out[0][0] if isinstance(out[0], tuple) else out[0]
+        logits.append(rows.detach().float().reshape(-1, rows.shape[-1])[-1])
+
+    def spy(params, *args):
+        calls.append(None)
+        if logits is None:
+            return fn(params, *args)
+        handle = params.register_forward_hook(keep)
+        try:
+            return fn(params, *args)
+        finally:
+            handle.remove()
+
+    setattr(actor, name, spy)
+    return calls
+
+
+def check_cached_decode(device) -> dict:
+    """The transformer's KV-cache decode path on the card, at the serving
+    slice's arch (``__graft_entry__.entry()``'s: d_model 256, 4 layers, 8
+    heads, T 256, bf16): a ``PolicyActor`` serving through the cache and one
+    serving through the window, from one bundle and seed, act on the same
+    ``CACHED_EPISODES`` ``RecallEnv(HORIZON)`` episodes (longer than the
+    window, so it rolls), with a hot swap at step ``CACHED_SWAP_AT`` of the
+    first. Before the window rolls, at every position, the cached step's
+    log-probability of a fixed action and its v match the window step's at
+    the bf16 bar (3e-2 of the largest |value|); the swap costs exactly one
+    prefill; the cached path launches no flash kernel (the window path n_layers
+    - 1 per step) and serves every step until the window rolls, the window
+    path after. Returns the errors, the actions' agreement rate and the ms
+    per env step of both paths."""
+    import numpy as np
+    import torch
+
+    from relayrl_tpu_torch.envs import RecallEnv
+    from relayrl_tpu_torch.models import build_policy
+    from relayrl_tpu_torch.runtime import PolicyActor
+    from relayrl_tpu_torch.types import ModelBundle
+    from relayrl_tpu_torch.weights import params_to_jax
+
+    arch = slice_arch()
+    policy = build_policy(arch, device)
+    v1, v2 = (ModelBundle(version, arch, params_to_jax(policy.init_params(
+        torch.Generator().manual_seed(SEED + version)))) for version in (1, 2))
+    actors = {side: PolicyActor(v1, seed=SEED, device=device, use_kv_cache=side == "cached")
+              for side in ("cached", "window")}
+    cached = actors["cached"]
+    logits = {side: [] for side in actors}
+    steps = _spy_calls(cached, "_cached_fn", logits["cached"])
+    window_steps = _spy_calls(cached, "_window_fn")
+    prefills = _spy_calls(cached, "_prefill_fn")
+    _spy_calls(actors["window"], "_window_fn", logits["window"])
+    context = arch["max_seq_len"]
+    env = RecallEnv(HORIZON, N_CUES)
+    n_layers = arch["n_layers"]
+    fixed = 0  # the action whose log-probability is compared
+    diffs = {"logp": [], "v": []}
+    wants = {"logp": [], "v": []}
+    seconds = {side: 0.0 for side in actors}
+    agree = compared = total_k1 = 0
+    for episode in range(CACHED_EPISODES):
+        obs, _ = env.reset(seed=SEED + episode)
+        for t in range(HORIZON):
+            if episode == 0 and t == CACHED_SWAP_AT:
+                n_prefills = len(prefills)
+                if not all(actor.maybe_swap(v2) for actor in actors.values()):
+                    raise AssertionError("hot swap refused")
+            records = {}
+            for side, actor in actors.items():
+                zero_flash_counts()
+                t0 = time.perf_counter()
+                records[side] = actor.request_for_action(obs)
+                torch.cuda.synchronize()
+                elapsed = time.perf_counter() - t0
+                launches = flash_counts()
+                total_k1 += launches[0]
+                want = (0 if side == "cached" and t < context else n_layers - 1, 0, 0)
+                if launches != want:
+                    raise AssertionError(f"{side} step {t}: flash launches {launches}, "
+                                         f"expected {want}")
+                if t < context:
+                    seconds[side] += elapsed
+            if episode == 0 and t == CACHED_SWAP_AT and len(prefills) != n_prefills + 1:
+                raise AssertionError(f"{len(prefills) - n_prefills} prefills after the swap")
+            if t < context:
+                got_l, want_l = logits["cached"][-1], logits["window"][-1]
+                diffs["logp"].append(abs(torch.log_softmax(got_l, -1)[fixed]
+                                         - torch.log_softmax(want_l, -1)[fixed]).item())
+                wants["logp"].append(abs(torch.log_softmax(want_l, -1)[fixed].item()))
+                got_v, want_v = (float(records[s].data["v"]) for s in ("cached", "window"))
+                diffs["v"].append(abs(got_v - want_v))
+                wants["v"].append(abs(want_v))
+                compared += 1
+                agree += int(records["cached"].act) == int(records["window"].act)
+            obs, reward, terminated, truncated, _ = env.step(int(records["cached"].act))
+        for actor in actors.values():
+            actor.flag_last_action(reward)
+    errs = {key: max(diffs[key]) for key in diffs}
+    bars = {key: TOLERANCE["bfloat16"] * max(wants[key]) for key in wants}
+    rolled = CACHED_EPISODES * (HORIZON - context)
+    if not all(math.isfinite(errs[key]) and errs[key] <= bars[key] for key in errs):
+        raise AssertionError(f"cached vs window step: max abs errs {errs} above {bars}")
+    if (len(steps) != CACHED_EPISODES * context or len(window_steps) != rolled
+            or len(prefills) != 1):
+        raise AssertionError(f"cached steps {len(steps)}, window steps {len(window_steps)}, "
+                             f"prefills {len(prefills)}")
+    return {"errs": errs, "bars": bars, "agreement": agree / compared, "compared": compared,
+            "prefills": len(prefills), "cached_ms": 1e3 * seconds["cached"] / compared,
+            "window_ms": 1e3 * seconds["window"] / compared, "launches": total_k1}
 
 
 def _local_config(workdir: Path, precision: str = "float32") -> str:
@@ -1502,10 +1665,12 @@ def local_recall(device, workdir: Path) -> dict:
     counts are 0 before the runner is built and read after: each update
     launches n_layers x (4 + train_vf_iters) K1 and n_layers K2 and K3, and
     every K1 launch of the run is accounted for: one per layer for the
-    actor's validation, one per layer but the last per env step (the
-    window's readout layer attends for one row, without K1), and the
-    updates'. Then the first update on the card against the same update on
-    the CPU (f32; :func:`compare_update_to_cpu`)."""
+    actor's validation and the updates'. The actor serves every env step
+    through its KV cache (the episodes never fill the window), which runs
+    no K1; a step through the window path would launch one per layer but
+    the last (the readout layer attends for one row, without K1). Then the
+    first update on the card against the same update on the CPU (f32;
+    :func:`compare_update_to_cpu`)."""
     import torch
 
     from relayrl_tpu_torch.envs import RecallEnv
@@ -1520,22 +1685,26 @@ def local_recall(device, workdir: Path) -> dict:
     params0 = copy.deepcopy(runner.algorithm.state.params)
     per_update = []
     episodes = _spy_updates(runner, lambda actions, counts: per_update.append(counts))
+    cached_steps = _spy_calls(runner.actor, "_cached_fn")
+    window_steps = _spy_calls(runner.actor, "_window_fn")
     result = runner.train(epochs=RECALL_UPDATES)
     torch.cuda.synchronize()
     launches = flash_counts()
     n_layers = hp["n_layers"]
     expected = (n_layers * (4 + hp["train_vf_iters"]), n_layers, n_layers)
     steps = runner.actor.steps_served
-    total_k1 = n_layers + (n_layers - 1) * steps + RECALL_UPDATES * expected[0]
+    total_k1 = n_layers + (n_layers - 1) * len(window_steps) + RECALL_UPDATES * expected[0]
     if (per_update != [expected] * RECALL_UPDATES
             or launches != (total_k1, RECALL_UPDATES * n_layers, RECALL_UPDATES * n_layers)
-            or runner.actor.version != RECALL_UPDATES):
+            or len(cached_steps) != steps or runner.actor.version != RECALL_UPDATES):
         raise AssertionError(f"recall loop: launches per update {per_update} (expected "
                              f"{expected}), total {launches} (expected K1 {total_k1}), "
-                             f"actor version {runner.actor.version}")
+                             f"cached steps {len(cached_steps)} of {steps}, actor version "
+                             f"{runner.actor.version}")
     cmp = compare_update_to_cpu(runner.algorithm, params0,
                                 epoch_batches(runner.algorithm, episodes, 1)[0])
     return {"per_update": per_update, "launches": launches, "steps": steps,
+            "cached_steps": len(cached_steps),
             "head_dim": hp["d_model"] // hp["n_heads"], "episodes": len(result["returns"]),
             "avg_return": result["avg_return_last_window"], **cmp}
 
@@ -1680,15 +1849,19 @@ def main() -> int:
     profile_device(lambda: sp["sharded"](sp["state"], sp_batch), 1, "update")
     _, _, _, ring_fwd, ring_dq, ring_dkv = sp["launches"]
 
-    # 8. the transformer at head dim 128
-    wide = check_wide_transformer(device, root / "build" / "chip_smoke_wide")
-    print(f"[wide] transformer_discrete d_model {WIDE_ARCH['d_model']}, {WIDE_ARCH['n_heads']} "
-          f"heads of {WIDE_D}, {WIDE_ARCH['n_layers']} layers, T {WIDE_ARCH['max_seq_len']}, "
-          f"bf16, flash: evaluate kernel vs plain attention max abs diff "
-          f"{wide['evaluate_err']:.3e} (tol {TOLERANCE['bfloat16']:g}); first update "
-          f"launches (flash_fwd, flash_dq, flash_dkv) {wide['launches']}, max metric diff "
-          f"{wide['metric_err']:.3e}, max param diff {wide['param_err']:.3e}, mean param "
-          f"diff {wide['mean_diff_share']:.4f} of the mean movement", flush=True)
+    # 8. the transformers at head dims 128 and 256
+    for wide_arch in (WIDE_ARCH, WIDEST_ARCH):
+        head_dim = wide_arch["d_model"] // wide_arch["n_heads"]
+        wide = check_wide_transformer(device, root / "build" / f"chip_smoke_wide{head_dim}",
+                                      wide_arch)
+        print(f"[wide] transformer_discrete d_model {wide_arch['d_model']}, "
+              f"{wide_arch['n_heads']} heads of {head_dim}, {wide_arch['n_layers']} layers, "
+              f"T {wide_arch['max_seq_len']}, bf16, flash: evaluate kernel vs plain attention "
+              f"max abs diff {wide['evaluate_err']:.3e} (tol {TOLERANCE['bfloat16']:g}); first "
+              f"update launches (flash_fwd, flash_dq, flash_dkv) {wide['launches']}, max "
+              f"metric diff {wide['metric_err']:.3e}, max param diff {wide['param_err']:.3e}, "
+              f"mean param diff {wide['mean_diff_share']:.4f} of the mean movement",
+              flush=True)
 
     # 9. the local loop
     cart = local_cartpole(device, root / "build" / "chip_smoke_cartpole")
@@ -1705,20 +1878,36 @@ def main() -> int:
           f"{recall['head_dim']}): {len(recall['per_update'])} "
           f"updates over {recall['episodes']} episodes, {recall['steps']} env steps; launches "
           f"per update (flash_fwd, flash_dq, flash_dkv) {recall['per_update'][0]}, run total "
-          f"{recall['launches']}; avg return {recall['avg_return']:.2f}; first update card vs "
+          f"{recall['launches']}; {recall['cached_steps']} of {recall['steps']} steps served "
+          f"through the KV cache; avg return {recall['avg_return']:.2f}; first update card vs "
           f"cpu (f32): max metric diff {recall['metric_err']:.3e}, max param diff "
           f"{recall['param_err']:.3e} (tol {MLP_PARAM_ATOL:g}); {recall['n_floored']} "
           f"elements below Adam's floor {ADAM_FLOOR:g}, max diff there "
           f"{recall['floor_err']:.3e} (tol lr x steps)", flush=True)
     r_fwd, r_dq, r_dkv = recall["launches"]
 
+    # 10. cached decode
+    decode = check_cached_decode(device)
+    print(f"[decode] PolicyActor {SLICE_ARCH['d_model']}x{SLICE_ARCH['n_layers']} (T "
+          f"{SLICE_ARCH['max_seq_len']}, bf16) through the KV cache vs through the window, "
+          f"{CACHED_EPISODES} RecallEnv({HORIZON}) episodes, hot swap at step "
+          f"{CACHED_SWAP_AT}: over {decode['compared']} positions before the window rolls, "
+          f"max abs diff logp(fixed action) {decode['errs']['logp']:.3e} (tol "
+          f"{decode['bars']['logp']:.3e}), v {decode['errs']['v']:.3e} (tol "
+          f"{decode['bars']['v']:.3e}); sampled actions agree at "
+          f"{100 * decode['agreement']:.2f}% of them; prefills {decode['prefills']} (one "
+          f"per swap); no flash kernel on the cached path; ms per env step, cached "
+          f"{decode['cached_ms']:.3f} vs window {decode['window_ms']:.3f} on "
+          f"{smi.splitlines()[0]}", flush=True)
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:116",
-        "launches": run["launches"] + fwd + r_fwd,
-        "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd},
+        "launches": run["launches"] + fwd + r_fwd + decode["launches"],
+        "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd,
+                             "decode_vs_window": decode["launches"]},
         **main_flash,
     }, {
         "name": "flash_dq",

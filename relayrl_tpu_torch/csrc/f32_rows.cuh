@@ -1,10 +1,10 @@
 // The CUDA-core row split the f32 kernels share (flash_fwd.cu, flash_bwd.cu,
-// ring_flash.cu): one thread per row at D <= 32, D / 32 at D = 64 and 128,
-// each holding every (D / 32)-th head dim of the row's vectors (so the
-// threads of a row read neighbouring shared-memory words) and adding their
-// parts of a dot product with shuffles; and the tile of the other side's
-// rows that two f32 tiles of D columns fit within 48 KB of static shared
-// memory.
+// ring_flash.cu): one thread per row at D <= 32, D / 32 from D = 64, each
+// holding every (D / 32)-th head dim of the row's vectors (so the threads
+// of a row read neighbouring shared-memory words) and adding their parts of
+// a dot product with shuffles; the rows a block owns; and the tile of the
+// other side's rows that two f32 tiles of D columns fit within 48 KB of
+// static shared memory.
 
 #pragma once
 
@@ -16,9 +16,16 @@ struct Split {
   static constexpr int dims = D / k;             // head dims a thread holds
 };
 
-// Rows of the other side per f32 tile.
+// Rows of the other side per f32 tile: two tiles of 16 rows are 32 KB at
+// D = 256.
 template <int D>
-constexpr int kTile = D > 64 ? 32 : 64;
+constexpr int kTile = D > 128 ? 16 : D > 64 ? 32 : 64;
+
+// Output rows a block owns: 32 at D = 256 (256 threads, so each may hold
+// the 128 floats of a dk/dv row's vectors and accumulators in registers;
+// 64 rows would be 512 threads and at most 128 registers a thread).
+template <int D>
+constexpr int kRows = D > 128 ? 32 : 64;
 
 // Sum of x over the S adjacent lanes that share one row. Only those lanes
 // take part, so rows of one warp may leave their loops at different keys.

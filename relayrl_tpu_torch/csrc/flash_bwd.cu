@@ -55,10 +55,12 @@
 //   key rows of k and v and computes S^T, dP^T, then dV += round(P^T).do
 //   and dK += round(dS^T).qs per 16-query chunk. Here only the prologue
 //   (zero accumulators) and the epilogue (scaled bf16 rows) are K2's and
-//   K3's own. At D = 128 a warp's own rows are read from shared memory
+//   K3's own. From D = 128 a warp's own rows are read from shared memory
 //   per k-step rather than held in registers (bwd::OwnRows), and a K3
-//   block owns half of the head dim's dk and dv columns (bwd::kDkvCols; the
-//   grid's z picks the half), which keep both kernels from spilling.
+//   block owns half of the head dim's dk and dv columns at D = 128 and a
+//   quarter at D = 256 (bwd::kDkvCols), a K2 block half of dq's at D = 256
+//   (bwd::kDqCols; the grid's z picks the columns), which keep both
+//   kernels from spilling.
 // - Staging: each tile of K and V (K2) or of qs, do, lse2 and delta (K3)
 //   is copied to shared memory in bf16 (f32 for lse2 and delta) with
 //   cp.async, 16 bytes a copy, double-buffered: the next tile loads while
@@ -75,15 +77,16 @@
 //
 // f32 design. No tensor-core product meets the f32 bar of 5e-5 (TF32 keeps
 // about three decimal digits), so f32 inputs keep the first port's design:
-// one thread per output row (D / 32 at D = 64 and 128, each holding every
+// one thread per output row (D / 32 from D = 64, each holding every
 // D / 32-th head dim, adding their parts of the dot products with
 // shuffles), the other side staged in shared memory as f32 (32-row tiles at
-// D = 128, which keeps them within 48 KB of static shared memory),
+// D = 128, 16-row at D = 256, which keeps them within 48 KB of static
+// shared memory; 32 output rows a block at D = 256),
 // products as scalar FMAs on the CUDA cores. Keys or queries past T and
 // above the diagonal are skipped, which equals the TPU kernels' masked
 // p = 0.
 //
-// Both designs take every T >= 1 and head dims 16, 32, 64 and 128; lse2 and
+// Both designs take every T >= 1 and head dims 16, 32, 64, 128 and 256; lse2 and
 // delta are contiguous [B, H, T]; dq, dk, dv are written as contiguous
 // [B, T, H, D].
 
@@ -161,6 +164,8 @@ __global__ void __launch_bounds__(bwd::kThreads) flash_dq_bf16_kernel(const BwdA
   const int h = bh - b * a.H;
   // The last query tile walks the most keys: launch it first.
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  constexpr int kCols = bwd::kDqCols<D>;
+  const int c0 = kCols < D ? blockIdx.z * kCols : 0;  // this block's dq columns
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int r0 = q0 + 16 * warp + (lane >> 2);  // this thread's rows r0, r0 + 8
@@ -177,9 +182,9 @@ __global__ void __launch_bounds__(bwd::kThreads) flash_dq_bf16_kernel(const BwdA
     lse[half] = r < T_len ? a.lse[(long long)bh * T_len + r] : 0.f;
     delta[half] = r < T_len ? a.delta[(long long)bh * T_len + r] : 0.f;
   }
-  float acc[D / 8][4];
+  float acc[kCols / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < kCols / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   }
@@ -188,9 +193,9 @@ __global__ void __launch_bounds__(bwd::kThreads) flash_dq_bf16_kernel(const BwdA
   const int kv_end = a.causal ? min(T_len, q0 + kRows) : T_len;
   const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sB + h * a.sH;
   const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sB + h * a.sH;
-  bwd::walk_dq<D>(acc, qa, da, lse, delta, sm, kb, a.sT, vb, a.sT, kv_end, q0, r0, T_len,
+  bwd::walk_dq<D>(acc, qa, da, lse, delta, c0, sm, kb, a.sT, vb, a.sT, kv_end, q0, r0, T_len,
                   a.causal);
-  store_rows<D>(acc, a.dq_scale, static_cast<bf16*>(a.dq), b, h, a.H, T_len, r0);
+  store_rows<D, kCols>(acc, a.dq_scale, static_cast<bf16*>(a.dq), b, h, a.H, T_len, r0, c0);
 }
 
 template <int D>
@@ -239,8 +244,9 @@ __global__ void __launch_bounds__(bwd::kThreads) flash_dkv_bf16_kernel(const Bwd
 // -- f32: CUDA cores ---------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kRows* f32::Split<D>::k)
+__global__ void __launch_bounds__(f32::kRows<D>* f32::Split<D>::k)
     flash_dq_f32_kernel(const BwdArgs a) {
+  constexpr int kRowsF = f32::kRows<D>;
   constexpr int S = f32::Split<D>::k;
   constexpr int DD = f32::Split<D>::dims;
   constexpr int kTileF = f32::kTile<D>;
@@ -255,7 +261,7 @@ __global__ void __launch_bounds__(kRows* f32::Split<D>::k)
   const int bh = blockIdx.x;
   const int b = bh / a.H;
   const int h = bh - b * a.H;
-  const int q0 = blockIdx.y * kRows;
+  const int q0 = blockIdx.y * kRowsF;
   const int part = threadIdx.x % S;
   const int row = q0 + threadIdx.x / S;
   const bool live = row < T_len;
@@ -286,7 +292,7 @@ __global__ void __launch_bounds__(kRows* f32::Split<D>::k)
   }
 
   // A causal block needs keys only up to its last row's diagonal.
-  const int kv_end = a.causal ? min(T_len, q0 + kRows) : T_len;
+  const int kv_end = a.causal ? min(T_len, q0 + kRowsF) : T_len;
   for (int k0 = 0; k0 < kv_end; k0 += kTileF) {
     __syncthreads();  // every thread is done with the previous tile
     for (int e = threadIdx.x; e < kTileF * D; e += blockDim.x) {
@@ -333,7 +339,7 @@ __global__ void __launch_bounds__(kRows* f32::Split<D>::k)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kRows* f32::Split<D>::k)
+__global__ void __launch_bounds__(f32::kRows<D>* f32::Split<D>::k)
     flash_dkv_f32_kernel(const BwdArgs a) {
   constexpr int S = f32::Split<D>::k;
   constexpr int DD = f32::Split<D>::dims;
@@ -351,7 +357,7 @@ __global__ void __launch_bounds__(kRows* f32::Split<D>::k)
   const int bh = blockIdx.x;
   const int b = bh / a.H;
   const int h = bh - b * a.H;
-  const int k0 = blockIdx.y * kRows;
+  const int k0 = blockIdx.y * f32::kRows<D>;
   const int part = threadIdx.x % S;
   const int key = k0 + threadIdx.x / S;
   const bool live = key < T_len;
@@ -444,20 +450,27 @@ __global__ void __launch_bounds__(kRows* f32::Split<D>::k)
 
 template <bool kDq, bool kBf16, int D>
 cudaError_t launch(const BwdArgs& a, int B, cudaStream_t stream) {
-  const dim3 grid(B * a.H, (a.len + kRows - 1) / kRows);
-  if constexpr (kBf16 && kDq) {
-    return tc::launch_kernel(flash_dq_bf16_kernel<D>, grid, bwd::kThreads, kDqSmem<D>, stream,
-                             a);
-  } else if constexpr (kBf16) {
-    const dim3 halves(grid.x, grid.y, D / bwd::kDkvCols<D>);
-    return tc::launch_kernel(flash_dkv_bf16_kernel<D>, halves, bwd::kThreads, kDkvSmem<D>,
-                             stream, a);
-  } else if constexpr (kDq) {
-    flash_dq_f32_kernel<D><<<grid, kRows * f32::Split<D>::k, 0, stream>>>(a);
+  if constexpr (kBf16) {
+    // The grid's third axis picks a block's output columns.
+    constexpr int kCols = kDq ? bwd::kDqCols<D> : bwd::kDkvCols<D>;
+    const dim3 grid(B * a.H, (a.len + kRows - 1) / kRows, D / kCols);
+    if constexpr (kDq) {
+      return tc::launch_kernel(flash_dq_bf16_kernel<D>, grid, bwd::kThreads, kDqSmem<D>,
+                               stream, a);
+    } else {
+      return tc::launch_kernel(flash_dkv_bf16_kernel<D>, grid, bwd::kThreads, kDkvSmem<D>,
+                               stream, a);
+    }
   } else {
-    flash_dkv_f32_kernel<D><<<grid, kRows * f32::Split<D>::k, 0, stream>>>(a);
+    constexpr int kRowsF = f32::kRows<D>;
+    const dim3 grid(B * a.H, (a.len + kRowsF - 1) / kRowsF);
+    if constexpr (kDq) {
+      flash_dq_f32_kernel<D><<<grid, kRowsF * f32::Split<D>::k, 0, stream>>>(a);
+    } else {
+      flash_dkv_f32_kernel<D><<<grid, kRowsF * f32::Split<D>::k, 0, stream>>>(a);
+    }
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <bool kDq, bool kBf16>
@@ -471,6 +484,8 @@ cudaError_t launch_for_dim(int D, const BwdArgs& a, int B, cudaStream_t s) {
       return launch<kDq, kBf16, 64>(a, B, s);
     case 128:
       return launch<kDq, kBf16, 128>(a, B, s);
+    case 256:
+      return launch<kDq, kBf16, 256>(a, B, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -27,17 +27,30 @@
 //
 // Head dim 128. A warp's two sets of own rows as A fragments take 64
 // registers there, beside 64 (dq) or 128 (dk and dv) of accumulators: the
-// dk/dv pass would need over 255 and spill. So at D = 128 (OwnRows) each
+// dk/dv pass would need over 255 and spill. So at D >= 128 (OwnRows) each
 // warp stages its own rows in shared memory once and reads each k-step's A
 // fragment by ldmatrix where a product needs it; at D <= 64 they stay in
-// registers, loaded once. That keeps the dq pass within 255 registers, not
-// the dk/dv pass: with dk and dv over all 128 columns it still held 255
-// and spilled. So at D = 128 a dk/dv block owns half the head dim's output
-// columns (kDkvCols; the grid's third axis picks the half): it computes S^T
-// and dP^T over the whole head dim, as before, and accumulates dV and dK
-// over its 64 columns alone, at 1.5x the products of one block over all
-// 128. Every tile set is in dynamic shared memory (over 48 KB at D = 128;
-// tc::launch_kernel).
+// registers, loaded once. That keeps the dq pass within 255 registers at
+// D = 128, not the dk/dv pass: with dk and dv over all 128 columns it
+// still held 255 and spilled. So at D = 128 a dk/dv block owns half the
+// head dim's output columns (kDkvCols; the grid's third axis picks the
+// columns): it computes S^T and dP^T over the whole head dim, as before,
+// and accumulates dV and dK over its 64 columns alone, at 1.5x the
+// products of one block over all 128.
+//
+// Head dim 256. A full-width f32 accumulator is 128 registers per thread
+// (one warp's 16 rows of 256 columns), so every pass splits its output
+// columns over the grid's third axis: a dq block owns half of dq's columns
+// (kDqCols, 128), a dk/dv block a quarter of dk's and dv's (kDkvCols, 64),
+// which keeps the accumulators at the D = 128 kernels' 64 registers. Each
+// block still computes S and dP over the whole head dim, from its own rows
+// in shared memory and the other side's full tiles, so the dq pass does
+// 5/3 and the dk/dv pass 5/2 the products of one block over every column.
+// With S and dP's 16 k-steps unrolled, the compiler hoisted their fragment
+// loads until K3, K5 and K6 spilled (255 registers); so at D = 256 the
+// k-steps run as a loop, kScoreSteps of them unrolled per trip.
+// Every tile set is in dynamic shared memory (over 48 KB from D = 128;
+// about 203 KB per block at D = 256; tc::launch_kernel).
 
 #pragma once
 
@@ -58,38 +71,28 @@ constexpr int kTile = 64;            // rows of the other side per tile
 constexpr int kThreads = 2 * kRows;  // 4 warps
 static_assert(kRows % 16 == 0 && kTile % 16 == 0, "whole 16-row fragments");
 
-// A warp's own 16 rows of one operand (qs or do for the dq pass, k or v for
-// the dk/dv pass) as the A operand of its products, k-step by k-step.
-// RegRows holds the fragments in registers.
-template <int D>
-struct RegRows {
-  uint32_t f[D / 16][4];
-  __device__ __forceinline__ void frag(uint32_t (&a)[4], int kk) const {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = f[kk][i];
-  }
-};
-
-// SmemRows reads them by ldmatrix from the warp's 16 rows staged in shared
-// memory (row stride tc::kStride<D>).
-template <int D>
-struct SmemRows {
-  const bf16* rows;
-  __device__ __forceinline__ void frag(uint32_t (&a)[4], int kk) const {
-    tc::ldmatrix_a_frag<D>(a, rows, kk);
-  }
-};
-
 template <int D>
 constexpr bool kOwnRowsInSmem = D > 64;
 
-// Output columns of dk and dv a dk/dv block owns: all of them at D <= 64,
-// half at D = 128 (see the note at the top).
+// Output columns of dq a dq block owns: all of them up to D = 128, half at
+// D = 256; of dk and dv a dk/dv block owns: all of them at D <= 64, half at
+// D = 128, a quarter at D = 256 (see the note at the top). The grid's
+// third axis has D / cols blocks.
 template <int D>
-constexpr int kDkvCols = D > 64 ? D / 2 : D;
+constexpr int kDqCols = D > 128 ? D / 2 : D;
+template <int D>
+constexpr int kDkvCols = D > 128 ? D / 4 : D > 64 ? D / 2 : D;
 
+// A warp's own 16 rows of one operand (qs or do for the dq pass, k or v
+// for the dk/dv pass): tc::RegRows in registers, tc::SmemRows in shared
+// memory.
 template <int D>
-using OwnRows = std::conditional_t<kOwnRowsInSmem<D>, SmemRows<D>, RegRows<D>>;
+using OwnRows = std::conditional_t<kOwnRowsInSmem<D>, tc::SmemRows<D>, tc::RegRows<D>>;
+
+// k-steps of S and dP unrolled per trip of their loop: all of them up to
+// D = 128, 4 of the 16 at D = 256 (see the note at the top).
+template <int D>
+constexpr int kScoreSteps = D > 128 ? 4 : D / 16;
 
 // Shared memory for the block's own rows of both operands (none at
 // D <= 64): it follows the kernel's tiles in its dynamic shared memory.
@@ -100,28 +103,16 @@ constexpr size_t kOwnRowsBytes = kOwnRowsInSmem<D> ? 2 * kRows * tc::kStride<D> 
 // that this warp owns, rows at or past `len` zero, as operand `which` (0 or
 // 1) of the block's own rows at `own` (shared memory, kOwnRowsBytes).
 template <int D>
-__device__ __forceinline__ void load_own_rows(RegRows<D>& a, bf16* /*own*/, int /*which*/,
+__device__ __forceinline__ void load_own_rows(tc::RegRows<D>& a, bf16* /*own*/, int /*which*/,
                                               const bf16* src, long long sT, int w0, int len) {
   tc::load_a_frags<D>(a.f, src, sT, w0, len);
 }
 
 template <int D>
-__device__ __forceinline__ void load_own_rows(SmemRows<D>& a, bf16* own, int which,
+__device__ __forceinline__ void load_own_rows(tc::SmemRows<D>& a, bf16* own, int which,
                                               const bf16* src, long long sT, int w0, int len) {
-  constexpr int kCopies = 16 * (D / 8);  // 16-byte copies of the warp's rows
   bf16* dst = own + (which * kRows + (w0 % kRows)) * tc::kStride<D>;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int e = lane; e < kCopies; e += 32) {
-    const int r = e / (D / 8);
-    const int c = e - r * (D / 8);
-    const bool in = w0 + r < len;
-    const bf16* row = src + (in ? (long long)(w0 + r) * sT : 0);
-    tc::cp_async_16(dst + r * tc::kStride<D> + c * 8, row + c * 8, in);
-  }
-  tc::cp_async_commit();
-  tc::cp_async_wait<0>();
-  __syncwarp();
+  tc::stage_own_rows<D>(dst, src, sT, w0, len);
   a.rows = dst;
 }
 
@@ -163,8 +154,7 @@ __device__ __forceinline__ void chunk_scores(float (&s)[2][4], float (&dp)[2][4]
       dp[n][e] = 0.f;
     }
   }
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  auto k_step = [&](int kk) {
     uint32_t a[4], b[4];
     a_s.frag(a, kk);
     tc::ldmatrix_x4(b, bs + off + kk * 16);
@@ -174,18 +164,28 @@ __device__ __forceinline__ void chunk_scores(float (&s)[2][4], float (&dp)[2][4]
     tc::ldmatrix_x4(b, bd + off + kk * 16);
     tc::mma_bf16(dp[0], a, b[0], b[1]);
     tc::mma_bf16(dp[1], a, b[2], b[3]);
+  };
+  if constexpr (kScoreSteps<D> == D / 16) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) k_step(kk);
+  } else {
+#pragma unroll 1
+    for (int k0 = 0; k0 < D / 16; k0 += kScoreSteps<D>) {
+#pragma unroll
+      for (int kk = k0; kk < k0 + kScoreSteps<D>; ++kk) k_step(kk);
+    }
   }
 }
 
 // One K/V tile of the dq pass: keys [k0, k0 + kTile) against this warp's
-// rows. kMask: the diagonal or ragged tile, which masks keys at or past
-// `len` and, when causal, keys above a row's diagonal; warp_last is the
-// warp's last row.
+// rows, accumulating dq over the kDqCols<D> columns from c0. kMask: the
+// diagonal or ragged tile, which masks keys at or past `len` and, when
+// causal, keys above a row's diagonal; warp_last is the warp's last row.
 template <int D, bool kMask>
-__device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4], const OwnRows<D>& qa,
+__device__ __forceinline__ void dq_tile(float (&acc)[kDqCols<D> / 8][4], const OwnRows<D>& qa,
                                         const OwnRows<D>& da,
                                         const float (&lse)[2], const float (&delta)[2],
-                                        const bf16* kt, const bf16* vt, int k0, int r0,
+                                        int c0, const bf16* kt, const bf16* vt, int k0, int r0,
                                         int warp_last, int len, bool causal) {
   const int tq = threadIdx.x & 3;
 #pragma unroll
@@ -213,18 +213,20 @@ __device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4], const OwnRows<D>
       dsa[2 * n] = tc::pack_bf16(ds[0], ds[1]);
       dsa[2 * n + 1] = tc::pack_bf16(ds[2], ds[3]);
     }
-    tc::chunk_accumulate<D>(acc, dsa, kt + 16 * c * tc::kStride<D>);
+    tc::chunk_accumulate<D, kDqCols<D>>(acc, dsa, kt + 16 * c * tc::kStride<D> + c0);
   }
 }
 
 // The dq pass of one block: walks the K/V tiles [0, kv_end) of one (batch,
 // head) slice (k rows at stride kT from kb, v rows at stride vT from vb) in
-// order, double-buffered through `sm`, accumulating into acc. The block
-// owns query rows [q0, q0 + kRows); this thread holds rows r0 and r0 + 8.
+// order, double-buffered through `sm`, accumulating into acc (dq's columns
+// [c0, c0 + kDqCols<D>)). The block owns query rows [q0, q0 + kRows); this
+// thread holds rows r0 and r0 + 8.
 template <int D>
-__device__ __forceinline__ void walk_dq(float (&acc)[D / 8][4], const OwnRows<D>& qa,
+__device__ __forceinline__ void walk_dq(float (&acc)[kDqCols<D> / 8][4], const OwnRows<D>& qa,
                                         const OwnRows<D>& da, const float (&lse)[2],
-                                        const float (&delta)[2], tc::KvTiles<D, kTile>& sm,
+                                        const float (&delta)[2], int c0,
+                                        tc::KvTiles<D, kTile>& sm,
                                         const bf16* kb, long long kT, const bf16* vb,
                                         long long vT, int kv_end, int q0, int r0, int len,
                                         bool causal) {
@@ -248,11 +250,11 @@ __device__ __forceinline__ void walk_dq(float (&acc)[D / 8][4], const OwnRows<D>
     __syncthreads();
     const int k0 = j * kTile;
     if ((causal && k0 + kTile > q0) || k0 + kTile > len) {
-      dq_tile<D, true>(acc, qa, da, lse, delta, ks[j & 1], vs[j & 1], k0, r0, warp_last, len,
-                       causal);
+      dq_tile<D, true>(acc, qa, da, lse, delta, c0, ks[j & 1], vs[j & 1], k0, r0, warp_last,
+                       len, causal);
     } else {
-      dq_tile<D, false>(acc, qa, da, lse, delta, ks[j & 1], vs[j & 1], k0, r0, warp_last, len,
-                        causal);
+      dq_tile<D, false>(acc, qa, da, lse, delta, c0, ks[j & 1], vs[j & 1], k0, r0, warp_last,
+                        len, causal);
     }
     __syncthreads();
   }

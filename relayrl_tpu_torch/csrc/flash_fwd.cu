@@ -42,9 +42,18 @@
 //   T, in dynamic shared memory: 69.6 KB at D = 128, above the 48 KB a
 //   block gets without asking (tc::launch_kernel raises the limit). At
 //   D = 128 a warp holds 32 registers of q and 64 of O beside the 32 of a
-//   tile's scores, which still fits without a spill. q, k and v are read through (batch, time, head) strides, views of
-//   the fused qkv projection; rows must start on 16-byte boundaries, which
-//   the wrapper checks (and relayrl_flash_fwd refuses otherwise).
+//   tile's scores, which still fits without a spill. q, k and v are read
+//   through (batch, time, head) strides, views of the fused qkv
+//   projection; rows must start on 16-byte boundaries, which the wrapper
+//   checks (and relayrl_flash_fwd refuses otherwise).
+// - At D = 256 q's fragments and O over all 256 columns would need about
+//   190 registers beside the scores, so a block owns half of O's columns
+//   (the grid's third axis picks them; fwd::kOutCols): it recomputes S over
+//   the whole head dim with q read by ldmatrix from its rows in shared
+//   memory (scaled and rounded there once), and stages only its columns
+//   of each V tile; 1.5x the products of one block over every column, in
+//   169 KB of shared memory. The two column blocks of a row compute the
+//   same m and l; the first writes lse2.
 // - Only the diagonal tile and a ragged last tile take the masked body; the
 //   tiles walk from key 0, so the running max is finite before a masked
 //   score is exponentiated. Causal query tiles are launched longest first.
@@ -54,12 +63,13 @@
 // f32 design. No tensor-core type meets the f32 bar of 2e-5 (TF32 keeps
 // about three decimal digits), so f32 inputs keep the first port's design:
 // q and the accumulator of each query row in registers (one thread per row
-// at D <= 32, D / 32 at D = 64 and 128, f32_rows.cuh), K and V staged in
-// shared memory as f32 (32-key tiles at D = 128, within 48 KB of static
-// shared memory), scores and p.V as scalar FMAs on the CUDA cores, the
-// running max moved once per 16 keys.
+// at D <= 32, D / 32 from D = 64, f32_rows.cuh), K and V staged in shared
+// memory as f32 (32-key tiles at D = 128 and 16-key tiles at D = 256,
+// within 48 KB of static shared memory; 32 rows a block at D = 256),
+// scores and p.V as scalar FMAs on the CUDA cores, the running max moved
+// once per 16 keys.
 //
-// Both designs take every T >= 1 and head dims 16, 32, 64 and 128.
+// Both designs take every T >= 1 and head dims 16, 32, 64, 128 and 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,6 +103,7 @@ template <int D>
 __global__ void __launch_bounds__(fwd::kThreads) flash_fwd_bf16_kernel(const FwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   auto& sm = *reinterpret_cast<tc::KvTiles<D, kTile>*>(smem);
+  bf16* own = reinterpret_cast<bf16*>(smem + sizeof(sm));
 
   const int len = a.len;
   const int bh = blockIdx.x;
@@ -100,17 +111,21 @@ __global__ void __launch_bounds__(fwd::kThreads) flash_fwd_bf16_kernel(const Fwd
   const int h = bh - b * a.H;
   // The last query tile walks the most keys: launch it first.
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  constexpr int kCols = fwd::kOutCols<D>;
+  const int c0 = kCols < D ? blockIdx.z * kCols : 0;  // this block's O columns
+  // The column blocks of a row compute the same lse2: the first writes it.
+  const bool lse_writer = kCols == D || blockIdx.z == 0;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int w0 = q0 + 16 * warp;
   const long long base = (long long)b * a.sB + (long long)h * a.sH;
 
-  uint32_t qa[D / 16][4];
-  fwd::load_scaled_a_frags<D>(qa, static_cast<const bf16*>(a.q) + base, a.sT, w0, len,
-                              a.q_scale);
+  fwd::QRows<D> qa;
+  fwd::load_q<D, true>(qa, own, static_cast<const bf16*>(a.q) + base, a.sT, w0, len,
+                       a.q_scale);
   fwd::State<D> st;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < kCols / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) st.acc[n][e] = 0.f;
   }
@@ -120,7 +135,7 @@ __global__ void __launch_bounds__(fwd::kThreads) flash_fwd_bf16_kernel(const Fwd
   // A causal block needs keys only up to its last row's diagonal.
   const int kv_end = a.causal ? min(len, q0 + kRows) : len;
   fwd::walk_tiles<D>(st, qa, sm, static_cast<const bf16*>(a.k) + base,
-                     static_cast<const bf16*>(a.v) + base, a.sT, kv_end, q0, w0, len,
+                     static_cast<const bf16*>(a.v) + base, a.sT, c0, kv_end, q0, w0, len,
                      a.causal);
 
   fwd::quad_sum_l<D>(st);
@@ -131,12 +146,12 @@ __global__ void __launch_bounds__(fwd::kThreads) flash_fwd_bf16_kernel(const Fwd
     if (r >= len) continue;
     const float lc = fmaxf(st.l[half], 1e-30f);
     uint32_t* row = reinterpret_cast<uint32_t*>(static_cast<bf16*>(a.o) +
-                                                (((long long)b * len + r) * a.H + h) * D);
+                                                (((long long)b * len + r) * a.H + h) * D + c0);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < kCols / 8; ++n) {
       row[n * 4 + tq] = tc::pack_bf16(st.acc[n][2 * half] / lc, st.acc[n][2 * half + 1] / lc);
     }
-    if (tq == 0) a.lse[(long long)bh * len + r] = st.m[half] + log2f(lc);
+    if (tq == 0 && lse_writer) a.lse[(long long)bh * len + r] = st.m[half] + log2f(lc);
   }
 }
 
@@ -144,10 +159,11 @@ __global__ void __launch_bounds__(fwd::kThreads) flash_fwd_bf16_kernel(const Fwd
 
 constexpr int kChunkF32 = 16;  // keys per online-softmax update
 
-// A block owns 64 query rows, f32::Split<D>::k threads per row.
+// A block owns f32::kRows<D> query rows, f32::Split<D>::k threads per row.
 template <int D>
-__global__ void __launch_bounds__(kRows* f32::Split<D>::k)
+__global__ void __launch_bounds__(f32::kRows<D>* f32::Split<D>::k)
     flash_fwd_f32_kernel(const FwdArgs a) {
+  constexpr int kRowsF = f32::kRows<D>;
   constexpr int S = f32::Split<D>::k;
   constexpr int DD = f32::Split<D>::dims;
   constexpr int kTileF = f32::kTile<D>;
@@ -161,7 +177,7 @@ __global__ void __launch_bounds__(kRows* f32::Split<D>::k)
   const int bh = blockIdx.x;
   const int b = bh / a.H;
   const int h = bh - b * a.H;
-  const int q0 = blockIdx.y * kRows;
+  const int q0 = blockIdx.y * kRowsF;
   const int part = threadIdx.x % S;
   const int row = q0 + threadIdx.x / S;
   const bool live = row < T_len;
@@ -183,7 +199,7 @@ __global__ void __launch_bounds__(kRows* f32::Split<D>::k)
   float l = 0.f;
 
   // A causal block needs keys only up to its last row's diagonal.
-  const int kv_end = a.causal ? min(T_len, q0 + kRows) : T_len;
+  const int kv_end = a.causal ? min(T_len, q0 + kRowsF) : T_len;
   for (int k0 = 0; k0 < kv_end; k0 += kTileF) {
     __syncthreads();  // every thread is done with the previous tile
     for (int e = threadIdx.x; e < kTileF * D; e += blockDim.x) {
@@ -250,12 +266,15 @@ __global__ void __launch_bounds__(kRows* f32::Split<D>::k)
 
 template <bool kBf16, int D>
 cudaError_t launch(const FwdArgs& a, int B, cudaStream_t stream) {
-  const dim3 grid(B * a.H, (a.len + kRows - 1) / kRows);
   if constexpr (kBf16) {
+    // The grid's third axis picks a block's O columns.
+    const dim3 grid(B * a.H, (a.len + kRows - 1) / kRows, D / fwd::kOutCols<D>);
     return tc::launch_kernel(flash_fwd_bf16_kernel<D>, grid, fwd::kThreads,
-                             sizeof(tc::KvTiles<D, kTile>), stream, a);
+                             sizeof(tc::KvTiles<D, kTile>) + fwd::kQRowsBytes<D>, stream, a);
   } else {
-    flash_fwd_f32_kernel<D><<<grid, kRows * f32::Split<D>::k, 0, stream>>>(a);
+    constexpr int kRowsF = f32::kRows<D>;
+    const dim3 grid(B * a.H, (a.len + kRowsF - 1) / kRowsF);
+    flash_fwd_f32_kernel<D><<<grid, kRowsF * f32::Split<D>::k, 0, stream>>>(a);
     return cudaGetLastError();
   }
 }
@@ -271,6 +290,8 @@ cudaError_t launch_for_dim(int D, const FwdArgs& a, int B, cudaStream_t s) {
       return launch<kBf16, 64>(a, B, s);
     case 128:
       return launch<kBf16, 128>(a, B, s);
+    case 256:
+      return launch<kBf16, 256>(a, B, s);
     default:
       return cudaErrorInvalidValue;
   }

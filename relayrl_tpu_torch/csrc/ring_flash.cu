@@ -62,12 +62,17 @@
 //   dv_in as C fragments; qs/do/lse2/delta tiles from the block's first key
 //   under DIAG, the first key tile launched first.
 //
-// Head dim 128 takes the same steps: every bf16 kernel's tiles are in
-// dynamic shared memory (over 48 KB there; tc::launch_kernel), K5's and
+// Head dims 128 and 256 take the same steps: every bf16 kernel's tiles are
+// in dynamic shared memory (over 48 KB there; tc::launch_kernel), K5's and
 // K6's own rows are read from shared memory per k-step, as K2's and K3's
-// are (bwd::OwnRows), and a K6 block owns half of the head dim's dk and dv
-// columns, as a K3 block does (bwd::kDkvCols; the grid's z picks the
-// half).
+// are (bwd::OwnRows), and a K6 block owns half (D = 128) or a quarter
+// (D = 256) of the head dim's dk and dv columns, as a K3 block does
+// (bwd::kDkvCols; the grid's z picks them). At D = 256 a K5 block owns half
+// of dq's columns (bwd::kDqCols), and a K4 block half of acc's, as a K1
+// block does (fwd::kOutCols), with q read from shared memory. K4's column
+// blocks of a row read the same carried m and l and compute the same new
+// ones; the first writes them, and into m_out and l_out, so a block never
+// overwrites the m_in its twin has still to read.
 //
 // q, k, v and do rows must start on 16-byte boundaries, which the wrappers
 // check (and the C entries refuse otherwise); K4 also needs k and v of one
@@ -75,13 +80,13 @@
 //
 // f32 keeps the first port's design (ring_chunk_*_f32_kernel), because no
 // tensor-core type meets the f32 bars (2e-5 forward, 5e-5 accumulators):
-// one thread per row, D / 32 at D = 64 and 128 (each holds every D / 32-th
-// head dim; they add their parts of a dot product with shuffles), the other
-// side staged in shared memory as f32, products as scalar FMAs on the CUDA
-// cores. A block owns 64 rows; each row's own vectors and accumulators stay
-// in registers while the block walks 64-row tiles of the other side (32 at
-// D = 128, within 48 KB of static shared memory), up to (K4, K5) or from
-// (K6) the diagonal under DIAG.
+// one thread per row, D / 32 from D = 64 (each holds every D / 32-th head
+// dim; they add their parts of a dot product with shuffles), the other side
+// staged in shared memory as f32, products as scalar FMAs on the CUDA
+// cores. A block owns 64 rows (32 at D = 256); each row's own vectors and
+// accumulators stay in registers while the block walks 64-row tiles of the
+// other side (32 at D = 128, 16 at D = 256, within 48 KB of static shared
+// memory), up to (K4, K5) or from (K6) the diagonal under DIAG.
 //
 // Bound on the H100 at the learner's chunk shape (B*H = 64, C = 64,
 // D = 32, bf16, FULL): K4 moves about 1.9 MB (the f32 state in and out is
@@ -104,7 +109,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 64;   // output rows a block owns (one grid for every kernel)
+constexpr int kRows = 64;   // output rows a bf16 block owns (one grid for every bf16 kernel)
 constexpr int kTile = 64;   // rows of the other side per shared-memory tile
 constexpr int kChunk = 16;  // keys per online-softmax update (K4)
 constexpr float kNegInf = -1e30f;
@@ -197,19 +202,27 @@ template <int D>
 __global__ void __launch_bounds__(fwd::kThreads) ring_chunk_fwd_bf16_kernel(const FwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   auto& sm = *reinterpret_cast<tc::KvTiles<D, fwd::kTile>*>(smem);
+  bf16* own = reinterpret_cast<bf16*>(smem + sizeof(sm));
 
   const int C = a.C;
   const int bh = blockIdx.x;
   const int b = bh / a.H;
   const int h = bh - b * a.H;
   const int q0 = blockIdx.y * fwd::kRows;
+  constexpr int kCols = fwd::kOutCols<D>;
+  const int c0 = kCols < D ? blockIdx.z * kCols : 0;  // this block's acc columns
+  // The column blocks of a row read the same m_in and l_in and compute the
+  // same m and l; the first writes them. They land in m_out and l_out,
+  // never in the buffers read: a twin still to read m_in sees the old m.
+  const bool ml_writer = kCols == D || blockIdx.z == 0;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int tq = lane & 3;
   const int w0 = q0 + 16 * warp;
 
-  uint32_t qa[D / 16][4];
-  tc::load_a_frags<D>(qa, static_cast<const bf16*>(a.q) + a.qs.at(b, 0, h), a.qs.t, w0, C);
+  fwd::QRows<D> qa;
+  fwd::load_q<D, false>(qa, own, static_cast<const bf16*>(a.q) + a.qs.at(b, 0, h), a.qs.t, w0,
+                        C, 1.f);
   fwd::State<D> st;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -217,9 +230,10 @@ __global__ void __launch_bounds__(fwd::kThreads) ring_chunk_fwd_bf16_kernel(cons
     const bool live = r < C;
     const long long srow = (long long)bh * C + r;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const float2 o = live ? *reinterpret_cast<const float2*>(a.o_in + srow * D + n * 8 + 2 * tq)
-                            : make_float2(0.f, 0.f);
+    for (int n = 0; n < kCols / 8; ++n) {
+      const float2 o =
+          live ? *reinterpret_cast<const float2*>(a.o_in + srow * D + c0 + n * 8 + 2 * tq)
+               : make_float2(0.f, 0.f);
       st.acc[n][2 * half] = o.x;
       st.acc[n][2 * half + 1] = o.y;
     }
@@ -230,8 +244,8 @@ __global__ void __launch_bounds__(fwd::kThreads) ring_chunk_fwd_bf16_kernel(cons
   // Under DIAG a block needs keys only up to its last row's diagonal.
   const int kv_end = a.diag ? min(C, q0 + fwd::kRows) : C;
   fwd::walk_tiles<D>(st, qa, sm, static_cast<const bf16*>(a.k) + a.ks.at(b, 0, h),
-                     static_cast<const bf16*>(a.v) + a.vs.at(b, 0, h), a.ks.t, kv_end, q0, w0,
-                     C, a.diag);
+                     static_cast<const bf16*>(a.v) + a.vs.at(b, 0, h), a.ks.t, c0, kv_end, q0,
+                     w0, C, a.diag);
 
   fwd::quad_sum_l<D>(st);
 #pragma unroll
@@ -240,11 +254,11 @@ __global__ void __launch_bounds__(fwd::kThreads) ring_chunk_fwd_bf16_kernel(cons
     if (r >= C) continue;
     const long long srow = (long long)bh * C + r;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<float2*>(a.o_out + srow * D + n * 8 + 2 * tq) =
+    for (int n = 0; n < kCols / 8; ++n) {
+      *reinterpret_cast<float2*>(a.o_out + srow * D + c0 + n * 8 + 2 * tq) =
           make_float2(st.acc[n][2 * half], st.acc[n][2 * half + 1]);
     }
-    if (tq == 0) {
+    if (tq == 0 && ml_writer) {
       a.m_out[srow] = st.m[half];
       a.l_out[srow] = st.l[half];
     }
@@ -264,6 +278,8 @@ __global__ void __launch_bounds__(bwd::kThreads) ring_chunk_dq_bf16_kernel(const
   const int h = bh - b * a.H;
   // Under DIAG the last query tile walks the most keys: launch it first.
   const int q0 = (gridDim.y - 1 - blockIdx.y) * bwd::kRows;
+  constexpr int kCols = bwd::kDqCols<D>;
+  const int c0 = kCols < D ? blockIdx.z * kCols : 0;  // this block's dq columns
   const int w0 = q0 + 16 * (threadIdx.x >> 5);
   const int r0 = w0 + ((threadIdx.x & 31) >> 2);  // this thread's rows r0, r0 + 8
   const long long row0 = (long long)bh * C;
@@ -280,16 +296,16 @@ __global__ void __launch_bounds__(bwd::kThreads) ring_chunk_dq_bf16_kernel(const
     lse[half] = r < C ? a.lse[row0 + r] : 0.f;
     delta[half] = r < C ? a.delta[row0 + r] : 0.f;
   }
-  float acc[D / 8][4];
-  load_state_rows<D>(acc, a.a_in + row0 * D, w0, C);
+  float acc[kCols / 8][4];
+  load_state_rows<D, kCols>(acc, a.a_in + row0 * D, w0, C, c0);
 
   // Under DIAG a block needs keys only up to its last row's diagonal.
   const int kv_end = a.diag ? min(C, q0 + bwd::kRows) : C;
-  bwd::walk_dq<D>(acc, qa, da, lse, delta, sm,
+  bwd::walk_dq<D>(acc, qa, da, lse, delta, c0, sm,
                   static_cast<const bf16*>(a.k) + a.ks.at(b, 0, h), a.ks.t,
                   static_cast<const bf16*>(a.v) + a.vs.at(b, 0, h), a.vs.t, kv_end, q0, r0, C,
                   a.diag);
-  store_state_rows<D>(acc, a.a_out + row0 * D, w0, C);
+  store_state_rows<D, kCols>(acc, a.a_out + row0 * D, w0, C, c0);
 }
 
 // K6 in bf16: K3's walk between a resume and a flush of the carried dk, dv.
@@ -330,7 +346,7 @@ __global__ void __launch_bounds__(bwd::kThreads) ring_chunk_dkv_bf16_kernel(cons
 
 // K4, K5 and K6 in f32: the CUDA-core design (see the note at the top).
 template <int D>
-__global__ void __launch_bounds__(kRows* f32::Split<D>::k)
+__global__ void __launch_bounds__(f32::kRows<D>* f32::Split<D>::k)
     ring_chunk_fwd_f32_kernel(const FwdArgs a) {
   constexpr int S = f32::Split<D>::k;
   constexpr int DD = f32::Split<D>::dims;
@@ -345,7 +361,7 @@ __global__ void __launch_bounds__(kRows* f32::Split<D>::k)
   const int bh = blockIdx.x;
   const int b = bh / a.H;
   const int h = bh - b * a.H;
-  const int q0 = blockIdx.y * kRows;
+  const int q0 = blockIdx.y * f32::kRows<D>;
   const int part = threadIdx.x % S;
   const int row = q0 + threadIdx.x / S;
   const bool live = row < C;
@@ -373,7 +389,7 @@ __global__ void __launch_bounds__(kRows* f32::Split<D>::k)
   }
 
   // Under DIAG a block needs keys only up to its last row's diagonal.
-  const int kv_end = a.diag ? min(C, q0 + kRows) : C;
+  const int kv_end = a.diag ? min(C, q0 + f32::kRows<D>) : C;
   for (int k0 = 0; k0 < kv_end; k0 += kTileF) {
     __syncthreads();  // every thread is done with the previous tile
     for (int e = threadIdx.x; e < kTileF * D; e += blockDim.x) {
@@ -438,7 +454,7 @@ __global__ void __launch_bounds__(kRows* f32::Split<D>::k)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kRows* f32::Split<D>::k)
+__global__ void __launch_bounds__(f32::kRows<D>* f32::Split<D>::k)
     ring_chunk_dq_f32_kernel(const BwdArgs a) {
   constexpr int S = f32::Split<D>::k;
   constexpr int DD = f32::Split<D>::dims;
@@ -454,7 +470,7 @@ __global__ void __launch_bounds__(kRows* f32::Split<D>::k)
   const int bh = blockIdx.x;
   const int b = bh / a.H;
   const int h = bh - b * a.H;
-  const int q0 = blockIdx.y * kRows;
+  const int q0 = blockIdx.y * f32::kRows<D>;
   const int part = threadIdx.x % S;
   const int row = q0 + threadIdx.x / S;
   const bool live = row < C;
@@ -485,7 +501,7 @@ __global__ void __launch_bounds__(kRows* f32::Split<D>::k)
     delta = a.delta[srow];
   }
 
-  const int kv_end = a.diag ? min(C, q0 + kRows) : C;
+  const int kv_end = a.diag ? min(C, q0 + f32::kRows<D>) : C;
   for (int k0 = 0; k0 < kv_end; k0 += kTileF) {
     __syncthreads();  // every thread is done with the previous tile
     for (int e = threadIdx.x; e < kTileF * D; e += blockDim.x) {
@@ -530,7 +546,7 @@ __global__ void __launch_bounds__(kRows* f32::Split<D>::k)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kRows* f32::Split<D>::k)
+__global__ void __launch_bounds__(f32::kRows<D>* f32::Split<D>::k)
     ring_chunk_dkv_f32_kernel(const BwdArgs a) {
   constexpr int S = f32::Split<D>::k;
   constexpr int DD = f32::Split<D>::dims;
@@ -548,7 +564,7 @@ __global__ void __launch_bounds__(kRows* f32::Split<D>::k)
   const int bh = blockIdx.x;
   const int b = bh / a.H;
   const int h = bh - b * a.H;
-  const int k0 = blockIdx.y * kRows;
+  const int k0 = blockIdx.y * f32::kRows<D>;
   const int part = threadIdx.x % S;
   const int key = k0 + threadIdx.x / S;
   const bool live = key < C;
@@ -639,23 +655,28 @@ enum class Kernel { kFwd, kDq, kDkv };
 
 template <Kernel K, bool kBf16, int D, typename Args>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  static_assert(fwd::kRows == kRows && bwd::kRows == kRows, "one grid for every chunk kernel");
-  const dim3 grid(B * a.H, (a.C + kRows - 1) / kRows);
+  static_assert(fwd::kRows == kRows && bwd::kRows == kRows, "one grid for every bf16 kernel");
   if constexpr (kBf16) {
+    // The grid's third axis picks a block's output columns.
+    constexpr int kCols = K == Kernel::kFwd  ? fwd::kOutCols<D>
+                          : K == Kernel::kDq ? bwd::kDqCols<D>
+                                             : bwd::kDkvCols<D>;
+    const dim3 grid(B * a.H, (a.C + kRows - 1) / kRows, D / kCols);
     if constexpr (K == Kernel::kFwd) {
       return tc::launch_kernel(ring_chunk_fwd_bf16_kernel<D>, grid, fwd::kThreads,
-                               sizeof(tc::KvTiles<D, fwd::kTile>), stream, a);
+                               sizeof(tc::KvTiles<D, fwd::kTile>) + fwd::kQRowsBytes<D>,
+                               stream, a);
     } else if constexpr (K == Kernel::kDq) {
       return tc::launch_kernel(ring_chunk_dq_bf16_kernel<D>, grid, bwd::kThreads,
                                sizeof(tc::KvTiles<D, bwd::kTile>) + bwd::kOwnRowsBytes<D>,
                                stream, a);
     } else {
-      const dim3 halves(grid.x, grid.y, D / bwd::kDkvCols<D>);
-      return tc::launch_kernel(ring_chunk_dkv_bf16_kernel<D>, halves, bwd::kThreads,
+      return tc::launch_kernel(ring_chunk_dkv_bf16_kernel<D>, grid, bwd::kThreads,
                                sizeof(bwd::DkvTiles<D>) + bwd::kOwnRowsBytes<D>, stream, a);
     }
   } else {
-    const int threads = kRows * f32::Split<D>::k;
+    const dim3 grid(B * a.H, (a.C + f32::kRows<D> - 1) / f32::kRows<D>);
+    const int threads = f32::kRows<D> * f32::Split<D>::k;
     if constexpr (K == Kernel::kFwd) {
       ring_chunk_fwd_f32_kernel<D><<<grid, threads, 0, stream>>>(a);
     } else if constexpr (K == Kernel::kDq) {
@@ -678,6 +699,8 @@ cudaError_t launch_for_dim(int D, const Args& a, int B, cudaStream_t s) {
       return launch<K, kBf16, 64>(a, B, s);
     case 128:
       return launch<K, kBf16, 128>(a, B, s);
+    case 256:
+      return launch<K, kBf16, 256>(a, B, s);
     default:
       return cudaErrorInvalidValue;
   }

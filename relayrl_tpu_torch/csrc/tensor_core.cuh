@@ -95,13 +95,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Row stride of a shared-memory tile in elements: D plus 16 bytes, which
 // puts the 8 rows an ldmatrix reads in 8 distinct bank groups at D = 16,
-// 32, 64 and 128.
+// 32, 64, 128 and 256.
 template <int D>
 constexpr int kStride = D + 8;
 
 // Double-buffered shared-memory tiles of kTile K and V rows (69.6 KB at
-// D = 128 and kTile = 64, so the kernels take them as dynamic shared
-// memory; see launch_kernel).
+// D = 128 and 135.2 KB at D = 256 with kTile = 64, so the kernels take
+// them as dynamic shared memory; see launch_kernel).
 template <int D, int kTile>
 struct KvTiles {
   __nv_bfloat16 k[2][kTile * kStride<D>];
@@ -159,12 +159,57 @@ __device__ __forceinline__ void ldmatrix_a_frag(uint32_t (&a)[4], const __nv_bfl
   ldmatrix_x4(a, rows + (lane & 15) * kStride<D> + (lane >> 4) * 8 + kk * 16);
 }
 
+// A warp's own 16 rows of one operand (q in the forward; qs or do, k or v
+// in the backward) as the A operand of its products, k-step by k-step.
+// RegRows holds the fragments in registers (load_a_frags fills them).
+template <int D>
+struct RegRows {
+  uint32_t f[D / 16][4];
+  __device__ __forceinline__ void frag(uint32_t (&a)[4], int kk) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = f[kk][i];
+  }
+};
+
+// SmemRows reads them by ldmatrix from the warp's 16 rows staged in shared
+// memory (row stride kStride<D>): for the widest head dims, where the
+// fragments of every k-step would not fit in registers beside the
+// accumulators.
+template <int D>
+struct SmemRows {
+  const __nv_bfloat16* rows;
+  __device__ __forceinline__ void frag(uint32_t (&a)[4], int kk) const {
+    ldmatrix_a_frag<D>(a, rows, kk);
+  }
+};
+
+// Starts this warp's 16-byte copies of rows [w0, w0 + 16) of one (batch,
+// head) slice `src` (row stride sT elements) into dst[16][kStride<D>],
+// rows at or past `len` zero-filled, and waits for them.
+template <int D>
+__device__ __forceinline__ void stage_own_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                               long long sT, int w0, int len) {
+  constexpr int kCopies = 16 * (D / 8);  // 16-byte copies of the warp's rows
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int e = lane; e < kCopies; e += 32) {
+    const int r = e / (D / 8);
+    const int c = e - r * (D / 8);
+    const bool in = w0 + r < len;
+    const __nv_bfloat16* row = src + (in ? (long long)(w0 + r) * sT : 0);
+    cp_async_16(dst + r * kStride<D> + c * 8, row + c * 8, in);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+}
+
 // -- launch ---------------------------------------------------------------
 
 // Launches kernel<<<grid, threads, bytes, stream>>>(a) on `bytes` of
 // dynamic shared memory. A block may take more than 48 KB (up to 227 KB on
 // Hopper) only after the kernel's limit is raised, which the head dim 128
-// tiles need; the limit is set before each such launch, for the current
+// and 256 tiles need; the limit is set before each such launch, for the current
 // device. Returns the first error (0 on success), so a refused launch
 // raises in the wrapper.
 template <typename Args>

@@ -90,9 +90,12 @@ class Policy:
       act from right-zero-padded history windows ``[W, obs_dim]`` (or
       stacked ``[N, W, obs_dim]`` with ``t [N]``) whose first ``t`` rows
       are real.
-    * ``init_cache``/``step_cached``/``prefill_cache`` — the KV-cache
-      decode path; not ported yet, so always None and actors take the
-      window path.
+    * ``init_cache(length, batch_size) -> cache``, ``step_cached(params,
+      generator, cache, obs, t, mask) -> (act, aux, cache)`` and
+      ``prefill_cache(params, cache, window) -> cache`` — the KV-cache
+      decode path of the transformer family (None for the others): per-
+      layer k/v caches, one decode step at position ``t``, and a rebuild
+      of the cache from a padded window.
     """
 
     arch: dict[str, Any]

@@ -22,10 +22,16 @@ attention over the ambient mesh's ``sp`` axis
 by 8, else the scan ring (:mod:`relayrl_tpu_torch.parallel.ring`); with no
 mesh, or ``sp`` 1, blockwise or dense, so actors serve the arch the
 learner trains. On a CUDA device ``"flash"`` and ``"ring"`` take head dims
-up to 128, the flash kernels' widest (narrower ones are zero-padded to a
+up to 256, the flash kernels' widest (narrower ones are zero-padded to a
 kernel width); building the policy for a CUDA device refuses a wider one.
-The KV-cache decode path and the MoE and pipeline families are not ported
-yet.
+The MoE and pipeline families are not ported yet.
+
+KV-cache decode, the actors' default serving path: ``init_cache``,
+``step_cached`` and ``prefill_cache`` keep each layer's k and v rows in a
+``[B, W, H, hd]`` cache in the compute dtype, so one env step costs one
+position's projections and one row of attention against the cache (dense,
+with the query's offset, the reference's code path; no flash kernel runs).
+The cache is written in place.
 
 Sequence ABI (see :class:`~relayrl_tpu_torch.models.base.Policy`):
 ``evaluate(params, obs[B,T,D], act[B,T], mask[B,T,A]) -> (logp, ent, v)``;
@@ -119,13 +125,23 @@ class TransformerBlock(nn.Module):
         self.mlp_up = nn.Linear(d_model, mlp_ratio * d_model)
         self.mlp_down = nn.Linear(mlp_ratio * d_model, d_model)
 
-    def forward(self, x: torch.Tensor, readout_idx: torch.Tensor | None = None):
+    def forward(self, x: torch.Tensor, readout_idx: torch.Tensor | None = None,
+                cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+                t: int | None = None):
         """Full mode: x ``[B, T, d]`` -> ``[B, T, d]``.
 
         Readout mode (``readout_idx [B]``, the final layer of the window
         path): k and v project over every row, while the query, output
         projection and MLP run for each lane's one readout row, attended
-        densely with that lane's causal offset. Returns ``[B, 1, d]``."""
+        densely with that lane's causal offset. Returns ``[B, 1, d]``.
+
+        Decode mode (``cache``, this layer's ``(k_cache, v_cache)`` ``[B,
+        W, H, hd]``, and the write index ``t``): x holds positions ``t ..
+        t + T - 1`` (T = 1 for a step, T = W for a prefill from ``t = 0``).
+        This step's k and v are written into the cache at ``t``, in place
+        (the cache takes no gradient), and the queries attend the cache
+        with their causal offset, so rows past the last written position
+        are never seen. Returns ``[B, T, d]``; the cache is updated."""
         B, T, d = x.shape
         cd = self.compute_dtype
         h = _layer_norm(self.ln_attn, x).to(cd)
@@ -139,6 +155,13 @@ class TransformerBlock(nn.Module):
             attn = dense_attention(q_row, k, v, causal=True,
                                    q_offset=readout_idx).reshape(B, 1, d)
             x = x[lanes, readout_idx][:, None]
+        elif cache is not None:
+            k_cache, v_cache = cache
+            with torch.no_grad():
+                k_cache[:, t:t + T] = k
+                v_cache[:, t:t + T] = v
+            attn = dense_attention(q, k_cache, v_cache, causal=True,
+                                   q_offset=t).reshape(B, T, d)
         else:
             attn = self.attn_fn(q, k, v).reshape(B, T, d)
         x = x + _dense(self.attn_out, attn, cd).to(x.dtype)
@@ -186,15 +209,26 @@ class TransformerCore(nn.Module):
                             device=logits.device)
         return logits, v
 
-    def forward(self, obs, mask=None, readout_t=None):
+    def forward(self, obs, mask=None, readout_t=None, cache=None, t=None):
         """Full mode: obs ``[B, T, D]`` -> (logits ``[B, T, A]``, v ``[B, T]``).
 
         Readout mode (``readout_t [B]``, each lane's row): layers
         ``0..L-2`` run over every row, the final layer and the heads run
-        for the one row; returns (logits ``[B, A]``, v ``[B]``)."""
+        for the one row; returns (logits ``[B, A]``, v ``[B]``).
+
+        Decode mode (``cache``, a tuple of per-layer ``(k, v)`` caches, and
+        the position ``t`` of obs's first row): returns ``((logits ``[B, T,
+        A]``, v ``[B, T]``), cache)`` with the cache written at ``t .. t +
+        T - 1``."""
         T = obs.shape[1]
-        x = _dense(self.obs_embed, obs, torch.float32) + self.pos_embed[:T][None]
+        start = 0 if cache is None else int(t)
+        x = (_dense(self.obs_embed, obs, torch.float32)
+             + self.pos_embed[start:start + T][None])
         blocks = self.blocks()
+        if cache is not None:
+            for block, layer_cache in zip(blocks, cache):
+                x = block(x, cache=layer_cache, t=start)
+            return self._heads(x, mask), cache
         if readout_t is None:
             for block in blocks:
                 x = block(x)
@@ -341,9 +375,53 @@ def _build_core_policy(arch: Mapping[str, Any], device: torch.device) -> Policy:
         act = logits.argmax(dim=-1)
         return act[0] if single else act
 
+    n_layers, n_heads = int(arch.get("n_layers", 2)), int(arch.get("n_heads", 4))
+    head_dim = int(arch.get("d_model", 128)) // n_heads
+    cache_dtype = _compute_dtype(arch)
+
+    def init_cache(length: int, batch_size: int = 1):
+        """Zeroed per-layer ``(k, v)`` caches ``[batch_size, length, H,
+        hd]`` in the compute dtype, on the policy's device."""
+        shape = (batch_size, int(length), n_heads, head_dim)
+        return tuple((torch.zeros(shape, dtype=cache_dtype, device=device),
+                      torch.zeros(shape, dtype=cache_dtype, device=device))
+                     for _ in range(n_layers))
+
+    def step_cached(params, generator, cache, obs, t, mask=None):
+        """One decode step: writes position ``t`` into the cache and
+        samples the action there. ``obs`` is ``[D]`` (one episode) or ``[B,
+        D]`` (B episodes at the same position, a cache of batch B), not a
+        time axis. Returns ``(act, aux, cache)``; the values match
+        ``step_window``'s at the same position."""
+        obs = torch.as_tensor(obs, dtype=torch.float32, device=device)
+        obs = obs[None, None] if obs.ndim == 1 else obs[:, None]
+        if mask is not None:
+            mask = torch.as_tensor(mask, dtype=torch.float32, device=device)
+            mask = mask[None, None] if mask.ndim == 1 else mask[:, None]
+        (logits, v), cache = params(obs, mask, cache=cache, t=t)
+        logits_t, v_t = logits[:, 0], v[:, 0]
+        act = _categorical_sample(generator, logits_t)
+        aux = {"logp_a": _categorical_logp(logits_t, act), "v": v_t}
+        if obs.shape[0] == 1:
+            return act[0], {k: a[0] for k, a in aux.items()}, cache
+        return act, aux, cache
+
+    def prefill_cache(params, cache, window):
+        """Rebuilds the whole cache from a padded window ``[W, D]`` (or
+        ``[B, W, D]``) in one forward from ``t = 0`` (after a hot swap, the
+        cache holds the old params' k and v). The padding rows write k and
+        v past the real prefix, which later steps overwrite in order before
+        any query attends them."""
+        window = torch.as_tensor(window, dtype=torch.float32, device=device)
+        if window.ndim == 2:
+            window = window[None]
+        return params(window, None, cache=cache, t=0)[1]
+
     return Policy(arch=dict(arch), device=device, init_params=init_params,
                   load_params=load_params, step=step, evaluate=evaluate,
-                  mode=mode, step_window=step_window, mode_window=mode_window)
+                  mode=mode, step_window=step_window, mode_window=mode_window,
+                  init_cache=init_cache, step_cached=step_cached,
+                  prefill_cache=prefill_cache)
 
 
 @register_model("transformer_discrete")

@@ -56,7 +56,7 @@ _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 # Head widths the kernels are instantiated for (csrc/flash_{fwd,bwd}.cu,
 # csrc/ring_flash.cu).
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def _q_scale(head_dim: int) -> float:
@@ -66,10 +66,10 @@ def _q_scale(head_dim: int) -> float:
 def pad_head_dim(*xs: torch.Tensor) -> tuple[list[torch.Tensor], int]:
     """``(xs, D)``: tensors of one head dim D (the last axis), zero-padded
     to the narrowest of :data:`KERNEL_HEAD_DIMS` that holds D (8 -> 16,
-    24 -> 32, 48 -> 64, 96 -> 128), or unchanged when D is one of them or
-    wider than all. Zero columns of q, k, v and do leave the scores, p, delta and the
-    live columns of O, dq, dk and dv as they are, and the padded columns
-    come out zero: slice results back with ``[..., :D]``, and compute every
+    24 -> 32, 48 -> 64, 96 -> 128, 192 -> 256), or unchanged when D is one
+    of them or wider than all. Zero columns of q, k, v and do leave the
+    scores, p, delta and the live columns of O, dq, dk and dv as they are,
+    and the padded columns come out zero: slice results back with ``[..., :D]``, and compute every
     scale from D. The pad and the slice are autograd ops, so gradients
     slice back too. Works on any device."""
     D = xs[0].shape[-1]

@@ -2,12 +2,16 @@
 
 Counterpart of :mod:`relayrl_tpu.runtime.policy_actor`. A per-step policy
 (the MLP families) acts on each observation alone; a sequence policy acts
-from a rolling observation-history window, each step one forward over the
-padded window (the KV-cache decode path is not ported yet, so
-``Policy.step_cached`` is None and the window path is the only one, as in
-the JAX actor when it has no cache). The model-wire v2 swap and the
-telemetry and trace hooks come with the transport slice; plain integer
-counters stand in for the telemetry counters.
+from a rolling observation-history window. A transformer serves through
+its KV cache by default (``use_kv_cache=True``), one decode step per env
+step, with the reference's rules: the cache is rebuilt by one prefill
+from the stored window after a hot swap (and started fresh at an
+episode's first step), dropped at an episode boundary, and dropped when
+the window starts rolling or the greedy path advances the window; the
+window path, one forward over the padded window, serves then, and always
+for ``use_kv_cache=False``. The model-wire v2 swap and the telemetry and
+trace hooks come with the transport slice; plain integer counters stand
+in for the telemetry counters.
 
 Records carry what the JAX actors put on the wire: ``act`` an int32 array
 (discrete) or a float32 vector (continuous), ``logp_a`` and ``v`` float32
@@ -130,6 +134,21 @@ def make_batched_step(policy):
     return fn
 
 
+def make_cached_step(policy):
+    """:attr:`Policy.step_cached` for one episode: ``fn(params, generator,
+    cache, obs, t, mask) -> (acts [1] int32, {logp_a, v: [1] float32},
+    cache)`` as numpy, shaped as :func:`make_batched_window_step`'s
+    batch of one. It draws from ``generator`` exactly as the window step
+    does, so the two give the same actions where their logits agree."""
+    def fn(params, generator, cache, obs, t, mask):
+        with torch.inference_mode():
+            act, aux, cache = policy.step_cached(params, generator, cache,
+                                                 obs, t, mask)
+        act, aux = _to_host(act.reshape(1), {k: a.reshape(1) for k, a in aux.items()})
+        return act, aux, cache
+    return fn
+
+
 def make_batched_window_step(policy):
     """:attr:`Policy.step_window` over stacked per-lane windows:
     ``fn(params, generator, windows[N,W,obs], ts[N], masks) -> (acts[N]
@@ -148,7 +167,9 @@ class PolicyActor:
     """Local policy + current trajectory; thread-safe hot-swap.
 
     ``device`` defaults to the GPU; without one the caller must pass
-    ``device="cpu"``. ``seed`` seeds the actor's sampling generator."""
+    ``device="cpu"``. ``seed`` seeds the actor's sampling generator.
+    ``use_kv_cache`` serves a policy that has a KV cache through it (see
+    the module note)."""
 
     def __init__(
         self,
@@ -158,6 +179,7 @@ class PolicyActor:
         seed: int = 0,
         validate: bool = True,
         device=None,
+        use_kv_cache: bool = True,
     ):
         self._lock = threading.Lock()
         self.arch = dict(bundle.arch)
@@ -175,6 +197,19 @@ class PolicyActor:
             self._window = np.zeros((ctx, int(self.arch["obs_dim"])),
                                     np.float32)
             self._window_fn = make_batched_window_step(self.policy)
+        # The KV cache: O(W) per step instead of the window path's full
+        # recompute. The window is kept beside it as the source of a
+        # rebuild (after a hot swap the cache holds the old params' k and
+        # v) and as the path once the window rolls (positions shift).
+        self._cached_fn = None
+        self._prefill_fn = None
+        self._cache = None
+        self._cache_version = -1
+        if (use_kv_cache and self.policy.step_cached is not None
+                and self.policy.prefill_cache is not None
+                and self._window is not None):
+            self._cached_fn = make_cached_step(self.policy)
+            self._prefill_fn = self.policy.prefill_cache
         self._explore_kwargs = exploration_kwargs(self.arch)
         self._generator = torch.Generator(
             device=self.policy.device).manual_seed(seed)
@@ -196,10 +231,19 @@ class PolicyActor:
                 self.trajectory.get_actions()[-1].update_reward(float(reward))
             masks = None if mask_arr is None else mask_arr[None]
             if self._window_fn is not None:
-                self._push_window(obs)
-                acts, aux = self._window_fn(
-                    self.params, self._generator, self._window[None],
-                    np.array([self._window_len]), masks)
+                rolled = self._push_window(obs)
+                if self._cached_fn is not None and not rolled:
+                    t = self._window_len - 1
+                    if self._cache is None or self._cache_version != self.version:
+                        self._rebuild_cache(t)
+                    acts, aux, self._cache = self._cached_fn(
+                        self.params, self._generator, self._cache, obs, t,
+                        mask_arr)
+                else:
+                    self._cache = None  # rolling: positions shifted
+                    acts, aux = self._window_fn(
+                        self.params, self._generator, self._window[None],
+                        np.array([self._window_len]), masks)
             else:
                 acts, aux = self._step_fn(
                     self.params, self._generator, obs[None], masks,
@@ -236,6 +280,7 @@ class PolicyActor:
                 # one's observations.
                 self._window[:] = 0.0
                 self._window_len = 0
+                self._cache = None
             record = ActionRecord(
                 obs=(None if final_obs is None
                      else np.asarray(final_obs, np.float32)),
@@ -264,13 +309,28 @@ class PolicyActor:
             self._window, self._window_len, obs)
         return rolled
 
+    def _rebuild_cache(self, t: int) -> None:
+        """A fresh cache, refilled from the stored window by one prefill
+        when the episode has earlier positions (lock held): after a hot
+        swap, or at an episode's first cached step (t = 0, nothing to
+        refill). Masks are not replayed: they gate the readout's logits,
+        never the k and v rows."""
+        with torch.inference_mode():
+            self._cache = self.policy.init_cache(self._window.shape[0])
+            if t > 0:
+                self._cache = self._prefill_fn(self.params, self._cache,
+                                               self._window)
+        self._cache_version = self.version
+
     def reset_episode(self) -> None:
-        """Reset the history window WITHOUT touching the trajectory — the
-        episode boundary for eval loops."""
+        """Reset per-episode serving state (history window and KV cache)
+        WITHOUT touching the trajectory — the episode boundary for eval
+        loops."""
         with self._lock:
             if self._window is not None:
                 self._window[:] = 0.0
                 self._window_len = 0
+            self._cache = None
 
     def deterministic_action(self, obs, mask=None) -> np.ndarray:
         """Greedy action (int32, or float32 for a continuous policy). For
@@ -281,6 +341,10 @@ class PolicyActor:
         with self._lock, torch.inference_mode():
             if self.policy.mode_window is not None:
                 self._push_window(obs_arr)
+                # The greedy path advances the window but not the cache:
+                # drop it, so the sampling path rebuilds it with every
+                # position present.
+                self._cache = None
                 act = self.policy.mode_window(self.params, self._window,
                                               self._window_len, mask_arr)
             else:

@@ -8,10 +8,12 @@ step reads one params module, so no dispatch mixes versions).
 
 Sequence policies run the padded-window path with stacked per-lane
 windows: one forward over ``[N, W, obs_dim]`` with each lane reading out
-at its own row. Every lane draws its action from the host's one
-generator, so a batch-of-1 host is bit-identical to a
-:class:`~relayrl_tpu_torch.runtime.policy_actor.PolicyActor` with the same
-seed (both go through ``make_batched_window_step``).
+at its own row (no KV cache, as in the JAX package's host). Every lane
+draws its action from the host's one generator, so a batch-of-1 host is
+bit-identical to a
+:class:`~relayrl_tpu_torch.runtime.policy_actor.PolicyActor` serving
+through its window (``use_kv_cache=False``) with the same seed (both go
+through ``make_batched_window_step``).
 """
 
 from __future__ import annotations

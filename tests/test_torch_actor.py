@@ -6,7 +6,7 @@
   window (RecallEnv's observations do not depend on the actions taken, so
   both hosts see the same stream although their samplers differ).
 * Inside the port, a batch-of-1 ``VectorActorHost`` is bit-identical to a
-  ``PolicyActor`` with the same seed.
+  ``PolicyActor`` serving through its window with the same seed.
 * Sampling follows the policy's softmax in distribution.
 * A bundle the JAX package serialized installs through ``swap_from_bytes``.
 * Entry points refuse to fall back to the CPU on their own.
@@ -97,7 +97,11 @@ def test_batch_of_one_bit_identical_to_policy_actor():
     arch = _arch()
     bundle = ModelBundle(1, dict(arch), _jax_params(arch, 1))
     sent_single, sent_vec = [], []
-    single = PolicyActor(bundle, seed=9, device="cpu",
+    # use_kv_cache=False pins the single actor to the window path the
+    # vector host batches, as the JAX package's twin test does: the
+    # comparison is then exact, not cache-vs-window numerics
+    # (tests/test_torch_kv_cache.py holds those).
+    single = PolicyActor(bundle, seed=9, device="cpu", use_kv_cache=False,
                          on_send=sent_single.append)
     host = VectorActorHost(bundle, 1, seed=9, device="cpu",
                            on_send=lambda lane, p: sent_vec.append(p))

@@ -1,15 +1,16 @@
-"""Head dims the flash kernels are not instantiated for, and the widest
-one: the port against the JAX package.
+"""Head dims the flash kernels are not instantiated for, and the wide
+ones: the port against the JAX package.
 
-The port's kernels take head dims 16, 32, 64 and 128. ``flash_attention``
-and the flash rings zero-pad a narrower head dim to the next of them, on
-every device, run the kernels (on the CPU: their plain versions) with every
-scale from the true head dim, and slice the results back; a transformer
-asked to run the flash kernels on a CUDA device with a head dim above 128
-is refused when it is built. Here, on the CPU, the padded path and head dim
-128 are held to the JAX package's Pallas kernels in interpret mode, which
-take any head dim, at the f32 bars of tests/test_flash.py; and the refusal
-is checked without a GPU (building a policy allocates nothing).
+The port's kernels take head dims 16, 32, 64, 128 and 256.
+``flash_attention`` and the flash rings zero-pad a narrower head dim to the
+next of them, on every device, run the kernels (on the CPU: their plain
+versions) with every scale from the true head dim, and slice the results
+back; a transformer asked to run the flash kernels on a CUDA device with a
+head dim above 256 is refused when it is built. Here, on the CPU, the
+padded path and head dims 128 and 256 are held to the JAX package's Pallas
+kernels in interpret mode, which take any head dim, at the f32 bars of
+tests/test_flash.py; and the refusal is checked without a GPU (building a
+policy allocates nothing).
 """
 
 import jax
@@ -54,7 +55,7 @@ def _arrays(shape, seed, n=4):
 
 
 @pytest.mark.parametrize("D,width", [(8, 16), (24, 32), (48, 64), (1, 16), (96, 128),
-                                     (65, 128)])
+                                     (65, 128), (129, 256), (192, 256), (255, 256)])
 def test_pad_head_dim_pads_to_the_next_kernel_width(D, width):
     q, k = (torch.from_numpy(x) for x in _arrays((2, 5, 3, D), seed=D, n=2))
     (qp, kp), got_d = pad_head_dim(q, k)
@@ -64,7 +65,7 @@ def test_pad_head_dim_pads_to_the_next_kernel_width(D, width):
         assert torch.equal(xp[..., :D], x) and not xp[..., D:].any()
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256, 512])
 def test_pad_head_dim_keeps_kernel_widths_and_wider(D):
     q = torch.zeros((1, 2, 1, D))
     (qp,), got_d = pad_head_dim(q)
@@ -72,12 +73,13 @@ def test_pad_head_dim_keeps_kernel_widths_and_wider(D):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [8, 24, 96, 128])
+@pytest.mark.parametrize("D", [8, 24, 96, 128, 192, 256])
 def test_padded_flash_matches_pallas_interpret(D, causal):
     """O, lse2 and the gradients of ``sum(O * w)`` in q, k and v through
-    the port's ``flash_attention`` at head dims 8, 24 and 96 (padded to 16,
-    32 and 128) and 128 (the widest kernel width, unpadded), plain versions,
-    against the JAX package's ``flash_attention`` in interpret mode."""
+    the port's ``flash_attention`` at head dims 8, 24, 96 and 192 (padded to
+    16, 32, 128 and 256) and 128 and 256 (kernel widths, unpadded), plain
+    versions, against the JAX package's ``flash_attention`` in interpret
+    mode."""
     q, k, v, w = _arrays((2, 17, 2, D), seed=D + causal)
 
     def out_and_grads(q, k, v):
@@ -117,9 +119,10 @@ def test_padded_ring_flash_matches_jax(causal):
     _check_ring_flash_matches_jax(8, causal)
 
 
-@pytest.mark.parametrize("D", [96, 128])
+@pytest.mark.parametrize("D", [96, 128, 192, 256])
 def test_wide_ring_flash_matches_jax(D):
-    """The same causal ring at head dims 96 (padded to 128) and 128."""
+    """The same causal ring at head dims 96 and 192 (padded to 128 and
+    256), 128 and 256."""
     _check_ring_flash_matches_jax(D, True)
 
 
@@ -149,7 +152,7 @@ def test_padded_chunked_flash_local_matches_jax():
     _check_chunked_flash_local_matches_jax(8)
 
 
-@pytest.mark.parametrize("D", [96, 128])
+@pytest.mark.parametrize("D", [96, 128, 256])
 def test_wide_chunked_flash_local_matches_jax(D):
     _check_chunked_flash_local_matches_jax(D)
 
@@ -179,15 +182,15 @@ def _arch(attention, d_model, n_heads):
 
 
 @pytest.mark.parametrize("attention", ["flash", "ring"])
-def test_cuda_transformer_refuses_head_dims_above_64(attention):
+def test_cuda_transformer_refuses_head_dims_above_the_widest_kernel(attention):
     """Asked for a CUDA device, a transformer whose flash or ring attention
-    would run the kernels at head dim 256, above the widest kernel (128),
+    would run the kernels at head dim 512, above the widest kernel (256),
     is refused when it is built, with the head dim and the limit named;
     nothing touches the device, so this holds on a machine without a GPU.
     On the CPU the same arch builds and runs (the plain versions take any
     head dim)."""
-    arch = _arch(attention, d_model=512, n_heads=2)
-    with pytest.raises(ValueError, match=r"up to 128.*head dim 256"):
+    arch = _arch(attention, d_model=1024, n_heads=2)
+    with pytest.raises(ValueError, match=r"up to 256.*head dim 512"):
         build_policy(arch, device="cuda")
     policy = build_policy(arch, device="cpu")
     params = policy.init_params(torch.Generator().manual_seed(0))
@@ -201,8 +204,11 @@ def test_cuda_transformer_refuses_head_dims_above_64(attention):
 @pytest.mark.parametrize("attention,d_model,n_heads", [
     ("flash", 16, 2),     # head dim 8, tests/test_anakin.py's arch: padded
     ("ring", 128, 2),     # head dim 64
-    ("flash", 256, 2),    # head dim 128, the widest kernel
+    ("flash", 256, 2),    # head dim 128
     ("ring", 256, 2),
+    ("flash", 512, 2),    # head dim 256, the widest kernel
+    ("ring", 512, 2),
+    ("flash", 384, 2),    # head dim 192: padded to 256
     ("dense", 256, 2),    # head dim 128 without the flash kernels
 ])
 def test_cuda_transformer_builds_within_the_limit(attention, d_model, n_heads):
