@@ -66,7 +66,21 @@ Phases, each of which fails the run:
    KV cache beside one serving through the window, over ``RecallEnv``
    episodes that outgrow the window, with a hot swap: the same values
    before the window rolls (the bf16 bar), one prefill for the swap, no
-   flash kernel on the cached path, and the ms per env step of both.
+   flash kernel on the cached path, and the ms per env step of both;
+11. the distributed loop: phase 5's learner in a ``TrainingServer``
+   (``relayrl_tpu_torch/examples/chaos_server.py``, a process of its own
+   on the card) fed over ZMQ by a ``VectorAgent`` of 8
+   ``RecallEnv(255)`` lanes in this process, 4 updates; checks the ingest
+   accounting (accepted == max_seq == sent, contiguous, no drop), no
+   learner error, the server's K1/K2/K3 launches per update (336/4/4), the
+   agent's K1 launches per dispatch (3), keyframe and delta frames
+   applied, and the agent's params bit-equal (sha256) to the server's
+   publish at the same version; then SIGKILLs the server, plays a wave
+   into the outage, restarts it with ``resume`` (params and Adam steps
+   equal to the checkpoint's) and requires it to train past the kill, the
+   agent to advance, and after a spool replay accepted == max_seq == sent
+   with duplicates; prints env steps/s, ms per update and publish bytes
+   (not gated).
 
 Phases 3 and 6 also hold every kernel to its plain version at head dims
 128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
@@ -122,6 +136,16 @@ LEARNER_WAVES = 2
 # trained for SP_UPDATES updates on batches of phase 5's first wave.
 SP = 4
 SP_UPDATES = 4
+# The distributed loop (phase 11): the port's chaos server (a
+# TrainingServer in its own process) learns phase 5's learner from one
+# VectorAgent of DIST_LANES RecallEnv(LEARNER_HORIZON) lanes in this
+# process, so one wave of episodes is one epoch; DIST_UPDATES updates,
+# then the server is SIGKILLed, the agent plays OUTAGE_WAVES waves into the
+# outage, and the server restarts with resume.
+DIST_LANES = 8
+DIST_UPDATES = 4
+OUTAGE_WAVES = 1
+DIST_TIMEOUT_S = 240
 # The bars of tests/test_flash.py: 3e-2 for bf16, 2e-5 for f32.
 TOLERANCE = {"bfloat16": 3e-2, "float32": 2e-5}
 # Gradients: 5e-5 in f32 (tests/test_flash.py's gradient bar); in bf16 3e-2
@@ -1709,6 +1733,271 @@ def local_recall(device, workdir: Path) -> dict:
             "avg_return": result["avg_return_last_window"], **cmp}
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class ChaosServer:
+    """The port's ``examples/chaos_server.py`` in a process of its own,
+    started with ``subprocess`` (never a fork of this CUDA process), its
+    output kept in ``log``; :meth:`status` reads its status file."""
+
+    def __init__(self, root: Path, cfg: dict, log: Path):
+        import os
+
+        self.cfg, self.log = cfg, log
+        env = dict(os.environ, PYTHONPATH=str(root))
+        self._out = open(log, "ab")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "relayrl_tpu_torch.examples.chaos_server",
+             json.dumps(cfg)], cwd=str(root), env=env, stdout=self._out,
+            stderr=subprocess.STDOUT)
+
+    def status(self) -> dict | None:
+        """This process's last status (None before its first write: a
+        killed predecessor's file is not this one's)."""
+        try:
+            status = json.loads(Path(self.cfg["status_path"]).read_text())
+        except (OSError, ValueError):
+            return None
+        return status if status.get("pid") == self.proc.pid else None
+
+    def wait(self, pred, what: str, timeout_s: float = DIST_TIMEOUT_S,
+             poll=None) -> dict:
+        """Poll the status file until ``pred(status)``; ``poll`` runs
+        between reads (the agent's env loop, say)."""
+        deadline = time.monotonic() + timeout_s
+        status = None
+        while time.monotonic() < deadline:
+            if self.proc.poll() is not None:
+                raise AssertionError(
+                    f"chaos server exited ({self.proc.returncode}) waiting "
+                    f"for {what}:\n{self.tail()}")
+            status = self.status()
+            if status is not None and pred(status):
+                return status
+            if poll is not None:
+                poll()
+            else:
+                time.sleep(0.2)
+        raise AssertionError(f"timed out waiting for {what}; last status "
+                             f"{status and {k: status[k] for k in ('version', 'stats')}}"
+                             f"\n{self.tail()}")
+
+    def tail(self, n: int = 4000) -> str:
+        self._out.flush()
+        return self.log.read_bytes()[-n:].decode(errors="replace")
+
+    def stop(self, sig=None) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(sig or signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        self._out.close()
+
+
+def distributed_loop(device, root: Path, workdir: Path) -> dict:
+    """Phase 11: the flagship learner trained across two processes on the
+    card through the port's TrainingServer and VectorAgent over ZMQ, then
+    the learner SIGKILL drill. Checks the ingest accounting, the learner
+    errors, the server's K1/K2/K3 launches per update, the agent's K1
+    launches per dispatch, the bit-identity of the agent's params with the
+    server's publish, and the drill's accounting and version continuity."""
+    import shutil
+    import signal
+
+    from relayrl_tpu_torch.checkpoint.manager import (
+        CheckpointManager,
+        train_state_digest,
+    )
+    from relayrl_tpu_torch.envs import RecallEnv, SyncVectorEnv
+    from relayrl_tpu_torch.runtime.agent import VectorAgent
+    from relayrl_tpu_torch.runtime.vector_actor import run_vector_gym_loop
+    from relayrl_tpu_torch.weights import params_to_jax, tree_digest
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    ports = [_free_port() for _ in range(3)]
+    server_addrs = {"agent_listener_addr": f"tcp://127.0.0.1:{ports[0]}",
+                    "trajectory_addr": f"tcp://127.0.0.1:{ports[1]}",
+                    "model_pub_addr": f"tcp://127.0.0.1:{ports[2]}"}
+    agent_addrs = {"agent_listener_addr": server_addrs["agent_listener_addr"],
+                   "trajectory_addr": server_addrs["trajectory_addr"],
+                   "model_sub_addr": server_addrs["model_pub_addr"]}
+    env = RecallEnv(LEARNER_HORIZON, N_CUES)
+    arch = SLICE_ARCH
+    hyperparams = {"model_kind": arch["kind"], "seed": SEED, "seed_salt": 0,
+                   **{k: v for k, v in arch.items()
+                      if k not in ("kind", "has_critic", "precision")},
+                   **LEARNER}
+    scratch = workdir / "server"
+    cfg = {"algorithm": "REINFORCE",
+           "obs_dim": int(env.observation_space.shape[0]),
+           "act_dim": int(env.action_space.n), "hyperparams": hyperparams,
+           "device": str(device), "scratch": str(scratch), "checkpoint_every": 1,
+           "config": {"learner": {"precision": arch["precision"]}},
+           "digests": True, "status_path": str(workdir / "status.json"),
+           **server_addrs}
+    agent_config = workdir / "agent_config.json"
+    agent_config.write_text(json.dumps({"guardrails": {"enabled": False}}))
+    n_layers = arch["n_layers"]
+    per_update = (n_layers * (4 + LEARNER["train_vf_iters"]), n_layers, n_layers)
+
+    server = ChaosServer(root, cfg, workdir / "server.log")
+    agent = None
+    try:
+        server.wait(lambda s: True, "the server to come up")
+        agent = VectorAgent(num_envs=DIST_LANES, config_path=str(agent_config),
+                            seed=SEED, probe=False, device=device,
+                            model_path=str(workdir / "client_model.rlx"),
+                            **agent_addrs)
+        venv = SyncVectorEnv([lambda: RecallEnv(LEARNER_HORIZON, N_CUES)]
+                             * DIST_LANES)
+        waves = 0
+
+        def wave():
+            nonlocal waves
+            run_vector_gym_loop(agent, venv, LEARNER_HORIZON, seed=SEED + waves)
+            waves += 1
+
+        # Train: DIST_UPDATES waves, one epoch each.
+        zero_flash_counts()
+        dispatches0 = agent.host.dispatches
+        t0 = time.perf_counter()
+        for _ in range(DIST_UPDATES):
+            wave()
+        wall = time.perf_counter() - t0
+        dispatches = agent.host.dispatches - dispatches0
+        agent_counts = flash_counts()
+        status = server.wait(
+            lambda s: (s["stats"]["updates"] == DIST_UPDATES
+                       and s["version"] == DIST_UPDATES
+                       and agent.model_version == DIST_UPDATES
+                       and (s.get("published") or {}).get("version")
+                       == DIST_UPDATES),
+            f"{DIST_UPDATES} updates published and installed")
+        # The digest of what the agent holds, read under its swap lock.
+        with agent.host._lock:
+            agent_version = agent.host.version
+            agent_digest = tree_digest(params_to_jax(agent.host.params))
+        decoder = agent.host._wire_decoder
+        lane_ids = list(agent.agent_ids)
+        sent = agent.spool.sent_counts()
+
+        # Gates after training.
+        stats = status["stats"]
+        if stats["learner_errors"] or stats["dropped"] or stats["publish_errors"]:
+            raise AssertionError(f"server stats {stats}: "
+                                 f"{status['last_learner_error']}")
+        for lane in lane_ids:
+            row = status["accounting"]["agents"].get(lane)
+            if row != {"max_seq": sent[lane], "accepted": sent[lane],
+                       "contiguous": True}:
+                raise AssertionError(f"ingest accounting of {lane}: {row}, "
+                                     f"sent {sent[lane]}")
+        kernels = status["kernels"]
+        server_counts = (kernels["flash_fwd"], kernels["flash_dq"],
+                         kernels["flash_dkv"])
+        if server_counts != tuple(DIST_UPDATES * c for c in per_update):
+            raise AssertionError(f"server launches {server_counts} over "
+                                 f"{DIST_UPDATES} updates; expected "
+                                 f"{DIST_UPDATES} x {per_update}")
+        # The window step: K1 in every layer but the last, whose readout
+        # row attends densely (phase 4's 3 per dispatch at 4 layers).
+        if agent_counts != ((n_layers - 1) * dispatches, 0, 0):
+            raise AssertionError(f"agent launches {agent_counts} over "
+                                 f"{dispatches} dispatches")
+        published = status["published"]
+        if (agent_version, agent_digest) != (published["version"],
+                                              published["digest"]):
+            raise AssertionError(f"agent params at version {agent_version} "
+                                 f"({agent_digest}) != published "
+                                 f"{published}")
+        if decoder is None or not (decoder.keyframes_applied >= 1
+                                   and decoder.deltas_applied >= 1):
+            raise AssertionError("the agent applied no keyframe and delta "
+                                 "frame")
+        kinds = status["publish_bytes"]
+        timings = status["timings"]
+
+        # SIGKILL drill: the last checkpoint must be on disk first.
+        ckpt_dir = scratch / "checkpoints"
+        server.wait(lambda s: CheckpointManager(str(ckpt_dir)).latest_step()
+                    == DIST_UPDATES, "the checkpoint of the last update")
+        v_before, agent_v_before = status["version"], agent.model_version
+        server.stop(signal.SIGKILL)
+        saved, _, _ = CheckpointManager(str(ckpt_dir)).restore()
+        checkpoint = {"version": int(saved["version"]),
+                      **train_state_digest(saved["train"])}
+        for _ in range(OUTAGE_WAVES):
+            wave()
+        sent_outage = agent.spool.sent_counts()
+        server = ChaosServer(root, {**cfg, "resume": True},
+                             workdir / "server.log")
+        status = server.wait(lambda s: True, "the restarted server")
+        if status["resume"] != checkpoint:
+            raise AssertionError(f"resumed {status['resume']} != checkpoint "
+                                 f"{checkpoint}")
+
+        def heal():
+            # Give the reconnect replay a moment before playing on.
+            deadline = time.monotonic() + 15
+            while time.monotonic() < deadline:
+                s = server.status()
+                if (s and s["version"] > v_before
+                        and agent.model_version > agent_v_before):
+                    return
+                time.sleep(0.2)
+            wave()
+
+        server.wait(lambda s: (s["version"] > v_before
+                               and agent.model_version > agent_v_before),
+                    "training past the pre-kill version", poll=heal)
+        agent.spool.replay()
+        sent_total = agent.spool.sent_counts()
+
+        def recovered(s):
+            rows = s["accounting"]["agents"]
+            return all(rows.get(lane, {}).get("max_seq") == sent_total[lane]
+                       and rows[lane]["contiguous"] for lane in lane_ids)
+
+        status = server.wait(recovered, "zero-loss accounting")
+        for lane in lane_ids:
+            row = status["accounting"]["agents"][lane]
+            if row["accepted"] != sent_total[lane] or \
+                    sent_total[lane] < sent_outage[lane]:
+                raise AssertionError(f"{lane}: {row} vs sent {sent_total[lane]}")
+        if status["accounting"]["duplicates"] < 1:
+            raise AssertionError("the replay after recovery left no duplicate")
+        if status["stats"]["learner_errors"]:
+            raise AssertionError(f"restarted server: {status['stats']}: "
+                                 f"{status['last_learner_error']}")
+        return {"updates": DIST_UPDATES, "dispatches": dispatches,
+                "wall": wall, "agent_counts": agent_counts,
+                "server_counts": server_counts, "per_update": per_update,
+                "digest": agent_digest, "version": agent_version,
+                "keyframes": decoder.keyframes_applied,
+                "deltas": decoder.deltas_applied, "publish_bytes": kinds,
+                "timings": timings, "v_before": v_before,
+                "v_after": status["version"], "agent_v_after": agent.model_version,
+                "checkpoint": checkpoint, "sent_total": sum(sent_total.values()),
+                "duplicates": status["accounting"]["duplicates"],
+                "waves": waves}
+    finally:
+        if agent is not None:
+            agent.disable_agent()
+        server.stop()
+
+
 def main() -> int:
     import torch
 
@@ -1900,30 +2189,59 @@ def main() -> int:
           f"{decode['cached_ms']:.3f} vs window {decode['window_ms']:.3f} on "
           f"{smi.splitlines()[0]}", flush=True)
 
+    # 11. the distributed loop
+    dist = distributed_loop(device, root, root / "build" / "chip_smoke_dist")
+    d_fwd, d_dq, d_dkv = dist["server_counts"]
+    a_fwd = dist["agent_counts"][0]
+    steps_per_s = DIST_LANES * dist["dispatches"] / dist["wall"]
+    timings = dist["timings"]
+    kinds = dist["publish_bytes"]
+    print(f"[dist] TrainingServer (chaos_server process) + VectorAgent ({DIST_LANES} "
+          f"RecallEnv({LEARNER_HORIZON}) lanes, this process) over ZMQ on one card: "
+          f"{dist['updates']} updates; server launches (flash_fwd, flash_dq, flash_dkv) "
+          f"{dist['server_counts']} = {dist['updates']} x {dist['per_update']}; agent "
+          f"flash_fwd {a_fwd} = {SLICE_ARCH['n_layers'] - 1} x {dist['dispatches']} "
+          f"dispatches; agent params at version {dist['version']} == published "
+          f"(sha256 {dist['digest'][:16]}); {dist['keyframes']} keyframe(s), "
+          f"{dist['deltas']} delta(s) applied", flush=True)
+    print(f"[dist] SIGKILL at version {dist['v_before']}, {OUTAGE_WAVES} wave(s) into "
+          f"the outage, resume at the checkpoint (version {dist['checkpoint']['version']}, "
+          f"params and Adam steps equal): server at version {dist['v_after']}, agent at "
+          f"{dist['agent_v_after']}; accepted == max_seq == sent ({dist['sent_total']} "
+          f"over {DIST_LANES} lanes), contiguous, {dist['duplicates']} duplicate(s)",
+          flush=True)
+    print(f"[dist] (not gated) {steps_per_s:.1f} env steps/s at the agent over "
+          f"{dist['updates']} waves; server dispatch {1e3 * timings['dispatch_s'] / dist['updates']:.2f} "
+          f"ms and device wait {1e3 * timings['device_wait_s'] / dist['updates']:.2f} ms "
+          f"per update; publish bytes keyframe {kinds.get('keyframe')}, delta "
+          f"{kinds.get('delta')}; on {smi.splitlines()[0]}", flush=True)
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:116",
-        "launches": run["launches"] + fwd + r_fwd + decode["launches"],
+        "launches": run["launches"] + fwd + r_fwd + decode["launches"] + a_fwd + d_fwd,
         "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd,
-                             "decode_vs_window": decode["launches"]},
+                             "decode_vs_window": decode["launches"],
+                             "distributed_agent": a_fwd, "distributed_server": d_fwd},
         **main_flash,
     }, {
         "name": "flash_dq",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:223",
-        "launches": dq + r_dq,
-        "launches_by_path": {"learner": dq, "local_loop": r_dq},
+        "launches": dq + r_dq + d_dq,
+        "launches_by_path": {"learner": dq, "local_loop": r_dq, "distributed_server": d_dq},
         **main_bwd["flash_dq"],
     }, {
         "name": "flash_dkv",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:255",
-        "launches": dkv + r_dkv,
-        "launches_by_path": {"learner": dkv, "local_loop": r_dkv},
+        "launches": dkv + r_dkv + d_dkv,
+        "launches_by_path": {"learner": dkv, "local_loop": r_dkv,
+                             "distributed_server": d_dkv},
         **main_bwd["flash_dkv"],
     }] + [{
         "name": name,

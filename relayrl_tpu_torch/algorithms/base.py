@@ -4,13 +4,18 @@ Counterpart of :mod:`relayrl_tpu.algorithms.base`: the registry
 (``register_algorithm``, ``build_algorithm``, ``registered_algorithms``),
 ``anchor_path`` and the part of ``AlgorithmBase`` the on-policy family
 uses: the reference contract (``receive_trajectory -> bool``,
-``train_model``, ``save``, ``log_epoch``, ``bundle``, ``version``) and the
-ingest finite guard with its drop counter.
+``train_model``, ``save``, ``log_epoch``, ``bundle``, ``version``), the
+ingest finite guard with its drop counter, and the training server's half:
+the in-flight dispatch window (``inflight``), ``dispatched_version``,
+``force_version``, ``snapshot_for_publish``, ``capture_epoch_stats``,
+``stage_batch``, ``reset_ingest_buffers``, ``checkpoint_aux`` /
+``restore_aux`` and ``warmup``.
 
-Not ported yet: the guardrail probes, the in-flight dispatch window
-(``runtime/pipeline.py``), warmup and the multi-host hooks. The port's
-update runs synchronously: ``train_on_batch`` returns after the update has
-been issued, and its metrics stay on the device until read.
+The version is a host-side integer bumped at dispatch, so reading it never
+waits on the device (the JAX package keeps a host mirror of its device
+step for the same reason). An eager update compiles nothing, so
+``warmup`` returns 0; a CUDA-graph capture per bucket would live there.
+Not ported: the guardrail probes and the multi-host hooks.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ from __future__ import annotations
 import abc
 import os
 from typing import Any, Callable, Mapping, Sequence
+
+import torch
 
 from relayrl_tpu_torch.types.action import ActionRecord
 from relayrl_tpu_torch.types.model_bundle import ModelBundle
@@ -63,6 +70,12 @@ class AlgorithmBase(abc.ABC):
     # first increment materializes the instance counter.
     dropped_nonfinite = 0
 
+    # Bounded async-dispatch window (runtime/pipeline.InflightWindow):
+    # how many updates may be dispatched-but-unfenced. 0 fences every
+    # dispatch.
+    max_inflight_updates = 2
+    _inflight = None
+
     def _drop_nonfinite(self) -> None:
         """Count + log one trajectory rejected by the finite-value guard (a
         NaN/inf would not crash; it would silently poison the learner
@@ -97,3 +110,91 @@ class AlgorithmBase(abc.ABC):
     @abc.abstractmethod
     def version(self) -> int:
         """Monotonic model version (bumped once per train step)."""
+
+    # -- the training server's half --
+    def warmup(self, should_continue=None) -> int:
+        """Pre-build the update for the batch shapes the first epochs can
+        hit; returns the number of shapes prepared. An eager update has
+        nothing to build, so this returns 0 (the server calls it where
+        the JAX package compiles, ahead of the first batch)."""
+        return 0
+
+    def checkpoint_aux(self):
+        """Host-side arrays to persist beside the train state, or None
+        (on-policy: an epoch buffer refills within one epoch)."""
+        return None
+
+    def restore_aux(self, aux) -> None:
+        """Apply a previously saved :meth:`checkpoint_aux` payload."""
+
+    @property
+    def inflight(self):
+        """The dispatched-but-unfenced update window, created lazily."""
+        if self._inflight is None:
+            from relayrl_tpu_torch.runtime.pipeline import InflightWindow
+
+            self._inflight = InflightWindow(self.max_inflight_updates)
+        return self._inflight
+
+    def force_version(self, version: int) -> None:
+        """Fast-forward the model version past a rolled-back line of
+        history, so swap gates and checkpoint step numbers stay
+        monotonic."""
+        self.state.step = int(version)
+
+    def reset_ingest_buffers(self) -> None:
+        """Drop partially accumulated host-side ingest state (base:
+        nothing to drop)."""
+
+    @property
+    def dispatched_version(self) -> int:
+        """Model version including dispatched-but-unfenced updates — what
+        an async publish stamps on its snapshot. The port's version is a
+        host counter bumped at dispatch, so this is :attr:`version`."""
+        return int(self.version)
+
+    def _publish_module(self) -> torch.nn.Module:
+        """The params module a published bundle carries."""
+        return self.state.params
+
+    def _publish_arch(self) -> dict:
+        return self.arch
+
+    def snapshot_for_publish(self):
+        """Cheap publish handoff: a device clone of the params, queued on
+        the learner's stream behind every dispatched update, and an event
+        recorded after it. The optimizer moves the live params in place,
+        so the clone is what keeps a publish from tearing across two
+        versions; the publisher thread waits on the event before its
+        device-to-host read (:meth:`PublishSnapshot.host_params`)."""
+        from relayrl_tpu_torch.runtime.pipeline import (
+            PublishSnapshot,
+            record_event,
+        )
+        from relayrl_tpu_torch.weights import state_to_jax
+
+        module = self._publish_module()
+        with torch.no_grad():
+            state = {k: v.detach().clone()
+                     for k, v in module.state_dict().items()}
+        return PublishSnapshot(
+            version=self.dispatched_version, arch=self._publish_arch(),
+            state=state, event=record_event(self.device),
+            to_host=lambda host: state_to_jax(module, host))
+
+    def capture_epoch_stats(self, updated: bool):
+        """Snapshot-and-reset the host counters an epoch log needs, at
+        dispatch time; returns the payload for ``log_epoch(stats=...)``,
+        or None when no log is due."""
+        return None
+
+    def stage_batch(self, host_batch) -> dict:
+        """Move an assembled host batch to the device ahead of dispatch;
+        :meth:`_to_device` passes device tensors through, so a staged
+        batch and a host batch are interchangeable downstream."""
+        return self._to_device(host_batch)
+
+    def _to_device(self, host_batch) -> dict[str, torch.Tensor]:
+        """The one host-to-device move of a batch."""
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in host_batch.items()}

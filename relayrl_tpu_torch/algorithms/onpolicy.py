@@ -6,12 +6,15 @@ into one update on the device, and ``receive_trajectory -> True`` is the
 publish signal. Subclasses implement ``_setup`` (arch, policy, state and
 the ``(state, batch) -> (state, metrics)`` update) and ``_log_keys``.
 
-The update is issued synchronously (the JAX package's in-flight window is
-not ported yet): a drained batch moves to the device once, in
-:meth:`OnPolicyAlgorithm.train_on_batch`, and its metrics stay 0-d device
-tensors until :meth:`OnPolicyAlgorithm.log_epoch` reads them all in one
-transfer. So the epoch buffer needs one staging slab: by the next drain
-the update that read the last one has consumed it.
+A drained batch moves to the device once (in
+:meth:`OnPolicyAlgorithm.train_on_batch`, or earlier through
+``stage_batch``). The update returns once its kernels are queued: its
+metrics come back as a :class:`~relayrl_tpu_torch.runtime.pipeline.
+LazyMetrics` read in one device-to-host copy, and the in-flight window
+(``learner.max_inflight_updates``) bounds how far dispatch runs ahead of
+the device, fencing on the CUDA event recorded after each update. The
+epoch buffer's staging slabs are reused after ``window + 1`` drains, by
+which time the update that read a slab has been fenced.
 """
 
 from __future__ import annotations
@@ -26,7 +29,11 @@ from relayrl_tpu_torch.algorithms.base import AlgorithmBase, anchor_path
 from relayrl_tpu_torch.config import ConfigLoader
 from relayrl_tpu_torch.data import EpochBuffer
 from relayrl_tpu_torch.models import resolve_device
-from relayrl_tpu_torch.types.columnar import trajectory_is_finite
+from relayrl_tpu_torch.runtime.pipeline import LazyMetrics, record_event
+from relayrl_tpu_torch.types.columnar import (
+    DecodedTrajectory,
+    trajectory_is_finite,
+)
 from relayrl_tpu_torch.types.model_bundle import ModelBundle
 from relayrl_tpu_torch.utils import EpochLogger, setup_logger_kwargs
 from relayrl_tpu_torch.weights import params_to_jax
@@ -36,6 +43,8 @@ def read_metrics(metrics: Mapping[str, Any]) -> dict[str, float]:
     """0-d device metrics -> floats, in one device-to-host transfer."""
     if not metrics:
         return {}
+    if isinstance(metrics, LazyMetrics):
+        return dict(metrics.resolve())
     values = torch.stack([torch.as_tensor(v).float().reshape(())
                           for v in metrics.values()]).tolist()
     return dict(zip(metrics, values))
@@ -82,6 +91,12 @@ class OnPolicyAlgorithm(AlgorithmBase):
         # Subclass: sets self.arch, self.policy, self.state, self._update.
         self._setup(params, learner, generator)
 
+        # Async-dispatch window (runtime/pipeline): how many updates may
+        # be dispatched-but-unfenced. 0 = fence every dispatch.
+        self.max_inflight_updates = int(params.get(
+            "max_inflight_updates",
+            learner.get("max_inflight_updates", 2)))
+
         self.buffer = EpochBuffer(
             obs_dim=self.obs_dim,
             act_dim=self.act_dim,
@@ -91,7 +106,7 @@ class OnPolicyAlgorithm(AlgorithmBase):
                 "bucket_lengths",
                 learner.get("bucket_lengths", (64, 256, 1000))),
             max_traj_length=loader.get_max_traj_length(),
-            staging_slots=1,
+            staging_slots=self.max_inflight_updates + 1,
         )
 
         lk = dict(logger_kwargs) if logger_kwargs else setup_logger_kwargs(
@@ -155,10 +170,14 @@ class OnPolicyAlgorithm(AlgorithmBase):
 
     def accumulate(self, item):
         """Buffer one trajectory without training; returns the drained
-        epoch batch dict when the buffer fills, else None. Marker-only
-        trajectories carry no steps and are skipped; non-finite ones are
-        dropped and counted."""
-        if not item or all(a.act is None for a in item):
+        epoch batch dict when the buffer fills, else None. Takes a
+        sequence of ``ActionRecord`` or a columnar ``DecodedTrajectory``.
+        Marker-only trajectories carry no steps and are skipped;
+        non-finite ones are dropped and counted."""
+        if isinstance(item, DecodedTrajectory):
+            if item.n_steps == 0:
+                return None
+        elif not item or all(a.act is None for a in item):
             return None
         if not trajectory_is_finite(item):
             self._drop_nonfinite()
@@ -167,29 +186,47 @@ class OnPolicyAlgorithm(AlgorithmBase):
             return self.buffer.drain().as_dict()
         return None
 
-    def _to_device(self, host_batch: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-        """The one host-to-device move of a batch: every later use of it in
-        the update sees device tensors."""
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in host_batch.items()}
-
-    def train_on_batch(self, host_batch: Mapping[str, Any]) -> Mapping[str, torch.Tensor]:
-        """One update on an assembled batch dict; returns its metrics as
-        0-d device tensors."""
+    def train_on_batch(self, host_batch: Mapping[str, Any]) -> LazyMetrics:
+        """One update on an assembled batch dict (host arrays or device
+        tensors). Returns once the update is queued: its metrics come back
+        as a :class:`LazyMetrics`, and the update enters the in-flight
+        window with the CUDA event recorded after it."""
         self.state, metrics = self._update(self.state,
                                            self._to_device(host_batch))
-        self._last_metrics = metrics
-        return metrics
+        self._last_metrics = LazyMetrics(metrics)
+        self.inflight.push(self._last_metrics, record_event(self.device))
+        return self._last_metrics
 
     def train_model(self) -> Mapping[str, torch.Tensor]:
         return self.train_on_batch(self.buffer.drain().as_dict())
 
-    def log_epoch(self) -> None:
-        """One row of the epoch log: the episode stats since the last row
-        and the latest update's metrics, read from the device in one
-        transfer."""
-        rets, lens = self.buffer.pop_episode_stats()
-        values = read_metrics(self._last_metrics)
+    def maybe_log_epoch(self) -> None:
+        # One update == one epoch for the on-policy family.
+        self.log_epoch()
+
+    def reset_ingest_buffers(self) -> None:
+        """A rolled-back stream may have part-filled the epoch buffer;
+        those episodes belong to the rolled-back line."""
+        self.buffer.reset()
+
+    def capture_epoch_stats(self, updated: bool):
+        """One update == one epoch: a log is due exactly when an update
+        dispatched. Pops the episode stats now, so episodes arriving
+        while the update is in flight land in the next epoch's row."""
+        if not updated:
+            return None
+        return self.buffer.pop_episode_stats()
+
+    def log_epoch(self, stats=None, metrics=None) -> None:
+        """One row of the epoch log. ``stats``/``metrics`` are deferred
+        :meth:`capture_epoch_stats` payloads (the pipelined server logs
+        an epoch after its update's fence); without them the episode
+        stats pop here and the latest metrics apply. Reading the metrics
+        is one device-to-host transfer."""
+        rets, lens = (self.buffer.pop_episode_stats() if stats is None
+                      else stats)
+        values = read_metrics(self._last_metrics if metrics is None
+                              else metrics)
         self.epoch += 1
         self.logger.store(EpRet=rets or [0.0], EpLen=lens or [0])
         self.logger.log_tabular("Epoch", self.epoch)
@@ -201,6 +238,9 @@ class OnPolicyAlgorithm(AlgorithmBase):
 
     def save(self, path=None) -> None:
         self.bundle().save(path or self.server_model_path)
+
+    def _publish_module(self):
+        return self.state.params
 
     def bundle(self) -> ModelBundle:
         """The current policy for actors: params as the flax tree of numpy

@@ -1,8 +1,6 @@
 """Variable-length trajectories → fixed-shape padded/masked batches.
 
-A copy of :mod:`relayrl_tpu.data.batching` without ``pad_decoded``, the
-columnar-decode path, which comes with the port's ``types/columnar.py``.
-Batches stay host (numpy) arrays; the learner moves each one to the
+A copy of :mod:`relayrl_tpu.data.batching`. Batches stay host (numpy) arrays; the learner moves each one to the
 device once.
 
 The reference pickles arbitrary-length ``Vec<RelayRLAction>`` and loops over
@@ -210,6 +208,70 @@ def pad_trajectory(
     terminated = (bool(actions[n - 1].done)
                   and not bool(actions[n - 1].truncated)
                   and n == len(actions))
+    last_val = 0.0 if terminated else float(val[n - 1])
+    return PaddedTrajectory(
+        obs=obs, act=act, act_mask=act_mask, rew=rew, val=val, logp=logp,
+        valid=valid, length=n, terminated=terminated, last_val=last_val,
+    )
+
+
+def pad_decoded(
+    dt,
+    horizon: int,
+    obs_dim: int,
+    act_dim: int,
+    discrete: bool = True,
+) -> PaddedTrajectory:
+    """Columnar fast path of :func:`pad_trajectory`.
+
+    ``dt`` is a :class:`relayrl_tpu_torch.types.columnar.DecodedTrajectory` (the
+    native decoder already folded terminal markers), so padding is pure
+    vectorized slice assignment — no per-step Python loop. Semantics are
+    kept identical to the ActionRecord path (tests/test_native_codec.py
+    asserts byte equality of the padded outputs across both paths).
+    """
+    cols, aux = dt.columns, dt.aux
+    total = dt.n_steps
+    if total == 0:
+        raise ValueError("trajectory contained only terminal markers"
+                         if dt.n_records else "empty trajectory")
+    n = min(total, horizon)
+
+    obs = np.zeros((horizon, obs_dim), dtype=np.float32)
+    if "o" in cols:
+        flat = cols["o"].reshape(total, -1)
+        if flat.shape[1] < obs_dim:
+            raise ValueError(
+                f"obs has {flat.shape[1]} features, expected >= {obs_dim}")
+        obs[:n] = flat[:n, :obs_dim]
+    if discrete:
+        act = np.zeros((horizon,), dtype=np.int32)
+        if "a" in cols:
+            act[:n] = cols["a"].reshape(total, -1)[:n, 0]
+    else:
+        act = np.zeros((horizon, act_dim), dtype=np.float32)
+        if "a" in cols:
+            act[:n] = cols["a"].reshape(total, -1)[:n, :act_dim]
+    act_mask = np.zeros((horizon, act_dim), dtype=np.float32)
+    if "m" in cols:
+        act_mask[:n] = cols["m"].reshape(total, -1)[:n, :act_dim]
+    else:
+        act_mask[:n] = 1.0
+    rew = np.zeros((horizon,), dtype=np.float32)
+    rew[:n] = cols["r"][:n]
+    val = np.zeros((horizon,), dtype=np.float32)
+    if "v" in aux:
+        val[:n] = aux["v"].reshape(total, -1)[:n, 0]
+    logp = np.zeros((horizon,), dtype=np.float32)
+    if "logp_a" in aux:
+        logp[:n] = aux["logp_a"].reshape(total, -1)[:n, 0]
+    valid = np.zeros((horizon,), dtype=np.float32)
+    valid[:n] = 1.0
+
+    done = cols["t"]
+    trunc = cols["x"]
+    terminated = (bool(done[n - 1]) and not bool(trunc[n - 1])
+                  and n == total)
     last_val = 0.0 if terminated else float(val[n - 1])
     return PaddedTrajectory(
         obs=obs, act=act, act_mask=act_mask, rew=rew, val=val, logp=logp,

@@ -1,9 +1,9 @@
 """Epoch buffer: accumulate episodes host-side, emit device-ready batches.
 
-A copy of :mod:`relayrl_tpu.data.replay_buffer` for ``ActionRecord``
-episodes only: the ``DecodedTrajectory`` branch comes with the port's
-``types/columnar.py``, and until then :meth:`EpochBuffer.add_episode`
-refuses anything else with ``TypeError`` instead of mis-padding it.
+A copy of :mod:`relayrl_tpu.data.replay_buffer`. :meth:`EpochBuffer.
+add_episode` takes ``ActionRecord`` episodes and columnar
+``DecodedTrajectory`` ones, and refuses anything else with ``TypeError``
+instead of mis-padding it.
 
 Capability parity with the reference's REINFORCE buffer
 (reference: relayrl_framework/src/native/python/algorithms/REINFORCE/
@@ -22,12 +22,14 @@ from relayrl_tpu_torch.data.batching import (
     BatchStaging,
     PaddedTrajectory,
     TrajectoryBatch,
+    pad_decoded,
     pad_trajectory,
     pick_bucket,
     repad_trajectory,
     stack_trajectories,
 )
 from relayrl_tpu_torch.types.action import ActionRecord
+from relayrl_tpu_torch.types.columnar import DecodedTrajectory
 
 DEFAULT_BUCKETS = (64, 256, 1000)
 
@@ -90,20 +92,28 @@ class EpochBuffer:
     def ready(self) -> bool:
         return len(self._pending) >= self.traj_per_epoch
 
-    def add_episode(self, actions: Sequence[ActionRecord]) -> bool:
-        """Pad + buffer one episode (a sequence of ``ActionRecord``); True
-        when a batch is ready to drain. Bucketing reads the raw record
-        count, terminal markers included."""
-        if not isinstance(actions, Sequence) or not all(
+    def add_episode(
+        self, actions: Sequence[ActionRecord] | DecodedTrajectory
+    ) -> bool:
+        """Pad + buffer one episode; True when a batch is ready to drain.
+
+        Accepts either the ActionRecord list (Python decode path) or a
+        columnar :class:`DecodedTrajectory` — ``len()`` of both is the raw
+        record count, so bucketing is identical across paths."""
+        if isinstance(actions, DecodedTrajectory):
+            bucket = pick_bucket(len(actions), self.buckets)
+            padded = pad_decoded(
+                actions, bucket, self.obs_dim, self.act_dim, self.discrete)
+        elif isinstance(actions, Sequence) and all(
                 isinstance(a, ActionRecord) for a in actions):
+            bucket = pick_bucket(len(actions), self.buckets)
+            padded = pad_trajectory(
+                actions, bucket, self.obs_dim, self.act_dim, self.discrete
+            )
+        else:
             raise TypeError(
-                "EpochBuffer.add_episode takes a sequence of ActionRecord; "
-                f"got {type(actions).__name__} (columnar trajectories are "
-                "not ported yet)")
-        bucket = pick_bucket(len(actions), self.buckets)
-        padded = pad_trajectory(
-            actions, bucket, self.obs_dim, self.act_dim, self.discrete
-        )
+                "EpochBuffer.add_episode takes a sequence of ActionRecord "
+                f"or a DecodedTrajectory; got {type(actions).__name__}")
         self._pending.append(padded)
         self.episode_returns.append(float(padded.rew.sum()))
         self.episode_lengths.append(padded.length)

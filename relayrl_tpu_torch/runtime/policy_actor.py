@@ -9,9 +9,10 @@ from the stored window after a hot swap (and started fresh at an
 episode's first step), dropped at an episode boundary, and dropped when
 the window starts rolling or the greedy path advances the window; the
 window path, one forward over the padded window, serves then, and always
-for ``use_kv_cache=False``. The model-wire v2 swap and the telemetry and
-trace hooks come with the transport slice; plain integer counters stand
-in for the telemetry counters.
+for ``use_kv_cache=False``. A networked agent's model deliveries go
+through :func:`apply_wire_swap` (model-wire v2 frames, or v1 bundles);
+plain integer counters stand in for the telemetry counters and trace
+hooks.
 
 Records carry what the JAX actors put on the wire: ``act`` an int32 array
 (discrete) or a float32 vector (continuous), ``logp_a`` and ``v`` float32
@@ -63,20 +64,30 @@ def push_window(window: np.ndarray, length: int, obs) -> tuple[int, bool]:
     return cap, True
 
 
-def apply_bundle_swap(actor, bundle: ModelBundle) -> bool:
+def apply_bundle_swap(actor, bundle: ModelBundle, flat: bool = False) -> bool:
     """Shared hot-swap gate: version check, arch-ABI guard, params
     install under the actor's lock. PolicyActor and VectorActorHost
     delegate here (attribute contract: ``version``, ``arch``, ``params``,
     ``policy``, ``_explore_kwargs``, ``_lock``, ``swaps``). The new
     weights are built and copied to the device before the lock is taken,
-    so a dispatch in flight waits only for the pointer swap."""
+    so a dispatch in flight waits only for the pointer swap. ``flat``
+    moves them in one host-to-device copy into a clone of the live module
+    (the wire path) instead of one copy per leaf."""
     if bundle.version <= actor.version:
         return False
     if not arch_equal(bundle.arch, actor.arch):
         raise ValueError(
             f"model arch changed {actor.arch} -> {bundle.arch}; "
             "actor refuses hot-swap (param-ABI guard)")
-    params = actor.policy.load_params(bundle.params)
+    if flat:
+        import copy
+
+        from relayrl_tpu_torch.weights import load_flat, params_from_jax
+
+        params = load_flat(copy.deepcopy(actor.params),
+                           params_from_jax(bundle.params))
+    else:
+        params = actor.policy.load_params(bundle.params)
     with actor._lock:
         if bundle.version <= actor.version:  # a newer swap won the race
             return False
@@ -88,6 +99,51 @@ def apply_bundle_swap(actor, bundle: ModelBundle) -> bool:
         actor.version = bundle.version
         actor.swaps += 1
     return True
+
+
+def apply_wire_swap(actor, version: int, blob: bytes):
+    """Shared model-delivery decode + swap for both actor hosts: sniffs
+    model-wire v2 frames vs v1 bundles and returns the installed
+    :class:`ModelBundle` (or None when nothing was installed).
+
+    v2: the frame applies into the actor's
+    :class:`~relayrl_tpu_torch.transport.modelwire.ModelWireDecoder`
+    preallocated host buffers; the params then reach the device through
+    ONE host-to-device copy (:func:`~relayrl_tpu_torch.weights.load_flat`
+    into a clone of the live module, built before the gate's lock), and
+    :func:`apply_bundle_swap` installs them. Only bytes move, so the
+    installed params equal the published ones bit for bit. The decoder's
+    buffers are its live delta targets: the copy out of them happens
+    before the next frame is decoded on the same listener thread.
+
+    v1: the bundle installs as before, and reseeds the decoder so a
+    mixed-version fleet keeps the wire state coherent.
+
+    Raises :class:`~relayrl_tpu_torch.transport.modelwire.WireBaseMismatch`
+    (once per divergence) so the transport owner can request a resync.
+    """
+    from relayrl_tpu_torch.transport import modelwire
+    from relayrl_tpu_torch.weights import params_to_jax
+
+    if not modelwire.is_wire_frame(blob):
+        bundle = ModelBundle.from_bytes(blob)
+        bundle.version = version
+        if not apply_bundle_swap(actor, bundle):
+            return None
+        if actor._wire_decoder is not None:
+            actor._wire_decoder.seed(bundle.version, bundle.arch,
+                                     bundle.params)
+        return bundle
+    dec = actor._wire_decoder
+    if dec is None:
+        dec = actor._wire_decoder = modelwire.ModelWireDecoder()
+        dec.seed(actor.version, actor.arch, params_to_jax(actor.params))
+    out = dec.decode(blob)
+    if out is None:
+        return None  # stale duplicate, or awaiting a keyframe after resync
+    ver, arch, host_tree = out
+    bundle = ModelBundle(version=ver, arch=arch, params=host_tree)
+    return bundle if apply_bundle_swap(actor, bundle, flat=True) else None
 
 
 def normalize_obs(obs) -> np.ndarray:
@@ -216,6 +272,8 @@ class PolicyActor:
         self.trajectory = Trajectory(max_length=max_traj_length, on_send=on_send)
         self.steps_served = 0
         self.swaps = 0
+        # Model-wire v2 decode state, created on the first v2 frame.
+        self._wire_decoder = None
 
     def request_for_action(self, obs, mask=None,
                            reward: float = 0.0) -> ActionRecord:
@@ -301,6 +359,11 @@ class PolicyActor:
 
     def swap_from_bytes(self, buf: bytes) -> bool:
         return self.maybe_swap(ModelBundle.from_bytes(buf))
+
+    def swap_from_wire(self, version: int, blob: bytes):
+        """Install a model delivery (a v2 frame or a v1 bundle); returns
+        the installed bundle or None (see :func:`apply_wire_swap`)."""
+        return apply_wire_swap(self, version, blob)
 
     def _push_window(self, obs: np.ndarray) -> bool:
         """Append one observation to the rolling history (lock held).

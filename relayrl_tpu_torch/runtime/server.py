@@ -1,0 +1,1140 @@
+"""The training server process: trajectory ingest → learner → model publish.
+
+Counterpart of :mod:`relayrl_tpu.runtime.server`, single host, for the
+on-policy family. Transport threads put raw payloads on an ingest queue; a
+staging thread decodes them (per-record msgpack, or a columnar RLD1 frame)
+into a decoded queue; one learner thread drains it into the algorithm's
+update, which enters the in-flight window unfenced; a publisher thread
+turns each update's params snapshot into a model-wire v2 frame (or a v1
+bundle) and broadcasts it. Sequence-tagged trajectories are admitted at
+most once per agent (:class:`~relayrl_tpu_torch.runtime.spool.
+SequenceLedger`), and the ledger is saved beside every checkpoint, so a
+resumed server dedups exactly what its restored params already trained
+on.
+
+The ctor takes the JAX server's arguments plus ``device`` (default: the
+GPU; without one the caller must pass ``device="cpu"``). On the GPU every
+kernel library is built and loaded in the constructor, before any thread
+starts, so a kernel that fails to build fails the construction instead of
+the learner thread. The learner thread still never dies on one bad batch;
+every exception it catches is counted in ``stats["learner_errors"]``.
+
+Four parts of the JAX server are not ported; the constructor raises
+:class:`NotImplementedError` when the config turns one on: guardrails
+(``guardrails.enabled``, true by default, so configs for this server say
+false; ``ROADMAP.md`` queue 1 item 10), the serving plane (item 9),
+distributed tracing and fleet aggregation (item 12) and multi-host (item
+11). ``server_type`` "grpc" and "native" raise too (item 4).
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+import traceback
+from typing import Any, Mapping
+
+import torch
+
+from relayrl_tpu_torch.algorithms import build_algorithm, registered_algorithms
+from relayrl_tpu_torch.config import ConfigLoader
+from relayrl_tpu_torch.models import resolve_device
+from relayrl_tpu_torch.transport.base import (
+    BATCH_KIND_ENVELOPES,
+    batch_kind,
+    split_agent_seq,
+    split_batch,
+    swallow_decode_error,
+    unpack_trajectory_envelope,
+)
+from relayrl_tpu_torch.types.columnar import DecodedTrajectory
+from relayrl_tpu_torch.types.trajectory import deserialize_actions
+
+# Fleet telemetry snapshot frames (the JAX package's telemetry/aggregate.py
+# RLS1 frames) ride the trajectory plane; fleet aggregation is not ported,
+# so the server recognises them and drops them instead of counting a
+# decode failure.
+_SNAPSHOT_MAGIC = b"RLS1"
+
+
+def is_snapshot_frame(payload) -> bool:
+    return bytes(payload[:4]) == _SNAPSHOT_MAGIC
+
+
+def split_ctx(agent_id: str) -> tuple[str, str | None]:
+    """Strip a trace-context tag (``#t<trace>.<hop>.<ver>``) off an
+    envelope id, as the JAX package's ``telemetry.trace.split_ctx`` does,
+    so a traced JAX agent's ids attribute cleanly here."""
+    from relayrl_tpu_torch.transport.base import split_agent_trace
+
+    return split_agent_trace(agent_id)
+
+
+class _EventCoalescer:
+    """≤1 journal event per ``min_interval_s`` for burst-prone counters
+    (ingest drops, duplicate replays); one instance per event type,
+    mutated under the owner's lock."""
+
+    def __init__(self, min_interval_s: float = 1.0):
+        self.pending = 0
+        self._last = 0.0
+        self._min = min_interval_s
+
+    def add(self, n: int) -> int | None:
+        self.pending += n
+        if time.monotonic() - self._last >= self._min:
+            due, self.pending = self.pending, 0
+            self._last = time.monotonic()
+            return due
+        return None
+
+    def flush(self) -> int:
+        due, self.pending = self.pending, 0
+        if due:
+            self._last = time.monotonic()
+        return due
+
+
+def _refuse_unported(config: ConfigLoader, serving, tensorboard) -> None:
+    """Raise for every JAX-server feature the config turns on that the
+    port does not have."""
+    if config.get_guardrails_params().get("enabled"):
+        raise NotImplementedError(
+            "guardrails are not ported (ROADMAP.md queue 1 item 10); set "
+            "guardrails.enabled to false in the config")
+    serving_on = (config.get_serving_params().get("enabled")
+                  if serving is None else bool(serving))
+    if serving_on:
+        raise NotImplementedError(
+            "the serving plane is not ported (ROADMAP.md queue 1 item 9); "
+            "set serving.enabled to false")
+    tel = config.get_telemetry_params()
+    if (tel.get("trace_sample_rate") or 0) > 0 or \
+            (tel.get("fleet_interval_s") or 0) > 0:
+        raise NotImplementedError(
+            "distributed tracing and fleet aggregation are not ported "
+            "(ROADMAP.md queue 1 item 12); set telemetry.trace_sample_rate "
+            "and telemetry.fleet_interval_s to 0")
+    dist = dict(config.get_learner_params().get("distributed") or {})
+    coordinator = (os.environ.get("RELAYRL_COORDINATOR")
+                   or os.environ.get("JAX_COORDINATOR_ADDRESS")
+                   or dist.get("coordinator"))
+    raw = (os.environ.get("RELAYRL_NUM_PROCESSES")
+           or os.environ.get("JAX_NUM_PROCESSES"))
+    processes = int(raw) if raw else int(dist.get("num_processes", 1))
+    if coordinator is not None and processes > 1:
+        raise NotImplementedError(
+            "the multi-host server is not ported (ROADMAP.md queue 1 item "
+            "11); run one process")
+    if tensorboard:
+        raise NotImplementedError(
+            "the tensorboard writer is not ported (ROADMAP.md queue 1 item "
+            "12); read the epoch log (progress.txt) instead")
+
+
+class TrainingServer:
+    def __init__(
+        self,
+        algorithm_name: str = "REINFORCE",
+        obs_dim: int = 4,
+        act_dim: int = 2,
+        buf_size: int | None = None,
+        tensorboard: bool = False,
+        multiactor: bool = True,
+        env_dir: str | None = None,
+        algorithm_dir: str | None = None,
+        config_path: str | None = None,
+        hyperparams: Mapping[str, Any] | None = None,
+        server_type: str = "zmq",
+        start: bool = True,
+        resume: bool = False,
+        handle_signals: bool = False,
+        serving: bool | None = None,
+        device=None,
+        **addr_overrides,
+    ):
+        from relayrl_tpu_torch import transport as _transport
+
+        self.config = ConfigLoader(algorithm_name, config_path)
+        _transport._resolve(server_type)  # grpc/native refuse before any work
+        _refuse_unported(self.config, serving, tensorboard)
+        self.server_type = server_type
+        self._addr_overrides = addr_overrides
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # The learner thread selects this card by index.
+            self.device = torch.device("cuda", torch.cuda.current_device())
+
+        from relayrl_tpu_torch import telemetry
+
+        self._telemetry = telemetry.configure_from_config(self.config)
+        self._exporter = telemetry.maybe_serve()
+        reg = self._telemetry
+        self._m_trajectories = reg.counter(
+            "relayrl_server_trajectories_total",
+            "trajectories handed to the learner plane")
+        self._m_updates = reg.counter(
+            "relayrl_server_updates_total", "learner updates dispatched")
+        self._m_dropped = reg.counter(
+            "relayrl_server_dropped_total",
+            "payloads lost at ingest (full queue / decode failure)")
+        self._m_nonfinite = reg.gauge(
+            "relayrl_server_dropped_nonfinite",
+            "trajectories rejected by the finite-value guard")
+        self._m_decode = reg.histogram(
+            "relayrl_server_decode_seconds",
+            "one payload decode on a staging worker")
+        self._m_columnar_frames = reg.counter(
+            "relayrl_server_columnar_frames_total",
+            "columnar trajectory frames decoded straight into "
+            "DecodedTrajectory (the wire fast path)")
+        self._m_columnar_bytes = reg.counter(
+            "relayrl_server_columnar_bytes_total",
+            "columnar trajectory frame bytes decoded")
+        self._m_columnar_rejects = reg.counter(
+            "relayrl_server_columnar_rejects_total",
+            "columnar frames refused at decode (CRC mismatch / "
+            "malformed layout) — also counted in dropped_total")
+        self._m_dispatch = reg.histogram(
+            "relayrl_server_dispatch_seconds",
+            "learner-thread host work per trajectory: accumulate + "
+            "assemble + async update dispatch")
+        self._m_duplicates = reg.counter(
+            "relayrl_server_duplicate_trajectories_total",
+            "sequence-tagged trajectories dropped by idempotent ingest "
+            "(replays, retry storms, duplicate-injection faults)")
+        self._m_learner_errors = reg.counter(
+            "relayrl_server_learner_errors_total",
+            "exceptions caught on the learner thread (the loop survives "
+            "them; each one is counted and printed)")
+        self._m_ckpt_failures = reg.counter(
+            "relayrl_server_checkpoint_failures_total",
+            "periodic/final checkpoint saves that raised")
+        self._m_ckpt_consecutive = reg.gauge(
+            "relayrl_server_checkpoint_consecutive_failures",
+            "checkpoint failures since the last successful save")
+        self._ckpt_consecutive_failures = 0
+        self._drop_events = _EventCoalescer()
+        self._dup_events = _EventCoalescer()
+
+        from relayrl_tpu_torch import faults
+
+        faults.maybe_install_from_env()
+        self._fault_ingest = faults.site("server.ingest")
+        self._fault_publish = faults.site("server.publish")
+
+        if self.device.type == "cuda":
+            # Every kernel library built and loaded here, on the calling
+            # thread: a kernel that fails to build fails construction,
+            # never the learner thread.
+            from relayrl_tpu_torch import _kernels
+
+            torch.cuda.set_device(self.device)
+            _kernels.build()
+            for name in _kernels.KERNELS:
+                _kernels.load(name)
+
+        if algorithm_dir:
+            _load_plugin_algorithms(algorithm_dir)
+        if isinstance(hyperparams, (list, tuple)):
+            hp = {k: _coerce(v) for k, v in
+                  (kv.split("=", 1) for kv in hyperparams)}
+        else:
+            hp = dict(hyperparams or {})
+        self.algorithm = build_algorithm(
+            algorithm_name,
+            env_dir=env_dir,
+            config_path=(str(self.config.config_path)
+                         if self.config.config_path else None),
+            obs_dim=obs_dim,
+            act_dim=act_dim,
+            buf_size=buf_size,
+            device=self.device,
+            **hp,
+        )
+
+        learner_cfg = self.config.get_learner_params()
+        from relayrl_tpu_torch.algorithms.base import anchor_path
+
+        self._checkpoint_dir = learner_cfg.get("checkpoint_dir", "checkpoints")
+        if self._checkpoint_dir:
+            self._checkpoint_dir = anchor_path(self._checkpoint_dir, env_dir)
+        self._checkpoint_every = max(
+            1, int(learner_cfg.get("checkpoint_every_epochs", 10)))
+        from relayrl_tpu_torch.checkpoint import CheckpointManager
+
+        self._aux_every = max(
+            1, int(learner_cfg.get("checkpoint_aux_every", 1)))
+        self._ckpt_keep = max(CheckpointManager.DEFAULT_MAX_TO_KEEP,
+                              self._aux_every)
+        self._ckpt_saves = 0
+
+        from relayrl_tpu_torch.runtime.spool import SequenceLedger
+
+        try:
+            dedup_window = int(learner_cfg.get("ingest_dedup_window", 4096))
+        except (TypeError, ValueError):
+            dedup_window = 4096
+        self._ingest_ledger = (SequenceLedger(dedup_window)
+                               if dedup_window > 0 else None)
+
+        if resume and self._checkpoint_dir:
+            from relayrl_tpu_torch.checkpoint import restore_algorithm
+
+            try:
+                restore_algorithm(self.algorithm, self._checkpoint_dir)
+                print(f"[TrainingServer] resumed at version "
+                      f"{self.algorithm.version}", flush=True)
+                self._load_ledger_sidecar(self.algorithm.version)
+            except FileNotFoundError:
+                print("[TrainingServer] no checkpoint to resume; fresh start",
+                      flush=True)
+
+        self.multiactor = bool(multiactor)
+        self.agent_ids: list[str] = []
+        self._registry_lock = threading.Lock()
+
+        self._ingest: queue.Queue = queue.Queue(maxsize=100_000)
+        self._decoded: queue.Queue = queue.Queue(maxsize=100_000)
+        import weakref
+
+        wref = weakref.ref(self)
+
+        def _queue_depth(attr):
+            def read():
+                server = wref()
+                return (None if server is None
+                        else getattr(server, attr).qsize())
+            return read
+
+        def _registered():
+            server = wref()
+            return None if server is None else len(server.agent_ids)
+
+        reg.gauge_fn("relayrl_server_ingest_queue_depth",
+                     _queue_depth("_ingest"),
+                     "raw payloads awaiting a decode worker")
+        reg.gauge_fn("relayrl_server_decoded_queue_depth",
+                     _queue_depth("_decoded"),
+                     "decoded trajectories awaiting the learner thread")
+        reg.gauge_fn("relayrl_server_registered_agents", _registered,
+                     "logical agents currently in the registry")
+        self._bundle_lock = threading.Lock()
+        self._bundle_bytes: bytes = self.algorithm.bundle().to_bytes()
+        self._bundle_version: int = self.algorithm.version
+        # Latest published model as a HOST tree (version, arch, params);
+        # the v1 bundle bytes for handshakes serialize lazily from it.
+        self._bundle_host: tuple[int, dict, object] | None = None
+        transport_cfg = self.config.get_transport_params()
+        self._wire_encoder = None
+        if int(transport_cfg.get("wire_version", 2)) >= 2:
+            from relayrl_tpu_torch.transport.modelwire import ModelWireEncoder
+
+            self._wire_encoder = ModelWireEncoder(
+                keyframe_interval=transport_cfg["keyframe_interval"],
+                compress=transport_cfg["compress"],
+                small_model_bytes=transport_cfg.get("small_model_bytes"))
+        self._resync_lock = threading.Lock()
+        self._last_resync_grant = -1e9
+        self._resync_min_interval_s = float(
+            transport_cfg.get("resync_min_interval_s", 0.25))
+        self._m_resync_requests = reg.counter(
+            "relayrl_server_resync_requests_total",
+            "CMD_RESYNC keyframe requests received from the broadcast "
+            "plane (actors with a diverged delta base)")
+        self._m_resync_granted = reg.counter(
+            "relayrl_server_resync_keyframes_total",
+            "resync requests that forced the next publish to keyframe")
+
+        self.transport = None
+        self._make_transport()
+
+        self._stop = threading.Event()
+        self._learner_thread: threading.Thread | None = None
+        self._staging_threads: list[threading.Thread] = []
+        self.active = False
+        self._async_publish = bool(learner_cfg.get("async_publish", True))
+        self._prefetch = bool(learner_cfg.get("device_prefetch", True))
+        self._staging_count = max(
+            1, int(learner_cfg.get("ingest_staging_threads", 1)))
+        self._publisher = None
+        self._artifact_version = int(self.algorithm.version)
+        self._ckpt_version = int(self.algorithm.version)
+        from collections import deque
+
+        self._pending_logs: deque = deque()
+        self._timings_lock = threading.Lock()
+        # "dropped": transport/queue losses; "learner_errors": exceptions
+        # the learner thread caught (zero in a healthy run);
+        # "publish_errors": publishes that raised on the learner thread.
+        self.stats = {"trajectories": 0, "updates": 0, "dropped": 0,
+                      "dropped_nonfinite": 0, "learner_errors": 0,
+                      "publish_errors": 0}
+        self.last_learner_error: str | None = None
+        # Wire bytes of every publish by frame kind, appended by the
+        # publisher thread (the keys are fixed, so readers on other
+        # threads may iterate the dict).
+        self.publish_bytes: dict[str, list[int]] = {
+            "keyframe": [], "delta": [], "v1_passthrough": [], "v1": []}
+        self.last_publish: dict | None = None
+        # Per-thread time ledger (seconds), the JAX server's keys.
+        self.timings = {"decode_s": 0.0, "learn_s": 0.0, "dispatch_s": 0.0,
+                        "device_wait_s": 0.0, "publish_s": 0.0,
+                        "learner_idle_s": 0.0, "warmup_s": 0.0}
+        self._warmup_done = threading.Event()
+
+        if handle_signals:
+            self._install_signal_handlers()
+        if start:
+            self.enable_server()
+
+    def _make_transport(self) -> None:
+        from relayrl_tpu_torch.transport import make_server_transport
+
+        self.transport = make_server_transport(
+            self.server_type, self.config, **self._addr_overrides)
+        self.transport.on_trajectory = self._on_trajectory
+        self.transport.get_model = self._get_model
+        self.transport.on_register = self._on_register
+        self.transport.on_unregister = self._on_unregister
+        self.transport.on_resync = self._on_resync_request
+
+    def _install_signal_handlers(self) -> None:
+        """Opt-in SIGTERM/SIGINT handling: write a final full-state
+        checkpoint, shut the planes down cleanly, then die by the SAME
+        signal so supervisors see an honest exit status. Main thread
+        only (elsewhere a no-op with a note)."""
+        import signal
+
+        def _handler(signum, frame):
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                signal.signal(sig, signal.SIG_DFL)
+            name = signal.Signals(signum).name
+            print(f"[TrainingServer] {name}: final checkpoint + clean "
+                  f"shutdown", flush=True)
+            try:
+                self.disable_server()
+                if self._checkpoint_dir and self.algorithm.version > 0:
+                    from relayrl_tpu_torch.checkpoint import (
+                        checkpoint_algorithm,
+                    )
+
+                    try:
+                        checkpoint_algorithm(self.algorithm,
+                                             self._checkpoint_dir, wait=True,
+                                             overwrite=True,
+                                             extra_meta=self._health_tag())
+                        self._save_ledger_sidecar(self.algorithm.version)
+                    except Exception as e:
+                        self._m_ckpt_failures.inc()
+                        from relayrl_tpu_torch import telemetry
+
+                        telemetry.emit("checkpoint_failed",
+                                       version=self.algorithm.version,
+                                       error=repr(e), consecutive=1,
+                                       dir=str(self._checkpoint_dir))
+                        print(f"[TrainingServer] final checkpoint skipped: "
+                              f"{e!r}", flush=True)
+            finally:
+                signal.raise_signal(signum)
+
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                signal.signal(sig, _handler)
+        except ValueError:  # not the main thread
+            print("[TrainingServer] handle_signals requested off the main "
+                  "thread — skipped (install handlers in your main thread "
+                  "and call disable_server there instead)", flush=True)
+
+    # -- transport callbacks (transport threads!) --
+    def _count_dropped(self, n: int = 1) -> None:
+        with self._timings_lock:
+            self.stats["dropped"] += n
+            total = self.stats["dropped"]
+            due = self._drop_events.add(n)
+        self._m_dropped.inc(n)
+        if due:
+            from relayrl_tpu_torch import telemetry
+
+            telemetry.emit("drop", n=due, total=total)
+
+    def _flush_drop_event(self) -> None:
+        with self._timings_lock:
+            pending = self._drop_events.flush()
+            total = self.stats["dropped"]
+            dup_pending = self._dup_events.flush()
+        if pending or dup_pending:
+            from relayrl_tpu_torch import telemetry
+
+            if pending:
+                telemetry.emit("drop", n=pending, total=total)
+            if dup_pending:
+                telemetry.emit("duplicate_drop", n=dup_pending)
+
+    def _count_duplicate(self, n: int = 1) -> None:
+        self._m_duplicates.inc(n)
+        with self._timings_lock:
+            due = self._dup_events.add(n)
+        if due:
+            from relayrl_tpu_torch import telemetry
+
+            telemetry.emit("duplicate_drop", n=due)
+
+    def _admit_seq(self, agent_id: str):
+        """Split the sequence and trace tags off an envelope id and
+        consult the dedup ledger: ``(clean_agent_id, seq, admit)``.
+        Untagged ids admit with seq None."""
+        clean_id, seq = split_agent_seq(agent_id)
+        clean_id, _ctx = split_ctx(clean_id)
+        if seq is None or self._ingest_ledger is None:
+            return clean_id, seq, True
+        if not self._ingest_ledger.accept(clean_id, seq):
+            self._count_duplicate()
+            return clean_id, seq, False
+        return clean_id, seq, True
+
+    def _retract(self, agent_id: str, seq) -> None:
+        """Un-see a seq: the payload never reached the learner, so the
+        sender's spool replay must be able to land it later."""
+        if seq is not None and self._ingest_ledger is not None:
+            self._ingest_ledger.retract(agent_id, seq)
+
+    def _on_trajectory(self, agent_id: str, payload: bytes) -> None:
+        if self._fault_ingest is not None:
+            for delay_s, part in self._fault_ingest.inject(payload):
+                if delay_s > 0:
+                    time.sleep(delay_s)
+                self._ingest_one(agent_id, part)
+            return
+        self._ingest_one(agent_id, payload)
+
+    def _ingest_one(self, agent_id: str, payload: bytes,
+                    depth: int = 0) -> None:
+        if is_snapshot_frame(payload):
+            return  # a fleet telemetry frame: aggregation is not ported
+        if batch_kind(payload) == BATCH_KIND_ENVELOPES and depth < 8:
+            # One send carrying N whole envelopes (a relay's upstream
+            # forward): each inner envelope goes through the per-agent
+            # funnel, so dedup sees exactly what a flat fleet sends.
+            try:
+                parts = split_batch(payload)
+            except ValueError as e:
+                swallow_decode_error(self.server_type, "envelope_batch", e)
+                self._count_dropped()
+                return
+            for part in parts:
+                try:
+                    inner_id, inner_payload = unpack_trajectory_envelope(part)
+                except Exception as e:
+                    swallow_decode_error(self.server_type,
+                                         "envelope_batch", e)
+                    self._count_dropped()
+                    continue
+                self._ingest_one(inner_id, inner_payload, depth=depth + 1)
+            return
+        agent_id, seq, admit = self._admit_seq(agent_id)
+        if not admit:
+            return
+        try:
+            self._ingest.put_nowait((agent_id, seq, payload))
+        except queue.Full:
+            self._retract(agent_id, seq)
+            self._count_dropped()
+
+    def _get_model(self) -> tuple[int, bytes]:
+        """Current full model as v1 bundle bytes (handshakes, artifact
+        writes), serialized lazily from the latest published host tree,
+        outside ``_bundle_lock``."""
+        with self._bundle_lock:
+            host = self._bundle_host
+            if host is None or host[0] == self._bundle_version:
+                return self._bundle_version, self._bundle_bytes
+        ver, arch, params = host
+        from relayrl_tpu_torch.types.model_bundle import ModelBundle
+
+        raw = ModelBundle(version=ver, arch=dict(arch),
+                          params=params).to_bytes()
+        with self._bundle_lock:
+            if ver > self._bundle_version:
+                self._bundle_bytes = raw
+                self._bundle_version = ver
+            return self._bundle_version, self._bundle_bytes
+
+    def _on_resync_request(self, held_version: int = -1) -> None:
+        """CMD_RESYNC from the broadcast plane: force the next publish to
+        keyframe, coalesced and rate-limited."""
+        self._m_resync_requests.inc()
+        enc = self._wire_encoder
+        if enc is None:
+            return
+        now = time.monotonic()
+        with self._resync_lock:
+            if now - self._last_resync_grant < self._resync_min_interval_s:
+                return
+            self._last_resync_grant = now
+        enc.force_keyframe()
+        self._m_resync_granted.inc()
+        from relayrl_tpu_torch import telemetry
+
+        telemetry.emit("resync_keyframe_forced",
+                       version=self.latest_model_version)
+
+    @property
+    def latest_model_version(self) -> int:
+        """Version of the most recently published model."""
+        with self._bundle_lock:
+            if self._bundle_host is not None:
+                return max(self._bundle_version, self._bundle_host[0])
+            return self._bundle_version
+
+    def published_digest(self) -> tuple[int, str] | None:
+        """``(version, sha256)`` of the latest published params host tree
+        (:func:`~relayrl_tpu_torch.weights.tree_digest`), or None before
+        the first publish — what an actor at that version must hold bit
+        for bit."""
+        with self._bundle_lock:
+            host = self._bundle_host
+        if host is None:
+            return None
+        from relayrl_tpu_torch.weights import tree_digest
+
+        return host[0], tree_digest(host[2])
+
+    def _on_register(self, agent_id: str) -> None:
+        with self._registry_lock:
+            fresh = agent_id not in self.agent_ids
+            if fresh:
+                self.agent_ids.append(agent_id)
+        if fresh:
+            from relayrl_tpu_torch import telemetry
+
+            telemetry.emit("agent_register", agent_id=agent_id,
+                           registered=len(self.agent_ids))
+
+    def _on_unregister(self, agent_id: str) -> None:
+        with self._registry_lock:
+            try:
+                self.agent_ids.remove(agent_id)
+            except ValueError:
+                return
+        from relayrl_tpu_torch import telemetry
+
+        telemetry.emit("agent_unregister", agent_id=agent_id,
+                       registered=len(self.agent_ids))
+
+    # -- staging: raw payload -> decoded trajectory (overlaps learner) --
+    def _staging_loop(self) -> None:
+        from relayrl_tpu_torch.transport.base import BATCH_KIND_FRAMES
+        from relayrl_tpu_torch.types.columnar import (
+            is_columnar_frame,
+            parse_frame,
+        )
+
+        while not self._stop.is_set():
+            try:
+                agent_id, seq, payload = self._ingest.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            item = None
+            columnar = False
+            t0 = time.monotonic()
+            try:
+                if is_columnar_frame(payload):
+                    columnar = True
+                    item = parse_frame(payload, agent_id=agent_id)
+                    self._m_columnar_frames.inc()
+                    self._m_columnar_bytes.inc(len(payload))
+                elif batch_kind(payload) == BATCH_KIND_FRAMES:
+                    # Coalesced columnar segments of one lane: one seq,
+                    # N frames.
+                    columnar = True
+                    parts = split_batch(payload)
+                    item = [parse_frame(p, agent_id=agent_id)
+                            for p in parts]
+                    self._m_columnar_frames.inc(len(parts))
+                    self._m_columnar_bytes.inc(len(payload))
+                else:
+                    item = deserialize_actions(payload)
+            except Exception:
+                if columnar:
+                    self._m_columnar_rejects.inc()
+                self._retract(agent_id, seq)
+                self._count_dropped()
+            dt = time.monotonic() - t0
+            self._m_decode.observe(dt)
+            with self._timings_lock:
+                self.timings["decode_s"] += dt
+            if item is not None:
+                try:
+                    self._decoded.put_nowait(item)
+                except queue.Full:
+                    self._retract(agent_id, seq)
+                    self._count_dropped()
+            # task_done only after the decoded item is enqueued, so
+            # drain()'s two-queue emptiness check never races the handoff
+            self._ingest.task_done()
+
+    # -- learner thread --
+    def _learner_loop(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        if not self._warmup_done.is_set():
+            t0 = time.monotonic()
+            try:
+                n = self.algorithm.warmup(
+                    should_continue=lambda: (self._decoded.empty()
+                                             and self._ingest.empty()
+                                             and not self._stop.is_set()))
+                if n:
+                    print(f"[TrainingServer] warmup: {n} update shape(s) "
+                          f"prepared in {time.monotonic() - t0:.1f}s",
+                          flush=True)
+            except Exception as e:  # best-effort: the first batch builds
+                self._count_learner_error(e, "warmup")
+            finally:
+                self.timings["warmup_s"] += time.monotonic() - t0
+                self._warmup_done.set()
+        while not self._stop.is_set():
+            t_wait = time.monotonic()
+            try:
+                item = self._decoded.get(timeout=0.1)
+            except queue.Empty:
+                self.timings["learner_idle_s"] += time.monotonic() - t_wait
+                # Idle is fence-for-free: nothing is queued behind the
+                # in-flight updates.
+                self._pipeline_quiesce()
+                continue
+            self.timings["learner_idle_s"] += time.monotonic() - t_wait
+            t0 = time.monotonic()
+            try:
+                if (isinstance(item, list) and item
+                        and isinstance(item[0], DecodedTrajectory)):
+                    for one in item:
+                        self._process_one(one)
+                else:
+                    self._process_one(item)
+            finally:
+                self.timings["learn_s"] += time.monotonic() - t0
+                self._decoded.task_done()
+        self._pipeline_quiesce()
+
+    def _count_learner_error(self, exc: Exception, where: str) -> None:
+        """The learner thread survives one bad batch, but never silently:
+        every caught exception is counted (``stats``, telemetry) and
+        printed with its traceback."""
+        self.stats["learner_errors"] += 1
+        self.last_learner_error = f"{where}: {exc!r}"
+        self._m_learner_errors.inc()
+        print(f"[TrainingServer] learner error ({where}): {exc!r}\n"
+              f"{traceback.format_exc()}", flush=True)
+
+    def _sync_drop_stats(self) -> None:
+        self.stats["dropped_nonfinite"] = getattr(
+            self.algorithm, "dropped_nonfinite", 0)
+        self._m_nonfinite.set(self.stats["dropped_nonfinite"])
+
+    def _process_one(self, item) -> None:
+        """``item``: DecodedTrajectory or list[ActionRecord].
+        Dispatch-only: the update enters the algorithm's in-flight window
+        unfenced, the publish is handed to the latest-wins publisher
+        thread, and the epoch log defers until the update's fence."""
+        algo = self.algorithm
+        if not hasattr(algo, "accumulate"):
+            self._process_one_legacy(item)
+            return
+        self.stats["trajectories"] += 1
+        self._m_trajectories.inc()
+        t0 = time.monotonic()
+        try:
+            got = algo.accumulate(item)
+            updated = got is not None
+            if updated:
+                batch = algo.stage_batch(got) if self._prefetch else got
+                algo.train_on_batch(batch)
+        except Exception as e:  # never kill the loop on one bad batch
+            self._count_learner_error(e, "update")
+            return
+        finally:
+            self._sync_drop_stats()
+        payload = algo.capture_epoch_stats(updated)
+        if payload is not None:
+            self._pending_logs.append(
+                (algo.inflight.dispatch_count, payload, algo._last_metrics))
+        dispatch_dt = time.monotonic() - t0
+        self.timings["dispatch_s"] += dispatch_dt
+        self._m_dispatch.observe(dispatch_dt)
+        if updated:
+            self.stats["updates"] += 1
+            self._m_updates.inc()
+            try:
+                if self._publisher is not None:
+                    self._publisher.submit(algo.snapshot_for_publish())
+                    self._maybe_periodic_checkpoint(algo.dispatched_version)
+                else:
+                    self._publish()
+            except Exception as e:  # transient socket/fs errors
+                self.stats["publish_errors"] += 1
+                print(f"[TrainingServer] publish error: {e!r}", flush=True)
+        self._flush_ready_logs()
+
+    def _process_one_legacy(self, item) -> None:
+        """Plugin algorithms with only the reference contract: train and
+        log inside receive_trajectory, publish synchronously."""
+        self.stats["trajectories"] += 1
+        self._m_trajectories.inc()
+        try:
+            updated = self.algorithm.receive_trajectory(item)
+        except Exception as e:
+            self._count_learner_error(e, "receive_trajectory")
+            return
+        finally:
+            self._sync_drop_stats()
+        if updated:
+            self.stats["updates"] += 1
+            self._m_updates.inc()
+            try:
+                self._publish()
+            except Exception as e:
+                self.stats["publish_errors"] += 1
+                print(f"[TrainingServer] publish error: {e!r}", flush=True)
+
+    def _flush_ready_logs(self, force: bool = False) -> None:
+        """Dump deferred epoch logs whose update has been fenced (FIFO).
+        Learner thread only."""
+        win = self.algorithm.inflight
+        while self._pending_logs:
+            after_dispatch, payload, metrics = self._pending_logs[0]
+            if not force and after_dispatch > win.fenced_count:
+                break
+            self._pending_logs.popleft()
+            try:
+                self.algorithm.log_epoch(stats=payload, metrics=metrics)
+            except Exception as e:
+                self._count_learner_error(e, "log_epoch")
+        self.timings["device_wait_s"] = win.device_wait_s
+        if self._publisher is not None:
+            self.timings["publish_s"] = self._publisher.publish_s
+
+    def _pipeline_quiesce(self) -> None:
+        """Fence every in-flight update and flush the deferred logs
+        (learner thread only)."""
+        win = getattr(self.algorithm, "_inflight", None)
+        if win is not None and win.pending:
+            win.drain()
+        if self._pending_logs:
+            self._flush_ready_logs(force=True)
+
+    def _learner_pending(self) -> int:
+        """Dispatched-but-unfenced updates + deferred logs + queued or
+        in-progress publishes."""
+        win = getattr(self.algorithm, "_inflight", None)
+        n = (win.pending if win is not None else 0) + len(self._pending_logs)
+        if self._publisher is not None:
+            n += self._publisher.pending
+        return n
+
+    def drain(self, timeout: float = 60.0) -> bool:
+        """Block until every trajectory already received has been
+        processed: dispatched updates fenced, deferred logs dumped, and
+        the final (latest-wins) publish landed. True if drained within
+        ``timeout``. Bytes still in socket buffers are invisible here."""
+        from relayrl_tpu_torch import telemetry
+
+        t0 = time.monotonic()
+        deadline = t0 + timeout
+        while time.monotonic() < deadline:
+            if (self._ingest.unfinished_tasks == 0
+                    and self._decoded.unfinished_tasks == 0
+                    and self._learner_pending() == 0):
+                self._flush_drop_event()
+                telemetry.emit("drain",
+                               wait_s=round(time.monotonic() - t0, 3),
+                               updates=self.stats["updates"])
+                return True
+            time.sleep(0.05)
+        return False
+
+    # -- idempotent-ingest ledger persistence --
+    def _ledger_sidecar_path(self, version: int) -> str:
+        return os.path.join(self._checkpoint_dir,
+                            f"ingest_ledger_{int(version)}.json")
+
+    def _save_ledger_sidecar(self, version: int) -> None:
+        """Snapshot the dedup ledger beside the checkpoint at ``version``
+        (atomic write; older sidecars pruned to the retention depth),
+        keyed by version so a resume restores the dedup state consistent
+        with the restored params."""
+        if self._ingest_ledger is None or not self._checkpoint_dir:
+            return
+        try:
+            self._ingest_ledger.save(self._ledger_sidecar_path(version))
+            import glob
+
+            sidecars = sorted(
+                glob.glob(os.path.join(self._checkpoint_dir,
+                                       "ingest_ledger_*.json")),
+                key=lambda p: int(p.rsplit("_", 1)[1].split(".")[0]))
+            for stale in sidecars[:-max(2, self._ckpt_keep)]:
+                os.remove(stale)
+        except (OSError, ValueError) as e:
+            print(f"[TrainingServer] ingest-ledger sidecar write failed: "
+                  f"{e!r}", flush=True)
+
+    def _load_ledger_sidecar(self, version: int) -> None:
+        if self._ingest_ledger is None or not self._checkpoint_dir:
+            return
+        path = self._ledger_sidecar_path(version)
+        try:
+            from relayrl_tpu_torch.runtime.spool import SequenceLedger
+
+            self._ingest_ledger = SequenceLedger.load(path)
+            print(f"[TrainingServer] ingest ledger restored "
+                  f"({len(self._ingest_ledger.counts())} agent(s), "
+                  f"version {version})", flush=True)
+        except FileNotFoundError:
+            print(f"[TrainingServer] no ingest-ledger sidecar at version "
+                  f"{version}; dedup starts empty (replays of "
+                  f"already-trained trajectories will re-train)",
+                  flush=True)
+        except (OSError, ValueError, KeyError) as e:
+            print(f"[TrainingServer] ingest-ledger sidecar unreadable: "
+                  f"{e!r}; dedup starts empty", flush=True)
+
+    def ingest_accounting(self) -> dict:
+        """Per-agent ``{max_seq, accepted, contiguous}`` + duplicate
+        count. Empty when dedup is disabled."""
+        if self._ingest_ledger is None:
+            return {"agents": {}, "duplicates": 0}
+        return {"agents": self._ingest_ledger.counts(),
+                "duplicates": self._ingest_ledger.total_duplicates()}
+
+    def _write_model_artifact(self, version: int) -> None:
+        """Distance-gated on-disk model bytes (a resume/debug aid)."""
+        if version - self._artifact_version < self._checkpoint_every:
+            return
+        raw = self._get_model()[1]
+        try:
+            path = self.algorithm.server_model_path
+            tmp = f"{path}.tmp"
+            with open(tmp, "wb") as f:
+                f.write(raw)
+            os.replace(tmp, path)
+            self._artifact_version = version
+        except OSError:
+            pass
+
+    def _publish_params(self, version: int, arch: dict, host_params) -> None:
+        """The one broadcast path: a model-wire v2 keyframe or delta frame
+        (or the v1 bundle under ``transport.wire_version: 1``)."""
+        from relayrl_tpu_torch import telemetry
+
+        enc = self._wire_encoder
+        with self._bundle_lock:
+            self._bundle_host = (int(version), dict(arch), host_params)
+        try:
+            if enc is not None:
+                frame, info = enc.encode(version, arch, host_params)
+                self._faulted_publish(version, frame)
+                telemetry.emit("model_publish", version=version,
+                               bytes=info["frame_bytes"], kind=info["kind"],
+                               raw_bytes=info["raw_bytes"])
+                self.last_publish = info
+            else:
+                from relayrl_tpu_torch.types.model_bundle import ModelBundle
+
+                raw = ModelBundle(version=int(version), arch=dict(arch),
+                                  params=host_params).to_bytes()
+                with self._bundle_lock:
+                    self._bundle_bytes = raw
+                    self._bundle_version = int(version)
+                self._faulted_publish(version, raw)
+                telemetry.emit("model_publish", version=version,
+                               bytes=len(raw))
+                self.last_publish = {"kind": "v1", "frame_bytes": len(raw)}
+            self.publish_bytes[self.last_publish["kind"]].append(
+                self.last_publish["frame_bytes"])
+        finally:
+            self._write_model_artifact(version)
+
+    def _faulted_publish(self, version: int, frame: bytes) -> None:
+        """Model broadcast through the ``server.publish`` fault site."""
+        if self._fault_publish is None:
+            self.transport.publish_model(version, frame)
+            return
+        for delay_s, part in self._fault_publish.inject(frame):
+            if delay_s > 0:
+                time.sleep(delay_s)
+            self.transport.publish_model(version, part)
+
+    def _publish(self) -> None:
+        """Synchronous publish on the learner thread (the
+        ``async_publish: false`` escape hatch)."""
+        bundle = self.algorithm.bundle()
+        self._publish_params(bundle.version, bundle.arch, bundle.params)
+        self._maybe_periodic_checkpoint(bundle.version)
+
+    def _maybe_periodic_checkpoint(self, version: int) -> None:
+        """Distance-gated full-state checkpoint. Quiesces the pipeline
+        first, so the checkpointed epoch counter is in step with the
+        checkpointed params."""
+        if (not self._checkpoint_dir
+                or version - self._ckpt_version < self._checkpoint_every):
+            return
+        self._pipeline_quiesce()
+        self._periodic_checkpoint()
+        self._ckpt_version = version
+
+    def _publish_snapshot(self, snapshot) -> None:
+        """Publisher-thread body: the device-to-host read (after the
+        snapshot's event), wire encode and socket publish."""
+        self._publish_params(snapshot.version, snapshot.arch,
+                             snapshot.host_params())
+
+    def _health_tag(self) -> dict:
+        """The healthy-at-save tag every checkpoint carries. Guardrails
+        are not ported, so every save is tagged healthy (the ring stays
+        usable as a plain resume source)."""
+        return {"healthy": True}
+
+    def _periodic_checkpoint(self) -> None:
+        try:
+            from relayrl_tpu_torch.checkpoint import checkpoint_algorithm
+
+            include_aux = self._ckpt_saves % self._aux_every == 0
+            checkpoint_algorithm(self.algorithm, self._checkpoint_dir,
+                                 include_aux=include_aux,
+                                 max_to_keep=self._ckpt_keep,
+                                 extra_meta=self._health_tag())
+            from relayrl_tpu_torch import telemetry
+
+            telemetry.emit("checkpoint", version=self.algorithm.version,
+                           include_aux=include_aux,
+                           dir=str(self._checkpoint_dir))
+            self._save_ledger_sidecar(self.algorithm.version)
+            self._ckpt_saves += 1
+            if self._ckpt_consecutive_failures:
+                self._ckpt_consecutive_failures = 0
+                self._m_ckpt_consecutive.set(0)
+        except Exception as e:
+            if type(e).__name__ == "StepAlreadyExistsError":
+                print("[TrainingServer] checkpoint step exists, skipped "
+                      "(post-resume overlap with a bumped final save)",
+                      flush=True)
+            else:
+                self._ckpt_consecutive_failures += 1
+                self._m_ckpt_failures.inc()
+                self._m_ckpt_consecutive.set(
+                    self._ckpt_consecutive_failures)
+                from relayrl_tpu_torch import telemetry
+
+                telemetry.emit(
+                    "checkpoint_failed", version=self.algorithm.version,
+                    error=repr(e),
+                    consecutive=self._ckpt_consecutive_failures,
+                    dir=str(self._checkpoint_dir))
+                print(f"[TrainingServer] checkpoint failed "
+                      f"(#{self._ckpt_consecutive_failures} consecutive): "
+                      f"{e!r}", flush=True)
+
+    # -- lifecycle --
+    def enable_server(self) -> None:
+        if self.active:
+            return
+        self._stop.clear()
+        self.transport.start()
+        self._staging_threads = [
+            threading.Thread(target=self._staging_loop,
+                             name=f"ingest-staging-{i}", daemon=True)
+            for i in range(self._staging_count)]
+        for t in self._staging_threads:
+            t.start()
+        if self._async_publish and self._publisher is None:
+            from relayrl_tpu_torch.runtime.pipeline import ModelPublisher
+
+            self._publisher = ModelPublisher(self._publish_snapshot)
+        self._learner_thread = threading.Thread(
+            target=self._learner_loop, name="learner", daemon=True)
+        self._learner_thread.start()
+        self.active = True
+
+    def wait_warmup(self, timeout: float | None = None) -> bool:
+        """Block until the learner thread has finished its warmup. False
+        immediately when the server isn't running."""
+        if not self.active and not self._warmup_done.is_set():
+            return False
+        return self._warmup_done.wait(timeout)
+
+    def disable_server(self, join_timeout: float | None = None) -> None:
+        if not self.active:
+            return
+        self._stop.set()
+        deadline = (None if join_timeout is None
+                    else time.monotonic() + join_timeout)
+
+        def remaining(default):
+            return (default if deadline is None
+                    else max(0.0, deadline - time.monotonic()))
+
+        for t in self._staging_threads:
+            t.join(timeout=remaining(30))
+        self._staging_threads = []
+        # The learner joins BEFORE the transport stops: a trajectory being
+        # processed right now may still publish.
+        if self._learner_thread is not None:
+            self._learner_thread.join(timeout=remaining(30))
+            self._learner_thread = None
+        if self._publisher is not None:
+            self._publisher.stop(timeout=remaining(30))
+            self._publisher = None
+        self.transport.stop()
+        self._flush_drop_event()
+        self.active = False
+
+    def restart_server(self, **addr_overrides) -> None:
+        self.disable_server()
+        if addr_overrides:
+            self._addr_overrides.update(addr_overrides)
+            self._make_transport()
+        self.enable_server()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.disable_server()
+
+
+def _coerce(v: str):
+    for cast in (int, float):
+        try:
+            return cast(v)
+        except ValueError:
+            pass
+    if v.lower() in ("true", "false"):
+        return v.lower() == "true"
+    return v
+
+
+def _load_plugin_algorithms(algorithm_dir: str) -> None:
+    """Import ``<dir>/<ALGO>/<ALGO>.py`` modules so they can
+    ``register_algorithm`` themselves."""
+    import importlib.util
+    import sys
+
+    if algorithm_dir not in sys.path:
+        sys.path.insert(0, algorithm_dir)
+    for entry in sorted(os.listdir(algorithm_dir)):
+        mod_file = os.path.join(algorithm_dir, entry, f"{entry}.py")
+        if os.path.isfile(mod_file):
+            name = f"relayrl_plugin_{entry}"
+            if name in sys.modules:
+                continue
+            spec = importlib.util.spec_from_file_location(name, mod_file)
+            module = importlib.util.module_from_spec(spec)
+            sys.modules[name] = module
+            spec.loader.exec_module(module)
+
+
+__all__ = ["TrainingServer", "registered_algorithms"]

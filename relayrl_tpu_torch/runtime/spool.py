@@ -1,0 +1,548 @@
+"""Delivery correctness under churn: actor trajectory spool + server
+sequence ledger (the two halves of exactly-once trajectory training).
+
+**Actor half — :class:`TrajectorySpool`.** Every outbound trajectory gets
+a per-agent monotonic sequence number (riding the wire as an envelope-id
+suffix, :func:`~relayrl_tpu_torch.transport.base.tag_agent_seq`) and is
+retained in a bounded in-memory (optionally file-backed) window BEFORE
+the send is attempted. Sends run under a short
+:class:`~relayrl_tpu_torch.transport.retry.RetryPolicy` behind a
+:class:`~relayrl_tpu_torch.transport.retry.CircuitBreaker`: while the learner
+is down the breaker opens and the actor keeps stepping at full speed,
+spooling instead of blocking; the half-open probe notices the restart,
+and :meth:`replay` re-ships the whole retained window in order. Replay is
+*at-least-once* by design — a trajectory that was already delivered goes
+out again — which is exactly what makes it safe to fire on every
+reconnect signal, because of the second half:
+
+**Server half — :class:`SequenceLedger`.** Per-agent monotonic
+acceptance with a bounded dedup window: a sequence number is accepted at
+most once; replays and duplicate-injection faults drop with a counter.
+Ledger state snapshots to a JSON sidecar alongside each learner
+checkpoint (keyed by model version), so a learner SIGKILL → orbax resume
+restores the dedup state CONSISTENT with the restored params:
+trajectories trained after the restored checkpoint are absent from the
+restored ledger and therefore re-accepted on replay — correct, since the
+updates they fed were rolled back with the params — while trajectories
+the restored params already learned from stay deduplicated. Zero loss,
+zero double-training, asserted end-to-end by tests/test_recovery.py and
+``bench_soak --chaos``.
+
+The spool file format (``dir`` given) is a flat append log:
+``SPL1`` magic, then per record ``u32 total_len | u32 seq | u16 id_len |
+id | payload``. Loads tolerate a torn tail (the crash case). Compaction
+rewrites the retained window when the log grows past twice the byte
+bound.
+
+A copy of :mod:`relayrl_tpu.runtime.spool`: the same spool file
+format and ledger sidecar JSON, so either package reads the other's.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import struct
+import threading
+import time
+
+_MAGIC = b"SPL1"
+_REC_HDR = struct.Struct(">IIH")  # total_len, seq, id_len
+
+
+class TrajectorySpool:
+    """Bounded at-least-once send buffer for one agent connection
+    (covering all its logical lanes — per-lane ids key the seq spaces).
+
+    ``send_fn(payload: bytes, tagged_agent_id: str)`` performs one wire
+    attempt (the agent binds it to ``transport.send_trajectory``); it may
+    raise. ``None`` disables wire sends entirely (buffer-only mode, used
+    by tests).
+    """
+
+    def __init__(self, send_fn=None, max_entries: int = 512,
+                 max_bytes: int = 64 << 20, directory: str | None = None,
+                 name: str = "spool", retry=None, breaker=None):
+        from relayrl_tpu_torch import telemetry
+        from relayrl_tpu_torch.transport.retry import CircuitBreaker, RetryPolicy
+
+        self.send_fn = send_fn
+        self.max_entries = max(1, int(max_entries))
+        self.max_bytes = max(1 << 16, int(max_bytes))
+        # Send attempts must not stall the actor's env loop for long: a
+        # tight default budget (two tries inside ~1s) — persistent
+        # failure is the breaker's job, not backoff's.
+        self.retry = retry if retry is not None else RetryPolicy(
+            base_delay_s=0.05, max_delay_s=0.25, deadline_s=1.0,
+            max_attempts=2)
+        self.breaker = breaker if breaker is not None else CircuitBreaker(
+            f"spool:{name}", failure_threshold=3, reset_timeout_s=2.0)
+        self._lock = threading.Lock()
+        # (agent_id, seq, payload); seq None = verbatim entry (the id
+        # ships as-is, no tag — relay forwards, see send_verbatim)
+        self._entries: list[tuple[str, int | None, bytes]] = []
+        # Overload-nack backoff: entries nacked NACK_OVERLOADED stay
+        # retained, and the next fresh send at/after this monotonic
+        # deadline triggers a replay (honoring the server's
+        # retry_after_s). Without it a never-breaking connection would
+        # only redeliver them at end-of-run flush().
+        self._replay_due: float | None = None
+        self._bytes = 0
+        self._next_seq: dict[str, int] = {}
+        self._dir = directory
+        self._path = (os.path.join(directory, f"{name}.spool")
+                      if directory else None)
+        self._fh: io.BufferedWriter | None = None
+        self._file_bytes = 0
+        reg = telemetry.get_registry()
+        self._m_spooled = reg.counter(
+            "relayrl_spool_entries_total",
+            "trajectories entered into the send spool")
+        self._m_evicted = reg.counter(
+            "relayrl_spool_evicted_total",
+            "spooled trajectories evicted by the window bound "
+            "(lost if never delivered)")
+        self._m_replayed = reg.counter(
+            "relayrl_spool_replayed_total",
+            "trajectories re-sent by replay-on-reconnect")
+        self._m_send_failures = reg.counter(
+            "relayrl_spool_send_failures_total",
+            "wire send attempts that failed into the spool")
+        self._m_nacked = reg.counter(
+            "relayrl_spool_nacked_total",
+            "sends the server answered with a typed ingest nack "
+            "(quarantine discards the entry; overload retains it)")
+        self._m_depth = reg.gauge(
+            "relayrl_spool_depth", "entries currently retained")
+        if self._path is not None:
+            self._load_disk()
+            self._open_disk()
+
+    # -- public surface --
+    def next_seq(self, agent_id: str) -> int:
+        with self._lock:
+            return self._next_seq.get(agent_id, 0) + 1
+
+    def sent_counts(self) -> dict[str, int]:
+        """Per-agent highest assigned seq (the accounting the chaos bench
+        reconciles against the server ledger)."""
+        with self._lock:
+            return dict(self._next_seq)
+
+    @property
+    def depth(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def send(self, payload: bytes, agent_id: str,
+             trace: str | None = None) -> int:
+        """Assign the next seq for ``agent_id``, retain, and attempt
+        delivery (unless the breaker is open). Returns the seq. Never
+        raises on wire failure — the entry is already retained and the
+        breaker/replay machinery owns recovery.
+
+        ``trace`` (telemetry/trace.py, a sampled trajectory's encoded
+        context) rides the wire id as a ``#t`` tag BETWEEN the agent id
+        and the ``#s`` seq tag — the seq SPACE stays keyed by the clean
+        agent id (a per-trajectory tag in the key would reset every
+        trajectory to seq 1 and dedup the fleet into silence), while
+        the retained entry keeps the tagged id so a replay re-ships the
+        context verbatim."""
+        wire_id = agent_id
+        if trace is not None:
+            from relayrl_tpu_torch.transport.base import tag_agent_trace
+
+            wire_id = tag_agent_trace(agent_id, trace)
+        with self._lock:
+            seq = self._next_seq.get(agent_id, 0) + 1
+            self._next_seq[agent_id] = seq
+            self._retain_locked(wire_id, seq, payload)
+        self._m_spooled.inc()
+        self._m_depth.set(len(self._entries))
+        self._attempt(wire_id, seq, payload)
+        return seq
+
+    def send_verbatim(self, payload: bytes, wire_id: str) -> None:
+        """Retain + attempt with ``wire_id`` shipped VERBATIM — no seq
+        assignment, no ``#s`` tag. The relay plane's forward surface:
+        a relay retains subtree envelopes/batches whose
+        inner ids already carry the LEAF actors' seq tags, so replay
+        after a relay crash re-ships them untouched and the root
+        ledger's per-leaf dedup keeps the replay exactly-once. A fresh
+        relay process must therefore never mint its own seq space (a
+        restarted relay restarting at seq 1 would be deduplicated into
+        silence). Verbatim entries are excluded from :meth:`sent_counts`
+        and persist to disk with a seq-0 sentinel."""
+        with self._lock:
+            self._retain_locked(wire_id, None, payload)
+        self._m_spooled.inc()
+        self._m_depth.set(len(self._entries))
+        self._attempt(wire_id, None, payload)
+
+    def replay(self) -> int:
+        """Re-send the whole retained window in order (reconnect path —
+        at-least-once; the server ledger dedups). Returns entries
+        attempted; stops early if the wire breaks again."""
+        if self.send_fn is None:
+            return 0
+        with self._lock:
+            window = list(self._entries)
+        n = 0
+        for agent_id, seq, payload in window:
+            if not self._attempt(agent_id, seq, payload, replay=True):
+                break
+            n += 1
+        if n:
+            from relayrl_tpu_torch import telemetry
+
+            telemetry.emit("spool_replay", entries=n,
+                           depth=len(window))
+        return n
+
+    def flush(self, deadline_s: float = 30.0) -> bool:
+        """Replay until one FULL pass of the retained window succeeds
+        (or the deadline lapses): end-of-run delivery guarantee for
+        drills/benches. Rides out an open breaker by waiting for its
+        half-open probe windows."""
+        import time
+
+        deadline = time.monotonic() + deadline_s
+        while time.monotonic() < deadline:
+            with self._lock:
+                target = len(self._entries)
+            if self.replay() >= target:
+                return True
+            time.sleep(0.5)
+        return False
+
+    def close(self) -> None:
+        with self._lock:
+            if self._fh is not None:
+                try:
+                    self._fh.close()
+                except OSError:
+                    pass
+                self._fh = None
+
+    # -- delivery --
+    def _attempt(self, agent_id: str, seq: int, payload: bytes,
+                 replay: bool = False) -> bool:
+        """One policy-bounded wire attempt; updates the breaker. A
+        success that CLOSES the breaker triggers a full replay (the
+        reconnect may have been silent — e.g. a zmq PUSH that never
+        errors).
+
+        Typed ingest nacks (transport/base.IngestNack — the guardrail
+        plane's verdicts on ack-capable transports) are NOT wire
+        failures: the server answered. A *quarantine* nack discards the
+        entry (retrying is pointless until parole and would replay
+        poison forever); an *overload* nack keeps it retained for a
+        later replay. Neither touches the breaker."""
+        if self.send_fn is None:
+            return True
+        if not self.breaker.allow():
+            return False
+        from relayrl_tpu_torch.transport.base import IngestNack, tag_agent_seq
+
+        # seq None = verbatim entry (send_verbatim): the id ships as-is.
+        tagged = agent_id if seq is None else tag_agent_seq(agent_id, seq)
+
+        def attempt_once():
+            try:
+                self.send_fn(payload, tagged)
+            except IngestNack as nack:
+                return nack  # a verdict, not a failure — escape the retry
+            return True
+
+        try:
+            result = self.retry.call(attempt_once, op="spool.send")
+        except Exception as e:
+            self._m_send_failures.inc()
+            if self.breaker.record_failure():
+                print(f"[spool] breaker OPEN after send failure: {e!r} — "
+                      f"buffering until the server answers a probe",
+                      flush=True)
+            return False
+        if isinstance(result, IngestNack):
+            self._m_nacked.inc()
+            healed = self.breaker.record_success()  # the server IS alive
+            if result.quarantined:
+                self.discard(agent_id, seq)
+                if healed and not replay:
+                    # The outage may have eaten OTHER agents'/lanes'
+                    # entries; the quarantined ones replayed here just
+                    # nack-and-discard again (bounded by the window).
+                    self.replay()
+                return True  # delivered-and-refused: nothing to replay
+            # Overloaded: stays retained; schedule the redelivery the
+            # server asked for instead of replaying into the overload
+            # (a heal-triggered replay would do exactly that).
+            self._replay_due = time.monotonic() + max(
+                0.25, result.retry_after_s)
+            return False
+        if replay:
+            self._m_replayed.inc()
+            self.breaker.record_success()  # may be flush()'s half-open probe
+            return True
+        if self.breaker.record_success():
+            # Broken → healed on a live send: replay everything the
+            # outage may have eaten (runs on the caller thread; bounded
+            # by the spool window).
+            self.replay()
+        elif (self._replay_due is not None
+              and time.monotonic() >= self._replay_due):
+            # Overload-nacked entries come due: one replay pass
+            # redelivers them (the server ledger dedups the rest).
+            self._replay_due = None
+            self.replay()
+        return True
+
+    def discard(self, agent_id: str, seq: int) -> None:
+        """Drop one retained entry (quarantine nack: the server will
+        never accept it — retaining it would replay poison on every
+        reconnect)."""
+        with self._lock:
+            for i, (aid, s, payload) in enumerate(self._entries):
+                if aid == agent_id and s == seq:
+                    del self._entries[i]
+                    self._bytes -= len(payload)
+                    break
+        self._m_depth.set(len(self._entries))
+
+    # -- retention --
+    def _retain_locked(self, agent_id: str, seq: int, payload: bytes) -> None:
+        self._entries.append((agent_id, seq, payload))
+        self._bytes += len(payload)
+        evicted = 0
+        while (len(self._entries) > self.max_entries
+               or self._bytes > self.max_bytes):
+            _, _, old = self._entries.pop(0)
+            self._bytes -= len(old)
+            evicted += 1
+        if evicted:
+            self._m_evicted.inc(evicted)
+        if self._fh is not None:
+            self._append_disk(agent_id, seq, payload)
+
+    # -- disk backing --
+    def _append_disk(self, agent_id: str, seq: int | None,
+                     payload: bytes) -> None:
+        # lock held. seq 0 is the verbatim-entry sentinel on disk (live
+        # seqs start at 1), mapped back to None on load.
+        try:
+            ident = agent_id.encode()
+            rec = _REC_HDR.pack(len(ident) + len(payload), seq or 0,
+                                len(ident)) + ident + payload
+            self._fh.write(rec)
+            self._fh.flush()
+            self._file_bytes += len(rec)
+            if self._file_bytes > 2 * self.max_bytes:
+                self._compact_locked()
+        except OSError as e:
+            print(f"[spool] disk append failed ({e!r}) — continuing "
+                  f"in-memory only", flush=True)
+            try:
+                self._fh.close()
+            except OSError:
+                pass
+            self._fh = None
+
+    def _compact_locked(self) -> None:
+        """Rewrite the log to just the retained window (atomic replace)."""
+        tmp = f"{self._path}.tmp"
+        with open(tmp, "wb") as f:
+            f.write(_MAGIC)
+            for agent_id, seq, payload in self._entries:
+                ident = agent_id.encode()
+                f.write(_REC_HDR.pack(len(ident) + len(payload), seq or 0,
+                                      len(ident)) + ident + payload)
+        self._fh.close()
+        os.replace(tmp, self._path)
+        self._open_disk()
+
+    def _open_disk(self) -> None:
+        try:
+            os.makedirs(self._dir, exist_ok=True)
+            fresh = not os.path.exists(self._path)
+            self._fh = open(self._path, "ab")
+            if fresh:
+                self._fh.write(_MAGIC)
+                self._fh.flush()
+            self._file_bytes = self._fh.tell()
+            if getattr(self, "_force_compact", False):
+                self._force_compact = False
+                self._compact_locked()
+        except OSError as e:
+            print(f"[spool] spool file unavailable ({self._path}: {e!r}) "
+                  f"— continuing in-memory only", flush=True)
+            self._fh = None
+
+    def _load_disk(self) -> None:
+        """Restore the retained window (and seq counters) from a prior
+        process life; tolerates a torn tail record."""
+        if not self._path or not os.path.exists(self._path):
+            return
+        try:
+            with open(self._path, "rb") as f:
+                data = f.read()
+        except OSError:
+            return
+        if not data.startswith(_MAGIC):
+            return
+        off = len(_MAGIC)
+        loaded = 0
+        while off + _REC_HDR.size <= len(data):
+            total_len, seq, id_len = _REC_HDR.unpack_from(data, off)
+            body_start = off + _REC_HDR.size
+            if body_start + total_len > len(data) or id_len > total_len:
+                break  # torn tail
+            ident = data[body_start:body_start + id_len].decode(
+                errors="replace")
+            payload = data[body_start + id_len:body_start + total_len]
+            self._retain_from_load(ident, seq, payload)
+            loaded += 1
+            off = body_start + total_len
+        if off < len(data):
+            # Torn tail: TRUNCATE to the last whole record before the
+            # append handle opens, or every record appended after the
+            # torn bytes would be unreachable to the NEXT load (it stops
+            # at the first torn record) — losing exactly the in-flight
+            # window this file exists to preserve.
+            try:
+                os.truncate(self._path, off)
+                print(f"[spool] truncated torn tail in {self._path} "
+                      f"({len(data) - off} bytes)", flush=True)
+            except OSError as e:
+                # Fall back to a full rewrite once the handle opens —
+                # the retained window is already in memory.
+                self._force_compact = True
+                print(f"[spool] torn-tail truncate failed ({e!r}) — "
+                      f"will compact on open", flush=True)
+        if loaded:
+            print(f"[spool] restored {len(self._entries)} retained "
+                  f"trajectories from {self._path}", flush=True)
+
+    def _retain_from_load(self, agent_id: str, seq: int,
+                          payload: bytes) -> None:
+        self._entries.append((agent_id, seq or None, payload))
+        self._bytes += len(payload)
+        while (len(self._entries) > self.max_entries
+               or self._bytes > self.max_bytes):
+            _, _, old = self._entries.pop(0)
+            self._bytes -= len(old)
+        if seq:
+            # Stored wire ids may carry a per-trajectory trace tag; the
+            # seq space is keyed by the CLEAN id (see send), so restore
+            # the counter under the same key.
+            from relayrl_tpu_torch.transport.base import split_agent_trace
+
+            clean_id, _ = split_agent_trace(agent_id)
+            if seq > self._next_seq.get(clean_id, 0):
+                self._next_seq[clean_id] = seq
+
+
+class SequenceLedger:
+    """Server-side idempotent-ingest ledger: per-agent monotonic sequence
+    acceptance with a bounded out-of-order window.
+
+    Accept iff ``seq`` is above the agent's low watermark (``max_seq -
+    window``) and not already seen; anything at or below the watermark is
+    treated as a duplicate (it either arrived long ago or was evicted —
+    conservatively never re-train). ``retract`` un-sees a seq whose
+    enqueue failed downstream (queue-full), so the actor's replay can
+    land it later.
+    """
+
+    def __init__(self, window: int = 4096):
+        self.window = max(1, int(window))
+        self._lock = threading.Lock()
+        # agent -> [max_seq, seen_set, accepted_count]
+        self._agents: dict[str, list] = {}
+        self.duplicates = 0
+
+    def accept(self, agent_id: str, seq: int) -> bool:
+        with self._lock:
+            entry = self._agents.get(agent_id)
+            if entry is None:
+                entry = [0, set(), 0]
+                self._agents[agent_id] = entry
+            max_seq, seen, _ = entry
+            low = max_seq - self.window
+            if seq <= low or seq in seen:
+                self.duplicates += 1
+                return False
+            seen.add(seq)
+            if seq > max_seq:
+                entry[0] = seq
+                new_low = seq - self.window
+                if new_low > low:
+                    # prune the window floor (amortized)
+                    entry[1] = {s for s in seen if s > new_low}
+            entry[2] += 1
+            return True
+
+    def retract(self, agent_id: str, seq: int) -> None:
+        with self._lock:
+            entry = self._agents.get(agent_id)
+            if entry is not None and seq in entry[1]:
+                entry[1].discard(seq)
+                entry[2] -= 1
+
+    # -- accounting / persistence --
+    def counts(self) -> dict[str, dict]:
+        """Per-agent ``{max_seq, accepted, contiguous}`` — ``contiguous``
+        is the zero-loss predicate (every seq 1..max_seq accepted
+        exactly once, within window resolution)."""
+        with self._lock:
+            return {
+                aid: {"max_seq": e[0], "accepted": e[2],
+                      "contiguous": e[2] == e[0]}
+                for aid, e in self._agents.items()
+            }
+
+    def total_duplicates(self) -> int:
+        with self._lock:
+            return self.duplicates
+
+    def state_dict(self) -> dict:
+        with self._lock:
+            return {
+                "window": self.window,
+                "duplicates": self.duplicates,
+                "agents": {aid: {"max_seq": e[0],
+                                 "seen": sorted(e[1]),
+                                 "accepted": e[2]}
+                           for aid, e in self._agents.items()},
+            }
+
+    def load_state_dict(self, state: dict) -> None:
+        with self._lock:
+            self._agents.clear()
+            self.duplicates = int(state.get("duplicates", 0))
+            for aid, e in (state.get("agents") or {}).items():
+                self._agents[str(aid)] = [int(e.get("max_seq", 0)),
+                                          set(int(s) for s in
+                                              e.get("seen", ())),
+                                          int(e.get("accepted", 0))]
+
+    def save(self, path: str) -> None:
+        """Atomic JSON sidecar write (rides each learner checkpoint)."""
+        import json
+
+        tmp = f"{path}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(self.state_dict(), f)
+        os.replace(tmp, path)
+
+    @classmethod
+    def load(cls, path: str) -> "SequenceLedger":
+        import json
+
+        with open(path, "r") as f:
+            state = json.load(f)
+        ledger = cls(window=int(state.get("window", 4096)))
+        ledger.load_state_dict(state)
+        return ledger
+
+
+__all__ = ["TrajectorySpool", "SequenceLedger"]

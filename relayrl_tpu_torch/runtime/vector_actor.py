@@ -26,6 +26,7 @@ import torch
 from relayrl_tpu_torch.models import build_policy, validate_policy
 from relayrl_tpu_torch.runtime.policy_actor import (
     apply_bundle_swap,
+    apply_wire_swap,
     make_batched_step,
     make_batched_window_step,
     normalize_obs,
@@ -89,6 +90,10 @@ class VectorActorHost:
         self.steps_served = 0
         self.dispatches = 0
         self.swaps = 0
+        # Model-wire v2 decode state, created on the first v2 frame: ONE
+        # decoder for all lanes (one subscription, one delta apply, one
+        # host-to-device copy, N lanes served).
+        self._wire_decoder = None
 
     def request_for_actions(self, obs, masks=None,
                             rewards=None) -> list[ActionRecord]:
@@ -175,6 +180,11 @@ class VectorActorHost:
 
     def swap_from_bytes(self, buf: bytes) -> bool:
         return self.maybe_swap(ModelBundle.from_bytes(buf))
+
+    def swap_from_wire(self, version: int, blob: bytes):
+        """Wire-v2-aware swap shared with PolicyActor (one decoder, one
+        atomic install for every lane)."""
+        return apply_wire_swap(self, version, blob)
 
     def reset_episode(self, lane: int | None = None) -> None:
         """Reset per-episode serving state (history windows) without

@@ -1,0 +1,438 @@
+"""Metrics core: counters, gauges, fixed-bucket histograms behind
+per-thread shards.
+
+Design constraints:
+
+* **Hot-path cost is a plain ``+=``.** Every counter/histogram hands each
+  thread its own shard cell (created once per thread, cached on a
+  ``threading.local``), so the increment path takes no lock and touches
+  no shared cache line; aggregation across cells is deferred to
+  :meth:`Registry.snapshot`. Cells of exited threads are kept — counters
+  are cumulative, exactly the Prometheus semantic.
+* **Disabled mode is a null object.** When ``telemetry.enabled`` is
+  false the process-global registry is a :class:`NullRegistry` whose
+  metrics are one shared do-nothing object — instrumentation sites hold
+  a direct metric reference, so the disabled cost is a single attribute
+  call (``self._m_steps.inc()``), measured by
+  ``benches/bench_telemetry.py``.
+* **JAX-aware: never fence a dispatch.** :meth:`Gauge.set` stores
+  whatever it is given — a host float or an in-flight device scalar —
+  and resolves to a host float only inside :meth:`Registry.snapshot`
+  (the same deferral as ``runtime/pipeline.LazyMetrics``: the fence
+  happens where the value is *read*, at export time, never on the
+  thread that dispatched it). Histograms take host floats only (their
+  bucketing is a comparison, which on a device value would be a sync);
+  time them with :meth:`Histogram.time` around host-side work.
+
+A copy of :mod:`relayrl_tpu.telemetry.core`.
+"""
+
+from __future__ import annotations
+
+import bisect
+import math
+import threading
+import time
+from typing import Any, Callable, Iterable, Mapping
+
+# Shared latency bucket ladder (seconds): sub-millisecond policy steps up
+# through multi-second publish/checkpoint stalls.
+DEFAULT_TIME_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+    0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+
+
+def log_buckets(lo: float, hi: float, per_decade: int = 3) -> tuple[float, ...]:
+    """Log-spaced histogram bounds from ``lo`` to at least ``hi``
+    (seconds), ``per_decade`` buckets per power of ten, rounded to two
+    significant digits so the grid is stable across platforms. The
+    preset builder for sites whose dynamic range outgrows the fixed
+    default grid at relay/pod scale."""
+    if lo <= 0 or hi <= lo:
+        raise ValueError(f"need 0 < lo < hi, got lo={lo} hi={hi}")
+    ratio = 10.0 ** (1.0 / max(1, int(per_decade)))
+    out: list[float] = []
+    v = float(lo)
+    while True:
+        r = float(f"{v:.2g}")
+        if not out or r > out[-1]:
+            out.append(r)
+        if r >= hi:
+            break
+        v *= ratio
+    return tuple(out)
+
+
+# Wide per-op latency grid: 100 µs .. 60 s. The audit preset for sites
+# that saturate the default grid under fleet fan-out — model delivery on
+# a backed-up SUB thread, sends through an open-breaker stall, serving
+# requests queued behind an overload — where the old 10 s top bucket
+# pinned every tail sample in +Inf.
+LATENCY_BUCKETS_WIDE = log_buckets(1e-4, 60.0, per_decade=3)
+
+# End-to-end age grid (distributed tracing): 1 ms .. 600 s. Data age
+# (env-step → consumed-by-update) and model age (publish → applied)
+# legitimately reach minutes under pacing/backpressure; the top finite
+# bucket matches the cross-host skew guard's 300 s bound with headroom.
+AGE_BUCKETS = log_buckets(1e-3, 600.0, per_decade=3)
+
+
+def _canon_labels(labels: Mapping[str, str] | None) -> tuple[tuple[str, str], ...]:
+    if not labels:
+        return ()
+    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+def _resolve_scalar(value: Any) -> float | None:
+    """Host-float view of a recorded value. Device arrays fence HERE (the
+    snapshot/export thread), never where they were recorded. None means
+    "no value" (dead/failed source) and omits the sample."""
+    if value is None:
+        return None
+    try:
+        return float(value)
+    except Exception:
+        return None
+
+
+def _json_safe(value: float) -> float | None:
+    """Strict-JSON value: NaN/Inf → None (a diverged stat still shows up,
+    as null, without poisoning the whole document)."""
+    return value if math.isfinite(value) else None
+
+
+class _Cell:
+    """One thread's private accumulator (counter: ``value``; histogram:
+    ``counts``/``sum``/``count``)."""
+
+    __slots__ = ("value", "counts", "sum", "count")
+
+    def __init__(self, n_buckets: int = 0):
+        self.value = 0.0
+        if n_buckets:
+            self.counts = [0] * n_buckets
+            self.sum = 0.0
+            self.count = 0
+
+
+class _ShardedMetric:
+    """Base for metrics whose hot path writes a per-thread cell."""
+
+    def __init__(self, name: str, help_text: str,
+                 labels: tuple[tuple[str, str], ...], n_buckets: int = 0):
+        self.name = name
+        self.help = help_text
+        self.labels = labels
+        self._n_buckets = n_buckets
+        self._local = threading.local()
+        self._cells: list[_Cell] = []
+        self._cells_lock = threading.Lock()
+
+    def _cell(self) -> _Cell:
+        try:
+            return self._local.cell
+        except AttributeError:
+            cell = _Cell(self._n_buckets)
+            with self._cells_lock:
+                self._cells.append(cell)
+            self._local.cell = cell
+            return cell
+
+    def _all_cells(self) -> list[_Cell]:
+        with self._cells_lock:
+            return list(self._cells)
+
+
+class Counter(_ShardedMetric):
+    """Monotonic accumulator. ``inc`` is the hot path: one
+    threading.local read + one ``+=`` on a private cell."""
+
+    kind = "counter"
+
+    def inc(self, n: float = 1.0) -> None:
+        self._cell().value += n
+
+    def total(self) -> float:
+        return sum(c.value for c in self._all_cells())
+
+
+class Gauge:
+    """Last-write-wins scalar. ``set`` is a plain attribute assignment
+    (atomic under the GIL, no lock); the stored value may be an
+    unresolved device scalar — :meth:`read` fences it at snapshot time
+    only (the LazyMetrics deferral)."""
+
+    kind = "gauge"
+
+    def __init__(self, name: str, help_text: str,
+                 labels: tuple[tuple[str, str], ...]):
+        self.name = name
+        self.help = help_text
+        self.labels = labels
+        self._value: Any = 0.0
+
+    def set(self, value: Any) -> None:
+        self._value = value
+
+    def inc(self, n: float = 1.0) -> None:
+        # Convenience for host-float gauges only (occupancy counts); a
+        # read-modify-write on a device handle would resolve it, so make
+        # the read explicit and cheap.
+        v = self._value
+        self._value = (v if isinstance(v, (int, float)) else 0.0) + n
+
+    def read(self) -> float | None:
+        return _resolve_scalar(self._value)
+
+
+class GaugeFn:
+    """Gauge whose value is pulled from a callable at snapshot time —
+    zero hot-path cost (queue depths, registry sizes, window occupancy
+    read straight from the live object when someone actually looks)."""
+
+    kind = "gauge"
+
+    def __init__(self, name: str, help_text: str,
+                 labels: tuple[tuple[str, str], ...], fn: Callable[[], Any]):
+        self.name = name
+        self.help = help_text
+        self.labels = labels
+        self._fn = fn
+
+    def read(self) -> float | None:
+        try:
+            return _resolve_scalar(self._fn())
+        except Exception:
+            return None  # a dead source must not break the whole export
+
+
+class _NullTimer:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+class _Timer:
+    __slots__ = ("_hist", "_t0")
+
+    def __init__(self, hist: "Histogram"):
+        self._hist = hist
+
+    def __enter__(self):
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        self._hist.observe(time.monotonic() - self._t0)
+        return False
+
+
+class Histogram(_ShardedMetric):
+    """Fixed-bucket histogram. ``observe`` is the hot path: a bisect into
+    a small tuple + three ``+=`` on the thread's private cell. Bucket
+    bounds are upper bounds; an implicit +Inf bucket catches the rest."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str, help_text: str,
+                 labels: tuple[tuple[str, str], ...],
+                 buckets: Iterable[float] = DEFAULT_TIME_BUCKETS):
+        bounds = tuple(sorted(float(b) for b in buckets))
+        if not bounds:
+            raise ValueError(f"histogram {name!r} needs at least one bucket")
+        super().__init__(name, help_text, labels, n_buckets=len(bounds) + 1)
+        self.buckets = bounds
+
+    def observe(self, value: float) -> None:
+        cell = self._cell()
+        cell.counts[bisect.bisect_left(self.buckets, value)] += 1
+        cell.sum += value
+        cell.count += 1
+
+    def time(self) -> _Timer:
+        return _Timer(self)
+
+    def totals(self) -> tuple[list[int], float, int]:
+        counts = [0] * (len(self.buckets) + 1)
+        total, n = 0.0, 0
+        for cell in self._all_cells():
+            for i, c in enumerate(cell.counts):
+                counts[i] += c
+            total += cell.sum
+            n += cell.count
+        return counts, total, n
+
+
+class Registry:
+    """Process metrics registry: get-or-create by (name, labels), one
+    structured :meth:`snapshot` consumed by the Prometheus exporter, the
+    JSON endpoint, ``telemetry.top`` and the soak bench rows (one
+    schema everywhere — the acceptance bar)."""
+
+    enabled = True
+
+    def __init__(self, run_id: str | None = None):
+        import os
+
+        self.run_id = run_id or f"run-{os.getpid()}-{int(time.time())}"
+        self.created_unix = time.time()
+        self._lock = threading.Lock()
+        self._metrics: dict[tuple[str, tuple], Any] = {}
+
+    def _get_or_create(self, name: str, labels, factory, kind: str):
+        key = (name, _canon_labels(labels))
+        with self._lock:
+            metric = self._metrics.get(key)
+            if metric is None:
+                metric = factory(key[1])
+                self._metrics[key] = metric
+            elif metric.kind != kind:
+                raise ValueError(
+                    f"metric {name!r} already registered as {metric.kind}, "
+                    f"requested {kind}")
+            return metric
+
+    def counter(self, name: str, help_text: str = "",
+                labels: Mapping[str, str] | None = None) -> Counter:
+        return self._get_or_create(
+            name, labels, lambda lb: Counter(name, help_text, lb), "counter")
+
+    def gauge(self, name: str, help_text: str = "",
+              labels: Mapping[str, str] | None = None) -> Gauge:
+        return self._get_or_create(
+            name, labels, lambda lb: Gauge(name, help_text, lb), "gauge")
+
+    def gauge_fn(self, name: str, fn: Callable[[], Any],
+                 help_text: str = "",
+                 labels: Mapping[str, str] | None = None) -> GaugeFn:
+        """Pull-gauge: re-registering the same name rebinds the source
+        (a restarted server's fresh queue replaces the dead one's) —
+        but only gauge-over-gauge; clobbering a counter/histogram and
+        its accumulated shards stays an error like everywhere else."""
+        key = (name, _canon_labels(labels))
+        metric = GaugeFn(name, help_text, key[1], fn)
+        with self._lock:
+            existing = self._metrics.get(key)
+            if existing is not None and existing.kind != "gauge":
+                raise ValueError(
+                    f"metric {name!r} already registered as "
+                    f"{existing.kind}, requested gauge")
+            self._metrics[key] = metric
+        return metric
+
+    def histogram(self, name: str, help_text: str = "",
+                  labels: Mapping[str, str] | None = None,
+                  buckets: Iterable[float] = DEFAULT_TIME_BUCKETS) -> Histogram:
+        return self._get_or_create(
+            name, labels,
+            lambda lb: Histogram(name, help_text, lb, buckets), "histogram")
+
+    def snapshot(self) -> dict:
+        """Structured point-in-time view. Device-valued gauges resolve
+        HERE (the exporter/snapshot thread pays the fence, never the
+        recording thread); the metric list is copied out of the lock
+        first so a slow resolution cannot stall concurrent hot-path
+        shard creation."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        out = []
+        for m in metrics:
+            entry = {"name": m.name, "kind": m.kind,
+                     "labels": dict(m.labels)}
+            if m.help:
+                entry["help"] = m.help
+            # Non-finite values become JSON null, never bare NaN/Inf: the
+            # snapshot is served as strict JSON (/snapshot, bench rows)
+            # and a diverging run's NaN loss must not make the whole
+            # document unparseable at exactly the moment an operator
+            # needs it. The Prometheus renderer maps null back to NaN
+            # (legal in the text format).
+            if m.kind == "counter":
+                entry["value"] = _json_safe(m.total())
+            elif m.kind == "gauge":
+                value = m.read()
+                if value is None:
+                    continue  # unresolvable source: omit, don't break export
+                entry["value"] = _json_safe(value)
+            else:
+                counts, total, n = m.totals()
+                entry.update(buckets=list(m.buckets), counts=counts,
+                             sum=_json_safe(total), count=n)
+            out.append(entry)
+        out.sort(key=lambda e: (e["name"], sorted(e["labels"].items())))
+        return {
+            "schema": "relayrl-telemetry-v1",
+            "run_id": self.run_id,
+            "enabled": True,
+            "time_unix": time.time(),
+            "mono_ns": time.monotonic_ns(),
+            "uptime_s": round(time.time() - self.created_unix, 3),
+            "metrics": out,
+        }
+
+
+class _NullMetric:
+    """One shared do-nothing metric: the disabled hot path is a single
+    attribute call on this object."""
+
+    __slots__ = ()
+    kind = "null"
+
+    def inc(self, n: float = 1.0) -> None:
+        pass
+
+    def set(self, value: Any) -> None:
+        pass
+
+    def observe(self, value: float) -> None:
+        pass
+
+    def time(self) -> _NullTimer:
+        return _NULL_TIMER
+
+    def read(self):
+        return None
+
+    def total(self) -> float:
+        return 0.0
+
+
+_NULL_TIMER = _NullTimer()
+NULL_METRIC = _NullMetric()
+
+
+class NullRegistry:
+    """telemetry.enabled=false: every factory returns the shared null
+    metric, snapshot is a stub — no shards, no exporter, no cost."""
+
+    enabled = False
+    run_id = None
+
+    def counter(self, name: str, help_text: str = "", labels=None):
+        return NULL_METRIC
+
+    def gauge(self, name: str, help_text: str = "", labels=None):
+        return NULL_METRIC
+
+    def gauge_fn(self, name: str, fn, help_text: str = "", labels=None):
+        return NULL_METRIC
+
+    def histogram(self, name: str, help_text: str = "", labels=None,
+                  buckets=DEFAULT_TIME_BUCKETS):
+        return NULL_METRIC
+
+    def snapshot(self) -> dict:
+        return {"schema": "relayrl-telemetry-v1", "enabled": False,
+                "run_id": None, "metrics": []}
+
+
+__all__ = [
+    "Counter", "Gauge", "GaugeFn", "Histogram", "Registry", "NullRegistry",
+    "NULL_METRIC", "DEFAULT_TIME_BUCKETS", "LATENCY_BUCKETS_WIDE",
+    "AGE_BUCKETS", "log_buckets",
+]

@@ -1,0 +1,269 @@
+"""Structured run-event journal: append-only NDJSON.
+
+Where the metrics registry answers "how fast / how many right now", the
+journal answers "what happened, in what order": model publishes and
+swaps, agent register/unregister/reconnect, drops, checkpoints, drains.
+One JSON object per line so the file is greppable mid-run and parseable
+after a crash (the last line may be torn; every prior line is intact —
+each write is flushed whole).
+
+Every event carries the registry's ``run_id``, a wall-clock ``t_unix``
+(human correlation) and a ``mono_ns`` CLOCK_MONOTONIC stamp — the same
+clock the transports and the soak bench stamp receipts with, so journal
+events pair against wire receipts across processes on one host (see
+benches/bench_soak.py's fan-out methodology).
+
+Event volume is run-event scale (tens per second at most: publishes,
+registrations, checkpoints); the one potentially hot type — ``drop`` —
+must be coalesced by the caller (the server emits one event per drop
+*burst* with a count, not one per payload).
+
+A copy of :mod:`relayrl_tpu.telemetry.events`.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from typing import Any, TextIO
+
+# The closed vocabulary instrumentation uses (free-form types are allowed
+# for embedders; these are the ones docs/observability.md documents).
+EVENT_TYPES = (
+    "model_publish",     # server shipped a new version to the fleet
+    "model_swap",        # an actor installed a new version
+    "model_resync",      # a wire-v2 delta didn't fit the held base; the
+                         # actor is re-pulling / awaiting a keyframe
+    "agent_register",    # logical agent joined the registry
+    "agent_unregister",  # logical agent left (clean exit or reaped)
+    "agent_reconnect",   # agent-side transport rebuilt (restart/heal)
+    "drop",              # ingest-plane loss (coalesced: carries n)
+    "checkpoint",        # full-state checkpoint written
+    "checkpoint_failed",  # a periodic/final save raised (carries the
+                          # error + consecutive-failure count)
+    "drain",             # pipeline quiesced to empty
+    "heartbeat",         # liveness state transition (alive/slow/dead)
+    # -- crash-recovery plane --
+    "fault_injected",    # a FaultPlan rule fired at a hook site
+    "retry_exhausted",   # a RetryPolicy op spent its deadline/attempts
+    "breaker_open",      # circuit breaker tripped (consecutive failures)
+    "breaker_close",     # breaker closed again (successful probe/send)
+    "spool_replay",      # actor re-shipped its retained trajectory window
+    "duplicate_drop",    # idempotent ingest dropped replayed sequences
+                         # (coalesced: carries n)
+    # -- distributed tracing (telemetry/trace.py) --
+    "trace_span",        # one sampled trace span (kind/trace/hop/proc/
+                         # t0_ns/t1_ns + hop fields) — the NDJSON export
+                         # of the flight recorder; volume is bounded by
+                         # telemetry.trace_sample_rate + journal rotation
+    # -- fleet aggregation + SLO alerts (telemetry/aggregate.py) --
+    "alert_fired",       # an SLO rule's condition held through its
+                         # for_s hold-down (carries rule/metric/value)
+    "alert_resolved",    # the rule's condition cleared
+    "fleet_evict",       # a proc went silent past telemetry.fleet_stale_s
+                         # and left the fleet table
+    "telemetry_exporter",  # a process started its /metrics exporter
+                           # (carries url + pid — the discoverable
+                           # record of per-process ephemeral ports)
+    # -- guardrails plane (guardrails/) --
+    "watchdog_trip",     # a watchdog predicate fired (carries rule +
+                         # observed value); the halt/rollback driver
+    "guardrails_halt",   # training halted by the guardrail engine
+    "rollback",          # server restored a prior checkpoint/version
+    "publish_blocked",   # a model publish withheld by a guardrail
+    "agent_quarantined",  # agent isolated from ingest (bad traffic)
+    "agent_paroled",     # quarantined agent readmitted after probation
+    # -- server/relay control plane --
+    "resync_keyframe_forced",  # server forced a keyframe publish because
+                               # resyncs exceeded transport.resync_* caps
+    "relay_up",          # relay node established its upstream session
+    "relay_reconnect",   # relay upstream rebuilt after a drop
+    # -- serving plane v2 (runtime/inference.py) --
+    "serving_session_evicted",  # a session left the service table
+                                # (carries sid + reason lru/ttl); the
+                                # client answers the paired nack with a
+                                # window resend, so steady-state soaks
+                                # assert reason=lru count == 0
+    "serving_replica_reroute",  # a mux client re-routed a session to a
+                                # new replica after its home replica
+                                # died (carries sid + old/new replica)
+)
+
+
+class EventJournal:
+    """Thread-safe NDJSON appender bound to one run.
+
+    ``max_bytes`` (``telemetry.events_max_bytes``) size-bounds the
+    journal with a single-generation rotation: when an append would
+    cross the bound, the current file moves to ``<path>.1`` (replacing
+    any prior generation) and a fresh file opens — so a multi-hour soak
+    (or the trace-span NDJSON export) holds at most ~2x ``max_bytes``
+    on disk and :func:`read_events` still sees the most recent window,
+    torn-tail-tolerant across the rotation boundary. 0/None disables.
+    """
+
+    def __init__(self, path: str, run_id: str | None = None,
+                 max_bytes: int | None = None):
+        self.path = str(path)
+        self.run_id = run_id
+        self.max_bytes = int(max_bytes) if max_bytes else 0
+        self._lock = threading.Lock()
+        self._closed = False
+        self._fh: TextIO | None = open(self.path, "a", encoding="utf-8")
+        try:
+            self._size = self._fh.tell()
+        except OSError:
+            self._size = 0
+        self.written = 0
+        self.rotations = 0
+        self.errors = 0
+        self._rotate_backoff_size = 0
+
+    def emit(self, event: str, **fields: Any) -> None:
+        record = {"event": str(event), "run_id": self.run_id,
+                  "t_unix": round(time.time(), 6),
+                  "mono_ns": time.monotonic_ns()}
+        for k, v in fields.items():
+            record[k] = _jsonable(v)
+        line = json.dumps(record, separators=(",", ":")) + "\n"
+        with self._lock:
+            if self._fh is None:
+                if self._closed:
+                    return
+                # A failed rotation/reopen left the journal down: retry
+                # the reopen per emit (counted, never silent) so a
+                # transient disk condition heals instead of muting the
+                # journal for the rest of the run.
+                try:
+                    self._fh = open(self.path, "a", encoding="utf-8")
+                    self._size = self._fh.tell()
+                except OSError:
+                    self.errors += 1
+                    return
+            try:
+                if (self.max_bytes and self._size
+                        and self._size + len(line) > self.max_bytes
+                        and self._size >= self._rotate_backoff_size):
+                    try:
+                        self._rotate_locked()
+                    except OSError:
+                        # Rotation failed (rename target unwritable,
+                        # read-only dir): count it, keep APPENDING to
+                        # the reopened original — the bounding mechanism
+                        # must never mute the journal it bounds — and
+                        # back off a full bound before retrying so a
+                        # permanently-broken rename isn't re-attempted
+                        # per line.
+                        self.errors += 1
+                        self._rotate_backoff_size = (self._size
+                                                     + self.max_bytes)
+                if self._fh is None:
+                    raise OSError("journal file unavailable")
+                self._fh.write(line)
+                self._fh.flush()
+                self._size += len(line)
+                self.written += 1
+            except (OSError, ValueError):
+                # A full disk / closed fd must never take down the plane
+                # being observed.
+                self.errors += 1
+
+    def _rotate_locked(self) -> None:
+        """Move the full journal to ``<path>.1`` and start fresh. Lock
+        held; an OSError propagates to emit's guard (one counted error),
+        but the journal must come back up either way — a failed rename
+        (read-only dir, ``.1`` unwritable) reopens the ORIGINAL file in
+        append mode so later events still land, growing past the bound
+        rather than vanishing silently (the plane being observed must
+        never lose its journal to its own bounding mechanism)."""
+        import os
+
+        self._fh.close()
+        self._fh = None
+        try:
+            os.replace(self.path, f"{self.path}.1")
+        finally:
+            self._fh = open(self.path, "a", encoding="utf-8")
+            try:
+                self._size = self._fh.tell()
+            except OSError:
+                self._size = 0
+        self.rotations += 1
+        self._rotate_backoff_size = 0
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            if self._fh is not None:
+                try:
+                    self._fh.close()
+                except OSError:
+                    pass
+                self._fh = None
+
+
+class NullJournal:
+    """events_path unset: emit is a no-op attribute call."""
+
+    path = None
+    run_id = None
+    written = 0
+
+    def emit(self, event: str, **fields: Any) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _jsonable(value: Any) -> Any:
+    """Journal fields must serialize without surprises: numpy scalars and
+    0-d arrays become Python scalars; anything else unserializable falls
+    back to ``repr`` rather than raising on the emitting thread."""
+    if isinstance(value, (str, int, float, bool)) or value is None:
+        return value
+    item = getattr(value, "item", None)
+    if callable(item) and getattr(value, "ndim", 1) == 0:
+        try:
+            return item()
+        except Exception:
+            pass
+    try:
+        json.dumps(value)
+        return value
+    except (TypeError, ValueError):
+        return repr(value)
+
+
+def read_events(path: str, include_rotated: bool = True) -> list[dict]:
+    """Parse a journal file, tolerating a torn final line (crash mid-
+    write). When a rotated generation (``<path>.1``) exists it is read
+    FIRST so the result stays chronological across the rotation
+    boundary; each file is torn-tail-tolerant independently (a crash
+    can tear the live file while the rotated one is already sealed)."""
+    import os
+
+    paths = []
+    if include_rotated and os.path.exists(f"{path}.1"):
+        paths.append(f"{path}.1")
+    paths.append(path)
+    out: list[dict] = []
+    for p in paths:
+        try:
+            fh = open(p, "r", encoding="utf-8")
+        except FileNotFoundError:
+            continue
+        with fh:
+            for line in fh:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    out.append(json.loads(line))
+                except json.JSONDecodeError:
+                    continue  # torn tail
+    return out
+
+
+__all__ = ["EventJournal", "NullJournal", "read_events", "EVENT_TYPES"]

@@ -1,0 +1,805 @@
+"""Model wire-format v2: per-leaf delta frames with keyframes and resync.
+
+Earlier revisions left model distribution as the untouched hot path: every publish
+re-serializes the whole policy (``ModelBundle.to_bytes``) and ships it to
+every subscriber, so the distribution plane costs
+O(actors x model_size x publish_rate) bytes even though consecutive RL
+updates move each parameter by a tiny amount. This module is the wire
+format that exploits that structure, losslessly:
+
+* **Keyframes** carry the full per-leaf payload plus the *leaf manifest*
+  (paths, dtypes, shapes — :func:`relayrl_tpu_torch.types.model_bundle.
+  leaf_manifest`); they are the resync anchor and are emitted every
+  ``keyframe_interval`` publishes and whenever the manifest changes.
+* **Delta frames** carry, for each leaf that changed since the last
+  published snapshot, the bitwise integer difference of the raw storage
+  words, zigzag-mapped and split into byte planes. A small update shares
+  its sign/exponent/high-mantissa bits with the base value, so the high
+  byte planes are almost entirely zero and the per-frame codec folds
+  them away; unchanged leaves (frozen trunks, untrained positional rows)
+  are skipped outright. Integer subtraction is exact, so decode
+  reconstructs the published params **bit-identically** — float
+  arithmetic is never used on the wire.
+* **Per-frame compression** with a codec ladder (zstd if importable,
+  else lz4, else stdlib zlib; ``Z_RLE`` strategy for delta planes, where
+  it beats default deflate on both ratio and speed) and an
+  incompressible-skip heuristic; the codec id rides the frame header,
+  and every frame carries a CRC32 of the shipped payload.
+* **Chunking** (:func:`split_frame` / :class:`ChunkReassembler`) splits
+  frames larger than ``transport.chunk_bytes`` into ordered chunk frames
+  for broadcast planes that prefer bounded message sizes (ZMQ HWM
+  accounting); the native backend passes them through as opaque bytes
+  and the Python listeners reassemble before decode.
+
+Decode is zero-copy: leaf payloads are ``np.frombuffer`` views into the
+(decompressed) received frame, applied into preallocated per-leaf host
+buffers (:class:`ModelWireDecoder`); the actor then does ONE
+host-to-device copy of the assembled params inside the existing
+``apply_bundle_swap`` gate — no flax ``from_bytes`` deep restore on the
+hot path. v1 frames (plain ``ModelBundle`` msgpack) still decode for
+rolling compatibility: :func:`is_wire_frame` sniffs the magic, and a v1
+delivery reseeds the decoder so a mixed rollout converges.
+
+Resync: a delta whose ``base`` version or manifest hash does not match
+the held state raises :class:`WireBaseMismatch` once (the caller may
+re-poll with ``ver=-1`` on pull transports); the decoder then waits for
+the next keyframe, silently dropping deltas, which bounds the blackout
+to ``keyframe_interval`` publishes on broadcast transports.
+
+A copy of :mod:`relayrl_tpu.transport.modelwire`: the same frames byte
+for byte from the same params sequence. ``msgpack`` (and ``ml_dtypes``,
+for bfloat16 leaves) are imported inside the functions that need them.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import zlib
+from typing import Any
+
+import numpy as np
+
+MAGIC = b"RLW2"
+_HDR_FIXED = len(MAGIC) + 1 + 4  # magic | kind u8 | header_len u32le
+
+KIND_KEYFRAME = 1
+KIND_DELTA = 2
+KIND_CHUNK = 3
+
+# payload codec ids (frame header "codec")
+CODEC_RAW = 0
+CODEC_ZSTD = 1
+CODEC_LZ4 = 2
+CODEC_ZLIB = 3
+
+# per-leaf delta encodings (delta header "leaves" entries)
+ENC_RAW = 0     # raw replacement bytes (dtypes the integer path can't carry)
+ENC_IDELTA = 1  # zigzag(int(new) - int(base)) split into byte planes
+
+
+class WireFrameError(ValueError):
+    """Malformed/corrupt v2 frame (bad magic, header, CRC, or length)."""
+
+
+class WireBaseMismatch(WireFrameError):
+    """Delta frame whose base version / manifest does not match the held
+    state — the caller should trigger a resync (re-poll with ``ver=-1``
+    on pull transports; broadcast decoders wait for the next keyframe)."""
+
+    def __init__(self, msg: str, base: int, held: int):
+        super().__init__(msg)
+        self.base = base
+        self.held = held
+
+
+def is_wire_frame(buf) -> bool:
+    """True when ``buf`` is a v2 wire frame (v1 ``ModelBundle`` msgpack
+    blobs start with a fixmap byte, never this magic)."""
+    return bytes(buf[:4]) == MAGIC
+
+
+def is_chunk_frame(buf) -> bool:
+    return (len(buf) > _HDR_FIXED and bytes(buf[:4]) == MAGIC
+            and buf[4] == KIND_CHUNK)
+
+
+# ---------------------------------------------------------------------------
+# codecs
+# ---------------------------------------------------------------------------
+
+def _zlib_compress_delta(data: bytes) -> bytes:
+    # Z_RLE: run-length matches + Huffman literals. Delta payloads are
+    # byte-plane transposed, so the high planes are long zero runs (RLE
+    # folds them at memcpy speed) and the low planes are skewed literals
+    # (Huffman entropy-codes them) — measured both faster AND tighter
+    # than default deflate on real update deltas (benches/results/
+    # model_wire.json).
+    co = zlib.compressobj(6, zlib.DEFLATED, zlib.MAX_WBITS, 9, zlib.Z_RLE)
+    return co.compress(data) + co.flush()
+
+
+def _zlib_compress_key(data: bytes) -> bytes:
+    # Keyframes are raw float payloads — mostly incompressible except
+    # zero-initialized regions; spend little CPU on them.
+    co = zlib.compressobj(1)
+    return co.compress(data) + co.flush()
+
+
+def _codec_table() -> dict[int, tuple]:
+    """``{codec_id: (name, compress(data, hint), decompress)}`` for every
+    codec importable in this process. Decompression support is what
+    matters cross-process: a frame names its codec in the header, so a
+    decoder missing that library fails loudly instead of guessing."""
+    table: dict[int, tuple] = {}
+    try:  # zstd: best ratio/speed when present
+        import zstandard
+
+        _c = zstandard.ZstdCompressor(level=3)
+        _d = zstandard.ZstdDecompressor()
+        table[CODEC_ZSTD] = ("zstd", lambda b, hint: _c.compress(b),
+                             _d.decompress)
+    except ImportError:
+        pass
+    try:
+        import lz4.frame as _lz4f
+
+        table[CODEC_LZ4] = ("lz4", lambda b, hint: _lz4f.compress(b),
+                            _lz4f.decompress)
+    except ImportError:
+        pass
+    table[CODEC_ZLIB] = (
+        "zlib",
+        lambda b, hint: (_zlib_compress_delta(b) if hint == "delta"
+                         else _zlib_compress_key(b)),
+        zlib.decompress)
+    return table
+
+
+_CODECS: dict[int, tuple] | None = None
+
+
+def _codecs() -> dict[int, tuple]:
+    global _CODECS
+    if _CODECS is None:
+        _CODECS = _codec_table()
+    return _CODECS
+
+
+def resolve_codec(compress: Any) -> int:
+    """``transport.compress`` knob -> codec id. ``"auto"``/``True`` walks
+    the ladder (zstd > lz4 > zlib); a codec name pins it (falling back to
+    the ladder with a note if that library is absent); ``False``/
+    ``"none"``/``"raw"`` disables compression."""
+    if compress in (False, None, "none", "raw", "off", 0):
+        return CODEC_RAW
+    table = _codecs()
+    if isinstance(compress, str) and compress not in ("auto", "true", "on"):
+        for cid, (name, _c, _d) in table.items():
+            if name == compress:
+                return cid
+        print(f"[modelwire] codec {compress!r} not importable here; "
+              f"falling back to the auto ladder", flush=True)
+    for cid in (CODEC_ZSTD, CODEC_LZ4, CODEC_ZLIB):
+        if cid in table:
+            return cid
+    return CODEC_RAW
+
+
+_MIN_COMPRESS_BYTES = 1024
+_SAMPLE_BYTES = 65536
+
+
+def _maybe_compress(payload: bytes, codec: int, hint: str) -> tuple[int, bytes]:
+    """Compress ``payload`` with ``codec`` unless it is tiny or the
+    incompressible-skip heuristic fires (a sample that barely shrinks
+    predicts the whole payload won't pay for its CPU)."""
+    if codec == CODEC_RAW or len(payload) < _MIN_COMPRESS_BYTES:
+        return CODEC_RAW, payload
+    _name, comp, _dec = _codecs()[codec]
+    if len(payload) > 4 * _SAMPLE_BYTES:
+        sample = payload[:_SAMPLE_BYTES]
+        if len(comp(sample, hint)) > 0.92 * len(sample):
+            return CODEC_RAW, payload
+    out = comp(payload, hint)
+    if len(out) >= len(payload):
+        return CODEC_RAW, payload
+    return codec, out
+
+
+def _decompress(payload, codec: int, rawlen: int) -> bytes:
+    if codec == CODEC_RAW:
+        return payload
+    entry = _codecs().get(codec)
+    if entry is None:
+        raise WireFrameError(
+            f"frame compressed with codec id {codec} but no matching "
+            f"library is importable in this process")
+    out = entry[2](bytes(payload))
+    if len(out) != rawlen:
+        raise WireFrameError(
+            f"decompressed payload is {len(out)} bytes, header says {rawlen}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# per-leaf integer delta codec
+# ---------------------------------------------------------------------------
+
+_UI = {2: np.uint16, 4: np.uint32, 8: np.uint64}
+_SI = {2: np.int16, 4: np.int32, 8: np.int64}
+
+
+def _encode_leaf_delta(base: np.ndarray, new: np.ndarray) -> bytes:
+    """zigzag(int(new) - int(base)) as byte planes. Exact for every dtype
+    whose storage words fit the integer view (2/4/8-byte floats and
+    ints): subtraction wraps mod 2**bits, so decode's wrapping add
+    reconstructs the new words bit-for-bit."""
+    itemsize = new.dtype.itemsize
+    ui, si = _UI[itemsize], _SI[itemsize]
+    au = np.ascontiguousarray(base).view(ui).ravel()
+    bu = np.ascontiguousarray(new).view(ui).ravel()
+    s = (bu - au).view(si)
+    zz = ((s << 1) ^ (s >> (itemsize * 8 - 1))).view(ui)
+    # byte-plane transpose: plane b holds byte b of every word, so the
+    # near-constant high planes become long runs for the codec.
+    return np.ascontiguousarray(zz.view(np.uint8).reshape(-1, itemsize).T).tobytes()
+
+
+def _apply_leaf_delta(buf: np.ndarray, seg) -> None:
+    """In-place ``buf += delta`` in the integer domain. ``seg`` is a
+    zero-copy view into the received payload."""
+    itemsize = buf.dtype.itemsize
+    ui = _UI[itemsize]
+    n = buf.size
+    planes = np.frombuffer(seg, np.uint8, count=itemsize * n).reshape(itemsize, n)
+    zz = np.ascontiguousarray(planes.T).view(ui).ravel()
+    one = ui(1)
+    s = (zz >> one) ^ (ui(0) - (zz & one))  # un-zigzag, still unsigned bits
+    bu = buf.view(ui).ravel()
+    bu += s  # wrapping add == adding the signed delta
+
+
+# ---------------------------------------------------------------------------
+# framing
+# ---------------------------------------------------------------------------
+
+def _pack_frame(kind: int, header: dict, payload: bytes) -> bytes:
+    import msgpack
+
+    h = msgpack.packb(header, use_bin_type=True)
+    return b"".join((MAGIC, bytes((kind,)),
+                     len(h).to_bytes(4, "little"), h, payload))
+
+
+def parse_frame(buf) -> tuple[int, dict, memoryview]:
+    """``frame -> (kind, header, payload_view)`` — the payload is a
+    zero-copy view into ``buf``."""
+    import msgpack
+
+    mv = memoryview(buf)
+    if len(mv) < _HDR_FIXED or bytes(mv[:4]) != MAGIC:
+        raise WireFrameError("not a model-wire v2 frame")
+    kind = mv[4]
+    hlen = int.from_bytes(mv[5:9], "little")
+    if _HDR_FIXED + hlen > len(mv):
+        raise WireFrameError("truncated frame header")
+    try:
+        header = msgpack.unpackb(mv[_HDR_FIXED:_HDR_FIXED + hlen], raw=False)
+    except Exception as e:
+        raise WireFrameError(f"undecodable frame header: {e!r}") from e
+    return kind, header, mv[_HDR_FIXED + hlen:]
+
+
+def verify_frame(buf) -> tuple[int, int, int | None]:
+    """Per-hop integrity check for frame forwarders (the relay plane):
+    parse the header, re-verify the payload CRC, and return ``(kind,
+    version, base_version)`` — ``base_version`` is None for keyframes
+    and chunk frames. Raises :class:`WireFrameError` on a corrupt frame
+    so a relay drops it at THIS hop instead of re-broadcasting rot to
+    its whole subtree. The frame bytes are never modified: a verified
+    frame re-broadcasts verbatim."""
+    kind, hdr, payload = parse_frame(buf)
+    try:
+        if zlib.crc32(payload) != hdr["crc"]:
+            raise WireFrameError(
+                f"frame CRC mismatch at forward hop (ver {hdr.get('ver')})")
+        version = int(hdr["ver"])
+        base = int(hdr["base"]) if kind == KIND_DELTA else None
+    except WireFrameError:
+        raise
+    except (KeyError, ValueError, TypeError, OverflowError) as e:
+        # A mangled msgpack HEADER can decode into missing keys or wrong
+        # value types while the payload CRC still matches — every such
+        # shape must surface as the one exception forwarders catch, or
+        # a hostile frame kills the listener thread that carried it.
+        raise WireFrameError(f"mangled frame header: {e!r}") from e
+    return kind, version, base
+
+
+def manifest_hash(manifest: list) -> int:
+    """Stable 32-bit hash of a leaf manifest (paths + dtypes + shapes) —
+    deltas carry it so a decoder can detect that its buffer layout no
+    longer matches the publisher's tree."""
+    import msgpack
+
+    return zlib.crc32(msgpack.packb(manifest, use_bin_type=True))
+
+
+# ---------------------------------------------------------------------------
+# chunking
+# ---------------------------------------------------------------------------
+
+def split_frame(frame: bytes, chunk_bytes: int, version: int) -> list[bytes]:
+    """Split ``frame`` into ordered chunk frames of at most ~chunk_bytes
+    payload each; a frame that already fits is returned unwrapped. The
+    receiving listener feeds everything through a
+    :class:`ChunkReassembler`, which passes non-chunk frames straight
+    through."""
+    if chunk_bytes <= 0 or len(frame) <= chunk_bytes:
+        return [frame]
+    n = (len(frame) + chunk_bytes - 1) // chunk_bytes
+    out = []
+    for i in range(n):
+        part = frame[i * chunk_bytes:(i + 1) * chunk_bytes]
+        out.append(_pack_frame(
+            KIND_CHUNK,
+            {"ver": int(version), "idx": i, "n": n,
+             "crc": zlib.crc32(part)},
+            part))
+    return out
+
+
+class ChunkReassembler:
+    """Orders chunk frames back into the original frame. Keyed by the
+    publisher version: a chunk from a newer version discards any
+    incomplete older state (broadcast planes may drop messages under
+    backpressure — the lost frame surfaces as a delta-base mismatch and
+    resyncs at the next keyframe, so partial frames are never
+    delivered)."""
+
+    def __init__(self):
+        self._ver: int | None = None
+        self._total = 0
+        self._parts: list[bytes] = []
+        self.dropped_partials = 0
+
+    @property
+    def pending(self) -> bool:
+        return self._ver is not None
+
+    def feed(self, buf) -> bytes | None:
+        """Returns a complete frame (chunked or pass-through), or None
+        while a chunked frame is still accumulating / on a corrupt
+        chunk."""
+        if not is_chunk_frame(buf):
+            if self._ver is not None:
+                self._reset(dropped=True)
+            return bytes(buf) if not isinstance(buf, bytes) else buf
+        try:
+            _kind, hdr, payload = parse_frame(buf)
+            ver, idx, total = int(hdr["ver"]), int(hdr["idx"]), int(hdr["n"])
+            if zlib.crc32(payload) != hdr["crc"]:
+                raise WireFrameError("chunk CRC mismatch")
+        except WireFrameError:
+            self._reset(dropped=self._ver is not None)
+            return None
+        if idx == 0:
+            if self._ver is not None:
+                self._reset(dropped=True)
+            self._ver, self._total, self._parts = ver, total, []
+        elif ver != self._ver or idx != len(self._parts):
+            # missed/reordered chunk: drop the partial frame entirely
+            self._reset(dropped=self._ver is not None)
+            return None
+        self._parts.append(bytes(payload))
+        if len(self._parts) < self._total:
+            return None
+        frame = b"".join(self._parts)
+        self._reset(dropped=False)
+        return frame
+
+    def _reset(self, dropped: bool) -> None:
+        if dropped:
+            self.dropped_partials += 1
+        self._ver, self._total, self._parts = None, 0, []
+
+
+# ---------------------------------------------------------------------------
+# publisher-side encoder
+# ---------------------------------------------------------------------------
+
+class ModelWireEncoder:
+    """Keeps the last-published host snapshot and turns each publish into
+    a keyframe or a delta frame. Runs off the learner thread (the
+    publisher thread in the pipelined server); ``frame_for`` is the
+    thread-safe read surface pull transports (gRPC long-polls) use to
+    pick delta-vs-full per subscriber."""
+
+    #: Models smaller than this publish as plain v1 bundles (the actor's
+    #: sniffing decode handles both formats): at ~100 KB the whole
+    #: broadcast is two packets, dense-update deltas barely compress,
+    #: and the zigzag/deflate work would COST publish→swap latency where
+    #: there are no meaningful bytes to win (benches/results/
+    #: model_wire.json latency rows). Deltas start paying around the
+    #: quarter-megabyte mark and dominate from transformer sizes up.
+    SMALL_MODEL_BYTES = 256 * 1024
+
+    def __init__(self, keyframe_interval: int = 10, compress: Any = "auto",
+                 small_model_bytes: int | None = None):
+        from relayrl_tpu_torch import telemetry
+
+        # interval N: every Nth publish is a keyframe (N <= 1 makes every
+        # frame a keyframe; the resync blackout on broadcast planes is
+        # bounded by this many publishes). Clamped to >= 1 — an interval
+        # that never keyframed would turn the first dropped delta into a
+        # permanent blackout on broadcast transports.
+        self.keyframe_interval = max(1, int(keyframe_interval))
+        self.codec = resolve_codec(compress)
+        self.small_model_bytes = (self.SMALL_MODEL_BYTES
+                                  if small_model_bytes is None
+                                  else int(small_model_bytes))
+        self._base: list[np.ndarray] | None = None
+        self._manifest: list | None = None
+        self._mh = 0
+        self._since_key = 0
+        self._force_key = False
+        self._passthrough = False  # latched by the first size check
+        self._lock = threading.Lock()
+        self.version = -1
+        self.last_frame: bytes | None = None
+        self.last_frame_base: int | None = None  # None == keyframe
+        reg = telemetry.get_registry()
+        self._m_key = reg.counter(
+            "relayrl_wire_keyframes_total",
+            "full keyframes published on the model wire")
+        self._m_delta = reg.counter(
+            "relayrl_wire_delta_frames_total",
+            "delta frames published on the model wire")
+        self._m_bytes = reg.counter(
+            "relayrl_wire_publish_bytes_total",
+            "model-wire frame bytes handed to the transport")
+        self._m_saved = reg.counter(
+            "relayrl_wire_publish_bytes_saved_total",
+            "raw param bytes minus shipped frame bytes, accumulated")
+        self._m_encode = reg.histogram(
+            "relayrl_wire_encode_seconds",
+            "one keyframe/delta encode on the publisher thread")
+
+    def force_keyframe(self) -> None:
+        """Make the next publish a keyframe regardless of the interval."""
+        self._force_key = True
+
+    def encode(self, version: int, arch: dict, host_params) -> tuple[bytes, dict]:
+        """``(frame_bytes, info)`` for one publish. ``host_params`` must
+        be a host (numpy) pytree; the encoder keeps its leaves as the
+        next publish's delta base, so callers must not mutate them."""
+        from relayrl_tpu_torch.types.model_bundle import leaf_manifest
+
+        t0 = time.monotonic()
+        if self._passthrough:
+            # Latched on the first publish: model size is fixed for the
+            # life of a training run (actors hard-reject arch changes),
+            # so later publishes skip the flatten entirely — passthrough
+            # latency is to_bytes + header, byte-for-byte the v1 path.
+            return self._encode_passthrough(version, arch, host_params,
+                                            None, t0)
+        manifest, leaves = leaf_manifest(host_params)
+        mh = manifest_hash(manifest)
+        raw_total = sum(leaf.nbytes for leaf in leaves)
+        if raw_total < self.small_model_bytes:
+            self._passthrough = True
+            return self._encode_passthrough(version, arch, host_params,
+                                            raw_total, t0)
+        keyframe = (self._base is None or mh != self._mh or self._force_key
+                    or self._since_key >= self.keyframe_interval)
+        if keyframe:
+            frame = self._encode_keyframe(version, arch, manifest, mh, leaves)
+            base: int | None = None
+            self._since_key = 1
+            self._force_key = False
+            self._m_key.inc()
+        else:
+            frame = self._encode_delta(version, arch, mh, leaves)
+            base = self.version
+            self._since_key += 1
+            self._m_delta.inc()
+        self._base, self._manifest, self._mh = leaves, manifest, mh
+        with self._lock:
+            self.version = int(version)
+            self.last_frame = frame
+            self.last_frame_base = base
+        dt = time.monotonic() - t0
+        self._m_encode.observe(dt)
+        self._m_bytes.inc(len(frame))
+        self._m_saved.inc(max(0, raw_total - len(frame)))
+        return frame, {
+            "kind": "keyframe" if keyframe else "delta",
+            "base_version": base,
+            "frame_bytes": len(frame),
+            "raw_bytes": raw_total,
+            "encode_s": dt,
+        }
+
+    def _encode_passthrough(self, version, arch, host_params, raw_total,
+                            t0) -> tuple[bytes, dict]:
+        """Small-model publish: a plain v1 bundle (every subscriber's
+        sniffing decode handles it; a v1 delivery also reseeds live v2
+        decoders). Counted like a keyframe — it IS a full model."""
+        from relayrl_tpu_torch.types.model_bundle import ModelBundle
+
+        frame = ModelBundle(version=int(version), arch=dict(arch),
+                            params=host_params).to_bytes()
+        self._base = None  # passthrough keeps no delta base
+        self._since_key = 0
+        self._force_key = False
+        with self._lock:
+            self.version = int(version)
+            self.last_frame = frame
+            self.last_frame_base = None  # decodable by anyone, keyframe-like
+        dt = time.monotonic() - t0
+        self._m_key.inc()
+        self._m_encode.observe(dt)
+        self._m_bytes.inc(len(frame))
+        return frame, {
+            "kind": "v1_passthrough", "base_version": None,
+            "frame_bytes": len(frame),
+            "raw_bytes": len(frame) if raw_total is None else raw_total,
+            "encode_s": dt,
+        }
+
+    def frame_for(self, known_version: int) -> tuple[int, bytes] | None:
+        """Pull-transport surface: the latest frame IF the subscriber at
+        ``known_version`` can decode it (its base matches, or it is a
+        keyframe) — else None, and the caller serves a full bundle."""
+        with self._lock:
+            if self.last_frame is None or self.version <= known_version:
+                return None
+            if self.last_frame_base is None \
+                    or self.last_frame_base == known_version:
+                return self.version, self.last_frame
+        return None
+
+    def _encode_keyframe(self, version, arch, manifest, mh, leaves) -> bytes:
+        payload = b"".join(
+            np.ascontiguousarray(leaf).tobytes() for leaf in leaves)
+        codec, shipped = _maybe_compress(payload, self.codec, "key")
+        header = {
+            "ver": int(version), "arch": dict(arch), "man": manifest,
+            "mh": mh, "codec": codec, "crc": zlib.crc32(shipped),
+            "rawlen": len(payload),
+        }
+        return _pack_frame(KIND_KEYFRAME, header, shipped)
+
+    def _encode_delta(self, version, arch, mh, leaves) -> bytes:
+        entries: list[list[int]] = []
+        segs: list[bytes] = []
+        for i, (a, b) in enumerate(zip(self._base, leaves)):
+            # Byte-view compare (no copies, and bit-exact: +0.0 vs -0.0
+            # or differing NaN payloads must NOT count as unchanged).
+            if np.array_equal(a.view(np.uint8), b.view(np.uint8)):
+                continue  # unchanged leaf: skipped outright
+            if b.dtype.itemsize in _UI and a.dtype == b.dtype:
+                seg = _encode_leaf_delta(a, b)
+                enc = ENC_IDELTA
+            else:
+                seg = np.ascontiguousarray(b).tobytes()
+                enc = ENC_RAW
+            entries.append([i, enc, len(seg)])
+            segs.append(seg)
+        payload = b"".join(segs)
+        codec, shipped = _maybe_compress(payload, self.codec, "delta")
+        header = {
+            "ver": int(version), "base": int(self.version),
+            "arch": dict(arch), "mh": mh, "codec": codec,
+            "crc": zlib.crc32(shipped), "rawlen": len(payload),
+            "leaves": entries,
+        }
+        return _pack_frame(KIND_DELTA, header, shipped)
+
+
+# ---------------------------------------------------------------------------
+# actor-side decoder
+# ---------------------------------------------------------------------------
+
+def _leaf_dtype(name: str) -> np.dtype:
+    """A manifest dtype string -> numpy dtype. ``bfloat16`` is registered
+    with numpy by ``ml_dtypes``, imported only when a frame carries it."""
+    if name == "bfloat16":
+        import ml_dtypes
+
+        return np.dtype(ml_dtypes.bfloat16)
+    return np.dtype(name)
+
+
+class ModelWireDecoder:
+    """Holds the preallocated per-leaf host buffers a subscription's
+    frames apply into, plus the version/manifest state that gates them.
+
+    One decoder per model subscription (PolicyActor / VectorActorHost —
+    both lazily create one on the first wire delivery). NOT thread-safe:
+    drive it from the single transport listener thread that owns the
+    subscription, which is how every backend already delivers."""
+
+    def __init__(self):
+        from relayrl_tpu_torch import telemetry
+
+        self.version = -1
+        self.arch: dict = {}
+        self.manifest: list | None = None
+        self._mh = 0
+        self._buffers: list[np.ndarray] = []
+        self.awaiting_keyframe = False
+        self.deltas_applied = 0
+        self.keyframes_applied = 0
+        self.resyncs = 0
+        self.dropped_frames = 0
+        reg = telemetry.get_registry()
+        self._m_delta = reg.counter(
+            "relayrl_wire_deltas_applied_total",
+            "delta frames applied into the actor's host buffers")
+        self._m_key = reg.counter(
+            "relayrl_wire_keyframes_applied_total",
+            "keyframes applied into the actor's host buffers")
+        self._m_resync = reg.counter(
+            "relayrl_wire_resyncs_total",
+            "base/manifest mismatches that forced a resync")
+        self._m_dropped = reg.counter(
+            "relayrl_wire_frames_dropped_total",
+            "frames dropped (corrupt, stale, or awaiting a keyframe)")
+        self._m_decode = reg.histogram(
+            "relayrl_wire_decode_seconds",
+            "one frame parse+decompress+apply into host buffers")
+
+    def seed(self, version: int, arch: dict, host_params) -> None:
+        """(Re)initialize from a full model — the handshake bundle, or
+        any v1 full-bundle delivery on a mixed-version fleet. Copies the
+        leaves: the buffers must outlive the source tree."""
+        from relayrl_tpu_torch.types.model_bundle import leaf_manifest
+
+        manifest, leaves = leaf_manifest(host_params)
+        self._install_manifest(manifest)
+        for buf, leaf in zip(self._buffers, leaves):
+            buf[...] = leaf
+        self.version = int(version)
+        self.arch = dict(arch)
+        self.awaiting_keyframe = False
+
+    def decode(self, blob) -> tuple[int, dict, Any] | None:
+        """One frame -> ``(version, arch, host_tree)`` where the tree's
+        leaves ARE the live preallocated buffers (device_put before the
+        next frame arrives — the listener thread's natural order), or
+        None when the frame was stale/dropped/awaiting resync.
+
+        Raises :class:`WireBaseMismatch` exactly once per divergence so
+        the owner can trigger a transport-level resync; subsequent
+        deltas are dropped silently until a keyframe lands."""
+        t0 = time.monotonic()
+        try:
+            kind, hdr, payload = parse_frame(blob)
+        except WireFrameError:
+            self.dropped_frames += 1
+            self._m_dropped.inc()
+            raise
+        if kind == KIND_CHUNK:
+            raise WireFrameError(
+                "chunk frame reached the decoder — the transport listener "
+                "must reassemble (ChunkReassembler) before decode")
+        version = int(hdr["ver"])
+        if version <= self.version:
+            self.dropped_frames += 1
+            self._m_dropped.inc()
+            return None  # duplicate/stale delivery
+        shipped = payload
+        if zlib.crc32(shipped) != hdr["crc"]:
+            self.dropped_frames += 1
+            self._m_dropped.inc()
+            raise WireFrameError(f"frame CRC mismatch (ver {version})")
+        if kind == KIND_KEYFRAME:
+            out = self._decode_keyframe(version, hdr, shipped)
+        elif kind == KIND_DELTA:
+            out = self._decode_delta(version, hdr, shipped)
+        else:
+            self.dropped_frames += 1
+            self._m_dropped.inc()
+            raise WireFrameError(f"unknown frame kind {kind}")
+        if out is not None:
+            self._m_decode.observe(time.monotonic() - t0)
+        return out
+
+    def tree(self, params_template: Any | None = None):
+        """The current buffers assembled back into a params pytree
+        (template-driven when given, nested dicts otherwise)."""
+        from relayrl_tpu_torch.types.model_bundle import tree_from_leaves
+
+        return tree_from_leaves(self.manifest, self._buffers,
+                                params_template)
+
+    # -- internals --
+    def _install_manifest(self, manifest: list) -> None:
+        mh = manifest_hash(manifest)
+        if self.manifest is not None and mh == self._mh:
+            return  # layout unchanged: keep the buffers (and their bytes)
+        self.manifest = manifest
+        self._mh = mh
+        self._buffers = [
+            np.empty(tuple(shape), dtype=_leaf_dtype(dtype))
+            for (_path, dtype, shape) in manifest
+        ]
+
+    def _decode_keyframe(self, version, hdr, shipped):
+        payload = _decompress(shipped, int(hdr["codec"]), int(hdr["rawlen"]))
+        self._install_manifest(hdr["man"])
+        if sum(b.nbytes for b in self._buffers) != len(payload):
+            # Before any buffer is touched: a short/long payload would
+            # otherwise leave a half-written snapshot behind.
+            self.awaiting_keyframe = True
+            raise WireFrameError(
+                f"keyframe payload is {len(payload)} bytes, manifest "
+                f"needs {sum(b.nbytes for b in self._buffers)}")
+        off = 0
+        for buf in self._buffers:
+            view = np.frombuffer(payload, buf.dtype, count=buf.size,
+                                 offset=off).reshape(buf.shape)
+            buf[...] = view
+            off += buf.nbytes
+        self.version = version
+        self.arch = dict(hdr["arch"])
+        self.awaiting_keyframe = False
+        self.keyframes_applied += 1
+        self._m_key.inc()
+        return version, self.arch, self.tree()
+
+    def _decode_delta(self, version, hdr, shipped):
+        base = int(hdr["base"])
+        if self.awaiting_keyframe:
+            self.dropped_frames += 1
+            self._m_dropped.inc()
+            return None  # blackout until the next keyframe
+        if base != self.version or int(hdr["mh"]) != self._mh:
+            self.awaiting_keyframe = True
+            self.resyncs += 1
+            self._m_resync.inc()
+            raise WireBaseMismatch(
+                f"delta base {base} (manifest {hdr['mh']:#x}) does not "
+                f"match held version {self.version} (manifest "
+                f"{self._mh:#x}) — resync required",
+                base=base, held=self.version)
+        payload = _decompress(shipped, int(hdr["codec"]), int(hdr["rawlen"]))
+        try:
+            off = 0
+            for idx, enc, seglen in hdr["leaves"]:
+                buf = self._buffers[idx]
+                seg = memoryview(payload)[off:off + seglen]
+                if enc == ENC_IDELTA:
+                    _apply_leaf_delta(buf, seg)
+                elif enc == ENC_RAW:
+                    buf[...] = np.frombuffer(
+                        seg, buf.dtype, count=buf.size).reshape(buf.shape)
+                else:
+                    raise WireFrameError(f"unknown leaf encoding {enc}")
+                off += seglen
+        except Exception:
+            # The CRC passed but the entries didn't apply cleanly
+            # (publisher/decoder disagreement): the buffers may be
+            # half-mutated, so nothing short of a keyframe is trustworthy.
+            self.awaiting_keyframe = True
+            self.resyncs += 1
+            self._m_resync.inc()
+            raise
+        self.version = version
+        self.arch = dict(hdr["arch"])
+        self.deltas_applied += 1
+        self._m_delta.inc()
+        return version, self.arch, self.tree()
+
+
+__all__ = [
+    "MAGIC", "KIND_KEYFRAME", "KIND_DELTA", "KIND_CHUNK",
+    "CODEC_RAW", "CODEC_ZSTD", "CODEC_LZ4", "CODEC_ZLIB",
+    "WireFrameError", "WireBaseMismatch",
+    "is_wire_frame", "is_chunk_frame", "parse_frame", "verify_frame",
+    "manifest_hash",
+    "split_frame", "ChunkReassembler",
+    "ModelWireEncoder", "ModelWireDecoder", "resolve_codec",
+]

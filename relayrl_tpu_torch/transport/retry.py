@@ -1,0 +1,305 @@
+"""Unified retry/backoff policy + circuit breaker for the transport plane.
+
+Before this module each backend grew its own dialect: the zmq handshake
+re-polled on a fixed 2 s sub-deadline, grpc retried with a flat
+``time.sleep(0.2)``, the native connect loop slept 0.2 s flat, and the
+agent handshake bounded all of them with a caller timeout. One policy now
+drives every bounded retry loop — jittered exponential backoff under a
+per-op deadline — and one breaker guards repeated-failure paths (the
+actor's trajectory sends against a dead learner): after
+``failure_threshold`` consecutive failures the breaker opens (callers
+skip the wire and spool instead), and after ``reset_timeout_s`` a single
+half-open probe is let through; its success closes the breaker and
+triggers spool replay.
+
+Telemetry (docs/observability.md):
+
+* ``relayrl_retry_attempts_total{op}``  — every retried attempt (not the
+  first try: a clean call costs zero counter traffic)
+* ``relayrl_retry_exhausted_total{op}`` — deadline/attempt budget spent
+* ``relayrl_breaker_state{name}``       — 0 closed / 1 half-open / 2 open
+* events ``retry_exhausted`` / ``breaker_open`` / ``breaker_close``
+  in the run journal.
+
+Config: the ``transport.retry`` section (ConfigLoader.get_transport_
+params parses it; docs/operations.md has the knob table).
+
+A copy of :mod:`relayrl_tpu.transport.retry`.
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """Jittered exponential backoff under a per-op deadline.
+
+    ``base_delay_s * multiplier**k`` capped at ``max_delay_s``, each
+    delay scaled by ``1 - jitter*u`` (u ~ U[0,1)) so a restarted fleet's
+    retries decorrelate instead of thundering in lockstep.
+    ``max_attempts=0`` means attempts are bounded only by the deadline.
+    """
+
+    base_delay_s: float = 0.05
+    max_delay_s: float = 2.0
+    multiplier: float = 2.0
+    jitter: float = 0.5
+    deadline_s: float = 30.0
+    max_attempts: int = 0
+
+    @classmethod
+    def from_dict(cls, d: dict | None) -> "RetryPolicy":
+        d = dict(d or {})
+        kwargs = {}
+        for key, cast in (("base_delay_s", float), ("max_delay_s", float),
+                          ("multiplier", float), ("jitter", float),
+                          ("deadline_s", float), ("max_attempts", int)):
+            if key in d:
+                try:
+                    kwargs[key] = cast(d[key])
+                except (TypeError, ValueError):
+                    pass  # malformed knob degrades to the default
+        return cls(**kwargs)
+
+    def delay(self, attempt: int, rng: random.Random | None = None) -> float:
+        """Backoff before retry ``attempt`` (0-based: the wait after the
+        first failure)."""
+        raw = min(self.max_delay_s,
+                  self.base_delay_s * self.multiplier ** attempt)
+        u = (rng.random() if rng is not None else random.random())
+        return max(0.0, raw * (1.0 - self.jitter * u))
+
+    def call(self, fn, *, op: str, deadline_s: float | None = None,
+             retry_on: tuple = (Exception,), rng: random.Random | None = None,
+             sleep=time.sleep):
+        """Run ``fn()`` under this policy: retry on ``retry_on`` (or on a
+        ``None`` return — poll-style callees) with jittered backoff until
+        the deadline or attempt budget is spent, then raise the last
+        exception (or TimeoutError for None-returning pollers). A callee
+        that must bound its own inner blocking wait closes over
+        :meth:`deadline_at`.
+        """
+        budget = self.deadline_s if deadline_s is None else float(deadline_s)
+        deadline = time.monotonic() + budget
+        attempt = 0
+        last_exc: Exception | None = None
+        while True:
+            try:
+                result = fn()
+                if result is not None:
+                    return result
+            except retry_on as e:  # noqa: PERF203 — the retry loop
+                last_exc = e
+            out_of_attempts = (self.max_attempts > 0
+                               and attempt + 1 >= self.max_attempts)
+            remaining = deadline - time.monotonic()
+            if out_of_attempts or remaining <= 0:
+                _metrics()["exhausted"].labels_inc(op)
+                from relayrl_tpu_torch import telemetry
+
+                telemetry.emit("retry_exhausted", op=op, attempts=attempt + 1,
+                               deadline_s=budget,
+                               error=(repr(last_exc) if last_exc else None))
+                if last_exc is not None:
+                    raise last_exc
+                raise TimeoutError(
+                    f"{op}: no result after {attempt + 1} attempt(s) "
+                    f"in {budget:.1f}s")
+            sleep(min(self.delay(attempt, rng), max(0.0, remaining)))
+            attempt += 1
+            _metrics()["attempts"].labels_inc(op)
+
+    def deadline_at(self, deadline_s: float | None = None) -> float:
+        return time.monotonic() + (self.deadline_s if deadline_s is None
+                                   else float(deadline_s))
+
+
+class _OpCounters:
+    """Per-op labeled counter front, lazily materialized per op label.
+    Re-resolves against the CURRENT process registry on every call path
+    where it changed (benches install a fresh registry per row; a cached
+    metric bound to the old one would silently vanish from snapshots)."""
+
+    def __init__(self, name: str, help_text: str):
+        self._name = name
+        self._help = help_text
+        self._by_op: dict[str, object] = {}
+        self._registry = None
+        self._lock = threading.Lock()
+
+    @classmethod
+    def counter(cls, name: str, help_text: str) -> "_OpCounters":
+        """Registration constructor: the family name must appear at a
+        statically visible ``*.counter("literal", ...)`` site so the
+        contracts engine can reconcile it against the docs catalog."""
+        return cls(name, help_text)
+
+    def labels_inc(self, op: str, n: int = 1) -> None:
+        from relayrl_tpu_torch import telemetry
+
+        reg = telemetry.get_registry()
+        metric = self._by_op.get(op) if reg is self._registry else None
+        if metric is None:
+            with self._lock:
+                if reg is not self._registry:
+                    self._by_op.clear()
+                    self._registry = reg
+                metric = self._by_op.get(op)
+                if metric is None:
+                    metric = reg.counter(self._name, self._help, {"op": op})
+                    self._by_op[op] = metric
+        metric.inc(n)
+
+
+_metrics_cache: dict | None = None
+_metrics_lock = threading.Lock()
+
+
+def _metrics() -> dict:
+    global _metrics_cache
+    if _metrics_cache is None:
+        with _metrics_lock:
+            if _metrics_cache is None:
+                _metrics_cache = {
+                    "attempts": _OpCounters.counter(
+                        "relayrl_retry_attempts_total",
+                        "retried attempts (first tries are free)"),
+                    "exhausted": _OpCounters.counter(
+                        "relayrl_retry_exhausted_total",
+                        "retry budgets spent without success"),
+                }
+    return _metrics_cache
+
+
+def reset_metrics_for_tests() -> None:
+    """Drop the cached counter fronts so a fresh test registry sees new
+    metric objects (mirrors telemetry.reset_for_tests)."""
+    global _metrics_cache
+    with _metrics_lock:
+        _metrics_cache = None
+
+
+_BREAKER_CLOSED, _BREAKER_HALF_OPEN, _BREAKER_OPEN = 0, 1, 2
+
+
+class CircuitBreaker:
+    """Consecutive-failure breaker with a half-open probe.
+
+    closed → (``failure_threshold`` consecutive failures) → open →
+    (``reset_timeout_s`` elapses) → half-open: :meth:`allow` admits ONE
+    probe; its success closes the breaker, its failure re-opens (and
+    re-arms the timeout). Thread-safe; the state lands in the
+    ``relayrl_breaker_state{name}`` gauge and open/close transitions in
+    the run journal.
+    """
+
+    def __init__(self, name: str, failure_threshold: int = 5,
+                 reset_timeout_s: float = 5.0):
+        self.name = name
+        self.failure_threshold = max(1, int(failure_threshold))
+        self.reset_timeout_s = float(reset_timeout_s)
+        self._lock = threading.Lock()
+        self._state = _BREAKER_CLOSED
+        self._failures = 0
+        self._opened_at = 0.0
+        self._probe_out = False
+        from relayrl_tpu_torch import telemetry
+
+        self._m_state = telemetry.get_registry().gauge(
+            "relayrl_breaker_state",
+            "circuit breaker: 0=closed, 1=half-open, 2=open",
+            {"name": name})
+        self._m_state.set(0)
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            self._maybe_half_open()
+            return {_BREAKER_CLOSED: "closed",
+                    _BREAKER_HALF_OPEN: "half_open",
+                    _BREAKER_OPEN: "open"}[self._state]
+
+    def _maybe_half_open(self) -> None:
+        # lock held
+        if (self._state == _BREAKER_OPEN
+                and time.monotonic() - self._opened_at
+                >= self.reset_timeout_s):
+            self._state = _BREAKER_HALF_OPEN
+            self._probe_out = False
+            self._m_state.set(_BREAKER_HALF_OPEN)
+
+    def allow(self) -> bool:
+        """May the caller touch the wire right now? Open → False;
+        half-open → True exactly once per timeout window (the probe)."""
+        with self._lock:
+            self._maybe_half_open()
+            if self._state == _BREAKER_CLOSED:
+                return True
+            if self._state == _BREAKER_HALF_OPEN and not self._probe_out:
+                self._probe_out = True
+                return True
+            return False
+
+    def record_success(self) -> bool:
+        """Returns True when this success CLOSED an open/half-open
+        breaker (the caller's replay trigger)."""
+        with self._lock:
+            was_broken = self._state != _BREAKER_CLOSED
+            self._state = _BREAKER_CLOSED
+            self._failures = 0
+            self._probe_out = False
+            self._m_state.set(_BREAKER_CLOSED)
+        if was_broken:
+            from relayrl_tpu_torch import telemetry
+
+            telemetry.emit("breaker_close", name=self.name)
+        return was_broken
+
+    def record_failure(self) -> bool:
+        """Returns True when this failure OPENED the breaker."""
+        with self._lock:
+            self._failures += 1
+            if self._state == _BREAKER_HALF_OPEN:
+                # failed probe: straight back to open, timeout re-armed
+                self._state = _BREAKER_OPEN
+                self._opened_at = time.monotonic()
+                self._probe_out = False
+                self._m_state.set(_BREAKER_OPEN)
+                opened = True
+            elif (self._state == _BREAKER_CLOSED
+                    and self._failures >= self.failure_threshold):
+                self._state = _BREAKER_OPEN
+                self._opened_at = time.monotonic()
+                self._m_state.set(_BREAKER_OPEN)
+                opened = True
+            else:
+                opened = False
+        if opened:
+            from relayrl_tpu_torch import telemetry
+
+            telemetry.emit("breaker_open", name=self.name,
+                           failures=self._failures)
+        return opened
+
+
+def breaker_from_config(name: str, retry_cfg: dict | None) -> CircuitBreaker:
+    d = dict(retry_cfg or {})
+    try:
+        threshold = int(d.get("breaker_threshold", 5))
+    except (TypeError, ValueError):
+        threshold = 5
+    try:
+        reset_s = float(d.get("breaker_reset_s", 5.0))
+    except (TypeError, ValueError):
+        reset_s = 5.0
+    return CircuitBreaker(name, failure_threshold=threshold,
+                          reset_timeout_s=reset_s)
+
+
+__all__ = ["RetryPolicy", "CircuitBreaker", "breaker_from_config",
+           "reset_metrics_for_tests"]

@@ -168,6 +168,66 @@ def exploration_kwargs(arch: Mapping[str, Any]) -> dict[str, float]:
     return {k: float(arch[k]) for k in EXPLORATION_ARCH_KEYS if k in arch}
 
 
+def _flatten_with_path(tree, path=()):
+    """``jax.tree_util.tree_flatten_with_path`` for trees of dicts, lists
+    and tuples: leaves in JAX's order (dict keys sorted, sequences by
+    index), each with its path of STRING keys (the flax state-dict
+    convention, so a list node and its ``{"0": ...}`` restore agree).
+    None is an empty subtree, as in JAX."""
+    if tree is None:
+        return []
+    if isinstance(tree, Mapping):
+        out = []
+        for key in sorted(tree):
+            out += _flatten_with_path(tree[key], (*path, str(key)))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for i, sub in enumerate(tree):
+            out += _flatten_with_path(sub, (*path, str(i)))
+        return out
+    return [(list(path), tree)]
+
+
+def leaf_manifest(params: Any) -> tuple[list[list], list]:
+    """Flatten a params tree into ``(manifest, leaves)``:
+    ``manifest[i] = [path_keys, dtype_str, shape]`` and ``leaves[i]`` the
+    matching C-contiguous host array (the JAX package's manifest for the
+    same tree)."""
+    manifest, leaves = [], []
+    for path, leaf in _flatten_with_path(params):
+        arr = np.ascontiguousarray(np.asarray(leaf))
+        manifest.append([path, str(arr.dtype), list(arr.shape)])
+        leaves.append(arr)
+    return manifest, leaves
+
+
+def tree_from_leaves(manifest: list, leaves: list,
+                     params_template: Any | None = None) -> Any:
+    """Assemble ``leaves`` back into nested dicts keyed by the manifest
+    paths (the structural restore ``ModelBundle.from_bytes`` does).
+    ``params_template`` is accepted for the JAX package's signature; the
+    port's trees are plain dicts, so it only checks that every template
+    leaf is on the wire."""
+    if params_template is not None:
+        on_wire = {tuple(entry[0]) for entry in manifest}
+        for path, _leaf in _flatten_with_path(params_template):
+            if tuple(path) not in on_wire:
+                raise ValueError(
+                    f"params_template has leaf {tuple(path)} absent from "
+                    f"the wire manifest — template and published tree "
+                    f"diverge")
+    root: dict = {}
+    for (path, _dtype, _shape), leaf in zip(manifest, leaves):
+        if not path:
+            return leaf  # single-leaf tree (bare array params)
+        node = root
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return root
+
+
 def arch_equal(a: Mapping[str, Any], b: Mapping[str, Any]) -> bool:
     """Structural arch-config equality — the actor refuses a hot-swap whose
     arch differs from the one it validated (param-ABI guard).

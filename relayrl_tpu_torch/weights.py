@@ -68,16 +68,69 @@ def flax_path(module: nn.Module, key: str) -> tuple[str, ...]:
     return (*filter(None, owner_path.split(".")), name)
 
 
-def params_to_jax(module: nn.Module) -> dict[str, Any]:
-    """Module -> flax params tree of numpy arrays, keys sorted at every
-    level (the order JAX's tree utilities give a params dict)."""
+def state_to_jax(module: nn.Module,
+                 state: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """A state dict of ``module``'s layout (e.g. a host copy of it) ->
+    the flax params tree of numpy arrays, keys sorted at every level (the
+    order JAX's tree utilities give a params dict)."""
     tree: dict[str, Any] = {}
-    for key, tensor in module.state_dict().items():
+    for key, tensor in state.items():
         *scopes, name = flax_path(module, key)
         if name == "kernel":
             tensor = tensor.T
         node = tree
         for part in scopes:
             node = node.setdefault(part, {})
-        node[name] = tensor.detach().cpu().numpy().copy()  # owns its memory
+        node[name] = _to_numpy(tensor)
     return {"params": _sorted_tree(tree)}
+
+
+def _to_numpy(tensor: torch.Tensor) -> np.ndarray:
+    """A host copy that owns its memory (bfloat16 via ``ml_dtypes``)."""
+    tensor = tensor.detach().cpu()
+    if tensor.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return (tensor.contiguous().view(torch.int16).numpy()
+                .view(ml_dtypes.bfloat16).copy())
+    return tensor.numpy().copy()
+
+
+def params_to_jax(module: nn.Module) -> dict[str, Any]:
+    """Module -> flax params tree of numpy arrays, keys sorted at every
+    level (the order JAX's tree utilities give a params dict)."""
+    return state_to_jax(module, module.state_dict())
+
+
+def load_flat(module: nn.Module, state: Mapping[str, torch.Tensor]) -> nn.Module:
+    """Copy a host state dict into ``module``'s tensors through ONE
+    host-to-device copy: the host tensors are packed into one byte
+    buffer, moved once, and scattered on the device. Bit-exact: only
+    bytes move."""
+    targets = module.state_dict()
+    parts = [state[k].contiguous().reshape(-1).view(torch.uint8)
+             for k in targets]
+    device = next(iter(targets.values())).device
+    flat = torch.cat(parts).to(device)
+    off = 0
+    with torch.no_grad():
+        for (key, dst), part in zip(targets.items(), parts):
+            n = part.numel()
+            dst.copy_(flat[off:off + n].view(dst.dtype).view(dst.shape))
+            off += n
+    return module
+
+
+def tree_digest(tree) -> str:
+    """sha256 over a params tree's leaves (manifest order, raw bytes,
+    with their paths, dtypes and shapes): equal digests mean bit-equal
+    params."""
+    import hashlib
+
+    from relayrl_tpu_torch.types.model_bundle import leaf_manifest
+
+    manifest, leaves = leaf_manifest(tree)
+    h = hashlib.sha256(repr(manifest).encode())
+    for leaf in leaves:
+        h.update(np.ascontiguousarray(leaf).view(np.uint8).tobytes())
+    return h.hexdigest()

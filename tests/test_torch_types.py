@@ -172,3 +172,25 @@ def test_port_imports_no_jax():
                          text=True, timeout=300, env=env, cwd=REPO)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_distributed_loop_imports_clean():
+    """The server and agent entry points load no JAX and nothing of the JAX
+    package; the package itself loads neither msgpack nor ml_dtypes (the
+    transport imports them where it encodes and decodes)."""
+    code = (
+        "import sys\n"
+        "import relayrl_tpu_torch\n"
+        "lazy = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "              ('msgpack', 'ml_dtypes'))\n"
+        "import relayrl_tpu_torch.runtime.server\n"
+        "import relayrl_tpu_torch.runtime.agent\n"
+        "from relayrl_tpu_torch.runtime import TrainingServer, VectorAgent\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'relayrl_tpu'))\n"
+        "print('LAZY', lazy, 'LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LAZY [] LOADED []" in out.stdout, out.stdout
