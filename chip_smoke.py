@@ -80,7 +80,21 @@ Phases, each of which fails the run:
    equal to the checkpoint's) and requires it to train past the kill, the
    agent to advance, and after a spool replay accepted == max_seq == sent
    with duplicates; prints env steps/s, ms per update and publish bytes
-   (not gated).
+   (not gated). The server runs the reference's default config, guardrails
+   on (no rejection, strike, trip or rollback on this clean run; probes
+   live), and profiles its learner over updates 2-4 (device busy ms and
+   operations per update, the learner thread's CPU and run-queue time);
+12. guardrails on the card: phase 5's learner trained twice from the same
+   params and batches with the probes off and once on, bit-equal, at
+   336/4/4 launches per update, and the probes' device cost; then a
+   ``chaos_server`` over gRPC from the default config with two
+   ``VectorAgent``s: B's ``nan_poison``ed sends rejected ``nonfinite``
+   until its lanes are quarantined, then typed quarantine nacks its spool
+   discards, while A's clean epochs are accepted exactly and train; then
+   a wave of finite rewards of 1e38 drives the params non-finite and the
+   watchdog rolls back exactly once to the newest healthy checkpoint
+   (params and Adam steps equal), under a higher version, with a forced
+   keyframe A installs sha256-equal; no agent installs non-finite params.
 
 Phases 3 and 6 also hold every kernel to its plain version at head dims
 128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
@@ -146,6 +160,21 @@ DIST_LANES = 8
 DIST_UPDATES = 4
 OUTAGE_WAVES = 1
 DIST_TIMEOUT_S = 240
+# The guardrails phase (12): phase 5's learner in a chaos_server process
+# over gRPC (grpc imports on the card's machine; checked once, never
+# decided at run time), built from the reference's default config
+# (enforce, watchdog, probes, rollback on). Agent A is phase 11's clean
+# VectorAgent (one epoch per wave); agent B's GUARD_LANES_B lanes carry a
+# nan_poison fault on every send. After GUARD_CLEAN_WAVES clean epochs,
+# A plays one wave whose every reward is DIVERGE_REWARD: finite (it
+# passes validation) but large enough that the update's returns overflow
+# float32 and the params go non-finite. PROBE_UPDATES updates from the
+# same params and batches, probes on and off, must agree bit for bit.
+GUARD_TRANSPORT = "grpc"
+GUARD_LANES_B = 2
+GUARD_CLEAN_WAVES = 2
+DIVERGE_REWARD = 1e38
+PROBE_UPDATES = 2
 # The bars of tests/test_flash.py: 3e-2 for bf16, 2e-5 for f32.
 TOLERANCE = {"bfloat16": 3e-2, "float32": 2e-5}
 # Gradients: 5e-5 in f32 (tests/test_flash.py's gradient bar); in bf16 3e-2
@@ -1029,10 +1058,12 @@ def dispatch_breakdown(host, device) -> dict:
     return out
 
 
-def profile_device(fn, n: int, unit: str) -> None:
+def profile_device(fn, n: int, unit: str) -> dict | None:
     """Device busy share of ``n`` back-to-back calls of ``fn`` and the
     kernels that take the device time, from ``torch.profiler`` (whose own
-    cost lengthens the wall time it is divided by). Annotated ranges on
+    cost lengthens the wall time it is divided by); returns the wall and
+    busy ms and the device operations per call (None when the profiler
+    saw no device activity). Annotated ranges on
     the device timeline (``Optimizer.step#Adam.step``) span kernels
     counted on their own, so they are left out."""
     import torch
@@ -1053,7 +1084,7 @@ def profile_device(fn, n: int, unit: str) -> None:
     if busy_us <= 0:
         print("[profile] device time: not measured (the profiler saw no "
               "device activity)")
-        return
+        return None
     launches = sum(e.count for e in kernels) / n
     print(f"[profile] {n} {unit}(s): wall {wall_us / n / 1e3:.4f} ms, device "
           f"busy {busy_us / n / 1e3:.4f} ms per {unit} "
@@ -1063,6 +1094,8 @@ def profile_device(fn, n: int, unit: str) -> None:
         print(f"[profile]   {e.self_device_time_total / n / 1e3:8.4f} ms "
               f"{100 * e.self_device_time_total / busy_us:5.1f}%  "
               f"x{e.count / n:<7.1f} {e.key[:90]}")
+    return {"wall_ms": wall_us / n / 1e3, "busy_ms": busy_us / n / 1e3,
+            "operations": launches}
 
 
 def profile_dispatches(host, n: int = 10) -> None:
@@ -1805,6 +1838,22 @@ class ChaosServer:
         self._out.close()
 
 
+def check_clean_guardrails(status: dict) -> None:
+    """A clean run under the default guardrails: probes live, nothing
+    rejected, struck or quarantined, no watchdog trip, no rollback."""
+    guard = status["guardrails"]
+    quarantine = guard.get("quarantine") or {}
+    watchdog = guard.get("watchdog") or {}
+    if (not guard or status["probes_disabled"]
+            or guard["validation_mode"] != "enforce"
+            or quarantine.get("quarantines_total")
+            or quarantine.get("strikes_pending")
+            or watchdog.get("trips_total") or guard["rollbacks_total"]
+            or guard["halted"]):
+        raise AssertionError(f"guardrails on a clean run: {guard}, probes "
+                             f"disabled {status['probes_disabled']}")
+
+
 def distributed_loop(device, root: Path, workdir: Path) -> dict:
     """Phase 11: the flagship learner trained across two processes on the
     card through the port's TrainingServer and VectorAgent over ZMQ, then
@@ -1846,9 +1895,12 @@ def distributed_loop(device, root: Path, workdir: Path) -> dict:
            "device": str(device), "scratch": str(scratch), "checkpoint_every": 1,
            "config": {"learner": {"precision": arch["precision"]}},
            "digests": True, "status_path": str(workdir / "status.json"),
+           "profile": {"after": 1, "updates": DIST_UPDATES - 1,
+                       "path": str(workdir / "profile.json")},
            **server_addrs}
+    # The reference's default config: guardrails on.
     agent_config = workdir / "agent_config.json"
-    agent_config.write_text(json.dumps({"guardrails": {"enabled": False}}))
+    agent_config.write_text(json.dumps({}))
     n_layers = arch["n_layers"]
     per_update = (n_layers * (4 + LEARNER["train_vf_iters"]), n_layers, n_layers)
 
@@ -1898,6 +1950,7 @@ def distributed_loop(device, root: Path, workdir: Path) -> dict:
         if stats["learner_errors"] or stats["dropped"] or stats["publish_errors"]:
             raise AssertionError(f"server stats {stats}: "
                                  f"{status['last_learner_error']}")
+        check_clean_guardrails(status)
         for lane in lane_ids:
             row = status["accounting"]["agents"].get(lane)
             if row != {"max_seq": sent[lane], "accepted": sent[lane],
@@ -1928,6 +1981,9 @@ def distributed_loop(device, root: Path, workdir: Path) -> dict:
                                  "frame")
         kinds = status["publish_bytes"]
         timings = status["timings"]
+        profile_path = Path(cfg["profile"]["path"])
+        server.wait(lambda s: profile_path.exists(), "the learner profile")
+        learner_profile = json.loads(profile_path.read_text())
 
         # SIGKILL drill: the last checkpoint must be on disk first.
         ckpt_dir = scratch / "checkpoints"
@@ -1981,7 +2037,9 @@ def distributed_loop(device, root: Path, workdir: Path) -> dict:
         if status["stats"]["learner_errors"]:
             raise AssertionError(f"restarted server: {status['stats']}: "
                                  f"{status['last_learner_error']}")
-        return {"updates": DIST_UPDATES, "dispatches": dispatches,
+        check_clean_guardrails(status)
+        return {"profile": learner_profile,
+                "updates": DIST_UPDATES, "dispatches": dispatches,
                 "wall": wall, "agent_counts": agent_counts,
                 "server_counts": server_counts, "per_update": per_update,
                 "digest": agent_digest, "version": agent_version,
@@ -1994,6 +2052,438 @@ def distributed_loop(device, root: Path, workdir: Path) -> dict:
                 "waves": waves}
     finally:
         if agent is not None:
+            agent.disable_agent()
+        server.stop()
+
+
+def count_operations(fn) -> int:
+    """The PyTorch operations ``fn`` dispatches, views and aliases left
+    out: what it asks of the device, counted on the host."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    free = {"view", "_unsafe_view", "reshape", "alias", "detach",
+            "lift_fresh"}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in free:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def check_probes(device, learned: dict) -> dict:
+    """Phase 12, part 1: the guardrail probes are observers on the card.
+    ``PROBE_UPDATES`` updates of phase 5's learner from its initial params
+    (fresh Adam state) on the first wave's epoch batches, twice with the
+    probes off and once on: the two probes-off runs must agree bit for bit
+    (else the differing parameters name the op that is not reproducible),
+    and the probes-on run must agree with them bit for bit, with the same
+    K1/K2/K3 launches per update (the probes launch none) and live probe
+    scalars. Then profiles one update with probes on and off, and times
+    the probe passes alone (CUDA events) with the operations they
+    dispatch."""
+    import torch
+
+    from relayrl_tpu_torch.algorithms.reinforce import (
+        ReinforceState,
+        make_optimizers,
+    )
+    from relayrl_tpu_torch.guardrails import GuardProbes
+    from relayrl_tpu_torch.guardrails.watchdog import (
+        PROBE_NONFINITE,
+        PROBE_PARAM_NORM,
+        PROBE_UPDATE_NORM,
+    )
+
+    algo = learned["algo"]
+    batches = epoch_batches(algo, learned["first_wave"], PROBE_UPDATES)
+
+    def fresh(probes: bool):
+        params = copy.deepcopy(learned["params0"])
+        algo.state = ReinforceState(
+            params, *make_optimizers(params, algo.pi_lr, algo.vf_lr))
+        algo._guard_probes = GuardProbes(update_norm=True) if probes else None
+
+    def run(probes: bool):
+        fresh(probes)
+        zero_flash_counts()
+        for batch in batches:
+            algo.train_on_batch(batch)
+        algo.inflight.drain()
+        torch.cuda.synchronize()
+        counts = flash_counts()
+        if probes and algo._guard_probes is None:
+            raise AssertionError("the probes disabled themselves")
+        state = {k: v.detach().clone()
+                 for k, v in algo.state.params.state_dict().items()}
+        return state, counts, dict(algo._last_metrics)
+
+    def diff(a, b):
+        return {k: (a[k].float() - b[k].float()).abs().max().item()
+                for k in a if not torch.equal(a[k], b[k])}
+
+    off1, counts, _ = run(False)
+    off2, _, _ = run(False)
+    not_reproducible = diff(off1, off2)
+    if not_reproducible:
+        raise AssertionError(
+            f"two probes-off updates from the same params and batches "
+            f"differ in {len(not_reproducible)} tensors: "
+            f"{sorted(not_reproducible.items())[:8]}")
+    on, on_counts, metrics = run(True)
+    perturbed = diff(off1, on)
+    if perturbed:
+        raise AssertionError(f"probes perturbed training: "
+                             f"{sorted(perturbed.items())[:8]}")
+    n_layers = SLICE_ARCH["n_layers"]
+    per_update = (n_layers * (4 + LEARNER["train_vf_iters"]), n_layers,
+                  n_layers)
+    want = tuple(PROBE_UPDATES * c for c in per_update)
+    if counts != want or on_counts != want:
+        raise AssertionError(f"launches over {PROBE_UPDATES} updates: probes "
+                             f"off {counts}, on {on_counts}; expected {want}")
+    if not (metrics[PROBE_NONFINITE] == 0 and metrics[PROBE_PARAM_NORM] > 0
+            and metrics[PROBE_UPDATE_NORM] > 0
+            and math.isfinite(metrics[PROBE_PARAM_NORM])):
+        raise AssertionError(f"probe scalars {metrics}")
+    # The probes' cost: one update with and without them, and the probe
+    # passes alone, on the device.
+    batch = batches[0]
+    cost = {}
+    for probes in (False, True):
+        fresh(probes)
+        print(f"[guard] one update, probes {'on' if probes else 'off'}:")
+        cost["on" if probes else "off"] = profile_device(
+            lambda: algo.train_on_batch(batch), 1, "update")
+    probe = GuardProbes(update_norm=True)
+    module = algo.state.params
+
+    def passes():
+        return probe.post_update(probe.pre_update(module), module)
+
+    cost["probes_alone"] = {"ms": time_ms(passes, iters=20),
+                            "operations": count_operations(passes)}
+    algo.inflight.drain()
+    return {"per_update": per_update, "counts": counts,
+            "param_norm": metrics[PROBE_PARAM_NORM],
+            "update_norm": metrics[PROBE_UPDATE_NORM],
+            "tensors": len(off1), "cost": cost}
+
+
+class LoudRecall:
+    """``RecallEnv`` whose every step pays ``DIVERGE_REWARD``: finite
+    rewards that pass ingest validation and overflow the learner."""
+
+    def __init__(self):
+        from relayrl_tpu_torch.envs import RecallEnv
+
+        self.env = RecallEnv(LEARNER_HORIZON, N_CUES)
+        self.observation_space = self.env.observation_space
+        self.action_space = self.env.action_space
+
+    def reset(self, seed=None):
+        return self.env.reset(seed=seed)
+
+    def step(self, action):
+        obs, _, terminated, truncated, info = self.env.step(action)
+        return obs, DIVERGE_REWARD, terminated, truncated, info
+
+
+def _counter(status: dict, name: str, **labels) -> float:
+    """One counter of the server's telemetry snapshot (0 when absent)."""
+    return sum(m["value"] for m in status["telemetry"]["metrics"]
+               if m["name"] == name
+               and all(m["labels"].get(k) == v for k, v in labels.items()))
+
+
+def guardrails_drill(device, root: Path, workdir: Path) -> dict:
+    """Phase 12, part 2: the guardrails drills on the card. A chaos_server
+    process trains phase 5's learner over ``GUARD_TRANSPORT`` from the
+    default config (addresses and scratch only). Agent B's poisoned sends
+    are rejected ``nonfinite`` until each of its lanes is quarantined after
+    ``strike_threshold`` strikes; its next sends come back as typed
+    quarantine nacks and its spool discards them. Agent A's clean episodes
+    are all accepted once and train. Then A's loud wave drives the params
+    non-finite: the watchdog (or the publish gate) trips exactly one
+    rollback to the newest healthy checkpoint (params and Adam steps equal
+    to it, bit for bit), under a version above the poisoned line, with a
+    forced keyframe that A installs sha256-equal. A clean epoch after it
+    trains on the restored line (not halted; the restored ledger has
+    un-seen the loud wave's seqs). No agent ever installs non-finite
+    params; no learner error, no probe disabled."""
+    import shutil
+
+    import torch
+
+    from relayrl_tpu_torch import faults
+    from relayrl_tpu_torch.checkpoint.manager import (
+        CheckpointManager,
+        train_state_digest,
+    )
+    from relayrl_tpu_torch.config import ConfigLoader
+    from relayrl_tpu_torch.envs import RecallEnv, SyncVectorEnv
+    from relayrl_tpu_torch.runtime.agent import VectorAgent
+    from relayrl_tpu_torch.runtime.vector_actor import run_vector_gym_loop
+    from relayrl_tpu_torch.weights import params_to_jax, tree_digest
+
+    t_start = time.perf_counter()
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    guard_cfg = ConfigLoader(None, None,
+                             create_if_missing=False).get_guardrails_params()
+    strikes = int(guard_cfg["strike_threshold"])
+    addr = f"127.0.0.1:{_free_port()}"
+    env = RecallEnv(LEARNER_HORIZON, N_CUES)
+    arch = SLICE_ARCH
+    hyperparams = {"model_kind": arch["kind"], "seed": SEED, "seed_salt": 0,
+                   **{k: v for k, v in arch.items()
+                      if k not in ("kind", "has_critic", "precision")},
+                   **LEARNER}
+    scratch = workdir / "server"
+    cfg = {"algorithm": "REINFORCE",
+           "obs_dim": int(env.observation_space.shape[0]),
+           "act_dim": int(env.action_space.n), "hyperparams": hyperparams,
+           "device": str(device), "scratch": str(scratch),
+           "server_type": GUARD_TRANSPORT, "bind_addr": addr,
+           "config": {"learner": {"precision": arch["precision"]}},
+           "digests": True, "status_path": str(workdir / "status.json")}
+    agent_config = workdir / "agent_config.json"
+    agent_config.write_text(json.dumps({}))
+    n_layers = arch["n_layers"]
+    per_update = (n_layers * (4 + LEARNER["train_vf_iters"]), n_layers,
+                  n_layers)
+
+    installs = []  # (agent, version, all params finite) per install
+
+    def watch_installs(name, agent):
+        host = agent.host
+        original = host.swap_from_wire
+
+        def swap(version, blob):
+            out = original(version, blob)
+            with host._lock:
+                finite = all(bool(torch.isfinite(p).all())
+                             for p in host.params.parameters())
+            installs.append((name, int(version), finite))
+            return out
+
+        host.swap_from_wire = swap
+
+    server = ChaosServer(root, cfg, workdir / "server.log")
+    agents = {}
+    try:
+        server.wait(lambda s: True, "the server to come up")
+        common = {"config_path": str(agent_config), "seed": SEED,
+                  "probe": False, "device": device,
+                  "server_type": GUARD_TRANSPORT, "server_addr": addr}
+        # B's transport takes the poison plan's send site at construction;
+        # the plan is cleared before A's is built.
+        faults.install_plan(faults.FaultPlan(seed=SEED, rules=[
+            faults.FaultRule(site="agent.send", op="nan_poison", prob=1.0)]))
+        try:
+            agents["B"] = VectorAgent(
+                num_envs=GUARD_LANES_B, identity="poisoned",
+                model_path=str(workdir / "client_model_b.rlx"), **common)
+        finally:
+            faults.install_plan(None)
+        agents["A"] = VectorAgent(
+            num_envs=DIST_LANES, identity="clean",
+            model_path=str(workdir / "client_model_a.rlx"), **common)
+        for name, agent in agents.items():
+            watch_installs(name, agent)
+        zero_flash_counts()  # after each agent's validation forward
+        b_discards = []
+        original_discard = agents["B"].spool.discard
+
+        def discard(agent_id, seq):
+            b_discards.append((agent_id, seq))
+            original_discard(agent_id, seq)
+
+        agents["B"].spool.discard = discard
+        venvs = {"A": SyncVectorEnv([lambda: RecallEnv(LEARNER_HORIZON, N_CUES)]
+                                    * DIST_LANES),
+                 "B": SyncVectorEnv([lambda: RecallEnv(LEARNER_HORIZON, N_CUES)]
+                                    * GUARD_LANES_B),
+                 "loud": SyncVectorEnv([LoudRecall] * DIST_LANES)}
+        waves = {"A": 0, "B": 0, "loud": 0}
+        dispatches0 = {n: a.host.dispatches for n, a in agents.items()}
+
+        def wave(name):
+            agent = agents["A" if name == "loud" else name]
+            run_vector_gym_loop(agent, venvs[name], LEARNER_HORIZON,
+                                seed=SEED + 100 * len(name) + waves[name])
+            waves[name] += 1
+
+        lanes_b = list(agents["B"].agent_ids)
+        lanes_a = list(agents["A"].agent_ids)
+
+        # 1. The poisoned agent: strikes, then quarantine (A trains).
+        for i in range(strikes):
+            if i < GUARD_CLEAN_WAVES:
+                wave("A")
+            wave("B")
+        status = server.wait(
+            lambda s: sorted(s["guardrails"]["quarantine"]["quarantined"])
+            == sorted(lanes_b)
+            and s["stats"]["updates"] == GUARD_CLEAN_WAVES,
+            "B's lanes quarantined and A's epochs trained")
+        depth_b = agents["B"].spool.depth
+        wave("B")  # every send now comes back as a typed quarantine nack
+        status = server.wait(
+            lambda s: _counter(s, "relayrl_guard_quarantine_rejects_total")
+            >= GUARD_LANES_B, "the quarantine nacks")
+        sent = {n: a.spool.sent_counts() for n, a in agents.items()}
+        rejected = {m["labels"]["reason"]: m["value"]
+                    for m in status["telemetry"]["metrics"]
+                    if m["name"] == "relayrl_guard_rejected_total"}
+        nacks = _counter(status, "relayrl_guard_quarantine_rejects_total")
+        quarantine = status["guardrails"]["quarantine"]
+        if rejected != {"nonfinite": strikes * GUARD_LANES_B}:
+            raise AssertionError(f"rejections {rejected}; expected "
+                                 f"{strikes * GUARD_LANES_B} nonfinite")
+        if (nacks != GUARD_LANES_B or len(b_discards) != GUARD_LANES_B
+                or agents["B"].spool.depth != depth_b):
+            raise AssertionError(
+                f"quarantine nacks: server {nacks}, B's spool discarded "
+                f"{b_discards}, depth {agents['B'].spool.depth} (was "
+                f"{depth_b})")
+        if quarantine["quarantines_total"] != GUARD_LANES_B:
+            raise AssertionError(f"quarantine {quarantine}")
+        for lane in lanes_a:
+            row = status["accounting"]["agents"].get(lane)
+            if row != {"max_seq": sent["A"][lane], "accepted": sent["A"][lane],
+                       "contiguous": True}:
+                raise AssertionError(f"ingest accounting of {lane}: {row}, "
+                                     f"sent {sent['A'][lane]}")
+        stats = status["stats"]
+        if (stats["trajectories"] != GUARD_CLEAN_WAVES * DIST_LANES
+                or stats["dropped"] or stats["learner_errors"]):
+            raise AssertionError(f"server stats {stats}: "
+                                 f"{status['last_learner_error']}")
+        quarantined = {"rejected": rejected, "nacks": nacks,
+                       "discards": len(b_discards),
+                       "quarantines": quarantine["quarantines_total"]}
+
+        # 2. The divergence: the newest healthy checkpoint first.
+        ckpt_dir = scratch / "checkpoints"
+        server.wait(lambda s: (CheckpointManager(str(ckpt_dir)).healthy_steps()
+                               or [None])[-1] == GUARD_CLEAN_WAVES
+                    and s["version"] == GUARD_CLEAN_WAVES
+                    and agents["A"].model_version == GUARD_CLEAN_WAVES,
+                    "the healthy checkpoint of the last clean update")
+        healthy_step = CheckpointManager(str(ckpt_dir)).healthy_steps()[-1]
+        saved, _, _ = CheckpointManager(str(ckpt_dir)).restore(healthy_step)
+        healthy = train_state_digest(saved["train"])
+        decoder = agents["A"].host._wire_decoder
+        keyframes_before = 0 if decoder is None else decoder.keyframes_applied
+        wave("loud")
+        status = server.wait(
+            lambda s: s["guardrails"]["rollbacks_total"] >= 1
+            and "rolled_back" in s
+            and (s.get("published") or {}).get("version")
+            == s["rolled_back"]["version"]
+            and agents["A"].model_version == s["rolled_back"]["version"],
+            "the rollback, its publish and A's install")
+        time.sleep(1.0)  # a second rollback, if any, would land by now
+        status = server.status()
+        guard = status["guardrails"]
+        rolled = status["rolled_back"]
+        poisoned_version = GUARD_CLEAN_WAVES + 1
+        if guard["rollbacks_total"] != 1 or guard["halted"]:
+            raise AssertionError(f"rollbacks {guard['rollbacks_total']}, "
+                                 f"halted {guard['halted']}")
+        trip = guard["watchdog"]["last_trip"]
+        if guard["watchdog"]["trips_total"] != 1 or trip["signal"] not in (
+                "nonfinite_params", "param_norm", "publish_nonfinite"):
+            raise AssertionError(f"watchdog {guard['watchdog']}")
+        if {k: rolled[k] for k in ("params", "adam_steps")} != healthy:
+            raise AssertionError(f"restored {rolled} != healthy checkpoint "
+                                 f"{healthy_step} {healthy}")
+        if not rolled["version"] > poisoned_version:
+            raise AssertionError(f"version after rollback {rolled['version']}"
+                                 f" <= poisoned line {poisoned_version}")
+        if status["last_publish"]["kind"] != "keyframe":
+            raise AssertionError(f"rollback publish {status['last_publish']}")
+        with agents["A"].host._lock:
+            a_version = agents["A"].host.version
+            a_digest = tree_digest(params_to_jax(agents["A"].host.params))
+        decoder = agents["A"].host._wire_decoder
+        if (a_version, a_digest) != (status["published"]["version"],
+                                     status["published"]["digest"]) \
+                or decoder is None \
+                or decoder.keyframes_applied <= keyframes_before:
+            raise AssertionError(
+                f"A at version {a_version} ({a_digest}), keyframes "
+                f"{keyframes_before} -> {decoder.keyframes_applied}; "
+                f"published {status['published']}")
+        # 3. Not halted: a clean epoch after the rollback trains on the
+        # restored line and reaches A. The restored dedup ledger is the
+        # healthy checkpoint's, so the loud wave's seqs are un-seen.
+        wave("A")
+        after = rolled["version"] + 1
+        status = server.wait(
+            lambda s: s["version"] == after
+            and (s.get("published") or {}).get("version") == after
+            and agents["A"].model_version == after,
+            "a clean update after the rollback")
+        guard = status["guardrails"]
+        if (guard["rollbacks_total"] != 1 or guard["halted"]
+                or guard["watchdog"]["trips_total"] != 1):
+            raise AssertionError(f"after the rollback: {guard}")
+        sent_a = agents["A"].spool.sent_counts()
+        for lane in lanes_a:
+            row = status["accounting"]["agents"].get(lane)
+            if row != {"max_seq": sent_a[lane], "accepted": sent_a[lane] - 1,
+                       "contiguous": False}:
+                raise AssertionError(f"{lane} after the rollback: {row}, "
+                                     f"sent {sent_a[lane]}")
+        with agents["A"].host._lock:
+            a_after = tree_digest(params_to_jax(agents["A"].host.params))
+        if a_after != status["published"]["digest"]:
+            raise AssertionError(f"A at version {after}: {a_after} != "
+                                 f"{status['published']}")
+        if not installs or not all(ok for _, _, ok in installs):
+            raise AssertionError(f"installs (agent, version, finite): "
+                                 f"{installs}")
+        if status["stats"]["learner_errors"] or status["probes_disabled"]:
+            raise AssertionError(f"learner errors "
+                                 f"{status['stats']['learner_errors']}, probes "
+                                 f"disabled {status['probes_disabled']}: "
+                                 f"{status['last_learner_error']}")
+        kernels = status["kernels"]
+        server_counts = (kernels["flash_fwd"], kernels["flash_dq"],
+                         kernels["flash_dkv"])
+        updates = GUARD_CLEAN_WAVES + 2
+        if server_counts != tuple(updates * c for c in per_update):
+            raise AssertionError(f"server launches {server_counts} over "
+                                 f"{updates} updates; expected {updates} x "
+                                 f"{per_update}")
+        dispatches = sum(a.host.dispatches - dispatches0[n]
+                         for n, a in agents.items())
+        agent_counts = flash_counts()
+        if agent_counts != ((n_layers - 1) * dispatches, 0, 0):
+            raise AssertionError(f"agent launches {agent_counts} over "
+                                 f"{dispatches} dispatches")
+        return {"transport": GUARD_TRANSPORT, "strikes": strikes,
+                "quarantine": quarantined, "trip": trip,
+                "healthy_step": healthy_step, "rolled_back": rolled,
+                "poisoned_version": poisoned_version, "after": after,
+                "blocked": _counter(status,
+                                    "relayrl_guard_publish_blocked_total"),
+                "installs": len(installs), "server_counts": server_counts,
+                "per_update": per_update, "updates": updates,
+                "agent_counts": agent_counts, "dispatches": dispatches,
+                "waves": dict(waves), "keyframes": (keyframes_before,
+                                                    decoder.keyframes_applied),
+                "seconds": time.perf_counter() - t_start}
+    finally:
+        for agent in agents.values():
             agent.disable_agent()
         server.stop()
 
@@ -2215,33 +2705,104 @@ def main() -> int:
           f"ms and device wait {1e3 * timings['device_wait_s'] / dist['updates']:.2f} ms "
           f"per update; publish bytes keyframe {kinds.get('keyframe')}, delta "
           f"{kinds.get('delta')}; on {smi.splitlines()[0]}", flush=True)
+    prof = dist["profile"]
+    window_ms = prof["timings_ms"]["dispatch_s"]
+    first_ms = 1e3 * timings["dispatch_s"] - window_ms * prof["updates"]
+
+    def read(key):
+        value = prof.get(key)
+        return "not measured" if value is None else f"{value:.2f} ms"
+
+    print(f"[dist] (not gated) server learner over updates 2-"
+          f"{1 + prof['updates']} beside the agent (torch.profiler and the "
+          f"learner thread's CPU clock in the chaos_server process): dispatch "
+          f"{window_ms:.2f} ms per update (the first update {first_ms:.2f} "
+          f"ms), on a CPU {read('learner_cpu_ms')}, waiting for a core "
+          f"{read('learner_runqueue_ms')}, fence "
+          f"{prof['timings_ms']['device_wait_s']:.2f} ms; device busy "
+          f"{read('device_busy_ms')} in {prof['device_operations']:.0f} "
+          f"operations per update; wall {prof['wall_ms']:.2f} ms per update "
+          f"(the agent's waves pace it); on {smi.splitlines()[0]}", flush=True)
+    for key, ms, count in prof["top_kernels"]:
+        print(f"[dist]   {ms:8.4f} ms x{count:<7.1f} {key}")
+
+    # 12. guardrails on the card
+    probes = check_probes(device, learned)
+    cost = probes["cost"]
+
+    def fmt(c):
+        return ("not measured" if c is None else
+                f"{c['busy_ms']:.4f} ms device busy in {c['operations']:.0f} "
+                f"operations (wall {c['wall_ms']:.2f} ms)")
+
+    print(f"[guard] probes are observers: {PROBE_UPDATES} updates from the same "
+          f"params and batches, probes off twice and on once, bit-equal over "
+          f"{probes['tensors']} tensors; launches (flash_fwd, flash_dq, "
+          f"flash_dkv) {probes['counts']} = {PROBE_UPDATES} x "
+          f"{probes['per_update']} with and without; GuardParamNorm "
+          f"{probes['param_norm']:.6g}, GuardUpdateNorm "
+          f"{probes['update_norm']:.6g}", flush=True)
+    alone = cost["probes_alone"]
+    print(f"[guard] per update, probes off: {fmt(cost['off'])}; probes on: "
+          f"{fmt(cost['on'])}; the probe passes alone: {alone['ms']:.4f} ms on "
+          f"the device (CUDA events), {alone['operations']} operations; on "
+          f"{smi.splitlines()[0]}", flush=True)
+    guard = guardrails_drill(device, root, root / "build" / "chip_smoke_guard")
+    q = guard["quarantine"]
+    rolled = guard["rolled_back"]
+    print(f"[guard] chaos_server over {guard['transport']} from the default "
+          f"config; agent B ({GUARD_LANES_B} lanes, nan_poison on every send): "
+          f"{q['rejected']} rejected, {q['quarantines']} lanes quarantined "
+          f"after {guard['strikes']} strikes each, then {q['nacks']} typed "
+          f"quarantine nacks on the wire, {q['discards']} entries discarded by "
+          f"its spool; agent A ({DIST_LANES} lanes) accepted == max_seq == "
+          f"sent over {GUARD_CLEAN_WAVES} clean epochs", flush=True)
+    print(f"[guard] a wave of rewards {DIVERGE_REWARD:g}: watchdog trip "
+          f"{guard['trip']['signal']} (publishes blocked {guard['blocked']:g}), "
+          f"exactly 1 rollback to healthy step {guard['healthy_step']} (params "
+          f"sha256 {rolled['params'][:16]} and Adam steps "
+          f"{rolled['adam_steps']} equal to the checkpoint's), version "
+          f"{rolled['version']} > poisoned line {guard['poisoned_version']}, "
+          f"forced keyframe installed by A sha256-equal (keyframes "
+          f"{guard['keyframes'][0]} -> {guard['keyframes'][1]}); a clean "
+          f"epoch after it trained to version {guard['after']}, not halted; "
+          f"{guard['installs']} installs, all finite; server launches "
+          f"{guard['server_counts']} = {guard['updates']} x "
+          f"{guard['per_update']}, agents' flash_fwd {guard['agent_counts'][0]} "
+          f"= {SLICE_ARCH['n_layers'] - 1} x {guard['dispatches']} dispatches; "
+          f"{guard['seconds']:.1f} s", flush=True)
+    g_fwd, g_dq, g_dkv = guard["server_counts"]
+    ga_fwd = guard["agent_counts"][0]
 
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:116",
-        "launches": run["launches"] + fwd + r_fwd + decode["launches"] + a_fwd + d_fwd,
+        "launches": (run["launches"] + fwd + r_fwd + decode["launches"] + a_fwd + d_fwd
+                     + ga_fwd + g_fwd),
         "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd,
                              "decode_vs_window": decode["launches"],
-                             "distributed_agent": a_fwd, "distributed_server": d_fwd},
+                             "distributed_agent": a_fwd, "distributed_server": d_fwd,
+                             "guardrails_agents": ga_fwd, "guardrails_server": g_fwd},
         **main_flash,
     }, {
         "name": "flash_dq",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:223",
-        "launches": dq + r_dq + d_dq,
-        "launches_by_path": {"learner": dq, "local_loop": r_dq, "distributed_server": d_dq},
+        "launches": dq + r_dq + d_dq + g_dq,
+        "launches_by_path": {"learner": dq, "local_loop": r_dq, "distributed_server": d_dq,
+                             "guardrails_server": g_dq},
         **main_bwd["flash_dq"],
     }, {
         "name": "flash_dkv",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:255",
-        "launches": dkv + r_dkv + d_dkv,
+        "launches": dkv + r_dkv + d_dkv + g_dkv,
         "launches_by_path": {"learner": dkv, "local_loop": r_dkv,
-                             "distributed_server": d_dkv},
+                             "distributed_server": d_dkv, "guardrails_server": g_dkv},
         **main_bwd["flash_dkv"],
     }] + [{
         "name": name,

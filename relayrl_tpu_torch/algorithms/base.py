@@ -9,7 +9,10 @@ ingest finite guard with its drop counter, and the training server's half:
 the in-flight dispatch window (``inflight``), ``dispatched_version``,
 ``force_version``, ``snapshot_for_publish``, ``capture_epoch_stats``,
 ``stage_batch``, ``reset_ingest_buffers``, ``checkpoint_aux`` /
-``restore_aux`` and ``warmup``.
+``restore_aux`` and ``warmup``; and the guardrail probe hooks
+(``_guard_probe_tree``, ``_guard_pre_update``, ``_guard_merge_probes``)
+that ``train_on_batch`` calls around each update once the server's
+guardrails attach :class:`~relayrl_tpu_torch.guardrails.GuardProbes`.
 
 The version is a host-side integer bumped at dispatch, so reading it never
 waits on the device (the JAX package keeps a host mirror of its device
@@ -70,6 +73,18 @@ class AlgorithmBase(abc.ABC):
     # first increment materializes the instance counter.
     dropped_nonfinite = 0
 
+    # The per-algorithm finite guard's enable flag. The guardrail plane
+    # (relayrl_tpu_torch/guardrails) sets it False ONLY in the
+    # observe-only "warn" validation mode: the plane then owns the
+    # boundary, and this belt must stand down or warn mode silently
+    # re-enforces.
+    ingest_finite_guard = True
+
+    # Divergence-watchdog probe source (guardrails/watchdog.GuardProbes),
+    # installed by Guardrails.attach_algorithm; None = no probes, the
+    # dispatch path pays one identity check.
+    _guard_probes = None
+
     # Bounded async-dispatch window (runtime/pipeline.InflightWindow):
     # how many updates may be dispatched-but-unfenced. 0 fences every
     # dispatch.
@@ -83,6 +98,51 @@ class AlgorithmBase(abc.ABC):
         self.dropped_nonfinite += 1
         print(f"[{self.ALGO_NAME}] dropped non-finite trajectory "
               f"(#{self.dropped_nonfinite})", flush=True)
+
+    # -- divergence-watchdog probes (guardrails plane) --
+    def _guard_probe_tree(self):
+        """The param tree the health probes observe: ``state.params``
+        (the on-policy family's one params module), else the whole
+        state."""
+        params = getattr(self.state, "params", None)
+        return params if params is not None else self.state
+
+    def _guard_pre_update(self):
+        """A device copy of the probe target, queued BEFORE the update
+        moves the params in place (the update-norm probe's base). None
+        when probes are off — one identity check. A probe failure
+        DISABLES the probes (logged once) instead of propagating: the
+        guardrail plane must never break the learner it protects."""
+        probes = self._guard_probes
+        if probes is None:
+            return None
+        try:
+            return probes.pre_update(self._guard_probe_tree())
+        except Exception as e:
+            self._guard_probes = None
+            print(f"[guardrails] health probes DISABLED "
+                  f"(pre-update probe failed: {e!r})", flush=True)
+            return None
+
+    def _guard_merge_probes(self, metrics, old_copy) -> Mapping[str, Any]:
+        """Merge the post-update probe scalars (0-d device tensors) into
+        ``metrics``; pass-through when probes are off. The merged dict
+        rides the in-flight window and LazyMetrics exactly like the
+        update's own metrics — read at the fence, never on the dispatch
+        path."""
+        probes = self._guard_probes
+        if probes is None:
+            return metrics
+        merged = dict(metrics)
+        try:
+            merged.update(probes.post_update(old_copy,
+                                             self._guard_probe_tree()))
+        except Exception as e:
+            self._guard_probes = None
+            print(f"[guardrails] health probes DISABLED "
+                  f"(post-update probe failed: {e!r})", flush=True)
+            return metrics
+        return merged
 
     # -- reference contract --
     @abc.abstractmethod

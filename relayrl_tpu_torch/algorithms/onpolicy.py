@@ -179,7 +179,7 @@ class OnPolicyAlgorithm(AlgorithmBase):
                 return None
         elif not item or all(a.act is None for a in item):
             return None
-        if not trajectory_is_finite(item):
+        if self.ingest_finite_guard and not trajectory_is_finite(item):
             self._drop_nonfinite()
             return None
         if self.buffer.add_episode(item):
@@ -190,9 +190,14 @@ class OnPolicyAlgorithm(AlgorithmBase):
         """One update on an assembled batch dict (host arrays or device
         tensors). Returns once the update is queued: its metrics come back
         as a :class:`LazyMetrics`, and the update enters the in-flight
-        window with the CUDA event recorded after it."""
+        window with the CUDA event recorded after it. With guardrail
+        probes attached, the probe target is copied before the update and
+        probed after it; the probe scalars join the metrics (and so the
+        same event and the same one device-to-host read)."""
+        probe_base = self._guard_pre_update()
         self.state, metrics = self._update(self.state,
                                            self._to_device(host_batch))
+        metrics = self._guard_merge_probes(metrics, probe_base)
         self._last_metrics = LazyMetrics(metrics)
         self.inflight.push(self._last_metrics, record_event(self.device))
         return self._last_metrics

@@ -6,26 +6,41 @@ with ``"resume": true``: the checkpoint restores the full train state and
 the ingest-ledger sidecar restores the dedup state consistent with the
 restored params. Run it as::
 
-    python -m relayrl_tpu_torch.examples.chaos_server '<json-config>'
+    python -m relayrl_tpu_torch.examples.chaos_server [--no-guardrails] \
+        '<json-config>'
 
 with keys::
 
     algorithm, obs_dim, act_dim, hyperparams   — TrainingServer ctor
     device           — torch device (default: the GPU)
-    server_type + addr overrides               — transport plane
+    server_type + addr overrides               — transport plane (zmq:
+                       agent_listener_addr, trajectory_addr,
+                       model_pub_addr; grpc: bind_addr)
     scratch          — working dir (config/checkpoints/status live here)
     checkpoint_every — learner.checkpoint_every_epochs
     dedup_window     — learner.ingest_dedup_window
     config           — extra config sections, merged over the defaults
-                       written here (guardrails are always off: the port
-                       does not have them)
+                       written here
     resume           — restore from scratch/checkpoints before serving
     digests          — add the published params' sha256 to the status
     status_path      — JSON status file, atomically rewritten ~3x/s:
                        {pid, t, version, stats, accounting, registered,
-                        kernels, resume, publish_bytes, timings,
-                        telemetry[, published]}
+                        kernels, resume, publish_bytes, last_publish,
+                        timings, guardrails, probes_disabled, telemetry
+                        [, published][, rolled_back]}
     run_s            — optional auto-exit
+    profile          — optional {"after": a, "updates": n, "path": p}: once
+                       the server has made ``a`` updates, profile the next
+                       ``n`` (torch.profiler on the device, the learner
+                       thread's CPU clock and run-queue wait) and write a
+                       JSON summary to ``p`` (see ``profile_learner``)
+
+The training-health guardrails run as the config says (on by default, as
+in the reference); ``--no-guardrails`` turns them off. ``guardrails`` in
+the status is the server's ``guardrails_accounting()``; after each
+rollback, ``rolled_back`` holds the restored train state's fingerprint
+(version, params digest and Adam step counts), read once when the
+rollback count changes.
 
 ``kernels`` holds the flash kernels' launch counts in this process
 (``flash_fwd``, ``flash_dq``, ``flash_dkv``); ``resume`` the restored
@@ -60,9 +75,10 @@ def _merge(base: dict, extra: dict) -> dict:
     return out
 
 
-def write_config(cfg: dict) -> str:
+def write_config(cfg: dict, guardrails: bool = True) -> str:
     """The scratch-local config: pins the checkpoint plane and telemetry so
-    a restarted process resumes from exactly what the dead one wrote."""
+    a restarted process resumes from exactly what the dead one wrote.
+    ``guardrails=False`` (the ``--no-guardrails`` flag) turns them off."""
     scratch = cfg["scratch"]
     os.makedirs(scratch, exist_ok=True)
     config_path = os.path.join(scratch, "chaos_server_config.json")
@@ -76,7 +92,8 @@ def write_config(cfg: dict) -> str:
             "telemetry": {"enabled": True, "port": 0},
         }
         config = _merge(base, cfg.get("config") or {})
-        config = _merge(config, {"guardrails": {"enabled": False}})
+        if not guardrails:
+            config = _merge(config, {"guardrails": {"enabled": False}})
         tmp = f"{config_path}.tmp.{os.getpid()}"
         with open(tmp, "w") as f:
             json.dump(config, f)
@@ -96,16 +113,90 @@ def resume_info(algo) -> dict:
             **train_state_digest(capture_state(algo.state))}
 
 
+def _thread_clocks(thread: threading.Thread) -> dict:
+    """One thread's CPU seconds (its POSIX CPU-time clock) and, where
+    Linux's ``/proc/self/task/<tid>/schedstat`` exists, its seconds spent
+    waiting on a run queue for a core."""
+    out = {}
+    try:
+        out["cpu_s"] = time.clock_gettime(
+            time.pthread_getcpuclockid(thread.ident))
+    except (AttributeError, OSError, TypeError):
+        pass
+    try:
+        with open(f"/proc/self/task/{thread.native_id}/schedstat") as f:
+            out["runqueue_s"] = int(f.read().split()[1]) / 1e9
+    except (OSError, ValueError, IndexError, AttributeError):
+        pass
+    return out
+
+
+def profile_learner(server, after: int, updates: int, path: str,
+                    stop: threading.Event) -> None:
+    """Profile the learner from its ``after``-th update to its
+    ``after + updates``-th, and write per-update numbers to ``path``: the learner thread's wall,
+    CPU and run-queue wait seconds and its ``timings`` deltas (dispatch,
+    fence, idle), and the device busy ms and operations of every kernel
+    this process ran in the window (torch.profiler; CUDA activity is
+    recorded for the whole process). The question it answers: is a
+    learner beside an agent slower on the host (CPU time), in the queue
+    for a core (run-queue wait, where the kernel reports it), or on the
+    device (kernel time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def updates_done():
+        return server.stats["updates"]
+
+    while updates_done() < after and not stop.is_set():
+        time.sleep(0.01)
+    learner = server._learner_thread
+    t0, timings0 = time.monotonic(), dict(server.timings)
+    clocks0 = _thread_clocks(learner)
+    start = updates_done()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        while updates_done() < after + updates and not stop.is_set():
+            time.sleep(0.01)
+        if server.device.type == "cuda":
+            torch.cuda.synchronize(server.device)
+    wall = time.monotonic() - t0
+    done = updates_done() - start
+    clocks1 = _thread_clocks(learner)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    per = max(done, 1)
+    summary = {
+        "updates": done, "wall_ms": 1e3 * wall / per,
+        "timings_ms": {k: 1e3 * (server.timings[k] - timings0.get(k, 0.0))
+                       / per for k in server.timings},
+        "device_busy_ms": (busy_us / 1e3 / per) if busy_us > 0 else None,
+        "device_operations": sum(e.count for e in kernels) / per,
+        "top_kernels": [[e.key[:90], e.self_device_time_total / 1e3 / per,
+                         e.count / per] for e in sorted(
+            kernels, key=lambda e: -e.self_device_time_total)[:8]],
+    }
+    for key, name in (("cpu_s", "learner_cpu_ms"),
+                      ("runqueue_s", "learner_runqueue_ms")):
+        if key in clocks0 and key in clocks1:
+            summary[name] = 1e3 * (clocks1[key] - clocks0[key]) / per
+    _write_status(path, summary)
+
+
 def main(argv=None) -> None:
-    argv = sys.argv[1:] if argv is None else argv
-    cfg = json.loads(argv[0])
-    config_path = write_config(cfg)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    guardrails = "--no-guardrails" not in argv
+    cfg = json.loads([a for a in argv if a != "--no-guardrails"][0])
+    config_path = write_config(cfg, guardrails=guardrails)
 
     from relayrl_tpu_torch import telemetry
     from relayrl_tpu_torch.ops.flash import flash_attention
     from relayrl_tpu_torch.runtime.server import TrainingServer
 
-    addr_keys = ("agent_listener_addr", "trajectory_addr", "model_pub_addr")
+    addr_keys = ("agent_listener_addr", "trajectory_addr", "model_pub_addr",
+                 "bind_addr")
     addrs = {k: cfg[k] for k in addr_keys if k in cfg}
     server = TrainingServer(
         cfg.get("algorithm", "REINFORCE"),
@@ -128,10 +219,15 @@ def main(argv=None) -> None:
     status_path = cfg["status_path"]
     digests = bool(cfg.get("digests", False))
     stop = threading.Event()
+    rolled_back = {"count": 0, "state": None}
 
     def status_loop() -> None:
         while not stop.is_set():
             try:
+                guard = server.guardrails_accounting()
+                if guard.get("rollbacks_total", 0) != rolled_back["count"]:
+                    rolled_back["count"] = guard["rollbacks_total"]
+                    rolled_back["state"] = resume_info(server.algorithm)
                 status = {
                     "pid": os.getpid(),
                     "t": time.time(),
@@ -147,9 +243,20 @@ def main(argv=None) -> None:
                     "resume": resumed,
                     "publish_bytes": {k: list(v) for k, v in
                                       server.publish_bytes.items()},
+                    "last_publish": server.last_publish,
                     "timings": dict(server.timings),
+                    "guardrails": guard,
+                    # 1 when the probes disabled themselves after a
+                    # failure (the guardrails attach them when enabled).
+                    "probes_disabled": int(
+                        server.guardrails is not None
+                        and server.guardrails.params["probes"]
+                        and server.guardrails.watchdog is not None
+                        and server.algorithm._guard_probes is None),
                     "telemetry": telemetry.get_registry().snapshot(),
                 }
+                if rolled_back["state"] is not None:
+                    status["rolled_back"] = rolled_back["state"]
                 if digests:
                     got = server.published_digest()
                     status["published"] = (None if got is None else
@@ -163,6 +270,13 @@ def main(argv=None) -> None:
 
     t = threading.Thread(target=status_loop, daemon=True)
     t.start()
+    if cfg.get("profile"):
+        prof_cfg = cfg["profile"]
+        threading.Thread(
+            target=profile_learner, daemon=True,
+            args=(server, int(prof_cfg.get("after", 1)),
+                  int(prof_cfg.get("updates", 1)), prof_cfg["path"],
+                  stop)).start()
     print(f"[chaos-server] serving (pid={os.getpid()}, "
           f"resume={cfg.get('resume', False)}, device={server.device})",
           flush=True)

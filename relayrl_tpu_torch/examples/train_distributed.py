@@ -1,7 +1,7 @@
 """The full distributed loop on the port: TrainingServer + N actor processes.
 
-Twin of ``examples/train_distributed.py`` (REINFORCE over ZMQ), plus
-``--device``: the server and every actor run on the GPU unless ``--device
+Twin of ``examples/train_distributed.py`` (REINFORCE over ZMQ or gRPC),
+plus ``--device``: the server and every actor run on the GPU unless ``--device
 cpu``. Actors are OS processes started with the ``spawn`` context (never a
 fork after CUDA is up), each with its own policy copy, streaming
 trajectories to the one server and hot-swapping on every publish::
@@ -12,9 +12,12 @@ trajectories to the one server and hot-swapping on every publish::
 
 ``--target`` stops an actor once the rolling 50-episode average of its
 returns reaches the bar; the driver then prints the update (model version)
-at which each actor crossed it and the env steps per second. The run's
-config (``guardrails.enabled: false`` — the port has no guardrails — and
-the logs) lives in ``--run-dir`` (default: a fresh temporary directory).
+at which each actor crossed it and the env steps per second. The server
+runs the reference's default config, training-health guardrails on
+(ingest validation, quarantine, the divergence watchdog and rollback);
+``--no-guardrails`` writes ``guardrails.enabled: false`` into the run's
+config. The config and the logs live in ``--run-dir`` (default: a fresh
+temporary directory).
 """
 
 from __future__ import annotations
@@ -81,7 +84,7 @@ def main(argv=None):
     ap.add_argument("--env", default="cartpole", choices=sorted(_ENV_IDS))
     ap.add_argument("--transport", default="zmq",
                     choices=["zmq", "grpc", "native"],
-                    help="the port speaks zmq; grpc and native raise "
+                    help="the port speaks zmq and grpc; native raises "
                          "NotImplementedError")
     ap.add_argument("--actors", type=int, default=1)
     ap.add_argument("--episodes", type=int, default=200,
@@ -97,6 +100,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device for the server and the actors "
                          "(default: the GPU)")
+    ap.add_argument("--no-guardrails", action="store_true",
+                    help="turn the server's training-health guardrails "
+                         "off (the default config has them on)")
     ap.add_argument("--run-dir", default=None,
                     help="config, logs and checkpoints (default: a fresh "
                          "temporary directory)")
@@ -108,18 +114,23 @@ def main(argv=None):
     os.makedirs(run_dir, exist_ok=True)
     config_path = os.path.join(run_dir, "relayrl_config.json")
     with open(config_path, "w") as f:
-        json.dump({"guardrails": {"enabled": False}}, f)
+        json.dump({"guardrails": {"enabled": False}}
+                  if args.no_guardrails else {}, f)
 
-    server_addrs = {
-        "agent_listener_addr": f"tcp://127.0.0.1:{free_port()}",
-        "trajectory_addr": f"tcp://127.0.0.1:{free_port()}",
-        "model_pub_addr": f"tcp://127.0.0.1:{free_port()}",
-    }
-    agent_addrs = {
-        "agent_listener_addr": server_addrs["agent_listener_addr"],
-        "trajectory_addr": server_addrs["trajectory_addr"],
-        "model_sub_addr": server_addrs["model_pub_addr"],
-    }
+    if args.transport == "grpc":
+        server_addrs = {"bind_addr": f"127.0.0.1:{free_port()}"}
+        agent_addrs = {"server_addr": server_addrs["bind_addr"]}
+    else:
+        server_addrs = {
+            "agent_listener_addr": f"tcp://127.0.0.1:{free_port()}",
+            "trajectory_addr": f"tcp://127.0.0.1:{free_port()}",
+            "model_pub_addr": f"tcp://127.0.0.1:{free_port()}",
+        }
+        agent_addrs = {
+            "agent_listener_addr": server_addrs["agent_listener_addr"],
+            "trajectory_addr": server_addrs["trajectory_addr"],
+            "model_sub_addr": server_addrs["model_pub_addr"],
+        }
     hp: dict = {}
     if args.algo.upper() == "REINFORCE":
         hp["with_vf_baseline"] = args.baseline

@@ -1,0 +1,186 @@
+"""Training-health guardrails: the learning plane's immune system.
+
+Counterpart of :mod:`relayrl_tpu.guardrails` (this module, validate.py,
+quarantine.py and admission.py are copies; watchdog.py's probes are
+written in torch). The delivery plane makes trajectories arrive exactly
+once; this package guards the *learning* plane against the failures
+delivery correctness cannot see — poisoned data, diverging optimization,
+and ingest overload. Four cooperating pieces, all wired through
+:class:`~relayrl_tpu_torch.runtime.server.TrainingServer` (config section
+``guardrails.*``, docs/operations.md "Training-health guardrails"):
+
+* **Ingest validation** (validate.py) — schema/dtype/shape/length/
+  finiteness checks on every decoded trajectory before it touches the
+  staging slabs; columnar-aware so the common case is a few vectorized
+  numpy passes.
+* **Quarantine** (quarantine.py) — per-agent strike accounting that
+  isolates a poison-*emitting* agent (typed nack where the transport
+  can answer, server-side shed elsewhere) with auto-parole.
+* **Divergence watchdog** (watchdog.py) — device-side finite/param-norm/
+  update-norm probes resolved lazily at the in-flight fence plus
+  loss-spike and reward-collapse rolling detectors. Probes are
+  observers: guardrails-on params are bit-identical to guardrails-off.
+* **Backpressure** (admission.py) — soft-bounded admission with a
+  per-agent-fair shed policy (drop-oldest or nack-with-retry-after).
+
+The watchdog's trips drive the server's last-known-good auto-rollback
+(checkpoint ring tagged healthy-at-save, ledger-sidecar-consistent
+restore, forced model-wire keyframe) — see TrainingServer._execute_
+rollback and the runbook.
+
+``build_guardrails(config)`` returns None when ``guardrails.enabled``
+is false: every hook site then holds a None and costs one identity
+check, the telemetry/faults process-model precedent.
+"""
+
+from __future__ import annotations
+
+from relayrl_tpu_torch.guardrails.admission import (  # noqa: F401
+    SHED_POLICIES,
+    AdmissionController,
+)
+from relayrl_tpu_torch.guardrails.quarantine import QuarantineBook  # noqa: F401
+from relayrl_tpu_torch.guardrails.validate import (  # noqa: F401
+    params_tree_finite,
+    trajectory_reward,
+    validate_trajectory,
+)
+from relayrl_tpu_torch.guardrails.watchdog import (  # noqa: F401
+    DivergenceWatchdog,
+    GuardProbes,
+    Trip,
+)
+
+VALIDATION_MODES = ("enforce", "warn", "off")
+
+
+class Guardrails:
+    """The assembled guardrail set one TrainingServer owns."""
+
+    def __init__(self, params: dict):
+        from relayrl_tpu_torch import telemetry
+
+        self.params = dict(params)
+        self.validation_mode = self.params["ingest_validation"]
+        self.max_steps = int(self.params.get("max_steps") or 0)
+        self.quarantine = QuarantineBook(
+            strike_threshold=self.params["strike_threshold"],
+            strike_window_s=self.params["strike_window_s"],
+            cooldown_s=self.params["quarantine_cooldown_s"])
+        self.watchdog = None
+        if self.params["watchdog"]:
+            self.watchdog = DivergenceWatchdog(
+                max_param_norm=self.params["max_param_norm"],
+                max_update_norm=self.params["max_update_norm"],
+                loss_spike_factor=self.params["loss_spike_factor"],
+                loss_window=self.params["loss_window"],
+                loss_key=self.params["loss_key"],
+                reward_collapse_drop=self.params["reward_collapse_drop"],
+                reward_window=self.params["reward_window"])
+        self.admission = None
+        if int(self.params["ingest_soft_limit"]) > 0:
+            self.admission = AdmissionController(
+                soft_limit=self.params["ingest_soft_limit"],
+                policy=self.params["shed_policy"],
+                agent_share=self.params["agent_share"],
+                retry_after_s=self.params["nack_retry_after_s"])
+        reg = telemetry.get_registry()
+        self._m_rejected = {}
+        self._reg = reg
+        self._m_publish_blocked = reg.counter(
+            "relayrl_guard_publish_blocked_total",
+            "model publishes refused because host params were non-finite")
+        self._m_rollbacks = reg.counter(
+            "relayrl_guard_rollbacks_total",
+            "last-known-good auto-rollbacks executed")
+        self._m_halted = reg.gauge(
+            "relayrl_guard_halted",
+            "1 when guardrails halted training (rollback budget spent)")
+        self._m_halted.set(0)
+        self._m_halted_drops = reg.counter(
+            "relayrl_guard_halted_drops_total",
+            "trajectories ignored while halted")
+
+    # -- validation funnel (server ingest paths) --
+    def count_reject(self, reason: str) -> None:
+        metric = self._m_rejected.get(reason)
+        if metric is None:
+            metric = self._reg.counter(
+                "relayrl_guard_rejected_total",
+                "trajectories rejected by ingest validation",
+                {"reason": reason})
+            self._m_rejected[reason] = metric
+        metric.inc()
+
+    def _feed_reward(self, item) -> None:
+        """Reward feed for the collapse detector — every admitted
+        trajectory, in every validation mode: "off" stands down the
+        validator and strikes, NOT a detector the operator armed."""
+        if (self.watchdog is not None
+                and self.watchdog.reward_collapse_drop > 0):
+            reward = trajectory_reward(item)
+            if reward is not None:
+                self.watchdog.observe_reward(reward)
+
+    def validate(self, agent_id: str, item):
+        """Run one decoded trajectory through validation + strikes.
+        Returns the item when it should continue into the learner plane
+        (clean, or rejected-but-warn-mode), else None."""
+        if self.validation_mode == "off":
+            self._feed_reward(item)
+            return item
+        reason = validate_trajectory(item, self.max_steps)
+        if reason is None:
+            self._feed_reward(item)
+            return item
+        self.count_reject(reason)
+        self.quarantine.strike(agent_id, reason)
+        if self.validation_mode == "warn":
+            # Observe-only posture: strikes and counters accrue (the
+            # quarantine still engages) but the item trains — the
+            # defense-in-depth drill's deliberately-torn first layer.
+            return item
+        return None
+
+    def attach_algorithm(self, algo) -> None:
+        """Install the device probes and align the per-algorithm finite
+        guard with the configured validation mode (in ``warn`` mode the
+        algorithm's own drop-nonfinite belt must stand down, or the
+        observe-only posture silently re-enforces)."""
+        if self.watchdog is not None and self.params["probes"]:
+            algo._guard_probes = GuardProbes(
+                update_norm=self.params["update_norm_probe"])
+        if self.validation_mode == "warn":
+            algo.ingest_finite_guard = False
+
+    def accounting(self) -> dict:
+        """The drill/bench evidence block (rides chaos rows)."""
+        out = {
+            "validation_mode": self.validation_mode,
+            "quarantine": self.quarantine.accounting(),
+        }
+        if self.watchdog is not None:
+            out["watchdog"] = self.watchdog.accounting()
+        if self.admission is not None:
+            out["admission"] = self.admission.accounting()
+        return out
+
+
+def build_guardrails(config) -> Guardrails | None:
+    """Guardrails from a ConfigLoader (None when disabled)."""
+    params = config.get_guardrails_params()
+    if not params["enabled"]:
+        return None
+    if params.get("max_steps") is None:
+        # null derives from max_traj_length; an explicit 0 stays 0 —
+        # the documented "length bound disabled" opt-out.
+        params["max_steps"] = config.get_max_traj_length()
+    return Guardrails(params)
+
+
+__all__ = [
+    "Guardrails", "build_guardrails", "VALIDATION_MODES",
+    "AdmissionController", "QuarantineBook", "DivergenceWatchdog",
+    "GuardProbes", "Trip", "validate_trajectory", "trajectory_reward",
+    "params_tree_finite", "SHED_POLICIES",
+]

@@ -1,0 +1,143 @@
+"""Per-agent strike accounting and poison-agent quarantine.
+
+A single bad trajectory is data (dropped, counted); a *stream* of them is
+an agent — buggy preprocessing, a corrupted host, or a hostile client.
+The :class:`QuarantineBook` turns repeated validation rejections into a
+per-agent lifecycle:
+
+    clean → (``strike_threshold`` strikes within ``strike_window_s``) →
+    quarantined (sends rejected with a typed nack where the transport
+    has a back-channel; silently shed on broadcast planes) →
+    (``cooldown_s`` elapses) → paroled → clean
+
+Strikes age out of the sliding window, so a one-off glitch never
+accumulates into a quarantine across hours; parole is lazy (evaluated on
+the next contact with the agent) so the book needs no timer thread.
+Every transition lands in telemetry and the run journal
+(``agent_quarantined`` / ``agent_paroled`` events — the runbook's
+greppable breadcrumbs, docs/operations.md).
+
+A copy of :mod:`relayrl_tpu.guardrails.quarantine`.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+
+class QuarantineBook:
+    """Thread-safe strike book + quarantine set (transport threads hit
+    this from every ingest path)."""
+
+    def __init__(self, strike_threshold: int = 3,
+                 strike_window_s: float = 60.0,
+                 cooldown_s: float = 300.0):
+        from relayrl_tpu_torch import telemetry
+
+        self.strike_threshold = max(1, int(strike_threshold))
+        self.strike_window_s = float(strike_window_s)
+        self.cooldown_s = float(cooldown_s)
+        self._lock = threading.Lock()
+        self._strikes: dict[str, list[float]] = {}   # agent -> strike times
+        self._quarantined: dict[str, float] = {}     # agent -> parole time
+        self.quarantines_total = 0
+        self.paroles_total = 0
+        reg = telemetry.get_registry()
+        self._m_strikes = reg.counter(
+            "relayrl_guard_strikes_total",
+            "validation strikes recorded against agents")
+        self._m_quarantines = reg.counter(
+            "relayrl_guard_quarantines_total",
+            "agents placed in quarantine (transitions, not population)")
+        self._m_paroles = reg.counter(
+            "relayrl_guard_paroles_total",
+            "agents released from quarantine after cooldown")
+        self._m_population = reg.gauge(
+            "relayrl_guard_quarantined_agents",
+            "agents currently quarantined")
+        self._m_rejected_sends = reg.counter(
+            "relayrl_guard_quarantine_rejects_total",
+            "sends rejected because the agent is quarantined")
+
+    # -- lifecycle --
+    def strike(self, agent_id: str, reason: str) -> bool:
+        """Record one validation strike; True when THIS strike pushed the
+        agent into quarantine (the caller's event hook already fired)."""
+        now = time.monotonic()
+        with self._lock:
+            if agent_id in self._quarantined:
+                return False  # already out — strikes don't stack inside
+            window = self._strikes.setdefault(agent_id, [])
+            floor = now - self.strike_window_s
+            window[:] = [t for t in window if t > floor]
+            window.append(now)
+            n = len(window)
+            quarantine = n >= self.strike_threshold
+            if quarantine:
+                self._quarantined[agent_id] = now + self.cooldown_s
+                del self._strikes[agent_id]
+                self.quarantines_total += 1
+                population = len(self._quarantined)
+        self._m_strikes.inc()
+        if quarantine:
+            from relayrl_tpu_torch import telemetry
+
+            self._m_quarantines.inc()
+            self._m_population.set(population)
+            telemetry.emit("agent_quarantined", agent_id=agent_id,
+                           strikes=n, reason=reason,
+                           cooldown_s=self.cooldown_s)
+            print(f"[guardrails] agent {agent_id!r} QUARANTINED after "
+                  f"{n} strike(s) ({reason}); parole in "
+                  f"{self.cooldown_s:.0f}s", flush=True)
+        return quarantine
+
+    def is_quarantined(self, agent_id: str) -> bool:
+        """Quarantine check with lazy parole: an expired cooldown releases
+        the agent on this call (event + counters), so no timer thread."""
+        now = time.monotonic()
+        with self._lock:
+            until = self._quarantined.get(agent_id)
+            if until is None:
+                return False
+            if now < until:
+                return True
+            del self._quarantined[agent_id]
+            self.paroles_total += 1
+            population = len(self._quarantined)
+        from relayrl_tpu_torch import telemetry
+
+        self._m_paroles.inc()
+        self._m_population.set(population)
+        telemetry.emit("agent_paroled", agent_id=agent_id)
+        print(f"[guardrails] agent {agent_id!r} paroled", flush=True)
+        return False
+
+    def count_rejected_send(self) -> None:
+        """One send rejected because of quarantine (the counter the
+        typed-nack path and the server-side shed path share). Named
+        apart from ``Guardrails.count_reject(reason)`` — the
+        validation-rejection counter — so the two can't be miswired."""
+        self._m_rejected_sends.inc()
+
+    def retry_after(self, agent_id: str) -> float:
+        """Seconds until parole (0 when not quarantined) — rides the
+        typed nack so well-behaved clients can stop hammering."""
+        with self._lock:
+            until = self._quarantined.get(agent_id)
+        return max(0.0, until - time.monotonic()) if until else 0.0
+
+    # -- accounting (bench rows / drills) --
+    def accounting(self) -> dict:
+        with self._lock:
+            return {
+                "quarantined": sorted(self._quarantined),
+                "quarantines_total": self.quarantines_total,
+                "paroles_total": self.paroles_total,
+                "strikes_pending": {a: len(ts)
+                                    for a, ts in self._strikes.items()},
+            }
+
+
+__all__ = ["QuarantineBook"]

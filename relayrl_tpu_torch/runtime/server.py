@@ -12,6 +12,19 @@ SequenceLedger`), and the ledger is saved beside every checkpoint, so a
 resumed server dedups exactly what its restored params already trained
 on.
 
+The training-health guardrails (:mod:`relayrl_tpu_torch.guardrails`, on
+by default as in the reference) sit on every path: ingest sheds a halted
+server's and a quarantined agent's sends, then applies admission
+backpressure; the staging thread validates each decoded trajectory and
+strikes its agent; an ack-capable transport (gRPC) asks
+:meth:`TrainingServer._check_ingest` first and answers a refused send
+with a typed nack. The device probes ride each update's metrics; the
+learner thread resolves them at the in-flight fence, and a watchdog trip
+rolls the learner back to the newest healthy-tagged checkpoint (params
+and Adam state restored in place, the version fast-forwarded, a forced
+keyframe published), or halts when the rollback budget is spent. The
+publish gate keeps non-finite params off the wire.
+
 The ctor takes the JAX server's arguments plus ``device`` (default: the
 GPU; without one the caller must pass ``device="cpu"``). On the GPU every
 kernel library is built and loaded in the constructor, before any thread
@@ -19,12 +32,11 @@ starts, so a kernel that fails to build fails the construction instead of
 the learner thread. The learner thread still never dies on one bad batch;
 every exception it catches is counted in ``stats["learner_errors"]``.
 
-Four parts of the JAX server are not ported; the constructor raises
-:class:`NotImplementedError` when the config turns one on: guardrails
-(``guardrails.enabled``, true by default, so configs for this server say
-false; ``ROADMAP.md`` queue 1 item 10), the serving plane (item 9),
-distributed tracing and fleet aggregation (item 12) and multi-host (item
-11). ``server_type`` "grpc" and "native" raise too (item 4).
+Three parts of the JAX server are not ported; the constructor raises
+:class:`NotImplementedError` when the config turns one on: the serving
+plane (``ROADMAP.md`` queue 1 item 9), distributed tracing and fleet
+aggregation (item 12) and multi-host (item 11). ``server_type`` "native"
+raises too (item 4), as does the tensorboard writer (item 12).
 """
 
 from __future__ import annotations
@@ -100,10 +112,6 @@ class _EventCoalescer:
 def _refuse_unported(config: ConfigLoader, serving, tensorboard) -> None:
     """Raise for every JAX-server feature the config turns on that the
     port does not have."""
-    if config.get_guardrails_params().get("enabled"):
-        raise NotImplementedError(
-            "guardrails are not ported (ROADMAP.md queue 1 item 10); set "
-            "guardrails.enabled to false in the config")
     serving_on = (config.get_serving_params().get("enabled")
                   if serving is None else bool(serving))
     if serving_on:
@@ -158,7 +166,7 @@ class TrainingServer:
         from relayrl_tpu_torch import transport as _transport
 
         self.config = ConfigLoader(algorithm_name, config_path)
-        _transport._resolve(server_type)  # grpc/native refuse before any work
+        _transport._resolve(server_type)  # native refuses before any work
         _refuse_unported(self.config, serving, tensorboard)
         self.server_type = server_type
         self._addr_overrides = addr_overrides
@@ -225,6 +233,20 @@ class TrainingServer:
         self._fault_ingest = faults.site("server.ingest")
         self._fault_publish = faults.site("server.publish")
 
+        # Training-health guardrails: ingest validation + quarantine,
+        # divergence watchdog, last-known-good rollback, and ingest
+        # backpressure. None when guardrails.enabled is false — every hook
+        # site below then costs one identity check.
+        from relayrl_tpu_torch.guardrails import build_guardrails
+
+        self.guardrails = build_guardrails(self.config)
+        # Rollback bookkeeping (learner thread only): times of executed
+        # rollbacks inside the budget window, and the halt latch (halted:
+        # ingest sheds, training stops, the process stays up).
+        self._rollback_times: list[float] = []
+        self._rollbacks_total = 0
+        self._halted = False
+
         if self.device.type == "cuda":
             # Every kernel library built and loaded here, on the calling
             # thread: a kernel that fails to build fails construction,
@@ -254,6 +276,11 @@ class TrainingServer:
             device=self.device,
             **hp,
         )
+        if self.guardrails is not None:
+            # Installs the device probes (observers: params stay
+            # bit-identical to guardrails-off) and aligns the algorithm's
+            # finite guard with the validation mode.
+            self.guardrails.attach_algorithm(self.algorithm)
 
         learner_cfg = self.config.get_learner_params()
         from relayrl_tpu_torch.algorithms.base import anchor_path
@@ -269,6 +296,12 @@ class TrainingServer:
             1, int(learner_cfg.get("checkpoint_aux_every", 1)))
         self._ckpt_keep = max(CheckpointManager.DEFAULT_MAX_TO_KEEP,
                               self._aux_every)
+        if self.guardrails is not None and self.guardrails.params["rollback"]:
+            # The last-known-good ring: retain at least checkpoint_ring
+            # steps, so the rollback search has healthy-tagged candidates
+            # even when the newest saves straddled the divergence.
+            self._ckpt_keep = max(self._ckpt_keep,
+                                  self.guardrails.params["checkpoint_ring"])
         self._ckpt_saves = 0
 
         from relayrl_tpu_torch.runtime.spool import SequenceLedger
@@ -400,6 +433,18 @@ class TrainingServer:
         self.transport.on_register = self._on_register
         self.transport.on_unregister = self._on_unregister
         self.transport.on_resync = self._on_resync_request
+        if self.guardrails is not None:
+            # Ack-capable transports (gRPC) answer a refused send with a
+            # typed nack (quarantine / overload) instead of a silent
+            # server-side shed — see _check_ingest.
+            self.transport.check_ingest = self._check_ingest
+        if self._wire_encoder is not None:
+            # Pull transports (gRPC long-polls) choose delta-vs-full per
+            # subscriber through this surface; the version probe keeps
+            # their wakeup checks from forcing lazy serializes.
+            self.transport.get_model_update = self._get_model_update
+            self.transport.get_model_version = (
+                lambda: self.latest_model_version)
 
     def _install_signal_handlers(self) -> None:
         """Opt-in SIGTERM/SIGINT handling: write a final full-state
@@ -510,6 +555,47 @@ class TrainingServer:
             return
         self._ingest_one(agent_id, payload)
 
+    def _check_ingest(self, tagged_id: str):
+        """Guardrail admission verdict for ack-capable transports (the
+        gRPC servicer calls this BEFORE on_trajectory): ``None`` admits;
+        ``(nack_code, reason, retry_after_s)`` goes back to the sender as
+        a typed nack its spool understands (quarantine → discard the
+        entry; overload → keep it, replay later). Broadcast planes never
+        call this; _ingest_one enforces the same verdicts server-side.
+        Runs on transport threads."""
+        g = self.guardrails
+        if g is None:
+            return None
+        from relayrl_tpu_torch.transport.base import (
+            NACK_OVERLOADED,
+            NACK_QUARANTINED,
+            split_agent_trace,
+        )
+
+        agent_id, _ = split_agent_seq(tagged_id)
+        agent_id, _ = split_agent_trace(agent_id)
+        if self._halted:
+            # Not counted as a halted drop: the sender's spool retains an
+            # overload-nacked entry and replays it.
+            return (NACK_OVERLOADED, "guardrails halted", 30.0)
+        if g.quarantine.is_quarantined(agent_id):
+            g.quarantine.count_rejected_send()
+            return (NACK_QUARANTINED, "agent quarantined",
+                    g.quarantine.retry_after(agent_id))
+        adm = g.admission
+        if adm is not None and adm.policy == "nack":
+            # Under the nack shed policy the back-channel IS the shed:
+            # decide here so the sender's spool keeps the entry and
+            # retries after the hint (admit() only moves shed counters,
+            # so an "admit" here followed by _ingest_one's re-check is
+            # harmless).
+            verdict = adm.admit(agent_id)
+            if verdict in ("nack", "shed_agent"):
+                reason = ("agent over fair share"
+                          if verdict == "shed_agent" else "ingest overloaded")
+                return (NACK_OVERLOADED, reason, adm.retry_after_s)
+        return None
+
     def _ingest_one(self, agent_id: str, payload: bytes,
                     depth: int = 0) -> None:
         if is_snapshot_frame(payload):
@@ -537,11 +623,46 @@ class TrainingServer:
         agent_id, seq, admit = self._admit_seq(agent_id)
         if not admit:
             return
+        g = self.guardrails
+        if g is not None:
+            if self._halted:
+                g._m_halted_drops.inc()
+                self._retract(agent_id, seq)
+                return
+            if g.quarantine.is_quarantined(agent_id):
+                # Broadcast planes (zmq PUSH) have no per-send
+                # back-channel: the quarantine sheds here, silently to the
+                # sender, loudly to telemetry.
+                g.quarantine.count_rejected_send()
+                self._retract(agent_id, seq)
+                return
+            if g.admission is not None:
+                verdict = g.admission.admit(agent_id)
+                if verdict in ("shed_agent", "nack"):
+                    self._retract(agent_id, seq)
+                    return
+                if verdict == "evict":
+                    self._evict_oldest_raw()
         try:
             self._ingest.put_nowait((agent_id, seq, payload))
+            if g is not None and g.admission is not None:
+                g.admission.note_enqueued(agent_id)
         except queue.Full:
             self._retract(agent_id, seq)
             self._count_dropped()
+
+    def _evict_oldest_raw(self) -> None:
+        """drop_oldest shed: evict the globally oldest queued raw payload
+        to admit a fresh one (freshest data wins). The victim's seq is
+        retracted from the dedup ledger, so its actor's spool can
+        redeliver it when pressure clears."""
+        try:
+            victim_id, victim_seq, _ = self._ingest.get_nowait()
+        except queue.Empty:
+            return
+        self._ingest.task_done()
+        self._retract(victim_id, victim_seq)
+        self.guardrails.admission.note_dequeued(victim_id)
 
     def _get_model(self) -> tuple[int, bytes]:
         """Current full model as v1 bundle bytes (handshakes, artifact
@@ -561,6 +682,17 @@ class TrainingServer:
                 self._bundle_bytes = raw
                 self._bundle_version = ver
             return self._bundle_version, self._bundle_bytes
+
+    def _get_model_update(self, known_version: int) -> tuple[int, bytes]:
+        """Freshest blob a subscriber at ``known_version`` can decode (the
+        pull plane's surface): the latest wire frame when its base
+        matches (or it is a keyframe), else the full v1 bundle."""
+        enc = self._wire_encoder
+        if enc is not None:
+            got = enc.frame_for(known_version)
+            if got is not None:
+                return got
+        return self._get_model()
 
     def _on_resync_request(self, held_version: int = -1) -> None:
         """CMD_RESYNC from the broadcast plane: force the next publish to
@@ -632,11 +764,14 @@ class TrainingServer:
             parse_frame,
         )
 
+        guard = self.guardrails
         while not self._stop.is_set():
             try:
                 agent_id, seq, payload = self._ingest.get(timeout=0.1)
             except queue.Empty:
                 continue
+            if guard is not None and guard.admission is not None:
+                guard.admission.note_dequeued(agent_id)
             item = None
             columnar = False
             t0 = time.monotonic()
@@ -662,6 +797,20 @@ class TrainingServer:
                     self._m_columnar_rejects.inc()
                 self._retract(agent_id, seq)
                 self._count_dropped()
+            if item is not None and guard is not None:
+                # Ingest validation + per-agent strikes: the semantic
+                # trust boundary, before the decoded item can reach the
+                # learner (None = rejected: counted, struck, never
+                # trained). Coalesced batches validate per trajectory, so
+                # one poisoned segment does not veto its clean siblings.
+                if (isinstance(item, list) and item
+                        and isinstance(item[0], DecodedTrajectory)):
+                    item = [one for one in item
+                            if guard.validate(agent_id, one) is not None]
+                    if not item:
+                        item = None
+                else:
+                    item = guard.validate(agent_id, item)
             dt = time.monotonic() - t0
             self._m_decode.observe(dt)
             with self._timings_lock:
@@ -703,10 +852,20 @@ class TrainingServer:
             except queue.Empty:
                 self.timings["learner_idle_s"] += time.monotonic() - t_wait
                 # Idle is fence-for-free: nothing is queued behind the
-                # in-flight updates.
+                # in-flight updates. Everything dispatched is then
+                # fenced, so every pending health probe resolves here.
                 self._pipeline_quiesce()
+                self._guard_poll()
                 continue
             self.timings["learner_idle_s"] += time.monotonic() - t_wait
+            if self._halted:
+                # Halted (rollback budget spent / no healthy checkpoint):
+                # training is stopped; drain and drop so the queues don't
+                # grow while the operator digs.
+                self.guardrails._m_halted_drops.inc(
+                    len(item) if isinstance(item, list) else 1)
+                self._decoded.task_done()
+                continue
             t0 = time.monotonic()
             try:
                 if (isinstance(item, list) and item
@@ -718,7 +877,11 @@ class TrainingServer:
             finally:
                 self.timings["learn_s"] += time.monotonic() - t0
                 self._decoded.task_done()
+        # Shutdown: fence what was dispatched, then resolve its probes,
+        # so the signal path's final save is tagged by every update baked
+        # into it (a poisoned last update trips here, never tags healthy).
         self._pipeline_quiesce()
+        self._guard_poll()
 
     def _count_learner_error(self, exc: Exception, where: str) -> None:
         """The learner thread survives one bad batch, but never silently:
@@ -758,6 +921,13 @@ class TrainingServer:
             return
         finally:
             self._sync_drop_stats()
+        if (updated and self.guardrails is not None
+                and self.guardrails.watchdog is not None):
+            # Queue the dispatched update's lazy metrics, probe scalars
+            # included, for the watchdog; they resolve at the in-flight
+            # fence, never here.
+            self.guardrails.watchdog.observe_dispatch(
+                algo.inflight.dispatch_count, algo._last_metrics)
         payload = algo.capture_epoch_stats(updated)
         if payload is not None:
             self._pending_logs.append(
@@ -778,6 +948,7 @@ class TrainingServer:
                 self.stats["publish_errors"] += 1
                 print(f"[TrainingServer] publish error: {e!r}", flush=True)
         self._flush_ready_logs()
+        self._guard_poll()
 
     def _process_one_legacy(self, item) -> None:
         """Plugin algorithms with only the reference contract: train and
@@ -825,6 +996,139 @@ class TrainingServer:
             win.drain()
         if self._pending_logs:
             self._flush_ready_logs(force=True)
+
+    # -- divergence watchdog + last-known-good rollback (learner thread) --
+    def _guard_poll(self) -> bool:
+        """Resolve fenced health probes and run the watchdog's detectors;
+        a trip executes the rollback (or the halt). True when a trip
+        fired — a checkpoint gated on health skips its save then."""
+        g = self.guardrails
+        if g is None or g.watchdog is None or self._halted:
+            return False
+        win = getattr(self.algorithm, "_inflight", None)
+        fenced = win.fenced_count if win is not None else 0
+        trip = g.watchdog.poll(fenced)
+        if trip is None:
+            return False
+        self._execute_rollback(trip)
+        return True
+
+    def _execute_rollback(self, trip) -> None:
+        """The watchdog tripped: fence everything in flight, restore the
+        newest healthy-tagged checkpoint (params and Adam state, in place)
+        and its dedup-ledger sidecar, fast-forward the version past the
+        poisoned line, force a model-wire keyframe, publish the restored
+        params, and resume. More than ``max_rollbacks`` inside
+        ``rollback_window_s`` (or no healthy checkpoint) halts instead.
+        Learner thread only: nothing else dispatches while this runs."""
+        from relayrl_tpu_torch import telemetry
+
+        g = self.guardrails
+        # 1. Halt dispatch: drain the in-flight window (its CUDA events
+        # fence every update the restore is about to overwrite), drop the
+        # deferred logs (the rolled-back line's), and let the publisher
+        # finish so no poisoned-line publish races the restored one.
+        win = getattr(self.algorithm, "_inflight", None)
+        if win is not None and win.pending:
+            win.drain()
+        self._pending_logs.clear()
+        if self._publisher is not None:
+            self._publisher.drain(timeout=30.0)
+        if not g.params["rollback"] or not self._checkpoint_dir:
+            self._enter_halt(trip, "rollback disabled")
+            return
+        now = time.monotonic()
+        window = g.params["rollback_window_s"]
+        self._rollback_times = [t for t in self._rollback_times
+                                if now - t < window]
+        if len(self._rollback_times) >= g.params["max_rollbacks"]:
+            self._enter_halt(trip, "rollback budget spent")
+            return
+        self._rollback_times.append(now)
+        # The poisoned line's newest version, dispatched or published.
+        poisoned_version = max(self.latest_model_version,
+                               int(self.algorithm.dispatched_version))
+        # 2. Restore the newest healthy step.
+        try:
+            from relayrl_tpu_torch.checkpoint import restore_latest_healthy
+
+            step = restore_latest_healthy(self.algorithm,
+                                          self._checkpoint_dir)
+        except FileNotFoundError:
+            self._enter_halt(trip, "no healthy checkpoint retained")
+            return
+        except Exception as e:
+            self._enter_halt(trip, f"restore failed: {e!r}")
+            return
+        # 3. The dedup ledger must match the restored params' line of
+        # history: a newer ledger would dedup (lose) trajectories whose
+        # updates just rolled back.
+        self._load_ledger_sidecar(step)
+        # 4. Fast-forward the version past anything the poisoned line
+        # dispatched or published, so actor swap gates and checkpoint
+        # steps stay monotonic. (The JAX server counts what was published
+        # and the restored step, so the version of an update whose publish
+        # the gate blocked is reused there; here it never is.)
+        new_version = poisoned_version + 1
+        self.algorithm.force_version(new_version)
+        # 5. Host-side ingest state part-filled by the poisoned stream
+        # belongs to the rolled-back line.
+        self.algorithm.reset_ingest_buffers()
+        # 6. Re-arm BEFORE the publish below: its checkpoint due-check
+        # re-enters _guard_poll, and a watchdog still holding
+        # poisoned-line probes would recurse straight back into rollback.
+        g.watchdog.reset_after_rollback()
+        self._ckpt_version = new_version
+        self._artifact_version = new_version
+        # 7. Forced keyframe + immediate publish: every actor resyncs to
+        # the restored params whatever deltas it held.
+        if self._wire_encoder is not None:
+            self._wire_encoder.force_keyframe()
+        try:
+            self._publish()
+        except Exception as e:
+            self.stats["publish_errors"] += 1
+            print(f"[TrainingServer] rollback publish error: {e!r}",
+                  flush=True)
+        self._rollbacks_total += 1
+        g._m_rollbacks.inc()
+        telemetry.emit("rollback", signal=trip.signal, value=trip.value,
+                       threshold=trip.threshold, restored_step=int(step),
+                       new_version=int(new_version),
+                       attempt=len(self._rollback_times))
+        print(f"[TrainingServer] ROLLBACK #{self._rollbacks_total}: "
+              f"{trip.signal} tripped → restored healthy step {step}, "
+              f"resuming as version {new_version}", flush=True)
+
+    def _enter_halt(self, trip, reason: str) -> None:
+        """Degrade to halt-and-alarm: training stops, ingest sheds, the
+        process stays up for inspection. One-way until a restart."""
+        from relayrl_tpu_torch import telemetry
+
+        self._halted = True
+        self.guardrails._m_halted.set(1)
+        telemetry.emit("guardrails_halt", signal=trip.signal,
+                       value=trip.value, reason=reason,
+                       rollbacks=self._rollbacks_total)
+        print(f"[TrainingServer] GUARDRAILS HALT ({reason}): "
+              f"{trip.signal} tripped and recovery is exhausted — "
+              f"training stopped, ingest shedding, process alive for "
+              f"inspection", flush=True)
+
+    @property
+    def guardrails_halted(self) -> bool:
+        return self._halted
+
+    def guardrails_accounting(self) -> dict:
+        """Validation, quarantine, watchdog and admission accounting plus
+        the server's rollback/halt ledger. Empty when disabled."""
+        g = self.guardrails
+        if g is None:
+            return {}
+        out = g.accounting()
+        out["rollbacks_total"] = self._rollbacks_total
+        out["halted"] = self._halted
+        return out
 
     def _learner_pending(self) -> int:
         """Dispatched-but-unfenced updates + deferred logs + queued or
@@ -929,7 +1233,23 @@ class TrainingServer:
         """The one broadcast path: a model-wire v2 keyframe or delta frame
         (or the v1 bundle under ``transport.wire_version: 1``)."""
         from relayrl_tpu_torch import telemetry
+        from relayrl_tpu_torch.guardrails.validate import params_tree_finite
 
+        g = self.guardrails
+        if g is not None and not params_tree_finite(host_params):
+            # The publish gate: non-finite params never reach the wire,
+            # the handshake cache or the artifact file; the fleet keeps
+            # the last good model while the watchdog's rollback replaces
+            # the poisoned line (trip_external surfaces on the learner
+            # thread's next poll).
+            g._m_publish_blocked.inc()
+            if g.watchdog is not None:
+                g.watchdog.trip_external("publish_nonfinite",
+                                         float("nan"), 0.0)
+            telemetry.emit("publish_blocked", version=int(version))
+            print(f"[TrainingServer] publish BLOCKED: version {version} "
+                  f"params are non-finite", flush=True)
+            return
         enc = self._wire_encoder
         with self._bundle_lock:
             self._bundle_host = (int(version), dict(arch), host_params)
@@ -983,6 +1303,11 @@ class TrainingServer:
                 or version - self._ckpt_version < self._checkpoint_every):
             return
         self._pipeline_quiesce()
+        # Post-quiesce every pending probe resolves for free: a trip
+        # rolls back (the save is skipped: it would capture the poisoned
+        # line), and a clean poll makes the healthy-at-save tag honest.
+        if self._guard_poll():
+            return
         self._periodic_checkpoint()
         self._ckpt_version = version
 
@@ -993,10 +1318,18 @@ class TrainingServer:
                              snapshot.host_params())
 
     def _health_tag(self) -> dict:
-        """The healthy-at-save tag every checkpoint carries. Guardrails
-        are not ported, so every save is tagged healthy (the ring stays
-        usable as a plain resume source)."""
-        return {"healthy": True}
+        """The healthy-at-save tag every checkpoint carries: True iff the
+        watchdog's most recently resolved probes were clean (none still
+        pending, no trip unpolled) and the server is not halted. The
+        periodic path quiesces and polls before saving, so a True tag
+        means every update baked into the step had its probes resolved
+        clean: the last-known-good ring's membership test
+        (``restore_latest_healthy``). Guardrails or watchdog off ⇒ True,
+        so the ring stays usable as a plain resume source."""
+        g = self.guardrails
+        healthy = not self._halted and (
+            g is None or g.watchdog is None or g.watchdog.healthy())
+        return {"healthy": healthy}
 
     def _periodic_checkpoint(self) -> None:
         try:

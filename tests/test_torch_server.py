@@ -251,12 +251,18 @@ def test_refusals(tmp_cwd):
     server_addrs, agent_addrs = _addrs()
     base = {"obs_dim": 4, "act_dim": 2, "env_dir": str(tmp_cwd),
             "device": "cpu", **server_addrs}
-    # The reference config turns guardrails on by default.
+    # The reference's default config (guardrails on) constructs.
     default_path = os.path.join(str(tmp_cwd), "default.json")
     with open(default_path, "w") as f:
         json.dump({}, f)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TrainingServer(config_path=default_path, **base)
+    server = TrainingServer(config_path=default_path, start=False, **base)
+    try:
+        assert server.guardrails is not None
+        assert server.guardrails.validation_mode == "enforce"
+        assert server.algorithm._guard_probes is not None
+        assert server.transport.check_ingest == server._check_ingest
+    finally:
+        server.disable_server()
     cases = [({"serving": {"enabled": True}}, {}, "item 9"),
              ({}, {"serving": True}, "item 9"),
              ({"telemetry": {"trace_sample_rate": 0.5}}, {}, "item 12"),
@@ -265,7 +271,6 @@ def test_refusals(tmp_cwd):
                                            "num_processes": 2}}}, {},
               "item 11"),
              ({}, {"tensorboard": True}, "item 12"),
-             ({}, {"server_type": "grpc"}, "item 4"),
              ({}, {"server_type": "native"}, "item 4")]
     for sections, kwargs, item in cases:
         with pytest.raises(NotImplementedError, match=item):

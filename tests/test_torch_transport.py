@@ -8,7 +8,8 @@
 * The trajectory spool and the sequence ledger pass the JAX package's unit
   tests (``tests/test_recovery.py``), parametrised over both packages.
 * The columnar branch of the epoch buffer pads like the JAX package's.
-* The transports the port does not have raise, never fall back to ZMQ.
+* The native transport, which the port does not have, raises and never
+  falls back to ZMQ; gRPC builds its own backend.
 
 Tolerances: none — every comparison here is exact.
 """
@@ -375,6 +376,8 @@ def test_ledger_retract_reopens_seq(mods):
 
 @pytest.mark.parametrize("server_type", ["grpc", "native"])
 def test_unported_transports_raise(server_type):
+    """native raises; grpc, ported since, builds its own backend (never a
+    fallback to ZMQ)."""
     from relayrl_tpu_torch.config import ConfigLoader
     from relayrl_tpu_torch.transport import (
         make_agent_transport,
@@ -382,9 +385,20 @@ def test_unported_transports_raise(server_type):
     )
 
     config = ConfigLoader(None, None, create_if_missing=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 4"):
-        make_server_transport(server_type, config)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 4"):
-        make_agent_transport(server_type, config, probe=False)
+    if server_type == "grpc":
+        from relayrl_tpu_torch.transport import grpc_backend
+
+        server = make_server_transport(server_type, config)
+        agent = make_agent_transport(server_type, config, probe=False)
+        assert isinstance(server, grpc_backend.GrpcServerTransport)
+        assert isinstance(agent, grpc_backend.GrpcAgentTransport)
+        agent.close()
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1 item 4"):
+            make_server_transport(server_type, config)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1 item 4"):
+            make_agent_transport(server_type, config, probe=False)
     with pytest.raises(ValueError, match="unknown server_type"):
         make_server_transport("carrier-pigeon", config)

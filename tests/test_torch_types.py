@@ -6,9 +6,9 @@ port's import hygiene.
 * Records the port's actor builds serialize to the bytes the JAX types give
   the same records, with the dtypes the JAX actor puts on the wire.
 * Importing every module of ``relayrl_tpu_torch`` loads no JAX, no flax, no
-  ``relayrl_tpu``, and neither ``msgpack`` nor ``ml_dtypes`` (which the
-  machines with the GPU lack); no module, nor ``chip_smoke.py``, names them
-  in an import statement.
+  ``relayrl_tpu``, and none of ``msgpack``, ``ml_dtypes`` and ``grpc``
+  (which the machines with the GPU need not have); no module, nor
+  ``chip_smoke.py``, names the JAX packages in an import statement.
 """
 
 import ast
@@ -165,7 +165,7 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'relayrl_tpu',\n"
-        "              'msgpack', 'ml_dtypes'))\n"
+        "              'msgpack', 'ml_dtypes', 'grpc'))\n"
         "print('LOADED', bad)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -175,16 +175,19 @@ def test_port_imports_no_jax():
 
 
 def test_distributed_loop_imports_clean():
-    """The server and agent entry points load no JAX and nothing of the JAX
-    package; the package itself loads neither msgpack nor ml_dtypes (the
-    transport imports them where it encodes and decodes)."""
+    """The server and agent entry points, the guardrails and the gRPC
+    backend load no JAX and nothing of the JAX package; none of them loads
+    msgpack, ml_dtypes or grpc (the transports import them where they
+    encode, decode and connect)."""
     code = (
         "import sys\n"
         "import relayrl_tpu_torch\n"
-        "lazy = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "              ('msgpack', 'ml_dtypes'))\n"
         "import relayrl_tpu_torch.runtime.server\n"
         "import relayrl_tpu_torch.runtime.agent\n"
+        "import relayrl_tpu_torch.guardrails\n"
+        "import relayrl_tpu_torch.transport.grpc_backend\n"
+        "lazy = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "              ('msgpack', 'ml_dtypes', 'grpc'))\n"
         "from relayrl_tpu_torch.runtime import TrainingServer, VectorAgent\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'relayrl_tpu'))\n"
