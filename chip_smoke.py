@@ -20,7 +20,8 @@ Phases, each of which fails the run:
    forward and gradients), with the kernel's time, the plain version's, a
    library call's and the bound; the whole backward as the learner runs
    it (delta, the prescaled q, K2 and K3 through ``torch.autograd.grad``)
-   beside SDPA's;
+   beside SDPA's; K2 and K3 also at PPO's minibatch shape ``[2, 256, 8,
+   32]`` (bf16 causal), timed;
 4. serving slice: a 64-lane ``VectorActorHost`` over ``RecallEnv`` at the
    flagship transformer's widths (``__graft_entry__.entry()``'s arch: d_model
    256, 4 layers, 8 heads, max_seq_len 256, bf16, flash attention) for 320
@@ -95,6 +96,46 @@ Phases, each of which fails the run:
    watchdog rolls back exactly once to the newest healthy checkpoint
    (params and Adam steps equal), under a higher version, with a forced
    keyframe A installs sha256-equal; no agent installs non-finite params.
+   Its server pins ``native_grpc: false``: typed nacks exist only on the
+   grpcio servicer (the native C++ gRPC server acks before Python sees a
+   send);
+13. the async fleet over the native plane, through a relay: IMPALA's first
+   update on phase 5's first batch through K1-K3 against the plain
+   attention (phase 5's bars; 4/4/4 launches; behavior log-probs from the
+   f32 model, equidistant from both sides: V-trace's truncated ratios,
+   multiplied over 255 steps, turn the plain side's extra distance from
+   the actors' K1 log-probs into a shift, printed beside it) and, at f32,
+   against the CPU (``compare_update_to_cpu``), RhoMean and KL finite, and
+   its update time and device busy share in this process; then IMPALA at phase 5's
+   arch in a ``chaos_server`` process over ``server_type: "native"``
+   (default guardrails, 8 episodes per epoch), a relay process (``python
+   -m relayrl_tpu_torch.relay``: native upstream, zmq downstream, a file
+   spool), ``VectorAgent`` A (8 ``RecallEnv(255)`` lanes) through the
+   relay over zmq and ``VectorAgent`` B (2 lanes) straight over native.
+   Gates: the server's launches per update exactly 4/4/4 (one evaluate,
+   one backward); the agents' K1 per dispatch (3); the native codec
+   decodes every ingested trajectory and Python none (the server's
+   ``decoded_by`` equals the accepted count); A and B hold the published
+   params sha256-equal; the relay SIGKILL drill (a wave into the outage,
+   a replacement relay on the same spool): each leaf's sequence accepted
+   exactly once (accepted == max_seq == sent, contiguous, trained ==
+   sent), training past the kill and A installing it; a resync from A
+   served from the replacement's cached keyframe; RhoMean and KL finite
+   in every update's log row; no learner error, a clean guardrail book.
+   Not gated: the native decode against the Python decode per trajectory
+   on B's payloads, the relay hop's added delivery and install latency,
+   the server learner's profile; logs under ``build/chip_smoke_fleet/``;
+14. PPO on the flagship, in this process (8 episodes per epoch, 4
+   minibatches of 2 rows, 4 sweeps: 16 minibatch steps per update): its
+   first update through K1-K3 against the plain attention and, at f32,
+   against the CPU on the same index sets; 8 updates on phase 5's first
+   wave at exactly 64/64/64 launches each; the KL stop (``target_kl`` -1:
+   ``StopIter`` 1 on the card and at f32 against the CPU, the pi params
+   and pi Adam state after the update bit-equal to those after its first
+   minibatch); PPO on CartPole-v1 above an average return of 40 within 12
+   epochs and IMPALA's P(action 1) above 0.6 from stale behavior
+   (tests/test_ppo.py's and tests/test_impala.py's bars) on the card; the
+   update time and device busy share.
 
 Phases 3 and 6 also hold every kernel to its plain version at head dims
 128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
@@ -175,6 +216,38 @@ GUARD_LANES_B = 2
 GUARD_CLEAN_WAVES = 2
 DIVERGE_REWARD = 1e38
 PROBE_UPDATES = 2
+# The async fleet (phase 13): IMPALA at phase 5's arch in a chaos_server
+# process over the native plane (8 episodes per epoch, one 256 bucket, the
+# default guardrails). Agent A's DIST_LANES lanes reach it through a relay
+# process (native upstream, zmq downstream); agent B's FLEET_LANES_B lanes
+# go straight to it over native. FLEET_WAVES waves of both agents train it,
+# then the relay is SIGKILLed after a wave of A's, A plays a wave into the
+# outage, the relay restarts on the same spool, and both play on until the
+# server trains past the kill and A installs it.
+IMPALA_HP = {"traj_per_epoch": 8, "bucket_lengths": [256]}
+FLEET_LANES_B = 2
+FLEET_WAVES = 2
+FLEET_TIMEOUT_S = 240
+# The PPO learner (phase 14): phase 5's arch, one [8, 256] batch per
+# update cut into minibatch_count minibatches of PPO_MINIBATCH_ROWS rows,
+# train_iters sweeps: 16 minibatch steps per update, PPO_UPDATES updates
+# on phase 5's first wave. Its learning checks run tests/test_ppo.py's
+# CartPole check (PPO_CARTPOLE_HP, 12 epochs, average return above 40) and
+# tests/test_impala.py's stale-behavior check (160 episodes from a policy
+# that picks action 0 70% of the time, where action 1 pays; P(action 1) on
+# 16 fixed observations above 0.6) on the card.
+PPO_HP = {"traj_per_epoch": 8, "minibatch_count": 4, "train_iters": 4,
+          "bucket_lengths": [256]}
+PPO_MINIBATCH_ROWS = PPO_HP["traj_per_epoch"] // PPO_HP["minibatch_count"]
+PPO_UPDATE_MINIBATCHES = PPO_HP["minibatch_count"] * PPO_HP["train_iters"]
+PPO_UPDATES = LANES // PPO_HP["traj_per_epoch"]
+PPO_CARTPOLE_HP = {"traj_per_epoch": 8, "minibatch_count": 2, "train_iters": 4,
+                   "pi_lr": 1e-2, "vf_lr": 1e-2, "ent_coef": 0.01,
+                   "target_kl": 0.05, "hidden_sizes": [32, 32]}
+PPO_CARTPOLE_EPOCHS = 12
+PPO_CARTPOLE_BAR = 40.0
+STALE_EPISODES = 160
+STALE_BAR = 0.6
 # The bars of tests/test_flash.py: 3e-2 for bf16, 2e-5 for f32.
 TOLERANCE = {"bfloat16": 3e-2, "float32": 2e-5}
 # Gradients: 5e-5 in f32 (tests/test_flash.py's gradient bar); in bf16 3e-2
@@ -468,7 +541,8 @@ def grad_bar(dtype, want) -> float:
 
 def check_flash_bwd(device) -> dict:
     """K2 and K3 against their plain versions at the learner slice's shape
-    (``[8, 256, 8, 32]`` bf16 causal) and at edge shapes: T = 1, 17, 130
+    (``[8, 256, 8, 32]`` bf16 causal), at PPO's minibatch shape
+    (``[2, 256, 8, 32]`` bf16 causal, phase 14) and at edge shapes: T = 1, 17, 130
     (f32 and bf16, causal and not), head dim 64 at T = 130, and in bf16,
     causal and not, the tensor-core kernels' tile edges: T = 64 (one whole
     tile), T = 65 (one row past it) and head dim 16; and at the widest head
@@ -477,9 +551,10 @@ def check_flash_bwd(device) -> dict:
     [8, 256, 2, 256] (bf16 causal): each kernel alone (on a prescaled q),
     and the whole backward as the learner runs it (``torch.autograd.grad``
     through ``flash_attention``: delta, the prescaled q, K2 and K3) beside
-    SDPA's backward. Returns {"flash_dq": ..., "flash_dkv": ...} for the
-    slice's shape, each with the head dim 128 and 256 measurements under
-    ``"d128"`` and ``"d256"``."""
+    SDPA's backward; and at PPO's minibatch shape. Returns {"flash_dq":
+    ..., "flash_dkv": ...} for the slice's shape, each with the head dim
+    128 and 256 measurements under ``"d128"`` and ``"d256"`` and PPO's
+    under ``"ppo_minibatch"``."""
     import torch
     import torch.nn.functional as F
 
@@ -494,16 +569,18 @@ def check_flash_bwd(device) -> dict:
         prescale_q,
     )
 
-    B, H = LEARNER["traj_per_epoch"], SLICE_ARCH["n_heads"]
+    B_main, H = LEARNER["traj_per_epoch"], SLICE_ARCH["n_heads"]
     D = SLICE_ARCH["d_model"] // H
     T_main = SLICE_ARCH["max_seq_len"]
     gen = torch.Generator().manual_seed(SEED + 1)
     main_case = (torch.bfloat16, True, T_main, H, D)
     wide_case = (torch.bfloat16, True, T_main, WIDE_H, WIDE_D)
     widest_case = (torch.bfloat16, True, T_main, WIDEST_H, WIDEST_D)
-    timed = {wide_case: "d128", widest_case: "d256"}
+    # A case's optional sixth entry is its batch (B_main otherwise).
+    ppo_case = (torch.bfloat16, True, T_main, H, D, PPO_MINIBATCH_ROWS)
+    timed = {wide_case: "d128", widest_case: "d256", ppo_case: "ppo_minibatch"}
     dtypes = (torch.bfloat16, torch.float32)
-    cases = [main_case, wide_case, widest_case]
+    cases = [main_case, wide_case, widest_case, ppo_case]
     cases += [(dtype, causal, T, H, D) for dtype in dtypes
               for causal in (True, False) for T in (1, 17, 130)]
     cases += [(torch.bfloat16, True, 130, H, 64), (torch.float32, False, 130, H, 64)]
@@ -514,7 +591,8 @@ def check_flash_bwd(device) -> dict:
               if (dtype, causal, T, h, d) not in (wide_case, widest_case)]
     main = {"flash_dq": {}, "flash_dkv": {}}
     for case in cases:
-        dtype, causal, T, H, d = case
+        dtype, causal, T, H, d, *rows = case
+        B = rows[0] if rows else B_main
         name = _dtype_name(dtype)
         q, k, v = fused_qkv(B, T, H, d, dtype, device, gen)
         out, lse2 = flash_attention_plain(q, k, v, causal)
@@ -587,7 +665,7 @@ def check_flash_bwd(device) -> dict:
                 into["library_ms"] = library_ms
                 into["backward_ms"] = backward_ms
     for kernel in main:
-        main[kernel]["head_dims"] = sorted({case[-1] for case in cases})
+        main[kernel]["head_dims"] = sorted({case[4] for case in cases})
     return main
 
 
@@ -1120,26 +1198,28 @@ def zero_flash_counts() -> None:
     flash_attention.dkv_launches = 0
 
 
-def build_learner(device, workdir: Path, arch: dict = SLICE_ARCH):
-    """The port's REINFORCE at ``arch`` (the slice's by default), on
-    ``device``; the bf16 compute dtype comes from the config's
-    ``learner.precision``, as in the JAX package."""
+def build_learner(device, workdir: Path, arch: dict = SLICE_ARCH,
+                  algorithm: str = "REINFORCE", hp: dict | None = None):
+    """The port's ``algorithm`` (REINFORCE with ``LEARNER`` by default)
+    at ``arch`` (the slice's by default), on ``device``; the compute dtype
+    comes from the config's ``learner.precision`` (``arch["precision"]``),
+    as in the JAX package."""
     from relayrl_tpu_torch.algorithms import build_algorithm
     from relayrl_tpu_torch.envs import RecallEnv
 
     workdir.mkdir(parents=True, exist_ok=True)
     config = workdir / "relayrl_config.json"
     config.write_text(json.dumps(
-        {"learner": {"precision": SLICE_ARCH["precision"]}}))
+        {"learner": {"precision": arch["precision"]}}))
     env = RecallEnv(LEARNER_HORIZON, N_CUES)
     overrides = {k: v for k, v in arch.items()
                  if k not in ("kind", "has_critic", "precision")}
     algo = build_algorithm(
-        "REINFORCE", env_dir=str(workdir), config_path=str(config),
+        algorithm, env_dir=str(workdir), config_path=str(config),
         obs_dim=int(env.observation_space.shape[0]),
         act_dim=int(env.action_space.n), device=device,
         model_kind=arch["kind"], seed=SEED, seed_salt=0,
-        **overrides, **LEARNER)
+        **overrides, **(LEARNER if hp is None else hp))
     for key, value in arch.items():
         if algo.arch[key] != value:
             raise AssertionError(f"learner arch {key}={algo.arch[key]!r}, "
@@ -1147,35 +1227,70 @@ def build_learner(device, workdir: Path, arch: dict = SLICE_ARCH):
     return algo
 
 
-def compare_update(algo, params0, batch, device, plain_attn, wrap=None) -> dict:
-    """The learner's first update through the kernels against the same
-    update with every block's attention replaced by ``plain_attn`` (which
-    runs the kernels' plain versions), both from ``params0`` with fresh
-    Adam state; ``wrap`` wraps the update (the sharded update of phase 7).
-    Returns the largest metric and parameter differences."""
-    import torch
-
-    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+def update_parts(algo, policy, params, idx_sets=None, **overrides):
+    """One update of ``algo``'s kind through ``policy`` (the card's or the
+    CPU's) from ``params`` with fresh Adam state: ``(state, update,
+    steps)``, where ``update(state, batch)`` returns ``(state, metrics)``
+    and ``steps(name)`` is a parameter's (Adam steps at most, learning
+    rate) in it. PPO runs on ``idx_sets``; ``overrides`` replace its
+    hyperparameters."""
     from relayrl_tpu_torch.algorithms.reinforce import (
         ReinforceState,
         make_optimizers,
         make_reinforce_update,
     )
 
-    update = make_reinforce_update(algo.policy, algo.train_vf_iters,
-                                   algo.gamma, algo.lam, algo.with_baseline)
-    if wrap is not None:
-        update = wrap(update)
+    name = algo.ALGO_NAME
+    if name == "REINFORCE":
+        state = ReinforceState(params, *make_optimizers(params, algo.pi_lr, algo.vf_lr))
+        update = make_reinforce_update(policy, algo.train_vf_iters, algo.gamma,
+                                       algo.lam, algo.with_baseline)
+        return state, update, lambda n: ((algo.train_vf_iters, algo.vf_lr)
+                                         if n.startswith("vf") else (1, algo.pi_lr))
+    state = algo.fresh_state(params)
+    if name == "IMPALA":
+        return state, algo.make_update(policy), lambda n: (1, algo.lr)
+    ppo = algo.make_update(policy, **overrides)
+    return (state, lambda st, batch: ppo(st, batch, idx_sets),
+            lambda n: (len(idx_sets), algo.vf_lr if n.startswith("vf") else algo.pi_lr))
+
+
+def update_sides(algo, params0, batch, device, plain_attn, wrap=None,
+                 idx_sets=None) -> tuple[dict, object]:
+    """The learner's first update through the kernels and the same update
+    with every block's attention replaced by ``plain_attn`` (which runs
+    the kernels' plain versions), both from ``params0`` with fresh Adam
+    state (:func:`update_parts`; PPO on ``idx_sets``); ``wrap`` wraps the
+    update (the sharded update of phase 7). Returns ``({"kernel": (params,
+    metrics), "plain": ...}, steps)``."""
+    import torch
+
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+
     sides = {}
     for side in ("kernel", "plain"):
         params = copy.deepcopy(params0)
         if side == "plain":
             for block in params.blocks():
                 block.attn_fn = plain_attn
-        state = ReinforceState(params, *make_optimizers(params, algo.pi_lr, algo.vf_lr))
+        state, update, steps = update_parts(algo, algo.policy, params, idx_sets)
+        if wrap is not None:
+            update = wrap(update)
         state, metrics = update(state, {key: torch.as_tensor(val, device=device)
                                         for key, val in batch.items()})
         sides[side] = (dict(state.params.named_parameters()), read_metrics(metrics))
+    return sides, steps
+
+
+def compare_update(algo, params0, batch, device, plain_attn, wrap=None,
+                   idx_sets=None) -> dict:
+    """:func:`update_sides` held to phase 5's bars: metrics within
+    ``UPDATE_METRIC_TOL`` x max(1, |m|), every parameter within twice its
+    Adam step bound, the mean |difference| within
+    ``UPDATE_MEAN_DIFF_SHARE`` of the mean movement. Returns the largest
+    metric and parameter differences."""
+    sides, steps = update_sides(algo, params0, batch, device, plain_attn, wrap,
+                                idx_sets)
     (got, got_m), (want, want_m) = sides["kernel"], sides["plain"]
     metric_err = 0.0
     for key, value in want_m.items():
@@ -1188,8 +1303,8 @@ def compare_update(algo, params0, batch, device, plain_attn, wrap=None) -> dict:
     diff_sum = moved_sum = 0.0
     param_err = 0.0
     for name, w in want.items():
-        steps = algo.train_vf_iters if name.startswith("vf") else 1
-        bound = 2 * steps * (algo.vf_lr if name.startswith("vf") else algo.pi_lr)
+        n_steps, lr = steps(name)
+        bound = 2 * n_steps * lr
         err = (got[name] - w).abs().max().item()
         if not err <= bound:
             raise AssertionError(f"update param {name}: kernel vs plain {err} "
@@ -1202,7 +1317,7 @@ def compare_update(algo, params0, batch, device, plain_attn, wrap=None) -> dict:
         raise AssertionError(f"update params: mean |kernel - plain| is "
                              f"{share:.4f} of the mean movement")
     return {"metric_err": metric_err, "param_err": param_err,
-            "mean_diff_share": share}
+            "mean_diff_share": share, "metrics": got_m}
 
 
 def epoch_batches(algo, episodes, n: int) -> list[dict]:
@@ -1637,27 +1752,24 @@ def local_cartpole(device, workdir: Path) -> dict:
             "avg_return": result["avg_return_last_window"], **cmp}
 
 
-def compare_update_to_cpu(algo, params0, batch) -> dict:
+def compare_update_to_cpu(algo, params0, batch, idx_sets=None, **overrides) -> dict:
     """The learner's update from ``params0`` on ``batch`` on its device
-    against the same update on the CPU, both with fresh Adam state, in f32:
-    metrics within ``MLP_METRIC_RTOL`` plus ``MLP_METRIC_ATOL``, every
-    parameter element within ``MLP_PARAM_ATOL``, except where both sides
-    take Adam's normalized step on rounding noise, held to Adam's step
-    bound, the learning rate per step taken: a transformer's qkv bias (the
-    key third of its gradient is zero in exact arithmetic: a softmax does
-    not change when one constant is added to all of a query's scores;
-    tests/test_torch_reinforce.py holds the JAX package the same way), and
-    every element whose RMS gradient on the CPU fell below ``ADAM_FLOOR``
-    at some step. Returns the largest differences, the elements below the
-    floor and the largest difference among them."""
+    against the same update on the CPU, both with fresh Adam state
+    (:func:`update_parts`: REINFORCE, IMPALA, or PPO on ``idx_sets`` with
+    ``overrides``), in f32: metrics within ``MLP_METRIC_RTOL`` plus
+    ``MLP_METRIC_ATOL``, every parameter element within ``MLP_PARAM_ATOL``,
+    except where both sides take Adam's normalized step on rounding noise,
+    held to Adam's step bound, the learning rate per step taken: a
+    transformer's qkv bias (the key third of its gradient is zero in exact
+    arithmetic: a softmax does not change when one constant is added to
+    all of a query's scores; tests/test_torch_reinforce.py holds the JAX
+    package the same way), and every element whose RMS gradient on the CPU
+    fell below ``ADAM_FLOOR`` at some step. Returns the largest
+    differences, the elements below the floor, the largest difference
+    among them and the card's metrics."""
     import torch
 
     from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
-    from relayrl_tpu_torch.algorithms.reinforce import (
-        ReinforceState,
-        make_optimizers,
-        make_reinforce_update,
-    )
     from relayrl_tpu_torch.models import build_policy
     from relayrl_tpu_torch.weights import params_to_jax
 
@@ -1673,13 +1785,12 @@ def compare_update_to_cpu(algo, params0, batch) -> dict:
     for side in ("card", "cpu"):
         policy = algo.policy if side == "card" else build_policy(algo.arch, "cpu")
         params = policy.load_params(params_to_jax(params0))
-        state = ReinforceState(params, *make_optimizers(params, algo.pi_lr, algo.vf_lr))
-        opts = [opt for opt in (state.pi_opt, state.vf_opt) if opt is not None]
+        state, update, _ = update_parts(algo, policy, params, idx_sets, **overrides)
+        opts = [opt for opt in vars(state).values()
+                if isinstance(opt, torch.optim.Optimizer)]
         if side == "cpu":
             for opt in opts:
                 opt.register_step_post_hook(track_rms)
-        update = make_reinforce_update(policy, algo.train_vf_iters, algo.gamma, algo.lam,
-                                       algo.with_baseline)
         state, metrics = update(state, {k: torch.as_tensor(v, device=policy.device)
                                         for k, v in batch.items()})
         sides[side] = ({name: p.detach().cpu() for name, p in state.params.named_parameters()},
@@ -1687,7 +1798,8 @@ def compare_update_to_cpu(algo, params0, batch) -> dict:
     (got, got_m), (want, want_m) = sides["card"], sides["cpu"]
     # Adam's step bound per parameter: its learning rate times its steps.
     step_bound = {p: opt.param_groups[0]["lr"] * float(opt.state[p]["step"])
-                  for opt in opts for p in opt.param_groups[0]["params"]}
+                  for opt in opts for p in opt.param_groups[0]["params"]
+                  if p in opt.state}
     metric_err = param_err = floor_err = 0.0
     n_floored = 0
     for key, value in want_m.items():
@@ -1699,7 +1811,7 @@ def compare_update_to_cpu(algo, params0, batch) -> dict:
         diff = (got[name] - want[name]).abs()
         if name.endswith("qkv.bias"):
             noise = torch.ones_like(diff, dtype=torch.bool)
-            bound = torch.full_like(diff, algo.pi_lr)
+            bound = torch.full_like(diff, step_bound[p])
         else:
             noise = least_rms[p] < ADAM_FLOOR
             bound = torch.where(noise, step_bound[p], MLP_PARAM_ATOL)
@@ -1712,7 +1824,7 @@ def compare_update_to_cpu(algo, params0, batch) -> dict:
             floor_err = max(floor_err, diff.where(noise, 0.0).max().item())
             n_floored += int(noise.sum())
     return {"metric_err": metric_err, "param_err": param_err, "n_floored": n_floored,
-            "floor_err": floor_err}
+            "floor_err": floor_err, "metrics": got_m}
 
 
 def local_recall(device, workdir: Path) -> dict:
@@ -2251,6 +2363,9 @@ def guardrails_drill(device, root: Path, workdir: Path) -> dict:
            "act_dim": int(env.action_space.n), "hyperparams": hyperparams,
            "device": str(device), "scratch": str(scratch),
            "server_type": GUARD_TRANSPORT, "bind_addr": addr,
+           # Typed nacks exist only on the grpcio servicer: the native C++
+           # gRPC server acks before Python sees a send.
+           "native_grpc": False,
            "config": {"learner": {"precision": arch["precision"]}},
            "digests": True, "status_path": str(workdir / "status.json")}
     agent_config = workdir / "agent_config.json"
@@ -2278,7 +2393,9 @@ def guardrails_drill(device, root: Path, workdir: Path) -> dict:
     server = ChaosServer(root, cfg, workdir / "server.log")
     agents = {}
     try:
-        server.wait(lambda s: True, "the server to come up")
+        status = server.wait(lambda s: True, "the server to come up")
+        if status["transport"] != "GrpcServerTransport":
+            raise AssertionError(f"server transport {status['transport']}")
         common = {"config_path": str(agent_config), "seed": SEED,
                   "probe": False, "device": device,
                   "server_type": GUARD_TRANSPORT, "server_addr": addr}
@@ -2486,6 +2603,546 @@ def guardrails_drill(device, root: Path, workdir: Path) -> dict:
         for agent in agents.values():
             agent.disable_agent()
         server.stop()
+
+
+class RelayProcess:
+    """``python -m relayrl_tpu_torch.relay`` in a process of its own (the
+    relay takes ``cfg`` as its ``--json`` kwargs), started in ``workdir``,
+    its output appended to ``relay.log``; returns once it is serving."""
+
+    def __init__(self, root: Path, cfg: dict, workdir: Path, tag: str,
+                 timeout_s: float = 120.0):
+        import os
+
+        self.ready = workdir / f"relay_{tag}_ready"
+        self.stop_file = workdir / "relay_stop"
+        self.result = workdir / f"relay_{tag}.json"
+        self.stop_file.unlink(missing_ok=True)
+        self.log = workdir / "relay.log"
+        self._out = open(self.log, "ab")
+        env = dict(os.environ, PYTHONPATH=str(root))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "relayrl_tpu_torch.relay",
+             "--json", json.dumps(cfg), "--ready-file", str(self.ready),
+             "--stop-file", str(self.stop_file),
+             "--result-path", str(self.result)],
+            cwd=str(workdir), env=env, stdout=self._out,
+            stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + timeout_s
+        while not self.ready.exists():
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                self.kill()
+                raise AssertionError(f"relay {tag} never came up:\n"
+                                     f"{self.log.read_bytes()[-3000:].decode(errors='replace')}")
+            time.sleep(0.05)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        if not self._out.closed:
+            self._out.close()
+
+    def close(self, timeout_s: float = 60.0) -> dict:
+        """Stop through the stop file (the relay flushes its spool
+        upstream first) and return its result: stats and telemetry."""
+        self.stop_file.write_text("stop")
+        try:
+            self.proc.wait(timeout=timeout_s)
+        finally:
+            self.kill()
+        return json.loads(self.result.read_text())
+
+
+def _progress_rows(server_dir: Path) -> list[dict]:
+    """The rows of the epoch log(s) a server wrote under ``server_dir``."""
+    rows = []
+    for path in sorted(server_dir.glob("logs/**/progress.txt")):
+        lines = path.read_text().splitlines()
+        if not lines:
+            continue
+        header = lines[0].split("\t")
+        rows += [dict(zip(header, line.split("\t"))) for line in lines[1:]]
+    return rows
+
+
+def async_fleet(device, root: Path, workdir: Path, learned: dict) -> dict:
+    """Phase 13: IMPALA on the flagship transformer in a chaos_server
+    process over the native plane, fed by agent A through a relay process
+    (native upstream, zmq downstream) and by agent B straight over native;
+    the relay SIGKILL drill. Before the fleet: IMPALA's first update on
+    phase 5's first batch through the kernels against the plain attention
+    (phase 5's bars; behavior log-probs from the f32 model, see the
+    comment there), and at f32 against the CPU, and its in-process update
+    time and device busy share. Gates: the server's K1/K2/K3 launches per
+    update (one evaluate and one backward: n_layers each), the agents' K1
+    per dispatch, every trajectory decoded by the native codec and none
+    by Python, each leaf's sequence accepted exactly once through the
+    kill (accepted == max_seq == sent, contiguous, trained == sent), A's
+    and B's params sha256-equal to the publish, A installing a version
+    past the kill, a resync from A served from the relay's cached
+    keyframe, RhoMean and KL finite in every update's log row, no learner
+    error and a clean guardrail book. Measures the native decode against
+    the Python decode on B's payloads and the relay hop's added install
+    latency (A's install minus B's, per version)."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from relayrl_tpu_torch.envs import RecallEnv, SyncVectorEnv
+    from relayrl_tpu_torch.ops.flash import flash_attention_plain
+    from relayrl_tpu_torch.runtime.agent import VectorAgent
+    from relayrl_tpu_torch.runtime.vector_actor import run_vector_gym_loop
+    from relayrl_tpu_torch.types.columnar import DecodedTrajectory, NativeDecoder
+    from relayrl_tpu_torch.types.trajectory import deserialize_actions
+    from relayrl_tpu_torch.weights import params_to_jax, tree_digest
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    batch = learned["batch"]
+
+    # The first update, in this process. V-trace's truncated ratios
+    # min(1, exp(logp - behavior)) multiply over up to 255 steps, so the
+    # update turns the distance between a side's log-probs and the
+    # behavior's into a systematic shift: phase 5's actors took the
+    # behavior log-probs through K1, and the plain attention's bf16 path
+    # sits further from them than the kernels' does. The kernels-vs-plain
+    # comparison therefore takes its behavior log-probs from the f32 model
+    # at the same params, which neither side computes; the update on the
+    # actors' log-probs is reported beside it (not gated).
+    plain_attn = lambda q, k, v: flash_attention_plain(q, k, v, True)[0]  # noqa: E731
+    algo = build_learner(device, workdir / "learner", algorithm="IMPALA", hp=IMPALA_HP)
+    f32 = build_learner(device, workdir / "learner_f32",
+                        arch={**SLICE_ARCH, "precision": "float32"},
+                        algorithm="IMPALA", hp=IMPALA_HP)
+    cpu = compare_update_to_cpu(f32, copy.deepcopy(f32.state.params), batch)
+    with torch.no_grad():
+        tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        logp32, _, _ = f32.policy.evaluate(f32.state.params, tb["obs"], tb["act"],
+                                           tb["act_mask"])
+    f32_behavior = dict(batch, logp=(logp32.float() * tb["valid"]).cpu().numpy())
+    del f32, tb
+    zero_flash_counts()
+    plain = compare_update(algo, copy.deepcopy(algo.state.params), f32_behavior,
+                           device, plain_attn)
+    first_counts = flash_counts()
+    actors, _ = update_sides(algo, copy.deepcopy(algo.state.params), batch, device,
+                             plain_attn)
+    on_actors = {key: (actors["kernel"][1][key], actors["plain"][1][key])
+                 for key in ("LossPi", "LossV", "RhoMean")}
+    for where, metrics in (("kernels", plain["metrics"]), ("card f32", cpu["metrics"])):
+        if not all(math.isfinite(metrics[k]) for k in ("RhoMean", "KL")):
+            raise AssertionError(f"IMPALA first update ({where}): {metrics}")
+    seconds = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        algo.train_on_batch(batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    update_ms = 1e3 * sum(seconds[1:]) / len(seconds[1:])
+    profile_device(lambda: algo.train_on_batch(batch), 1, "update")
+    del algo
+
+    # The fleet.
+    port = _free_port()
+    server_addr = f"127.0.0.1:{port}"
+    fan = [_free_port() for _ in range(3)]
+    downstream = {"agent_listener_addr": f"tcp://127.0.0.1:{fan[0]}",
+                  "trajectory_addr": f"tcp://127.0.0.1:{fan[1]}",
+                  "model_pub_addr": f"tcp://127.0.0.1:{fan[2]}"}
+    a_addrs = {"agent_listener_addr": downstream["agent_listener_addr"],
+               "trajectory_addr": downstream["trajectory_addr"],
+               "model_sub_addr": downstream["model_pub_addr"]}
+    env = RecallEnv(LEARNER_HORIZON, N_CUES)
+    arch = SLICE_ARCH
+    hyperparams = {"model_kind": arch["kind"], "seed": SEED, "seed_salt": 0,
+                   **{k: v for k, v in arch.items()
+                      if k not in ("kind", "has_critic", "precision")},
+                   **IMPALA_HP}
+    server_dir = workdir / "server"
+    cfg = {"algorithm": "IMPALA",
+           "obs_dim": int(env.observation_space.shape[0]),
+           "act_dim": int(env.action_space.n), "hyperparams": hyperparams,
+           "device": str(device), "scratch": str(server_dir),
+           "server_type": "native", "bind_addr": server_addr,
+           "config": {"learner": {"precision": arch["precision"]}},
+           "digests": True, "status_path": str(workdir / "status.json"),
+           "profile": {"after": 1, "updates": 2,
+                       "path": str(workdir / "profile.json")}}
+    relay_config = workdir / "relay_config.json"
+    relay_config.write_text(json.dumps({}))
+    relay_cfg = {"config_path": str(relay_config), "name": "fleet",
+                 "upstream_type": "native",
+                 "upstream": {"server_addr": server_addr, "probe": False},
+                 "downstream_type": "zmq", "downstream": downstream,
+                 "spool_dir": str(workdir / "relay_spool"),
+                 "batch_max": 4, "batch_linger_ms": 5.0}
+    agent_config = workdir / "agent_config.json"
+    agent_config.write_text(json.dumps({}))
+    n_layers = arch["n_layers"]
+    per_update = (n_layers, n_layers, n_layers)
+    per_epoch = IMPALA_HP["traj_per_epoch"]
+
+    server = ChaosServer(root, cfg, workdir / "server.log")
+    relay = None
+    agents = {}
+    try:
+        status = server.wait(lambda s: True, "the server to come up",
+                             timeout_s=FLEET_TIMEOUT_S)
+        if status["transport"] != "NativeServerTransportImpl":
+            raise AssertionError(f"server transport {status['transport']}")
+        relay = RelayProcess(root, relay_cfg, workdir, "primary")
+        common = {"config_path": str(agent_config), "seed": SEED,
+                  "probe": False, "device": device}
+        agents["A"] = VectorAgent(num_envs=DIST_LANES, identity="relayed",
+                                  server_type="zmq",
+                                  model_path=str(workdir / "client_a.rlx"),
+                                  **common, **a_addrs)
+        agents["B"] = VectorAgent(num_envs=FLEET_LANES_B, identity="direct",
+                                  server_type="native", server_addr=server_addr,
+                                  model_path=str(workdir / "client_b.rlx"),
+                                  **common)
+        kinds = {n: type(a.transport).__name__ for n, a in agents.items()}
+        if kinds != {"A": "ZmqAgentTransport", "B": "NativeAgentTransportImpl"}:
+            raise AssertionError(f"agent transports {kinds}")
+        # version -> monotonic time of the transport's delivery and of the
+        # install, per agent.
+        delivered = {"A": {}, "B": {}}
+        installs = {"A": {}, "B": {}}
+
+        def watch(name, agent):
+            original = agent.host.swap_from_wire
+            deliver = agent.transport.on_model
+
+            def swap(version, blob):
+                out = original(version, blob)
+                if out is not None:
+                    installs[name].setdefault(int(version), time.monotonic())
+                return out
+
+            def tap(version, blob):
+                delivered[name].setdefault(int(version), time.monotonic())
+                deliver(version, blob)
+
+            agent.host.swap_from_wire = swap
+            agent.transport.on_model = tap
+
+        for name, agent in agents.items():
+            watch(name, agent)
+        payloads = []  # B's wire payloads, for the decode timing
+        send = agents["B"].transport.send_trajectory
+
+        def capture(payload, agent_id=None):
+            if len(payloads) < 16:
+                payloads.append(bytes(payload))
+            return send(payload, agent_id=agent_id)
+
+        agents["B"].transport.send_trajectory = capture
+        venvs = {name: SyncVectorEnv([lambda: RecallEnv(LEARNER_HORIZON, N_CUES)]
+                                     * agent.num_envs)
+                 for name, agent in agents.items()}
+        waves = {"A": 0, "B": 0}
+
+        def wave(name):
+            run_vector_gym_loop(agents[name], venvs[name], LEARNER_HORIZON,
+                                seed=SEED + 1000 * (name == "B") + waves[name])
+            waves[name] += 1
+
+        def lanes():
+            return {lane: n for agent in agents.values()
+                    for lane, n in agent.spool.sent_counts().items()}
+
+        # Train: FLEET_WAVES waves of both agents.
+        zero_flash_counts()  # after each agent's validation forward
+        d0 = {n: a.host.dispatches for n, a in agents.items()}
+        t0 = time.perf_counter()
+        for _ in range(FLEET_WAVES):
+            wave("A")
+            wave("B")
+        wall = time.perf_counter() - t0
+        trained = FLEET_WAVES * (DIST_LANES + FLEET_LANES_B) // per_epoch
+        status = server.wait(
+            lambda s: (s["version"] == trained
+                       and (s.get("published") or {}).get("version") == trained
+                       and agents["A"].model_version == trained
+                       and agents["B"].model_version == trained),
+            f"{trained} updates published and installed by A and B",
+            timeout_s=FLEET_TIMEOUT_S)
+        digests = {}
+        for name, agent in agents.items():
+            with agent.host._lock:
+                digests[name] = (agent.host.version,
+                                 tree_digest(params_to_jax(agent.host.params)))
+        published = status["published"]
+        for name, got in digests.items():
+            if got != (published["version"], published["digest"]):
+                raise AssertionError(f"agent {name} holds {got}, published "
+                                     f"{published}")
+        hop_ms = {kind: [1e3 * (times["A"][v] - times["B"][v])
+                         for v in sorted(times["B"]) if v in times["A"]]
+                  for kind, times in (("delivery", delivered), ("install", installs))}
+
+        # The relay SIGKILL drill: a wave of A's takes the server mid-epoch,
+        # the relay dies, A plays a wave into the outage, the replacement
+        # relay restarts on the same spool.
+        wave("A")
+        relay.kill()
+        v_kill = max(server.status()["version"], agents["A"].model_version)
+        wave("A")
+        relay = RelayProcess(root, relay_cfg, workdir, "replacement")
+        wave("A")
+        wave("B")
+
+        def heal():
+            deadline = time.monotonic() + 15
+            while time.monotonic() < deadline:
+                s = server.status()
+                if s and s["version"] > v_kill and agents["A"].model_version > v_kill:
+                    return
+                time.sleep(0.2)
+            wave("A")
+
+        server.wait(lambda s: (s["version"] > v_kill
+                               and agents["A"].model_version > v_kill),
+                    "training past the relay kill, installed by A",
+                    timeout_s=FLEET_TIMEOUT_S, poll=heal)
+        # A resync from A, held below the relay's cached keyframe.
+        agents["A"].transport.request_resync(0)
+        for agent in agents.values():
+            if not agent.spool.flush(deadline_s=60):
+                raise AssertionError("an agent's spool never flushed")
+        time.sleep(1.0)
+        relay_result = relay.close()
+        relay = None
+        sent = lanes()
+
+        def reconciled(s):
+            rows = s["accounting"]["agents"]
+            return all(rows.get(lane, {}).get("max_seq") == n
+                       and rows[lane]["contiguous"] for lane, n in sent.items())
+
+        status = server.wait(reconciled, "every leaf sequence accounted",
+                             timeout_s=FLEET_TIMEOUT_S)
+        dispatches = {n: a.host.dispatches - d0[n] for n, a in agents.items()}
+        agent_counts = flash_counts()
+        a_version = agents["A"].model_version
+    finally:
+        for agent in agents.values():
+            agent.disable_agent()
+        if relay is not None:
+            relay.kill()
+        server.stop()
+
+    # Gates.
+    stats = status["stats"]
+    if stats["learner_errors"] or stats["dropped"] or stats["publish_errors"]:
+        raise AssertionError(f"server stats {stats}: {status['last_learner_error']}")
+    check_clean_guardrails(status)
+    for lane, n in sent.items():
+        row = status["accounting"]["agents"].get(lane)
+        if row != {"max_seq": n, "accepted": n, "contiguous": True}:
+            raise AssertionError(f"ingest accounting of {lane}: {row}, sent {n}")
+    total = sum(sent.values())
+    if stats["trajectories"] != total:
+        raise AssertionError(f"trained {stats['trajectories']} trajectories, "
+                             f"sent {total} (zero loss, zero double-train)")
+    decoded = status["decoded_by"]
+    if decoded != {"native": total, "python": 0, "columnar": 0}:
+        raise AssertionError(f"decoders {decoded}; {total} trajectories ingested")
+    updates = stats["updates"]
+    kernels = status["kernels"]
+    server_counts = (kernels["flash_fwd"], kernels["flash_dq"], kernels["flash_dkv"])
+    if server_counts != tuple(updates * c for c in per_update):
+        raise AssertionError(f"server launches {server_counts} over {updates} "
+                             f"updates; expected {updates} x {per_update}")
+    n_dispatch = sum(dispatches.values())
+    if agent_counts != ((n_layers - 1) * n_dispatch, 0, 0):
+        raise AssertionError(f"agent launches {agent_counts} over {n_dispatch} "
+                             f"dispatches")
+    if first_counts != per_update:
+        # compare_update's kernel side (the plain side launches nothing).
+        raise AssertionError(f"first update launches {first_counts}")
+    if not a_version > v_kill:
+        raise AssertionError(f"agent A at version {a_version}, relay killed at {v_kill}")
+    relay_stats = relay_result["stats"]
+    if not (relay_stats["resyncs_served"] >= 1
+            and relay_stats["trajectory_frames_forwarded"] > 0):
+        raise AssertionError(f"replacement relay stats {relay_stats}")
+    rows = _progress_rows(server_dir)
+    if len(rows) != updates or not all(
+            math.isfinite(float(r[k])) for r in rows for k in ("RhoMean", "KL")):
+        raise AssertionError(f"{len(rows)} epoch log rows for {updates} updates: "
+                             f"{[(r.get('RhoMean'), r.get('KL')) for r in rows]}")
+
+    # Measurements.
+    decoder = NativeDecoder()
+    if not all(isinstance(decoder.decode(p), DecodedTrajectory) for p in payloads):
+        raise AssertionError("the native codec fell back on B's payloads")
+    native_ms = statistics.mean(host_ms(lambda p=p: decoder.decode(p), 20)
+                                for p in payloads)
+    python_ms = statistics.mean(host_ms(lambda p=p: deserialize_actions(p), 5)
+                                for p in payloads)
+    profile = json.loads(Path(cfg["profile"]["path"]).read_text())
+    return {"plain": plain, "cpu": cpu, "first_counts": first_counts,
+            "on_actors": on_actors,
+            "update_ms": update_ms, "updates": updates,
+            "server_counts": server_counts, "per_update": per_update,
+            "agent_counts": agent_counts, "dispatches": dispatches,
+            "wall": wall, "trajectories": total, "decoded": decoded,
+            "digests": digests, "v_kill": v_kill, "a_version": a_version,
+            "relay": relay_stats,
+            "duplicates": status["accounting"]["duplicates"],
+            "rho_mean": [float(r["RhoMean"]) for r in rows],
+            "native_ms": native_ms, "python_ms": python_ms,
+            "payload_bytes": statistics.mean(len(p) for p in payloads),
+            "hop_ms": hop_ms, "profile": profile}
+
+
+def ppo_learner(device, workdir: Path, learned: dict) -> dict:
+    """Phase 14: PPO at the flagship arch in this process. Its first update
+    on phase 5's first batch through the kernels against the plain
+    attention (phase 5's bars) and, at f32, against the CPU on the same
+    index sets; then PPO_UPDATES updates on phase 5's first wave with the
+    launches of each counted (16 minibatches x n_layers of K1, K2 and K3:
+    nothing outside the minibatch loop evaluates); the KL stop (a
+    ``target_kl`` of -1 trips it after the first minibatch: ``StopIter``
+    1 on the card and on the CPU, and the pi params and pi Adam state after
+    the update bit-equal to those after the first minibatch alone); and
+    the learning checks of tests/test_ppo.py (CartPole) and
+    tests/test_impala.py (stale behavior) on the card."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from relayrl_tpu_torch.algorithms import build_algorithm
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+    from relayrl_tpu_torch.algorithms.ppo import draw_minibatches
+    from relayrl_tpu_torch.envs import make
+    from relayrl_tpu_torch.ops.flash import flash_attention_plain
+    from relayrl_tpu_torch.runtime.local_runner import LocalRunner
+    from relayrl_tpu_torch.types import ActionRecord
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    batch = learned["batch"]
+    rows = int(batch["obs"].shape[0])
+    algo = build_learner(device, workdir / "learner", algorithm="PPO", hp=PPO_HP)
+    idx, _ = draw_minibatches(algo.state.rng, rows, algo.train_iters,
+                              algo.minibatch_count)
+    if tuple(idx.shape) != (PPO_UPDATE_MINIBATCHES, PPO_MINIBATCH_ROWS):
+        raise AssertionError(f"index sets {tuple(idx.shape)}")
+    params0 = copy.deepcopy(algo.state.params)
+    zero_flash_counts()
+    plain = compare_update(algo, params0, batch, device,
+                           lambda q, k, v: flash_attention_plain(q, k, v, True)[0],
+                           idx_sets=idx)
+    first_counts = flash_counts()
+    n_layers = SLICE_ARCH["n_layers"]
+    per_update = (PPO_UPDATE_MINIBATCHES * n_layers,) * 3
+    if first_counts != per_update:
+        raise AssertionError(f"first update launches {first_counts}, expected {per_update}")
+
+    # The KL stop on the card: the whole update against its first minibatch.
+    def stop_run(index_sets):
+        params = copy.deepcopy(params0)
+        state = algo.fresh_state(params)
+        update = algo.make_update(algo.policy, target_kl=-1.0)
+        state, metrics = update(state, {k: torch.as_tensor(v, device=device)
+                                        for k, v in batch.items()}, index_sets)
+        pi = {n: p.detach().clone() for n, p in state.params.named_parameters()
+              if not n.startswith("vf")}
+        adam = [(float(st["step"]), st["exp_avg"].clone(), st["exp_avg_sq"].clone())
+                for st in (state.pi_opt.state[p] for p in
+                           state.pi_opt.param_groups[0]["params"])]
+        return pi, adam, read_metrics(metrics)
+
+    full_pi, full_adam, full_m = stop_run(idx)
+    one_pi, one_adam, _ = stop_run(idx[:1])
+    if full_m["StopIter"] != 1.0:
+        raise AssertionError(f"StopIter {full_m['StopIter']} on the card")
+    for name, p in full_pi.items():
+        if not torch.equal(p, one_pi[name]):
+            raise AssertionError(f"pi param {name} moved after the KL stop")
+    for (s1, m1, v1), (s2, m2, v2) in zip(full_adam, one_adam):
+        if not (s1 == s2 == 1.0 and torch.equal(m1, m2) and torch.equal(v1, v2)):
+            raise AssertionError(f"pi Adam state moved after the KL stop: steps {s1}, {s2}")
+
+    # The same update on the CPU, at f32, on the same index sets, with and
+    # without the stop.
+    f32 = build_learner(device, workdir / "learner_f32",
+                        arch={**SLICE_ARCH, "precision": "float32"},
+                        algorithm="PPO", hp=PPO_HP)
+    cpu = compare_update_to_cpu(f32, copy.deepcopy(f32.state.params), batch, idx)
+    cpu_stop = compare_update_to_cpu(f32, copy.deepcopy(f32.state.params), batch,
+                                     idx, target_kl=-1.0)
+    if cpu_stop["metrics"]["StopIter"] != 1.0:
+        raise AssertionError(f"StopIter {cpu_stop['metrics']['StopIter']} at f32")
+    del f32
+
+    # PPO_UPDATES updates on phase 5's first wave, launches per update.
+    per, seconds = [], []
+    for records in learned["first_wave"]:
+        zero_flash_counts()
+        t0 = time.perf_counter()
+        updated = algo.receive_trajectory(records)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = flash_counts()
+        if not updated:
+            if counts != (0, 0, 0):
+                raise AssertionError(f"launches {counts} without an update")
+            continue
+        per.append(counts)
+        seconds.append(elapsed)
+    if len(per) != PPO_UPDATES or any(c != per_update for c in per):
+        raise AssertionError(f"launches per update {per}; expected {PPO_UPDATES} "
+                             f"x {per_update}")
+    metrics = read_metrics(algo._last_metrics)
+    if algo.version != PPO_UPDATES or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"PPO at version {algo.version}: {metrics}")
+    profile_device(lambda: algo.train_on_batch(batch), 1, "update")
+    del algo
+
+    # Learning, on the card: tests/test_ppo.py's CartPole check.
+    runner = LocalRunner(make("CartPole-v1"), "PPO", env_dir=str(workdir / "cartpole"),
+                         seed=0, device=device, **PPO_CARTPOLE_HP)
+    cart = runner.train(epochs=PPO_CARTPOLE_EPOCHS, max_steps=200)
+    if not cart["avg_return_last_window"] > PPO_CARTPOLE_BAR:
+        raise AssertionError(f"PPO CartPole: {cart}")
+
+    # tests/test_impala.py's stale-behavior check.
+    impala = build_algorithm(
+        "IMPALA", obs_dim=4, act_dim=2, traj_per_epoch=4, hidden_sizes=[32],
+        lr=1e-2, ent_coef=0.0, env_dir=str(workdir / "stale"), device=device)
+    ratio_means = []
+    for s in range(STALE_EPISODES):
+        rng = np.random.default_rng(s)
+        recs = []
+        for i in range(12):
+            act = int(rng.random() < 0.3)
+            recs.append(ActionRecord(
+                obs=rng.standard_normal(4).astype(np.float32), act=np.int64(act),
+                rew=1.0 if act == 1 else 0.0,
+                data={"logp_a": np.float32(np.log(0.3 if act == 1 else 0.7)),
+                      "v": np.float32(0.0)},
+                done=(i == 11)))
+        if impala.receive_trajectory(recs):
+            ratio_means.append(read_metrics(impala._last_metrics)["RhoMean"])
+    obs = np.random.default_rng(5).standard_normal((16, 4)).astype(np.float32)
+    with torch.no_grad():
+        logp, _, _ = impala.policy.evaluate(
+            impala.state.params, torch.as_tensor(obs, device=device),
+            torch.ones(16, dtype=torch.int64, device=device))
+    p_one = float(torch.exp(logp).mean())
+    if not p_one > STALE_BAR or not all(0.0 < r <= 1.0 + 1e-6 for r in ratio_means):
+        raise AssertionError(f"IMPALA stale behavior: P(action 1) {p_one}, "
+                             f"RhoMean {ratio_means}")
+    return {"plain": plain, "cpu": cpu, "cpu_stop": cpu_stop, "per_update": per_update,
+            "launches": tuple(sum(c[i] for c in per) for i in range(3)),
+            "updates": len(per), "seconds": seconds, "metrics": metrics,
+            "stop_metrics": full_m, "cartpole": cart, "p_one": p_one,
+            "stale_updates": len(ratio_means)}
 
 
 def main() -> int:
@@ -2774,35 +3431,127 @@ def main() -> int:
     g_fwd, g_dq, g_dkv = guard["server_counts"]
     ga_fwd = guard["agent_counts"][0]
 
+    # 13. the async fleet over the native plane, through a relay
+    fleet = async_fleet(device, root, root / "build" / "chip_smoke_fleet", learned)
+    f_fwd, f_dq, f_dkv = fleet["server_counts"]
+    fa_fwd = fleet["agent_counts"][0]
+    plain, cpu = fleet["plain"], fleet["cpu"]
+    print(f"[fleet] IMPALA first update on phase 5's first batch (behavior log-probs "
+          f"from the f32 model): launches "
+          f"(flash_fwd, flash_dq, flash_dkv) {fleet['first_counts']}; kernels vs plain "
+          f"attention max metric diff {plain['metric_err']:.3e} (tol "
+          f"{UPDATE_METRIC_TOL:g} x max(1, |m|)), max param diff {plain['param_err']:.3e} "
+          f"(tol 2 x Adam step bound), mean param diff {plain['mean_diff_share']:.4f} of "
+          f"the mean movement (tol {UPDATE_MEAN_DIFF_SHARE:g}); RhoMean "
+          f"{plain['metrics']['RhoMean']:.6g}, KL {plain['metrics']['KL']:.6g}; card vs "
+          f"cpu (f32): max metric diff {cpu['metric_err']:.3e}, max param diff "
+          f"{cpu['param_err']:.3e} (tol {MLP_PARAM_ATOL:g}); {cpu['n_floored']} elements "
+          f"below Adam's floor {ADAM_FLOOR:g}, max diff there {cpu['floor_err']:.3e} "
+          f"(tol lr x steps)", flush=True)
+    print("[fleet] (not gated) the same first update on the actors' behavior log-probs, "
+          "kernels vs plain attention: " + ", ".join(
+              f"{k} {a:.6g} vs {b:.6g}" for k, (a, b) in fleet["on_actors"].items()),
+          flush=True)
+    print(f"[fleet] (not gated) IMPALA update in this process: {fleet['update_ms']:.2f} "
+          f"ms per update (updates 2-4 of [{IMPALA_HP['traj_per_epoch']}, "
+          f"{IMPALA_HP['bucket_lengths'][0]}], synchronized) on {smi.splitlines()[0]}",
+          flush=True)
+    print(f"[fleet] chaos_server IMPALA over native + relay process (native up, zmq "
+          f"down): agent A {DIST_LANES} lanes through the relay (zmq), agent B "
+          f"{FLEET_LANES_B} lanes direct (native); {fleet['updates']} updates; server "
+          f"launches {fleet['server_counts']} = {fleet['updates']} x "
+          f"{fleet['per_update']}; agents' flash_fwd {fa_fwd} = "
+          f"{SLICE_ARCH['n_layers'] - 1} x {sum(fleet['dispatches'].values())} "
+          f"dispatches; decoders {fleet['decoded']} for {fleet['trajectories']} "
+          f"trajectories; A and B at version {fleet['digests']['A'][0]} sha256-equal to "
+          f"the publish ({fleet['digests']['A'][1][:16]})", flush=True)
+    print(f"[fleet] relay SIGKILL at version {fleet['v_kill']}, a wave into the "
+          f"outage, replacement on the same spool: A at version {fleet['a_version']}; "
+          f"accepted == max_seq == sent, contiguous, trained == sent "
+          f"({fleet['trajectories']}), {fleet['duplicates']} duplicate(s) dropped; "
+          f"replacement relay served {fleet['relay']['resyncs_served']:g} resync(s) from "
+          f"its cached keyframe ({fleet['relay']['keyframe_cache_hits']:g} cache hits), "
+          f"forwarded {fleet['relay']['trajectory_frames_forwarded']:g} trajectory "
+          f"frames; RhoMean per update {[round(r, 4) for r in fleet['rho_mean']]}",
+          flush=True)
+    prof = fleet["profile"]
+    hops = "; ".join(
+        f"{kind} {[round(h, 2) for h in hop]} ms"
+        + (f" (median {sorted(hop)[len(hop) // 2]:.2f})" if hop else " (not measured)")
+        for kind, hop in fleet["hop_ms"].items())
+    print(f"[fleet] (not gated) staging decode of B's payloads "
+          f"({fleet['payload_bytes']:.0f} bytes): native codec "
+          f"{fleet['native_ms']:.4f} ms vs Python {fleet['python_ms']:.4f} ms per "
+          f"trajectory; relay hop's added latency (A through the relay minus B "
+          f"direct, per version; both agents share this process): {hops}"
+          + f"; server learner: dispatch {prof['timings_ms']['dispatch_s']:.2f} ms, "
+          f"fence {prof['timings_ms']['device_wait_s']:.2f} ms, device busy "
+          + ("not measured" if prof.get("device_busy_ms") is None else
+             f"{prof['device_busy_ms']:.2f} ms")
+          + f" per update over {prof['updates']} updates; {fleet['wall']:.1f} s for "
+          f"{FLEET_WAVES} waves of both agents; on {smi.splitlines()[0]}", flush=True)
+
+    # 14. PPO on the flagship, in-process
+    ppo = ppo_learner(device, root / "build" / "chip_smoke_ppo", learned)
+    p_fwd, p_dq, p_dkv = ppo["launches"]
+    plain, cpu, stop = ppo["plain"], ppo["cpu"], ppo["stop_metrics"]
+    print(f"[ppo] first update ({PPO_UPDATE_MINIBATCHES} minibatches of "
+          f"[{PPO_MINIBATCH_ROWS}, {SLICE_ARCH['max_seq_len']}]) kernels vs plain "
+          f"attention: max metric diff {plain['metric_err']:.3e}, max param diff "
+          f"{plain['param_err']:.3e} (tol 2 x Adam step bound), mean param diff "
+          f"{plain['mean_diff_share']:.4f} of the mean movement; card vs cpu (f32, same "
+          f"index sets): max metric diff {cpu['metric_err']:.3e}, max param diff "
+          f"{cpu['param_err']:.3e}; {cpu['n_floored']} elements below Adam's floor, max "
+          f"diff there {cpu['floor_err']:.3e}; StopIter {plain['metrics']['StopIter']:g}",
+          flush=True)
+    print(f"[ppo] KL stop (target_kl -1): StopIter {stop['StopIter']:g} on the card and "
+          f"{ppo['cpu_stop']['metrics']['StopIter']:g} at f32 vs the cpu; pi params and "
+          f"pi Adam state (steps 1) bit-equal to the first minibatch's", flush=True)
+    steady = ppo["seconds"][1:]
+    print(f"[ppo] {ppo['updates']} updates on phase 5's first wave: launches per update "
+          f"{ppo['per_update']} (16 minibatches x {SLICE_ARCH['n_layers']} layers); "
+          f"(not gated) {1e3 * sum(steady) / len(steady):.2f} ms per update over updates "
+          f"2-{ppo['updates']} (first {1e3 * ppo['seconds'][0]:.2f} ms) on "
+          f"{smi.splitlines()[0]}", flush=True)
+    print(f"[ppo] learning on the card: PPO CartPole-v1 avg return "
+          f"{ppo['cartpole']['avg_return_last_window']:.2f} after {PPO_CARTPOLE_EPOCHS} "
+          f"epochs (bar {PPO_CARTPOLE_BAR:g}); IMPALA from stale behavior, "
+          f"{STALE_EPISODES} episodes, {ppo['stale_updates']} updates: P(action 1) "
+          f"{ppo['p_one']:.4f} (bar {STALE_BAR:g}), RhoMean in (0, 1]", flush=True)
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:116",
         "launches": (run["launches"] + fwd + r_fwd + decode["launches"] + a_fwd + d_fwd
-                     + ga_fwd + g_fwd),
+                     + ga_fwd + g_fwd + fa_fwd + f_fwd + p_fwd),
         "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd,
                              "decode_vs_window": decode["launches"],
                              "distributed_agent": a_fwd, "distributed_server": d_fwd,
-                             "guardrails_agents": ga_fwd, "guardrails_server": g_fwd},
+                             "guardrails_agents": ga_fwd, "guardrails_server": g_fwd,
+                             "fleet_agents": fa_fwd, "fleet_server": f_fwd,
+                             "ppo_learner": p_fwd},
         **main_flash,
     }, {
         "name": "flash_dq",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:223",
-        "launches": dq + r_dq + d_dq + g_dq,
+        "launches": dq + r_dq + d_dq + g_dq + f_dq + p_dq,
         "launches_by_path": {"learner": dq, "local_loop": r_dq, "distributed_server": d_dq,
-                             "guardrails_server": g_dq},
+                             "guardrails_server": g_dq, "fleet_server": f_dq,
+                             "ppo_learner": p_dq},
         **main_bwd["flash_dq"],
     }, {
         "name": "flash_dkv",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:255",
-        "launches": dkv + r_dkv + d_dkv + g_dkv,
+        "launches": dkv + r_dkv + d_dkv + g_dkv + f_dkv + p_dkv,
         "launches_by_path": {"learner": dkv, "local_loop": r_dkv,
-                             "distributed_server": d_dkv, "guardrails_server": g_dkv},
+                             "distributed_server": d_dkv, "guardrails_server": g_dkv,
+                             "fleet_server": f_dkv, "ppo_learner": p_dkv},
         **main_bwd["flash_dkv"],
     }] + [{
         "name": name,

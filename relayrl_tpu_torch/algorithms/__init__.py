@@ -10,6 +10,8 @@ from relayrl_tpu_torch.algorithms.base import (
     register_algorithm,
     registered_algorithms,
 )
+from relayrl_tpu_torch.algorithms.impala import IMPALA, ImpalaState
+from relayrl_tpu_torch.algorithms.ppo import PPO, PPOState
 from relayrl_tpu_torch.algorithms.reinforce import REINFORCE, ReinforceState
 
 __all__ = [
@@ -17,6 +19,10 @@ __all__ = [
     "build_algorithm",
     "register_algorithm",
     "registered_algorithms",
+    "IMPALA",
+    "ImpalaState",
+    "PPO",
+    "PPOState",
     "REINFORCE",
     "ReinforceState",
 ]

@@ -12,10 +12,13 @@ restored params. Run it as::
 with keys::
 
     algorithm, obs_dim, act_dim, hyperparams   — TrainingServer ctor
+                       (algorithm: REINFORCE, PPO or IMPALA)
     device           — torch device (default: the GPU)
     server_type + addr overrides               — transport plane (zmq:
                        agent_listener_addr, trajectory_addr,
-                       model_pub_addr; grpc: bind_addr)
+                       model_pub_addr; grpc and native: bind_addr;
+                       native_grpc: false pins grpc to grpcio, the plane
+                       with typed nacks)
     scratch          — working dir (config/checkpoints/status live here)
     checkpoint_every — learner.checkpoint_every_epochs
     dedup_window     — learner.ingest_dedup_window
@@ -26,8 +29,8 @@ with keys::
     status_path      — JSON status file, atomically rewritten ~3x/s:
                        {pid, t, version, stats, accounting, registered,
                         kernels, resume, publish_bytes, last_publish,
-                        timings, guardrails, probes_disabled, telemetry
-                        [, published][, rolled_back]}
+                        timings, guardrails, probes_disabled, telemetry,
+                        transport, decoded_by[, published][, rolled_back]}
     run_s            — optional auto-exit
     profile          — optional {"after": a, "updates": n, "path": p}: once
                        the server has made ``a`` updates, profile the next
@@ -43,7 +46,9 @@ rollback, ``rolled_back`` holds the restored train state's fingerprint
 rollback count changes.
 
 ``kernels`` holds the flash kernels' launch counts in this process
-(``flash_fwd``, ``flash_dq``, ``flash_dkv``); ``resume`` the restored
+(``flash_fwd``, ``flash_dq``, ``flash_dkv``); ``transport`` the server
+transport's class; ``decoded_by`` which decoder took each trajectory
+(``TrainingServer.decoded_by``); ``resume`` the restored
 version, params digest and Adam step counts, read before the server
 starts. SIGTERM runs the server's own signal path (final checkpoint +
 ledger sidecar + clean shutdown); SIGKILL is the drill.
@@ -196,7 +201,7 @@ def main(argv=None) -> None:
     from relayrl_tpu_torch.runtime.server import TrainingServer
 
     addr_keys = ("agent_listener_addr", "trajectory_addr", "model_pub_addr",
-                 "bind_addr")
+                 "bind_addr", "native_grpc")
     addrs = {k: cfg[k] for k in addr_keys if k in cfg}
     server = TrainingServer(
         cfg.get("algorithm", "REINFORCE"),
@@ -245,6 +250,8 @@ def main(argv=None) -> None:
                                       server.publish_bytes.items()},
                     "last_publish": server.last_publish,
                     "timings": dict(server.timings),
+                    "transport": type(server.transport).__name__,
+                    "decoded_by": dict(server.decoded_by),
                     "guardrails": guard,
                     # 1 when the probes disabled themselves after a
                     # failure (the guardrails attach them when enabled).

@@ -80,12 +80,12 @@ def actor_proc(idx: int, server_type: str, agent_addrs: dict, env_id: str,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--algo", default="REINFORCE",
-                    help="any registered algorithm (the port has REINFORCE)")
+                    help="any registered algorithm (REINFORCE, PPO, IMPALA)")
     ap.add_argument("--env", default="cartpole", choices=sorted(_ENV_IDS))
     ap.add_argument("--transport", default="zmq",
                     choices=["zmq", "grpc", "native"],
-                    help="the port speaks zmq and grpc; native raises "
-                         "NotImplementedError")
+                    help="the trajectory/model plane (native is the "
+                         "C++ core, built at first use)")
     ap.add_argument("--actors", type=int, default=1)
     ap.add_argument("--episodes", type=int, default=200,
                     help="episodes PER actor")

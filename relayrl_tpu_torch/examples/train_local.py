@@ -1,7 +1,8 @@
 """Minimum end-to-end slice on the port: in-process actor + learner, no sockets.
 
 Twin of ``examples/train_local.py``, with the same flags and
-hyperparameters; it runs on the GPU (``--device cpu`` runs it on the CPU)::
+hyperparameters (``--algo`` REINFORCE, PPO or IMPALA); it runs on the GPU
+(``--device cpu`` runs it on the CPU)::
 
     python -m relayrl_tpu_torch.examples.train_local --algo REINFORCE \
         --env cartpole --baseline --updates 400 --target 480
@@ -20,7 +21,7 @@ import time
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--algo", default="REINFORCE",
-                    help="any registered algorithm (the port has REINFORCE)")
+                    help="any registered algorithm (REINFORCE, PPO, IMPALA)")
     ap.add_argument("--env", default="cartpole",
                     choices=["cartpole", "pendulum", "lunarlander"])
     ap.add_argument("--baseline", action="store_true",

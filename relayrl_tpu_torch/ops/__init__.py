@@ -1,5 +1,5 @@
-"""Numerical ops: GAE on padded batches, attention (plain tensor versions
-and the CUDA flash kernels)."""
+"""Numerical ops: GAE and V-trace on padded batches, attention (plain
+tensor versions and the CUDA flash kernels)."""
 
 from relayrl_tpu_torch.ops.gae import (
     discount_cumsum,
@@ -8,6 +8,7 @@ from relayrl_tpu_torch.ops.gae import (
     normalize_advantages,
     rewards_to_go,
 )
+from relayrl_tpu_torch.ops.vtrace import VTraceReturns, vtrace
 
 __all__ = [
     "discount_cumsum",
@@ -15,4 +16,6 @@ __all__ = [
     "masked_mean_std",
     "normalize_advantages",
     "rewards_to_go",
+    "VTraceReturns",
+    "vtrace",
 ]

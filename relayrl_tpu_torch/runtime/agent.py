@@ -16,7 +16,9 @@ learner crash.
 PolicyActor`; ``VectorAgent`` a :class:`~relayrl_tpu_torch.runtime.
 vector_actor.VectorActorHost` whose N lanes register as N logical agents
 over one connection. Both take ``device`` (default: the GPU; without one
-the caller must pass ``device="cpu"``). Not ported: the anakin host mode
+the caller must pass ``device="cpu"``) and ``server_type`` ("zmq",
+"grpc", "native" or "auto", which negotiates against the live server as
+the JAX agent does). Not ported: the anakin host mode
 (``ROADMAP.md`` queue 1 item 8), the tracing hooks and the fleet snapshot
 emitter (item 12).
 """

@@ -2,11 +2,13 @@
 
 Counterpart of :mod:`relayrl_tpu.runtime.server`, single host, for the
 on-policy family. Transport threads put raw payloads on an ingest queue; a
-staging thread decodes them (per-record msgpack, or a columnar RLD1 frame)
-into a decoded queue; one learner thread drains it into the algorithm's
-update, which enters the in-flight window unfenced; a publisher thread
-turns each update's params snapshot into a model-wire v2 frame (or a v1
-bundle) and broadcasts it. Sequence-tagged trajectories are admitted at
+staging thread decodes them (per-record msgpack through the native codec
+when its library loads, else in Python, or a columnar RLD1 frame) into a
+decoded queue; the native transport's drain hands over trajectories its
+C++ core already decoded, through the same guardrail funnel; one learner
+thread drains the queue into the algorithm's update, which enters the
+in-flight window unfenced; a publisher thread turns each update's params
+snapshot into a model-wire v2 frame (or a v1 bundle) and broadcasts it. Sequence-tagged trajectories are admitted at
 most once per agent (:class:`~relayrl_tpu_torch.runtime.spool.
 SequenceLedger`), and the ledger is saved beside every checkpoint, so a
 resumed server dedups exactly what its restored params already trained
@@ -35,8 +37,8 @@ every exception it catches is counted in ``stats["learner_errors"]``.
 Three parts of the JAX server are not ported; the constructor raises
 :class:`NotImplementedError` when the config turns one on: the serving
 plane (``ROADMAP.md`` queue 1 item 9), distributed tracing and fleet
-aggregation (item 12) and multi-host (item 11). ``server_type`` "native"
-raises too (item 4), as does the tensorboard writer (item 12).
+aggregation (item 12) and multi-host (item 11), as does the tensorboard
+writer (item 12).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ import torch
 from relayrl_tpu_torch.algorithms import build_algorithm, registered_algorithms
 from relayrl_tpu_torch.config import ConfigLoader
 from relayrl_tpu_torch.models import resolve_device
+from relayrl_tpu_torch.telemetry.aggregate import is_snapshot_frame
 from relayrl_tpu_torch.transport.base import (
     BATCH_KIND_ENVELOPES,
     batch_kind,
@@ -63,17 +66,6 @@ from relayrl_tpu_torch.transport.base import (
 )
 from relayrl_tpu_torch.types.columnar import DecodedTrajectory
 from relayrl_tpu_torch.types.trajectory import deserialize_actions
-
-# Fleet telemetry snapshot frames (the JAX package's telemetry/aggregate.py
-# RLS1 frames) ride the trajectory plane; fleet aggregation is not ported,
-# so the server recognises them and drops them instead of counting a
-# decode failure.
-_SNAPSHOT_MAGIC = b"RLS1"
-
-
-def is_snapshot_frame(payload) -> bool:
-    return bytes(payload[:4]) == _SNAPSHOT_MAGIC
-
 
 def split_ctx(agent_id: str) -> tuple[str, str | None]:
     """Strip a trace-context tag (``#t<trace>.<hop>.<ver>``) off an
@@ -163,10 +155,7 @@ class TrainingServer:
         device=None,
         **addr_overrides,
     ):
-        from relayrl_tpu_torch import transport as _transport
-
         self.config = ConfigLoader(algorithm_name, config_path)
-        _transport._resolve(server_type)  # native refuses before any work
         _refuse_unported(self.config, serving, tensorboard)
         self.server_type = server_type
         self._addr_overrides = addr_overrides
@@ -405,6 +394,12 @@ class TrainingServer:
         self.stats = {"trajectories": 0, "updates": 0, "dropped": 0,
                       "dropped_nonfinite": 0, "learner_errors": 0,
                       "publish_errors": 0}
+        # Which decoder took each trajectory: "native" (the C++ codec, in
+        # the native drain or through NativeDecoder), "python" (per-record
+        # msgpack in Python) or "columnar" (an RLD1 wire frame, parsed in
+        # Python). Counted past the dedup ledger and before validation, so
+        # on a clean run the three sum to the trajectories accepted.
+        self.decoded_by = {"native": 0, "python": 0, "columnar": 0}
         self.last_learner_error: str | None = None
         # Wire bytes of every publish by frame kind, appended by the
         # publisher thread (the keys are fixed, so readers on other
@@ -429,6 +424,7 @@ class TrainingServer:
         self.transport = make_server_transport(
             self.server_type, self.config, **self._addr_overrides)
         self.transport.on_trajectory = self._on_trajectory
+        self.transport.on_trajectory_decoded = self._on_trajectory_decoded
         self.transport.get_model = self._get_model
         self.transport.on_register = self._on_register
         self.transport.on_unregister = self._on_unregister
@@ -438,6 +434,11 @@ class TrainingServer:
             # typed nack (quarantine / overload) instead of a silent
             # server-side shed — see _check_ingest.
             self.transport.check_ingest = self._check_ingest
+        if getattr(self.transport, "serves_full_bundles_only", False):
+            # The native C++ gRPC long-polls ship the stored full bundle
+            # to every subscriber: delta frames would be encoded and never
+            # sent.
+            self._wire_encoder = None
         if self._wire_encoder is not None:
             # Pull transports (gRPC long-polls) choose delta-vs-full per
             # subscriber through this surface; the version probe keeps
@@ -664,6 +665,48 @@ class TrainingServer:
         self._retract(victim_id, victim_seq)
         self.guardrails.admission.note_dequeued(victim_id)
 
+    def _count_decoded(self, codec: str, n: int = 1) -> None:
+        with self._timings_lock:
+            self.decoded_by[codec] += n
+
+    def _on_trajectory_decoded(self, batch, codec: str = "native") -> None:
+        """A batch the native drain already decoded (``codec`` "native":
+        the C++ codec; "columnar": wire frames the drain parsed), one
+        queue entry per drain, skipping the staging thread. Sequence tags
+        ride the items' agent ids through the C++ core; they are split
+        and deduped here, and the clean id is written back. The funnel is
+        :meth:`_ingest_one`'s and the staging thread's: the halted shed,
+        the quarantine shed, then validation (admission governs the raw
+        ingest queue; the native core bounds this plane's depth)."""
+        g = self.guardrails
+        admitted = []
+        for item in batch:
+            clean_id, seq, admit = self._admit_seq(item.agent_id)
+            if not admit:
+                continue
+            self._count_decoded(codec)
+            if clean_id != item.agent_id:
+                item.agent_id = clean_id
+            if g is not None:
+                if self._halted:
+                    g._m_halted_drops.inc()
+                    continue
+                if g.quarantine.is_quarantined(clean_id):
+                    g.quarantine.count_rejected_send()
+                    self._retract(clean_id, seq)
+                    continue
+                if g.validate(clean_id, item) is None:
+                    continue
+            admitted.append((item, seq))
+        if not admitted:
+            return
+        try:
+            self._decoded.put_nowait([item for item, _ in admitted])
+        except queue.Full:
+            for item, seq in admitted:
+                self._retract(item.agent_id, seq)
+            self._count_dropped(len(admitted))
+
     def _get_model(self) -> tuple[int, bytes]:
         """Current full model as v1 bundle bytes (handshakes, artifact
         writes), serialized lazily from the latest published host tree,
@@ -760,10 +803,18 @@ class TrainingServer:
     def _staging_loop(self) -> None:
         from relayrl_tpu_torch.transport.base import BATCH_KIND_FRAMES
         from relayrl_tpu_torch.types.columnar import (
+            RawTrajectory,
             is_columnar_frame,
             parse_frame,
         )
 
+        decoder = None
+        try:
+            from relayrl_tpu_torch.types.columnar import NativeDecoder
+
+            decoder = NativeDecoder()
+        except RuntimeError:
+            pass  # native codec unavailable: pure-Python decode
         guard = self.guardrails
         while not self._stop.is_set():
             try:
@@ -781,6 +832,7 @@ class TrainingServer:
                     item = parse_frame(payload, agent_id=agent_id)
                     self._m_columnar_frames.inc()
                     self._m_columnar_bytes.inc(len(payload))
+                    self._count_decoded("columnar")
                 elif batch_kind(payload) == BATCH_KIND_FRAMES:
                     # Coalesced columnar segments of one lane: one seq,
                     # N frames.
@@ -790,8 +842,22 @@ class TrainingServer:
                             for p in parts]
                     self._m_columnar_frames.inc(len(parts))
                     self._m_columnar_bytes.inc(len(payload))
+                    self._count_decoded("columnar", len(parts))
+                elif decoder is not None:
+                    # Off-GIL msgpack -> columns; the Python decoder takes
+                    # only payloads the columnar schema cannot represent.
+                    item = decoder.decode(payload, agent_id=agent_id)
+                    if isinstance(item, RawTrajectory):
+                        raw = item.payload
+                        if item.is_envelope:
+                            _, raw = unpack_trajectory_envelope(raw)
+                        item = deserialize_actions(raw)
+                        self._count_decoded("python")
+                    else:
+                        self._count_decoded("native")
                 else:
                     item = deserialize_actions(payload)
+                    self._count_decoded("python")
             except Exception:
                 if columnar:
                     self._m_columnar_rejects.inc()
@@ -1256,7 +1322,14 @@ class TrainingServer:
         try:
             if enc is not None:
                 frame, info = enc.encode(version, arch, host_params)
-                self._faulted_publish(version, frame)
+                if getattr(self.transport, "needs_handshake_bytes", False):
+                    # The native core answers handshakes from pushed
+                    # bytes; a v2 publish rides with the v1 bundle for
+                    # set_model.
+                    self._faulted_publish(
+                        version, frame, handshake_bytes=self._get_model()[1])
+                else:
+                    self._faulted_publish(version, frame)
                 telemetry.emit("model_publish", version=version,
                                bytes=info["frame_bytes"], kind=info["kind"],
                                raw_bytes=info["raw_bytes"])
@@ -1278,15 +1351,16 @@ class TrainingServer:
         finally:
             self._write_model_artifact(version)
 
-    def _faulted_publish(self, version: int, frame: bytes) -> None:
+    def _faulted_publish(self, version: int, frame: bytes,
+                         **kwargs) -> None:
         """Model broadcast through the ``server.publish`` fault site."""
         if self._fault_publish is None:
-            self.transport.publish_model(version, frame)
+            self.transport.publish_model(version, frame, **kwargs)
             return
         for delay_s, part in self._fault_publish.inject(frame):
             if delay_s > 0:
                 time.sleep(delay_s)
-            self.transport.publish_model(version, part)
+            self.transport.publish_model(version, part, **kwargs)
 
     def _publish(self) -> None:
         """Synchronous publish on the learner thread (the

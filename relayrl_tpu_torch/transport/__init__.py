@@ -1,14 +1,15 @@
-"""Transport plane: the ZMQ and gRPC backends.
+"""Transport plane: the ZMQ, gRPC and native C++ backends.
 
 Counterpart of :mod:`relayrl_tpu.transport`. ``make_server_transport`` /
 ``make_agent_transport`` resolve a backend by name as the JAX package
 does, and speak its wire byte for byte, so a port agent feeds a JAX
-server and a JAX agent feeds a port server. ZMQ and the pure-grpcio gRPC
-backend are ported; ``server_type="native"`` raises
-:class:`NotImplementedError` (``ROADMAP.md`` queue 1 item 4: it needs
-``native/``'s C++ library, which the port does not load) and never falls
-back. ``"auto"`` resolves to ZMQ on both sides (the JAX package's
-``auto`` prefers native when its library loads).
+server and a JAX agent feeds a port server. ``"native"`` is the C++ core
+under ``native/``, which the port builds at first use
+(:mod:`relayrl_tpu_torch._native`). ``"auto"`` resolves to native when
+that library builds and loads, else zmq; on the agent side it negotiates
+against the live server. A server's ``"grpc"`` is the native C++ gRPC
+server when the library loads, unless the override ``native_grpc=False``
+pins the pure-grpcio backend (the one that answers typed nacks).
 """
 
 from __future__ import annotations
@@ -27,6 +28,43 @@ from relayrl_tpu_torch.transport.probe import (
     parse_host_port,
     probe_endpoint,
 )
+
+
+def _resolve_auto() -> str:
+    """``auto`` -> native framed-TCP when the C++ core loads, else zmq.
+    On the server (bind) side this local resolution defines the fleet's
+    protocol; on the agent side ``auto`` negotiates against the live
+    server first (:func:`_negotiate_agent_auto`)."""
+    from relayrl_tpu_torch.transport.native_backend import native_available
+
+    return "native" if native_available() else "zmq"
+
+
+# Conclusive probe verdicts, cached per endpoint with a short TTL: a
+# process that builds many agents against one server pays the probe
+# round-trip once, while a server swapped to another backend on the same
+# port ages out quickly. Inconclusive verdicts are never cached, and a
+# mismatch is never raised off a cached verdict.
+_PROBE_TTL_S = 10.0
+_probe_cache: dict[tuple[str, int], tuple[str, float]] = {}
+
+
+def _probe_cached(host: str, port: int, timeout_s: float = 0.75,
+                  refresh: bool = False) -> tuple[str, bool]:
+    """``(verdict, from_cache)``, so callers can tell a fresh probe from
+    a cache hit."""
+    import time
+
+    hit = _probe_cache.get((host, port))
+    if hit is not None and not refresh and time.monotonic() - hit[1] < _PROBE_TTL_S:
+        return hit[0], True
+    verdict = probe_endpoint(host, port, timeout_s=timeout_s)
+    if verdict in ("zmq", "native", "grpc"):
+        _probe_cache[(host, port)] = (verdict, time.monotonic())
+    else:
+        _probe_cache.pop((host, port), None)
+    return verdict, False
+
 
 _KNOWN_TYPES = ("zmq", "grpc", "native")
 
@@ -55,7 +93,47 @@ def _agent_handshake_addr(server_type: str, config: ConfigLoader,
     if server_type == "zmq":
         return overrides.get("agent_listener_addr",
                              config.get_agent_listener().address)
-    return overrides.get("server_addr", config.get_train_server().host_port)
+    if server_type == "grpc":
+        return overrides.get("server_addr", config.get_train_server().host_port)
+    return overrides.get("server_addr", config.get_traj_server().host_port)
+
+
+def _negotiate_agent_auto(config: ConfigLoader, overrides: dict,
+                          retry_window_s: float = 3.0) -> str:
+    """Agent-side ``auto``: probe each candidate backend's handshake
+    endpoint and pick the one whose server answers. Retries for
+    ``retry_window_s``; if every probe stays inconclusive, falls back to
+    the local resolution, loudly."""
+    import time
+
+    from relayrl_tpu_torch.transport.native_backend import native_available
+
+    candidates = ["native", "zmq", "grpc"] if native_available() else \
+                 ["zmq", "native", "grpc"]
+    deadline = time.monotonic() + retry_window_s
+    while True:
+        verdicts: dict[tuple[str, int], str] = {}
+        for cand in candidates:
+            host, port = parse_host_port(
+                _agent_handshake_addr(cand, config, overrides))
+            verdict = verdicts.get((host, port))
+            if verdict is None:
+                verdict, _ = _probe_cached(host, port)
+                verdicts[(host, port)] = verdict
+            if verdict == cand:
+                print(f"[Transport] auto -> {cand} (negotiated: server at "
+                      f"{host}:{port} speaks {verdict})", flush=True)
+                return cand
+        if time.monotonic() >= deadline:
+            break
+        time.sleep(0.25)
+    fallback = _resolve_auto()
+    print(f"[Transport] auto -> {fallback} (LOCAL FALLBACK — no server "
+          f"answered the protocol probes ({verdicts}); if the server comes "
+          f"up on a different backend this agent will time out. Pin "
+          f"server_type explicitly to avoid auto in mixed fleets.)",
+          flush=True)
+    return fallback
 
 
 def _verify_agent_protocol(server_type: str, config: ConfigLoader,
@@ -64,17 +142,28 @@ def _verify_agent_protocol(server_type: str, config: ConfigLoader,
     speaks a different protocol (instead of a silent handshake timeout)."""
     host, port = parse_host_port(
         _agent_handshake_addr(server_type, config, overrides))
-    verdict = probe_endpoint(host, port, timeout_s=0.75)
+    verdict, from_cache = _probe_cached(host, port)
+    if (from_cache and verdict in ("zmq", "native", "grpc")
+            and verdict != server_type):
+        # Never error off a (possibly stale) cache entry.
+        verdict, _ = _probe_cached(host, port, refresh=True)
     if verdict in ("zmq", "native", "grpc") and verdict != server_type:
         raise ProtocolMismatchError(
             f"server at {host}:{port} speaks {verdict!r} but this agent is "
             f"configured with server_type={server_type!r} — fix server_type "
-            f"on one end")
+            f"on one end (or use server_type='auto' on agents to negotiate)")
 
 
 def make_server_transport(server_type: str, config: ConfigLoader,
                           **overrides) -> ServerTransport:
-    server_type = _resolve(server_type)
+    server_type = (server_type or "zmq").lower()
+    if server_type == "auto":
+        server_type = _resolve_auto()
+        print(f"[Transport] auto -> {server_type} (server bind side)",
+              flush=True)
+    elif server_type not in _KNOWN_TYPES:
+        raise ValueError(
+            f"unknown server_type {server_type!r} (zmq|grpc|native|auto)")
     transport_params = config.get_transport_params()
     chunk_bytes = overrides.get("chunk_bytes",
                                 transport_params["chunk_bytes"])
@@ -83,14 +172,36 @@ def make_server_transport(server_type: str, config: ConfigLoader,
         # chunk frames.
         chunk_bytes = 0
     if server_type == "grpc":
+        bind_addr = overrides.get("bind_addr",
+                                  config.get_train_server().host_port)
+        idle_s = config.get_grpc_idle_timeout_s()
+        # The native C++ gRPC server (same wire protocol, so grpcio
+        # agents are unaffected) when the library loads; native_grpc=False
+        # pins the pure-grpcio backend.
+        from relayrl_tpu_torch.transport.native_backend import native_available
+
+        if overrides.get("native_grpc", True) and native_available():
+            from relayrl_tpu_torch.transport.native_backend import (
+                NativeGrpcServerTransport,
+            )
+
+            return NativeGrpcServerTransport(bind_addr=bind_addr,
+                                             idle_timeout_s=idle_s)
         from relayrl_tpu_torch.transport.grpc_backend import (
             GrpcServerTransport,
         )
 
-        return GrpcServerTransport(
+        return GrpcServerTransport(bind_addr=bind_addr, idle_timeout_s=idle_s)
+    if server_type == "native":
+        from relayrl_tpu_torch.transport.native_backend import (
+            NativeServerTransport,
+        )
+
+        return NativeServerTransport(
             bind_addr=overrides.get("bind_addr",
-                                    config.get_train_server().host_port),
-            idle_timeout_s=config.get_grpc_idle_timeout_s())
+                                    config.get_traj_server().host_port),
+            chunk_bytes=chunk_bytes,
+        )
     from relayrl_tpu_torch.transport.zmq_backend import ZmqServerTransport
 
     return ZmqServerTransport(
@@ -106,17 +217,37 @@ def make_server_transport(server_type: str, config: ConfigLoader,
 
 def make_agent_transport(server_type: str, config: ConfigLoader,
                          **overrides) -> AgentTransport:
-    """Build an agent transport. An explicit type is verified with a quick
-    probe so a mismatched fleet errors at construction
+    """Build an agent transport. ``server_type="auto"`` negotiates the
+    protocol against the live server; an explicit type is verified with a
+    quick probe so a mismatched fleet errors at construction
     (:class:`ProtocolMismatchError`) rather than timing out on
     ``fetch_model``. Pass ``probe=False`` to skip the pre-flight check."""
-    requested = (server_type or "zmq").lower()
-    server_type = _resolve(requested)
+    server_type = (server_type or "zmq").lower()
+    if server_type != "auto" and server_type not in _KNOWN_TYPES:
+        raise ValueError(
+            f"unknown server_type {server_type!r} (zmq|grpc|native|auto)")
     should_probe = overrides.pop("probe", True)
-    overrides.pop("negotiate_window_s", None)
-    if should_probe and requested != "auto":
+    negotiate_window_s = float(overrides.pop("negotiate_window_s", 3.0))
+    if server_type == "auto":
+        server_type = (_negotiate_agent_auto(
+                           config, overrides,
+                           retry_window_s=negotiate_window_s)
+                       if should_probe else _resolve_auto())
+    elif should_probe:
         _verify_agent_protocol(server_type, config, overrides)
     retry_cfg = overrides.get("retry", config.get_transport_params()["retry"])
+    if server_type == "zmq":
+        from relayrl_tpu_torch.transport.zmq_backend import ZmqAgentTransport
+
+        return ZmqAgentTransport(
+            agent_listener_addr=_agent_handshake_addr("zmq", config, overrides),
+            trajectory_addr=overrides.get(
+                "trajectory_addr", config.get_traj_server().address),
+            model_sub_addr=overrides.get(
+                "model_sub_addr", config.get_train_server().address),
+            identity=overrides.get("identity"),
+            retry=retry_cfg,
+        )
     if server_type == "grpc":
         from relayrl_tpu_torch.transport.grpc_backend import (
             GrpcAgentTransport,
@@ -128,15 +259,13 @@ def make_agent_transport(server_type: str, config: ConfigLoader,
             poll_timeout_s=config.get_grpc_idle_timeout_s() + 5.0,
             retry=retry_cfg,
         )
-    from relayrl_tpu_torch.transport.zmq_backend import ZmqAgentTransport
+    from relayrl_tpu_torch.transport.native_backend import NativeAgentTransport
 
-    return ZmqAgentTransport(
-        agent_listener_addr=_agent_handshake_addr("zmq", config, overrides),
-        trajectory_addr=overrides.get(
-            "trajectory_addr", config.get_traj_server().address),
-        model_sub_addr=overrides.get(
-            "model_sub_addr", config.get_train_server().address),
+    return NativeAgentTransport(
+        server_addr=_agent_handshake_addr("native", config, overrides),
         identity=overrides.get("identity"),
+        heartbeat_s=overrides.get(
+            "heartbeat_s", config.get_transport_params()["heartbeat_s"]),
         retry=retry_cfg,
     )
 

@@ -8,15 +8,21 @@ markers folded; ``n_steps`` counts real steps and ``final_obs`` /
 ``final_mask`` / ``marker_truncated`` carry what the markers contributed.
 :func:`encode_columnar_frame` and :func:`parse_frame` are the columnar
 wire (an RLD1 kind-0 blob with a CRC footer), byte for byte the JAX
-package's. The ctypes decode over ``native/``'s library is not ported:
-the port never loads the JAX package's shared library, so the server
-decodes per-record msgpack trajectories in Python.
+package's. :class:`NativeDecoder` wraps ``rl_decode`` of the port's
+build of ``native/codec.cc`` (:mod:`relayrl_tpu_torch._native`): it parses
+a msgpack wire trajectory off the GIL into one RLD1 blob, terminal markers
+folded with the semantics of
+:func:`relayrl_tpu_torch.data.batching.fold_trailing_markers`, so the
+ZMQ/gRPC ingest reuses the native decoder even though their sockets live
+in Python. Without the library the server decodes in Python.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import struct
+import threading
 import zlib
 
 import numpy as np
@@ -418,3 +424,70 @@ def parse_frame(payload, agent_id: str | None = None) -> DecodedTrajectory:
     if agent_id is not None:
         item.agent_id = agent_id
     return item
+
+
+# -- ctypes wrapper over rl_decode (shared with the zmq/grpc ingest path) --
+
+_codec_lock = threading.Lock()
+_codec_lib = None
+_codec_checked = False
+
+
+def _load_codec():
+    global _codec_lib, _codec_checked
+    with _codec_lock:
+        if _codec_checked:
+            return _codec_lib
+        _codec_checked = True
+        from relayrl_tpu_torch._native import find_library
+
+        path = find_library()
+        if path is None:
+            return None
+        try:
+            lib = ctypes.CDLL(path)
+            lib.rl_decode.restype = ctypes.c_long
+            lib.rl_decode.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+                ctypes.c_int, ctypes.c_char_p, ctypes.c_size_t]
+        except (OSError, AttributeError):
+            return None
+        _codec_lib = lib
+        return _codec_lib
+
+
+def native_codec_available() -> bool:
+    return _load_codec() is not None
+
+
+class NativeDecoder:
+    """Per-thread reusable decode buffer around ``rl_decode``.
+
+    The ctypes call releases the GIL for the whole msgpack parse + column
+    build, so a staging thread decodes while the learner thread runs the
+    device step.
+    """
+
+    def __init__(self, initial_cap: int = 1 << 20):
+        self._lib = _load_codec()
+        if self._lib is None:
+            raise RuntimeError("native codec library unavailable")
+        self._cap = initial_cap
+        self._buf = ctypes.create_string_buffer(self._cap)
+
+    def decode(self, payload: bytes, agent_id: str = "?",
+               has_envelope: bool = False):
+        """Payload (or envelope) bytes -> DecodedTrajectory | RawTrajectory."""
+        while True:
+            n = self._lib.rl_decode(payload, len(payload),
+                                    agent_id.encode(), int(has_envelope),
+                                    self._buf, self._cap)
+            if n < 0:
+                return RawTrajectory(agent_id, payload)
+            if n <= self._cap:
+                # Slice-copy out of the reusable buffer: the parsed columns
+                # are zero-copy views and must not alias the next decode.
+                item, _ = parse_blob(memoryview(self._buf[:n]))
+                return item
+            self._cap = int(n) * 2
+            self._buf = ctypes.create_string_buffer(self._cap)

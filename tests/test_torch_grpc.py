@@ -183,18 +183,34 @@ def test_factories_build_grpc_and_refuse_native(tmp_cwd):
         make_server_transport,
     )
 
+    from relayrl_tpu_torch.transport import native_bindings
+    from relayrl_tpu_torch.transport.native_backend import native_available
+
     config = ConfigLoader(None, None, create_if_missing=False)
     addr = f"127.0.0.1:{free_port()}"
-    server = make_server_transport("grpc", config, bind_addr=addr)
+    # native_grpc=False pins the pure-grpcio servicer; without it a server
+    # takes the native C++ gRPC server whenever the library builds.
+    server = make_server_transport("grpc", config, bind_addr=addr,
+                                   native_grpc=False)
     agent = make_agent_transport("grpc", config, server_addr=addr,
                                  probe=False, identity="fx")
     assert isinstance(server, port_grpc.GrpcServerTransport)
     assert isinstance(agent, port_grpc.GrpcAgentTransport)
     assert agent._poll_timeout_s == config.get_grpc_idle_timeout_s() + 5.0
     agent.close()
-    for maker in (make_server_transport, make_agent_transport):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            maker("native", config)
+    native = make_server_transport("grpc", config,
+                                   bind_addr=f"127.0.0.1:{free_port()}")
+    assert isinstance(native, native_bindings.NativeGrpcServerTransportImpl
+                      if native_available() else
+                      port_grpc.GrpcServerTransport)
+    # native is no longer refused: it builds the C++ framed-TCP backend.
+    server = make_server_transport("native", config,
+                                   bind_addr=f"127.0.0.1:{free_port()}")
+    agent = make_agent_transport("native", config, probe=False,
+                                 server_addr=f"127.0.0.1:{free_port()}")
+    assert isinstance(server, native_bindings.NativeServerTransportImpl)
+    assert isinstance(agent, native_bindings.NativeAgentTransportImpl)
+    agent.close()
 
 
 # -- live pairs ------------------------------------------------------------
@@ -206,13 +222,13 @@ def _config(tmp, **sections) -> str:
     return path
 
 
-def _port_server(tmp, addr, config_path):
+def _port_server(tmp, addr, config_path, **kw):
     from relayrl_tpu_torch.runtime.server import TrainingServer
 
     return TrainingServer("REINFORCE", obs_dim=4, act_dim=2,
                           env_dir=str(tmp), config_path=config_path,
                           hyperparams=dict(HP), server_type="grpc",
-                          bind_addr=addr, device="cpu")
+                          bind_addr=addr, device="cpu", **kw)
 
 
 def _jax_server(tmp, addr, config_path):
@@ -298,7 +314,13 @@ def test_jax_agent_trains_port_server(tmp_cwd):
             assert agent.model_version == got_version == 3
             assert tree_digest(jax.device_get(agent.actor.params)) == digest
             dec = agent.actor._wire_decoder
-            assert dec.keyframes_applied >= 1 and dec.deltas_applied >= 1
+            if getattr(server.transport, "serves_full_bundles_only", False):
+                # The native C++ gRPC server (what "grpc" resolves to when
+                # the library builds) ships full v1 bundles only.
+                assert server._wire_encoder is None
+                assert dec is None  # every install was a v1 bundle
+            else:
+                assert dec.keyframes_applied >= 1 and dec.deltas_applied >= 1
             row = server.ingest_accounting()["agents"][agent.transport.identity]
             assert row == {"max_seq": 6, "accepted": 6, "contiguous": True}
             assert server.stats["learner_errors"] == 0
@@ -321,8 +343,11 @@ def test_quarantine_nack_rides_the_wire(pair, tmp_cwd):
     config_path = _config(tmp_cwd, guardrails={
         "strike_threshold": 1, "quarantine_cooldown_s": 300.0})
     addr = f"127.0.0.1:{free_port()}"
-    server = (_port_server if server_pkg == "port" else _jax_server)(
-        tmp_cwd, addr, config_path)
+    # Typed nacks exist only on the grpcio servicer: the native C++ gRPC
+    # server acks before Python sees a send. Both servers pin it.
+    server = (_port_server(tmp_cwd, addr, config_path, native_grpc=False)
+              if server_pkg == "port" else
+              _jax_server(tmp_cwd, addr, config_path))
     try:
         if agent_pkg == "port":
             from relayrl_tpu_torch.runtime.agent import Agent

@@ -270,12 +270,18 @@ def test_refusals(tmp_cwd):
              ({"learner": {"distributed": {"coordinator": "h:1",
                                            "num_processes": 2}}}, {},
               "item 11"),
-             ({}, {"tensorboard": True}, "item 12"),
-             ({}, {"server_type": "native"}, "item 4")]
+             ({}, {"tensorboard": True}, "item 12")]
     for sections, kwargs, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             TrainingServer(config_path=_config(tmp_cwd, **sections),
                            **base, **kwargs)
+    # The relay refuses what the server refuses, with the same message.
+    from relayrl_tpu_torch.relay import RelayNode
+
+    for sections in ({"telemetry": {"trace_sample_rate": 0.5}},
+                     {"telemetry": {"fleet_interval_s": 1.0}}):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            RelayNode(config_path=_config(tmp_cwd, **sections), start=False)
     config_path = _config(tmp_cwd)
     with pytest.raises(NotImplementedError, match="item 8"):
         VectorAgent(num_envs=2, config_path=config_path, host_mode="anakin",

@@ -8,8 +8,8 @@
 * The trajectory spool and the sequence ledger pass the JAX package's unit
   tests (``tests/test_recovery.py``), parametrised over both packages.
 * The columnar branch of the epoch buffer pads like the JAX package's.
-* The native transport, which the port does not have, raises and never
-  falls back to ZMQ; gRPC builds its own backend.
+* The native and gRPC transports build their own backends and never fall
+  back to ZMQ.
 
 Tolerances: none — every comparison here is exact.
 """
@@ -33,6 +33,7 @@ from relayrl_tpu_torch.transport import base as port_base
 from relayrl_tpu_torch.transport import modelwire as port_wire
 from relayrl_tpu_torch.transport import retry as port_retry
 from relayrl_tpu_torch.types import columnar as port_columnar
+from tests._util import free_port
 
 OBS, ACT = 5, 3
 
@@ -376,29 +377,32 @@ def test_ledger_retract_reopens_seq(mods):
 
 @pytest.mark.parametrize("server_type", ["grpc", "native"])
 def test_unported_transports_raise(server_type):
-    """native raises; grpc, ported since, builds its own backend (never a
-    fallback to ZMQ)."""
+    """Both were refused before their ports; now each builds its own
+    backend (never a fallback to ZMQ): native the C++ framed-TCP core, a
+    grpc server the native C++ gRPC server when the library builds (else
+    grpcio), a grpc agent grpcio."""
     from relayrl_tpu_torch.config import ConfigLoader
     from relayrl_tpu_torch.transport import (
+        grpc_backend,
         make_agent_transport,
         make_server_transport,
+        native_bindings,
     )
+    from relayrl_tpu_torch.transport.native_backend import native_available
 
     config = ConfigLoader(None, None, create_if_missing=False)
+    addr = f"127.0.0.1:{free_port()}"
+    server = make_server_transport(server_type, config, bind_addr=addr)
+    agent = make_agent_transport(server_type, config, probe=False,
+                                 server_addr=addr)
     if server_type == "grpc":
-        from relayrl_tpu_torch.transport import grpc_backend
-
-        server = make_server_transport(server_type, config)
-        agent = make_agent_transport(server_type, config, probe=False)
-        assert isinstance(server, grpc_backend.GrpcServerTransport)
+        assert isinstance(server, native_bindings.NativeGrpcServerTransportImpl
+                          if native_available() else
+                          grpc_backend.GrpcServerTransport)
         assert isinstance(agent, grpc_backend.GrpcAgentTransport)
-        agent.close()
     else:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 4"):
-            make_server_transport(server_type, config)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 4"):
-            make_agent_transport(server_type, config, probe=False)
+        assert isinstance(server, native_bindings.NativeServerTransportImpl)
+        assert isinstance(agent, native_bindings.NativeAgentTransportImpl)
+    agent.close()
     with pytest.raises(ValueError, match="unknown server_type"):
         make_server_transport("carrier-pigeon", config)

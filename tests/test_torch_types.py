@@ -8,7 +8,9 @@ port's import hygiene.
 * Importing every module of ``relayrl_tpu_torch`` loads no JAX, no flax, no
   ``relayrl_tpu``, and none of ``msgpack``, ``ml_dtypes`` and ``grpc``
   (which the machines with the GPU need not have); no module, nor
-  ``chip_smoke.py``, names the JAX packages in an import statement.
+  ``chip_smoke.py``, names the JAX packages in an import statement; and
+  no shared library of the port (the native transport library, a CUDA
+  kernel library) is built or opened at import.
 """
 
 import ast
@@ -149,6 +151,18 @@ def _imports(path):
             yield node.module
 
 
+# The port's shared libraries mapped into the process (every one of them
+# lives under build/relayrl_tpu_torch/), and whether the native library
+# was built or its codec probed.
+_OPENED_LIBRARIES = (
+    "import relayrl_tpu_torch._native as nat\n"
+    "import relayrl_tpu_torch.types.columnar as col\n"
+    "maps = open('/proc/self/maps').read().split('\\n')\n"
+    "opened = sorted({l.split()[-1] for l in maps\n"
+    "                 if 'relayrl_tpu_torch' in l or 'librelayrl' in l})\n"
+    "print('OPENED', opened, 'BUILT', nat._built, 'CODEC', col._codec_checked)\n")
+
+
 def test_port_imports_no_jax():
     sources = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "relayrl_tpu_torch")):
@@ -166,19 +180,22 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'relayrl_tpu',\n"
         "              'msgpack', 'ml_dtypes', 'grpc'))\n"
-        "print('LOADED', bad)\n")
+        "print('LOADED', bad)\n"
+        + _OPENED_LIBRARIES)
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, env=env, cwd=REPO)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LOADED []" in out.stdout, out.stdout
+    assert "OPENED [] BUILT {} CODEC False" in out.stdout, out.stdout
 
 
 def test_distributed_loop_imports_clean():
-    """The server and agent entry points, the guardrails and the gRPC
-    backend load no JAX and nothing of the JAX package; none of them loads
-    msgpack, ml_dtypes or grpc (the transports import them where they
-    encode, decode and connect)."""
+    """The server and agent entry points, the guardrails, the gRPC and
+    native backends, the relay and the learners load no JAX and nothing of
+    the JAX package; none of them loads msgpack, ml_dtypes or grpc (the
+    transports import them where they encode, decode and connect), and
+    none builds or opens a shared library."""
     code = (
         "import sys\n"
         "import relayrl_tpu_torch\n"
@@ -186,14 +203,21 @@ def test_distributed_loop_imports_clean():
         "import relayrl_tpu_torch.runtime.agent\n"
         "import relayrl_tpu_torch.guardrails\n"
         "import relayrl_tpu_torch.transport.grpc_backend\n"
+        "import relayrl_tpu_torch.transport.native_backend\n"
+        "import relayrl_tpu_torch.transport.native_bindings\n"
+        "import relayrl_tpu_torch.relay\n"
+        "import relayrl_tpu_torch.algorithms.ppo\n"
+        "import relayrl_tpu_torch.algorithms.impala\n"
         "lazy = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "              ('msgpack', 'ml_dtypes', 'grpc'))\n"
         "from relayrl_tpu_torch.runtime import TrainingServer, VectorAgent\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'relayrl_tpu'))\n"
-        "print('LAZY', lazy, 'LOADED', bad)\n")
+        "print('LAZY', lazy, 'LOADED', bad)\n"
+        + _OPENED_LIBRARIES)
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, env=env, cwd=REPO)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LAZY [] LOADED []" in out.stdout, out.stdout
+    assert "OPENED [] BUILT {} CODEC False" in out.stdout, out.stdout
