@@ -135,7 +135,25 @@ Phases, each of which fails the run:
    minibatch); PPO on CartPole-v1 above an average return of 40 within 12
    epochs and IMPALA's P(action 1) above 0.6 from stale behavior
    (tests/test_ppo.py's and tests/test_impala.py's bars) on the card; the
-   update time and device busy share.
+   update time and device busy share;
+15. the off-policy family on the card, each of DQN, C51, DDPG, TD3 and SAC
+   at its golden's ``config.json`` (``examples/golden/{cartpole_dqn,
+   cartpole_c51, ddpg_pendulum, td3_pendulum, sac_pendulum}``: f32 MLP
+   128x128, batch 256, ring 100,000), its ring filled past
+   ``update_after`` by a seeded random behavior on CartPole or Pendulum:
+   one update on the card against the same update on the CPU from the same
+   params, on the same batch with the same injected noise (phase 9's bars
+   and Adam-floor rule); ``updates_per_dispatch`` 4 against 4 single
+   updates, bit-equal; the ms per gradient update (not gated); DQN on
+   CartPole and SAC on Pendulum through ``LocalRunner`` at the goldens'
+   hyperparameters for a few updates (returns finite, versions advancing
+   with every hot swap, DQN's epsilon annealed into every bundle; env
+   steps/s printed); then DQN in a ``chaos_server`` process over ZMQ fed
+   by a ``VectorAgent`` of 8 CartPole lanes: exact ingest accounting, more
+   gradient updates than ingests (the server trains the list of batches
+   each ingest returns), the agent's params sha256-equal to the publish,
+   no learner error, a clean guardrail book. K1-K6 launch zero times on
+   every off-policy path, in both processes.
 
 Phases 3 and 6 also hold every kernel to its plain version at head dims
 128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
@@ -340,6 +358,23 @@ RECALL_UPDATES = 3
 # so it is held to Adam's step bound, lr per step taken.
 MLP_METRIC_RTOL, MLP_METRIC_ATOL, MLP_PARAM_ATOL = 1e-4, 1e-6, 1e-5
 ADAM_FLOOR = 1e-6
+# Phase 15: the off-policy family at its goldens' configs
+# (examples/golden/<name>/config.json: f32 MLP 128x128, batch 256, ring
+# 100,000). OFFPOLICY_WARM updates before the card-vs-CPU update (so the
+# targets have moved off the online networks), OFFPOLICY_TIMED updates
+# timed, updates_per_dispatch OFFPOLICY_FUSED against single updates;
+# LocalRunner updates (episodes that trained) per learning check; the DQN
+# server's lanes and the ingests that trained before its gates.
+OFFPOLICY_GOLDENS = {"DQN": "cartpole_dqn", "C51": "cartpole_c51",
+                     "DDPG": "ddpg_pendulum", "TD3": "td3_pendulum",
+                     "SAC": "sac_pendulum"}
+OFFPOLICY_WARM = 3
+OFFPOLICY_TIMED = 50
+OFFPOLICY_FUSED = 4
+OFFPOLICY_LOCAL = {"DQN": 20, "SAC": 4}
+OFFPOLICY_LANES = 8
+OFFPOLICY_SERVER_STEPS = 1600   # env steps over all lanes: update_after + ~600
+OFFPOLICY_SERVER_INGESTS = 6
 
 
 def _dtype_name(dtype) -> str:
@@ -3145,6 +3180,387 @@ def ppo_learner(device, workdir: Path, learned: dict) -> dict:
             "stale_updates": len(ratio_means)}
 
 
+def golden_offpolicy(root: Path, name: str) -> tuple[dict, int, int, str]:
+    """An off-policy golden's hyperparameters (its ``config.json``, the
+    EpochLogger dump), its widths and its env."""
+    cfg = json.loads((root / "examples" / "golden" / OFFPOLICY_GOLDENS[name]
+                      / "config.json").read_text())
+    hp = {k: v for k, v in cfg.items()
+          if k not in ("algorithm", "exp_name", "obs_dim", "act_dim")}
+    env_id = "CartPole-v1" if cfg["discrete"] else "Pendulum-v1"
+    return hp, int(cfg["obs_dim"]), int(cfg["act_dim"]), env_id
+
+
+def build_offpolicy(device, root: Path, name: str, workdir: Path, **overrides):
+    """The port's ``name`` learner at its golden's hyperparameters (f32,
+    ``seed_salt`` 0), and its env id."""
+    from relayrl_tpu_torch.algorithms import build_algorithm
+
+    hp, obs_dim, act_dim, env_id = golden_offpolicy(root, name)
+    algo = build_algorithm(name, obs_dim=obs_dim, act_dim=act_dim,
+                           env_dir=str(workdir), config_path=_local_config(workdir),
+                           device=device, logger_kwargs={"output_dir": str(workdir / "logs")},
+                           **{**hp, "seed_salt": 0, **overrides})
+    return algo, env_id
+
+
+def random_episodes(env_id: str, steps: int, seed: int) -> list:
+    """Episodes of a seeded uniform-random behavior on ``env_id`` until
+    ``steps`` steps, as ``PolicyActor`` ships them: one record per step
+    with the reward the action earned, then the terminal marker (the
+    successor observation on a time-limit ending)."""
+    import numpy as np
+
+    from relayrl_tpu_torch.envs import make
+    from relayrl_tpu_torch.types.action import ActionRecord
+
+    env = make(env_id)
+    rng = np.random.default_rng(seed)
+    discrete = hasattr(env.action_space, "n")
+    episodes, total = [], 0
+    while total < steps:
+        obs, _ = env.reset(seed=int(rng.integers(2 ** 31)))
+        records = []
+        while True:
+            act = (np.int32(rng.integers(env.action_space.n)) if discrete
+                   else rng.uniform(-2.0, 2.0, 1).astype(np.float32))
+            nxt, rew, term, trunc, _ = env.step(int(act) if discrete else act)
+            records.append(ActionRecord(obs=np.asarray(obs, np.float32), act=act,
+                                        rew=float(rew)))
+            obs = nxt
+            if term or trunc:
+                records.append(ActionRecord(
+                    obs=None if term else np.asarray(obs, np.float32), rew=0.0,
+                    done=True, truncated=not term))
+                break
+        episodes.append(records)
+        total += len(records) - 1
+    return episodes
+
+
+def _to(value, device):
+    """A batch, a noise tensor or a tuple of them, moved to ``device``."""
+    import torch
+
+    if value is None:
+        return None
+    if isinstance(value, tuple):
+        return tuple(_to(v, device) for v in value)
+    if isinstance(value, dict):
+        return {k: torch.as_tensor(v).to(device) for k, v in value.items()}
+    return value.to(device)
+
+
+def compare_offpolicy_to_cpu(algo, trees: dict, batch: dict, noise) -> dict:
+    """One update of ``algo``'s family from the networks ``trees`` (fresh
+    Adam) on ``batch`` with the injected ``noise``, on the card and on the
+    CPU: ``compare_update_to_cpu``'s bars (metrics within
+    ``MLP_METRIC_RTOL`` plus ``MLP_METRIC_ATOL``; every parameter element
+    within ``MLP_PARAM_ATOL``, except where the CPU side's RMS gradient fell
+    below ``ADAM_FLOOR``: there Adam's step bound, the learning rate per
+    step; a target network's element takes its online element's rule)."""
+    import dataclasses
+
+    import torch
+
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+
+    least_rms = {}
+
+    def track_rms(opt, args, kwargs):
+        beta2 = opt.param_groups[0]["betas"][1]
+        for p, st in opt.state.items():
+            rms = st["exp_avg_sq"].sqrt() / math.sqrt(1 - beta2 ** float(st["step"]))
+            least_rms[p] = torch.minimum(least_rms[p], rms) if p in least_rms else rms
+
+    sides = {}
+    for side, dev in (("card", algo.device), ("cpu", torch.device("cpu"))):
+        modules = {f: algo.load_module(f, tree, dev) for f, tree in trees.items()}
+        state = algo.fresh_state(modules, rng=getattr(algo.state, "rng", None))
+        opts = [o for o in vars(state).values() if isinstance(o, torch.optim.Optimizer)]
+        if side == "cpu":
+            for opt in opts:
+                opt.register_step_post_hook(track_rms)
+        state, metrics = algo._update(state, _to(batch, dev), _to(noise, dev))
+        sides[side] = (state, read_metrics(metrics), opts)
+    (card, got_m, _), (cpu, want_m, opts) = sides["card"], sides["cpu"]
+    metric_err = param_err = floor_err = 0.0
+    n_floored = 0
+    for key, value in want_m.items():
+        err = abs(got_m[key] - value)
+        if not err <= MLP_METRIC_RTOL * abs(value) + MLP_METRIC_ATOL:
+            raise AssertionError(f"{algo.ALGO_NAME} metric {key}: card {got_m[key]} "
+                                 f"vs cpu {value}")
+        metric_err = max(metric_err, err)
+    bound_of = {p: o.param_groups[0]["lr"] * float(o.state[p]["step"])
+                for o in opts for p in o.param_groups[0]["params"]}
+    for field in dataclasses.fields(cpu):
+        module = getattr(cpu, field.name)
+        if not isinstance(module, torch.nn.Module):
+            continue
+        online = dict(getattr(cpu, field.name.removeprefix("target_")).named_parameters())
+        on_card = dict(getattr(card, field.name).named_parameters())
+        for name, p in module.named_parameters():
+            diff = (on_card[name].detach().cpu() - p.detach()).abs()
+            noise_el = least_rms[online[name]] < ADAM_FLOOR
+            bound = torch.where(noise_el, bound_of[online[name]], MLP_PARAM_ATOL)
+            if not bool((diff <= bound).all()):
+                i = int((diff - bound).argmax())
+                raise AssertionError(
+                    f"{algo.ALGO_NAME} {field.name}.{name}: card vs cpu "
+                    f"{diff.flatten()[i].item()} above {bound.flatten()[i].item()}")
+            param_err = max(param_err, diff.where(~noise_el, 0.0).max().item())
+            floor_err = max(floor_err, diff.where(noise_el, 0.0).max().item())
+            n_floored += int(noise_el.sum())
+    return {"metric_err": metric_err, "param_err": param_err, "n_floored": n_floored,
+            "floor_err": floor_err, "metrics": got_m}
+
+
+def offpolicy_learners(device, root: Path, workdir: Path) -> dict:
+    """Phase 15a-b: each off-policy algorithm at its golden's config on the
+    card. Its ring filled past ``update_after`` with random-behavior
+    episodes; ``OFFPOLICY_WARM`` updates from its initial params (so the
+    targets differ from the online networks), then one update from there on
+    the card against the same update on the CPU, on the same sampled batch
+    with the same noise (:func:`compare_offpolicy_to_cpu`); the ms per
+    gradient update over ``OFFPOLICY_TIMED`` updates (synchronized, the
+    staged batch's host-to-device copy included) and the device's busy share
+    over 10 more (``profile_device``); and ``updates_per_dispatch``
+    4 against 4 single updates from the same seed on the same batches,
+    bit-equal, in one dispatch against four."""
+    import shutil
+
+    import torch
+
+    from relayrl_tpu_torch.types.model_bundle import leaf_manifest
+    from relayrl_tpu_torch.weights import tree_digest
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    out = {}
+    for i, name in enumerate(OFFPOLICY_GOLDENS):
+        algo, env_id = build_offpolicy(device, root, name, workdir / name)
+        for ep in random_episodes(env_id, algo.update_after + algo.batch_size, SEED + i):
+            algo.buffer.add_episode(ep)
+        for _ in range(OFFPOLICY_WARM):
+            algo.train_on_batch(algo.buffer.sample(algo.batch_size))
+        trees = algo.state_trees()
+        batch = algo.buffer.sample(algo.batch_size)
+        noise, _ = algo._draw_noise(algo.state)
+        cmp = compare_offpolicy_to_cpu(algo, trees, batch, noise)
+
+        staged = algo._sample_staged(1)
+        for _ in range(3):
+            algo.train_on_batch(staged)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OFFPOLICY_TIMED):
+            algo.train_on_batch(staged)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / OFFPOLICY_TIMED
+        print(f"[offpolicy] {name}:", flush=True)
+        prof = profile_device(lambda: algo.train_on_batch(staged), 10, "gradient update")
+
+        loop, _ = build_offpolicy(device, root, name, workdir / f"{name}_loop")
+        fused, _ = build_offpolicy(device, root, name, workdir / f"{name}_fused",
+                                   updates_per_dispatch=OFFPOLICY_FUSED)
+        batches = [algo.buffer.sample(algo.batch_size) for _ in range(OFFPOLICY_FUSED)]
+        for b in batches:
+            loop.train_on_batch(b)
+        before = fused.inflight.dispatch_count
+        fused.train_on_batches(batches)
+        torch.cuda.synchronize()
+        if (fused.inflight.dispatch_count - before != 1
+                or (loop.version, fused.version) != (OFFPOLICY_FUSED, OFFPOLICY_FUSED)):
+            raise AssertionError(f"{name} fused: {fused.inflight.dispatch_count - before} "
+                                 f"dispatches, versions {loop.version}/{fused.version}")
+        a, b = loop.state_trees(), fused.state_trees()
+        for field in a:
+            if tree_digest(a[field]) != tree_digest(b[field]):
+                raise AssertionError(f"{name} fused vs unfused: {field} differs")
+        tensors = sum(len(leaf_manifest(tree)[1]) for tree in a.values())
+        if dict(loop._last_metrics) != dict(fused._last_metrics):
+            raise AssertionError(f"{name} fused metrics {dict(fused._last_metrics)} != "
+                                 f"{dict(loop._last_metrics)}")
+        out[name] = {**cmp, "ms": ms, "profile": prof, "fused_tensors": tensors,
+                     "env": env_id,
+                     "batch": algo.batch_size, "hidden": algo.arch["hidden_sizes"],
+                     "ring": algo.buffer.capacity}
+    return out
+
+
+def offpolicy_local(device, root: Path, workdir: Path) -> dict:
+    """Phase 15c: ``LocalRunner`` on CartPole-v1 (DQN) and Pendulum-v1
+    (SAC) at the goldens' hyperparameters for ``OFFPOLICY_LOCAL`` updates
+    past ``update_after`` (an update is an episode that trained). Gates
+    what a short run shows: finite returns, the learner's version and the
+    actor's advancing together at every hot swap, DQN's epsilon annealed
+    into every bundle (falling, below its start, equal to the learner's
+    schedule), no flash or ring kernel. Returns the env steps/s and the
+    gradient updates."""
+    import shutil
+
+    import torch
+
+    from relayrl_tpu_torch.envs import make
+    from relayrl_tpu_torch.runtime import LocalRunner
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    out = {}
+    for name, updates in OFFPOLICY_LOCAL.items():
+        hp, _, _, env_id = golden_offpolicy(root, name)
+        seed = hp.pop("seed")  # seeds the learner and the actor alike
+        runner = LocalRunner(make(env_id), name, config_path=_local_config(workdir / name),
+                             env_dir=str(workdir / name), seed=seed, device=device,
+                             **{**hp, "seed_salt": 0})
+        algo, actor = runner.algorithm, runner.actor
+        swaps = []
+        swap = actor.maybe_swap
+
+        def spy(bundle, swap=swap, algo=algo):
+            installed = swap(bundle)
+            swaps.append((bundle.version, algo.version, bundle.arch.get("epsilon"),
+                          installed))
+            return installed
+
+        actor.maybe_swap = spy
+        t0 = time.perf_counter()
+        result = runner.train(epochs=updates)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        versions = [v for v, _, _, _ in swaps]
+        if (runner.updates != updates or len(swaps) != updates
+                or not all(ok and v == a for v, a, _, ok in swaps)
+                or versions != sorted(set(versions)) or versions[0] < 1
+                or actor.version != algo.version
+                or not all(math.isfinite(r) for r in result["returns"])):
+            raise AssertionError(f"{name} LocalRunner: updates {runner.updates}, swaps "
+                                 f"{swaps}, actor {actor.version}, learner {algo.version}")
+        if name in ("DQN", "C51"):
+            eps = [e for _, _, e, _ in swaps]
+            if not (all(x > y for x, y in zip(eps, eps[1:])) and eps[-1] < hp["epsilon_start"]
+                    and eps[-1] == algo.current_epsilon() == actor.arch["epsilon"]):
+                raise AssertionError(f"{name} epsilon into the bundles: {eps}")
+        out[name] = {"updates": runner.updates, "grad_updates": algo.version,
+                     "steps": actor.steps_served, "wall": wall,
+                     "avg_return": result["avg_return_last_window"],
+                     "epsilon": actor.arch.get("epsilon")}
+    return out
+
+
+def offpolicy_server(device, root: Path, workdir: Path) -> dict:
+    """Phase 15d: DQN at the cartpole_dqn golden's config in a
+    ``chaos_server`` process over ZMQ (the default config, guardrails on),
+    fed by a ``VectorAgent`` of ``OFFPOLICY_LANES`` CartPole lanes in this
+    process for ``OFFPOLICY_SERVER_STEPS`` env steps (the golden's
+    ``update_after`` and ~600 more), then until every sent trajectory is
+    ingested and the last publish installed. Gates: at least
+    ``OFFPOLICY_SERVER_INGESTS`` ingests that trained;
+    exact ingest accounting; more gradient updates than ingests that
+    trained (the list branch: each ingest trains every batch ``accumulate``
+    returns); the agent's params at the last publish's version sha256-equal
+    to it; no learner error and a clean guardrail book; no flash or ring
+    kernel in either process."""
+    import shutil
+
+    import numpy as np
+
+    from relayrl_tpu_torch.envs import SyncVectorEnv, make
+    from relayrl_tpu_torch.runtime.agent import VectorAgent
+    from relayrl_tpu_torch.weights import params_to_jax, tree_digest
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    ports = [_free_port() for _ in range(3)]
+    server_addrs = {"agent_listener_addr": f"tcp://127.0.0.1:{ports[0]}",
+                    "trajectory_addr": f"tcp://127.0.0.1:{ports[1]}",
+                    "model_pub_addr": f"tcp://127.0.0.1:{ports[2]}"}
+    agent_addrs = {"agent_listener_addr": server_addrs["agent_listener_addr"],
+                   "trajectory_addr": server_addrs["trajectory_addr"],
+                   "model_sub_addr": server_addrs["model_pub_addr"]}
+    hp, obs_dim, act_dim, env_id = golden_offpolicy(root, "DQN")
+    cfg = {"algorithm": "DQN", "obs_dim": obs_dim, "act_dim": act_dim,
+           "hyperparams": {**hp, "seed_salt": 0}, "device": str(device),
+           "scratch": str(workdir / "server"), "digests": True,
+           "status_path": str(workdir / "status.json"), **server_addrs}
+    agent_config = workdir / "agent_config.json"
+    agent_config.write_text(json.dumps({}))
+    server = ChaosServer(root, cfg, workdir / "server.log")
+    agent = None
+    try:
+        server.wait(lambda s: True, "the DQN server to come up")
+        agent = VectorAgent(num_envs=OFFPOLICY_LANES, config_path=str(agent_config),
+                            seed=SEED, probe=False, device=device,
+                            model_path=str(workdir / "client_model.rlx"), **agent_addrs)
+        venv = SyncVectorEnv([lambda: make(env_id)] * OFFPOLICY_LANES)
+        obs, _ = venv.reset(seed=SEED)
+        rewards = np.zeros(OFFPOLICY_LANES, np.float32)
+        steps = 0
+
+        def play(n):
+            # One stream of episodes across calls (no reset between them).
+            nonlocal obs, steps
+            for _ in range(n):
+                records = agent.request_for_actions(obs, rewards=rewards)
+                obs, rews, terms, truncs, infos = venv.step(
+                    [int(np.asarray(r.act).reshape(-1)[0]) for r in records])
+                rewards[:] = rews
+                for lane in range(OFFPOLICY_LANES):
+                    if terms[lane] or truncs[lane]:
+                        agent.flag_last_action(
+                            lane, float(rews[lane]), truncated=not terms[lane],
+                            final_obs=(infos[lane]["final_observation"]
+                                       if not terms[lane] else None),
+                            terminated=bool(terms[lane]))
+                        rewards[lane] = 0.0
+                steps += OFFPOLICY_LANES
+
+        zero_flash_counts()
+        zero_ring_counts()
+        t0 = time.perf_counter()
+        play(OFFPOLICY_SERVER_STEPS // OFFPOLICY_LANES)
+        wall = time.perf_counter() - t0
+        agent_counts = flash_counts() + ring_counts()
+        status = server.wait(
+            lambda s: (s["stats"]["trajectories"] == sum(agent.spool.sent_counts().values())
+                       and (s.get("published") or {}).get("version") == s["version"]
+                       and agent.model_version == s["version"]),
+            "every sent trajectory ingested and the last publish installed")
+        sent = agent.spool.sent_counts()
+        total = sum(sent.values())
+        with agent.host._lock:
+            agent_version = agent.host.version
+            agent_digest = tree_digest(params_to_jax(agent.host.params))
+            agent_epsilon = agent.host.arch["epsilon"]
+        stats = status["stats"]
+        if stats["learner_errors"] or stats["dropped"] or stats["publish_errors"]:
+            raise AssertionError(f"DQN server stats {stats}: "
+                                 f"{status['last_learner_error']}")
+        check_clean_guardrails(status)
+        for lane in agent.agent_ids:
+            row = status["accounting"]["agents"].get(lane)
+            if row != {"max_seq": sent[lane], "accepted": sent[lane], "contiguous": True}:
+                raise AssertionError(f"ingest accounting of {lane}: {row}, sent {sent[lane]}")
+        if not status["version"] > stats["updates"] >= OFFPOLICY_SERVER_INGESTS:
+            raise AssertionError(f"{status['version']} gradient updates over "
+                                 f"{stats['updates']} ingests that trained")
+        published = status["published"]
+        if (agent_version, agent_digest) != (published["version"], published["digest"]):
+            raise AssertionError(f"agent params at version {agent_version} "
+                                 f"({agent_digest}) != published {published}")
+        kernels = status["kernels"]
+        if any(kernels.values()) or any(agent_counts):
+            raise AssertionError(f"flash/ring launches: server {kernels}, agent "
+                                 f"{agent_counts}")
+        return {"updates": stats["updates"], "grad_updates": status["version"],
+                "trajectories": total, "steps": steps, "wall": wall,
+                "digest": agent_digest, "epsilon": agent_epsilon,
+                "timings": status["timings"], "kernels": kernels}
+    finally:
+        if agent is not None:
+            agent.disable_agent()
+        server.stop()
+
+
 def main() -> int:
     import torch
 
@@ -3519,6 +3935,49 @@ def main() -> int:
           f"{STALE_EPISODES} episodes, {ppo['stale_updates']} updates: P(action 1) "
           f"{ppo['p_one']:.4f} (bar {STALE_BAR:g}), RhoMean in (0, 1]", flush=True)
 
+    # 15. the off-policy family on the card
+    zero_flash_counts()
+    zero_ring_counts()
+    offp = offpolicy_learners(device, root, root / "build" / "chip_smoke_offpolicy")
+    for name, r in offp.items():
+        print(f"[offpolicy] {name} ({OFFPOLICY_GOLDENS[name]}: {r['env']}, f32 MLP "
+              f"{'x'.join(map(str, r['hidden']))}, batch {r['batch']}, ring {r['ring']}): "
+              f"one update card vs cpu on the same batch and noise: max metric diff "
+              f"{r['metric_err']:.3e}, max param diff {r['param_err']:.3e} (tol "
+              f"{MLP_PARAM_ATOL:g}); {r['n_floored']} elements below Adam's floor "
+              f"{ADAM_FLOOR:g}, max diff there {r['floor_err']:.3e} (tol lr x steps); "
+              f"updates_per_dispatch {OFFPOLICY_FUSED} vs {OFFPOLICY_FUSED} single updates "
+              f"bit-equal over {r['fused_tensors']} tensors; (not gated) {r['ms']:.3f} ms "
+              f"per gradient update over {OFFPOLICY_TIMED}, device busy "
+              + ("not measured" if r["profile"] is None else
+                 f"{r['profile']['busy_ms']:.4f} ms in {r['profile']['operations']:.0f} "
+                 f"operations")
+              + f" per update, on {smi.splitlines()[0]}", flush=True)
+    off_local = offpolicy_local(device, root, root / "build" / "chip_smoke_offpolicy_local")
+    for name, r in off_local.items():
+        print(f"[offpolicy] LocalRunner {name} at its golden's config: {r['updates']} "
+              f"updates (episodes that trained) = {r['grad_updates']} gradient updates, "
+              f"{r['steps']} env steps in {r['wall']:.2f} s ({r['steps'] / r['wall']:.1f} env "
+              f"steps/s, learner included) on {smi.splitlines()[0]}; versions advance with "
+              f"every hot swap, returns finite (avg {r['avg_return']:.1f})"
+              + ("" if r["epsilon"] is None else
+                 f", epsilon annealed into every bundle (last {r['epsilon']:.4f})"),
+              flush=True)
+    off_counts = flash_counts() + ring_counts()
+    if any(off_counts):
+        raise AssertionError(f"flash/ring kernels launched on the off-policy paths: "
+                             f"{off_counts}")
+    off_dist = offpolicy_server(device, root, root / "build" / "chip_smoke_offpolicy_dist")
+    print(f"[offpolicy] DQN chaos_server over ZMQ (default config, guardrails on) + "
+          f"VectorAgent ({OFFPOLICY_LANES} CartPole lanes): {off_dist['grad_updates']} "
+          f"gradient updates over {off_dist['updates']} ingests that trained (the list "
+          f"branch), {off_dist['trajectories']} trajectories, accepted == max_seq == sent; "
+          f"agent params at the last publish sha256-equal ({off_dist['digest'][:16]}), "
+          f"epsilon {off_dist['epsilon']:.4f}; flash/ring launches 0 in both processes; "
+          f"(not gated) {off_dist['steps'] / off_dist['wall']:.1f} env steps/s at the agent, "
+          f"server dispatch {1e3 * off_dist['timings']['dispatch_s'] / off_dist['updates']:.2f} "
+          f"ms per ingest on {smi.splitlines()[0]}", flush=True)
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -3531,7 +3990,7 @@ def main() -> int:
                              "distributed_agent": a_fwd, "distributed_server": d_fwd,
                              "guardrails_agents": ga_fwd, "guardrails_server": g_fwd,
                              "fleet_agents": fa_fwd, "fleet_server": f_fwd,
-                             "ppo_learner": p_fwd},
+                             "ppo_learner": p_fwd, "offpolicy": off_counts[0]},
         **main_flash,
     }, {
         "name": "flash_dq",
@@ -3541,7 +4000,7 @@ def main() -> int:
         "launches": dq + r_dq + d_dq + g_dq + f_dq + p_dq,
         "launches_by_path": {"learner": dq, "local_loop": r_dq, "distributed_server": d_dq,
                              "guardrails_server": g_dq, "fleet_server": f_dq,
-                             "ppo_learner": p_dq},
+                             "ppo_learner": p_dq, "offpolicy": off_counts[1]},
         **main_bwd["flash_dq"],
     }, {
         "name": "flash_dkv",
@@ -3551,7 +4010,8 @@ def main() -> int:
         "launches": dkv + r_dkv + d_dkv + g_dkv + f_dkv + p_dkv,
         "launches_by_path": {"learner": dkv, "local_loop": r_dkv,
                              "distributed_server": d_dkv, "guardrails_server": g_dkv,
-                             "fleet_server": f_dkv, "ppo_learner": p_dkv},
+                             "fleet_server": f_dkv, "ppo_learner": p_dkv,
+                             "offpolicy": off_counts[2]},
         **main_bwd["flash_dkv"],
     }] + [{
         "name": name,
@@ -3559,12 +4019,13 @@ def main() -> int:
         "source": "relayrl_tpu_torch/csrc/ring_flash.cu",
         "replaces": replaces,
         "launches": launches,
-        "launches_by_path": {"sp_learner": launches},
+        "launches_by_path": {"sp_learner": launches, "offpolicy": off},
         **main_ring[name],
-    } for name, replaces, launches in (
-        ("ring_chunk_fwd", "relayrl_tpu/parallel/ring_flash.py:86", ring_fwd),
-        ("ring_chunk_dq", "relayrl_tpu/parallel/ring_flash.py:119", ring_dq),
-        ("ring_chunk_dkv", "relayrl_tpu/parallel/ring_flash.py:147", ring_dkv))]
+    } for name, replaces, launches, off in (
+        ("ring_chunk_fwd", "relayrl_tpu/parallel/ring_flash.py:86", ring_fwd, off_counts[3]),
+        ("ring_chunk_dq", "relayrl_tpu/parallel/ring_flash.py:119", ring_dq, off_counts[4]),
+        ("ring_chunk_dkv", "relayrl_tpu/parallel/ring_flash.py:147", ring_dkv,
+         off_counts[5]))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -101,11 +101,18 @@ class AlgorithmBase(abc.ABC):
 
     # -- divergence-watchdog probes (guardrails plane) --
     def _guard_probe_tree(self):
-        """The param tree the health probes observe: ``state.params``
-        (the on-policy family's one params module), else the whole
-        state."""
+        """The param tree the health probes observe: ``state.params`` (the
+        on-policy and value families' one params module), else every
+        ``*_params`` field but the ``target_*`` ones (the actor-critic
+        families; a target is a polyak copy of what is already probed),
+        else the whole state."""
         params = getattr(self.state, "params", None)
-        return params if params is not None else self.state
+        if params is not None:
+            return params
+        fields = getattr(type(self.state), "__dataclass_fields__", {})
+        tree = {name: getattr(self.state, name) for name in fields
+                if name.endswith("_params") and not name.startswith("target_")}
+        return tree or self.state
 
     def _guard_pre_update(self):
         """A device copy of the probe target, queued BEFORE the update

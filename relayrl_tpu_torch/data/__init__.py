@@ -11,6 +11,7 @@ from relayrl_tpu_torch.data.batching import (
     stack_trajectories,
 )
 from relayrl_tpu_torch.data.replay_buffer import DEFAULT_BUCKETS, EpochBuffer
+from relayrl_tpu_torch.data.step_buffer import StepReplayBuffer
 
 __all__ = [
     "BatchStaging",
@@ -23,4 +24,5 @@ __all__ = [
     "stack_trajectories",
     "EpochBuffer",
     "DEFAULT_BUCKETS",
+    "StepReplayBuffer",
 ]

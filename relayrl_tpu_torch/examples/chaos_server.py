@@ -12,7 +12,7 @@ restored params. Run it as::
 with keys::
 
     algorithm, obs_dim, act_dim, hyperparams   — TrainingServer ctor
-                       (algorithm: REINFORCE, PPO or IMPALA)
+                       (algorithm: any registered one)
     device           — torch device (default: the GPU)
     server_type + addr overrides               — transport plane (zmq:
                        agent_listener_addr, trajectory_addr,
@@ -45,8 +45,9 @@ rollback, ``rolled_back`` holds the restored train state's fingerprint
 (version, params digest and Adam step counts), read once when the
 rollback count changes.
 
-``kernels`` holds the flash kernels' launch counts in this process
-(``flash_fwd``, ``flash_dq``, ``flash_dkv``); ``transport`` the server
+``kernels`` holds the flash and ring kernels' launch counts in this
+process (``flash_fwd``, ``flash_dq``, ``flash_dkv``, ``ring_chunk_fwd``,
+``ring_chunk_dq``, ``ring_chunk_dkv``); ``transport`` the server
 transport's class; ``decoded_by`` which decoder took each trajectory
 (``TrainingServer.decoded_by``); ``resume`` the restored
 version, params digest and Adam step counts, read before the server
@@ -198,6 +199,7 @@ def main(argv=None) -> None:
 
     from relayrl_tpu_torch import telemetry
     from relayrl_tpu_torch.ops.flash import flash_attention
+    from relayrl_tpu_torch.parallel import ring_flash
     from relayrl_tpu_torch.runtime.server import TrainingServer
 
     addr_keys = ("agent_listener_addr", "trajectory_addr", "model_pub_addr",
@@ -244,7 +246,10 @@ def main(argv=None) -> None:
                     "kernels": {
                         "flash_fwd": flash_attention.launches,
                         "flash_dq": flash_attention.dq_launches,
-                        "flash_dkv": flash_attention.dkv_launches},
+                        "flash_dkv": flash_attention.dkv_launches,
+                        "ring_chunk_fwd": ring_flash.chunk_fwd.launches,
+                        "ring_chunk_dq": ring_flash.chunk_dq.launches,
+                        "ring_chunk_dkv": ring_flash.chunk_dkv.launches},
                     "resume": resumed,
                     "publish_bytes": {k: list(v) for k, v in
                                       server.publish_bytes.items()},

@@ -1,7 +1,8 @@
 """The full distributed loop on the port: TrainingServer + N actor processes.
 
-Twin of ``examples/train_distributed.py`` (REINFORCE over ZMQ or gRPC),
-plus ``--device``: the server and every actor run on the GPU unless ``--device
+Twin of ``examples/train_distributed.py`` (any registered algorithm:
+REINFORCE, PPO, IMPALA, DQN, C51, DDPG, TD3 or SAC, over ZMQ, gRPC or
+native), plus ``--device``: the server and every actor run on the GPU unless ``--device
 cpu``. Actors are OS processes started with the ``spawn`` context (never a
 fork after CUDA is up), each with its own policy copy, streaming
 trajectories to the one server and hot-swapping on every publish::
@@ -80,7 +81,8 @@ def actor_proc(idx: int, server_type: str, agent_addrs: dict, env_id: str,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--algo", default="REINFORCE",
-                    help="any registered algorithm (REINFORCE, PPO, IMPALA)")
+                    help="any registered algorithm (REINFORCE/PPO/IMPALA/"
+                         "DQN/C51 for cartpole; DDPG/TD3/SAC for pendulum)")
     ap.add_argument("--env", default="cartpole", choices=sorted(_ENV_IDS))
     ap.add_argument("--transport", default="zmq",
                     choices=["zmq", "grpc", "native"],

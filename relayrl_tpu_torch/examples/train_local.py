@@ -1,11 +1,20 @@
 """Minimum end-to-end slice on the port: in-process actor + learner, no sockets.
 
 Twin of ``examples/train_local.py``, with the same flags and
-hyperparameters (``--algo`` REINFORCE, PPO or IMPALA); it runs on the GPU
-(``--device cpu`` runs it on the CPU)::
+hyperparameters (``--algo`` REINFORCE, PPO, IMPALA, DQN or C51 on
+CartPole; DDPG, TD3 or SAC on Pendulum); it runs on the GPU (``--device
+cpu`` runs it on the CPU)::
 
     python -m relayrl_tpu_torch.examples.train_local --algo REINFORCE \
         --env cartpole --baseline --updates 400 --target 480
+    python -m relayrl_tpu_torch.examples.train_local --algo DQN \
+        --env cartpole --updates 3000 --target 150
+    python -m relayrl_tpu_torch.examples.train_local --algo SAC \
+        --env pendulum --updates 200 --target -250
+
+An update is an ingest that trained: for the off-policy family, one
+episode past ``update_after``, with ``updates_per_step`` gradient updates
+per stored step.
 
 Prints the rolling average return every 5 updates, then the wall time,
 the env steps per second and a greedy evaluation.
@@ -21,7 +30,8 @@ import time
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--algo", default="REINFORCE",
-                    help="any registered algorithm (REINFORCE, PPO, IMPALA)")
+                    help="any registered algorithm (REINFORCE/PPO/IMPALA/"
+                         "DQN/C51 for cartpole; DDPG/TD3/SAC for pendulum)")
     ap.add_argument("--env", default="cartpole",
                     choices=["cartpole", "pendulum", "lunarlander"])
     ap.add_argument("--baseline", action="store_true",

@@ -13,6 +13,7 @@ from relayrl_tpu_torch.models.base import (
     validate_policy,
 )
 import relayrl_tpu_torch.models.mlp  # noqa: F401  (registers mlp_discrete, mlp_continuous)
+import relayrl_tpu_torch.models.q_networks  # noqa: F401  (registers the four off-policy kinds)
 import relayrl_tpu_torch.models.transformer  # noqa: F401  (registers transformer_discrete)
 
 __all__ = ["Policy", "apply_arch_overrides", "build_policy", "mlp_sizes", "register_model",

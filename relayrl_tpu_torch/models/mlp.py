@@ -93,6 +93,15 @@ def init_dense(layer: nn.Linear, generator: torch.Generator) -> None:
     nn.init.zeros_(layer.bias)
 
 
+def init_module(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """flax's Dense initializers on every ``Linear`` of ``module``, drawn
+    from ``generator`` in module order."""
+    for layer in module.modules():
+        if isinstance(layer, nn.Linear):
+            init_dense(layer, generator)
+    return module
+
+
 class MLPTrunk(nn.Module):
     """Dense layers ``dense_0 .. dense_{n-1}``, each followed by the
     activation, in the compute dtype."""
@@ -169,11 +178,7 @@ class ContinuousActorCritic(_ActorCritic):
 def _build_mlp_policy(module_cls, arch: Mapping[str, Any], device: torch.device,
                       step, evaluate, mode) -> Policy:
     def init_params(generator: torch.Generator) -> nn.Module:
-        module = module_cls(arch)
-        for layer in module.modules():
-            if isinstance(layer, nn.Linear):
-                init_dense(layer, generator)
-        return module.to(device)
+        return init_module(module_cls(arch), generator).to(device)
 
     def load_params(tree) -> nn.Module:
         with torch.device("meta"):
@@ -190,11 +195,11 @@ def _build_mlp_policy(module_cls, arch: Mapping[str, Any], device: torch.device,
 
     return Policy(arch=dict(arch), device=device, init_params=init_params,
                   load_params=load_params,
-                  step=lambda params, generator, obs, mask=None: step(
-                      params, generator, *as_input(obs, mask)),
+                  step=lambda params, generator, obs, mask=None, **explore: step(
+                      params, generator, *as_input(obs, mask), **explore),
                   evaluate=lambda params, obs, act, mask=None: evaluate(
                       params, *as_input(obs, mask),
-                      torch.as_tensor(act, device=device)),
+                      None if act is None else torch.as_tensor(act, device=device)),
                   mode=lambda params, obs, mask=None: mode(
                       params, *as_input(obs, mask)))
 

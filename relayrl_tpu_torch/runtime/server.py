@@ -980,8 +980,17 @@ class TrainingServer:
             got = algo.accumulate(item)
             updated = got is not None
             if updated:
-                batch = algo.stage_batch(got) if self._prefetch else got
-                algo.train_on_batch(batch)
+                # The off-policy family returns the list of batches due;
+                # the on-policy family one drained epoch batch.
+                batches = got if isinstance(got, list) else [got]
+                if self._prefetch:
+                    # Every host-to-device copy is queued now, ahead of
+                    # the updates that read them.
+                    batches = [algo.stage_batch(b) for b in batches]
+                if isinstance(got, list):
+                    algo.train_on_batches(batches)
+                else:
+                    algo.train_on_batch(batches[0])
         except Exception as e:  # never kill the loop on one bad batch
             self._count_learner_error(e, "update")
             return

@@ -68,9 +68,18 @@ def _clean_planes():
 
 @pytest.fixture(scope="module")
 def jax_native():
-    """The JAX package's library, through its own ``native_available``."""
+    """The JAX package's library, through its own ``native_available``.
+
+    The JAX package's codec caches its first look for the library, and a
+    test module imported before the build (a module-level skip condition
+    under xdist's collection) may have cached "absent": clear that answer
+    so the codec looks again, now that the library is there."""
     if not jax_native_available():
         pytest.fail("the JAX package's native library did not build")
+    with jax_columnar._codec_lock:
+        jax_columnar._codec_checked = False
+        jax_columnar._codec_lib = None
+    assert jax_columnar.native_codec_available()
 
 
 def _native_snapshot() -> dict:

@@ -192,7 +192,8 @@ def test_port_imports_no_jax():
 
 def test_distributed_loop_imports_clean():
     """The server and agent entry points, the guardrails, the gRPC and
-    native backends, the relay and the learners load no JAX and nothing of
+    native backends, the relay, the learners (the off-policy family, its
+    Q-networks and step ring included) load no JAX and nothing of
     the JAX package; none of them loads msgpack, ml_dtypes or grpc (the
     transports import them where they encode, decode and connect), and
     none builds or opens a shared library."""
@@ -208,6 +209,14 @@ def test_distributed_loop_imports_clean():
         "import relayrl_tpu_torch.relay\n"
         "import relayrl_tpu_torch.algorithms.ppo\n"
         "import relayrl_tpu_torch.algorithms.impala\n"
+        "import relayrl_tpu_torch.algorithms.offpolicy\n"
+        "import relayrl_tpu_torch.algorithms.dqn\n"
+        "import relayrl_tpu_torch.algorithms.c51\n"
+        "import relayrl_tpu_torch.algorithms.ddpg\n"
+        "import relayrl_tpu_torch.algorithms.td3\n"
+        "import relayrl_tpu_torch.algorithms.sac\n"
+        "import relayrl_tpu_torch.models.q_networks\n"
+        "import relayrl_tpu_torch.data.step_buffer\n"
         "lazy = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "              ('msgpack', 'ml_dtypes', 'grpc'))\n"
         "from relayrl_tpu_torch.runtime import TrainingServer, VectorAgent\n"
