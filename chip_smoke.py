@@ -5,6 +5,10 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --recall-sweep FIRST LAST`` instead runs phase
+9's recall card-vs-CPU comparison alone over seed salts FIRST .. LAST - 1
+and gates nothing: see :func:`recall_sweep`.)
+
 Phases, each of which fails the run:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -1911,6 +1915,100 @@ def local_recall(device, workdir: Path) -> dict:
             "cached_steps": len(cached_steps),
             "head_dim": hp["d_model"] // hp["n_heads"], "episodes": len(result["returns"]),
             "avg_return": result["avg_return_last_window"], **cmp}
+
+
+def recall_sweep(device, workdir: Path, salts: range) -> int:
+    """Phase 9's recall comparison alone, over ``seed_salt`` in ``salts``
+    (the learner's params and sampling differ with each): the first update
+    through the kernels on the card, through the plain attention on the
+    card, and on the CPU, from the same params on the same batch. Prints
+    per salt the largest difference outside Adam's floor (the rule of
+    :func:`compare_update_to_cpu`, floor from the CPU side) of each side
+    against the CPU, with the element's least RMS gradient, and where it
+    passes half of ``MLP_PARAM_ATOL`` that element's gradient per Adam
+    step on both sides. Gates nothing; returns 0."""
+    import contextlib
+    import io
+
+    import torch
+
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+    from relayrl_tpu_torch.envs import RecallEnv
+    from relayrl_tpu_torch.examples.train_memory import recall_hyperparams
+    from relayrl_tpu_torch.models import build_policy
+    from relayrl_tpu_torch.ops.flash import flash_attention_plain
+    from relayrl_tpu_torch.runtime import LocalRunner
+    from relayrl_tpu_torch.weights import params_to_jax
+
+    def side(algo, params0, batch, policy, plain=False):
+        params = policy.load_params(params_to_jax(params0))
+        if plain:
+            for block in params.blocks():
+                block.attn_fn = lambda q, k, v: flash_attention_plain(q, k, v, True)[0]
+        state, update, _ = update_parts(algo, policy, params)
+        names = {id(p): n for n, p in state.params.named_parameters()}
+        grads, least = {}, {}
+
+        def pre(opt, args, kwargs):
+            for p in opt.param_groups[0]["params"]:
+                if p.grad is not None:
+                    grads.setdefault(names[id(p)], []).append(p.grad.detach().cpu().clone())
+
+        def post(opt, args, kwargs):
+            beta2 = opt.param_groups[0]["betas"][1]
+            for p, st in opt.state.items():
+                rms = (st["exp_avg_sq"].sqrt()
+                       / math.sqrt(1 - beta2 ** float(st["step"]))).cpu()
+                n = names[id(p)]
+                least[n] = torch.minimum(least[n], rms) if n in least else rms
+
+        for opt in vars(state).values():
+            if isinstance(opt, torch.optim.Optimizer):
+                opt.register_step_pre_hook(pre)
+                opt.register_step_post_hook(post)
+        state, metrics = update(state, {k: torch.as_tensor(v, device=policy.device)
+                                        for k, v in batch.items()})
+        return ({n: p.detach().cpu() for n, p in state.params.named_parameters()},
+                read_metrics(metrics), grads, least)
+
+    hp = recall_hyperparams("transformer", RECALL_HORIZON, "flash")
+    for salt in salts:
+        runner = LocalRunner(RecallEnv(horizon=RECALL_HORIZON), "REINFORCE",
+                             config_path=_local_config(workdir / str(salt)),
+                             env_dir=str(workdir / str(salt)), seed=0, device=device,
+                             **{**hp, "seed_salt": salt})
+        algo = runner.algorithm
+        params0 = copy.deepcopy(algo.state.params)
+        episodes = []
+        ingest = algo.receive_trajectory
+        algo.receive_trajectory = lambda a: (episodes.append(a), ingest(a))[1]
+        with contextlib.redirect_stdout(io.StringIO()):  # the epoch log
+            runner.train(epochs=1)
+        batch = epoch_batches(algo, episodes, 1)[0]
+        cpu = side(algo, params0, batch, build_policy(algo.arch, "cpu"))
+        least = cpu[3]
+        for label, got in (("kernels", side(algo, params0, batch, algo.policy)),
+                           ("plain", side(algo, params0, batch, algo.policy, plain=True))):
+            worst, at = 0.0, None
+            for name, w in got[0].items():
+                if name.endswith("qkv.bias"):
+                    continue
+                diff = (w - cpu[0][name]).abs().where(~(least[name] < ADAM_FLOOR), 0.0)
+                i = int(diff.argmax())
+                if diff.flatten()[i].item() > worst:
+                    worst, at = diff.flatten()[i].item(), (name, i)
+            metric = max(abs(got[1][k] - v) for k, v in cpu[1].items())
+            where = ("" if at is None else f" at {at[0]}[{at[1]}], least RMS gradient "
+                     f"{least[at[0]].flatten()[at[1]].item():.3e}")
+            print(f"[recall-sweep] salt {salt}, {label} on the card vs cpu: max param "
+                  f"diff {worst:.3e}{where}; max metric diff {metric:.3e}", flush=True)
+            if worst > MLP_PARAM_ATOL / 2:
+                name, i = at
+                for step, (g, c) in enumerate(zip(got[2][name], cpu[2][name])):
+                    g, c = g.flatten()[i].item(), c.flatten()[i].item()
+                    print(f"[recall-sweep]   step {step}: gradient {g:+.6e} card, "
+                          f"{c:+.6e} cpu ({abs(g - c) / max(abs(c), 1e-30):.2e} relative)")
+    return 0
 
 
 def _free_port() -> int:
@@ -4032,5 +4130,28 @@ def main() -> int:
     return 0
 
 
+def sweep_main(first: int, last: int) -> int:
+    """``--recall-sweep FIRST LAST``: :func:`recall_sweep` over salts
+    ``FIRST .. LAST - 1`` on the card, after the kernels' build."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from relayrl_tpu_torch import _kernels
+
+    _kernels.build()
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip(), flush=True)
+    root = Path(__file__).resolve().parent
+    return recall_sweep(torch.device("cuda"), root / "build" / "chip_smoke_recall_sweep",
+                        range(first, last))
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--recall-sweep"]:
+        sys.exit(sweep_main(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

@@ -1326,11 +1326,17 @@ class TrainingServer:
                   f"params are non-finite", flush=True)
             return
         enc = self._wire_encoder
-        with self._bundle_lock:
-            self._bundle_host = (int(version), dict(arch), host_params)
+        host = (int(version), dict(arch), host_params)
         try:
             if enc is not None:
+                # The encoder holds this version's frame before the
+                # version probe (latest_model_version, read from
+                # _bundle_host) moves: a pull subscriber it wakes is then
+                # served that frame, never a full v1 bundle of a version
+                # the encoder has not reached yet.
                 frame, info = enc.encode(version, arch, host_params)
+                with self._bundle_lock:
+                    self._bundle_host = host
                 if getattr(self.transport, "needs_handshake_bytes", False):
                     # The native core answers handshakes from pushed
                     # bytes; a v2 publish rides with the v1 bundle for
@@ -1349,6 +1355,7 @@ class TrainingServer:
                 raw = ModelBundle(version=int(version), arch=dict(arch),
                                   params=host_params).to_bytes()
                 with self._bundle_lock:
+                    self._bundle_host = host
                     self._bundle_bytes = raw
                     self._bundle_version = int(version)
                 self._faulted_publish(version, raw)

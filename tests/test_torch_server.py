@@ -295,6 +295,39 @@ def test_refusals(tmp_cwd):
             Agent(config_path=config_path, probe=False, **agent_addrs)
 
 
+def test_version_probe_waits_for_the_frame(tmp_cwd):
+    """The pull plane's version probe moves only once the encoder holds
+    the new version's frame, so a subscriber polling in the middle of a
+    publish (a rollback's forced keyframe among them) is served that
+    frame, never a full v1 bundle of a version the encoder has not
+    reached."""
+    from relayrl_tpu_torch.transport import modelwire
+
+    server_addrs, _ = _addrs()
+    server = _port_server(tmp_cwd, server_addrs, _config(tmp_cwd))
+    try:
+        enc = server._wire_encoder
+        v0 = server.latest_model_version
+        bundle = server.algorithm.bundle()
+        probed = []
+        encode = enc.encode
+
+        def spy(version, arch, host_params):
+            probed.append(server.latest_model_version)
+            return encode(version, arch, host_params)
+
+        enc.encode = spy
+        enc.force_keyframe()
+        server._publish_params(v0 + 1, bundle.arch, bundle.params)
+        assert probed == [v0]
+        assert server.latest_model_version == v0 + 1
+        version, blob = server._get_model_update(v0)
+        assert version == v0 + 1 and modelwire.is_wire_frame(blob)
+        assert server.last_publish["kind"] == "keyframe"
+    finally:
+        server.disable_server()
+
+
 def _jax_server(tmp, server_addrs, config_path):
     from relayrl_tpu.runtime.server import TrainingServer as JaxServer
 
