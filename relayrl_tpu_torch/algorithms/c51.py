@@ -24,11 +24,7 @@ from relayrl_tpu_torch.algorithms.offpolicy import (
 from relayrl_tpu_torch.algorithms.reinforce import _opt_step
 from relayrl_tpu_torch.models import build_policy
 from relayrl_tpu_torch.models.mlp import _MASK_FILL, _compute_dtype
-from relayrl_tpu_torch.models.q_networks import (
-    DistributionalQNet,
-    c51_support,
-    refuse_pixel_trunk,
-)
+from relayrl_tpu_torch.models.q_networks import DistributionalQNet, c51_support
 
 C51State = DQNState
 
@@ -110,12 +106,12 @@ class C51(EpsilonGreedyMixin, OffPolicyAlgorithm):
             "epsilon": eps0,
             "precision": str(learner.get("precision", "float32")),
         }
-        refuse_pixel_trunk(params)
+        pixel = self._pixel_trunk(params)
         self.policy = build_policy(self.arch, self.device)
         hidden = tuple(self.arch["hidden_sizes"])
         dtype = _compute_dtype(self.arch)
         self._module_fns = {"params": lambda: DistributionalQNet(
-            self.obs_dim, self.act_dim, n_atoms, hidden, dtype)}
+            self.obs_dim, self.act_dim, n_atoms, hidden, dtype, **pixel)}
         self.lr = float(params.get("lr", 1e-3))
         self.support = c51_support(self.arch, self.device)
         self.state = self.fresh_state(

@@ -25,10 +25,7 @@ from relayrl_tpu_torch.algorithms.offpolicy import (
 from relayrl_tpu_torch.algorithms.reinforce import _opt_step
 from relayrl_tpu_torch.models import build_policy
 from relayrl_tpu_torch.models.mlp import _MASK_FILL, _compute_dtype
-from relayrl_tpu_torch.models.q_networks import (
-    DiscreteQNet,
-    refuse_pixel_trunk,
-)
+from relayrl_tpu_torch.models.q_networks import DiscreteQNet
 
 
 @dataclasses.dataclass
@@ -96,12 +93,12 @@ class DQN(EpsilonGreedyMixin, OffPolicyAlgorithm):
             "epsilon": eps0,
             "precision": str(learner.get("precision", "float32")),
         }
-        refuse_pixel_trunk(params)
+        pixel = self._pixel_trunk(params)
         self.policy = build_policy(self.arch, self.device)
         hidden = tuple(self.arch["hidden_sizes"])
         dtype = _compute_dtype(self.arch)
         self._module_fns = {"params": lambda: DiscreteQNet(
-            self.obs_dim, self.act_dim, hidden, dtype)}
+            self.obs_dim, self.act_dim, hidden, dtype, **pixel)}
         self.lr = float(params.get("lr", 1e-3))
         self.state = self.fresh_state(
             {"params": self.policy.init_params(self._init_generator)})

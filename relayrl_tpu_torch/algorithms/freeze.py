@@ -17,7 +17,7 @@ from typing import Any, Sequence
 
 from torch import nn
 
-from relayrl_tpu_torch.weights import flax_path
+from relayrl_tpu_torch.weights import STACKED_BLOCKS, flax_path
 
 
 def normalize_freeze_spec(spec) -> tuple[str, ...]:
@@ -45,9 +45,19 @@ def normalize_freeze_spec(spec) -> tuple[str, ...]:
 
 
 def leaf_paths(module: nn.Module) -> dict[str, str]:
-    """Parameter name -> its flax leaf path (``"params/..."``)."""
-    return {name: "/".join(("params", *flax_path(module, name)))
-            for name, _ in module.named_parameters()}
+    """Parameter name -> its flax leaf path (``"params/..."``). The
+    pipeline family's per-layer ``blocks.i`` parameters share the path of
+    the stacked flax leaf they are a slice of (``params/blocks/qkv/...``),
+    so a pattern freezes every layer of a stacked leaf, as in the JAX
+    package."""
+    stacked = isinstance(getattr(module, STACKED_BLOCKS, None), nn.ModuleList)
+    out = {}
+    for name, _ in module.named_parameters():
+        parts = flax_path(module, name)
+        if stacked and parts[0] == STACKED_BLOCKS:
+            parts = (parts[0], *parts[2:])
+        out[name] = "/".join(("params", *parts))
+    return out
 
 
 def frozen_names(module: nn.Module, patterns: Sequence[str]) -> set[str]:
@@ -64,11 +74,12 @@ def freeze_info(module: nn.Module, patterns: Sequence[str]) -> dict[str, Any]:
     paths = leaf_paths(module)
     frozen = frozen_names(module, patterns)
     params = dict(module.named_parameters())
+    frozen_paths = sorted({paths[n] for n in frozen})
     return {
         "patterns": list(patterns),
-        "frozen_leaves": len(frozen),
-        "total_leaves": len(paths),
+        "frozen_leaves": len(frozen_paths),
+        "total_leaves": len(set(paths.values())),
         "frozen_bytes": int(sum(params[n].numel() * params[n].element_size()
                                 for n in frozen)),
-        "frozen_paths": sorted(paths[n] for n in frozen),
+        "frozen_paths": frozen_paths,
     }

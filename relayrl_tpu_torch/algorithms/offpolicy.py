@@ -39,6 +39,7 @@ from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
 from relayrl_tpu_torch.config import ConfigLoader
 from relayrl_tpu_torch.data.step_buffer import StepReplayBuffer
 from relayrl_tpu_torch.models import resolve_device
+from relayrl_tpu_torch.models.q_networks import PIXEL_ARCH_KEYS, conv_trunk_kwargs
 from relayrl_tpu_torch.runtime.pipeline import LazyMetrics, record_event
 from relayrl_tpu_torch.types.columnar import (
     DecodedTrajectory,
@@ -455,6 +456,15 @@ class EpsilonGreedyMixin:
         self.eps_end = float(params.get("epsilon_end", 0.05))
         self.eps_decay_steps = int(params.get("epsilon_decay_steps", 10_000))
         return self.eps_start
+
+    def _pixel_trunk(self, params: dict) -> dict:
+        """Pixel variant: ``obs_shape`` switches the q-net to the Nature
+        conv trunk. Copies the pixel keys (the cnn_discrete family's) from
+        ``params`` into the arch; returns :func:`conv_trunk_kwargs`'."""
+        for key in PIXEL_ARCH_KEYS:
+            if key in params:
+                self.arch[key] = params[key]
+        return conv_trunk_kwargs(self.arch)
 
     def current_epsilon(self) -> float:
         frac = min(1.0, self.buffer.total_steps / max(1, self.eps_decay_steps))

@@ -1,8 +1,15 @@
-"""Built-in environments: the classic-control tasks, the memory task and
-the vector env (copies of the JAX package's numpy envs), and
+"""Built-in environments: the classic-control tasks, the memory task, the
+Atari-style pixel pipeline and the vector env (copies of the JAX package's
+numpy envs), and
 :func:`make`, the built-in branch of :func:`relayrl_tpu.envs.make`
 (the port does not depend on Gymnasium)."""
 
+from relayrl_tpu_torch.envs.atari import (
+    ALEUnavailableError,
+    AtariPreprocessing,
+    SyntheticPixelEnv,
+    make_atari,
+)
 from relayrl_tpu_torch.envs.classic import CartPoleEnv, PendulumEnv
 from relayrl_tpu_torch.envs.memory import RecallEnv
 from relayrl_tpu_torch.envs.spaces import Box, Discrete
@@ -23,5 +30,6 @@ def make(env_id: str, **kwargs):
     raise ValueError(f"unknown env {env_id!r}; built-ins: {sorted(_BUILTIN)}")
 
 
-__all__ = ["make", "Box", "CartPoleEnv", "Discrete", "PendulumEnv", "RecallEnv",
+__all__ = ["make", "make_atari", "ALEUnavailableError", "AtariPreprocessing",
+           "SyntheticPixelEnv", "Box", "CartPoleEnv", "Discrete", "PendulumEnv", "RecallEnv",
            "SyncVectorEnv"]

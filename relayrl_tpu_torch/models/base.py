@@ -64,11 +64,20 @@ ARCH_PASSTHROUGH_KEYS = (
 
 def apply_arch_overrides(arch: dict, params: Mapping[str, Any]) -> dict:
     """Copy any present :data:`ARCH_PASSTHROUGH_KEYS` from hyperparams into
-    ``arch``. (The JAX package also warns when they land on an MLP or CNN
-    kind, which the port does not have yet.)"""
-    for key in ARCH_PASSTHROUGH_KEYS:
-        if key in params:
-            arch[key] = params[key]
+    ``arch``. Sequence-model keys on an MLP or CNN kind almost always mean
+    a forgotten ``model_kind``: warn, as the JAX package does."""
+    copied = [k for k in ARCH_PASSTHROUGH_KEYS if k in params]
+    for key in copied:
+        arch[key] = params[key]
+    kind = str(arch.get("kind", ""))
+    if copied and (kind.startswith("mlp") or kind.startswith("cnn")):
+        import warnings
+
+        warnings.warn(
+            f"model overrides {copied} have no effect on model kind "
+            f"{kind!r} — did you forget model_kind="
+            f"\"transformer_discrete\" (or another sequence kind)?",
+            stacklevel=2)
     return arch
 
 

@@ -93,12 +93,24 @@ def init_dense(layer: nn.Linear, generator: torch.Generator) -> None:
     nn.init.zeros_(layer.bias)
 
 
+def init_conv(layer: nn.Conv2d, generator: torch.Generator) -> None:
+    """flax's Conv initializers: the kernel lecun-normal over its fan-in
+    (kh * kw * in), truncated at two standard deviations; the bias zero."""
+    fan_in = layer.in_channels * math.prod(layer.kernel_size)
+    std = fan_in ** -0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+    nn.init.zeros_(layer.bias)
+
+
 def init_module(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """flax's Dense initializers on every ``Linear`` of ``module``, drawn
-    from ``generator`` in module order."""
+    """flax's Dense and Conv initializers on every ``Linear`` and
+    ``Conv2d`` of ``module``, drawn from ``generator`` in module order."""
     for layer in module.modules():
         if isinstance(layer, nn.Linear):
             init_dense(layer, generator)
+        elif isinstance(layer, nn.Conv2d):
+            init_conv(layer, generator)
     return module
 
 

@@ -20,11 +20,13 @@ Submodule names are flax's (``q_trunk.dense_i``, ``q_head``, ``q1``,
 head is one Dense of ``act_dim * n_atoms`` outputs reshaped after the
 product on both sides, so its layout needs no special case. Every draw
 (the epsilon-greedy coin and pick, the Gaussian noise) comes from the
-``torch.Generator`` passed to ``step``, on the policy's device. The pixel
-trunk (``arch["obs_shape"]``) is not ported.
+``torch.Generator`` passed to ``step``, on the policy's device. With
+``arch["obs_shape"]`` the DQN and C51 q-nets take the Nature conv trunk of
+:mod:`relayrl_tpu_torch.models.cnn` as ``q_trunk`` (:func:`_q_trunk`), over
+flat wire frames, uint8 or float.
 
 These families run no Pallas kernel in the JAX package, and none here:
-their products are ``torch.nn.functional.linear``.
+their products are ``torch.nn.functional.linear`` and ``F.conv2d``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from relayrl_tpu_torch.models.base import Policy, mlp_sizes, register_model
+from relayrl_tpu_torch.models.cnn import (
+    NATURE_CONV,
+    ConvTrunk,
+    resolve_conv_spec,
+    validate_conv_spec,
+)
 from relayrl_tpu_torch.models.mlp import (
     _MASK_FILL,
     MLPTrunk,
@@ -49,42 +57,66 @@ from relayrl_tpu_torch.models.mlp import (
 LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
 
 
-def refuse_pixel_trunk(arch: Mapping[str, Any]) -> None:
-    """``obs_shape`` switches a q-net to the conv trunk of the CNN family,
-    which is not ported."""
-    if arch.get("obs_shape") is not None:
-        raise NotImplementedError(
-            "the pixel q-trunk (arch obs_shape) is not ported (ROADMAP.md "
-            "queue 1 item 7, models/cnn.py); drop obs_shape for the MLP "
-            "trunk")
+def _q_trunk(obs_dim: int, hidden_sizes, compute_dtype, obs_shape=None,
+             conv_spec=None, dense: int = 512,
+             scale_obs: bool = True) -> tuple[nn.Module, int]:
+    """The shared trunk switch of both q-heads, and its output width:
+    ``obs_shape`` set -> the Nature conv trunk over pixel observations;
+    None -> the MLP trunk."""
+    if obs_shape is not None:
+        return (ConvTrunk(obs_shape, conv_spec or NATURE_CONV, dense, scale_obs,
+                          compute_dtype), int(dense))
+    return (MLPTrunk(obs_dim, hidden_sizes, "relu", compute_dtype),
+            hidden_sizes[-1] if hidden_sizes else obs_dim)
+
+
+# Arch keys that switch a q-net to the pixel (conv-trunk) variant; the
+# DQN/C51 setups copy exactly these from hyperparams into the arch, so the
+# actors' policy and the learner's modules agree.
+PIXEL_ARCH_KEYS = ("obs_shape", "conv_spec", "dense", "scale_obs")
+
+
+def conv_trunk_kwargs(arch: Mapping[str, Any]) -> dict:
+    """Arch -> the pixel-trunk kwargs shared by the q-net policy kinds and the
+    DQN/C51 learner modules (empty without ``obs_shape``). Refuses a conv
+    spec that collapses the frame, as the JAX package does."""
+    obs_shape = arch.get("obs_shape")
+    if obs_shape is None:
+        return {}
+    spec = resolve_conv_spec(arch["conv_spec"]) if arch.get("conv_spec") else None
+    validate_conv_spec(obs_shape, spec or NATURE_CONV)
+    return {
+        "obs_shape": tuple(int(d) for d in obs_shape),
+        "conv_spec": spec,
+        "dense": int(arch.get("dense", 512)),
+        "scale_obs": bool(arch.get("scale_obs", True)),
+    }
 
 
 class DiscreteQNet(nn.Module):
-    """obs -> Q[A] (DQN head)."""
+    """obs -> Q[A] (DQN head); trunk per :func:`_q_trunk`."""
 
     def __init__(self, obs_dim: int, act_dim: int, hidden_sizes,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, **pixel):
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.q_trunk = MLPTrunk(obs_dim, hidden_sizes, "relu", compute_dtype)
-        self.q_head = nn.Linear(hidden_sizes[-1] if hidden_sizes else obs_dim,
-                                act_dim)
+        self.q_trunk, width = _q_trunk(obs_dim, hidden_sizes, compute_dtype, **pixel)
+        self.q_head = nn.Linear(width, act_dim)
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         return _dense(self.q_head, self.q_trunk(obs), self.compute_dtype).float()
 
 
 class DistributionalQNet(nn.Module):
-    """obs -> logits[A, n_atoms] (C51 head)."""
+    """obs -> logits[A, n_atoms] (C51 head); trunk per :func:`_q_trunk`."""
 
     def __init__(self, obs_dim: int, act_dim: int, n_atoms: int, hidden_sizes,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, **pixel):
         super().__init__()
         self.act_dim, self.n_atoms = int(act_dim), int(n_atoms)
         self.compute_dtype = compute_dtype
-        self.q_trunk = MLPTrunk(obs_dim, hidden_sizes, "relu", compute_dtype)
-        self.q_head = nn.Linear(hidden_sizes[-1] if hidden_sizes else obs_dim,
-                                self.act_dim * self.n_atoms)
+        self.q_trunk, width = _q_trunk(obs_dim, hidden_sizes, compute_dtype, **pixel)
+        self.q_head = nn.Linear(width, self.act_dim * self.n_atoms)
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         logits = _dense(self.q_head, self.q_trunk(obs), self.compute_dtype).float()
@@ -213,12 +245,12 @@ def build_qnet_discrete(arch: Mapping[str, Any], device: torch.device) -> Policy
     """Epsilon-greedy policy over a Q-network (the DQN actor artifact).
     ``arch["epsilon"]`` is the exploration rate actors apply; the learner
     anneals it per model publish."""
-    refuse_pixel_trunk(arch)
     epsilon_default = float(arch.get("epsilon", 0.05))
+    pixel = conv_trunk_kwargs(arch)
 
     def module_fn(arch):
         return DiscreteQNet(int(arch["obs_dim"]), int(arch["act_dim"]),
-                            mlp_sizes(arch), _compute_dtype(arch))
+                            mlp_sizes(arch), _compute_dtype(arch), **pixel)
 
     def step(params, generator, obs, mask, epsilon=None):
         eps = epsilon_default if epsilon is None else epsilon
@@ -248,14 +280,14 @@ def c51_support(arch: Mapping[str, Any], device=None) -> torch.Tensor:
 @register_model("c51_discrete")
 def build_c51_discrete(arch: Mapping[str, Any], device: torch.device) -> Policy:
     """Epsilon-greedy policy over C51 expected values."""
-    refuse_pixel_trunk(arch)
     epsilon_default = float(arch.get("epsilon", 0.05))
     support = c51_support(arch, device)
+    pixel = conv_trunk_kwargs(arch)
 
     def module_fn(arch):
         return DistributionalQNet(int(arch["obs_dim"]), int(arch["act_dim"]),
                                   int(arch.get("n_atoms", 51)), mlp_sizes(arch),
-                                  _compute_dtype(arch))
+                                  _compute_dtype(arch), **pixel)
 
     def expected_q(params, obs):
         probs = torch.softmax(params(obs), dim=-1)

@@ -1,4 +1,5 @@
-"""Decoder-only transformer sequence policy (``transformer_discrete``).
+"""Decoder-only transformer sequence policies (``transformer_discrete``,
+``transformer_moe_discrete``, ``transformer_pp_discrete``).
 
 Counterpart of :mod:`relayrl_tpu.models.transformer`: the same causal
 transformer over the trajectory time axis, the same parameter names (so
@@ -24,7 +25,18 @@ mesh, or ``sp`` 1, blockwise or dense, so actors serve the arch the
 learner trains. On a CUDA device ``"flash"`` and ``"ring"`` take head dims
 up to 256, the flash kernels' widest (narrower ones are zero-padded to a
 kernel width); building the policy for a CUDA device refuses a wider one.
-The MoE and pipeline families are not ported yet.
+
+``transformer_moe_discrete`` replaces each block's dense FFN with the
+per-token top-k MoE of :mod:`relayrl_tpu_torch.models.moe` (submodule
+``moe``; ``moe_experts``, default 4, and ``moe_top_k``, default 2); its
+window readout runs the final block whole and takes the row, as the JAX
+family does. ``transformer_pp_discrete`` is ``transformer_discrete``'s
+math with the layers under one ``blocks`` scope, which the JAX package
+stacks on a leading axis for its pipeline: the port runs them as a loop
+over layers (the JAX family's ``pp`` = 1 path, which every actor host
+runs), serves windows through the full forward (no readout row, no KV
+cache, as in the JAX family) and refuses a mesh with ``pp`` above 1
+(ROADMAP queue 1 item 11).
 
 KV-cache decode, the actors' default serving path: ``init_cache``,
 ``step_cached`` and ``prefill_cache`` keep each layer's k and v rows in a
@@ -58,6 +70,7 @@ from relayrl_tpu_torch.models.mlp import (
     _dense,
     init_dense,
 )
+from relayrl_tpu_torch.models.moe import MoEMLP, init_experts, refuse_mesh_axis
 from relayrl_tpu_torch.ops.attention import blockwise_attention, dense_attention
 from relayrl_tpu_torch.ops.flash import KERNEL_HEAD_DIMS, flash_attention
 from relayrl_tpu_torch.parallel.context import current_mesh
@@ -112,8 +125,12 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 class TransformerBlock(nn.Module):
+    """Pre-LN attention and FFN; ``moe_experts`` > 0 replaces the dense
+    ``mlp_up``/``mlp_down`` FFN with a per-token top-k MoE named ``moe``."""
+
     def __init__(self, d_model: int, n_heads: int, mlp_ratio: int,
-                 attn_fn: Callable, compute_dtype: torch.dtype):
+                 attn_fn: Callable, compute_dtype: torch.dtype,
+                 moe_experts: int = 0, moe_top_k: int = 2):
         super().__init__()
         self.n_heads = n_heads
         self.attn_fn = attn_fn
@@ -122,8 +139,12 @@ class TransformerBlock(nn.Module):
         self.qkv = nn.Linear(d_model, 3 * d_model)
         self.attn_out = nn.Linear(d_model, d_model)
         self.ln_mlp = nn.LayerNorm(d_model, eps=_LN_EPS)
-        self.mlp_up = nn.Linear(d_model, mlp_ratio * d_model)
-        self.mlp_down = nn.Linear(mlp_ratio * d_model, d_model)
+        if moe_experts > 0:
+            self.moe = MoEMLP(d_model, mlp_ratio * d_model, moe_experts,
+                              moe_top_k, compute_dtype)
+        else:
+            self.mlp_up = nn.Linear(d_model, mlp_ratio * d_model)
+            self.mlp_down = nn.Linear(mlp_ratio * d_model, d_model)
 
     def forward(self, x: torch.Tensor, readout_idx: torch.Tensor | None = None,
                 cache: tuple[torch.Tensor, torch.Tensor] | None = None,
@@ -165,35 +186,53 @@ class TransformerBlock(nn.Module):
         else:
             attn = self.attn_fn(q, k, v).reshape(B, T, d)
         x = x + _dense(self.attn_out, attn, cd).to(x.dtype)
-        h = _layer_norm(self.ln_mlp, x).to(cd)
-        h = F.gelu(_dense(self.mlp_up, h, cd), approximate="tanh")
+        h = _layer_norm(self.ln_mlp, x)
+        if hasattr(self, "moe"):
+            return x + self.moe(h).to(x.dtype)
+        h = F.gelu(_dense(self.mlp_up, h.to(cd), cd), approximate="tanh")
         return x + _dense(self.mlp_down, h, cd).to(x.dtype)
 
 
 class TransformerCore(nn.Module):
-    """Obs sequence -> per-step (logits, v). Residual stream stays f32."""
+    """Obs sequence -> per-step (logits, v). Residual stream stays f32.
 
-    def __init__(self, arch: Mapping[str, Any]):
+    ``moe_experts`` > 0 gives every block the MoE FFN; ``stacked`` puts the
+    layers under one ``blocks`` scope (the pipeline family's layout)."""
+
+    def __init__(self, arch: Mapping[str, Any], moe_experts: int = 0,
+                 stacked: bool = False):
         super().__init__()
         d_model = int(arch.get("d_model", 128))
         self.n_layers = int(arch.get("n_layers", 2))
         self.has_critic = bool(arch.get("has_critic", True))
+        self.stacked = stacked
+        # The window readout runs the final layer for the readout row alone
+        # only in the plain family: the MoE family runs the block whole (as
+        # the JAX family does) and the pipeline family the whole forward.
+        self.row_readout = not (moe_experts or stacked)
         attn_fn = _resolve_attention(arch)
         cd = _compute_dtype(arch)
         self.obs_embed = nn.Linear(int(arch["obs_dim"]), d_model)
         self.pos_embed = nn.Parameter(
             torch.empty(int(arch.get("max_seq_len", 1024)), d_model))
-        for i in range(self.n_layers):
-            self.add_module(f"block_{i}", TransformerBlock(
-                d_model, int(arch.get("n_heads", 4)),
-                int(arch.get("mlp_ratio", 4)), attn_fn, cd))
+        blocks = [TransformerBlock(d_model, int(arch.get("n_heads", 4)),
+                                   int(arch.get("mlp_ratio", 4)), attn_fn, cd,
+                                   moe_experts, int(arch.get("moe_top_k", 2)))
+                  for _ in range(self.n_layers)]
+        if stacked:
+            self.blocks = nn.ModuleList(blocks)
+        else:
+            for i, block in enumerate(blocks):
+                self.add_module(f"block_{i}", block)
         self.ln_final = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.pi_head = nn.Linear(d_model, int(arch["act_dim"]))
         if self.has_critic:
             self.vf_head_up = nn.Linear(d_model, d_model)
             self.vf_head = nn.Linear(d_model, 1)
 
-    def blocks(self) -> list[TransformerBlock]:
+    def layers(self) -> list[TransformerBlock]:
+        if self.stacked:
+            return list(self.blocks)
         return [getattr(self, f"block_{i}") for i in range(self.n_layers)]
 
     def _heads(self, x, mask):
@@ -214,17 +253,21 @@ class TransformerCore(nn.Module):
 
         Readout mode (``readout_t [B]``, each lane's row): layers
         ``0..L-2`` run over every row, the final layer and the heads run
-        for the one row; returns (logits ``[B, A]``, v ``[B]``).
+        for the one row (in the MoE and pipeline families every layer and
+        the heads run over every row, and the row is taken after); returns
+        (logits ``[B, A]``, v ``[B]``).
 
         Decode mode (``cache``, a tuple of per-layer ``(k, v)`` caches, and
         the position ``t`` of obs's first row): returns ``((logits ``[B, T,
         A]``, v ``[B, T]``), cache)`` with the cache written at ``t .. t +
         T - 1``."""
+        if self.stacked:
+            refuse_mesh_axis("pp", "the pipeline transformer's stage split")
         T = obs.shape[1]
         start = 0 if cache is None else int(t)
         x = (_dense(self.obs_embed, obs, torch.float32)
              + self.pos_embed[start:start + T][None])
-        blocks = self.blocks()
+        blocks = self.layers()
         if cache is not None:
             for block, layer_cache in zip(blocks, cache):
                 x = block(x, cache=layer_cache, t=start)
@@ -233,6 +276,13 @@ class TransformerCore(nn.Module):
             for block in blocks:
                 x = block(x)
             return self._heads(x, mask)
+        if not self.row_readout:
+            # The whole forward, then each lane's readout row.
+            for block in blocks:
+                x = block(x)
+            logits, v = self._heads(x, mask)
+            lanes = torch.arange(logits.shape[0], device=logits.device)
+            return logits[lanes, readout_t], v[lanes, readout_t]
         for block in blocks[:-1]:
             x = block(x)
         x = blocks[-1](x, readout_idx=readout_t)
@@ -247,13 +297,15 @@ class TransformerCore(nn.Module):
 def _init_core(core: TransformerCore, generator: torch.Generator) -> None:
     """flax's initializers: Dense kernels lecun-normal (truncated at two
     standard deviations), biases zero, LayerNorm scale one, ``pos_embed``
-    normal(0.02)."""
+    normal(0.02), the MoE expert stacks lecun-normal per expert."""
     for module in core.modules():
         if isinstance(module, nn.Linear):
             init_dense(module, generator)
         elif isinstance(module, nn.LayerNorm):
             nn.init.ones_(module.weight)
             nn.init.zeros_(module.bias)
+        elif isinstance(module, MoEMLP):
+            init_experts(module, generator)
     nn.init.normal_(core.pos_embed, std=0.02, generator=generator)
 
 
@@ -291,19 +343,20 @@ def _check_kernel_head_dim(arch: Mapping[str, Any], device: torch.device) -> Non
             f"gives head dim {head_dim}")
 
 
-def _build_core_policy(arch: Mapping[str, Any], device: torch.device) -> Policy:
+def _build_core_policy(arch: Mapping[str, Any], device: torch.device,
+                       moe_experts: int = 0, stacked: bool = False) -> Policy:
     _check_kernel_head_dim(arch, device)
 
     def init_params(generator: torch.Generator) -> TransformerCore:
         with torch.device("meta"):
-            core = TransformerCore(arch)
+            core = TransformerCore(arch, moe_experts, stacked)
         core = core.to_empty(device="cpu")
         _init_core(core, generator)
         return core.to(device)
 
     def load_params(tree) -> TransformerCore:
         with torch.device("meta"):
-            core = TransformerCore(arch)
+            core = TransformerCore(arch, moe_experts, stacked)
         core = core.to_empty(device=device)
         core.load_state_dict(params_from_jax(tree))
         return core
@@ -417,14 +470,36 @@ def _build_core_policy(arch: Mapping[str, Any], device: torch.device) -> Policy:
             window = window[None]
         return params(window, None, cache=cache, t=0)[1]
 
+    decode = {} if stacked else {"init_cache": init_cache, "step_cached": step_cached,
+                                 "prefill_cache": prefill_cache}
     return Policy(arch=dict(arch), device=device, init_params=init_params,
                   load_params=load_params, step=step, evaluate=evaluate,
                   mode=mode, step_window=step_window, mode_window=mode_window,
-                  init_cache=init_cache, step_cached=step_cached,
-                  prefill_cache=prefill_cache)
+                  **decode)
 
 
 @register_model("transformer_discrete")
 def build_transformer_discrete(arch: Mapping[str, Any],
                                device: torch.device) -> Policy:
     return _build_core_policy(arch, device)
+
+
+@register_model("transformer_moe_discrete")
+def build_transformer_moe_discrete(arch: Mapping[str, Any],
+                                   device: torch.device) -> Policy:
+    """Transformer whose FFNs are per-token top-k MoE layers
+    (:mod:`relayrl_tpu_torch.models.moe`); the same sequence ABI and KV-cache
+    decode as ``transformer_discrete``."""
+    return _build_core_policy(arch, device,
+                              moe_experts=int(arch.get("moe_experts", 4)))
+
+
+@register_model("transformer_pp_discrete")
+def build_transformer_pp_discrete(arch: Mapping[str, Any],
+                                  device: torch.device) -> Policy:
+    """``transformer_discrete``'s math with the layers under one ``blocks``
+    scope (the JAX family stacks them for its pipeline; the flax tree's
+    ``blocks`` leaves carry a leading layer axis, which
+    :mod:`relayrl_tpu_torch.weights` splits into ``blocks.i``). Runs the
+    layers in order; refuses a mesh with ``pp`` above 1."""
+    return _build_core_policy(arch, device, stacked=True)

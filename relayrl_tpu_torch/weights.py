@@ -6,12 +6,20 @@ as the flax tree of numpy arrays, ``{"params": {scope: {...}}}``. Names map
 one to one, scopes joined by ``"."``:
 
 * a Dense ``kernel [in, out]`` is a ``Linear.weight [out, in]`` (transposed);
+* a Conv ``kernel [kh, kw, in, out]`` is a ``Conv2d.weight [out, in, kh,
+  kw]``;
 * a LayerNorm ``scale`` is a ``LayerNorm.weight``;
-* every other leaf (``bias``, a bare param such as ``pos_embed``) keeps its
-  name and shape.
+* every other leaf (``bias``, a bare param such as ``pos_embed`` or the MoE
+  expert stacks ``moe_w_up [E, d, ff]`` and ``moe_w_down [E, ff, d]``, which
+  are not Dense kernels) keeps its name and shape;
+* the pipeline transformer's top-level ``blocks`` subtree, whose leaves
+  stack the layers on a leading axis ``L``, is the port's ``blocks.0 ..
+  blocks.{L-1}``, one module per layer (each layer's slice mapped as
+  above).
 
 So ``params["params"]["block_0"]["qkv"]["kernel"]`` is
-``block_0.qkv.weight.T``.
+``block_0.qkv.weight.T``, and ``params["params"]["blocks"]["qkv"]["kernel"][i]``
+is ``blocks.{i}.qkv.weight.T``.
 """
 
 from __future__ import annotations
@@ -30,6 +38,33 @@ def _to_tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))  # own, writable copy
 
 
+# The pipeline transformer's stacked layer subtree (flax scope name).
+STACKED_BLOCKS = "blocks"
+
+
+def _kernel_to_torch(kernel: torch.Tensor) -> torch.Tensor:
+    if kernel.ndim == 4:  # Conv [kh, kw, in, out] -> [out, in, kh, kw]
+        return kernel.permute(3, 2, 0, 1).contiguous()
+    if kernel.ndim != 2:
+        raise ValueError(f"a {kernel.ndim}-D Dense kernel {tuple(kernel.shape)}")
+    return kernel.T.contiguous()
+
+
+def _kernel_to_flax(weight: torch.Tensor) -> torch.Tensor:
+    return weight.permute(2, 3, 1, 0) if weight.ndim == 4 else weight.T
+
+
+def _layer(node: Mapping[str, Any], i: int) -> dict:
+    """Layer ``i`` of a stacked subtree (every leaf's leading axis)."""
+    return {k: _layer(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
+            for k, v in node.items()}
+
+
+def _n_layers(node: Mapping[str, Any]) -> int:
+    leaf = next(iter(node.values()))
+    return _n_layers(leaf) if isinstance(leaf, Mapping) else len(leaf)
+
+
 def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """flax params tree (``{"params": {...}}``) -> state dict (CPU tensors)."""
     out: dict[str, torch.Tensor] = {}
@@ -37,9 +72,13 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     def walk(node, prefix):
         for name, leaf in node.items():
             if isinstance(leaf, Mapping):
-                walk(leaf, f"{prefix}{name}.")
+                if not prefix and name == STACKED_BLOCKS:
+                    for i in range(_n_layers(leaf)):
+                        walk(_layer(leaf, i), f"{name}.{i}.")
+                else:
+                    walk(leaf, f"{prefix}{name}.")
             elif name == "kernel":
-                out[f"{prefix}weight"] = _to_tensor(leaf).T.contiguous()
+                out[f"{prefix}weight"] = _kernel_to_torch(_to_tensor(leaf))
             elif name == "scale":
                 out[f"{prefix}weight"] = _to_tensor(leaf)
             else:
@@ -61,7 +100,7 @@ def flax_path(module: nn.Module, key: str) -> tuple[str, ...]:
     "kernel")``."""
     owner_path, _, name = key.rpartition(".")
     owner = module.get_submodule(owner_path)
-    if name == "weight" and isinstance(owner, nn.Linear):
+    if name == "weight" and isinstance(owner, (nn.Linear, nn.Conv2d)):
         name = "kernel"
     elif name == "weight" and isinstance(owner, nn.LayerNorm):
         name = "scale"
@@ -77,12 +116,24 @@ def state_to_jax(module: nn.Module,
     for key, tensor in state.items():
         *scopes, name = flax_path(module, key)
         if name == "kernel":
-            tensor = tensor.T
+            tensor = _kernel_to_flax(tensor)
         node = tree
         for part in scopes:
             node = node.setdefault(part, {})
         node[name] = _to_numpy(tensor)
+    if isinstance(getattr(module, STACKED_BLOCKS, None), nn.ModuleList):
+        layers = tree[STACKED_BLOCKS]
+        tree[STACKED_BLOCKS] = _stack([layers[str(i)] for i in range(len(layers))])
     return {"params": _sorted_tree(tree)}
+
+
+def _stack(layers: list) -> Any:
+    """Per-layer subtrees -> one subtree whose leaves stack them on a
+    leading axis (the flax layout of a ``vmap``-initialised stack)."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([layer[k] for layer in layers]) for k in first}
+    return np.stack(layers)
 
 
 def _to_numpy(tensor: torch.Tensor) -> np.ndarray:

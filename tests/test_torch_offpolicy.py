@@ -22,7 +22,8 @@ TD3 and SAC against the JAX package's, on the CPU.
 * The cases of ``tests/test_offpolicy.py`` on the port: bandit learning,
   epsilon into the bundle, bundle round trips (into the JAX package too),
   the uint8 ring, dispatch fusion (bit-equal), the exploration hot swap and
-  burst bounding; the checkpoint aux round trip and the refusals.
+  burst bounding; the checkpoint aux round trip and the refusals (the
+  pixel q-trunk itself: ``tests/test_torch_cnn.py``).
 """
 
 import dataclasses
@@ -509,10 +510,13 @@ def test_sac_step_by_distribution():
 
 
 def test_pixel_trunk_refused(tmp_cwd):
+    """The pixel q-trunk refuses what the JAX package's refuses: a frame
+    that the conv stack collapses (the Nature trunk needs >= 36 px)."""
     arch = {**_kind_arch("qnet_discrete"), "obs_shape": [4, 4, 1]}
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        build_policy(arch, "cpu")
-    with pytest.raises(NotImplementedError, match="models/cnn.py"):
+    for build in (lambda: build_policy(arch, "cpu"), lambda: jax_build_policy(arch)):
+        with pytest.raises(ValueError, match="collapses a 4x4 frame"):
+            build()
+    with pytest.raises(ValueError, match="collapses a 2x2 frame"):
         _mk(tmp_cwd, "DQN", act_dim=2, obs_shape=[2, 2, 1])
 
 

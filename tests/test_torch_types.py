@@ -193,7 +193,8 @@ def test_port_imports_no_jax():
 def test_distributed_loop_imports_clean():
     """The server and agent entry points, the guardrails, the gRPC and
     native backends, the relay, the learners (the off-policy family, its
-    Q-networks and step ring included) load no JAX and nothing of
+    Q-networks and step ring included), the CNN, MoE and pipeline model
+    families, the pixel pipeline and its example load no JAX and nothing of
     the JAX package; none of them loads msgpack, ml_dtypes or grpc (the
     transports import them where they encode, decode and connect), and
     none builds or opens a shared library."""
@@ -216,6 +217,11 @@ def test_distributed_loop_imports_clean():
         "import relayrl_tpu_torch.algorithms.td3\n"
         "import relayrl_tpu_torch.algorithms.sac\n"
         "import relayrl_tpu_torch.models.q_networks\n"
+        "import relayrl_tpu_torch.models.cnn\n"
+        "import relayrl_tpu_torch.models.moe\n"
+        "import relayrl_tpu_torch.models.transformer\n"
+        "import relayrl_tpu_torch.envs.atari\n"
+        "import relayrl_tpu_torch.examples.train_atari\n"
         "import relayrl_tpu_torch.data.step_buffer\n"
         "lazy = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "              ('msgpack', 'ml_dtypes', 'grpc'))\n"
