@@ -403,6 +403,14 @@ PLAIN_NOISE_FACTOR = 2.0
 # m_hat / (sqrt(v_hat) + eps) of f32 noise may round a hair above 1
 # (tests/test_torch_reinforce.py holds the JAX package the same way).
 KEY_BIAS_SLACK = 1 + 1e-3
+# Phase 9's metrics that difference two losses (the loss after the update
+# minus the loss before it) cancel the losses' leading digits, so their
+# card-vs-CPU difference is the losses' rounding noise, not a share of
+# their value. Each is held to the larger of its bar and PLAIN_NOISE_FACTOR
+# times the largest card-vs-CPU difference of the same update through the
+# plain attentions of NOISE_ATTENTIONS (more than one sample of the noise
+# of the arithmetic without the kernels; PERF.md section 6).
+DELTA_METRICS = ("DeltaLossPi", "DeltaLossV")
 # Phase 15: the off-policy family at its goldens' configs
 # (examples/golden/<name>/config.json: f32 MLP 128x128, batch 256, ring
 # 100,000). OFFPOLICY_WARM updates before the card-vs-CPU update (so the
@@ -448,6 +456,29 @@ MOE_ARCH = {**SLICE_ARCH, "kind": "transformer_moe_discrete", "moe_experts": 4,
             "moe_top_k": 2}
 PP_ARCH = {**SLICE_ARCH, "kind": "transformer_pp_discrete"}
 MOE_GOLDEN_MAX_UPDATES = 200
+# The golden's config stalls near 0.5 at a few percent of seed salts, in
+# the JAX package as in the port (PERF.md section 6): a run that stalls
+# tries one more salt, also from the process id, and fails when both stall.
+MOE_GOLDEN_SECOND_SALT = 0x5A17
+# Phase 17: the anakin tier. (a) each device env, ANAKIN_ENV_LANES lanes
+# for ANAKIN_ENV_STEPS steps, card vs CPU (float fields of the float envs
+# to ANAKIN_ENV_TOL, tests/test_jax_envs.py's bar); (b) the
+# cartpole_reinforce_baseline golden's MLP, ANAKIN_MLP_LANES lanes; (c)
+# phase 4's configuration, ANAKIN_SEQ_WINDOWS windows; (d) phase 11's
+# learner fed by one anakin agent for ANAKIN_UPDATES updates. Windows of
+# ANAKIN_UNROLL steps; ANAKIN_TIMED windows timed, graph and eager.
+ANAKIN_ENVS = {"CartPole-v1": {}, "Pendulum-v1": {},
+               "Recall-v0": {"horizon": HORIZON, "n_cues": N_CUES},
+               "GridWorld-v0": {}, "Bandit-v0": {}, "TokenGen-v0": {}}
+ANAKIN_FLOAT_ENVS = ("CartPole-v1", "Pendulum-v1")
+ANAKIN_ENV_LANES = 256
+ANAKIN_ENV_STEPS = 500
+ANAKIN_ENV_TOL = 2e-6
+ANAKIN_MLP_LANES = 1024
+ANAKIN_UNROLL = 32
+ANAKIN_SEQ_WINDOWS = 10
+ANAKIN_TIMED = 5
+ANAKIN_UPDATES = 4
 MOE_GOLDEN_SWEEP_UPDATES = 600  # --moe-golden-sweep's cap per salt
 
 
@@ -1317,6 +1348,24 @@ def plain_flash(q, k, v):
     return flash_attention_plain(q, k, v, True)[0]
 
 
+def dense_causal(q, k, v):
+    """Causal attention through the dense softmax (a second plain
+    arithmetic for phase 9's noise estimate)."""
+    from relayrl_tpu_torch.ops.attention import dense_attention
+
+    return dense_attention(q, k, v, causal=True)
+
+
+def plain_flash_f64(q, k, v):
+    """K1's plain version in float64, rounded back (a third)."""
+    from relayrl_tpu_torch.ops.flash import flash_attention_plain
+
+    return flash_attention_plain(q.double(), k.double(), v.double(), True)[0].to(q.dtype)
+
+
+NOISE_ATTENTIONS = (dense_causal, plain_flash_f64)
+
+
 def build_learner(device, workdir: Path, arch: dict = SLICE_ARCH,
                   algorithm: str = "REINFORCE", hp: dict | None = None):
     """The port's ``algorithm`` (REINFORCE with ``LEARNER`` by default)
@@ -1927,7 +1976,7 @@ def local_cartpole(device, workdir: Path) -> dict:
 
 
 def compare_update_to_cpu(algo, params0, batch, idx_sets=None, plain_attn=None,
-                          **overrides) -> dict:
+                          noise_attns=(), **overrides) -> dict:
     """The learner's update from ``params0`` on ``batch`` on its device
     against the same update on the CPU, both with fresh Adam state
     (:func:`update_parts`: REINFORCE, IMPALA, or PPO on ``idx_sets`` with
@@ -1949,7 +1998,12 @@ def compare_update_to_cpu(algo, params0, batch, idx_sets=None, plain_attn=None,
     an element outside Adam's floor passes when its card-vs-CPU difference
     is within the bar or within ``PLAIN_NOISE_FACTOR`` times the
     plain-vs-CPU difference there, so the kernels are held to what the same
-    arithmetic without them gives. Returns the largest differences, the
+    arithmetic without them gives. With ``noise_attns`` too (more plain
+    attentions), the update also runs through each of them on the card, and
+    each of ``DELTA_METRICS`` is held to the larger of its bar and
+    ``PLAIN_NOISE_FACTOR`` times the largest card-vs-CPU difference among
+    the plain sides (``delta_bars``; ``delta_over_bar`` says whether the bar
+    alone would have failed it). Returns the largest differences, the
     elements below the floor, the largest difference among them, the
     elements that passed by the relative rule alone (with the largest such
     difference), whether the plain side alone would miss the bars, the key
@@ -1974,16 +2028,18 @@ def compare_update_to_cpu(algo, params0, batch, idx_sets=None, plain_attn=None,
 
     key_grads = {}
     # The CPU side last: the checks below read its parameters and Adam.
-    for side in ("card",) + (() if plain_attn is None else ("plain",)) + ("cpu",):
+    plains = {} if plain_attn is None else {"plain": plain_attn}
+    plains.update({f"noise{i}": attn for i, attn in enumerate(noise_attns)})
+    for side in ("card", *plains, "cpu"):
         policy = algo.policy if side != "cpu" else build_policy(algo.arch, "cpu")
         params = policy.load_params(params_to_jax(params0))
-        if side == "plain":
+        if side in plains:
             for block in params.layers():
-                block.attn_fn = plain_attn
+                block.attn_fn = plains[side]
         state, update, _ = update_parts(algo, policy, params, idx_sets, **overrides)
         opts = [opt for opt in vars(state).values()
                 if isinstance(opt, torch.optim.Optimizer)]
-        if side != "plain":
+        if side not in plains:
             hook = (track_rms(least_rms, torch.minimum) if side == "cpu"
                     else track_rms(most_rms, torch.maximum))
             for opt in opts:
@@ -2008,14 +2064,23 @@ def compare_update_to_cpu(algo, params0, batch, idx_sets=None, plain_attn=None,
     metric_err = param_err = floor_err = relative_err = kernel_err = plain_err = 0.0
     key_moved = 0.0  # the key bias's largest move, over its step bound
     n_floored = n_relative = 0
-    plain_over_bar = False
+    plain_over_bar = delta_over_bar = False
+    samples = [sides[side][1] for side in plains]
+    delta_bars, delta_errs = {}, {}
     for key, value in want_m.items():
         err = abs(got_m[key] - value)
         bar = MLP_METRIC_RTOL * abs(value) + MLP_METRIC_ATOL
         if plain_m is not None:
             plain_over_bar |= not abs(plain_m[key] - value) <= bar
+        if key in DELTA_METRICS and len(samples) > 1:
+            delta_over_bar |= not err <= bar
+            bar = max(bar, PLAIN_NOISE_FACTOR * max(abs(m[key] - value) for m in samples))
+            delta_bars[key], delta_errs[key] = bar, err
         if not err <= bar:
-            raise AssertionError(f"update metric {key}: card {got_m[key]} vs cpu {value}")
+            raise AssertionError(f"update metric {key}: card {got_m[key]} vs cpu {value} "
+                                 f"(bar {bar:.3e}" + (f"; plain sides vs cpu "
+                                 f"{[abs(m[key] - value) for m in samples]})"
+                                 if key in delta_bars else ")"))
         metric_err = max(metric_err, err)
     for name, p in state.params.named_parameters():
         diff = (got[name] - want[name]).abs()
@@ -2058,6 +2123,8 @@ def compare_update_to_cpu(algo, params0, batch, idx_sets=None, plain_attn=None,
             "floor_err": floor_err, "n_relative": n_relative,
             "relative_err": relative_err, "kernel_err": kernel_err,
             "plain_err": plain_err, "plain_over_bar": plain_over_bar,
+            "delta_bars": delta_bars, "delta_errs": delta_errs,
+            "delta_over_bar": delta_over_bar,
             "key_moved": key_moved, **key_grads, "metrics": got_m}
 
 
@@ -2107,7 +2174,7 @@ def local_recall(device, workdir: Path) -> dict:
                              f"{runner.actor.version}")
     cmp = compare_update_to_cpu(runner.algorithm, params0,
                                 epoch_batches(runner.algorithm, episodes, 1)[0],
-                                plain_attn=plain_flash)
+                                plain_attn=plain_flash, noise_attns=NOISE_ATTENTIONS)
     return {"per_update": per_update, "launches": launches, "steps": steps,
             "cached_steps": len(cached_steps),
             "head_dim": hp["d_model"] // hp["n_heads"], "episodes": len(result["returns"]),
@@ -2119,12 +2186,15 @@ def recall_sweep(device, workdir: Path, salts: range) -> int:
     (the learner's params and sampling differ with each): the first update
     through the kernels on the card, through the plain attention on the
     card, and on the CPU, from the same params on the same batch
-    (:func:`compare_update_to_cpu` with ``plain_flash``). Prints per salt
-    the largest difference outside Adam's floor of each card side against
-    the CPU, the elements that passed by the noise-relative rule alone, and
-    the key bias's gradient on the card beside the q and v thirds' and its
-    largest move over the step bound; then how many salts fail phase 9's
-    criterion, and how many the bar alone would fail on each side. Gates
+    (:func:`compare_update_to_cpu` with ``plain_flash`` and
+    ``NOISE_ATTENTIONS``, as phase 9 runs it). Prints per salt the largest
+    difference outside Adam's floor of each card side against the CPU, the
+    elements that passed by the noise-relative rule alone, the
+    ``DELTA_METRICS``' differences beside their noise bars, and the key
+    bias's gradient on the card beside the q and v thirds' and its largest
+    move over the step bound; then how many salts fail phase 9's
+    criterion, how many the bar alone would fail on each side, and how
+    many the metric bar alone would fail on ``DELTA_METRICS``. Gates
     nothing; returns 0."""
     import io
 
@@ -2133,7 +2203,8 @@ def recall_sweep(device, workdir: Path, salts: range) -> int:
     from relayrl_tpu_torch.runtime import LocalRunner
 
     hp = recall_hyperparams("transformer", RECALL_HORIZON, "flash")
-    failed = {"noise-relative": [], "bar alone, kernels": [], "bar alone, plain": []}
+    failed = {"noise-relative": [], "bar alone, kernels": [], "bar alone, plain": [],
+              "DeltaLoss at the metric bar alone": []}
     key = {"key_grad": 0.0, "qv_grad": math.inf, "key_moved": 0.0}
     for salt in salts:
         runner = LocalRunner(RecallEnv(horizon=RECALL_HORIZON), "REINFORCE",
@@ -2149,23 +2220,31 @@ def recall_sweep(device, workdir: Path, salts: range) -> int:
             runner.train(epochs=1)
         batch = epoch_batches(algo, episodes, 1)[0]
         try:
-            cmp = compare_update_to_cpu(algo, params0, batch, plain_attn=plain_flash)
+            cmp = compare_update_to_cpu(algo, params0, batch, plain_attn=plain_flash,
+                                        noise_attns=NOISE_ATTENTIONS)
         except AssertionError as exc:
             failed["noise-relative"].append(salt)
             failed["bar alone, kernels"].append(salt)
+            if any(f"metric {k}" in str(exc) for k in DELTA_METRICS):
+                failed["DeltaLoss at the metric bar alone"].append(salt)
             print(f"[recall-sweep] salt {salt}: FAILS {exc}", flush=True)
             continue
         if cmp["n_relative"]:
             failed["bar alone, kernels"].append(salt)
         if cmp["plain_over_bar"]:
             failed["bar alone, plain"].append(salt)
+        if cmp["delta_over_bar"]:
+            failed["DeltaLoss at the metric bar alone"].append(salt)
         key = {"key_grad": max(key["key_grad"], cmp["key_grad"]),
                "qv_grad": min(key["qv_grad"], cmp["qv_grad"]),
                "key_moved": max(key["key_moved"], cmp["key_moved"])}
         print(f"[recall-sweep] salt {salt}: outside Adam's floor, max card-vs-cpu diff "
               f"kernels {cmp['kernel_err']:.3e}, plain {cmp['plain_err']:.3e}; "
               f"{cmp['n_relative']} element(s) passed by the relative rule alone (max "
-              f"{cmp['relative_err']:.3e}); max metric diff {cmp['metric_err']:.3e}; key "
+              f"{cmp['relative_err']:.3e}); max metric diff {cmp['metric_err']:.3e}; "
+              + ", ".join(f"{k} {cmp['delta_errs'][k]:.3e} (bar {cmp['delta_bars'][k]:.3e})"
+                          for k in cmp["delta_bars"])
+              + f"; key "
               f"bias: card gradient {cmp['key_grad']:.3e} (q and v thirds' median "
               f"{cmp['qv_grad']:.3e}), largest move {cmp['key_moved']:.6f} x the step bound",
               flush=True)
@@ -4179,18 +4258,30 @@ def moe_flagship(device, root: Path, workdir: Path, learned: dict) -> dict:
     decode_bf16 = check_cached_decode(device, {**slice_arch(), **MOE_ARCH}, episodes=1,
                                       pin_routes=True)
 
+    import os
+
     zero_flash_counts()
     golden = recall_moe_golden(device, root, workdir / "golden", MOE_GOLDEN_MAX_UPDATES)
+    stalled = None
+    if golden["curve"][-1] < 1.0:
+        stalled = golden
+        print(f"[moe] recall_moe golden stalled at the process id's salt: AverageEpRet "
+              f"{golden['curve'][-5:]} after {len(golden['curve'])} updates; "
+              f"{golden_readout_text(golden['readout'])}; a second salt", flush=True)
+        golden = recall_moe_golden(device, root, workdir / "golden2", MOE_GOLDEN_MAX_UPDATES,
+                                   os.getpid() + MOE_GOLDEN_SECOND_SALT)
     curve = golden["curve"]
     if curve[-1] < 1.0 or any(flash_counts()):
         raise AssertionError(f"recall_moe golden: AverageEpRet {curve[-5:]} after "
-                             f"{len(curve)} updates; flash launches {flash_counts()}")
+                             f"{len(curve)} updates at the second salt too; flash launches "
+                             f"{flash_counts()}")
     return {"eval_err": eval_err, "eval_changes": eval_changes,
             "update_changes": update_changes, "eval_launches": eval_counts[0],
             "launches": launches,
             "util": {k: [round(float(x), 4) for x in v] for k, v in util.items()},
             "decode": decode, "decode_bf16": decode_bf16,
             "golden_updates": len(curve), "golden_wall": golden["wall"],
+            "golden_stalled": stalled is not None,
             "golden_steps": golden["steps"], "golden_first": curve[0], **cmp}
 
 
@@ -4229,8 +4320,40 @@ def recall_moe_golden(device, root: Path, workdir: Path, max_updates: int,
         if curve[-1] >= 1.0:
             break
     torch.cuda.synchronize()
-    return {"curve": curve, "wall": time.perf_counter() - t0,
-            "steps": runner.actor.steps_served}
+    wall = time.perf_counter() - t0
+    return {"curve": curve, "wall": wall, "steps": runner.actor.steps_served,
+            "readout": golden_readout(runner)}
+
+
+def golden_readout(runner) -> dict:
+    """What a recall_moe run has learned: the last update's policy entropy,
+    the query step's action probabilities for each cue (the window of one
+    episode: the cue at t = 0, the query flag at the last step), and each
+    layer's expert utilization over those windows."""
+    import numpy as np
+    import torch
+
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+    from relayrl_tpu_torch.models.moe import expert_utilization
+
+    algo, env = runner.algorithm, runner.env
+    obs = np.zeros((env.n_cues, env.horizon, env.n_cues + 2), np.float32)
+    for cue in range(env.n_cues):
+        obs[cue, 0, cue] = 1.0
+        obs[cue, -1, env.n_cues] = 1.0
+        obs[cue, :, env.n_cues + 1] = np.arange(env.horizon) / env.horizon
+    params = algo.state.params
+    with torch.no_grad():
+        logits, _ = params(torch.as_tensor(obs, device=algo.device))
+    util = expert_utilization(algo.arch, params, obs)
+    return {"entropy": read_metrics(algo._last_metrics).get("Entropy"),
+            "query_probs": torch.softmax(logits[:, -1], -1).cpu().numpy().round(4).tolist(),
+            "utilization": {k: [round(float(x), 4) for x in v] for k, v in util.items()}}
+
+
+def golden_readout_text(readout: dict) -> str:
+    return (f"policy entropy {readout['entropy']:.4f}, query-step action probabilities "
+            f"per cue {readout['query_probs']}, expert utilization {readout['utilization']}")
 
 
 def moe_golden_sweep(device, root: Path, workdir: Path, salts: range,
@@ -4250,7 +4373,7 @@ def moe_golden_sweep(device, root: Path, workdir: Path, salts: range,
         print(f"[moe-golden-sweep] salt {salt}: "
               + (f"1.0 at update {len(run['curve'])}" if reached
                  else f"not at 1.0 after {max_updates} updates (last {run['curve'][-1]:.3f})")
-              + f", {run['wall']:.2f} s", flush=True)
+              + f", {run['wall']:.2f} s; {golden_readout_text(run['readout'])}", flush=True)
     print(f"[moe-golden-sweep] updates to 1.0 over salts {salts.start}..{salts.stop - 1}: "
           f"{sorted(t for t in took if t is not None)}; {took.count(None)} not there "
           f"within {max_updates}", flush=True)
@@ -4299,6 +4422,401 @@ def pp_flagship(device, workdir: Path, learned: dict) -> dict:
     if launches != expected:
         raise AssertionError(f"pp update launches {launches}, expected {expected}")
     return {"launches": launches, "rows": tuple(obs.shape[:2]), **cmp}
+
+
+# -- phase 17: the anakin tier -------------------------------------------------
+
+def _window_copy(host) -> dict:
+    """The device window as fresh numpy arrays (flat keys, aux prefixed)."""
+    w = host.window_to_host()
+    out = {k: w[k].copy() for k in ("obs", "act", "rew", "term", "trunc", "final_obs")}
+    out.update({f"aux.{k}": v.copy() for k, v in w["aux"].items()})
+    return out
+
+
+def _carry_copy(host) -> dict:
+    carry = host.snapshot()[0]
+    out = {f"state.{i}": t.cpu().numpy() for i, t in enumerate(carry["state"])}
+    out.update({k: v.cpu().numpy() for k, v in carry.items() if k != "state"})
+    return out
+
+
+def graph_vs_eager(host) -> list:
+    """One window by graph replay and the same window run eagerly, from the
+    same carry and generator states. Returns the keys (window, aux and the
+    carry after) whose bytes differ."""
+    snap = host.snapshot()
+    host.produce()
+    graph, graph_carry = _window_copy(host), _carry_copy(host)
+    host.restore(snap)
+    host.produce(eager=True)
+    eager, eager_carry = _window_copy(host), _carry_copy(host)
+    return ([k for k in graph if graph[k].tobytes() != eager[k].tobytes()]
+            + [k for k in graph_carry if graph_carry[k].tobytes() != eager_carry[k].tobytes()])
+
+
+def window_ms(host, n: int, eager: bool = False) -> float:
+    """Milliseconds per window on the device (replay or eager), ending in a
+    device sync, over ``n`` windows after one untimed."""
+    import torch
+
+    host.produce(eager=eager)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        host.produce(eager=eager)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def device_envs_card_vs_cpu(device) -> dict:
+    """Phase 17a: each of the six device envs, ``ANAKIN_ENV_LANES`` lanes
+    for ``ANAKIN_ENV_STEPS`` steps on actions drawn with numpy from a seed:
+    before every step the card's env takes the CPU side's state (re-anchored,
+    so a one-ulp difference never compounds), both step, and every state
+    field, observation, reward and flag is compared: exactly for the
+    integer envs and every integer or bool field, to ``ANAKIN_ENV_TOL``
+    (absolute plus relative) for CartPole's and Pendulum's floats. The CPU
+    side then autoresets from its generator. Returns the largest float
+    difference per env."""
+    import numpy as np
+    import torch
+
+    from relayrl_tpu_torch.envs.device import make_device, step_autoreset
+
+    worst = {}
+    for env_id, kwargs in ANAKIN_ENVS.items():
+        cpu = make_device(env_id, device="cpu", **kwargs)
+        card = make_device(env_id, device=device, **kwargs)
+        gen = torch.Generator().manual_seed(SEED)
+        rng = np.random.default_rng(SEED)
+        state, _ = cpu.reset(gen, ANAKIN_ENV_LANES)
+        worst[env_id] = 0.0
+        for step in range(ANAKIN_ENV_STEPS):
+            if env_id == "Pendulum-v1":
+                act = torch.as_tensor(rng.uniform(-2.5, 2.5, (ANAKIN_ENV_LANES, 1))
+                                      .astype(np.float32))
+            else:
+                act = torch.as_tensor(rng.integers(cpu.action_space.n, size=ANAKIN_ENV_LANES)
+                                      .astype(np.int32))
+            want = cpu.step(state, act)
+            got = card.step(type(state)(*(t.to(device) for t in state)), act.to(device))
+            for name, g, w in zip([f"state.{f}" for f in state._fields]
+                                  + ["obs", "reward", "terminated", "truncated"],
+                                  [*got[0], *got[1:]], [*want[0], *want[1:]]):
+                g = g.cpu()
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    raise AssertionError(f"{env_id} {name}: {g.dtype} {tuple(g.shape)} on "
+                                         f"the card, {w.dtype} {tuple(w.shape)} on the cpu")
+                if env_id in ANAKIN_FLOAT_ENVS and g.is_floating_point():
+                    err = (g - w).abs()
+                    if not bool((err <= ANAKIN_ENV_TOL * (1 + w.abs())).all()):
+                        raise AssertionError(f"{env_id} {name} at step {step}: card vs cpu "
+                                             f"{err.max().item():.3e}")
+                    worst[env_id] = max(worst[env_id], err.max().item())
+                elif not torch.equal(g, w):
+                    raise AssertionError(f"{env_id} {name} at step {step}: card != cpu")
+            state = step_autoreset(cpu, state, act, gen)[0]
+    return worst
+
+
+def anakin_mlp(device, root: Path, workdir: Path) -> dict:
+    """Phase 17b: the cartpole_reinforce_baseline golden's ``mlp_discrete``
+    (its ``config.json``, random weights from the learner's seed) on device
+    CartPole, ``ANAKIN_MLP_LANES`` lanes, ``ANAKIN_UNROLL`` steps a window,
+    captured as a CUDA graph. The graph's window equals the eager window bit
+    for bit from the same generator states; a replay from the same carry and
+    policy generator but the env generator one replay on diverges in the
+    resets alone, and one from the env generator but the policy generator
+    one replay on acts differently at its first step (both generators
+    advance inside the graph); ``final_obs`` equals the next ``obs`` wherever
+    a lane did not end, and every autoreset lane starts inside CartPole's
+    reset box; no flash or ring kernel launches. Returns the windows' times,
+    graph and eager."""
+    import numpy as np
+    import torch
+
+    from relayrl_tpu_torch.algorithms import build_algorithm
+    from relayrl_tpu_torch.runtime.anakin import AnakinActorHost
+
+    cfg = json.loads((root / "examples" / "golden" / "cartpole_reinforce_baseline"
+                      / "config.json").read_text())
+    hp = {k: v for k, v in cfg.items()
+          if k not in ("algorithm", "exp_name", "obs_dim", "act_dim", "discrete")}
+    algo = build_algorithm(cfg["algorithm"], obs_dim=cfg["obs_dim"], act_dim=cfg["act_dim"],
+                           device=device, env_dir=str(workdir),
+                           config_path=_local_config(workdir), **hp)
+    if algo.arch["kind"] != "mlp_discrete":
+        raise AssertionError(f"cartpole golden arch {algo.arch}")
+    zero_flash_counts()
+    zero_ring_counts()
+    host = AnakinActorHost(algo.bundle(), "CartPole-v1", num_envs=ANAKIN_MLP_LANES,
+                           unroll_length=ANAKIN_UNROLL, seed=SEED, device=device)
+    differs = graph_vs_eager(host)
+    if differs:
+        raise AssertionError(f"MLP window: graph != eager in {differs}")
+    snap = host.snapshot()
+    host.produce()
+    first = _window_copy(host)
+    pol1, env1 = host._pol_gen.get_state(), host._env_gen.get_state()
+    host.restore((snap[0], snap[1], env1))
+    host.produce()
+    env_on = _window_copy(host)
+    host.restore((snap[0], pol1, snap[2]))
+    host.produce()
+    pol_on = _window_copy(host)
+    if not (np.array_equal(env_on["act"][:, 0], first["act"][:, 0])
+            and not np.array_equal(env_on["obs"], first["obs"])):
+        raise AssertionError("the env generator did not advance inside the graph")
+    if np.array_equal(pol_on["act"][:, 0], first["act"][:, 0]):
+        raise AssertionError("the policy generator did not advance inside the graph")
+    done = first["term"] | first["trunc"]
+    going = ~done[:, :-1]
+    if not np.array_equal(first["final_obs"][:, :-1][going], first["obs"][:, 1:][going]):
+        raise AssertionError("final_obs != the next obs on a lane that did not end")
+    starts = first["obs"][:, 1:][done[:, :-1]]
+    if starts.size == 0 or np.abs(starts).max() > 0.05:
+        raise AssertionError(f"autoreset starts outside CartPole's reset box: "
+                             f"{np.abs(starts).max() if starts.size else 'none'}")
+    graph_ms = window_ms(host, ANAKIN_TIMED)
+    eager_ms = window_ms(host, ANAKIN_TIMED, eager=True)
+    counts = flash_counts() + ring_counts()
+    if any(counts) or any(host.captured_launches):
+        raise AssertionError(f"flash/ring kernels on the MLP window: {counts}, captured "
+                             f"{host.captured_launches}")
+    return {"graph_ms": graph_ms, "eager_ms": eager_ms, "resets": int(done.sum()),
+            "hidden": list(hp["hidden_sizes"])}
+
+
+def anakin_flagship(device, workdir: Path) -> dict:
+    """Phase 17c: phase 4's configuration on the anakin tier: the flagship
+    arch on device ``Recall-v0`` (horizon ``HORIZON``, ``N_CUES`` cues),
+    ``LANES`` lanes, ``ANAKIN_UNROLL`` steps a window over a 256-row rolling
+    window, captured as one CUDA graph. The capture holds exactly 3 K1 per
+    step (every layer but the readout layer's), so a replay launches
+    ``3 x ANAKIN_UNROLL``; the graph equals the eager window bit for bit,
+    before and after a hot swap (the swap copies the new params into the
+    graph's tensors: the installed params' sha256 equals the bundle's);
+    each shipped step's ``logp_a`` equals the log-prob of its action on the
+    same window contents through the plain attention (phase 4's bar); every
+    columnar frame of ``ANAKIN_SEQ_WINDOWS`` windows decodes through
+    ``parse_frame`` with the episode's length and its terminal marker.
+    Returns the launches, the errors and the times."""
+    import numpy as np
+    import torch
+
+    from relayrl_tpu_torch.models import build_policy
+    from relayrl_tpu_torch.runtime.anakin import AnakinActorHost
+    from relayrl_tpu_torch.runtime.policy_actor import window_advance
+    from relayrl_tpu_torch.types import ModelBundle
+    from relayrl_tpu_torch.types.columnar import parse_frame
+    from relayrl_tpu_torch.weights import params_to_jax, tree_digest
+
+    arch = slice_arch()
+    policy = build_policy(arch, device)
+    v1, v2 = (ModelBundle(version, arch, params_to_jax(policy.init_params(
+        torch.Generator().manual_seed(SEED + version)))) for version in (1, 2))
+    frames = [[] for _ in range(LANES)]
+    zero_flash_counts()
+    host = AnakinActorHost(v1, "Recall-v0", num_envs=LANES, unroll_length=ANAKIN_UNROLL,
+                           seed=SEED, device=device, horizon=HORIZON, n_cues=N_CUES,
+                           on_send=lambda lane, p: frames[lane].append(p))
+    build_counts = flash_counts()
+    per_window = (arch["n_layers"] - 1) * ANAKIN_UNROLL
+    if (host.captured_launches != (per_window, 0, 0, 0, 0, 0)
+            or build_counts != (arch["n_layers"] + 2 * per_window, 0, 0)):
+        raise AssertionError(f"flagship window: captured launches {host.captured_launches}, "
+                             f"expected {per_window} K1; construction {build_counts} "
+                             f"(validate, warm-up and capture)")
+    if host._window_size != arch["max_seq_len"]:
+        raise AssertionError(f"window {host._window_size}")
+
+    # The main path: ANAKIN_SEQ_WINDOWS windows through rollout() (replay,
+    # copy out, columnar emit); the replays run no Python launch counter.
+    zero_flash_counts()
+    replays0 = host.replays
+    t0 = time.perf_counter()
+    for _ in range(ANAKIN_SEQ_WINDOWS):
+        host.rollout()
+    wall = time.perf_counter() - t0
+    replays = host.replays - replays0
+    if flash_counts() != (0, 0, 0) or replays != ANAKIN_SEQ_WINDOWS:
+        raise AssertionError(f"replays {replays} counted {flash_counts()}")
+    n_frames = 0
+    for lane, lane_frames in enumerate(frames):
+        if not lane_frames:
+            raise AssertionError(f"lane {lane} shipped no frame")
+        for payload in lane_frames:
+            dt = parse_frame(payload, agent_id=f"lane{lane}")
+            cols = dt.columns
+            ok = (dt.n_steps == HORIZON and dt.n_records == HORIZON + 1
+                  and not dt.marker_truncated and dt.final_obs is None
+                  and cols["o"].shape == (HORIZON, arch["obs_dim"])
+                  and cols["o"].dtype == np.float32 and cols["a"].dtype == np.int32
+                  and cols["t"][-1] == 1 and not cols["t"][:-1].any() and not cols["x"].any()
+                  and sorted(dt.aux) == ["logp_a", "v"])
+            if not ok:
+                raise AssertionError(f"lane {lane}: frame of {dt.n_steps} steps, "
+                                     f"{dt.n_records} records, columns "
+                                     f"{ {k: (v.dtype, v.shape) for k, v in cols.items()} }")
+            n_frames += 1
+
+    # logp_a against the plain attention on the same window contents.
+    snap = host.snapshot()
+    host.produce()
+    w = _window_copy(host)
+    plain = copy.deepcopy(host._live)
+    for block in plain.layers():
+        block.attn_fn = plain_flash
+    win, wlen = snap[0]["win"], snap[0]["wlen"]
+    logp_err = 0.0
+    with torch.no_grad():
+        for u in range(ANAKIN_UNROLL):
+            obs = torch.as_tensor(w["obs"][:, u], device=device)
+            win, wlen = window_advance(win, wlen, obs)
+            logits, _ = plain(win, None, readout_t=(wlen.long() - 1).clamp(0, win.shape[1] - 1))
+            act = torch.as_tensor(w["act"][:, u], device=device).long()
+            logp = torch.log_softmax(logits, -1).gather(-1, act[:, None])[:, 0]
+            logp_err = max(logp_err, (logp.cpu() - torch.as_tensor(w["aux.logp_a"][:, u]))
+                           .abs().max().item())
+            done = torch.as_tensor(w["term"][:, u] | w["trunc"][:, u], device=device)
+            win = torch.where(done[:, None, None], 0.0, win)
+            wlen = torch.where(done, 0, wlen)
+    if not logp_err <= TOLERANCE["bfloat16"]:
+        raise AssertionError(f"shipped logp_a vs the plain attention: {logp_err}")
+    differs = graph_vs_eager(host)
+    if differs:
+        raise AssertionError(f"flagship window: graph != eager in {differs}")
+    graph_ms = window_ms(host, ANAKIN_TIMED)
+    eager_ms = window_ms(host, ANAKIN_TIMED, eager=True)
+    # A hot swap between windows: the next window reads the new params.
+    if not host.maybe_swap(v2):
+        raise AssertionError("hot swap refused")
+    live = host._live
+    host.rollout()
+    digest = tree_digest(params_to_jax(host._live))
+    if host._live is not live or digest != tree_digest(v2.params) or host.version != 2:
+        raise AssertionError("the swap did not copy v2 into the graph's params")
+    swapped = graph_vs_eager(host)
+    if swapped:
+        raise AssertionError(f"flagship window after the swap: graph != eager in {swapped}")
+    return {"launches": per_window * replays, "per_replay": per_window,
+            "replays": replays, "wall": wall,
+            "frames": n_frames, "logp_err": logp_err, "graph_ms": graph_ms,
+            "eager_ms": eager_ms, "digest": digest}
+
+
+def anakin_distributed(device, root: Path, workdir: Path) -> dict:
+    """Phase 17d: phase 11's REINFORCE learner (16 episodes an epoch, so
+    one wave of ``LANES`` episodes is ``ANAKIN_UPDATES`` updates) in a
+    ``chaos_server`` process over ZMQ, fed by one anakin ``VectorAgent`` of
+    phase 17c's configuration on ``Recall-v0`` at ``LEARNER_HORIZON`` (the
+    learner's 256 bucket), columnar frames, ``record_bver`` on. One wave of
+    windows, then: the server counts columnar frames, trains
+    ``ANAKIN_UPDATES`` updates at 336/4/4 launches each, accepts exactly
+    what each lane sent; the agent installs every publish sha256-equal to
+    it; the next window runs at the new version (its ``bver``)."""
+    import shutil
+
+    from relayrl_tpu_torch.runtime.agent import VectorAgent
+    from relayrl_tpu_torch.weights import params_to_jax, tree_digest
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    server_addrs, agent_addrs = zmq_addrs()
+    arch = slice_arch()
+    learner = {**LEARNER, "traj_per_epoch": LANES // ANAKIN_UPDATES}
+    hyperparams = {"model_kind": arch["kind"], "seed": SEED, "seed_salt": 0,
+                   **{k: v for k, v in SLICE_ARCH.items()
+                      if k not in ("kind", "has_critic", "precision")}, **learner}
+    cfg = {"algorithm": "REINFORCE", "obs_dim": arch["obs_dim"], "act_dim": arch["act_dim"],
+           "hyperparams": hyperparams, "device": str(device),
+           "scratch": str(workdir / "server"),
+           "config": {"learner": {"precision": arch["precision"]}},
+           "digests": True, "status_path": str(workdir / "status.json"), **server_addrs}
+    agent_config = workdir / "agent_config.json"
+    agent_config.write_text(json.dumps({}))
+    per_update = (arch["n_layers"] * (4 + LEARNER["train_vf_iters"]), arch["n_layers"],
+                  arch["n_layers"])
+    server = ChaosServer(root, cfg, workdir / "server.log")
+    agent = None
+    try:
+        server.wait(lambda s: True, "the server to come up")
+        zero_flash_counts()
+        agent = VectorAgent(num_envs=LANES, config_path=str(agent_config), seed=SEED,
+                            probe=False, device=device, host_mode="anakin",
+                            jax_env="Recall-v0",
+                            jax_env_kwargs={"horizon": LEARNER_HORIZON, "n_cues": N_CUES},
+                            unroll_length=ANAKIN_UNROLL, record_bver=True,
+                            model_path=str(workdir / "client_model.rlx"), **agent_addrs)
+        host = agent.host
+        if not agent.columnar_wire or host.graph is None:
+            raise AssertionError("the anakin agent runs no captured columnar window")
+        installs, bvers = [], []
+        swap = host.swap_from_wire
+
+        def swap_and_log(version, blob):
+            got = swap(version, blob)
+            if got is not None:
+                with host._lock:
+                    installs.append((host.version, tree_digest(params_to_jax(host.params))))
+            return got
+
+        host.swap_from_wire = swap_and_log
+        emit = host._emit_columnar
+
+        def emit_and_log(w):
+            bvers.append(sorted(set(w["aux"]["bver"].ravel().tolist())))
+            return emit(w)
+
+        host._emit_columnar = emit_and_log
+        replays0 = host.replays
+        t0 = time.perf_counter()
+        for _ in range(-(-LEARNER_HORIZON // ANAKIN_UNROLL)):
+            agent.rollout()
+        wall = time.perf_counter() - t0
+        wave = host.replays - replays0
+        status = server.wait(
+            lambda s: (s["stats"]["updates"] == ANAKIN_UPDATES
+                       and agent.model_version == ANAKIN_UPDATES
+                       and (s.get("published") or {}).get("version") == ANAKIN_UPDATES),
+            f"{ANAKIN_UPDATES} updates published and installed")
+        agent.rollout()  # the next window, at the installed version
+        stats = status["stats"]
+        if stats["learner_errors"] or stats["dropped"] or stats["publish_errors"]:
+            raise AssertionError(f"server stats {stats}: {status['last_learner_error']}")
+        kernels = status["kernels"]
+        server_counts = (kernels["flash_fwd"], kernels["flash_dq"], kernels["flash_dkv"])
+        if server_counts != tuple(ANAKIN_UPDATES * c for c in per_update):
+            raise AssertionError(f"server launches {server_counts} over {ANAKIN_UPDATES} "
+                                 f"updates; expected {ANAKIN_UPDATES} x {per_update}")
+        frames = _counter(status, "relayrl_server_columnar_frames_total")
+        if frames < LANES:
+            raise AssertionError(f"the server counted {frames} columnar frames")
+        sent = agent.spool.sent_counts()
+        for lane in agent.agent_ids:
+            row = status["accounting"]["agents"].get(lane)
+            if row != {"max_seq": sent[lane], "accepted": sent[lane], "contiguous": True}:
+                raise AssertionError(f"ingest accounting of {lane}: {row}, sent {sent[lane]}")
+        log = status["published_log"]
+        if (not installs or [v for v, _ in installs][-1] != ANAKIN_UPDATES
+                or any(log.get(str(v)) != d for v, d in installs)):
+            raise AssertionError(f"installs {installs} vs published {log}")
+        if bvers[-1] != [ANAKIN_UPDATES] or bvers[0] != [0]:
+            raise AssertionError(f"bver per window {bvers}")
+        agent_counts = flash_counts()
+        per_replay = host.captured_launches[0]
+        if agent_counts != (arch["n_layers"] + 2 * per_replay, 0, 0):
+            raise AssertionError(f"agent launches at construction {agent_counts}")
+        return {"updates": stats["updates"], "server_counts": server_counts,
+                "per_update": per_update, "frames": frames, "installs": installs,
+                "agent_launches": per_replay * (host.replays - replays0),
+                "windows": host.replays - replays0, "wave_windows": wave, "wall": wall,
+                "bvers": bvers}
+    finally:
+        if agent is not None:
+            agent.disable_agent()
+        server.stop()
 
 
 def main() -> int:
@@ -4355,7 +4873,7 @@ def main() -> int:
         raise AssertionError(f"evaluate kernel vs plain attention: {err}")
     print(f"[serve] evaluate [{LANES}, {arch['max_seq_len']}] kernel vs plain "
           f"attention: max abs diff {err:.3e} (tol {TOLERANCE['bfloat16']:g})")
-    steps_per_s = LANES * DISPATCHES / run["wall"]
+    steps_per_s = serve_steps_per_s = LANES * DISPATCHES / run["wall"]
     print(f"[serve] {steps_per_s:.1f} env steps/s ({run['wall'] * 1e3 / DISPATCHES:.3f} "
           f"ms per dispatch, env stepping included) on {smi.splitlines()[0]}")
     parts = dispatch_breakdown(run["host"], device)
@@ -4476,6 +4994,9 @@ def main() -> int:
           f"{recall['kernel_err']:.3e} (tol {MLP_PARAM_ATOL:g}, or {PLAIN_NOISE_FACTOR:g} x "
           f"the plain attention's card-vs-cpu diff, max {recall['plain_err']:.3e}: "
           f"{recall['n_relative']} element(s) passed by that rule alone); "
+          + ", ".join(f"{k} {recall['delta_errs'][k]:.3e} (bar {recall['delta_bars'][k]:.3e}: "
+                      f"the metric bar or {PLAIN_NOISE_FACTOR:g} x the plain sides' largest)"
+                      for k in recall["delta_bars"]) + "; "
           f"{recall['n_floored']} elements below Adam's floor {ADAM_FLOOR:g}, max diff there "
           f"{recall['floor_err']:.3e} (tol lr x steps); qkv key bias: card gradient "
           f"{recall['key_grad']:.3e} (q and v thirds' median {recall['qv_grad']:.3e}), each "
@@ -4787,7 +5308,8 @@ def main() -> int:
           f"{b_decode['route_changes']['changed']} of {b_decode['route_changes']['tokens']} "
           f"token routes pinned", flush=True)
     print(f"[moe] recall_moe golden (config.json uncut, dense attention) through "
-          f"LocalRunner: AverageEpRet {moe['golden_first']:.3f} at update 1, 1.0 at update "
+          f"LocalRunner{' at the second salt (the first stalled)' if moe['golden_stalled'] else ''}"
+          f": AverageEpRet {moe['golden_first']:.3f} at update 1, 1.0 at update "
           f"{moe['golden_updates']} ({moe['golden_steps']} env steps in "
           f"{moe['golden_wall']:.2f} s) on {smi.splitlines()[0]}", flush=True)
     pp = pp_flagship(device, root / "build" / "chip_smoke_pp", learned)
@@ -4802,13 +5324,62 @@ def main() -> int:
     fam_fwd = (m_fwd + moe["eval_launches"] + m_decode["launches"] + b_decode["launches"]
                + pp_fwd)
 
+    # 17. the anakin tier: device envs, the fused window as one CUDA graph
+    t17 = time.perf_counter()
+    env_errs = device_envs_card_vs_cpu(device)
+    print(f"[anakin] the six device envs, {ANAKIN_ENV_LANES} lanes x {ANAKIN_ENV_STEPS} "
+          f"steps on the card from the cpu's states: integer envs and every integer or "
+          f"bool field equal; float fields max diff "
+          + ", ".join(f"{k} {v:.3e}" for k, v in env_errs.items() if k in ANAKIN_FLOAT_ENVS)
+          + f" (tol {ANAKIN_ENV_TOL:g} x (1 + |x|))", flush=True)
+    mlp = anakin_mlp(device, root, root / "build" / "chip_smoke_anakin_mlp")
+    mlp_steps = ANAKIN_MLP_LANES * ANAKIN_UNROLL
+    print(f"[anakin] cartpole_reinforce_baseline's mlp_discrete "
+          f"{'x'.join(map(str, mlp['hidden']))} on device CartPole, {ANAKIN_MLP_LANES} lanes "
+          f"x {ANAKIN_UNROLL} steps a window: graph == eager bit for bit, both generators "
+          f"advance inside the graph, final_obs == next obs on lanes that go on, "
+          f"{mlp['resets']} autoresets inside the reset box, flash/ring launches 0; "
+          f"(not gated) {mlp_steps / mlp['graph_ms'] * 1e3:.1f} env steps/s by graph "
+          f"({mlp['graph_ms']:.3f} ms a window) vs {mlp_steps / mlp['eager_ms'] * 1e3:.1f} "
+          f"eager ({mlp['eager_ms']:.3f} ms) on {smi.splitlines()[0]}", flush=True)
+    flag = anakin_flagship(device, root / "build" / "chip_smoke_anakin")
+    seq_steps = LANES * ANAKIN_UNROLL
+    print(f"[anakin] the flagship on device Recall-v0({HORIZON}, {N_CUES}), {LANES} lanes x "
+          f"{ANAKIN_UNROLL} steps a window over a {SLICE_ARCH['max_seq_len']}-row window: "
+          f"flash_fwd {flag['per_replay']} per replay (captured) x {flag['replays']} replays "
+          f"= {flag['launches']}; graph == eager bit for bit, and after a hot swap "
+          f"(sha256 {flag['digest'][:16]}); shipped logp_a vs the plain attention max abs "
+          f"diff {flag['logp_err']:.3e} (tol {TOLERANCE['bfloat16']:g}); {flag['frames']} "
+          f"columnar frames of {HORIZON} steps decoded; (not gated) "
+          f"{seq_steps * flag['replays'] / flag['wall']:.1f} env steps/s through rollout() "
+          f"(replay, copy out, columnar emit) beside phase 4's vector tier "
+          f"{serve_steps_per_s:.1f}; by graph {seq_steps / flag['graph_ms'] * 1e3:.1f} "
+          f"({flag['graph_ms']:.3f} ms a window) vs eager "
+          f"{seq_steps / flag['eager_ms'] * 1e3:.1f} ({flag['eager_ms']:.3f} ms) on "
+          f"{smi.splitlines()[0]}", flush=True)
+    dist17 = anakin_distributed(device, root, root / "build" / "chip_smoke_anakin_dist")
+    a_dfwd, a_ddq, a_ddkv = dist17["server_counts"]
+    print(f"[anakin] chaos_server (phase 11's learner, {LANES // ANAKIN_UPDATES} episodes an "
+          f"epoch) over ZMQ fed by an anakin VectorAgent ({LANES} Recall-v0"
+          f"({LEARNER_HORIZON}) lanes, columnar, record_bver): {dist17['updates']} updates, "
+          f"server launches {dist17['server_counts']} = {ANAKIN_UPDATES} x "
+          f"{dist17['per_update']}; {dist17['frames']:g} columnar frames counted by the "
+          f"server; installs {[v for v, _ in dist17['installs']]} sha256-equal to their "
+          f"publishes; bver per window {dist17['bvers'][0]} .. {dist17['bvers'][-1]}; agent "
+          f"flash_fwd {dist17['agent_launches']} = {flag['per_replay']} x "
+          f"{dist17['windows']} replays; (not gated) "
+          f"{LANES * ANAKIN_UNROLL * dist17['wave_windows'] / dist17['wall']:.1f} env "
+          f"steps/s at the agent over the first wave", flush=True)
+    print(f"[anakin] phase 17 in {time.perf_counter() - t17:.1f} s", flush=True)
+    anakin_fwd = flag["launches"] + dist17["agent_launches"] + a_dfwd
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:116",
         "launches": (run["launches"] + fwd + r_fwd + decode["launches"] + a_fwd + d_fwd
-                     + ga_fwd + g_fwd + fa_fwd + f_fwd + p_fwd + fam_fwd),
+                     + ga_fwd + g_fwd + fa_fwd + f_fwd + p_fwd + fam_fwd + anakin_fwd),
         "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd,
                              "decode_vs_window": decode["launches"],
                              "distributed_agent": a_fwd, "distributed_server": d_fwd,
@@ -4819,31 +5390,35 @@ def main() -> int:
                              "moe_learner": m_fwd, "moe_evaluate": moe["eval_launches"],
                              "moe_decode_vs_window": m_decode["launches"],
                              "moe_decode_vs_window_bf16": b_decode["launches"],
-                             "pp_learner": pp_fwd},
+                             "pp_learner": pp_fwd,
+                             "anakin_window_replays": flag["launches"],
+                             "anakin_agent_replays": dist17["agent_launches"],
+                             "anakin_server": a_dfwd},
         **main_flash,
     }, {
         "name": "flash_dq",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:223",
-        "launches": dq + r_dq + d_dq + g_dq + f_dq + p_dq + m_dq + pp_dq,
+        "launches": dq + r_dq + d_dq + g_dq + f_dq + p_dq + m_dq + pp_dq + a_ddq,
         "launches_by_path": {"learner": dq, "local_loop": r_dq, "distributed_server": d_dq,
                              "guardrails_server": g_dq, "fleet_server": f_dq,
                              "ppo_learner": p_dq, "offpolicy": off_counts[1],
                              "pixel": pix_counts[1], "moe_learner": m_dq,
-                             "pp_learner": pp_dq},
+                             "pp_learner": pp_dq, "anakin_server": a_ddq},
         **main_bwd["flash_dq"],
     }, {
         "name": "flash_dkv",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:255",
-        "launches": dkv + r_dkv + d_dkv + g_dkv + f_dkv + p_dkv + m_dkv + pp_dkv,
+        "launches": dkv + r_dkv + d_dkv + g_dkv + f_dkv + p_dkv + m_dkv + pp_dkv + a_ddkv,
         "launches_by_path": {"learner": dkv, "local_loop": r_dkv,
                              "distributed_server": d_dkv, "guardrails_server": g_dkv,
                              "fleet_server": f_dkv, "ppo_learner": p_dkv,
                              "offpolicy": off_counts[2], "pixel": pix_counts[2],
-                             "moe_learner": m_dkv, "pp_learner": pp_dkv},
+                             "moe_learner": m_dkv, "pp_learner": pp_dkv,
+                             "anakin_server": a_ddkv},
         **main_bwd["flash_dkv"],
     }] + [{
         "name": name,

@@ -25,12 +25,15 @@ with keys::
     config           — extra config sections, merged over the defaults
                        written here
     resume           — restore from scratch/checkpoints before serving
-    digests          — add the published params' sha256 to the status
+    digests          — add the published params' sha256 to the status,
+                       the latest (``published``) and every version's
+                       (``published_log``: {version: sha256})
     status_path      — JSON status file, atomically rewritten ~3x/s:
                        {pid, t, version, stats, accounting, registered,
                         kernels, resume, publish_bytes, last_publish,
                         timings, guardrails, probes_disabled, telemetry,
-                        transport, decoded_by[, published][, rolled_back]}
+                        transport, decoded_by[, published,
+                        published_log][, rolled_back]}
     run_s            — optional auto-exit
     profile          — optional {"after": a, "updates": n, "path": p}: once
                        the server has made ``a`` updates, profile the next
@@ -220,11 +223,22 @@ def main(argv=None) -> None:
         **addrs,
     )
     resumed = resume_info(server.algorithm)
+    digests = bool(cfg.get("digests", False))
+    published_log: dict[int, str] = {}
+    if digests:
+        from relayrl_tpu_torch.weights import tree_digest
+
+        publish = server._publish_params
+
+        def publish_and_log(version, arch, host_params):
+            publish(version, arch, host_params)
+            published_log[int(version)] = tree_digest(host_params)
+
+        server._publish_params = publish_and_log
     server.enable_server()
     server.wait_warmup(timeout=180)
 
     status_path = cfg["status_path"]
-    digests = bool(cfg.get("digests", False))
     stop = threading.Event()
     rolled_back = {"count": 0, "state": None}
 
@@ -274,6 +288,7 @@ def main(argv=None) -> None:
                     status["published"] = (None if got is None else
                                            {"version": got[0],
                                             "digest": got[1]})
+                    status["published_log"] = dict(published_log)
                 _write_status(status_path, status)
             except Exception as e:  # a status hiccup must not kill serving
                 print(f"[chaos-server] status write failed: {e!r}",

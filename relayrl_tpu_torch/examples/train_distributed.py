@@ -11,9 +11,19 @@ trajectories to the one server and hot-swapping on every publish::
         --baseline --env cartpole --transport zmq --device cuda \
         --episodes 3000 --target 475
 
+``--host-mode anakin`` runs each actor as the anakin tier instead: a
+``VectorAgent`` of ``--num-envs`` lanes stepping the env on the device,
+one fused window of ``--unroll-length`` steps per lane per ``rollout()``
+(one CUDA graph replay on the GPU)::
+
+    python -m relayrl_tpu_torch.examples.train_distributed --algo REINFORCE \
+        --baseline --env cartpole --host-mode anakin --num-envs 64 \
+        --unroll-length 32 --episodes 200 --device cuda
+
 ``--target`` stops an actor once the rolling 50-episode average of its
-returns reaches the bar; the driver then prints the update (model version)
-at which each actor crossed it and the env steps per second. The server
+returns (averaged over its lanes on the anakin tier) reaches the bar;
+the script then prints the update (model version) at which each actor
+crossed it and the env steps per second. The server
 runs the reference's default config, training-health guardrails on
 (ingest validation, quarantine, the divergence watchdog and rollback);
 ``--no-guardrails`` writes ``guardrails.enabled: false`` into the run's
@@ -44,9 +54,41 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def anakin_actor(idx: int, server_type: str, agent_addrs: dict, env_id: str,
+                 episodes: int, target, config_path: str, device, num_envs: int,
+                 unroll_length: int | None) -> tuple:
+    """One anakin-tier actor: fused windows until every lane has finished
+    ``episodes`` episodes (or the lanes' mean rolling average reaches
+    ``target``). Returns what :func:`actor_proc` reports."""
+    from relayrl_tpu_torch.runtime.agent import VectorAgent
+
+    agent = VectorAgent(num_envs=num_envs, server_type=server_type, seed=idx,
+                        config_path=config_path, device=device, host_mode="anakin",
+                        jax_env=env_id, unroll_length=unroll_length,
+                        model_path=os.path.join(os.path.dirname(config_path),
+                                                f"client_model_{idx}.rlx"),
+                        **agent_addrs)
+    lanes, solved_at, steps = agent.host.episode_returns, None, 0
+    t0 = time.time()
+    while min(len(r) for r in lanes) < episodes:
+        steps += agent.rollout()["steps"]
+        agent.host.flush_emits()
+        if target is not None and min(len(r) for r in lanes) >= _WINDOW:
+            if sum(sum(r[-_WINDOW:]) / _WINDOW for r in lanes) / len(lanes) >= target:
+                solved_at = {"episode": min(len(r) for r in lanes),
+                             "version": agent.model_version}
+                break
+    train_s = time.time() - t0
+    returns = [ret for lane in lanes for ret in lane]
+    version = agent.model_version
+    agent.disable_agent()
+    return returns, version, solved_at, train_s, steps
+
+
 def actor_proc(idx: int, server_type: str, agent_addrs: dict, env_id: str,
                episodes: int, max_steps: int, target, config_path: str,
-               device, queue) -> None:
+               device, queue, host_mode: str = "process", num_envs: int = 1,
+               unroll_length: int | None = None) -> None:
     import torch
 
     from relayrl_tpu_torch.envs import make
@@ -57,6 +99,11 @@ def actor_proc(idx: int, server_type: str, agent_addrs: dict, env_id: str,
         # N actor processes with a full intra-op pool each oversubscribe
         # the host the learner shares.
         torch.set_num_threads(1)
+    if host_mode == "anakin":
+        queue.put((idx, *anakin_actor(idx, server_type, agent_addrs, env_id, episodes,
+                                      target, config_path, device, num_envs,
+                                      unroll_length)))
+        return
     agent = Agent(server_type=server_type, seed=idx, config_path=config_path,
                   device=device, model_path=os.path.join(
                       os.path.dirname(config_path), f"client_model_{idx}.rlx"),
@@ -89,8 +136,17 @@ def main(argv=None):
                     help="the trajectory/model plane (native is the "
                          "C++ core, built at first use)")
     ap.add_argument("--actors", type=int, default=1)
+    ap.add_argument("--host-mode", default="process", choices=["process", "anakin"],
+                    help="actor topology: one env per actor process, or the "
+                         "anakin tier (the env on the device, one fused window "
+                         "per rollout; runtime/anakin.py)")
+    ap.add_argument("--num-envs", type=int, default=8, metavar="N",
+                    help="anakin mode: env lanes per actor")
+    ap.add_argument("--unroll-length", type=int, default=None, metavar="U",
+                    help="anakin mode: env steps per lane per fused window "
+                         "(default: config actor.unroll_length)")
     ap.add_argument("--episodes", type=int, default=200,
-                    help="episodes PER actor")
+                    help="episodes PER actor (per lane in anakin mode)")
     ap.add_argument("--max-steps", type=int, default=500)
     ap.add_argument("--baseline", action="store_true")
     ap.add_argument("--target", type=float, default=None,
@@ -163,7 +219,8 @@ def main(argv=None):
                          args=(i, args.transport, agent_addrs,
                                _ENV_IDS[args.env], args.episodes,
                                args.max_steps, args.target, config_path,
-                               args.device, queue))
+                               args.device, queue, args.host_mode, args.num_envs,
+                               args.unroll_length))
              for i in range(args.actors)]
     for p in procs:
         p.start()

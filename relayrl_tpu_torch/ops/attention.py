@@ -12,6 +12,7 @@ Scores and softmax are float32 whatever the input dtype.
 from __future__ import annotations
 
 import math
+import numbers
 
 import torch
 
@@ -22,9 +23,13 @@ _NEG_INF = -1e30
 
 def _positions(offset, n: int, device) -> torch.Tensor:
     """``offset + arange(n)``: ``[n]`` for a scalar offset, ``[B, n]`` for
-    a per-batch offset vector."""
-    off = torch.as_tensor(offset, device=device)
-    return off[..., None] + torch.arange(n, device=device)
+    a per-batch offset vector. A Python offset is added on the device,
+    never copied there (no host-to-device copy inside a CUDA graph
+    capture)."""
+    pos = torch.arange(n, device=device)
+    if isinstance(offset, numbers.Integral):
+        return pos + int(offset)
+    return torch.as_tensor(offset, device=device)[..., None] + pos
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

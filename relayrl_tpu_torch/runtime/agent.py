@@ -15,12 +15,14 @@ learner crash.
 ``Agent`` wraps a :class:`~relayrl_tpu_torch.runtime.policy_actor.
 PolicyActor`; ``VectorAgent`` a :class:`~relayrl_tpu_torch.runtime.
 vector_actor.VectorActorHost` whose N lanes register as N logical agents
-over one connection. Both take ``device`` (default: the GPU; without one
-the caller must pass ``device="cpu"``) and ``server_type`` ("zmq",
-"grpc", "native" or "auto", which negotiates against the live server as
-the JAX agent does). Not ported: the anakin host mode
-(``ROADMAP.md`` queue 1 item 8), the tracing hooks and the fleet snapshot
-emitter (item 12).
+over one connection, or, with ``host_mode="anakin"``, a
+:class:`~relayrl_tpu_torch.runtime.anakin.AnakinActorHost` whose lanes step
+an on-device env (``actor.jax_env``) inside one fused window per
+:meth:`VectorAgent.rollout`. Both take ``device`` (default: the GPU;
+without one the caller must pass ``device="cpu"``) and ``server_type``
+("zmq", "grpc", "native" or "auto", which negotiates against the live
+server as the JAX agent does). Not ported: the tracing hooks and the
+fleet snapshot emitter (``ROADMAP.md`` queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -296,7 +298,15 @@ class VectorAgent:
     own logical agent — N registry entries, N attributed trajectory
     streams, one socket, one model subscription, one atomic hot-swap.
     Agent-compatible lifecycle; the action surface is batched
-    (``request_for_actions`` / per-lane ``flag_last_action``).
+    (``request_for_actions`` / per-lane ``flag_last_action``), or, on the
+    anakin tier (``host_mode="anakin"``), :meth:`rollout`: the lanes step
+    the on-device env ``jax_env`` (an id of ``envs.device.DEVICE_ENVS``,
+    built with ``jax_env_kwargs``) for ``unroll_length`` steps per window.
+    ``columnar_wire``, ``async_emit``, ``emit_coalesce_frames`` and
+    ``window_size`` default to the ``actor`` config section's values
+    (``columnar_wire: "auto"`` is columnar frames on the anakin tier, the
+    per-record wire on the vector tier); ``record_bver`` stamps each
+    record's model version into its aux.
     """
 
     def __init__(
@@ -311,6 +321,14 @@ class VectorAgent:
         identity: str | None = None,
         host_mode: str | None = None,
         device=None,
+        jax_env: str | None = None,
+        jax_env_kwargs: dict | None = None,
+        unroll_length: int | None = None,
+        columnar_wire: bool | None = None,
+        async_emit: bool | None = None,
+        emit_coalesce_frames: int | None = None,
+        window_size: int | None = None,
+        record_bver: bool = False,
         **addr_overrides,
     ):
         self.config = ConfigLoader(None, config_path)
@@ -325,11 +343,26 @@ class VectorAgent:
             raise ValueError(f"num_envs must be >= 1, got {self.num_envs}")
         mode = str(host_mode if host_mode is not None
                    else actor_params["host_mode"])
-        if mode == "anakin":
-            raise NotImplementedError(
-                "host_mode='anakin' is not ported (ROADMAP.md queue 1 item "
-                "8); use the vector host")
-        self.host_mode = "vector"
+        # A VectorAgent is the vector topology unless it runs the anakin
+        # tier; "process" configs constructing one mean the batched default.
+        self.host_mode = mode if mode == "anakin" else "vector"
+        self.jax_env = str(jax_env if jax_env is not None else actor_params["jax_env"])
+        self.jax_env_kwargs = dict(jax_env_kwargs or {})
+        self.unroll_length = int(unroll_length if unroll_length is not None
+                                 else actor_params["unroll_length"])
+        self.window_size = (actor_params.get("window_size")
+                            if window_size is None else window_size)
+        self.record_bver = bool(record_bver)
+        if columnar_wire is None:
+            columnar_wire = actor_params.get("columnar_wire", "auto")
+        self.columnar_wire = (self.host_mode == "anakin"
+                              if not isinstance(columnar_wire, bool)
+                              else bool(columnar_wire))
+        self.async_emit = bool(actor_params.get("async_emit", False)
+                               if async_emit is None else async_emit)
+        self.emit_coalesce_frames = max(1, int(
+            actor_params.get("emit_coalesce_frames", 1)
+            if emit_coalesce_frames is None else emit_coalesce_frames))
         self.server_type = server_type
         self.device = device
         self._addr_overrides = addr_overrides
@@ -364,7 +397,30 @@ class VectorAgent:
         self.agent_ids = [f"{self.transport.identity}.lane{k}"
                           for k in range(self.num_envs)]
         _bind_spool_impl(self, self._identity or "vector")
-        if self.host is None:
+        if self.host is not None and hasattr(self.host, "start_emitter"):
+            # Re-enable after a disable: the emitter thread was closed
+            # with the transport.
+            self.host.start_emitter()
+        if self.host is None and self.host_mode == "anakin":
+            from relayrl_tpu_torch.runtime.anakin import AnakinActorHost
+
+            self.host = AnakinActorHost(
+                bundle,
+                env=self.jax_env,
+                num_envs=self.num_envs,
+                unroll_length=self.unroll_length,
+                max_traj_length=self.config.get_max_traj_length(),
+                on_send=self.emit_lane,
+                seed=self._seed,
+                columnar_wire=self.columnar_wire,
+                async_emit=self.async_emit,
+                emit_coalesce_frames=self.emit_coalesce_frames,
+                window_size=self.window_size,
+                record_bver=self.record_bver,
+                device=self.device,
+                **self.jax_env_kwargs,
+            )
+        elif self.host is None:
             self.host = VectorActorHost(
                 bundle,
                 num_envs=self.num_envs,
@@ -392,6 +448,10 @@ class VectorAgent:
     def disable_agent(self) -> None:
         if not self.active:
             return
+        if hasattr(self.host, "close"):
+            # An async-emit anakin host drains its queued windows onto the
+            # wire and stops its emitter; enable_agent restarts it.
+            self.host.close()
         if self.spool is not None:
             self.spool.send_fn = None  # see Agent.disable_agent
         self.transport.close()
@@ -415,14 +475,35 @@ class VectorAgent:
     # -- batched action API --
     def request_for_actions(self, obs, masks=None, rewards=None):
         self._require_active()
+        if self.host_mode == "anakin":
+            raise RuntimeError(
+                "anakin host: the env steps on-device inside rollout() — "
+                "there is no per-step action request surface")
         return self.host.request_for_actions(obs, masks=masks,
                                              rewards=rewards)
+
+    # -- fused rollout API (host_mode="anakin") --
+    def rollout(self) -> dict:
+        """One fused ``[num_envs, unroll_length]`` on-device window and its
+        unstack into the N logical-agent trajectory streams (see
+        :meth:`AnakinActorHost.rollout`)."""
+        self._require_active()
+        if self.host_mode != "anakin":
+            raise RuntimeError(
+                "rollout() is the anakin-host surface; this agent runs "
+                f"host_mode={self.host_mode!r} (per-step request_for_actions)")
+        return self.host.rollout()
 
     def flag_last_action(self, lane: int, reward: float = 0.0,
                          truncated: bool = False, final_obs=None,
                          terminated: bool | None = None,
                          final_mask=None) -> None:
         self._require_active()
+        if self.host_mode == "anakin":
+            raise RuntimeError(
+                "anakin host: episode boundaries happen in the window "
+                "(autoreset) — terminal markers are emitted by the window "
+                "unstacker, not by the caller")
         self.host.flag_last_action(lane, reward, truncated=truncated,
                                    final_obs=final_obs,
                                    terminated=terminated,

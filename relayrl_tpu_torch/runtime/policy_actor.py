@@ -64,6 +64,25 @@ def push_window(window: np.ndarray, length: int, obs) -> tuple[int, bool]:
     return cap, True
 
 
+def window_advance(windows: torch.Tensor, lengths: torch.Tensor,
+                   obs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched tensor twin of :func:`push_window` for the anakin tier's
+    rolling windows (the JAX package's ``window_advance``, vmapped):
+    ``windows [N, W, D]``, ``lengths [N]`` int32, ``obs [N, D]``. Returns
+    ``(new_windows, new_lengths)`` with exactly :func:`push_window`'s
+    semantics per lane: a filling window writes at ``length``, a full one
+    shifts left and writes at ``W - 1``, the length saturates at ``W``.
+    Fixed shapes, no host read of ``lengths``, so it runs inside a CUDA
+    graph."""
+    cap = windows.shape[1]
+    rolled = (lengths >= cap)[:, None, None]
+    shifted = torch.where(rolled, torch.roll(windows, -1, dims=1), windows)
+    row = (torch.arange(cap, device=windows.device)[None]
+           == lengths.clamp(max=cap - 1)[:, None])[..., None]
+    new = torch.where(row, obs[:, None].to(windows.dtype), shifted)
+    return new, torch.clamp(lengths + 1, max=cap)
+
+
 def apply_bundle_swap(actor, bundle: ModelBundle, flat: bool = False) -> bool:
     """Shared hot-swap gate: version check, arch-ABI guard, params
     install under the actor's lock. PolicyActor and VectorActorHost

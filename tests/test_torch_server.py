@@ -245,7 +245,7 @@ def test_checkpoint_and_resume(tmp_cwd):
 
 
 def test_refusals(tmp_cwd):
-    from relayrl_tpu_torch.runtime.agent import Agent, VectorAgent
+    from relayrl_tpu_torch.runtime.agent import Agent
     from relayrl_tpu_torch.runtime.server import TrainingServer
 
     server_addrs, agent_addrs = _addrs()
@@ -283,9 +283,6 @@ def test_refusals(tmp_cwd):
         with pytest.raises(NotImplementedError, match="item 12"):
             RelayNode(config_path=_config(tmp_cwd, **sections), start=False)
     config_path = _config(tmp_cwd)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        VectorAgent(num_envs=2, config_path=config_path, host_mode="anakin",
-                    device="cpu", start=False)
     if not __import__("torch").cuda.is_available():
         # Entry points run on the card unless the caller names the CPU.
         with pytest.raises(RuntimeError, match="no CUDA device"):
