@@ -185,7 +185,27 @@ Phases, each of which fails the run:
    ``LocalRunner`` to an epoch of average return 1.0. (c) The same arch
    as ``transformer_pp_discrete``: the flagship's weights stacked give
    ``transformer_discrete``'s ``evaluate`` bit for bit; the first update
-   through K1-K3 against the plain attention at 336/4/4 launches.
+   through K1-K3 against the plain attention at 336/4/4 launches;
+17. the anakin tier: the six device envs card vs CPU, the cartpole
+   golden's MLP and the flagship as captured windows bit-equal to the
+   eager window, 96 K1 per flagship replay, an anakin agent feeding phase
+   11's learner over ZMQ;
+18. the serving plane. (a) The flagship in a standalone ``InferenceService``
+   (max_batch 64) on the card, served over ZMQ to a
+   ``MultiplexedRemoteClient`` of 64 ``RecallEnv(300, 16)`` lanes for
+   ``SERVE_STEPS`` steps: every dispatch replayed through the keyed window
+   step at its bucket, bit for bit, and every shipped action record equal
+   to the row served for its lane's session and step; flash_fwd launches
+   = dispatches x phase 4's per-dispatch count; a bucket-64 dispatch's rows recomputed at
+   buckets 1 and 32 (the same actions, logp_a within the bf16 bar); the
+   rows per dispatch, requests/s, ms per dispatch and device ms per
+   dispatch printed. (b) Phase 11's learner in a
+   ``TrainingServer(serving=True)`` on the card, fed by 8
+   ``RemoteActorClient``s over ZMQ: 4 updates at exactly 336/4/4, each
+   wave served at the version published before it, the clients at the
+   last publish, exact ingest accounting. (c) A ``RemoteActorClient``
+   over gRPC ``GetActions`` against a served ``mlp_discrete``: each
+   action equal to the keyed step on the card, bit for bit.
 
 Phases 3 and 6 also hold every kernel to its plain version at head dims
 128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
@@ -480,6 +500,18 @@ ANAKIN_SEQ_WINDOWS = 10
 ANAKIN_TIMED = 5
 ANAKIN_UPDATES = 4
 MOE_GOLDEN_SWEEP_UPDATES = 600  # --moe-golden-sweep's cap per salt
+# The serving plane (phase 18): (a) a MultiplexedRemoteClient of LANES
+# RecallEnv(HORIZON, N_CUES) lanes over ZMQ to a standalone
+# InferenceService holding the flagship (max_batch LANES) for SERVE_STEPS
+# steps, every dispatch replayed through the keyed window step, a bucket-64
+# dispatch's rows recomputed at SERVE_OTHER_BUCKETS; (b) phase 11's learner
+# in a TrainingServer(serving=True) on the card fed by SERVE_CLIENTS thin
+# clients over ZMQ for DIST_UPDATES updates; (c) a RemoteActorClient over
+# gRPC GetActions against a served mlp_discrete for SERVE_GRPC_STEPS steps.
+SERVE_STEPS = 320
+SERVE_OTHER_BUCKETS = (1, 32)
+SERVE_CLIENTS = LEARNER["traj_per_epoch"]
+SERVE_GRPC_STEPS = 200
 
 
 def _dtype_name(dtype) -> str:
@@ -4819,6 +4851,412 @@ def anakin_distributed(device, root: Path, workdir: Path) -> dict:
         server.stop()
 
 
+def serving_config(workdir: Path, **sections) -> str:
+    """A config file for phase 18's clients and servers: generous serving
+    budgets (the first dispatch at a bucket is slow), no spool for a
+    trajectory sink that never acks, plus ``sections``."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    serving = {"request_timeout_s": 60.0, "infer_deadline_s": 240.0,
+               **sections.pop("serving", {})}
+    config = workdir / "relayrl_config.json"
+    config.write_text(json.dumps({"serving": serving, **sections}))
+    return str(config)
+
+
+class DispatchLog:
+    """Records every dispatch of ``svc`` by wrapping its own dispatch
+    methods (the service keeps no log): the requests' session and step,
+    the params and version it read, the keyed step's inputs and outputs
+    and the step's host time. ``close()`` puts the methods back."""
+
+    def __init__(self, svc):
+        self.svc, self.entries, self.step_s = svc, [], []
+        windowed = svc._window_fn is not None
+        self._names = (("_window_fn", "_dispatch_window_group") if windowed
+                       else ("_batched_fn", "_dispatch_group"))
+        self.step = getattr(svc, self._names[0])
+        group_fn = getattr(svc, self._names[1])
+        pending = []
+
+        def step(params, *inputs):
+            t0 = time.perf_counter()
+            out = self.step(params, *inputs)
+            self.step_s.append(time.perf_counter() - t0)
+            pending.append((inputs, out))
+            return out
+
+        def dispatch(group, params, version, *rest):
+            group_fn(group, params, version, *rest)
+            inputs, outputs = pending.pop()
+            self.entries.append({
+                "rows": len(group), "bucket": len(inputs[0]), "params": params,
+                "version": version, "inputs": inputs, "outputs": outputs,
+                "requests": [(r.sid, r.stp) for r in group]})
+
+        setattr(svc, self._names[0], step)
+        setattr(svc, self._names[1], dispatch)
+
+    def close(self) -> None:
+        setattr(self.svc, self._names[0], self.step)  # an instance attribute
+        del self.svc.__dict__[self._names[1]]  # back to the class's method
+
+    def replay(self) -> int:
+        """Every logged dispatch run again through the keyed step on the
+        same inputs and params: the served actions, aux and successor keys
+        must come back bit for bit. Returns the dispatches checked."""
+        for i, entry in enumerate(self.entries):
+            acts, aux, keys = self.step(entry["params"], *entry["inputs"])
+            s_acts, s_aux, s_keys = entry["outputs"]
+            bad = [name for name, a, b in [("act", acts, s_acts), ("key", keys, s_keys)]
+                   + [(k, aux[k], s_aux[k]) for k in aux] if a.tobytes() != b.tobytes()]
+            if bad:
+                raise AssertionError(f"dispatch {i} (bucket {entry['bucket']}, version "
+                                     f"{entry['version']}): served != local in {bad}")
+        return len(self.entries)
+
+    def served_rows(self) -> dict:
+        """``{(session, step): (act, logp_a, v)}`` over every logged row;
+        a step dispatched twice (a retried push) must have served the same
+        bytes both times."""
+        rows = {}
+        for entry in self.entries:
+            acts, aux, _ = entry["outputs"]
+            for i, req in enumerate(entry["requests"]):
+                row = (acts[i], aux["logp_a"][i], aux["v"][i])
+                if req in rows and any(a.tobytes() != b.tobytes()
+                                       for a, b in zip(rows[req], row)):
+                    raise AssertionError(f"session {req[0]} step {req[1]} served twice "
+                                         f"with different bytes")
+                rows[req] = row
+        return rows
+
+
+def time_keyed_draws(device, rows: int, act_dim: int, reps: int = 50) -> dict:
+    """Host ms of the keyed draw alone at ``rows`` rows: ``KeyedDraws``
+    construction (a numpy Philox a row and its successor key) and one
+    ``[rows, act_dim]`` uniform block copied to the card, as a categorical
+    policy's dispatch asks for it; each rep synchronised."""
+    import numpy as np
+    import torch
+
+    from relayrl_tpu_torch.models.mlp import KeyedDraws
+
+    keys = np.random.default_rng(SEED).integers(0, 1 << 32, (rows, 2), dtype=np.uint32)
+    build_s, draw_s = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draws = KeyedDraws(keys, device)
+        t1 = time.perf_counter()
+        draws.uniform((rows, act_dim))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        build_s.append(t1 - t0)
+        draw_s.append(t2 - t1)
+    return {"build_ms": 1e3 * float(np.median(build_s)),
+            "draw_ms": 1e3 * float(np.median(draw_s))}
+
+
+def served_flagship(device, workdir: Path, per_dispatch: int) -> dict:
+    """Phase 18 (a): the flagship served over ZMQ to a multiplexed thin
+    client. Checks served == the keyed window step at the same bucket for
+    every dispatch, K1 launches == dispatches x ``per_dispatch``, no
+    K2/K3, every lane's episode shipped; measures the cross-bucket
+    difference, requests/s and ms per dispatch on the host and on the
+    device."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from relayrl_tpu_torch.config import ConfigLoader
+    from relayrl_tpu_torch.envs import RecallEnv, SyncVectorEnv
+    from relayrl_tpu_torch.models import build_policy
+    from relayrl_tpu_torch.runtime.inference import (
+        InferenceService,
+        MultiplexedRemoteClient,
+    )
+    from relayrl_tpu_torch.runtime.vector_actor import run_vector_gym_loop
+    from relayrl_tpu_torch.transport import make_server_transport
+    from relayrl_tpu_torch.types import ModelBundle, deserialize_actions
+    from relayrl_tpu_torch.weights import params_to_jax
+
+    arch = slice_arch()
+    policy = build_policy(arch, device)
+    bundle = ModelBundle(1, arch, params_to_jax(policy.init_params(
+        torch.Generator().manual_seed(SEED + 1))))
+    config = serving_config(workdir, serving={"stream_window": LANES},
+                            actor={"spool_entries": 0})
+    server_addrs, agent_addrs = zmq_addrs()
+    sink = make_server_transport("zmq", ConfigLoader(None, config), **server_addrs)
+    shipped = []
+    sink.on_trajectory = lambda agent_id, payload: shipped.append((agent_id, payload))
+    sink.start()
+    serving_addr = f"tcp://127.0.0.1:{_free_port()}"
+    svc = InferenceService(bundle, max_batch=LANES, batch_timeout_ms=5.0, device=device)
+    svc.bind_zmq(serving_addr)
+    svc.start()
+    mux = None
+    try:
+        mux = MultiplexedRemoteClient(config_path=config, lanes=LANES, seed=SEED,
+                                      probe=False, serving_addr=serving_addr,
+                                      **agent_addrs)
+        venv = SyncVectorEnv([lambda: RecallEnv(HORIZON, N_CUES)] * LANES)
+        log = DispatchLog(svc)
+        zero_flash_counts()
+        t0 = time.perf_counter()
+        run_vector_gym_loop(mux, venv, SERVE_STEPS, seed=SEED)
+        wall = time.perf_counter() - t0
+        counts = flash_counts()
+        log.close()
+        keyed, entries = log.step, log.entries
+        dispatches = len(entries)
+        if counts != (dispatches * per_dispatch, 0, 0):
+            raise AssertionError(f"served launches {counts} over {dispatches} dispatches; "
+                                 f"expected {per_dispatch} flash_fwd each")
+        if mux.model_version != 1:
+            raise AssertionError(f"client at version {mux.model_version}")
+        checked = log.replay()
+        # Across buckets: a bucket-LANES dispatch's first rows at smaller
+        # buckets (the same rows, another M for cuBLAS and K1).
+        full = next(e for e in reversed(entries) if e["bucket"] == LANES)
+        keys, windows, ts, masks = full["inputs"]
+        acts, aux, _ = full["outputs"]
+        cross = {}
+        for bucket in SERVE_OTHER_BUCKETS:
+            b_acts, b_aux, _ = keyed(full["params"], keys[:bucket], windows[:bucket],
+                                     ts[:bucket], None)
+            cross[bucket] = {
+                "acts_differ": int((b_acts != acts[:bucket]).sum()),
+                "logp_a": float(np.abs(b_aux["logp_a"] - aux["logp_a"][:bucket]).max()),
+                "v": float(np.abs(b_aux["v"] - aux["v"][:bucket]).max())}
+            if cross[bucket]["acts_differ"] or not cross[bucket]["logp_a"] <= TOLERANCE["bfloat16"]:
+                raise AssertionError(f"bucket {bucket} vs {LANES}: {cross[bucket]}")
+        deadline = time.monotonic() + 60
+        while len(shipped) < LANES and time.monotonic() < deadline:
+            time.sleep(0.05)
+        lanes = sorted(agent_id for agent_id, _ in shipped)
+        if lanes != sorted(mux._sids):
+            raise AssertionError(f"episodes shipped by {lanes[:4]}... ({len(lanes)})")
+        # What each lane received through the wave replies and shipped:
+        # its record j is its session's step j + 1, served by the row the
+        # dispatch log holds for that session and step, bit for bit.
+        served = log.served_rows()
+        compared = 0
+        for sid, payload in shipped:
+            records = deserialize_actions(payload)
+            if len(records) != venv.envs[0].horizon + 1 or not records[-1].done:
+                raise AssertionError(f"shipped episode of {len(records)} records")
+            for j, rec in enumerate(records[:-1]):
+                act, logp_a, v = served[(sid, j + 1)]
+                got = (np.asarray(rec.act, act.dtype), np.asarray(rec.data["logp_a"],
+                       logp_a.dtype), np.asarray(rec.data["v"], v.dtype))
+                if any(g.tobytes() != w.tobytes() for g, w in zip(got, (act, logp_a, v))):
+                    raise AssertionError(f"lane {sid} step {j + 1} shipped {got}, the "
+                                         f"dispatch served {(act, logp_a, v)}")
+                compared += 1
+        draw = time_keyed_draws(device, LANES, int(venv.envs[0].action_space.n))
+        print(f"[serving] device ms per dispatch of the keyed window step at bucket "
+              f"{LANES} (noise draw, copies, forward):", flush=True)
+        dev = profile_device(lambda: keyed(full["params"], keys, windows, ts, masks), 10,
+                             "dispatch")
+        return {"dispatches": dispatches, "checked": checked, "launches": counts[0],
+                "occupancy": dict(sorted(collections.Counter(e["rows"] for e in entries).items())),
+                "buckets": dict(sorted(collections.Counter(e["bucket"] for e in entries).items())),
+                "wall": wall, "requests": LANES * SERVE_STEPS, "compared": compared,
+                "step_ms": 1e3 * sum(log.step_s) / len(log.step_s), "cross": cross,
+                "draw": draw,
+                "device_ms": None if dev is None else dev["busy_ms"],
+                "inflight": mux.inflight_high_water, "episodes": len(shipped)}
+    finally:
+        if mux is not None:
+            mux.disable_agent()
+        svc.stop()
+        sink.stop()
+
+
+def served_learner(device, workdir: Path, per_dispatch: int) -> dict:
+    """Phase 18 (b): phase 11's learner in a TrainingServer(serving=True)
+    on the card, fed by SERVE_CLIENTS thin clients over ZMQ, one wave of
+    RecallEnv(LEARNER_HORIZON) episodes per update. Between waves nothing
+    is served, so each update's launches are counted alone (336/4/4); each
+    wave's dispatches are all at the version published before it; the
+    clients reach the last publish; the ingest accounting is exact."""
+    import threading
+
+    import numpy as np
+
+    from relayrl_tpu_torch.envs import RecallEnv
+    from relayrl_tpu_torch.runtime.inference import RemoteActorClient
+    from relayrl_tpu_torch.runtime.server import TrainingServer
+
+    arch = SLICE_ARCH
+    env = RecallEnv(LEARNER_HORIZON, N_CUES)
+    hyperparams = {"model_kind": arch["kind"], "seed": SEED, "seed_salt": 0,
+                   **{k: v for k, v in arch.items()
+                      if k not in ("kind", "has_critic", "precision")},
+                   **LEARNER}
+    config = serving_config(workdir, learner={"precision": arch["precision"]},
+                            serving={"enabled": True, "max_batch": SERVE_CLIENTS,
+                                     "batch_timeout_ms": 2.0})
+    server_addrs, agent_addrs = zmq_addrs()
+    serving_addr = f"tcp://127.0.0.1:{_free_port()}"
+    n_layers = arch["n_layers"]
+    per_update = (n_layers * (4 + LEARNER["train_vf_iters"]), n_layers, n_layers)
+    server = TrainingServer("REINFORCE", obs_dim=int(env.observation_space.shape[0]),
+                            act_dim=int(env.action_space.n), env_dir=str(workdir),
+                            config_path=config, hyperparams=hyperparams, device=device,
+                            serving_addr=serving_addr, **server_addrs)
+    svc = server.inference
+    clients = []
+    try:
+        clients = [RemoteActorClient(config_path=config, seed=SEED + i, identity=f"thin-{i}",
+                                     probe=False, serving_addr=serving_addr, **agent_addrs)
+                   for i in range(SERVE_CLIENTS)]
+        envs = [RecallEnv(LEARNER_HORIZON, N_CUES) for _ in clients]
+        log = DispatchLog(svc)
+        updates, serve_counts, wave_versions, walls = [], [], [], []
+        for wave in range(DIST_UPDATES):
+            ends, errors = [None] * len(clients), []
+
+            def play(i):
+                try:
+                    obs, _ = envs[i].reset(seed=SEED + 100 * wave + i)
+                    reward, term, trunc = 0.0, False, False
+                    for _ in range(LEARNER_HORIZON):
+                        rec = clients[i].request_for_action(obs, reward=reward)
+                        obs, reward, term, trunc, _ = envs[i].step(int(rec.act))
+                        if term or trunc:
+                            break
+                    ends[i] = (float(reward), bool(term), obs)
+                except Exception as e:  # reported on the main thread
+                    errors.append(repr(e))
+
+            zero_flash_counts()
+            threads = [threading.Thread(target=play, args=(i,)) for i in range(len(clients))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=DIST_TIMEOUT_S)
+            walls.append(time.perf_counter() - t0)
+            if errors or any(t.is_alive() for t in threads):
+                raise AssertionError(f"wave {wave}: thin clients failed: {errors}")
+            served = flash_counts()
+            dispatches = len(log.entries)
+            if served != (dispatches * per_dispatch, 0, 0):
+                raise AssertionError(f"wave {wave}: served launches {served} over "
+                                     f"{dispatches} dispatches")
+            serve_counts.append(served[0])
+            wave_versions.append(sorted({e["version"] for e in log.entries}))
+            if wave_versions[-1] != [wave]:
+                raise AssertionError(f"wave {wave} served at versions {wave_versions[-1]}")
+            log.entries.clear()
+            zero_flash_counts()
+            for client, (reward, term, obs) in zip(clients, ends):
+                client.flag_last_action(reward, truncated=not term,
+                                        final_obs=None if term else obs, terminated=term)
+            deadline = time.monotonic() + DIST_TIMEOUT_S
+            while time.monotonic() < deadline and not (
+                    server.stats["updates"] == wave + 1 and svc.version == wave + 1):
+                time.sleep(0.02)
+            if not server.drain(timeout=60) or svc.version != wave + 1:
+                raise AssertionError(f"wave {wave}: update not published and installed "
+                                     f"(updates {server.stats['updates']}, served "
+                                     f"version {svc.version})")
+            updates.append(flash_counts())
+            if updates[-1] != per_update:
+                raise AssertionError(f"update {wave + 1}: launches {updates[-1]}, "
+                                     f"expected {per_update}")
+        log.close()
+        # One more request each: every client reaches the last publish.
+        for client, e in zip(clients, envs):
+            client.request_for_action(e.reset(seed=SEED)[0])
+        versions = [c.model_version for c in clients]
+        if versions != [DIST_UPDATES] * len(clients) or server.algorithm.version != DIST_UPDATES:
+            raise AssertionError(f"client versions {versions}, learner "
+                                 f"{server.algorithm.version}")
+        acct = server.ingest_accounting()["agents"]
+        for client in clients:
+            sent = client.spool.sent_counts()
+            for agent_id, n in sent.items():
+                if acct.get(agent_id) != {"max_seq": n, "accepted": n, "contiguous": True} \
+                        or n != DIST_UPDATES:
+                    raise AssertionError(f"ingest accounting of {agent_id}: "
+                                         f"{acct.get(agent_id)}, sent {n}")
+        stats = server.stats
+        if stats["learner_errors"] or stats["dropped"] or stats["publish_errors"]:
+            raise AssertionError(f"server stats {stats}: {server.last_learner_error}")
+        return {"updates": updates, "per_update": per_update, "serve_counts": serve_counts,
+                "wave_versions": wave_versions, "versions": versions,
+                "wave_s": walls, "steps": LEARNER_HORIZON * len(clients),
+                "launches": tuple(int(np.sum([u[i] for u in updates])) for i in range(3))}
+    finally:
+        for client in clients:
+            client.disable_agent()
+        server.disable_server()
+
+
+def served_grpc(device, workdir: Path) -> dict:
+    """Phase 18 (c): a RemoteActorClient over gRPC GetActions (in-band on
+    the pure-grpcio server) against a served mlp_discrete on the card: each
+    served action equals the keyed step driven locally on the card, one
+    request at a time, bit for bit; no flash kernel launches."""
+    import numpy as np
+
+    from relayrl_tpu_torch.envs import make
+    from relayrl_tpu_torch.runtime.inference import RemoteActorClient, prng_key
+    from relayrl_tpu_torch.runtime.policy_actor import make_keyed_batched_step
+    from relayrl_tpu_torch.runtime.server import TrainingServer
+
+    config = serving_config(workdir, serving={"enabled": True, "max_batch": 1,
+                                              "batch_timeout_ms": 1.0})
+    bind = f"127.0.0.1:{_free_port()}"
+    server = TrainingServer("REINFORCE", obs_dim=4, act_dim=2, env_dir=str(workdir),
+                            config_path=config, server_type="grpc", native_grpc=False,
+                            bind_addr=bind, device=device,
+                            hyperparams={**CARTPOLE_HP, "traj_per_epoch": 10_000})
+    client = None
+    try:
+        if server.transport.on_infer is None:
+            raise AssertionError("GetActions not installed on the grpcio server")
+        svc = server.inference
+        client = RemoteActorClient(config_path=config, server_type="grpc", seed=SEED,
+                                   probe=False, server_addr=bind)
+        local = make_keyed_batched_step(svc.policy)
+        params = svc.policy.load_params(server.algorithm.bundle().params)
+        key = prng_key(SEED)
+        env = make("CartPole-v1")
+        obs, _ = env.reset(seed=SEED)
+        log = DispatchLog(svc)
+        zero_flash_counts()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_GRPC_STEPS):
+            rec = client.request_for_action(obs)
+            acts, aux, keys = local(params, key[None], np.asarray(obs, np.float32)[None],
+                                    None, svc._explore_kwargs)
+            key = keys[0]
+            if (np.asarray(rec.act).tobytes() != acts[0].tobytes()
+                    or any(rec.data[k].tobytes() != aux[k][0].tobytes() for k in aux)
+                    or client._rng.tobytes() != key.tobytes()):
+                raise AssertionError(f"gRPC served {rec.act}, {rec.data} != local "
+                                     f"{acts[0]}, {aux}")
+            obs, _, term, trunc, _ = env.step(int(rec.act))
+            if term or trunc:
+                client.flag_last_action(0.0, terminated=term)
+                obs, _ = env.reset()
+        wall = time.perf_counter() - t0
+        log.close()
+        if flash_counts() != (0, 0, 0) or len(log.entries) < SERVE_GRPC_STEPS:
+            raise AssertionError(f"flash launches {flash_counts()}, {len(log.entries)} "
+                                 f"dispatches for {SERVE_GRPC_STEPS} requests")
+        return {"steps": SERVE_GRPC_STEPS, "wall": wall, "version": client.model_version}
+    finally:
+        if client is not None:
+            client.disable_agent()
+        server.disable_server()
+
+
 def main() -> int:
     import torch
 
@@ -5373,13 +5811,63 @@ def main() -> int:
     print(f"[anakin] phase 17 in {time.perf_counter() - t17:.1f} s", flush=True)
     anakin_fwd = flag["launches"] + dist17["agent_launches"] + a_dfwd
 
+    # 18. the serving plane: thin clients served by an InferenceService
+    t18 = time.perf_counter()
+    per_dispatch = (run["launches"] - run["validate_launches"]) // DISPATCHES
+    card = smi.splitlines()[0]
+    sv = served_flagship(device, root / "build" / "chip_smoke_serving", per_dispatch)
+    print(f"[serving] the flagship in a standalone InferenceService (max_batch {LANES}, "
+          f"5 ms deadline) over ZMQ to a MultiplexedRemoteClient of {LANES} "
+          f"RecallEnv({HORIZON}, {N_CUES}) lanes, {SERVE_STEPS} steps: {sv['dispatches']} "
+          f"dispatches, every one replayed through the keyed window step at its bucket "
+          f"bit for bit ({sv['checked']} checked); flash_fwd {sv['launches']} = "
+          f"{per_dispatch} x {sv['dispatches']}, no flash_dq/flash_dkv; rows per dispatch "
+          f"{sv['occupancy']}, buckets {sv['buckets']}; {sv['episodes']} episodes shipped, "
+          f"their {sv['compared']} action records equal to the rows served for their "
+          f"session and step bit for bit (act, logp_a, v); in flight up to "
+          f"{sv['inflight']}", flush=True)
+    print(f"[serving] bucket {LANES} rows recomputed at buckets "
+          + ", ".join(f"{b}: {c['acts_differ']} actions differ, logp_a max abs diff "
+                      f"{c['logp_a']:.3e}, v {c['v']:.3e}" for b, c in sv["cross"].items())
+          + f" (tol {TOLERANCE['bfloat16']:g})", flush=True)
+    print(f"[serving] (not gated) {sv['requests'] / sv['wall']:.1f} requests/s, "
+          f"{1e3 * sv['wall'] / sv['dispatches']:.3f} ms per dispatch end to end (client "
+          f"codec, queue, dispatch, reply, env steps), {sv['step_ms']:.3f} ms in the keyed "
+          f"window step, device "
+          + ("not measured" if sv["device_ms"] is None else f"{sv['device_ms']:.4f} ms")
+          + f" per dispatch at bucket {LANES}, on {card}", flush=True)
+    print(f"[serving] (not gated) the keyed draw alone at {LANES} rows (median of 50): "
+          f"{sv['draw']['build_ms']:.4f} ms to build the per-row Philox generators and "
+          f"successor keys, {sv['draw']['draw_ms']:.4f} ms to draw one uniform block and "
+          f"copy it to the card, on {card}", flush=True)
+    sl = served_learner(device, root / "build" / "chip_smoke_serving_learner", per_dispatch)
+    print(f"[serving] TrainingServer(serving=True) with phase 11's learner on the card, "
+          f"{SERVE_CLIENTS} thin clients over ZMQ, {DIST_UPDATES} waves of "
+          f"RecallEnv({LEARNER_HORIZON}): launches per update {sl['updates']} (expected "
+          f"{sl['per_update']} each), served flash_fwd per wave {sl['serve_counts']} = "
+          f"{per_dispatch} per dispatch; each wave served at versions "
+          f"{sl['wave_versions']}; clients at version {sl['versions'][0]} (the last "
+          f"publish); ingest accounting exact; (not gated) "
+          f"{sl['steps'] / (sum(sl['wave_s']) / len(sl['wave_s'])):.1f} served env steps/s "
+          f"per wave on {card}", flush=True)
+    sg = served_grpc(device, root / "build" / "chip_smoke_serving_grpc")
+    print(f"[serving] mlp_discrete served over gRPC GetActions (in-band, grpcio) to a "
+          f"RemoteActorClient on CartPole-v1: {sg['steps']} actions equal the keyed step "
+          f"on the card bit for bit, no flash launch; (not gated) "
+          f"{1e3 * sg['wall'] / sg['steps']:.3f} ms per action round trip (local replay "
+          f"included) on {card}", flush=True)
+    print(f"[serving] phase 18 in {time.perf_counter() - t18:.1f} s", flush=True)
+    serving_fwd = sv["launches"] + sum(sl["serve_counts"])
+    s_fwd, s_dq, s_dkv = sl["launches"]
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:116",
         "launches": (run["launches"] + fwd + r_fwd + decode["launches"] + a_fwd + d_fwd
-                     + ga_fwd + g_fwd + fa_fwd + f_fwd + p_fwd + fam_fwd + anakin_fwd),
+                     + ga_fwd + g_fwd + fa_fwd + f_fwd + p_fwd + fam_fwd + anakin_fwd
+                     + serving_fwd + s_fwd),
         "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd,
                              "decode_vs_window": decode["launches"],
                              "distributed_agent": a_fwd, "distributed_server": d_fwd,
@@ -5393,32 +5881,36 @@ def main() -> int:
                              "pp_learner": pp_fwd,
                              "anakin_window_replays": flag["launches"],
                              "anakin_agent_replays": dist17["agent_launches"],
-                             "anakin_server": a_dfwd},
+                             "anakin_server": a_dfwd,
+                             "serving_plane": serving_fwd,
+                             "served_learner": s_fwd},
         **main_flash,
     }, {
         "name": "flash_dq",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:223",
-        "launches": dq + r_dq + d_dq + g_dq + f_dq + p_dq + m_dq + pp_dq + a_ddq,
+        "launches": dq + r_dq + d_dq + g_dq + f_dq + p_dq + m_dq + pp_dq + a_ddq + s_dq,
         "launches_by_path": {"learner": dq, "local_loop": r_dq, "distributed_server": d_dq,
                              "guardrails_server": g_dq, "fleet_server": f_dq,
                              "ppo_learner": p_dq, "offpolicy": off_counts[1],
                              "pixel": pix_counts[1], "moe_learner": m_dq,
-                             "pp_learner": pp_dq, "anakin_server": a_ddq},
+                             "pp_learner": pp_dq, "anakin_server": a_ddq,
+                             "served_learner": s_dq},
         **main_bwd["flash_dq"],
     }, {
         "name": "flash_dkv",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:255",
-        "launches": dkv + r_dkv + d_dkv + g_dkv + f_dkv + p_dkv + m_dkv + pp_dkv + a_ddkv,
+        "launches": (dkv + r_dkv + d_dkv + g_dkv + f_dkv + p_dkv + m_dkv + pp_dkv + a_ddkv
+                     + s_dkv),
         "launches_by_path": {"learner": dkv, "local_loop": r_dkv,
                              "distributed_server": d_dkv, "guardrails_server": g_dkv,
                              "fleet_server": f_dkv, "ppo_learner": p_dkv,
                              "offpolicy": off_counts[2], "pixel": pix_counts[2],
                              "moe_learner": m_dkv, "pp_learner": pp_dkv,
-                             "anakin_server": a_ddkv},
+                             "anakin_server": a_ddkv, "served_learner": s_dkv},
         **main_bwd["flash_dkv"],
     }] + [{
         "name": name,

@@ -20,6 +20,16 @@ one fused window of ``--unroll-length`` steps per lane per ``rollout()``
         --baseline --env cartpole --host-mode anakin --num-envs 64 \
         --unroll-length 32 --episodes 200 --device cuda
 
+``--host-mode remote`` runs each actor as a thin client instead: a
+``RemoteActorClient`` holding no params, every action a round-trip to the
+server's colocated ``InferenceService`` (the server starts with
+``serving=True``; ZMQ and native fleets get a ``serving_addr`` of their
+own, gRPC fleets ask ``GetActions`` in-band)::
+
+    python -m relayrl_tpu_torch.examples.train_distributed --algo REINFORCE \
+        --baseline --env cartpole --host-mode remote --actors 4 \
+        --episodes 300 --device cuda
+
 ``--target`` stops an actor once the rolling 50-episode average of its
 returns (averaged over its lanes on the anakin tier) reaches the bar;
 the script then prints the update (model version) at which each actor
@@ -104,10 +114,19 @@ def actor_proc(idx: int, server_type: str, agent_addrs: dict, env_id: str,
                                       target, config_path, device, num_envs,
                                       unroll_length)))
         return
-    agent = Agent(server_type=server_type, seed=idx, config_path=config_path,
-                  device=device, model_path=os.path.join(
-                      os.path.dirname(config_path), f"client_model_{idx}.rlx"),
-                  **agent_addrs)
+    if host_mode == "remote":
+        # Thin client: no params and no model subscription; every action
+        # is a round-trip to the server's InferenceService.
+        from relayrl_tpu_torch.runtime.inference import RemoteActorClient
+
+        agent = RemoteActorClient(server_type=server_type, seed=idx,
+                                  config_path=config_path,
+                                  identity=f"remote-{idx}", **agent_addrs)
+    else:
+        agent = Agent(server_type=server_type, seed=idx, config_path=config_path,
+                      device=device, model_path=os.path.join(
+                          os.path.dirname(config_path), f"client_model_{idx}.rlx"),
+                      **agent_addrs)
     env = make(env_id)
     returns, solved_at = [], None
     t0 = time.time()
@@ -120,8 +139,8 @@ def actor_proc(idx: int, server_type: str, agent_addrs: dict, env_id: str,
             solved_at = {"episode": ep + 1, "version": agent.model_version}
             break
     train_s = time.time() - t0
-    queue.put((idx, returns, agent.model_version, solved_at, train_s,
-               int(agent.actor.steps_served)))
+    steps = agent.steps_served if host_mode == "remote" else agent.actor.steps_served
+    queue.put((idx, returns, agent.model_version, solved_at, train_s, int(steps)))
     agent.disable_agent()
 
 
@@ -136,10 +155,13 @@ def main(argv=None):
                     help="the trajectory/model plane (native is the "
                          "C++ core, built at first use)")
     ap.add_argument("--actors", type=int, default=1)
-    ap.add_argument("--host-mode", default="process", choices=["process", "anakin"],
-                    help="actor topology: one env per actor process, or the "
+    ap.add_argument("--host-mode", default="process",
+                    choices=["process", "anakin", "remote"],
+                    help="actor topology: one env per actor process, the "
                          "anakin tier (the env on the device, one fused window "
-                         "per rollout; runtime/anakin.py)")
+                         "per rollout; runtime/anakin.py), or thin clients "
+                         "served by the server's InferenceService "
+                         "(runtime/inference.py)")
     ap.add_argument("--num-envs", type=int, default=8, metavar="N",
                     help="anakin mode: env lanes per actor")
     ap.add_argument("--unroll-length", type=int, default=None, metavar="U",
@@ -204,11 +226,21 @@ def main(argv=None):
         except ValueError:
             hp[key] = raw
     obs_dim, act_dim = _ENV_DIMS[args.env]
+    if args.host_mode == "remote":
+        # Thin clients need the serving plane up server-side; the zmq
+        # (and native-passthrough) action channel gets its own port.
+        if args.transport != "grpc":
+            serving_addr = f"tcp://127.0.0.1:{free_port()}"
+            server_addrs["serving_addr"] = serving_addr
+            agent_addrs["serving_addr"] = serving_addr
+        else:
+            server_addrs["native_grpc"] = False  # GetActions is grpcio-only
 
     server = TrainingServer(
         args.algo, obs_dim=obs_dim, act_dim=act_dim,
         server_type=args.transport, env_dir=run_dir,
         config_path=config_path, hyperparams=hp, device=args.device,
+        serving=(True if args.host_mode == "remote" else None),
         **server_addrs)
     print(f"[driver] server on {server.device}, run dir {run_dir}",
           flush=True)

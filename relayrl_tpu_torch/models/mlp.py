@@ -22,6 +22,7 @@ from __future__ import annotations
 import math
 from typing import Any, Mapping
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -49,13 +50,70 @@ def _categorical_entropy(logits: torch.Tensor) -> torch.Tensor:
     return -torch.where(p > 0, p * logp_all, 0.0).sum(dim=-1)
 
 
-def _categorical_sample(generator: torch.Generator,
-                        logits: torch.Tensor) -> torch.Tensor:
+class KeyedDraws:
+    """Per-row noise drawn from per-row keys, in place of a
+    ``torch.Generator``: the serving plane's counterpart of the JAX
+    service's per-request PRNG key.
+
+    ``keys`` is ``[N, 2]`` uint32, one key a row (the words of
+    ``jax.random.PRNGKey``). Row ``i`` draws from numpy's counter-based
+    ``Philox`` keyed by its two words as one 64-bit key: first its
+    successor key (:attr:`next_keys`), then, in call order, every block
+    of noise a sampler asks for. So a row's noise and successor are a
+    function of its key alone, whatever its batchmates, its position or
+    the device; the noise is made on the host and reaches the device in
+    one copy per block."""
+
+    def __init__(self, keys, device):
+        keys = np.asarray(keys, np.uint32).reshape(-1, 2)
+        self.device = torch.device(device)
+        self._rows = [np.random.Generator(np.random.Philox(
+            key=(int(k0) << 32) | int(k1))) for k0, k1 in keys]
+        self.next_keys = np.stack([
+            g.integers(0, 1 << 32, size=2, dtype=np.uint32)
+            for g in self._rows]) if self._rows else np.zeros((0, 2), np.uint32)
+
+    def _block(self, shape, draw) -> torch.Tensor:
+        shape = tuple(shape)
+        if not shape or shape[0] != len(self._rows):
+            raise ValueError(f"keyed noise of shape {shape} for "
+                             f"{len(self._rows)} keyed rows")
+        block = np.stack([draw(g, shape[1:]) for g in self._rows])
+        return torch.from_numpy(block).to(self.device)
+
+    def uniform(self, shape) -> torch.Tensor:
+        """f32 uniforms in [0, 1), as ``torch.rand``."""
+        return self._block(shape, lambda g, s: g.random(s, dtype=np.float32))
+
+    def normal(self, shape) -> torch.Tensor:
+        """f32 standard normals, as ``torch.randn``."""
+        return self._block(
+            shape, lambda g, s: g.standard_normal(s, dtype=np.float32))
+
+
+def uniform(generator, shape, device) -> torch.Tensor:
+    """f32 uniforms in [0, 1) from a ``torch.Generator`` or a
+    :class:`KeyedDraws`."""
+    if isinstance(generator, KeyedDraws):
+        return generator.uniform(shape)
+    return torch.rand(shape, generator=generator, device=device,
+                      dtype=torch.float32)
+
+
+def normal(generator, shape, device, dtype=torch.float32) -> torch.Tensor:
+    """Standard normals in ``dtype`` from a ``torch.Generator`` or a
+    :class:`KeyedDraws`."""
+    if isinstance(generator, KeyedDraws):
+        return generator.normal(shape).to(dtype)
+    return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+
+
+def _categorical_sample(generator, logits: torch.Tensor) -> torch.Tensor:
     """Gumbel-max draw over the last axis (the construction
-    ``jax.random.categorical`` uses), from ``generator``'s stream. Returns
-    int64 indices."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                   dtype=torch.float32)
+    ``jax.random.categorical`` uses), from ``generator``'s stream (a
+    ``torch.Generator`` or a :class:`KeyedDraws`). Returns int64
+    indices."""
+    u = uniform(generator, logits.shape, logits.device)
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
@@ -238,8 +296,7 @@ def build_mlp_discrete(arch: Mapping[str, Any], device: torch.device) -> Policy:
 def build_mlp_continuous(arch: Mapping[str, Any], device: torch.device) -> Policy:
     def step(params, generator, obs, mask):
         (mu, log_std), v = params(obs, mask)
-        noise = torch.randn(mu.shape, generator=generator, device=mu.device,
-                            dtype=mu.dtype)
+        noise = normal(generator, mu.shape, mu.device, mu.dtype)
         act = mu + torch.exp(log_std) * noise
         return act, {"logp_a": _gaussian_logp(mu, log_std, act), "v": v}
 

@@ -52,6 +52,8 @@ from relayrl_tpu_torch.models.mlp import (
     _categorical_sample,
     _compute_dtype,
     _dense,
+    normal,
+    uniform,
 )
 
 LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
@@ -226,8 +228,7 @@ def _eps_greedy(generator: torch.Generator, greedy: torch.Tensor,
     if mask is None:
         mask = torch.ones_like(values)
     logits = torch.where(mask > 0, 0.0, _MASK_FILL)
-    explore = torch.rand(greedy.shape, generator=generator,
-                         device=values.device) < epsilon
+    explore = uniform(generator, greedy.shape, values.device) < epsilon
     random_act = _categorical_sample(generator, logits)
     return torch.where(explore, random_act, greedy)
 
@@ -325,8 +326,7 @@ def build_ddpg_continuous(arch: Mapping[str, Any], device: torch.device) -> Poli
     def step(params, generator, obs, mask, act_noise=None):
         noise = act_noise_default if act_noise is None else act_noise
         a = params(obs)
-        a = a + noise * torch.randn(a.shape, generator=generator,
-                                    device=a.device, dtype=a.dtype)
+        a = a + noise * normal(generator, a.shape, a.device, a.dtype)
         a = torch.clamp(a, -act_limit, act_limit)
         zero = _zeros(a[..., 0])
         return a, {"logp_a": zero, "v": zero}
@@ -352,8 +352,7 @@ def build_sac_continuous(arch: Mapping[str, Any], device: torch.device) -> Polic
 
     def step(params, generator, obs, mask):
         mu, log_std = params(obs)
-        noise = torch.randn(mu.shape, generator=generator, device=mu.device,
-                            dtype=mu.dtype)
+        noise = normal(generator, mu.shape, mu.device, mu.dtype)
         a, logp = squashed_gaussian_sample(noise, mu, log_std, act_limit)
         return a, {"logp_a": logp, "v": torch.zeros_like(logp)}
 

@@ -238,6 +238,41 @@ def make_batched_window_step(policy):
     return fn
 
 
+def make_keyed_batched_step(policy):
+    """:func:`make_batched_step` drawing from per-row keys instead of one
+    generator: ``fn(params, keys[N, 2] uint32, obs, masks, explore) ->
+    (acts, aux, next_keys[N, 2] uint32)``. Each row's noise and successor
+    key are a function of its own key alone
+    (:class:`~relayrl_tpu_torch.models.mlp.KeyedDraws`), so a retried
+    request with the same key recomputes bit for bit, and neither padding
+    rows nor batchmates change a row's draw. The serving plane's
+    dispatch."""
+    from relayrl_tpu_torch.models.mlp import KeyedDraws
+
+    step = make_batched_step(policy)
+
+    def fn(params, keys, obs, masks, explore):
+        draws = KeyedDraws(keys, policy.device)
+        acts, aux = step(params, draws, obs, masks, explore)
+        return acts, aux, draws.next_keys
+    return fn
+
+
+def make_keyed_batched_window_step(policy):
+    """:func:`make_batched_window_step` drawing from per-row keys (see
+    :func:`make_keyed_batched_step`): ``fn(params, keys[N, 2] uint32,
+    windows[N, W, obs], ts[N], masks) -> (acts, aux, next_keys)``."""
+    from relayrl_tpu_torch.models.mlp import KeyedDraws
+
+    step = make_batched_window_step(policy)
+
+    def fn(params, keys, windows, ts, masks):
+        draws = KeyedDraws(keys, policy.device)
+        acts, aux = step(params, draws, windows, ts, masks)
+        return acts, aux, draws.next_keys
+    return fn
+
+
 class PolicyActor:
     """Local policy + current trajectory; thread-safe hot-swap.
 

@@ -34,11 +34,16 @@ starts, so a kernel that fails to build fails the construction instead of
 the learner thread. The learner thread still never dies on one bad batch;
 every exception it catches is counted in ``stats["learner_errors"]``.
 
-Three parts of the JAX server are not ported; the constructor raises
-:class:`NotImplementedError` when the config turns one on: the serving
-plane (``ROADMAP.md`` queue 1 item 9), distributed tracing and fleet
-aggregation (item 12) and multi-host (item 11), as does the tensorboard
-writer (item 12).
+With ``serving.enabled`` (or ``serving=True``) the server hosts the
+batched-inference serving plane (:class:`~relayrl_tpu_torch.runtime.inference.InferenceService`)
+on its device, fed every publish in-process: in-band ``GetActions`` and
+``StreamActions`` on the pure-grpcio backend, else the ZMQ ROUTER plane
+at ``server.inference_server``.
+
+Two parts of the JAX server are not ported; the constructor raises
+:class:`NotImplementedError` when the config turns one on: distributed
+tracing and fleet aggregation (``ROADMAP.md`` queue 1 item 12) and
+multi-host (item 11), as does the tensorboard writer (item 12).
 """
 
 from __future__ import annotations
@@ -101,15 +106,9 @@ class _EventCoalescer:
         return due
 
 
-def _refuse_unported(config: ConfigLoader, serving, tensorboard) -> None:
+def _refuse_unported(config: ConfigLoader, tensorboard) -> None:
     """Raise for every JAX-server feature the config turns on that the
     port does not have."""
-    serving_on = (config.get_serving_params().get("enabled")
-                  if serving is None else bool(serving))
-    if serving_on:
-        raise NotImplementedError(
-            "the serving plane is not ported (ROADMAP.md queue 1 item 9); "
-            "set serving.enabled to false")
     tel = config.get_telemetry_params()
     if (tel.get("trace_sample_rate") or 0) > 0 or \
             (tel.get("fleet_interval_s") or 0) > 0:
@@ -156,7 +155,7 @@ class TrainingServer:
         **addr_overrides,
     ):
         self.config = ConfigLoader(algorithm_name, config_path)
-        _refuse_unported(self.config, serving, tensorboard)
+        _refuse_unported(self.config, tensorboard)
         self.server_type = server_type
         self._addr_overrides = addr_overrides
         self.device = resolve_device(device)
@@ -373,6 +372,31 @@ class TrainingServer:
         self.transport = None
         self._make_transport()
 
+        # The batched-inference serving plane, colocated with this
+        # learner and fed in-process from the publish path: thin clients
+        # get batched actions with no model-distribution hop. gRPC fleets
+        # ride the in-band GetActions RPC; zmq and native fleets the ROUTER
+        # plane.
+        self.inference = None
+        serving_cfg = self.config.get_serving_params()
+        if serving is not None:
+            # Ctor override for callers that decide the topology in code
+            # (examples/train_distributed.py --host-mode remote).
+            serving_cfg["enabled"] = bool(serving)
+        if serving_cfg["enabled"]:
+            from relayrl_tpu_torch.runtime.inference import InferenceService
+
+            try:
+                self.inference = InferenceService.from_config(
+                    self.algorithm.bundle(), self.config, validate=False,
+                    device=self.device)
+            except ValueError as e:
+                # An unservable policy config: the server still comes up
+                # for the local actor tiers.
+                print(f"[TrainingServer] serving disabled: {e}", flush=True)
+            if self.inference is not None:
+                self._wire_serving_plane(addr_overrides)
+
         self._stop = threading.Event()
         self._learner_thread: threading.Thread | None = None
         self._staging_threads: list[threading.Thread] = []
@@ -446,6 +470,22 @@ class TrainingServer:
             self.transport.get_model_update = self._get_model_update
             self.transport.get_model_version = (
                 lambda: self.latest_model_version)
+
+    def _wire_serving_plane(self, addr_overrides: dict) -> None:
+        """Attach the InferenceService's action channel to the fleet's
+        transport kind: in-band ``GetActions`` where the backend carries
+        request/response RPCs (pure-grpcio), else the dedicated zmq
+        ROUTER plane at ``server.inference_server`` (zmq fleets, and
+        native ones as the passthrough: the C++ core has no action RPC)."""
+        if getattr(self.transport, "supports_inband_infer", False):
+            self.transport.on_infer = self.inference.handle_request_blocking
+            # Bidi StreamActions: one parked RPC thread per stream
+            # whatever its in-flight depth; frames go through the
+            # non-blocking enqueue, replies ride the batch worker.
+            self.transport.on_infer_submit = self.inference.handle_request
+        else:
+            self.inference.bind_zmq(addr_overrides.get(
+                "serving_addr", self.config.get_inference_server().address))
 
     def _install_signal_handlers(self) -> None:
         """Opt-in SIGTERM/SIGINT handling: write a final full-state
@@ -1366,6 +1406,16 @@ class TrainingServer:
                 self.last_publish["frame_bytes"])
         finally:
             self._write_model_artifact(version)
+            # Colocated serving feed: the inference plane sees every
+            # published version straight from the host tree, behind the
+            # same finite-publish gate as the fleet, once the version
+            # probe has moved.
+            if self.inference is not None:
+                try:
+                    self.inference.install_params(version, arch, host_params)
+                except Exception as e:
+                    print(f"[TrainingServer] serving install error: {e!r}",
+                          flush=True)
 
     def _faulted_publish(self, version: int, frame: bytes,
                          **kwargs) -> None:
@@ -1473,6 +1523,8 @@ class TrainingServer:
             for i in range(self._staging_count)]
         for t in self._staging_threads:
             t.start()
+        if self.inference is not None:
+            self.inference.start()
         if self._async_publish and self._publisher is None:
             from relayrl_tpu_torch.runtime.pipeline import ModelPublisher
 
@@ -1493,6 +1545,11 @@ class TrainingServer:
         if not self.active:
             return
         self._stop.set()
+        # Serving plane first: parked thin-client requests answer with a
+        # retryable nack instead of hanging out their timeouts against a
+        # closing socket.
+        if self.inference is not None:
+            self.inference.stop()
         deadline = (None if join_timeout is None
                     else time.monotonic() + join_timeout)
 
@@ -1520,6 +1577,8 @@ class TrainingServer:
         if addr_overrides:
             self._addr_overrides.update(addr_overrides)
             self._make_transport()
+            if self.inference is not None:
+                self._wire_serving_plane(self._addr_overrides)
         self.enable_server()
 
     def __enter__(self):

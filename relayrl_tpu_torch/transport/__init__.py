@@ -69,19 +69,15 @@ def _probe_cached(host: str, port: int, timeout_s: float = 0.75,
 _KNOWN_TYPES = ("zmq", "grpc", "native")
 
 
-def _resolve(server_type: str | None) -> str:
-    """Validate ``server_type`` and map it onto a ported backend."""
+def _check_type(server_type: str | None) -> str:
+    """``server_type`` lower-cased (``None`` -> zmq), or a ``ValueError``
+    for a name no backend answers to. ``auto`` passes through: the server
+    resolves it locally (:func:`_resolve_auto`), the agent negotiates it
+    (:func:`_negotiate_agent_auto`)."""
     server_type = (server_type or "zmq").lower()
-    if server_type == "auto":
-        return "zmq"
-    if server_type not in _KNOWN_TYPES:
+    if server_type != "auto" and server_type not in _KNOWN_TYPES:
         raise ValueError(
             f"unknown server_type {server_type!r} (zmq|grpc|native|auto)")
-    if server_type == "native":
-        raise NotImplementedError(
-            "server_type='native' is not ported (ROADMAP.md queue 1 item "
-            "4: it needs native/'s C++ library, which the port does not "
-            "load); use server_type='zmq' or 'grpc'")
     return server_type
 
 
@@ -156,14 +152,11 @@ def _verify_agent_protocol(server_type: str, config: ConfigLoader,
 
 def make_server_transport(server_type: str, config: ConfigLoader,
                           **overrides) -> ServerTransport:
-    server_type = (server_type or "zmq").lower()
+    server_type = _check_type(server_type)
     if server_type == "auto":
         server_type = _resolve_auto()
         print(f"[Transport] auto -> {server_type} (server bind side)",
               flush=True)
-    elif server_type not in _KNOWN_TYPES:
-        raise ValueError(
-            f"unknown server_type {server_type!r} (zmq|grpc|native|auto)")
     transport_params = config.get_transport_params()
     chunk_bytes = overrides.get("chunk_bytes",
                                 transport_params["chunk_bytes"])
@@ -222,10 +215,7 @@ def make_agent_transport(server_type: str, config: ConfigLoader,
     quick probe so a mismatched fleet errors at construction
     (:class:`ProtocolMismatchError`) rather than timing out on
     ``fetch_model``. Pass ``probe=False`` to skip the pre-flight check."""
-    server_type = (server_type or "zmq").lower()
-    if server_type != "auto" and server_type not in _KNOWN_TYPES:
-        raise ValueError(
-            f"unknown server_type {server_type!r} (zmq|grpc|native|auto)")
+    server_type = _check_type(server_type)
     should_probe = overrides.pop("probe", True)
     negotiate_window_s = float(overrides.pop("negotiate_window_s", 3.0))
     if server_type == "auto":

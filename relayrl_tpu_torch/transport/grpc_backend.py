@@ -25,11 +25,12 @@ caller.
 
 A copy of :mod:`relayrl_tpu.transport.grpc_backend` with ``grpc`` and
 ``msgpack`` imported inside the functions that use them, so importing the
-port loads neither. The serving plane is not ported (``ROADMAP.md``
-queue 1 item 9): the server never installs ``on_infer``, so
-``GetActions``/``StreamActions`` answer with the typed "serving is not
-enabled" nack, byte for byte the JAX server's answer. The trace receipt
-hop is dropped (distributed tracing is not ported).
+port loads neither. A ``TrainingServer`` with ``serving.enabled``
+installs its ``InferenceService`` as ``on_infer`` (``GetActions``, one
+parked RPC thread per request) and ``on_infer_submit``
+(``StreamActions``); without it both answer with the typed "serving is
+not enabled" nack, byte for byte the JAX server's answer. The trace
+receipt hop is dropped (distributed tracing is not ported).
 """
 
 from __future__ import annotations

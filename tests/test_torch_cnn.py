@@ -19,6 +19,7 @@ package's, on the CPU.
 * The presets, the refusals and the override warning.
 """
 
+import dataclasses
 import math
 import warnings
 
@@ -88,6 +89,9 @@ def test_evaluate_step_mode_match_jax(precision, conv_spec):
     arch = _arch(precision, conv_spec)
     tree = _tree(arch)
     jax_policy = jax_build_policy(arch)
+    # jit: one compile per input shape instead of one per op
+    jax_policy = dataclasses.replace(jax_policy, **{
+        name: jax.jit(getattr(jax_policy, name)) for name in ("evaluate", "mode")})
     policy = build_policy(arch, device="cpu")
     params = policy.load_params(tree)
     assert policy.input_dim == FLAT

@@ -16,14 +16,20 @@ import pytest
 import torch
 
 from relayrl_tpu.ops import attention as jax_attention
-from relayrl_tpu.ops.flash import _bwd_pallas as jax_flash_bwd
-from relayrl_tpu.ops.flash import _fwd as jax_flash_fwd
+from relayrl_tpu.ops.flash import _bwd_pallas, _fwd
 from relayrl_tpu_torch.ops import attention as port_attention
 from relayrl_tpu_torch.ops.flash import (
     flash_attention,
     flash_attention_bwd_plain,
     flash_attention_plain,
 )
+
+# The Pallas forward and backward under jax.jit (causal, blocks and
+# interpret static): one compile per case, and a backward case reuses its
+# forward from the forward's grid, where eager interpret-mode calls
+# re-trace every grid.
+jax_flash_fwd = jax.jit(_fwd, static_argnums=(3, 4, 5, 6))
+jax_flash_bwd = jax.jit(_bwd_pallas, static_argnums=(6, 7, 8, 9))
 
 # The bars of tests/test_flash.py. f32: the same arithmetic summed in
 # another order. bf16: p and O each take one bf16 rounding, at points that
@@ -105,14 +111,29 @@ def test_plain_matches_pallas_interpret(dtype, causal, T, block_q, block_kv):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("T,block_q,block_kv", [
+BWD_SHAPES = [
     (32, 16, 16),
     (32, 16, 8),    # uneven blocks: the cross-block causal predicate
     (17, 17, 17),   # ragged length
     (1, 1, 1),      # one step
-])
+]
+
+
+def _bwd_cases():
+    """Every (shape, causal, dtype) case, ids as before. Tier 1 runs each
+    shape at both causal flags, one dtype each, pairing them so that every
+    shape meets both dtypes and every (causal, dtype) pair occurs; the
+    other half is in the slow tier."""
+    for i, (T, block_q, block_kv) in enumerate(BWD_SHAPES):
+        for dtype in ("float32", "bfloat16"):
+            for causal in (True, False):
+                tier1 = (causal == (dtype == "float32")) == (i < 2)
+                yield pytest.param(dtype, causal, T, block_q, block_kv,
+                                   id=f"{T}-{block_q}-{block_kv}-{causal}-{dtype}",
+                                   marks=() if tier1 else pytest.mark.slow)
+
+
+@pytest.mark.parametrize("dtype,causal,T,block_q,block_kv", list(_bwd_cases()))
 def test_plain_bwd_matches_pallas_interpret(dtype, causal, T, block_q, block_kv):
     """The backward's plain version against the dq and dk/dv Pallas
     kernels, on one forward's (O, lse2) and one upstream gradient."""

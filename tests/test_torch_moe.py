@@ -15,6 +15,8 @@ against the JAX package's, on the CPU.
   item 11).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -131,6 +133,10 @@ def test_tied_gates_route_as_lax_top_k(bias):
 def test_evaluate_step_window_mode_match_jax(precision):
     arch = _arch(precision)
     tree, jax_policy, policy, params = _pair(arch)
+    # jit: one compile per input shape instead of one per op
+    jax_policy = dataclasses.replace(jax_policy, **{
+        name: jax.jit(getattr(jax_policy, name))
+        for name in ("evaluate", "mode", "mode_window")})
     tol = TOL[precision]
     rng = np.random.default_rng(1)
     obs = rng.standard_normal((3, T, OBS)).astype(np.float32)

@@ -17,6 +17,8 @@ JAX package's, on the CPU.
   ``PolicyActor`` serves it through the window.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -109,6 +111,9 @@ def test_evaluate_step_window_mode_match_jax(precision):
     arch = _arch(precision)
     tree = _tree(arch)
     jax_policy = jax_build_policy(arch)
+    # jit: one compile per input shape instead of one per op
+    jax_policy = dataclasses.replace(jax_policy, **{
+        name: jax.jit(getattr(jax_policy, name)) for name in ("evaluate", "mode_window")})
     policy = build_policy(arch, device="cpu")
     params = policy.load_params(tree)
     assert policy.init_cache is None and policy.step_cached is None

@@ -11,6 +11,8 @@ kernels are held to the plain versions by the last test, which needs a GPU
 (chip_smoke.py runs the same comparisons on the card).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -159,6 +161,15 @@ def _chunk_inputs(dtype, seed, c=C, d=D):
     return qs, (k0, v0), (k1, v1), do, lse2, delta
 
 
+@functools.lru_cache(maxsize=None)
+def _jitted_chunk_calls(c, d, dtype):
+    """The JAX chunk kernels (8-row blocks, interpret mode) under
+    ``jax.jit``: each compiles once per shape and is then reused by every
+    case and call at that shape, where an eager interpret-mode call
+    re-traces its grid each time."""
+    return tuple(jax.jit(f) for f in _build_chunk_calls(c, d, 8, 8, dtype, True))
+
+
 def test_prescale_matches_jax():
     rng = np.random.default_rng(0)
     q = _randn(rng, B, C, H, D)
@@ -169,10 +180,22 @@ def test_prescale_matches_jax():
         np.testing.assert_array_equal(_f32(got), _f32(want))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("mode", [MODE_FULL, MODE_DIAG])
-@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
-@pytest.mark.parametrize("c,d", CHUNK_SHAPES, ids=[f"C{c}-D{d}" for c, d in CHUNK_SHAPES])
+def _chunk_cases():
+    """Every (shape, kernel, mode, dtype) case, ids as before. Tier 1 runs
+    each shape and kernel in both modes at one dtype, alternating, so that
+    every shape and every kernel meets both dtypes; the other dtype's cases
+    are in the slow tier."""
+    for i, (c, d) in enumerate(CHUNK_SHAPES):
+        for j, kernel in enumerate(("fwd", "dq", "dkv")):
+            tier1 = ("float32", "bfloat16")[(i + j) % 2]
+            for mode in (MODE_FULL, MODE_DIAG):
+                for dtype in ("float32", "bfloat16"):
+                    yield pytest.param(c, d, kernel, mode, dtype,
+                                       id=f"C{c}-D{d}-{kernel}-{mode}-{dtype}",
+                                       marks=() if dtype == tier1 else pytest.mark.slow)
+
+
+@pytest.mark.parametrize("c,d,kernel,mode,dtype", list(_chunk_cases()))
 def test_chunk_plain_matches_pallas_interpret(c, d, kernel, mode, dtype):
     """Each plain version against its Pallas kernel (8-row blocks, two or
     three per chunk, so DIAG runs interior, masked and skipped blocks), on
@@ -180,7 +203,7 @@ def test_chunk_plain_matches_pallas_interpret(c, d, kernel, mode, dtype):
     chunk 1. The chunk shapes cover every head dim the CUDA kernels
     instantiate, which the card holds to these plain versions."""
     qs, (k0, v0), (k1, v1), do, lse2, delta = _chunk_inputs(dtype, mode, c, d)
-    j_fwd, j_dq, j_dkv = _build_chunk_calls(c, d, 8, 8, dtype, True)
+    j_fwd, j_dq, j_dkv = _jitted_chunk_calls(c, d, dtype)
     jq, jk0, jv0, jk1, jv1, jdo = (_bchd_to_jax(x, dtype) for x in (qs, k0, v0, k1, v1, do))
     jlse, jdelta = _bhcd_to_jax(lse2), _bhcd_to_jax(delta)
     full, under_test = jnp.array([MODE_FULL], jnp.int32), jnp.array([mode], jnp.int32)

@@ -263,9 +263,28 @@ def test_refusals(tmp_cwd):
         assert server.transport.check_ingest == server._check_ingest
     finally:
         server.disable_server()
-    cases = [({"serving": {"enabled": True}}, {}, "item 9"),
-             ({}, {"serving": True}, "item 9"),
-             ({"telemetry": {"trace_sample_rate": 0.5}}, {}, "item 12"),
+    # serving.enabled (config or ctor) builds the colocated service; the
+    # ctor's False overrides the config.
+    from relayrl_tpu_torch.runtime.inference import InferenceService
+
+    for sections, kwargs, built in (({"serving": {"enabled": True}}, {}, True),
+                                    ({}, {"serving": True}, True),
+                                    ({"serving": {"enabled": True}},
+                                     {"serving": False}, False)):
+        server = TrainingServer(config_path=_config(tmp_cwd, **sections),
+                                start=False, **base, **kwargs)
+        try:
+            if built:
+                assert isinstance(server.inference, InferenceService)
+                assert server.inference.version == server.algorithm.version
+                # zmq fleet: the ROUTER plane at server.inference_server.
+                assert (server.inference._zmq_addr
+                        == server.config.get_inference_server().address)
+            else:
+                assert server.inference is None
+        finally:
+            server.disable_server()
+    cases = [({"telemetry": {"trace_sample_rate": 0.5}}, {}, "item 12"),
              ({"telemetry": {"fleet_interval_s": 1.0}}, {}, "item 12"),
              ({"learner": {"distributed": {"coordinator": "h:1",
                                            "num_processes": 2}}}, {},

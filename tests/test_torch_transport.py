@@ -406,3 +406,31 @@ def test_unported_transports_raise(server_type):
     agent.close()
     with pytest.raises(ValueError, match="unknown server_type"):
         make_server_transport("carrier-pigeon", config)
+
+
+@pytest.mark.parametrize("server_type", ["native", "auto", "NATIVE", None,
+                                         "zmq", "grpc", "carrier-pigeon"])
+def test_server_type_resolves_as_reference(server_type, monkeypatch):
+    """Both constructors share one check of ``server_type``; ``native`` is
+    a backend of its own and a server's ``auto`` resolves to native when
+    the C++ core loads, else zmq, in both packages (the library's presence
+    pinned either way); an unknown name is refused with the reference's
+    message."""
+    import relayrl_tpu.transport as jax_transport
+    import relayrl_tpu.transport.native_backend as jax_native
+    import relayrl_tpu_torch.transport as transport
+    import relayrl_tpu_torch.transport.native_backend as native
+
+    if server_type == "carrier-pigeon":
+        with pytest.raises(ValueError, match="unknown server_type") as err:
+            transport._check_type(server_type)
+        with pytest.raises(ValueError) as jax_err:
+            jax_transport.make_agent_transport(server_type, None)
+        assert str(err.value) == str(jax_err.value)
+        return
+    assert transport._check_type(server_type) == (server_type or "zmq").lower()
+    for loads in (True, False):
+        monkeypatch.setattr(native, "native_available", lambda: loads)
+        monkeypatch.setattr(jax_native, "native_available", lambda: loads)
+        assert transport._resolve_auto() == jax_transport._resolve_auto() == (
+            "native" if loads else "zmq")

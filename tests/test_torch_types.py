@@ -194,8 +194,8 @@ def test_distributed_loop_imports_clean():
     """The server and agent entry points, the guardrails, the gRPC and
     native backends, the relay, the learners (the off-policy family, its
     Q-networks and step ring included), the CNN, MoE and pipeline model
-    families, the pixel pipeline and its example, the on-device envs and
-    the anakin tier load no JAX and nothing of
+    families, the pixel pipeline and its example, the on-device envs,
+    the anakin tier and the serving plane load no JAX and nothing of
     the JAX package; none of them loads msgpack, ml_dtypes or grpc (the
     transports import them where they encode, decode and connect), and
     none builds or opens a shared library."""
@@ -227,6 +227,8 @@ def test_distributed_loop_imports_clean():
         "import relayrl_tpu_torch.envs.device\n"
         "import relayrl_tpu_torch.runtime.anakin\n"
         "import relayrl_tpu_torch.examples.train_distributed\n"
+        "import relayrl_tpu_torch.runtime.inference\n"
+        "import relayrl_tpu_torch.transport.serving\n"
         "lazy = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "              ('msgpack', 'ml_dtypes', 'grpc'))\n"
         "from relayrl_tpu_torch.runtime import TrainingServer, VectorAgent\n"
