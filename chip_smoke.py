@@ -205,7 +205,23 @@ Phases, each of which fails the run:
    wave served at the version published before it, the clients at the
    last publish, exact ingest accounting. (c) A ``RemoteActorClient``
    over gRPC ``GetActions`` against a served ``mlp_discrete``: each
-   action equal to the keyed step on the card, bit for bit.
+   action equal to the keyed step on the card, bit for bit;
+19. the RLHF plane: ``RlhfScheduler`` against an in-process
+   ``TrainingServer("IMPALA")`` on the card, the flagship generating over
+   TokenGen (8-token vocabulary, 8-token prompts, up to 248 new tokens: a
+   256-token context), the reward model (d_model 32, 1 layer, seed 7)
+   scoring, ``params/(obs_embed|pos_embed|block_0)/`` frozen, on (a) the
+   vector tier over ZMQ (4 updates), (b) the anakin tier (8-step windows
+   captured as one CUDA graph, 4 updates), (c) thin clients of a
+   ``TrainingServer(serving=True)`` (2 updates). Each: every shipped
+   episode's terminal reward equal to the reward model's score of its
+   tokens, re-scored from the emitted bytes; every ``bver`` within [0,
+   the version held at emission]; exact ingest accounting; the frozen
+   leaves bit-identical, the rest moved; the train-lag histogram once per
+   trajectory; K1 = generation dispatches (or replays) x their K1 + 4 per
+   update, K2 and K3 4 per update. (a) also scores 8 generations one at a
+   time and as a batch: ``score_np`` and ``score_batch_np`` bit-equal, and
+   the raw 1-row against 8-row forward printed.
 
 Phases 3 and 6 also hold every kernel to its plain version at head dims
 128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
@@ -418,6 +434,16 @@ ADAM_FLOOR = 1e-6
 # the value head's 20 steps train on features that differ, in either
 # arithmetic (PERF.md section 6).
 PLAIN_NOISE_FACTOR = 2.0
+# Element rules for an element outside Adam's floor that misses
+# MLP_PARAM_ATOL: within PLAIN_NOISE_FACTOR times the card-vs-CPU difference
+# of the plain attention at the element (the first, phase 9's gate), of the
+# largest of all plain sides (plain_attn and NOISE_ATTENTIONS) at the
+# element, or of the largest of all plain sides over the element's leaf.
+# compare_update_to_cpu reports each rule's verdict, and --recall-sweep
+# counts the salts each fails: the two wider rules fail the same salts as
+# the gate (ROADMAP queue 3 item 9, PERF.md section 6), so the gate stays.
+ELEMENT_RULES = ("plain attention at the element", "plain sides at the element",
+                 "plain sides over the leaf")
 # Each side's move of a qkv bias's key third (zero gradient in exact
 # arithmetic) is held to Adam's step bound times this: the bias-corrected
 # m_hat / (sqrt(v_hat) + eps) of f32 noise may round a hair above 1
@@ -512,6 +538,21 @@ SERVE_STEPS = 320
 SERVE_OTHER_BUCKETS = (1, 32)
 SERVE_CLIENTS = LEARNER["traj_per_epoch"]
 SERVE_GRPC_STEPS = 200
+# The RLHF plane (phase 19): the RlhfScheduler against a TrainingServer
+# ("IMPALA") on the card, the flagship as the policy over TokenGen with an
+# 8-token vocabulary, 8-token prompts and up to 248 generated tokens (a
+# 256-token context: the flagship's window), the reward model of
+# rm_d_model 32, 1 layer, seed 7 as the scorer, the lower half frozen
+# (benches/bench_rlhf.py's fine-tune recipe), on each generation tier for
+# RLHF_UPDATES[tier] updates.
+RLHF = {"vocab_size": 8, "prompt_len": 8, "max_new_tokens": 248,
+        "scorer": "reward_model", "rm_d_model": 32, "rm_n_layers": 1, "rm_seed": 7,
+        "lanes": 8, "score_batch": 8, "generation_unroll": 8,
+        "max_episodes_per_version": 8, "pace_timeout_s": 3.0}
+RLHF_FREEZE = "params/(obs_embed|pos_embed|block_0)/"
+RLHF_FROZEN = ("params/obs_embed/", "params/pos_embed/", "params/block_0/")
+RLHF_UPDATES = {"vector": 4, "anakin": 4, "remote": 2}
+RLHF_TIMEOUT_S = 240
 
 
 def _dtype_name(dtype) -> str:
@@ -2039,7 +2080,9 @@ def compare_update_to_cpu(algo, params0, batch, idx_sets=None, plain_attn=None,
     elements below the floor, the largest difference among them, the
     elements that passed by the relative rule alone (with the largest such
     difference), whether the plain side alone would miss the bars, the key
-    bias's largest move over its bound, and the card's metrics."""
+    bias's largest move over its bound, the card's metrics, and each of
+    ``ELEMENT_RULES``' first failing element or None (``rule_fail``; a
+    failure's message carries them too)."""
     import torch
 
     from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
@@ -2099,6 +2142,7 @@ def compare_update_to_cpu(algo, params0, batch, idx_sets=None, plain_attn=None,
     plain_over_bar = delta_over_bar = False
     samples = [sides[side][1] for side in plains]
     delta_bars, delta_errs = {}, {}
+    metric_fail = None  # raised after the elements, so every rule's verdict is known
     for key, value in want_m.items():
         err = abs(got_m[key] - value)
         bar = MLP_METRIC_RTOL * abs(value) + MLP_METRIC_ATOL
@@ -2108,12 +2152,15 @@ def compare_update_to_cpu(algo, params0, batch, idx_sets=None, plain_attn=None,
             delta_over_bar |= not err <= bar
             bar = max(bar, PLAIN_NOISE_FACTOR * max(abs(m[key] - value) for m in samples))
             delta_bars[key], delta_errs[key] = bar, err
-        if not err <= bar:
-            raise AssertionError(f"update metric {key}: card {got_m[key]} vs cpu {value} "
-                                 f"(bar {bar:.3e}" + (f"; plain sides vs cpu "
-                                 f"{[abs(m[key] - value) for m in samples]})"
-                                 if key in delta_bars else ")"))
+        if not err <= bar and metric_fail is None:
+            metric_fail = (f"update metric {key}: card {got_m[key]} vs cpu {value} "
+                           f"(bar {bar:.3e}" + (f"; plain sides vs cpu "
+                           f"{[abs(m[key] - value) for m in samples]})"
+                           if key in delta_bars else ")"))
         metric_err = max(metric_err, err)
+    # Each ELEMENT_RULES rule's first failing element (None: it passes).
+    rule_fail = {rule: None for rule in ELEMENT_RULES} if plain is not None else {}
+    element_fail = None
     for name, p in state.params.named_parameters():
         diff = (got[name] - want[name]).abs()
         noise = least_rms[p] < ADAM_FLOOR
@@ -2127,22 +2174,33 @@ def compare_update_to_cpu(algo, params0, batch, idx_sets=None, plain_attn=None,
             ok[key] = moved[key] <= step_bound[p] * KEY_BIAS_SLACK
             key_moved = max(key_moved, moved[key].max().item() / step_bound[p])
             noise = noise & ~key
+        real = ~noise & ~key
         if plain is not None:
             plain_diff = (plain[name] - want[name]).abs()
-            passed = ~ok & ~noise & ~key & (diff <= PLAIN_NOISE_FACTOR * plain_diff)
+            sides_diff = torch.stack([(sides[side][0][name] - want[name]).abs()
+                                      for side in plains]).amax(0)
+            refs = (plain_diff, sides_diff, sides_diff.where(real, 0.0).max())
+            held = ~ok & real
+            for rule, ref in zip(ELEMENT_RULES, refs):
+                passes = ok | (held & (diff <= PLAIN_NOISE_FACTOR * ref))
+                if rule_fail[rule] is None and not bool(passes.all()):
+                    i = int(torch.nonzero(~passes.flatten())[0])
+                    rule_fail[rule] = (f"{name} element {i}: card vs cpu "
+                                       f"{diff.flatten()[i].item():.3e}, reference "
+                                       f"{ref.expand_as(diff).flatten()[i].item():.3e}")
+            passed = held & (diff <= PLAIN_NOISE_FACTOR * plain_diff)
             n_relative += int(passed.sum())
             relative_err = max(relative_err, diff.where(passed, 0.0).max().item())
             ok |= passed
-        if not bool(ok.all()):
+        if not bool(ok.all()) and element_fail is None:
             i = int(torch.nonzero(~ok.flatten())[0])
             rule = ("key bias, each side's move within the step bound "
                     f"{step_bound[p]}" if key.flatten()[i] else
                     f"noise, step bound {step_bound[p]}" if noise.flatten()[i] else
                     "bar" if plain is None else
                     f"bar; plain attention vs cpu {plain_diff.flatten()[i].item()}")
-            raise AssertionError(f"update param {name}: card vs cpu {diff.flatten()[i].item()} "
-                                 f"at element {i} ({rule})")
-        real = ~noise & ~key
+            element_fail = (f"update param {name}: card vs cpu {diff.flatten()[i].item()} "
+                            f"at element {i} ({rule})")
         kernel_err = max(kernel_err, diff.where(real, 0.0).max().item())
         if plain is not None:
             plain_err = max(plain_err, plain_diff.where(real, 0.0).max().item())
@@ -2150,10 +2208,13 @@ def compare_update_to_cpu(algo, params0, batch, idx_sets=None, plain_attn=None,
                         .max().item())
         floor_err = max(floor_err, diff.where(noise, 0.0).max().item())
         n_floored += int(noise.sum())
+    if metric_fail or element_fail:
+        raise AssertionError("; ".join(m for m in (metric_fail, element_fail) if m) + "".join(
+            f"; rule '{rule}': {fail or 'passes'}" for rule, fail in rule_fail.items()))
     plain_over_bar |= plain_err > MLP_PARAM_ATOL
     return {"metric_err": metric_err, "param_err": param_err, "n_floored": n_floored,
             "floor_err": floor_err, "n_relative": n_relative,
-            "relative_err": relative_err, "kernel_err": kernel_err,
+            "relative_err": relative_err, "rule_fail": rule_fail, "kernel_err": kernel_err,
             "plain_err": plain_err, "plain_over_bar": plain_over_bar,
             "delta_bars": delta_bars, "delta_errs": delta_errs,
             "delta_over_bar": delta_over_bar,
@@ -2236,7 +2297,8 @@ def recall_sweep(device, workdir: Path, salts: range) -> int:
 
     hp = recall_hyperparams("transformer", RECALL_HORIZON, "flash")
     failed = {"noise-relative": [], "bar alone, kernels": [], "bar alone, plain": [],
-              "DeltaLoss at the metric bar alone": []}
+              "DeltaLoss at the metric bar alone": [],
+              **{f"rule '{rule}'": [] for rule in ELEMENT_RULES}}
     key = {"key_grad": 0.0, "qv_grad": math.inf, "key_moved": 0.0}
     for salt in salts:
         runner = LocalRunner(RecallEnv(horizon=RECALL_HORIZON), "REINFORCE",
@@ -2259,6 +2321,9 @@ def recall_sweep(device, workdir: Path, salts: range) -> int:
             failed["bar alone, kernels"].append(salt)
             if any(f"metric {k}" in str(exc) for k in DELTA_METRICS):
                 failed["DeltaLoss at the metric bar alone"].append(salt)
+            for rule in ELEMENT_RULES:
+                if "update metric" in str(exc) or f"rule '{rule}': passes" not in str(exc):
+                    failed[f"rule '{rule}'"].append(salt)
             print(f"[recall-sweep] salt {salt}: FAILS {exc}", flush=True)
             continue
         if cmp["n_relative"]:
@@ -2267,6 +2332,9 @@ def recall_sweep(device, workdir: Path, salts: range) -> int:
             failed["bar alone, plain"].append(salt)
         if cmp["delta_over_bar"]:
             failed["DeltaLoss at the metric bar alone"].append(salt)
+        for rule, fail in cmp["rule_fail"].items():
+            if fail:
+                failed[f"rule '{rule}'"].append(salt)
         key = {"key_grad": max(key["key_grad"], cmp["key_grad"]),
                "qv_grad": min(key["qv_grad"], cmp["qv_grad"]),
                "key_moved": max(key["key_moved"], cmp["key_moved"])}
@@ -5257,6 +5325,229 @@ def served_grpc(device, workdir: Path) -> dict:
         server.disable_server()
 
 
+def _tree_leaves(tree, prefix: str = ""):
+    """``(path, array)`` of every leaf of a flax params tree."""
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(value, dict):
+            yield from _tree_leaves(value, path)
+        else:
+            yield path, value
+
+
+def rm_planes(rm, episodes: list, device) -> dict:
+    """The reward model's scores of ``episodes`` ((tokens, gen_len) pairs,
+    8 of them) one at a time and as a batch of 8: through the raw forward
+    (a 1-row and an 8-row matrix product, as a library picks kernels for
+    them; not gated) and through the scorer's planes (``score_np`` and
+    ``score_batch_np``, every dispatch ``batch_rows`` rows; must be bit-equal)."""
+    import numpy as np
+    import torch
+
+    prompt = RLHF["prompt_len"]
+    tokens = np.stack([t for t, _ in episodes])
+    gen_lens = np.asarray([g for _, g in episodes], np.int32)
+    tok = torch.as_tensor(tokens, device=device).long()
+    read = torch.as_tensor(gen_lens + prompt - 1, device=device).long()
+    batch = rm._forward(tok, read)
+    single = torch.cat([rm._forward(tok[i:i + 1], read[i:i + 1]) for i in range(len(tok))])
+    planes_batch = rm.score_batch_np(tokens, prompt, gen_lens)
+    planes_single = np.asarray([rm.score_np(t, prompt, g) for t, g in episodes], np.float32)
+    if planes_single.tobytes() != planes_batch.tobytes():
+        raise AssertionError(f"reward model planes differ: one at a time {planes_single}, "
+                             f"batched {planes_batch}")
+    return {"raw_diff": (batch - single).abs().max().item(),
+            "raw_equal": torch.equal(batch, single), "rows": len(episodes)}
+
+
+def rlhf_plane(device, workdir: Path, tier: str, per_dispatch: int) -> dict:
+    """Phase 19: the RlhfScheduler on generation tier ``tier`` ("vector",
+    "anakin" with the window captured as one CUDA graph, or "remote" thin
+    clients of a ``TrainingServer(serving=True)``) against an in-process
+    ``TrainingServer("IMPALA")`` on the card at the flagship's widths, the
+    lower half frozen (``RLHF_FREEZE``), the reward model scoring, for
+    ``RLHF_UPDATES[tier]`` updates. Gates: every episode that reaches the
+    server carries a terminal reward equal to the reward model's score of
+    its tokens, re-scored here from the emitted bytes; every record's
+    ``bver`` lies between 0 and the version the host held at emission;
+    ``accepted == max_seq == sent`` per lane, contiguous; the frozen leaves
+    bit-identical after the updates and the others moved; the server's
+    train-lag histogram observed once per trajectory; K1 = the generation's
+    dispatches (or the graph's replays) x their K1 + the updates' 4 each,
+    K2 and K3 4 per update (the freeze is the optimizer's: the backward
+    still runs block 0). On the vector tier also :func:`rm_planes` on the
+    first 8 episodes."""
+    import numpy as np
+    import torch
+
+    from relayrl_tpu_torch import telemetry
+    from relayrl_tpu_torch.rlhf.scheduler import (
+        RlhfScheduler,
+        extract_generation,
+        extract_generation_frame,
+    )
+    from relayrl_tpu_torch.runtime.server import TrainingServer
+    from relayrl_tpu_torch.types.columnar import is_columnar_frame, parse_frame
+    from relayrl_tpu_torch.types.trajectory import deserialize_actions
+
+    arch, prompt = SLICE_ARCH, RLHF["prompt_len"]
+    context = prompt + RLHF["max_new_tokens"]
+    per_epoch = IMPALA_HP["traj_per_epoch"]
+    n_layers = arch["n_layers"]
+    hyperparams = {"model_kind": arch["kind"], "seed": SEED, "seed_salt": 0,
+                   **{k: v for k, v in arch.items()
+                      if k not in ("kind", "has_critic", "precision")},
+                   **IMPALA_HP}
+    sections = {"max_traj_length": context,
+                "learner": {"precision": arch["precision"], "freeze": RLHF_FREEZE},
+                "rlhf": {**RLHF, "generation_tier": tier}}
+    server_addrs, agent_addrs = zmq_addrs()
+    if tier == "remote":
+        serving_addr = f"tcp://127.0.0.1:{_free_port()}"
+        sections["serving"] = {"enabled": True, "max_batch": RLHF["lanes"],
+                               "batch_timeout_ms": 2.0, "max_sessions": 2 * RLHF["lanes"]}
+        server_addrs["serving_addr"] = serving_addr
+        agent_addrs = {**agent_addrs, "serving_addr": serving_addr, "probe": False}
+    config = serving_config(workdir, **sections)
+    telemetry.set_registry(telemetry.Registry(run_id=f"chip-smoke-rlhf-{tier}"))
+    server = TrainingServer("IMPALA", obs_dim=context, act_dim=RLHF["vocab_size"],
+                            env_dir=str(workdir), config_path=config,
+                            hyperparams=hyperparams, device=device, **server_addrs)
+    before = dict(_tree_leaves(server.algorithm.bundle().params))
+    svc, sched = server.inference, None
+    served = [0]
+    try:
+        sched = RlhfScheduler(config_path=config, seed=SEED, identity=f"rlhf-{tier}",
+                              device=device, **agent_addrs)
+        host, rm = sched.generation.host, sched.scorer
+        shipped = []
+        emit = sched.score_stage.emit_fn
+
+        def keep(lane, payload):
+            shipped.append((payload, host.version))
+            emit(lane, payload)
+
+        sched.score_stage.emit_fn = keep
+        if svc is not None:
+            window_fn = svc._window_fn
+
+            def counted(*args):
+                served[0] += 1
+                return window_fn(*args)
+
+            svc._window_fn = counted
+        torch.cuda.synchronize()
+        zero_flash_counts()
+        replays0 = getattr(host, "replays", 0)
+        t0 = time.perf_counter()
+        stats = sched.run(episodes=RLHF_UPDATES[tier] * per_epoch, deadline_s=RLHF_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        sched.flush()
+        deadline = time.monotonic() + RLHF_TIMEOUT_S
+        while (server.stats["trajectories"] < len(shipped)
+               and time.monotonic() < deadline):
+            time.sleep(0.02)
+        if not server.drain(timeout=60):
+            raise AssertionError(f"{tier}: the server did not drain")
+        torch.cuda.synchronize()
+        counts = flash_counts()
+        updates = server.stats["updates"]
+        if (stats["episodes_scored"] < RLHF_UPDATES[tier] * per_epoch
+                or server.stats["trajectories"] != len(shipped)
+                or updates != len(shipped) // per_epoch or updates < RLHF_UPDATES[tier]):
+            raise AssertionError(f"{tier}: {stats['episodes_scored']} scored, {len(shipped)} "
+                                 f"shipped, server {server.stats}")
+        if server.stats["learner_errors"] or server.stats["dropped"]:
+            raise AssertionError(f"{tier}: server {server.stats}: {server.last_learner_error}")
+
+        # Scores and bver, from the emitted bytes.
+        episodes, gen_lens = [], []
+        for payload, held in shipped:
+            if is_columnar_frame(payload):
+                dt = parse_frame(payload)
+                tokens, gen_len = extract_generation_frame(dt, prompt)
+                reward = dt.columns["r"][-1]
+                bvers = np.asarray(dt.aux["bver"]).reshape(-1).tolist()
+            else:
+                records = deserialize_actions(payload)
+                tokens, gen_len, marker = extract_generation(records, prompt)
+                reward = marker.rew
+                bvers = [int(r.data["bver"]) for r in records if r.act is not None]
+            want = np.float32(rm.score_np(tokens, prompt, gen_len))
+            if np.float32(reward) != want:
+                raise AssertionError(f"{tier}: shipped reward {reward} != the reward model's "
+                                     f"{want} on the shipped tokens")
+            if len(bvers) != gen_len or not all(0 <= b <= held for b in bvers):
+                raise AssertionError(f"{tier}: bver {bvers} for {gen_len} tokens, held {held}")
+            episodes.append((tokens, gen_len))
+            gen_lens.append(gen_len)
+
+        # Ingest accounting.
+        acct = server.ingest_accounting()["agents"]
+        sent = (sched.agent.spool.sent_counts() if sched.agent is not None else
+                {k: n for c in sched._clients for k, n in c.spool.sent_counts().items()})
+        if sum(sent.values()) != len(shipped) or set(acct) != {k for k, n in sent.items() if n}:
+            raise AssertionError(f"{tier}: sent {sent}, accounted {sorted(acct)}")
+        for agent_id, row in acct.items():
+            n = sent[agent_id]
+            if row != {"max_seq": n, "accepted": n, "contiguous": True}:
+                raise AssertionError(f"{tier}: ingest accounting of {agent_id}: {row}, sent {n}")
+
+        # The freeze.
+        after = dict(_tree_leaves(server.algorithm.bundle().params))
+        frozen = [p for p in before if p.startswith(RLHF_FROZEN)]
+        moved = [p for p in before if not p.startswith(RLHF_FROZEN)
+                 and not np.array_equal(before[p], after[p])]
+        if len(frozen) < 8 or any(not np.array_equal(before[p], after[p]) for p in frozen) \
+                or not moved:
+            raise AssertionError(f"{tier}: frozen leaves {frozen} changed or none of the "
+                                 f"others moved ({moved})")
+
+        # The lag histogram and the metric family.
+        lag_counts, lag_sum, lag_n = server._m_rlhf_train_lag.totals()
+        if lag_n != len(shipped):
+            raise AssertionError(f"{tier}: train-lag histogram observed {lag_n} of "
+                                 f"{len(shipped)} trajectories")
+        names = {m["name"] for m in telemetry.get_registry().snapshot()["metrics"]}
+        missing = {"relayrl_rlhf_generated_tokens_total", "relayrl_rlhf_scored_episodes_total",
+                   "relayrl_rlhf_stage_seconds", "relayrl_rlhf_lag_versions",
+                   "relayrl_rlhf_train_lag_versions"} - names
+        if missing:
+            raise AssertionError(f"{tier}: metrics missing {missing}")
+
+        # Kernel launches.
+        learner = n_layers * updates
+        if tier == "anakin":
+            per_window = (n_layers - 1) * RLHF["generation_unroll"]
+            if host.captured_launches != (per_window, 0, 0, 0, 0, 0):
+                raise AssertionError(f"anakin: captured {host.captured_launches}")
+            generation, dispatches = per_window * (host.replays - replays0), host.replays - replays0
+            counted_k1 = learner
+        else:
+            dispatches = served[0] if tier == "remote" else sched.generation.rounds
+            generation = per_dispatch * dispatches
+            counted_k1 = generation + learner
+        if counts != (counted_k1, learner, learner):
+            raise AssertionError(f"{tier}: launches {counts}, expected ({counted_k1}, "
+                                 f"{learner}, {learner}) for {dispatches} generation "
+                                 f"dispatches and {updates} updates")
+        score_counts, score_sum, score_n = sched.score_stage._m_score_s.totals()
+        out = {"updates": updates, "episodes": len(shipped), "dispatches": dispatches,
+               "launches": (generation + learner, learner, learner),
+               "generation_k1": generation, "learner_k1": learner,
+               "tokens": stats["tokens_generated"], "wall": wall,
+               "score_ms": 1e3 * score_sum / max(1, score_n), "score_batches": score_n,
+               "scores": stats["scores"], "gen_lens": (min(gen_lens), max(gen_lens)),
+               "lag": (lag_sum / max(1, lag_n)), "frozen": len(frozen), "moved": len(moved)}
+        if tier == "vector":
+            out["planes"] = rm_planes(rm, episodes[:8], device)
+        return out
+    finally:
+        if sched is not None:
+            sched.close()
+        server.disable_server()
+
+
 def main() -> int:
     import torch
 
@@ -5860,6 +6151,43 @@ def main() -> int:
     serving_fwd = sv["launches"] + sum(sl["serve_counts"])
     s_fwd, s_dq, s_dkv = sl["launches"]
 
+    # 19. the RLHF plane: generate with the flagship, score, train IMPALA
+    t19 = time.perf_counter()
+    rlhf = {}
+    for tier, what in (("vector", "a VectorAgent's batched window step over ZMQ"),
+                       ("anakin", f"the anakin tier, {RLHF['generation_unroll']}-step windows "
+                                  f"captured as one CUDA graph"),
+                       ("remote", "thin clients of TrainingServer(serving=True)")):
+        t0 = time.perf_counter()
+        r = rlhf[tier] = rlhf_plane(device, root / "build" / f"chip_smoke_rlhf_{tier}", tier,
+                                    per_dispatch)
+        print(f"[rlhf] ({tier}) RlhfScheduler through {what} ({RLHF['lanes']} TokenGen "
+              f"lanes, prompt {RLHF['prompt_len']}, up to {RLHF['max_new_tokens']} new tokens) "
+              f"against TrainingServer(\"IMPALA\") on the card, {RLHF_FREEZE!r} frozen, the "
+              f"reward model (d_model {RLHF['rm_d_model']}, seed {RLHF['rm_seed']}) scoring: "
+              f"{r['updates']} updates on {r['episodes']} episodes ({r['gen_lens'][0]}-"
+              f"{r['gen_lens'][1]} tokens), every shipped reward equal to the reward model's "
+              f"score of its tokens, bver within [0, held], accounting exact, {r['frozen']} "
+              f"frozen leaves bit-identical and {r['moved']} others moved, train lag observed "
+              f"per trajectory (mean {r['lag']:.3f} versions); launches {r['launches']} = "
+              f"{r['generation_k1']} K1 over {r['dispatches']} generation "
+              + ("replays" if tier == "anakin" else "dispatches")
+              + f" + {r['updates']} x {SLICE_ARCH['n_layers']}/{SLICE_ARCH['n_layers']}/"
+              f"{SLICE_ARCH['n_layers']}; (not gated) {r['tokens'] / r['wall']:.1f} tokens/s "
+              f"generated, {r['score_ms']:.3f} ms a score batch ({r['score_batches']} batches), "
+              f"scores first {[round(x, 4) for x in r['scores'][:8]]} last "
+              f"{[round(x, 4) for x in r['scores'][-8:]]}; {time.perf_counter() - t0:.1f} s on "
+              f"{card}", flush=True)
+    planes = rlhf["vector"]["planes"]
+    print(f"[rlhf] the reward model on the card, {planes['rows']} generations one at a time and "
+          f"as one batch: score_np == score_batch_np bit for bit (every dispatch "
+          f"{RLHF['score_batch']} rows); (not gated) a 1-row forward against the 8-row one: "
+          + ("bit-equal" if planes["raw_equal"] else f"max abs diff {planes['raw_diff']:.3e}")
+          + f", on {card}", flush=True)
+    print(f"[rlhf] phase 19 in {time.perf_counter() - t19:.1f} s", flush=True)
+    rlhf_gen = sum(r["generation_k1"] for r in rlhf.values())
+    rlhf_learn = sum(r["learner_k1"] for r in rlhf.values())
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -5867,7 +6195,7 @@ def main() -> int:
         "replaces": "relayrl_tpu/ops/flash.py:116",
         "launches": (run["launches"] + fwd + r_fwd + decode["launches"] + a_fwd + d_fwd
                      + ga_fwd + g_fwd + fa_fwd + f_fwd + p_fwd + fam_fwd + anakin_fwd
-                     + serving_fwd + s_fwd),
+                     + serving_fwd + s_fwd + rlhf_gen + rlhf_learn),
         "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd,
                              "decode_vs_window": decode["launches"],
                              "distributed_agent": a_fwd, "distributed_server": d_fwd,
@@ -5883,20 +6211,22 @@ def main() -> int:
                              "anakin_agent_replays": dist17["agent_launches"],
                              "anakin_server": a_dfwd,
                              "serving_plane": serving_fwd,
-                             "served_learner": s_fwd},
+                             "served_learner": s_fwd,
+                             "rlhf_generation": rlhf_gen, "rlhf_learner": rlhf_learn},
         **main_flash,
     }, {
         "name": "flash_dq",
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:223",
-        "launches": dq + r_dq + d_dq + g_dq + f_dq + p_dq + m_dq + pp_dq + a_ddq + s_dq,
+        "launches": (dq + r_dq + d_dq + g_dq + f_dq + p_dq + m_dq + pp_dq + a_ddq + s_dq
+                     + rlhf_learn),
         "launches_by_path": {"learner": dq, "local_loop": r_dq, "distributed_server": d_dq,
                              "guardrails_server": g_dq, "fleet_server": f_dq,
                              "ppo_learner": p_dq, "offpolicy": off_counts[1],
                              "pixel": pix_counts[1], "moe_learner": m_dq,
                              "pp_learner": pp_dq, "anakin_server": a_ddq,
-                             "served_learner": s_dq},
+                             "served_learner": s_dq, "rlhf_learner": rlhf_learn},
         **main_bwd["flash_dq"],
     }, {
         "name": "flash_dkv",
@@ -5904,13 +6234,14 @@ def main() -> int:
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:255",
         "launches": (dkv + r_dkv + d_dkv + g_dkv + f_dkv + p_dkv + m_dkv + pp_dkv + a_ddkv
-                     + s_dkv),
+                     + s_dkv + rlhf_learn),
         "launches_by_path": {"learner": dkv, "local_loop": r_dkv,
                              "distributed_server": d_dkv, "guardrails_server": g_dkv,
                              "fleet_server": f_dkv, "ppo_learner": p_dkv,
                              "offpolicy": off_counts[2], "pixel": pix_counts[2],
                              "moe_learner": m_dkv, "pp_learner": pp_dkv,
-                             "anakin_server": a_ddkv, "served_learner": s_dkv},
+                             "anakin_server": a_ddkv, "served_learner": s_dkv,
+                             "rlhf_learner": rlhf_learn},
         **main_bwd["flash_dkv"],
     }] + [{
         "name": name,

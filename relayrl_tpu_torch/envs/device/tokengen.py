@@ -42,7 +42,8 @@ class DeviceTokenGen(DeviceEnv):
         self.prompt_len = int(prompt_len)
         self.max_new_tokens = int(max_new_tokens)
         self.context_len = self.prompt_len + self.max_new_tokens
-        self.scorer = _resolve_scorer(scorer)
+        self.device = resolve_device(device)
+        self.scorer = _resolve_scorer(scorer, self.device)
         if (self.scorer is not None
                 and not callable(getattr(self.scorer, "score_torch", None))):
             raise ValueError(
@@ -52,7 +53,6 @@ class DeviceTokenGen(DeviceEnv):
                                      shape=(self.context_len,),
                                      dtype=np.int32)
         self.action_space = Discrete(self.vocab_size)
-        self.device = resolve_device(device)
 
     def reset(self, generator, n):
         prompt = torch.randint(1, self.vocab_size, (n, self.prompt_len),

@@ -14,8 +14,8 @@ generation).
 
 ``scorer=None`` is the *decoupled-dataflow* mode: terminal reward stays
 0.0 and a downstream score stage assigns it before the episode reaches
-the learner (the JAX package's ``rlhf/scheduler.py``, not ported yet:
-ROADMAP queue 1 item 15). With a scorer attached the env is
+the learner (``relayrl_tpu_torch/rlhf/scheduler.py`` — generate and score
+run as separate pipeline stages). With a scorer attached the env is
 self-contained (CI loops, the anakin tier via the batched device twin).
 
 Both endings are ``terminated`` (never ``truncated``): reaching
@@ -38,20 +38,21 @@ from relayrl_tpu_torch.envs.spaces import Box, Discrete
 EOS_TOKEN = 0
 
 
-def _resolve_scorer(scorer):
+def _resolve_scorer(scorer, device=None):
     """Accept a scorer object (``score_np(tokens, prompt_len, gen_len)``
     and/or the batched device twin ``score_torch(tokens [N, L],
     prompt_len, gen_len [N]) -> [N]``), a plain host callable with the
-    ``score_np`` signature, or None (decoupled mode — reward assigned
-    downstream by the score stage). Named scorers live in the RLHF plane,
-    which the port does not have yet (ROADMAP queue 1 item 15)."""
+    ``score_np`` signature, a registered scorer name (a reward model built
+    on ``device``), or None (decoupled mode — reward assigned downstream by
+    the score stage)."""
     if scorer is None:
         return None
     if isinstance(scorer, str):
-        raise ValueError(
-            f"named scorer {scorer!r}: the registered scorers belong to the "
-            "RLHF plane, not ported (ROADMAP queue 1 item 15); pass a scorer "
-            "object or a callable")
+        # Lazy so `import relayrl_tpu_torch.envs` stays light; the names
+        # live beside the scheduler that consumes them.
+        from relayrl_tpu_torch.rlhf.scorers import make_scorer
+
+        return make_scorer(scorer, device=device)
     if (callable(getattr(scorer, "score_np", None))
             or callable(getattr(scorer, "score_torch", None))):
         return scorer
@@ -59,17 +60,18 @@ def _resolve_scorer(scorer):
         class _Wrapped:
             score_np = staticmethod(scorer)
         return _Wrapped()
-    raise ValueError(f"scorer must be None, a callable, or expose "
+    raise ValueError(f"scorer must be None, a name, a callable, or expose "
                      f"score_np/score_torch; got {type(scorer).__name__}")
 
 
 class TokenGenEnv:
     """One generation per episode: obs = int32 token context window,
     action = next token, terminal at EOS/max_new_tokens, scored at the
-    boundary."""
+    boundary. ``device`` places a named reward model (``scorer=
+    "reward_model"``; default: the GPU, without one pass ``"cpu"``)."""
 
     def __init__(self, vocab_size: int = 8, prompt_len: int = 3,
-                 max_new_tokens: int = 8, scorer=None):
+                 max_new_tokens: int = 8, scorer=None, device=None):
         if vocab_size < 2:
             raise ValueError("vocab_size must be >= 2 (EOS + 1 real token)")
         if prompt_len < 1 or max_new_tokens < 1:
@@ -78,7 +80,7 @@ class TokenGenEnv:
         self.prompt_len = int(prompt_len)
         self.max_new_tokens = int(max_new_tokens)
         self.context_len = self.prompt_len + self.max_new_tokens
-        self.scorer = _resolve_scorer(scorer)
+        self.scorer = _resolve_scorer(scorer, device)
         self.observation_space = Box(0, self.vocab_size - 1,
                                      shape=(self.context_len,),
                                      dtype=np.int32)

@@ -231,8 +231,10 @@ def main(argv=None) -> None:
         publish = server._publish_params
 
         def publish_and_log(version, arch, host_params):
-            publish(version, arch, host_params)
+            # Logged before the broadcast: a status that shows this version
+            # published, or an agent that installed it, finds its digest.
             published_log[int(version)] = tree_digest(host_params)
+            publish(version, arch, host_params)
 
         server._publish_params = publish_and_log
     server.enable_server()

@@ -306,7 +306,10 @@ class VectorAgent:
     ``window_size`` default to the ``actor`` config section's values
     (``columnar_wire: "auto"`` is columnar frames on the anakin tier, the
     per-record wire on the vector tier); ``record_bver`` stamps each
-    record's model version into its aux.
+    record's model version into its aux. ``send_interceptor(lane, payload)``
+    is offered every completed lane episode before the spool: a non-None
+    return ships, None means the stage took the episode and will re-inject
+    it through :meth:`emit_lane` (the RLHF score stage's seam).
     """
 
     def __init__(
@@ -329,8 +332,10 @@ class VectorAgent:
         emit_coalesce_frames: int | None = None,
         window_size: int | None = None,
         record_bver: bool = False,
+        send_interceptor=None,
         **addr_overrides,
     ):
+        self._send_interceptor = send_interceptor
         self.config = ConfigLoader(None, config_path)
         from relayrl_tpu_torch import faults, telemetry
 
@@ -410,7 +415,7 @@ class VectorAgent:
                 num_envs=self.num_envs,
                 unroll_length=self.unroll_length,
                 max_traj_length=self.config.get_max_traj_length(),
-                on_send=self.emit_lane,
+                on_send=self._send_lane,
                 seed=self._seed,
                 columnar_wire=self.columnar_wire,
                 async_emit=self.async_emit,
@@ -425,7 +430,7 @@ class VectorAgent:
                 bundle,
                 num_envs=self.num_envs,
                 max_traj_length=self.config.get_max_traj_length(),
-                on_send=self.emit_lane,
+                on_send=self._send_lane,
                 seed=self._seed,
                 device=self.device,
             )
@@ -458,9 +463,20 @@ class VectorAgent:
         self.transport = None
         self.active = False
 
+    def _send_lane(self, lane: int, payload: bytes) -> None:
+        if self._send_interceptor is not None:
+            payload = self._send_interceptor(lane, payload)
+            if payload is None:
+                return  # the stage owns it now; emit_lane re-injects
+        self.emit_lane(lane, payload)
+
     def emit_lane(self, lane: int, payload: bytes) -> None:
-        """Ship one lane's serialized episode through the spool (sequence
-        numbers are assigned here) or straight to the transport."""
+        """Ship one lane's serialized episode through the spool or straight
+        to the transport: the re-injection surface of a
+        ``send_interceptor`` stage. Spool sequence numbers are assigned
+        here, so a withheld episode enters the at-least-once window only
+        once it is final: a replay after a crash redelivers the scored
+        bytes, never the unscored ones."""
         if self.spool is not None:
             self.spool.send(payload, self.agent_ids[lane])
         else:

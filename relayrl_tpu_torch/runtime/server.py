@@ -201,6 +201,17 @@ class TrainingServer:
             "relayrl_server_duplicate_trajectories_total",
             "sequence-tagged trajectories dropped by idempotent ingest "
             "(replays, retry storms, duplicate-injection faults)")
+        # The scheduler's emit-side lag histogram's grid, so the two
+        # distributions compare bucket for bucket.
+        from relayrl_tpu_torch.rlhf.scheduler import LAG_BUCKETS
+
+        self._m_rlhf_train_lag = reg.histogram(
+            "relayrl_rlhf_train_lag_versions",
+            "behavior version (data['bver'], stamped at generation) vs "
+            "the learner's dispatched version when the trajectory "
+            "trains — the off-policy distance V-trace corrects; "
+            "observed for trajectories that carry bver",
+            buckets=LAG_BUCKETS)
         self._m_learner_errors = reg.counter(
             "relayrl_server_learner_errors_total",
             "exceptions caught on the learner thread (the loop survives "
@@ -1015,6 +1026,7 @@ class TrainingServer:
             return
         self.stats["trajectories"] += 1
         self._m_trajectories.inc()
+        self._observe_behavior_lag(item, algo)
         t0 = time.monotonic()
         try:
             got = algo.accumulate(item)
@@ -1064,6 +1076,31 @@ class TrainingServer:
                 print(f"[TrainingServer] publish error: {e!r}", flush=True)
         self._flush_ready_logs()
         self._guard_poll()
+
+    def _observe_behavior_lag(self, item, algo) -> None:
+        """RLHF-plane off-policy evidence: a trajectory whose records carry
+        ``bver`` (the params version its generation sampled under, stamped
+        per token by ``rlhf/scheduler.py``) observes ``dispatched_version -
+        bver`` into the train-lag histogram, once per trajectory. Other
+        traffic pays one dict lookup. (The JAX server also observes a
+        sampled trace context's born version; the port has no tracing yet,
+        ROADMAP queue 1 item 12.)"""
+        try:
+            if isinstance(item, DecodedTrajectory):
+                arr = (item.aux or {}).get("bver")
+                if arr is None or len(arr) == 0:
+                    return
+                bver = int(arr.reshape(-1)[0])
+            else:
+                data = item[0].data if item else None
+                if not data or "bver" not in data:
+                    return
+                bver = int(data["bver"])
+            self._m_rlhf_train_lag.observe(max(0, algo.dispatched_version - bver))
+        except Exception:
+            # Lag evidence is diagnostics; malformed aux must never touch
+            # the ingest path's health.
+            pass
 
     def _process_one_legacy(self, item) -> None:
         """Plugin algorithms with only the reference contract: train and

@@ -294,5 +294,37 @@ def test_numpy_copies_match_jax_package(env_id):
             assert got[1:4] == want[1:4]
             if got[2] or got[3]:
                 break
-    with pytest.raises(ValueError, match="item 15"):
-        envs.make("TokenGen-v0", scorer="length")
+    for make in (envs.make, jax_envs.make):
+        with pytest.raises(ValueError, match="unknown scorer 'length'"):
+            make("TokenGen-v0", scorer="length")
+
+
+@pytest.mark.parametrize("name", ["programmatic", "reward_model"])
+def test_tokengen_named_scorers_both_twins(name):
+    """A registered scorer name resolves in both TokenGen twins (the reward
+    model on the device asked for), and the twins give equal observations,
+    rewards and flags, the numpy twin re-anchored to each lane's state
+    before every step. At the envs' default sizes, the named scorers'
+    defaults (vocab 8, a reward model of context 11) fit them."""
+    from relayrl_tpu_torch import envs
+
+    denv = make_device("TokenGen-v0", device="cpu", scorer=name)
+    twin = envs.make("TokenGen-v0", scorer=name, device="cpu")
+    assert type(denv.scorer).__name__ == type(twin.scorer).__name__
+    gen = torch.Generator().manual_seed(1)
+    state, _ = denv.reset(gen, LANES)
+    rng = np.random.default_rng(6)
+    paid = 0
+    for _ in range(40):
+        act = rng.integers(denv.action_space.n, size=LANES).astype(np.int32)
+        nxt, _obs, rew, term, trunc, final = step_autoreset(denv, state, torch.as_tensor(act),
+                                                            gen)
+        for lane in range(LANES):
+            twin._tokens, twin._t = state.tokens[lane].numpy().copy(), int(state.t[lane])
+            t_obs, t_rew, t_term, t_trunc, _ = twin.step(int(act[lane]))
+            np.testing.assert_array_equal(final[lane].numpy(), t_obs)
+            assert np.float32(t_rew) == rew[lane].item(), lane
+            assert (bool(term[lane]), bool(trunc[lane])) == (t_term, t_trunc)
+            paid += t_rew != 0.0
+        state = nxt
+    assert paid >= 10

@@ -229,6 +229,8 @@ def test_distributed_loop_imports_clean():
         "import relayrl_tpu_torch.examples.train_distributed\n"
         "import relayrl_tpu_torch.runtime.inference\n"
         "import relayrl_tpu_torch.transport.serving\n"
+        "import relayrl_tpu_torch.rlhf\n"
+        "import relayrl_tpu_torch.rlhf.scheduler\n"
         "lazy = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "              ('msgpack', 'ml_dtypes', 'grpc'))\n"
         "from relayrl_tpu_torch.runtime import TrainingServer, VectorAgent\n"
