@@ -221,7 +221,34 @@ Phases, each of which fails the run:
    trajectory; K1 = generation dispatches (or replays) x their K1 + 4 per
    update, K2 and K3 4 per update. (a) also scores 8 generations one at a
    time and as a batch: ``score_np`` and ``score_batch_np`` bit-equal, and
-   the raw 1-row against 8-row forward printed.
+   the raw 1-row against 8-row forward printed;
+20. the observability plane. (a) Phase 11's learner in a ``chaos_server``
+   process with tracing at rate 1 and the fleet plane on (snapshot frames
+   every 0.5 s, an exporter, an events journal), behind a ``python -m
+   relayrl_tpu_torch.relay`` process, fed by a traced ``VectorAgent`` of 8
+   ``RecallEnv(255)`` lanes in this process with its fleet emitter on, 3
+   updates: every accepted trajectory traced env, encode, send, relay,
+   ingest, dedup, staging, update (monotonic starts, no overlap inside a
+   plane), every published version dispatch, fence, encode, publish,
+   relay, receipt (relay and agent), swap; every age in [0, 300 s), one
+   observation per trace in each process; ``python -m
+   relayrl_tpu_torch.telemetry.trace`` over the three journals agreeing
+   with this process's analysis, its data-age count the accepted count;
+   the trace-side version lag within 0.5 of the train-lag histogram's;
+   ``/fleet`` listing the three processes and ``telemetry.top --fleet``
+   rendering them; every merged counter but the fleet frames' own equal
+   to the sum of the three final registries, env steps those the agent
+   took; no alert; 336/4/4 launches per update, 3 K1 per dispatch, the
+   agent's params sha256-equal to the publish; hop, age and env-steps/s
+   figures printed beside phase 11's. (b) Phase 18 (a) traced for 32
+   steps: one ``serve`` trace per request (queue, dispatch), every
+   dispatch still replayed bit for bit; phase 19's anakin tier traced for
+   2 updates: the ``generate``, ``score`` and ``emit`` spans' episodes
+   sum to the run's, every shipped episode traced env (stamped at its
+   window's production) to update, graph == eager. (c) One phase 5 update
+   inside ``utils.profiling.trace`` with ``annotate``: the Chrome trace
+   lists K1, K2 and K3 at 336, 4 and 4 launches inside the annotated
+   range.
 
 Phases 3 and 6 also hold every kernel to its plain version at head dims
 128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
@@ -553,6 +580,26 @@ RLHF_FREEZE = "params/(obs_embed|pos_embed|block_0)/"
 RLHF_FROZEN = ("params/obs_embed/", "params/pos_embed/", "params/block_0/")
 RLHF_UPDATES = {"vector": 4, "anakin": 4, "remote": 2}
 RLHF_TIMEOUT_S = 240
+# Phase 20: phase 11's learner traced and fleet-aggregated behind a relay
+# process, phases 18 (a) and 19 (anakin) rerun traced, the profiler
+# around one update.
+TRACED_UPDATES = 3
+FLEET_INTERVAL_S = 0.5
+TRACED_SERVE_STEPS = 32
+TRACED_RLHF_UPDATES = 2
+UPSTREAM_HOPS = ("env", "encode", "send", "relay", "ingest", "dedup", "staging",
+                 "update")
+MODEL_HOPS = ("dispatch", "fence", "encode", "publish", "relay", "receipt", "swap")
+# Counters that the fleet plane's own snapshot frames move (frames sent and
+# received, their bytes, the table's frame and section counts): a frame
+# cannot carry the count of its own sending, so the root's merged value of
+# these trails the processes' final registries by the last frames. Every
+# other counter is held to the exact sum.
+FLEET_SELF_COUNTERS = ("relayrl_transport_send_total",
+                       "relayrl_transport_send_bytes_total",
+                       "relayrl_transport_recv_total",
+                       "relayrl_transport_recv_bytes_total")
+FLEET_SELF_PREFIX = "relayrl_fleet_"
 
 
 def _dtype_name(dtype) -> str:
@@ -3093,11 +3140,12 @@ def guardrails_drill(device, root: Path, workdir: Path) -> dict:
 
 class RelayProcess:
     """``python -m relayrl_tpu_torch.relay`` in a process of its own (the
-    relay takes ``cfg`` as its ``--json`` kwargs), started in ``workdir``,
-    its output appended to ``relay.log``; returns once it is serving."""
+    relay takes ``cfg`` as its ``--json`` kwargs and ``flags`` as further
+    arguments), started in ``workdir``, its output appended to
+    ``relay.log``; returns once it is serving."""
 
     def __init__(self, root: Path, cfg: dict, workdir: Path, tag: str,
-                 timeout_s: float = 120.0):
+                 timeout_s: float = 120.0, flags: tuple = ()):
         import os
 
         self.ready = workdir / f"relay_{tag}_ready"
@@ -3111,7 +3159,7 @@ class RelayProcess:
             [sys.executable, "-m", "relayrl_tpu_torch.relay",
              "--json", json.dumps(cfg), "--ready-file", str(self.ready),
              "--stop-file", str(self.stop_file),
-             "--result-path", str(self.result)],
+             "--result-path", str(self.result), *flags],
             cwd=str(workdir), env=env, stdout=self._out,
             stderr=subprocess.STDOUT)
         deadline = time.monotonic() + timeout_s
@@ -5025,13 +5073,17 @@ def time_keyed_draws(device, rows: int, act_dim: int, reps: int = 50) -> dict:
             "draw_ms": 1e3 * float(np.median(draw_s))}
 
 
-def served_flagship(device, workdir: Path, per_dispatch: int) -> dict:
+def served_flagship(device, workdir: Path, per_dispatch: int,
+                    steps: int = SERVE_STEPS, traced: bool = False) -> dict:
     """Phase 18 (a): the flagship served over ZMQ to a multiplexed thin
-    client. Checks served == the keyed window step at the same bucket for
-    every dispatch, K1 launches == dispatches x ``per_dispatch``, no
-    K2/K3, every lane's episode shipped; measures the cross-bucket
-    difference, requests/s and ms per dispatch on the host and on the
-    device."""
+    client for ``steps`` env steps. Checks served == the keyed window step
+    at the same bucket for every dispatch, K1 launches == dispatches x
+    ``per_dispatch``, no K2/K3, every lane's episode shipped (when
+    ``steps`` outlasts an episode); measures the cross-bucket difference,
+    requests/s and ms per dispatch on the host and on the device.
+    ``traced`` (phase 20, the process tracer live): every request's
+    ``serve`` trace holds one ``queue`` and one ``dispatch`` span, and the
+    device timings are skipped."""
     import collections
 
     import numpy as np
@@ -5073,7 +5125,8 @@ def served_flagship(device, workdir: Path, per_dispatch: int) -> dict:
         log = DispatchLog(svc)
         zero_flash_counts()
         t0 = time.perf_counter()
-        run_vector_gym_loop(mux, venv, SERVE_STEPS, seed=SEED)
+        spans0 = len(trace_spans())
+        run_vector_gym_loop(mux, venv, steps, seed=SEED)
         wall = time.perf_counter() - t0
         counts = flash_counts()
         log.close()
@@ -5100,6 +5153,21 @@ def served_flagship(device, workdir: Path, per_dispatch: int) -> dict:
                 "v": float(np.abs(b_aux["v"] - aux["v"][:bucket]).max())}
             if cross[bucket]["acts_differ"] or not cross[bucket]["logp_a"] <= TOLERANCE["bfloat16"]:
                 raise AssertionError(f"bucket {bucket} vs {LANES}: {cross[bucket]}")
+        serve_traces = 0
+        if traced:
+            hops = {}
+            for s in trace_spans()[spans0:]:
+                if s["kind"] == "serve":
+                    hops.setdefault(s["trace"], []).append(s["hop"])
+            serve_traces = len(hops)
+            if serve_traces != LANES * steps or any(
+                    sorted(h) != ["dispatch", "queue"] for h in hops.values()):
+                raise AssertionError(f"{serve_traces} serve traces for {LANES * steps} "
+                                     f"requests, hops {set(map(tuple, hops.values()))}")
+        if steps <= venv.envs[0].horizon:  # no episode ends
+            return {"dispatches": dispatches, "checked": checked, "launches": counts[0],
+                    "wall": wall, "requests": LANES * steps,
+                    "serve_traces": serve_traces}
         deadline = time.monotonic() + 60
         while len(shipped) < LANES and time.monotonic() < deadline:
             time.sleep(0.05)
@@ -5131,7 +5199,7 @@ def served_flagship(device, workdir: Path, per_dispatch: int) -> dict:
         return {"dispatches": dispatches, "checked": checked, "launches": counts[0],
                 "occupancy": dict(sorted(collections.Counter(e["rows"] for e in entries).items())),
                 "buckets": dict(sorted(collections.Counter(e["bucket"] for e in entries).items())),
-                "wall": wall, "requests": LANES * SERVE_STEPS, "compared": compared,
+                "wall": wall, "requests": LANES * steps, "compared": compared,
                 "step_ms": 1e3 * sum(log.step_s) / len(log.step_s), "cross": cross,
                 "draw": draw,
                 "device_ms": None if dev is None else dev["busy_ms"],
@@ -5360,7 +5428,8 @@ def rm_planes(rm, episodes: list, device) -> dict:
             "raw_equal": torch.equal(batch, single), "rows": len(episodes)}
 
 
-def rlhf_plane(device, workdir: Path, tier: str, per_dispatch: int) -> dict:
+def rlhf_plane(device, workdir: Path, tier: str, per_dispatch: int,
+               updates: int | None = None, traced: bool = False) -> dict:
     """Phase 19: the RlhfScheduler on generation tier ``tier`` ("vector",
     "anakin" with the window captured as one CUDA graph, or "remote" thin
     clients of a ``TrainingServer(serving=True)``) against an in-process
@@ -5376,7 +5445,13 @@ def rlhf_plane(device, workdir: Path, tier: str, per_dispatch: int) -> dict:
     dispatches (or the graph's replays) x their K1 + the updates' 4 each,
     K2 and K3 4 per update (the freeze is the optimizer's: the backward
     still runs block 0). On the vector tier also :func:`rm_planes` on the
-    first 8 episodes."""
+    first 8 episodes. ``updates`` overrides ``RLHF_UPDATES[tier]``;
+    ``traced`` (phase 20, the process tracer live) adds the stage spans'
+    gates: the ``generate`` spans' episodes sum to the generation's, the
+    ``score`` and ``emit`` spans' to the episodes shipped, and every
+    shipped episode has a complete upstream trace whose ``env`` hop starts
+    at its window's production stamp; on the anakin tier the graph still
+    equals the eager window."""
     import numpy as np
     import torch
 
@@ -5391,6 +5466,7 @@ def rlhf_plane(device, workdir: Path, tier: str, per_dispatch: int) -> dict:
     from relayrl_tpu_torch.types.trajectory import deserialize_actions
 
     arch, prompt = SLICE_ARCH, RLHF["prompt_len"]
+    updates_wanted = RLHF_UPDATES[tier] if updates is None else updates
     context = prompt + RLHF["max_new_tokens"]
     per_epoch = IMPALA_HP["traj_per_epoch"]
     n_layers = arch["n_layers"]
@@ -5423,9 +5499,9 @@ def rlhf_plane(device, workdir: Path, tier: str, per_dispatch: int) -> dict:
         shipped = []
         emit = sched.score_stage.emit_fn
 
-        def keep(lane, payload):
+        def keep(lane, payload, *stamps):
             shipped.append((payload, host.version))
-            emit(lane, payload)
+            emit(lane, payload, *stamps)
 
         sched.score_stage.emit_fn = keep
         if svc is not None:
@@ -5439,8 +5515,9 @@ def rlhf_plane(device, workdir: Path, tier: str, per_dispatch: int) -> dict:
         torch.cuda.synchronize()
         zero_flash_counts()
         replays0 = getattr(host, "replays", 0)
+        spans0 = len(trace_spans())
         t0 = time.perf_counter()
-        stats = sched.run(episodes=RLHF_UPDATES[tier] * per_epoch, deadline_s=RLHF_TIMEOUT_S)
+        stats = sched.run(episodes=updates_wanted * per_epoch, deadline_s=RLHF_TIMEOUT_S)
         wall = time.perf_counter() - t0
         sched.flush()
         deadline = time.monotonic() + RLHF_TIMEOUT_S
@@ -5452,9 +5529,9 @@ def rlhf_plane(device, workdir: Path, tier: str, per_dispatch: int) -> dict:
         torch.cuda.synchronize()
         counts = flash_counts()
         updates = server.stats["updates"]
-        if (stats["episodes_scored"] < RLHF_UPDATES[tier] * per_epoch
+        if (stats["episodes_scored"] < updates_wanted * per_epoch
                 or server.stats["trajectories"] != len(shipped)
-                or updates != len(shipped) // per_epoch or updates < RLHF_UPDATES[tier]):
+                or updates != len(shipped) // per_epoch or updates < updates_wanted):
             raise AssertionError(f"{tier}: {stats['episodes_scored']} scored, {len(shipped)} "
                                  f"shipped, server {server.stats}")
         if server.stats["learner_errors"] or server.stats["dropped"]:
@@ -5541,11 +5618,394 @@ def rlhf_plane(device, workdir: Path, tier: str, per_dispatch: int) -> dict:
                "lag": (lag_sum / max(1, lag_n)), "frozen": len(frozen), "moved": len(moved)}
         if tier == "vector":
             out["planes"] = rm_planes(rm, episodes[:8], device)
+        if traced:
+            out.update(rlhf_spans(trace_spans()[spans0:], f"rlhf-{tier}", len(shipped),
+                                  updates * per_epoch, sched.generation.episodes_done,
+                                  dispatches if tier == "anakin" else None))
+            if tier == "anakin":
+                differs = graph_vs_eager(host)
+                if differs:
+                    raise AssertionError(f"anakin, traced: graph != eager in {differs}")
         return out
     finally:
         if sched is not None:
             sched.close()
         server.disable_server()
+
+
+def trace_spans() -> list[dict]:
+    """This process's live trace ring (empty under the null tracer)."""
+    from relayrl_tpu_torch.telemetry import trace as trace_mod
+
+    return trace_mod.snapshot_spans()
+
+
+def admitted_hops(spans: list[dict]) -> dict[str, dict]:
+    """Trajectory trace id -> {hop: span}. Of the server's ingest and
+    dedup spans it keeps the arrival the dedup ledger admitted: a
+    redelivery (a spool's replay) records an ingest and an admitted-false
+    dedup of its own."""
+    traj: dict[str, dict] = {}
+    arrivals: dict[str, list] = {}
+    for s in spans:
+        if s["kind"] != "traj":
+            continue
+        if s["hop"] in ("ingest", "dedup"):
+            arrivals.setdefault(s["trace"], []).append(s)
+        elif s["hop"] in traj.setdefault(s["trace"], {}):
+            raise AssertionError(f"two {s['hop']} spans in trace {s['trace']}")
+        else:
+            traj[s["trace"]][s["hop"]] = s
+    for tid, ss in arrivals.items():
+        ingests = sorted((s for s in ss if s["hop"] == "ingest"), key=lambda s: s["t0_ns"])
+        dedups = sorted((s for s in ss if s["hop"] == "dedup"), key=lambda s: s["t0_ns"])
+        kept = [(i, d) for i, d in zip(ingests, dedups) if d["admitted"]]
+        if len(ingests) != len(dedups) or len(kept) != 1:
+            raise AssertionError(f"trace {tid}: {len(ingests)} ingest(s), {len(dedups)} "
+                                 f"dedup(s), {len(kept)} admitted")
+        traj.setdefault(tid, {}).update(ingest=kept[0][0], dedup=kept[0][1])
+    return traj
+
+
+def check_upstream(traj: dict[str, dict], hops_wanted: tuple) -> None:
+    """Every trace holds exactly ``hops_wanted``, hop starts in causal
+    order, and no two hops overlap inside the actor's chain (env, encode,
+    send) or the server's (ingest, dedup, staging, update); its data age
+    lies in [0, 300 s)."""
+    from relayrl_tpu_torch.telemetry.trace import SKEW_GUARD_NS
+
+    for tid, hops in traj.items():
+        if set(hops) != set(hops_wanted):
+            raise AssertionError(f"trace {tid}: hops {sorted(hops)}, want {hops_wanted}")
+        starts = [hops[h]["t0_ns"] for h in hops_wanted]
+        if starts != sorted(starts):
+            raise AssertionError(f"trace {tid}: hop starts out of order {starts}")
+        for chain in (("env", "encode", "send"), ("ingest", "dedup", "staging", "update")):
+            if any(hops[a]["t1_ns"] > hops[b]["t0_ns"] for a, b in zip(chain, chain[1:])):
+                raise AssertionError(f"trace {tid}: overlapping hops in {chain}")
+        age = hops["update"]["t1_ns"] - hops["env"]["t0_ns"]
+        if not 0 <= age < SKEW_GUARD_NS:
+            raise AssertionError(f"trace {tid}: data age {age} ns")
+
+
+def rlhf_spans(spans: list[dict], identity: str, shipped: int, consumed: int,
+               generated: int, windows: int | None) -> dict:
+    """Phase 20's RLHF gates on one run's spans: the ``generate`` spans'
+    episodes sum to the rounds' completed generations, the ``score`` and
+    ``emit`` spans' to the episodes shipped; every shipped episode of
+    ``identity``'s lanes is traced, the ``consumed`` ones that an update
+    trained on env to update (no relay), the rest (still in the learner's
+    epoch buffer) up to staging; with ``windows`` (the anakin tier's
+    replays) their ``env`` hops start at no more distinct stamps than
+    windows were produced."""
+    sums = {hop: sum(s.get("episodes", 0) for s in spans
+                     if s["kind"] == "rlhf" and s["hop"] == hop)
+            for hop in ("generate", "score", "emit")}
+    if sums != {"generate": generated, "score": shipped, "emit": shipped}:
+        raise AssertionError(f"rlhf spans' episodes {sums}: generated {generated}, "
+                             f"shipped {shipped}")
+    traj = admitted_hops(spans)
+    mine = {tid: hops for tid, hops in traj.items()
+            if hops.get("env", {}).get("agent", "").startswith(identity)}
+    trained = {tid: hops for tid, hops in mine.items() if "update" in hops}
+    if len(mine) != shipped or len(trained) != consumed:
+        raise AssertionError(f"{len(mine)} traced episodes of {shipped} shipped, "
+                             f"{len(trained)} of {consumed} through an update")
+    hops_wanted = tuple(h for h in UPSTREAM_HOPS if h != "relay")
+    check_upstream(trained, hops_wanted)
+    for tid, hops in mine.items():
+        if tid not in trained and set(hops) != set(hops_wanted[:-1]):
+            raise AssertionError(f"untrained trace {tid}: hops {sorted(hops)}")
+    born = {hops["env"]["t0_ns"] for hops in mine.values()}
+    if windows is not None and not 1 <= len(born) <= windows:
+        raise AssertionError(f"{len(born)} distinct env stamps over {windows} windows")
+    return {"rlhf_spans": sums, "rlhf_traces": len(mine), "rlhf_stamps": len(born)}
+
+
+def _counter_rows(snapshot: dict) -> dict:
+    return {(m["name"], tuple(sorted((m.get("labels") or {}).items()))): m["value"]
+            for m in snapshot["metrics"] if m["kind"] == "counter"}
+
+
+def _fleet_self(key) -> bool:
+    name, labels = key
+    return (name.startswith(FLEET_SELF_PREFIX) or name in FLEET_SELF_COUNTERS
+            or dict(labels).get("plane") == "fleet")
+
+
+def traced_fleet(device, root: Path, workdir: Path) -> dict:
+    """Phase 20 (a): phase 11's learner in a ``chaos_server`` process with
+    tracing at rate 1 and the fleet plane on (``fleet_interval_s``
+    ``FLEET_INTERVAL_S``, an exporter on a free port, an events journal),
+    behind a ``python -m relayrl_tpu_torch.relay`` process (ZMQ both
+    sides, the same telemetry), fed by a traced ``VectorAgent`` of
+    ``DIST_LANES`` ``RecallEnv(LEARNER_HORIZON)`` lanes in this process
+    with its fleet emitter on, for ``TRACED_UPDATES`` updates (each wave
+    played under the version the previous one published). Gates: every
+    accepted trajectory's upstream trace complete over ``UPSTREAM_HOPS``
+    (monotonic starts, no overlap inside a plane); every published
+    version's model trace over ``MODEL_HOPS``; every data and model age
+    in [0, 300 s), one observation per trace in each process that saw it;
+    the trace analyzer CLI over the three journals agreeing with this
+    process's analysis, its data-age count the accepted count; the
+    trace-side mean version lag within 0.5 of the server's
+    ``relayrl_rlhf_train_lag_versions``; ``/fleet`` listing the three
+    processes, ``top --fleet`` rendering the pane, no default alert
+    active; the root's merged counters (bar the fleet frames' own,
+    ``FLEET_SELF_COUNTERS``) equal to the sum of the three processes'
+    final registries exactly, env steps those the agent took; 336/4/4
+    launches per update and 3 K1 per dispatch; the agent's params equal
+    to the publish."""
+    import os
+    import shutil
+    import urllib.request
+
+    from relayrl_tpu_torch import telemetry
+    from relayrl_tpu_torch.envs import RecallEnv, SyncVectorEnv
+    from relayrl_tpu_torch.runtime.agent import VectorAgent
+    from relayrl_tpu_torch.runtime.vector_actor import run_vector_gym_loop
+    from relayrl_tpu_torch.telemetry import trace as trace_mod
+    from relayrl_tpu_torch.telemetry.events import EventJournal
+    from relayrl_tpu_torch.weights import params_to_jax, tree_digest
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    journals = {p: workdir / f"{p}_events.ndjson" for p in ("server", "relay", "agent")}
+    tel = {"trace_sample_rate": 1.0, "fleet_interval_s": FLEET_INTERVAL_S}
+    server_addrs, relay_up = zmq_addrs()
+    relay_down, agent_addrs = zmq_addrs()
+    env = RecallEnv(LEARNER_HORIZON, N_CUES)
+    arch = SLICE_ARCH
+    hyperparams = {"model_kind": arch["kind"], "seed": SEED, "seed_salt": 0,
+                   **{k: v for k, v in arch.items()
+                      if k not in ("kind", "has_critic", "precision")},
+                   **LEARNER}
+    cfg = {"algorithm": "REINFORCE",
+           "obs_dim": int(env.observation_space.shape[0]),
+           "act_dim": int(env.action_space.n), "hyperparams": hyperparams,
+           "device": str(device), "scratch": str(workdir / "server"),
+           "config": {"learner": {"precision": arch["precision"]},
+                      "telemetry": {**tel, "port": 0,
+                                    "events_path": str(journals["server"])}},
+           "digests": True, "status_path": str(workdir / "status.json"),
+           "stop_path": str(workdir / "server_stop"), **server_addrs}
+    relay_config = workdir / "relay_config.json"
+    relay_config.write_text(json.dumps({"telemetry": {
+        **tel, "enabled": True, "events_path": str(journals["relay"])}}))
+    agent_config = workdir / "agent_config.json"
+    agent_config.write_text(json.dumps({"telemetry": tel}))
+    # This process configured its telemetry long ago with the plane off:
+    # install a live registry, a journal and the tracer before the agent.
+    run_id = "chip-smoke-traced-agent"
+    telemetry.set_registry(telemetry.Registry(run_id=run_id))
+    telemetry.set_journal(EventJournal(str(journals["agent"]), run_id=run_id))
+    trace_mod.configure(1.0, ring=1 << 16)
+    n_layers = arch["n_layers"]
+    per_update = (n_layers * (4 + LEARNER["train_vf_iters"]), n_layers, n_layers)
+
+    server = ChaosServer(root, cfg, workdir / "server.log")
+    relay = agent = None
+    try:
+        server.wait(lambda s: s.get("exporter") is not None, "the server to come up")
+        relay = RelayProcess(root, {"config_path": str(relay_config), "name": "p20-relay",
+                                    "upstream_type": "zmq",
+                                    "upstream": {**relay_up, "probe": False},
+                                    "downstream_type": "zmq", "downstream": relay_down},
+                             workdir, "traced", flags=("--no-telemetry",))
+        agent = VectorAgent(num_envs=DIST_LANES, config_path=str(agent_config), seed=SEED,
+                            identity="p20-agent", probe=False, device=device,
+                            model_path=str(workdir / "client_model.rlx"), **agent_addrs)
+        venv = SyncVectorEnv([lambda: RecallEnv(LEARNER_HORIZON, N_CUES)] * DIST_LANES)
+        zero_flash_counts()
+        dispatches0, wall = agent.host.dispatches, 0.0
+        for version in range(1, TRACED_UPDATES + 1):
+            t0 = time.perf_counter()
+            run_vector_gym_loop(agent, venv, LEARNER_HORIZON, seed=SEED + version)
+            wall += time.perf_counter() - t0
+            status = server.wait(
+                lambda s, v=version: (s["version"] == v and agent.model_version == v
+                                      and (s.get("published") or {}).get("version") == v),
+                f"version {version} published and installed")
+        dispatches = agent.host.dispatches - dispatches0
+        agent_counts = flash_counts()
+        steps = agent.host.steps_served
+        with agent.host._lock:
+            agent_version = agent.host.version
+            agent_digest = tree_digest(params_to_jax(agent.host.params))
+        stats = status["stats"]
+        if stats["learner_errors"] or stats["dropped"] or stats["publish_errors"]:
+            raise AssertionError(f"server stats {stats}: {status['last_learner_error']}")
+        kernels = status["kernels"]
+        server_counts = (kernels["flash_fwd"], kernels["flash_dq"], kernels["flash_dkv"])
+        if server_counts != tuple(TRACED_UPDATES * c for c in per_update):
+            raise AssertionError(f"server launches {server_counts} over {TRACED_UPDATES} "
+                                 f"updates; expected {TRACED_UPDATES} x {per_update}")
+        if agent_counts != ((n_layers - 1) * dispatches, 0, 0):
+            raise AssertionError(f"agent launches {agent_counts} over {dispatches} "
+                                 f"dispatches")
+        published = status["published"]
+        if (agent_version, agent_digest) != (published["version"], published["digest"]):
+            raise AssertionError(f"agent params at version {agent_version} "
+                                 f"({agent_digest}) != published {published}")
+
+        # Idle a few intervals, so every process's frames carry its settled
+        # totals, then read the root's pane while all three are up.
+        time.sleep(3 * FLEET_INTERVAL_S)
+        url = status["exporter"]
+        with urllib.request.urlopen(url + "/fleet", timeout=10) as resp:
+            live = json.loads(resp.read().decode())
+        procs = {p["proc"]: p["tier"] for p in live["procs"]}
+        want_procs = {"p20-agent": "actor", "p20-relay": "relay",
+                      f"server-{server.proc.pid}": "server"}
+        if procs != want_procs:
+            raise AssertionError(f"/fleet lists {procs}, want {want_procs}")
+        top = subprocess.run(
+            [sys.executable, "-m", "relayrl_tpu_torch.telemetry.top", "--url", url,
+             "--fleet", "--once"], cwd=str(root), capture_output=True, text=True,
+            timeout=60, env=dict(os.environ, PYTHONPATH=str(root)))
+        if top.returncode or "3 proc(s)" not in top.stdout or "-- relay " not in top.stdout:
+            raise AssertionError(f"top --fleet: rc {top.returncode}\n{top.stdout}\n"
+                                 f"{top.stderr[-2000:]}")
+
+        # Leaf first: the agent's closing frame, the relay's, the root's
+        # closing tick and final status.
+        agent.disable_agent()
+        agent_final = telemetry.get_registry().snapshot()
+        agent = None
+        relay_result = relay.close()
+        relay = None
+        Path(cfg["stop_path"]).write_text("stop")
+        server.proc.wait(timeout=120)
+        final = server.status()
+        if final is None or not final.get("final"):
+            raise AssertionError(f"no final status:\n{server.tail()}")
+    finally:
+        if agent is not None:
+            agent.disable_agent()
+        if relay is not None:
+            relay.kill()
+        server.stop()
+
+    # The traces, joined over the three processes' journals.
+    spans = trace_mod.load_spans([str(p) for p in journals.values()])
+    accepted = final["stats"]["trajectories"]
+    traj = admitted_hops(spans)
+    if len(traj) != accepted or accepted != TRACED_UPDATES * LEARNER["traj_per_epoch"]:
+        raise AssertionError(f"{len(traj)} traced trajectories, {accepted} accepted")
+    check_upstream(traj, UPSTREAM_HOPS)
+    model: dict[str, list] = {}
+    for s in spans:
+        if s["kind"] == "model":
+            model.setdefault(s["trace"], []).append(s)
+    versions = sorted(int(v) for v in final["published_log"])
+    if versions != list(range(1, TRACED_UPDATES + 1)) or sorted(model) != sorted(
+            trace_mod.model_trace_id(v) for v in versions):
+        raise AssertionError(f"model traces {sorted(model)} for versions {versions}")
+    for tid, ss in model.items():
+        hops = {s["hop"] for s in ss}
+        receipts = sum(s["hop"] == "receipt" for s in ss)
+        disp = next(s for s in ss if s["hop"] == "dispatch")
+        ages = [s["t1_ns"] - disp["t0_ns"] for s in ss if s["hop"] == "swap"]
+        if (hops != set(MODEL_HOPS) or receipts != 2 or len(ages) != 1
+                or not 0 <= ages[0] < trace_mod.SKEW_GUARD_NS):
+            raise AssertionError(f"model trace {tid}: hops {sorted(hops)}, {receipts} "
+                                 f"receipts, swap ages {ages}")
+    report = trace_mod.analyze(spans)
+    cli = subprocess.run(
+        [sys.executable, "-m", "relayrl_tpu_torch.telemetry.trace",
+         *[str(p) for p in journals.values()], "--json"], cwd=str(root),
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(root)))
+    if cli.returncode or json.loads(cli.stdout) != json.loads(json.dumps(report)):
+        raise AssertionError(f"trace CLI rc {cli.returncode}: {cli.stderr[-2000:]}")
+    if report["trajectories"]["data_age_s"]["count"] != accepted or report["skew_dropped"]:
+        raise AssertionError(f"analyzer: {report['trajectories']}, skew-dropped "
+                             f"{report['skew_dropped']}")
+
+    # One age observation per trace in each process that saw it.
+    def metric(snapshot, name):
+        return next(m for m in snapshot["metrics"] if m["name"] == name)
+
+    server_final, relay_final = final["telemetry"], relay_result["telemetry"]
+    observed = (metric(server_final, "relayrl_trace_data_age_seconds")["count"],
+                metric(agent_final, "relayrl_trace_model_age_seconds")["count"],
+                metric(relay_final, "relayrl_trace_model_age_seconds")["count"])
+    if observed != (accepted, len(versions), len(versions)):
+        raise AssertionError(f"age observations (data, model at the agent, model at the "
+                             f"relay) {observed}; {accepted} trajectories, "
+                             f"{len(versions)} versions")
+    lag = metric(server_final, "relayrl_rlhf_train_lag_versions")
+    trace_lag = report["trajectories"]["data_age_versions"]["mean"]
+    if lag["count"] != accepted or abs(trace_lag - lag["sum"] / lag["count"]) > 0.5:
+        raise AssertionError(f"trace-side lag {trace_lag} vs the train-lag histogram "
+                             f"{lag['sum']} / {lag['count']}")
+
+    # The root's totals against the three processes' own.
+    doc = final["fleet"]
+    merged = _counter_rows(doc["merged"])
+    want: dict = {}
+    for snap in (agent_final, relay_final, server_final):
+        for key, value in _counter_rows(snap).items():
+            want[key] = want.get(key, 0.0) + value
+    exact = {k: v for k, v in want.items() if not _fleet_self(k)}
+    wrong = {k: (merged.get(k), v) for k, v in exact.items() if merged.get(k) != v}
+    behind = {k: (merged.get(k), v) for k, v in want.items()
+              if _fleet_self(k) and not (merged.get(k) or 0) <= v}
+    env_key = ("relayrl_actor_env_steps_total", ())
+    if wrong or behind or merged.get(env_key) != steps:
+        raise AssertionError(f"fleet totals: {len(wrong)} counters off the sum "
+                             f"{dict(list(wrong.items())[:6])}; self counters ahead "
+                             f"{behind}; env steps {merged.get(env_key)} vs {steps}")
+    active = [a["name"] for a in doc["alerts"] + live["alerts"] if a["active"]]
+    if active:
+        raise AssertionError(f"alerts active on a clean run: {active}")
+    return {"updates": TRACED_UPDATES, "accepted": accepted, "dispatches": dispatches,
+            "server_counts": server_counts, "agent_counts": agent_counts,
+            "per_update": per_update, "versions": versions, "report": report,
+            "spans": len(spans), "counters_exact": len(exact),
+            "counters_self": len(want) - len(exact), "steps": steps,
+            "steps_per_s": DIST_LANES * dispatches / wall, "procs": sorted(procs)}
+
+
+def profiled_update(learned: dict, workdir: Path) -> dict:
+    """Phase 20 (c): one REINFORCE update of phase 5's learner inside
+    ``utils.profiling.trace`` with ``annotate`` around it. Gates: the
+    Chrome trace lists ``flash_fwd_bf16_kernel``, ``flash_dq_bf16_kernel``
+    and ``flash_dkv_bf16_kernel`` at the update's launch counts (336/4/4),
+    each inside the annotated range."""
+    import shutil
+
+    import torch
+
+    from relayrl_tpu_torch.utils import profiling
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    algo, batch = learned["algo"], learned["batch"]
+    n_layers = SLICE_ARCH["n_layers"]
+    per_update = (n_layers * (4 + LEARNER["train_vf_iters"]), n_layers, n_layers)
+    torch.cuda.synchronize()
+    zero_flash_counts()
+    with profiling.trace(str(workdir)) as prof:
+        with profiling.annotate("chip_smoke_update"):
+            algo.train_on_batch(batch)
+            torch.cuda.synchronize()
+    counts = flash_counts()
+    events = json.loads(Path(prof.trace_path).read_text())["traceEvents"]
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("name") == "chip_smoke_update" and e.get("ph") == "X"]
+    found = []
+    for name in ("flash_fwd_bf16_kernel", "flash_dq_bf16_kernel", "flash_dkv_bf16_kernel"):
+        hits = [e for e in events if e.get("cat") == "kernel" and name in e.get("name", "")]
+        outside = [e for e in hits if not any(a <= e["ts"] <= b for a, b in ranges)]
+        if outside:
+            raise AssertionError(f"{len(outside)} {name} launches outside the annotated "
+                                 f"range {ranges}")
+        found.append(len(hits))
+    if counts != per_update or tuple(found) != per_update or not ranges:
+        raise AssertionError(f"profiled update: counters {counts}, the trace's kernels "
+                             f"{tuple(found)}, expected {per_update}; ranges {ranges}")
+    return {"counts": counts, "found": tuple(found), "events": len(events),
+            "trace": prof.trace_path, "ranges": len(ranges)}
 
 
 def main() -> int:
@@ -5751,7 +6211,7 @@ def main() -> int:
     dist = distributed_loop(device, root, root / "build" / "chip_smoke_dist")
     d_fwd, d_dq, d_dkv = dist["server_counts"]
     a_fwd = dist["agent_counts"][0]
-    steps_per_s = DIST_LANES * dist["dispatches"] / dist["wall"]
+    steps_per_s = dist_steps_per_s = DIST_LANES * dist["dispatches"] / dist["wall"]
     timings = dist["timings"]
     kinds = dist["publish_bytes"]
     print(f"[dist] TrainingServer (chaos_server process) + VectorAgent ({DIST_LANES} "
@@ -6188,6 +6648,57 @@ def main() -> int:
     rlhf_gen = sum(r["generation_k1"] for r in rlhf.values())
     rlhf_learn = sum(r["learner_k1"] for r in rlhf.values())
 
+    # 20. the traced, fleet-aggregated loop; serving and RLHF traced; the profiler
+    t20 = time.perf_counter()
+    tf = traced_fleet(device, root, root / "build" / "chip_smoke_traced")
+    t_fwd, t_dq, t_dkv = tf["server_counts"]
+    ta_fwd = tf["agent_counts"][0]
+    rep = tf["report"]
+    print(f"[traced] chaos_server (trace rate 1, fleet every {FLEET_INTERVAL_S} s) <- "
+          f"relay process <- VectorAgent ({DIST_LANES} RecallEnv({LEARNER_HORIZON}) lanes, "
+          f"this process), ZMQ: {tf['updates']} updates, server launches {tf['server_counts']}"
+          f" = {tf['updates']} x {tf['per_update']}, agent flash_fwd {ta_fwd} = "
+          f"{SLICE_ARCH['n_layers'] - 1} x {tf['dispatches']} dispatches; {tf['accepted']} "
+          f"accepted trajectories, each traced over {'/'.join(UPSTREAM_HOPS)}; versions "
+          f"{tf['versions']} traced over {'/'.join(MODEL_HOPS)}; {tf['spans']} spans from "
+          f"three journals joined by the trace CLI; /fleet lists {tf['procs']}, top "
+          f"--fleet renders them; {tf['counters_exact']} merged counters equal to the sum "
+          f"of the three final registries ({tf['counters_self']} fleet-frame counters "
+          f"trail); no alert", flush=True)
+    for key, d in rep["per_hop"].items():
+        if d["count"] and key.split(":")[0] in ("traj", "model"):
+            print(f"[traced] (not gated) {key:<16} n={d['count']:<4} p50 "
+                  f"{1e3 * d['p50']:.3f} ms, p95 {1e3 * d['p95']:.3f} ms")
+    ages = rep["trajectories"]["data_age_s"], rep["models"]["model_age_s"]
+    print(f"[traced] (not gated) data age p50 {1e3 * ages[0]['p50']:.1f} ms, p95 "
+          f"{1e3 * ages[0]['p95']:.1f} ms; model age (dispatch to swap) p50 "
+          f"{1e3 * ages[1]['p50']:.1f} ms, p95 {1e3 * ages[1]['p95']:.1f} ms; version lag "
+          f"mean {rep['trajectories']['data_age_versions']['mean']:.3f}; "
+          f"{tf['steps_per_s']:.1f} env steps/s at the agent traced beside phase 11's "
+          f"{dist_steps_per_s:.1f} untraced, on {card}", flush=True)
+    tsv = served_flagship(device, root / "build" / "chip_smoke_traced_serving",
+                          per_dispatch, steps=TRACED_SERVE_STEPS, traced=True)
+    print(f"[traced] phase 18 (a) traced, {TRACED_SERVE_STEPS} steps: {tsv['dispatches']} "
+          f"dispatches replayed bit for bit ({tsv['checked']} checked), flash_fwd "
+          f"{tsv['launches']} = {per_dispatch} x {tsv['dispatches']}; {tsv['serve_traces']} "
+          f"serve traces, one per request, each a queue and a dispatch span", flush=True)
+    trl = rlhf_plane(device, root / "build" / "chip_smoke_traced_rlhf", "anakin",
+                     per_dispatch, updates=TRACED_RLHF_UPDATES, traced=True)
+    print(f"[traced] phase 19 (anakin) traced: {trl['updates']} updates on "
+          f"{trl['episodes']} episodes, launches {trl['launches']} ({trl['generation_k1']} "
+          f"K1 over {trl['dispatches']} replays); rlhf spans' episodes {trl['rlhf_spans']}; "
+          f"{trl['rlhf_traces']} episodes traced env to update from {trl['rlhf_stamps']} "
+          f"window stamp(s); graph == eager", flush=True)
+    pu = profiled_update(learned, root / "build" / "chip_smoke_profile")
+    print(f"[traced] utils.profiling.trace around one phase 5 update (annotate "
+          f"'chip_smoke_update'): the Chrome trace ({pu['events']} events) lists "
+          f"flash_fwd/dq/dkv_bf16_kernel x {pu['found']}, inside the annotated range; the "
+          f"wrappers counted {pu['counts']}", flush=True)
+    print(f"[traced] phase 20 in {time.perf_counter() - t20:.1f} s", flush=True)
+    traced_fwd = t_fwd + ta_fwd + tsv["launches"] + trl["launches"][0] + pu["counts"][0]
+    traced_dq = t_dq + trl["launches"][1] + pu["counts"][1]
+    traced_dkv = t_dkv + trl["launches"][2] + pu["counts"][2]
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -6195,7 +6706,7 @@ def main() -> int:
         "replaces": "relayrl_tpu/ops/flash.py:116",
         "launches": (run["launches"] + fwd + r_fwd + decode["launches"] + a_fwd + d_fwd
                      + ga_fwd + g_fwd + fa_fwd + f_fwd + p_fwd + fam_fwd + anakin_fwd
-                     + serving_fwd + s_fwd + rlhf_gen + rlhf_learn),
+                     + serving_fwd + s_fwd + rlhf_gen + rlhf_learn + traced_fwd),
         "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd,
                              "decode_vs_window": decode["launches"],
                              "distributed_agent": a_fwd, "distributed_server": d_fwd,
@@ -6212,7 +6723,11 @@ def main() -> int:
                              "anakin_server": a_dfwd,
                              "serving_plane": serving_fwd,
                              "served_learner": s_fwd,
-                             "rlhf_generation": rlhf_gen, "rlhf_learner": rlhf_learn},
+                             "rlhf_generation": rlhf_gen, "rlhf_learner": rlhf_learn,
+                             "traced_fleet_server": t_fwd, "traced_fleet_agent": ta_fwd,
+                             "traced_serving": tsv["launches"],
+                             "traced_rlhf": trl["launches"][0],
+                             "profiled_update": pu["counts"][0]},
         **main_flash,
     }, {
         "name": "flash_dq",
@@ -6220,13 +6735,15 @@ def main() -> int:
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:223",
         "launches": (dq + r_dq + d_dq + g_dq + f_dq + p_dq + m_dq + pp_dq + a_ddq + s_dq
-                     + rlhf_learn),
+                     + rlhf_learn + traced_dq),
         "launches_by_path": {"learner": dq, "local_loop": r_dq, "distributed_server": d_dq,
                              "guardrails_server": g_dq, "fleet_server": f_dq,
                              "ppo_learner": p_dq, "offpolicy": off_counts[1],
                              "pixel": pix_counts[1], "moe_learner": m_dq,
                              "pp_learner": pp_dq, "anakin_server": a_ddq,
-                             "served_learner": s_dq, "rlhf_learner": rlhf_learn},
+                             "served_learner": s_dq, "rlhf_learner": rlhf_learn,
+                             "traced_fleet_server": t_dq, "traced_rlhf": trl["launches"][1],
+                             "profiled_update": pu["counts"][1]},
         **main_bwd["flash_dq"],
     }, {
         "name": "flash_dkv",
@@ -6234,14 +6751,16 @@ def main() -> int:
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:255",
         "launches": (dkv + r_dkv + d_dkv + g_dkv + f_dkv + p_dkv + m_dkv + pp_dkv + a_ddkv
-                     + s_dkv + rlhf_learn),
+                     + s_dkv + rlhf_learn + traced_dkv),
         "launches_by_path": {"learner": dkv, "local_loop": r_dkv,
                              "distributed_server": d_dkv, "guardrails_server": g_dkv,
                              "fleet_server": f_dkv, "ppo_learner": p_dkv,
                              "offpolicy": off_counts[2], "pixel": pix_counts[2],
                              "moe_learner": m_dkv, "pp_learner": pp_dkv,
                              "anakin_server": a_ddkv, "served_learner": s_dkv,
-                             "rlhf_learner": rlhf_learn},
+                             "rlhf_learner": rlhf_learn,
+                             "traced_fleet_server": t_dkv, "traced_rlhf": trl["launches"][2],
+                             "profiled_update": pu["counts"][2]},
         **main_bwd["flash_dkv"],
     }] + [{
         "name": name,

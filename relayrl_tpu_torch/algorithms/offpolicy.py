@@ -291,7 +291,8 @@ class OffPolicyAlgorithm(AlgorithmBase):
     def _push(self, metrics, probe_base) -> None:
         metrics = self._guard_merge_probes(metrics, probe_base)
         self._last_metrics = LazyMetrics(metrics)
-        self.inflight.push(self._last_metrics, record_event(self.device))
+        self.inflight.push(self._last_metrics, record_event(self.device),
+                           version=self.dispatched_version)
 
     def _to_device(self, host_batch) -> dict[str, torch.Tensor]:
         """The one host-to-device move of a batch. A staging slot's arrays

@@ -199,7 +199,8 @@ class OnPolicyAlgorithm(AlgorithmBase):
                                            self._to_device(host_batch))
         metrics = self._guard_merge_probes(metrics, probe_base)
         self._last_metrics = LazyMetrics(metrics)
-        self.inflight.push(self._last_metrics, record_event(self.device))
+        self.inflight.push(self._last_metrics, record_event(self.device),
+                           version=self.dispatched_version)
         return self._last_metrics
 
     def train_model(self) -> Mapping[str, torch.Tensor]:

@@ -32,9 +32,15 @@ with keys::
                        {pid, t, version, stats, accounting, registered,
                         kernels, resume, publish_bytes, last_publish,
                         timings, guardrails, probes_disabled, telemetry,
-                        transport, decoded_by[, published,
+                        exporter, transport, decoded_by[, published,
                         published_log][, rolled_back]}
     run_s            — optional auto-exit
+    stop_path        — optional: the server shuts down cleanly once this
+                       file exists, then writes one last status with
+                       ``final: true``: the registry snapshot taken after
+                       the shutdown and one closing fleet tick, and (with
+                       ``telemetry.fleet_interval_s > 0``) ``fleet``, the
+                       root's ``/fleet`` document at that point
     profile          — optional {"after": a, "updates": n, "path": p}: once
                        the server has made ``a`` updates, profile the next
                        ``n`` (torch.profiler on the device, the learner
@@ -48,7 +54,9 @@ rollback, ``rolled_back`` holds the restored train state's fingerprint
 (version, params digest and Adam step counts), read once when the
 rollback count changes.
 
-``kernels`` holds the flash and ring kernels' launch counts in this
+``telemetry`` is the registry's snapshot and ``exporter`` the URL of its
+``/metrics`` exporter (None without one). ``kernels`` holds the flash and
+ring kernels' launch counts in this
 process (``flash_fwd``, ``flash_dq``, ``flash_dkv``, ``ring_chunk_fwd``,
 ``ring_chunk_dq``, ``ring_chunk_dkv``); ``transport`` the server
 transport's class; ``decoded_by`` which decoder took each trajectory
@@ -244,54 +252,58 @@ def main(argv=None) -> None:
     stop = threading.Event()
     rolled_back = {"count": 0, "state": None}
 
+    def build_status() -> dict:
+        guard = server.guardrails_accounting()
+        if guard.get("rollbacks_total", 0) != rolled_back["count"]:
+            rolled_back["count"] = guard["rollbacks_total"]
+            rolled_back["state"] = resume_info(server.algorithm)
+        status = {
+            "pid": os.getpid(),
+            "t": time.time(),
+            "version": int(server.latest_model_version),
+            "stats": dict(server.stats),
+            "last_learner_error": server.last_learner_error,
+            "accounting": server.ingest_accounting(),
+            "registered": len(server.agent_ids),
+            "kernels": {
+                "flash_fwd": flash_attention.launches,
+                "flash_dq": flash_attention.dq_launches,
+                "flash_dkv": flash_attention.dkv_launches,
+                "ring_chunk_fwd": ring_flash.chunk_fwd.launches,
+                "ring_chunk_dq": ring_flash.chunk_dq.launches,
+                "ring_chunk_dkv": ring_flash.chunk_dkv.launches},
+            "resume": resumed,
+            "publish_bytes": {k: list(v) for k, v in
+                              server.publish_bytes.items()},
+            "last_publish": server.last_publish,
+            "timings": dict(server.timings),
+            "transport": type(server.transport).__name__,
+            "decoded_by": dict(server.decoded_by),
+            "guardrails": guard,
+            # 1 when the probes disabled themselves after a failure (the
+            # guardrails attach them when enabled).
+            "probes_disabled": int(
+                server.guardrails is not None
+                and server.guardrails.params["probes"]
+                and server.guardrails.watchdog is not None
+                and server.algorithm._guard_probes is None),
+            "telemetry": telemetry.get_registry().snapshot(),
+            "exporter": (None if server._exporter is None
+                         else server._exporter.url),
+        }
+        if rolled_back["state"] is not None:
+            status["rolled_back"] = rolled_back["state"]
+        if digests:
+            got = server.published_digest()
+            status["published"] = (None if got is None else
+                                   {"version": got[0], "digest": got[1]})
+            status["published_log"] = dict(published_log)
+        return status
+
     def status_loop() -> None:
         while not stop.is_set():
             try:
-                guard = server.guardrails_accounting()
-                if guard.get("rollbacks_total", 0) != rolled_back["count"]:
-                    rolled_back["count"] = guard["rollbacks_total"]
-                    rolled_back["state"] = resume_info(server.algorithm)
-                status = {
-                    "pid": os.getpid(),
-                    "t": time.time(),
-                    "version": int(server.latest_model_version),
-                    "stats": dict(server.stats),
-                    "last_learner_error": server.last_learner_error,
-                    "accounting": server.ingest_accounting(),
-                    "registered": len(server.agent_ids),
-                    "kernels": {
-                        "flash_fwd": flash_attention.launches,
-                        "flash_dq": flash_attention.dq_launches,
-                        "flash_dkv": flash_attention.dkv_launches,
-                        "ring_chunk_fwd": ring_flash.chunk_fwd.launches,
-                        "ring_chunk_dq": ring_flash.chunk_dq.launches,
-                        "ring_chunk_dkv": ring_flash.chunk_dkv.launches},
-                    "resume": resumed,
-                    "publish_bytes": {k: list(v) for k, v in
-                                      server.publish_bytes.items()},
-                    "last_publish": server.last_publish,
-                    "timings": dict(server.timings),
-                    "transport": type(server.transport).__name__,
-                    "decoded_by": dict(server.decoded_by),
-                    "guardrails": guard,
-                    # 1 when the probes disabled themselves after a
-                    # failure (the guardrails attach them when enabled).
-                    "probes_disabled": int(
-                        server.guardrails is not None
-                        and server.guardrails.params["probes"]
-                        and server.guardrails.watchdog is not None
-                        and server.algorithm._guard_probes is None),
-                    "telemetry": telemetry.get_registry().snapshot(),
-                }
-                if rolled_back["state"] is not None:
-                    status["rolled_back"] = rolled_back["state"]
-                if digests:
-                    got = server.published_digest()
-                    status["published"] = (None if got is None else
-                                           {"version": got[0],
-                                            "digest": got[1]})
-                    status["published_log"] = dict(published_log)
-                _write_status(status_path, status)
+                _write_status(status_path, build_status())
             except Exception as e:  # a status hiccup must not kill serving
                 print(f"[chaos-server] status write failed: {e!r}",
                       flush=True)
@@ -311,12 +323,26 @@ def main(argv=None) -> None:
           flush=True)
     deadline = (time.time() + float(cfg["run_s"])
                 if cfg.get("run_s") else None)
+    stop_path = cfg.get("stop_path")
     try:
         while deadline is None or time.time() < deadline:
+            if stop_path and os.path.exists(stop_path):
+                break
             time.sleep(0.2)
     finally:
         stop.set()
+        t.join(timeout=5)
         server.disable_server()
+    # A clean stop: the last status holds the registry as this process
+    # ends, after one closing fleet tick, beside the fleet document that
+    # tick left (what the root's /fleet serves).
+    if server._fleet is not None:
+        server._fleet_tick()
+    status = build_status()
+    status["final"] = True
+    if server._fleet is not None:
+        status["fleet"] = server._fleet.document(alerts=server._alerts)
+    _write_status(status_path, status)
 
 
 if __name__ == "__main__":

@@ -171,6 +171,9 @@ def main(argv=None):
                     help="episodes PER actor (per lane in anakin mode)")
     ap.add_argument("--max-steps", type=int, default=500)
     ap.add_argument("--baseline", action="store_true")
+    ap.add_argument("--tensorboard", action="store_true",
+                    help="tail the server's epoch log into TensorBoard "
+                         "scalars (needs tensorboardX)")
     ap.add_argument("--target", type=float, default=None,
                     help="stop an actor once its rolling "
                          f"{_WINDOW}-episode average return reaches this")
@@ -241,9 +244,15 @@ def main(argv=None):
         server_type=args.transport, env_dir=run_dir,
         config_path=config_path, hyperparams=hp, device=args.device,
         serving=(True if args.host_mode == "remote" else None),
-        **server_addrs)
+        tensorboard=args.tensorboard, **server_addrs)
     print(f"[driver] server on {server.device}, run dir {run_dir}",
           flush=True)
+    if server._exporter is not None and server._fleet is not None:
+        # With the fleet plane on (telemetry.fleet_interval_s > 0) every
+        # actor's registry rolls up behind the root's /fleet.
+        print(f"[fleet] telemetry at {server._exporter.url}/fleet "
+              f"(python -m relayrl_tpu_torch.telemetry.top --fleet --url "
+              f"{server._exporter.url})", flush=True)
 
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()

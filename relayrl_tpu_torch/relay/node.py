@@ -31,11 +31,13 @@ silence), so a relay crash is the learner crash drill one level up:
 spool replay on reconnect + the root ledger's per-leaf dedup ⇒ zero
 loss, zero double-train.
 
-Distributed tracing and fleet telemetry aggregation are not ported
-(``ROADMAP.md`` queue 1 item 12): the relay refuses
-``telemetry.trace_sample_rate > 0`` and ``telemetry.fleet_interval_s >
-0`` with the port server's messages. Trace-tagged ids and fleet snapshot
-frames from JAX agents still forward verbatim.
+**Tracing and fleet telemetry.** With ``telemetry.trace_sample_rate > 0``
+the relay records the ``relay`` hop of every sampled trajectory it
+forwards (the context rides the leaf's envelope id verbatim) and the
+``relay`` re-broadcast span of every sampled model version. With
+``telemetry.fleet_interval_s > 0`` subtree snapshot frames peel off into a
+fan-in buffer and go upstream as ONE frame per interval, with this relay's
+own section; with the plane off they forward verbatim like any payload.
 
 On the wire a relay is indistinguishable from a training server:
 actors point their ordinary transport config at the relay's fan-out
@@ -81,14 +83,6 @@ class RelayNode:
         from relayrl_tpu_torch import faults, telemetry
 
         self.config = ConfigLoader(None, config_path)
-        tel_params = self.config.get_telemetry_params()
-        if (tel_params.get("trace_sample_rate") or 0) > 0 or \
-                (tel_params.get("fleet_interval_s") or 0) > 0:
-            raise NotImplementedError(
-                "distributed tracing and fleet aggregation are not ported "
-                "(ROADMAP.md queue 1 item 12); set "
-                "telemetry.trace_sample_rate and telemetry.fleet_interval_s "
-                "to 0")
         telemetry.configure_from_config(self.config)
         faults.maybe_install_from_env()
         params = self.config.get_relay_params()
@@ -174,9 +168,36 @@ class RelayNode:
         self._m_batches = reg.counter(
             "relayrl_relay_batches_forwarded_total",
             "multi-envelope containers sent upstream")
+        self._m_fwd_fleet = reg.counter(
+            "relayrl_relay_frames_forwarded_total",
+            "frames re-published/forwarded by this relay",
+            {"plane": "fleet"})
+        self._m_bytes_fleet = reg.counter(
+            "relayrl_relay_bytes_total",
+            "bytes re-published/forwarded by this relay",
+            {"plane": "fleet"})
         reg.gauge_fn("relayrl_relay_subtree_agents",
                      self._subtree_count,
                      "distinct logical agents seen from this subtree")
+
+        # Fleet telemetry fan-in (telemetry/aggregate.py): subtree
+        # snapshot frames are sniffed out of the trajectory ingest,
+        # buffered latest-per-proc, and forwarded as ONE multi-proc frame
+        # (plus this relay's own section) per telemetry.fleet_interval_s:
+        # root ingest stays O(relays), like the model plane. Interval 0 =
+        # plane off: frames fall through the forward path verbatim.
+        tel_params = self.config.get_telemetry_params()
+        self._fleet_interval_s = float(tel_params.get("fleet_interval_s")
+                                       or 0.0)
+        self._fleet_buf = None
+        self._fleet_seq = 0
+        self._fleet_thread: threading.Thread | None = None
+        if self._fleet_interval_s > 0:
+            from relayrl_tpu_torch.telemetry.aggregate import (
+                FleetRelayBuffer,
+            )
+
+            self._fleet_buf = FleetRelayBuffer()
 
         self.spool = None
         self.up = upstream_transport
@@ -224,6 +245,10 @@ class RelayNode:
         self.up.on_model = self._on_upstream_model
         self.up.on_reconnect = self._on_upstream_reconnect
         self.up.start_model_listener()
+        if self._fleet_buf is not None:
+            self._fleet_thread = threading.Thread(
+                target=self._fleet_loop, name="relay-fleet", daemon=True)
+            self._fleet_thread.start()
         self.active = True
         from relayrl_tpu_torch import telemetry
 
@@ -309,11 +334,20 @@ class RelayNode:
         if self._fwd_thread is not None:
             self._fwd_thread.join(timeout=5)
             self._fwd_thread = None
+        fleet_final = self._fleet_thread is not None
+        if fleet_final:
+            self._fleet_thread.join(timeout=5)
+            self._fleet_thread = None
         self._drain_forward_buffer()
         if self.spool is not None:
             if flush_timeout_s > 0:
                 self.spool.flush(deadline_s=flush_timeout_s)
             self.spool.close()
+        if fleet_final:
+            # Final flush, after the spool's: whatever the subtree
+            # reported last, plus this relay's closing section with its
+            # last forwards and replays counted, still reaches the root.
+            self._fleet_flush()
         if self.up is not None:
             self.up.close()
         self.active = False
@@ -376,6 +410,11 @@ class RelayNode:
         self._rebroadcast(version, blob)
 
     def _rebroadcast(self, version: int, blob: bytes) -> None:
+        from relayrl_tpu_torch.telemetry import trace as trace_mod
+
+        tracer = trace_mod.get_tracer()
+        traced = tracer.enabled and tracer.sample_version(version)
+        t0_ns = time.monotonic_ns() if traced else 0
         parts = (((0.0, blob),) if self._fault_model is None
                  else self._fault_model.inject(blob))
         for delay_s, part in parts:
@@ -389,6 +428,13 @@ class RelayNode:
                 return
             self._m_fwd_model.inc()
             self._m_bytes_model.inc(len(part))
+        if traced:
+            # The re-broadcast hop of a sampled version's downstream
+            # trace: the upstream receipt is stamped by the agent
+            # transport; this span is the subtree fan-out itself.
+            tracer.span("model", trace_mod.model_trace_id(version),
+                        "relay", t0_ns, time.monotonic_ns(),
+                        version=int(version), relay=self.name)
 
     def _get_model(self) -> tuple[int, bytes]:
         """Downstream handshake: the cached v1 bundle. When the relay
@@ -486,13 +532,67 @@ class RelayNode:
             self._m_resync_escalated.inc()
             self.up.request_resync(held_version)
 
+    # -- fleet telemetry plane (subtree frames -> one merged frame) --
+    def _fleet_loop(self) -> None:
+        while not self._stop.wait(self._fleet_interval_s):
+            self._fleet_flush()
+
+    def _fleet_flush(self) -> None:
+        """One fan-in interval: the sections the subtree updated since the
+        last flush plus this relay's own registry section, forwarded
+        upstream as ONE frame. Sections ride VERBATIM (the root's
+        epoch-aware counter baselines need the leaf's own stamps).
+        Spool-less on purpose: telemetry is latest-wins, and replaying a
+        retained stale snapshot would regress the root's table."""
+        from relayrl_tpu_torch import telemetry
+        from relayrl_tpu_torch.telemetry.aggregate import (
+            encode_snapshot_frame,
+            fleet_wire_id,
+            snapshot_section,
+        )
+
+        sections = self._fleet_buf.drain()
+        reg = telemetry.get_registry()
+        if reg.enabled:
+            self._fleet_seq += 1
+            sections.append(snapshot_section(
+                reg.snapshot(), self.name, "relay",
+                getattr(reg, "created_unix", 0.0), self._fleet_seq))
+        if not sections:
+            return
+        frame = encode_snapshot_frame(sections)
+        try:
+            self.up.send_trajectory(frame,
+                                    agent_id=fleet_wire_id(self.name))
+        except Exception as e:
+            print(f"[relay/{self.name}] fleet forward failed (dropped; "
+                  f"next interval is fresher anyway): {e!r}", flush=True)
+            return
+        self._m_fwd_fleet.inc()
+        self._m_bytes_fleet.inc(len(frame))
+
+    def _ingest_subtree_snapshot(self, payload: bytes) -> None:
+        from relayrl_tpu_torch.transport.base import swallow_decode_error
+
+        try:
+            self._fleet_buf.ingest_frame(payload)
+        except ValueError as e:
+            self._m_dropped.inc()
+            swallow_decode_error(self.downstream_type, "fleet_frame", e)
+
     # -- trajectory plane (downstream ingest -> upstream forward) --
     def _on_subtree_trajectory(self, tagged_id: str, payload: bytes) -> None:
         """One subtree envelope (downstream transport thread). The id
         arrives with the leaf's seq tag intact and MUST leave with it
         intact — attribution and dedup belong to the leaves. Fleet
-        snapshot frames (RLS1) forward verbatim like any other opaque
-        payload (the fleet plane is off)."""
+        snapshot frames (RLS1) peel off into the fan-in buffer instead of
+        the forward path; with the fleet plane off they forward verbatim
+        like any other opaque payload."""
+        from relayrl_tpu_torch.telemetry.aggregate import is_snapshot_frame
+
+        if self._fleet_buf is not None and is_snapshot_frame(payload):
+            self._ingest_subtree_snapshot(payload)
+            return
         from relayrl_tpu_torch.transport.base import (
             split_agent_seq,
             split_agent_trace,
@@ -564,18 +664,40 @@ class RelayNode:
         self._m_batches.inc()
         self._m_fwd_traj.inc(len(group))
         self._m_bytes_traj.inc(len(container))
+        t0_ns = time.monotonic_ns()
         if self.spool is not None:
             self.spool.send_verbatim(container, self.batch_id)
         else:
             self._try_forward(container, self.batch_id)
+        for tid, _payload in group:
+            self._trace_forward_span(tid, t0_ns)
+
+    def _trace_forward_span(self, tagged_id: str, t0_ns: int) -> None:
+        """Upstream-trace relay hop: a sampled trajectory's context rides
+        the forwarded envelope id verbatim; peel it (without touching the
+        wire id) and record this hop's forward time."""
+        from relayrl_tpu_torch.telemetry import trace as trace_mod
+        from relayrl_tpu_torch.transport.base import split_agent_seq
+
+        tracer = trace_mod.get_tracer()
+        if not tracer.enabled:
+            return
+        base, _seq = split_agent_seq(tagged_id)
+        _clean, ctx = trace_mod.split_ctx(base)
+        if ctx is None:
+            return
+        tracer.span("traj", ctx.trace_id, "relay", t0_ns,
+                    time.monotonic_ns(), relay=self.name)
 
     def _forward_one(self, tagged_id: str, payload: bytes) -> None:
         self._m_fwd_traj.inc()
         self._m_bytes_traj.inc(len(payload))
+        t0_ns = time.monotonic_ns()
         if self.spool is not None:
             self.spool.send_verbatim(payload, tagged_id)
         else:
             self._try_forward(payload, tagged_id)
+        self._trace_forward_span(tagged_id, t0_ns)
 
     def _try_forward(self, payload: bytes, wire_id: str) -> None:
         """Spool-less direct forward: drop on failure, never crash the

@@ -35,9 +35,12 @@ Telemetry, on the port's registry: ``relayrl_rlhf_generated_tokens_total``,
 ``relayrl_rlhf_scored_episodes_total``,
 ``relayrl_rlhf_stage_seconds{stage=generate|score|emit}`` and
 ``relayrl_rlhf_lag_versions`` (behavior vs actor-held version at
-emission); the server adds ``relayrl_rlhf_train_lag_versions``. Not
-ported: the tracer spans of the stages (``ROADMAP.md`` queue 1 item 12,
-with ``telemetry/trace.py``).
+emission); the server adds ``relayrl_rlhf_train_lag_versions``. With
+tracing on (``telemetry/trace.py``), each generation round that completes
+episodes records a ``generate`` span and each score batch a ``score`` and
+an ``emit`` span (kind ``rlhf``, with the episode count); an episode the
+score stage withheld from a VectorAgent keeps the emission stamps it was
+produced with, so its trajectory trace starts at its generation.
 
 Every entry point runs on the GPU unless the caller passes
 ``device="cpu"``: the scheduler's policy host and its reward model both
@@ -133,8 +136,9 @@ class ScoreStage:
     the first for siblings, scores them in ONE ``score_batch_np`` dispatch
     (a short batch is padded with repeats of row 0 and sliced), patches each
     episode's terminal reward, and hands the re-serialized bytes to
-    ``emit_fn(lane, payload)``. ``version_fn`` (the actor-held version)
-    feeds the emission lag histogram.
+    ``emit_fn(lane, payload)`` (``emit_fn(lane, payload, stamps)`` when
+    the episode was submitted with its emission stamps). ``version_fn``
+    (the actor-held version) feeds the emission lag histogram.
     """
 
     def __init__(self, scorer, prompt_len: int, emit_fn: Callable,
@@ -168,7 +172,7 @@ class ScoreStage:
                                         name="rlhf-score")
         self._thread.start()
 
-    def submit(self, lane: int, payload: bytes) -> None:
+    def submit(self, lane: int, payload: bytes, stamps=None) -> None:
         # A bounded put in a re-checking loop, not one blocking put: if the
         # worker dies while the queue is full, nothing drains it, and one
         # q.put() would block the generation thread forever (inside the
@@ -179,7 +183,7 @@ class ScoreStage:
             if self._stop.is_set():
                 raise RuntimeError("score stage is closed")
             try:
-                self._q.put((lane, payload), timeout=0.5)
+                self._q.put((lane, payload, stamps), timeout=0.5)
                 return
             except queue.Full:
                 continue
@@ -250,9 +254,14 @@ class ScoreStage:
                 batch = self._gather()
                 if not batch:
                     continue
+                from relayrl_tpu_torch.telemetry import trace as trace_mod
+
+                tracer = trace_mod.get_tracer()
+                trace_id = tracer.sample_id("rlhf")
+                t0_ns = time.monotonic_ns() if trace_id else 0
                 t0 = time.monotonic()
                 episodes = []
-                for lane, payload in batch:
+                for lane, payload, _stamps in batch:
                     if is_columnar_frame(payload):
                         # Anakin-tier generation: one whole episode per
                         # frame; the decoded frame stands in for the record
@@ -267,14 +276,26 @@ class ScoreStage:
                         episodes.append((lane, records, tokens, gen_len, marker))
                 scores = self._score_batch(episodes)
                 self._m_score_s.observe(time.monotonic() - t0)
+                if trace_id:
+                    t1_ns = time.monotonic_ns()
+                    tracer.span("rlhf", trace_id, "score", t0_ns, t1_ns,
+                                episodes=len(episodes))
                 t1 = time.monotonic()
                 held = int(self.version_fn()) if self.version_fn is not None else None
-                for (lane, records, _tok, _gl, marker), score in zip(episodes, scores):
-                    self.emit_fn(lane, self._patch(records, marker, score, held))
+                for (lane, records, _tok, _gl, marker), score, (_l, _p, stamps) in zip(
+                        episodes, scores, batch):
+                    out = self._patch(records, marker, score, held)
+                    if stamps is None:
+                        self.emit_fn(lane, out)
+                    else:
+                        self.emit_fn(lane, out, stamps)
                     self._m_scored.inc()
                     with self._scored_lock:
                         self.scored.append(float(score))
                 self._m_emit_s.observe(time.monotonic() - t1)
+                if trace_id:
+                    tracer.span("rlhf", trace_id, "emit", t1_ns,
+                                time.monotonic_ns(), episodes=len(episodes))
         except BaseException as e:  # surfaced on the next submit/close
             self._error = e
             print(f"[rlhf] score stage died: {e!r}", flush=True)
@@ -290,6 +311,23 @@ class ScoreStage:
         self._thread.join(timeout=timeout_s)
         if self._error is not None:
             raise RuntimeError("score stage died") from self._error
+
+
+def _generate_span(gen_dt: float, lanes: int, episodes: int) -> None:
+    """The ``generate`` span of one round that closed ``episodes``
+    generations. Drawn at episode granularity only: a per-token draw would
+    churn the sampling lock and, at rate 1.0, flood the flight recorder
+    with one span per token across all lanes."""
+    from relayrl_tpu_torch.telemetry import trace as trace_mod
+
+    tracer = trace_mod.get_tracer()
+    if tracer.enabled:
+        trace_id = tracer.sample_id("rlhf")
+        if trace_id:
+            now_ns = time.monotonic_ns()
+            tracer.span("rlhf", trace_id, "generate",
+                        now_ns - int(gen_dt * 1e9), now_ns,
+                        lanes=lanes, episodes=episodes)
 
 
 class GenerationStage:
@@ -337,7 +375,10 @@ class GenerationStage:
                 self.host.flag_last_action(lane, 0.0, terminated=True)
                 done += 1
         self._m_tokens.inc(self.venv.num_envs)
-        self._m_gen_s.observe(time.monotonic() - t0)
+        gen_dt = time.monotonic() - t0
+        self._m_gen_s.observe(gen_dt)
+        if done:
+            _generate_span(gen_dt, self.venv.num_envs, done)
         self.rounds += 1
         self.tokens_generated += self.venv.num_envs
         self.episodes_done += done
@@ -376,10 +417,13 @@ class FusedGenerationStage:
         t0 = time.monotonic()
         stats = self.agent.rollout()
         self._m_tokens.inc(int(stats["steps"]))
-        self._m_gen_s.observe(time.monotonic() - t0)
+        gen_dt = time.monotonic() - t0
+        self._m_gen_s.observe(gen_dt)
         self.rounds += 1
         self.tokens_generated += int(stats["steps"])
         done = int(stats["episodes"])
+        if done:
+            _generate_span(gen_dt, self.agent.num_envs, done)
         self.episodes_done += done
         return done
 
@@ -524,7 +568,8 @@ class RlhfScheduler:
                 device=self.device, **tier_kwargs, **addr_overrides)
             self._clients = []
             host = self.agent.host
-            self._emit = self.agent.emit_lane
+            self._emit = (lambda lane, payload, stamps=None:
+                          self.agent.emit_lane(lane, payload, _stamps=stamps))
             version_fn = lambda: self.agent.host.version  # noqa: E731
 
         self.score_stage = ScoreStage(
@@ -550,7 +595,11 @@ class RlhfScheduler:
         return make_scorer("programmatic", vocab_size=p["vocab_size"])
 
     def _withhold(self, lane: int, payload: bytes):
-        self.score_stage.submit(lane, payload)
+        # A VectorAgent's emission stamps describe this payload only now
+        # (inside its flush): they ride with the episode to its emission.
+        stamps = (self.agent._emit_stamps(lane) if self.agent is not None
+                  else None)
+        self.score_stage.submit(lane, payload, stamps)
         return None  # the stage re-injects via emit after scoring
 
     # -- driving --

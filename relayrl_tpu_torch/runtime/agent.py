@@ -21,8 +21,11 @@ an on-device env (``actor.jax_env``) inside one fused window per
 :meth:`VectorAgent.rollout`. Both take ``device`` (default: the GPU;
 without one the caller must pass ``device="cpu"``) and ``server_type``
 ("zmq", "grpc", "native" or "auto", which negotiates against the live
-server as the JAX agent does). Not ported: the tracing hooks and the
-fleet snapshot emitter (``ROADMAP.md`` queue 1 item 12).
+server as the JAX agent does). With ``telemetry.trace_sample_rate > 0``
+a sampled trajectory records its ``env``, ``encode`` and ``send`` hops and
+carries its trace context on the envelope id (``#t``); with
+``telemetry.fleet_interval_s > 0`` the agent ships its registry snapshot
+to the root on the trajectory plane every interval.
 """
 
 from __future__ import annotations
@@ -61,6 +64,94 @@ def _deliver_model(actor_host, transport, client_model_path: str, tag: str,
             installed.save(client_model_path)
         except OSError:
             pass
+
+
+def _trace_emit(agent_id: str, born_ns: int, enc0_ns: int, enc1_ns: int,
+                version: int):
+    """Distributed-tracing emission hook shared by Agent, VectorAgent and
+    the thin clients (telemetry/trace.py): sample a trajectory trace
+    context and record the actor-side ``env`` (production) and ``encode``
+    (serialize) hop spans. Returns the context (riding the wire as the
+    ``#t`` id tag) or None: one tracer read per trajectory, never per
+    step."""
+    from relayrl_tpu_torch.telemetry import trace as trace_mod
+
+    tracer = trace_mod.get_tracer()
+    if not tracer.enabled or not born_ns:
+        return None
+    ctx = tracer.sample_traj(born_ns, version)
+    if ctx is None:
+        return None
+    import time
+
+    now = time.monotonic_ns()
+    enc0 = enc0_ns if born_ns <= enc0_ns <= now else now
+    enc1 = max(enc0, min(enc1_ns, now)) if enc1_ns else enc0
+    tracer.span("traj", ctx.trace_id, "env", born_ns, enc0,
+                agent=agent_id, version=int(version))
+    if enc1 > enc0:
+        tracer.span("traj", ctx.trace_id, "encode", enc0, enc1,
+                    agent=agent_id)
+    return ctx
+
+
+def _traced_send(owner, payload: bytes, agent_id: str, ctx) -> None:
+    """Ship one trajectory through the owner's spool (or straight to its
+    transport) with the trace context, if any, on the envelope id, and
+    record the ``send`` hop."""
+    import time
+
+    t0 = time.monotonic_ns() if ctx is not None else 0
+    trace = None if ctx is None else ctx.encode()
+    if owner.spool is not None:
+        owner.spool.send(payload, agent_id, trace=trace)
+    else:
+        from relayrl_tpu_torch.transport.base import tag_agent_trace
+
+        _send_direct(owner.transport, payload,
+                     agent_id if trace is None
+                     else tag_agent_trace(agent_id, trace))
+    if ctx is not None:
+        from relayrl_tpu_torch.telemetry import trace as trace_mod
+
+        trace_mod.get_tracer().span("traj", ctx.trace_id, "send", t0,
+                                    time.monotonic_ns(), agent=agent_id)
+
+
+def _start_fleet_emitter(owner, tier: str):
+    """Start the per-process fleet snapshot emitter
+    (telemetry/aggregate.py) when the plane is on: registry live AND
+    ``telemetry.fleet_interval_s`` > 0. The frame rides the owner's agent
+    transport beside trajectories (no new socket); shared by Agent,
+    VectorAgent and the thin clients. Returns the emitter or None."""
+    from relayrl_tpu_torch import telemetry
+
+    reg = telemetry.get_registry()
+    try:
+        interval = float(owner.config.get_telemetry_params()
+                         .get("fleet_interval_s") or 0.0)
+    except Exception:
+        interval = 0.0
+    if not reg.enabled or interval <= 0:
+        return None
+    from relayrl_tpu_torch.telemetry.aggregate import FleetEmitter
+
+    transport = owner.transport
+
+    def send(frame: bytes, wire_id: str) -> None:
+        transport.send_trajectory(frame, agent_id=wire_id)
+
+    return FleetEmitter(send, proc=transport.identity, tier=tier,
+                        interval_s=interval, registry=reg)
+
+
+def _close_fleet_emitter(owner) -> None:
+    """Final-frame flush and thread stop BEFORE the transport closes (the
+    last frame carries this life's closing totals to the root)."""
+    emitter = getattr(owner, "_fleet_emitter", None)
+    if emitter is not None:
+        emitter.close(final=True)
+        owner._fleet_emitter = None
 
 
 def _bind_spool_impl(owner, name: str) -> None:
@@ -182,6 +273,7 @@ class Agent:
         self.actor = None
         self.transport = None
         self.spool = None  # TrajectorySpool, built on first enable
+        self._fleet_emitter = None
         self.active = False
         _load_kernels(device)
         if start:
@@ -214,6 +306,7 @@ class Agent:
         self.transport.on_model = self._on_model
         self.transport.on_reconnect = self._handle_reconnect
         self.transport.start_model_listener()
+        self._fleet_emitter = _start_fleet_emitter(self, "actor")
         self.active = True
         from relayrl_tpu_torch import telemetry
 
@@ -221,10 +314,13 @@ class Agent:
                        version=version, side="agent")
 
     def _send_traj(self, payload: bytes) -> None:
-        if self.spool is not None:
-            self.spool.send(payload, self.transport.identity)
-        else:
-            _send_direct(self.transport, payload, self.transport.identity)
+        # Runs inside Trajectory.flush, so the trajectory's born and
+        # encode stamps describe exactly the chunk in `payload`.
+        traj = self.actor.trajectory
+        ctx = _trace_emit(self.transport.identity, traj.born_ns,
+                          traj.encode_t0_ns, traj.encode_t1_ns,
+                          self.actor.version)
+        _traced_send(self, payload, self.transport.identity, ctx)
 
     def _bind_spool(self) -> None:
         name = self._addr_overrides.get("identity") or "agent"
@@ -236,6 +332,7 @@ class Agent:
     def disable_agent(self) -> None:
         if not self.active:
             return
+        _close_fleet_emitter(self)
         if self.spool is not None:
             # The spool outlives the transport; a send while disabled
             # buffers instead of touching a closed socket.
@@ -379,6 +476,7 @@ class VectorAgent:
         self.host = None
         self.transport = None
         self.spool = None
+        self._fleet_emitter = None
         self.agent_ids: list[str] = []
         self.active = False
         _load_kernels(device)
@@ -444,6 +542,7 @@ class VectorAgent:
         self.transport.on_reconnect = (
             lambda: _handle_reconnect_impl(self, self.agent_ids))
         self.transport.start_model_listener()
+        self._fleet_emitter = _start_fleet_emitter(self, "actor")
         self.active = True
         from relayrl_tpu_torch import telemetry
 
@@ -457,6 +556,7 @@ class VectorAgent:
             # An async-emit anakin host drains its queued windows onto the
             # wire and stops its emitter; enable_agent restarts it.
             self.host.close()
+        _close_fleet_emitter(self)
         if self.spool is not None:
             self.spool.send_fn = None  # see Agent.disable_agent
         self.transport.close()
@@ -464,23 +564,49 @@ class VectorAgent:
         self.active = False
 
     def _send_lane(self, lane: int, payload: bytes) -> None:
+        # Emission stamps are read BEFORE the interceptor: it may withhold
+        # and re-inject much later, when the host's stamps describe
+        # another episode (re-injected payloads trace through the RLHF
+        # plane's own stage spans instead).
+        stamps = self._emit_stamps(lane)
         if self._send_interceptor is not None:
             payload = self._send_interceptor(lane, payload)
             if payload is None:
                 return  # the stage owns it now; emit_lane re-injects
-        self.emit_lane(lane, payload)
+        self.emit_lane(lane, payload, _stamps=stamps)
 
-    def emit_lane(self, lane: int, payload: bytes) -> None:
+    def _emit_stamps(self, lane: int):
+        """(born_ns, encode_t0_ns, encode_t1_ns) for the payload being
+        emitted right now, or None when tracing is off: an anakin host
+        stamps ``_last_emit_stamps`` per segment; the vector tier reads
+        the lane trajectory's chunk stamps (we are inside its flush)."""
+        from relayrl_tpu_torch.telemetry import trace as trace_mod
+
+        if not trace_mod.get_tracer().enabled:
+            return None
+        host = self.host
+        stamps = getattr(host, "_last_emit_stamps", None)
+        if stamps is not None:
+            return stamps
+        trajs = getattr(host, "trajectories", None)
+        if trajs is None:
+            return None
+        traj = trajs[lane]
+        return (traj.born_ns, traj.encode_t0_ns, traj.encode_t1_ns)
+
+    def emit_lane(self, lane: int, payload: bytes, _stamps=None) -> None:
         """Ship one lane's serialized episode through the spool or straight
         to the transport: the re-injection surface of a
         ``send_interceptor`` stage. Spool sequence numbers are assigned
         here, so a withheld episode enters the at-least-once window only
         once it is final: a replay after a crash redelivers the scored
         bytes, never the unscored ones."""
-        if self.spool is not None:
-            self.spool.send(payload, self.agent_ids[lane])
-        else:
-            _send_direct(self.transport, payload, self.agent_ids[lane])
+        ctx = None
+        if _stamps is not None:
+            born_ns, enc0, enc1 = _stamps
+            ctx = _trace_emit(self.agent_ids[lane], born_ns, enc0, enc1,
+                              self.host.version)
+        _traced_send(self, payload, self.agent_ids[lane], ctx)
 
     def _on_model(self, version: int, bundle_bytes: bytes) -> None:
         # ONE receipt serves all lanes: a single wire-aware swap

@@ -29,8 +29,10 @@ window into pinned host buffers (its ``device_get``; two buffers, so an
 off-thread emitter never reads one the next window is copied into), then
 a replay into the per-lane trajectory streams, per record or as columnar
 frames, byte-equal to what a vector host would have put on the wire for
-the same steps. Not ported: the tracing stamps (the port's server refuses
-tracing, ROADMAP queue 1 item 12).
+the same steps. With tracing on, the window's production stamp (taken on
+the host before the replay, never inside the captured graph) and each
+frame's encode bracket become the ``env`` and ``encode`` hops of an
+emitted segment's trajectory trace.
 """
 
 from __future__ import annotations
@@ -261,6 +263,12 @@ class AnakinActorHost:
         # of one lane in one batch-container send, flushed at window end.
         self.emit_coalesce = max(1, int(emit_coalesce_frames))
         self._coalesce_buf: list[list[bytes]] = [[] for _ in range(self.num_envs)]
+        # Tracing stamps (telemetry/trace.py): the window production stamp
+        # (rollout start, on the host) plus the last frame's encode
+        # bracket, read by VectorAgent._emit_stamps when it mints a
+        # trajectory trace context for an emitted columnar segment.
+        self._window_born_ns = 0
+        self._last_emit_stamps: tuple[int, int, int] | None = None
         self.trajectories = [
             Trajectory(
                 max_length=max_traj_length,
@@ -279,7 +287,7 @@ class AnakinActorHost:
         # overlapping the next window; the hand-off is bounded (depth 2).
         self.async_emit = bool(async_emit)
         self._emit_cond = threading.Condition()
-        self._emit_queue: list[dict] = []
+        self._emit_queue: list[tuple[int, dict]] = []
         self._emit_pending = 0
         self._emit_error: Exception | None = None
         self._emit_stop = False
@@ -446,6 +454,7 @@ class AnakinActorHost:
         ``{"steps", "episodes", "dispatch_s", "unstack_s", ...}``;
         completed episode returns accumulate on :attr:`episode_returns`."""
         t0 = time.monotonic()
+        born_ns = time.monotonic_ns()
         with self._lock:
             # One params read under the lock for the whole window: every
             # step of it is computed by a single model version.
@@ -461,7 +470,7 @@ class AnakinActorHost:
                     self._emit_cond.wait(0.5)
         host_window = self.window_to_host()
         t1 = time.monotonic()
-        episodes = self._emit(host_window, version)
+        episodes = self._emit(host_window, version, born_ns)
         t2 = time.monotonic()
         steps = self.num_envs * self.unroll_length
         self._m_steps.inc(steps)
@@ -474,7 +483,8 @@ class AnakinActorHost:
                 "encode_s": t2 - t1 if self.columnar_wire else 0.0,
                 "wire": "columnar" if self.columnar_wire else "records"}
 
-    def _emit(self, host_window: dict, version: int) -> int:
+    def _emit(self, host_window: dict, version: int,
+              born_ns: int = 0) -> int:
         """Hand a host window to the wire: stamp ``bver`` (the whole window
         is one model version, so the stamp is a fill), then the emitter
         thread, the columnar frames or the per-record streams. Returns the
@@ -487,10 +497,11 @@ class AnakinActorHost:
                 (self.num_envs, self.unroll_length), version, np.int32)
         if self.async_emit:
             with self._emit_cond:
-                self._emit_queue.append(host_window)
+                self._emit_queue.append((born_ns, host_window))
                 self._emit_pending += 1
                 self._emit_cond.notify_all()
             return 0
+        self._window_born_ns = born_ns
         if self.columnar_wire:
             return self._emit_columnar(host_window)
         return self._unstack(host_window)
@@ -514,7 +525,8 @@ class AnakinActorHost:
                     self._emit_cond.wait(0.5)
                 if self._emit_stop and not self._emit_queue:
                     return
-                w = self._emit_queue.pop(0)
+                born_ns, w = self._emit_queue.pop(0)
+            self._window_born_ns = born_ns  # single emitter thread
             t0 = time.monotonic()
             try:
                 if self.columnar_wire:
@@ -663,7 +675,15 @@ class AnakinActorHost:
                      "r": r, "t": t_col, "u": u_col, "x": x_col},
             aux={k: self._cat(chunks) for k, chunks in p["aux"].items()},
             final_obs=final if time_limited else None)
-        frame = encode_columnar_frame(dt)
+        from relayrl_tpu_torch.telemetry import trace as trace_mod
+
+        if trace_mod.get_tracer().enabled:
+            enc0 = time.monotonic_ns()
+            frame = encode_columnar_frame(dt)
+            self._last_emit_stamps = (self._window_born_ns or enc0,
+                                      enc0, time.monotonic_ns())
+        else:
+            frame = encode_columnar_frame(dt)
         self._m_frames.inc()
         self._m_frame_bytes.inc(len(frame))
         if self.emit_coalesce > 1:

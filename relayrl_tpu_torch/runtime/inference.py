@@ -41,8 +41,10 @@ from its publish path in-process. Standalone mode:
 :class:`StandaloneInferenceHost` subscribes over any agent transport like
 an actor would and hosts the same service.
 
-Not ported here: distributed tracing and the fleet snapshot emitter
-(``ROADMAP.md`` queue 1 item 12); a request's trace fields stay None.
+With tracing on, a sampled request records the ``serve`` plane's
+``queue`` and ``dispatch`` spans, and a thin client's episodes draw
+trajectory trace contexts as an agent's do; with the fleet plane on, the
+thin clients ship their registry snapshots like agents.
 """
 
 from __future__ import annotations
@@ -114,7 +116,9 @@ class InferRequest:
         self.window_row = None
         self.window_t = 0
         self.t_enqueue = time.monotonic()
-        # Distributed tracing is not ported: the trace fields stay unset.
+        # Distributed tracing (telemetry/trace.py): a sampled request
+        # draws a serve-plane trace id at submit; its queue and dispatch
+        # hops record at batch execution.
         self.trace = None
         self.t_enqueue_ns = 0
 
@@ -470,6 +474,15 @@ class InferenceService:
         when the queue is at ``serving.queue_limit`` (False — bounded
         queue = bounded worst-case latency; the client's retry-after
         honor is the backpressure loop)."""
+        from relayrl_tpu_torch.telemetry import trace as trace_mod
+
+        tracer = trace_mod.get_tracer()
+        if tracer.enabled:
+            # Both trace fields are final BEFORE the request becomes
+            # visible to the batch worker, which reads them at gather.
+            req.trace = tracer.sample_id("serve")
+            if req.trace is not None:
+                req.t_enqueue_ns = time.monotonic_ns()
         with self._cond:
             if len(self._queue) >= self.queue_limit or self._stop.is_set():
                 overloaded = True
@@ -602,6 +615,20 @@ class InferenceService:
         self._m_dispatch_s.observe(now - t0)
         for req in batch:
             self._m_request_s.observe(now - req.t_enqueue)
+        traced = [req for req in batch if req.trace is not None]
+        if traced:
+            # Serve-plane hop spans for sampled requests: queue (enqueue
+            # to batch gather) and dispatch (gather to reply handoff).
+            from relayrl_tpu_torch.telemetry import trace as trace_mod
+
+            tracer = trace_mod.get_tracer()
+            now_ns = time.monotonic_ns()
+            t0_ns = now_ns - int((now - t0) * 1e9)
+            for req in traced:
+                tracer.span("serve", req.trace, "queue",
+                            req.t_enqueue_ns, t0_ns, agent=req.agent_id)
+                tracer.span("serve", req.trace, "dispatch", t0_ns,
+                            now_ns, occupancy=len(batch))
 
     # -- session table (serving v2; worker thread only) --
     #
@@ -912,6 +939,7 @@ class RemoteActorClient:
         self._serving_overrides: dict = {}
         self.transport = None
         self.spool = None
+        self._fleet_emitter = None
         self._serving = None
         self._breaker = None
         self._retry = None
@@ -1011,6 +1039,9 @@ class RemoteActorClient:
         self._serving = make_serving_client(
             self.server_type, self.config, transport=self.transport,
             **serving_overrides)
+        from relayrl_tpu_torch.runtime.agent import _start_fleet_emitter
+
+        self._fleet_emitter = _start_fleet_emitter(self, "client")
         self.active = True
         from relayrl_tpu_torch import telemetry
 
@@ -1020,6 +1051,9 @@ class RemoteActorClient:
     def disable_agent(self) -> None:
         if not self.active:
             return
+        from relayrl_tpu_torch.runtime.agent import _close_fleet_emitter
+
+        _close_fleet_emitter(self)
         if self.spool is not None:
             self.spool.send_fn = None
         if self._serving is not None:
@@ -1040,12 +1074,16 @@ class RemoteActorClient:
         _handle_reconnect_impl(self, [self.transport.identity])
 
     def _send_traj(self, payload: bytes) -> None:
-        if self.spool is not None:
-            self.spool.send(payload, self.transport.identity)
-        else:
-            from relayrl_tpu_torch.runtime.agent import _send_direct
+        # Trajectory tracing as Agent._send_traj: the thin client's
+        # episodes draw trace contexts too (the env hop is the
+        # round-trip-served production window).
+        from relayrl_tpu_torch.runtime.agent import _trace_emit, _traced_send
 
-            _send_direct(self.transport, payload, self.transport.identity)
+        traj = self.trajectory
+        ctx = _trace_emit(self.transport.identity, traj.born_ns,
+                          traj.encode_t0_ns, traj.encode_t1_ns,
+                          self.version)
+        _traced_send(self, payload, self.transport.identity, ctx)
 
     # -- action API (PolicyActor-shaped) --
     def request_for_action(self, obs, mask=None,
@@ -1352,6 +1390,7 @@ class MultiplexedRemoteClient:
         self.version = -1
         self.transport = None
         self.spool = None
+        self._fleet_emitter = None
         self._clients: list = []       # one streaming client per replica
         self._lane_client: list[int] = []  # lane -> client index
         self._retry = None
@@ -1439,6 +1478,9 @@ class MultiplexedRemoteClient:
         self._lane_client = [
             zlib.crc32(sid.encode()) % len(self._clients)
             for sid in self._sids]
+        from relayrl_tpu_torch.runtime.agent import _start_fleet_emitter
+
+        self._fleet_emitter = _start_fleet_emitter(self, "client")
         self.active = True
         from relayrl_tpu_torch import telemetry
 
@@ -1448,6 +1490,9 @@ class MultiplexedRemoteClient:
     def disable_agent(self) -> None:
         if not self.active:
             return
+        from relayrl_tpu_torch.runtime.agent import _close_fleet_emitter
+
+        _close_fleet_emitter(self)
         if self.spool is not None:
             self.spool.send_fn = None
         for client in self._clients:

@@ -118,10 +118,13 @@ class InflightWindow:
         """Dispatched-but-unfenced updates (the drain() contract)."""
         return len(self._entries)
 
-    def push(self, metrics: LazyMetrics | None, event=None) -> None:
+    def push(self, metrics: LazyMetrics | None, event=None,
+             version: int | None = None) -> None:
         """Record one dispatched update; blocks only when the window is
-        already full (fencing the oldest)."""
-        self._entries.append((metrics, event))
+        already full (fencing the oldest). ``version`` (the dispatching
+        algorithm's host version mirror) labels the eventual fence span
+        on the distributed-tracing plane; never read otherwise."""
+        self._entries.append((metrics, event, version))
         self.dispatch_count += 1
         while len(self._entries) > self.max_in_flight:
             self._fence_oldest()
@@ -134,13 +137,26 @@ class InflightWindow:
             self._fence_oldest()
 
     def _fence_oldest(self) -> None:
-        metrics, event = self._entries.popleft()
+        metrics, event, version = self._entries.popleft()
         t0 = time.monotonic()
+        t0_ns = 0
+        if version is not None:
+            from relayrl_tpu_torch.telemetry import trace as trace_mod
+
+            tracer = trace_mod.get_tracer()
+            if tracer.enabled and tracer.sample_version(version):
+                t0_ns = time.monotonic_ns()
         if event is not None:
             event.synchronize()
         if metrics is not None:
             metrics.resolve()  # the update's one device-to-host copy
         dt = time.monotonic() - t0
+        if t0_ns:
+            from relayrl_tpu_torch.telemetry import trace as trace_mod
+
+            trace_mod.get_tracer().span(
+                "model", trace_mod.model_trace_id(version), "fence",
+                t0_ns, time.monotonic_ns(), version=int(version))
         self.device_wait_s += dt
         self.fenced_count += 1
         self._m_device_wait.observe(dt)

@@ -10,9 +10,12 @@ episode's first step), dropped at an episode boundary, and dropped when
 the window starts rolling or the greedy path advances the window; the
 window path, one forward over the padded window, serves then, and always
 for ``use_kv_cache=False``. A networked agent's model deliveries go
-through :func:`apply_wire_swap` (model-wire v2 frames, or v1 bundles);
-plain integer counters stand in for the telemetry counters and trace
-hooks.
+through :func:`apply_wire_swap` (model-wire v2 frames, or v1 bundles).
+A swap observes ``relayrl_actor_swap_seconds``, journals ``model_swap``
+and, for a sampled version, records the model trace's terminal ``swap``
+hop; every env step counts into ``relayrl_actor_env_steps_total``. The
+plain counters ``steps_served`` and ``swaps`` stay beside them for
+callers that read a host's own totals.
 
 Records carry what the JAX actors put on the wire: ``act`` an int32 array
 (discrete) or a float32 vector (continuous), ``logp_a`` and ``v`` float32
@@ -92,12 +95,20 @@ def apply_bundle_swap(actor, bundle: ModelBundle, flat: bool = False) -> bool:
     so a dispatch in flight waits only for the pointer swap. ``flat``
     moves them in one host-to-device copy into a clone of the live module
     (the wire path) instead of one copy per leaf."""
+    import time
+
+    from relayrl_tpu_torch import telemetry
+    from relayrl_tpu_torch.telemetry import trace as trace_mod
+
     if bundle.version <= actor.version:
         return False
     if not arch_equal(bundle.arch, actor.arch):
         raise ValueError(
             f"model arch changed {actor.arch} -> {bundle.arch}; "
             "actor refuses hot-swap (param-ABI guard)")
+    tracer = trace_mod.get_tracer()
+    t0_ns = time.monotonic_ns() if tracer.enabled else 0
+    t0 = time.monotonic()
     if flat:
         import copy
 
@@ -117,6 +128,18 @@ def apply_bundle_swap(actor, bundle: ModelBundle, flat: bool = False) -> bool:
         actor.params = params
         actor.version = bundle.version
         actor.swaps += 1
+    telemetry.get_registry().histogram(
+        "relayrl_actor_swap_seconds",
+        "model hot-swap: lock wait + params install").observe(
+            time.monotonic() - t0)
+    if tracer.enabled and tracer.sample_version(bundle.version):
+        # The downstream trace's terminal hop: this actor host applied the
+        # sampled version (the actor field tells apart hosts that share
+        # one process).
+        tracer.span("model", trace_mod.model_trace_id(bundle.version),
+                    "swap", t0_ns, time.monotonic_ns(),
+                    version=int(bundle.version), actor=f"{id(actor):x}")
+    telemetry.emit("model_swap", version=bundle.version)
     return True
 
 
@@ -328,6 +351,11 @@ class PolicyActor:
         self.swaps = 0
         # Model-wire v2 decode state, created on the first v2 frame.
         self._wire_decoder = None
+        from relayrl_tpu_torch import telemetry
+
+        self._m_steps = telemetry.get_registry().counter(
+            "relayrl_actor_env_steps_total",
+            "policy steps served (one per env step per lane)")
 
     def request_for_action(self, obs, mask=None,
                            reward: float = 0.0) -> ActionRecord:
@@ -370,6 +398,7 @@ class PolicyActor:
             )
             self.trajectory.add_action(record, send_if_done=True)
             self.steps_served += 1
+        self._m_steps.inc()
         return record
 
     def flag_last_action(

@@ -40,10 +40,17 @@ on its device, fed every publish in-process: in-band ``GetActions`` and
 ``StreamActions`` on the pure-grpcio backend, else the ZMQ ROUTER plane
 at ``server.inference_server``.
 
-Two parts of the JAX server are not ported; the constructor raises
-:class:`NotImplementedError` when the config turns one on: distributed
-tracing and fleet aggregation (``ROADMAP.md`` queue 1 item 12) and
-multi-host (item 11), as does the tensorboard writer (item 12).
+Distributed tracing (``telemetry.trace_sample_rate > 0``) records the
+ingest, dedup, staging and update hops of every sampled trajectory and
+the dispatch, fence, encode and publish hops of every sampled version;
+fleet aggregation (``telemetry.fleet_interval_s > 0``) makes this server
+the fleet's root: snapshot frames from agents and relays land in a
+:class:`~relayrl_tpu_torch.telemetry.aggregate.FleetTable` behind
+``/fleet``, and the SLO alert rules run over the merged snapshot each
+interval. ``tensorboard=True`` tails the epoch log into TensorBoard
+scalars. The multi-host server is not ported (``ROADMAP.md`` queue 1 item
+11): the constructor raises :class:`NotImplementedError` when the config
+asks for more than one process.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from relayrl_tpu_torch.algorithms import build_algorithm, registered_algorithms
 from relayrl_tpu_torch.config import ConfigLoader
 from relayrl_tpu_torch.models import resolve_device
 from relayrl_tpu_torch.telemetry.aggregate import is_snapshot_frame
+from relayrl_tpu_torch.telemetry.trace import split_ctx
 from relayrl_tpu_torch.transport.base import (
     BATCH_KIND_ENVELOPES,
     batch_kind,
@@ -72,13 +80,28 @@ from relayrl_tpu_torch.transport.base import (
 from relayrl_tpu_torch.types.columnar import DecodedTrajectory
 from relayrl_tpu_torch.types.trajectory import deserialize_actions
 
-def split_ctx(agent_id: str) -> tuple[str, str | None]:
-    """Strip a trace-context tag (``#t<trace>.<hop>.<ver>``) off an
-    envelope id, as the JAX package's ``telemetry.trace.split_ctx`` does,
-    so a traced JAX agent's ids attribute cleanly here."""
-    from relayrl_tpu_torch.transport.base import split_agent_trace
 
-    return split_agent_trace(agent_id)
+class _TracedRecords(list):
+    """A ``list[ActionRecord]`` that can carry a trace context attribute
+    (plain lists cannot); behaves identically through accumulate."""
+
+    trace_ctx = None
+
+
+def _attach_trace_ctx(item, ctx):
+    """Hang a sampled trajectory's trace context on the decoded item so
+    the learner thread can attribute the consuming update dispatch."""
+    if isinstance(item, DecodedTrajectory):
+        item.trace_ctx = ctx
+        return item
+    if isinstance(item, list):
+        if item and isinstance(item[0], DecodedTrajectory):
+            item[0].trace_ctx = ctx  # coalesced frames: one ctx, one seq
+            return item
+        wrapped = _TracedRecords(item)
+        wrapped.trace_ctx = ctx
+        return wrapped
+    return item
 
 
 class _EventCoalescer:
@@ -106,16 +129,9 @@ class _EventCoalescer:
         return due
 
 
-def _refuse_unported(config: ConfigLoader, tensorboard) -> None:
-    """Raise for every JAX-server feature the config turns on that the
-    port does not have."""
-    tel = config.get_telemetry_params()
-    if (tel.get("trace_sample_rate") or 0) > 0 or \
-            (tel.get("fleet_interval_s") or 0) > 0:
-        raise NotImplementedError(
-            "distributed tracing and fleet aggregation are not ported "
-            "(ROADMAP.md queue 1 item 12); set telemetry.trace_sample_rate "
-            "and telemetry.fleet_interval_s to 0")
+def _refuse_unported(config: ConfigLoader) -> None:
+    """Raise when the config asks for the multi-host server, the one
+    part of the JAX server the port does not have."""
     dist = dict(config.get_learner_params().get("distributed") or {})
     coordinator = (os.environ.get("RELAYRL_COORDINATOR")
                    or os.environ.get("JAX_COORDINATOR_ADDRESS")
@@ -127,10 +143,6 @@ def _refuse_unported(config: ConfigLoader, tensorboard) -> None:
         raise NotImplementedError(
             "the multi-host server is not ported (ROADMAP.md queue 1 item "
             "11); run one process")
-    if tensorboard:
-        raise NotImplementedError(
-            "the tensorboard writer is not ported (ROADMAP.md queue 1 item "
-            "12); read the epoch log (progress.txt) instead")
 
 
 class TrainingServer:
@@ -155,7 +167,7 @@ class TrainingServer:
         **addr_overrides,
     ):
         self.config = ConfigLoader(algorithm_name, config_path)
-        _refuse_unported(self.config, tensorboard)
+        _refuse_unported(self.config)
         self.server_type = server_type
         self._addr_overrides = addr_overrides
         self.device = resolve_device(device)
@@ -225,6 +237,35 @@ class TrainingServer:
         self._ckpt_consecutive_failures = 0
         self._drop_events = _EventCoalescer()
         self._dup_events = _EventCoalescer()
+
+        # Fleet telemetry aggregation (telemetry/aggregate.py): the root
+        # holds the fleet table. Every process's snapshot frames land
+        # here through the ordinary ingest funnel (sniffed by RLS1 magic
+        # in _ingest_one, O(relays) frames under a relay tree); the fleet
+        # tick folds this server's own registry in, evicts stale procs
+        # and runs the SLO alert rules over the merged snapshot. Gated
+        # like tracing: registry live AND telemetry.fleet_interval_s > 0.
+        tel_params = self.config.get_telemetry_params()
+        self._fleet = None
+        self._alerts = None
+        self._fleet_interval_s = float(tel_params.get("fleet_interval_s")
+                                       or 0.0)
+        self._fleet_stop = threading.Event()
+        self._fleet_thread: threading.Thread | None = None
+        self._fleet_proc = f"server-{os.getpid()}"
+        if reg.enabled and self._fleet_interval_s > 0:
+            from relayrl_tpu_torch.telemetry.aggregate import (
+                AlertEngine,
+                FleetTable,
+                rules_from_config,
+            )
+
+            self._fleet = FleetTable(
+                stale_s=tel_params.get("fleet_stale_s", 15.0), registry=reg)
+            self._alerts = AlertEngine(rules_from_config(tel_params),
+                                       registry=reg)
+            if self._exporter is not None:
+                self._exporter.set_fleet(self._fleet, self._alerts)
 
         from relayrl_tpu_torch import faults
 
@@ -422,6 +463,9 @@ class TrainingServer:
         from collections import deque
 
         self._pending_logs: deque = deque()
+        # Sampled trajectory contexts consumed since the last dispatch
+        # (learner thread only), closed out by _trace_dispatch.
+        self._trace_pending: deque = deque(maxlen=8192)
         self._timings_lock = threading.Lock()
         # "dropped": transport/queue losses; "learner_errors": exceptions
         # the learner thread caught (zero in a healthy run);
@@ -447,6 +491,13 @@ class TrainingServer:
                         "device_wait_s": 0.0, "publish_s": 0.0,
                         "learner_idle_s": 0.0, "warmup_s": 0.0}
         self._warmup_done = threading.Event()
+
+        self._tb = None
+        if tensorboard:
+            from relayrl_tpu_torch.utils.tb_writer import TensorboardWriter
+
+            self._tb = TensorboardWriter.from_logger(
+                self.algorithm.logger, self.config.get_tb_params())
 
         if handle_signals:
             self._install_signal_handlers()
@@ -545,6 +596,12 @@ class TrainingServer:
                   "thread — skipped (install handlers in your main thread "
                   "and call disable_server there instead)", flush=True)
 
+    @staticmethod
+    def _get_tracer():
+        from relayrl_tpu_torch.telemetry import trace as trace_mod
+
+        return trace_mod.get_tracer()
+
     # -- transport callbacks (transport threads!) --
     def _count_dropped(self, n: int = 1) -> None:
         with self._timings_lock:
@@ -581,16 +638,18 @@ class TrainingServer:
 
     def _admit_seq(self, agent_id: str):
         """Split the sequence and trace tags off an envelope id and
-        consult the dedup ledger: ``(clean_agent_id, seq, admit)``.
-        Untagged ids admit with seq None."""
+        consult the dedup ledger: ``(clean_agent_id, seq, ctx, admit)``.
+        Both tags strip unconditionally: a trace context never leaks into
+        attribution or quarantine keys, even when this process records no
+        spans. Untagged ids admit with seq and ctx None."""
         clean_id, seq = split_agent_seq(agent_id)
-        clean_id, _ctx = split_ctx(clean_id)
+        clean_id, ctx = split_ctx(clean_id)
         if seq is None or self._ingest_ledger is None:
-            return clean_id, seq, True
+            return clean_id, seq, ctx, True
         if not self._ingest_ledger.accept(clean_id, seq):
             self._count_duplicate()
-            return clean_id, seq, False
-        return clean_id, seq, True
+            return clean_id, seq, ctx, False
+        return clean_id, seq, ctx, True
 
     def _retract(self, agent_id: str, seq) -> None:
         """Un-see a seq: the payload never reached the learner, so the
@@ -651,7 +710,17 @@ class TrainingServer:
     def _ingest_one(self, agent_id: str, payload: bytes,
                     depth: int = 0) -> None:
         if is_snapshot_frame(payload):
-            return  # a fleet telemetry frame: aggregation is not ported
+            # Fleet telemetry frame: to the fleet table BEFORE dedup and
+            # guardrails (telemetry carries no seqs and never strikes a
+            # quarantine book); a fleet-less server drops it as inert
+            # noise rather than a decode failure.
+            fleet = self._fleet
+            if fleet is not None:
+                try:
+                    fleet.ingest_frame(payload)
+                except ValueError as e:
+                    swallow_decode_error(self.server_type, "fleet_frame", e)
+            return
         if batch_kind(payload) == BATCH_KIND_ENVELOPES and depth < 8:
             # One send carrying N whole envelopes (a relay's upstream
             # forward): each inner envelope goes through the per-agent
@@ -672,7 +741,23 @@ class TrainingServer:
                     continue
                 self._ingest_one(inner_id, inner_payload, depth=depth + 1)
             return
-        agent_id, seq, admit = self._admit_seq(agent_id)
+        # Trace hops (telemetry/trace.py): clock reads gate on a live
+        # tracer, span recording on the envelope carrying a sampled
+        # context; the untraced path pays one attribute check.
+        tracer = self._get_tracer()
+        t_arr = time.monotonic_ns() if tracer.enabled else 0
+        agent_id, seq, ctx, admit = self._admit_seq(agent_id)
+        if not tracer.enabled:
+            # The tag is stripped regardless; the context only FLOWS when
+            # this process traces (a trace-off server in a traced fleet
+            # must not accumulate contexts it never drains).
+            ctx = None
+        elif ctx is not None:
+            t_ded = time.monotonic_ns()
+            tracer.span("traj", ctx.trace_id, "ingest", t_arr, t_arr,
+                        agent=agent_id, seq=seq)
+            tracer.span("traj", ctx.trace_id, "dedup", t_arr, t_ded,
+                        admitted=bool(admit))
         if not admit:
             return
         g = self.guardrails
@@ -696,7 +781,7 @@ class TrainingServer:
                 if verdict == "evict":
                     self._evict_oldest_raw()
         try:
-            self._ingest.put_nowait((agent_id, seq, payload))
+            self._ingest.put_nowait((agent_id, seq, ctx, payload))
             if g is not None and g.admission is not None:
                 g.admission.note_enqueued(agent_id)
         except queue.Full:
@@ -709,7 +794,7 @@ class TrainingServer:
         retracted from the dedup ledger, so its actor's spool can
         redeliver it when pressure clears."""
         try:
-            victim_id, victim_seq, _ = self._ingest.get_nowait()
+            victim_id, victim_seq, _ctx, _ = self._ingest.get_nowait()
         except queue.Empty:
             return
         self._ingest.task_done()
@@ -730,9 +815,20 @@ class TrainingServer:
         the quarantine shed, then validation (admission governs the raw
         ingest queue; the native core bounds this plane's depth)."""
         g = self.guardrails
+        tracer = self._get_tracer()
+        t_arr = time.monotonic_ns() if tracer.enabled else 0
         admitted = []
         for item in batch:
-            clean_id, seq, admit = self._admit_seq(item.agent_id)
+            clean_id, seq, ctx, admit = self._admit_seq(item.agent_id)
+            if ctx is not None and tracer.enabled:
+                # The native core already decoded this payload: the ingest
+                # and dedup hops collapse to the drain's arrival.
+                tracer.span("traj", ctx.trace_id, "ingest", t_arr, t_arr,
+                            agent=clean_id, seq=seq)
+                tracer.span("traj", ctx.trace_id, "dedup", t_arr,
+                            time.monotonic_ns(), admitted=bool(admit))
+                if admit:
+                    item.trace_ctx = ctx
             if not admit:
                 continue
             self._count_decoded(codec)
@@ -869,7 +965,7 @@ class TrainingServer:
         guard = self.guardrails
         while not self._stop.is_set():
             try:
-                agent_id, seq, payload = self._ingest.get(timeout=0.1)
+                agent_id, seq, ctx, payload = self._ingest.get(timeout=0.1)
             except queue.Empty:
                 continue
             if guard is not None and guard.admission is not None:
@@ -877,6 +973,7 @@ class TrainingServer:
             item = None
             columnar = False
             t0 = time.monotonic()
+            t0_ns = time.monotonic_ns() if ctx is not None else 0
             try:
                 if is_columnar_frame(payload):
                     columnar = True
@@ -932,6 +1029,13 @@ class TrainingServer:
             self._m_decode.observe(dt)
             with self._timings_lock:
                 self.timings["decode_s"] += dt
+            if ctx is not None and item is not None:
+                # The staging hop (decode + validate) and the context
+                # handoff: the learner attributes the consuming update.
+                self._get_tracer().span(
+                    "traj", ctx.trace_id, "staging", t0_ns,
+                    time.monotonic_ns(), agent=agent_id)
+                item = _attach_trace_ctx(item, ctx)
             if item is not None:
                 try:
                     self._decoded.put_nowait(item)
@@ -1026,7 +1130,16 @@ class TrainingServer:
             return
         self.stats["trajectories"] += 1
         self._m_trajectories.inc()
-        self._observe_behavior_lag(item, algo)
+        ctx = getattr(item, "trace_ctx", None)
+        if ctx is not None:
+            self._trace_pending.append(ctx)
+        self._observe_behavior_lag(item, algo, ctx)
+        tracer = self._get_tracer()
+        t0_ns = time.monotonic_ns() if tracer.enabled else 0
+        # The version this batch trains FROM (pre-dispatch): the
+        # convention of _observe_behavior_lag's histogram, so the
+        # trace-side version-lag distribution matches it exactly.
+        consume_ver = algo.dispatched_version if tracer.enabled else 0
         t0 = time.monotonic()
         try:
             got = algo.accumulate(item)
@@ -1062,6 +1175,8 @@ class TrainingServer:
         dispatch_dt = time.monotonic() - t0
         self.timings["dispatch_s"] += dispatch_dt
         self._m_dispatch.observe(dispatch_dt)
+        if tracer.enabled and updated:
+            self._trace_dispatch(tracer, algo, t0_ns, consume_ver)
         if updated:
             self.stats["updates"] += 1
             self._m_updates.inc()
@@ -1077,23 +1192,27 @@ class TrainingServer:
         self._flush_ready_logs()
         self._guard_poll()
 
-    def _observe_behavior_lag(self, item, algo) -> None:
+    def _observe_behavior_lag(self, item, algo, ctx=None) -> None:
         """RLHF-plane off-policy evidence: a trajectory whose records carry
         ``bver`` (the params version its generation sampled under, stamped
         per token by ``rlhf/scheduler.py``) observes ``dispatched_version -
-        bver`` into the train-lag histogram, once per trajectory. Other
-        traffic pays one dict lookup. (The JAX server also observes a
-        sampled trace context's born version; the port has no tracing yet,
-        ROADMAP queue 1 item 12.)"""
+        bver`` into the train-lag histogram, once per trajectory. A sampled
+        trace context's born version (stamped at emission) is the same
+        kind of evidence, so bver-less traced trajectories feed the
+        histogram too: the analyzer's version-lag distribution and this
+        histogram then describe the same data. Untraced non-RLHF traffic
+        pays one dict lookup."""
         try:
             if isinstance(item, DecodedTrajectory):
                 arr = (item.aux or {}).get("bver")
                 if arr is None or len(arr) == 0:
+                    self._observe_ctx_lag(algo, ctx)
                     return
                 bver = int(arr.reshape(-1)[0])
             else:
                 data = item[0].data if item else None
                 if not data or "bver" not in data:
+                    self._observe_ctx_lag(algo, ctx)
                     return
                 bver = int(data["bver"])
             self._m_rlhf_train_lag.observe(max(0, algo.dispatched_version - bver))
@@ -1101,6 +1220,40 @@ class TrainingServer:
             # Lag evidence is diagnostics; malformed aux must never touch
             # the ingest path's health.
             pass
+
+    def _observe_ctx_lag(self, algo, ctx) -> None:
+        if ctx is not None and ctx.born_version >= 0:
+            self._m_rlhf_train_lag.observe(
+                max(0, algo.dispatched_version - ctx.born_version))
+
+    def _trace_dispatch(self, tracer, algo, t0_ns: int,
+                        consume_ver: int) -> None:
+        """Close out the tracing of one update dispatch (learner thread):
+        the downstream ``dispatch`` hop for a sampled version, and for
+        every sampled trajectory context consumed since the previous
+        dispatch the upstream ``update`` hop plus the data-age and
+        version-lag observations (skew-guarded: a cross-host born stamp
+        is dropped, never observed)."""
+        from relayrl_tpu_torch.telemetry.trace import (
+            SKEW_GUARD_NS,
+            model_trace_id,
+        )
+
+        t1_ns = time.monotonic_ns()
+        ver = algo.dispatched_version
+        if tracer.sample_version(ver):
+            tracer.span("model", model_trace_id(ver), "dispatch",
+                        t0_ns, t1_ns, version=int(ver))
+        while self._trace_pending:
+            ctx = self._trace_pending.popleft()
+            # version = the version the batch trained FROM.
+            tracer.span("traj", ctx.trace_id, "update", t0_ns, t1_ns,
+                        version=int(consume_ver))
+            age_ns = t1_ns - ctx.born_ns
+            if 0 <= age_ns < SKEW_GUARD_NS:
+                lag = (int(consume_ver) - ctx.born_version
+                       if ctx.born_version >= 0 else None)
+                tracer.observe_data_age(age_ns / 1e9, lag)
 
     def _process_one_legacy(self, item) -> None:
         """Plugin algorithms with only the reference contract: train and
@@ -1122,11 +1275,23 @@ class TrainingServer:
             except Exception as e:
                 self.stats["publish_errors"] += 1
                 print(f"[TrainingServer] publish error: {e!r}", flush=True)
+            self._poll_tensorboard()
+
+    def _poll_tensorboard(self) -> None:
+        """Tail the epoch log into TensorBoard (``tensorboard=True``);
+        a writer error is printed, never raised into the learner."""
+        if self._tb is not None:
+            try:
+                self._tb.poll()
+            except Exception as e:
+                print(f"[TrainingServer] tensorboard error: {e!r}",
+                      flush=True)
 
     def _flush_ready_logs(self, force: bool = False) -> None:
         """Dump deferred epoch logs whose update has been fenced (FIFO).
         Learner thread only."""
         win = self.algorithm.inflight
+        dumped = False
         while self._pending_logs:
             after_dispatch, payload, metrics = self._pending_logs[0]
             if not force and after_dispatch > win.fenced_count:
@@ -1134,8 +1299,11 @@ class TrainingServer:
             self._pending_logs.popleft()
             try:
                 self.algorithm.log_epoch(stats=payload, metrics=metrics)
+                dumped = True
             except Exception as e:
                 self._count_learner_error(e, "log_epoch")
+        if dumped:
+            self._poll_tensorboard()
         self.timings["device_wait_s"] = win.device_wait_s
         if self._publisher is not None:
             self.timings["publish_s"] = self._publisher.publish_s
@@ -1404,6 +1572,8 @@ class TrainingServer:
             return
         enc = self._wire_encoder
         host = (int(version), dict(arch), host_params)
+        tracer = self._get_tracer()
+        traced = tracer.enabled and tracer.sample_version(version)
         try:
             if enc is not None:
                 # The encoder holds this version's frame before the
@@ -1411,17 +1581,28 @@ class TrainingServer:
                 # _bundle_host) moves: a pull subscriber it wakes is then
                 # served that frame, never a full v1 bundle of a version
                 # the encoder has not reached yet.
+                t_enc0 = time.monotonic_ns() if traced else 0
                 frame, info = enc.encode(version, arch, host_params)
+                if traced:
+                    from relayrl_tpu_torch.telemetry.trace import (
+                        model_trace_id,
+                    )
+
+                    tracer.span("model", model_trace_id(version), "encode",
+                                t_enc0, time.monotonic_ns(),
+                                version=int(version), frame_kind=info["kind"],
+                                bytes=info["frame_bytes"])
                 with self._bundle_lock:
                     self._bundle_host = host
                 if getattr(self.transport, "needs_handshake_bytes", False):
                     # The native core answers handshakes from pushed
                     # bytes; a v2 publish rides with the v1 bundle for
                     # set_model.
-                    self._faulted_publish(
-                        version, frame, handshake_bytes=self._get_model()[1])
+                    self._traced_wire_publish(
+                        traced, version, frame,
+                        handshake_bytes=self._get_model()[1])
                 else:
-                    self._faulted_publish(version, frame)
+                    self._traced_wire_publish(traced, version, frame)
                 telemetry.emit("model_publish", version=version,
                                bytes=info["frame_bytes"], kind=info["kind"],
                                raw_bytes=info["raw_bytes"])
@@ -1435,7 +1616,7 @@ class TrainingServer:
                     self._bundle_host = host
                     self._bundle_bytes = raw
                     self._bundle_version = int(version)
-                self._faulted_publish(version, raw)
+                self._traced_wire_publish(traced, version, raw)
                 telemetry.emit("model_publish", version=version,
                                bytes=len(raw))
                 self.last_publish = {"kind": "v1", "frame_bytes": len(raw)}
@@ -1453,6 +1634,24 @@ class TrainingServer:
                 except Exception as e:
                     print(f"[TrainingServer] serving install error: {e!r}",
                           flush=True)
+
+    def _traced_wire_publish(self, traced: bool, version: int,
+                             frame: bytes, **kwargs) -> None:
+        """The ``publish`` hop span (socket broadcast wall time on the
+        publisher thread) around the fault-site-wrapped broadcast."""
+        if not traced:
+            self._faulted_publish(version, frame, **kwargs)
+            return
+        from relayrl_tpu_torch.telemetry.trace import model_trace_id
+
+        t0 = time.monotonic_ns()
+        try:
+            self._faulted_publish(version, frame, **kwargs)
+        finally:
+            self._get_tracer().span(
+                "model", model_trace_id(version), "publish", t0,
+                time.monotonic_ns(), version=int(version),
+                backend=self.server_type)
 
     def _faulted_publish(self, version: int, frame: bytes,
                          **kwargs) -> None:
@@ -1548,6 +1747,32 @@ class TrainingServer:
                       f"(#{self._ckpt_consecutive_failures} consecutive): "
                       f"{e!r}", flush=True)
 
+    # -- fleet telemetry tick --
+    def _fleet_loop(self) -> None:
+        while not self._fleet_stop.wait(self._fleet_interval_s):
+            self._fleet_tick()
+
+    def _fleet_tick(self) -> None:
+        """One aggregation interval at the root: fold this server's own
+        registry into the table, evict stale procs, evaluate the SLO rules
+        over the merged snapshot. Isolated: the pane never takes down the
+        plane it watches."""
+        from relayrl_tpu_torch import telemetry
+
+        try:
+            self._fleet.ingest_registry(self._telemetry, self._fleet_proc,
+                                        "server")
+            for proc in self._fleet.sweep():
+                telemetry.emit("fleet_evict", proc=proc)
+            if self._alerts is not None:
+                # Membership rides along so increase rules rebaseline
+                # across evict/rejoin churn instead of firing on it.
+                self._alerts.evaluate(
+                    self._fleet.merged(),
+                    membership=[p["proc"] for p in self._fleet.procs()])
+        except Exception as e:
+            print(f"[TrainingServer] fleet tick failed: {e!r}", flush=True)
+
     # -- lifecycle --
     def enable_server(self) -> None:
         if self.active:
@@ -1569,6 +1794,11 @@ class TrainingServer:
         self._learner_thread = threading.Thread(
             target=self._learner_loop, name="learner", daemon=True)
         self._learner_thread.start()
+        if self._fleet is not None:
+            self._fleet_stop.clear()
+            self._fleet_thread = threading.Thread(
+                target=self._fleet_loop, name="fleet-tick", daemon=True)
+            self._fleet_thread.start()
         self.active = True
 
     def wait_warmup(self, timeout: float | None = None) -> bool:
@@ -1582,6 +1812,14 @@ class TrainingServer:
         if not self.active:
             return
         self._stop.set()
+        if self._fleet_thread is not None:
+            self._fleet_stop.set()
+            self._fleet_thread.join(timeout=5)
+            self._fleet_thread = None
+            # One closing tick so the table holds this life's final
+            # registry state (and the alerts a last look) before the
+            # ingest plane stops feeding it.
+            self._fleet_tick()
         # Serving plane first: parked thin-client requests answer with a
         # retryable nack instead of hanging out their timeouts against a
         # closing socket.

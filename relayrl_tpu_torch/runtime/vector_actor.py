@@ -90,6 +90,18 @@ class VectorActorHost:
         self.steps_served = 0
         self.dispatches = 0
         self.swaps = 0
+        from relayrl_tpu_torch import telemetry
+
+        reg = telemetry.get_registry()
+        self._m_steps = reg.counter(
+            "relayrl_actor_env_steps_total",
+            "policy steps served (one per env step per lane)")
+        self._m_dispatches = reg.counter(
+            "relayrl_actor_batched_dispatches_total",
+            "batched policy dispatches (each serves num_envs lanes)")
+        reg.gauge("relayrl_actor_lanes",
+                  "env lanes per batched dispatch on this host").set(
+                      self.num_envs)
         # Model-wire v2 decode state, created on the first v2 frame: ONE
         # decoder for all lanes (one subscription, one delta apply, one
         # host-to-device copy, N lanes served).
@@ -148,6 +160,8 @@ class VectorActorHost:
                 records.append(record)
             self.steps_served += self.num_envs
             self.dispatches += 1
+        self._m_steps.inc(self.num_envs)
+        self._m_dispatches.inc()
         return records
 
     def flag_last_action(self, lane: int, reward: float = 0.0,

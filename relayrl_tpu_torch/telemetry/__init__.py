@@ -26,11 +26,17 @@ calls are no-ops so a server and an in-process agent can't fight over
 it. Embedders and benches can instead install a registry directly with
 :func:`set_registry` and serve it with :func:`serve`.
 
-Consume with Prometheus against ``/metrics`` or any JSON poller against
-``/snapshot``.
+Consume with Prometheus against ``/metrics``, any JSON poller against
+``/snapshot``, or the bundled one-screen CLI::
 
-A copy of :mod:`relayrl_tpu.telemetry` without distributed tracing
-(``trace.py``), fleet aggregation (``aggregate.py``) and the ``top`` CLI.
+    python -m relayrl_tpu_torch.telemetry.top --url http://127.0.0.1:9100
+
+Distributed tracing (:mod:`~relayrl_tpu_torch.telemetry.trace`, on with
+``telemetry.trace_sample_rate > 0``) and fleet aggregation with SLO alerts
+(:mod:`~relayrl_tpu_torch.telemetry.aggregate`, on with
+``telemetry.fleet_interval_s > 0``) ride the same registry and journal.
+
+A copy of :mod:`relayrl_tpu.telemetry`.
 """
 
 from __future__ import annotations
@@ -126,8 +132,14 @@ def configure_from_config(config) -> object:
             except OSError as e:
                 print(f"[telemetry] event journal unavailable "
                       f"({events_path}): {e!r}", flush=True)
-        # Distributed tracing is not ported: the training server refuses
-        # telemetry.trace_sample_rate > 0 at construction.
+        # Distributed tracing (telemetry/trace.py): sample_rate 0 (the
+        # default) leaves the shared null tracer installed — every span
+        # site then costs one attribute check.
+        rate = params.get("trace_sample_rate") or 0.0
+        if rate > 0:
+            from relayrl_tpu_torch.telemetry import trace as _trace
+
+            _trace.configure(rate, ring=params.get("trace_ring", 4096))
         return _registry
 
 
@@ -185,6 +197,9 @@ def reset_for_tests() -> None:
         _journal = NullJournal()
         _configured = False
         _serve_port = None
+    from relayrl_tpu_torch.telemetry import trace as _trace
+
+    _trace.reset_for_tests()
 
 
 __all__ = [

@@ -17,8 +17,7 @@ an export renders. Device-valued gauges resolve inside the handler
 thread (the snapshot contract), so a scrape can fence device work but
 the learner/actor threads never do.
 
-A copy of :mod:`relayrl_tpu.telemetry.export`; ``/traces`` serves the
-tracing-off document (distributed tracing is not ported).
+A copy of :mod:`relayrl_tpu.telemetry.export`.
 """
 
 from __future__ import annotations
@@ -140,12 +139,15 @@ class _Handler(BaseHTTPRequestHandler):
                               allow_nan=False).encode()
             self._reply(200, "application/json", body)
         elif path == "/traces":
-            # Distributed tracing is not ported: the same empty,
-            # enabled=false document the JAX package serves with tracing
-            # off, so fleet pollers need no probe-then-fetch dance.
-            self._reply(200, "application/json",
-                        (b'{"schema": "relayrl-trace-v1", "enabled": false, '
-                         b'"sample_rate": 0.0, "spans": []}\n'))
+            # The distributed-tracing flight recorder (telemetry/
+            # trace.py): the process tracer's live span ring. Served
+            # even when tracing is disabled (an empty, enabled=false
+            # document) so fleet pollers need no probe-then-fetch dance.
+            from relayrl_tpu_torch.telemetry import trace as _trace
+
+            body = json.dumps(_trace.traces_document(),
+                              allow_nan=False).encode()
+            self._reply(200, "application/json", body)
         elif path == "/healthz":
             self._reply(200, "text/plain", b"ok\n")
         else:

@@ -29,8 +29,7 @@ port loads neither. A ``TrainingServer`` with ``serving.enabled``
 installs its ``InferenceService`` as ``on_infer`` (``GetActions``, one
 parked RPC thread per request) and ``on_infer_submit``
 (``StreamActions``); without it both answer with the typed "serving is
-not enabled" nack, byte for byte the JAX server's answer. The trace
-receipt hop is dropped (distributed tracing is not ported).
+not enabled" nack, byte for byte the JAX server's answer.
 """
 
 from __future__ import annotations
@@ -610,6 +609,14 @@ class GrpcAgentTransport(AgentTransport):
                     self.on_model(version, bundle)
                 self._m["model_deliver_seconds"].observe(
                     (time.monotonic_ns() - rx_ns) / 1e9)
+                # Downstream trace receipt hop (no publisher stamp on the
+                # pull plane: model age stays a broadcast-side
+                # observation).
+                from relayrl_tpu_torch.telemetry.trace import (
+                    record_model_receipt,
+                )
+
+                record_model_receipt(version, rx_ns, None, "grpc")
 
     def drain_receipts(self, max_n: int = 65536) -> list[tuple[int, int]]:
         """Drain the pre-decode receipt ledger (same surface as the

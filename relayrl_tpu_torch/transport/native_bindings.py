@@ -5,9 +5,8 @@ build of the library (:mod:`relayrl_tpu_torch._native`). Implements the
 same :class:`ServerTransport`/:class:`AgentTransport` interfaces as the
 ZMQ/gRPC backends over the framed-TCP protocol: one control connection
 (handshake + trajectories) and one subscription connection (model
-broadcasts) per agent, one epoll loop thread per server. The trace
-receipt hop is dropped (distributed tracing is not ported), and the
-batch drain hands the embedder the C++-decoded trajectories and the
+broadcasts) per agent, one epoll loop thread per server. The batch
+drain hands the embedder the C++-decoded trajectories and the
 columnar frames it parsed in Python as two calls, so the server can
 count which decoder took each.
 """
@@ -657,6 +656,13 @@ class NativeAgentTransportImpl(AgentTransport):
                 self.on_model(int(version.value), blob)
             self._m["model_deliver_seconds"].observe(
                 max(0.0, (time.monotonic_ns() - int(rx_ns.value)) / 1e9))
+            # Downstream trace receipt hop off the C++ ledger's stamp.
+            from relayrl_tpu_torch.telemetry.trace import (
+                record_model_receipt,
+            )
+
+            record_model_receipt(int(version.value), int(rx_ns.value),
+                                 None, "native")
 
     def close(self) -> None:
         self._stop.set()

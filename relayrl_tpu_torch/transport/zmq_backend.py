@@ -21,8 +21,7 @@ Deliberate redesigns (documented, SURVEY.md §7.5):
 * **Persistent PUSH socket.** The reference opens a fresh PUSH connection per
   trajectory send (trajectory.rs:69-90); here one connected socket per agent.
 
-A copy of :mod:`relayrl_tpu.transport.zmq_backend` without the receipt
-trace hop (distributed tracing is not ported).
+A copy of :mod:`relayrl_tpu.transport.zmq_backend`.
 """
 
 from __future__ import annotations
@@ -502,6 +501,12 @@ class ZmqAgentTransport(AgentTransport):
         self.on_model(version, bundle)
         self._m["model_deliver_seconds"].observe(
             (time.monotonic_ns() - rx_ns) / 1e9)
+        # Downstream trace: the receipt hop (receipt stamp to swap
+        # applied) and the actor-side model-age observation off the
+        # publisher's monotonic stamp (same skew guard as above).
+        from relayrl_tpu_torch.telemetry.trace import record_model_receipt
+
+        record_model_receipt(version, rx_ns, pub_ns, "zmq")
 
     def _drain_monitor(self) -> None:
         """Process queued PUSH-socket monitor events (model-listener

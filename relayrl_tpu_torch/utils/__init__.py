@@ -1,4 +1,6 @@
-"""Utilities: the epoch logger."""
+"""Observability and misc utilities: the epoch logger and the profiler
+hooks (``tb_writer``, ``plot``, ``hostpin`` and ``instrument`` are imported
+by name)."""
 
 from relayrl_tpu_torch.utils.logger import (
     EpochLogger,
@@ -7,6 +9,12 @@ from relayrl_tpu_torch.utils.logger import (
     setup_logger_kwargs,
     statistics_scalar,
 )
+from relayrl_tpu_torch.utils.profiling import (
+    annotate,
+    start_trace_server,
+    timed,
+    trace,
+)
 
 __all__ = [
     "EpochLogger",
@@ -14,4 +22,8 @@ __all__ = [
     "colorize",
     "setup_logger_kwargs",
     "statistics_scalar",
+    "annotate",
+    "start_trace_server",
+    "timed",
+    "trace",
 ]

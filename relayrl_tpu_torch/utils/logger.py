@@ -1,8 +1,8 @@
 """Epoch logging: aligned console table + TSV ``progress.txt``.
 
-A copy of :mod:`relayrl_tpu.utils.logger` without the telemetry mirror
-(the port has no telemetry plane yet), so both packages write the same
-``progress.txt``.
+A copy of :mod:`relayrl_tpu.utils.logger`, so both packages write the same
+``progress.txt`` and mirror its rows into the same ``relayrl_epoch_stat``
+gauges.
 
 Capability parity with the reference's SpinningUp-lineage logger
 (reference: relayrl_framework/src/native/python/utils/logger.py:103-386 —
@@ -130,6 +130,21 @@ class Logger:
                 self.output_file.write("\t".join(self.log_headers) + "\n")
             self.output_file.write("\t".join(map(str, vals)) + "\n")
             self.output_file.flush()
+        # The same row mirrors into the telemetry registry as
+        # `relayrl_epoch_stat{stat=...}` gauges, so exported epoch metrics
+        # never drift from the logged ones. Looked up per dump (epoch
+        # cadence) so a registry installed after construction still gets
+        # the rows; a NullRegistry makes this a no-op.
+        from relayrl_tpu_torch import telemetry
+
+        registry = telemetry.get_registry()
+        if registry.enabled:
+            for key, val in zip(self.log_headers, vals):
+                if hasattr(val, "__float__"):
+                    registry.gauge(
+                        "relayrl_epoch_stat",
+                        "latest epoch-log row value, one child per column",
+                        labels={"stat": key}).set(float(val))
         self.log_current_row.clear()
         self.first_row = False
 

@@ -13,8 +13,10 @@
   (zero loss, zero double-train, models advance behind the replacement).
 * A port relay between a JAX server and a port agent forwards the JAX
   server's frames byte for byte.
-* The relay refuses distributed tracing and fleet aggregation, as the
-  port's server does.
+* A relay built with ``telemetry.trace_sample_rate`` traces the relay hop
+  of a sampled trajectory; one built with ``telemetry.fleet_interval_s``
+  peels subtree snapshot frames off the forward path into one merged
+  upstream frame.
 """
 
 from __future__ import annotations
@@ -900,14 +902,48 @@ def test_port_relay_forwards_jax_frames_byte_equal(tmp_cwd, fresh_registry):
 @pytest.mark.parametrize("telemetry", [{"trace_sample_rate": 0.5},
                                        {"fleet_interval_s": 1.0}])
 def test_refuses_tracing_and_fleet(tmp_cwd, telemetry):
+    """The relay once refused these keys; it now takes each one and acts
+    on it: with tracing a sampled trajectory's forward records the relay
+    hop under its trace id and leaves the wire id verbatim; with the
+    fleet plane a subtree snapshot frame never enters the forward path
+    and the flush sends one merged frame upstream."""
     from relayrl_tpu_torch.relay import RelayNode
+    from relayrl_tpu_torch.telemetry import aggregate as ag
+    from relayrl_tpu_torch.telemetry import trace as trace_mod
 
+    from relayrl_tpu_torch import telemetry as tel
+
+    tel.reset_for_tests()  # the config below must be the first one seen
     FakeUpstream, FakeDownstream = _make_fakes()
-    path = os.path.join(str(tmp_cwd), "refuse.json")
+    path = os.path.join(str(tmp_cwd), "telemetry.json")
     with open(path, "w") as f:
-        json.dump({"telemetry": telemetry}, f)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        RelayNode(config_path=path, upstream_transport=FakeUpstream(),
-                  downstream_transport=FakeDownstream())
+        json.dump({"telemetry": {"enabled": True, "port": None,
+                                 **telemetry}}, f)
+    up = FakeUpstream()
+    node = RelayNode(config_path=path, name="relay-t", batch_max=1,
+                     spool_entries=0, upstream_transport=up,
+                     downstream_transport=FakeDownstream())
+    try:
+        if "trace_sample_rate" in telemetry:
+            ctx = trace_mod.TrajCtx("ab-1", 5, 2)
+            wire_id = trace_mod.tag_agent_trace("w1", ctx.encode()) + "#s1"
+            node._on_subtree_trajectory(wire_id, b"payload")
+            assert up.sent == [(wire_id, b"payload")]
+            spans = trace_mod.snapshot_spans()
+            assert [(s["kind"], s["trace"], s["hop"], s["relay"])
+                    for s in spans] == [("traj", "ab-1", "relay", "relay-t")]
+        else:
+            frame = ag.encode_snapshot_frame([ag.snapshot_section(
+                {"metrics": []}, "w1", "actor", 1.0, 1)])
+            node._on_subtree_trajectory(ag.fleet_wire_id("w1"), frame)
+            assert up.sent == []
+            node._fleet_flush()
+            (wid, payload), = up.sent
+            assert wid == ag.fleet_wire_id("relay-t")
+            assert [s["proc"] for s in ag.parse_snapshot_frame(payload)] \
+                == ["w1", "relay-t"]
+    finally:
+        node.close()
+        tel.reset_for_tests()
 
 

@@ -284,23 +284,14 @@ def test_refusals(tmp_cwd):
                 assert server.inference is None
         finally:
             server.disable_server()
-    cases = [({"telemetry": {"trace_sample_rate": 0.5}}, {}, "item 12"),
-             ({"telemetry": {"fleet_interval_s": 1.0}}, {}, "item 12"),
-             ({"learner": {"distributed": {"coordinator": "h:1",
-                                           "num_processes": 2}}}, {},
-              "item 11"),
-             ({}, {"tensorboard": True}, "item 12")]
-    for sections, kwargs, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            TrainingServer(config_path=_config(tmp_cwd, **sections),
-                           **base, **kwargs)
-    # The relay refuses what the server refuses, with the same message.
-    from relayrl_tpu_torch.relay import RelayNode
-
-    for sections in ({"telemetry": {"trace_sample_rate": 0.5}},
-                     {"telemetry": {"fleet_interval_s": 1.0}}):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            RelayNode(config_path=_config(tmp_cwd, **sections), start=False)
+    # The multi-host server is the one part of the JAX server the port
+    # refuses (tracing, fleet aggregation and the tensorboard writer are
+    # ported: tests/test_torch_trace.py and tests/test_torch_fleet.py).
+    with pytest.raises(NotImplementedError, match="item 11"):
+        TrainingServer(config_path=_config(
+            tmp_cwd, learner={"distributed": {"coordinator": "h:1",
+                                              "num_processes": 2}}),
+            **base)
     config_path = _config(tmp_cwd)
     if not __import__("torch").cuda.is_available():
         # Entry points run on the card unless the caller names the CPU.
