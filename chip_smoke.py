@@ -248,7 +248,34 @@ Phases, each of which fails the run:
    window's production) to update, graph == eager. (c) One phase 5 update
    inside ``utils.profiling.trace`` with ``annotate``: the Chrome trace
    lists K1, K2 and K3 at 336, 4 and 4 launches inside the annotated
-   range.
+   range;
+21. the mesh learner: single-controller meshes of 8 that repeat the card,
+   the flagship's widths, phase 5's REINFORCE hyperparameters and first
+   batch. (a) ``transformer_pp_discrete`` under ``{dp 2, pp 4}``: the
+   pipelined ``evaluate`` against the unpipelined one (phase 4's bar) at
+   32 K1 (4 layers x 4 microbatches of one row x 2 data groups); the
+   first update through K1-K3 at exactly 2,688/32/32 (84 forwards x 32,
+   one backward's 32) against the same pipelined update through the
+   plain attention and against the unpipelined update (336/4/4; phase 5's
+   bars; the largest differences printed); each stage's layers and Adam
+   moments on the device its coordinate names; the update's ms and device
+   busy. (b) ``transformer_moe_discrete`` (4 experts, top-2) under ``{dp
+   2, ep 4}``: one expert's stacks per ep device; the first update at
+   exactly 336/4/4 against the unsharded update (336/4/4) and the plain
+   attention (phase 5's bars, every side's routes pinned to the unsharded
+   kernel side's); ``expert_utilization`` summing to 1 per layer. (c) The
+   flagship (336/4/4) and the cartpole golden's ``mlp_discrete`` (no
+   kernel) under ``{dp 2, fsdp 2, tp 2}``: each first update against its
+   unsharded update (336/4/4 and none) within the JAX test's f32 bars
+   (rtol 2e-4, atol 2e-5; bit-equality reported); the placed state's
+   bundle byte-equal to the unplaced; the shards and the parameter and
+   moment bytes per mesh coordinate. (d) ``build_algorithm("REINFORCE",
+   model_kind="transformer_pp_discrete", ...)`` then ``enable_multihost``
+   over ``{dp 2, pp 4}``: 2 epochs from ``receive_trajectory`` at exactly
+   2,688/32/32 each; a port actor with no mesh serving the published
+   bundle at 4 K1 a dispatch for 4 dispatches, its params sha256-equal to
+   the learner's gathered params and the publish snapshot's. Each part's
+   ms per update printed beside phase 5's.
 
 Phases 3 and 6 also hold every kernel to its plain version at head dims
 128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
@@ -600,6 +627,23 @@ FLEET_SELF_COUNTERS = ("relayrl_transport_send_total",
                        "relayrl_transport_recv_total",
                        "relayrl_transport_recv_bytes_total")
 FLEET_SELF_PREFIX = "relayrl_fleet_"
+
+# The mesh learner (phase 21): single-controller meshes of MESH_SIZE
+# devices that repeat the one card, the flagship's widths, phase 5's
+# hyperparameters and first batch. (a) and (d) pipeline the pp flagship,
+# (b) splits the MoE flagship's experts, (c) gathers fsdp shards and runs
+# the cartpole golden's MLP tensor parallel.
+MESH_SIZE = 8
+PP_MESH = {"dp": 2, "pp": 4}
+EP_MESH = {"dp": 2, "ep": 4}
+FSDP_TP_MESH = {"dp": 2, "fsdp": 2, "tp": 2}
+# tests/test_parallel.py's bars for a sharded update against its unsharded
+# one (f32): parameters at rtol and atol, metrics at MESH_METRIC_RTOL.
+MESH_RTOL, MESH_ATOL, MESH_METRIC_RTOL = 2e-4, 2e-5, 1e-4
+MESH_EPOCHS = 2
+MESH_ACTOR_LANES = 8
+MESH_ACTOR_STEPS = 4
+CARTPOLE_EPISODE_STEPS = 400
 
 
 def _dtype_name(dtype) -> str:
@@ -1398,20 +1442,26 @@ def dispatch_breakdown(host, device) -> dict:
     return out
 
 
-def profile_device(fn, n: int, unit: str) -> dict | None:
+def profile_device(fn, n: int, unit: str, cpu: bool = True,
+                   warm: bool = True) -> dict | None:
     """Device busy share of ``n`` back-to-back calls of ``fn`` and the
     kernels that take the device time, from ``torch.profiler`` (whose own
     cost lengthens the wall time it is divided by); returns the wall and
     busy ms and the device operations per call (None when the profiler
     saw no device activity). Annotated ranges on
     the device timeline (``Optimizer.step#Adam.step``) span kernels
-    counted on their own, so they are left out."""
+    counted on their own, so they are left out. ``cpu=False`` records the
+    device activity alone (a call of tens of thousands of operations
+    otherwise takes a minute to summarize). ``warm=False`` skips the
+    unprofiled warm-up call, for a caller that has just run ``fn``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if cpu else []) + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -1554,6 +1604,7 @@ def update_sides(algo, params0, batch, device, plain_attn, wrap=None,
     import torch
 
     from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+    from relayrl_tpu_torch.weights import logical_state
 
     sides = {}
     for side in ("kernel", "plain"):
@@ -1566,26 +1617,35 @@ def update_sides(algo, params0, batch, device, plain_attn, wrap=None,
             update = wrap(update)
         state, metrics = update(state, {key: torch.as_tensor(val, device=device)
                                         for key, val in batch.items()})
-        sides[side] = (dict(state.params.named_parameters()), read_metrics(metrics))
+        # By logical name: a state placed on a mesh reads its parameters
+        # whole.
+        sides[side] = (logical_state(state.params), read_metrics(metrics))
     return sides, steps
 
 
 def compare_update(algo, params0, batch, device, plain_attn, wrap=None,
                    idx_sets=None) -> dict:
-    """:func:`update_sides` held to phase 5's bars: metrics within
-    ``UPDATE_METRIC_TOL`` x max(1, |m|), every parameter within twice its
-    Adam step bound, the mean |difference| within
-    ``UPDATE_MEAN_DIFF_SHARE`` of the mean movement. Returns the largest
-    metric and parameter differences."""
+    """:func:`update_sides` held to phase 5's bars (:func:`hold_update`).
+    Returns the largest metric and parameter differences."""
     sides, steps = update_sides(algo, params0, batch, device, plain_attn, wrap,
                                 idx_sets)
-    (got, got_m), (want, want_m) = sides["kernel"], sides["plain"]
+    return hold_update(sides["kernel"], sides["plain"], params0, steps)
+
+
+def hold_update(got_side, want_side, params0, steps,
+                what: str = "kernel vs plain") -> dict:
+    """One update's ``(params, metrics)`` against another's from the same
+    ``params0``, at phase 5's bars: metrics within ``UPDATE_METRIC_TOL`` x
+    max(1, |m|), every parameter within twice its Adam step bound, the
+    mean |difference| within ``UPDATE_MEAN_DIFF_SHARE`` of the mean
+    movement. Returns the largest metric and parameter differences."""
+    (got, got_m), (want, want_m) = got_side, want_side
     metric_err = 0.0
     for key, value in want_m.items():
         err = abs(got_m[key] - value)
         if not err <= UPDATE_METRIC_TOL * max(1.0, abs(value)):
-            raise AssertionError(f"update metric {key}: kernel {got_m[key]} vs "
-                                 f"plain {value}")
+            raise AssertionError(f"update metric {key} ({what}): {got_m[key]} vs "
+                                 f"{value}")
         metric_err = max(metric_err, err)
     start = dict(params0.named_parameters())
     diff_sum = moved_sum = 0.0
@@ -1595,14 +1655,14 @@ def compare_update(algo, params0, batch, device, plain_attn, wrap=None,
         bound = 2 * n_steps * lr
         err = (got[name] - w).abs().max().item()
         if not err <= bound:
-            raise AssertionError(f"update param {name}: kernel vs plain {err} "
+            raise AssertionError(f"update param {name}: {what} {err} "
                                  f"above {bound}")
         param_err = max(param_err, err)
         diff_sum += (got[name] - w).abs().mean().item()
         moved_sum += (w - start[name]).abs().mean().item()
     share = diff_sum / moved_sum
     if not share <= UPDATE_MEAN_DIFF_SHARE:
-        raise AssertionError(f"update params: mean |kernel - plain| is "
+        raise AssertionError(f"update params: mean |difference| ({what}) is "
                              f"{share:.4f} of the mean movement")
     return {"metric_err": metric_err, "param_err": param_err,
             "mean_diff_share": share, "metrics": got_m}
@@ -6008,6 +6068,349 @@ def profiled_update(learned: dict, workdir: Path) -> dict:
             "trace": prof.trace_path, "ranges": len(ranges)}
 
 
+# -- phase 21: the mesh learner ---------------------------------------------------
+
+def mesh_of(spec: dict, device):
+    """A single-controller mesh of ``MESH_SIZE`` entries, every one
+    ``device`` (with its index, so a placed tensor's device compares equal
+    to its mesh coordinate's)."""
+    import torch
+
+    from relayrl_tpu_torch.parallel import make_mesh
+
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return make_mesh(spec, [device] * MESH_SIZE)
+
+
+def on_mesh(mesh):
+    """A ``wrap`` for an update: a state not yet placed is placed on
+    ``mesh`` (:func:`place_state`), then the update runs through
+    ``make_sharded_update``."""
+    from relayrl_tpu_torch.parallel import make_sharded_update, place_state
+    from relayrl_tpu_torch.weights import is_placed
+
+    def wrap(update):
+        def run(state, batch):
+            if not is_placed(state.params):
+                state = place_state(state, mesh)
+            return make_sharded_update(update, mesh, state)(state, batch)
+        return run
+    return wrap
+
+
+def one_update(algo, params0, batch, device, wrap=None, plain_attn=None):
+    """The first update of ``algo``'s kind from ``params0`` with fresh Adam
+    (:func:`update_parts`), through the kernels or with every block's
+    attention ``plain_attn``; ``wrap`` wraps the update. Returns
+    ``((params by logical name, metrics), state, K1-K3 launches, steps,
+    update)``; the launches are the update's alone."""
+    import torch
+
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+    from relayrl_tpu_torch.weights import logical_state
+
+    params = copy.deepcopy(params0)
+    if plain_attn is not None:
+        for block in params.layers():
+            block.attn_fn = plain_attn
+    state, update, steps = update_parts(algo, algo.policy, params)
+    if wrap is not None:
+        update = wrap(update)
+    zero_flash_counts()
+    state, metrics = update(state, {k: torch.as_tensor(v, device=device)
+                                    for k, v in batch.items()})
+    metrics = read_metrics(metrics)
+    torch.cuda.synchronize()
+    return (logical_state(state.params), metrics), state, flash_counts(), steps, update
+
+
+def update_ms(update, state, batch, device, n: int = 1) -> tuple[float, object]:
+    """Mean wall ms of ``n`` more updates of ``state`` on ``batch``."""
+    import torch
+
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, _ = update(state, batch)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n, state
+
+
+def hold_f32(got_side, want_side, what: str) -> dict:
+    """A sharded update against its unsharded one at the JAX test's bars
+    (``MESH_RTOL``, ``MESH_ATOL``; metrics at ``MESH_METRIC_RTOL``);
+    returns the largest differences and whether the two are bit-equal."""
+    import torch
+
+    (got, got_m), (want, want_m) = got_side, want_side
+    for key, value in want_m.items():
+        if not abs(got_m[key] - value) <= MESH_METRIC_RTOL * max(abs(value), 1e-6):
+            raise AssertionError(f"{what}: metric {key} {got_m[key]} vs {value}")
+    param_err = 0.0
+    for name, w in want.items():
+        g = got[name]
+        if not torch.allclose(g, w, rtol=MESH_RTOL, atol=MESH_ATOL):
+            raise AssertionError(f"{what}: {name} max abs diff "
+                                 f"{(g - w).abs().max().item()}")
+        param_err = max(param_err, (g.float() - w.float()).abs().max().item())
+    bit_equal = (all(torch.equal(got[n], want[n]) for n in want)
+                 and all(got_m[k] == want_m[k] for k in want_m))
+    return {"param_err": param_err, "bit_equal": bit_equal,
+            "metric_err": max(abs(got_m[k] - want_m[k]) for k in want_m)}
+
+
+def mesh_pp(device, workdir: Path, learned: dict) -> dict:
+    """Phase 21a: the pp flagship (``transformer_pp_discrete`` at
+    ``__graft_entry__.entry()``'s widths) under ``PP_MESH``. The pipelined
+    ``evaluate`` on phase 5's first batch against the unpipelined one
+    (phase 4's bar) at layers x microbatches x data groups K1; the first
+    update through K1-K3 against the same pipelined update through the
+    plain attention and against the unpipelined update through the
+    kernels (phase 5's bars), at exactly 84 x that many K1 and that many
+    K2 and K3; each stage's layers on its device."""
+    import torch
+
+    from relayrl_tpu_torch.parallel import resolve_microbatches, use_mesh
+
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    algo = build_learner(device, workdir, PP_ARCH)
+    params0 = copy.deepcopy(algo.state.params)
+    mesh = mesh_of(PP_MESH, device)
+    batch = learned["batch"]
+    n_layers, stages, groups = PP_ARCH["n_layers"], PP_MESH["pp"], PP_MESH["dp"]
+    micro = resolve_microbatches(LEARNER["traj_per_epoch"] // groups, stages)
+    per_pass = n_layers * micro * groups
+    obs = torch.as_tensor(batch["obs"], device=device)
+    act = torch.as_tensor(batch["act"], device=device)
+    zero_flash_counts()
+    with torch.inference_mode():
+        with use_mesh(mesh):
+            got = algo.policy.evaluate(params0, obs, act)
+        eval_k1 = flash_counts()[0]
+        want = algo.policy.evaluate(params0, obs, act)
+    eval_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    lap("evaluate")
+    if eval_k1 != per_pass or not eval_err <= TOLERANCE["bfloat16"]:
+        raise AssertionError(f"pipelined evaluate: {eval_k1} K1 (expected {per_pass}), "
+                             f"max abs diff {eval_err} against the unpipelined one")
+    kernel, state, launches, steps, update = one_update(algo, params0, batch, device,
+                                                         on_mesh(mesh))
+    expected = (per_pass * (4 + algo.train_vf_iters), per_pass, per_pass)
+    lap("kernel update")
+    if launches != expected:
+        raise AssertionError(f"pipelined update launches {launches}, expected {expected}")
+    plain = one_update(algo, params0, batch, device, on_mesh(mesh), plain_flash)[0]
+    lap("plain update")
+    flat, _, flat_launches, _, _ = one_update(algo, params0, batch, device)
+    lap("unpipelined update")
+    vs_plain = hold_update(kernel, plain, params0, steps, "pipelined: kernel vs plain")
+    vs_flat = hold_update(kernel, flat, params0, steps, "pipelined vs unpipelined")
+    stage_devices = mesh.axis_devices("pp")
+    per_stage = n_layers // stages
+    for i, block in enumerate(state.params.blocks):
+        for p in block.parameters():
+            moments = [state.pi_opt.state[p], state.vf_opt.state.get(p, {})]
+            if not (p.is_leaf and p.device == stage_devices[i // per_stage]
+                    and all(m["exp_avg"].device == p.device for m in moments if m)):
+                raise AssertionError(f"blocks.{i} not on stage {i // per_stage}'s device")
+    # The timed update is the profiled one's warm-up.
+    ms, state = update_ms(update, state, batch, device)
+    lap("timed update")
+    busy = profile_device(lambda: update(state, {k: torch.as_tensor(v, device=device)
+                                                 for k, v in batch.items()}), 1, "update",
+                          cpu=False, warm=False)
+    lap("profiled update")
+    return {"seconds": seconds, "eval_err": eval_err, "eval_k1": eval_k1, "micro": micro, "per_pass": per_pass,
+            "launches": launches, "flat_launches": flat_launches, "vs_plain": vs_plain,
+            "vs_flat": vs_flat, "ms": ms, "busy": busy}
+
+
+def mesh_moe(device, workdir: Path, learned: dict) -> dict:
+    """Phase 21b: the MoE flagship (4 experts, top-2) under ``EP_MESH``:
+    each ep device holds one expert's stacks; the first update through
+    K1-K3 against the unsharded update on the card and against the same
+    sharded update through the plain attention (phase 5's bars), every
+    side's routes pinned to the unsharded kernel side's (phase 16's
+    :func:`pinned_routes`), at exactly 336/4/4; ``expert_utilization`` of
+    the placed params sums to 1 per layer."""
+    from relayrl_tpu_torch.models.moe import expert_utilization
+    from relayrl_tpu_torch.parallel.sharding import mesh_device, placement, shard_tensors
+
+    algo = build_learner(device, workdir, MOE_ARCH)
+    params0 = copy.deepcopy(algo.state.params)
+    mesh = mesh_of(EP_MESH, device)
+    batch = learned["batch"]
+    pin, changes = route_pinning()
+    sharded = lambda update: pin(on_mesh(mesh)(update))  # noqa: E731
+    flat, _, flat_launches, steps, _ = one_update(algo, params0, batch, device, pin)
+    kernel, state, launches, _, _ = one_update(algo, params0, batch, device, sharded)
+    plain = one_update(algo, params0, batch, device, sharded, plain_flash)[0]
+    n_layers = MOE_ARCH["n_layers"]
+    expected = (n_layers * (4 + algo.train_vf_iters), n_layers, n_layers)
+    if launches != expected or flat_launches != expected:
+        raise AssertionError(f"ep update launches {launches} (unsharded {flat_launches}), "
+                             f"expected {expected}")
+    vs_flat = hold_update(kernel, flat, params0, steps, "ep vs unsharded")
+    vs_plain = hold_update(kernel, plain, params0, steps, "ep: kernel vs plain")
+    for block in state.params.layers():
+        for leaf in ("moe_w_up", "moe_w_down"):
+            shards = placement(block.moe, leaf)
+            for t, coords in zip(shard_tensors(block.moe, leaf), shards.coords):
+                if not (t.is_leaf and t.shape[0] == 1 and t.device == mesh_device(mesh, **coords)
+                        and state.pi_opt.state[t]["exp_avg"].shape == t.shape):
+                    raise AssertionError(f"{leaf} shard at {coords} misplaced")
+    util = expert_utilization(algo.arch, state.params, batch["obs"])
+    if not all(abs(float(u.sum()) - 1.0) <= 1e-5 for u in util.values()):
+        raise AssertionError(f"ep expert utilization {util}")
+    ms, _ = update_ms(on_mesh(mesh)(update_parts(algo, algo.policy, params0)[1]), state,
+                      batch, device)
+    return {"launches": launches, "flat_launches": flat_launches, "vs_flat": vs_flat,
+            "vs_plain": vs_plain, "changes": dict(changes), "ms": ms,
+            "util": {k: [round(float(x), 4) for x in v] for k, v in util.items()}}
+
+
+def shard_bytes(state) -> dict:
+    """Parameter and Adam moment bytes per mesh coordinate of a placed
+    state, and its shard count: a shard at its coordinates (named by the
+    split axes), every parameter that no rule splits at ``whole`` (the
+    first device)."""
+    from relayrl_tpu_torch.parallel.sharding import placement, shard_tensors
+
+    moments = {}
+    for opt in (state.pi_opt, state.vf_opt):
+        for p, st in (opt.state.items() if opt is not None else ()):
+            moments[id(p)] = sum(v.numel() * v.element_size() for v in st.values()
+                                 if hasattr(v, "ndim") and v.ndim)
+    rows, shards, placed = {}, 0, set()
+
+    def add(where, t):
+        row = rows.setdefault(where, {"tensors": 0, "param_bytes": 0, "moment_bytes": 0})
+        row["tensors"] += 1
+        row["param_bytes"] += t.numel() * t.element_size()
+        row["moment_bytes"] += moments.get(id(t), 0)
+
+    for module in state.params.modules():
+        for leaf in list(getattr(module, "parametrizations", None) or {}):
+            spec = placement(module, leaf)
+            for t, coords in zip(shard_tensors(module, leaf), spec.coords):
+                add(",".join(f"{k}{v}" for k, v in sorted(coords.items())) or "whole", t)
+                placed.add(id(t))
+                shards += 1
+    for p in state.params.parameters():
+        if id(p) not in placed:
+            add("whole", p)
+    return {"shards": shards, "per_coordinate": rows}
+
+
+def mesh_fsdp_tp(device, workdir: Path, learned: dict) -> dict:
+    """Phase 21c: the flagship and the cartpole golden's ``mlp_discrete``
+    (f32, 128x128, its hyperparameters) under ``FSDP_TP_MESH``: each one's
+    first update against its unsharded update on the card within the JAX
+    test's f32 bars (whether bit-equal is reported); the flagship at
+    exactly 336/4/4, the MLP at none; the placed state's bundle bytes
+    equal to the unplaced state's; the shards and the bytes per mesh
+    coordinate."""
+    from relayrl_tpu_torch.algorithms import build_algorithm
+    from relayrl_tpu_torch.envs import make
+    from relayrl_tpu_torch.parallel import place_state
+    from relayrl_tpu_torch.parallel.sharding import placement
+    from relayrl_tpu_torch.types import ModelBundle
+    from relayrl_tpu_torch.weights import params_to_jax
+
+    mesh = mesh_of(FSDP_TP_MESH, device)
+    cartpole = build_algorithm(
+        "REINFORCE", env_dir=str(workdir / "mlp"), config_path=_local_config(workdir / "mlp"),
+        obs_dim=4, act_dim=2, device=device, seed=SEED, seed_salt=0, **CARTPOLE_HP)
+    cartpole_batch = epoch_batches(
+        cartpole, random_episodes(make("CartPole-v1"), CARTPOLE_EPISODE_STEPS, SEED), 1)[0]
+    out = {}
+    n_layers = SLICE_ARCH["n_layers"]
+    for name, algo, batch, expected in (
+            ("flagship", build_learner(device, workdir / "flagship"), learned["batch"],
+             (n_layers * (4 + LEARNER["train_vf_iters"]), n_layers, n_layers)),
+            ("mlp_discrete", cartpole, cartpole_batch, (0, 0, 0))):
+        params0 = copy.deepcopy(algo.state.params)
+        kernel, state, launches, _, update = one_update(algo, params0, batch, device,
+                                                        on_mesh(mesh))
+        flat, _, flat_launches, _, _ = one_update(algo, params0, batch, device)
+        if launches != expected or flat_launches != expected:
+            raise AssertionError(f"{name} fsdp/tp launches {launches} (unsharded "
+                                 f"{flat_launches}), expected {expected}")
+        held = hold_f32(kernel, flat, f"{name} fsdp x tp vs unsharded")
+        placed = place_state(update_parts(algo, algo.policy, copy.deepcopy(params0))[0], mesh)
+        want = ModelBundle(1, algo.arch, params_to_jax(params0)).to_bytes()
+        if ModelBundle(1, algo.arch, params_to_jax(placed.params)).to_bytes() != want:
+            raise AssertionError(f"{name}: the placed state's bundle differs from the unplaced")
+        if name == "mlp_discrete" and placement(state.params.pi_trunk.dense_0,
+                                                "weight").spec != ("tp", "fsdp"):
+            raise AssertionError("mlp_discrete's first kernel is not split (tp, fsdp)")
+        ms, _ = update_ms(update, state, batch, device)
+        out[name] = {**held, "launches": launches, "ms": ms, "bytes": shard_bytes(state),
+                     "rows": tuple(batch["obs"].shape[:2])}
+    return out
+
+
+def mesh_entry(device, workdir: Path, learned: dict) -> dict:
+    """Phase 21d: ``build_algorithm("REINFORCE", model_kind=
+    "transformer_pp_discrete", ...)`` then ``enable_multihost`` over
+    ``PP_MESH``; ``MESH_EPOCHS`` epochs from ``receive_trajectory`` on
+    phase 5's first wave at exactly 2688/32/32 each; a port actor with no
+    mesh loads the published bundle and serves it through K1 (n_layers a
+    dispatch), its params sha256-equal to the learner's gathered params
+    and to the publish snapshot's."""
+    import numpy as np
+    import torch
+
+    from relayrl_tpu_torch.parallel import resolve_microbatches
+    from relayrl_tpu_torch.runtime.vector_actor import VectorActorHost
+    from relayrl_tpu_torch.weights import params_to_jax, tree_digest
+
+    algo = build_learner(device, workdir, PP_ARCH)
+    algo.enable_multihost(mesh_of(PP_MESH, device))
+    n_layers, groups = PP_ARCH["n_layers"], PP_MESH["dp"]
+    per_pass = n_layers * groups * resolve_microbatches(
+        LEARNER["traj_per_epoch"] // groups, PP_MESH["pp"])
+    expected = (per_pass * (4 + algo.train_vf_iters), per_pass, per_pass)
+    per_update, seconds = [], []
+    for records in learned["first_wave"][:MESH_EPOCHS * LEARNER["traj_per_epoch"]]:
+        zero_flash_counts()
+        t0 = time.perf_counter()
+        updated = algo.receive_trajectory(records)
+        torch.cuda.synchronize()
+        if updated:
+            seconds.append(time.perf_counter() - t0)
+            per_update.append(flash_counts())
+    if per_update != [expected] * MESH_EPOCHS or algo.version != MESH_EPOCHS:
+        raise AssertionError(f"mesh learner launches {per_update} at version {algo.version}; "
+                             f"expected {MESH_EPOCHS} x {expected}")
+    bundle = algo.bundle()
+    digest = tree_digest(bundle.params)
+    snap = algo.snapshot_for_publish()
+    host = VectorActorHost(bundle, MESH_ACTOR_LANES, seed=SEED, device=device)
+    obs = np.random.default_rng(SEED).standard_normal(
+        (MESH_ACTOR_LANES, algo.obs_dim)).astype(np.float32)
+    zero_flash_counts()
+    for _ in range(MESH_ACTOR_STEPS):
+        host.request_for_actions(obs)
+    torch.cuda.synchronize()
+    served = flash_counts()
+    if served != (n_layers * MESH_ACTOR_STEPS, 0, 0):
+        raise AssertionError(f"actor launches {served} over {MESH_ACTOR_STEPS} dispatches")
+    if not (tree_digest(params_to_jax(host.params)) == digest
+            == tree_digest(snap.host_params())):
+        raise AssertionError("the actor's params differ from the learner's gathered params")
+    return {"per_update": per_update, "ms": [1e3 * s for s in seconds],
+            "served": served, "digest": digest[:16], "version": algo.version}
+
+
 def main() -> int:
     import torch
 
@@ -6699,6 +7102,67 @@ def main() -> int:
     traced_dq = t_dq + trl["launches"][1] + pu["counts"][1]
     traced_dkv = t_dkv + trl["launches"][2] + pu["counts"][2]
 
+    # 21. the mesh learner: pp, ep, fsdp and tp over meshes of the card
+    t21 = time.perf_counter()
+    phase5_ms = 1e3 * sum(seconds[1:]) / len(seconds[1:])
+    mp = mesh_pp(device, root / "build" / "chip_smoke_mesh_pp", learned)
+    print(f"[mesh] (a) {PP_ARCH['kind']} under {PP_MESH} ({MESH_SIZE} x the card): "
+          f"pipelined evaluate vs unpipelined max abs diff {mp['eval_err']:.3e} (tol "
+          f"{TOLERANCE['bfloat16']:g}) at {mp['eval_k1']} K1 = {PP_ARCH['n_layers']} layers x "
+          f"{mp['micro']} microbatches x {PP_MESH['dp']} data groups; first update through "
+          f"K1-K3 at launches {mp['launches']} (unpipelined {mp['flat_launches']}); vs the "
+          f"plain attention: max metric diff {mp['vs_plain']['metric_err']:.3e}, max param "
+          f"diff {mp['vs_plain']['param_err']:.3e}, mean {mp['vs_plain']['mean_diff_share']:.4f}"
+          f" of the movement; vs the unpipelined update: max metric diff "
+          f"{mp['vs_flat']['metric_err']:.3e}, max param diff {mp['vs_flat']['param_err']:.3e},"
+          f" mean {mp['vs_flat']['mean_diff_share']:.4f} of the movement; each stage's layers "
+          f"and moments on its device; (not gated) {mp['ms']:.2f} ms per update beside phase "
+          f"5's {phase5_ms:.2f}"
+          + (f", device busy {mp['busy']['busy_ms']:.2f} ms of {mp['busy']['wall_ms']:.2f} "
+             f"profiled" if mp["busy"] else "")
+          + f"; seconds by step {json.dumps({k: round(v, 2) for k, v in mp['seconds'].items()})}"
+          f" on {card}", flush=True)
+    mm = mesh_moe(device, root / "build" / "chip_smoke_mesh_moe", learned)
+    print(f"[mesh] (b) {MOE_ARCH['kind']} ({MOE_ARCH['moe_experts']} experts, top-"
+          f"{MOE_ARCH['moe_top_k']}) under {EP_MESH}: one expert per ep device; first update "
+          f"at launches {mm['launches']}; vs the unsharded update: max metric diff "
+          f"{mm['vs_flat']['metric_err']:.3e}, max param diff {mm['vs_flat']['param_err']:.3e}, "
+          f"mean {mm['vs_flat']['mean_diff_share']:.4f}; vs the plain attention: max metric "
+          f"diff {mm['vs_plain']['metric_err']:.3e}, max param diff "
+          f"{mm['vs_plain']['param_err']:.3e}, mean {mm['vs_plain']['mean_diff_share']:.4f} "
+          f"(routes pinned to the unsharded kernel side's: {mm['changes']['changed']} of "
+          f"{mm['changes']['tokens']} token routes would have changed); expert utilization "
+          f"{mm['util']}; (not gated) {mm['ms']:.2f} ms per update beside phase 5's "
+          f"{phase5_ms:.2f} on {card}", flush=True)
+    mf = mesh_fsdp_tp(device, root / "build" / "chip_smoke_mesh_fsdp", learned)
+    for name, r in mf.items():
+        print(f"[mesh] (c) {name} under {FSDP_TP_MESH}, batch {r['rows']}: first update vs "
+              f"the unsharded one " + ("bit-equal" if r["bit_equal"] else
+                                       f"max param diff {r['param_err']:.3e}, max metric diff "
+                                       f"{r['metric_err']:.3e}")
+              + f" (bars rtol {MESH_RTOL:g}, atol {MESH_ATOL:g}); launches {r['launches']}; "
+              f"the placed bundle byte-equal to the unplaced; {r['bytes']['shards']} shards; "
+              f"bytes per coordinate {json.dumps(r['bytes']['per_coordinate'])}; (not gated) "
+              f"{r['ms']:.2f} ms per update beside phase 5's {phase5_ms:.2f} on {card}",
+              flush=True)
+    me = mesh_entry(device, root / "build" / "chip_smoke_mesh_entry", learned)
+    print(f"[mesh] (d) build_algorithm(\"REINFORCE\", model_kind={PP_ARCH['kind']!r}) + "
+          f"enable_multihost({PP_MESH}): {MESH_EPOCHS} epochs from receive_trajectory at "
+          f"launches {me['per_update']}; a port actor with no mesh served the published bundle "
+          f"(version {me['version']}) for {MESH_ACTOR_STEPS} dispatches at {me['served'][0]} K1, "
+          f"its params sha256 {me['digest']}... equal to the learner's gathered params and the "
+          f"publish snapshot's; (not gated) {[round(x, 2) for x in me['ms']]} ms per update "
+          f"(ingest included) beside phase 5's {phase5_ms:.2f} on {card}", flush=True)
+    print(f"[mesh] phase 21 in {time.perf_counter() - t21:.1f} s", flush=True)
+    # Every counted run of the phase: the sharded updates, their unsharded
+    # twins (the fsdp flagship's equals its sharded side's, gated), the
+    # entry point's epochs and its actor's dispatches.
+    mesh_fwd, mesh_dq, mesh_dkv = (
+        mp["launches"][i] + mp["flat_launches"][i] + mm["launches"][i]
+        + mm["flat_launches"][i] + 2 * mf["flagship"]["launches"][i]
+        + sum(c[i] for c in me["per_update"]) for i in range(3))
+    mesh_fwd += mp["eval_k1"] + me["served"][0]
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -6706,7 +7170,7 @@ def main() -> int:
         "replaces": "relayrl_tpu/ops/flash.py:116",
         "launches": (run["launches"] + fwd + r_fwd + decode["launches"] + a_fwd + d_fwd
                      + ga_fwd + g_fwd + fa_fwd + f_fwd + p_fwd + fam_fwd + anakin_fwd
-                     + serving_fwd + s_fwd + rlhf_gen + rlhf_learn + traced_fwd),
+                     + serving_fwd + s_fwd + rlhf_gen + rlhf_learn + traced_fwd + mesh_fwd),
         "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd,
                              "decode_vs_window": decode["launches"],
                              "distributed_agent": a_fwd, "distributed_server": d_fwd,
@@ -6727,7 +7191,8 @@ def main() -> int:
                              "traced_fleet_server": t_fwd, "traced_fleet_agent": ta_fwd,
                              "traced_serving": tsv["launches"],
                              "traced_rlhf": trl["launches"][0],
-                             "profiled_update": pu["counts"][0]},
+                             "profiled_update": pu["counts"][0],
+                             "mesh_learner": mesh_fwd},
         **main_flash,
     }, {
         "name": "flash_dq",
@@ -6735,7 +7200,7 @@ def main() -> int:
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:223",
         "launches": (dq + r_dq + d_dq + g_dq + f_dq + p_dq + m_dq + pp_dq + a_ddq + s_dq
-                     + rlhf_learn + traced_dq),
+                     + rlhf_learn + traced_dq + mesh_dq),
         "launches_by_path": {"learner": dq, "local_loop": r_dq, "distributed_server": d_dq,
                              "guardrails_server": g_dq, "fleet_server": f_dq,
                              "ppo_learner": p_dq, "offpolicy": off_counts[1],
@@ -6743,7 +7208,7 @@ def main() -> int:
                              "pp_learner": pp_dq, "anakin_server": a_ddq,
                              "served_learner": s_dq, "rlhf_learner": rlhf_learn,
                              "traced_fleet_server": t_dq, "traced_rlhf": trl["launches"][1],
-                             "profiled_update": pu["counts"][1]},
+                             "profiled_update": pu["counts"][1], "mesh_learner": mesh_dq},
         **main_bwd["flash_dq"],
     }, {
         "name": "flash_dkv",
@@ -6751,7 +7216,7 @@ def main() -> int:
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:255",
         "launches": (dkv + r_dkv + d_dkv + g_dkv + f_dkv + p_dkv + m_dkv + pp_dkv + a_ddkv
-                     + s_dkv + rlhf_learn + traced_dkv),
+                     + s_dkv + rlhf_learn + traced_dkv + mesh_dkv),
         "launches_by_path": {"learner": dkv, "local_loop": r_dkv,
                              "distributed_server": d_dkv, "guardrails_server": g_dkv,
                              "fleet_server": f_dkv, "ppo_learner": p_dkv,
@@ -6760,7 +7225,7 @@ def main() -> int:
                              "anakin_server": a_ddkv, "served_learner": s_dkv,
                              "rlhf_learner": rlhf_learn,
                              "traced_fleet_server": t_dkv, "traced_rlhf": trl["launches"][2],
-                             "profiled_update": pu["counts"][2]},
+                             "profiled_update": pu["counts"][2], "mesh_learner": mesh_dkv},
         **main_bwd["flash_dkv"],
     }] + [{
         "name": name,

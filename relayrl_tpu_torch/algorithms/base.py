@@ -18,7 +18,8 @@ The version is a host-side integer bumped at dispatch, so reading it never
 waits on the device (the JAX package keeps a host mirror of its device
 step for the same reason). An eager update compiles nothing, so
 ``warmup`` returns 0; a CUDA-graph capture per bucket would live there.
-Not ported: the guardrail probes and the multi-host hooks.
+The on-policy family's mesh hooks (``enable_multihost``, ``mh_zero_batch``)
+live in :mod:`relayrl_tpu_torch.algorithms.onpolicy`.
 """
 
 from __future__ import annotations
@@ -238,12 +239,13 @@ class AlgorithmBase(abc.ABC):
             PublishSnapshot,
             record_event,
         )
-        from relayrl_tpu_torch.weights import state_to_jax
+        from relayrl_tpu_torch.weights import logical_state, state_to_jax
 
         module = self._publish_module()
         with torch.no_grad():
-            state = {k: v.detach().clone()
-                     for k, v in module.state_dict().items()}
+            # A placed module's split parameters gather whole here, on
+            # the learner's stream behind the dispatched updates.
+            state = {k: v.clone() for k, v in logical_state(module).items()}
         return PublishSnapshot(
             version=self.dispatched_version, arch=self._publish_arch(),
             state=state, event=record_event(self.device),

@@ -49,8 +49,9 @@ from relayrl_tpu_torch.types.model_bundle import ModelBundle
 from relayrl_tpu_torch.utils import EpochLogger, setup_logger_kwargs
 from relayrl_tpu_torch.weights import params_from_jax, params_to_jax
 
-_MULTIHOST = ("the multi-host learner is not ported (ROADMAP.md queue 1 "
-              "item 11); run one process")
+_MULTIHOST = ("the off-policy mesh learner is not ported: it comes with the "
+              "multi-process slice of ROADMAP.md queue 1 item 11 (distributed.py); "
+              "run it on one device")
 
 
 def polyak_update(online: nn.Module, target: nn.Module, polyak: float) -> None:

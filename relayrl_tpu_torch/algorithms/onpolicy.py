@@ -15,6 +15,15 @@ LazyMetrics` read in one device-to-host copy, and the in-flight window
 the device, fencing on the CUDA event recorded after each update. The
 epoch buffer's staging slabs are reused after ``window + 1`` drains, by
 which time the update that read a slab has been fenced.
+
+``enable_multihost(mesh)`` runs the update over a mesh of one process
+(:mod:`relayrl_tpu_torch.parallel.learner`): the state placed by the
+sharding rules, the optimizers rebuilt over the shard leaves, each batch
+placed and checked. The publish path, the checkpoint and the guardrail
+probes read the whole parameters (:func:`relayrl_tpu_torch.weights.
+logical_state`). The multi-process half (the server's broadcast loop that
+feeds ``mh_zero_batch`` to non-coordinators) comes with
+``parallel/distributed.py``.
 """
 
 from __future__ import annotations
@@ -241,6 +250,27 @@ class OnPolicyAlgorithm(AlgorithmBase):
         for key in self._log_keys():
             self.logger.log_tabular(key, values.get(key, 0.0))
         self.logger.dump_tabular()
+
+    def mh_zero_batch(self, b: int, t: int) -> dict:
+        """Placeholder epoch batch (shape and dtype only): what a
+        non-coordinator feeds the batch broadcast, and a warm-up batch."""
+        from relayrl_tpu_torch.data.batching import TrajectoryBatch
+
+        return TrajectoryBatch.zeros(b, t, self.obs_dim, self.act_dim,
+                                     self.discrete)
+
+    def enable_multihost(self, mesh) -> None:
+        """Run the update over ``mesh`` (a single-process mesh: one
+        controller drives every shard). Call once, right after
+        construction: the update becomes :func:`make_sharded_update`'s
+        (the mesh ambient around it, each batch placed and its splits
+        checked), and :func:`place_state` places the state by the sharding
+        rules and rebuilds its optimizers over the shard leaves, any Adam
+        moments split with their parameters."""
+        from relayrl_tpu_torch.parallel import make_sharded_update, place_state
+
+        self._update = make_sharded_update(self._update, mesh, self.state)
+        self.state = place_state(self.state, mesh)
 
     def save(self, path=None) -> None:
         self.bundle().save(path or self.server_model_path)

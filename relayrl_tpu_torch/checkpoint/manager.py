@@ -46,12 +46,19 @@ def _to_cpu(obj):
 def capture_state(state) -> dict:
     """A train-state dataclass -> a picklable dict of host values: a
     module becomes its state dict, an optimizer its state dict (step
-    counts included), anything else is kept as is."""
+    counts included), anything else is kept as is. A state placed on a
+    mesh is captured whole (its split parameters and their moments
+    gathered), so a checkpoint does not depend on the mesh."""
+    from relayrl_tpu_torch.parallel.learner import whole_optimizer_state
+    from relayrl_tpu_torch.weights import logical_state
+
     out = {}
     for field in dataclasses.fields(state):
         value = getattr(state, field.name)
-        if isinstance(value, (torch.nn.Module, torch.optim.Optimizer)):
-            value = value.state_dict()
+        if isinstance(value, torch.nn.Module):
+            value = logical_state(value)
+        elif isinstance(value, torch.optim.Optimizer):
+            value = whole_optimizer_state(value)
         out[field.name] = _to_cpu(value)
     return out
 
@@ -59,17 +66,20 @@ def capture_state(state) -> dict:
 def apply_state(state, saved: dict):
     """Load :func:`capture_state`'s dict back into the live train state:
     modules and optimizers in place (their tensors stay on the device
-    they live on), other fields replaced."""
+    they live on; a placed state's shards take their slices), other
+    fields replaced."""
+    from relayrl_tpu_torch.parallel.learner import load_whole_optimizer_state
+    from relayrl_tpu_torch.weights import load_logical
+
     plain = {}
     for field in dataclasses.fields(state):
         value = getattr(state, field.name)
         if field.name not in saved:
             raise KeyError(f"checkpoint has no state field {field.name!r}")
         if isinstance(value, torch.nn.Module):
-            with torch.no_grad():
-                value.load_state_dict(saved[field.name])
+            load_logical(value, saved[field.name])
         elif isinstance(value, torch.optim.Optimizer):
-            value.load_state_dict(saved[field.name])
+            load_whole_optimizer_state(value, saved[field.name])
         else:
             plain[field.name] = saved[field.name]
     return dataclasses.replace(state, **plain)

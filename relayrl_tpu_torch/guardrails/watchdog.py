@@ -85,7 +85,11 @@ class GuardProbes:
         import torch
 
         if isinstance(tree, torch.nn.Module):
-            leaves = list(tree.parameters())
+            # A module placed on a mesh is probed whole, in its unplaced
+            # leaf order (its split parameters gathered).
+            from relayrl_tpu_torch.weights import logical_state
+
+            leaves = list(logical_state(tree).values())
         elif isinstance(tree, dict):
             leaves = [leaf for value in tree.values()
                       for leaf in GuardProbes._float_leaves(value)]

@@ -14,7 +14,9 @@ The modules' names are the flax scopes (``pi_trunk.dense_i``,
 ``pi_head``, ``vf_trunk.dense_i``, ``vf_head``, ``log_std``), so
 :mod:`relayrl_tpu_torch.weights` carries the params across both ways.
 These families run no Pallas kernel in the JAX package, and none here:
-their products are ``torch.nn.functional.linear``.
+their products are ``torch.nn.functional.linear``. Placed on a mesh with
+``tp`` above 1, a trunk runs its layer pairs column then row parallel
+(:meth:`MLPTrunk.forward`), as the JAX sharding rules lay them out.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from relayrl_tpu_torch.models.base import Policy, mlp_sizes, register_model
+from relayrl_tpu_torch.parallel.sharding import split_blocks
 from relayrl_tpu_torch.weights import params_from_jax
 
 # flax's nn.gelu is the tanh approximation.
@@ -186,10 +189,49 @@ class MLPTrunk(nn.Module):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.compute_dtype)
-        for layer in self.children():
-            x = self.activation(_dense(layer, x, self.compute_dtype))
+        """Each layer in turn; a ``dense_{2i}``/``dense_{2i+1}`` pair whose
+        kernels :func:`relayrl_tpu_torch.parallel.place_state` split over
+        ``tp`` runs tensor parallel (:meth:`_tp_pair`)."""
+        cd = self.compute_dtype
+        x = x.to(cd)
+        layers = list(self.children())
+        i = 0
+        while i < len(layers):
+            blocks = _tp_blocks(layers, i)
+            if blocks is not None:
+                x = self._tp_pair(x, layers[i + 1], blocks)
+                i += 2
+            else:
+                x = self.activation(_dense(layers[i], x, cd))
+                i += 1
         return x
+
+    def _tp_pair(self, x: torch.Tensor, down: nn.Linear, blocks) -> torch.Tensor:
+        """Column then row parallel: each tp block's output features of the
+        first layer computed on its device from the replicated input, the
+        activation applied per block, the second layer's partial products
+        from those features summed on the input's device (the psum) and
+        its bias added once."""
+        cd = self.compute_dtype
+        y = None
+        for (dev, w_up), (_, b_up), (_, w_down) in blocks:
+            h = self.activation(F.linear(x.to(dev), w_up.to(cd)) + b_up.to(cd))
+            part = F.linear(h, w_down.to(cd)).to(x.device)
+            y = part if y is None else y + part
+        return self.activation(y + down.bias.to(cd))
+
+
+def _tp_blocks(layers, i: int):
+    """The tp blocks of the pair starting at layer ``i`` (even): each
+    block's (up kernel rows, up bias, down kernel columns), or None unless
+    both layers are split over ``tp``."""
+    if i % 2 or i + 1 >= len(layers):
+        return None
+    parts = (split_blocks(layers[i], "weight", "tp"), split_blocks(layers[i], "bias", "tp"),
+             split_blocks(layers[i + 1], "weight", "tp"))
+    if any(p is None for p in parts):
+        return None
+    return list(zip(*parts))
 
 
 class _ActorCritic(nn.Module):

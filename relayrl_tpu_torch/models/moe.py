@@ -20,9 +20,15 @@ untransposed) and its numerics:
 Routing is causal: a token's gate reads its own features alone, so
 training batches and single-window actors route alike. The expert
 products are plain matmuls in the JAX package (no Pallas kernel) and
-``torch.einsum`` here. Sharding the experts over a mesh ``ep`` axis comes
-with the multi-GPU slice (ROADMAP queue 1 item 11): under a mesh with
-``ep`` above 1 the layer refuses.
+``torch.einsum`` here.
+
+Expert parallelism: once :func:`relayrl_tpu_torch.parallel.place_state`
+has split the expert stacks over a mesh's ``ep`` axis (each ep device
+holds ``E / ep`` experts), each expert group's ``h`` and ``out``, and its
+slice of the combine, run on the device that holds the group, reading the
+shards in place; the partial ``y``s are summed on the tokens' device in
+group order (the ``psum`` over ``ep`` of the JAX layer). Routing is
+unchanged.
 """
 
 from __future__ import annotations
@@ -34,18 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from relayrl_tpu_torch.models.mlp import _dense
-from relayrl_tpu_torch.parallel.context import current_mesh
-
-
-def refuse_mesh_axis(axis: str, what: str) -> None:
-    """Raise when the ambient mesh splits ``axis``: the port runs these
-    layers on one device until the multi-GPU slice."""
-    mesh = current_mesh()
-    if mesh is not None and mesh.shape.get(axis, 1) > 1:
-        raise NotImplementedError(
-            f"{what} over a mesh with {axis}={mesh.shape[axis]} is not ported "
-            f"(ROADMAP.md queue 1 item 11, multi-GPU); run it without a mesh "
-            f"or with {axis}=1")
+from relayrl_tpu_torch.parallel.sharding import split_blocks
 
 
 def top_k_stable(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -78,7 +73,6 @@ class MoEMLP(nn.Module):
         self.expert_load: torch.Tensor | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        refuse_mesh_axis("ep", "the MoE layer's expert sharding")
         B, T, d = x.shape
         n = B * T
         k = max(1, min(self.top_k, self.n_experts))
@@ -90,14 +84,31 @@ class MoEMLP(nn.Module):
                               device=x.device).scatter(1, top_idx, top_w)
         if self.capture_load:
             self.expert_load = weights.sum(dim=0).detach()
-        cd = self.compute_dtype
-        h = torch.einsum("nd,edf->enf", _widened(tokens, cd),
-                         _widened(self.moe_w_up, cd))
-        h = F.gelu(h, approximate="tanh")
-        out = torch.einsum("enf,efd->end", _widened(h, cd),
-                           _widened(self.moe_w_down, cd))
-        y = torch.einsum("ne,end->nd", weights, out)
+        ups = split_blocks(self, "moe_w_up", "ep")
+        downs = split_blocks(self, "moe_w_down", "ep")
+        if ups is None or downs is None:
+            y = self._experts(tokens, weights, self.moe_w_up, self.moe_w_down)
+        else:
+            # One expert group per ep device; the partial combines summed
+            # on the tokens' device in group order (the psum over ep).
+            group = self.n_experts // len(ups)
+            y = None
+            for g, ((dev, up), (_, down)) in enumerate(zip(ups, downs)):
+                part = self._experts(tokens.to(dev),
+                                     weights[:, g * group:(g + 1) * group].to(dev),
+                                     up, down).to(x.device)
+                y = part if y is None else y + part
         return y.reshape(B, T, d).to(x.dtype)
+
+    def _experts(self, tokens, weights, w_up, w_down) -> torch.Tensor:
+        """Dense dispatch of ``tokens [N, d]`` to the experts of ``w_up
+        [E, d, ff]`` and ``w_down [E, ff, d]``, combined by ``weights [N,
+        E]``, in f32."""
+        cd = self.compute_dtype
+        h = torch.einsum("nd,edf->enf", _widened(tokens, cd), _widened(w_up, cd))
+        h = F.gelu(h, approximate="tanh")
+        out = torch.einsum("enf,efd->end", _widened(h, cd), _widened(w_down, cd))
+        return torch.einsum("ne,end->nd", weights, out)
 
 
 def init_experts(moe: MoEMLP, generator: torch.Generator) -> None:

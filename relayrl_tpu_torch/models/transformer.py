@@ -32,11 +32,15 @@ per-token top-k MoE of :mod:`relayrl_tpu_torch.models.moe` (submodule
 window readout runs the final block whole and takes the row, as the JAX
 family does. ``transformer_pp_discrete`` is ``transformer_discrete``'s
 math with the layers under one ``blocks`` scope, which the JAX package
-stacks on a leading axis for its pipeline: the port runs them as a loop
-over layers (the JAX family's ``pp`` = 1 path, which every actor host
-runs), serves windows through the full forward (no readout row, no KV
-cache, as in the JAX family) and refuses a mesh with ``pp`` above 1
-(ROADMAP queue 1 item 11).
+stacks on a leading axis for its pipeline: under an ambient mesh with
+``pp`` above 1 the port runs them as the GPipe schedule of
+:func:`relayrl_tpu_torch.parallel.pipeline.pipeline_apply`
+(``pp_microbatches`` picks the microbatch count, as in the JAX family),
+else as a loop over layers (the path every actor host runs); it serves
+windows through the full forward (no readout row, no KV cache, as in the
+JAX family). Ring attention inside the pipeline (a mesh with ``pp`` and
+``sp`` both above 1) raises ``ValueError``: the JAX package cannot run
+that mesh either.
 
 KV-cache decode, the actors' default serving path: ``init_cache``,
 ``step_cached`` and ``prefill_cache`` keep each layer's k and v rows in a
@@ -70,10 +74,11 @@ from relayrl_tpu_torch.models.mlp import (
     _dense,
     init_dense,
 )
-from relayrl_tpu_torch.models.moe import MoEMLP, init_experts, refuse_mesh_axis
+from relayrl_tpu_torch.models.moe import MoEMLP, init_experts
 from relayrl_tpu_torch.ops.attention import blockwise_attention, dense_attention
 from relayrl_tpu_torch.ops.flash import KERNEL_HEAD_DIMS, flash_attention
 from relayrl_tpu_torch.parallel.context import current_mesh
+from relayrl_tpu_torch.parallel.pipeline import pipeline_apply
 from relayrl_tpu_torch.parallel.ring import make_ring_attention
 from relayrl_tpu_torch.parallel.ring_flash import (
     make_ring_flash_attention,
@@ -206,6 +211,9 @@ class TransformerCore(nn.Module):
         self.n_layers = int(arch.get("n_layers", 2))
         self.has_critic = bool(arch.get("has_critic", True))
         self.stacked = stacked
+        self.attention = arch.get("attention", "dense")
+        pp_micro = arch.get("pp_microbatches")
+        self.pp_microbatches = None if pp_micro is None else int(pp_micro)
         # The window readout runs the final layer for the readout row alone
         # only in the plain family: the MoE family runs the block whole (as
         # the JAX family does) and the pipeline family the whole forward.
@@ -235,6 +243,20 @@ class TransformerCore(nn.Module):
             return list(self.blocks)
         return [getattr(self, f"block_{i}") for i in range(self.n_layers)]
 
+    def _run_blocks(self, blocks, x: torch.Tensor) -> torch.Tensor:
+        """``blocks`` (:meth:`layers`) over every row: the pipeline family
+        under a mesh with ``pp`` above 1 as the GPipe schedule over
+        ``pp``, else in order."""
+        mesh = current_mesh()
+        if self.stacked and mesh is not None and mesh.shape.get("pp", 1) > 1:
+            if self.attention == "ring" and mesh.shape.get("sp", 1) > 1:
+                raise ValueError(
+                    f"mesh {mesh.shape}: ring attention (sp) inside the pipeline "
+                    f"(pp) is not supported, as in the JAX package; use one of "
+                    f"the two axes")
+            return pipeline_apply(_run_stage, blocks, x, mesh, self.pp_microbatches)
+        return _run_stage(blocks, x)
+
     def _heads(self, x, mask):
         x = _layer_norm(self.ln_final, x)
         logits = _dense(self.pi_head, x, torch.float32)
@@ -261,8 +283,6 @@ class TransformerCore(nn.Module):
         the position ``t`` of obs's first row): returns ``((logits ``[B, T,
         A]``, v ``[B, T]``), cache)`` with the cache written at ``t .. t +
         T - 1``."""
-        if self.stacked:
-            refuse_mesh_axis("pp", "the pipeline transformer's stage split")
         T = obs.shape[1]
         start = 0 if cache is None else int(t)
         x = (_dense(self.obs_embed, obs, torch.float32)
@@ -273,14 +293,10 @@ class TransformerCore(nn.Module):
                 x = block(x, cache=layer_cache, t=start)
             return self._heads(x, mask), cache
         if readout_t is None:
-            for block in blocks:
-                x = block(x)
-            return self._heads(x, mask)
+            return self._heads(self._run_blocks(blocks, x), mask)
         if not self.row_readout:
             # The whole forward, then each lane's readout row.
-            for block in blocks:
-                x = block(x)
-            logits, v = self._heads(x, mask)
+            logits, v = self._heads(self._run_blocks(blocks, x), mask)
             lanes = torch.arange(logits.shape[0], device=logits.device)
             return logits[lanes, readout_t], v[lanes, readout_t]
         for block in blocks[:-1]:
@@ -292,6 +308,12 @@ class TransformerCore(nn.Module):
             mask = mask[lanes, readout_t.clamp(max=mask.shape[1] - 1)][:, None]
         logits, v = self._heads(x, mask)
         return logits[:, 0], v[:, 0]
+
+
+def _run_stage(layers, x: torch.Tensor) -> torch.Tensor:
+    for block in layers:
+        x = block(x)
+    return x
 
 
 def _init_core(core: TransformerCore, generator: torch.Generator) -> None:
@@ -501,5 +523,6 @@ def build_transformer_pp_discrete(arch: Mapping[str, Any],
     scope (the JAX family stacks them for its pipeline; the flax tree's
     ``blocks`` leaves carry a leading layer axis, which
     :mod:`relayrl_tpu_torch.weights` splits into ``blocks.i``). Runs the
-    layers in order; refuses a mesh with ``pp`` above 1."""
+    layers as a GPipe pipeline under a mesh with ``pp`` above 1, else in
+    order."""
     return _build_core_policy(arch, device, stacked=True)

@@ -1,10 +1,13 @@
-"""Parallelism: meshes, the ambient mesh, sequence-parallel ring attention
-and sharded learner updates.
+"""Parallelism: meshes, the ambient mesh, the sharding rules, sharded
+learner updates, the GPipe pipeline and sequence-parallel ring attention.
 
 Counterpart of :mod:`relayrl_tpu.parallel`, single-controller (one process
-drives every shard). Not ported yet: the param sharding rules
-(``sharding.py``), multi-process ``torch.distributed`` (``distributed.py``),
-the pipeline (``pipeline.py``) and ``compat.py`` (ROADMAP queue 1 item 11).
+drives every shard). ``compat.py`` there binds the moving
+``jax.shard_map`` API; its single-controller counterparts are
+:func:`~relayrl_tpu_torch.parallel.ring.run_ring` and
+:func:`~relayrl_tpu_torch.parallel.pipeline.pipeline_apply`. Multi-process
+``torch.distributed`` (``distributed.py``) is not ported yet (ROADMAP
+queue 1 item 11).
 """
 
 from relayrl_tpu_torch.parallel.mesh import (
@@ -15,12 +18,21 @@ from relayrl_tpu_torch.parallel.mesh import (
     resolve_mesh_shape,
     single_device_mesh,
 )
+from relayrl_tpu_torch.parallel.sharding import (
+    batch_pspec,
+    param_pspec,
+    params_shardings,
+    replicated,
+    sequence_batch_pspec,
+    state_shardings,
+)
 from relayrl_tpu_torch.parallel.learner import (
     batch_shardings,
     make_sharded_update,
     place_batch,
     place_state,
 )
+from relayrl_tpu_torch.parallel.pipeline import pipeline_apply, resolve_microbatches
 from relayrl_tpu_torch.parallel.context import current_mesh, use_mesh
 from relayrl_tpu_torch.parallel.ring import (
     make_ring_attention,
@@ -38,6 +50,14 @@ __all__ = [
     "make_mesh",
     "resolve_mesh_shape",
     "single_device_mesh",
+    "batch_pspec",
+    "param_pspec",
+    "params_shardings",
+    "replicated",
+    "sequence_batch_pspec",
+    "state_shardings",
+    "pipeline_apply",
+    "resolve_microbatches",
     "batch_shardings",
     "make_sharded_update",
     "place_batch",

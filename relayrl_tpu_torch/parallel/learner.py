@@ -1,18 +1,37 @@
-"""Sharded learner-step compilation.
+"""Sharded learner updates on one controller.
 
-Counterpart of :mod:`relayrl_tpu.parallel.learner`, single-controller and
-sequence-parallel only: :func:`make_sharded_update` takes the ``(state,
-batch) -> (state, metrics)`` update an algorithm already defines and runs
-it over a mesh. The state and the batch live on the mesh's first device.
-The batch splits where the mesh's work is: at attention, where a
-transformer with ``attention="ring"`` cuts its batch over dp x fsdp and
-its time axis over ``sp`` (what the ``shard_map`` in-specs do in JAX). The
-layers outside attention run whole on the first device, where GSPMD would
-shard them over the mesh; they compute the same function.
+Counterpart of :mod:`relayrl_tpu.parallel.learner`. JAX re-jits the
+``(state, batch) -> (state, metrics)`` update with in/out shardings and
+lets GSPMD insert the collectives; the port runs the same update eagerly,
+with the state placed by the rules of :mod:`.sharding` and the mesh
+installed as the ambient mesh (:mod:`relayrl_tpu_torch.parallel.context`),
+so the layers that split their work read it:
 
-Param sharding rules (``parallel/sharding.py``), and with them meshes with
-fsdp, tp, ep or pp above 1, come with the multi-GPU slice (ROADMAP queue 1
-item 11).
+* attention with ``attention="ring"`` cuts its batch over dp x fsdp and its
+  time axis over ``sp`` (:mod:`.ring_flash`);
+* the pipeline family runs its ``blocks`` as a GPipe schedule over ``pp``
+  (:mod:`.pipeline`);
+* the MoE layer runs each expert group on the ``ep`` device that holds it;
+* an MLP trunk whose ``dense_N`` kernels are split over ``tp`` runs column
+  then row parallel.
+
+Placement (:func:`place_state`): every parameter that a rule splits
+becomes a :class:`~relayrl_tpu_torch.parallel.sharding.Shards`
+parametrization (``torch.nn.utils.parametrize``, chosen so that every
+layer keeps reading ``layer.weight`` and autograd carries the gather's
+gradient back to the shards), whose originals are the shards, leaf tensors
+on their mesh devices; a pipeline stage's layers are plain leaf tensors
+moved to the stage's device. The optimizers of the state are rebuilt over
+those leaves, each shard's Adam moments split from its parameter's (or
+made at the first step on the shard's device), as JAX's
+``state_shardings`` places optax's moments. Layers that no rule splits
+compute on the mesh's first device, as does every gathered parameter
+outside a pipeline stage; there GSPMD would shard them over the mesh, and
+they compute the same function.
+
+A placed optimizer's state reads and loads whole
+(:func:`whole_optimizer_state`, :func:`load_whole_optimizer_state`), in
+the unplaced optimizer's layout, so checkpoints do not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -21,20 +40,22 @@ from typing import Callable
 
 import torch
 from torch import nn
+from torch.nn.utils import parametrize
 
 from relayrl_tpu_torch.parallel.context import use_mesh
-from relayrl_tpu_torch.parallel.mesh import Mesh, data_axes
-
-_UNSUPPORTED_AXES = ("fsdp", "tp", "ep", "pp")
-
-
-def _check_mesh(mesh: Mesh) -> None:
-    wide = {ax: mesh.shape[ax] for ax in _UNSUPPORTED_AXES if mesh.shape[ax] > 1}
-    if wide:
-        raise NotImplementedError(
-            f"mesh axes {wide}: only dp and sp are ported; the param "
-            f"sharding rules for fsdp, tp, ep and pp come with the multi-GPU "
-            f"slice (ROADMAP queue 1 item 11)")
+from relayrl_tpu_torch.parallel.mesh import Mesh
+from relayrl_tpu_torch.parallel.sharding import (
+    Shards,
+    _axes,
+    _coords,
+    _flax_layout,
+    batch_pspec,
+    logical_leaves,
+    mesh_device,
+    param_pspec,
+    sequence_batch_pspec,
+    shard_tensors,
+)
 
 
 def make_sharded_update(update_fn: Callable, mesh: Mesh, state_template,
@@ -45,16 +66,13 @@ def make_sharded_update(update_fn: Callable, mesh: Mesh, state_template,
     The returned callable expects state already placed (use
     :func:`place_state` once) and takes a host or device batch dict, which
     it checks against the mesh (:func:`batch_shardings`) and places. The
-    mesh is installed as the ambient mesh
-    (:mod:`relayrl_tpu_torch.parallel.context`) around each call, so
-    ``attention: "ring"`` models pick it up; ``shard_time=True`` also
+    mesh is the ambient mesh around each call; ``shard_time=True`` also
     holds the time axis of rank>=2 batch arrays to the ``sp`` split.
 
-    ``state_template`` and ``donate_state`` keep the JAX signature: every
-    state lives on the first device, so there is no placement to derive,
-    and the torch update moves the params in place, so the state is always
-    donated."""
-    _check_mesh(mesh)
+    ``state_template`` and ``donate_state`` keep the JAX signature: the
+    placement is :func:`place_state`'s, and the torch update moves the
+    params in place, so the state is always donated."""
+    del state_template, donate_state
 
     def sharded_update(state, batch):
         batch = place_batch(batch, mesh, shard_time)
@@ -68,11 +86,9 @@ def batch_shardings(mesh: Mesh, batch: dict, shard_time: bool = False) -> dict:
     """Per-key split of a batch dict, as tuples of mesh axes per leading
     dim (JAX's PartitionSpecs): batch axis over dp x fsdp, plus
     (``shard_time=True``) the time axis of rank>=2 arrays over ``sp``."""
-    axes = data_axes(mesh)
-    b = axes if axes else None
-    time = shard_time and mesh.shape.get("sp", 1) > 1
-    return {k: (b, "sp") if time and v.ndim >= 2 else (b,)
-            for k, v in batch.items()}
+    if shard_time:
+        return {k: sequence_batch_pspec(mesh, v.ndim) for k, v in batch.items()}
+    return {k: batch_pspec(mesh) for k in batch}
 
 
 def _check_splits(mesh: Mesh, batch: dict, specs: dict) -> None:
@@ -89,14 +105,101 @@ def _check_splits(mesh: Mesh, batch: dict, specs: dict) -> None:
                     f"does not split over mesh axes {axes} ({parts} parts)")
 
 
+class _Placed:
+    """What became of one parameter: the leaves that hold it now, and how
+    a tensor of its shape (a moment) splits onto them and joins back."""
+
+    def __init__(self, params: list, shards: Shards | None, device):
+        self.params, self.shards, self.device = params, shards, device
+
+    def split(self, t: torch.Tensor) -> list[torch.Tensor]:
+        return self.shards.split(t) if self.shards else [t.to(self.device, copy=True)]
+
+    def join(self, pieces, device="cpu") -> torch.Tensor:
+        return self.shards.join(pieces, device) if self.shards else pieces[0].to(device)
+
+
+def place_module(module: nn.Module, mesh: Mesh) -> dict:
+    """Place ``module``'s parameters by the rules, in place; returns each
+    old parameter's :class:`_Placed`. A stacked ``blocks`` leaf's layer
+    axis entry fixes each layer's coordinates (layer ``i`` of ``L`` at
+    block ``i // (L / parts)``); its other dims split the layer's tensor.
+    A layer placed over ``pp`` computes on its stage's device, every other
+    parameter on the first device."""
+    from relayrl_tpu_torch.weights import _owner, is_placed
+
+    if is_placed(module):
+        raise ValueError("module is already placed on a mesh")
+    keys = list(module.state_dict())
+    old = dict(module.named_parameters())
+    plan = {}
+    for path, leaf in logical_leaves(module).items():
+        spec = param_pspec(path, leaf["shape"], mesh)
+        names = leaf["names"]
+        for i, name in enumerate(names):
+            fixed, layer_spec = {}, spec
+            if leaf["stacked"]:
+                axes0, layer_spec = _axes(spec[0]), spec[1:]
+                parts = 1
+                for ax in axes0:
+                    parts *= mesh.shape[ax]
+                fixed = _coords(mesh, axes0, i // (len(names) // parts))
+            param = old[name]
+            layout = _flax_layout(path[-1], param.ndim)
+            torch_spec = tuple(layer_spec[layout[d]] for d in range(param.ndim))
+            compute = mesh_device(mesh, pp=int(fixed.get("pp", 0)))
+            home = mesh_device(mesh, **fixed)
+            if all(e is None for e in torch_spec) and home == compute:
+                with torch.no_grad():
+                    param.data = param.data.to(home)
+                plan[param] = _Placed([param], None, home)
+                continue
+            owner, attr = _owner(module, name)
+            shards = Shards(param.shape, torch_spec, mesh, fixed, compute)
+            parametrize.register_parametrization(owner, attr, shards)
+            plan[param] = _Placed(shard_tensors(owner, attr), shards, home)
+    module._logical_keys = keys
+    return plan
+
+
+def _rebuild_optimizer(opt: torch.optim.Optimizer, plan: dict) -> torch.optim.Optimizer:
+    """``opt`` over the placed leaves, its per-parameter state split as
+    the parameters were; records the plan for the whole form."""
+    groups, layout = [], []
+    for group in opt.param_groups:
+        placed = [plan.get(p) or _Placed([p], None, p.device) for p in group["params"]]
+        groups.append({**{k: v for k, v in group.items() if k != "params"},
+                       "params": [q for pl in placed for q in pl.params]})
+        layout.append(placed)
+    new = type(opt)(groups, **opt.defaults)
+    for group, placed in zip(opt.param_groups, layout):
+        for p, pl in zip(group["params"], placed):
+            for key, value in opt.state.get(p, {}).items():
+                if torch.is_tensor(value) and value.ndim and value.shape == p.shape:
+                    pieces = pl.split(value)
+                else:
+                    pieces = [value.clone() if torch.is_tensor(value) else value
+                              for _ in pl.params]
+                for q, piece in zip(pl.params, pieces):
+                    new.state[q][key] = piece
+    new._shard_layout = layout
+    return new
+
+
 def place_state(state, mesh: Mesh):
-    """Move a state's param modules onto the mesh's first device, in place
-    (its optimizers keep their parameters; their moments are made at the
-    first step, next to the parameters). Returns the state."""
-    _check_mesh(mesh)
-    for value in vars(state).values():
+    """Place a train state on ``mesh``, in place: every ``nn.Module`` field
+    by :func:`place_module`, every optimizer field rebuilt over the placed
+    leaves with its moments split (an optimizer that has not stepped gets
+    its moments at its first step, on each shard's device). Returns the
+    state."""
+    plan = {}
+    fields = vars(state)
+    for value in fields.values():
         if isinstance(value, nn.Module):
-            value.to(mesh.first_device)
+            plan.update(place_module(value, mesh))
+    for name, value in fields.items():
+        if isinstance(value, torch.optim.Optimizer):
+            setattr(state, name, _rebuild_optimizer(value, plan))
     return state
 
 
@@ -107,3 +210,59 @@ def place_batch(batch: dict, mesh: Mesh, shard_time: bool = False) -> dict:
     _check_splits(mesh, batch, batch_shardings(mesh, batch, shard_time))
     return {k: torch.as_tensor(v, device=mesh.first_device)
             for k, v in batch.items()}
+
+
+def _is_moment(value) -> bool:
+    return torch.is_tensor(value) and value.ndim > 0
+
+
+def whole_optimizer_state(opt: torch.optim.Optimizer) -> dict:
+    """``opt.state_dict()`` in the unplaced optimizer's layout: one entry
+    per logical parameter, its moments joined on the CPU."""
+    layout = getattr(opt, "_shard_layout", None)
+    sd = opt.state_dict()
+    if layout is None:
+        return sd
+    state, groups, k, i = {}, [], 0, 0
+    for group, placed in zip(sd["param_groups"], layout):
+        logical = []
+        for pl in placed:
+            parts = [sd["state"][j] for j in range(k, k + len(pl.params))
+                     if j in sd["state"]]
+            k += len(pl.params)
+            if parts:
+                state[i] = {key: pl.join([p[key] for p in parts]) if _is_moment(v) else v
+                            for key, v in parts[0].items()}
+            logical.append(i)
+            i += 1
+        groups.append({**group, "params": logical})
+    return {"state": state, "param_groups": groups}
+
+
+def load_whole_optimizer_state(opt: torch.optim.Optimizer, saved: dict) -> None:
+    """Load :func:`whole_optimizer_state`'s form into ``opt``, splitting
+    each moment onto the shards."""
+    layout = getattr(opt, "_shard_layout", None)
+    if layout is None:
+        opt.load_state_dict(saved)
+        return
+    state, groups, k, i = {}, [], 0, 0
+    for group, placed in zip(saved["param_groups"], layout):
+        if len(group["params"]) != len(placed):
+            raise ValueError("optimizer state does not match the placed optimizer")
+        shard_ids = []
+        for pl in placed:
+            ids = list(range(k, k + len(pl.params)))
+            k += len(pl.params)
+            shard_ids += ids
+            if i in saved["state"]:
+                entry = saved["state"][i]
+                split = {key: pl.split(v) if _is_moment(v) else None
+                         for key, v in entry.items()}
+                for n, j in enumerate(ids):
+                    state[j] = {key: split[key][n] if split[key] is not None
+                                else v.clone() if torch.is_tensor(v) else v
+                                for key, v in entry.items()}
+            i += 1
+        groups.append({**group, "params": shard_ids})
+    opt.load_state_dict({"state": state, "param_groups": groups})

@@ -349,7 +349,11 @@ class RelayNode:
             # last forwards and replays counted, still reaches the root.
             self._fleet_flush()
         if self.up is not None:
-            self.up.close()
+            # The final frame must leave before the socket goes: a zmq
+            # send only queues it.
+            from relayrl_tpu_torch.telemetry.aggregate import FLEET_DRAIN_S
+
+            self.up.close(drain_s=FLEET_DRAIN_S if fleet_final else 0.0)
         self.active = False
 
     # -- model plane (upstream subscription -> downstream fan-out) --

@@ -145,13 +145,18 @@ def _start_fleet_emitter(owner, tier: str):
                         interval_s=interval, registry=reg)
 
 
-def _close_fleet_emitter(owner) -> None:
+def _close_fleet_emitter(owner) -> float:
     """Final-frame flush and thread stop BEFORE the transport closes (the
-    last frame carries this life's closing totals to the root)."""
+    last frame carries this life's closing totals to the root). Returns
+    how long the transport's close may wait for that frame to leave."""
+    from relayrl_tpu_torch.telemetry.aggregate import FLEET_DRAIN_S
+
     emitter = getattr(owner, "_fleet_emitter", None)
-    if emitter is not None:
-        emitter.close(final=True)
-        owner._fleet_emitter = None
+    if emitter is None:
+        return 0.0
+    emitter.close(final=True)
+    owner._fleet_emitter = None
+    return FLEET_DRAIN_S
 
 
 def _bind_spool_impl(owner, name: str) -> None:
@@ -332,12 +337,12 @@ class Agent:
     def disable_agent(self) -> None:
         if not self.active:
             return
-        _close_fleet_emitter(self)
+        drain_s = _close_fleet_emitter(self)
         if self.spool is not None:
             # The spool outlives the transport; a send while disabled
             # buffers instead of touching a closed socket.
             self.spool.send_fn = None
-        self.transport.close()
+        self.transport.close(drain_s=drain_s)
         self.transport = None
         self.active = False
 
@@ -556,10 +561,10 @@ class VectorAgent:
             # An async-emit anakin host drains its queued windows onto the
             # wire and stops its emitter; enable_agent restarts it.
             self.host.close()
-        _close_fleet_emitter(self)
+        drain_s = _close_fleet_emitter(self)
         if self.spool is not None:
             self.spool.send_fn = None  # see Agent.disable_agent
-        self.transport.close()
+        self.transport.close(drain_s=drain_s)
         self.transport = None
         self.active = False
 

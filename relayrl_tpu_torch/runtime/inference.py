@@ -1053,13 +1053,13 @@ class RemoteActorClient:
             return
         from relayrl_tpu_torch.runtime.agent import _close_fleet_emitter
 
-        _close_fleet_emitter(self)
+        drain_s = _close_fleet_emitter(self)
         if self.spool is not None:
             self.spool.send_fn = None
         if self._serving is not None:
             self._serving.close()
             self._serving = None
-        self.transport.close()
+        self.transport.close(drain_s=drain_s)
         self.transport = None
         self.active = False
 
@@ -1492,7 +1492,7 @@ class MultiplexedRemoteClient:
             return
         from relayrl_tpu_torch.runtime.agent import _close_fleet_emitter
 
-        _close_fleet_emitter(self)
+        drain_s = _close_fleet_emitter(self)
         if self.spool is not None:
             self.spool.send_fn = None
         for client in self._clients:
@@ -1501,7 +1501,7 @@ class MultiplexedRemoteClient:
             except Exception:
                 pass
         self._clients = []
-        self.transport.close()
+        self.transport.close(drain_s=drain_s)
         self.transport = None
         self.active = False
 

@@ -141,8 +141,9 @@ def _refuse_unported(config: ConfigLoader) -> None:
     processes = int(raw) if raw else int(dist.get("num_processes", 1))
     if coordinator is not None and processes > 1:
         raise NotImplementedError(
-            "the multi-host server is not ported (ROADMAP.md queue 1 item "
-            "11); run one process")
+            "the multi-host server is not ported: it comes with the "
+            "multi-process slice of ROADMAP.md queue 1 item 11 "
+            "(distributed.py); run one process")
 
 
 class TrainingServer:

@@ -68,6 +68,11 @@ FRAME_VERSION = 1
 #: ``#t`` trace context.
 FLEET_WIRE_PREFIX = "@fleet/"
 
+#: Seconds a process that sent its closing fleet frame waits, at most, for
+#: the frame to leave when its transport closes (``close(drain_s)``): a
+#: dropped closing frame leaves its last counts out of the root's totals.
+FLEET_DRAIN_S = 5.0
+
 _TIERS = ("server", "relay", "actor", "client", "other")
 
 

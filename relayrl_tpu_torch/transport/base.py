@@ -644,4 +644,7 @@ class AgentTransport(abc.ABC):
         publisher's periodic keyframes — the default no-op."""
 
     @abc.abstractmethod
-    def close(self) -> None: ...
+    def close(self, drain_s: float = 0.0) -> None:
+        """Close the connection. ``drain_s`` bounds a wait for frames
+        already handed to :meth:`send_trajectory` to leave; transports
+        whose sends complete before they return have nothing to wait for."""

@@ -630,7 +630,9 @@ class GrpcAgentTransport(AgentTransport):
         irrelevant on this pull plane — the re-poll is the request."""
         self._known_version = -1
 
-    def close(self) -> None:
+    def close(self, drain_s: float = 0.0) -> None:
+        # A send is a unary call that returns once the server answered:
+        # nothing is left to drain.
         self._stop.set()
         if self._listener is not None:
             # Cancel-in-a-loop: a single cancel can miss the window where

@@ -664,7 +664,8 @@ class NativeAgentTransportImpl(AgentTransport):
             record_model_receipt(int(version.value), int(rx_ns.value),
                                  None, "native")
 
-    def close(self) -> None:
+    def close(self, drain_s: float = 0.0) -> None:
+        # Sends are acked before they return: nothing is left to drain.
         self._stop.set()
         if self._listener is not None:
             self._listener.join(timeout=5)

@@ -20,6 +20,10 @@ Deliberate redesigns (documented, SURVEY.md §7.5):
   shutdown-check timeout.
 * **Persistent PUSH socket.** The reference opens a fresh PUSH connection per
   trajectory send (trajectory.rs:69-90); here one connected socket per agent.
+* **A draining close.** A PUSH send only queues the frame for the context's
+  I/O thread. An agent transport owns its context, so ``close(drain_s)``
+  can wait, bounded, for the frames already queued (a closing fleet frame,
+  a spool's last replays) to leave before the process moves on or exits.
 
 A copy of :mod:`relayrl_tpu.transport.zmq_backend`.
 """
@@ -276,7 +280,9 @@ class ZmqAgentTransport(AgentTransport):
 
         self._identity = (identity or
                           f"AGENT_ID-{os.getpid()}{secrets.token_hex(4)}").encode()
-        self._ctx = zmq.Context.instance()
+        # Its own context, not the process's shared one: close() terms it,
+        # which is the only way to wait for the PUSH pipe to empty.
+        self._ctx = zmq.Context()
         self._addrs = (agent_listener_addr, trajectory_addr, model_sub_addr)
         self._dealer = self._ctx.socket(zmq.DEALER)
         self._dealer.setsockopt(zmq.IDENTITY, self._identity)
@@ -564,14 +570,21 @@ class ZmqAgentTransport(AgentTransport):
         except zmq.ZMQError:
             pass  # full pipe / closing socket: the keyframe cadence heals
 
-    def close(self) -> None:
+    def close(self, drain_s: float = 0.0) -> None:
+        """Close every socket. ``drain_s`` > 0 waits up to that long for
+        the frames already handed to ``send_trajectory`` to leave (the
+        PUSH socket's linger, waited out by terming this transport's own
+        context); at 0 they are dropped, as the reference's close does."""
         self._stop.set()
         if self._listener is not None:
             self._listener.join(timeout=5)
             self._listener = None
-        for sock in (self._dealer, self._push, self._sub,
-                     self._push_monitor):
+        for sock in (self._dealer, self._sub, self._push_monitor):
             if sock is not None:
                 sock.close(linger=0)
+        with self._push_lock:
+            self._push.close(linger=max(0, int(drain_s * 1000)))
         self._sub = None
         self._push_monitor = None
+        if not self._ctx.closed:
+            self._ctx.term()

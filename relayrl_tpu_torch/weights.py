@@ -20,6 +20,14 @@ one to one, scopes joined by ``"."``:
 So ``params["params"]["block_0"]["qkv"]["kernel"]`` is
 ``block_0.qkv.weight.T``, and ``params["params"]["blocks"]["qkv"]["kernel"][i]``
 is ``blocks.{i}.qkv.weight.T``.
+
+A module placed on a mesh (:func:`relayrl_tpu_torch.parallel.place_state`)
+holds a split parameter as shards under ``torch.nn.utils.parametrize``
+(``<owner>.parametrizations.<leaf>.original<i>``). Everything here speaks
+of the logical leaf, ``<owner>.<leaf>``: :func:`logical_state` gathers
+it, :func:`write_logical` splits a whole value into its shards, and
+:func:`flax_path` maps a shard's name to its leaf's path, so a placed
+module's bundle, checkpoint and freeze mask are the unplaced module's.
 """
 
 from __future__ import annotations
@@ -94,11 +102,116 @@ def _sorted_tree(node):
     return node
 
 
+def logical_key(key: str) -> str:
+    """A state-dict key with a shard's parametrization path folded back
+    into its leaf: ``"a.parametrizations.weight.original1"`` ->
+    ``"a.weight"``; other keys pass through."""
+    head, sep, tail = key.partition("parametrizations.")
+    return head + tail.split(".")[0] if sep else key
+
+
+def _owner(module: nn.Module, key: str) -> tuple[nn.Module, str]:
+    owner_path, _, name = key.rpartition(".")
+    return module.get_submodule(owner_path), name
+
+
+def is_placed(module: nn.Module) -> bool:
+    """Whether :func:`relayrl_tpu_torch.parallel.place_state` has placed
+    ``module`` on a mesh (it records the unplaced keys on the module)."""
+    return getattr(module, "_logical_keys", None) is not None
+
+
+def logical_keys(module: nn.Module) -> list[str]:
+    """The state-dict keys ``module`` had before it was placed, in order
+    (its own keys when it was never placed)."""
+    return list(module._logical_keys if is_placed(module) else module.state_dict())
+
+
+def logical_state(module: nn.Module) -> dict[str, torch.Tensor]:
+    """``module``'s state dict by logical key, in the unplaced order: a
+    placed parameter gathered whole (a fresh tensor on its compute
+    device), every other entry the live tensor, detached."""
+    live = module.state_dict()
+    out = {}
+    with torch.no_grad():
+        for key in logical_keys(module):
+            if key in live:
+                out[key] = live[key]
+            else:
+                owner, name = _owner(module, key)
+                out[key] = getattr(owner, name).detach()
+    return out
+
+
+def logical_shapes(module: nn.Module) -> dict[str, tuple[int, ...]]:
+    """Parameter name -> shape, by logical name, without gathering."""
+    from torch.nn.utils import parametrize
+
+    params = dict(module.named_parameters())
+    out = {}
+    for key in logical_keys(module):
+        if key in params:
+            out[key] = tuple(params[key].shape)
+            continue
+        owner, name = _owner(module, key)
+        if parametrize.is_parametrized(owner, name):
+            out[key] = tuple(owner.parametrizations[name][0].shape)
+    return out
+
+
+def _checked(module: nn.Module, live: dict, key: str, value: torch.Tensor) -> None:
+    """Raise unless ``value`` has the shape of ``module``'s entry ``key``:
+    the live tensor's, or a placed parameter's whole shape."""
+    if key in live:
+        want = tuple(live[key].shape)
+    else:
+        owner, name = _owner(module, key)
+        want = owner.parametrizations[name][0].shape
+    if tuple(value.shape) != want:
+        raise ValueError(f"{key}: shape {tuple(value.shape)} does not match {want}")
+
+
+def _write(module: nn.Module, live: dict, key: str, value: torch.Tensor) -> None:
+    with torch.no_grad():
+        if key in live:
+            live[key].copy_(value)
+            return
+        owner, name = _owner(module, key)
+        plist = owner.parametrizations[name]
+        for i, piece in enumerate(plist[0].right_inverse(value)):
+            getattr(plist, f"original{i}").copy_(piece)
+
+
+def write_logical(module: nn.Module, key: str, value: torch.Tensor) -> None:
+    """Copy a whole ``value`` into ``module``'s entry ``key`` (a logical
+    key), in place: into the live tensor, or split into a placed
+    parameter's shards. A value of another shape raises."""
+    live = module.state_dict()
+    _checked(module, live, key, value)
+    _write(module, live, key, value)
+
+
+def load_logical(module: nn.Module, state: Mapping[str, torch.Tensor]) -> nn.Module:
+    """``load_state_dict`` by logical keys: every key of
+    :func:`logical_keys` written in place (:func:`write_logical`). Keys
+    and shapes are checked before anything is written."""
+    keys = logical_keys(module)
+    if set(keys) != set(state):
+        raise KeyError(f"state keys differ: missing {sorted(set(keys) - set(state))}, "
+                       f"unexpected {sorted(set(state) - set(keys))}")
+    live = module.state_dict()
+    for key in keys:
+        _checked(module, live, key, state[key])
+    for key in keys:
+        _write(module, live, key, state[key])
+    return module
+
+
 def flax_path(module: nn.Module, key: str) -> tuple[str, ...]:
     """The flax tree path of state-dict entry ``key`` of ``module``, below
     ``"params"``: ``"block_0.qkv.weight"`` -> ``("block_0", "qkv",
-    "kernel")``."""
-    owner_path, _, name = key.rpartition(".")
+    "kernel")``; a placed parameter's shard maps to its leaf's path."""
+    owner_path, _, name = logical_key(key).rpartition(".")
     owner = module.get_submodule(owner_path)
     if name == "weight" and isinstance(owner, (nn.Linear, nn.Conv2d)):
         name = "kernel"
@@ -150,14 +263,17 @@ def _to_numpy(tensor: torch.Tensor) -> np.ndarray:
 def params_to_jax(module: nn.Module) -> dict[str, Any]:
     """Module -> flax params tree of numpy arrays, keys sorted at every
     level (the order JAX's tree utilities give a params dict)."""
-    return state_to_jax(module, module.state_dict())
+    return state_to_jax(module, logical_state(module))
 
 
 def load_flat(module: nn.Module, state: Mapping[str, torch.Tensor]) -> nn.Module:
     """Copy a host state dict into ``module``'s tensors through ONE
     host-to-device copy: the host tensors are packed into one byte
     buffer, moved once, and scattered on the device. Bit-exact: only
-    bytes move."""
+    bytes move. A placed module takes each whole value split into its
+    shards (:func:`write_logical`)."""
+    if is_placed(module):
+        return load_logical(module, state)
     targets = module.state_dict()
     parts = [state[k].contiguous().reshape(-1).view(torch.uint8)
              for k in targets]

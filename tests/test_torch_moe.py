@@ -11,8 +11,10 @@ against the JAX package's, on the CPU.
   gives the window path's values; ``ModelBundle`` bytes equal both ways.
 * One REINFORCE update from the same params and batch, with
   ``tests/test_torch_reinforce.py``'s helpers and bars.
-* Under a mesh with ``ep`` above 1 the layer refuses (ROADMAP queue 1
-  item 11).
+* Under a mesh with ``ep`` above 1, once the expert stacks are placed on
+  it, each expert group runs on its ep device: ``evaluate`` and
+  ``expert_utilization`` as without the mesh (the sharded update against
+  the JAX package's is in ``tests/test_torch_sharding.py``).
 """
 
 import dataclasses
@@ -259,12 +261,32 @@ def test_bundle_bytes_round_trip():
     assert abs(float(w.std()) * 32 ** 0.5 - 1.0) < 0.1  # fan-in d, not E * d
 
 
-def test_ep_mesh_refused():
+def test_ep_mesh_runs_each_expert_group_on_its_device():
+    """Placed on {ep 2}, each ep device holds half the experts; ``evaluate``
+    reads them there and sums the groups' partial combines, within the f32
+    bar of the unplaced layer, and ``expert_utilization`` still sums to 1
+    per layer. An unplaced module under the mesh runs as without it."""
+    from relayrl_tpu_torch.algorithms.reinforce import ReinforceState
+    from relayrl_tpu_torch.parallel import place_state
+    from relayrl_tpu_torch.parallel.sharding import shard_tensors
+
     arch = _arch()
     _, _, policy, params = _pair(arch)
-    obs = np.zeros((1, 4, OBS), np.float32)
-    with use_mesh(make_mesh({"ep": 2}, [CPU] * 2)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            policy.evaluate(params, obs, np.zeros((1, 4)))
-    with use_mesh(make_mesh({"ep": 1}, [CPU])), torch.no_grad():
-        assert policy.evaluate(params, obs, np.zeros((1, 4)))[0].shape == (1, 4)
+    obs = np.random.default_rng(4).standard_normal((2, 4, OBS)).astype(np.float32)
+    act = np.zeros((2, 4))
+    mesh = make_mesh({"ep": 2}, [CPU] * 2)
+    with torch.no_grad():
+        want = policy.evaluate(params, obs, act)
+        with use_mesh(mesh):
+            assert all(torch.equal(a, b) for a, b in
+                       zip(policy.evaluate(params, obs, act), want))
+        placed = policy.load_params(_tree(arch))
+        place_state(ReinforceState(placed, None, None), mesh)
+        up = shard_tensors(placed.block_0.moe, "moe_w_up")
+        assert len(up) == 2 and up[0].shape[0] == arch.get("moe_experts", 4) // 2
+        with use_mesh(mesh):
+            got = policy.evaluate(placed, obs, act)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=TOL["float32"], rtol=0)
+    util = expert_utilization(arch, placed, obs)
+    assert all(abs(float(u.sum()) - 1.0) <= 1e-5 for u in util.values())

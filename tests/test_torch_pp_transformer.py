@@ -11,10 +11,11 @@ JAX package's, on the CPU.
   package's two families agree on them too.
 * One REINFORCE update from the same params and batch, with
   ``tests/test_torch_reinforce.py``'s helpers and bars (read per layer).
-* The port runs the layers in order (the JAX family's ``pp`` = 1 path):
-  under a mesh with ``pp`` above 1 it refuses, as the sharded learner does
-  (ROADMAP queue 1 item 11). Like the JAX family it has no KV cache, so a
-  ``PolicyActor`` serves it through the window.
+* The port runs the layers in order with no mesh (the JAX family's ``pp``
+  = 1 path), and as a GPipe pipeline under a mesh with ``pp`` above 1
+  (against the JAX package's in ``tests/test_torch_gpipe.py``). Like the
+  JAX family it has no KV cache, so a ``PolicyActor`` serves it through
+  the window.
 """
 
 import dataclasses
@@ -200,16 +201,29 @@ def test_freeze_info_matches_jax(patterns):
     assert freeze_info(module, patterns) == jax_freeze_info(tree, patterns)
 
 
-def test_pp_mesh_refused():
+def test_pp_mesh_pipelines():
+    """Under {pp 3} the three layers run as a pipeline of three one-layer
+    stages, which gives the in-order loop's ``evaluate``; a layer count pp
+    does not divide raises the JAX package's named error; the sharded
+    update takes the pp mesh."""
     arch = _arch()
     policy = build_policy(arch, device="cpu")
     params = policy.load_params(_tree(arch))
-    obs = np.zeros((1, 4, OBS), np.float32)
-    with use_mesh(make_mesh({"pp": 2}, [CPU] * 2)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            policy.evaluate(params, obs, np.zeros((1, 4)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        make_sharded_update(lambda s, b: (s, {}), make_mesh({"pp": 2}, [CPU] * 2), None)
+    obs = np.random.default_rng(5).standard_normal((2, 4, OBS)).astype(np.float32)
+    act = np.zeros((2, 4))
+    with torch.no_grad():
+        want = policy.evaluate(params, obs, act)
+        with use_mesh(make_mesh({"pp": 3}, [CPU] * 3)):
+            got = policy.evaluate(params, obs, act)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=TOL["float32"], rtol=0)
+        with use_mesh(make_mesh({"pp": 2}, [CPU] * 2)):
+            with pytest.raises(ValueError, match="not divisible by the pp mesh axis"):
+                policy.evaluate(params, obs, act)
+    calls = []
+    make_sharded_update(lambda s, b: calls.append(b) or (s, {}),
+                        make_mesh({"pp": 3}, [CPU] * 3), None)(None, {"obs": obs})
+    assert len(calls) == 1
 
 
 def test_actor_serves_through_the_window():

@@ -82,8 +82,8 @@ def _make_fakes():
         def request_resync(self, held_version=-1):
             self.resyncs += 1
 
-        def close(self):
-            pass
+        def close(self, drain_s=0.0):
+            self.closed_with = drain_s
 
     class FakeDownstream(ServerTransport):
         def __init__(self):
@@ -947,3 +947,34 @@ def test_refuses_tracing_and_fleet(tmp_cwd, telemetry):
         tel.reset_for_tests()
 
 
+
+
+@pytest.mark.parametrize("fleet", [False, True])
+def test_relay_drains_its_closing_fleet_frame(tmp_cwd, fleet):
+    """With the fleet plane on, the relay's closing frame is its last send
+    and its upstream closes with ``FLEET_DRAIN_S`` to let that frame leave
+    (a zmq send only queues it); without the plane it closes at once."""
+    from relayrl_tpu_torch import telemetry as tel
+    from relayrl_tpu_torch.relay import RelayNode
+    from relayrl_tpu_torch.telemetry import aggregate as ag
+
+    tel.reset_for_tests()
+    FakeUpstream, FakeDownstream = _make_fakes()
+    path = os.path.join(str(tmp_cwd), "telemetry.json")
+    with open(path, "w") as f:
+        json.dump({"telemetry": {"enabled": True, "port": None,
+                                 **({"fleet_interval_s": 5.0} if fleet
+                                    else {})}}, f)
+    up = FakeUpstream()
+    try:
+        node = RelayNode(config_path=path, name="relay-d", batch_max=1,
+                         spool_entries=0, upstream_transport=up,
+                         downstream_transport=FakeDownstream())
+        node.close()
+    finally:
+        tel.reset_for_tests()
+    if fleet:
+        assert [wid for wid, _ in up.sent] == [ag.fleet_wire_id("relay-d")]
+        assert up.closed_with == ag.FLEET_DRAIN_S
+    else:
+        assert up.sent == [] and up.closed_with == 0.0

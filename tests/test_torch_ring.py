@@ -483,6 +483,10 @@ def test_ring_evaluate_matches_jax(ring_spy, spec, precision):
 
 PI_LR, VF_LR, GAMMA, LAM, VF_ITERS = 3e-4, 1e-3, 0.98, 0.97, 2
 UPDATE_SPEC = {"dp": 2, "sp": 4}
+# The JAX package's error for a ring shard_map nested in its pipeline's:
+# inside the outer shard_map every mesh axis is manual, so the inner one's
+# mesh differs from the context mesh.
+JAX_NESTED_SHARD_MAP = "context mesh .* should match the mesh passed to shard_map"
 # One update in f32, at the learner slice's bars: metrics at rtol 1e-4
 # (atol 1e-6 for AdvMean, ~0 by construction); params at atol 1e-5, except
 # the key third of each qkv bias, whose gradient is zero in exact
@@ -568,10 +572,55 @@ def test_sp_reinforce_update_matches_jax(jax_sp_update, ring_spy, spec, ring):
 
 
 @pytest.mark.parametrize("axis", ["fsdp", "tp", "ep", "pp"])
-def test_sharded_update_refuses_unported_axes(axis):
-    mesh = make_mesh({axis: 2, "sp": 2}, [CPU] * 4)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_sharded_update(lambda state, batch: (state, {}), mesh, None)
+def test_sharded_update_with_sp_and_another_axis(axis, ring_spy):
+    """``{axis: 2, sp: 2}`` with the flash ring: fsdp (gathered params),
+    tp (no ``dense_N`` leaf in a transformer: nothing splits) and ep (the
+    MoE family's expert groups) compose with the ring, and the update
+    equals the unsharded update at this file's bars; pp with the ring
+    raises, in the JAX package too (its ring shard_map cannot nest in its
+    pipeline's)."""
+    kind = {"ep": "transformer_moe_discrete",
+            "pp": "transformer_pp_discrete"}.get(axis, "transformer_discrete")
+    arch = {**_arch(), "kind": kind}
+    tree = _tree(arch)
+    spec = {axis: 2, "sp": 2}
+    policy = build_policy(arch, device="cpu")
+    update = make_reinforce_update(policy, VF_ITERS, GAMMA, LAM, True)
+    mesh = make_mesh(spec, [CPU] * 4)
+    if axis == "pp":
+        with pytest.raises(ValueError, match=JAX_NESTED_SHARD_MAP):
+            with jax_use_mesh(jax_make_mesh(spec, jax.devices()[:4])):
+                jax.jit(jax_build_policy(arch).evaluate)(
+                    tree, np.zeros((2, 32, OBS), np.float32), np.zeros((2, 32), np.int32))
+        state = place_state(ReinforceState(policy.load_params(tree), None, None), mesh)
+        with pytest.raises(ValueError, match="inside the pipeline"):
+            make_sharded_update(update, mesh, state, shard_time=True)(state, _update_batch())
+        return
+    sides = {}
+    for side in ("mesh", "plain"):
+        params = policy.load_params(tree)
+        state = ReinforceState(params, *make_optimizers(params, PI_LR, VF_LR))
+        if side == "mesh":
+            sharded = make_sharded_update(update, mesh, state, shard_time=True)
+            new, metrics = sharded(place_state(state, mesh), _update_batch())
+        else:
+            new, metrics = update(state, {k: torch.as_tensor(v)
+                                          for k, v in _update_batch().items()})
+        sides[side] = (_leaves(params_to_jax(new.params)), read_metrics(metrics))
+    assert set(ring_spy) == {"flash"}
+    (g, got), (w, want) = sides["mesh"], sides["plain"]
+    for key, value in want.items():
+        atol = METRIC_ATOL if key == "AdvMean" else 0.0
+        assert got[key] == pytest.approx(value, rel=METRIC_RTOL, abs=atol), key
+    i = _leaves(tree)
+    for path in g:
+        if path.endswith("['qkv']['bias']"):
+            d = g[path].shape[0] // 3
+            for leaves in (g, w):
+                np.testing.assert_array_less(np.abs(leaves[path][d:2 * d] - i[path][d:2 * d]),
+                                             PI_LR * (1 + 1e-3))
+            g[path], w[path] = (np.delete(x[path], np.s_[d:2 * d]) for x in (g, w))
+        np.testing.assert_allclose(g[path], w[path], atol=PARAM_ATOL, rtol=0, err_msg=path)
 
 
 def test_place_batch_checks_the_split():

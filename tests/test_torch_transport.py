@@ -10,6 +10,7 @@
 * The columnar branch of the epoch buffer pads like the JAX package's.
 * The native and gRPC transports build their own backends and never fall
   back to ZMQ.
+* A ZMQ agent transport's ``close(drain_s)`` delivers what was queued.
 
 Tolerances: none — every comparison here is exact.
 """
@@ -434,3 +435,52 @@ def test_server_type_resolves_as_reference(server_type, monkeypatch):
         monkeypatch.setattr(jax_native, "native_available", lambda: loads)
         assert transport._resolve_auto() == jax_transport._resolve_auto() == (
             "native" if loads else "zmq")
+
+
+# -- closing without losing the last frames ------------------------------------
+
+def test_zmq_close_drains_queued_frames():
+    """Frames handed to ``send_trajectory`` just before ``close(drain_s)``
+    all reach the peer: the close waits for the PUSH pipe to empty (the
+    closing fleet frame that carries a relay's last replays rides it)."""
+    import zmq
+
+    from relayrl_tpu_torch.transport.zmq_backend import ZmqAgentTransport
+
+    ctx = zmq.Context()
+    pull = ctx.socket(zmq.PULL)
+    port = pull.bind_to_random_port("tcp://127.0.0.1")
+    n, payload = 64, bytes(range(256)) * 256
+    try:
+        agent = ZmqAgentTransport(f"tcp://127.0.0.1:{free_port()}",
+                                  f"tcp://127.0.0.1:{port}",
+                                  f"tcp://127.0.0.1:{free_port()}")
+        for i in range(n):
+            agent.send_trajectory(payload, agent_id=f"a{i}")
+        agent.close(drain_s=10.0)
+        got = []
+        while pull.poll(2000):
+            got.append(port_base.unpack_trajectory_envelope(pull.recv()))
+        assert [a for a, _ in got] == [f"a{i}" for i in range(n)]
+        assert all(p == payload for _, p in got)
+    finally:
+        pull.close(linger=0)
+        ctx.term()
+
+
+@pytest.mark.parametrize("drain_s", [0.0, 0.5])
+def test_zmq_close_with_no_peer_is_bounded(drain_s):
+    """With nobody listening the queued frame cannot leave: the close
+    returns after at most ``drain_s`` (at 0 at once, as before)."""
+    from relayrl_tpu_torch.transport.zmq_backend import ZmqAgentTransport
+
+    agent = ZmqAgentTransport(*(f"tcp://127.0.0.1:{free_port()}"
+                                for _ in range(3)))
+    agent.send_trajectory(b"lost", agent_id="a")
+    t0 = time.monotonic()
+    agent.close(drain_s=drain_s)
+    elapsed = time.monotonic() - t0
+    assert elapsed < drain_s + 1.0, elapsed
+    if drain_s:
+        assert elapsed >= drain_s * 0.8, elapsed
+
