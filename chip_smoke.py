@@ -275,7 +275,29 @@ Phases, each of which fails the run:
    2,688/32/32 each; a port actor with no mesh serving the published
    bundle at 4 K1 a dispatch for 4 dispatches, its params sha256-equal to
    the learner's gathered params and the publish snapshot's. Each part's
-   ms per update printed beside phase 5's.
+   ms per update printed beside phase 5's;
+22. the multi-process learner: ``MH_RANKS`` processes that this script
+   starts (``chip_smoke.py --mh-rank``, ``subprocess``), each a rank of a
+   ``torch.distributed`` group (``parallel/distributed.py``; on one card
+   both ranks share it through gloo, with a card each the backend rule
+   picks nccl), the learner's dp axis spanning them. (a) Phase 5's first
+   batch, broadcast from rank 0 bit for bit, and a copy whose rank-1 rows
+   are mostly padding: one flagship REINFORCE update each from phase 5's
+   initial params, the ranks' params sha256-equal, 336/4/4 launches per
+   rank, held to this process's single-process update of the same batch at
+   phase 5's bars; ms per update and the all-reduces' share. (b) Phase
+   11's learner as a two-rank ``TrainingServer`` (a ``chaos_server`` per
+   rank, the checkpoint directory shared) fed over ZMQ by an 8-lane
+   ``VectorAgent`` (one epoch a wave): every published version installed,
+   both ranks at the same version with sha256-equal params, 336/4/4 per
+   update each, only the coordinator with a transport and publishes,
+   exact accounting; then a collective checkpoint, both ranks resumed from
+   it and trained further, the accounting exact across the resume. (c)
+   DQN and SAC at their goldens' widths: the coordinator's samples
+   broadcast, 4 updates under dp 2 across the ranks, the networks
+   sha256-equal and held to single-process updates on the same batches at
+   phase 15's card-vs-CPU bars. A rank that fails, or a deadline that
+   passes, fails the phase.
 
 Phases 3 and 6 also hold every kernel to its plain version at head dims
 128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
@@ -644,6 +666,29 @@ MESH_EPOCHS = 2
 MESH_ACTOR_LANES = 8
 MESH_ACTOR_STEPS = 4
 CARTPOLE_EPISODE_STEPS = 400
+
+# The multi-process learner (phase 22): MH_RANKS processes started here,
+# each a rank of a torch.distributed group whose dp axis they span. On one
+# card both ranks share it through gloo (the cut); on a machine with a
+# card per rank each rank takes its own (CUDA_VISIBLE_DEVICES) and the
+# backend rule picks nccl. (a) phase 5's first batch, and a copy whose
+# rank-1 rows are mostly padding (MH_UNEVEN_LENGTHS valid steps), each
+# one REINFORCE update from phase 5's initial params; (b) a two-rank
+# TrainingServer fed by an agent of MH_LANES lanes (one epoch a wave, so
+# the agent installs every published version) for MH_SERVER_UPDATES
+# updates, a collective checkpoint, a resume on both ranks and
+# MH_RESUME_UPDATES more; (c) DQN and SAC at their goldens' widths,
+# MH_OFF_UPDATES updates on the coordinator's samples.
+MH_RANKS = 2
+MH_UNEVEN_LENGTHS = (24, 9, 3, 1)
+MH_TIMED = 3
+MH_LANES = 8
+MH_SERVER_UPDATES = 3
+MH_RESUME_UPDATES = 2
+MH_OFF_UPDATES = 4
+MH_OFF_TIMED = 20
+MH_OFF_ALGOS = ("DQN", "SAC")
+MH_TIMEOUT_S = 420
 
 
 def _dtype_name(dtype) -> str:
@@ -2477,11 +2522,11 @@ class ChaosServer:
     started with ``subprocess`` (never a fork of this CUDA process), its
     output kept in ``log``; :meth:`status` reads its status file."""
 
-    def __init__(self, root: Path, cfg: dict, log: Path):
+    def __init__(self, root: Path, cfg: dict, log: Path, env: dict | None = None):
         import os
 
         self.cfg, self.log = cfg, log
-        env = dict(os.environ, PYTHONPATH=str(root))
+        env = dict(os.environ, PYTHONPATH=str(root), **(env or {}))
         self._out = open(log, "ab")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "relayrl_tpu_torch.examples.chaos_server",
@@ -6410,6 +6455,580 @@ def mesh_entry(device, workdir: Path, learned: dict) -> dict:
     return {"per_update": per_update, "ms": [1e3 * s for s in seconds],
             "served": served, "digest": digest[:16], "version": algo.version}
 
+def mh_rank_env(rank: int, port: int, cards: bool) -> dict:
+    """A rank's environment: the coordinator, the world and its id (the
+    server reads these), and its own card when the machine has one per
+    rank."""
+    env = {"RELAYRL_COORDINATOR": f"127.0.0.1:{port}",
+           "RELAYRL_NUM_PROCESSES": str(MH_RANKS), "RELAYRL_PROCESS_ID": str(rank)}
+    if cards:
+        env["CUDA_VISIBLE_DEVICES"] = str(rank)
+    return env
+
+
+def rank_device():
+    """A rank's card: the current one (its only one under
+    ``CUDA_VISIBLE_DEVICES``)."""
+    import torch
+
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _digest(tree) -> str:
+    from relayrl_tpu_torch.weights import tree_digest
+
+    return tree_digest(tree)
+
+
+def _allreduce_timer():
+    """Wrap ``DataParallelGroup.all_reduce`` to time each call (device
+    synced on both sides, so the collective's own time shows apart from
+    the work queued before it); returns the stats dict and an undo."""
+    import torch
+
+    from relayrl_tpu_torch.parallel.distributed import DataParallelGroup
+
+    stats = {"calls": 0, "bytes": 0, "s": 0.0}
+    orig = DataParallelGroup.all_reduce
+
+    def timed(self, flat):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, flat)
+        torch.cuda.synchronize()
+        stats["s"] += time.perf_counter() - t0
+        stats["calls"] += 1
+        stats["bytes"] += flat.numel() * flat.element_size()
+        return out
+
+    DataParallelGroup.all_reduce = timed
+    return stats, lambda: setattr(DataParallelGroup, "all_reduce", orig)
+
+
+def mh_rank_main(rank: int, port: int, workdir: Path) -> int:
+    """One rank of phase 22 (a) and (c) (``chip_smoke.py --mh-rank RANK
+    PORT WORKDIR``, started by :func:`multiprocess_learner`): forms the
+    process group, receives the coordinator's batches through the
+    broadcast, and trains over a dp axis that spans the ranks. Writes its
+    results to ``WORKDIR/rank<RANK>.pt``."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+    from relayrl_tpu_torch.parallel import (
+        broadcast_from_coordinator,
+        distributed,
+        initialize_distributed,
+        is_coordinator,
+        make_mesh,
+    )
+    from relayrl_tpu_torch.weights import logical_state, params_to_jax
+
+    root = Path(__file__).resolve().parent
+    info = initialize_distributed(f"127.0.0.1:{port}", MH_RANKS, rank)
+    if info != {"multi_host": True, "process_id": rank, "num_processes": MH_RANKS} \
+            or is_coordinator() != (rank == 0):
+        raise AssertionError(f"rank {rank}: topology {info}")
+    device = rank_device()
+    batches = torch.load(workdir / "batches.pt", weights_only=False)
+    out = {"info": info, "backend": distributed.backend(),
+           "card": torch.cuda.get_device_name(device), "a": {}, "c": {}}
+
+    def mesh():
+        m = make_mesh({"dp": -1}, [device])
+        if m.shape["dp"] != MH_RANKS or m.process_count != MH_RANKS:
+            raise AssertionError(f"mesh {m.shape} over {m.process_count} processes")
+        return m
+
+    # (a) phase 5's batches, each one update from phase 5's initial params.
+    for case, want in batches.items():
+        algo = build_learner(device, workdir / f"rank{rank}_{case}")
+        params0 = _digest(params_to_jax(algo.state.params))
+        algo.enable_multihost(mesh())
+        zero = algo.mh_zero_batch(*want["obs"].shape[:2])
+        if {k: (v.shape, v.dtype) for k, v in zero.items()} != \
+                {k: (v.shape, v.dtype) for k, v in want.items()}:
+            raise AssertionError(f"mh_zero_batch's schema differs from the batch's")
+        batch = broadcast_from_coordinator(want if rank == 0 else zero)
+        if not all(np.array_equal(batch[k], want[k]) and batch[k].dtype == want[k].dtype
+                   for k in want):
+            raise AssertionError(f"rank {rank}: the broadcast batch differs")
+        zero_flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        algo.train_on_batch(batch)
+        metrics = read_metrics(algo._last_metrics)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        counts = flash_counts()
+        result = {"params0": params0, "counts": counts, "metrics": metrics,
+                  "first_ms": first_ms,
+                  "params": {k: v.detach().cpu().clone() for k, v in
+                             logical_state(algo.state.params).items()},
+                  "digest": _digest(params_to_jax(algo.state.params))}
+        if case == "even":
+            # Steady updates, then one with the all-reduces timed apart.
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MH_TIMED):
+                algo.train_on_batch(batch)
+            read_metrics(algo._last_metrics)
+            torch.cuda.synchronize()
+            result["ms"] = 1e3 * (time.perf_counter() - t0) / MH_TIMED
+            stats, undo = _allreduce_timer()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                algo.train_on_batch(batch)
+                read_metrics(algo._last_metrics)
+                torch.cuda.synchronize()
+                result["timed_ms"] = 1e3 * (time.perf_counter() - t0)
+            finally:
+                undo()
+            result["allreduce"] = stats
+            result["steady_digest"] = _digest(params_to_jax(algo.state.params))
+        out["a"][case] = result
+
+    # (c) the off-policy family: the coordinator samples, every rank trains.
+    for i, name in enumerate(MH_OFF_ALGOS):
+        algo, env_id = build_offpolicy(device, root, name, workdir / f"rank{rank}_{name}")
+        sampled = []
+        if rank == 0:
+            for ep in random_episodes(env_id, algo.update_after + algo.batch_size, SEED + i):
+                algo.buffer.add_episode(ep)
+            sampled = [algo.buffer.sample(algo.batch_size) for _ in range(MH_OFF_UPDATES)]
+        algo.enable_multihost(mesh())
+
+        def step(batch):
+            batch = broadcast_from_coordinator(
+                batch if rank == 0 else algo.mh_zero_batch(algo.batch_size, 0))
+            algo.train_on_batch(batch)
+
+        metrics = []
+        zero_flash_counts()
+        for batch in (sampled or [None] * MH_OFF_UPDATES):
+            step(batch)
+            metrics.append(read_metrics(algo._last_metrics))
+        state = {f: {n: p.detach().cpu().clone() for n, p in m.named_parameters()}
+                 for f, m in vars(algo.state).items() if isinstance(m, torch.nn.Module)}
+        out["c"][name] = {"metrics": metrics, "state": state, "batches": sampled,
+                          "digest": _digest(algo.state_trees()), "version": algo.version}
+        # Steady updates as the server's loop runs them: a broadcast sample,
+        # then the update.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MH_OFF_TIMED):
+            step(algo.buffer.sample(algo.batch_size) if rank == 0 else None)
+        read_metrics(algo._last_metrics)
+        torch.cuda.synchronize()
+        out["c"][name].update(ms=1e3 * (time.perf_counter() - t0) / MH_OFF_TIMED,
+                              counts=flash_counts(),
+                              steady_digest=_digest(algo.state_trees()))
+    torch.save(out, workdir / f"rank{rank}.pt")
+    distributed.barrier()
+    distributed.shutdown_distributed()
+    print(f"[mh-rank {rank}] done ({out['backend']} on {out['card']})", flush=True)
+    return 0
+
+
+def run_ranks(root: Path, workdir: Path, args, envs: list[dict],
+              timeout_s: float = MH_TIMEOUT_S) -> None:
+    """Start one ``chip_smoke.py`` process per rank (``subprocess``, never a
+    fork of this CUDA process) with ``args(rank)`` and its env, wait for all
+    under one deadline, and fail the phase if one fails or the deadline
+    passes (every process is killed then)."""
+    import os
+
+    procs, logs = [], []
+    for rank, env in enumerate(envs):
+        log = open(workdir / f"rank{rank}.log", "wb")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(root / "chip_smoke.py"), *[str(a) for a in args(rank)]],
+            cwd=str(root), env=dict(os.environ, PYTHONPATH=str(root), **env),
+            stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout_s
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                what = (f"rank {failed[0]} exited {procs[failed[0]].returncode}"
+                        if failed else f"ranks still running after {timeout_s:.0f} s")
+                raise AssertionError(f"phase 22: {what}:\n" + "\n".join(
+                    f"--- rank {r}:\n" + (workdir / f"rank{r}.log").read_bytes()[-3000:]
+                    .decode(errors="replace") for r in range(len(procs))))
+            time.sleep(0.2)
+        for rank, p in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(f"phase 22: rank {rank} exited {p.returncode}:\n"
+                                     + (workdir / f"rank{rank}.log").read_bytes()[-3000:]
+                                     .decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for log in logs:
+            log.close()
+
+
+def uneven_batch(batch: dict) -> dict:
+    """``batch`` with its rank-1 rows (the second half) mostly padding:
+    row ``4 + i`` keeps ``MH_UNEVEN_LENGTHS[i]`` valid steps."""
+    import numpy as np
+
+    out = {k: np.array(v) for k, v in batch.items()}
+    half = len(out["valid"]) // MH_RANKS
+    for i, length in enumerate(MH_UNEVEN_LENGTHS):
+        row = half + i
+        out["valid"][row, length:] = 0.0
+        for key in ("rew", "val", "logp"):
+            out[key][row, length:] = 0.0
+        out["last_val"][row] = 0.0
+    return out
+
+
+def hold_offpolicy(name: str, ref, rank_out: dict, batches: list) -> dict:
+    """The single-process updates of ``ref`` (built as the ranks built
+    theirs) on the coordinator's sampled ``batches``, against rank 0's:
+    phase 15's card-vs-CPU bars (metrics within ``MLP_METRIC_RTOL`` x |m|
+    + ``MLP_METRIC_ATOL``; every parameter within ``MLP_PARAM_ATOL``,
+    except where the reference's RMS gradient fell below ``ADAM_FLOOR``:
+    there Adam's step bound; a target takes its online element's rule)."""
+    import torch
+
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+
+    least_rms = {}
+
+    def track_rms(opt, args, kwargs):
+        beta2 = opt.param_groups[0]["betas"][1]
+        for p, st in opt.state.items():
+            rms = st["exp_avg_sq"].sqrt() / math.sqrt(1 - beta2 ** float(st["step"]))
+            least_rms[p] = torch.minimum(least_rms[p], rms) if p in least_rms else rms
+
+    opts = [o for o in vars(ref.state).values() if isinstance(o, torch.optim.Optimizer)]
+    for opt in opts:
+        opt.register_step_post_hook(track_rms)
+    want_m = []
+    for batch in batches:
+        ref.train_on_batch(batch)
+        want_m.append(read_metrics(ref._last_metrics))
+    metric_err = param_err = 0.0
+    for got, want in zip(rank_out["metrics"], want_m):
+        for key, value in want.items():
+            err = abs(got[key] - value)
+            if not err <= MLP_METRIC_RTOL * abs(value) + MLP_METRIC_ATOL:
+                raise AssertionError(f"{name} metric {key}: dp 2 across ranks {got[key]} "
+                                     f"vs one process {value}")
+            metric_err = max(metric_err, err)
+    bound_of = {p: o.param_groups[0]["lr"] * float(o.state[p]["step"])
+                for o in opts for p in o.param_groups[0]["params"]}
+    n_floored = 0
+    for field, module in vars(ref.state).items():
+        if not isinstance(module, torch.nn.Module):
+            continue
+        online = dict(getattr(ref.state, field.removeprefix("target_")).named_parameters())
+        got = rank_out["state"][field]
+        for pname, p in module.named_parameters():
+            diff = (got[pname].to(p.device) - p.detach()).abs()
+            noise = least_rms[online[pname]] < ADAM_FLOOR
+            bound = torch.where(noise, bound_of[online[pname]], MLP_PARAM_ATOL)
+            if not bool((diff <= bound).all()):
+                raise AssertionError(f"{name} {field}.{pname}: dp 2 across ranks vs one "
+                                     f"process {diff.max().item()}")
+            param_err = max(param_err, diff.where(~noise, 0.0).max().item())
+            n_floored += int(noise.sum())
+    return {"metric_err": metric_err, "param_err": param_err, "n_floored": n_floored}
+
+
+def multiprocess_learner(device, root: Path, workdir: Path, learned: dict) -> dict:
+    """Phase 22 (a) and (c): ``MH_RANKS`` rank processes
+    (:func:`mh_rank_main`). (a) Phase 5's first batch and its uneven copy
+    (:func:`uneven_batch`), broadcast bit for bit from rank 0; one update
+    each under dp 2 across the ranks from phase 5's initial params: the
+    ranks' params sha256-equal, each rank at 336/4/4 launches, and the
+    update held to this process's single-process update of the same batch
+    from the same params at phase 5's kernel-vs-plain bars
+    (:func:`hold_update`); ms per update and the all-reduces' share. (c)
+    DQN and SAC at their goldens' widths: the coordinator fills its ring
+    and samples, ``MH_OFF_UPDATES`` updates under dp 2, the ranks'
+    networks sha256-equal and held to single-process updates on the same
+    batches (:func:`hold_offpolicy`)."""
+    import shutil
+
+    import torch
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    algo, params0 = learned["algo"], learned["params0"]
+    batches = {"even": learned["batch"], "uneven": uneven_batch(learned["batch"])}
+    torch.save(batches, workdir / "batches.pt")
+    refs = {}
+    for case, batch in batches.items():
+        ref_side, _, ref_counts, steps, _ = one_update(algo, params0, batch, device)
+        refs[case] = (ref_side, ref_counts, steps)
+    port = _free_port()
+    cards = torch.cuda.device_count() >= MH_RANKS
+    t0 = time.perf_counter()
+    run_ranks(root, workdir, lambda r: ["--mh-rank", r, port, workdir],
+              [mh_rank_env(r, port, cards) for r in range(MH_RANKS)])
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=False)
+             for r in range(MH_RANKS)]
+    backends = {r["backend"] for r in ranks}
+    want_backend = "nccl" if cards else "gloo"
+    if backends != {want_backend}:
+        raise AssertionError(f"backends {backends}; the rule says {want_backend}")
+    from relayrl_tpu_torch.weights import params_to_jax
+
+    start = _digest(params_to_jax(params0))
+    n_layers = SLICE_ARCH["n_layers"]
+    expected = (n_layers * (4 + LEARNER["train_vf_iters"]), n_layers, n_layers)
+    out = {"wall": wall, "backend": want_backend, "cards": [r["card"] for r in ranks],
+           "a": {}, "c": {}}
+    for case, (ref_side, ref_counts, steps) in refs.items():
+        rs = [r["a"][case] for r in ranks]
+        if any(r["params0"] != start for r in rs):
+            raise AssertionError(f"{case}: a rank's initial params differ from phase 5's")
+        if len({r["digest"] for r in rs}) != 1 or rs[0]["metrics"] != rs[1]["metrics"]:
+            raise AssertionError(f"{case}: the ranks' params or metrics differ")
+        if any(r["counts"] != expected for r in rs) or ref_counts != expected:
+            raise AssertionError(f"{case}: launches per rank {[r['counts'] for r in rs]}, "
+                                 f"one process {ref_counts}; expected {expected}")
+        got = ({k: v.to(device) for k, v in rs[0]["params"].items()}, rs[0]["metrics"])
+        held = hold_update(got, ref_side, params0, steps,
+                           f"{case}: dp {MH_RANKS} across ranks vs one process")
+        out["a"][case] = {**held, "counts": [r["counts"] for r in rs],
+                          "first_ms": [r["first_ms"] for r in rs],
+                          "digest": rs[0]["digest"][:16]}
+    even = [r["a"]["even"] for r in ranks]
+    if len({r["steady_digest"] for r in even}) != 1:
+        raise AssertionError("the ranks' params differ after the timed updates")
+    out["ms"] = [r["ms"] for r in even]
+    out["timed_ms"] = [r["timed_ms"] for r in even]
+    out["allreduce"] = [r["allreduce"] for r in even]
+    for i, name in enumerate(MH_OFF_ALGOS):
+        rs = [r["c"][name] for r in ranks]
+        if len({r["digest"] for r in rs}) != 1 or rs[0]["metrics"] != rs[1]["metrics"] \
+                or {r["version"] for r in rs} != {MH_OFF_UPDATES} \
+                or len({r["steady_digest"] for r in rs}) != 1:
+            raise AssertionError(f"{name}: the ranks' networks, metrics or versions differ")
+        if any(r["counts"] != (0, 0, 0) for r in rs):
+            raise AssertionError(f"{name}: flash kernels launched {[r['counts'] for r in rs]}")
+        ref, _ = build_offpolicy(device, root, name, workdir / f"single_{name}")
+        held = hold_offpolicy(name, ref, rs[0], rs[0]["batches"])
+        out["c"][name] = {**held, "ms": [r["ms"] for r in rs], "digest": rs[0]["digest"][:16]}
+    return out
+
+
+def multiprocess_server(device, root: Path, workdir: Path) -> dict:
+    """Phase 22 (b): phase 11's learner as a two-rank ``TrainingServer``
+    (``examples/chaos_server.py`` per rank, the default config, the
+    checkpoint directory shared) fed over ZMQ by a ``VectorAgent`` of
+    ``MH_LANES`` ``RecallEnv(255)`` lanes in this process, one epoch a wave:
+    after each wave both ranks at the same version and the agent installed
+    it. Then both ranks stop: the same params (sha256), 336/4/4 launches
+    per update each, only the coordinator with a transport and publishes,
+    exact accounting (trajectories sent == accepted == trained), the
+    collective checkpoint on disk. Then both resume from it and train
+    ``MH_RESUME_UPDATES`` more, held the same way, the accounting exact
+    across the resume."""
+    import shutil
+
+    import torch
+
+    from relayrl_tpu_torch.checkpoint.manager import CheckpointManager
+    from relayrl_tpu_torch.envs import RecallEnv, SyncVectorEnv
+    from relayrl_tpu_torch.runtime.agent import VectorAgent
+    from relayrl_tpu_torch.runtime.vector_actor import run_vector_gym_loop
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    server_addrs, agent_addrs = zmq_addrs()
+    env = RecallEnv(LEARNER_HORIZON, N_CUES)
+    arch = SLICE_ARCH
+    hyperparams = {"model_kind": arch["kind"], "seed": SEED,
+                   **{k: v for k, v in arch.items()
+                      if k not in ("kind", "has_critic", "precision")},
+                   **LEARNER}
+    ckpt_dir = workdir / "checkpoints"
+    cards = torch.cuda.device_count() >= MH_RANKS
+    n_layers = arch["n_layers"]
+    per_update = (n_layers * (4 + LEARNER["train_vf_iters"]), n_layers, n_layers)
+    agent_config = workdir / "agent_config.json"
+    agent_config.write_text(json.dumps({}))
+
+    def start(resume: bool, tag: str):
+        port = _free_port()
+        servers = []
+        for rank in range(MH_RANKS):
+            cfg = {"algorithm": "REINFORCE",
+                   "obs_dim": int(env.observation_space.shape[0]),
+                   "act_dim": int(env.action_space.n), "hyperparams": hyperparams,
+                   "scratch": str(workdir / f"rank{rank}"),
+                   "checkpoint_every": MH_SERVER_UPDATES,
+                   "config": {"learner": {"precision": arch["precision"],
+                                          "checkpoint_dir": str(ckpt_dir)}},
+                   "digests": True, "resume": resume,
+                   "status_path": str(workdir / f"status{rank}_{tag}.json"),
+                   "stop_path": str(workdir / f"stop_{tag}"), **server_addrs}
+            servers.append(ChaosServer(root, cfg, workdir / f"rank{rank}_{tag}.log",
+                                       env=mh_rank_env(rank, port, cards)))
+        return servers
+
+    def stop(servers, tag):
+        (workdir / f"stop_{tag}").write_text("stop")
+        finals = [s.wait(lambda st: st.get("final"), "the rank's final status",
+                         timeout_s=MH_TIMEOUT_S) for s in servers]
+        for s in servers:
+            s.stop()
+        return finals
+
+    def hold(finals, updates, what):
+        states = [f["state"] for f in finals]
+        if len({(st["version"], st["params"]) for st in states}) != 1 \
+                or states[0]["version"] != updates[1]:
+            raise AssertionError(f"{what}: the ranks' states {states}")
+        for rank, f in enumerate(finals):
+            if f["distributed"] != {"multi_host": True, "process_id": rank,
+                                    "num_processes": MH_RANKS}:
+                raise AssertionError(f"{what}: rank {rank} topology {f['distributed']}")
+            stats = f["stats"]
+            if stats["learner_errors"] or stats["publish_errors"] or stats["dropped"]:
+                raise AssertionError(f"{what}: rank {rank} {stats} "
+                                     f"{f['last_learner_error']}")
+            counts = tuple(f["kernels"][k] for k in ("flash_fwd", "flash_dq", "flash_dkv"))
+            n = updates[1] - updates[0]
+            if counts != tuple(n * c for c in per_update) or stats["updates"] != n:
+                raise AssertionError(f"{what}: rank {rank} launches {counts} over "
+                                     f"{stats['updates']} updates; expected {n} x "
+                                     f"{per_update}")
+            published = sum(len(v) for v in f["publish_bytes"].values())
+            if (f["transport"] != "NoneType") != (rank == 0) or \
+                    (published > 0) != (rank == 0):
+                raise AssertionError(f"{what}: rank {rank} transport {f['transport']}, "
+                                     f"{published} publishes")
+        check_clean_guardrails(finals[0])
+        return [tuple(f["kernels"][k] for k in ("flash_fwd", "flash_dq", "flash_dkv"))
+                for f in finals]
+
+    servers = start(False, "a")
+    agent = None
+    try:
+        for s in servers:
+            s.wait(lambda st: True, "the rank to come up", timeout_s=MH_TIMEOUT_S)
+        agent = VectorAgent(num_envs=MH_LANES, config_path=str(agent_config), seed=SEED,
+                            probe=False, device=device,
+                            model_path=str(workdir / "client_model.rlx"), **agent_addrs)
+        venv = SyncVectorEnv([lambda: RecallEnv(LEARNER_HORIZON, N_CUES)] * MH_LANES)
+        waves, seconds, agent_k1, dispatches = 0, [], 0, 0
+
+        def train(servers, first, last):
+            nonlocal waves, agent_k1, dispatches
+            for version in range(first + 1, last + 1):
+                zero_flash_counts()
+                d0 = agent.host.dispatches
+                t0 = time.perf_counter()
+                run_vector_gym_loop(agent, venv, LEARNER_HORIZON, seed=SEED + waves)
+                waves += 1
+                servers[0].wait(
+                    lambda st: (st["version"] == version and agent.model_version == version
+                                and (st.get("published") or {}).get("version") == version),
+                    f"version {version} published and installed", timeout_s=MH_TIMEOUT_S)
+                for s in servers[1:]:
+                    s.wait(lambda st: st["algo_version"] == version,
+                           f"rank at version {version}", timeout_s=MH_TIMEOUT_S)
+                seconds.append(time.perf_counter() - t0)
+                agent_k1 += flash_counts()[0]
+                dispatches += agent.host.dispatches - d0
+
+        train(servers, 0, MH_SERVER_UPDATES)
+        lanes = list(agent.agent_ids)
+        finals = stop(servers, "a")
+        counts_a = hold(finals, (0, MH_SERVER_UPDATES), "(b) before the resume")
+        sent = agent.spool.sent_counts()
+        for lane in lanes:
+            row = finals[0]["accounting"]["agents"].get(lane)
+            if row != {"max_seq": sent[lane], "accepted": sent[lane], "contiguous": True}:
+                raise AssertionError(f"(b) accounting of {lane}: {row}, sent {sent[lane]}")
+        if (finals[0]["stats"]["trajectories"] != MH_SERVER_UPDATES * LEARNER["traj_per_epoch"]
+                or finals[0]["accounting"]["duplicates"]):
+            raise AssertionError(f"(b) trajectories {finals[0]['stats']}, duplicates "
+                                 f"{finals[0]['accounting']['duplicates']} for "
+                                 f"{MH_SERVER_UPDATES} updates")
+        if CheckpointManager(str(ckpt_dir)).latest_step() != MH_SERVER_UPDATES:
+            raise AssertionError("(b) no collective checkpoint at the last update")
+        checkpoint = finals[0]["state"]
+
+        servers = start(True, "b")
+        resumed = [s.wait(lambda st: True, "the resumed rank", timeout_s=MH_TIMEOUT_S)
+                   for s in servers]
+        if any(r["resume"] != checkpoint for r in resumed):
+            raise AssertionError(f"(b) resumed {[r['resume'] for r in resumed]} != "
+                                 f"{checkpoint}")
+        total = MH_SERVER_UPDATES + MH_RESUME_UPDATES
+        train(servers, MH_SERVER_UPDATES, total)
+        finals = stop(servers, "b")
+        counts_b = hold(finals, (MH_SERVER_UPDATES, total), "(b) after the resume")
+        sent = agent.spool.sent_counts()
+        for lane in lanes:
+            row = finals[0]["accounting"]["agents"].get(lane)
+            if row != {"max_seq": sent[lane], "accepted": sent[lane], "contiguous": True}:
+                raise AssertionError(f"(b) accounting after the resume of {lane}: {row}, "
+                                     f"sent {sent[lane]}")
+        # The agent's spool replays what it sent before the teardown; the
+        # restored ledger drops those replays (counted as duplicates), so
+        # the resumed server trains only the new epochs.
+        if (sum(sent.values()) != total * LEARNER["traj_per_epoch"]
+                or finals[0]["stats"]["trajectories"]
+                != MH_RESUME_UPDATES * LEARNER["traj_per_epoch"]):
+            raise AssertionError(f"(b) {sum(sent.values())} trajectories sent for {total} "
+                                 f"updates; after the resume {finals[0]['stats']}")
+        if agent_k1 != (n_layers - 1) * dispatches:
+            raise AssertionError(f"(b) agent launches {agent_k1} over {dispatches} dispatches")
+        return {"seconds": seconds, "counts": [counts_a, counts_b],
+                "replayed": finals[0]["accounting"]["duplicates"],
+                "agent_k1": agent_k1, "version": finals[0]["state"]["version"],
+                "digest": finals[0]["state"]["params"][:16], "waves": waves,
+                "sent": sum(sent.values())}
+    finally:
+        if agent is not None:
+            agent.disable_agent()
+        for s in servers:
+            s.stop()
+
+
+def nccl_shared_card_probe(rank: int, port: int) -> int:
+    """``chip_smoke.py --nccl-shared-card-probe RANK PORT``: one rank of
+    two that put an ``nccl`` group on the same card (cuda:0) and sum one
+    tensor; prints what NCCL did. Gates nothing: it checks the backend
+    rule's reason (ranks that share a card take gloo)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    store = dist.TCPStore("127.0.0.1", port, MH_RANKS, is_master=rank == 0,
+                          timeout=datetime.timedelta(seconds=60))
+    try:
+        dist.init_process_group("nccl", store=store, rank=rank, world_size=MH_RANKS,
+                                timeout=datetime.timedelta(seconds=60))
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        print(f"[nccl-probe {rank}] all_reduce on a shared card returned {x.tolist()}",
+              flush=True)
+    except Exception as e:  # the probe reports what NCCL raised
+        print(f"[nccl-probe {rank}] refused: {type(e).__name__}: {e}", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
 
 def main() -> int:
     import torch
@@ -7163,6 +7782,47 @@ def main() -> int:
         + sum(c[i] for c in me["per_update"]) for i in range(3))
     mesh_fwd += mp["eval_k1"] + me["served"][0]
 
+    # 22. the multi-process learner: ranks started here, dp across them
+    t22 = time.perf_counter()
+    ml = multiprocess_learner(device, root, root / "build" / "chip_smoke_mh", learned)
+    for case, r in ml["a"].items():
+        print(f"[multiprocess] (a) {case} batch under dp {MH_RANKS} across {MH_RANKS} ranks "
+              f"({ml['backend']}, {', '.join(ml['cards'])}): broadcast bit-equal; ranks' params "
+              f"sha256 {r['digest']}... equal; launches per rank {r['counts']}; vs one "
+              f"process: max metric diff {r['metric_err']:.3e}, max param diff "
+              f"{r['param_err']:.3e}, mean {r['mean_diff_share']:.4f} of the movement "
+              f"(phase 5's bars); first update {[round(x, 2) for x in r['first_ms']]} ms",
+              flush=True)
+    ar = ml["allreduce"][0]
+    print(f"[multiprocess] (a) (not gated) {[round(x, 2) for x in ml['ms']]} ms per update "
+          f"per rank over {MH_TIMED} updates beside phase 5's {phase5_ms:.2f}; one update "
+          f"with its all-reduces timed apart: {[round(x, 2) for x in ml['timed_ms']]} ms, of "
+          f"which rank 0's {ar['calls']} all-reduces ({ar['bytes']} bytes) took "
+          f"{1e3 * ar['s']:.2f} ms (rank 1's {1e3 * ml['allreduce'][1]['s']:.2f}) on {card}",
+          flush=True)
+    for name, r in ml["c"].items():
+        print(f"[multiprocess] (c) {name} (golden widths) under dp {MH_RANKS} across ranks, "
+              f"{MH_OFF_UPDATES} updates on the coordinator's samples: networks sha256 "
+              f"{r['digest']}... equal; vs one process: max metric diff {r['metric_err']:.3e}, "
+              f"max param diff {r['param_err']:.3e} ({r['n_floored']} elements at Adam's "
+              f"floor); (not gated) {[round(x, 3) for x in r['ms']]} ms per update over "
+              f"{MH_OFF_TIMED} more, each on a broadcast sample", flush=True)
+    ms22 = multiprocess_server(device, root, root / "build" / "chip_smoke_mh_server")
+    print(f"[multiprocess] (b) a {MH_RANKS}-rank TrainingServer fed by {MH_LANES} agent lanes: "
+          f"{MH_SERVER_UPDATES} updates, a collective checkpoint, a resume on every rank, "
+          f"{MH_RESUME_UPDATES} more; every version installed by the agent; ranks at version "
+          f"{ms22['version']} with params sha256 {ms22['digest']}... equal; launches per rank "
+          f"{ms22['counts']}; {ms22['sent']} trajectories sent = accepted = trained (the "
+          f"resumed ledger dropped {ms22['replayed']} spool replays); only "
+          f"the coordinator bound a transport and published; (not gated) seconds per wave "
+          f"(play, train, publish, install) {[round(x, 2) for x in ms22['seconds']]} on {card}",
+          flush=True)
+    print(f"[multiprocess] phase 22 in {time.perf_counter() - t22:.1f} s", flush=True)
+    mh_fwd, mh_dq, mh_dkv = (
+        sum(c[i] for r in ml["a"].values() for c in r["counts"])
+        + sum(c[i] for part in ms22["counts"] for c in part) for i in range(3))
+    mh_fwd += ms22["agent_k1"]
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -7170,7 +7830,8 @@ def main() -> int:
         "replaces": "relayrl_tpu/ops/flash.py:116",
         "launches": (run["launches"] + fwd + r_fwd + decode["launches"] + a_fwd + d_fwd
                      + ga_fwd + g_fwd + fa_fwd + f_fwd + p_fwd + fam_fwd + anakin_fwd
-                     + serving_fwd + s_fwd + rlhf_gen + rlhf_learn + traced_fwd + mesh_fwd),
+                     + serving_fwd + s_fwd + rlhf_gen + rlhf_learn + traced_fwd + mesh_fwd
+                     + mh_fwd),
         "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd,
                              "decode_vs_window": decode["launches"],
                              "distributed_agent": a_fwd, "distributed_server": d_fwd,
@@ -7192,7 +7853,7 @@ def main() -> int:
                              "traced_serving": tsv["launches"],
                              "traced_rlhf": trl["launches"][0],
                              "profiled_update": pu["counts"][0],
-                             "mesh_learner": mesh_fwd},
+                             "mesh_learner": mesh_fwd, "multiprocess_learner": mh_fwd},
         **main_flash,
     }, {
         "name": "flash_dq",
@@ -7200,7 +7861,7 @@ def main() -> int:
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:223",
         "launches": (dq + r_dq + d_dq + g_dq + f_dq + p_dq + m_dq + pp_dq + a_ddq + s_dq
-                     + rlhf_learn + traced_dq + mesh_dq),
+                     + rlhf_learn + traced_dq + mesh_dq + mh_dq),
         "launches_by_path": {"learner": dq, "local_loop": r_dq, "distributed_server": d_dq,
                              "guardrails_server": g_dq, "fleet_server": f_dq,
                              "ppo_learner": p_dq, "offpolicy": off_counts[1],
@@ -7208,7 +7869,8 @@ def main() -> int:
                              "pp_learner": pp_dq, "anakin_server": a_ddq,
                              "served_learner": s_dq, "rlhf_learner": rlhf_learn,
                              "traced_fleet_server": t_dq, "traced_rlhf": trl["launches"][1],
-                             "profiled_update": pu["counts"][1], "mesh_learner": mesh_dq},
+                             "profiled_update": pu["counts"][1], "mesh_learner": mesh_dq,
+                             "multiprocess_learner": mh_dq},
         **main_bwd["flash_dq"],
     }, {
         "name": "flash_dkv",
@@ -7216,7 +7878,7 @@ def main() -> int:
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:255",
         "launches": (dkv + r_dkv + d_dkv + g_dkv + f_dkv + p_dkv + m_dkv + pp_dkv + a_ddkv
-                     + s_dkv + rlhf_learn + traced_dkv + mesh_dkv),
+                     + s_dkv + rlhf_learn + traced_dkv + mesh_dkv + mh_dkv),
         "launches_by_path": {"learner": dkv, "local_loop": r_dkv,
                              "distributed_server": d_dkv, "guardrails_server": g_dkv,
                              "fleet_server": f_dkv, "ppo_learner": p_dkv,
@@ -7225,7 +7887,8 @@ def main() -> int:
                              "anakin_server": a_ddkv, "served_learner": s_dkv,
                              "rlhf_learner": rlhf_learn,
                              "traced_fleet_server": t_dkv, "traced_rlhf": trl["launches"][2],
-                             "profiled_update": pu["counts"][2], "mesh_learner": mesh_dkv},
+                             "profiled_update": pu["counts"][2], "mesh_learner": mesh_dkv,
+                             "multiprocess_learner": mh_dkv},
         **main_bwd["flash_dkv"],
     }] + [{
         "name": name,
@@ -7276,6 +7939,10 @@ def sweep_main(mode: str, first: int, last: int) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mh-rank"]:
+        sys.exit(mh_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
+    if sys.argv[1:2] == ["--nccl-shared-card-probe"]:
+        sys.exit(nccl_shared_card_probe(int(sys.argv[2]), int(sys.argv[3])))
     if sys.argv[1:2] in (["--recall-sweep"], ["--moe-golden-sweep"]):
         sys.exit(sweep_main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

@@ -17,9 +17,12 @@ guardrails attach :class:`~relayrl_tpu_torch.guardrails.GuardProbes`.
 The version is a host-side integer bumped at dispatch, so reading it never
 waits on the device (the JAX package keeps a host mirror of its device
 step for the same reason). An eager update compiles nothing, so
-``warmup`` returns 0; a CUDA-graph capture per bucket would live there.
-The on-policy family's mesh hooks (``enable_multihost``, ``mh_zero_batch``)
-live in :mod:`relayrl_tpu_torch.algorithms.onpolicy`.
+``warmup`` returns 0; a CUDA-graph capture per bucket would live there,
+and :meth:`AlgorithmBase._warmup_is_collective` keeps it from running
+solo once the update is a collective over processes. The families' mesh
+hooks (``enable_multihost``, ``mh_zero_batch``) live in
+:mod:`relayrl_tpu_torch.algorithms.onpolicy` and
+:mod:`relayrl_tpu_torch.algorithms.offpolicy`.
 """
 
 from __future__ import annotations
@@ -91,6 +94,9 @@ class AlgorithmBase(abc.ABC):
     # dispatch.
     max_inflight_updates = 2
     _inflight = None
+
+    # The mesh enable_multihost ran the update over (None: one device).
+    _mesh = None
 
     def _drop_nonfinite(self) -> None:
         """Count + log one trajectory rejected by the finite-value guard (a
@@ -180,11 +186,18 @@ class AlgorithmBase(abc.ABC):
         """Monotonic model version (bumped once per train step)."""
 
     # -- the training server's half --
+    def _warmup_is_collective(self) -> bool:
+        """True when the update is a collective over several processes
+        (``enable_multihost`` on a mesh that spans them): a warmup run on
+        one process alone would hang the others, so ``warmup`` refuses."""
+        return self._mesh is not None and self._mesh.process_count > 1
+
     def warmup(self, should_continue=None) -> int:
         """Pre-build the update for the batch shapes the first epochs can
         hit; returns the number of shapes prepared. An eager update has
         nothing to build, so this returns 0 (the server calls it where
-        the JAX package compiles, ahead of the first batch)."""
+        the JAX package compiles, ahead of the first batch), as it does
+        when the update is collective (:meth:`_warmup_is_collective`)."""
         return 0
 
     def checkpoint_aux(self):

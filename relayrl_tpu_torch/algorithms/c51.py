@@ -25,6 +25,7 @@ from relayrl_tpu_torch.algorithms.reinforce import _opt_step
 from relayrl_tpu_torch.models import build_policy
 from relayrl_tpu_torch.models.mlp import _MASK_FILL, _compute_dtype
 from relayrl_tpu_torch.models.q_networks import DistributionalQNet, c51_support
+from relayrl_tpu_torch.parallel.context import dp_mean, dp_sum
 
 C51State = DQNState
 
@@ -77,11 +78,12 @@ def make_c51_update(support: torch.Tensor, gamma: float, polyak: float):
             logp = torch.log_softmax(state.params(obs), dim=-1)
             logp_a = logp.gather(
                 1, act.long()[:, None, None].expand(-1, 1, logp.shape[-1])).squeeze(1)
-            loss = -(target_dist * logp_a).sum(dim=-1).mean()
+            loss = -dp_mean((target_dist * logp_a).sum(dim=-1))
             _opt_step(state.opt, loss)
         polyak_update(state.params, state.target_params, polyak)
         q_a = (torch.exp(logp_a.detach()) * atoms).sum(dim=-1)
-        metrics = {"LossQ": loss.detach(), "QVals": q_a.mean()}
+        loss, q_mean = dp_sum(loss.detach(), dp_mean(q_a))
+        metrics = {"LossQ": loss, "QVals": q_mean}
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return update

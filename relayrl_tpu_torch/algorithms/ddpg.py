@@ -25,6 +25,7 @@ from relayrl_tpu_torch.algorithms.reinforce import _opt_step
 from relayrl_tpu_torch.models import build_policy
 from relayrl_tpu_torch.models.mlp import _compute_dtype, init_module
 from relayrl_tpu_torch.models.q_networks import DeterministicActor, QValueNet
+from relayrl_tpu_torch.parallel.context import dp_mean, dp_sum
 
 
 @dataclasses.dataclass
@@ -51,14 +52,15 @@ def make_ddpg_update(gamma: float, polyak: float):
             target = rew + gamma * (1.0 - done) * q2
         with torch.enable_grad():
             q = state.critic_params(obs, act)
-            loss_q = (q - target).square().mean()
+            loss_q = dp_mean((q - target).square())
             _opt_step(state.critic_opt, loss_q)
-            loss_pi = -state.critic_params(obs, state.actor_params(obs)).mean()
+            loss_pi = -dp_mean(state.critic_params(obs, state.actor_params(obs)))
             _opt_step(state.actor_opt, loss_pi)
         polyak_update(state.actor_params, state.target_actor_params, polyak)
         polyak_update(state.critic_params, state.target_critic_params, polyak)
-        metrics = {"LossQ": loss_q.detach(), "LossPi": loss_pi.detach(),
-                   "QVals": q.detach().mean()}
+        loss_q, loss_pi, q_mean = dp_sum(loss_q.detach(), loss_pi.detach(),
+                                         dp_mean(q.detach()))
+        metrics = {"LossQ": loss_q, "LossPi": loss_pi, "QVals": q_mean}
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return update

@@ -26,6 +26,7 @@ from relayrl_tpu_torch.algorithms.reinforce import _opt_step
 from relayrl_tpu_torch.models import build_policy
 from relayrl_tpu_torch.models.mlp import _MASK_FILL, _compute_dtype
 from relayrl_tpu_torch.models.q_networks import DiscreteQNet
+from relayrl_tpu_torch.parallel.context import dp_mean, dp_sum
 
 
 @dataclasses.dataclass
@@ -69,10 +70,11 @@ def make_dqn_update(gamma: float, polyak: float, double_q: bool):
             target = rew + gamma * (1.0 - done) * next_q
         with torch.enable_grad():
             q_a = take(state.params(obs), act)
-            loss = huber_loss(q_a - target).mean()
+            loss = dp_mean(huber_loss(q_a - target))
             _opt_step(state.opt, loss)
         polyak_update(state.params, state.target_params, polyak)
-        metrics = {"LossQ": loss.detach(), "QVals": q_a.detach().mean()}
+        loss, q_mean = dp_sum(loss.detach(), dp_mean(q_a.detach()))
+        metrics = {"LossQ": loss, "QVals": q_mean}
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return update

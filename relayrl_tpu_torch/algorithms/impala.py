@@ -33,6 +33,7 @@ from relayrl_tpu_torch.algorithms.onpolicy import OnPolicyAlgorithm
 from relayrl_tpu_torch.models import apply_arch_overrides, build_policy
 from relayrl_tpu_torch.ops.gae import masked_mean_std
 from relayrl_tpu_torch.ops.vtrace import vtrace
+from relayrl_tpu_torch.parallel.context import dp_gradients, dp_sum
 
 
 @dataclasses.dataclass
@@ -76,7 +77,10 @@ def make_impala_update(policy, gamma: float, vf_coef: float, ent_coef: float,
         obs, act, act_mask = batch["obs"], batch["act"], batch["act_mask"]
         rew, valid = batch["rew"], batch["valid"]
         behavior_logp, last_val = batch["logp"], batch["last_val"]
-        n_valid = valid.sum().clamp_min(1.0)
+        # The global batch's count: under a data-parallel group each
+        # process's losses are its rows' sums over it.
+        n_valid, = dp_sum(valid.sum())
+        n_valid = n_valid.clamp_min(1.0)
 
         with torch.enable_grad():
             logp, ent, v = policy.evaluate(params, obs, act, act_mask)
@@ -90,11 +94,9 @@ def make_impala_update(policy, gamma: float, vf_coef: float, ent_coef: float,
             if state.opt is not None:
                 train = [p for group in state.opt.param_groups
                          for p in group["params"]]
-                grads = torch.autograd.grad(total, train, allow_unused=True)
-                # A parameter the loss does not reach takes a zero
-                # gradient, as in optax.
-                grads = [torch.zeros_like(p) if g is None else g
-                         for p, g in zip(train, grads)]
+                # Summed over the data-parallel group before the clip, so
+                # the clip reads the global norm.
+                grads = dp_gradients(total, train)
                 for param, grad in zip(train,
                                        clip_by_global_norm(grads,
                                                            max_grad_norm)):
@@ -104,11 +106,14 @@ def make_impala_update(policy, gamma: float, vf_coef: float, ent_coef: float,
 
         rho_mean, _ = masked_mean_std(vt.rho, valid)
         kl = ((behavior_logp - logp.detach()) * valid).sum() / n_valid
+        # Each process's shares of the global means, summed.
+        pg_loss, vf_loss, ent_mean, total, kl = dp_sum(
+            pg_loss.detach(), vf_loss.detach(), ent_mean.detach(), total.detach(), kl)
         metrics = {
-            "LossPi": pg_loss.detach(),
-            "LossV": vf_loss.detach(),
-            "Entropy": ent_mean.detach(),
-            "LossTotal": total.detach(),
+            "LossPi": pg_loss,
+            "LossV": vf_loss,
+            "Entropy": ent_mean,
+            "LossTotal": total,
             "RhoMean": rho_mean,
             "KL": kl,
         }

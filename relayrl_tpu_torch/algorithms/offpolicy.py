@@ -20,8 +20,14 @@ updates are bit-equal. The update reads nothing back to the host: the
 version is a host counter, TD3's policy delay reads it, and the metrics
 stay 0-d device tensors until the in-flight window fences them.
 
-Not ported: the multi-host hooks (``enable_multihost``, ``mh_zero_batch``)
-and the jit warmup (an eager update compiles nothing).
+``enable_multihost(mesh)`` runs the update over a mesh
+(:mod:`relayrl_tpu_torch.parallel.learner`), whose ``dp`` axis may span
+processes: the replay buffer stays on the coordinator, the server
+broadcasts each sampled batch (non-coordinators feed the broadcast
+``mh_zero_batch``), and every process takes its rows, draws the whole
+batch's noise from the same generator state and keeps its rows, and sums
+its gradients and its shares of the batch means over the group. Not
+ported: the jit warmup (an eager update compiles nothing).
 """
 
 from __future__ import annotations
@@ -48,11 +54,6 @@ from relayrl_tpu_torch.types.columnar import (
 from relayrl_tpu_torch.types.model_bundle import ModelBundle
 from relayrl_tpu_torch.utils import EpochLogger, setup_logger_kwargs
 from relayrl_tpu_torch.weights import params_from_jax, params_to_jax
-
-_MULTIHOST = ("the off-policy mesh learner is not ported: it comes with the "
-              "multi-process slice of ROADMAP.md queue 1 item 11 (distributed.py); "
-              "run it on one device")
-
 
 def polyak_update(online: nn.Module, target: nn.Module, polyak: float) -> None:
     """target <- polyak * target + (1 - polyak) * online, in place
@@ -156,7 +157,8 @@ class OffPolicyAlgorithm(AlgorithmBase):
         # Sample staging: sampled batches are written into a ring of
         # reusable host buffers (pinned on the GPU, so their host-to-device
         # copies run asynchronously) instead of fresh allocations per draw.
-        self._sample_ring: list[dict] = []
+        # None: staging off (a multi-process learner).
+        self._sample_ring: list[dict] | None = []
         self._sample_slot = 0
         self.traj_per_epoch = int(params.get("traj_per_epoch", 8))
         self.seed = int(params.get("seed", 1))
@@ -372,6 +374,8 @@ class OffPolicyAlgorithm(AlgorithmBase):
         copies, and the current round's ``round_size`` slots may all be
         staged before the first of them dispatches. Every older slot's
         update has been fenced, and its copy with it."""
+        if self._sample_ring is None:
+            return self.buffer.sample(self.batch_size)
         need = (round_size
                 + self.max_inflight_updates * self.updates_per_dispatch + 1)
         while len(self._sample_ring) < need:
@@ -381,10 +385,32 @@ class OffPolicyAlgorithm(AlgorithmBase):
                                   out=self._sample_ring[self._sample_slot])
 
     def enable_multihost(self, mesh) -> None:
-        raise NotImplementedError(_MULTIHOST)
+        """Run the update over ``mesh`` and place the state on it; see
+        :meth:`OnPolicyAlgorithm.enable_multihost`. Over several processes
+        the server's queue of sampled batches (``_mh_ready``) may hold a
+        batch for an unbounded time before the broadcast ships it, so
+        sample-slot reuse is off: every sample is a fresh array. The
+        in-flight window is rebuilt over the same bound."""
+        from relayrl_tpu_torch.parallel import make_sharded_update, place_state
+
+        self._mesh = mesh
+        self._update = make_sharded_update(self._update, mesh, self.state)
+        self.state = place_state(self.state, mesh)
+        if mesh.process_count > 1:
+            self._sample_ring = None
+            self._inflight = None
 
     def mh_zero_batch(self, b: int, t: int) -> dict:
-        raise NotImplementedError(_MULTIHOST)
+        """Placeholder transition batch with :meth:`StepReplayBuffer.sample`'s
+        schema (``obs``, ``act``, ``rew``, ``obs2``, ``mask2``, ``done``, the
+        ring's obs dtype): what non-coordinators feed the batch broadcast
+        (only shapes and dtypes matter). ``t`` is unused (transitions have
+        no time axis)."""
+        del t
+        out = self.buffer.make_sample_out(b)
+        for name, arr in out.items():
+            arr.fill(1 if name == "mask2" else 0)
+        return out
 
     def checkpoint_aux(self):
         """Replay buffer contents (chronological) + counters: a resumed

@@ -16,14 +16,17 @@ the device, fencing on the CUDA event recorded after each update. The
 epoch buffer's staging slabs are reused after ``window + 1`` drains, by
 which time the update that read a slab has been fenced.
 
-``enable_multihost(mesh)`` runs the update over a mesh of one process
+``enable_multihost(mesh)`` runs the update over a mesh
 (:mod:`relayrl_tpu_torch.parallel.learner`): the state placed by the
 sharding rules, the optimizers rebuilt over the shard leaves, each batch
 placed and checked. The publish path, the checkpoint and the guardrail
 probes read the whole parameters (:func:`relayrl_tpu_torch.weights.
-logical_state`). The multi-process half (the server's broadcast loop that
-feeds ``mh_zero_batch`` to non-coordinators) comes with
-``parallel/distributed.py``.
+logical_state`). When the mesh's ``dp`` axis spans processes
+(:mod:`relayrl_tpu_torch.parallel.distributed`), the server's broadcast
+loop ships each epoch batch from the coordinator (non-coordinators feed
+the broadcast ``mh_zero_batch``), every process trains on its rows with
+its gradients and batch statistics summed over the group, and every
+process holds the same parameters after each update.
 """
 
 from __future__ import annotations
@@ -260,17 +263,25 @@ class OnPolicyAlgorithm(AlgorithmBase):
                                      self.discrete)
 
     def enable_multihost(self, mesh) -> None:
-        """Run the update over ``mesh`` (a single-process mesh: one
-        controller drives every shard). Call once, right after
-        construction: the update becomes :func:`make_sharded_update`'s
-        (the mesh ambient around it, each batch placed and its splits
-        checked), and :func:`place_state` places the state by the sharding
-        rules and rebuilds its optimizers over the shard leaves, any Adam
-        moments split with their parameters."""
+        """Run the update over ``mesh``. Call once, on every process, right
+        after construction (identical seeds give identical initial state;
+        see the server's ``seed_salt``): the update becomes
+        :func:`make_sharded_update`'s (the mesh ambient around it, each
+        batch placed and its splits checked), and :func:`place_state`
+        places the state by the sharding rules and rebuilds its optimizers
+        over the shard leaves, any Adam moments split with their
+        parameters. Over several processes the server's broadcast loop
+        queues assembled batches (``_mh_ready``) for an unbounded time, so
+        the epoch buffer's staging slabs are off (each drain copies), and
+        the in-flight window is rebuilt over the same bound."""
         from relayrl_tpu_torch.parallel import make_sharded_update, place_state
 
+        self._mesh = mesh
         self._update = make_sharded_update(self._update, mesh, self.state)
         self.state = place_state(self.state, mesh)
+        if mesh.process_count > 1:
+            self.buffer.disable_staging()
+            self._inflight = None
 
     def save(self, path=None) -> None:
         self.bundle().save(path or self.server_model_path)

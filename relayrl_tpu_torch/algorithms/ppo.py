@@ -39,6 +39,13 @@ from relayrl_tpu_torch.algorithms.onpolicy import OnPolicyAlgorithm
 from relayrl_tpu_torch.algorithms.reinforce import make_optimizers
 from relayrl_tpu_torch.models import apply_arch_overrides, build_policy
 from relayrl_tpu_torch.ops import gae_advantages, masked_mean_std, normalize_advantages
+from relayrl_tpu_torch.parallel.context import (
+    dp_global_rows,
+    dp_gradients,
+    dp_row_range,
+    dp_size,
+    dp_sum,
+)
 
 
 @dataclasses.dataclass
@@ -102,17 +109,17 @@ class _StopFlag:
         return self._latched
 
 
-def _step_partitions(pi_opt, vf_opt, loss: torch.Tensor, stop_pi: _StopFlag) -> None:
-    """One backward of ``loss`` over both optimizers' parameters, then the
-    pi step (skipped once the stop flag is set) and the vf step."""
+def _step_partitions(pi_opt, vf_opt, loss: torch.Tensor | None,
+                     stop_pi: _StopFlag) -> None:
+    """One backward of ``loss`` over both optimizers' parameters (summed
+    over the data-parallel group; ``None``: this process holds no row of
+    the minibatch), then the pi step (skipped once the stop flag is set)
+    and the vf step."""
     opts = [opt for opt in (pi_opt, vf_opt) if opt is not None]
     params = [p for opt in opts for group in opt.param_groups
               for p in group["params"]]
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    for param, grad in zip(params, grads):
-        # A parameter the loss does not reach takes a zero gradient, as in
-        # optax, so every Adam moment and step count advances together.
-        param.grad = torch.zeros_like(param) if grad is None else grad
+    for param, grad in zip(params, dp_gradients(loss, params)):
+        param.grad = grad
     if pi_opt is not None and not stop_pi.read():
         pi_opt.step()
     if vf_opt is not None:
@@ -136,35 +143,56 @@ def make_ppo_update(policy, clip_ratio: float, ent_coef: float,
         obs, act, act_mask = batch["obs"], batch["act"], batch["act_mask"]
         rew, val, valid = batch["rew"], batch["val"], batch["valid"]
         old_logp, last_val = batch["logp"], batch["last_val"]
-        idx_sets = idx_sets.to(valid.device)
 
         adv, ret = gae_advantages(rew, val, valid, gamma, lam, last_val)
         adv = normalize_advantages(adv, valid)
 
+        counts = None
+        if dp_size() > 1:
+            # idx_sets index the global batch's rows: this process keeps
+            # the ones it holds (maybe none), and each minibatch's count is
+            # the global one.
+            start, stop_row = dp_row_range(dp_global_rows(valid.shape[0]))
+            idx_sets = [(idx[(idx >= start) & (idx < stop_row)] - start).to(valid.device)
+                        for idx in idx_sets.cpu()]
+            counts, = dp_sum(torch.stack([valid.index_select(0, idx).sum()
+                                          for idx in idx_sets]))
+        else:
+            idx_sets = idx_sets.to(valid.device)
         stop = _StopFlag(valid.device)
         auxes = []
-        for idx in idx_sets:
+        for i, idx in enumerate(idx_sets):
             o, a, m = (x.index_select(0, idx) for x in (obs, act, act_mask))
             ad, rt, lp_old, vl = (x.index_select(0, idx)
                                   for x in (adv, ret, old_logp, valid))
-            n = vl.sum().clamp_min(1.0)
-            with torch.enable_grad():
-                logp, ent, v = policy.evaluate(params, o, a, m)
-                ratio = torch.exp(logp - lp_old)
-                clipped = torch.clamp(ratio, 1.0 - clip_ratio, 1.0 + clip_ratio)
-                pi_loss = -(torch.minimum(ratio * ad, clipped * ad) * vl).sum() / n
-                v_loss = ((v - rt).square() * vl).sum() / n
-                entropy = (ent * vl).sum() / n
-                total = pi_loss + vf_coef * v_loss - ent_coef * entropy
-                with torch.no_grad():
-                    approx_kl = ((lp_old - logp) * vl).sum() / n
-                    clip_frac = (((ratio - 1.0).abs() > clip_ratio).float()
-                                 * vl).sum() / n
-                _step_partitions(state.pi_opt, state.vf_opt, total, stop)
+            n = (vl.sum() if counts is None else counts[i]).clamp_min(1.0)
+            if idx.numel() == 0:
+                # No row of this minibatch here: zero gradients and zero
+                # shares of its statistics join the group's sums.
+                _step_partitions(state.pi_opt, state.vf_opt, None, stop)
+                pi_loss = v_loss = entropy = approx_kl = clip_frac = n * 0
+            else:
+                with torch.enable_grad():
+                    logp, ent, v = policy.evaluate(params, o, a, m)
+                    ratio = torch.exp(logp - lp_old)
+                    clipped = torch.clamp(ratio, 1.0 - clip_ratio, 1.0 + clip_ratio)
+                    pi_loss = -(torch.minimum(ratio * ad, clipped * ad) * vl).sum() / n
+                    v_loss = ((v - rt).square() * vl).sum() / n
+                    entropy = (ent * vl).sum() / n
+                    total = pi_loss + vf_coef * v_loss - ent_coef * entropy
+                    with torch.no_grad():
+                        approx_kl = ((lp_old - logp) * vl).sum() / n
+                        clip_frac = (((ratio - 1.0).abs() > clip_ratio).float()
+                                     * vl).sum() / n
+                    _step_partitions(state.pi_opt, state.vf_opt, total, stop)
+            # The KL stop reads the global KL, so every process stops at
+            # the same minibatch.
+            pi_loss, v_loss, entropy, approx_kl, clip_frac = dp_sum(
+                pi_loss.detach(), v_loss.detach(), entropy.detach(), approx_kl,
+                clip_frac)
             stop.update(approx_kl > 1.5 * target_kl)
-            auxes.append({"pi_loss": pi_loss.detach(),
-                          "v_loss": v_loss.detach(),
-                          "entropy": entropy.detach(), "kl": approx_kl,
+            auxes.append({"pi_loss": pi_loss, "v_loss": v_loss,
+                          "entropy": entropy, "kl": approx_kl,
                           "clip_frac": clip_frac})
 
         adv_mean, adv_std = masked_mean_std(adv, valid)
@@ -238,9 +266,10 @@ class PPO(OnPolicyAlgorithm):
         update = self.make_update(self.policy)
 
         def epoch_update(state, batch):
+            # Over the global batch's rows (each process holds its block).
             idx_sets, rng = draw_minibatches(
-                state.rng, int(batch["obs"].shape[0]), self.train_iters,
-                self.minibatch_count)
+                state.rng, dp_global_rows(int(batch["obs"].shape[0])),
+                self.train_iters, self.minibatch_count)
             state, metrics = update(state, batch, idx_sets)
             return dataclasses.replace(state, rng=rng), metrics
 

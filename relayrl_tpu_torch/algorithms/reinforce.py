@@ -39,6 +39,7 @@ from relayrl_tpu_torch.algorithms.base import register_algorithm
 from relayrl_tpu_torch.algorithms.onpolicy import OnPolicyAlgorithm
 from relayrl_tpu_torch.models import apply_arch_overrides, build_policy
 from relayrl_tpu_torch.ops import gae_advantages, masked_mean_std, normalize_advantages
+from relayrl_tpu_torch.parallel.context import dp_gradients, dp_sum
 
 
 @dataclasses.dataclass
@@ -78,15 +79,16 @@ def make_optimizers(params: nn.Module, pi_lr: float, vf_lr: float, freeze=()):
 
 
 def _opt_step(opt: torch.optim.Optimizer | None, loss: torch.Tensor) -> None:
-    """One Adam step on ``loss`` over ``opt``'s parameters alone."""
+    """One Adam step on ``loss`` over ``opt``'s parameters alone, its
+    gradients summed over the data-parallel group
+    (:func:`~relayrl_tpu_torch.parallel.context.dp_gradients`; a parameter
+    the loss does not reach takes a zero gradient, as in optax, so every
+    Adam moment and step count advances together)."""
     if opt is None:
         return
     params = [p for group in opt.param_groups for p in group["params"]]
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    for param, grad in zip(params, grads):
-        # A parameter the loss does not reach takes a zero gradient, as in
-        # optax, so every Adam moment and step count advances together.
-        param.grad = torch.zeros_like(param) if grad is None else grad
+    for param, grad in zip(params, dp_gradients(loss, params)):
+        param.grad = grad
     opt.step()
     opt.zero_grad(set_to_none=True)
 
@@ -110,7 +112,10 @@ def make_reinforce_update(policy, train_vf_iters: int, gamma: float,
             adv, ret = gae_advantages(rew, torch.zeros_like(val), valid,
                                       gamma, 1.0, torch.zeros_like(last_val))
         adv = normalize_advantages(adv, valid)
-        n_valid = valid.sum().clamp_min(1.0)
+        # The global batch's count: under a data-parallel group each
+        # process's losses are its rows' sums over it.
+        n_valid, = dp_sum(valid.sum())
+        n_valid = n_valid.clamp_min(1.0)
 
         def evaluate():
             return policy.evaluate(params, obs, act, act_mask)
@@ -144,9 +149,13 @@ def make_reinforce_update(policy, train_vf_iters: int, gamma: float,
                 vf_loss_after = zero
 
         adv_mean, adv_std = masked_mean_std(adv, valid)
+        # Each process's shares of the global means, summed.
+        loss_pi, pi_loss_after, approx_kl, entropy, vf_loss_before, vf_loss_after = dp_sum(
+            loss_pi.detach(), pi_loss_after, approx_kl, entropy, vf_loss_before,
+            vf_loss_after)
         metrics = {
-            "LossPi": loss_pi.detach(),
-            "DeltaLossPi": pi_loss_after - loss_pi.detach(),
+            "LossPi": loss_pi,
+            "DeltaLossPi": pi_loss_after - loss_pi,
             "KL": approx_kl,
             "Entropy": entropy,
             "LossV": vf_loss_before,

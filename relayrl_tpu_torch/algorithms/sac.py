@@ -33,6 +33,7 @@ from relayrl_tpu_torch.models.q_networks import (
     TwinQNet,
     squashed_gaussian_sample,
 )
+from relayrl_tpu_torch.parallel.context import dp_mean, dp_rows, dp_sum
 
 
 class LogAlpha(nn.Module):
@@ -66,7 +67,8 @@ def make_sac_update(act_limit: float, gamma: float, polyak: float,
     def update(state: SACState, batch: Mapping[str, torch.Tensor], noise):
         obs, act, rew = batch["obs"], batch["act"], batch["rew"]
         obs2, done = batch["obs2"], batch["done"]
-        next_noise, pi_noise = noise
+        # This process's rows of the batch's draws.
+        next_noise, pi_noise = (dp_rows(n) for n in noise)
         alpha = torch.exp(state.log_alpha.value.detach())
         with torch.no_grad():
             mu2, log_std2 = state.actor_params(obs2)
@@ -77,23 +79,24 @@ def make_sac_update(act_limit: float, gamma: float, polyak: float,
                 torch.minimum(q1_t, q2_t) - alpha * logp_a2)
         with torch.enable_grad():
             q1, q2 = state.critic_params(obs, act)
-            loss_q = (q1 - target).square().mean() + (q2 - target).square().mean()
+            loss_q = dp_mean((q1 - target).square()) + dp_mean((q2 - target).square())
             _opt_step(state.critic_opt, loss_q)
 
             mu, log_std = state.actor_params(obs)
             a, logp_a = squashed_gaussian_sample(pi_noise, mu, log_std, act_limit)
             q1_pi, q2_pi = state.critic_params(obs, a)
-            loss_pi = (alpha * logp_a - torch.minimum(q1_pi, q2_pi)).mean()
+            loss_pi = dp_mean(alpha * logp_a - torch.minimum(q1_pi, q2_pi))
             _opt_step(state.actor_opt, loss_pi)
 
             logp_a = logp_a.detach()
-            loss_alpha = -(torch.exp(state.log_alpha.value)
-                           * (logp_a + target_entropy)).mean()
+            loss_alpha = -dp_mean(torch.exp(state.log_alpha.value)
+                                  * (logp_a + target_entropy))
             _opt_step(state.alpha_opt, loss_alpha)
         polyak_update(state.critic_params, state.target_critic_params, polyak)
-        metrics = {"LossQ": loss_q.detach(), "LossPi": loss_pi.detach(),
-                   "QVals": q1.detach().mean(), "Alpha": alpha,
-                   "LogPi": logp_a.mean()}
+        loss_q, loss_pi, q_mean, logp_mean = dp_sum(
+            loss_q.detach(), loss_pi.detach(), dp_mean(q1.detach()), dp_mean(logp_a))
+        metrics = {"LossQ": loss_q, "LossPi": loss_pi, "QVals": q_mean,
+                   "Alpha": alpha, "LogPi": logp_mean}
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return update

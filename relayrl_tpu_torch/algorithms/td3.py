@@ -28,6 +28,7 @@ from relayrl_tpu_torch.algorithms.offpolicy import (
 from relayrl_tpu_torch.algorithms.reinforce import _opt_step
 from relayrl_tpu_torch.models.mlp import _compute_dtype
 from relayrl_tpu_torch.models.q_networks import DeterministicActor, TwinQNet
+from relayrl_tpu_torch.parallel.context import dp_mean, dp_rows, dp_sum
 
 
 @dataclasses.dataclass
@@ -52,6 +53,7 @@ def make_td3_update(act_limit: float, gamma: float, polyak: float,
                noise: torch.Tensor):
         obs, act, rew = batch["obs"], batch["act"], batch["rew"]
         obs2, done = batch["obs2"], batch["done"]
+        noise = dp_rows(noise)  # this process's rows of the batch's draw
         with torch.no_grad():
             a2 = state.target_actor_params(obs2)
             smooth = torch.clamp(target_noise * noise.to(a2.dtype),
@@ -61,19 +63,20 @@ def make_td3_update(act_limit: float, gamma: float, polyak: float,
             target = rew + gamma * (1.0 - done) * torch.minimum(q1_t, q2_t)
         with torch.enable_grad():
             q1, q2 = state.critic_params(obs, act)
-            loss_q = (q1 - target).square().mean() + (q2 - target).square().mean()
+            loss_q = dp_mean((q1 - target).square()) + dp_mean((q2 - target).square())
             _opt_step(state.critic_opt, loss_q)
             if state.step % policy_delay == 0:
                 q1_pi = state.critic_params.q1(obs, state.actor_params(obs))
-                loss_pi = -q1_pi.mean()
+                loss_pi = -dp_mean(q1_pi)
                 _opt_step(state.actor_opt, loss_pi)
                 loss_pi = loss_pi.detach()
                 polyak_update(state.actor_params, state.target_actor_params, polyak)
                 polyak_update(state.critic_params, state.target_critic_params, polyak)
             else:
                 loss_pi = torch.zeros((), device=q1.device)
-        metrics = {"LossQ": loss_q.detach(), "LossPi": loss_pi,
-                   "QVals": q1.detach().mean()}
+        loss_q, loss_pi, q_mean = dp_sum(loss_q.detach(), loss_pi,
+                                         dp_mean(q1.detach()))
+        metrics = {"LossQ": loss_q, "LossPi": loss_pi, "QVals": q_mean}
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return update

@@ -15,6 +15,12 @@ directory (ignored and swept) and the last whole checkpoint untouched.
 Saves are synchronous; ``wait`` is accepted for the JAX package's
 signature. A restore moves every tensor onto the device the algorithm
 lives on.
+
+In a multi-process learner (:mod:`relayrl_tpu_torch.parallel.distributed`)
+:func:`checkpoint_algorithm` is collective: every process holds the whole
+state, the coordinator writes it to the shared directory, and every
+process waits at a barrier until the step is in place. A resume restores
+the same step on every process. Checkpoints stay mesh-free.
 """
 
 from __future__ import annotations
@@ -259,11 +265,19 @@ def checkpoint_algorithm(algo, directory: str | None = None,
     win = getattr(algo, "_inflight", None)
     if win is not None and win.pending:
         win.drain()
-    state = {"train": capture_state(algo.state), "rng": _rng_state(),
-             "epoch": extra["epoch"], "version": extra["version"]}
-    aux = algo.checkpoint_aux() if include_aux else None
-    mgr.save(int(algo.version), state, extra, wait=wait, aux=aux,
-             overwrite=overwrite)
+    from relayrl_tpu_torch.parallel import distributed
+
+    try:
+        if distributed.is_coordinator():
+            state = {"train": capture_state(algo.state), "rng": _rng_state(),
+                     "epoch": extra["epoch"], "version": extra["version"]}
+            aux = algo.checkpoint_aux() if include_aux else None
+            mgr.save(int(algo.version), state, extra, wait=wait, aux=aux,
+                     overwrite=overwrite)
+    finally:
+        # Collective: every process leaves once the coordinator's write
+        # is in place (or has failed); a no-op for one process.
+        distributed.barrier()
     return mgr
 
 

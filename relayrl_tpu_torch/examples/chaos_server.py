@@ -29,16 +29,18 @@ with keys::
                        the latest (``published``) and every version's
                        (``published_log``: {version: sha256})
     status_path      — JSON status file, atomically rewritten ~3x/s:
-                       {pid, t, version, stats, accounting, registered,
-                        kernels, resume, publish_bytes, last_publish,
-                        timings, guardrails, probes_disabled, telemetry,
-                        exporter, transport, decoded_by[, published,
-                        published_log][, rolled_back]}
+                       {pid, t, version, algo_version, distributed, stats,
+                        accounting, registered, kernels, resume,
+                        publish_bytes, last_publish, timings, guardrails,
+                        probes_disabled, telemetry, exporter, transport,
+                        decoded_by[, published, published_log][,
+                        rolled_back]}
     run_s            — optional auto-exit
     stop_path        — optional: the server shuts down cleanly once this
                        file exists, then writes one last status with
                        ``final: true``: the registry snapshot taken after
-                       the shutdown and one closing fleet tick, and (with
+                       the shutdown and one closing fleet tick, ``state``
+                       (the train state's fingerprint, as ``resume``), and (with
                        ``telemetry.fleet_interval_s > 0``) ``fleet``, the
                        root's ``/fleet`` document at that point
     profile          — optional {"after": a, "updates": n, "path": p}: once
@@ -46,6 +48,14 @@ with keys::
                        ``n`` (torch.profiler on the device, the learner
                        thread's CPU clock and run-queue wait) and write a
                        JSON summary to ``p`` (see ``profile_learner``)
+
+With ``RELAYRL_COORDINATOR``, ``RELAYRL_NUM_PROCESSES`` and
+``RELAYRL_PROCESS_ID`` in its environment the process is one rank of a
+multi-process learner (the ``TrainingServer``'s multi-host mode): start one
+per rank with the same config (its ``checkpoint_dir`` shared); only rank
+0 binds the transport and publishes. ``version`` is the latest published
+version (rank 0's), ``algo_version`` every rank's own model version, and
+``distributed`` the server's ``distributed_info``.
 
 The training-health guardrails run as the config says (on by default, as
 in the reference); ``--no-guardrails`` turns them off. ``guardrails`` in
@@ -261,6 +271,8 @@ def main(argv=None) -> None:
             "pid": os.getpid(),
             "t": time.time(),
             "version": int(server.latest_model_version),
+            "algo_version": int(server.algorithm.version),
+            "distributed": dict(server.distributed_info),
             "stats": dict(server.stats),
             "last_learner_error": server.last_learner_error,
             "accounting": server.ingest_accounting(),
@@ -340,6 +352,7 @@ def main(argv=None) -> None:
         server._fleet_tick()
     status = build_status()
     status["final"] = True
+    status["state"] = resume_info(server.algorithm)
     if server._fleet is not None:
         status["fleet"] = server._fleet.document(alerts=server._alerts)
     _write_status(status_path, status)

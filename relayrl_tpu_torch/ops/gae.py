@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from relayrl_tpu_torch.parallel.context import dp_sum
+
 
 def discount_cumsum(x: torch.Tensor, discount: float, dim: int = -1) -> torch.Tensor:
     """Reverse discounted cumulative sum along ``dim``:
@@ -73,11 +75,14 @@ def gae_advantages(
 
 
 def masked_mean_std(x: torch.Tensor, valid: torch.Tensor, eps: float = 1e-8):
-    """Mean/std over valid entries only."""
-    count = valid.sum().clamp_min(1.0)
-    mean = (x * valid).sum() / count
-    var = ((x - mean).square() * valid).sum() / count
-    return mean, torch.sqrt(var + eps)
+    """Mean/std over valid entries only. Under a data-parallel group
+    (:mod:`relayrl_tpu_torch.parallel.context`) the entries are the global
+    batch's: each sum is taken over every process's rows."""
+    total, count = dp_sum((x * valid).sum(), valid.sum())
+    count = count.clamp_min(1.0)
+    mean = total / count
+    var, = dp_sum(((x - mean).square() * valid).sum())
+    return mean, torch.sqrt(var / count + eps)
 
 
 def normalize_advantages(adv: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

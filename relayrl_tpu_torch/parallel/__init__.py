@@ -1,17 +1,18 @@
 """Parallelism: meshes, the ambient mesh, the sharding rules, sharded
 learner updates, the GPipe pipeline and sequence-parallel ring attention.
 
-Counterpart of :mod:`relayrl_tpu.parallel`, single-controller (one process
-drives every shard). ``compat.py`` there binds the moving
-``jax.shard_map`` API; its single-controller counterparts are
-:func:`~relayrl_tpu_torch.parallel.ring.run_ring` and
-:func:`~relayrl_tpu_torch.parallel.pipeline.pipeline_apply`. Multi-process
-``torch.distributed`` (``distributed.py``) is not ported yet (ROADMAP
-queue 1 item 11).
+Counterpart of :mod:`relayrl_tpu.parallel`, single-controller inside a
+process (one process drives every shard of its sub-mesh). ``compat.py``
+there binds the moving ``jax.shard_map`` API; its single-controller
+counterparts are :func:`~relayrl_tpu_torch.parallel.ring.run_ring` and
+:func:`~relayrl_tpu_torch.parallel.pipeline.pipeline_apply`. Across
+processes (:mod:`~relayrl_tpu_torch.parallel.distributed`, a
+``torch.distributed`` process group) a mesh's ``dp`` axis spans them.
 """
 
 from relayrl_tpu_torch.parallel.mesh import (
     AXES,
+    CrossProcessAxisError,
     Mesh,
     data_axes,
     make_mesh,
@@ -34,6 +35,13 @@ from relayrl_tpu_torch.parallel.learner import (
 )
 from relayrl_tpu_torch.parallel.pipeline import pipeline_apply, resolve_microbatches
 from relayrl_tpu_torch.parallel.context import current_mesh, use_mesh
+from relayrl_tpu_torch.parallel.distributed import (
+    broadcast_from_coordinator,
+    initialize_distributed,
+    is_coordinator,
+    process_index,
+    shutdown_distributed,
+)
 from relayrl_tpu_torch.parallel.ring import (
     make_ring_attention,
     ring_attention_sharded,
@@ -45,6 +53,7 @@ from relayrl_tpu_torch.parallel.ring_flash import (
 
 __all__ = [
     "AXES",
+    "CrossProcessAxisError",
     "Mesh",
     "data_axes",
     "make_mesh",
@@ -64,6 +73,11 @@ __all__ = [
     "place_state",
     "current_mesh",
     "use_mesh",
+    "broadcast_from_coordinator",
+    "initialize_distributed",
+    "is_coordinator",
+    "process_index",
+    "shutdown_distributed",
     "make_ring_attention",
     "ring_attention_sharded",
     "make_ring_flash_attention",

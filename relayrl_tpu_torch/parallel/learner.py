@@ -32,6 +32,18 @@ they compute the same function.
 A placed optimizer's state reads and loads whole
 (:func:`whole_optimizer_state`, :func:`load_whole_optimizer_state`), in
 the unplaced optimizer's layout, so checkpoints do not depend on the mesh.
+
+On a mesh whose ``dp`` axis spans processes
+(:mod:`relayrl_tpu_torch.parallel.distributed`), every process receives
+the whole batch (the server broadcasts it), takes its block of rows, and
+runs the update above on its local sub-mesh (:attr:`Mesh.local`) with the
+data-parallel group installed beside the ambient mesh
+(:func:`~relayrl_tpu_torch.parallel.context.use_dp_group`): every
+gradient is summed over the group before its optimizer step and every
+batch statistic is a global sum (:mod:`relayrl_tpu_torch.parallel.context`).
+dp replicates the state, so each process holds the whole logical
+parameters and the same optimizer steps keep them bit-equal across
+processes.
 """
 
 from __future__ import annotations
@@ -42,7 +54,7 @@ import torch
 from torch import nn
 from torch.nn.utils import parametrize
 
-from relayrl_tpu_torch.parallel.context import use_mesh
+from relayrl_tpu_torch.parallel.context import use_dp_group, use_mesh
 from relayrl_tpu_torch.parallel.mesh import Mesh
 from relayrl_tpu_torch.parallel.sharding import (
     Shards,
@@ -65,19 +77,25 @@ def make_sharded_update(update_fn: Callable, mesh: Mesh, state_template,
 
     The returned callable expects state already placed (use
     :func:`place_state` once) and takes a host or device batch dict, which
-    it checks against the mesh (:func:`batch_shardings`) and places. The
-    mesh is the ambient mesh around each call; ``shard_time=True`` also
-    holds the time axis of rank>=2 batch arrays to the ``sp`` split.
+    it checks against the mesh (:func:`batch_shardings`) and places; any
+    further arguments pass through to ``update_fn``. The mesh is the
+    ambient mesh around each call; ``shard_time=True`` also holds the
+    time axis of rank>=2 batch arrays to the ``sp`` split. On a mesh over
+    several processes each call takes this process's rows of the (whole)
+    batch and runs on the local sub-mesh, the data-parallel group ambient.
 
     ``state_template`` and ``donate_state`` keep the JAX signature: the
     placement is :func:`place_state`'s, and the torch update moves the
     params in place, so the state is always donated."""
     del state_template, donate_state
+    from relayrl_tpu_torch.parallel.distributed import data_parallel_group
 
-    def sharded_update(state, batch):
+    group = data_parallel_group() if mesh.process_count > 1 else None
+
+    def sharded_update(state, batch, *args):
         batch = place_batch(batch, mesh, shard_time)
-        with use_mesh(mesh):
-            return update_fn(state, batch)
+        with use_mesh(mesh.local), use_dp_group(group):
+            return update_fn(state, batch, *args)
 
     return sharded_update
 
@@ -190,8 +208,10 @@ def place_state(state, mesh: Mesh):
     """Place a train state on ``mesh``, in place: every ``nn.Module`` field
     by :func:`place_module`, every optimizer field rebuilt over the placed
     leaves with its moments split (an optimizer that has not stepped gets
-    its moments at its first step, on each shard's device). Returns the
-    state."""
+    its moments at its first step, on each shard's device). On a mesh over
+    several processes the state goes on this process's sub-mesh. Returns
+    the state."""
+    mesh = mesh.local
     plan = {}
     fields = vars(state)
     for value in fields.values():
@@ -206,8 +226,17 @@ def place_state(state, mesh: Mesh):
 def place_batch(batch: dict, mesh: Mesh, shard_time: bool = False) -> dict:
     """Host batch -> tensors on the mesh's first device, after checking
     that each array splits over the mesh as :func:`batch_shardings` says.
-    ``shard_time`` must match the :func:`make_sharded_update` flag."""
+    ``shard_time`` must match the :func:`make_sharded_update` flag. On a
+    mesh over several processes ``batch`` is the whole batch and this
+    process keeps its block of rows (dim 0)."""
     _check_splits(mesh, batch, batch_shardings(mesh, batch, shard_time))
+    if mesh.process_count > 1:
+        rows = {len(v) for v in batch.values()}
+        if len(rows) != 1:
+            raise ValueError(f"batch arrays disagree on their rows: {sorted(rows)}")
+        per = rows.pop() // mesh.process_count
+        start = mesh.process_index * per
+        batch = {k: v[start:start + per] for k, v in batch.items()}
     return {k: torch.as_tensor(v, device=mesh.first_device)
             for k, v in batch.items()}
 

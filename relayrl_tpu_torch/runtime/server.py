@@ -48,9 +48,24 @@ the fleet's root: snapshot frames from agents and relays land in a
 :class:`~relayrl_tpu_torch.telemetry.aggregate.FleetTable` behind
 ``/fleet``, and the SLO alert rules run over the merged snapshot each
 interval. ``tensorboard=True`` tails the epoch log into TensorBoard
-scalars. The multi-host server is not ported (``ROADMAP.md`` queue 1 item
-11): the constructor raises :class:`NotImplementedError` when the config
-asks for more than one process.
+scalars.
+
+Multi-process learner (``learner.distributed``, or ``RELAYRL_COORDINATOR``,
+``RELAYRL_NUM_PROCESSES`` and ``RELAYRL_PROCESS_ID`` on each process): the
+constructor starts the process group first
+(:func:`~relayrl_tpu_torch.parallel.distributed.initialize_distributed`,
+which prints its backend rule's choice), pins ``seed_salt`` 0 so every
+process starts from the same state, restores a resume on every process
+from the shared checkpoint directory, then runs the update over
+``make_mesh(learner.mesh or {"dp": -1})``, whose ``dp`` axis spans the
+processes. Only the coordinator (process 0) owns a transport, ingests,
+publishes and logs epochs. Every process runs
+:meth:`TrainingServer._learner_loop_multihost`: each tick the coordinator
+broadcasts a descriptor (STEP with the batch's shape, IDLE, or STOP), a
+STEP's batch follows it, and every process trains on its rows in
+lockstep; checkpoints are collective (the coordinator writes, every
+process waits). The divergence watchdog's detector and its rollback stay
+single-process, as in the reference.
 """
 
 from __future__ import annotations
@@ -129,23 +144,6 @@ class _EventCoalescer:
         return due
 
 
-def _refuse_unported(config: ConfigLoader) -> None:
-    """Raise when the config asks for the multi-host server, the one
-    part of the JAX server the port does not have."""
-    dist = dict(config.get_learner_params().get("distributed") or {})
-    coordinator = (os.environ.get("RELAYRL_COORDINATOR")
-                   or os.environ.get("JAX_COORDINATOR_ADDRESS")
-                   or dist.get("coordinator"))
-    raw = (os.environ.get("RELAYRL_NUM_PROCESSES")
-           or os.environ.get("JAX_NUM_PROCESSES"))
-    processes = int(raw) if raw else int(dist.get("num_processes", 1))
-    if coordinator is not None and processes > 1:
-        raise NotImplementedError(
-            "the multi-host server is not ported: it comes with the "
-            "multi-process slice of ROADMAP.md queue 1 item 11 "
-            "(distributed.py); run one process")
-
-
 class TrainingServer:
     def __init__(
         self,
@@ -168,10 +166,26 @@ class TrainingServer:
         **addr_overrides,
     ):
         self.config = ConfigLoader(algorithm_name, config_path)
-        _refuse_unported(self.config)
         self.server_type = server_type
         self._addr_overrides = addr_overrides
-        self.device = resolve_device(device)
+        # The multi-process bring-up comes before any other device use (a
+        # no-op for the default single-process config).
+        from relayrl_tpu_torch.parallel import distributed
+
+        self.distributed_info = distributed.initialize_distributed(
+            config=self.config.get_learner_params())
+        multi_host = self.distributed_info["multi_host"]
+        if multi_host:
+            print(f"[TrainingServer] multi-host learner: process "
+                  f"{self.distributed_info['process_id']}/"
+                  f"{self.distributed_info['num_processes']}, backend "
+                  f"{distributed.backend()} (nccl when every rank has a card "
+                  f"of its own, gloo on the CPU or when ranks share a card)",
+                  flush=True)
+        # A process's cards as the process group resolved them: the first
+        # is the server's device unless the caller names one.
+        mesh_devices = [] if device is not None else distributed.local_devices()
+        self.device = resolve_device(mesh_devices[0] if mesh_devices else device)
         if self.device.type == "cuda" and self.device.index is None:
             # The learner thread selects this card by index.
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -306,6 +320,10 @@ class TrainingServer:
                   (kv.split("=", 1) for kv in hyperparams)}
         else:
             hp = dict(hyperparams or {})
+        if multi_host:
+            # Every process must start from the same state; the default
+            # seed_salt (the process id) would fork the inits.
+            hp.setdefault("seed_salt", 0)
         self.algorithm = build_algorithm(
             algorithm_name,
             env_dir=env_dir,
@@ -355,6 +373,9 @@ class TrainingServer:
                                if dedup_window > 0 else None)
 
         if resume and self._checkpoint_dir:
+            # Multi-process: every process restores the same step from the
+            # shared directory before enable_multihost places the state,
+            # like a fresh seed_salt 0 init.
             from relayrl_tpu_torch.checkpoint import restore_algorithm
 
             try:
@@ -365,6 +386,20 @@ class TrainingServer:
             except FileNotFoundError:
                 print("[TrainingServer] no checkpoint to resume; fresh start",
                       flush=True)
+
+        if multi_host:
+            if not hasattr(self.algorithm, "enable_multihost"):
+                raise NotImplementedError(
+                    f"{algorithm_name} has no multi-host support "
+                    "(enable_multihost)")
+            from relayrl_tpu_torch.parallel import make_mesh
+
+            self._mh_mesh = make_mesh(learner_cfg.get("mesh") or {"dp": -1},
+                                      mesh_devices or [self.device])
+            self.algorithm.enable_multihost(self._mh_mesh)
+            print(f"[TrainingServer] multi-host mesh "
+                  f"{dict(self._mh_mesh.shape)} over "
+                  f"{len(self._mh_mesh.devices.flat)} devices", flush=True)
 
         self.multiactor = bool(multiactor)
         self.agent_ids: list[str] = []
@@ -422,8 +457,11 @@ class TrainingServer:
             "relayrl_server_resync_keyframes_total",
             "resync requests that forced the next publish to keyframe")
 
+        # Only the coordinator owns the actor plane: the other processes
+        # run learner steps.
         self.transport = None
-        self._make_transport()
+        if distributed.is_coordinator():
+            self._make_transport()
 
         # The batched-inference serving plane, colocated with this
         # learner and fed in-process from the publish path: thin clients
@@ -436,7 +474,7 @@ class TrainingServer:
             # Ctor override for callers that decide the topology in code
             # (examples/train_distributed.py --host-mode remote).
             serving_cfg["enabled"] = bool(serving)
-        if serving_cfg["enabled"]:
+        if serving_cfg["enabled"] and self.transport is not None:
             from relayrl_tpu_torch.runtime.inference import InferenceService
 
             try:
@@ -453,6 +491,8 @@ class TrainingServer:
         self._stop = threading.Event()
         self._learner_thread: threading.Thread | None = None
         self._staging_threads: list[threading.Thread] = []
+        self._mh_ready: list = []   # assembled-but-untrained batches
+        self._mh_busy = False       # a broadcast step is in flight
         self.active = False
         self._async_publish = bool(learner_cfg.get("async_publish", True))
         self._prefetch = bool(learner_cfg.get("device_prefetch", True))
@@ -564,8 +604,13 @@ class TrainingServer:
             print(f"[TrainingServer] {name}: final checkpoint + clean "
                   f"shutdown", flush=True)
             try:
-                self.disable_server()
-                if self._checkpoint_dir and self.algorithm.version > 0:
+                # Multi-process: peers may be mid-collective and only this
+                # process got the signal, so the quiesce is bounded and the
+                # final save (a collective) is left to the periodic ones.
+                multi_host = self.distributed_info["multi_host"]
+                self.disable_server(join_timeout=10.0 if multi_host else None)
+                if (self._checkpoint_dir and self.algorithm.version > 0
+                        and not multi_host):
                     from relayrl_tpu_torch.checkpoint import (
                         checkpoint_algorithm,
                     )
@@ -1105,6 +1150,144 @@ class TrainingServer:
         self._pipeline_quiesce()
         self._guard_poll()
 
+    # -- multi-process learner loop (the lockstep broadcast protocol) --
+    # Every process loops in lockstep on a fixed-shape control broadcast:
+    # IDLE ticks keep the other processes in step while the coordinator
+    # accumulates trajectories; STEP carries the batch's shape, then the
+    # batch itself, then every process runs the update on its rows; STOP
+    # ends every loop together.
+    _MH_IDLE, _MH_STEP, _MH_STOP = 0, 1, 2
+
+    def _mh_accumulate(self, item) -> dict | None:
+        """Coordinator: feed one decoded queue entry into the algorithm's
+        buffer; returns a ready training batch (at most one per call, the
+        rest queue in ``_mh_ready``). The on-policy family yields one epoch
+        batch, the off-policy family a list of sampled batches."""
+        items = (item if (isinstance(item, list) and item
+                          and isinstance(item[0], DecodedTrajectory))
+                 else [item])
+        for one in items:
+            self.stats["trajectories"] += 1
+            self._m_trajectories.inc()
+            try:
+                got = self.algorithm.accumulate(one)
+            except Exception as e:
+                self._count_learner_error(e, "accumulate")
+                continue
+            finally:
+                self._sync_drop_stats()
+            if isinstance(got, list):
+                self._mh_ready.extend(got)
+            elif got is not None:
+                self._mh_ready.append(got)
+        return self._mh_ready.pop(0) if self._mh_ready else None
+
+    def _learner_loop_multihost(self) -> None:
+        import numpy as np
+
+        from relayrl_tpu_torch.parallel.distributed import (
+            broadcast_from_coordinator,
+            is_coordinator,
+        )
+
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        coord = is_coordinator()
+        algo = self.algorithm
+        while True:
+            batch = None
+            if coord:
+                # STOP pre-empts any ingest backlog: disable_server ends the
+                # fleet within one step, not after the queued trajectories.
+                if not self._stop.is_set():
+                    if self._mh_ready:
+                        # Busy before the batch leaves the queues: drain()
+                        # checks queues empty AND ready empty AND not busy.
+                        self._mh_busy = True
+                        batch = self._mh_ready.pop(0)
+                    tick_deadline = time.monotonic() + 0.2
+                    while batch is None and time.monotonic() < tick_deadline:
+                        try:
+                            item = self._decoded.get(timeout=0.05)
+                        except queue.Empty:
+                            continue
+                        try:
+                            batch = self._mh_accumulate(item)
+                            if batch is not None:
+                                self._mh_busy = True
+                        finally:
+                            self._decoded.task_done()
+                code = (self._MH_STOP if self._stop.is_set()
+                        else self._MH_STEP if batch is not None
+                        else self._MH_IDLE)
+                desc = np.array(
+                    [code,
+                     batch["obs"].shape[0] if batch is not None else 0,
+                     batch["obs"].shape[1] if batch is not None else 0],
+                    np.int64)
+            else:
+                desc = np.zeros(3, np.int64)
+            desc = broadcast_from_coordinator(desc)
+            code = int(desc[0])
+            if code == self._MH_STOP:
+                self._mh_busy = False  # a pre-empted batch is dropped
+                # Every process fences what it dispatched and flushes its
+                # deferred logs.
+                self._pipeline_quiesce()
+                break
+            if code == self._MH_IDLE:
+                # Idle is the place to fence: nothing is queued behind the
+                # in-flight updates, and it lets drain() see pending 0.
+                self._pipeline_quiesce()
+                continue
+            if not coord:
+                batch = algo.mh_zero_batch(int(desc[1]), int(desc[2]))
+            self._mh_busy = True
+            batch = broadcast_from_coordinator(batch)
+            t0 = time.monotonic()
+            try:
+                if self._prefetch:
+                    batch = algo.stage_batch(batch)
+                algo.train_on_batch(batch)
+            except Exception as e:
+                # Symmetric on every process: the same data fails the same
+                # way everywhere, so every loop carries on together.
+                self._count_learner_error(e, "multi-host update")
+                self._mh_busy = False
+                continue
+            self.stats["updates"] += 1
+            self._m_updates.inc()
+            if coord:
+                # The epoch log is captured now and dumped once its update
+                # is fenced (the coordinator alone logs).
+                payload = algo.capture_epoch_stats(True)
+                if payload is not None:
+                    self._pending_logs.append(
+                        (algo.inflight.dispatch_count, payload,
+                         algo._last_metrics))
+            dispatch_dt = time.monotonic() - t0
+            self.timings["dispatch_s"] += dispatch_dt
+            self._m_dispatch.observe(dispatch_dt)
+            if coord:
+                # Only the coordinator owns a transport, so only it
+                # publishes (a snapshot here is no collective: every
+                # process holds the whole parameters).
+                try:
+                    if self._publisher is not None:
+                        self._publisher.submit(algo.snapshot_for_publish())
+                    else:
+                        bundle = algo.bundle()
+                        self._publish_params(bundle.version, bundle.arch,
+                                             bundle.params)
+                except Exception as e:
+                    self.stats["publish_errors"] += 1
+                    print(f"[TrainingServer] publish error: {e!r}", flush=True)
+            # Collective: the version mirror advances alike on every
+            # process, so every process agrees the save is due.
+            self._maybe_periodic_checkpoint(algo.dispatched_version)
+            self._flush_ready_logs()
+            self._mh_busy = False
+
     def _count_learner_error(self, exc: Exception, where: str) -> None:
         """The learner thread survives one bad batch, but never silently:
         every caught exception is counted (``stats``, telemetry) and
@@ -1324,7 +1507,10 @@ class TrainingServer:
         a trip executes the rollback (or the halt). True when a trip
         fired — a checkpoint gated on health skips its save then."""
         g = self.guardrails
-        if g is None or g.watchdog is None or self._halted:
+        if (g is None or g.watchdog is None or self._halted
+                or self.distributed_info["multi_host"]):
+            # Multi-process: the rollback restores a checkpoint, a
+            # collective that a trip on one process alone would hang.
             return False
         win = getattr(self.algorithm, "_inflight", None)
         fenced = win.fenced_count if win is not None else 0
@@ -1472,7 +1658,11 @@ class TrainingServer:
         while time.monotonic() < deadline:
             if (self._ingest.unfinished_tasks == 0
                     and self._decoded.unfinished_tasks == 0
-                    and self._learner_pending() == 0):
+                    and self._learner_pending() == 0
+                    # multi-process: assembled-but-untrained batches and
+                    # the broadcast step in flight are pending too
+                    and not self._mh_ready
+                    and not self._mh_busy):
                 self._flush_drop_event()
                 telemetry.emit("drain",
                                wait_s=round(time.monotonic() - t0, 3),
@@ -1491,8 +1681,9 @@ class TrainingServer:
         (atomic write; older sidecars pruned to the retention depth),
         keyed by version so a resume restores the dedup state consistent
         with the restored params."""
-        if self._ingest_ledger is None or not self._checkpoint_dir:
-            return
+        if (self._ingest_ledger is None or not self._checkpoint_dir
+                or self.transport is None):
+            return  # the ledger is the coordinator's: it alone ingests
         try:
             self._ingest_ledger.save(self._ledger_sidecar_path(version))
             import glob
@@ -1779,21 +1970,34 @@ class TrainingServer:
         if self.active:
             return
         self._stop.clear()
-        self.transport.start()
-        self._staging_threads = [
-            threading.Thread(target=self._staging_loop,
-                             name=f"ingest-staging-{i}", daemon=True)
-            for i in range(self._staging_count)]
-        for t in self._staging_threads:
-            t.start()
+        multi_host = self.distributed_info["multi_host"]
+        if self.transport is not None:
+            self.transport.start()
+            self._staging_threads = [
+                threading.Thread(target=self._staging_loop,
+                                 name=f"ingest-staging-{i}", daemon=True)
+                for i in range(self._staging_count)]
+            for t in self._staging_threads:
+                t.start()
         if self.inference is not None:
             self.inference.start()
-        if self._async_publish and self._publisher is None:
+        # The publisher exists wherever a transport feeds: the other
+        # processes of a multi-process learner own no actor plane.
+        if (self.transport is not None and self._async_publish
+                and self._publisher is None):
             from relayrl_tpu_torch.runtime.pipeline import ModelPublisher
 
             self._publisher = ModelPublisher(self._publish_snapshot)
+        self._mh_ready = []
+        self._mh_busy = False
+        if multi_host:
+            # The update is collective: a warmup on one process alone would
+            # hang the others, so wait_warmup() must not block.
+            self._warmup_done.set()
         self._learner_thread = threading.Thread(
-            target=self._learner_loop, name="learner", daemon=True)
+            target=(self._learner_loop_multihost if multi_host
+                    else self._learner_loop),
+            name="learner", daemon=True)
         self._learner_thread.start()
         if self._fleet is not None:
             self._fleet_stop.clear()
@@ -1837,20 +2041,28 @@ class TrainingServer:
             t.join(timeout=remaining(30))
         self._staging_threads = []
         # The learner joins BEFORE the transport stops: a trajectory being
-        # processed right now may still publish.
+        # processed right now may still publish. Multi-process: the
+        # coordinator's learner thread broadcasts STOP on its way out,
+        # releasing every other process's loop (shut the processes down
+        # together, or the coordinator last), and a step in flight may take
+        # a while to reach it.
         if self._learner_thread is not None:
-            self._learner_thread.join(timeout=remaining(30))
+            self._learner_thread.join(timeout=remaining(
+                600 if self.distributed_info["multi_host"] else 30))
             self._learner_thread = None
         if self._publisher is not None:
             self._publisher.stop(timeout=remaining(30))
             self._publisher = None
-        self.transport.stop()
+        if self.transport is not None:
+            self.transport.stop()
         self._flush_drop_event()
         self.active = False
 
     def restart_server(self, **addr_overrides) -> None:
         self.disable_server()
-        if addr_overrides:
+        # The other processes of a multi-process learner never own a
+        # transport: a restart called on every process makes none there.
+        if addr_overrides and self.transport is not None:
             self._addr_overrides.update(addr_overrides)
             self._make_transport()
             if self.inference is not None:

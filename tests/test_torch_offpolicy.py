@@ -1001,12 +1001,32 @@ def test_rollback_scrubs_ring_only_in_warn_posture(tmp_cwd):
     assert len(algo.buffer) == 9 and np.isfinite(algo.buffer.rew[:9]).all()
 
 
-def test_multihost_refused(tmp_cwd):
+def test_multihost_enabled(tmp_cwd, monkeypatch):
+    """enable_multihost over a dp axis that spans two processes (the
+    topology stubbed; the two-process runs are tests/test_torch_multihost.py):
+    sample-slot reuse off, warmup collective, the state placed, and
+    mh_zero_batch shaped as a sample (obs2, mask2, the ring's obs dtype)."""
+    from relayrl_tpu_torch.parallel import distributed, make_mesh
+
     algo = _mk(tmp_cwd, "TD3", act_dim=1, discrete=False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        algo.enable_multihost(None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        algo.mh_zero_batch(4, 0)
+    algo.enable_multihost(make_mesh({"dp": 1}, [torch.device("cpu")]))
+    assert algo._sample_ring == [] and not algo._warmup_is_collective()
+    monkeypatch.setattr(distributed, "_info", {
+        "multi_host": True, "process_id": 1, "num_processes": 2})
+    monkeypatch.setattr(distributed, "_runtime",
+                        distributed._Runtime(1, 2, [], "gloo", None))
+    algo = _mk(tmp_cwd, "DQN", act_dim=3, obs_dtype="uint8")
+    mesh = make_mesh({"dp": -1}, [torch.device("cpu")])
+    algo.enable_multihost(mesh)
+    assert mesh.shape["dp"] == 2 and algo._mesh is mesh
+    assert algo._sample_ring is None and algo._warmup_is_collective()
+    assert algo.warmup() == 0
+    zero = algo.mh_zero_batch(16, 0)
+    sample = algo.buffer.make_sample_out(16)
+    assert {k: (v.shape, v.dtype) for k, v in zero.items()} == \
+        {k: (v.shape, v.dtype) for k, v in sample.items()}
+    assert zero["obs"].dtype == np.uint8 and (zero["mask2"] == 1).all()
+    assert not any(v.any() for k, v in zero.items() if k != "mask2")
 
 
 def test_guard_probe_tree_is_the_online_networks(tmp_cwd):

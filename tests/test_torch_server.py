@@ -284,14 +284,6 @@ def test_refusals(tmp_cwd):
                 assert server.inference is None
         finally:
             server.disable_server()
-    # The multi-host server is the one part of the JAX server the port
-    # refuses (tracing, fleet aggregation and the tensorboard writer are
-    # ported: tests/test_torch_trace.py and tests/test_torch_fleet.py).
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TrainingServer(config_path=_config(
-            tmp_cwd, learner={"distributed": {"coordinator": "h:1",
-                                              "num_processes": 2}}),
-            **base)
     config_path = _config(tmp_cwd)
     if not __import__("torch").cuda.is_available():
         # Entry points run on the card unless the caller names the CPU.
@@ -300,6 +292,53 @@ def test_refusals(tmp_cwd):
                            **{k: v for k, v in base.items() if k != "device"})
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Agent(config_path=config_path, probe=False, **agent_addrs)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_multihost_config_builds(tmp_cwd, monkeypatch, rank):
+    """``learner.distributed`` with a coordinator and 2 processes builds the
+    multi-process server (the process group stubbed: the two-process runs
+    are tests/test_torch_multihost_server.py): seed_salt 0, the update over
+    a dp axis that spans the processes, the staging slabs off, warmup
+    collective, and a transport on the coordinator alone."""
+    from relayrl_tpu_torch.parallel import distributed
+    from relayrl_tpu_torch.runtime.server import TrainingServer
+
+    def start(address, world, process_id, local_device_ids):
+        assert (address, world, process_id) == ("h:1", 2, rank)
+        return distributed._Runtime(process_id, world, [], "gloo", None)
+
+    monkeypatch.setattr(distributed, "_start", start)
+    monkeypatch.setenv("RELAYRL_PROCESS_ID", str(rank))
+    distributed.shutdown_distributed()
+    server_addrs, _ = _addrs()
+    try:
+        server = TrainingServer(
+            config_path=_config(tmp_cwd, learner={"distributed": {
+                "coordinator": "h:1", "num_processes": 2}}),
+            obs_dim=4, act_dim=2, env_dir=str(tmp_cwd), device="cpu",
+            start=False, **server_addrs)
+        try:
+            assert server.distributed_info == {
+                "multi_host": True, "process_id": rank, "num_processes": 2}
+            mesh = server._mh_mesh
+            assert mesh.shape["dp"] == 2 and mesh.process_count == 2
+            assert mesh.local.shape["dp"] == 1
+            assert server.algorithm._warmup_is_collective()
+            assert server.algorithm.buffer._staging is None
+            assert (server.transport is not None) == (rank == 0)
+            twin = TrainingServer(config_path=_config(tmp_cwd), obs_dim=4,
+                                  act_dim=2, env_dir=str(tmp_cwd / "twin"),
+                                  device="cpu", start=False,
+                                  hyperparams={"seed_salt": 0}, **_addrs()[0])
+            twin.disable_server()
+            # seed_salt 0 on every process: the same initial params.
+            assert server.algorithm.bundle().to_bytes() == \
+                twin.algorithm.bundle().to_bytes()
+        finally:
+            server.disable_server()
+    finally:
+        distributed.shutdown_distributed()
 
 
 def test_version_probe_waits_for_the_frame(tmp_cwd):
