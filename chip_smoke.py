@@ -297,7 +297,25 @@ Phases, each of which fails the run:
    broadcast, 4 updates under dp 2 across the ranks, the networks
    sha256-equal and held to single-process updates on the same batches at
    phase 15's card-vs-CPU bars. A rank that fails, or a deadline that
-   passes, fails the phase.
+   passes, fails the phase;
+23. the multi-process ring: ``MH_RANKS`` processes (``chip_smoke.py
+   --mh-ring-rank``) over ``{"dp": 1, "sp": 4}``, two shards a rank (on
+   one card both ranks share it through gloo, the hop staged through host
+   memory; with a card each, nccl), K4-K6 on each rank's shards and the
+   K/V chunks hopping between the processes
+   (``parallel/ring.py::RingHop``). (a) Phase 7's first batch, broadcast
+   bit for bit, one update from phase 7's initial params, held to phase
+   7's single-process sp update of it at phase 5's bars (bit-equality
+   reported); the ranks' params sha256-equal after every update; K4/K5/K6
+   per rank per update from its shards' causal pairs (1008/12/12 and
+   2352/28/28), summing to phase 7's, K1-K3 none; the hops' count and
+   bytes exact; ms per update per rank, the hops' and the gathers' ms
+   timed apart. (b) The ring flagship as a two-rank ``TrainingServer``
+   (``learner.mesh`` ``{"dp": 1, "sp": 4}``, ``local_device_ids`` naming
+   the card twice) fed by an 8-lane agent for 2 updates: each version
+   installed by the agent and both ranks' params sha256-equal to the
+   published, the launches per rank as in (a), exact accounting, a
+   collective checkpoint.
 
 Phases 3 and 6 also hold every kernel to its plain version at head dims
 128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
@@ -689,6 +707,17 @@ MH_OFF_UPDATES = 4
 MH_OFF_TIMED = 20
 MH_OFF_ALGOS = ("DQN", "SAC")
 MH_TIMEOUT_S = 420
+# The multi-process ring (phase 23): MH_RANKS processes over one sp ring
+# of SP shards, two a rank on the one card (gloo) or on its own card
+# (nccl). (a) phase 7's first batch, one update from phase 7's initial
+# params, MHR_TIMED timed updates and one with the hops and gathers timed
+# apart; (b) the ring flagship as a two-rank TrainingServer for
+# MHR_SERVER_UPDATES updates. A rank names its card SERVER_DEVICE_ID (its
+# only visible card) once per mesh entry.
+MHR_MESH = {"dp": 1, "sp": SP}
+MHR_TIMED = 1
+MHR_SERVER_UPDATES = 2
+SERVER_DEVICE_ID = 0
 
 
 def _dtype_name(dtype) -> str:
@@ -7001,6 +7030,399 @@ def multiprocess_server(device, root: Path, workdir: Path) -> dict:
             s.stop()
 
 
+def _ring_comm_timer():
+    """Wrap the ring's hop (``RingHop.exchange``) and its gathers
+    (``gather_time``) to time each with the device synced on both sides,
+    so their own time shows apart from the work queued before them;
+    returns the stats dict and an undo."""
+    import torch
+
+    from relayrl_tpu_torch.parallel import ring
+
+    stats = {"hops": 0, "hop_bytes": 0, "hop_seconds": 0.0,
+             "gathers": 0, "gather_bytes": 0, "gather_seconds": 0.0}
+    exchange, gather = ring.RingHop.exchange, ring.gather_time
+
+    def synced(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def timed_exchange(self, tensors, device, reverse=False):
+        out, dt = synced(exchange, self, tensors, device, reverse)
+        stats["hops"] += 1
+        stats["hop_bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+        stats["hop_seconds"] += dt
+        return out
+
+    def timed_gather(parts, span):
+        out, dt = synced(gather, parts, span)
+        stats["gathers"] += 1
+        stats["gather_bytes"] += sum(t.numel() * t.element_size() for t in out)
+        stats["gather_seconds"] += dt
+        return out
+
+    ring.RingHop.exchange, ring.gather_time = timed_exchange, timed_gather
+
+    def undo():
+        ring.RingHop.exchange, ring.gather_time = exchange, gather
+    return stats, undo
+
+
+def ring_comm_counts() -> dict:
+    """The ring's own hop and gather counters (host clock)."""
+    from relayrl_tpu_torch.parallel import ring
+
+    return ring.COMM.as_dict()
+
+
+def zero_ring_comm_counts() -> None:
+    from relayrl_tpu_torch.parallel import ring
+
+    ring.COMM.reset()
+
+
+def mh_ring_rank_main(rank: int, port: int, workdir: Path) -> int:
+    """One rank of phase 23 (a) (``chip_smoke.py --mh-ring-rank RANK PORT
+    WORKDIR``, started by :func:`multiprocess_ring`): forms the process
+    group, builds the mesh of ``WORKDIR/case.pt`` (its ``sp`` axis across
+    the ranks), receives the coordinator's batch through the broadcast,
+    and trains the ring flagship from phase 7's initial params with fresh
+    Adam: a first update, ``MHR_TIMED`` timed ones, and one with the
+    hops and gathers timed apart. Writes ``WORKDIR/rank<RANK>.pt``."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+    from relayrl_tpu_torch.parallel import (
+        broadcast_from_coordinator,
+        distributed,
+        initialize_distributed,
+        make_mesh,
+        make_sharded_update,
+        place_state,
+    )
+    from relayrl_tpu_torch.weights import logical_state, params_to_jax
+
+    case = torch.load(workdir / "case.pt", weights_only=False)
+    info = initialize_distributed(f"127.0.0.1:{port}", case["ranks"], rank)
+    if info != {"multi_host": True, "process_id": rank, "num_processes": case["ranks"]}:
+        raise AssertionError(f"rank {rank}: topology {info}")
+    device = rank_device()
+    mesh = make_mesh(case["mesh"], [device] * case["local"])
+    algo = build_learner(device, workdir / f"rank{rank}", {**SLICE_ARCH, "attention": "ring"})
+    if _digest(params_to_jax(algo.state.params)) != case["params0"]:
+        raise AssertionError(f"rank {rank}: initial params differ from phase 7's")
+    state, update, _ = update_parts(algo, algo.policy, copy.deepcopy(algo.state.params))
+    sharded = make_sharded_update(update, mesh, state, shard_time=True)
+    state = place_state(state, mesh)
+    want = case["batch"]
+    batch = broadcast_from_coordinator(
+        want if rank == 0 else {k: np.zeros_like(v) for k, v in want.items()})
+    if not all(np.array_equal(batch[k], want[k]) and batch[k].dtype == want[k].dtype
+               for k in want):
+        raise AssertionError(f"rank {rank}: the broadcast batch differs")
+    out = {"backend": distributed.backend(), "card": torch.cuda.get_device_name(device),
+           "shards": mesh.shard_indices("sp"), "cross": mesh.cross_axes,
+           "updates": []}
+
+    def step(comm_timed: bool = False) -> dict:
+        nonlocal state
+        zero_flash_counts()
+        zero_ring_counts()
+        zero_ring_comm_counts()
+        stats, undo = _ring_comm_timer() if comm_timed else ({}, lambda: None)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = sharded(state, batch)
+            metrics = read_metrics(metrics)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            undo()
+        return {"ms": ms, "metrics": metrics, "counts": flash_counts() + ring_counts(),
+                "comm": ring_comm_counts(), "timed_comm": stats,
+                "digest": _digest(params_to_jax(state.params))}
+
+    first = step()
+    first["params"] = {k: v.detach().cpu().clone()
+                       for k, v in logical_state(state.params).items()}
+    out["updates"].append(first)
+    for _ in range(MHR_TIMED):
+        out["updates"].append(step())
+    out["updates"].append(step(comm_timed=True))
+    torch.save(out, workdir / f"rank{rank}.pt")
+    distributed.barrier()
+    distributed.shutdown_distributed()
+    print(f"[mh-ring-rank {rank}] done ({out['backend']} on {out['card']}, shards "
+          f"{out['shards']})", flush=True)
+    return 0
+
+
+def ring_pairs(shards) -> int:
+    """The (q-chunk, kv-chunk) pairs a ring's ``shards`` attend: shard i
+    attends chunks 0..i."""
+    return sum(i + 1 for i in shards)
+
+
+def ring_hop_bytes(B: int, C: int, H: int, D: int, n: int, n_layers: int,
+                   evaluates: int) -> tuple[int, int]:
+    """Hops and bytes a rank of an ``n``-shard bf16 ring sends per
+    REINFORCE update: each forward ring sends (k, v) ``n - 1`` times; the
+    one backward ring (k, v, dk, dv) ``n - 1`` times and (dk, dv) once
+    more, dk and dv in f32."""
+    kv = 2 * B * C * H * D * 2
+    dkv = 2 * B * C * H * D * 4
+    hops = evaluates * n_layers * (n - 1) + n_layers * n
+    return hops, (evaluates * n_layers * (n - 1) * kv
+                  + n_layers * ((n - 1) * (kv + dkv) + dkv))
+
+
+def multiprocess_ring(device, root: Path, workdir: Path, sp: dict,
+                      mesh_spec: dict = MHR_MESH, ranks_n: int = MH_RANKS) -> dict:
+    """Phase 23 (a): ``MH_RANKS`` rank processes (:func:`mh_ring_rank_main`)
+    over a mesh whose ``sp`` axis spans them (``MHR_MESH``, two shards a
+    rank on the one card): phase 7's first batch broadcast bit for bit from
+    rank 0, one update from phase 7's initial params; the ranks'
+    params sha256-equal after each update; each rank's K4/K5/K6 launches
+    those of its shards' causal pairs (K1-K3 none), summing to phase 7's;
+    the first update held to this process's single-process update over
+    the same mesh spec (phase 7's for ``MHR_MESH``) of the same batch from
+    the same params at phase 5's bars (:func:`hold_update`, bit-equality
+    reported); the hops' and gathers' count, bytes and ms per rank.
+    ``mesh_spec`` and ``ranks_n`` set another layout (``{"dp": 2, "sp":
+    2}`` over 4 ranks, a card each)."""
+    import shutil
+
+    import torch
+
+    from relayrl_tpu_torch.ops.flash import KERNEL_HEAD_DIMS
+    from relayrl_tpu_torch.parallel import make_mesh, make_sharded_update
+    from relayrl_tpu_torch.weights import params_to_jax
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    algo, params0, batch = sp["algo"], sp["params0"], sp["batches"][0]
+    dp, n_sp = mesh_spec.get("dp", 1), mesh_spec["sp"]
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    ref_mesh = make_mesh(mesh_spec, [device] * (dp * n_sp))
+    zero_ring_counts()
+    ref_side, _, ref_flash, steps, _ = one_update(
+        algo, params0, batch, device,
+        wrap=lambda u: make_sharded_update(u, ref_mesh, None, shard_time=True))
+    ref_counts = ref_flash + ring_counts()
+    local = dp * n_sp // ranks_n
+    torch.save({"batch": batch, "params0": _digest(params_to_jax(params0)),
+                "mesh": mesh_spec, "ranks": ranks_n, "local": local}, workdir / "case.pt")
+    port = _free_port()
+    cards = torch.cuda.device_count() >= ranks_n
+    envs = [mh_rank_env(r, port, cards) for r in range(ranks_n)]
+    for env in envs:
+        env["RELAYRL_NUM_PROCESSES"] = str(ranks_n)
+    t0 = time.perf_counter()
+    run_ranks(root, workdir, lambda r: ["--mh-ring-rank", r, port, workdir], envs)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(ranks_n)]
+    backends = {r["backend"] for r in ranks}
+    want_backend = "nccl" if cards else "gloo"
+    if backends != {want_backend}:
+        raise AssertionError(f"backends {backends}; the rule says {want_backend}")
+    n_layers = SLICE_ARCH["n_layers"]
+    evaluates = 4 + LEARNER["train_vf_iters"]
+    B = len(batch["valid"]) // dp
+    C = LEARNER["bucket_lengths"][0] // n_sp
+    H = SLICE_ARCH["n_heads"]
+    # The ring hops its chunks zero-padded to a kernel head dim.
+    D = min(d for d in KERNEL_HEAD_DIMS if d >= SLICE_ARCH["d_model"] // H)
+    want_hops = ring_hop_bytes(B, C, H, D, n_sp, n_layers, evaluates)
+    for i in range(len(ranks[0]["updates"])):
+        digests = {r["updates"][i]["digest"] for r in ranks}
+        if len(digests) != 1 or len({str(r["updates"][i]["metrics"]) for r in ranks}) != 1:
+            raise AssertionError(f"update {i + 1}: the ranks' params or metrics differ")
+    per_rank = []
+    for rank, r in enumerate(ranks):
+        pairs = ring_pairs(r["shards"])
+        expected = (0, 0, 0, evaluates * n_layers * pairs, n_layers * pairs,
+                    n_layers * pairs)
+        counts = [u["counts"] for u in r["updates"]]
+        if any(c != expected for c in counts):
+            raise AssertionError(f"rank {rank} (shards {r['shards']}): launches per "
+                                 f"update {counts}; expected {expected}")
+        comm = r["updates"][0]["comm"]
+        if (comm["hops"], comm["hop_bytes"]) != want_hops:
+            raise AssertionError(f"rank {rank}: hops, bytes {comm['hops']}, "
+                                 f"{comm['hop_bytes']}; expected {want_hops}")
+        per_rank.append(expected)
+    total = tuple(sum(c[i] for c in per_rank) for i in range(6))
+    if total != ref_counts:
+        raise AssertionError(f"the ranks' launches {total} per ring; one process "
+                             f"{ref_counts}")
+    got = ({k: v.to(device) for k, v in ranks[0]["updates"][0]["params"].items()},
+           ranks[0]["updates"][0]["metrics"])
+    held = hold_update(got, ref_side, params0, steps,
+                       f"sp across {ranks_n} ranks vs one process")
+    bit_equal = (all(torch.equal(got[0][k], v) for k, v in ref_side[0].items())
+                 and got[1] == ref_side[1])
+    return {**held, "wall": wall, "backend": want_backend, "bit_equal": bit_equal,
+            "cards": [r["card"] for r in ranks], "shards": [r["shards"] for r in ranks],
+            "counts": [r["updates"][0]["counts"] for r in ranks],
+            "launches": tuple(sum(sum(u["counts"][i] for u in r["updates"]) for r in ranks)
+                              for i in range(6)),
+            "first_ms": [r["updates"][0]["ms"] for r in ranks],
+            "ms": [sum(u["ms"] for u in r["updates"][1:-1]) / MHR_TIMED for r in ranks],
+            "comm_ms": [r["updates"][-1]["ms"] for r in ranks],
+            "comm": [r["updates"][0]["comm"] for r in ranks],
+            "timed_comm": [r["updates"][-1]["timed_comm"] for r in ranks],
+            "ref_counts": ref_counts, "digest": ranks[0]["updates"][-1]["digest"][:16],
+            "hops": want_hops}
+
+
+def multiprocess_ring_server(device, root: Path, workdir: Path) -> dict:
+    """Phase 23 (b): the ring flagship as a two-rank ``TrainingServer``
+    (``examples/chaos_server.py`` per rank, ``learner.mesh`` ``MHR_MESH``,
+    each rank two mesh entries on its card through ``local_device_ids``)
+    fed over ZMQ by a ``VectorAgent`` of ``MH_LANES`` ``RecallEnv(255)``
+    lanes in this process, one epoch a wave, for ``MHR_SERVER_UPDATES``
+    updates: after each wave both ranks at the version, their params
+    sha256-equal (each rank's ``state_log``) and the agent installed it.
+    Then both stop: K4/K5/K6 per rank per update as in (a) (K1-K3 none;
+    the agent serves the ring arch with no mesh, so with blockwise
+    attention and no kernel), only the coordinator with a transport and
+    publishes, exact accounting, the collective checkpoint on disk."""
+    import shutil
+
+    import torch
+
+    from relayrl_tpu_torch.checkpoint.manager import CheckpointManager
+    from relayrl_tpu_torch.envs import RecallEnv, SyncVectorEnv
+    from relayrl_tpu_torch.runtime.agent import VectorAgent
+    from relayrl_tpu_torch.runtime.vector_actor import run_vector_gym_loop
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    server_addrs, agent_addrs = zmq_addrs()
+    env = RecallEnv(LEARNER_HORIZON, N_CUES)
+    arch = {**SLICE_ARCH, "attention": "ring"}
+    hyperparams = {"model_kind": arch["kind"], "seed": SEED,
+                   **{k: v for k, v in arch.items()
+                      if k not in ("kind", "has_critic", "precision")},
+                   **LEARNER}
+    ckpt_dir = workdir / "checkpoints"
+    cards = torch.cuda.device_count() >= MH_RANKS
+    n_layers = arch["n_layers"]
+    evaluates = 4 + LEARNER["train_vf_iters"]
+    local = MHR_MESH["sp"] // MH_RANKS
+    agent_config = workdir / "agent_config.json"
+    agent_config.write_text(json.dumps({}))
+    port = _free_port()
+    servers = []
+    for rank in range(MH_RANKS):
+        cfg = {"algorithm": "REINFORCE",
+               "obs_dim": int(env.observation_space.shape[0]),
+               "act_dim": int(env.action_space.n), "hyperparams": hyperparams,
+               "scratch": str(workdir / f"rank{rank}"),
+               "checkpoint_every": MHR_SERVER_UPDATES,
+               "local_device_ids": [SERVER_DEVICE_ID] * local,
+               "config": {"learner": {"precision": arch["precision"], "mesh": MHR_MESH,
+                                      "checkpoint_dir": str(ckpt_dir)}},
+               "digests": True, "state_digests": True,
+               "status_path": str(workdir / f"status{rank}.json"),
+               "stop_path": str(workdir / "stop"), **server_addrs}
+        servers.append(ChaosServer(root, cfg, workdir / f"rank{rank}.log",
+                                   env=mh_rank_env(rank, port, cards)))
+    agent = None
+    try:
+        for s in servers:
+            s.wait(lambda st: True, "the rank to come up", timeout_s=MH_TIMEOUT_S)
+        agent = VectorAgent(num_envs=MH_LANES, config_path=str(agent_config), seed=SEED,
+                            probe=False, device=device,
+                            model_path=str(workdir / "client_model.rlx"), **agent_addrs)
+        venv = SyncVectorEnv([lambda: RecallEnv(LEARNER_HORIZON, N_CUES)] * MH_LANES)
+        seconds, agent_k1 = [], 0
+        for version in range(1, MHR_SERVER_UPDATES + 1):
+            zero_flash_counts()
+            t0 = time.perf_counter()
+            run_vector_gym_loop(agent, venv, LEARNER_HORIZON, seed=SEED + version - 1)
+            servers[0].wait(
+                lambda st: (st["version"] == version and agent.model_version == version
+                            and (st.get("published") or {}).get("version") == version),
+                f"version {version} published and installed", timeout_s=MH_TIMEOUT_S)
+            states = [s.wait(lambda st: str(version) in st.get("state_log", {}),
+                             f"rank at version {version}", timeout_s=MH_TIMEOUT_S)
+                      for s in servers]
+            seconds.append(time.perf_counter() - t0)
+            agent_k1 += flash_counts()[0]
+            logged = {st["state_log"][str(version)] for st in states}
+            if len(logged) != 1:
+                raise AssertionError(f"(b) version {version}: the ranks' params differ")
+            published = states[0]["published_log"].get(str(version))
+            if published != logged.pop():
+                raise AssertionError(f"(b) version {version}: published {published}, "
+                                     f"the ranks hold {states[0]['state_log']}")
+        lanes = list(agent.agent_ids)
+        (workdir / "stop").write_text("stop")
+        finals = [s.wait(lambda st: st.get("final"), "the rank's final status",
+                         timeout_s=MH_TIMEOUT_S) for s in servers]
+        for s in servers:
+            s.stop()
+        if len({(f["state"]["version"], f["state"]["params"]) for f in finals}) != 1 \
+                or finals[0]["state"]["version"] != MHR_SERVER_UPDATES:
+            raise AssertionError(f"(b) the ranks' states {[f['state'] for f in finals]}")
+        counts, comm = [], []
+        for rank, f in enumerate(finals):
+            if f["distributed"] != {"multi_host": True, "process_id": rank,
+                                    "num_processes": MH_RANKS}:
+                raise AssertionError(f"(b) rank {rank} topology {f['distributed']}")
+            stats = f["stats"]
+            if stats["learner_errors"] or stats["publish_errors"] or stats["dropped"]:
+                raise AssertionError(f"(b) rank {rank} {stats} {f['last_learner_error']}")
+            pairs = ring_pairs(range(rank * local, (rank + 1) * local))
+            per = (0, 0, 0, evaluates * n_layers * pairs, n_layers * pairs,
+                   n_layers * pairs)
+            got = tuple(f["kernels"][k] for k in (
+                "flash_fwd", "flash_dq", "flash_dkv",
+                "ring_chunk_fwd", "ring_chunk_dq", "ring_chunk_dkv"))
+            if got != tuple(MHR_SERVER_UPDATES * c for c in per) \
+                    or stats["updates"] != MHR_SERVER_UPDATES:
+                raise AssertionError(f"(b) rank {rank} launches {got} over "
+                                     f"{stats['updates']} updates; expected "
+                                     f"{MHR_SERVER_UPDATES} x {per}")
+            n_pub = sum(len(v) for v in f["publish_bytes"].values())
+            if (f["transport"] != "NoneType") != (rank == 0) or (n_pub > 0) != (rank == 0):
+                raise AssertionError(f"(b) rank {rank} transport {f['transport']}, "
+                                     f"{n_pub} publishes")
+            counts.append(got)
+            comm.append(f["ring"])
+        check_clean_guardrails(finals[0])
+        sent = agent.spool.sent_counts()
+        for lane in lanes:
+            row = finals[0]["accounting"]["agents"].get(lane)
+            if row != {"max_seq": sent[lane], "accepted": sent[lane], "contiguous": True}:
+                raise AssertionError(f"(b) accounting of {lane}: {row}, sent {sent[lane]}")
+        if finals[0]["stats"]["trajectories"] != \
+                MHR_SERVER_UPDATES * LEARNER["traj_per_epoch"]:
+            raise AssertionError(f"(b) trajectories {finals[0]['stats']}")
+        if CheckpointManager(str(ckpt_dir)).latest_step() != MHR_SERVER_UPDATES:
+            raise AssertionError("(b) no collective checkpoint at the last update")
+        if agent_k1:
+            raise AssertionError(f"(b) the agent launched flash_fwd {agent_k1} times")
+        return {"seconds": seconds, "counts": counts, "comm": comm,
+                "version": finals[0]["state"]["version"],
+                "digest": finals[0]["state"]["params"][:16],
+                "sent": sum(sent.values())}
+    finally:
+        if agent is not None:
+            agent.disable_agent()
+        for s in servers:
+            s.stop()
+
+
 def nccl_shared_card_probe(rank: int, port: int) -> int:
     """``chip_smoke.py --nccl-shared-card-probe RANK PORT``: one rank of
     two that put an ``nccl`` group on the same card (cuda:0) and sum one
@@ -7823,6 +8245,48 @@ def main() -> int:
         + sum(c[i] for part in ms22["counts"] for c in part) for i in range(3))
     mh_fwd += ms22["agent_k1"]
 
+    # 23. the multi-process ring: sp across the ranks, K4-K6 on each rank's
+    # shards, the K/V chunks hopping between the processes
+    t23 = time.perf_counter()
+    mr = multiprocess_ring(device, root, root / "build" / "chip_smoke_mh_ring", sp)
+    B23 = LEARNER["traj_per_epoch"]
+    C23 = LEARNER["bucket_lengths"][0] // SP
+    print(f"[mh-ring] (a) the ring flagship under {MHR_MESH} across {MH_RANKS} ranks "
+          f"({mr['backend']}, {', '.join(mr['cards'])}; shards {mr['shards']}), phase 7's "
+          f"first batch broadcast bit-equal: ranks' params sha256 {mr['digest']}... equal "
+          f"after each of {MHR_TIMED + 2} updates; launches per rank per update (flash_fwd, "
+          f"flash_dq, flash_dkv, ring_chunk_fwd, ring_chunk_dq, ring_chunk_dkv) "
+          f"{mr['counts']}, summing to phase 7's {mr['ref_counts']}; vs one process: "
+          + ("bit-equal" if mr["bit_equal"] else
+             f"max metric diff {mr['metric_err']:.3e}, max param diff "
+             f"{mr['param_err']:.3e}, mean {mr['mean_diff_share']:.4f} of the movement")
+          + " (phase 5's bars)", flush=True)
+    for rank, (comm, timed) in enumerate(zip(mr["comm"], mr["timed_comm"])):
+        print(f"[mh-ring] (a) rank {rank}: first update {mr['first_ms'][rank]:.2f} ms, "
+              f"(not gated) {mr['ms'][rank]:.2f} ms per update over {MHR_TIMED} beside "
+              f"phase 7's {1e3 * sum(sp_steady) / len(sp_steady):.2f}; per update "
+              f"{comm['hops']} hops of {comm['hop_bytes']} bytes ([{B23}, {C23}, "
+              f"{SLICE_ARCH['n_heads']}, {SLICE_ARCH['d_model'] // SLICE_ARCH['n_heads']}] "
+              f"bf16 k, v chunks; f32 dk, dv) in {1e3 * comm['hop_seconds']:.2f} ms on the "
+              f"host clock, {comm['gathers']} gathers of {comm['gather_bytes']} bytes in "
+              f"{1e3 * comm['gather_seconds']:.2f} ms; one update with both synced apart "
+              f"{mr['comm_ms'][rank]:.2f} ms, of which {timed['hops']} hops took "
+              f"{1e3 * timed['hop_seconds']:.2f} ms and {timed['gathers']} gathers "
+              f"{1e3 * timed['gather_seconds']:.2f} ms; on {card}", flush=True)
+    mrs = multiprocess_ring_server(device, root, root / "build" / "chip_smoke_mh_ring_server")
+    print(f"[mh-ring] (b) a {MH_RANKS}-rank TrainingServer with learner.mesh {MHR_MESH} "
+          f"and the ring flagship, fed by {MH_LANES} agent lanes: {MHR_SERVER_UPDATES} "
+          f"updates, each version installed by the agent with both ranks' params "
+          f"sha256-equal to the published; ranks at version {mrs['version']} (sha256 "
+          f"{mrs['digest']}...); launches per rank {mrs['counts']}; {mrs['sent']} "
+          f"trajectories sent = accepted = trained; a collective checkpoint; only the "
+          f"coordinator bound a transport and published; hops per rank "
+          f"{[c['hops'] for c in mrs['comm']]} in "
+          f"{[round(1e3 * c['hop_seconds'], 2) for c in mrs['comm']]} ms; (not gated) seconds "
+          f"per wave {[round(x, 2) for x in mrs['seconds']]} on {card}", flush=True)
+    print(f"[mh-ring] phase 23 in {time.perf_counter() - t23:.1f} s", flush=True)
+    mhr = tuple(mr["launches"][i] + sum(c[i] for c in mrs["counts"]) for i in range(3, 6))
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -7895,16 +8359,17 @@ def main() -> int:
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/ring_flash.cu",
         "replaces": replaces,
-        "launches": launches,
-        "launches_by_path": {"sp_learner": launches, "offpolicy": off, "pixel": pix},
+        "launches": sp_launches + mp_ring,
+        "launches_by_path": {"sp_learner": sp_launches, "offpolicy": off, "pixel": pix,
+                             "multiprocess_ring": mp_ring},
         **main_ring[name],
-    } for name, replaces, launches, off, pix in (
+    } for name, replaces, sp_launches, off, pix, mp_ring in (
         ("ring_chunk_fwd", "relayrl_tpu/parallel/ring_flash.py:86", ring_fwd, off_counts[3],
-         pix_counts[3]),
+         pix_counts[3], mhr[0]),
         ("ring_chunk_dq", "relayrl_tpu/parallel/ring_flash.py:119", ring_dq, off_counts[4],
-         pix_counts[4]),
+         pix_counts[4], mhr[1]),
         ("ring_chunk_dkv", "relayrl_tpu/parallel/ring_flash.py:147", ring_dkv,
-         off_counts[5], pix_counts[5]))]
+         off_counts[5], pix_counts[5], mhr[2]))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -7941,6 +8406,8 @@ def sweep_main(mode: str, first: int, last: int) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mh-rank"]:
         sys.exit(mh_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
+    if sys.argv[1:2] == ["--mh-ring-rank"]:
+        sys.exit(mh_ring_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     if sys.argv[1:2] == ["--nccl-shared-card-probe"]:
         sys.exit(nccl_shared_card_probe(int(sys.argv[2]), int(sys.argv[3])))
     if sys.argv[1:2] in (["--recall-sweep"], ["--moe-golden-sweep"]):

@@ -14,6 +14,10 @@ with keys::
     algorithm, obs_dim, act_dim, hyperparams   — TrainingServer ctor
                        (algorithm: any registered one)
     device           — torch device (default: the GPU)
+    local_device_ids — a rank's cards (``initialize_distributed``'s
+                       ``local_device_ids``, as ``jax.distributed``'s):
+                       its mesh devices; one card named twice, ``[0,
+                       0]``, gives a rank two shards of an sp ring on it
     server_type + addr overrides               — transport plane (zmq:
                        agent_listener_addr, trajectory_addr,
                        model_pub_addr; grpc and native: bind_addr;
@@ -28,13 +32,18 @@ with keys::
     digests          — add the published params' sha256 to the status,
                        the latest (``published``) and every version's
                        (``published_log``: {version: sha256})
+    state_digests    — after every update, on every rank, log the
+                       params' sha256 (``state_log``: {version: sha256};
+                       one device sync an update)
     status_path      — JSON status file, atomically rewritten ~3x/s:
                        {pid, t, version, algo_version, distributed, stats,
-                        accounting, registered, kernels, resume,
+                        accounting, registered, kernels, ring (the sp
+                        ring's hops and gathers: count, bytes, seconds),
+                        resume,
                         publish_bytes, last_publish, timings, guardrails,
                         probes_disabled, telemetry, exporter, transport,
                         decoded_by[, published, published_log][,
-                        rolled_back]}
+                        state_log][, rolled_back]}
     run_s            — optional auto-exit
     stop_path        — optional: the server shuts down cleanly once this
                        file exists, then writes one last status with
@@ -220,8 +229,12 @@ def main(argv=None) -> None:
 
     from relayrl_tpu_torch import telemetry
     from relayrl_tpu_torch.ops.flash import flash_attention
-    from relayrl_tpu_torch.parallel import ring_flash
+    from relayrl_tpu_torch.parallel import initialize_distributed, ring, ring_flash
     from relayrl_tpu_torch.runtime.server import TrainingServer
+
+    if cfg.get("local_device_ids") is not None:
+        # Before the server's own call, which then returns this topology.
+        initialize_distributed(local_device_ids=cfg["local_device_ids"])
 
     addr_keys = ("agent_listener_addr", "trajectory_addr", "model_pub_addr",
                  "bind_addr", "native_grpc")
@@ -255,6 +268,18 @@ def main(argv=None) -> None:
             publish(version, arch, host_params)
 
         server._publish_params = publish_and_log
+    state_log: dict[int, str] = {}
+    if cfg.get("state_digests"):
+        from relayrl_tpu_torch.weights import params_to_jax, tree_digest
+
+        algo, train = server.algorithm, server.algorithm.train_on_batch
+
+        def train_and_digest(batch):
+            out = train(batch)
+            state_log[int(algo.version)] = tree_digest(params_to_jax(algo.state.params))
+            return out
+
+        algo.train_on_batch = train_and_digest
     server.enable_server()
     server.wait_warmup(timeout=180)
 
@@ -284,6 +309,7 @@ def main(argv=None) -> None:
                 "ring_chunk_fwd": ring_flash.chunk_fwd.launches,
                 "ring_chunk_dq": ring_flash.chunk_dq.launches,
                 "ring_chunk_dkv": ring_flash.chunk_dkv.launches},
+            "ring": ring.COMM.as_dict(),
             "resume": resumed,
             "publish_bytes": {k: list(v) for k, v in
                               server.publish_bytes.items()},
@@ -310,6 +336,8 @@ def main(argv=None) -> None:
             status["published"] = (None if got is None else
                                    {"version": got[0], "digest": got[1]})
             status["published_log"] = dict(published_log)
+        if cfg.get("state_digests"):
+            status["state_log"] = dict(state_log)
         return status
 
     def status_loop() -> None:

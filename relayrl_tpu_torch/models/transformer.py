@@ -22,7 +22,9 @@ attention over the ambient mesh's ``sp`` axis
 (:mod:`relayrl_tpu_torch.parallel.ring_flash`) when the local chunk tiles
 by 8, else the scan ring (:mod:`relayrl_tpu_torch.parallel.ring`); with no
 mesh, or ``sp`` 1, blockwise or dense, so actors serve the arch the
-learner trains. On a CUDA device ``"flash"`` and ``"ring"`` take head dims
+learner trains. Where the ``sp`` axis spans processes the ambient mesh is
+the learner's local sub-mesh, which keeps the whole axis: the chunk is
+still ``T // sp`` and each rank attends its shards' chunks of the ring. On a CUDA device ``"flash"`` and ``"ring"`` take head dims
 up to 256, the flash kernels' widest (narrower ones are zero-padded to a
 kernel width); building the policy for a CUDA device refuses a wider one.
 
@@ -116,7 +118,8 @@ def _resolve_attention(arch: Mapping[str, Any]) -> Callable:
                     return blockwise_attention(q, k, v, block, causal=True)
                 return dense_attention(q, k, v, causal=True)
             # The chunk kernels when the local chunk tiles; the scan ring
-            # is the portable fallback.
+            # is the portable fallback. sp is the whole ring's size, also
+            # when its shards span processes.
             if pick_chunk_block(q.shape[1] // mesh.shape["sp"]) is not None:
                 return make_ring_flash_attention(mesh)(q, k, v)
             return make_ring_attention(mesh)(q, k, v)

@@ -3,8 +3,13 @@
 Counterpart of :mod:`relayrl_tpu.parallel.distributed`. The JAX package
 scales its learner across hosts with ``jax.distributed``; the port starts
 a ``torch.distributed`` process group over a TCP store at the coordinator
-address, and the learner's ``dp`` axis spans the processes
-(:func:`relayrl_tpu_torch.parallel.mesh.make_mesh`).
+address, and the learner's ``dp`` and ``sp`` axes may span the processes
+(:func:`relayrl_tpu_torch.parallel.mesh.make_mesh`). A mesh that spans them
+forms one group per crossing axis (:func:`form_axis_groups`): the dp
+groups (processes that differ only in their dp coordinate), over which
+the learner sums gradients (:func:`data_parallel_group`), and the sp
+groups (the processes of one ring), over which K/V chunks hop and the
+ring's chunks gather (:func:`axis_group`).
 
 Resolution order for each knob: explicit argument > environment variable
 (``RELAYRL_COORDINATOR`` / ``RELAYRL_NUM_PROCESSES`` /
@@ -16,13 +21,17 @@ The backend rule: ``nccl`` when every rank computes on a card of its own,
 ``gloo`` on the CPU or when ranks share a card (NCCL refuses two ranks on
 one device). A rank's compute device is its first local device:
 ``local_device_ids`` names this rank's cards, else every visible card is
-local, as in the JAX package. The ranks tell each other their device (the
-card's UUID, which ``CUDA_VISIBLE_DEVICES`` does not rename) through the
-store before the group forms, so every rank picks the same backend.
+local, as in the JAX package; a card named twice gives the rank two mesh
+entries on it (``[0, 0]``: two shards of an sp ring on one card). The
+ranks tell each other their device (the card's UUID, which
+``CUDA_VISIBLE_DEVICES`` does not rename) through the store before the
+group forms, so every rank picks the same backend.
 Under ``nccl`` the host-side traffic (the server's control descriptor and
 its batches) rides a second, ``gloo`` group; under ``gloo`` one group
 carries both. Gloo carries CUDA tensors for ``broadcast`` and
-``all_reduce``, the only collectives the learner runs on the device.
+``all_reduce`` only: the ring's send/receive pairs and gathers stage CUDA
+tensors through host memory under gloo and go card to card under nccl
+(:func:`stages_through_host`).
 """
 
 from __future__ import annotations
@@ -59,6 +68,8 @@ class _Runtime:
         self.rank, self.world = rank, world
         self.devices, self.backend = devices, backend
         self.host_group = host_group
+        # The groups meshes formed, by their ranks (form_axis_groups).
+        self.groups: dict[tuple[int, ...], Any] = {}
 
 
 def _device_identity(device: torch.device | None) -> str:
@@ -81,8 +92,12 @@ def choose_backend(identities: list[str]) -> str:
 
 
 def _local_devices(local_device_ids) -> list[torch.device]:
+    """This rank's devices: ``local_device_ids`` names cards by index (a
+    card named twice holds two of the rank's mesh entries) or devices by
+    name (``"cpu"``), else every visible card."""
     if local_device_ids is not None:
-        return [torch.device("cuda", int(i)) for i in local_device_ids]
+        return [torch.device(i) if isinstance(i, str) else torch.device("cuda", int(i))
+                for i in local_device_ids]
     if torch.cuda.is_available():
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return []
@@ -289,6 +304,48 @@ def broadcast_from_coordinator(tree):
     return _rebuild(skeleton, out)
 
 
+def form_axis_groups(mesh) -> None:
+    """Form the process groups of ``mesh``'s crossing axes, dp's then
+    sp's, each axis's groups in sorted order: every rank calls
+    ``new_group`` for every group, its own or not, in the same order (the
+    collective contract of ``new_group``), so every rank must build the
+    same meshes in the same order. A group of every rank is the world
+    group, a group of one rank needs none, and a group formed before is
+    kept. No-op without a process group (a topology stubbed in tests)."""
+    if _runtime is None:
+        return
+    import torch.distributed as dist
+
+    for axis in ("dp", "sp"):
+        for ranks in mesh.axis_groups(axis):
+            if ranks in _runtime.groups or len(ranks) == 1:
+                continue
+            _runtime.groups[ranks] = (
+                dist.group.WORLD if len(ranks) == _runtime.world
+                else dist.new_group(list(ranks),
+                                    timeout=datetime.timedelta(seconds=TIMEOUT_S)))
+
+
+def axis_group(mesh, axis: str):
+    """This process's group over ``axis`` of ``mesh`` (formed by
+    :func:`form_axis_groups`), None when the axis stays in this process."""
+    ranks = mesh.axis_ranks(axis)
+    if len(ranks) == 1:
+        return None
+    if _runtime is None or ranks not in _runtime.groups:
+        raise RuntimeError(f"no process group for ranks {ranks} over {axis}: "
+                           "make_mesh forms them once the process group exists")
+    return _runtime.groups[ranks]
+
+
+def stages_through_host(device: torch.device) -> bool:
+    """Whether a send/receive or gather of tensors on ``device`` goes
+    through host memory: CUDA tensors under gloo (which carries them for
+    ``broadcast`` and ``all_reduce`` only); never under nccl, nor for CPU
+    tensors."""
+    return device.type == "cuda" and backend() == "gloo"
+
+
 class DataParallelGroup:
     """The processes a ``dp`` axis spans and the sums the learner takes
     over them (:mod:`relayrl_tpu_torch.parallel.context`): ``rank`` is
@@ -306,12 +363,20 @@ class DataParallelGroup:
         return flat
 
 
-def data_parallel_group() -> DataParallelGroup:
+def data_parallel_group(mesh) -> DataParallelGroup | None:
     """The group the learner's gradients and batch statistics are summed
-    over: every process (dp is the only mesh axis that crosses them)."""
+    over: the processes that differ from this one only in their dp
+    coordinate of ``mesh``. None when dp does not cross processes (e.g.
+    ``{"dp": 1, "sp": 8}``: every rank holds every row and the same
+    gradients, with no sum)."""
     if _runtime is None:
         raise RuntimeError("initialize_distributed has not started a "
                            "multi-process group")
+    ranks = mesh.axis_ranks("dp")
+    if len(ranks) == 1:
+        return None
     import torch.distributed as dist
 
-    return DataParallelGroup(_runtime.rank, _runtime.world, dist.group.WORLD)
+    group = (dist.group.WORLD if len(ranks) == _runtime.world
+             else axis_group(mesh, "dp"))
+    return DataParallelGroup(ranks.index(_runtime.rank), len(ranks), group)

@@ -35,15 +35,19 @@ the unplaced optimizer's layout, so checkpoints do not depend on the mesh.
 
 On a mesh whose ``dp`` axis spans processes
 (:mod:`relayrl_tpu_torch.parallel.distributed`), every process receives
-the whole batch (the server broadcasts it), takes its block of rows, and
-runs the update above on its local sub-mesh (:attr:`Mesh.local`) with the
-data-parallel group installed beside the ambient mesh
-(:func:`~relayrl_tpu_torch.parallel.context.use_dp_group`): every
-gradient is summed over the group before its optimizer step and every
-batch statistic is a global sum (:mod:`relayrl_tpu_torch.parallel.context`).
-dp replicates the state, so each process holds the whole logical
-parameters and the same optimizer steps keep them bit-equal across
-processes.
+the whole batch (the server broadcasts it), takes the rows of its dp
+coordinates, and runs the update above on its local sub-mesh
+(:attr:`Mesh.local`) with the data-parallel group installed beside the
+ambient mesh (:func:`~relayrl_tpu_torch.parallel.context.use_dp_group`):
+every gradient is summed over the group before its optimizer step and
+every batch statistic is a global sum
+(:mod:`relayrl_tpu_torch.parallel.context`). dp replicates the state, so
+each process holds the whole logical parameters and the same optimizer
+steps keep them bit-equal across processes. Where ``sp`` spans processes
+too, the local sub-mesh keeps the other ranks' shards of the ring: the
+ring attends this rank's time chunks and gathers the outputs, so the rest
+of the model runs replicated on every rank of a ring, its gradients equal
+there with no sum (:mod:`.ring`).
 """
 
 from __future__ import annotations
@@ -82,7 +86,8 @@ def make_sharded_update(update_fn: Callable, mesh: Mesh, state_template,
     ambient mesh around each call; ``shard_time=True`` also holds the
     time axis of rank>=2 batch arrays to the ``sp`` split. On a mesh over
     several processes each call takes this process's rows of the (whole)
-    batch and runs on the local sub-mesh, the data-parallel group ambient.
+    batch and runs on the local sub-mesh, the data-parallel group ambient
+    when dp crosses processes.
 
     ``state_template`` and ``donate_state`` keep the JAX signature: the
     placement is :func:`place_state`'s, and the torch update moves the
@@ -90,7 +95,7 @@ def make_sharded_update(update_fn: Callable, mesh: Mesh, state_template,
     del state_template, donate_state
     from relayrl_tpu_torch.parallel.distributed import data_parallel_group
 
-    group = data_parallel_group() if mesh.process_count > 1 else None
+    group = data_parallel_group(mesh) if mesh.process_count > 1 else None
 
     def sharded_update(state, batch, *args):
         batch = place_batch(batch, mesh, shard_time)
@@ -209,8 +214,8 @@ def place_state(state, mesh: Mesh):
     by :func:`place_module`, every optimizer field rebuilt over the placed
     leaves with its moments split (an optimizer that has not stepped gets
     its moments at its first step, on each shard's device). On a mesh over
-    several processes the state goes on this process's sub-mesh. Returns
-    the state."""
+    several processes the state goes on this process's devices of its
+    sub-mesh. Returns the state."""
     mesh = mesh.local
     plan = {}
     fields = vars(state)
@@ -228,15 +233,16 @@ def place_batch(batch: dict, mesh: Mesh, shard_time: bool = False) -> dict:
     that each array splits over the mesh as :func:`batch_shardings` says.
     ``shard_time`` must match the :func:`make_sharded_update` flag. On a
     mesh over several processes ``batch`` is the whole batch and this
-    process keeps its block of rows (dim 0)."""
+    process keeps the rows (dim 0) of its dp coordinates: all of them
+    when dp does not cross processes."""
     _check_splits(mesh, batch, batch_shardings(mesh, batch, shard_time))
     if mesh.process_count > 1:
         rows = {len(v) for v in batch.values()}
         if len(rows) != 1:
             raise ValueError(f"batch arrays disagree on their rows: {sorted(rows)}")
-        per = rows.pop() // mesh.process_count
-        start = mesh.process_index * per
-        batch = {k: v[start:start + per] for k, v in batch.items()}
+        per = rows.pop() // mesh.shape["dp"]
+        start, stop = mesh.dp_block
+        batch = {k: v[start * per:stop * per] for k, v in batch.items()}
     return {k: torch.as_tensor(v, device=mesh.first_device)
             for k, v in batch.items()}
 

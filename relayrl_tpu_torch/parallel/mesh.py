@@ -22,14 +22,20 @@ Once :func:`~relayrl_tpu_torch.parallel.distributed.initialize_distributed`
 has started several processes, a mesh spans them, as a JAX mesh over
 ``jax.devices()`` spans every host: ``devices`` (default: this rank's
 local devices) are this process's, and the mesh holds ``num_processes``
-times as many. ``dp`` is the outermost axis and its coordinates go to the
-processes in contiguous blocks; every other axis stays inside one process
-(``{"dp": -1, "fsdp": 2}`` over 2 processes of 4 devices: dp 4, each
-process 2 dp coordinates x fsdp 2). :attr:`Mesh.local` is this process's
-sub-mesh, which the learner drives single-controller; the entries of the
-other processes' blocks are None here. A spec whose non-dp axes would
-cross processes raises :class:`CrossProcessAxisError`: the multi-process
-ring and pipeline are ROADMAP.md queue 1 item 11's next slices.
+times as many. Process ``p`` owns the flat indices ``[p·L, (p+1)·L)`` of
+the device array (L devices a process), the layout of the reference's
+reshape of ``jax.devices()``; :attr:`Mesh.owners` holds each coordinate's
+rank. ``dp`` and ``sp`` may cross processes: ``{"dp": -1, "fsdp": 2}``
+over 2 processes of 4 devices gives dp 4, each process 2 dp coordinates x
+fsdp 2; ``{"dp": 1, "sp": 8}`` over 2 processes of 4 gives one ring whose
+shards 0-3 sit on rank 0 and 4-7 on rank 1. :attr:`Mesh.local` is this
+process's sub-mesh, its block of dp coordinates, which the learner drives
+single-controller; when ``sp`` crosses it keeps the whole ``sp`` axis with
+the other ranks' entries None (their owners still known), so the ring
+sees every shard and hops to the ranks that hold the others
+(:mod:`relayrl_tpu_torch.parallel.ring`). A spec in which fsdp, ep, tp or
+pp would cross processes raises :class:`CrossProcessAxisError`: they are
+ROADMAP.md queue 1 item 11's next slices.
 
 Config form (``learner.mesh``): ``{"dp": -1, "fsdp": 1, "ep": 1, "tp": 1,
 "sp": 1, "pp": 1}`` where -1 means "fill with the remaining devices".
@@ -45,10 +51,14 @@ import torch
 AXES = ("dp", "fsdp", "ep", "tp", "sp", "pp")
 
 
+# The axes whose coordinates may go to different processes.
+CROSS_PROCESS_AXES = ("dp", "sp")
+
+
 class CrossProcessAxisError(ValueError):
-    """A mesh axis other than ``dp`` would cross processes: the
-    multi-process ring and pipeline are not ported (ROADMAP.md queue 1
-    item 11)."""
+    """A mesh axis other than ``dp`` and ``sp`` would cross processes:
+    fsdp, ep, tp and pp across processes are not ported (ROADMAP.md queue
+    1 item 11)."""
 
 
 class Mesh:
@@ -57,39 +67,100 @@ class Mesh:
     ``shape`` maps each axis to its size, in axis order, as a JAX mesh's
     ``shape`` does; ``devices`` is the object array of ``torch.device``
     with one dimension per axis. A mesh over ``process_count`` processes
-    holds this process's devices in its block of dp coordinates
-    (``process_index``) and None elsewhere."""
+    holds this process's (``process_index``) devices where ``owners``, the
+    int array of each coordinate's rank, says it owns them, and None
+    elsewhere."""
 
     axis_names = AXES
 
     def __init__(self, devices: np.ndarray, process_count: int = 1,
-                 process_index: int = 0):
+                 process_index: int = 0, owners: np.ndarray | None = None):
         if devices.ndim != len(AXES):
             raise ValueError(f"device array of rank {devices.ndim} for axes {AXES}")
         self.devices = devices
         self.shape = dict(zip(AXES, devices.shape))
         self.process_count, self.process_index = process_count, process_index
+        self.owners = (np.full(devices.shape, process_index) if owners is None
+                       else owners)
+
+    def owner(self, **coords: int) -> int:
+        """The rank that owns the coordinate (an axis not given at 0)."""
+        return int(self.owners[tuple(coords.get(ax, 0) for ax in AXES)])
+
+    @property
+    def cross_axes(self) -> tuple[str, ...]:
+        """The axes along which the owning rank changes."""
+        return tuple(ax for i, ax in enumerate(AXES)
+                     if (np.diff(self.owners, axis=i) != 0).any())
+
+    @property
+    def home(self) -> tuple[int, ...]:
+        """This process's first coordinate (row-major)."""
+        return tuple(int(i) for i in np.unravel_index(
+            int(np.argmax(self.owners == self.process_index)), self.owners.shape))
+
+    def axis_owners(self, axis: str) -> np.ndarray:
+        """The owning rank of each coordinate along ``axis`` through
+        :attr:`home`."""
+        index = list(self.home)
+        index[AXES.index(axis)] = slice(None)
+        return self.owners[tuple(index)]
+
+    def axis_ranks(self, axis: str) -> tuple[int, ...]:
+        """The ranks along ``axis`` through this process's coordinates, in
+        coordinate order: the processes of its group over that axis (its
+        dp group differs only in the dp coordinate; its sp group holds one
+        ring)."""
+        return tuple(dict.fromkeys(int(r) for r in self.axis_owners(axis)))
+
+    def axis_groups(self, axis: str) -> list[tuple[int, ...]]:
+        """Every group of ranks along ``axis`` (one per line of the other
+        axes' coordinates), sorted: what every rank forms, in this order,
+        whatever its own group."""
+        lines = np.moveaxis(self.owners, AXES.index(axis), -1)
+        lines = lines.reshape(-1, self.shape[axis])
+        return sorted({tuple(dict.fromkeys(int(r) for r in line)) for line in lines})
+
+    def shard_indices(self, axis: str) -> list[int]:
+        """This process's coordinates along ``axis`` through :attr:`home`
+        (its global shard indices of the ``sp`` ring)."""
+        return [i for i, r in enumerate(self.axis_owners(axis)) if r == self.process_index]
+
+    @property
+    def dp_block(self) -> tuple[int, int]:
+        """This process's dp coordinates, ``[start, stop)``."""
+        rows = self.owners.reshape(self.shape["dp"], -1)
+        mine = np.flatnonzero((rows == self.process_index).any(axis=1))
+        return int(mine[0]), int(mine[-1]) + 1
 
     @property
     def local(self) -> "Mesh":
         """This process's sub-mesh: its block of dp coordinates, every
-        other axis whole (the mesh itself for one process)."""
+        other axis whole (the mesh itself for one process). Where only dp
+        crosses, a single-process mesh of this process's devices; where
+        sp crosses too, the other ranks' sp entries stay, None, with their
+        owners."""
         if self.process_count == 1:
             return self
-        per = self.shape["dp"] // self.process_count
-        start = self.process_index * per
-        return Mesh(self.devices[start:start + per])
+        start, stop = self.dp_block
+        owners = self.owners[start:stop]
+        if (owners == self.process_index).all():
+            return Mesh(self.devices[start:stop])
+        return Mesh(self.devices[start:stop], self.process_count,
+                    self.process_index, owners)
 
     @property
     def first_device(self) -> torch.device:
         """Where single-controller state lives (:mod:`.learner`): this
         process's first device."""
-        return self.local.devices.flat[0]
+        local = self.local
+        return local.devices[local.home]
 
     def axis_devices(self, axis: str, **coords: int) -> list[torch.device]:
         """The devices along ``axis`` for one group of the other axes: each
         other axis at its coordinate in ``coords``, 0 where none is given
-        (an axis the caller does not split over holds replicas)."""
+        (an axis the caller does not split over holds replicas). Another
+        rank's entry is None."""
         unknown = set(coords) - set(self.axis_names) | ({axis} & set(coords))
         if unknown:
             raise ValueError(f"bad coordinates {sorted(unknown)} for axis {axis!r}")
@@ -140,25 +211,37 @@ def make_mesh(spec: Mapping[str, int] | None = None,
     """Build a Mesh over the given (default: every CUDA) devices. A device
     may appear more than once: its shards then share it. In a
     multi-process run ``devices`` are this process's (default: its local
-    devices) and the mesh spans every process along ``dp``."""
+    devices), the mesh spans every process and the process groups of its
+    dp and sp axes are formed (every rank calls this with the same spec)."""
     from relayrl_tpu_torch.parallel import distributed
 
     if devices is None:
         devices = distributed.local_devices() or _all_devices()
     devices = [torch.device(d) for d in devices]
     world, rank = distributed.process_count(), distributed.process_index()
-    shape = resolve_mesh_shape(spec or {"dp": -1}, world * len(devices))
-    if shape["dp"] % world:
-        inner = {ax: n for ax, n in shape.items() if ax != "dp" and n > 1}
+    n = len(devices)
+    shape = resolve_mesh_shape(spec or {"dp": -1}, world * n)
+    dims = [shape[ax] for ax in AXES]
+    owners = (np.arange(world * n) // n).reshape(dims)
+    arr = np.empty(world * n, dtype=object)
+    arr[rank * n:(rank + 1) * n] = devices
+    mesh = Mesh(arr.reshape(dims), world, rank, owners)
+    crossing = [ax for ax in mesh.cross_axes if ax not in CROSS_PROCESS_AXES]
+    if crossing:
         raise CrossProcessAxisError(
-            f"mesh {shape} over {world} processes of {len(devices)} devices: "
-            f"dp {shape['dp']} does not split into {world} blocks, so axes "
-            f"{sorted(inner)} would cross processes; only dp spans processes "
-            "(the multi-process ring and pipeline are ROADMAP.md queue 1 "
+            f"mesh {shape} over {world} processes of {n} devices: axes "
+            f"{crossing} would cross processes; only dp and sp span processes "
+            "(fsdp, ep, tp and pp across processes are ROADMAP.md queue 1 "
             "item 11)")
-    arr = np.empty(world * len(devices), dtype=object)
-    arr[rank * len(devices):(rank + 1) * len(devices)] = devices
-    return Mesh(arr.reshape([shape[ax] for ax in AXES]), world, rank)
+    inner = world * n // shape["dp"]
+    if inner % n and n % inner:
+        raise CrossProcessAxisError(
+            f"mesh {shape} over {world} processes of {n} devices: a process's "
+            f"block of {n} devices neither holds whole dp rows of {inner} nor "
+            "an equal part of one (ROADMAP.md queue 1 item 11)")
+    if world > 1:
+        distributed.form_axis_groups(mesh)
+    return mesh
 
 
 def single_device_mesh(device=None) -> Mesh:

@@ -63,8 +63,12 @@ and dk/dv accumulate on buffers that rotate with their chunk, so after one
 rotation more than the forward's each chunk's gradient is back on its
 shard. The shard bodies are generators driven by
 :func:`~relayrl_tpu_torch.parallel.ring.run_ring` (a ``yield`` is a
-rotation), so a multi-process ring can drive the same bodies with
-``torch.distributed`` send/receive.
+rotation). A ring whose ``sp`` axis spans processes drives the same
+bodies: each rank drives its block of shards at their global indices
+(which set every round's FULL/DIAG/SKIP mode), its edges hop over
+``torch.distributed`` send/receive, and the scatter and gather of
+:mod:`relayrl_tpu_torch.parallel.ring` keep the rest of the model
+replicated on the ranks.
 
 Every kernel allocates its outputs: on a ring of shards that share one
 card, the buffer a shard receives is the very tensor its predecessor
@@ -88,10 +92,13 @@ from relayrl_tpu_torch.ops.flash import (
 )
 from relayrl_tpu_torch.parallel.mesh import Mesh
 from relayrl_tpu_torch.parallel.ring import (
-    ring_groups,
+    RingSpan,
+    across_processes,
+    ring_spans,
     run_ring,
     shard_gather,
     shard_split,
+    whole_ring,
 )
 
 # Per-round chunk relationship (a kernel int argument).
@@ -410,34 +417,38 @@ def _bhcd_to_bchd(x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 class _RingFlash(torch.autograd.Function):
-    """One ring over ``devices``; the tensor arguments are the shards' q
-    chunks, then their k chunks, then their v chunks."""
+    """This process's shards of one ring (a
+    :class:`~relayrl_tpu_torch.parallel.ring.RingSpan`); the tensor
+    arguments are the shards' q chunks, then their k chunks, then their v
+    chunks."""
 
     @staticmethod
-    def forward(ctx, devices, causal, calls, head_dim, *qkv):
-        n = len(devices)
+    def forward(ctx, span, causal, calls, head_dim, *qkv):
+        n = len(span.indices)
         q, k, v = qkv[:n], qkv[n:2 * n], qkv[2 * n:]
-        results = run_ring([_ring_fwd_body(i, n, causal, calls,
+        results = run_ring([_ring_fwd_body(idx, span.size, causal, calls,
                                            prescale_q(q[i], head_dim), k[i], v[i])
-                            for i in range(n)], devices)
+                            for i, idx in enumerate(span.indices)],
+                           span.devices, span.hop)
         outs = [out for out, _ in results]
         ctx.save_for_backward(*qkv, *outs, *(lse2 for _, lse2 in results))
-        ctx.devices, ctx.causal, ctx.calls = devices, causal, calls
+        ctx.span, ctx.causal, ctx.calls = span, causal, calls
         ctx.head_dim = head_dim
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *d_outs):
-        n = len(ctx.devices)
+        span = ctx.span
+        n = len(span.indices)
         saved = ctx.saved_tensors
         q, k, v, out, lse2 = (saved[i * n:(i + 1) * n] for i in range(5))
         bodies = []
-        for i in range(n):
+        for i, idx in enumerate(span.indices):
             do = d_outs[i] if d_outs[i].stride(-1) == 1 else d_outs[i].contiguous()
             bodies.append(_ring_bwd_body(
-                i, n, ctx.causal, ctx.calls, prescale_q(q[i], ctx.head_dim), k[i], v[i],
-                do, lse2[i], flash_attention_delta(out[i], do)))
-        grads = run_ring(bodies, ctx.devices)
+                idx, span.size, ctx.causal, ctx.calls, prescale_q(q[i], ctx.head_dim),
+                k[i], v[i], do, lse2[i], flash_attention_delta(out[i], do)))
+        grads = run_ring(bodies, span.devices, span.hop)
         scale = 1.0 / math.sqrt(ctx.head_dim)
         dq = [_bhcd_to_bchd(g[0] * scale, q[i].dtype) for i, g in enumerate(grads)]
         dk = [_bhcd_to_bchd(g[1] * (1.0 / _LOG2E), k[i].dtype) for i, g in enumerate(grads)]
@@ -445,11 +456,15 @@ class _RingFlash(torch.autograd.Function):
         return (None, None, None, None, *dq, *dk, *dv)
 
 
-def _ring_flash(q_shards, k_shards, v_shards, devices, causal, calls):
+def _ring_flash(q_shards, k_shards, v_shards, devices, causal, calls,
+                span: RingSpan | None = None):
+    """The flash ring over ``devices`` (every shard here), or over this
+    rank's shards of ``span``: one output chunk a shard."""
     _check_chunk_tiles(q_shards[0].shape[1])
-    n = len(devices)
+    span = span or whole_ring(devices)
+    n = len(span.indices)
     padded, D = pad_head_dim(*q_shards, *k_shards, *v_shards)
-    outs = _RingFlash.apply(tuple(devices), bool(causal), calls, D, *padded)
+    outs = _RingFlash.apply(span, bool(causal), calls, D, *padded)
     return [out if out.shape[-1] == D else out[..., :D] for out in outs[:n]]
 
 
@@ -500,7 +515,13 @@ def chunked_flash_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _make_ring_flash(mesh: Mesh, axis_name: str, causal: bool, batch_axes,
                      calls: ChunkCalls):
-    groups = ring_groups(mesh, axis_name, batch_axes)
+    spans = ring_spans(mesh, axis_name, batch_axes)
+    if spans[0].hop is not None:
+        span = spans[0]
+        return lambda q, k, v: across_processes(
+            q, k, v, span,
+            lambda qs, ks, vs: _ring_flash(qs, ks, vs, span.devices, causal, calls, span))
+    groups = [list(sp.devices) for sp in spans]
 
     def ring(q, k, v):
         shards = zip(*(shard_split(x, groups) for x in (q, k, v)), groups)
@@ -517,5 +538,6 @@ def make_ring_flash_attention(mesh: Mesh, axis_name: str = "sp",
     Drop-in for :func:`relayrl_tpu_torch.parallel.ring.make_ring_attention`
     with the per-round combine running as the chunk kernels: the batch
     splits over the dp x fsdp groups and each group runs its own ring over
-    its ``axis_name`` devices."""
+    its ``axis_name`` devices. Where the axis spans processes, this rank
+    runs K4-K6 on its shards and the K/V chunks hop between ranks."""
     return _make_ring_flash(mesh, axis_name, causal, batch_axes, CHUNK_CALLS)

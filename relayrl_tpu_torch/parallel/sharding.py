@@ -186,8 +186,9 @@ def _axes(entry) -> tuple[str, ...]:
 
 
 def mesh_device(mesh: Mesh, **coords: int) -> torch.device:
-    """The device at ``coords``, every other axis at 0."""
-    return mesh.devices[tuple(coords.get(ax, 0) for ax in AXES)]
+    """The device at ``coords``, every other axis at this process's first
+    coordinate (0 on a mesh of one process)."""
+    return mesh.devices[tuple(coords.get(ax, h) for ax, h in zip(AXES, mesh.home))]
 
 
 def _coords(mesh: Mesh, axes: tuple[str, ...], block: int) -> dict[str, int]:

@@ -177,3 +177,160 @@ def test_dp_helpers_under_a_group(rank):
         # A process with no row of a minibatch still joins the sum.
         assert torch.equal(context.dp_gradients(None, [w])[0], torch.zeros(3))
     assert context.current_dp_group() is None
+
+
+def _topology(monkeypatch, rank, world):
+    monkeypatch.setattr(distributed, "_info", {
+        "multi_host": True, "process_id": rank, "num_processes": world})
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_sp_across_two_processes_builds(monkeypatch, rank):
+    """``{"dp": 1, "sp": 8}`` over 2 processes of 4 devices (the reference
+    worker's ring): one ring, shards 0-3 on rank 0 and 4-7 on rank 1. The
+    local sub-mesh keeps the whole sp axis, the other rank's entries None;
+    dp does not cross, so there is no data-parallel group and a rank keeps
+    every row of the batch."""
+    from relayrl_tpu_torch.parallel import place_batch
+
+    _topology(monkeypatch, rank, 2)
+    mesh = make_mesh({"dp": 1, "sp": 8}, [torch.device("cpu")] * 4)
+    assert mesh.cross_axes == ("sp",)
+    assert [mesh.owner(sp=i) for i in range(8)] == [0] * 4 + [1] * 4
+    assert mesh.shard_indices("sp") == list(range(4 * rank, 4 * rank + 4))
+    assert mesh.axis_ranks("sp") == (0, 1) and mesh.axis_ranks("dp") == (rank,)
+    assert mesh.dp_block == (0, 1)
+    local = mesh.local
+    assert local.shape == mesh.shape and local.process_count == 2
+    mine = [d is not None for d in local.axis_devices("sp")]
+    assert mine == [i // 4 == rank for i in range(8)]
+    assert mesh.first_device == torch.device("cpu")
+    monkeypatch.setattr(distributed, "_runtime",
+                        distributed._Runtime(rank, 2, [], "gloo", None))
+    assert distributed.data_parallel_group(mesh) is None
+    rng = np.random.default_rng(0)
+    batch = {"obs": rng.standard_normal((2, 64, 3)).astype(np.float32),
+             "last_val": np.arange(2, dtype=np.float32)}
+    placed = place_batch(batch, mesh, shard_time=True)
+    for key, value in batch.items():
+        assert np.array_equal(placed[key].numpy(), value), key
+
+
+@pytest.mark.parametrize("rank", [0, 1, 2, 3])
+def test_dp_and_sp_across_four_processes(monkeypatch, rank):
+    """``{"dp": 2, "sp": 4}`` over 4 processes of 2 devices: rank r holds
+    dp coordinate r // 2 and sp shards 2 (r % 2) and 2 (r % 2) + 1; its dp
+    group is the ranks of its sp half in both dp rows, its sp group the
+    two ranks of its dp row, and every rank forms every group."""
+    from relayrl_tpu_torch.parallel import place_batch
+
+    _topology(monkeypatch, rank, 4)
+    mesh = make_mesh({"dp": 2, "sp": 4}, [torch.device("cpu")] * 2)
+    assert set(mesh.cross_axes) == {"dp", "sp"}
+    assert mesh.dp_block == (rank // 2, rank // 2 + 1)
+    assert mesh.shard_indices("sp") == [2 * (rank % 2), 2 * (rank % 2) + 1]
+    assert mesh.axis_ranks("dp") == (rank % 2, rank % 2 + 2)
+    assert mesh.axis_ranks("sp") == (2 * (rank // 2), 2 * (rank // 2) + 1)
+    assert mesh.axis_groups("dp") == [(0, 2), (1, 3)]
+    assert mesh.axis_groups("sp") == [(0, 1), (2, 3)]
+    assert mesh.local.shape["dp"] == 1 and mesh.local.shape["sp"] == 4
+    rows = np.arange(8, dtype=np.float32)[:, None].repeat(4, axis=1)
+    placed = place_batch({"valid": rows}, mesh, shard_time=True)["valid"]
+    assert np.array_equal(placed.numpy(), rows[4 * (rank // 2):4 * (rank // 2) + 4])
+
+
+@pytest.mark.parametrize("spec,axes", [({"dp": 1, "ep": 8}, "['ep']"),
+                                       ({"dp": 1, "sp": 2, "fsdp": 4}, "['fsdp']"),
+                                       ({"dp": 1, "ep": 2, "sp": 4}, "['ep']")])
+def test_refusal_names_the_crossing_axis(monkeypatch, spec, axes):
+    _two_process_topology(monkeypatch, 0)
+    with pytest.raises(CrossProcessAxisError, match=rf"axes \{axes}.*queue 1 item 11"):
+        make_mesh(spec, [torch.device("cpu")] * 4)
+
+
+def test_local_device_ids_name_a_rank_s_mesh_entries():
+    """A card named twice gives a rank two mesh entries on it; a device
+    name (``"cpu"``) names that device."""
+    assert distributed._local_devices([0, 0]) == [torch.device("cuda", 0)] * 2
+    assert distributed._local_devices(["cpu", "cpu"]) == [torch.device("cpu")] * 2
+
+
+def test_uneven_process_blocks_refused(monkeypatch):
+    """Blocks of 3 devices over a ``{"dp": 3, "sp": 2}`` mesh split a dp
+    row between processes unevenly (only dp and sp cross, but a ring would
+    hold 1 shard on one rank and 1 on the other of a row the first rank
+    also holds)."""
+    _two_process_topology(monkeypatch, 0)
+    with pytest.raises(CrossProcessAxisError, match="queue 1 item 11"):
+        make_mesh({"dp": 3, "sp": 2}, [torch.device("cpu")] * 3)
+
+
+class _QueueHop:
+    """A two-rank hop inside one process: each rank's sends land in the
+    other rank's inbox (one for each direction)."""
+
+    def __init__(self, inboxes, rank):
+        self.inboxes, self.rank = inboxes, rank
+
+    def exchange(self, tensors, device, reverse=False):
+        self.inboxes[1 - self.rank][reverse].put([t.detach().clone() for t in tensors])
+        return tuple(t.to(device) for t in self.inboxes[self.rank][reverse].get(timeout=60))
+
+
+@pytest.mark.parametrize("kind", ["flash", "scan"])
+def test_run_ring_over_a_two_rank_hop(kind):
+    """Two threads, each a rank driving shards 0-3 or 4-7 of an 8-shard
+    causal ring (at their global indices) through ``run_ring`` with a
+    hop between them: their output chunks and their shards' gradients
+    equal the single-process ring's bit for bit, for the flash ring (the
+    kernels' plain versions; a manual backward ring) and the scan ring
+    (autograd through the hop)."""
+    import queue
+    import threading
+
+    from relayrl_tpu_torch.parallel import ring, ring_flash
+
+    B, T, H, D, n = 2, 64, 2, 16, 8
+    gen = torch.Generator().manual_seed(0)
+    qkv = [torch.randn(B, T, H, D, generator=gen) for _ in range(3)]
+    g_out = torch.randn(B, T, H, D, generator=gen)
+    cpu = torch.device("cpu")
+
+    def attend(chunks, devices, span=None):
+        if kind == "flash":
+            return ring_flash._ring_flash(*chunks, devices, True, ring_flash.CHUNK_CALLS,
+                                          span)
+        return ring.ring_attention_sharded(*chunks, devices, True, span)
+
+    def run(indices, span=None):
+        leaves = [x.clone().requires_grad_() for x in qkv]
+        C = T // n
+        chunks = [[x[:, i * C:(i + 1) * C] for i in indices] for x in leaves]
+        outs = attend(chunks, [cpu] * len(indices), span)
+        torch.autograd.backward(outs, [g_out[:, i * C:(i + 1) * C] for i in indices])
+        return torch.cat(outs, dim=1), [x.grad for x in leaves]
+
+    want_out, want_grads = run(range(n))
+    inboxes = [[queue.Queue(), queue.Queue()] for _ in range(2)]
+    got, errors = {}, []
+
+    def rank_main(r):
+        try:
+            span = ring.RingSpan((cpu,) * 4, tuple(range(4 * r, 4 * r + 4)), n,
+                                 _QueueHop(inboxes, r))
+            got[r] = run(span.indices, span)
+        except Exception as e:  # reported by the assert below
+            errors.append(e)
+            for inbox in inboxes[1 - r]:
+                inbox.put([])  # unblocks the other rank's wait
+
+    threads = [threading.Thread(target=rank_main, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert torch.equal(torch.cat([got[0][0], got[1][0]], dim=1), want_out)
+    for j in range(3):
+        # Each rank holds its shards' gradients (zeros at the other's).
+        assert torch.equal(got[0][1][j] + got[1][1][j], want_grads[j])
