@@ -80,7 +80,7 @@ Phases, each of which fails the run:
 11. the distributed loop: phase 5's learner in a ``TrainingServer``
    (``relayrl_tpu_torch/examples/chaos_server.py``, a process of its own
    on the card) fed over ZMQ by a ``VectorAgent`` of 8
-   ``RecallEnv(255)`` lanes in this process, 4 updates; checks the ingest
+   ``RecallEnv(255)`` lanes in this process, 3 updates; checks the ingest
    accounting (accepted == max_seq == sent, contiguous, no drop), no
    learner error, the server's K1/K2/K3 launches per update (336/4/4), the
    agent's K1 launches per dispatch (3), keyframe and delta frames
@@ -92,7 +92,7 @@ Phases, each of which fails the run:
    with duplicates; prints env steps/s, ms per update and publish bytes
    (not gated). The server runs the reference's default config, guardrails
    on (no rejection, strike, trip or rollback on this clean run; probes
-   live), and profiles its learner over updates 2-4 (device busy ms and
+   live), and profiles its learner over updates 2-3 (device busy ms and
    operations per update, the learner thread's CPU and run-queue time);
 12. guardrails on the card: phase 5's learner trained twice from the same
    params and batches with the probes off and once on, bit-equal, at
@@ -201,7 +201,7 @@ Phases, each of which fails the run:
    rows per dispatch, requests/s, ms per dispatch and device ms per
    dispatch printed. (b) Phase 11's learner in a
    ``TrainingServer(serving=True)`` on the card, fed by 8
-   ``RemoteActorClient``s over ZMQ: 4 updates at exactly 336/4/4, each
+   ``RemoteActorClient``s over ZMQ: 3 updates at exactly 336/4/4, each
    wave served at the version published before it, the clients at the
    last publish, exact ingest accounting. (c) A ``RemoteActorClient``
    over gRPC ``GetActions`` against a served ``mlp_discrete``: each
@@ -226,7 +226,7 @@ Phases, each of which fails the run:
    process with tracing at rate 1 and the fleet plane on (snapshot frames
    every 0.5 s, an exporter, an events journal), behind a ``python -m
    relayrl_tpu_torch.relay`` process, fed by a traced ``VectorAgent`` of 8
-   ``RecallEnv(255)`` lanes in this process with its fleet emitter on, 3
+   ``RecallEnv(255)`` lanes in this process with its fleet emitter on, 2
    updates: every accepted trajectory traced env, encode, send, relay,
    ingest, dedup, staging, update (monotonic starts, no overlap inside a
    plane), every published version dispatch, fence, encode, publish,
@@ -258,8 +258,8 @@ Phases, each of which fails the run:
    one backward's 32) against the same pipelined update through the
    plain attention and against the unpipelined update (336/4/4; phase 5's
    bars; the largest differences printed); each stage's layers and Adam
-   moments on the device its coordinate names; the update's ms and device
-   busy. (b) ``transformer_moe_discrete`` (4 experts, top-2) under ``{dp
+   moments on the device its coordinate names; the update's ms. (b)
+   ``transformer_moe_discrete`` (4 experts, top-2) under ``{dp
    2, ep 4}``: one expert's stacks per ep device; the first update at
    exactly 336/4/4 against the unsharded update (336/4/4) and the plain
    attention (phase 5's bars, every side's routes pinned to the unsharded
@@ -271,7 +271,7 @@ Phases, each of which fails the run:
    bundle byte-equal to the unplaced; the shards and the parameter and
    moment bytes per mesh coordinate. (d) ``build_algorithm("REINFORCE",
    model_kind="transformer_pp_discrete", ...)`` then ``enable_multihost``
-   over ``{dp 2, pp 4}``: 2 epochs from ``receive_trajectory`` at exactly
+   over ``{dp 2, pp 4}``: 1 epoch from ``receive_trajectory`` at exactly
    2,688/32/32 each; a port actor with no mesh serving the published
    bundle at 4 K1 a dispatch for 4 dispatches, its params sha256-equal to
    the learner's gathered params and the publish snapshot's. Each part's
@@ -291,8 +291,8 @@ Phases, each of which fails the run:
    ``VectorAgent`` (one epoch a wave): every published version installed,
    both ranks at the same version with sha256-equal params, 336/4/4 per
    update each, only the coordinator with a transport and publishes,
-   exact accounting; then a collective checkpoint, both ranks resumed from
-   it and trained further, the accounting exact across the resume. (c)
+   exact accounting; then a collective checkpoint on disk (phase 24 (d)
+   resumes the same server from one). (c)
    DQN and SAC at their goldens' widths: the coordinator's samples
    broadcast, 4 updates under dp 2 across the ranks, the networks
    sha256-equal and held to single-process updates on the same batches at
@@ -312,10 +312,39 @@ Phases, each of which fails the run:
    bytes exact; ms per update per rank, the hops' and the gathers' ms
    timed apart. (b) The ring flagship as a two-rank ``TrainingServer``
    (``learner.mesh`` ``{"dp": 1, "sp": 4}``, ``local_device_ids`` naming
-   the card twice) fed by an 8-lane agent for 2 updates: each version
+   the card twice) fed by an 8-lane agent for 1 update: each version
    installed by the agent and both ranks' params sha256-equal to the
    published, the launches per rank as in (a), exact accounting, a
-   collective checkpoint.
+   collective checkpoint;
+24. fsdp, ep and tp across processes: ``MH_RANKS`` processes
+   (``chip_smoke.py --mh-split-rank``), one mesh entry each, the split
+   axis spanning them (gloo on one card, nccl with a card each); each rank
+   holds and steps only the shards at its coordinates, split parameters
+   gather between the processes (one all-gather a forward, per group of
+   ranks) and their gradients reduce-scatter back, the MoE's and the tp
+   pair's partial results sum across the ranks. (a) The flagship under
+   ``{"dp": 1, "fsdp": 2}``: phase 5's first batch broadcast, one update
+   from phase 5's initial params then ``MHS_TIMED`` more, held to this
+   process's ``{"fsdp": 2}`` update at phase 5's bars (its rows split
+   over the ranks as phase 22's do; the MESH bars and bit-equality to it
+   and to phase 22's dp-across-ranks update reported). (b) The MoE
+   flagship under ``{"dp": 1, "ep": 2}``, two experts a rank, routes
+   pinned to the unsharded update's: held to it at phase 5's bars;
+   ``expert_utilization`` summing to 1 per layer. (c) The cartpole
+   golden's MLP under ``{"dp": 1, "tp": 2}``: within the MESH bars of its
+   unsharded update, no kernel, its first kernel split ``("tp", None)``
+   across the ranks. With a card for each of 4 ranks, the flagship and the
+   MLP also under ``{"dp": 1, "fsdp": 2, "tp": 2}``. Every case: the
+   ranks' params sha256-equal after every update, 336/4/4 launches per
+   rank per update (the MLP none), each rank's parameter and Adam moment
+   bytes its share of every split leaf, on its card; the gathers',
+   reduce-scatters' and all-reduces' calls, bytes and ms. (d) The
+   flagship as a two-rank ``TrainingServer`` under ``{"dp": 1, "fsdp":
+   2}`` fed by an 8-lane agent: 2 updates, a collective checkpoint whose
+   train state equals a single-process save of it tensor for tensor, a
+   resume on both ranks, 1 more; every version installed by the agent and
+   served through K1, each published bundle sha256-equal to both ranks'
+   gathered params, 336/4/4 per rank per update, exact accounting.
 
 Phases 3 and 6 also hold every kernel to its plain version at head dims
 128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
@@ -379,7 +408,7 @@ SP_UPDATES = 4
 # then the server is SIGKILLed, the agent plays OUTAGE_WAVES waves into the
 # outage, and the server restarts with resume.
 DIST_LANES = 8
-DIST_UPDATES = 4
+DIST_UPDATES = 3
 OUTAGE_WAVES = 1
 DIST_TIMEOUT_S = 240
 # The guardrails phase (12): phase 5's learner in a chaos_server process
@@ -612,7 +641,7 @@ ANAKIN_ENVS = {"CartPole-v1": {}, "Pendulum-v1": {},
                "GridWorld-v0": {}, "Bandit-v0": {}, "TokenGen-v0": {}}
 ANAKIN_FLOAT_ENVS = ("CartPole-v1", "Pendulum-v1")
 ANAKIN_ENV_LANES = 256
-ANAKIN_ENV_STEPS = 500
+ANAKIN_ENV_STEPS = 250
 ANAKIN_ENV_TOL = 2e-6
 ANAKIN_MLP_LANES = 1024
 ANAKIN_UNROLL = 32
@@ -631,7 +660,7 @@ MOE_GOLDEN_SWEEP_UPDATES = 600  # --moe-golden-sweep's cap per salt
 SERVE_STEPS = 320
 SERVE_OTHER_BUCKETS = (1, 32)
 SERVE_CLIENTS = LEARNER["traj_per_epoch"]
-SERVE_GRPC_STEPS = 200
+SERVE_GRPC_STEPS = 100
 # The RLHF plane (phase 19): the RlhfScheduler against a TrainingServer
 # ("IMPALA") on the card, the flagship as the policy over TokenGen with an
 # 8-token vocabulary, 8-token prompts and up to 248 generated tokens (a
@@ -650,7 +679,7 @@ RLHF_TIMEOUT_S = 240
 # Phase 20: phase 11's learner traced and fleet-aggregated behind a relay
 # process, phases 18 (a) and 19 (anakin) rerun traced, the profiler
 # around one update.
-TRACED_UPDATES = 3
+TRACED_UPDATES = 2
 FLEET_INTERVAL_S = 0.5
 TRACED_SERVE_STEPS = 32
 TRACED_RLHF_UPDATES = 2
@@ -680,7 +709,7 @@ FSDP_TP_MESH = {"dp": 2, "fsdp": 2, "tp": 2}
 # tests/test_parallel.py's bars for a sharded update against its unsharded
 # one (f32): parameters at rtol and atol, metrics at MESH_METRIC_RTOL.
 MESH_RTOL, MESH_ATOL, MESH_METRIC_RTOL = 2e-4, 2e-5, 1e-4
-MESH_EPOCHS = 2
+MESH_EPOCHS = 1
 MESH_ACTOR_LANES = 8
 MESH_ACTOR_STEPS = 4
 CARTPOLE_EPISODE_STEPS = 400
@@ -694,17 +723,16 @@ CARTPOLE_EPISODE_STEPS = 400
 # one REINFORCE update from phase 5's initial params; (b) a two-rank
 # TrainingServer fed by an agent of MH_LANES lanes (one epoch a wave, so
 # the agent installs every published version) for MH_SERVER_UPDATES
-# updates, a collective checkpoint, a resume on both ranks and
-# MH_RESUME_UPDATES more; (c) DQN and SAC at their goldens' widths,
+# updates and a collective checkpoint (phase 24 (d) runs the same server
+# through a resume); (c) DQN and SAC at their goldens' widths,
 # MH_OFF_UPDATES updates on the coordinator's samples.
 MH_RANKS = 2
 MH_UNEVEN_LENGTHS = (24, 9, 3, 1)
 MH_TIMED = 3
 MH_LANES = 8
-MH_SERVER_UPDATES = 3
-MH_RESUME_UPDATES = 2
+MH_SERVER_UPDATES = 1
 MH_OFF_UPDATES = 4
-MH_OFF_TIMED = 20
+MH_OFF_TIMED = 5
 MH_OFF_ALGOS = ("DQN", "SAC")
 MH_TIMEOUT_S = 420
 # The multi-process ring (phase 23): MH_RANKS processes over one sp ring
@@ -716,8 +744,30 @@ MH_TIMEOUT_S = 420
 # only visible card) once per mesh entry.
 MHR_MESH = {"dp": 1, "sp": SP}
 MHR_TIMED = 1
-MHR_SERVER_UPDATES = 2
+MHR_SERVER_UPDATES = 1
 SERVER_DEVICE_ID = 0
+# fsdp, ep and tp across processes (phase 24): MH_RANKS processes, one mesh
+# entry each, whose split axis spans them. (a) The flagship under
+# MHS_MESHES["fsdp"], MHS_TIMED more updates timed; (b) the MoE flagship
+# under MHS_MESHES["ep"], its routes pinned to the unsharded update's; (c)
+# the cartpole golden's MLP under MHS_MESHES["tp"]; with a card for each
+# of MHS_RANKS4 ranks, the flagship and the MLP under MHS_MESH4 too. (d)
+# The flagship as a two-rank TrainingServer under MHS_MESHES["fsdp"]:
+# MHS_SERVER_UPDATES updates, a collective checkpoint, a resume on both
+# ranks and MHS_RESUME_UPDATES more.
+MHS_MESHES = {"fsdp": {"dp": 1, "fsdp": 2}, "ep": {"dp": 1, "ep": 2},
+              "tp": {"dp": 1, "tp": 2}}
+MHS_MESH4 = {"dp": 1, "fsdp": 2, "tp": 2}
+# Metrics that cancel in exact arithmetic: the mean of the normalized
+# advantages (zero, at the advantages' unit std) and the loss differences.
+# When the batch sums run in another order (the data group's sums across
+# ranks) each differs by its inputs' rounding noise, so phase 24 holds it
+# at MESH_METRIC_RTOL times the metric that sets its magnitude.
+CANCELLING_METRICS = {"AdvMean": "AdvStd", "DeltaLossPi": "LossPi", "DeltaLossV": "LossV"}
+MHS_RANKS4 = 4
+MHS_TIMED = 1
+MHS_SERVER_UPDATES = 2
+MHS_RESUME_UPDATES = 1
 
 
 def _dtype_name(dtype) -> str:
@@ -6144,17 +6194,17 @@ def profiled_update(learned: dict, workdir: Path) -> dict:
 
 # -- phase 21: the mesh learner ---------------------------------------------------
 
-def mesh_of(spec: dict, device):
-    """A single-controller mesh of ``MESH_SIZE`` entries, every one
-    ``device`` (with its index, so a placed tensor's device compares equal
-    to its mesh coordinate's)."""
+def mesh_of(spec: dict, device, n: int = MESH_SIZE):
+    """A single-controller mesh of ``n`` entries, every one ``device``
+    (with its index, so a placed tensor's device compares equal to its
+    mesh coordinate's)."""
     import torch
 
     from relayrl_tpu_torch.parallel import make_mesh
 
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return make_mesh(spec, [device] * MESH_SIZE)
+    return make_mesh(spec, [device] * n)
 
 
 def on_mesh(mesh):
@@ -6212,15 +6262,19 @@ def update_ms(update, state, batch, device, n: int = 1) -> tuple[float, object]:
     return 1e3 * (time.perf_counter() - t0) / n, state
 
 
-def hold_f32(got_side, want_side, what: str) -> dict:
+def hold_f32(got_side, want_side, what: str, scales: dict | None = None) -> dict:
     """A sharded update against its unsharded one at the JAX test's bars
     (``MESH_RTOL``, ``MESH_ATOL``; metrics at ``MESH_METRIC_RTOL``);
-    returns the largest differences and whether the two are bit-equal."""
+    returns the largest differences and whether the two are bit-equal.
+    A metric of ``scales`` (name -> the metric that sets its magnitude) is
+    held at ``MESH_METRIC_RTOL`` times that metric's value instead of its
+    own (:data:`CANCELLING_METRICS`)."""
     import torch
 
     (got, got_m), (want, want_m) = got_side, want_side
     for key, value in want_m.items():
-        if not abs(got_m[key] - value) <= MESH_METRIC_RTOL * max(abs(value), 1e-6):
+        scale = abs(want_m[scales[key]]) if key in (scales or {}) else abs(value)
+        if not abs(got_m[key] - value) <= MESH_METRIC_RTOL * max(scale, 1e-6):
             raise AssertionError(f"{what}: metric {key} {got_m[key]} vs {value}")
     param_err = 0.0
     for name, w in want.items():
@@ -6295,16 +6349,11 @@ def mesh_pp(device, workdir: Path, learned: dict) -> dict:
             if not (p.is_leaf and p.device == stage_devices[i // per_stage]
                     and all(m["exp_avg"].device == p.device for m in moments if m)):
                 raise AssertionError(f"blocks.{i} not on stage {i // per_stage}'s device")
-    # The timed update is the profiled one's warm-up.
     ms, state = update_ms(update, state, batch, device)
     lap("timed update")
-    busy = profile_device(lambda: update(state, {k: torch.as_tensor(v, device=device)
-                                                 for k, v in batch.items()}), 1, "update",
-                          cpu=False, warm=False)
-    lap("profiled update")
     return {"seconds": seconds, "eval_err": eval_err, "eval_k1": eval_k1, "micro": micro, "per_pass": per_pass,
             "launches": launches, "flat_launches": flat_launches, "vs_plain": vs_plain,
-            "vs_flat": vs_flat, "ms": ms, "busy": busy}
+            "vs_flat": vs_flat, "ms": ms}
 
 
 def mesh_moe(device, workdir: Path, learned: dict) -> dict:
@@ -6392,19 +6441,13 @@ def mesh_fsdp_tp(device, workdir: Path, learned: dict) -> dict:
     exactly 336/4/4, the MLP at none; the placed state's bundle bytes
     equal to the unplaced state's; the shards and the bytes per mesh
     coordinate."""
-    from relayrl_tpu_torch.algorithms import build_algorithm
-    from relayrl_tpu_torch.envs import make
     from relayrl_tpu_torch.parallel import place_state
     from relayrl_tpu_torch.parallel.sharding import placement
     from relayrl_tpu_torch.types import ModelBundle
     from relayrl_tpu_torch.weights import params_to_jax
 
     mesh = mesh_of(FSDP_TP_MESH, device)
-    cartpole = build_algorithm(
-        "REINFORCE", env_dir=str(workdir / "mlp"), config_path=_local_config(workdir / "mlp"),
-        obs_dim=4, act_dim=2, device=device, seed=SEED, seed_salt=0, **CARTPOLE_HP)
-    cartpole_batch = epoch_batches(
-        cartpole, random_episodes(make("CartPole-v1"), CARTPOLE_EPISODE_STEPS, SEED), 1)[0]
+    cartpole, cartpole_batch = build_cartpole(device, workdir / "mlp")
     out = {}
     n_layers = SLICE_ARCH["n_layers"]
     for name, algo, batch, expected in (
@@ -6853,7 +6896,31 @@ def multiprocess_learner(device, root: Path, workdir: Path, learned: dict) -> di
     return out
 
 
-def multiprocess_server(device, root: Path, workdir: Path) -> dict:
+def same_tree(a, b, path: str = "") -> None:
+    """Raise unless ``a`` and ``b`` (dicts, lists, tensors, scalars) are
+    equal leaf for leaf: keys, tensors' dtypes, shapes and values."""
+    import torch
+
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or list(a) != list(b):
+            raise AssertionError(f"{path}: keys {list(a)[:8]} vs {list(b)[:8] if isinstance(b, dict) else b}")
+        for k in a:
+            same_tree(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: {len(a)} vs {len(b)} entries")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_tree(x, y, f"{path}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        if not (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu())):
+            raise AssertionError(f"{path}: tensors differ")
+    elif a != b:
+        raise AssertionError(f"{path}: {a!r} vs {b!r}")
+
+
+def multiprocess_server(device, root: Path, workdir: Path, mesh: dict | None = None,
+                        updates: int = MH_SERVER_UPDATES, resume_updates: int = 0) -> dict:
     """Phase 22 (b): phase 11's learner as a two-rank ``TrainingServer``
     (``examples/chaos_server.py`` per rank, the default config, the
     checkpoint directory shared) fed over ZMQ by a ``VectorAgent`` of
@@ -6862,14 +6929,23 @@ def multiprocess_server(device, root: Path, workdir: Path) -> dict:
     it. Then both ranks stop: the same params (sha256), 336/4/4 launches
     per update each, only the coordinator with a transport and publishes,
     exact accounting (trajectories sent == accepted == trained), the
-    collective checkpoint on disk. Then both resume from it and train
-    ``MH_RESUME_UPDATES`` more, held the same way, the accounting exact
-    across the resume."""
+    collective checkpoint on disk. With ``resume_updates``, both then
+    resume from it and train that many more, held the same way, the
+    accounting exact across the resume. Phase 24 (d) passes ``mesh`` (``learner.mesh``:
+    its fsdp axis across the ranks, each holding half of every split
+    parameter) and its counts: then after each wave both ranks' gathered
+    params (each rank's ``state_log``) are sha256-equal to the published
+    bundle, and the checkpoint's saved train state equals, tensor for
+    tensor, a single-process learner's save of the same state."""
     import shutil
 
     import torch
 
-    from relayrl_tpu_torch.checkpoint.manager import CheckpointManager
+    from relayrl_tpu_torch.checkpoint.manager import (
+        CheckpointManager,
+        apply_state,
+        capture_state,
+    )
     from relayrl_tpu_torch.envs import RecallEnv, SyncVectorEnv
     from relayrl_tpu_torch.runtime.agent import VectorAgent
     from relayrl_tpu_torch.runtime.vector_actor import run_vector_gym_loop
@@ -6898,10 +6974,11 @@ def multiprocess_server(device, root: Path, workdir: Path) -> dict:
                    "obs_dim": int(env.observation_space.shape[0]),
                    "act_dim": int(env.action_space.n), "hyperparams": hyperparams,
                    "scratch": str(workdir / f"rank{rank}"),
-                   "checkpoint_every": MH_SERVER_UPDATES,
+                   "checkpoint_every": updates,
                    "config": {"learner": {"precision": arch["precision"],
-                                          "checkpoint_dir": str(ckpt_dir)}},
-                   "digests": True, "resume": resume,
+                                          "checkpoint_dir": str(ckpt_dir),
+                                          **({"mesh": mesh} if mesh else {})}},
+                   "digests": True, "state_digests": mesh is not None, "resume": resume,
                    "status_path": str(workdir / f"status{rank}_{tag}.json"),
                    "stop_path": str(workdir / f"stop_{tag}"), **server_addrs}
             servers.append(ChaosServer(root, cfg, workdir / f"rank{rank}_{tag}.log",
@@ -6970,55 +7047,74 @@ def multiprocess_server(device, root: Path, workdir: Path) -> dict:
                 for s in servers[1:]:
                     s.wait(lambda st: st["algo_version"] == version,
                            f"rank at version {version}", timeout_s=MH_TIMEOUT_S)
+                if mesh is not None:
+                    states = [s.wait(lambda st: str(version) in st.get("state_log", {}),
+                                     f"rank's digest at version {version}",
+                                     timeout_s=MH_TIMEOUT_S) for s in servers]
+                    logged = {st["state_log"][str(version)] for st in states}
+                    published = states[0]["published_log"].get(str(version))
+                    if logged != {published}:
+                        raise AssertionError(f"(d) version {version}: published "
+                                             f"{published}, the ranks hold {logged}")
                 seconds.append(time.perf_counter() - t0)
                 agent_k1 += flash_counts()[0]
                 dispatches += agent.host.dispatches - d0
 
-        train(servers, 0, MH_SERVER_UPDATES)
+        train(servers, 0, updates)
         lanes = list(agent.agent_ids)
         finals = stop(servers, "a")
-        counts_a = hold(finals, (0, MH_SERVER_UPDATES), "(b) before the resume")
+        counts_a = hold(finals, (0, updates), "(b) before the resume")
         sent = agent.spool.sent_counts()
         for lane in lanes:
             row = finals[0]["accounting"]["agents"].get(lane)
             if row != {"max_seq": sent[lane], "accepted": sent[lane], "contiguous": True}:
                 raise AssertionError(f"(b) accounting of {lane}: {row}, sent {sent[lane]}")
-        if (finals[0]["stats"]["trajectories"] != MH_SERVER_UPDATES * LEARNER["traj_per_epoch"]
+        if (finals[0]["stats"]["trajectories"] != updates * LEARNER["traj_per_epoch"]
                 or finals[0]["accounting"]["duplicates"]):
             raise AssertionError(f"(b) trajectories {finals[0]['stats']}, duplicates "
                                  f"{finals[0]['accounting']['duplicates']} for "
-                                 f"{MH_SERVER_UPDATES} updates")
-        if CheckpointManager(str(ckpt_dir)).latest_step() != MH_SERVER_UPDATES:
+                                 f"{updates} updates")
+        if CheckpointManager(str(ckpt_dir)).latest_step() != updates:
             raise AssertionError("(b) no collective checkpoint at the last update")
         checkpoint = finals[0]["state"]
+        if mesh is not None:
+            # The saved state is the unplaced layout: a single-process
+            # learner loads it and saves it back equal, tensor for tensor.
+            saved = CheckpointManager(str(ckpt_dir)).restore(updates)[0]["train"]
+            single = build_learner(device, workdir / "single", arch)
+            single.state = apply_state(single.state, saved)
+            same_tree(capture_state(single.state), saved, "train")
 
-        servers = start(True, "b")
-        resumed = [s.wait(lambda st: True, "the resumed rank", timeout_s=MH_TIMEOUT_S)
-                   for s in servers]
-        if any(r["resume"] != checkpoint for r in resumed):
-            raise AssertionError(f"(b) resumed {[r['resume'] for r in resumed]} != "
-                                 f"{checkpoint}")
-        total = MH_SERVER_UPDATES + MH_RESUME_UPDATES
-        train(servers, MH_SERVER_UPDATES, total)
-        finals = stop(servers, "b")
-        counts_b = hold(finals, (MH_SERVER_UPDATES, total), "(b) after the resume")
-        sent = agent.spool.sent_counts()
-        for lane in lanes:
-            row = finals[0]["accounting"]["agents"].get(lane)
-            if row != {"max_seq": sent[lane], "accepted": sent[lane], "contiguous": True}:
-                raise AssertionError(f"(b) accounting after the resume of {lane}: {row}, "
-                                     f"sent {sent[lane]}")
-        # The agent's spool replays what it sent before the teardown; the
-        # restored ledger drops those replays (counted as duplicates), so
-        # the resumed server trains only the new epochs.
-        if (sum(sent.values()) != total * LEARNER["traj_per_epoch"]
-                or finals[0]["stats"]["trajectories"]
-                != MH_RESUME_UPDATES * LEARNER["traj_per_epoch"]):
-            raise AssertionError(f"(b) {sum(sent.values())} trajectories sent for {total} "
-                                 f"updates; after the resume {finals[0]['stats']}")
+        counts = [counts_a]
+        if resume_updates:
+            servers = start(True, "b")
+            resumed = [s.wait(lambda st: True, "the resumed rank", timeout_s=MH_TIMEOUT_S)
+                       for s in servers]
+            if any(r["resume"] != checkpoint for r in resumed):
+                raise AssertionError(f"(b) resumed {[r['resume'] for r in resumed]} != "
+                                     f"{checkpoint}")
+            total = updates + resume_updates
+            train(servers, updates, total)
+            finals = stop(servers, "b")
+            counts_b = hold(finals, (updates, total), "(b) after the resume")
+            sent = agent.spool.sent_counts()
+            for lane in lanes:
+                row = finals[0]["accounting"]["agents"].get(lane)
+                if row != {"max_seq": sent[lane], "accepted": sent[lane], "contiguous": True}:
+                    raise AssertionError(f"(b) accounting after the resume of {lane}: {row}, "
+                                         f"sent {sent[lane]}")
+            # The agent's spool replays what it sent before the teardown; the
+            # restored ledger drops those replays (counted as duplicates), so
+            # the resumed server trains only the new epochs.
+            if (sum(sent.values()) != total * LEARNER["traj_per_epoch"]
+                    or finals[0]["stats"]["trajectories"]
+                    != resume_updates * LEARNER["traj_per_epoch"]):
+                raise AssertionError(f"(b) {sum(sent.values())} trajectories sent for {total} "
+                                     f"updates; after the resume {finals[0]['stats']}")
+            counts.append(counts_b)
         if agent_k1 != (n_layers - 1) * dispatches:
             raise AssertionError(f"(b) agent launches {agent_k1} over {dispatches} dispatches")
-        return {"seconds": seconds, "counts": [counts_a, counts_b],
+        return {"seconds": seconds, "counts": counts,
                 "replayed": finals[0]["accounting"]["duplicates"],
                 "agent_k1": agent_k1, "version": finals[0]["state"]["version"],
                 "digest": finals[0]["state"]["params"][:16], "waves": waves,
@@ -7423,6 +7519,299 @@ def multiprocess_ring_server(device, root: Path, workdir: Path) -> dict:
             s.stop()
 
 
+def build_cartpole(device, workdir: Path):
+    """The cartpole golden's REINFORCE (``mlp_discrete`` 128x128, f32,
+    ``CARTPOLE_HP``) on ``device``, and its first epoch batch of seeded
+    random CartPole episodes."""
+    from relayrl_tpu_torch.algorithms import build_algorithm
+    from relayrl_tpu_torch.envs import make
+
+    algo = build_algorithm(
+        "REINFORCE", env_dir=str(workdir), config_path=_local_config(workdir),
+        obs_dim=4, act_dim=2, device=device, seed=SEED, seed_salt=0, **CARTPOLE_HP)
+    batch = epoch_batches(
+        algo, random_episodes(make("CartPole-v1"), CARTPOLE_EPISODE_STEPS, SEED), 1)[0]
+    return algo, batch
+
+
+def split_holdings(state, device) -> dict:
+    """What this rank holds of every parameter whose split crosses
+    processes: per leaf its spec, its shards' coordinates, the parameter
+    and Adam moment bytes of its shards beside the whole leaf's bytes and
+    its share of the blocks; and the totals. Fails where a shard is not a
+    leaf on ``device`` or its bytes are not its share of the whole."""
+    from relayrl_tpu_torch.parallel.sharding import placement, shard_tensors
+
+    moments = {}
+    for opt in (state.pi_opt, state.vf_opt):
+        for p, st in (opt.state.items() if opt is not None else ()):
+            moments[id(p)] = sum(v.numel() * v.element_size() for v in st.values()
+                                 if hasattr(v, "ndim") and v.ndim)
+    leaves = {}
+    totals = {"param_bytes": 0, "moment_bytes": 0, "whole_bytes": 0}
+    for name, module in state.params.named_modules():
+        for leaf in list(getattr(module, "parametrizations", None) or {}):
+            spec = placement(module, leaf)
+            if not spec.crosses:
+                continue
+            tensors = shard_tensors(module, leaf)
+            row = {"spec": spec.spec, "coords": spec.coords,
+                   "param_bytes": sum(t.numel() * t.element_size() for t in tensors),
+                   "moment_bytes": sum(moments.get(id(t), 0) for t in tensors),
+                   "whole_bytes": math.prod(spec.shape) * tensors[0].element_size(),
+                   "share": (math.prod(hi - lo for lo, hi in spec.local)
+                             / math.prod(spec.parts))}
+            if not all(t.is_leaf and t.device == device for t in tensors) \
+                    or row["param_bytes"] != row["whole_bytes"] * row["share"] \
+                    or row["moment_bytes"] != 2 * row["param_bytes"]:
+                raise AssertionError(f"{name}.{leaf}: shards {[t.device for t in tensors]}, "
+                                     f"{row}")
+            leaves[f"{name}.{leaf}"] = row
+            for key in totals:
+                totals[key] += row[key]
+    return {"leaves": leaves, **totals}
+
+
+def mh_split_rank_main(rank: int, port: int, workdir: Path) -> int:
+    """One rank of phase 24 (a)-(c) (``chip_smoke.py --mh-split-rank RANK
+    PORT WORKDIR``, started by :func:`multiprocess_split`): forms the
+    process group and, for each case of ``WORKDIR/cases.pt``, builds the
+    case's learner, checks its initial params against the parent's,
+    places a fresh-Adam state on the case's mesh (its fsdp, ep or tp axis
+    across the ranks, one entry a rank), receives the coordinator's batch
+    through the broadcast and trains one update (the MoE's routes pinned
+    to the parent's log), then ``timed`` more; records the metrics, the
+    launches, the split collectives (``distributed.COMM``), the gathered
+    params and their digest, and what it holds (:func:`split_holdings`).
+    Writes ``WORKDIR/rank<RANK>.pt``."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+    from relayrl_tpu_torch.models.moe import expert_utilization
+    from relayrl_tpu_torch.parallel import (
+        broadcast_from_coordinator,
+        distributed,
+        initialize_distributed,
+        make_mesh,
+        make_sharded_update,
+        place_state,
+    )
+    from relayrl_tpu_torch.weights import logical_state, params_to_jax
+
+    spec = torch.load(workdir / "cases.pt", weights_only=False)
+    info = initialize_distributed(f"127.0.0.1:{port}", spec["ranks"], rank)
+    if info != {"multi_host": True, "process_id": rank, "num_processes": spec["ranks"]}:
+        raise AssertionError(f"rank {rank}: topology {info}")
+    device = rank_device()
+    out = {"backend": distributed.backend(), "card": torch.cuda.get_device_name(device),
+           "cases": {}}
+    for name, case in spec["cases"].items():
+        home = workdir / f"rank{rank}_{name}"
+        algo = (build_cartpole(device, home)[0] if case["model"] == "mlp"
+                else build_learner(device, home, case["arch"]))
+        if _digest(params_to_jax(algo.state.params)) != case["params0"]:
+            raise AssertionError(f"rank {rank} {name}: initial params differ from the parent's")
+        state, update, _ = update_parts(algo, algo.policy, copy.deepcopy(algo.state.params))
+        mesh = make_mesh(case["mesh"], [device])
+        sharded = make_sharded_update(update, mesh, state)
+        state = place_state(state, mesh)
+        want = case["batch"]
+        batch = broadcast_from_coordinator(
+            want if rank == 0 else {k: np.zeros_like(v) for k, v in want.items()})
+        if not all(np.array_equal(batch[k], want[k]) and batch[k].dtype == want[k].dtype
+                   for k in want):
+            raise AssertionError(f"rank {rank} {name}: the broadcast batch differs")
+        changes = {"changed": 0, "tokens": 0}
+
+        def step(pinned: bool) -> dict:
+            nonlocal state
+            routes = ([t.to(device) for t in case["routes"]]
+                      if pinned and case["routes"] is not None else None)
+            zero_flash_counts()
+            distributed.COMM.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (pinned_routes(routes, changes) if routes is not None
+                  else contextlib.nullcontext()):
+                state, metrics = sharded(state, batch)
+            metrics = read_metrics(metrics)
+            torch.cuda.synchronize()
+            return {"ms": 1e3 * (time.perf_counter() - t0), "metrics": metrics,
+                    "counts": flash_counts(), "comm": distributed.COMM.as_dict(),
+                    "digest": _digest(params_to_jax(state.params))}
+
+        first = step(pinned=True)
+        first["params"] = {k: v.detach().cpu().clone()
+                           for k, v in logical_state(state.params).items()}
+        result = {"cross": mesh.cross_axes, "updates": [first], "changes": changes,
+                  "holdings": split_holdings(state, device),
+                  "tp_coords": mesh.shard_indices("tp")}
+        if case["model"] == "moe":
+            util = expert_utilization(algo.arch, state.params, batch["obs"])
+            result["util"] = {k: v.cpu().tolist() for k, v in util.items()}
+        for _ in range(case["timed"]):
+            result["updates"].append(step(pinned=False))
+        out["cases"][name] = result
+    torch.save(out, workdir / f"rank{rank}.pt")
+    distributed.barrier()
+    distributed.shutdown_distributed()
+    print(f"[mh-split-rank {rank}] done ({out['backend']} on {out['card']})", flush=True)
+    return 0
+
+
+def multiprocess_split(device, root: Path, workdir: Path, learned: dict,
+                       meshes: dict = MHS_MESHES, ranks_n: int = MH_RANKS,
+                       dp_digest: str | None = None) -> dict:
+    """Phase 24 (a)-(c): ``ranks_n`` rank processes
+    (:func:`mh_split_rank_main`), one mesh entry each, over ``meshes``
+    (``{"fsdp": spec, "ep": spec, "tp": spec}``; a missing key skips its
+    case). (a) The flagship from phase 5's initial params on its first
+    batch, one update then ``MHS_TIMED`` more: held to this process's
+    single-process update over the same spec's entries at the MESH bars
+    (:func:`hold_f32`, bit-equality reported). (b) The MoE flagship from
+    its initial params: held to its unsharded update at phase 5's bars
+    (:func:`hold_update`), every side's routes pinned to the unsharded
+    side's; ``expert_utilization`` of the placed params summing to 1 per
+    layer. (c) The cartpole golden's MLP on its first epoch batch: held to
+    its unsharded update at the MESH bars; its first kernel split ``("tp",
+    None)`` (torch layout) across the ranks. The flagship's rows split
+    over the ranks as dp's do, so its update is held as phase 22's is (the
+    bf16 products over half the rows round apart, and Adam's first step
+    turns a near-zero gradient's sign into a difference of twice its
+    learning rate); whether it also holds the MESH bars is reported, and
+    whether it is bit-equal to phase 22's dp-across-ranks update of the
+    same batch (``dp_digest``, the first 16 hex digits). Every case: the ranks' params
+    sha256-equal after every update, the launches per rank per update
+    (336/4/4 for the transformers, none for the MLP), each rank holding
+    its share of every split leaf and its moments
+    (:func:`split_holdings`)."""
+    import shutil
+
+    import torch
+
+    from relayrl_tpu_torch.weights import params_to_jax
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    n_layers = SLICE_ARCH["n_layers"]
+    per_update = (n_layers * (4 + LEARNER["train_vf_iters"]), n_layers, n_layers)
+    cases, refs = {}, {}
+    if "fsdp" in meshes:
+        algo, params0, batch = learned["algo"], learned["params0"], learned["batch"]
+        # The same spec as one process's mesh of as many entries.
+        spec = {k: v for k, v in meshes["fsdp"].items() if (k, v) != ("dp", 1)}
+        ref_mesh = mesh_of(spec, device, math.prod(spec.values()))
+        side, _, counts, steps, _ = one_update(algo, params0, batch, device, on_mesh(ref_mesh))
+        cases["flagship"] = {"model": "flagship", "arch": SLICE_ARCH, "mesh": meshes["fsdp"],
+                             "batch": batch, "routes": None, "timed": MHS_TIMED,
+                             "params0": _digest(params_to_jax(params0))}
+        refs["flagship"] = (side, counts, per_update, "phase5", spec, params0, steps)
+    if "ep" in meshes:
+        moe = build_learner(device, workdir / "moe", MOE_ARCH)
+        params0 = copy.deepcopy(moe.state.params)
+        batch = learned["batch"]
+        log, changes = [], {"changed": 0, "tokens": 0}
+
+        def pin(update):
+            def run(*args):
+                with pinned_routes(log, changes):
+                    return update(*args)
+            return run
+
+        side, _, counts, steps, _ = one_update(moe, params0, batch, device, pin)
+        cases["moe"] = {"model": "moe", "arch": MOE_ARCH, "mesh": meshes["ep"],
+                        "batch": batch, "routes": [t.cpu() for t in log], "timed": 0,
+                        "params0": _digest(params_to_jax(params0))}
+        refs["moe"] = (side, counts, per_update, "phase5", {}, params0, steps)
+    if "tp" in meshes:
+        cartpole, batch = build_cartpole(device, workdir / "mlp")
+        params0 = copy.deepcopy(cartpole.state.params)
+        side, _, counts, steps, _ = one_update(cartpole, params0, batch, device)
+        cases["mlp"] = {"model": "mlp", "arch": cartpole.arch, "mesh": meshes["tp"],
+                        "batch": batch, "routes": None, "timed": 0,
+                        "params0": _digest(params_to_jax(params0))}
+        refs["mlp"] = (side, counts, (0, 0, 0), "mesh", {}, params0, steps)
+    torch.save({"ranks": ranks_n, "cases": cases}, workdir / "cases.pt")
+    port = _free_port()
+    cards = torch.cuda.device_count() >= ranks_n
+    envs = [mh_rank_env(r, port, cards) for r in range(ranks_n)]
+    for env in envs:
+        env["RELAYRL_NUM_PROCESSES"] = str(ranks_n)
+    t0 = time.perf_counter()
+    run_ranks(root, workdir, lambda r: ["--mh-split-rank", r, port, workdir], envs)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(ranks_n)]
+    backends = {r["backend"] for r in ranks}
+    want_backend = "nccl" if cards else "gloo"
+    if backends != {want_backend}:
+        raise AssertionError(f"backends {backends}; the rule says {want_backend}")
+    out = {"wall": wall, "backend": want_backend, "cards": [r["card"] for r in ranks],
+           "cases": {}}
+    for name, (ref_side, ref_counts, expected, bars, spec, params0, steps) in refs.items():
+        rs = [r["cases"][name] for r in ranks]
+        for i in range(len(rs[0]["updates"])):
+            if len({r["updates"][i]["digest"] for r in rs}) != 1 \
+                    or len({str(r["updates"][i]["metrics"]) for r in rs}) != 1:
+                raise AssertionError(f"{name} update {i + 1}: the ranks' params or metrics "
+                                     "differ")
+        counts = [u["counts"] for r in rs for u in r["updates"]]
+        if any(c != expected for c in counts) or ref_counts != expected:
+            raise AssertionError(f"{name}: launches per rank per update {counts}, one "
+                                 f"process {ref_counts}; expected {expected}")
+        got = ({k: v.to(device) for k, v in rs[0]["updates"][0]["params"].items()},
+               rs[0]["updates"][0]["metrics"])
+        what = f"{name} under {cases[name]['mesh']} across {ranks_n} ranks"
+        if bars == "mesh":
+            held = hold_f32(got, ref_side, f"{what} vs one process", CANCELLING_METRICS)
+        else:
+            held = hold_update(got, ref_side, params0, steps, f"{what} vs one process")
+            held["bit_equal"] = (all(torch.equal(got[0][k], v) for k, v in ref_side[0].items())
+                                 and got[1] == ref_side[1])
+            held["within_mesh_bars"] = all(
+                torch.allclose(got[0][k], v, rtol=MESH_RTOL, atol=MESH_ATOL)
+                for k, v in ref_side[0].items())
+        axis = {"flagship": "fsdp", "moe": "ep", "mlp": "tp"}[name]
+        for rank, r in enumerate(rs):
+            if axis not in r["cross"] or not r["holdings"]["leaves"]:
+                raise AssertionError(f"{name}: rank {rank} crosses {r['cross']}, holds "
+                                     f"{list(r['holdings']['leaves'])}")
+        if name == "moe":
+            for r in rs:
+                if not all(abs(sum(u) - 1.0) <= 1e-5 for u in r["util"].values()):
+                    raise AssertionError(f"moe expert utilization {r['util']}")
+            if any(r["util"] != rs[0]["util"] for r in rs):
+                raise AssertionError("moe: the ranks' expert utilization differs")
+        if name == "mlp":
+            for rank, r in enumerate(rs):
+                row = r["holdings"]["leaves"].get("pi_trunk.dense_0.weight")
+                tp = sorted({c.get("tp") for c in (row or {}).get("coords", [])})
+                if row is None or row["spec"][0] != "tp" or tp != r["tp_coords"]:
+                    raise AssertionError(f"mlp rank {rank}: first kernel {row}, its tp "
+                                         f"coordinates {r['tp_coords']}")
+        out["cases"][name] = {
+            **held, "ref_spec": spec, "counts": rs[0]["updates"][0]["counts"],
+            "first_ms": [r["updates"][0]["ms"] for r in rs],
+            "ms": [sum(u["ms"] for u in r["updates"][1:]) / max(1, len(r["updates"]) - 1)
+                   for r in rs] if len(rs[0]["updates"]) > 1 else None,
+            "comm": [r["updates"][-1]["comm"] for r in rs],
+            "holdings": [{k: r["holdings"][k] for k in ("param_bytes", "moment_bytes",
+                                                         "whole_bytes")} for r in rs],
+            "split_leaves": len(rs[0]["holdings"]["leaves"]),
+            "digest": rs[0]["updates"][-1]["digest"][:16],
+            "launches": tuple(sum(u["counts"][i] for r in rs for u in r["updates"])
+                              + ref_counts[i] for i in range(3)),
+            "changes": rs[0]["changes"], "util": rs[0].get("util"),
+            "mesh": cases[name]["mesh"],
+            "same_as_dp": (rs[0]["updates"][0]["digest"][:16] == dp_digest
+                           if name == "flagship" and dp_digest else None)}
+    return out
+
+
 def nccl_shared_card_probe(rank: int, port: int) -> int:
     """``chip_smoke.py --nccl-shared-card-probe RANK PORT``: one rank of
     two that put an ``nccl`` group on the same card (cuda:0) and sum one
@@ -7461,6 +7850,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    t_run = time.perf_counter()
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -7470,6 +7860,7 @@ def main() -> int:
     print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi.splitlines()[0], flush=True)
 
+    print(f"[time] phase 2 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 2. build
     from relayrl_tpu_torch import _kernels
 
@@ -7483,10 +7874,12 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
     check_tensor_cores()
 
+    print(f"[time] phase 3 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 3. kernel vs plain
     main_flash = check_flash(device)
     main_bwd = check_flash_bwd(device)
 
+    print(f"[time] phase 4 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 4. serving slice
     arch = slice_arch()
     zero_flash_counts()
@@ -7514,6 +7907,7 @@ def main() -> int:
         f"{k}={v:.4f}" for k, v in parts.items()), flush=True)
     profile_dispatches(run["host"])
 
+    print(f"[time] phase 5 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 5. learner slice
     root = Path(__file__).resolve().parent
     learned = learn(device, root / "build" / "chip_smoke")
@@ -7547,10 +7941,12 @@ def main() -> int:
     batch = learned["batch"]
     profile_device(lambda: algo.train_on_batch(batch), 1, "update")
 
+    print(f"[time] phase 6 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 6. ring kernels vs plain
     main_ring = check_ring_chunks(device)
     check_chunked_local(device)
 
+    print(f"[time] phase 7 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 7. sequence-parallel learner
     from relayrl_tpu_torch.parallel import make_sharded_update
     from relayrl_tpu_torch.parallel import ring_flash as rf
@@ -7592,6 +7988,7 @@ def main() -> int:
     profile_device(lambda: sp["sharded"](sp["state"], sp_batch), 1, "update")
     _, _, _, ring_fwd, ring_dq, ring_dkv = sp["launches"]
 
+    print(f"[time] phase 8 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 8. the transformers at head dims 128 and 256
     for wide_arch in (WIDE_ARCH, WIDEST_ARCH):
         head_dim = wide_arch["d_model"] // wide_arch["n_heads"]
@@ -7606,6 +8003,7 @@ def main() -> int:
               f"mean param diff {wide['mean_diff_share']:.4f} of the mean movement",
               flush=True)
 
+    print(f"[time] phase 9 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 9. the local loop
     cart = local_cartpole(device, root / "build" / "chip_smoke_cartpole")
     print(f"[local] LocalRunner CartPole-v1 mlp_discrete: {cart['updates']} updates, "
@@ -7637,6 +8035,7 @@ def main() -> int:
           f"{KEY_BIAS_SLACK:g})", flush=True)
     r_fwd, r_dq, r_dkv = recall["launches"]
 
+    print(f"[time] phase 10 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 10. cached decode
     decode = check_cached_decode(device)
     print(f"[decode] PolicyActor {SLICE_ARCH['d_model']}x{SLICE_ARCH['n_layers']} (T "
@@ -7651,6 +8050,7 @@ def main() -> int:
           f"{decode['cached_ms']:.3f} vs window {decode['window_ms']:.3f} on "
           f"{smi.splitlines()[0]}", flush=True)
 
+    print(f"[time] phase 11 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 11. the distributed loop
     dist = distributed_loop(device, root, root / "build" / "chip_smoke_dist")
     d_fwd, d_dq, d_dkv = dist["server_counts"]
@@ -7698,6 +8098,7 @@ def main() -> int:
     for key, ms, count in prof["top_kernels"]:
         print(f"[dist]   {ms:8.4f} ms x{count:<7.1f} {key}")
 
+    print(f"[time] phase 12 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 12. guardrails on the card
     probes = check_probes(device, learned)
     cost = probes["cost"]
@@ -7746,6 +8147,7 @@ def main() -> int:
     g_fwd, g_dq, g_dkv = guard["server_counts"]
     ga_fwd = guard["agent_counts"][0]
 
+    print(f"[time] phase 13 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 13. the async fleet over the native plane, through a relay
     fleet = async_fleet(device, root, root / "build" / "chip_smoke_fleet", learned)
     f_fwd, f_dq, f_dkv = fleet["server_counts"]
@@ -7806,6 +8208,7 @@ def main() -> int:
           + f" per update over {prof['updates']} updates; {fleet['wall']:.1f} s for "
           f"{FLEET_WAVES} waves of both agents; on {smi.splitlines()[0]}", flush=True)
 
+    print(f"[time] phase 14 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 14. PPO on the flagship, in-process
     ppo = ppo_learner(device, root / "build" / "chip_smoke_ppo", learned)
     p_fwd, p_dq, p_dkv = ppo["launches"]
@@ -7834,6 +8237,7 @@ def main() -> int:
           f"{STALE_EPISODES} episodes, {ppo['stale_updates']} updates: P(action 1) "
           f"{ppo['p_one']:.4f} (bar {STALE_BAR:g}), RhoMean in (0, 1]", flush=True)
 
+    print(f"[time] phase 15 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 15. the off-policy family on the card
     zero_flash_counts()
     zero_ring_counts()
@@ -7877,6 +8281,7 @@ def main() -> int:
           f"server dispatch {1e3 * off_dist['timings']['dispatch_s'] / off_dist['updates']:.2f} "
           f"ms per ingest on {smi.splitlines()[0]}", flush=True)
 
+    print(f"[time] phase 16 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 16. the other model families: the pixel CNN, the MoE and pp transformers
     zero_flash_counts()
     zero_ring_counts()
@@ -7957,6 +8362,7 @@ def main() -> int:
     fam_fwd = (m_fwd + moe["eval_launches"] + m_decode["launches"] + b_decode["launches"]
                + pp_fwd)
 
+    print(f"[time] phase 17 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 17. the anakin tier: device envs, the fused window as one CUDA graph
     t17 = time.perf_counter()
     env_errs = device_envs_card_vs_cpu(device)
@@ -8006,6 +8412,7 @@ def main() -> int:
     print(f"[anakin] phase 17 in {time.perf_counter() - t17:.1f} s", flush=True)
     anakin_fwd = flag["launches"] + dist17["agent_launches"] + a_dfwd
 
+    print(f"[time] phase 18 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 18. the serving plane: thin clients served by an InferenceService
     t18 = time.perf_counter()
     per_dispatch = (run["launches"] - run["validate_launches"]) // DISPATCHES
@@ -8055,6 +8462,7 @@ def main() -> int:
     serving_fwd = sv["launches"] + sum(sl["serve_counts"])
     s_fwd, s_dq, s_dkv = sl["launches"]
 
+    print(f"[time] phase 19 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 19. the RLHF plane: generate with the flagship, score, train IMPALA
     t19 = time.perf_counter()
     rlhf = {}
@@ -8092,6 +8500,7 @@ def main() -> int:
     rlhf_gen = sum(r["generation_k1"] for r in rlhf.values())
     rlhf_learn = sum(r["learner_k1"] for r in rlhf.values())
 
+    print(f"[time] phase 20 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 20. the traced, fleet-aggregated loop; serving and RLHF traced; the profiler
     t20 = time.perf_counter()
     tf = traced_fleet(device, root, root / "build" / "chip_smoke_traced")
@@ -8143,6 +8552,7 @@ def main() -> int:
     traced_dq = t_dq + trl["launches"][1] + pu["counts"][1]
     traced_dkv = t_dkv + trl["launches"][2] + pu["counts"][2]
 
+    print(f"[time] phase 21 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 21. the mesh learner: pp, ep, fsdp and tp over meshes of the card
     t21 = time.perf_counter()
     phase5_ms = 1e3 * sum(seconds[1:]) / len(seconds[1:])
@@ -8158,10 +8568,7 @@ def main() -> int:
           f"{mp['vs_flat']['metric_err']:.3e}, max param diff {mp['vs_flat']['param_err']:.3e},"
           f" mean {mp['vs_flat']['mean_diff_share']:.4f} of the movement; each stage's layers "
           f"and moments on its device; (not gated) {mp['ms']:.2f} ms per update beside phase "
-          f"5's {phase5_ms:.2f}"
-          + (f", device busy {mp['busy']['busy_ms']:.2f} ms of {mp['busy']['wall_ms']:.2f} "
-             f"profiled" if mp["busy"] else "")
-          + f"; seconds by step {json.dumps({k: round(v, 2) for k, v in mp['seconds'].items()})}"
+          f"5's {phase5_ms:.2f}; seconds by step {json.dumps({k: round(v, 2) for k, v in mp['seconds'].items()})}"
           f" on {card}", flush=True)
     mm = mesh_moe(device, root / "build" / "chip_smoke_mesh_moe", learned)
     print(f"[mesh] (b) {MOE_ARCH['kind']} ({MOE_ARCH['moe_experts']} experts, top-"
@@ -8204,6 +8611,7 @@ def main() -> int:
         + sum(c[i] for c in me["per_update"]) for i in range(3))
     mesh_fwd += mp["eval_k1"] + me["served"][0]
 
+    print(f"[time] phase 22 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 22. the multi-process learner: ranks started here, dp across them
     t22 = time.perf_counter()
     ml = multiprocess_learner(device, root, root / "build" / "chip_smoke_mh", learned)
@@ -8231,12 +8639,11 @@ def main() -> int:
               f"{MH_OFF_TIMED} more, each on a broadcast sample", flush=True)
     ms22 = multiprocess_server(device, root, root / "build" / "chip_smoke_mh_server")
     print(f"[multiprocess] (b) a {MH_RANKS}-rank TrainingServer fed by {MH_LANES} agent lanes: "
-          f"{MH_SERVER_UPDATES} updates, a collective checkpoint, a resume on every rank, "
-          f"{MH_RESUME_UPDATES} more; every version installed by the agent; ranks at version "
-          f"{ms22['version']} with params sha256 {ms22['digest']}... equal; launches per rank "
-          f"{ms22['counts']}; {ms22['sent']} trajectories sent = accepted = trained (the "
-          f"resumed ledger dropped {ms22['replayed']} spool replays); only "
-          f"the coordinator bound a transport and published; (not gated) seconds per wave "
+          f"{MH_SERVER_UPDATES} update(s) and a collective checkpoint; every version installed "
+          f"by the agent; ranks at version {ms22['version']} with params sha256 "
+          f"{ms22['digest']}... equal; launches per rank {ms22['counts']}; {ms22['sent']} "
+          f"trajectories sent = accepted = trained; only the coordinator bound a transport "
+          f"and published; (not gated) seconds per wave "
           f"(play, train, publish, install) {[round(x, 2) for x in ms22['seconds']]} on {card}",
           flush=True)
     print(f"[multiprocess] phase 22 in {time.perf_counter() - t22:.1f} s", flush=True)
@@ -8245,6 +8652,7 @@ def main() -> int:
         + sum(c[i] for part in ms22["counts"] for c in part) for i in range(3))
     mh_fwd += ms22["agent_k1"]
 
+    print(f"[time] phase 23 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 23. the multi-process ring: sp across the ranks, K4-K6 on each rank's
     # shards, the K/V chunks hopping between the processes
     t23 = time.perf_counter()
@@ -8287,6 +8695,69 @@ def main() -> int:
     print(f"[mh-ring] phase 23 in {time.perf_counter() - t23:.1f} s", flush=True)
     mhr = tuple(mr["launches"][i] + sum(c[i] for c in mrs["counts"]) for i in range(3, 6))
 
+    print(f"[time] phase 24 at {time.perf_counter() - t_run:.1f} s", flush=True)
+    # 24. fsdp, ep and tp across the ranks: each rank holds its own shards,
+    # split parameters gather and reduce-scatter between the processes
+    t24 = time.perf_counter()
+    layouts = [(MHS_MESHES, MH_RANKS)]
+    if torch.cuda.device_count() >= MHS_RANKS4:
+        layouts.append(({"fsdp": MHS_MESH4, "tp": MHS_MESH4}, MHS_RANKS4))
+    mhs_launches = [0, 0, 0]
+    for meshes, ranks_n in layouts:
+        ms24 = multiprocess_split(device, root, root / "build" / f"chip_smoke_mh_split{ranks_n}",
+                                  learned, meshes, ranks_n, ml["a"]["even"]["digest"])
+        for name, r in ms24["cases"].items():
+            comm = r["comm"][0]
+            if "within_mesh_bars" in r:
+                held = (f"phase 5's bars of one process's {r['ref_spec'] or 'unsharded'} "
+                        f"update: max metric diff {r['metric_err']:.3e}, max param diff "
+                        f"{r['param_err']:.3e}, mean {r['mean_diff_share']:.4f} of the "
+                        f"movement ({'within' if r['within_mesh_bars'] else 'outside'} the "
+                        f"MESH bars)")
+            else:
+                held = (f"the MESH bars of its unsharded update: max param diff "
+                        f"{r['param_err']:.3e}, max metric diff {r['metric_err']:.3e}")
+            held += "; bit-equal to it" if r["bit_equal"] else "; not bit-equal to it"
+            if r["same_as_dp"] is not None:
+                held += (f"; {'bit-equal' if r['same_as_dp'] else 'not bit-equal'} to phase "
+                         f"22's dp-across-ranks update of the batch")
+            print(f"[mh-split] {name} under {r['mesh']} across {ranks_n} ranks "
+                  f"({ms24['backend']}, {', '.join(ms24['cards'])}): ranks' params sha256 "
+                  f"{r['digest']}... equal after every update; launches per rank per update "
+                  f"{r['counts']}; vs {held}; each rank holds its share of "
+                  f"{r['split_leaves']} split leaves, (parameter, moment, whole) bytes per "
+                  f"rank {[(h['param_bytes'], h['moment_bytes'], h['whole_bytes']) for h in r['holdings']]}"
+                  + (f"; routes pinned ({r['changes']['changed']} of {r['changes']['tokens']} "
+                     f"token routes would have changed), expert utilization {r['util']}"
+                     if r["util"] is not None else "")
+                  + f"; first update {[round(x, 2) for x in r['first_ms']]} ms"
+                  + (f", (not gated) {[round(x, 2) for x in r['ms']]} ms per update over "
+                     f"{MHS_TIMED} beside phase 5's {phase5_ms:.2f}" if r["ms"] else "")
+                  + f"; rank 0's last update: {comm['gathers']} gathers of "
+                  f"{comm['gather_bytes']} bytes in {1e3 * comm['gather_seconds']:.2f} ms, "
+                  f"{comm['scatters']} reduce-scatters of {comm['scatter_bytes']} bytes in "
+                  f"{1e3 * comm['scatter_seconds']:.2f} ms, {comm['reduces']} ep/tp all-reduces "
+                  f"of {comm['reduce_bytes']} bytes in {1e3 * comm['reduce_seconds']:.2f} ms "
+                  f"(host clock) on {card}", flush=True)
+            for i in range(3):
+                mhs_launches[i] += r["launches"][i]
+    ds24 = multiprocess_server(device, root, root / "build" / "chip_smoke_mh_split_server",
+                               MHS_MESHES["fsdp"], MHS_SERVER_UPDATES, MHS_RESUME_UPDATES)
+    print(f"[mh-split] (d) a {MH_RANKS}-rank TrainingServer with learner.mesh "
+          f"{MHS_MESHES['fsdp']} fed by {MH_LANES} agent lanes: {MHS_SERVER_UPDATES} updates, "
+          f"a collective checkpoint (its train state equal, tensor for tensor, to a "
+          f"single-process save of it), a resume on both ranks, {MHS_RESUME_UPDATES} more; "
+          f"every version installed by the agent and served through K1 ({ds24['agent_k1']} "
+          f"launches), each published bundle sha256-equal to both ranks' gathered params; "
+          f"ranks at version {ds24['version']} (sha256 {ds24['digest']}...); launches per rank "
+          f"{ds24['counts']}; {ds24['sent']} trajectories sent = accepted = trained; (not "
+          f"gated) seconds per wave {[round(x, 2) for x in ds24['seconds']]} on {card}",
+          flush=True)
+    print(f"[mh-split] phase 24 in {time.perf_counter() - t24:.1f} s", flush=True)
+    mhs_fwd, mhs_dq, mhs_dkv = (
+        mhs_launches[i] + sum(c[i] for part in ds24["counts"] for c in part) for i in range(3))
+    mhs_fwd += ds24["agent_k1"]
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -8295,7 +8766,7 @@ def main() -> int:
         "launches": (run["launches"] + fwd + r_fwd + decode["launches"] + a_fwd + d_fwd
                      + ga_fwd + g_fwd + fa_fwd + f_fwd + p_fwd + fam_fwd + anakin_fwd
                      + serving_fwd + s_fwd + rlhf_gen + rlhf_learn + traced_fwd + mesh_fwd
-                     + mh_fwd),
+                     + mh_fwd + mhs_fwd),
         "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd,
                              "decode_vs_window": decode["launches"],
                              "distributed_agent": a_fwd, "distributed_server": d_fwd,
@@ -8317,7 +8788,8 @@ def main() -> int:
                              "traced_serving": tsv["launches"],
                              "traced_rlhf": trl["launches"][0],
                              "profiled_update": pu["counts"][0],
-                             "mesh_learner": mesh_fwd, "multiprocess_learner": mh_fwd},
+                             "mesh_learner": mesh_fwd, "multiprocess_learner": mh_fwd,
+                             "multiprocess_split": mhs_fwd},
         **main_flash,
     }, {
         "name": "flash_dq",
@@ -8325,7 +8797,7 @@ def main() -> int:
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:223",
         "launches": (dq + r_dq + d_dq + g_dq + f_dq + p_dq + m_dq + pp_dq + a_ddq + s_dq
-                     + rlhf_learn + traced_dq + mesh_dq + mh_dq),
+                     + rlhf_learn + traced_dq + mesh_dq + mh_dq + mhs_dq),
         "launches_by_path": {"learner": dq, "local_loop": r_dq, "distributed_server": d_dq,
                              "guardrails_server": g_dq, "fleet_server": f_dq,
                              "ppo_learner": p_dq, "offpolicy": off_counts[1],
@@ -8334,7 +8806,7 @@ def main() -> int:
                              "served_learner": s_dq, "rlhf_learner": rlhf_learn,
                              "traced_fleet_server": t_dq, "traced_rlhf": trl["launches"][1],
                              "profiled_update": pu["counts"][1], "mesh_learner": mesh_dq,
-                             "multiprocess_learner": mh_dq},
+                             "multiprocess_learner": mh_dq, "multiprocess_split": mhs_dq},
         **main_bwd["flash_dq"],
     }, {
         "name": "flash_dkv",
@@ -8342,7 +8814,7 @@ def main() -> int:
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:255",
         "launches": (dkv + r_dkv + d_dkv + g_dkv + f_dkv + p_dkv + m_dkv + pp_dkv + a_ddkv
-                     + s_dkv + rlhf_learn + traced_dkv + mesh_dkv + mh_dkv),
+                     + s_dkv + rlhf_learn + traced_dkv + mesh_dkv + mh_dkv + mhs_dkv),
         "launches_by_path": {"learner": dkv, "local_loop": r_dkv,
                              "distributed_server": d_dkv, "guardrails_server": g_dkv,
                              "fleet_server": f_dkv, "ppo_learner": p_dkv,
@@ -8352,7 +8824,7 @@ def main() -> int:
                              "rlhf_learner": rlhf_learn,
                              "traced_fleet_server": t_dkv, "traced_rlhf": trl["launches"][2],
                              "profiled_update": pu["counts"][2], "mesh_learner": mesh_dkv,
-                             "multiprocess_learner": mh_dkv},
+                             "multiprocess_learner": mh_dkv, "multiprocess_split": mhs_dkv},
         **main_bwd["flash_dkv"],
     }] + [{
         "name": name,
@@ -8408,6 +8880,8 @@ if __name__ == "__main__":
         sys.exit(mh_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     if sys.argv[1:2] == ["--mh-ring-rank"]:
         sys.exit(mh_ring_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
+    if sys.argv[1:2] == ["--mh-split-rank"]:
+        sys.exit(mh_split_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     if sys.argv[1:2] == ["--nccl-shared-card-probe"]:
         sys.exit(nccl_shared_card_probe(int(sys.argv[2]), int(sys.argv[3])))
     if sys.argv[1:2] in (["--recall-sweep"], ["--moe-golden-sweep"]):

@@ -257,7 +257,8 @@ class AlgorithmBase(abc.ABC):
         module = self._publish_module()
         with torch.no_grad():
             # A placed module's split parameters gather whole here, on
-            # the learner's stream behind the dispatched updates.
+            # the learner's stream behind the dispatched updates (from
+            # every rank, a collective, where a split crosses processes).
             state = {k: v.clone() for k, v in logical_state(module).items()}
         return PublishSnapshot(
             version=self.dispatched_version, arch=self._publish_arch(),

@@ -21,12 +21,15 @@ which time the update that read a slab has been fenced.
 sharding rules, the optimizers rebuilt over the shard leaves, each batch
 placed and checked. The publish path, the checkpoint and the guardrail
 probes read the whole parameters (:func:`relayrl_tpu_torch.weights.
-logical_state`). When the mesh's ``dp`` axis spans processes
+logical_state`). When the mesh's ``dp`` or ``fsdp`` axis spans processes
 (:mod:`relayrl_tpu_torch.parallel.distributed`), the server's broadcast
 loop ships each epoch batch from the coordinator (non-coordinators feed
 the broadcast ``mh_zero_batch``), every process trains on its rows with
 its gradients and batch statistics summed over the group, and every
-process holds the same parameters after each update.
+process holds the same parameters after each update (its own shards of
+them where fsdp, ep or tp crosses: :meth:`bundle`, the publish snapshot,
+the checkpoint and the probes then gather, and every process calls them
+in the same order).
 """
 
 from __future__ import annotations
@@ -291,7 +294,8 @@ class OnPolicyAlgorithm(AlgorithmBase):
 
     def bundle(self) -> ModelBundle:
         """The current policy for actors: params as the flax tree of numpy
-        arrays, so port and JAX actors both load it."""
+        arrays, so port and JAX actors both load it (a collective where a
+        split of the params crosses processes)."""
         return ModelBundle(version=self.version, arch=self.arch,
                            params=params_to_jax(self.state.params))
 

@@ -17,10 +17,14 @@ signature. A restore moves every tensor onto the device the algorithm
 lives on.
 
 In a multi-process learner (:mod:`relayrl_tpu_torch.parallel.distributed`)
-:func:`checkpoint_algorithm` is collective: every process holds the whole
-state, the coordinator writes it to the shared directory, and every
-process waits at a barrier until the step is in place. A resume restores
-the same step on every process. Checkpoints stay mesh-free.
+:func:`checkpoint_algorithm` is collective: the coordinator writes the
+whole state to the shared directory, and every process waits at a
+barrier until the step is in place. Where a split of the state crosses
+processes (fsdp, ep or tp across them), each process holds only its
+shards: every process then captures the state, its split parameters and
+moments gathered whole from every rank, before the coordinator writes. A
+resume restores the same step on every process, each keeping its own
+shards. Checkpoints stay mesh-free.
 """
 
 from __future__ import annotations
@@ -266,10 +270,18 @@ def checkpoint_algorithm(algo, directory: str | None = None,
     if win is not None and win.pending:
         win.drain()
     from relayrl_tpu_torch.parallel import distributed
+    from relayrl_tpu_torch.weights import gathers_across_processes
 
     try:
+        # The capture gathers a split that crosses processes: every
+        # process takes part, and the coordinator writes.
+        train = (capture_state(algo.state)
+                 if distributed.is_coordinator() or any(
+                     gathers_across_processes(v) for v in vars(algo.state).values()
+                     if isinstance(v, torch.nn.Module))
+                 else None)
         if distributed.is_coordinator():
-            state = {"train": capture_state(algo.state), "rng": _rng_state(),
+            state = {"train": train, "rng": _rng_state(),
                      "epoch": extra["epoch"], "version": extra["version"]}
             aux = algo.checkpoint_aux() if include_aux else None
             mgr.save(int(algo.version), state, extra, wait=wait, aux=aux,

@@ -86,7 +86,8 @@ class GuardProbes:
 
         if isinstance(tree, torch.nn.Module):
             # A module placed on a mesh is probed whole, in its unplaced
-            # leaf order (its split parameters gathered).
+            # leaf order (its split parameters gathered: from every rank,
+            # where a split crosses processes, so every rank probes).
             from relayrl_tpu_torch.weights import logical_state
 
             leaves = list(logical_state(tree).values())

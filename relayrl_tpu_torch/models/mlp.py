@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from relayrl_tpu_torch.models.base import Policy, mlp_sizes, register_model
+from relayrl_tpu_torch.parallel.context import enter_split, leave_split
 from relayrl_tpu_torch.parallel.sharding import split_blocks
 from relayrl_tpu_torch.weights import params_from_jax
 
@@ -199,39 +200,46 @@ class MLPTrunk(nn.Module):
         while i < len(layers):
             blocks = _tp_blocks(layers, i)
             if blocks is not None:
-                x = self._tp_pair(x, layers[i + 1], blocks)
+                x = self._tp_pair(x, layers[i + 1], *blocks)
                 i += 2
             else:
                 x = self.activation(_dense(layers[i], x, cd))
                 i += 1
         return x
 
-    def _tp_pair(self, x: torch.Tensor, down: nn.Linear, blocks) -> torch.Tensor:
+    def _tp_pair(self, x: torch.Tensor, down: nn.Linear, blocks, group) -> torch.Tensor:
         """Column then row parallel: each tp block's output features of the
         first layer computed on its device from the replicated input, the
         activation applied per block, the second layer's partial products
         from those features summed on the input's device (the psum) and
-        its bias added once."""
+        its bias added once. Where tp crosses processes (``group``), this
+        process computes its blocks: the input enters through
+        :func:`~relayrl_tpu_torch.parallel.context.enter_split` and the
+        partial sum leaves through :func:`~relayrl_tpu_torch.parallel.
+        context.leave_split`, before the bias."""
         cd = self.compute_dtype
+        x_in = enter_split(x, group)
         y = None
         for (dev, w_up), (_, b_up), (_, w_down) in blocks:
-            h = self.activation(F.linear(x.to(dev), w_up.to(cd)) + b_up.to(cd))
+            h = self.activation(F.linear(x_in.to(dev), w_up.to(cd)) + b_up.to(cd))
             part = F.linear(h, w_down.to(cd)).to(x.device)
             y = part if y is None else y + part
-        return self.activation(y + down.bias.to(cd))
+        return self.activation(leave_split(y, group) + down.bias.to(cd))
 
 
 def _tp_blocks(layers, i: int):
-    """The tp blocks of the pair starting at layer ``i`` (even): each
-    block's (up kernel rows, up bias, down kernel columns), or None unless
-    both layers are split over ``tp``."""
+    """The tp blocks of the pair starting at layer ``i`` (even) that this
+    process holds, each block's (up kernel rows, up bias, down kernel
+    columns), and the tp group to sum their partial products over (None
+    where tp stays in the process); None unless both layers are split
+    over ``tp``."""
     if i % 2 or i + 1 >= len(layers):
         return None
     parts = (split_blocks(layers[i], "weight", "tp"), split_blocks(layers[i], "bias", "tp"),
              split_blocks(layers[i + 1], "weight", "tp"))
     if any(p is None for p in parts):
         return None
-    return list(zip(*parts))
+    return list(zip(*parts)), parts[0].group
 
 
 class _ActorCritic(nn.Module):

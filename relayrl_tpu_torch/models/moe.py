@@ -28,7 +28,15 @@ holds ``E / ep`` experts), each expert group's ``h`` and ``out``, and its
 slice of the combine, run on the device that holds the group, reading the
 shards in place; the partial ``y``s are summed on the tokens' device in
 group order (the ``psum`` over ``ep`` of the JAX layer). Routing is
-unchanged.
+unchanged. Where the ``ep`` axis crosses processes, each process runs
+only the expert groups it holds, on every token (ep is not a data axis:
+the ranks of an ep group hold the same rows): the tokens and the combine
+weights enter through :func:`~relayrl_tpu_torch.parallel.context.
+enter_split` (their gradients summed over the group: a rank's experts
+reach only their slice of the weights) and the partial combine leaves
+through :func:`~relayrl_tpu_torch.parallel.context.leave_split`, the
+psum across processes. A forward is then collective, so every rank of
+the group runs it (:func:`expert_utilization` included).
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from relayrl_tpu_torch.models.mlp import _dense
+from relayrl_tpu_torch.parallel.context import enter_split, leave_split
 from relayrl_tpu_torch.parallel.sharding import split_blocks
 
 
@@ -89,15 +98,20 @@ class MoEMLP(nn.Module):
         if ups is None or downs is None:
             y = self._experts(tokens, weights, self.moe_w_up, self.moe_w_down)
         else:
-            # One expert group per ep device; the partial combines summed
-            # on the tokens' device in group order (the psum over ep).
-            group = self.n_experts // len(ups)
+            # One expert group per ep device (this process's, where ep
+            # crosses processes); the partial combines summed on the
+            # tokens' device in group order, then over the ranks (the psum
+            # over ep).
+            group = self.n_experts // ups.parts
+            tokens = enter_split(tokens, ups.group)
+            weights = enter_split(weights, ups.group)
             y = None
-            for g, ((dev, up), (_, down)) in enumerate(zip(ups, downs)):
+            for g, ((dev, up), (_, down)) in enumerate(zip(ups, downs), ups.first):
                 part = self._experts(tokens.to(dev),
                                      weights[:, g * group:(g + 1) * group].to(dev),
                                      up, down).to(x.device)
                 y = part if y is None else y + part
+            y = leave_split(y, ups.group)
         return y.reshape(B, T, d).to(x.dtype)
 
     def _experts(self, tokens, weights, w_up, w_down) -> torch.Tensor:
@@ -126,7 +140,9 @@ def expert_utilization(arch: Mapping[str, Any], params: nn.Module, obs,
     """Per-layer routing-mass fraction per expert, the gate-collapse
     monitor (no load-balancing loss is trained, as in the JAX package):
     ``{"block_i": [E] fractions summing to 1}`` for ``params`` (a
-    ``transformer_moe_discrete`` core) on ``obs [B, T, obs_dim]``."""
+    ``transformer_moe_discrete`` core) on ``obs [B, T, obs_dim]``. On
+    params whose split crosses processes the forward is collective: every
+    rank of the mesh calls this, and each gets the same fractions."""
     del arch  # the module carries it
     layers = {f"block_{i}": block.moe for i, block in enumerate(params.layers())
               if hasattr(block, "moe")}

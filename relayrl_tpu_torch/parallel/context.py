@@ -13,22 +13,33 @@ update::
 Single-device paths (actors) simply never set a mesh and the sequence
 models fall back to their local attention implementation.
 
-Beside the mesh, a learner whose ``dp`` axis spans processes installs the
-data-parallel group (:func:`use_dp_group`,
-:class:`~relayrl_tpu_torch.parallel.distributed.DataParallelGroup`). Each
-process then holds only its rows of the batch, and what GSPMD computes
-over the global batch in the JAX package the updates compute through the
-helpers below: sums of statistics (:func:`dp_sum`, with shares of means
-from :func:`dp_mean`), every gradient before its optimizer step
+Beside the mesh, a learner whose ``dp`` or ``fsdp`` axis spans processes
+installs the data-parallel group (:func:`use_dp_group`,
+:class:`~relayrl_tpu_torch.parallel.distributed.DataParallelGroup`: the
+processes that differ in their dp or fsdp coordinate). Each process then
+holds only its rows of the batch, and what GSPMD computes over the global
+batch in the JAX package the updates compute through the helpers below:
+sums of statistics (:func:`dp_sum`, with shares of means from
+:func:`dp_mean`), every gradient before its optimizer step
 (:func:`dp_gradients`), the global row count (:func:`dp_global_rows`),
 this process's rows of a whole-batch draw (:func:`dp_rows`). Without a
 group each is the identity, so one update serves one process and many.
+
+A layer whose work splits over an ``ep`` or ``tp`` axis that crosses
+processes (the MoE's expert groups, the tp MLP pair) runs its part of the
+work on every process of the axis's group, all of which hold the same
+rows: its input enters through :func:`enter_split` (the identity; the
+backward sums the partial input gradients over the group) and its partial
+result leaves through :func:`leave_split` (summed over the group; the
+backward the identity), the f and g of Megatron's tensor parallelism and
+the ``psum`` GSPMD inserts in the JAX package.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 
 import torch
 
@@ -97,20 +108,8 @@ def dp_mean(x: torch.Tensor) -> torch.Tensor:
     return x.mean() if group is None else x.mean() / group.size
 
 
-def dp_gradients(loss: torch.Tensor | None, params: list) -> list[torch.Tensor]:
-    """The gradients of ``loss`` over ``params``, summed over the
-    data-parallel group: the one place every optimizer step of every
-    family takes its gradients. A parameter the loss does not reach takes
-    a zero gradient, as in optax; ``loss=None`` (a process with no rows in
-    a minibatch) contributes zeros, so every process joins the sum. Each
-    process's loss is its rows' sum over the global count, so the sums are
-    the single-process gradients."""
-    if loss is None:
-        grads = [None] * len(params)
-    else:
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-    group = current_dp_group()
+def _sum_flat(group, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+    """``grads`` summed over ``group`` in one collective."""
     if group is None or not grads:
         return grads
     flat = group.all_reduce(torch.cat([g.reshape(-1).float() for g in grads]))
@@ -119,6 +118,88 @@ def dp_gradients(loss: torch.Tensor | None, params: list) -> list[torch.Tensor]:
         out.append(flat[offset:offset + g.numel()].reshape(g.shape).to(g.dtype))
         offset += g.numel()
     return out
+
+
+def dp_gradients(loss: torch.Tensor | None, params: list) -> list[torch.Tensor]:
+    """The gradients of ``loss`` over ``params``, summed over the
+    data-parallel group: the one place every optimizer step of every
+    family takes its gradients. A parameter the loss does not reach takes
+    a zero gradient, as in optax; ``loss=None`` (a process with no rows in
+    a minibatch) contributes zeros, so every process joins the sum. Each
+    process's loss is its rows' sum over the global count, so the sums are
+    the single-process gradients. A shard whose gather crosses the fsdp
+    ranks (``summed_over_fsdp``, set by the placement) took its sum over
+    them in the gather's reduce-scatter: it is summed over the dp ranks
+    alone."""
+    if loss is None:
+        grads = [None] * len(params)
+    else:
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    group = current_dp_group()
+    if group is None or not grads:
+        return grads
+    presummed = [getattr(p, "summed_over_fsdp", False) for p in params]
+    out = list(grads)
+    for flag, sub in ((False, group), (True, getattr(group, "dp", None))):
+        idx = [i for i, f in enumerate(presummed) if f == flag]
+        for i, g in zip(idx, _sum_flat(sub, [grads[i] for i in idx])):
+            out[i] = g
+    return out
+
+
+class _EnterSplit(torch.autograd.Function):
+    """f: the identity; the backward sums the gradient over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce(ctx.group, grad), None
+
+
+class _LeaveSplit(torch.autograd.Function):
+    """g: the sum over the group; the backward the identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce(group, x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _reduce(group, x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over ``group`` (in f32, back in ``x``'s dtype), a new
+    tensor; counted on :data:`~relayrl_tpu_torch.parallel.distributed.
+    COMM`."""
+    from relayrl_tpu_torch.parallel.distributed import COMM
+
+    t0 = time.perf_counter()
+    flat = x.detach().float().contiguous().clone()
+    group.all_reduce(flat)
+    COMM.reduces += 1
+    COMM.reduce_bytes += flat.numel() * flat.element_size()
+    COMM.reduce_seconds += time.perf_counter() - t0
+    return flat.to(x.dtype)
+
+
+def enter_split(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` entering a region whose work splits over ``group`` (an ep or
+    tp :class:`~relayrl_tpu_torch.parallel.distributed.AxisGroup`): the
+    same tensor, whose gradient is summed over the group; ``x`` itself
+    without a group."""
+    return x if group is None else _EnterSplit.apply(x, group)
+
+
+def leave_split(x: torch.Tensor, group) -> torch.Tensor:
+    """A region's partial result ``x`` summed over ``group``; ``x`` itself
+    without a group."""
+    return x if group is None else _LeaveSplit.apply(x, group)
 
 
 def dp_global_rows(local_rows: int) -> int:

@@ -3,13 +3,18 @@
 Counterpart of :mod:`relayrl_tpu.parallel.distributed`. The JAX package
 scales its learner across hosts with ``jax.distributed``; the port starts
 a ``torch.distributed`` process group over a TCP store at the coordinator
-address, and the learner's ``dp`` and ``sp`` axes may span the processes
-(:func:`relayrl_tpu_torch.parallel.mesh.make_mesh`). A mesh that spans them
-forms one group per crossing axis (:func:`form_axis_groups`): the dp
-groups (processes that differ only in their dp coordinate), over which
-the learner sums gradients (:func:`data_parallel_group`), and the sp
-groups (the processes of one ring), over which K/V chunks hop and the
-ring's chunks gather (:func:`axis_group`).
+address, and the learner's ``dp``, ``fsdp``, ``ep``, ``tp`` and ``sp``
+axes may span the processes (:func:`relayrl_tpu_torch.parallel.mesh.
+make_mesh`). A mesh that spans them forms one group per line of each
+crossing axis (:func:`form_axis_groups`): the dp groups (processes that
+differ only in their dp coordinate); the data groups (those that differ
+in their dp or fsdp coordinate: both axes consume batch), over which the
+learner sums gradients and batch statistics (:func:`data_parallel_group`);
+the fsdp, ep and tp groups, over which a split parameter gathers and its
+gradient reduce-scatters and a layer split over ep or tp sums its partial
+results (:func:`axis_comm`, :class:`AxisGroup`); and the sp groups (the
+processes of one ring), over which K/V chunks hop and the ring's chunks
+gather (:func:`axis_group`).
 
 Resolution order for each knob: explicit argument > environment variable
 (``RELAYRL_COORDINATOR`` / ``RELAYRL_NUM_PROCESSES`` /
@@ -29,8 +34,9 @@ group forms, so every rank picks the same backend.
 Under ``nccl`` the host-side traffic (the server's control descriptor and
 its batches) rides a second, ``gloo`` group; under ``gloo`` one group
 carries both. Gloo carries CUDA tensors for ``broadcast`` and
-``all_reduce`` only: the ring's send/receive pairs and gathers stage CUDA
-tensors through host memory under gloo and go card to card under nccl
+``all_reduce`` only: the ring's send/receive pairs and gathers, and the
+split parameters' gathers and reduce-scatters, stage CUDA tensors through
+host memory under gloo and go card to card under nccl
 (:func:`stages_through_host`).
 """
 
@@ -39,6 +45,7 @@ from __future__ import annotations
 import datetime
 import os
 import socket
+import time
 from typing import Any, Mapping
 
 import numpy as np
@@ -304,19 +311,25 @@ def broadcast_from_coordinator(tree):
     return _rebuild(skeleton, out)
 
 
+# The axes whose lines form process groups when they cross, then the
+# data plane (dp x fsdp), in the order every rank forms them.
+GROUP_AXES = ("dp", "fsdp", "ep", "tp", "sp", ("dp", "fsdp"))
+
+
 def form_axis_groups(mesh) -> None:
-    """Form the process groups of ``mesh``'s crossing axes, dp's then
-    sp's, each axis's groups in sorted order: every rank calls
-    ``new_group`` for every group, its own or not, in the same order (the
-    collective contract of ``new_group``), so every rank must build the
-    same meshes in the same order. A group of every rank is the world
-    group, a group of one rank needs none, and a group formed before is
-    kept. No-op without a process group (a topology stubbed in tests)."""
+    """Form the process groups of ``mesh``'s crossing axes in
+    :data:`GROUP_AXES` order, each axis's groups in sorted order: every
+    rank calls ``new_group`` for every group, its own or not, in the same
+    order (the collective contract of ``new_group``), so every rank must
+    build the same meshes in the same order. A group of every rank is the
+    world group, a group of one rank needs none, and a group formed
+    before (by this mesh's other axes or an earlier mesh) is kept. No-op
+    without a process group (a topology stubbed in tests)."""
     if _runtime is None:
         return
     import torch.distributed as dist
 
-    for axis in ("dp", "sp"):
+    for axis in GROUP_AXES:
         for ranks in mesh.axis_groups(axis):
             if ranks in _runtime.groups or len(ranks) == 1:
                 continue
@@ -326,12 +339,17 @@ def form_axis_groups(mesh) -> None:
                                     timeout=datetime.timedelta(seconds=TIMEOUT_S)))
 
 
-def axis_group(mesh, axis: str):
-    """This process's group over ``axis`` of ``mesh`` (formed by
-    :func:`form_axis_groups`), None when the axis stays in this process."""
+def axis_group(mesh, axis):
+    """This process's group over ``axis`` of ``mesh`` (a name, or a tuple
+    of names for their plane; formed by :func:`form_axis_groups`), None
+    when the axis stays in this process."""
     ranks = mesh.axis_ranks(axis)
     if len(ranks) == 1:
         return None
+    if _runtime is not None and len(ranks) == _runtime.world:
+        import torch.distributed as dist
+
+        return dist.group.WORLD
     if _runtime is None or ranks not in _runtime.groups:
         raise RuntimeError(f"no process group for ranks {ranks} over {axis}: "
                            "make_mesh forms them once the process group exists")
@@ -339,21 +357,51 @@ def axis_group(mesh, axis: str):
 
 
 def stages_through_host(device: torch.device) -> bool:
-    """Whether a send/receive or gather of tensors on ``device`` goes
-    through host memory: CUDA tensors under gloo (which carries them for
-    ``broadcast`` and ``all_reduce`` only); never under nccl, nor for CPU
-    tensors."""
+    """Whether a send/receive, gather or reduce-scatter of tensors on
+    ``device`` goes through host memory: CUDA tensors under gloo (which
+    carries them for ``broadcast`` and ``all_reduce`` only); never under
+    nccl, nor for CPU tensors."""
     return device.type == "cuda" and backend() == "gloo"
 
 
-class DataParallelGroup:
-    """The processes a ``dp`` axis spans and the sums the learner takes
-    over them (:mod:`relayrl_tpu_torch.parallel.context`): ``rank`` is
-    this process's block of the dp coordinates, ``size`` the number of
-    blocks."""
+class SplitComm:
+    """What the split parameters' collectives moved in this process:
+    gathers (a parameter's shards joined whole), reduce-scatters (the
+    gradient of the whole summed back onto the shards) and the all-reduces
+    of the regions split over ep or tp (:mod:`relayrl_tpu_torch.parallel.
+    context`); counts, bytes this process received or summed, and seconds
+    on the host clock (a gloo stage's copy to the host waits for the
+    device)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.gathers = self.gather_bytes = 0
+        self.scatters = self.scatter_bytes = 0
+        self.reduces = self.reduce_bytes = 0
+        self.gather_seconds = self.scatter_seconds = self.reduce_seconds = 0.0
+
+    def as_dict(self) -> dict:
+        return dict(vars(self))
+
+
+COMM = SplitComm()
+
+
+class AxisGroup:
+    """The processes along a mesh axis (or a plane of axes) and the
+    collectives over them: ``rank`` is this process's index among them in
+    coordinate order, ``size`` their count, ``group`` their process group.
+    Every collective raises on failure (a timeout after
+    :data:`TIMEOUT_S`); none falls back to a local result."""
 
     def __init__(self, rank: int, size: int, group=None):
         self.rank, self.size, self.group = rank, size, group
+
+    def __deepcopy__(self, memo):
+        # A process group is the process's own: a copied module shares it.
+        return self
 
     def all_reduce(self, flat: torch.Tensor) -> torch.Tensor:
         """Sum ``flat`` over the group, in place; returns it."""
@@ -362,21 +410,90 @@ class DataParallelGroup:
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
         return flat
 
+    def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every member's ``t`` (same shape and dtype), in group order, on
+        ``t``'s device; through host memory where the backend cannot carry
+        ``t``'s device."""
+        import torch.distributed as dist
 
-def data_parallel_group(mesh) -> DataParallelGroup | None:
-    """The group the learner's gradients and batch statistics are summed
-    over: the processes that differ from this one only in their dp
-    coordinate of ``mesh``. None when dp does not cross processes (e.g.
-    ``{"dp": 1, "sp": 8}``: every rank holds every row and the same
-    gradients, with no sum)."""
+        t0 = time.perf_counter()
+        device = t.device
+        buf = t.detach().contiguous()
+        if stages_through_host(device):
+            buf = buf.cpu()
+        out = [torch.empty_like(buf) for _ in range(self.size)]
+        dist.all_gather(out, buf, group=self.group)
+        out = [o.to(device) for o in out]
+        COMM.gathers += 1
+        COMM.gather_bytes += buf.numel() * buf.element_size() * self.size
+        COMM.gather_seconds += time.perf_counter() - t0
+        return out
+
+    def reduce_scatter(self, chunks) -> torch.Tensor:
+        """``chunks[i]`` summed over the members, to member ``i``: this
+        member's sum, on the chunks' device, in their dtype (summed in
+        f32 when narrower). Under gloo, an all-reduce of the whole
+        followed by this member's slice (gloo has no reduce-scatter to
+        rely on); under nccl, ``reduce_scatter_tensor``."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        device, dtype = chunks[0].device, chunks[0].dtype
+        wide = torch.float32 if dtype.itemsize < 4 else dtype
+        flat = torch.cat([c.reshape(-1).to(wide) for c in chunks])
+        n = chunks[self.rank].numel()
+        if backend() == "nccl":
+            out = torch.empty(n, dtype=wide, device=device)
+            dist.reduce_scatter_tensor(out, flat, op=dist.ReduceOp.SUM, group=self.group)
+        else:
+            if stages_through_host(device):
+                flat = flat.cpu()
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+            out = flat[self.rank * n:(self.rank + 1) * n].to(device)
+        COMM.scatters += 1
+        COMM.scatter_bytes += flat.numel() * flat.element_size()
+        COMM.scatter_seconds += time.perf_counter() - t0
+        return out.reshape(chunks[self.rank].shape).to(dtype)
+
+
+class DataParallelGroup(AxisGroup):
+    """The processes a batch splits over (its ``dp`` and ``fsdp``
+    coordinates) and the sums the learner takes over them
+    (:mod:`relayrl_tpu_torch.parallel.context`): ``rank`` is this
+    process's block of the batch, ``size`` the number of blocks. ``dp``
+    is the group over the dp axis alone (None when dp does not cross):
+    the sum of a gradient whose fsdp gather summed it over fsdp already."""
+
+    def __init__(self, rank: int, size: int, group=None,
+                 dp: "DataParallelGroup | None" = None):
+        super().__init__(rank, size, group)
+        self.dp = dp
+
+
+def axis_comm(mesh, axis, cls=AxisGroup) -> AxisGroup | None:
+    """This process's :class:`AxisGroup` (or ``cls``) over ``axis`` of
+    ``mesh`` (a name or a tuple of names), None when the axis stays in
+    this process."""
+    ranks = mesh.axis_ranks(axis)
+    if len(ranks) == 1:
+        return None
     if _runtime is None:
         raise RuntimeError("initialize_distributed has not started a "
                            "multi-process group")
-    ranks = mesh.axis_ranks("dp")
-    if len(ranks) == 1:
-        return None
-    import torch.distributed as dist
+    return cls(ranks.index(_runtime.rank), len(ranks), axis_group(mesh, axis))
 
-    group = (dist.group.WORLD if len(ranks) == _runtime.world
-             else axis_group(mesh, "dp"))
-    return DataParallelGroup(ranks.index(_runtime.rank), len(ranks), group)
+
+def data_parallel_group(mesh) -> DataParallelGroup | None:
+    """The group the learner's gradients and batch statistics are summed
+    over: the processes that differ from this one only in their dp or
+    fsdp coordinate of ``mesh`` (both consume batch). None when neither
+    crosses processes (e.g. ``{"dp": 1, "sp": 8}`` or ``{"dp": 1, "ep":
+    2}``: every rank holds every row and the same gradients, with no
+    sum)."""
+    if _runtime is None:
+        raise RuntimeError("initialize_distributed has not started a "
+                           "multi-process group")
+    group = axis_comm(mesh, ("dp", "fsdp"), DataParallelGroup)
+    if group is not None and "fsdp" in mesh.cross_axes:
+        group.dp = axis_comm(mesh, "dp", DataParallelGroup)
+    return group

@@ -33,21 +33,28 @@ A placed optimizer's state reads and loads whole
 (:func:`whole_optimizer_state`, :func:`load_whole_optimizer_state`), in
 the unplaced optimizer's layout, so checkpoints do not depend on the mesh.
 
-On a mesh whose ``dp`` axis spans processes
+On a mesh whose ``dp`` or ``fsdp`` axis spans processes
 (:mod:`relayrl_tpu_torch.parallel.distributed`), every process receives
-the whole batch (the server broadcasts it), takes the rows of its dp
-coordinates, and runs the update above on its local sub-mesh
-(:attr:`Mesh.local`) with the data-parallel group installed beside the
-ambient mesh (:func:`~relayrl_tpu_torch.parallel.context.use_dp_group`):
-every gradient is summed over the group before its optimizer step and
-every batch statistic is a global sum
-(:mod:`relayrl_tpu_torch.parallel.context`). dp replicates the state, so
-each process holds the whole logical parameters and the same optimizer
-steps keep them bit-equal across processes. Where ``sp`` spans processes
-too, the local sub-mesh keeps the other ranks' shards of the ring: the
-ring attends this rank's time chunks and gathers the outputs, so the rest
-of the model runs replicated on every rank of a ring, its gradients equal
-there with no sum (:mod:`.ring`).
+the whole batch (the server broadcasts it), takes the rows of its dp x
+fsdp cells (:attr:`Mesh.data_block`, dp outermost), and runs the update
+above on its local sub-mesh (:attr:`Mesh.local`) with the data-parallel
+group installed beside the ambient mesh
+(:func:`~relayrl_tpu_torch.parallel.context.use_dp_group`): every
+gradient is summed over the group before its optimizer step and every
+batch statistic is a global sum (:mod:`relayrl_tpu_torch.parallel.
+context`). dp replicates the state, so the same optimizer steps keep it
+bit-equal across the dp ranks. Where ``fsdp``, ``ep`` or ``tp`` crosses
+processes, each process holds and steps only the shards at its own
+coordinates, with their Adam moments; reading a split parameter whole is
+then a collective (a gather over the axis's ranks, :class:`Shards`), and
+so are :func:`whole_optimizer_state` and every reader of whole parameters
+(the publish, the checkpoint, the guard probes): every rank reaches them
+in the same order. A shard's gradient that the fsdp gather's
+reduce-scatter summed over the fsdp ranks is summed over the dp ranks
+alone. Where ``sp`` spans processes too, the local sub-mesh keeps the
+other ranks' shards of the ring: the ring attends this rank's time chunks
+and gathers the outputs, so the rest of the model runs replicated on
+every rank of a ring, its gradients equal there with no sum (:mod:`.ring`).
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from relayrl_tpu_torch.parallel.sharding import (
     _coords,
     _flax_layout,
     batch_pspec,
+    install_gather_buckets,
     logical_leaves,
     mesh_device,
     param_pspec,
@@ -87,7 +95,7 @@ def make_sharded_update(update_fn: Callable, mesh: Mesh, state_template,
     time axis of rank>=2 batch arrays to the ``sp`` split. On a mesh over
     several processes each call takes this process's rows of the (whole)
     batch and runs on the local sub-mesh, the data-parallel group ambient
-    when dp crosses processes.
+    when dp or fsdp crosses processes.
 
     ``state_template`` and ``donate_state`` keep the JAX signature: the
     placement is :func:`place_state`'s, and the torch update moves the
@@ -180,8 +188,14 @@ def place_module(module: nn.Module, mesh: Mesh) -> dict:
             owner, attr = _owner(module, name)
             shards = Shards(param.shape, torch_spec, mesh, fixed, compute)
             parametrize.register_parametrization(owner, attr, shards)
-            plan[param] = _Placed(shard_tensors(owner, attr), shards, home)
+            leaves = shard_tensors(owner, attr)
+            if shards.summed_over_fsdp:
+                # Read by context.dp_gradients: summed over dp alone.
+                for t in leaves:
+                    t.summed_over_fsdp = True
+            plan[param] = _Placed(leaves, shards, home)
     module._logical_keys = keys
+    install_gather_buckets(module)
     return plan
 
 
@@ -233,15 +247,16 @@ def place_batch(batch: dict, mesh: Mesh, shard_time: bool = False) -> dict:
     that each array splits over the mesh as :func:`batch_shardings` says.
     ``shard_time`` must match the :func:`make_sharded_update` flag. On a
     mesh over several processes ``batch`` is the whole batch and this
-    process keeps the rows (dim 0) of its dp coordinates: all of them
-    when dp does not cross processes."""
+    process keeps the rows (dim 0) of its dp x fsdp cells
+    (:attr:`Mesh.data_block`): all of them when neither dp nor fsdp
+    crosses processes."""
     _check_splits(mesh, batch, batch_shardings(mesh, batch, shard_time))
     if mesh.process_count > 1:
         rows = {len(v) for v in batch.values()}
         if len(rows) != 1:
             raise ValueError(f"batch arrays disagree on their rows: {sorted(rows)}")
-        per = rows.pop() // mesh.shape["dp"]
-        start, stop = mesh.dp_block
+        per = rows.pop() // (mesh.shape["dp"] * mesh.shape["fsdp"])
+        start, stop = mesh.data_block
         batch = {k: v[start * per:stop * per] for k, v in batch.items()}
     return {k: torch.as_tensor(v, device=mesh.first_device)
             for k, v in batch.items()}
@@ -253,7 +268,8 @@ def _is_moment(value) -> bool:
 
 def whole_optimizer_state(opt: torch.optim.Optimizer) -> dict:
     """``opt.state_dict()`` in the unplaced optimizer's layout: one entry
-    per logical parameter, its moments joined on the CPU."""
+    per logical parameter, its moments joined on the CPU (gathered from
+    every rank where a split crosses processes: a collective then)."""
     layout = getattr(opt, "_shard_layout", None)
     sd = opt.state_dict()
     if layout is None:
@@ -276,7 +292,8 @@ def whole_optimizer_state(opt: torch.optim.Optimizer) -> dict:
 
 def load_whole_optimizer_state(opt: torch.optim.Optimizer, saved: dict) -> None:
     """Load :func:`whole_optimizer_state`'s form into ``opt``, splitting
-    each moment onto the shards."""
+    each moment onto the shards (this process's, where a split crosses
+    processes)."""
     layout = getattr(opt, "_shard_layout", None)
     if layout is None:
         opt.load_state_dict(saved)

@@ -25,17 +25,22 @@ local devices) are this process's, and the mesh holds ``num_processes``
 times as many. Process ``p`` owns the flat indices ``[p·L, (p+1)·L)`` of
 the device array (L devices a process), the layout of the reference's
 reshape of ``jax.devices()``; :attr:`Mesh.owners` holds each coordinate's
-rank. ``dp`` and ``sp`` may cross processes: ``{"dp": -1, "fsdp": 2}``
-over 2 processes of 4 devices gives dp 4, each process 2 dp coordinates x
-fsdp 2; ``{"dp": 1, "sp": 8}`` over 2 processes of 4 gives one ring whose
-shards 0-3 sit on rank 0 and 4-7 on rank 1. :attr:`Mesh.local` is this
-process's sub-mesh, its block of dp coordinates, which the learner drives
-single-controller; when ``sp`` crosses it keeps the whole ``sp`` axis with
-the other ranks' entries None (their owners still known), so the ring
-sees every shard and hops to the ranks that hold the others
-(:mod:`relayrl_tpu_torch.parallel.ring`). A spec in which fsdp, ep, tp or
-pp would cross processes raises :class:`CrossProcessAxisError`: they are
-ROADMAP.md queue 1 item 11's next slices.
+rank. ``dp``, ``fsdp``, ``ep``, ``tp`` and ``sp`` may cross processes:
+``{"dp": -1, "fsdp": 2}`` over 2 processes of 4 devices gives dp 4, each
+process 2 dp coordinates x fsdp 2; ``{"dp": 1, "sp": 8}`` over 2
+processes of 4 gives one ring whose shards 0-3 sit on rank 0 and 4-7 on
+rank 1; ``{"dp": 1, "fsdp": 2}`` over 2 processes of 1 puts fsdp 0 on
+rank 0 and fsdp 1 on rank 1, so each rank holds half of every split
+parameter. :attr:`Mesh.local` is this process's sub-mesh, its block of dp
+coordinates, which the learner drives single-controller; an axis other
+than dp that crosses stays whole there, the other ranks' entries None
+(their owners still known): the ring sees every shard and hops to the
+ranks that hold the others (:mod:`relayrl_tpu_torch.parallel.ring`), a
+split parameter keeps the shards at this rank's coordinates and gathers
+the others' (:mod:`relayrl_tpu_torch.parallel.sharding`). A spec in which
+pp would cross processes raises :class:`CrossProcessAxisError`: the
+pipeline across processes is ROADMAP.md queue 1 item 11's next slice.
+Every process's block must be a sub-grid of the mesh (:func:`make_mesh`).
 
 Config form (``learner.mesh``): ``{"dp": -1, "fsdp": 1, "ep": 1, "tp": 1,
 "sp": 1, "pp": 1}`` where -1 means "fill with the remaining devices".
@@ -52,13 +57,13 @@ AXES = ("dp", "fsdp", "ep", "tp", "sp", "pp")
 
 
 # The axes whose coordinates may go to different processes.
-CROSS_PROCESS_AXES = ("dp", "sp")
+CROSS_PROCESS_AXES = ("dp", "fsdp", "ep", "tp", "sp")
 
 
 class CrossProcessAxisError(ValueError):
-    """A mesh axis other than ``dp`` and ``sp`` would cross processes:
-    fsdp, ep, tp and pp across processes are not ported (ROADMAP.md queue
-    1 item 11)."""
+    """``pp`` would cross processes (the pipeline across processes is not
+    ported: ROADMAP.md queue 1 item 11), or a process's block of devices
+    is not a sub-grid of the mesh."""
 
 
 class Mesh:
@@ -106,24 +111,37 @@ class Mesh:
         index[AXES.index(axis)] = slice(None)
         return self.owners[tuple(index)]
 
-    def axis_ranks(self, axis: str) -> tuple[int, ...]:
-        """The ranks along ``axis`` through this process's coordinates, in
-        coordinate order: the processes of its group over that axis (its
-        dp group differs only in the dp coordinate; its sp group holds one
-        ring)."""
-        return tuple(dict.fromkeys(int(r) for r in self.axis_owners(axis)))
+    def _plane(self, axes) -> np.ndarray:
+        """Owners with ``axes`` (a name or a tuple of names) last,
+        flattened there in their order: one row per line of the other
+        axes' coordinates."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        moved = np.moveaxis(self.owners, [AXES.index(a) for a in axes],
+                            range(-len(axes), 0))
+        return moved.reshape(-1, int(np.prod([self.shape[a] for a in axes])))
 
-    def axis_groups(self, axis: str) -> list[tuple[int, ...]]:
-        """Every group of ranks along ``axis`` (one per line of the other
-        axes' coordinates), sorted: what every rank forms, in this order,
-        whatever its own group."""
-        lines = np.moveaxis(self.owners, AXES.index(axis), -1)
-        lines = lines.reshape(-1, self.shape[axis])
-        return sorted({tuple(dict.fromkeys(int(r) for r in line)) for line in lines})
+    def axis_ranks(self, axis) -> tuple[int, ...]:
+        """The ranks along ``axis`` (a name, or a tuple of names for their
+        plane) through this process's coordinates, in coordinate order:
+        the processes of its group over that axis (its dp group differs
+        only in the dp coordinate; its sp group holds one ring; its
+        ``("dp", "fsdp")`` group shares every coordinate but those two)."""
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        index = tuple(slice(None) if ax in axes else h
+                      for ax, h in zip(AXES, self.home))
+        return tuple(dict.fromkeys(int(r) for r in self.owners[index].reshape(-1)))
+
+    def axis_groups(self, axis) -> list[tuple[int, ...]]:
+        """Every group of ranks along ``axis`` (a name or a tuple of
+        names; one group per line of the other axes' coordinates), sorted:
+        what every rank forms, in this order, whatever its own group."""
+        return sorted({tuple(dict.fromkeys(int(r) for r in line))
+                       for line in self._plane(axis)})
 
     def shard_indices(self, axis: str) -> list[int]:
         """This process's coordinates along ``axis`` through :attr:`home`
-        (its global shard indices of the ``sp`` ring)."""
+        (its global shard indices of the ``sp`` ring; all of them where
+        the axis stays in the process)."""
         return [i for i, r in enumerate(self.axis_owners(axis)) if r == self.process_index]
 
     @property
@@ -134,12 +152,21 @@ class Mesh:
         return int(mine[0]), int(mine[-1]) + 1
 
     @property
+    def data_block(self) -> tuple[int, int]:
+        """This process's cells of the ``(dp, fsdp)`` plane, the batch's
+        blocks (dp outermost), ``[start, stop)``: what it keeps of a
+        batch split over dp x fsdp."""
+        cells = self.owners.reshape(self.shape["dp"] * self.shape["fsdp"], -1)
+        mine = np.flatnonzero((cells == self.process_index).any(axis=1))
+        return int(mine[0]), int(mine[-1]) + 1
+
+    @property
     def local(self) -> "Mesh":
         """This process's sub-mesh: its block of dp coordinates, every
         other axis whole (the mesh itself for one process). Where only dp
         crosses, a single-process mesh of this process's devices; where
-        sp crosses too, the other ranks' sp entries stay, None, with their
-        owners."""
+        another axis crosses too, the other ranks' entries along it stay,
+        None, with their owners."""
         if self.process_count == 1:
             return self
         start, stop = self.dp_block
@@ -212,7 +239,9 @@ def make_mesh(spec: Mapping[str, int] | None = None,
     may appear more than once: its shards then share it. In a
     multi-process run ``devices`` are this process's (default: its local
     devices), the mesh spans every process and the process groups of its
-    dp and sp axes are formed (every rank calls this with the same spec)."""
+    crossing axes are formed (every rank calls this with the same spec,
+    in the same order as its other meshes: forming a group is
+    collective)."""
     from relayrl_tpu_torch.parallel import distributed
 
     if devices is None:
@@ -230,18 +259,33 @@ def make_mesh(spec: Mapping[str, int] | None = None,
     if crossing:
         raise CrossProcessAxisError(
             f"mesh {shape} over {world} processes of {n} devices: axes "
-            f"{crossing} would cross processes; only dp and sp span processes "
-            "(fsdp, ep, tp and pp across processes are ROADMAP.md queue 1 "
-            "item 11)")
-    inner = world * n // shape["dp"]
-    if inner % n and n % inner:
+            f"{crossing} would cross processes; dp, fsdp, ep, tp and sp span "
+            "processes (pp across processes is ROADMAP.md queue 1 item 11)")
+    if not _is_sub_grid(dims, n):
         raise CrossProcessAxisError(
             f"mesh {shape} over {world} processes of {n} devices: a process's "
-            f"block of {n} devices neither holds whole dp rows of {inner} nor "
-            "an equal part of one (ROADMAP.md queue 1 item 11)")
+            f"block of {n} devices is not a sub-grid of the mesh (it must hold "
+            "whole trailing axes and an equal part of the next; ROADMAP.md "
+            "queue 1 item 11)")
     if world > 1:
         distributed.form_axis_groups(mesh)
     return mesh
+
+
+def _is_sub_grid(dims: Sequence[int], n: int) -> bool:
+    """Whether ``n`` consecutive row-major entries of a ``dims`` grid,
+    starting at a multiple of ``n``, always form a sub-grid: ``n`` takes
+    whole axes from the last one up, then a divisor of the next."""
+    for d in reversed(dims):
+        if n == 1:
+            return True
+        if n % d == 0:
+            n //= d
+        elif d % n == 0:
+            return True
+        else:
+            return False
+    return n == 1
 
 
 def single_device_mesh(device=None) -> Mesh:
@@ -255,3 +299,11 @@ def single_device_mesh(device=None) -> Mesh:
 def data_axes(mesh: Mesh) -> tuple[str, ...]:
     """Axes the batch dimension shards over (dp and fsdp both consume batch)."""
     return tuple(ax for ax in ("dp", "fsdp") if mesh.shape[ax] > 1)
+
+
+def local_data_groups(mesh: Mesh) -> int:
+    """How many batch blocks of ``mesh``'s dp x fsdp split this process
+    computes: every one on a single-process mesh, its own where dp or
+    fsdp crosses processes (a layer that splits its rows by data group
+    splits this process's rows into these)."""
+    return int(np.prod([len(mesh.shard_indices(ax)) for ax in data_axes(mesh)]))

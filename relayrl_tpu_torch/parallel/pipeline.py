@@ -30,12 +30,11 @@ schedule, each stage's saved tensors on its own device.
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Sequence
 
 import torch
 
-from relayrl_tpu_torch.parallel.mesh import Mesh, data_axes
+from relayrl_tpu_torch.parallel.mesh import Mesh, local_data_groups
 from relayrl_tpu_torch.parallel.ring import run_ring
 
 
@@ -99,7 +98,7 @@ def pipeline_apply(stage_fn: Callable, stage_params: Sequence, x: torch.Tensor,
     per = n_layers // n_stages
     layers = [stage_params[s * per:(s + 1) * per] for s in range(n_stages)]
     devices = mesh.axis_devices(axis)
-    n_groups = math.prod(mesh.shape[ax] for ax in data_axes(mesh))
+    n_groups = local_data_groups(mesh)
     if x.shape[0] % n_groups:
         raise ValueError(f"batch of {x.shape[0]} rows does not split into "
                          f"{n_groups} data groups")

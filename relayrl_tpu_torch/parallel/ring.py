@@ -291,11 +291,11 @@ def ring_groups(mesh: Mesh, axis_name: str,
     """One device list per ring: the batch splits over whichever of
     ``batch_axes`` the mesh has (>1), in mesh order, and each batch group
     runs its own ring over ``axis_name``; other axes hold replicas, which a
-    single controller computes once."""
+    single controller computes once. Where a batch axis crosses
+    processes, the rings of this process's coordinates along it."""
     b_axes = tuple(ax for ax in batch_axes if mesh.shape.get(ax, 1) > 1)
     return [mesh.axis_devices(axis_name, **dict(zip(b_axes, coord)))
-            for coord in itertools.product(*(range(mesh.shape[ax])
-                                             for ax in b_axes))]
+            for coord in itertools.product(*(mesh.shard_indices(ax) for ax in b_axes))]
 
 
 def shard_split(x: torch.Tensor,

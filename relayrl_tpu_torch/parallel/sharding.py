@@ -25,13 +25,23 @@ Where JAX hands these specs to GSPMD, the single-controller port holds the
 split itself: :class:`Shards` is the parametrization
 (``torch.nn.utils.parametrize``) that :func:`relayrl_tpu_torch.parallel.
 learner.place_state` registers on a split parameter. Its originals are the
-shards, one leaf tensor per distinct coordinate of the split axes, on that
-coordinate's mesh device (the other axes at 0: a single controller holds
-replicas once). Reading the parameter runs :meth:`Shards.forward`, a
-``torch.cat`` of the shards moved to the compute device — the all-gather;
-autograd's backward of that gather slices the gradient back onto the
-shards — the reduce-scatter. Layers that read shards in place (the tp MLP
-trunk, the ep MoE layer) take them from :func:`split_blocks`.
+shards this process holds, one leaf tensor per distinct coordinate of the
+split axes, on that coordinate's mesh device (the other axes at this
+process's first coordinate: a single controller holds replicas once).
+Reading the parameter runs :meth:`Shards.forward`, a ``torch.cat`` of the
+shards moved to the compute device — the all-gather; autograd's backward
+of that gather slices the gradient back onto the shards — the
+reduce-scatter. Where a split axis crosses processes, each process holds
+only the shards at its own coordinates, and the gather joins its block
+with the other ranks' over the axis's process group
+(:class:`~relayrl_tpu_torch.parallel.distributed.AxisGroup`): an
+all-gather whose backward reduce-scatters the gradient of the whole back
+onto each rank's shards, summed over the group where the axis consumes
+batch (fsdp: each rank's gradient is its rows' part), sliced where it
+does not (ep, tp: every rank of the group computed the same gradient).
+Layers that read shards in place (the tp MLP trunk, the ep MoE layer) take
+their blocks from :func:`split_blocks`, this process's blocks along the
+axis with the group over which they sum their partial results.
 """
 
 from __future__ import annotations
@@ -187,8 +197,18 @@ def _axes(entry) -> tuple[str, ...]:
 
 def mesh_device(mesh: Mesh, **coords: int) -> torch.device:
     """The device at ``coords``, every other axis at this process's first
-    coordinate (0 on a mesh of one process)."""
-    return mesh.devices[tuple(coords.get(ax, h) for ax, h in zip(AXES, mesh.home))]
+    coordinate (0 on a mesh of one process). A coordinate another process
+    owns raises: its device is not this process's to use."""
+    index = tuple(coords.get(ax, h) for ax, h in zip(AXES, mesh.home))
+    device = mesh.devices[index]
+    if device is None:
+        raise ValueError(f"mesh coordinates {coords} belong to rank "
+                         f"{int(mesh.owners[index])}, not to rank {mesh.process_index}")
+    return device
+
+
+def _owner_at(mesh: Mesh, coords: dict) -> int:
+    return int(mesh.owners[tuple(coords.get(ax, h) for ax, h in zip(AXES, mesh.home))])
 
 
 def _coords(mesh: Mesh, axes: tuple[str, ...], block: int) -> dict[str, int]:
@@ -198,14 +218,125 @@ def _coords(mesh: Mesh, axes: tuple[str, ...], block: int) -> dict[str, int]:
     return dict(zip(axes, np.unravel_index(block, sizes))) if axes else {}
 
 
+# A gather over these axes sums its backward over their ranks (they
+# consume batch); over any other axis every rank computed the same
+# gradient, and the backward takes its slice.
+_SUMMED_AXES = ("fsdp",)
+
+
+class Blocks(list):
+    """A split parameter's blocks along one mesh axis that this process
+    holds: ``(device, tensor)`` pairs in coordinate order, the first at
+    coordinate ``first`` of the axis's ``parts``; ``group`` is the axis's
+    :class:`~relayrl_tpu_torch.parallel.distributed.AxisGroup` when it
+    crosses processes (the caller sums its partial results over it), else
+    None."""
+
+    def __init__(self, items, first: int = 0, parts: int | None = None, group=None):
+        super().__init__(items)
+        self.first = first
+        self.parts = len(self) if parts is None else parts
+        self.group = group
+
+
+class _Gather(torch.autograd.Function):
+    """This rank's block of a tensor -> the whole along ``dim``, joined
+    with the other ranks' blocks over ``comm`` in its order; the backward
+    reduce-scatters the whole's gradient back (``summed``) or takes this
+    rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, comm, summed):
+        ctx.dim, ctx.comm, ctx.summed = dim, comm, summed
+        return torch.cat(comm.all_gather(x), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        chunks = list(grad.chunk(ctx.comm.size, dim=ctx.dim))
+        if ctx.summed:
+            out = ctx.comm.reduce_scatter(chunks)
+        else:
+            out = chunks[ctx.comm.rank].contiguous()
+        return out, None, None, None
+
+
+class _Gathered(_Gather):
+    """A :class:`_Gather` whose forward was taken with others in one
+    all-gather (``whole``, a one-element list: the whole tensor, gathered
+    without autograd); the backward is this parameter's own, so a
+    backward reaches only the parameters its loss depends on."""
+
+    @staticmethod
+    def forward(ctx, x, dim, comm, summed, whole):
+        ctx.dim, ctx.comm, ctx.summed = dim, comm, summed
+        return whole[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*_Gather.backward(ctx, grad), None)
+
+
+def _gather_bucket(comm, members) -> list[torch.Tensor]:
+    """``members`` (``(Shards, dim, block)``: each this rank's block of a
+    parameter split along ``dim`` over the ranks of ``comm``, one dtype)
+    -> each parameter whole, differentiable, from one all-gather."""
+    with torch.no_grad():
+        parts = comm.all_gather(torch.cat([b.reshape(-1) for _, _, b in members]))
+    out, offset = [], 0
+    for spec, dim, block in members:
+        n = block.numel()
+        whole = torch.cat([p[offset:offset + n].view(block.shape) for p in parts], dim=dim)
+        out.append(_Gathered.apply(block, dim, comm, spec.spec[dim] in _SUMMED_AXES, [whole]))
+        offset += n
+    return out
+
+
+def install_gather_buckets(module: nn.Module) -> None:
+    """Gather ``module``'s bucketed parameters (:attr:`Shards.bucketed`)
+    whole as each of its forwards starts, one all-gather per group of
+    ranks and dtype instead of one per parameter, and drop them when it
+    ends (hooks; also on an exception). The backward stays one
+    reduce-scatter per parameter: a loss reaches only the parameters it
+    depends on. A no-op for a module with none."""
+    members = [(owner, leaf, placement(owner, leaf)) for owner in module.modules()
+               for leaf in list(getattr(owner, "parametrizations", None) or {})]
+    members = [m for m in members if m[2] is not None and m[2].bucketed]
+    if not members:
+        return
+
+    def gather(_module, _args) -> None:
+        buckets: dict = {}
+        for owner, leaf, spec in members:
+            shards = shard_tensors(owner, leaf)
+            home = shards[0].device
+            block = _cat([t.to(home) for t in shards], spec._local_parts())
+            k = next(k for k, c in enumerate(spec.comms) if c is not None)
+            comm = spec.comms[k]
+            key = (id(comm.group), comm.rank, comm.size, block.dtype, home)
+            buckets.setdefault(key, (comm, []))[1].append((spec, spec.dims[k], block))
+        for comm, bucket in buckets.values():
+            for (spec, _, _), whole in zip(bucket, _gather_bucket(comm, bucket)):
+                spec.gathered = whole.to(spec.compute)
+
+    def drop(_module, _args, _output) -> None:
+        for _, _, spec in members:
+            spec.gathered = None
+
+    module.register_forward_pre_hook(gather)
+    module.register_forward_hook(drop, always_call=True)
+
+
 class Shards(nn.Module):
     """A parameter held as shards (see the module docstring).
 
     ``spec`` is in the torch layout of the tensor; ``fixed`` are mesh
     coordinates every shard shares (a stacked layer's slot on the layer
     axis); ``compute`` is the device the gathered tensor lands on. The
-    shards are ordered row-major over the split dims, and ``devices``
-    holds each one's device."""
+    shards are this process's, ordered row-major over the split dims;
+    ``devices`` holds each one's device and ``coords`` its mesh
+    coordinates. Along a split dim whose axis crosses processes this
+    process holds the blocks ``local[k]`` (``[lo, hi)``) of ``parts[k]``
+    and gathers the rest over ``comms[k]``."""
 
     def __init__(self, shape: Sequence[int], spec: Spec, mesh: Mesh,
                  fixed: dict[str, int], compute: torch.device):
@@ -217,52 +348,118 @@ class Shards(nn.Module):
         self.dims = [d for d, e in enumerate(self.spec) if e is not None]
         self.parts = [math.prod(mesh.shape[a] for a in _axes(self.spec[d]))
                       for d in self.dims]
+        self.local, self.comms = [], []
         for d, parts in zip(self.dims, self.parts):
             if self.shape[d] % parts:
                 raise ValueError(f"dim {d} of {self.shape} does not split in {parts}")
+            axes = _axes(self.spec[d])
+            mine = [b for b in range(parts)
+                    if _owner_at(mesh, {**fixed, **_coords(mesh, axes, b)})
+                    == mesh.process_index]
+            lo, hi = mine[0], mine[-1] + 1
+            if mine != list(range(lo, hi)) or parts % (hi - lo):
+                raise ValueError(f"rank {mesh.process_index} holds blocks {mine} of "
+                                 f"{parts} along {axes}: not an equal contiguous block")
+            comm = None
+            if hi - lo < parts:
+                if len(axes) != 1:
+                    raise ValueError(f"dim {d} split over {axes} crosses processes: "
+                                     "only a dim split over one axis may")
+                from relayrl_tpu_torch.parallel.distributed import axis_comm
+
+                comm = axis_comm(mesh, axes[0])
+                if comm is None or comm.size != parts // (hi - lo):
+                    raise ValueError(f"no process group of {parts // (hi - lo)} "
+                                     f"ranks over {axes[0]}")
+            self.local.append((lo, hi))
+            self.comms.append(comm)
+        # The whole tensor while a forward of the placed module runs, when
+        # it was gathered in a bucket (install_gather_buckets).
+        self.gathered = None
         self.coords = []
         self.devices = []
-        for block in itertools.product(*(range(p) for p in self.parts)):
+        for block in itertools.product(*(range(lo, hi) for lo, hi in self.local)):
             coords = dict(fixed)
             for d, b in zip(self.dims, block):
                 coords.update(_coords(mesh, _axes(self.spec[d]), b))
             self.coords.append(coords)
             self.devices.append(mesh_device(mesh, **coords))
 
+    @property
+    def crosses(self) -> bool:
+        """Whether a split axis crosses processes (reading the whole
+        tensor is then a collective)."""
+        return any(c is not None for c in self.comms)
+
+    @property
+    def bucketed(self) -> bool:
+        """Whether one dim alone crosses processes, over an axis whose
+        gather sums its backward (fsdp): the parameters a forward gathers
+        in buckets (:func:`install_gather_buckets`)."""
+        crossing = [d for d, c in zip(self.dims, self.comms) if c is not None]
+        return len(crossing) == 1 and self.spec[crossing[0]] in _SUMMED_AXES
+
+    @property
+    def summed_over_fsdp(self) -> bool:
+        """Whether the gather's backward sums the shards' gradients over
+        the fsdp ranks (an fsdp split that crosses processes)."""
+        return any(c is not None and self.spec[d] in _SUMMED_AXES
+                   for d, c in zip(self.dims, self.comms))
+
     def split(self, whole: torch.Tensor) -> list[torch.Tensor]:
-        """``whole`` -> its shards, each a copy on its device."""
+        """``whole`` -> this process's shards, each a copy on its device."""
         pieces = [whole]
-        for d, parts in zip(self.dims, self.parts):
-            pieces = [c for p in pieces for c in p.chunk(parts, dim=d)]
+        for d, parts, (lo, hi) in zip(self.dims, self.parts, self.local):
+            pieces = [c for p in pieces for c in p.chunk(parts, dim=d)[lo:hi]]
         return [p.to(dev, copy=True).contiguous() for p, dev in zip(pieces, self.devices)]
 
+    def _gather(self, block: torch.Tensor, skip: int | None = None) -> torch.Tensor:
+        """This process's block -> whole over every crossing split dim
+        (but the ``skip``-th): one differentiable gather each, in dim
+        order, so every rank issues them in the same order."""
+        for k, (d, comm) in enumerate(zip(self.dims, self.comms)):
+            if comm is not None and k != skip:
+                block = _Gather.apply(block, d, comm, self.spec[d] in _SUMMED_AXES)
+        return block
+
     def join(self, shards: Sequence[torch.Tensor], device) -> torch.Tensor:
-        """Shards (in order) -> the whole tensor on ``device``."""
-        return _cat([s.to(device) for s in shards], zip(self.dims, self.parts))
+        """This process's shards (in order) -> the whole tensor on
+        ``device``; collective where a split crosses processes (gathered on
+        the shards' device, then moved)."""
+        home = shards[0].device if self.crosses else device
+        return self._gather(_cat([s.to(home) for s in shards], self._local_parts())).to(device)
+
+    def _local_parts(self, skip: int | None = None) -> list[tuple[int, int]]:
+        return [(d, hi - lo) for k, (d, (lo, hi)) in enumerate(zip(self.dims, self.local))
+                if k != skip]
 
     def forward(self, *shards: torch.Tensor) -> torch.Tensor:
+        if self.gathered is not None:
+            return self.gathered
         return self.join(shards, self.compute)
 
     def right_inverse(self, whole: torch.Tensor) -> list[torch.Tensor]:
         return self.split(whole)
 
-    def blocks(self, shards: Sequence[torch.Tensor],
-               axis: str) -> list[tuple[torch.device, torch.Tensor]] | None:
-        """The blocks along mesh ``axis`` (a dim split over ``axis`` alone):
-        one ``(device, tensor)`` per coordinate, each whole over the other
-        split dims and on the device at that coordinate; None when no dim
+    def blocks(self, shards: Sequence[torch.Tensor], axis: str) -> Blocks | None:
+        """The blocks along mesh ``axis`` (a dim split over ``axis`` alone)
+        that this process holds: one ``(device, tensor)`` per coordinate,
+        each whole over the other split dims (gathered where they cross
+        processes) and on the device at that coordinate; None when no dim
         splits over ``axis``."""
         if axis not in self.spec:
             return None
         k = self.dims.index(self.spec.index(axis))
-        grid = np.arange(len(shards)).reshape(self.parts)
-        rest = [(d, p) for j, (d, p) in enumerate(zip(self.dims, self.parts)) if j != k]
+        lo, hi = self.local[k]
+        grid = np.arange(len(shards)).reshape([h - l for l, h in self.local])
+        rest = self._local_parts(skip=k)
         out = []
-        for c in range(self.parts[k]):
+        for c in range(lo, hi):
             dev = mesh_device(self.mesh, **{axis: c})
-            out.append((dev, _cat([shards[int(i)].to(dev)
-                                   for i in np.take(grid, c, axis=k).reshape(-1)], rest)))
-        return out
+            block = _cat([shards[int(i)].to(dev)
+                          for i in np.take(grid, c - lo, axis=k).reshape(-1)], rest)
+            out.append((dev, self._gather(block, skip=k)))
+        return Blocks(out, lo, self.parts[k], self.comms[k])
 
 
 def _cat(pieces: list[torch.Tensor], dims_parts) -> torch.Tensor:
@@ -289,11 +486,11 @@ def shard_tensors(owner: nn.Module, leaf: str) -> list[torch.Tensor]:
     return [getattr(plist, f"original{i}") for i in range(len(placement(owner, leaf).devices))]
 
 
-def split_blocks(owner: nn.Module, leaf: str,
-                 axis: str) -> list[tuple[torch.device, torch.Tensor]] | None:
+def split_blocks(owner: nn.Module, leaf: str, axis: str) -> Blocks | None:
     """``owner.<leaf>``'s blocks along ``axis`` as :meth:`Shards.blocks`
-    gives them (differentiable: the moves and cats are torch ops), or None
-    when the parameter is not split over ``axis``."""
+    gives them (differentiable: the moves, cats and gathers are torch ops
+    or autograd functions), or None when the parameter is not split over
+    ``axis``."""
     shards = placement(owner, leaf)
     if shards is None or axis not in shards.spec:
         return None
@@ -301,7 +498,9 @@ def split_blocks(owner: nn.Module, leaf: str,
 
 
 __all__ = [
+    "Blocks",
     "Shards",
+    "install_gather_buckets",
     "batch_pspec",
     "logical_leaves",
     "mesh_device",

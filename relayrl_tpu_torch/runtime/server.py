@@ -57,14 +57,17 @@ constructor starts the process group first
 which prints its backend rule's choice), pins ``seed_salt`` 0 so every
 process starts from the same state, restores a resume on every process
 from the shared checkpoint directory, then runs the update over
-``make_mesh(learner.mesh or {"dp": -1})``, whose ``dp`` axis spans the
-processes. Only the coordinator (process 0) owns a transport, ingests,
-publishes and logs epochs. Every process runs
-:meth:`TrainingServer._learner_loop_multihost`: each tick the coordinator
-broadcasts a descriptor (STEP with the batch's shape, IDLE, or STOP), a
-STEP's batch follows it, and every process trains on its rows in
-lockstep; checkpoints are collective (the coordinator writes, every
-process waits). The divergence watchdog's detector and its rollback stay
+``make_mesh(learner.mesh or {"dp": -1})``, whose ``dp`` (or ``fsdp``,
+``ep``, ``tp``, ``sp``) axis spans the processes. Only the coordinator
+(process 0) owns a transport, ingests, publishes and logs epochs. Every
+process runs :meth:`TrainingServer._learner_loop_multihost`: each tick
+the coordinator broadcasts a descriptor (STEP with the batch's shape,
+IDLE, or STOP), a STEP's batch follows it, and every process trains on
+its rows in lockstep; checkpoints are collective (the coordinator writes,
+every process waits). Where a split of the parameters crosses processes
+(fsdp, ep or tp across them), each process holds only its shards: every
+process takes part in the gather of each publish (and of the initial
+bundle and each checkpoint), and the coordinator alone sends it. The divergence watchdog's detector and its rollback stay
 single-process, as in the reference.
 """
 
@@ -387,6 +390,7 @@ class TrainingServer:
                 print("[TrainingServer] no checkpoint to resume; fresh start",
                       flush=True)
 
+        self._mh_gathers = False
         if multi_host:
             if not hasattr(self.algorithm, "enable_multihost"):
                 raise NotImplementedError(
@@ -397,6 +401,11 @@ class TrainingServer:
             self._mh_mesh = make_mesh(learner_cfg.get("mesh") or {"dp": -1},
                                       mesh_devices or [self.device])
             self.algorithm.enable_multihost(self._mh_mesh)
+            from relayrl_tpu_torch.weights import gathers_across_processes
+
+            # Reading the published params whole is then a collective.
+            self._mh_gathers = gathers_across_processes(
+                self.algorithm._publish_module())
             print(f"[TrainingServer] multi-host mesh "
                   f"{dict(self._mh_mesh.shape)} over "
                   f"{len(self._mh_mesh.devices.flat)} devices", flush=True)
@@ -431,7 +440,10 @@ class TrainingServer:
         reg.gauge_fn("relayrl_server_registered_agents", _registered,
                      "logical agents currently in the registry")
         self._bundle_lock = threading.Lock()
-        self._bundle_bytes: bytes = self.algorithm.bundle().to_bytes()
+        # Every process builds the first bundle (a collective where a split
+        # crosses processes); the coordinator's also seeds the serving plane.
+        first_bundle = self.algorithm.bundle()
+        self._bundle_bytes: bytes = first_bundle.to_bytes()
         self._bundle_version: int = self.algorithm.version
         # Latest published model as a HOST tree (version, arch, params);
         # the v1 bundle bytes for handshakes serialize lazily from it.
@@ -479,7 +491,7 @@ class TrainingServer:
 
             try:
                 self.inference = InferenceService.from_config(
-                    self.algorithm.bundle(), self.config, validate=False,
+                    first_bundle, self.config, validate=False,
                     device=self.device)
             except ValueError as e:
                 # An unservable policy config: the server still comes up
@@ -1189,6 +1201,7 @@ class TrainingServer:
             broadcast_from_coordinator,
             is_coordinator,
         )
+        from relayrl_tpu_torch.weights import logical_state
 
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -1268,12 +1281,16 @@ class TrainingServer:
             dispatch_dt = time.monotonic() - t0
             self.timings["dispatch_s"] += dispatch_dt
             self._m_dispatch.observe(dispatch_dt)
-            if coord:
+            if coord or self._mh_gathers:
                 # Only the coordinator owns a transport, so only it
-                # publishes (a snapshot here is no collective: every
-                # process holds the whole parameters).
+                # publishes. Reading the params whole is a collective where
+                # a split crosses processes: every other process then takes
+                # its part in the gather (the snapshot and the bundle both
+                # read logical_state, gather for gather).
                 try:
-                    if self._publisher is not None:
+                    if not coord:
+                        logical_state(algo._publish_module())
+                    elif self._publisher is not None:
                         self._publisher.submit(algo.snapshot_for_publish())
                     else:
                         bundle = algo.bundle()

@@ -28,6 +28,12 @@ of the logical leaf, ``<owner>.<leaf>``: :func:`logical_state` gathers
 it, :func:`write_logical` splits a whole value into its shards, and
 :func:`flax_path` maps a shard's name to its leaf's path, so a placed
 module's bundle, checkpoint and freeze mask are the unplaced module's.
+Where a split crosses processes (a mesh whose fsdp, ep or tp axis spans
+them), a process holds only its shards: :func:`logical_state`,
+:func:`params_to_jax` and everything that reads a placed parameter whole
+are collective then (every rank calls them, in the same order, and each
+gets the whole tensors), and :func:`load_logical` keeps this rank's
+shards of each whole value (:func:`gathers_across_processes`).
 """
 
 from __future__ import annotations
@@ -121,6 +127,14 @@ def is_placed(module: nn.Module) -> bool:
     return getattr(module, "_logical_keys", None) is not None
 
 
+def gathers_across_processes(module: nn.Module) -> bool:
+    """Whether reading ``module``'s parameters whole is a collective: a
+    split of one of them crosses processes."""
+    from relayrl_tpu_torch.parallel.sharding import Shards
+
+    return any(isinstance(m, Shards) and m.crosses for m in module.modules())
+
+
 def logical_keys(module: nn.Module) -> list[str]:
     """The state-dict keys ``module`` had before it was placed, in order
     (its own keys when it was never placed)."""
@@ -130,7 +144,8 @@ def logical_keys(module: nn.Module) -> list[str]:
 def logical_state(module: nn.Module) -> dict[str, torch.Tensor]:
     """``module``'s state dict by logical key, in the unplaced order: a
     placed parameter gathered whole (a fresh tensor on its compute
-    device), every other entry the live tensor, detached."""
+    device; from every rank where its split crosses processes), every
+    other entry the live tensor, detached."""
     live = module.state_dict()
     out = {}
     with torch.no_grad():

@@ -16,7 +16,10 @@ Modes:
 * ``offpolicy_sac`` — SAC on a continuous bandit;
 * ``resume`` — train and checkpoint collectively, tear the servers down,
   rebuild them with ``resume=True`` (every rank restores the same step),
-  train further.
+  train further;
+* ``fsdp`` — REINFORCE over ZMQ with ``learner.mesh`` ``{"dp": 1, "fsdp":
+  N}``: each rank holds its shards of the split parameters, and the
+  publish, the checkpoints and the digests gather them (collectives).
 
 Prints ``MHSERVER_OK rank=<r> version=<v> digest=<sha256> p1=<score>``:
 every rank's version and params digest must agree, and rank 0's score
@@ -62,9 +65,11 @@ TARGET_UPDATES = {"offpolicy": 60, "offpolicy_sac": 300,
 # A config copy per rank (same content; no write race on a shared file).
 # The checkpoint directory is shared, as a multi-host deployment's is.
 cfg_path = os.path.join(scratch, f"relayrl_config_rank{rank}.json")
+MESH = {"dp": 1, "fsdp": NUM_PROCS} if mode == "fsdp" else None
 with open(cfg_path, "w") as f:
     json.dump({"learner": {"checkpoint_every_epochs": 5,
-                           "checkpoint_dir": os.path.join(scratch, "checkpoints")}},
+                           "checkpoint_dir": os.path.join(scratch, "checkpoints"),
+                           **({"mesh": MESH} if MESH else {})}},
               f)
 env_dir = os.path.join(scratch, f"rank{rank}")
 os.makedirs(env_dir, exist_ok=True)
@@ -218,7 +223,10 @@ def run_phase(server, phase_ports, target, tag):
     assert server.distributed_info == {"multi_host": True, "process_id": rank,
                                        "num_processes": NUM_PROCS}
     assert (server.transport is not None) == (rank == 0)
-    assert server._mh_mesh.shape["dp"] == NUM_PROCS
+    if MESH:
+        assert server._mh_mesh.shape["fsdp"] == NUM_PROCS and server._mh_gathers
+    else:
+        assert server._mh_mesh.shape["dp"] == NUM_PROCS
     score = -1.0
     if rank == 0:
         score = drive_fleet(server, phase_ports, target, tag)

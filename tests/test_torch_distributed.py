@@ -127,12 +127,72 @@ def test_mesh_spans_processes_along_dp(monkeypatch, rank):
     assert mesh.first_device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("spec", [{"dp": 1, "fsdp": -1}, {"dp": 1, "sp": 4, "tp": 2},
-                                  {"dp": 1, "pp": 8}])
-def test_axis_across_processes_refused(monkeypatch, spec):
-    _two_process_topology(monkeypatch, 0)
+@pytest.mark.parametrize("spec,n,world", [({"dp": 1, "pp": 8}, 4, 2),
+                                          ({"dp": 1, "pp": 4}, 2, 2),
+                                          ({"dp": 1, "tp": 2, "pp": 4}, 2, 4),
+                                          ({"dp": 2, "pp": 2}, 1, 4)])
+def test_axis_across_processes_refused(monkeypatch, spec, n, world):
+    """pp across processes is not ported: a mesh whose pp axis would
+    cross them raises."""
+    _topology(monkeypatch, 0, world)
     with pytest.raises(CrossProcessAxisError, match="queue 1 item 11"):
-        make_mesh(spec, [torch.device("cpu")] * 4)
+        make_mesh(spec, [torch.device("cpu")] * n)
+
+
+# (spec, devices a process, processes, crossing axes, each crossing
+# axis's owners along it, and its groups; the data plane's groups).
+_CROSSING = [
+    ({"dp": 1, "fsdp": -1}, 4, 2, ("fsdp",), {"fsdp": [0] * 4 + [1] * 4},
+     {"fsdp": [(0, 1)]}, [(0, 1)]),
+    ({"dp": 1, "sp": 4, "tp": 2}, 4, 2, ("tp",), {"tp": [0, 1]}, {"tp": [(0, 1)]},
+     [(0,), (1,)]),
+    ({"dp": 1, "ep": 8}, 4, 2, ("ep",), {"ep": [0] * 4 + [1] * 4}, {"ep": [(0, 1)]},
+     [(0,), (1,)]),
+    ({"dp": 1, "sp": 2, "fsdp": 4}, 4, 2, ("fsdp",), {"fsdp": [0, 0, 1, 1]},
+     {"fsdp": [(0, 1)]}, [(0, 1)]),
+    ({"dp": 1, "ep": 2, "sp": 4}, 4, 2, ("ep",), {"ep": [0, 1]}, {"ep": [(0, 1)]},
+     [(0,), (1,)]),
+    ({"dp": 1, "ep": 2}, 1, 2, ("ep",), {"ep": [0, 1]}, {"ep": [(0, 1)]}, [(0,), (1,)]),
+    ({"dp": 1, "tp": 2}, 1, 2, ("tp",), {"tp": [0, 1]}, {"tp": [(0, 1)]}, [(0,), (1,)]),
+    ({"dp": 2, "fsdp": 2}, 1, 4, ("dp", "fsdp"), {"dp": None, "fsdp": None},
+     {"dp": [(0, 2), (1, 3)], "fsdp": [(0, 1), (2, 3)]}, [(0, 1, 2, 3)]),
+]
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("spec,n,world,cross,owners,groups,data", _CROSSING)
+def test_split_axis_across_processes_builds(monkeypatch, spec, n, world, cross, owners,
+                                            groups, data, last):
+    """fsdp, ep and tp may cross processes: the mesh builds with each
+    coordinate's owner, the crossing axes, the groups every rank forms and
+    the data plane's (dp x fsdp) groups; the local sub-mesh keeps a
+    crossing axis other than dp whole, the other ranks' entries None; a
+    rank keeps the batch rows of its dp x fsdp cells."""
+    from relayrl_tpu_torch.parallel import place_batch
+
+    rank = world - 1 if last else 0
+    _topology(monkeypatch, rank, world)
+    mesh = make_mesh(spec, [torch.device("cpu")] * n)
+    assert mesh.cross_axes == cross
+    for axis, want in owners.items():
+        if want is not None:
+            assert list(mesh.axis_owners(axis)) == want
+    for axis, want in groups.items():
+        assert mesh.axis_groups(axis) == want
+        assert mesh.axis_ranks(axis) in want and rank in mesh.axis_ranks(axis)
+    assert mesh.axis_groups(("dp", "fsdp")) == data
+    local = mesh.local
+    for axis in set(cross) - {"dp"}:
+        assert local.shape[axis] == mesh.shape[axis]
+        mine = [d is not None for d in local.axis_devices(axis)]
+        assert mine == [r == rank for r in local.axis_owners(axis)] and not all(mine)
+    assert mesh.first_device == torch.device("cpu")
+    blocks = mesh.shape["dp"] * mesh.shape["fsdp"]
+    rows = np.arange(2 * blocks, dtype=np.float32)
+    start, stop = mesh.data_block
+    assert np.array_equal(place_batch({"x": rows}, mesh)["x"].numpy(),
+                          rows[2 * start:2 * stop])
+    assert (stop - start) * len(mesh.axis_ranks(("dp", "fsdp"))) == blocks
 
 
 class _SumGroup:
@@ -239,13 +299,49 @@ def test_dp_and_sp_across_four_processes(monkeypatch, rank):
     assert np.array_equal(placed.numpy(), rows[4 * (rank // 2):4 * (rank // 2) + 4])
 
 
-@pytest.mark.parametrize("spec,axes", [({"dp": 1, "ep": 8}, "['ep']"),
-                                       ({"dp": 1, "sp": 2, "fsdp": 4}, "['fsdp']"),
-                                       ({"dp": 1, "ep": 2, "sp": 4}, "['ep']")])
-def test_refusal_names_the_crossing_axis(monkeypatch, spec, axes):
-    _two_process_topology(monkeypatch, 0)
-    with pytest.raises(CrossProcessAxisError, match=rf"axes \{axes}.*queue 1 item 11"):
-        make_mesh(spec, [torch.device("cpu")] * 4)
+@pytest.mark.parametrize("spec,n,world", [({"dp": 1, "sp": 2, "pp": 4}, 2, 4),
+                                          ({"dp": 1, "fsdp": 2, "pp": 2}, 1, 4),
+                                          ({"dp": 1, "ep": 2, "pp": 4}, 2, 4)])
+def test_refusal_names_the_crossing_axis(monkeypatch, spec, n, world):
+    """Where pp crosses beside axes that may, the refusal names pp alone."""
+    _topology(monkeypatch, 0, world)
+    with pytest.raises(CrossProcessAxisError, match=r"axes \['pp'\].*queue 1 item 11"):
+        make_mesh(spec, [torch.device("cpu")] * n)
+
+
+def test_blocks_that_split_a_line_unevenly_refused(monkeypatch):
+    """Blocks of 2 devices over ``{"fsdp": 2, "tp": 3}`` are no sub-grid
+    (a block would hold the end of one fsdp line and the start of the
+    next), now that fsdp and tp may cross."""
+    _topology(monkeypatch, 0, 3)
+    with pytest.raises(CrossProcessAxisError, match="sub-grid.*queue 1 item 11"):
+        make_mesh({"dp": 1, "fsdp": 2, "tp": 3}, [torch.device("cpu")] * 2)
+
+
+@pytest.mark.parametrize("spec,n,world,size,dp", [({"dp": 1, "fsdp": 2}, 1, 2, 2, False),
+                                                   ({"dp": 2, "fsdp": 2}, 1, 4, 4, True),
+                                                   ({"dp": 1, "ep": 2}, 1, 2, 0, False)])
+def test_data_group_spans_dp_and_fsdp(monkeypatch, spec, n, world, size, dp):
+    """The data-parallel group holds the processes that differ in their
+    dp or fsdp coordinate (none where neither crosses: ep ranks hold the
+    same rows); where both cross, its ``dp`` group sums the gradients
+    that the fsdp gather summed already."""
+    rank = world - 1
+    _topology(monkeypatch, rank, world)
+    mesh = make_mesh(spec, [torch.device("cpu")] * n)
+    monkeypatch.setattr(distributed, "_runtime",
+                        distributed._Runtime(rank, world, [], "gloo", None))
+    mesh_groups = {ranks: object() for ranks in mesh.axis_groups("dp")}
+    distributed._runtime.groups.update(mesh_groups)
+    group = distributed.data_parallel_group(mesh)
+    if not size:
+        assert group is None
+        return
+    assert (group.rank, group.size) == (world - 1, size)
+    assert (group.dp is not None) == dp
+    if dp:
+        assert (group.dp.rank, group.dp.size) == (1, 2)
+        assert group.dp.group is mesh_groups[mesh.axis_ranks("dp")]
 
 
 def test_local_device_ids_name_a_rank_s_mesh_entries():

@@ -7,11 +7,13 @@ learner runs the update in lockstep through the server's broadcast loop
 (learns a bandit), over the native framed-TCP plane and over gRPC; DQN
 (the replay buffer on the coordinator, sampled batches broadcast); SAC
 on a continuous bandit; kill and resume (a collective checkpoint, a full
-teardown, a resume on every rank, more training); and 4 processes.
+teardown, a resume on every rank, more training); 4 processes; and a
+mesh whose fsdp axis spans the ranks (each holds its shards; publishes,
+checkpoints and digests gather them).
 
-The 2-process ZMQ cell is tier 1; the other cells are ``slow``, as the
-JAX package marks its own (each is another few-second multi-process run
-of the same protocol).
+The 2-process ZMQ cell and the fsdp cell are tier 1; the other cells are
+``slow``, as the JAX package marks its own (each is another few-second
+multi-process run of the same protocol).
 """
 
 import os
@@ -58,6 +60,12 @@ def test_fleet_trains_two_process_learner_zmq(tmp_path):
     _run_cell(tmp_path, "zmq", 2)
 
 
+def test_fleet_trains_two_process_fsdp_learner_zmq(tmp_path):
+    """The fsdp cell in tier 1: the collective publish and checkpoint of a
+    learner whose split parameters span the ranks."""
+    _run_cell(tmp_path, "fsdp", 2)
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("mode,n_procs", [
     ("native", 2),
@@ -67,6 +75,7 @@ def test_fleet_trains_two_process_learner_zmq(tmp_path):
     ("resume", 2),
     # The lockstep protocol does not depend on the count of ranks.
     ("zmq", 4),
+    ("fsdp", 2),
 ])
 def test_fleet_trains_multiprocess_learner(tmp_path, mode, n_procs):
     _run_cell(tmp_path, mode, n_procs)
