@@ -340,11 +340,35 @@ Phases, each of which fails the run:
    bytes its share of every split leaf, on its card; the gathers',
    reduce-scatters' and all-reduces' calls, bytes and ms. (d) The
    flagship as a two-rank ``TrainingServer`` under ``{"dp": 1, "fsdp":
-   2}`` fed by an 8-lane agent: 2 updates, a collective checkpoint whose
+   2}`` fed by an 8-lane agent: 1 update, a collective checkpoint whose
    train state equals a single-process save of it tensor for tensor, a
    resume on both ranks, 1 more; every version installed by the agent and
    served through K1, each published bundle sha256-equal to both ranks'
-   gathered params, 336/4/4 per rank per update, exact accounting.
+   gathered params, 336/4/4 per rank per update, exact accounting;
+25. the pipeline across processes: ``MH_RANKS`` processes
+   (``chip_smoke.py --mh-pp-rank``), one mesh entry each, the pp axis
+   spanning them (gloo on one card, the hand-off staged through host
+   memory; nccl with a card each); each rank holds and steps only its own
+   stages' layers with their Adam moments, microbatch activations hop
+   down the line and their gradients back
+   (``parallel/pipeline.py::StageHop``), the last stage's rank broadcasts
+   the output. (a) The pp flagship under ``{"dp": 1, "pp": 2}``, two
+   layers a rank, from phase 5's initial params stacked into the blocks
+   layout: phase 5's first batch broadcast, one update then 1 timed, held
+   to this process's single-process ``{"dp": 1, "pp": 2}`` pipelined
+   update at phase 5's bars (bit-equality reported); the ranks' gathered
+   params and replicated ends sha256-equal after every update; 336/4/4
+   launches per rank per update summing to the single process's 672/8/8,
+   K4-K6 none; the hops' and broadcasts' counts and bytes exactly the
+   schedule's (their ms on the host clock); each rank's parameter and
+   moment bytes its stages' layers and the replicated ends on its card,
+   the other stages' absent. (b) The pp flagship as a two-rank
+   ``TrainingServer`` under ``{"dp": 1, "pp": 2}`` fed by an 8-lane agent:
+   1 update and a collective checkpoint equal to a single-process save;
+   every version installed by the agent and sha256-equal to both ranks'
+   gathered params; exact accounting. (c) With a card for each of 4 ranks,
+   (a)'s gates under ``{"dp": 2, "pp": 2}``, its update's digest beside
+   (a)'s.
 
 Phases 3 and 6 also hold every kernel to its plain version at head dims
 128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
@@ -765,9 +789,22 @@ MHS_MESH4 = {"dp": 1, "fsdp": 2, "tp": 2}
 # at MESH_METRIC_RTOL times the metric that sets its magnitude.
 CANCELLING_METRICS = {"AdvMean": "AdvStd", "DeltaLossPi": "LossPi", "DeltaLossV": "LossV"}
 MHS_RANKS4 = 4
-MHS_TIMED = 1
-MHS_SERVER_UPDATES = 2
+MHS_TIMED = 0
+MHS_SERVER_UPDATES = 1
 MHS_RESUME_UPDATES = 1
+# The pipeline across processes (phase 25): MH_RANKS processes over the pp
+# flagship's stages, each rank holding and stepping only its own. (a) The
+# flagship under MHP_MESH (two layers a rank) from phase 5's initial
+# params (stacked into the blocks layout) on its first batch, one update
+# then MHP_TIMED timed; (b) the flagship as a two-rank TrainingServer
+# under MHP_MESH for MHP_SERVER_UPDATES updates and a collective
+# checkpoint; (c) with a card for each of MHP_RANKS4 ranks, (a) under
+# MHP_MESH4.
+MHP_MESH = {"dp": 1, "pp": 2}
+MHP_MESH4 = {"dp": 2, "pp": 2}
+MHP_RANKS4 = 4
+MHP_TIMED = 1
+MHP_SERVER_UPDATES = 1
 
 
 def _dtype_name(dtype) -> str:
@@ -6920,7 +6957,8 @@ def same_tree(a, b, path: str = "") -> None:
 
 
 def multiprocess_server(device, root: Path, workdir: Path, mesh: dict | None = None,
-                        updates: int = MH_SERVER_UPDATES, resume_updates: int = 0) -> dict:
+                        updates: int = MH_SERVER_UPDATES, resume_updates: int = 0,
+                        arch: dict = SLICE_ARCH) -> dict:
     """Phase 22 (b): phase 11's learner as a two-rank ``TrainingServer``
     (``examples/chaos_server.py`` per rank, the default config, the
     checkpoint directory shared) fed over ZMQ by a ``VectorAgent`` of
@@ -6936,7 +6974,10 @@ def multiprocess_server(device, root: Path, workdir: Path, mesh: dict | None = N
     parameter) and its counts: then after each wave both ranks' gathered
     params (each rank's ``state_log``) are sha256-equal to the published
     bundle, and the checkpoint's saved train state equals, tensor for
-    tensor, a single-process learner's save of the same state."""
+    tensor, a single-process learner's save of the same state. Phase 25
+    (b) passes the pp flagship's ``arch`` and a mesh whose pp axis crosses
+    the ranks: each rank then launches its stages' share, and the agent
+    runs every layer a dispatch (the pipeline family's readout)."""
     import shutil
 
     import torch
@@ -6954,7 +6995,6 @@ def multiprocess_server(device, root: Path, workdir: Path, mesh: dict | None = N
     workdir.mkdir(parents=True)
     server_addrs, agent_addrs = zmq_addrs()
     env = RecallEnv(LEARNER_HORIZON, N_CUES)
-    arch = SLICE_ARCH
     hyperparams = {"model_kind": arch["kind"], "seed": SEED,
                    **{k: v for k, v in arch.items()
                       if k not in ("kind", "has_critic", "precision")},
@@ -6962,7 +7002,14 @@ def multiprocess_server(device, root: Path, workdir: Path, mesh: dict | None = N
     ckpt_dir = workdir / "checkpoints"
     cards = torch.cuda.device_count() >= MH_RANKS
     n_layers = arch["n_layers"]
-    per_update = (n_layers * (4 + LEARNER["train_vf_iters"]), n_layers, n_layers)
+    per_pass = n_layers
+    if (mesh or {}).get("pp", 1) > 1:
+        from relayrl_tpu_torch.parallel import resolve_microbatches
+
+        per_pass = n_layers // mesh["pp"] * resolve_microbatches(
+            LEARNER["traj_per_epoch"] // mesh.get("dp", 1), mesh["pp"])
+    per_update = (per_pass * (4 + LEARNER["train_vf_iters"]), per_pass, per_pass)
+    per_dispatch = n_layers if arch["kind"] == PP_ARCH["kind"] else n_layers - 1
     agent_config = workdir / "agent_config.json"
     agent_config.write_text(json.dumps({}))
 
@@ -7112,7 +7159,7 @@ def multiprocess_server(device, root: Path, workdir: Path, mesh: dict | None = N
                 raise AssertionError(f"(b) {sum(sent.values())} trajectories sent for {total} "
                                      f"updates; after the resume {finals[0]['stats']}")
             counts.append(counts_b)
-        if agent_k1 != (n_layers - 1) * dispatches:
+        if agent_k1 != per_dispatch * dispatches:
             raise AssertionError(f"(b) agent launches {agent_k1} over {dispatches} dispatches")
         return {"seconds": seconds, "counts": counts,
                 "replayed": finals[0]["accounting"]["duplicates"],
@@ -7810,6 +7857,272 @@ def multiprocess_split(device, root: Path, workdir: Path, learned: dict,
             "same_as_dp": (rs[0]["updates"][0]["digest"][:16] == dp_digest
                            if name == "flagship" and dp_digest else None)}
     return out
+
+
+def pp_tree(params0) -> dict:
+    """Phase 5's params (``block_i`` modules) as the pp family's flax tree:
+    every layer's leaves stacked into ``blocks``, as phase 16 (c) stacks
+    them."""
+    import numpy as np
+
+    from relayrl_tpu_torch.weights import params_to_jax
+
+    inner = dict(params_to_jax(params0)["params"])
+    layers = [inner.pop(f"block_{i}") for i in range(PP_ARCH["n_layers"])]
+    inner["blocks"] = {scope: {name: np.stack([layer[scope][name] for layer in layers])
+                               for name in layers[0][scope]} for scope in layers[0]}
+    return {"params": inner}
+
+
+def pp_holdings(state, device, stages: list[int], per_stage: int) -> dict:
+    """What this rank holds of the pp flagship: the parameter and Adam
+    moment bytes of its stages' layers and of the replicated ends (every
+    parameter outside ``blocks``), and the layers it holds no bytes of.
+    Fails where a held parameter is not a leaf on ``device`` with moments
+    of twice its bytes, or another rank's layer holds any."""
+    moments = {}
+    for opt in (state.pi_opt, state.vf_opt):
+        for p, st in (opt.state.items() if opt is not None else ()):
+            moments[id(p)] = sum(v.numel() * v.element_size() for v in st.values()
+                                 if hasattr(v, "ndim") and v.ndim)
+    out = {"stage_bytes": 0, "stage_moment_bytes": 0, "ends_bytes": 0,
+           "ends_moment_bytes": 0, "absent_layers": []}
+    for name, p in state.params.named_parameters():
+        layer = int(name.split(".")[1]) if name.startswith("blocks.") else None
+        if layer is not None and layer // per_stage not in stages:
+            if not p.is_meta or id(p) in moments:
+                raise AssertionError(f"{name}: another rank's stage held here "
+                                     f"({p.device}, moments {id(p) in moments})")
+            if layer not in out["absent_layers"]:
+                out["absent_layers"].append(layer)
+            continue
+        nbytes = p.numel() * p.element_size()
+        if not (p.is_leaf and p.device == device and moments.get(id(p)) == 2 * nbytes):
+            raise AssertionError(f"{name}: on {p.device}, moments {moments.get(id(p))} "
+                                 f"for {nbytes} bytes")
+        key = "stage" if layer is not None else "ends"
+        out[f"{key}_bytes"] += nbytes
+        out[f"{key}_moment_bytes"] += moments[id(p)]
+    return out
+
+
+def mh_pp_rank_main(rank: int, port: int, workdir: Path) -> int:
+    """One rank of phase 25 (a) and (c) (``chip_smoke.py --mh-pp-rank RANK
+    PORT WORKDIR``, started by :func:`multiprocess_pp`): forms the process
+    group, builds the pp flagship's learner, loads the parent's params
+    (checked by digest), places a fresh-Adam state on the case's mesh (its
+    pp axis across the ranks, one entry a rank: this rank's stages only),
+    receives the coordinator's batch through the broadcast and trains one
+    update, then ``timed`` more; records after each the metrics, the
+    launches (K1-K3 and K4-K6), the hops (``pipeline.COMM``), the gathered
+    params' digest (a collective) and the replicated ends' digest as this
+    rank holds them, and what it holds (:func:`pp_holdings`). Writes
+    ``WORKDIR/rank<RANK>.pt``."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+    from relayrl_tpu_torch.parallel import (
+        broadcast_from_coordinator,
+        distributed,
+        initialize_distributed,
+        make_mesh,
+        make_sharded_update,
+        pipeline,
+        place_state,
+    )
+    from relayrl_tpu_torch.weights import logical_state, params_to_jax
+
+    spec = torch.load(workdir / "cases.pt", weights_only=False)
+    info = initialize_distributed(f"127.0.0.1:{port}", spec["ranks"], rank)
+    if info != {"multi_host": True, "process_id": rank, "num_processes": spec["ranks"]}:
+        raise AssertionError(f"rank {rank}: topology {info}")
+    device = rank_device()
+    algo = build_learner(device, workdir / f"rank{rank}_learner", PP_ARCH)
+    params = algo.policy.load_params(spec["tree"])
+    if _digest(params_to_jax(params)) != spec["params0"]:
+        raise AssertionError(f"rank {rank}: initial params differ from the parent's")
+    state, update, _ = update_parts(algo, algo.policy, params)
+    mesh = make_mesh(spec["mesh"], [device])
+    sharded = make_sharded_update(update, mesh, state)
+    state = place_state(state, mesh)
+    want = spec["batch"]
+    batch = broadcast_from_coordinator(
+        want if rank == 0 else {k: np.zeros_like(v) for k, v in want.items()})
+    if not all(np.array_equal(batch[k], want[k]) and batch[k].dtype == want[k].dtype
+               for k in want):
+        raise AssertionError(f"rank {rank}: the broadcast batch differs")
+
+    def ends_digest() -> str:
+        h = hashlib.sha256()
+        for name, p in state.params.named_parameters():
+            if not name.startswith("blocks."):
+                h.update(name.encode())
+                h.update(p.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                         .numpy().tobytes())
+        return h.hexdigest()
+
+    def step() -> dict:
+        nonlocal state
+        zero_flash_counts()
+        zero_ring_counts()
+        pipeline.COMM.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = sharded(state, batch)
+        metrics = read_metrics(metrics)
+        torch.cuda.synchronize()
+        return {"ms": 1e3 * (time.perf_counter() - t0), "metrics": metrics,
+                "counts": flash_counts(), "ring": ring_counts(),
+                "comm": pipeline.COMM.as_dict(), "ends": ends_digest(),
+                "digest": _digest(params_to_jax(state.params))}
+
+    first = step()
+    first["params"] = {k: v.detach().cpu().clone()
+                       for k, v in logical_state(state.params).items()}
+    updates = [first] + [step() for _ in range(spec["timed"])]
+    stages = mesh.shard_indices("pp")
+    out = {"backend": distributed.backend(), "card": torch.cuda.get_device_name(device),
+           "cross": mesh.cross_axes, "stages": stages, "updates": updates,
+           "holdings": pp_holdings(state, device, stages,
+                                   PP_ARCH["n_layers"] // spec["mesh"]["pp"])}
+    torch.save(out, workdir / f"rank{rank}.pt")
+    distributed.barrier()
+    distributed.shutdown_distributed()
+    print(f"[mh-pp-rank {rank}] done ({out['backend']} on {out['card']})", flush=True)
+    return 0
+
+
+def pp_hop_counts(mesh: dict, stages: list[int], micro: int, rows: int) -> dict:
+    """What one update's pipeline moves on a rank holding ``stages`` of
+    ``mesh``'s pp line, from the activation's shape (``rows`` a data
+    group in ``micro`` microbatches, ``[rows / micro, T, d_model]`` f32):
+    each of the ``4 + train_vf_iters`` forwards hands every microbatch
+    down the line once and broadcasts the output, the one backward
+    through the trunk hands every gradient back and broadcasts the
+    feed's."""
+    forwards = 4 + LEARNER["train_vf_iters"]
+    act = rows // micro * LEARNER["bucket_lengths"][0] * PP_ARCH["d_model"] * 4
+    down = stages[-1] < mesh["pp"] - 1
+    up = stages[0] > 0
+    sends = forwards * micro * down + micro * up
+    recvs = forwards * micro * up + micro * down
+    return {"sends": sends, "send_bytes": sends * act, "recvs": recvs,
+            "recv_bytes": recvs * act, "broadcasts": forwards + 1,
+            "broadcast_bytes": (forwards + 1) * micro * act}
+
+
+def multiprocess_pp(device, root: Path, workdir: Path, learned: dict,
+                    mesh: dict = MHP_MESH, ranks_n: int = MH_RANKS) -> dict:
+    """Phase 25 (a) (and (c), ``MHP_MESH4`` over ``MHP_RANKS4`` ranks):
+    ``ranks_n`` rank processes (:func:`mh_pp_rank_main`), one mesh entry
+    each, over the pp flagship from phase 5's initial params stacked into
+    the blocks layout, on phase 5's first batch: one update then
+    ``MHP_TIMED`` more. Held to this process's single-process pipelined
+    update over the same spec's entries at phase 5's bars (bit-equality
+    reported); the ranks' gathered params and their replicated ends
+    sha256-equal after every update; K1/K2/K3 per rank per update (L/pp)
+    x M x (4 + train_vf_iters) / (L/pp) x M / (L/pp) x M, summing to the
+    single-process update's, K4-K6 none; the hops' and broadcasts' counts
+    and bytes exactly :func:`pp_hop_counts`'; each rank's parameter and
+    moment bytes its stages' layers and the replicated ends on its card,
+    the other stages' absent (:func:`pp_holdings`)."""
+    import shutil
+
+    import torch
+
+    from relayrl_tpu_torch.parallel import resolve_microbatches
+    from relayrl_tpu_torch.weights import params_to_jax
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    algo = build_learner(device, workdir / "single", PP_ARCH)
+    tree = pp_tree(learned["params0"])
+    params0 = algo.policy.load_params(tree)
+    batch = learned["batch"]
+    n_layers, stages_n, groups = PP_ARCH["n_layers"], mesh["pp"], mesh["dp"]
+    rows = LEARNER["traj_per_epoch"] // groups
+    micro = resolve_microbatches(rows, stages_n)
+    per_rank = n_layers // stages_n * micro
+    expected = (per_rank * (4 + algo.train_vf_iters), per_rank, per_rank)
+    ref_mesh = mesh_of(mesh, device, math.prod(mesh.values()))
+    side, state, ref_counts, steps, update = one_update(algo, params0, batch, device,
+                                                        on_mesh(ref_mesh))
+    cases = {"ranks": ranks_n, "mesh": mesh, "tree": tree, "batch": batch,
+             "timed": MHP_TIMED, "params0": _digest(params_to_jax(params0))}
+    torch.save(cases, workdir / "cases.pt")
+    port = _free_port()
+    cards = torch.cuda.device_count() >= ranks_n
+    envs = [mh_rank_env(r, port, cards) for r in range(ranks_n)]
+    for env in envs:
+        env["RELAYRL_NUM_PROCESSES"] = str(ranks_n)
+    t0 = time.perf_counter()
+    run_ranks(root, workdir, lambda r: ["--mh-pp-rank", r, port, workdir], envs)
+    wall = time.perf_counter() - t0
+    rs = [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(ranks_n)]
+    backends = {r["backend"] for r in rs}
+    want_backend = "nccl" if cards else "gloo"
+    if backends != {want_backend}:
+        raise AssertionError(f"backends {backends}; the rule says {want_backend}")
+    what = f"the pp flagship under {mesh} across {ranks_n} ranks"
+    for i in range(len(rs[0]["updates"])):
+        for key in ("digest", "ends", "metrics"):
+            if len({str(r["updates"][i][key]) for r in rs}) != 1:
+                raise AssertionError(f"{what}, update {i + 1}: the ranks' {key} differ")
+    counts = [u["counts"] for r in rs for u in r["updates"]]
+    total = tuple(sum(r["updates"][0]["counts"][i] for r in rs) for i in range(3))
+    if any(c != expected for c in counts) or total != ref_counts:
+        raise AssertionError(f"{what}: launches per rank per update {counts}, expected "
+                             f"{expected}; one process {ref_counts}")
+    if any(u["ring"] != (0, 0, 0) for r in rs for u in r["updates"]):
+        raise AssertionError(f"{what}: ring kernels launched "
+                             f"{[u['ring'] for r in rs for u in r['updates']]}")
+    pp_lines = {}
+    for rank, r in enumerate(rs):
+        if r["cross"] != (("dp", "pp") if groups > 1 else ("pp",)):
+            raise AssertionError(f"{what}: rank {rank} crosses {r['cross']}")
+        want_comm = pp_hop_counts(mesh, r["stages"], micro, rows)
+        for u in r["updates"]:
+            got_comm = {k: u["comm"][k] for k in want_comm}
+            if got_comm != want_comm:
+                raise AssertionError(f"{what}: rank {rank} moved {got_comm}, the "
+                                     f"schedule says {want_comm}")
+        h = r["holdings"]
+        absent = sorted(set(range(n_layers)) - {s * (n_layers // stages_n) + j
+                                                 for s in r["stages"]
+                                                 for j in range(n_layers // stages_n)})
+        if h["absent_layers"] != absent:
+            raise AssertionError(f"{what}: rank {rank} holds no bytes of layers "
+                                 f"{h['absent_layers']}, expected {absent}")
+        pp_lines.setdefault(rank // (ranks_n // groups), []).extend(r["stages"])
+    if any(sorted(v) != list(range(stages_n)) for v in pp_lines.values()):
+        raise AssertionError(f"{what}: the pp groups hold stages {pp_lines}")
+    got = ({k: v.to(device) for k, v in rs[0]["updates"][0]["params"].items()},
+           rs[0]["updates"][0]["metrics"])
+    held = hold_update(got, side, params0, steps, f"{what} vs one process")
+    held["bit_equal"] = (all(torch.equal(got[0][k], v) for k, v in side[0].items())
+                         and got[1] == side[1])
+    # Timed last: it moves the reference's params (``side``) in place.
+    ref_ms, _ = update_ms(update, state, batch, device)
+    whole = sum(p.numel() * p.element_size() for p in params0.parameters())
+    return {**held, "wall": wall, "backend": want_backend, "cards": [r["card"] for r in rs],
+            "mesh": mesh, "counts": expected, "ref_counts": ref_counts, "micro": micro,
+            "stages": [r["stages"] for r in rs], "ref_ms": ref_ms,
+            "first_ms": [r["updates"][0]["ms"] for r in rs],
+            "ms": [sum(u["ms"] for u in r["updates"][1:]) / max(1, len(r["updates"]) - 1)
+                   for r in rs],
+            "comm": [r["updates"][-1]["comm"] for r in rs],
+            "holdings": [r["holdings"] for r in rs], "whole_bytes": whole,
+            "digest": rs[0]["updates"][-1]["digest"][:16],
+            "first_digest": rs[0]["updates"][0]["digest"][:16],
+            "launches": tuple(sum(u["counts"][i] for r in rs for u in r["updates"])
+                              + ref_counts[i] for i in range(3))}
 
 
 def nccl_shared_card_probe(rank: int, port: int) -> int:
@@ -8758,6 +9071,60 @@ def main() -> int:
         mhs_launches[i] + sum(c[i] for part in ds24["counts"] for c in part) for i in range(3))
     mhs_fwd += ds24["agent_k1"]
 
+    print(f"[time] phase 25 at {time.perf_counter() - t_run:.1f} s", flush=True)
+    # 25. the pipeline across the ranks: each rank holds and steps only its
+    # own pp stages, activations and their gradients hop between them
+    t25 = time.perf_counter()
+    layouts = [(MHP_MESH, MH_RANKS)]
+    if torch.cuda.device_count() >= MHP_RANKS4:
+        layouts.append((MHP_MESH4, MHP_RANKS4))
+    mhp_launches, first_pp = [0, 0, 0], None
+    for mesh25, ranks_n in layouts:
+        r = multiprocess_pp(device, root, root / "build" / f"chip_smoke_mh_pp{ranks_n}",
+                            learned, mesh25, ranks_n)
+        first_pp = first_pp or r["first_digest"]
+        held = (f"{'bit-equal to it' if r['bit_equal'] else 'not bit-equal to it'}: max "
+                f"metric diff {r['metric_err']:.3e}, max param diff {r['param_err']:.3e}, "
+                f"mean {r['mean_diff_share']:.4f} of the movement (phase 5's bars)")
+        print(f"[mh-pp] the pp flagship under {r['mesh']} across {ranks_n} ranks "
+              f"({r['backend']}, {', '.join(r['cards'])}; stages {r['stages']}, "
+              f"{r['micro']} microbatches): phase 5's first batch broadcast bit-equal; the "
+              f"ranks' gathered params (sha256 {r['digest']}...) and replicated ends equal "
+              f"after each of {MHP_TIMED + 1} updates; launches per rank per update "
+              f"{r['counts']}, summing to one process's {r['ref_counts']}; K4-K6 none; vs "
+              f"one process's pipelined {r['mesh']} update {held}; first update digest "
+              f"{r['first_digest']}... ((a)'s {first_pp}...)", flush=True)
+        for rank, (h, comm) in enumerate(zip(r["holdings"], r["comm"])):
+            print(f"[mh-pp] rank {rank}: holds (stage params, their moments, ends params, "
+                  f"their moments) ({h['stage_bytes']}, {h['stage_moment_bytes']}, "
+                  f"{h['ends_bytes']}, {h['ends_moment_bytes']}) bytes of the whole "
+                  f"{r['whole_bytes']}, no bytes of layers {h['absent_layers']}; per update "
+                  f"{comm['sends']} activations and gradients sent ({comm['send_bytes']} "
+                  f"bytes), {comm['recvs']} received ({comm['recv_bytes']} bytes) in "
+                  f"{1e3 * comm['hop_seconds']:.2f} ms, {comm['broadcasts']} broadcasts "
+                  f"({comm['broadcast_bytes']} bytes) in "
+                  f"{1e3 * comm['broadcast_seconds']:.2f} ms (host clock); first update "
+                  f"{r['first_ms'][rank]:.2f} ms, (not gated) {r['ms'][rank]:.2f} ms per "
+                  f"update over {MHP_TIMED} beside one process's {r['ref_ms']:.2f} on {card}",
+                  flush=True)
+        for i in range(3):
+            mhp_launches[i] += r["launches"][i]
+    ps25 = multiprocess_server(device, root, root / "build" / "chip_smoke_mh_pp_server",
+                               MHP_MESH, MHP_SERVER_UPDATES, 0, PP_ARCH)
+    print(f"[mh-pp] (b) a {MH_RANKS}-rank TrainingServer with learner.mesh {MHP_MESH} and "
+          f"the pp flagship, fed by {MH_LANES} agent lanes: {MHP_SERVER_UPDATES} update(s), "
+          f"a collective checkpoint (its train state equal, tensor for tensor, to a "
+          f"single-process save of it); every version installed by the agent and served "
+          f"through K1 ({ps25['agent_k1']} launches), each published bundle sha256-equal to "
+          f"both ranks' gathered params; ranks at version {ps25['version']} (sha256 "
+          f"{ps25['digest']}...); launches per rank {ps25['counts']}; {ps25['sent']} "
+          f"trajectories sent = accepted = trained; (not gated) seconds per wave "
+          f"{[round(x, 2) for x in ps25['seconds']]} on {card}", flush=True)
+    print(f"[mh-pp] phase 25 in {time.perf_counter() - t25:.1f} s", flush=True)
+    mhp_fwd, mhp_dq, mhp_dkv = (
+        mhp_launches[i] + sum(c[i] for part in ps25["counts"] for c in part) for i in range(3))
+    mhp_fwd += ps25["agent_k1"]
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -8766,7 +9133,7 @@ def main() -> int:
         "launches": (run["launches"] + fwd + r_fwd + decode["launches"] + a_fwd + d_fwd
                      + ga_fwd + g_fwd + fa_fwd + f_fwd + p_fwd + fam_fwd + anakin_fwd
                      + serving_fwd + s_fwd + rlhf_gen + rlhf_learn + traced_fwd + mesh_fwd
-                     + mh_fwd + mhs_fwd),
+                     + mh_fwd + mhs_fwd + mhp_fwd),
         "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd,
                              "decode_vs_window": decode["launches"],
                              "distributed_agent": a_fwd, "distributed_server": d_fwd,
@@ -8789,7 +9156,7 @@ def main() -> int:
                              "traced_rlhf": trl["launches"][0],
                              "profiled_update": pu["counts"][0],
                              "mesh_learner": mesh_fwd, "multiprocess_learner": mh_fwd,
-                             "multiprocess_split": mhs_fwd},
+                             "multiprocess_split": mhs_fwd, "multiprocess_pp": mhp_fwd},
         **main_flash,
     }, {
         "name": "flash_dq",
@@ -8797,7 +9164,7 @@ def main() -> int:
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:223",
         "launches": (dq + r_dq + d_dq + g_dq + f_dq + p_dq + m_dq + pp_dq + a_ddq + s_dq
-                     + rlhf_learn + traced_dq + mesh_dq + mh_dq + mhs_dq),
+                     + rlhf_learn + traced_dq + mesh_dq + mh_dq + mhs_dq + mhp_dq),
         "launches_by_path": {"learner": dq, "local_loop": r_dq, "distributed_server": d_dq,
                              "guardrails_server": g_dq, "fleet_server": f_dq,
                              "ppo_learner": p_dq, "offpolicy": off_counts[1],
@@ -8806,7 +9173,8 @@ def main() -> int:
                              "served_learner": s_dq, "rlhf_learner": rlhf_learn,
                              "traced_fleet_server": t_dq, "traced_rlhf": trl["launches"][1],
                              "profiled_update": pu["counts"][1], "mesh_learner": mesh_dq,
-                             "multiprocess_learner": mh_dq, "multiprocess_split": mhs_dq},
+                             "multiprocess_learner": mh_dq, "multiprocess_split": mhs_dq,
+                             "multiprocess_pp": mhp_dq},
         **main_bwd["flash_dq"],
     }, {
         "name": "flash_dkv",
@@ -8814,7 +9182,8 @@ def main() -> int:
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:255",
         "launches": (dkv + r_dkv + d_dkv + g_dkv + f_dkv + p_dkv + m_dkv + pp_dkv + a_ddkv
-                     + s_dkv + rlhf_learn + traced_dkv + mesh_dkv + mh_dkv + mhs_dkv),
+                     + s_dkv + rlhf_learn + traced_dkv + mesh_dkv + mh_dkv + mhs_dkv
+                     + mhp_dkv),
         "launches_by_path": {"learner": dkv, "local_loop": r_dkv,
                              "distributed_server": d_dkv, "guardrails_server": g_dkv,
                              "fleet_server": f_dkv, "ppo_learner": p_dkv,
@@ -8824,7 +9193,8 @@ def main() -> int:
                              "rlhf_learner": rlhf_learn,
                              "traced_fleet_server": t_dkv, "traced_rlhf": trl["launches"][2],
                              "profiled_update": pu["counts"][2], "mesh_learner": mesh_dkv,
-                             "multiprocess_learner": mh_dkv, "multiprocess_split": mhs_dkv},
+                             "multiprocess_learner": mh_dkv, "multiprocess_split": mhs_dkv,
+                             "multiprocess_pp": mhp_dkv},
         **main_bwd["flash_dkv"],
     }] + [{
         "name": name,
@@ -8882,6 +9252,8 @@ if __name__ == "__main__":
         sys.exit(mh_ring_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     if sys.argv[1:2] == ["--mh-split-rank"]:
         sys.exit(mh_split_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
+    if sys.argv[1:2] == ["--mh-pp-rank"]:
+        sys.exit(mh_pp_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     if sys.argv[1:2] == ["--nccl-shared-card-probe"]:
         sys.exit(nccl_shared_card_probe(int(sys.argv[2]), int(sys.argv[3])))
     if sys.argv[1:2] in (["--recall-sweep"], ["--moe-golden-sweep"]):

@@ -33,7 +33,7 @@ from relayrl_tpu_torch.algorithms.onpolicy import OnPolicyAlgorithm
 from relayrl_tpu_torch.models import apply_arch_overrides, build_policy
 from relayrl_tpu_torch.ops.gae import masked_mean_std
 from relayrl_tpu_torch.ops.vtrace import vtrace
-from relayrl_tpu_torch.parallel.context import dp_gradients, dp_sum
+from relayrl_tpu_torch.parallel.context import dp_gradients, dp_sum, grad_sq_norm
 
 
 @dataclasses.dataclass
@@ -56,11 +56,13 @@ def make_impala_optimizer(params: nn.Module, lr: float, freeze=()):
     return torch.optim.Adam(train, lr=lr) if train else None
 
 
-def clip_by_global_norm(grads: list[torch.Tensor],
-                        max_norm: float) -> list[torch.Tensor]:
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
+                        params: list) -> list[torch.Tensor]:
     """optax's ``clip_by_global_norm``: ``g`` while the global norm is
-    below ``max_norm``, else ``(g / norm) * max_norm``."""
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    below ``max_norm``, else ``(g / norm) * max_norm``. ``params`` are the
+    leaves ``grads`` belong to: where a split of the model crosses
+    processes the norm is the whole model's (:func:`grad_sq_norm`)."""
+    norm = torch.sqrt(grad_sq_norm(grads, params))
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
             for g in grads]
@@ -94,12 +96,13 @@ def make_impala_update(policy, gamma: float, vf_coef: float, ent_coef: float,
             if state.opt is not None:
                 train = [p for group in state.opt.param_groups
                          for p in group["params"]]
-                # Summed over the data-parallel group before the clip, so
-                # the clip reads the global norm.
+                # Summed over the data-parallel group before the clip, and
+                # the squares over the ranks of a crossing split, so the
+                # clip reads the whole model's global norm.
                 grads = dp_gradients(total, train)
                 for param, grad in zip(train,
-                                       clip_by_global_norm(grads,
-                                                           max_grad_norm)):
+                                       clip_by_global_norm(grads, max_grad_norm,
+                                                           train)):
                     param.grad = grad
                 state.opt.step()
                 state.opt.zero_grad(set_to_none=True)

@@ -27,9 +27,9 @@ loop ships each epoch batch from the coordinator (non-coordinators feed
 the broadcast ``mh_zero_batch``), every process trains on its rows with
 its gradients and batch statistics summed over the group, and every
 process holds the same parameters after each update (its own shards of
-them where fsdp, ep or tp crosses: :meth:`bundle`, the publish snapshot,
-the checkpoint and the probes then gather, and every process calls them
-in the same order).
+them where fsdp, ep or tp crosses, its own pipeline stages where pp
+does: :meth:`bundle`, the publish snapshot, the checkpoint and the probes
+then gather, and every process calls them in the same order).
 """
 
 from __future__ import annotations
@@ -295,7 +295,7 @@ class OnPolicyAlgorithm(AlgorithmBase):
     def bundle(self) -> ModelBundle:
         """The current policy for actors: params as the flax tree of numpy
         arrays, so port and JAX actors both load it (a collective where a
-        split of the params crosses processes)."""
+        split of the params, or the pipeline's stages, cross processes)."""
         return ModelBundle(version=self.version, arch=self.arch,
                            params=params_to_jax(self.state.params))
 

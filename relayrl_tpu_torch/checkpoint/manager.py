@@ -21,10 +21,11 @@ In a multi-process learner (:mod:`relayrl_tpu_torch.parallel.distributed`)
 whole state to the shared directory, and every process waits at a
 barrier until the step is in place. Where a split of the state crosses
 processes (fsdp, ep or tp across them), each process holds only its
-shards: every process then captures the state, its split parameters and
-moments gathered whole from every rank, before the coordinator writes. A
-resume restores the same step on every process, each keeping its own
-shards. Checkpoints stay mesh-free.
+shards, and where pp does, only its pipeline stages' layers and moments:
+every process then captures the state, its split parameters and moments
+gathered whole from every rank (a stage's from its owner), before the
+coordinator writes. A resume restores the same step on every process,
+each keeping its own shards and stages. Checkpoints stay mesh-free.
 """
 
 from __future__ import annotations

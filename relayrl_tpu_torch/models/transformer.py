@@ -249,7 +249,8 @@ class TransformerCore(nn.Module):
     def _run_blocks(self, blocks, x: torch.Tensor) -> torch.Tensor:
         """``blocks`` (:meth:`layers`) over every row: the pipeline family
         under a mesh with ``pp`` above 1 as the GPipe schedule over
-        ``pp``, else in order."""
+        ``pp`` (this rank's stages alone where ``pp`` crosses processes),
+        else in order."""
         mesh = current_mesh()
         if self.stacked and mesh is not None and mesh.shape.get("pp", 1) > 1:
             if self.attention == "ring" and mesh.shape.get("sp", 1) > 1:

@@ -24,6 +24,9 @@ sums of statistics (:func:`dp_sum`, with shares of means from
 (:func:`dp_gradients`), the global row count (:func:`dp_global_rows`),
 this process's rows of a whole-batch draw (:func:`dp_rows`). Without a
 group each is the identity, so one update serves one process and many.
+Where a split of the model crosses processes (fsdp, ep or tp shards,
+pipeline stages) a process holds only its part of the gradient, and a
+global norm is the sum of the parts' squares (:func:`grad_sq_norm`).
 
 A layer whose work splits over an ``ep`` or ``tp`` axis that crosses
 processes (the MoE's expert groups, the tp MLP pair) runs its part of the
@@ -108,6 +111,22 @@ def dp_mean(x: torch.Tensor) -> torch.Tensor:
     return x.mean() if group is None else x.mean() / group.size
 
 
+def hold_for_backward(leaf: torch.Tensor) -> None:
+    """Have the next :func:`dp_gradients` of this thread ask ``leaf``'s
+    gradient too (and drop it) if it asks one of a pipeline stage's
+    parameters (``split_comms`` over ``pp``, set by the placement). A
+    pipeline across processes threads its hops' backwards on such a leaf
+    (:mod:`relayrl_tpu_torch.parallel.pipeline`): stage 0's rank needs
+    them for its stage's gradient, and the last stage's rank would prune
+    them where nothing before the pipeline trains (a frozen embedding).
+    Every rank of the pp group asks its own stages' parameters or none,
+    so either all run the hops' backwards or none does; a loss that
+    reaches no stage (a value head's) runs none."""
+    if not hasattr(_state, "held"):
+        _state.held = []
+    _state.held.append(leaf)
+
+
 def _sum_flat(group, grads: list[torch.Tensor]) -> list[torch.Tensor]:
     """``grads`` summed over ``group`` in one collective."""
     if group is None or not grads:
@@ -130,11 +149,17 @@ def dp_gradients(loss: torch.Tensor | None, params: list) -> list[torch.Tensor]:
     the single-process gradients. A shard whose gather crosses the fsdp
     ranks (``summed_over_fsdp``, set by the placement) took its sum over
     them in the gather's reduce-scatter: it is summed over the dp ranks
-    alone."""
+    alone. Where ``params`` hold a pipeline stage's, the leaves
+    :func:`hold_for_backward` registered since the last call are asked
+    too."""
+    held, _state.held = getattr(_state, "held", []), []
+    if not any(axis == "pp" for p in params for axis, _ in getattr(p, "split_comms", ())):
+        held = []
     if loss is None:
         grads = [None] * len(params)
     else:
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = torch.autograd.grad(loss, list(params) + held,
+                                    allow_unused=True)[:len(params)]
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
     group = current_dp_group()
     if group is None or not grads:
@@ -146,6 +171,38 @@ def dp_gradients(loss: torch.Tensor | None, params: list) -> list[torch.Tensor]:
         for i, g in zip(idx, _sum_flat(sub, [grads[i] for i in idx])):
             out[i] = g
     return out
+
+
+def grad_sq_norm(grads: list[torch.Tensor], params: list) -> torch.Tensor:
+    """The squared global norm of the model's gradient, from this
+    process's gradient leaves ``grads`` of ``params`` (after
+    :func:`dp_gradients`): where a split of the model crosses processes
+    (fsdp, ep or tp shards, pp stages) a process holds only its part, so
+    the squares of such leaves are summed over the ranks of each axis
+    they split over (``split_comms``, set by the placement), one
+    all-reduce an axis, and every other leaf counts once, as the replica
+    it is. What GSPMD computes for ``optax.clip_by_global_norm`` in the
+    JAX package; the plain sum of squares without a crossing split."""
+    whole = torch.zeros((), dtype=torch.float32, device=grads[0].device if grads else None)
+    parts: dict[tuple, torch.Tensor] = {}
+    comms: dict[str, object] = {}
+    for g, p in zip(grads, params):
+        sq = g.float().square().sum()
+        split = getattr(p, "split_comms", ())
+        if not split:
+            whole = whole + sq
+            continue
+        key = tuple(axis for axis, _ in split)
+        parts[key] = parts.get(key, 0) + sq
+        comms.update(split)
+    if parts:
+        keys = sorted(parts)
+        flat = torch.stack([parts[k].reshape(()) for k in keys])
+        for axis in sorted(comms):
+            rows = [i for i, k in enumerate(keys) if axis in k]
+            flat[rows] = comms[axis].all_reduce(flat[rows].clone())
+        whole = whole + flat.sum()
+    return whole
 
 
 class _EnterSplit(torch.autograd.Function):

@@ -3,8 +3,8 @@
 Counterpart of :mod:`relayrl_tpu.parallel.distributed`. The JAX package
 scales its learner across hosts with ``jax.distributed``; the port starts
 a ``torch.distributed`` process group over a TCP store at the coordinator
-address, and the learner's ``dp``, ``fsdp``, ``ep``, ``tp`` and ``sp``
-axes may span the processes (:func:`relayrl_tpu_torch.parallel.mesh.
+address, and the learner's ``dp``, ``fsdp``, ``ep``, ``tp``, ``sp`` and
+``pp`` axes may span the processes (:func:`relayrl_tpu_torch.parallel.mesh.
 make_mesh`). A mesh that spans them forms one group per line of each
 crossing axis (:func:`form_axis_groups`): the dp groups (processes that
 differ only in their dp coordinate); the data groups (those that differ
@@ -12,9 +12,13 @@ in their dp or fsdp coordinate: both axes consume batch), over which the
 learner sums gradients and batch statistics (:func:`data_parallel_group`);
 the fsdp, ep and tp groups, over which a split parameter gathers and its
 gradient reduce-scatters and a layer split over ep or tp sums its partial
-results (:func:`axis_comm`, :class:`AxisGroup`); and the sp groups (the
+results (:func:`axis_comm`, :class:`AxisGroup`); the sp groups (the
 processes of one ring), over which K/V chunks hop and the ring's chunks
-gather (:func:`axis_group`).
+gather (:func:`axis_group`); and the pp groups (the processes of one
+pipeline), over which activations and their gradients hop between stages,
+the pipeline's output and the feed's gradient are broadcast, and a
+stage's parameters and moments are read from their owner
+(:mod:`relayrl_tpu_torch.parallel.pipeline`, :meth:`AxisGroup.broadcast`).
 
 Resolution order for each knob: explicit argument > environment variable
 (``RELAYRL_COORDINATOR`` / ``RELAYRL_NUM_PROCESSES`` /
@@ -313,7 +317,7 @@ def broadcast_from_coordinator(tree):
 
 # The axes whose lines form process groups when they cross, then the
 # data plane (dp x fsdp), in the order every rank forms them.
-GROUP_AXES = ("dp", "fsdp", "ep", "tp", "sp", ("dp", "fsdp"))
+GROUP_AXES = ("dp", "fsdp", "ep", "tp", "sp", "pp", ("dp", "fsdp"))
 
 
 def form_axis_groups(mesh) -> None:
@@ -366,12 +370,13 @@ def stages_through_host(device: torch.device) -> bool:
 
 class SplitComm:
     """What the split parameters' collectives moved in this process:
-    gathers (a parameter's shards joined whole), reduce-scatters (the
-    gradient of the whole summed back onto the shards) and the all-reduces
-    of the regions split over ep or tp (:mod:`relayrl_tpu_torch.parallel.
-    context`); counts, bytes this process received or summed, and seconds
-    on the host clock (a gloo stage's copy to the host waits for the
-    device)."""
+    gathers (a parameter's shards joined whole, or a pipeline stage's
+    parameters broadcast from their owner), reduce-scatters
+    (the gradient of the whole summed back onto the shards) and the
+    all-reduces of the regions split over ep or tp (:mod:`relayrl_tpu_torch.
+    parallel.context`); counts, bytes this process received or summed,
+    and seconds on the host clock (a gloo stage's copy to the host waits
+    for the device)."""
 
     def __init__(self):
         self.reset()
@@ -396,8 +401,10 @@ class AxisGroup:
     Every collective raises on failure (a timeout after
     :data:`TIMEOUT_S`); none falls back to a local result."""
 
-    def __init__(self, rank: int, size: int, group=None):
+    def __init__(self, rank: int, size: int, group, ranks):
         self.rank, self.size, self.group = rank, size, group
+        # The members' global ranks in group order.
+        self.ranks = tuple(ranks)
 
     def __deepcopy__(self, memo):
         # A process group is the process's own: a copied module shares it.
@@ -428,6 +435,40 @@ class AxisGroup:
         COMM.gather_bytes += buf.numel() * buf.element_size() * self.size
         COMM.gather_seconds += time.perf_counter() - t0
         return out
+
+    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Member ``src``'s ``t`` on every member (the others pass a
+        tensor of its shape and dtype), a new tensor on ``t``'s device;
+        staged through host memory where gloo cannot carry ``t``'s device
+        and through this process's card where nccl cannot."""
+        import torch.distributed as dist
+
+        device = t.device
+        buf = t.detach().contiguous().clone()
+        if stages_through_host(device):
+            buf = buf.cpu()
+        elif backend() == "nccl" and device.type != "cuda":
+            buf = buf.to(torch.device("cuda", torch.cuda.current_device()))
+        dist.broadcast(buf, src=self.ranks[src], group=self.group)
+        return buf.to(device)
+
+    def broadcast_object(self, obj, src: int):
+        """Member ``src``'s ``obj`` (anything ``torch.save`` writes,
+        tensors on the CPU) on every member; the others pass None. Two
+        broadcasts: the length, then the bytes."""
+        import io
+
+        if self.rank == src:
+            stream = io.BytesIO()
+            torch.save(obj, stream)
+            data = torch.frombuffer(bytearray(stream.getvalue()), dtype=torch.uint8)
+        else:
+            data = torch.zeros(0, dtype=torch.uint8)
+        n = self.broadcast(torch.tensor([data.numel()], dtype=torch.int64), src)
+        if self.rank != src:
+            data = torch.empty(int(n[0]), dtype=torch.uint8)
+        data = self.broadcast(data, src)
+        return torch.load(io.BytesIO(data.numpy().tobytes()), weights_only=False)
 
     def reduce_scatter(self, chunks) -> torch.Tensor:
         """``chunks[i]`` summed over the members, to member ``i``: this
@@ -464,10 +505,7 @@ class DataParallelGroup(AxisGroup):
     is the group over the dp axis alone (None when dp does not cross):
     the sum of a gradient whose fsdp gather summed it over fsdp already."""
 
-    def __init__(self, rank: int, size: int, group=None,
-                 dp: "DataParallelGroup | None" = None):
-        super().__init__(rank, size, group)
-        self.dp = dp
+    dp: "DataParallelGroup | None" = None
 
 
 def axis_comm(mesh, axis, cls=AxisGroup) -> AxisGroup | None:
@@ -480,7 +518,7 @@ def axis_comm(mesh, axis, cls=AxisGroup) -> AxisGroup | None:
     if _runtime is None:
         raise RuntimeError("initialize_distributed has not started a "
                            "multi-process group")
-    return cls(ranks.index(_runtime.rank), len(ranks), axis_group(mesh, axis))
+    return cls(ranks.index(_runtime.rank), len(ranks), axis_group(mesh, axis), ranks)
 
 
 def data_parallel_group(mesh) -> DataParallelGroup | None:

@@ -55,6 +55,14 @@ alone. Where ``sp`` spans processes too, the local sub-mesh keeps the
 other ranks' shards of the ring: the ring attends this rank's time chunks
 and gathers the outputs, so the rest of the model runs replicated on
 every rank of a ring, its gradients equal there with no sum (:mod:`.ring`).
+Where ``pp`` spans processes (beside dp alone), each process places and
+steps only its own stages' layers, with their Adam moments: another
+rank's layer stays a ``meta`` tensor of its shape (no bytes), left out of
+the optimizers, and :class:`~relayrl_tpu_torch.parallel.sharding.Stages`
+reads it whole from its owner (:func:`whole_optimizer_state` its
+moments); the pipeline hops activations between the ranks
+(:mod:`.pipeline`), and the replicated ends compute on every rank of the
+pp group, their gradients equal there with no sum.
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ from relayrl_tpu_torch.parallel.context import use_dp_group, use_mesh
 from relayrl_tpu_torch.parallel.mesh import Mesh
 from relayrl_tpu_torch.parallel.sharding import (
     Shards,
+    Stages,
     _axes,
     _coords,
     _flax_layout,
@@ -138,12 +147,19 @@ def _check_splits(mesh: Mesh, batch: dict, specs: dict) -> None:
 
 class _Placed:
     """What became of one parameter: the leaves that hold it now, and how
-    a tensor of its shape (a moment) splits onto them and joins back."""
+    a tensor of its shape (a moment) splits onto them and joins back. A
+    layer of a pipeline stage where pp crosses processes carries its
+    ``stage`` and the module's :class:`Stages`; another rank's stage
+    holds no leaf here."""
 
-    def __init__(self, params: list, shards: Shards | None, device):
+    def __init__(self, params: list, shards: Shards | None, device,
+                 stage: int | None = None, stages: Stages | None = None):
         self.params, self.shards, self.device = params, shards, device
+        self.stage, self.stages = stage, stages
 
     def split(self, t: torch.Tensor) -> list[torch.Tensor]:
+        if not self.params:
+            return []
         return self.shards.split(t) if self.shards else [t.to(self.device, copy=True)]
 
     def join(self, pieces, device="cpu") -> torch.Tensor:
@@ -164,6 +180,12 @@ def place_module(module: nn.Module, mesh: Mesh) -> dict:
     keys = list(module.state_dict())
     old = dict(module.named_parameters())
     plan = {}
+    record = None
+    if "pp" in mesh.cross_axes:
+        from relayrl_tpu_torch.parallel.distributed import axis_comm
+
+        comm = axis_comm(mesh, "pp")
+        record = Stages(comm, [comm.ranks.index(int(r)) for r in mesh.axis_owners("pp")], {})
     for path, leaf in logical_leaves(module).items():
         spec = param_pspec(path, leaf["shape"], mesh)
         names = leaf["names"]
@@ -176,9 +198,26 @@ def place_module(module: nn.Module, mesh: Mesh) -> dict:
                     parts *= mesh.shape[ax]
                 fixed = _coords(mesh, axes0, i // (len(names) // parts))
             param = old[name]
+            if record is not None and "pp" in fixed:
+                stage = int(fixed["pp"])
+                record.stage_of[name] = stage
+                if not record.mine(stage):
+                    # Another rank's stage: its shape and dtype, no bytes.
+                    owner, attr = _owner(module, name)
+                    setattr(owner, attr, nn.Parameter(torch.empty_like(param, device="meta"),
+                                                      requires_grad=param.requires_grad))
+                    plan[param] = _Placed([], None, None, stage, record)
+                    continue
+                with torch.no_grad():
+                    param.data = param.data.to(mesh_device(mesh, pp=stage))
+                # Read by context.grad_sq_norm: a part of the model.
+                param.split_comms = (("pp", record.comm),)
+                plan[param] = _Placed([param], None, param.device, stage, record)
+                continue
             layout = _flax_layout(path[-1], param.ndim)
             torch_spec = tuple(layer_spec[layout[d]] for d in range(param.ndim))
-            compute = mesh_device(mesh, pp=int(fixed.get("pp", 0)))
+            compute = (mesh_device(mesh, pp=int(fixed["pp"])) if "pp" in fixed
+                       else mesh_device(mesh))
             home = mesh_device(mesh, **fixed)
             if all(e is None for e in torch_spec) and home == compute:
                 with torch.no_grad():
@@ -189,12 +228,18 @@ def place_module(module: nn.Module, mesh: Mesh) -> dict:
             shards = Shards(param.shape, torch_spec, mesh, fixed, compute)
             parametrize.register_parametrization(owner, attr, shards)
             leaves = shard_tensors(owner, attr)
-            if shards.summed_over_fsdp:
-                # Read by context.dp_gradients: summed over dp alone.
-                for t in leaves:
+            split = shards.split_comms
+            for t in leaves:
+                if shards.summed_over_fsdp:
+                    # Read by context.dp_gradients: summed over dp alone.
                     t.summed_over_fsdp = True
+                if split:
+                    # Read by context.grad_sq_norm: a part of the model.
+                    t.split_comms = split
             plan[param] = _Placed(leaves, shards, home)
     module._logical_keys = keys
+    if record is not None:
+        module._pp_stages = record
     install_gather_buckets(module)
     return plan
 
@@ -269,7 +314,8 @@ def _is_moment(value) -> bool:
 def whole_optimizer_state(opt: torch.optim.Optimizer) -> dict:
     """``opt.state_dict()`` in the unplaced optimizer's layout: one entry
     per logical parameter, its moments joined on the CPU (gathered from
-    every rank where a split crosses processes: a collective then)."""
+    every rank where a split crosses processes, and a pipeline stage's
+    from its owner where pp does: a collective then)."""
     layout = getattr(opt, "_shard_layout", None)
     sd = opt.state_dict()
     if layout is None:
@@ -287,13 +333,24 @@ def whole_optimizer_state(opt: torch.optim.Optimizer) -> dict:
             logical.append(i)
             i += 1
         groups.append({**group, "params": logical})
+    placed = [pl for group in layout for pl in group]
+    record = next((pl.stages for pl in placed if pl.stages is not None), None)
+    if record is not None:
+        # Each stage's moments from its owner, in stage order.
+        for stage in range(len(record.owners)):
+            ids = [j for j, pl in enumerate(placed) if pl.stage == stage]
+            if ids:
+                mine = ({j: state[j] for j in ids if j in state}
+                        if record.mine(stage) else None)
+                state.update(record.comm.broadcast_object(mine, record.owners[stage]))
+        state = dict(sorted(state.items()))
     return {"state": state, "param_groups": groups}
 
 
 def load_whole_optimizer_state(opt: torch.optim.Optimizer, saved: dict) -> None:
     """Load :func:`whole_optimizer_state`'s form into ``opt``, splitting
     each moment onto the shards (this process's, where a split crosses
-    processes)."""
+    processes; only this process's pipeline stages', where pp does)."""
     layout = getattr(opt, "_shard_layout", None)
     if layout is None:
         opt.load_state_dict(saved)

@@ -25,22 +25,26 @@ local devices) are this process's, and the mesh holds ``num_processes``
 times as many. Process ``p`` owns the flat indices ``[p·L, (p+1)·L)`` of
 the device array (L devices a process), the layout of the reference's
 reshape of ``jax.devices()``; :attr:`Mesh.owners` holds each coordinate's
-rank. ``dp``, ``fsdp``, ``ep``, ``tp`` and ``sp`` may cross processes:
-``{"dp": -1, "fsdp": 2}`` over 2 processes of 4 devices gives dp 4, each
-process 2 dp coordinates x fsdp 2; ``{"dp": 1, "sp": 8}`` over 2
-processes of 4 gives one ring whose shards 0-3 sit on rank 0 and 4-7 on
-rank 1; ``{"dp": 1, "fsdp": 2}`` over 2 processes of 1 puts fsdp 0 on
-rank 0 and fsdp 1 on rank 1, so each rank holds half of every split
-parameter. :attr:`Mesh.local` is this process's sub-mesh, its block of dp
+rank. Every axis may cross processes: ``{"dp": -1, "fsdp": 2}`` over 2
+processes of 4 devices gives dp 4, each process 2 dp coordinates x fsdp
+2; ``{"dp": 1, "sp": 8}`` over 2 processes of 4 gives one ring whose
+shards 0-3 sit on rank 0 and 4-7 on rank 1; ``{"dp": 1, "fsdp": 2}`` over
+2 processes of 1 puts fsdp 0 on rank 0 and fsdp 1 on rank 1, so each rank
+holds half of every split parameter; ``{"dp": 1, "pp": 4}`` over 2
+processes of 2 puts pipeline stages 0-1 on rank 0 and 2-3 on rank 1.
+:attr:`Mesh.local` is this process's sub-mesh, its block of dp
 coordinates, which the learner drives single-controller; an axis other
 than dp that crosses stays whole there, the other ranks' entries None
 (their owners still known): the ring sees every shard and hops to the
 ranks that hold the others (:mod:`relayrl_tpu_torch.parallel.ring`), a
 split parameter keeps the shards at this rank's coordinates and gathers
-the others' (:mod:`relayrl_tpu_torch.parallel.sharding`). A spec in which
-pp would cross processes raises :class:`CrossProcessAxisError`: the
-pipeline across processes is ROADMAP.md queue 1 item 11's next slice.
-Every process's block must be a sub-grid of the mesh (:func:`make_mesh`).
+the others' (:mod:`relayrl_tpu_torch.parallel.sharding`), and the
+pipeline runs this rank's stages and hops to the ranks of the others
+(:mod:`relayrl_tpu_torch.parallel.pipeline`). A crossing pp axis does not
+compose with a crossing fsdp, ep, tp or sp axis (their collectives would
+interleave with the pipeline's hops): such a spec raises
+:class:`CrossProcessAxisError`, ROADMAP.md queue 1 item 11. Every
+process's block must be a sub-grid of the mesh (:func:`make_mesh`).
 
 Config form (``learner.mesh``): ``{"dp": -1, "fsdp": 1, "ep": 1, "tp": 1,
 "sp": 1, "pp": 1}`` where -1 means "fill with the remaining devices".
@@ -57,13 +61,16 @@ AXES = ("dp", "fsdp", "ep", "tp", "sp", "pp")
 
 
 # The axes whose coordinates may go to different processes.
-CROSS_PROCESS_AXES = ("dp", "fsdp", "ep", "tp", "sp")
+CROSS_PROCESS_AXES = ("dp", "fsdp", "ep", "tp", "sp", "pp")
+
+# The axes a crossing pp axis does not compose with when they cross too.
+_NOT_BESIDE_PP = ("fsdp", "ep", "tp", "sp")
 
 
 class CrossProcessAxisError(ValueError):
-    """``pp`` would cross processes (the pipeline across processes is not
-    ported: ROADMAP.md queue 1 item 11), or a process's block of devices
-    is not a sub-grid of the mesh."""
+    """A process's block of devices is not a sub-grid of the mesh, or
+    ``pp`` crosses processes beside a crossing fsdp, ep, tp or sp axis
+    (ROADMAP.md queue 1 item 11)."""
 
 
 class Mesh:
@@ -255,18 +262,19 @@ def make_mesh(spec: Mapping[str, int] | None = None,
     arr = np.empty(world * n, dtype=object)
     arr[rank * n:(rank + 1) * n] = devices
     mesh = Mesh(arr.reshape(dims), world, rank, owners)
-    crossing = [ax for ax in mesh.cross_axes if ax not in CROSS_PROCESS_AXES]
-    if crossing:
-        raise CrossProcessAxisError(
-            f"mesh {shape} over {world} processes of {n} devices: axes "
-            f"{crossing} would cross processes; dp, fsdp, ep, tp and sp span "
-            "processes (pp across processes is ROADMAP.md queue 1 item 11)")
     if not _is_sub_grid(dims, n):
         raise CrossProcessAxisError(
             f"mesh {shape} over {world} processes of {n} devices: a process's "
             f"block of {n} devices is not a sub-grid of the mesh (it must hold "
             "whole trailing axes and an equal part of the next; ROADMAP.md "
             "queue 1 item 11)")
+    beside = [ax for ax in mesh.cross_axes if ax in _NOT_BESIDE_PP]
+    if "pp" in mesh.cross_axes and beside:
+        raise CrossProcessAxisError(
+            f"mesh {shape} over {world} processes of {n} devices: pp crosses "
+            f"processes beside {beside}; the pipeline across processes runs "
+            "beside dp alone (pp with a crossing fsdp, ep, tp or sp is "
+            "ROADMAP.md queue 1 item 11)")
     if world > 1:
         distributed.form_axis_groups(mesh)
     return mesh

@@ -71,6 +71,13 @@ class RingComm:
     def as_dict(self) -> dict:
         return dict(vars(self))
 
+    def count_hop(self, sent: int | None, received: int | None, seconds: float) -> None:
+        """One :meth:`RingHop.exchange` that sent and received the bytes
+        given."""
+        self.hops += 1
+        self.hop_bytes += sent or 0
+        self.hop_seconds += seconds
+
 
 COMM = RingComm()
 
@@ -79,6 +86,11 @@ def _pack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """The tensors' bytes, one after another, as one flat uint8 tensor."""
     return torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
                       for t in tensors])
+
+
+def _nbytes(tensors: Sequence[torch.Tensor]) -> int:
+    """The bytes :func:`_pack` makes of tensors shaped as ``tensors``."""
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _unpack(buf: torch.Tensor, like: Sequence[torch.Tensor]) -> tuple:
@@ -92,41 +104,50 @@ def _unpack(buf: torch.Tensor, like: Sequence[torch.Tensor]) -> tuple:
 
 
 class RingHop:
-    """This rank's edges of a ring whose shards span processes: it sends
-    to ``send_to`` (the rank of its last shard's successor) and receives
-    from ``recv_from`` (the rank of its first shard's predecessor), both
-    global ranks of ``group``; ``through_host`` stages CUDA tensors
-    through host memory (gloo)."""
+    """This rank's edges of a ring (or a pipeline) whose shards span
+    processes: it sends to ``send_to`` (the rank of its last shard's
+    successor) and receives from ``recv_from`` (the rank of its first
+    shard's predecessor), both global ranks of ``group`` (None at a
+    pipeline's end); ``through_host`` stages CUDA tensors through host
+    memory (gloo); each exchange is counted on ``counts`` (a
+    ``count_hop(sent, received, seconds)``)."""
 
-    def __init__(self, send_to: int, recv_from: int, group, through_host: bool):
+    def __init__(self, send_to: int | None, recv_from: int | None, group,
+                 through_host: bool, counts=COMM):
         self.send_to, self.recv_from = send_to, recv_from
-        self.group, self.through_host = group, through_host
+        self.group, self.through_host, self.counts = group, through_host, counts
 
     def exchange(self, tensors: Sequence[torch.Tensor], device: torch.device,
-                 reverse: bool = False) -> tuple:
+                 reverse: bool = False, like: Sequence[torch.Tensor] | None = None) -> tuple:
         """Send ``tensors`` to the successor's rank and receive the
-        predecessor's tuple, shaped as ``tensors``, on ``device``;
-        ``reverse`` swaps the two directions (a gradient going back). One
-        non-blocking pair, so two ranks that are each other's successor
-        and predecessor do not deadlock."""
+        predecessor's tuple, shaped as ``like`` (by default as
+        ``tensors``; meta tensors will do), on ``device``; ``reverse``
+        swaps the two directions (a gradient going back). Either tuple may
+        be empty: a pipeline's stage at an end sends or receives nothing.
+        One non-blocking pair, so two ranks that are each other's
+        successor and predecessor do not deadlock."""
         import torch.distributed as dist
 
         t0 = time.perf_counter()
+        like = tensors if like is None else like
         dst, src = ((self.recv_from, self.send_to) if reverse
                     else (self.send_to, self.recv_from))
-        buf = _pack(tensors)
-        if self.through_host:
-            buf = buf.cpu()
-        got = torch.empty_like(buf)
-        works = dist.batch_isend_irecv([dist.P2POp(dist.isend, buf, dst, self.group),
-                                        dist.P2POp(dist.irecv, got, src, self.group)])
-        for work in works:
+        ops, buf, got = [], None, None
+        if tensors:
+            buf = _pack(tensors)
+            if self.through_host:
+                buf = buf.cpu()
+            ops.append(dist.P2POp(dist.isend, buf, dst, self.group))
+        if like:
+            got = torch.empty(_nbytes(like), dtype=torch.uint8,
+                              device="cpu" if self.through_host else device)
+            ops.append(dist.P2POp(dist.irecv, got, src, self.group))
+        for work in dist.batch_isend_irecv(ops):
             work.wait()
-        out = _unpack(got.to(device), tensors)
-        COMM.hops += 1
-        COMM.hop_bytes += buf.numel()
-        COMM.hop_seconds += time.perf_counter() - t0
-        return out
+        self.counts.count_hop(None if buf is None else buf.numel(),
+                              None if got is None else got.numel(),
+                              time.perf_counter() - t0)
+        return () if got is None else _unpack(got.to(device), like)
 
 
 class _Hop(torch.autograd.Function):

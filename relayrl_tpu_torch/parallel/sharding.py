@@ -41,7 +41,10 @@ batch (fsdp: each rank's gradient is its rows' part), sliced where it
 does not (ep, tp: every rank of the group computed the same gradient).
 Layers that read shards in place (the tp MLP trunk, the ep MoE layer) take
 their blocks from :func:`split_blocks`, this process's blocks along the
-axis with the group over which they sum their partial results.
+axis with the group over which they sum their partial results. A layer of
+a pipeline stage is never split: where ``pp`` crosses processes a process
+holds its own stages' layers whole and none of the others'
+(:class:`Stages`).
 """
 
 from __future__ import annotations
@@ -406,6 +409,13 @@ class Shards(nn.Module):
         return any(c is not None and self.spec[d] in _SUMMED_AXES
                    for d, c in zip(self.dims, self.comms))
 
+    @property
+    def split_comms(self) -> tuple:
+        """``(axis, AxisGroup)`` of each split dim that crosses processes:
+        the ranks over which the shards' squares sum to the whole's."""
+        return tuple((self.spec[d], c) for d, c in zip(self.dims, self.comms)
+                     if c is not None)
+
     def split(self, whole: torch.Tensor) -> list[torch.Tensor]:
         """``whole`` -> this process's shards, each a copy on its device."""
         pieces = [whole]
@@ -462,6 +472,66 @@ class Shards(nn.Module):
         return Blocks(out, lo, self.parts[k], self.comms[k])
 
 
+class Stages:
+    """A pipeline module's stages where ``pp`` crosses processes: ``comm``
+    is the pp group (:class:`~relayrl_tpu_torch.parallel.distributed.
+    AxisGroup`), ``owners`` each stage's member of it, ``stage_of`` each
+    stacked parameter's stage by name. This rank holds its own stages'
+    layers on their devices; another rank's stage is a ``meta`` tensor of
+    the layer's shape and dtype (no bytes), read whole from its owner by
+    :meth:`gather`."""
+
+    def __init__(self, comm, owners: Sequence[int], stage_of: dict[str, int]):
+        self.comm, self.owners, self.stage_of = comm, list(owners), dict(stage_of)
+
+    def __deepcopy__(self, memo):
+        # The pp group is the process's own: a copied module shares it.
+        return self
+
+    def mine(self, stage: int) -> bool:
+        return self.owners[stage] == self.comm.rank
+
+    def keys(self, keys: Sequence[str], stage: int) -> list[str]:
+        """``keys``' entries of ``stage``, in their order."""
+        return [k for k in keys if self.stage_of.get(k) == stage]
+
+    def gather(self, keys: Sequence[str], live: dict, device) -> dict[str, torch.Tensor]:
+        """Every other rank's stages' entries among ``keys``, whole on
+        ``device``: one broadcast of each stage's bytes from its owner, in
+        stage order (a collective of the pp group: every member calls it
+        with the same keys; counted as gathers on :data:`~relayrl_tpu_torch.
+        parallel.distributed.COMM`)."""
+        import time
+
+        from relayrl_tpu_torch.parallel.distributed import COMM
+        from relayrl_tpu_torch.parallel.ring import _nbytes, _pack, _unpack
+
+        out = {}
+        for stage in range(len(self.owners)):
+            names = self.keys(keys, stage)
+            if not names:
+                continue
+            like = [live[k] for k in names]
+            if self.mine(stage):
+                flat = _pack(like).to(device)
+            else:
+                flat = torch.empty(_nbytes(like), dtype=torch.uint8, device=device)
+            t0 = time.perf_counter()
+            flat = self.comm.broadcast(flat, self.owners[stage])
+            COMM.gathers += 1
+            COMM.gather_bytes += flat.numel()
+            COMM.gather_seconds += time.perf_counter() - t0
+            if not self.mine(stage):
+                out.update(zip(names, _unpack(flat, like)))
+        return out
+
+
+def stages(module: nn.Module) -> Stages | None:
+    """``module``'s :class:`Stages`, None unless it was placed on a mesh
+    whose pp axis crosses processes."""
+    return getattr(module, "_pp_stages", None)
+
+
 def _cat(pieces: list[torch.Tensor], dims_parts) -> torch.Tensor:
     """Row-major pieces of a split over ``(dim, parts)`` pairs -> the
     tensor they tile, innermost split first."""
@@ -500,6 +570,7 @@ def split_blocks(owner: nn.Module, leaf: str, axis: str) -> Blocks | None:
 __all__ = [
     "Blocks",
     "Shards",
+    "Stages",
     "install_gather_buckets",
     "batch_pspec",
     "logical_leaves",
@@ -511,5 +582,6 @@ __all__ = [
     "sequence_batch_pspec",
     "shard_tensors",
     "split_blocks",
+    "stages",
     "state_shardings",
 ]

@@ -58,17 +58,18 @@ which prints its backend rule's choice), pins ``seed_salt`` 0 so every
 process starts from the same state, restores a resume on every process
 from the shared checkpoint directory, then runs the update over
 ``make_mesh(learner.mesh or {"dp": -1})``, whose ``dp`` (or ``fsdp``,
-``ep``, ``tp``, ``sp``) axis spans the processes. Only the coordinator
+``ep``, ``tp``, ``sp``, ``pp``) axis spans the processes. Only the coordinator
 (process 0) owns a transport, ingests, publishes and logs epochs. Every
 process runs :meth:`TrainingServer._learner_loop_multihost`: each tick
 the coordinator broadcasts a descriptor (STEP with the batch's shape,
 IDLE, or STOP), a STEP's batch follows it, and every process trains on
 its rows in lockstep; checkpoints are collective (the coordinator writes,
 every process waits). Where a split of the parameters crosses processes
-(fsdp, ep or tp across them), each process holds only its shards: every
-process takes part in the gather of each publish (and of the initial
-bundle and each checkpoint), and the coordinator alone sends it. The divergence watchdog's detector and its rollback stay
-single-process, as in the reference.
+(fsdp, ep or tp across them), each process holds only its shards, and
+where pp does, only its pipeline stages: every process takes part in the
+gather of each publish (and of the initial bundle and each checkpoint),
+and the coordinator alone sends it. The divergence watchdog's detector
+and its rollback stay single-process, as in the reference.
 """
 
 from __future__ import annotations

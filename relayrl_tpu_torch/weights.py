@@ -29,11 +29,14 @@ it, :func:`write_logical` splits a whole value into its shards, and
 :func:`flax_path` maps a shard's name to its leaf's path, so a placed
 module's bundle, checkpoint and freeze mask are the unplaced module's.
 Where a split crosses processes (a mesh whose fsdp, ep or tp axis spans
-them), a process holds only its shards: :func:`logical_state`,
+them), a process holds only its shards, and where pp does, only its
+pipeline stages' layers (another rank's layer is a ``meta`` tensor:
+:class:`~relayrl_tpu_torch.parallel.sharding.Stages`): :func:`logical_state`,
 :func:`params_to_jax` and everything that reads a placed parameter whole
 are collective then (every rank calls them, in the same order, and each
-gets the whole tensors), and :func:`load_logical` keeps this rank's
-shards of each whole value (:func:`gathers_across_processes`).
+gets the whole tensors: a stage's from its owner), and
+:func:`load_logical` keeps this rank's shards and stages of each whole
+value (:func:`gathers_across_processes`).
 """
 
 from __future__ import annotations
@@ -129,10 +132,11 @@ def is_placed(module: nn.Module) -> bool:
 
 def gathers_across_processes(module: nn.Module) -> bool:
     """Whether reading ``module``'s parameters whole is a collective: a
-    split of one of them crosses processes."""
-    from relayrl_tpu_torch.parallel.sharding import Shards
+    split of one of them crosses processes, or its pipeline stages do."""
+    from relayrl_tpu_torch.parallel.sharding import Shards, stages
 
-    return any(isinstance(m, Shards) and m.crosses for m in module.modules())
+    return stages(module) is not None or any(
+        isinstance(m, Shards) and m.crosses for m in module.modules())
 
 
 def logical_keys(module: nn.Module) -> list[str]:
@@ -144,13 +148,22 @@ def logical_keys(module: nn.Module) -> list[str]:
 def logical_state(module: nn.Module) -> dict[str, torch.Tensor]:
     """``module``'s state dict by logical key, in the unplaced order: a
     placed parameter gathered whole (a fresh tensor on its compute
-    device; from every rank where its split crosses processes), every
-    other entry the live tensor, detached."""
+    device; from every rank where its split crosses processes), another
+    rank's pipeline stage's from its owner (on this rank's first device),
+    every other entry the live tensor, detached."""
+    from relayrl_tpu_torch.parallel.sharding import stages
+
     live = module.state_dict()
+    keys = logical_keys(module)
+    record = stages(module)
     out = {}
     with torch.no_grad():
-        for key in logical_keys(module):
-            if key in live:
+        remote = {} if record is None else record.gather(
+            keys, live, next(t.device for t in live.values() if not t.is_meta))
+        for key in keys:
+            if key in remote:
+                out[key] = remote[key]
+            elif key in live:
                 out[key] = live[key]
             else:
                 owner, name = _owner(module, key)
@@ -189,7 +202,8 @@ def _checked(module: nn.Module, live: dict, key: str, value: torch.Tensor) -> No
 def _write(module: nn.Module, live: dict, key: str, value: torch.Tensor) -> None:
     with torch.no_grad():
         if key in live:
-            live[key].copy_(value)
+            if not live[key].is_meta:  # another rank's pipeline stage
+                live[key].copy_(value)
             return
         owner, name = _owner(module, key)
         plist = owner.parametrizations[name]

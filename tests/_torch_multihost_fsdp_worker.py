@@ -11,6 +11,9 @@ Each of N processes runs this script against a real ``torch.distributed``
   the metrics; after the first, what this rank holds of every split
   parameter (its shards' coordinates, devices and shapes, their Adam
   moments' shapes);
+* ``impala``: IMPALA from the case's params under the case's mesh, with
+  a ``max_grad_norm`` small enough that the global-norm clip engages, for
+  two updates; the params gathered whole and the metrics after each;
 * ``checkpoint``: ``build_algorithm`` + ``enable_multihost`` over
   ``{"dp": 1, "fsdp": 2}``, one update, a collective checkpoint, this
   rank's shards and the bundle; a second update; the restore on every
@@ -94,6 +97,41 @@ def _update(case, rank):
     return out
 
 
+def _impala(case, rank):
+    from relayrl_tpu_torch.algorithms.impala import (
+        ImpalaState,
+        make_impala_optimizer,
+        make_impala_update,
+    )
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+    from relayrl_tpu_torch.models import build_policy
+    from relayrl_tpu_torch.parallel import (
+        broadcast_from_coordinator,
+        make_mesh,
+        make_sharded_update,
+        place_state,
+    )
+    from relayrl_tpu_torch.weights import params_to_jax
+
+    hp = case["hp"]
+    policy = build_policy(case["arch"], device="cpu")
+    params = policy.load_params(case["tree"])
+    state = ImpalaState(params, make_impala_optimizer(params, hp["lr"]))
+    update = make_impala_update(policy, hp["gamma"], hp["vf_coef"], hp["ent_coef"],
+                                hp["rho_bar"], hp["c_bar"], hp["max_grad_norm"])
+    mesh = make_mesh(case["mesh"], [torch.device("cpu")] * case["local_devices"])
+    sharded = make_sharded_update(update, mesh, state)
+    state = place_state(state, mesh)
+    batch = broadcast_from_coordinator(case["batch"] if rank == 0
+                                       else _zeros_like(case["batch"]))
+    out = {"cross": mesh.cross_axes, "params": [], "metrics": []}
+    for _ in range(2):
+        state, metrics = sharded(state, batch)
+        out["metrics"].append(read_metrics(metrics))
+        out["params"].append(params_to_jax(state.params))
+    return out
+
+
 def _shards(algo) -> dict:
     """This rank's shard tensors and their moments, by name."""
     out = {name: p.detach().clone() for name, p in algo.state.params.named_parameters()}
@@ -144,6 +182,8 @@ def main() -> None:
     for name, case in cases.items():
         if case["kind"] == "update":
             results[name] = _update(case, rank)
+        elif case["kind"] == "impala":
+            results[name] = _impala(case, rank)
         else:
             results[name] = _checkpoint(case, rank, out_dir)
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:

@@ -127,15 +127,61 @@ def test_mesh_spans_processes_along_dp(monkeypatch, rank):
     assert mesh.first_device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("spec,n,world", [({"dp": 1, "pp": 8}, 4, 2),
-                                          ({"dp": 1, "pp": 4}, 2, 2),
-                                          ({"dp": 1, "tp": 2, "pp": 4}, 2, 4),
-                                          ({"dp": 2, "pp": 2}, 1, 4)])
-def test_axis_across_processes_refused(monkeypatch, spec, n, world):
-    """pp across processes is not ported: a mesh whose pp axis would
-    cross them raises."""
+# (spec, devices a process, processes, crossing axes, the owners along pp
+# through the first rank and through the last, the pp groups).
+_PP_CROSSING = [
+    ({"dp": 1, "pp": 2}, 1, 2, ("pp",), [0, 1], [0, 1], [(0, 1)]),
+    ({"dp": 1, "pp": 4}, 2, 2, ("pp",), [0, 0, 1, 1], [0, 0, 1, 1], [(0, 1)]),
+    ({"dp": 1, "pp": 8}, 4, 2, ("pp",), [0] * 4 + [1] * 4, [0] * 4 + [1] * 4, [(0, 1)]),
+    ({"dp": 2, "pp": 2}, 1, 4, ("dp", "pp"), [0, 1], [2, 3], [(0, 1), (2, 3)]),
+    ({"dp": 1, "pp": 4}, 1, 4, ("pp",), [0, 1, 2, 3], [0, 1, 2, 3], [(0, 1, 2, 3)]),
+    ({"dp": 2, "pp": 4}, 2, 4, ("dp", "pp"), [0, 0, 1, 1], [2, 2, 3, 3], [(0, 1), (2, 3)]),
+    ({"dp": -1, "pp": 2}, 1, 8, ("dp", "pp"), [0, 1], [6, 7],
+     [(0, 1), (2, 3), (4, 5), (6, 7)]),
+]
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("spec,n,world,cross,first_owners,last_owners,groups", _PP_CROSSING)
+def test_pp_across_processes_builds(monkeypatch, spec, n, world, cross, first_owners,
+                                    last_owners, groups, last):
+    """pp may cross processes: the mesh builds with each stage's owner,
+    the crossing axes and the pp groups every rank forms (its own among
+    them); a rank's stages are its contiguous block of the line; the
+    local sub-mesh keeps the whole pp axis, the other ranks' stages None
+    with their owners; the ranks of a pp group share their dp coordinate,
+    so they keep the same batch rows."""
+    rank = world - 1 if last else 0
+    _topology(monkeypatch, rank, world)
+    mesh = make_mesh(spec, [torch.device("cpu")] * n)
+    assert mesh.cross_axes == cross
+    owners = last_owners if last else first_owners
+    assert list(mesh.axis_owners("pp")) == owners
+    assert mesh.shard_indices("pp") == [i for i, r in enumerate(owners) if r == rank]
+    assert mesh.axis_groups("pp") == groups
+    assert mesh.axis_ranks("pp") in groups and rank in mesh.axis_ranks("pp")
+    local = mesh.local
+    assert local.shape["pp"] == mesh.shape["pp"] and local.process_count == world
+    assert [d is not None for d in local.axis_devices("pp")] == [r == rank for r in owners]
+    assert list(local.axis_owners("pp")) == owners
+    assert mesh.first_device == torch.device("cpu")
+    rows = mesh.owners.reshape(mesh.shape["dp"], -1)
+    start, stop = mesh.dp_block
+    assert stop - start == 1
+    for r in mesh.axis_ranks("pp"):
+        assert np.flatnonzero((rows == r).any(axis=1)).tolist() == [start]
+
+
+@pytest.mark.parametrize("spec,n,world,beside", [({"dp": 1, "sp": 2, "pp": 4}, 2, 4, "sp"),
+                                                 ({"dp": 1, "fsdp": 2, "pp": 2}, 1, 4, "fsdp"),
+                                                 ({"dp": 1, "ep": 2, "pp": 4}, 2, 4, "ep"),
+                                                 ({"dp": 1, "tp": 2, "pp": 2}, 1, 4, "tp")])
+def test_pp_beside_a_crossing_split_refused(monkeypatch, spec, n, world, beside):
+    """A crossing pp axis runs beside dp alone: beside a crossing fsdp,
+    ep, tp or sp the mesh raises the named error, naming that axis."""
     _topology(monkeypatch, 0, world)
-    with pytest.raises(CrossProcessAxisError, match="queue 1 item 11"):
+    with pytest.raises(CrossProcessAxisError,
+                       match=rf"pp crosses processes beside \['{beside}'\].*queue 1 item 11"):
         make_mesh(spec, [torch.device("cpu")] * n)
 
 
@@ -299,16 +345,6 @@ def test_dp_and_sp_across_four_processes(monkeypatch, rank):
     assert np.array_equal(placed.numpy(), rows[4 * (rank // 2):4 * (rank // 2) + 4])
 
 
-@pytest.mark.parametrize("spec,n,world", [({"dp": 1, "sp": 2, "pp": 4}, 2, 4),
-                                          ({"dp": 1, "fsdp": 2, "pp": 2}, 1, 4),
-                                          ({"dp": 1, "ep": 2, "pp": 4}, 2, 4)])
-def test_refusal_names_the_crossing_axis(monkeypatch, spec, n, world):
-    """Where pp crosses beside axes that may, the refusal names pp alone."""
-    _topology(monkeypatch, 0, world)
-    with pytest.raises(CrossProcessAxisError, match=r"axes \['pp'\].*queue 1 item 11"):
-        make_mesh(spec, [torch.device("cpu")] * n)
-
-
 def test_blocks_that_split_a_line_unevenly_refused(monkeypatch):
     """Blocks of 2 devices over ``{"fsdp": 2, "tp": 3}`` are no sub-grid
     (a block would hold the end of one fsdp line and the start of the
@@ -430,3 +466,196 @@ def test_run_ring_over_a_two_rank_hop(kind):
     for j in range(3):
         # Each rank holds its shards' gradients (zeros at the other's).
         assert torch.equal(got[0][1][j] + got[1][1][j], want_grads[j])
+
+
+class _QueuePipeHop:
+    """Pipeline ranks inside one process, each holding an equal block of
+    the stages in order (``boxes``: one rank's inboxes each): each rank's
+    hand-offs land in its neighbour's inbox for their direction, its
+    broadcasts in every other rank's inbox for their source, and ``log``
+    records each hand-off as ``(reverse, sent, received)``."""
+
+    def __init__(self, boxes, rank):
+        n = len(boxes)
+        self.boxes, self.rank = boxes, rank
+        self.up = rank - 1 if rank > 0 else None
+        self.down = rank + 1 if rank < n - 1 else None
+        self.first, self.last = 0, n - 1
+        self.log = []
+
+    def _send(self, tensors, reverse):
+        to = self.up if reverse else self.down
+        self.boxes[to][reverse].put([t.detach().clone() for t in tensors])
+
+    def exchange(self, tensors, device, reverse=False, like=None):
+        self.log.append((reverse, bool(tensors), bool(like)))
+        if tensors:
+            self._send(tensors, reverse)
+        if not like:
+            return ()
+        got = self.boxes[self.rank][reverse].get(timeout=60)
+        assert [(t.shape, t.dtype) for t in got] == [(t.shape, t.dtype) for t in like]
+        return tuple(t.to(device) for t in got)
+
+    def broadcast(self, t, src, like, device):
+        if self.rank == src:
+            for r, box in enumerate(self.boxes):
+                if r != src:
+                    box["bcast", src].put(t.detach().clone())
+            return t.detach().clone().to(device)
+        return self.boxes[self.rank]["bcast", src].get(timeout=60).to(device)
+
+
+class _SwappingHop(_QueuePipeHop):
+    """A hop that hands the first two gradients it sends back upstream
+    over in swapped order (microbatch m's gradient lands on m - 1's)."""
+
+    held = None
+    swapped = False
+
+    def exchange(self, tensors, device, reverse=False, like=None):
+        if reverse and tensors and not self.swapped:
+            if self.held is None:
+                self.held, tensors = tensors, ()
+            else:
+                self._send(tensors, reverse)
+                tensors, self.swapped = self.held, True
+        return super().exchange(tensors, device, reverse, like)
+
+
+def _pipe_mesh(n_stages, rank=None, n_ranks=2):
+    """A pp line of ``n_stages`` CPU devices: every stage this process's
+    (``rank`` None), or ``n_ranks`` ranks each holding an equal block of
+    the stages in order, the others' entries None."""
+    from relayrl_tpu_torch.parallel.mesh import AXES, Mesh
+
+    dims = (1,) * (len(AXES) - 1) + (n_stages,)
+    devices = np.empty(n_stages, dtype=object)
+    if rank is None:
+        devices[:] = [torch.device("cpu")] * n_stages
+        return Mesh(devices.reshape(dims))
+    owners = np.arange(n_stages) // (n_stages // n_ranks)
+    for s in np.flatnonzero(owners == rank):
+        devices[s] = torch.device("cpu")
+    return Mesh(devices.reshape(dims), n_ranks, rank, owners.reshape(dims))
+
+
+def _pipeline_ranks(n_stages, n_ranks=2, swap_rank=None, train_input=True):
+    """A 4-layer tanh MLP pipelined over ``n_stages`` stages, 4
+    microbatches of 2 rows, its gradients taken by ``dp_gradients``: the
+    single-process pipeline's output and gradients (x's and every
+    layer's), and each of ``n_ranks`` thread-ranks' (rank r's layer
+    gradients only at its stages) and hop (a :class:`_SwappingHop` at
+    ``swap_rank``). ``train_input`` False asks no gradient before the
+    pipeline (a frozen embedding): x's gradient is None."""
+    import queue
+    import threading
+
+    from relayrl_tpu_torch.parallel import context, pipeline_apply
+
+    gen = torch.Generator().manual_seed(0)
+    ws = [torch.randn(8, 8, generator=gen) * 0.4 for _ in range(4)]
+    x0 = torch.randn(8, 8, generator=gen)
+    g_out = torch.randn(8, 8, generator=gen)
+    per = 4 // n_stages
+
+    def stage(layers, h):
+        for w in layers:
+            h = torch.tanh(h @ w)
+        return h
+
+    def run(mesh, hop=None):
+        layers = [w.clone().requires_grad_() for w in ws]
+        x = x0.clone().requires_grad_(train_input)
+        y = pipeline_apply(stage, layers, x * 1.5, mesh, n_microbatches=4, hop=hop)
+        mine = [w for i, w in enumerate(layers) if mesh.devices.flat[i // per] is not None]
+        for w in mine:
+            w.split_comms = (("pp", hop),)  # as the placement marks a stage's leaves
+        k = int(train_input)
+        grads = context.dp_gradients((y * g_out).sum(), [x][:k] + mine)
+        return y.detach(), grads[0] if k else None, grads[k:]
+
+    want = run(_pipe_mesh(n_stages))
+    boxes = [{key: queue.Queue() for key in [False, True] + [("bcast", r) for r in
+                                                               range(n_ranks)]}
+             for _ in range(n_ranks)]
+    hops = [(_SwappingHop if r == swap_rank else _QueuePipeHop)(boxes, r)
+            for r in range(n_ranks)]
+    got, errors = {}, []
+
+    def rank_main(r):
+        try:
+            got[r] = run(_pipe_mesh(n_stages, r, n_ranks), hops[r])
+        except Exception as e:  # reported by the caller's assert
+            errors.append(e)
+
+    threads = [threading.Thread(target=rank_main, args=(r,)) for r in range(n_ranks)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    return want, got, hops
+
+
+@pytest.mark.parametrize("n_stages,n_ranks,train_input", [(2, 2, True), (4, 2, True),
+                                                          (4, 4, True), (2, 2, False),
+                                                          (4, 4, False)])
+def test_pipeline_over_thread_rank_hops(n_stages, n_ranks, train_input):
+    """``pipeline_apply`` over a pp line split between thread-ranks (one
+    stage a rank, two with a local hand-off beside the hop, or four ranks
+    whose middle ones send and receive in one hand-off) equals the
+    single-process pipeline bit for bit: every rank holds the output,
+    every rank gets the input's gradient (stage 0's rank's, broadcast),
+    and each rank's stages' layer gradients are the single-process ones.
+    With no gradient asked before the pipeline (a frozen embedding) the
+    last stage's rank still runs its hops' backwards, so stage 0's rank
+    gets its gradients (a rank that pruned them would leave the others
+    waiting)."""
+    (want_y, want_dx, want_dw), got, _ = _pipeline_ranks(n_stages, n_ranks,
+                                                         train_input=train_input)
+    per = len(want_dw) // n_ranks
+    for r in range(n_ranks):
+        y, dx, dw = got[r]
+        assert torch.equal(y, want_y)
+        assert dx is None if not train_input else torch.equal(dx, want_dx)
+        assert len(dw) == per
+        for g, w in zip(dw, want_dw[r * per:(r + 1) * per]):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n_ranks,swap_rank", [(2, 1), (4, 2)])
+def test_swapped_backward_hops_are_caught(n_ranks, swap_rank):
+    """A hop that swaps two microbatches' gradients on their way back
+    (same shape, nothing raises; at the last rank, or at a middle one)
+    moves the layer gradients of every rank upstream of it and the
+    input's on every rank: the comparison above fails on it. The layer
+    gradients of the swapping rank and those downstream do not depend on
+    the hop."""
+    (_, want_dx, want_dw), got, _ = _pipeline_ranks(n_ranks, n_ranks, swap_rank)
+    per = len(want_dw) // n_ranks
+    for r in range(n_ranks):
+        assert not torch.equal(got[r][1], want_dx)
+        assert torch.equal(got[r][2][0], want_dw[r * per]) == (r >= swap_rank), r
+
+
+_F, _T = False, True
+
+
+@pytest.mark.parametrize("n_ranks,logs", [
+    (2, [[(_F, _T, _F)] * 4 + [(_T, _F, _T)] * 4,
+         [(_F, _F, _T)] * 4 + [(_T, _T, _F)] * 4]),
+    (4, [[(_F, _T, _F)] * 4 + [(_T, _F, _T)] * 4]
+     + [[(_F, _F, _T)] + [(_F, _T, _T)] * 3 + [(_F, _T, _F)]
+        + [(_T, _F, _T)] + [(_T, _T, _T)] * 3 + [(_T, _T, _F)]] * 2
+     + [[(_F, _F, _T)] * 4 + [(_T, _T, _F)] * 4]),
+])
+def test_last_stage_sends_nothing(n_ranks, logs):
+    """Each hand-off as ``(reverse, sent, received)``, one stage a rank:
+    the last stage's rank receives every microbatch's activation and
+    sends none (nor receives a gradient); stage 0's rank sends each one
+    and receives nothing (and each gradient back); a middle rank
+    receives the next microbatch while it sends the last one on, in one
+    hand-off. Each rank's backward runs its hand-offs in reverse."""
+    _, _, hops = _pipeline_ranks(n_ranks, n_ranks)
+    assert [hop.log for hop in hops] == logs

@@ -138,7 +138,9 @@ def test_clip_matches_optax(max_norm):
     grads = [np.array([1.0, 2.0], np.float32), np.array([[2.0]], np.float32)]
     want = optax.clip_by_global_norm(max_norm).update(
         [jnp.asarray(g) for g in grads], optax.EmptyState())[0]
-    got = clip_by_global_norm([torch.as_tensor(g) for g in grads], max_norm)
+    # The gradients stand for their own leaves: no split crosses processes.
+    leaves = [torch.as_tensor(g) for g in grads]
+    got = clip_by_global_norm(leaves, max_norm, leaves)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     if max_norm < 3.0:

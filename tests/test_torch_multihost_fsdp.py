@@ -21,7 +21,11 @@ unsharded ``make_reinforce_update`` on the same params and batch:
 
 and, for each, every rank's gathered params bit-equal after each of two
 updates, and each rank holding only the shards at its coordinates, with
-their Adam moments. Then a collective checkpoint under ``{"dp": 1,
+their Adam moments. IMPALA's ``mlp_discrete`` under ``{"dp": 1, "fsdp":
+2}`` with a ``max_grad_norm`` whose clip engages: each rank's gradient
+leaves are only its shards, and the clip must read the whole model's
+norm, so the update matches the JAX package's (1e-5) and the ranks stay
+bit-equal. Then a collective checkpoint under ``{"dp": 1,
 "fsdp": 2}``: each rank's shards restore bit for bit, the saved train
 state equals a single-process save of the same state tensor for tensor,
 and the bundle equals the single-process bundle byte for byte.
@@ -71,6 +75,11 @@ CASES = {
 }
 CROSS = {"mlp_fsdp4": ("fsdp",), "transformer_fsdp2": ("fsdp",), "moe_ep2": ("ep",),
          "mlp_tp2": ("tp",), "mlp_dp2_fsdp2": ("dp", "fsdp")}
+# The clip scales the gradients to a norm at which each element is near
+# Adam's eps (1e-8), so the step depends on the norm the clip read.
+IMPALA_HP = {"lr": 1e-3, "gamma": 0.99, "vf_coef": 0.5, "ent_coef": 0.01,
+             "rho_bar": 1.0, "c_bar": 0.9, "max_grad_norm": 1e-7}
+IMPALA_MESH = {"dp": 1, "fsdp": 2}
 CKPT_KW = {"obs_dim": 6, "act_dim": 3, "hidden_sizes": [16, 16], "traj_per_epoch": 8,
            "with_vf_baseline": True, "seed": 5, "seed_salt": 0}
 CKPT_MESH = {"dp": 1, "fsdp": 2}
@@ -123,6 +132,38 @@ def _wait(workdir, procs, deadline):
     return results
 
 
+def _impala_case():
+    rng = np.random.default_rng(13)
+    tree = params_to_jax(build_policy(MLP, "cpu").init_params(
+        torch.Generator().manual_seed(3)))
+    return {"kind": "impala", "arch": MLP, "tree": tree, "hp": IMPALA_HP,
+            "mesh": IMPALA_MESH, "local_devices": 1, "world": 2,
+            "batch": _batch(rng, 8, 16, 6, 3, [16, 11, 16, 4, 9, 16, 2, 13])}
+
+
+def _jax_impala(case, max_grad_norm):
+    import jax
+    import jax.numpy as jnp
+
+    from relayrl_tpu.algorithms.impala import ImpalaState as JaxImpalaState
+    from relayrl_tpu.algorithms.impala import make_impala_tx
+    from relayrl_tpu.algorithms.impala import make_impala_update as jax_impala_update
+    from relayrl_tpu.models import build_policy as jax_build_policy
+
+    hp, tree = case["hp"], case["tree"]
+    # jaxlint: disable=JAX05 - one update on a tiny state; no donation
+    update = jax.jit(jax_impala_update(
+        jax_build_policy(case["arch"]), hp["lr"], hp["gamma"], hp["vf_coef"],
+        hp["ent_coef"], hp["rho_bar"], hp["c_bar"], max_grad_norm, (),
+        params_template=tree))
+    tx = make_impala_tx(hp["lr"], max_grad_norm, (), tree)
+    state = JaxImpalaState(params=tree, opt_state=tx.init(tree),
+                           rng=jax.random.PRNGKey(0), step=jnp.int32(0))
+    new, metrics = update(state, {k: jnp.asarray(v) for k, v in case["batch"].items()})
+    return (jax.tree.map(np.asarray, new.params),
+            {k: float(v) for k, v in metrics.items()})
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every case's ranks (2-process and 4-process runs side by side),
@@ -136,11 +177,14 @@ def runs(tmp_path_factory):
                         for _ in range(2)]}
     two = {n: c for n, c in cases.items() if c["world"] == 2}
     two["checkpoint"] = ckpt
+    two["impala"] = _impala_case()
     four = {n: c for n, c in cases.items() if c["world"] == 4}
     procs = {2: _start(root / "two", two, 2), 4: _start(root / "four", four, 4)}
     deadline = time.monotonic() + 300
     try:
         wants = {n: _jax_update(c["arch"], c["tree"], c["batch"]) for n, c in cases.items()}
+        wants["impala"] = _jax_impala(two["impala"], IMPALA_HP["max_grad_norm"])
+        wants["impala_unclipped"] = _jax_impala(two["impala"], 1e6)
     except BaseException:
         for ps in procs.values():
             for p in ps:
@@ -224,6 +268,28 @@ def test_each_rank_holds_its_own_shards(runs, name):
                 assert all(s[k] == whole // h["parts"][dims.index(k)] for s in h["shards"])
         if k is not None:
             assert set(covered) == set(range(h0["parts"][dims.index(k)]))
+
+
+def test_impala_clip_reads_the_whole_norm(runs):
+    """IMPALA under fsdp across two ranks with the clip engaged (the
+    reference's clipped step differs from its unclipped one): the first
+    update within 1e-5 of the JAX package's, and both ranks' gathered
+    params and metrics bit-equal after each of two updates."""
+    want_params, want = runs["wants"]["impala"]
+    free_params, _ = runs["wants"]["impala_unclipped"]
+    moved = max(float(np.abs(a - b).max()) for a, b in zip(_flat(want_params),
+                                                          _flat(free_params)))
+    assert moved > 10 * MLP_TOL, moved
+    ranks = [r["impala"] for r in runs["ranks"][2]]
+    assert ranks[0]["cross"] == ("fsdp",)
+    metrics, params = ranks[0]["metrics"][0], ranks[0]["params"][0]
+    assert set(metrics) == set(want)
+    for key, value in want.items():
+        assert metrics[key] == pytest.approx(value, rel=MLP_TOL, abs=MLP_TOL), key
+    _check_params(params, want_params, _impala_case()["tree"], MLP_TOL)
+    for i in range(2):
+        _equal_trees(ranks[1]["params"][i], ranks[0]["params"][i])
+        assert ranks[1]["metrics"][i] == ranks[0]["metrics"][i]
 
 
 def test_checkpoint_round_trip_restores_each_rank_s_shards(runs):
