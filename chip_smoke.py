@@ -52,7 +52,7 @@ Phases, each of which fails the run:
    against K1 at the serving shape;
 7. sequence-parallel learner: the same REINFORCE with ``attention="ring"``
    through ``make_sharded_update(..., shard_time=True)`` over an sp = 4 mesh
-   of the one card, 4 updates on phase 5's first wave; checks the launch
+   of the one card, 2 updates on phase 5's first wave; checks the launch
    counts of every update (3360 K4, 40 K5, 40 K6, no K1-K3), compares the
    first update through the kernels with the same update through the
    chunk kernels' plain versions and ``evaluate`` through the ring with
@@ -80,7 +80,7 @@ Phases, each of which fails the run:
 11. the distributed loop: phase 5's learner in a ``TrainingServer``
    (``relayrl_tpu_torch/examples/chaos_server.py``, a process of its own
    on the card) fed over ZMQ by a ``VectorAgent`` of 8
-   ``RecallEnv(255)`` lanes in this process, 3 updates; checks the ingest
+   ``RecallEnv(255)`` lanes in this process, 2 updates; checks the ingest
    accounting (accepted == max_seq == sent, contiguous, no drop), no
    learner error, the server's K1/K2/K3 launches per update (336/4/4), the
    agent's K1 launches per dispatch (3), keyframe and delta frames
@@ -92,7 +92,7 @@ Phases, each of which fails the run:
    with duplicates; prints env steps/s, ms per update and publish bytes
    (not gated). The server runs the reference's default config, guardrails
    on (no rejection, strike, trip or rollback on this clean run; probes
-   live), and profiles its learner over updates 2-3 (device busy ms and
+   live), and profiles its learner over update 2 (device busy ms and
    operations per update, the learner thread's CPU and run-queue time);
 12. guardrails on the card: phase 5's learner trained twice from the same
    params and batches with the probes off and once on, bit-equal, at
@@ -201,7 +201,7 @@ Phases, each of which fails the run:
    rows per dispatch, requests/s, ms per dispatch and device ms per
    dispatch printed. (b) Phase 11's learner in a
    ``TrainingServer(serving=True)`` on the card, fed by 8
-   ``RemoteActorClient``s over ZMQ: 3 updates at exactly 336/4/4, each
+   ``RemoteActorClient``s over ZMQ: 2 updates at exactly 336/4/4, each
    wave served at the version published before it, the clients at the
    last publish, exact ingest accounting. (c) A ``RemoteActorClient``
    over gRPC ``GetActions`` against a served ``mlp_discrete``: each
@@ -277,7 +277,9 @@ Phases, each of which fails the run:
    the learner's gathered params and the publish snapshot's. Each part's
    ms per update printed beside phase 5's;
 22. the multi-process learner: ``MH_RANKS`` processes that this script
-   starts (``chip_smoke.py --mh-rank``, ``subprocess``), each a rank of a
+   starts (``chip_smoke.py --mh-chain``, ``subprocess``, before phase 21:
+   the same processes then run phases 23-25's two-rank jobs, each as a
+   fresh rank would, see :class:`RankChain`), each a rank of a
    ``torch.distributed`` group (``parallel/distributed.py``; on one card
    both ranks share it through gloo, with a card each the backend rule
    picks nccl), the learner's dp axis spanning them. (a) Phase 5's first
@@ -298,8 +300,8 @@ Phases, each of which fails the run:
    sha256-equal and held to single-process updates on the same batches at
    phase 15's card-vs-CPU bars. A rank that fails, or a deadline that
    passes, fails the phase;
-23. the multi-process ring: ``MH_RANKS`` processes (``chip_smoke.py
-   --mh-ring-rank``) over ``{"dp": 1, "sp": 4}``, two shards a rank (on
+23. the multi-process ring: ``MH_RANKS`` ranks (a ``--mh-ring-rank``
+   job on phase 22's rank processes) over ``{"dp": 1, "sp": 4}``, two shards a rank (on
    one card both ranks share it through gloo, the hop staged through host
    memory; with a card each, nccl), K4-K6 on each rank's shards and the
    K/V chunks hopping between the processes
@@ -317,7 +319,8 @@ Phases, each of which fails the run:
    published, the launches per rank as in (a), exact accounting, a
    collective checkpoint;
 24. fsdp, ep and tp across processes: ``MH_RANKS`` processes
-   (``chip_smoke.py --mh-split-rank``), one mesh entry each, the split
+   (a ``--mh-split-rank`` job on phase 22's rank processes; four fresh
+   ``chip_smoke.py`` processes for 4 ranks), one mesh entry each, the split
    axis spanning them (gloo on one card, nccl with a card each); each rank
    holds and steps only the shards at its coordinates, split parameters
    gather between the processes (one all-gather a forward, per group of
@@ -346,7 +349,8 @@ Phases, each of which fails the run:
    served through K1, each published bundle sha256-equal to both ranks'
    gathered params, 336/4/4 per rank per update, exact accounting;
 25. the pipeline across processes: ``MH_RANKS`` processes
-   (``chip_smoke.py --mh-pp-rank``), one mesh entry each, the pp axis
+   (a ``--mh-pp-rank`` job on phase 22's rank processes), one mesh entry
+   each, the pp axis
    spanning them (gloo on one card, the hand-off staged through host
    memory; nccl with a card each); each rank holds and steps only its own
    stages' layers with their Adam moments, microbatch activations hop
@@ -368,7 +372,14 @@ Phases, each of which fails the run:
    every version installed by the agent and sha256-equal to both ranks'
    gathered params; exact accounting. (c) With a card for each of 4 ranks,
    (a)'s gates under ``{"dp": 2, "pp": 2}``, its update's digest beside
-   (a)'s.
+   (a)'s;
+26. the static-analysis gate: ``python -m relayrl_tpu_torch.analysis``
+   (torchlint over ``relayrl_tpu_torch/`` and this script, then the
+   contracts engine against the committed ``contracts.json``) in a
+   subprocess from the root of the checkout, on this host, which has no
+   JAX: exit 0, no new finding, CON01 silent, and neither ``torch``,
+   ``jax`` nor ``relayrl_tpu`` loaded by the run; prints the findings and
+   the ``torchlint: disable`` suppressions by code and the seconds taken.
 
 Phases 3 and 6 also hold every kernel to its plain version at head dims
 128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
@@ -383,6 +394,7 @@ phase fails, the script exits non-zero and prints no ``ok`` line.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import json
@@ -424,7 +436,7 @@ LEARNER_WAVES = 2
 # over an sp mesh of SP shards of the one card (local chunks of 64 rows),
 # trained for SP_UPDATES updates on batches of phase 5's first wave.
 SP = 4
-SP_UPDATES = 4
+SP_UPDATES = 2
 # The distributed loop (phase 11): the port's chaos server (a
 # TrainingServer in its own process) learns phase 5's learner from one
 # VectorAgent of DIST_LANES RecallEnv(LEARNER_HORIZON) lanes in this
@@ -432,7 +444,7 @@ SP_UPDATES = 4
 # then the server is SIGKILLed, the agent plays OUTAGE_WAVES waves into the
 # outage, and the server restarts with resume.
 DIST_LANES = 8
-DIST_UPDATES = 3
+DIST_UPDATES = 2
 OUTAGE_WAVES = 1
 DIST_TIMEOUT_S = 240
 # The guardrails phase (12): phase 5's learner in a chaos_server process
@@ -752,7 +764,7 @@ CARTPOLE_EPISODE_STEPS = 400
 # MH_OFF_UPDATES updates on the coordinator's samples.
 MH_RANKS = 2
 MH_UNEVEN_LENGTHS = (24, 9, 3, 1)
-MH_TIMED = 3
+MH_TIMED = 1
 MH_LANES = 8
 MH_SERVER_UPDATES = 1
 MH_OFF_UPDATES = 4
@@ -2633,6 +2645,12 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+# Seconds from each ChaosServer's start to its first status (the
+# process's start, its imports and the learner's build), in the order they
+# came up; "<s" where the status was there at the first look.
+SERVER_UP_S: list = []
+
+
 class ChaosServer:
     """The port's ``examples/chaos_server.py`` in a process of its own,
     started with ``subprocess`` (never a fork of this CUDA process), its
@@ -2644,6 +2662,7 @@ class ChaosServer:
         self.cfg, self.log = cfg, log
         env = dict(os.environ, PYTHONPATH=str(root), **(env or {}))
         self._out = open(log, "ab")
+        self._t0, self._up = time.monotonic(), False
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "relayrl_tpu_torch.examples.chaos_server",
              json.dumps(cfg)], cwd=str(root), env=env, stdout=self._out,
@@ -2663,13 +2682,20 @@ class ChaosServer:
         """Poll the status file until ``pred(status)``; ``poll`` runs
         between reads (the agent's env loop, say)."""
         deadline = time.monotonic() + timeout_s
-        status = None
+        status, first_poll = None, True
         while time.monotonic() < deadline:
             if self.proc.poll() is not None:
                 raise AssertionError(
                     f"chaos server exited ({self.proc.returncode}) waiting "
                     f"for {what}:\n{self.tail()}")
             status = self.status()
+            if status is not None and not self._up:
+                # Up before its first wait looked: the start took at most
+                # this long (a server started early, ``started``).
+                self._up = True
+                up = round(time.monotonic() - self._t0, 1)
+                SERVER_UP_S.append(f"<{up}" if first_poll else up)
+            first_poll = False
             if status is not None and pred(status):
                 return status
             if poll is not None:
@@ -6742,13 +6768,209 @@ def mh_rank_main(rank: int, port: int, workdir: Path) -> int:
     return 0
 
 
+class RankChain:
+    """``MH_RANKS`` rank processes (``chip_smoke.py --mh-chain RANK DIR``,
+    ``subprocess``, never a fork of this CUDA process) started once, before
+    phase 21, that run the two-rank jobs of phases 22-25 (``--mh-rank``,
+    ``--mh-ring-rank``, ``--mh-split-rank``, ``--mh-pp-rank``) one after
+    another: each pair of rank processes starts, imports torch, creates its
+    CUDA context and loads the kernels once, while phase 21 runs, instead
+    of once a phase. A job is a file ``DIR/job<N>.json`` with each rank's
+    argv and env; a rank runs it as a fresh process would (every launch
+    and communication count zeroed, its output in ``WORKDIR/rank<R>.log``)
+    and writes its exit code to ``WORKDIR/rank<R>.exit``."""
+
+    def __init__(self, root: Path, chaindir: Path, cards: bool):
+        import os
+        import shutil
+
+        shutil.rmtree(chaindir, ignore_errors=True)
+        chaindir.mkdir(parents=True)
+        self.chaindir, self.jobs, self.t0 = chaindir, 0, time.perf_counter()
+        self.visible = [mh_rank_env(r, 0, cards).get("CUDA_VISIBLE_DEVICES")
+                        for r in range(MH_RANKS)]
+        self.logs = [open(chaindir / f"rank{r}.log", "wb") for r in range(MH_RANKS)]
+        self.procs = [subprocess.Popen(
+            [sys.executable, str(root / "chip_smoke.py"), "--mh-chain", str(r),
+             str(chaindir)], cwd=str(root),
+            env=dict(os.environ, PYTHONPATH=str(root), **mh_rank_env(r, 0, cards)),
+            stdout=self.logs[r], stderr=subprocess.STDOUT) for r in range(MH_RANKS)]
+        self.job_seconds: list[tuple[str, float]] = []
+
+    def fits(self, envs: list[dict]) -> bool:
+        return (len(envs) == MH_RANKS
+                and [env.get("CUDA_VISIBLE_DEVICES") for env in envs] == self.visible)
+
+    def ready_seconds(self) -> list[float | None]:
+        """Each rank's seconds from its start to its CUDA context and
+        kernels being ready (None before)."""
+        out = []
+        for r in range(MH_RANKS):
+            path = self.chaindir / f"ready{r}"
+            out.append(float(path.read_text()) if path.exists() else None)
+        return out
+
+    def run(self, workdir: Path, args, envs: list[dict], timeout_s: float) -> None:
+        """One job on the chain: each rank's ``args(rank)`` and env, under
+        one deadline; fails as :func:`run_ranks` does."""
+        for r in range(MH_RANKS):
+            (workdir / f"rank{r}.exit").unlink(missing_ok=True)
+        spec = [{"argv": [str(a) for a in args(r)],
+                 "env": {k: v for k, v in envs[r].items() if k != "CUDA_VISIBLE_DEVICES"}}
+                for r in range(MH_RANKS)]
+        tmp = self.chaindir / f"job{self.jobs}.tmp"
+        tmp.write_text(json.dumps(spec))
+        tmp.rename(self.chaindir / f"job{self.jobs}.json")
+        self.jobs += 1
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + timeout_s
+
+        def tails() -> str:
+            return "\n".join(
+                f"--- rank {r}:\n" + ((workdir / f"rank{r}.log").read_bytes()[-3000:]
+                                       if (workdir / f"rank{r}.log").exists() else b"")
+                .decode(errors="replace") + (self.chaindir / f"rank{r}.log")
+                .read_bytes()[-1500:].decode(errors="replace") for r in range(MH_RANKS))
+
+        while True:
+            codes = [int(p.read_text()) if p.exists() else None
+                     for p in (workdir / f"rank{r}.exit" for r in range(MH_RANKS))]
+            if all(c == 0 for c in codes):
+                break
+            dead = [r for r, p in enumerate(self.procs) if p.poll() is not None]
+            failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if failed or dead or time.monotonic() > deadline:
+                what = (f"rank {failed[0]} exited {codes[failed[0]]}" if failed else
+                        f"rank {dead[0]}'s process exited {self.procs[dead[0]].returncode}"
+                        if dead else f"ranks still running after {timeout_s:.0f} s")
+                raise AssertionError(f"phase 22-25 job {args(0)[0]}: {what}:\n{tails()}")
+            time.sleep(0.05)
+        self.job_seconds.append((str(args(0)[0]), time.perf_counter() - t0))
+
+    def close(self) -> None:
+        """Stop the ranks: a stop file, then a kill for any still running."""
+        (self.chaindir / "stop").write_text("")
+        for p in self.procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)
+        for log in self.logs:
+            log.close()
+
+
+# The phases' rank chain, while one runs (main starts it before phase 21).
+RANK_CHAIN: RankChain | None = None
+
+
+def close_rank_chain() -> None:
+    global RANK_CHAIN
+    if RANK_CHAIN is not None:
+        RANK_CHAIN.close()
+        RANK_CHAIN = None
+
+
+# Started phase generators; closed at exit, which stops their servers
+# when the run fails before it finishes them.
+STARTED: list = []
+
+
+def started(steps):
+    """Run a phase's generator (``multiprocess_server_steps``,
+    ``multiprocess_ring_server_steps``) to its one yield: its server
+    processes are starting, while the caller runs the phase's rank job.
+    Returns the generator for :func:`finish`."""
+    if not STARTED:
+        atexit.register(lambda: [g.close() for g in STARTED])
+    STARTED.append(steps)
+    next(steps)
+    return steps
+
+
+def finish(steps):
+    """Run a :func:`started` generator to its end; returns its result."""
+    try:
+        next(steps)
+    except StopIteration as done:
+        return done.value
+    raise AssertionError("a phase's steps yielded twice")
+
+
+def mh_chain_main(rank: int, chaindir: Path) -> int:
+    """One rank of :class:`RankChain` (``chip_smoke.py --mh-chain RANK
+    DIR``): creates its CUDA context and loads the kernels, writes the
+    seconds that took to ``DIR/ready<RANK>``, then runs each
+    ``DIR/job<N>.json`` in turn as a fresh rank process would, until
+    ``DIR/stop`` appears or a job fails."""
+    import os
+    import traceback
+
+    import torch
+
+    from relayrl_tpu_torch import _kernels
+    from relayrl_tpu_torch.parallel import distributed, pipeline, ring
+
+    t0 = time.perf_counter()
+    torch.zeros(1, device=rank_device())
+    for name in _kernels.KERNELS:
+        _kernels.load(name)
+    torch.cuda.synchronize()
+    (chaindir / f"ready{rank}").write_text(f"{time.perf_counter() - t0:.3f}")
+    mains = {"--mh-rank": mh_rank_main, "--mh-ring-rank": mh_ring_rank_main,
+             "--mh-split-rank": mh_split_rank_main, "--mh-pp-rank": mh_pp_rank_main}
+    n = 0
+    while not (chaindir / "stop").exists():
+        job = chaindir / f"job{n}.json"
+        if not job.exists():
+            time.sleep(0.05)
+            continue
+        spec = json.loads(job.read_text())[rank]
+        flag, _rank, port, workdir = spec["argv"]
+        workdir = Path(workdir)
+        os.environ.update(spec["env"])
+        zero_flash_counts()
+        zero_ring_counts()
+        for comm in (distributed.COMM, ring.COMM, pipeline.COMM):
+            comm.reset()
+        log = open(workdir / f"rank{rank}.log", "wb")
+        saved = os.dup(1), os.dup(2)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os.dup2(log.fileno(), 1)
+        os.dup2(log.fileno(), 2)
+        try:
+            rc = mains[flag](rank, int(port), workdir)
+        except BaseException:
+            traceback.print_exc()
+            rc = 1
+        finally:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os.dup2(saved[0], 1)
+            os.dup2(saved[1], 2)
+            os.close(saved[0])
+            os.close(saved[1])
+            log.close()
+        (workdir / f"rank{rank}.exit").write_text(str(rc))
+        if rc:
+            return rc
+        n += 1
+    return 0
+
+
 def run_ranks(root: Path, workdir: Path, args, envs: list[dict],
               timeout_s: float = MH_TIMEOUT_S) -> None:
-    """Start one ``chip_smoke.py`` process per rank (``subprocess``, never a
-    fork of this CUDA process) with ``args(rank)`` and its env, wait for all
-    under one deadline, and fail the phase if one fails or the deadline
-    passes (every process is killed then)."""
+    """Run one rank per env with ``args(rank)`` under one deadline, and fail
+    the phase if one fails or the deadline passes. On :data:`RANK_CHAIN`
+    when it is running and fits; else one ``chip_smoke.py`` process per
+    rank (``subprocess``, never a fork of this CUDA process), every one
+    killed when the phase fails."""
     import os
+
+    if RANK_CHAIN is not None and RANK_CHAIN.fits(envs):
+        RANK_CHAIN.run(workdir, args, envs, timeout_s)
+        return
 
     procs, logs = [], []
     for rank, env in enumerate(envs):
@@ -6956,10 +7178,16 @@ def same_tree(a, b, path: str = "") -> None:
         raise AssertionError(f"{path}: {a!r} vs {b!r}")
 
 
-def multiprocess_server(device, root: Path, workdir: Path, mesh: dict | None = None,
-                        updates: int = MH_SERVER_UPDATES, resume_updates: int = 0,
-                        arch: dict = SLICE_ARCH) -> dict:
-    """Phase 22 (b): phase 11's learner as a two-rank ``TrainingServer``
+def multiprocess_server(*args, **kwargs) -> dict:
+    """:func:`multiprocess_server_steps` run through."""
+    return finish(started(multiprocess_server_steps(*args, **kwargs)))
+
+
+def multiprocess_server_steps(device, root: Path, workdir: Path, mesh: dict | None = None,
+                              updates: int = MH_SERVER_UPDATES, resume_updates: int = 0,
+                              arch: dict = SLICE_ARCH):
+    """A generator (:func:`started`, :func:`finish`) that yields once, while
+    its rank servers start, and returns its result. Phase 22 (b): phase 11's learner as a two-rank ``TrainingServer``
     (``examples/chaos_server.py`` per rank, the default config, the
     checkpoint directory shared) fed over ZMQ by a ``VectorAgent`` of
     ``MH_LANES`` ``RecallEnv(255)`` lanes in this process, one epoch a wave:
@@ -7071,6 +7299,7 @@ def multiprocess_server(device, root: Path, workdir: Path, mesh: dict | None = N
     servers = start(False, "a")
     agent = None
     try:
+        yield
         for s in servers:
             s.wait(lambda st: True, "the rank to come up", timeout_s=MH_TIMEOUT_S)
         agent = VectorAgent(num_envs=MH_LANES, config_path=str(agent_config), seed=SEED,
@@ -7426,7 +7655,12 @@ def multiprocess_ring(device, root: Path, workdir: Path, sp: dict,
             "hops": want_hops}
 
 
-def multiprocess_ring_server(device, root: Path, workdir: Path) -> dict:
+def multiprocess_ring_server(*args, **kwargs) -> dict:
+    """:func:`multiprocess_ring_server_steps` run through."""
+    return finish(started(multiprocess_ring_server_steps(*args, **kwargs)))
+
+
+def multiprocess_ring_server_steps(device, root: Path, workdir: Path):
     """Phase 23 (b): the ring flagship as a two-rank ``TrainingServer``
     (``examples/chaos_server.py`` per rank, ``learner.mesh`` ``MHR_MESH``,
     each rank two mesh entries on its card through ``local_device_ids``)
@@ -7481,6 +7715,7 @@ def multiprocess_ring_server(device, root: Path, workdir: Path) -> dict:
                                    env=mh_rank_env(rank, port, cards)))
     agent = None
     try:
+        yield
         for s in servers:
             s.wait(lambda st: True, "the rank to come up", timeout_s=MH_TIMEOUT_S)
         agent = VectorAgent(num_envs=MH_LANES, config_path=str(agent_config), seed=SEED,
@@ -8123,6 +8358,67 @@ def multiprocess_pp(device, root: Path, workdir: Path, learned: dict,
             "first_digest": rs[0]["updates"][0]["digest"][:16],
             "launches": tuple(sum(u["counts"][i] for r in rs for u in r["updates"])
                               + ref_counts[i] for i in range(3))}
+
+
+# Phase 26: the port's static-analysis gate, run as a user runs it.
+ANALYSIS_TIMEOUT_S = 300
+_ANALYSIS_SCRIPT = """
+import json, sys
+from relayrl_tpu_torch.analysis import main
+rc = main(["--format", "json"])
+loaded = sorted(m for m in ("jax", "torch", "relayrl_tpu") if m in sys.modules)
+print(json.dumps({"rc": rc, "loaded": loaded}))
+"""
+
+
+def static_analysis(root: Path) -> dict:
+    """Phase 26: ``relayrl_tpu_torch.analysis``'s default invocation
+    (torchlint over the port and this script, then the contracts engine
+    with CON01 against the committed inventory) in a fresh interpreter
+    from the checkout's root. Fails unless it exits 0 with no new
+    finding and loads neither torch, jax nor the JAX package. Returns
+    the findings and the ``# torchlint: disable=`` suppressions in the
+    scanned tree by code, and the seconds taken."""
+    import os
+    import tokenize
+    from collections import Counter
+
+    from relayrl_tpu_torch.analysis.engine import _SUPPRESS_RE, iter_python_files
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _ANALYSIS_SCRIPT], cwd=str(root),
+                          env=dict(os.environ, PYTHONPATH=str(root)),
+                          capture_output=True, text=True, timeout=ANALYSIS_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase 26: the analyzer exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    tail = json.loads(lines[-1])
+    report = json.loads("\n".join(lines[:-1]))
+    found = Counter(f["rule"] for f in report["new"])
+    if tail["rc"] != 0 or found:
+        raise AssertionError(f"phase 26: exit {tail['rc']}, new findings "
+                             + "\n".join(f"{f['path']}:{f['line']} {f['rule']} "
+                                         f"{f['message']}" for f in report["new"]))
+    if tail["loaded"]:
+        raise AssertionError(f"phase 26: the analyzer loaded {tail['loaded']}")
+    suppressed = Counter()
+    for path in (root / "relayrl_tpu_torch", root / "chip_smoke.py"):
+        for file in iter_python_files(path):
+            with open(file, "rb") as f:
+                comments = [tok.string for tok in tokenize.tokenize(f.readline)
+                            if tok.type == tokenize.COMMENT]
+            for comment in comments:
+                m = _SUPPRESS_RE.search(comment)
+                if m:
+                    # the codes only: a reason may hold commas of its own
+                    suppressed.update(
+                        word.upper() for word in (token.split()[0] for token in
+                                                  m.group(1).split(",") if token.strip())
+                        if re.fullmatch(r"[A-Za-z]+\d\d|all", word))
+    return {"findings": dict(sorted(found.items())), "baselined": report["baselined"],
+            "suppressed": dict(sorted(suppressed.items())), "seconds": seconds}
 
 
 def nccl_shared_card_probe(rank: int, port: int) -> int:
@@ -8866,6 +9162,12 @@ def main() -> int:
     traced_dkv = t_dkv + trl["launches"][2] + pu["counts"][2]
 
     print(f"[time] phase 21 at {time.perf_counter() - t_run:.1f} s", flush=True)
+    # The rank processes of phases 22-25 start now and come up while phase
+    # 21 runs (RankChain).
+    global RANK_CHAIN
+    RANK_CHAIN = RankChain(root, root / "build" / "chip_smoke_rank_chain",
+                           torch.cuda.device_count() >= MH_RANKS)
+    atexit.register(close_rank_chain)
     # 21. the mesh learner: pp, ep, fsdp and tp over meshes of the card
     t21 = time.perf_counter()
     phase5_ms = 1e3 * sum(seconds[1:]) / len(seconds[1:])
@@ -8927,6 +9229,9 @@ def main() -> int:
     print(f"[time] phase 22 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # 22. the multi-process learner: ranks started here, dp across them
     t22 = time.perf_counter()
+    # Each server phase's ranks start while the rank job before it runs.
+    server22 = started(multiprocess_server_steps(device, root,
+                                                 root / "build" / "chip_smoke_mh_server"))
     ml = multiprocess_learner(device, root, root / "build" / "chip_smoke_mh", learned)
     for case, r in ml["a"].items():
         print(f"[multiprocess] (a) {case} batch under dp {MH_RANKS} across {MH_RANKS} ranks "
@@ -8950,7 +9255,7 @@ def main() -> int:
               f"max param diff {r['param_err']:.3e} ({r['n_floored']} elements at Adam's "
               f"floor); (not gated) {[round(x, 3) for x in r['ms']]} ms per update over "
               f"{MH_OFF_TIMED} more, each on a broadcast sample", flush=True)
-    ms22 = multiprocess_server(device, root, root / "build" / "chip_smoke_mh_server")
+    ms22 = finish(server22)
     print(f"[multiprocess] (b) a {MH_RANKS}-rank TrainingServer fed by {MH_LANES} agent lanes: "
           f"{MH_SERVER_UPDATES} update(s) and a collective checkpoint; every version installed "
           f"by the agent; ranks at version {ms22['version']} with params sha256 "
@@ -8969,6 +9274,8 @@ def main() -> int:
     # 23. the multi-process ring: sp across the ranks, K4-K6 on each rank's
     # shards, the K/V chunks hopping between the processes
     t23 = time.perf_counter()
+    server23 = started(multiprocess_ring_server_steps(
+        device, root, root / "build" / "chip_smoke_mh_ring_server"))
     mr = multiprocess_ring(device, root, root / "build" / "chip_smoke_mh_ring", sp)
     B23 = LEARNER["traj_per_epoch"]
     C23 = LEARNER["bucket_lengths"][0] // SP
@@ -8994,7 +9301,7 @@ def main() -> int:
               f"{mr['comm_ms'][rank]:.2f} ms, of which {timed['hops']} hops took "
               f"{1e3 * timed['hop_seconds']:.2f} ms and {timed['gathers']} gathers "
               f"{1e3 * timed['gather_seconds']:.2f} ms; on {card}", flush=True)
-    mrs = multiprocess_ring_server(device, root, root / "build" / "chip_smoke_mh_ring_server")
+    mrs = finish(server23)
     print(f"[mh-ring] (b) a {MH_RANKS}-rank TrainingServer with learner.mesh {MHR_MESH} "
           f"and the ring flagship, fed by {MH_LANES} agent lanes: {MHR_SERVER_UPDATES} "
           f"updates, each version installed by the agent with both ranks' params "
@@ -9016,6 +9323,9 @@ def main() -> int:
     if torch.cuda.device_count() >= MHS_RANKS4:
         layouts.append(({"fsdp": MHS_MESH4, "tp": MHS_MESH4}, MHS_RANKS4))
     mhs_launches = [0, 0, 0]
+    server24 = started(multiprocess_server_steps(
+        device, root, root / "build" / "chip_smoke_mh_split_server", MHS_MESHES["fsdp"],
+        MHS_SERVER_UPDATES, MHS_RESUME_UPDATES))
     for meshes, ranks_n in layouts:
         ms24 = multiprocess_split(device, root, root / "build" / f"chip_smoke_mh_split{ranks_n}",
                                   learned, meshes, ranks_n, ml["a"]["even"]["digest"])
@@ -9054,8 +9364,7 @@ def main() -> int:
                   f"(host clock) on {card}", flush=True)
             for i in range(3):
                 mhs_launches[i] += r["launches"][i]
-    ds24 = multiprocess_server(device, root, root / "build" / "chip_smoke_mh_split_server",
-                               MHS_MESHES["fsdp"], MHS_SERVER_UPDATES, MHS_RESUME_UPDATES)
+    ds24 = finish(server24)
     print(f"[mh-split] (d) a {MH_RANKS}-rank TrainingServer with learner.mesh "
           f"{MHS_MESHES['fsdp']} fed by {MH_LANES} agent lanes: {MHS_SERVER_UPDATES} updates, "
           f"a collective checkpoint (its train state equal, tensor for tensor, to a "
@@ -9079,6 +9388,9 @@ def main() -> int:
     if torch.cuda.device_count() >= MHP_RANKS4:
         layouts.append((MHP_MESH4, MHP_RANKS4))
     mhp_launches, first_pp = [0, 0, 0], None
+    server25 = started(multiprocess_server_steps(
+        device, root, root / "build" / "chip_smoke_mh_pp_server", MHP_MESH,
+        MHP_SERVER_UPDATES, 0, PP_ARCH))
     for mesh25, ranks_n in layouts:
         r = multiprocess_pp(device, root, root / "build" / f"chip_smoke_mh_pp{ranks_n}",
                             learned, mesh25, ranks_n)
@@ -9109,8 +9421,7 @@ def main() -> int:
                   flush=True)
         for i in range(3):
             mhp_launches[i] += r["launches"][i]
-    ps25 = multiprocess_server(device, root, root / "build" / "chip_smoke_mh_pp_server",
-                               MHP_MESH, MHP_SERVER_UPDATES, 0, PP_ARCH)
+    ps25 = finish(server25)
     print(f"[mh-pp] (b) a {MH_RANKS}-rank TrainingServer with learner.mesh {MHP_MESH} and "
           f"the pp flagship, fed by {MH_LANES} agent lanes: {MHP_SERVER_UPDATES} update(s), "
           f"a collective checkpoint (its train state equal, tensor for tensor, to a "
@@ -9121,9 +9432,26 @@ def main() -> int:
           f"trajectories sent = accepted = trained; (not gated) seconds per wave "
           f"{[round(x, 2) for x in ps25['seconds']]} on {card}", flush=True)
     print(f"[mh-pp] phase 25 in {time.perf_counter() - t25:.1f} s", flush=True)
+    print(f"[time] rank chain: ranks ready (CUDA context and kernels) in "
+          f"{RANK_CHAIN.ready_seconds()} s of their own, the jobs of phases 22-25 in "
+          + ", ".join(f"{flag} {sec:.1f} s" for flag, sec in RANK_CHAIN.job_seconds)
+          + f"; chaos_server starts to a first status {SERVER_UP_S} s",
+          flush=True)
+    close_rank_chain()
     mhp_fwd, mhp_dq, mhp_dkv = (
         mhp_launches[i] + sum(c[i] for part in ps25["counts"] for c in part) for i in range(3))
     mhp_fwd += ps25["agent_k1"]
+
+    print(f"[time] phase 26 at {time.perf_counter() - t_run:.1f} s", flush=True)
+    # 26. the static-analysis gate: the port's analyzer on this host (no JAX)
+    sa = static_analysis(root)
+    print(f"[analysis] python -m relayrl_tpu_torch.analysis (torchlint over "
+          f"relayrl_tpu_torch/ and chip_smoke.py, then the contracts engine, CON01 "
+          f"against the committed contracts.json): exit 0; findings by code "
+          f"{sa['findings']} (new), {sa['baselined']} baselined; suppressions by code "
+          f"{sa['suppressed']}; torch, jax and relayrl_tpu not loaded; "
+          f"{sa['seconds']:.2f} s on the host of {card}", flush=True)
+    print(f"[time] run {time.perf_counter() - t_run:.1f} s", flush=True)
 
     kernels = [{
         "name": "flash_fwd",
@@ -9246,6 +9574,8 @@ def sweep_main(mode: str, first: int, last: int) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mh-chain"]:
+        sys.exit(mh_chain_main(int(sys.argv[2]), Path(sys.argv[3])))
     if sys.argv[1:2] == ["--mh-rank"]:
         sys.exit(mh_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     if sys.argv[1:2] == ["--mh-ring-rank"]:

@@ -86,6 +86,7 @@ def build() -> Path:
                 failed = [(name, proc.returncode, log) for name, proc, log
                           in zip(SOURCES, procs, logs) if proc.returncode]
                 if not failed:
+                    # torchlint: disable=CONC01 - one build per process: the compiles share this process's object names, and every waiter needs the library they make
                     link = subprocess.run(
                         [cxx, *CXX_FLAGS, "-shared", "-o", str(tmp),
                          *map(str, objs)], capture_output=True, text=True,

@@ -246,7 +246,7 @@ class ConfigLoader:
         return value if value >= 1 else 1000
 
     def get_grpc_idle_timeout_s(self) -> float:
-        # jaxlint: disable=CFG01 - legacy spelling kept readable for old config files
+        # torchlint: disable=CFG01 - legacy spelling kept readable for old config files
         raw = self._raw.get("grpc_idle_timeout_s", self._raw.get("grpc_idle_timeout", 30.0))
         try:
             value = float(raw)

@@ -277,6 +277,7 @@ class InferenceService:
         self._m_occupancy = reg.histogram(
             "relayrl_serving_batch_occupancy",
             "requests per closed batch (occupancy > 1 = batching works)",
+            # torchlint: disable=MET03 - dimensionless request count, not a dimensioned unit
             buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256))
         self._m_dispatch_s = reg.histogram(
             "relayrl_serving_dispatch_seconds",
@@ -1104,8 +1105,7 @@ class RemoteActorClient:
             if reward and self.trajectory.get_actions():
                 self.trajectory.get_actions()[-1].update_reward(
                     float(reward))
-            # Per-client lock: the env loop is serial, so blocking here
-            # IS the backpressure.
+            # torchlint: disable=LOCK02 - per-client lock; the env loop is serial, blocking here IS the backpressure
             act, aux = self._infer(obs, mask_arr)
             record = ActionRecord(
                 obs=obs, act=act, mask=mask_arr,
@@ -1551,8 +1551,7 @@ class MultiplexedRemoteClient:
                     if rewards[i] and self.trajectories[i].get_actions():
                         self.trajectories[i].get_actions()[-1] \
                             .update_reward(float(rewards[i]))
-            # Per-client lock: the driving loop is serial, so blocking
-            # here IS the backpressure.
+            # torchlint: disable=LOCK02 - per-client lock; the driving loop is serial, blocking here IS the backpressure
             replies = self._infer_all(obs_list, mask_list)
             records = []
             for i in range(n):

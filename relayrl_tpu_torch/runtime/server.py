@@ -244,6 +244,7 @@ class TrainingServer:
             "observed for trajectories that carry bver",
             buckets=LAG_BUCKETS)
         self._m_learner_errors = reg.counter(
+            # torchlint: disable=MET05 - port-only counter; the JAX server prints learner errors and registers no metric, and docs/ is the JAX package's
             "relayrl_server_learner_errors_total",
             "exceptions caught on the learner thread (the loop survives "
             "them; each one is counted and printed)")

@@ -475,7 +475,7 @@ class ZmqServingClient:
                 while self._sock.poll(0):
                     # NOBLOCK recv after a 0-timeout poll: returns
                     # immediately by construction, never blocks the lock.
-                    self._sock.recv(zmq.NOBLOCK)  # jaxlint: disable=CONC01
+                    self._sock.recv(zmq.NOBLOCK)  # torchlint: disable=CONC01
             except zmq.ZMQError:
                 pass
             self._sock.send(payload)
@@ -494,7 +494,7 @@ class ZmqServingClient:
                 # non-thread-safe DEALER (the _dealer_request precedent);
                 # poll() above guarantees recv returns immediately and
                 # the hold is bounded by the caller's timeout_s.
-                raw = self._sock.recv()  # jaxlint: disable=CONC01
+                raw = self._sock.recv()  # torchlint: disable=CONC01
                 try:
                     reply = unpack_infer_reply(raw)
                 except Exception:

@@ -354,7 +354,7 @@ class ZmqAgentTransport(AgentTransport):
                     # non-thread-safe DEALER; poll() above guarantees
                     # recv returns immediately, and the hold is bounded
                     # by the caller's timeout_s.
-                    reply = self._dealer.recv_multipart()  # jaxlint: disable=CONC01
+                    reply = self._dealer.recv_multipart()  # torchlint: disable=CONC01
                     if reply and reply[0] == want:
                         return reply
             return None
@@ -429,7 +429,7 @@ class ZmqAgentTransport(AgentTransport):
             # zmq connect is asynchronous (returns before any TCP
             # handshake) — not a blocking call, and the swap must be
             # atomic against concurrent senders holding this lock.
-            self._push.connect(self._addrs[1])  # jaxlint: disable=CONC01
+            self._push.connect(self._addrs[1])  # torchlint: disable=CONC01
             try:
                 self._push_monitor = self._push.get_monitor_socket(
                     zmq.EVENT_CONNECTED | zmq.EVENT_DISCONNECTED)

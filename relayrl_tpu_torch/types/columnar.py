@@ -441,6 +441,7 @@ def _load_codec():
         _codec_checked = True
         from relayrl_tpu_torch._native import find_library
 
+        # torchlint: disable=LOCK02 - one load per process: a decoder that arrives during the first build needs its library too, so it waits rather than race a second build
         path = find_library()
         if path is None:
             return None
