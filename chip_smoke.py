@@ -379,7 +379,32 @@ Phases, each of which fails the run:
    subprocess from the root of the checkout, on this host, which has no
    JAX: exit 0, no new finding, CON01 silent, and neither ``torch``,
    ``jax`` nor ``relayrl_tpu`` loaded by the run; prints the findings and
-   the ``torchlint: disable`` suppressions by code and the seconds taken.
+   the ``torchlint: disable`` suppressions by code and the seconds taken;
+27. the pipeline across processes beside a crossing fsdp axis: 4
+   processes (a ``--mh-pp-rank`` job on 4 rank processes started before
+   phase 24), one mesh entry each, under ``{"dp": 1, "fsdp": 2, "pp": 2}``
+   (gloo on one card; nccl with a card each): the pp groups (0, 1) and
+   (2, 3), the fsdp groups (0, 2) and (1, 3); each rank holds one stage's
+   two layers and its half of every end that fsdp splits, with their Adam
+   moments; activations hop within the pp group, the ends gather and
+   reduce-scatter within the fsdp group, a stage's gradients sum over the
+   data group. (a) The pp flagship from phase 5's initial params stacked
+   into the blocks layout, phase 5's first batch broadcast, one update
+   then 1 timed: held to this process's single-process pipelined update
+   of the same spec at phase 5's bars, and bit-equal (gathered params
+   sha256 and metrics) to the same mesh across phase 22's 2 rank
+   processes of two entries each (fsdp alone across them); the ranks'
+   gathered params sha256-equal and each fsdp coordinate's ends equal
+   across its ranks; 336/4/4 launches per rank per update (two layers x
+   two microbatches a forward) summing to the single process's
+   1344/16/16; the hops', broadcasts', gathers', reduce-scatters' and
+   data-group all-reduces' counts, bytes and ms per rank; each rank's
+   stage and end bytes on its card. (b) The pp flagship
+   as a 4-rank ``TrainingServer`` with that ``learner.mesh`` fed by an
+   8-lane agent: 1 update and a collective checkpoint equal to a
+   single-process save; every version installed by the agent, served
+   through K1 and sha256-equal to the 4 ranks' gathered params; exact
+   accounting.
 
 Phases 3 and 6 also hold every kernel to its plain version at head dims
 128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
@@ -817,6 +842,17 @@ MHP_MESH4 = {"dp": 2, "pp": 2}
 MHP_RANKS4 = 4
 MHP_TIMED = 1
 MHP_SERVER_UPDATES = 1
+# The pipeline across processes beside a crossing fsdp axis (phase 27):
+# (a) the pp flagship under MHPS_MESH across MHPS_RANKS ranks (a stage and
+# half of every split end a rank) from phase 5's initial params on its
+# first batch, one update then MHPS_TIMED timed, and across the rank
+# chain's MH_RANKS ranks of two entries (fsdp alone across them); (b) the
+# flagship as a MHPS_RANKS-rank TrainingServer under MHPS_MESH for
+# MHPS_SERVER_UPDATES update(s) and a collective checkpoint.
+MHPS_MESH = {"dp": 1, "fsdp": 2, "pp": 2}
+MHPS_RANKS = 4
+MHPS_TIMED = 1
+MHPS_SERVER_UPDATES = 1
 
 
 def _dtype_name(dtype) -> str:
@@ -6590,12 +6626,12 @@ def mesh_entry(device, workdir: Path, learned: dict) -> dict:
     return {"per_update": per_update, "ms": [1e3 * s for s in seconds],
             "served": served, "digest": digest[:16], "version": algo.version}
 
-def mh_rank_env(rank: int, port: int, cards: bool) -> dict:
+def mh_rank_env(rank: int, port: int, cards: bool, world: int = MH_RANKS) -> dict:
     """A rank's environment: the coordinator, the world and its id (the
     server reads these), and its own card when the machine has one per
     rank."""
     env = {"RELAYRL_COORDINATOR": f"127.0.0.1:{port}",
-           "RELAYRL_NUM_PROCESSES": str(MH_RANKS), "RELAYRL_PROCESS_ID": str(rank)}
+           "RELAYRL_NUM_PROCESSES": str(world), "RELAYRL_PROCESS_ID": str(rank)}
     if cards:
         env["CUDA_VISIBLE_DEVICES"] = str(rank)
     return env
@@ -6769,43 +6805,47 @@ def mh_rank_main(rank: int, port: int, workdir: Path) -> int:
 
 
 class RankChain:
-    """``MH_RANKS`` rank processes (``chip_smoke.py --mh-chain RANK DIR``,
-    ``subprocess``, never a fork of this CUDA process) started once, before
-    phase 21, that run the two-rank jobs of phases 22-25 (``--mh-rank``,
-    ``--mh-ring-rank``, ``--mh-split-rank``, ``--mh-pp-rank``) one after
-    another: each pair of rank processes starts, imports torch, creates its
-    CUDA context and loads the kernels once, while phase 21 runs, instead
-    of once a phase. A job is a file ``DIR/job<N>.json`` with each rank's
-    argv and env; a rank runs it as a fresh process would (every launch
-    and communication count zeroed, its output in ``WORKDIR/rank<R>.log``)
-    and writes its exit code to ``WORKDIR/rank<R>.exit``."""
+    """``n`` rank processes (``chip_smoke.py --mh-chain RANK DIR``,
+    ``subprocess``, never a fork of this CUDA process) started once, ahead
+    of the phases whose jobs they run one after another: the two-rank jobs
+    of phases 22-25 and 27 (``--mh-rank``, ``--mh-ring-rank``,
+    ``--mh-split-rank``, ``--mh-pp-rank``) on ``MH_RANKS`` ranks started
+    before phase 21, phase 27's four-rank job (and phases 24 and 25's with
+    four cards) on ``MHPS_RANKS`` ranks started before phase 24: each rank
+    process starts, imports torch, creates its CUDA context and loads the
+    kernels once, while earlier phases run, instead of once a phase. A job
+    is a file ``DIR/job<N>.json`` with each rank's argv and env; a rank
+    runs it as a fresh process would (every launch and communication count
+    zeroed, its output in ``WORKDIR/rank<R>.log``) and writes its exit
+    code to ``WORKDIR/rank<R>.exit``."""
 
-    def __init__(self, root: Path, chaindir: Path, cards: bool):
+    def __init__(self, root: Path, chaindir: Path, cards: bool, n: int = MH_RANKS):
         import os
         import shutil
 
         shutil.rmtree(chaindir, ignore_errors=True)
         chaindir.mkdir(parents=True)
+        self.n = n
         self.chaindir, self.jobs, self.t0 = chaindir, 0, time.perf_counter()
-        self.visible = [mh_rank_env(r, 0, cards).get("CUDA_VISIBLE_DEVICES")
-                        for r in range(MH_RANKS)]
-        self.logs = [open(chaindir / f"rank{r}.log", "wb") for r in range(MH_RANKS)]
+        self.visible = [mh_rank_env(r, 0, cards, n).get("CUDA_VISIBLE_DEVICES")
+                        for r in range(n)]
+        self.logs = [open(chaindir / f"rank{r}.log", "wb") for r in range(n)]
         self.procs = [subprocess.Popen(
             [sys.executable, str(root / "chip_smoke.py"), "--mh-chain", str(r),
              str(chaindir)], cwd=str(root),
-            env=dict(os.environ, PYTHONPATH=str(root), **mh_rank_env(r, 0, cards)),
-            stdout=self.logs[r], stderr=subprocess.STDOUT) for r in range(MH_RANKS)]
+            env=dict(os.environ, PYTHONPATH=str(root), **mh_rank_env(r, 0, cards, n)),
+            stdout=self.logs[r], stderr=subprocess.STDOUT) for r in range(n)]
         self.job_seconds: list[tuple[str, float]] = []
 
     def fits(self, envs: list[dict]) -> bool:
-        return (len(envs) == MH_RANKS
+        return (len(envs) == self.n
                 and [env.get("CUDA_VISIBLE_DEVICES") for env in envs] == self.visible)
 
     def ready_seconds(self) -> list[float | None]:
         """Each rank's seconds from its start to its CUDA context and
         kernels being ready (None before)."""
         out = []
-        for r in range(MH_RANKS):
+        for r in range(self.n):
             path = self.chaindir / f"ready{r}"
             out.append(float(path.read_text()) if path.exists() else None)
         return out
@@ -6813,11 +6853,11 @@ class RankChain:
     def run(self, workdir: Path, args, envs: list[dict], timeout_s: float) -> None:
         """One job on the chain: each rank's ``args(rank)`` and env, under
         one deadline; fails as :func:`run_ranks` does."""
-        for r in range(MH_RANKS):
+        for r in range(self.n):
             (workdir / f"rank{r}.exit").unlink(missing_ok=True)
         spec = [{"argv": [str(a) for a in args(r)],
                  "env": {k: v for k, v in envs[r].items() if k != "CUDA_VISIBLE_DEVICES"}}
-                for r in range(MH_RANKS)]
+                for r in range(self.n)]
         tmp = self.chaindir / f"job{self.jobs}.tmp"
         tmp.write_text(json.dumps(spec))
         tmp.rename(self.chaindir / f"job{self.jobs}.json")
@@ -6830,11 +6870,11 @@ class RankChain:
                 f"--- rank {r}:\n" + ((workdir / f"rank{r}.log").read_bytes()[-3000:]
                                        if (workdir / f"rank{r}.log").exists() else b"")
                 .decode(errors="replace") + (self.chaindir / f"rank{r}.log")
-                .read_bytes()[-1500:].decode(errors="replace") for r in range(MH_RANKS))
+                .read_bytes()[-1500:].decode(errors="replace") for r in range(self.n))
 
         while True:
             codes = [int(p.read_text()) if p.exists() else None
-                     for p in (workdir / f"rank{r}.exit" for r in range(MH_RANKS))]
+                     for p in (workdir / f"rank{r}.exit" for r in range(self.n))]
             if all(c == 0 for c in codes):
                 break
             dead = [r for r, p in enumerate(self.procs) if p.poll() is not None]
@@ -6843,7 +6883,7 @@ class RankChain:
                 what = (f"rank {failed[0]} exited {codes[failed[0]]}" if failed else
                         f"rank {dead[0]}'s process exited {self.procs[dead[0]].returncode}"
                         if dead else f"ranks still running after {timeout_s:.0f} s")
-                raise AssertionError(f"phase 22-25 job {args(0)[0]}: {what}:\n{tails()}")
+                raise AssertionError(f"phase 22-27 job {args(0)[0]}: {what}:\n{tails()}")
             time.sleep(0.05)
         self.job_seconds.append((str(args(0)[0]), time.perf_counter() - t0))
 
@@ -6860,15 +6900,18 @@ class RankChain:
             log.close()
 
 
-# The phases' rank chain, while one runs (main starts it before phase 21).
+# The phases' rank chains, while they run (main starts the two-rank one
+# before phase 21, the four-rank one before phase 24).
 RANK_CHAIN: RankChain | None = None
+RANK_CHAIN4: RankChain | None = None
 
 
 def close_rank_chain() -> None:
-    global RANK_CHAIN
-    if RANK_CHAIN is not None:
-        RANK_CHAIN.close()
-        RANK_CHAIN = None
+    global RANK_CHAIN, RANK_CHAIN4
+    for chain in (RANK_CHAIN, RANK_CHAIN4):
+        if chain is not None:
+            chain.close()
+    RANK_CHAIN = RANK_CHAIN4 = None
 
 
 # Started phase generators; closed at exit, which stops their servers
@@ -6963,14 +7006,15 @@ def run_ranks(root: Path, workdir: Path, args, envs: list[dict],
               timeout_s: float = MH_TIMEOUT_S) -> None:
     """Run one rank per env with ``args(rank)`` under one deadline, and fail
     the phase if one fails or the deadline passes. On :data:`RANK_CHAIN`
-    when it is running and fits; else one ``chip_smoke.py`` process per
-    rank (``subprocess``, never a fork of this CUDA process), every one
-    killed when the phase fails."""
+    or :data:`RANK_CHAIN4` when one is running and fits; else one
+    ``chip_smoke.py`` process per rank (``subprocess``, never a fork of
+    this CUDA process), every one killed when the phase fails."""
     import os
 
-    if RANK_CHAIN is not None and RANK_CHAIN.fits(envs):
-        RANK_CHAIN.run(workdir, args, envs, timeout_s)
-        return
+    for chain in (RANK_CHAIN, RANK_CHAIN4):
+        if chain is not None and chain.fits(envs):
+            chain.run(workdir, args, envs, timeout_s)
+            return
 
     procs, logs = [], []
     for rank, env in enumerate(envs):
@@ -7185,7 +7229,7 @@ def multiprocess_server(*args, **kwargs) -> dict:
 
 def multiprocess_server_steps(device, root: Path, workdir: Path, mesh: dict | None = None,
                               updates: int = MH_SERVER_UPDATES, resume_updates: int = 0,
-                              arch: dict = SLICE_ARCH):
+                              arch: dict = SLICE_ARCH, ranks_n: int = MH_RANKS):
     """A generator (:func:`started`, :func:`finish`) that yields once, while
     its rank servers start, and returns its result. Phase 22 (b): phase 11's learner as a two-rank ``TrainingServer``
     (``examples/chaos_server.py`` per rank, the default config, the
@@ -7205,7 +7249,9 @@ def multiprocess_server_steps(device, root: Path, workdir: Path, mesh: dict | No
     tensor, a single-process learner's save of the same state. Phase 25
     (b) passes the pp flagship's ``arch`` and a mesh whose pp axis crosses
     the ranks: each rank then launches its stages' share, and the agent
-    runs every layer a dispatch (the pipeline family's readout)."""
+    runs every layer a dispatch (the pipeline family's readout). Phase 27
+    (b) passes ``ranks_n`` 4 and a mesh whose fsdp and pp axes both cross
+    the ranks (a stage and half of the ends a rank)."""
     import shutil
 
     import torch
@@ -7228,14 +7274,15 @@ def multiprocess_server_steps(device, root: Path, workdir: Path, mesh: dict | No
                       if k not in ("kind", "has_critic", "precision")},
                    **LEARNER}
     ckpt_dir = workdir / "checkpoints"
-    cards = torch.cuda.device_count() >= MH_RANKS
+    cards = torch.cuda.device_count() >= ranks_n
     n_layers = arch["n_layers"]
     per_pass = n_layers
     if (mesh or {}).get("pp", 1) > 1:
         from relayrl_tpu_torch.parallel import resolve_microbatches
 
         per_pass = n_layers // mesh["pp"] * resolve_microbatches(
-            LEARNER["traj_per_epoch"] // mesh.get("dp", 1), mesh["pp"])
+            LEARNER["traj_per_epoch"] // (mesh.get("dp", 1) * mesh.get("fsdp", 1)),
+            mesh["pp"])
     per_update = (per_pass * (4 + LEARNER["train_vf_iters"]), per_pass, per_pass)
     per_dispatch = n_layers if arch["kind"] == PP_ARCH["kind"] else n_layers - 1
     agent_config = workdir / "agent_config.json"
@@ -7244,7 +7291,7 @@ def multiprocess_server_steps(device, root: Path, workdir: Path, mesh: dict | No
     def start(resume: bool, tag: str):
         port = _free_port()
         servers = []
-        for rank in range(MH_RANKS):
+        for rank in range(ranks_n):
             cfg = {"algorithm": "REINFORCE",
                    "obs_dim": int(env.observation_space.shape[0]),
                    "act_dim": int(env.action_space.n), "hyperparams": hyperparams,
@@ -7257,7 +7304,7 @@ def multiprocess_server_steps(device, root: Path, workdir: Path, mesh: dict | No
                    "status_path": str(workdir / f"status{rank}_{tag}.json"),
                    "stop_path": str(workdir / f"stop_{tag}"), **server_addrs}
             servers.append(ChaosServer(root, cfg, workdir / f"rank{rank}_{tag}.log",
-                                       env=mh_rank_env(rank, port, cards)))
+                                       env=mh_rank_env(rank, port, cards, ranks_n)))
         return servers
 
     def stop(servers, tag):
@@ -7275,7 +7322,7 @@ def multiprocess_server_steps(device, root: Path, workdir: Path, mesh: dict | No
             raise AssertionError(f"{what}: the ranks' states {states}")
         for rank, f in enumerate(finals):
             if f["distributed"] != {"multi_host": True, "process_id": rank,
-                                    "num_processes": MH_RANKS}:
+                                    "num_processes": ranks_n}:
                 raise AssertionError(f"{what}: rank {rank} topology {f['distributed']}")
             stats = f["stats"]
             if stats["learner_errors"] or stats["publish_errors"] or stats["dropped"]:
@@ -8111,17 +8158,19 @@ def pp_tree(params0) -> dict:
 
 def pp_holdings(state, device, stages: list[int], per_stage: int) -> dict:
     """What this rank holds of the pp flagship: the parameter and Adam
-    moment bytes of its stages' layers and of the replicated ends (every
-    parameter outside ``blocks``), and the layers it holds no bytes of.
-    Fails where a held parameter is not a leaf on ``device`` with moments
-    of twice its bytes, or another rank's layer holds any."""
+    moment bytes of its stages' layers and of the ends (every parameter
+    outside ``blocks``: replicated, or this rank's shards where fsdp
+    crosses the ranks, counted in ``split_ends``), and the layers it
+    holds no bytes of. Fails where a held parameter is not a leaf on
+    ``device`` with moments of twice its bytes, or another rank's layer
+    holds any."""
     moments = {}
     for opt in (state.pi_opt, state.vf_opt):
         for p, st in (opt.state.items() if opt is not None else ()):
             moments[id(p)] = sum(v.numel() * v.element_size() for v in st.values()
                                  if hasattr(v, "ndim") and v.ndim)
     out = {"stage_bytes": 0, "stage_moment_bytes": 0, "ends_bytes": 0,
-           "ends_moment_bytes": 0, "absent_layers": []}
+           "ends_moment_bytes": 0, "absent_layers": [], "split_ends": 0}
     for name, p in state.params.named_parameters():
         layer = int(name.split(".")[1]) if name.startswith("blocks.") else None
         if layer is not None and layer // per_stage not in stages:
@@ -8136,23 +8185,27 @@ def pp_holdings(state, device, stages: list[int], per_stage: int) -> dict:
             raise AssertionError(f"{name}: on {p.device}, moments {moments.get(id(p))} "
                                  f"for {nbytes} bytes")
         key = "stage" if layer is not None else "ends"
+        out["split_ends"] += ".parametrizations." in f".{name}"
         out[f"{key}_bytes"] += nbytes
         out[f"{key}_moment_bytes"] += moments[id(p)]
     return out
 
 
 def mh_pp_rank_main(rank: int, port: int, workdir: Path) -> int:
-    """One rank of phase 25 (a) and (c) (``chip_smoke.py --mh-pp-rank RANK
-    PORT WORKDIR``, started by :func:`multiprocess_pp`): forms the process
-    group, builds the pp flagship's learner, loads the parent's params
-    (checked by digest), places a fresh-Adam state on the case's mesh (its
-    pp axis across the ranks, one entry a rank: this rank's stages only),
-    receives the coordinator's batch through the broadcast and trains one
-    update, then ``timed`` more; records after each the metrics, the
-    launches (K1-K3 and K4-K6), the hops (``pipeline.COMM``), the gathered
-    params' digest (a collective) and the replicated ends' digest as this
-    rank holds them, and what it holds (:func:`pp_holdings`). Writes
-    ``WORKDIR/rank<RANK>.pt``."""
+    """One rank of phases 25 (a), (c) and 27 (a) (``chip_smoke.py
+    --mh-pp-rank RANK PORT WORKDIR``, started by :func:`multiprocess_pp`):
+    forms the process group, builds the pp flagship's learner, loads the
+    parent's params (checked by digest), places a fresh-Adam state on the
+    case's mesh (``local`` entries a rank, all this rank's card: its own
+    stages only where pp crosses the ranks, its own shards of the ends
+    where fsdp does), receives the coordinator's batch through the
+    broadcast and trains one update, then ``timed`` more; records after
+    each the metrics, the launches (K1-K3 and K4-K6), the hops
+    (``pipeline.COMM``), the split's gathers, reduce-scatters and ep/tp
+    all-reduces (``distributed.COMM``), the data group's all-reduces
+    (:func:`_allreduce_timer`), the gathered params' digest (a collective)
+    and the ends' digest as this rank holds them, and what it holds
+    (:func:`pp_holdings`). Writes ``WORKDIR/rank<RANK>.pt``."""
     import hashlib
 
     import numpy as np
@@ -8182,9 +8235,10 @@ def mh_pp_rank_main(rank: int, port: int, workdir: Path) -> int:
     if _digest(params_to_jax(params)) != spec["params0"]:
         raise AssertionError(f"rank {rank}: initial params differ from the parent's")
     state, update, _ = update_parts(algo, algo.policy, params)
-    mesh = make_mesh(spec["mesh"], [device])
+    mesh = make_mesh(spec["mesh"], [device] * spec["local"])
     sharded = make_sharded_update(update, mesh, state)
     state = place_state(state, mesh)
+    reduces, undo = _allreduce_timer()
     want = spec["batch"]
     batch = broadcast_from_coordinator(
         want if rank == 0 else {k: np.zeros_like(v) for k, v in want.items()})
@@ -8206,6 +8260,8 @@ def mh_pp_rank_main(rank: int, port: int, workdir: Path) -> int:
         zero_flash_counts()
         zero_ring_counts()
         pipeline.COMM.reset()
+        distributed.COMM.reset()
+        reduces.update(calls=0, bytes=0, s=0.0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = sharded(state, batch)
@@ -8213,13 +8269,15 @@ def mh_pp_rank_main(rank: int, port: int, workdir: Path) -> int:
         torch.cuda.synchronize()
         return {"ms": 1e3 * (time.perf_counter() - t0), "metrics": metrics,
                 "counts": flash_counts(), "ring": ring_counts(),
-                "comm": pipeline.COMM.as_dict(), "ends": ends_digest(),
+                "comm": pipeline.COMM.as_dict(), "split": distributed.COMM.as_dict(),
+                "reduces": dict(reduces), "ends": ends_digest(),
                 "digest": _digest(params_to_jax(state.params))}
 
     first = step()
     first["params"] = {k: v.detach().cpu().clone()
                        for k, v in logical_state(state.params).items()}
     updates = [first] + [step() for _ in range(spec["timed"])]
+    undo()
     stages = mesh.shard_indices("pp")
     out = {"backend": distributed.backend(), "card": torch.cuda.get_device_name(device),
            "cross": mesh.cross_axes, "stages": stages, "updates": updates,
@@ -8239,38 +8297,58 @@ def pp_hop_counts(mesh: dict, stages: list[int], micro: int, rows: int) -> dict:
     each of the ``4 + train_vf_iters`` forwards hands every microbatch
     down the line once and broadcasts the output, the one backward
     through the trunk hands every gradient back and broadcasts the
-    feed's."""
+    feed's. Nothing where the rank holds the whole line."""
     forwards = 4 + LEARNER["train_vf_iters"]
     act = rows // micro * LEARNER["bucket_lengths"][0] * PP_ARCH["d_model"] * 4
     down = stages[-1] < mesh["pp"] - 1
     up = stages[0] > 0
     sends = forwards * micro * down + micro * up
     recvs = forwards * micro * up + micro * down
+    crosses = len(stages) < mesh["pp"]
     return {"sends": sends, "send_bytes": sends * act, "recvs": recvs,
-            "recv_bytes": recvs * act, "broadcasts": forwards + 1,
-            "broadcast_bytes": (forwards + 1) * micro * act}
+            "recv_bytes": recvs * act, "broadcasts": (forwards + 1) * crosses,
+            "broadcast_bytes": (forwards + 1) * micro * act * crosses}
+
+
+def cross_axes(mesh: dict, ranks_n: int, local: int) -> tuple:
+    """The axes of ``mesh`` that cross ``ranks_n`` ranks of ``local``
+    entries each (process ``p`` owns entries ``[p·local, (p+1)·local)``)."""
+    import numpy as np
+
+    from relayrl_tpu_torch.parallel.mesh import AXES, Mesh, resolve_mesh_shape
+
+    shape = resolve_mesh_shape(mesh, ranks_n * local)
+    dims = [shape[ax] for ax in AXES]
+    owners = np.arange(ranks_n * local).reshape(dims) // local
+    return Mesh(np.empty(dims, dtype=object), ranks_n, 0, owners).cross_axes
 
 
 def multiprocess_pp(device, root: Path, workdir: Path, learned: dict,
-                    mesh: dict = MHP_MESH, ranks_n: int = MH_RANKS) -> dict:
-    """Phase 25 (a) (and (c), ``MHP_MESH4`` over ``MHP_RANKS4`` ranks):
-    ``ranks_n`` rank processes (:func:`mh_pp_rank_main`), one mesh entry
-    each, over the pp flagship from phase 5's initial params stacked into
-    the blocks layout, on phase 5's first batch: one update then
-    ``MHP_TIMED`` more. Held to this process's single-process pipelined
-    update over the same spec's entries at phase 5's bars (bit-equality
-    reported); the ranks' gathered params and their replicated ends
-    sha256-equal after every update; K1/K2/K3 per rank per update (L/pp)
-    x M x (4 + train_vf_iters) / (L/pp) x M / (L/pp) x M, summing to the
-    single-process update's, K4-K6 none; the hops' and broadcasts' counts
-    and bytes exactly :func:`pp_hop_counts`'; each rank's parameter and
-    moment bytes its stages' layers and the replicated ends on its card,
-    the other stages' absent (:func:`pp_holdings`)."""
+                    mesh: dict = MHP_MESH, ranks_n: int = MH_RANKS, local: int = 1,
+                    timed: int = MHP_TIMED) -> dict:
+    """Phases 25 (a), (c) (``MHP_MESH4`` over ``MHP_RANKS4`` ranks) and 27
+    (a) (``MHPS_MESH`` over ``MHPS_RANKS`` ranks, and over ``MH_RANKS``
+    ranks of two entries): ``ranks_n`` rank processes
+    (:func:`mh_pp_rank_main`), ``local`` mesh entries each, over the pp
+    flagship from phase 5's initial params stacked into the blocks layout,
+    on phase 5's first batch: one update then ``timed`` more. Held to this
+    process's single-process pipelined update over the same spec's
+    entries at phase 5's bars (bit-equality reported); the ranks' gathered
+    params sha256-equal after every update, and their ends as they hold
+    them (replicated, or their fsdp shards) equal within each fsdp
+    coordinate; K1/K2/K3 per rank per update (the rank's layers) x M x (4
+    + train_vf_iters) / (its layers) x M / (its layers) x M, summing to
+    the single-process update's, K4-K6 none; the hops' and broadcasts'
+    counts and bytes exactly :func:`pp_hop_counts`'; every reduce-scatter
+    of a split end held until the autograd engine was done
+    (``context.defer_scatter``, counted as ``deferred``); each rank's parameter
+    and moment bytes its stages' layers and its ends on its card, the
+    other stages' absent (:func:`pp_holdings`)."""
     import shutil
 
     import torch
 
-    from relayrl_tpu_torch.parallel import resolve_microbatches
+    from relayrl_tpu_torch.parallel import params_shardings, resolve_microbatches
     from relayrl_tpu_torch.weights import params_to_jax
 
     shutil.rmtree(workdir, ignore_errors=True)
@@ -8281,22 +8359,21 @@ def multiprocess_pp(device, root: Path, workdir: Path, learned: dict,
     tree = pp_tree(learned["params0"])
     params0 = algo.policy.load_params(tree)
     batch = learned["batch"]
-    n_layers, stages_n, groups = PP_ARCH["n_layers"], mesh["pp"], mesh["dp"]
+    n_layers, stages_n = PP_ARCH["n_layers"], mesh["pp"]
+    groups = mesh["dp"] * mesh.get("fsdp", 1)
     rows = LEARNER["traj_per_epoch"] // groups
     micro = resolve_microbatches(rows, stages_n)
-    per_rank = n_layers // stages_n * micro
-    expected = (per_rank * (4 + algo.train_vf_iters), per_rank, per_rank)
     ref_mesh = mesh_of(mesh, device, math.prod(mesh.values()))
+    split_ends = sum("fsdp" in spec and not path.startswith("params/blocks/")
+                     for path, spec in params_shardings(params0, ref_mesh).items())
     side, state, ref_counts, steps, update = one_update(algo, params0, batch, device,
                                                         on_mesh(ref_mesh))
     cases = {"ranks": ranks_n, "mesh": mesh, "tree": tree, "batch": batch,
-             "timed": MHP_TIMED, "params0": _digest(params_to_jax(params0))}
+             "timed": timed, "local": local, "params0": _digest(params_to_jax(params0))}
     torch.save(cases, workdir / "cases.pt")
     port = _free_port()
     cards = torch.cuda.device_count() >= ranks_n
-    envs = [mh_rank_env(r, port, cards) for r in range(ranks_n)]
-    for env in envs:
-        env["RELAYRL_NUM_PROCESSES"] = str(ranks_n)
+    envs = [mh_rank_env(r, port, cards, ranks_n) for r in range(ranks_n)]
     t0 = time.perf_counter()
     run_ranks(root, workdir, lambda r: ["--mh-pp-rank", r, port, workdir], envs)
     wall = time.perf_counter() - t0
@@ -8306,13 +8383,24 @@ def multiprocess_pp(device, root: Path, workdir: Path, learned: dict,
     if backends != {want_backend}:
         raise AssertionError(f"backends {backends}; the rule says {want_backend}")
     what = f"the pp flagship under {mesh} across {ranks_n} ranks"
+    cross = cross_axes(mesh, ranks_n, local)
+    # The ranks of one fsdp coordinate hold the same ends (a rank's block
+    # of the mesh is a sub-grid, pp innermost).
+    fsdp_of = [rank * local // (math.prod(mesh.values()) // mesh.get("fsdp", 1))
+               % mesh.get("fsdp", 1) for rank in range(ranks_n)]
     for i in range(len(rs[0]["updates"])):
-        for key in ("digest", "ends", "metrics"):
+        for key in ("digest", "metrics"):
             if len({str(r["updates"][i][key]) for r in rs}) != 1:
                 raise AssertionError(f"{what}, update {i + 1}: the ranks' {key} differ")
-    counts = [u["counts"] for r in rs for u in r["updates"]]
+        for f in set(fsdp_of):
+            if len({r["updates"][i]["ends"] for r, c in zip(rs, fsdp_of) if c == f}) != 1:
+                raise AssertionError(f"{what}, update {i + 1}: the ends of fsdp "
+                                     f"coordinate {f} differ between its ranks")
+    per_rank = [n_layers // stages_n * len(r["stages"]) * micro for r in rs]
+    expected = [(n * (4 + algo.train_vf_iters), n, n) for n in per_rank]
+    counts = [[u["counts"] for u in r["updates"]] for r in rs]
     total = tuple(sum(r["updates"][0]["counts"][i] for r in rs) for i in range(3))
-    if any(c != expected for c in counts) or total != ref_counts:
+    if any(c != e for cs, e in zip(counts, expected) for c in cs) or total != ref_counts:
         raise AssertionError(f"{what}: launches per rank per update {counts}, expected "
                              f"{expected}; one process {ref_counts}")
     if any(u["ring"] != (0, 0, 0) for r in rs for u in r["updates"]):
@@ -8320,14 +8408,19 @@ def multiprocess_pp(device, root: Path, workdir: Path, learned: dict,
                              f"{[u['ring'] for r in rs for u in r['updates']]}")
     pp_lines = {}
     for rank, r in enumerate(rs):
-        if r["cross"] != (("dp", "pp") if groups > 1 else ("pp",)):
-            raise AssertionError(f"{what}: rank {rank} crosses {r['cross']}")
+        if r["cross"] != cross:
+            raise AssertionError(f"{what}: rank {rank} crosses {r['cross']}, not {cross}")
         want_comm = pp_hop_counts(mesh, r["stages"], micro, rows)
         for u in r["updates"]:
             got_comm = {k: u["comm"][k] for k in want_comm}
             if got_comm != want_comm:
                 raise AssertionError(f"{what}: rank {rank} moved {got_comm}, the "
                                      f"schedule says {want_comm}")
+            if u["split"]["deferred"] != u["split"]["scatters"]:
+                raise AssertionError(
+                    f"{what}: rank {rank} ran {u['split']['scatters'] - u['split']['deferred']}"
+                    f" of its {u['split']['scatters']} reduce-scatters inside the autograd "
+                    "engine, not after it (context.defer_scatter)")
         h = r["holdings"]
         absent = sorted(set(range(n_layers)) - {s * (n_layers // stages_n) + j
                                                  for s in r["stages"]
@@ -8348,6 +8441,11 @@ def multiprocess_pp(device, root: Path, workdir: Path, learned: dict,
     whole = sum(p.numel() * p.element_size() for p in params0.parameters())
     return {**held, "wall": wall, "backend": want_backend, "cards": [r["card"] for r in rs],
             "mesh": mesh, "counts": expected, "ref_counts": ref_counts, "micro": micro,
+            "cross": cross, "split_ends": split_ends, "updates": len(rs[0]["updates"]),
+            "first_full": (rs[0]["updates"][0]["digest"],
+                                           rs[0]["updates"][0]["metrics"]),
+            "split": [r["updates"][-1]["split"] for r in rs],
+            "reduces": [r["updates"][-1]["reduces"] for r in rs],
             "stages": [r["stages"] for r in rs], "ref_ms": ref_ms,
             "first_ms": [r["updates"][0]["ms"] for r in rs],
             "ms": [sum(u["ms"] for u in r["updates"][1:]) / max(1, len(r["updates"]) - 1)
@@ -8358,6 +8456,84 @@ def multiprocess_pp(device, root: Path, workdir: Path, learned: dict,
             "first_digest": rs[0]["updates"][0]["digest"][:16],
             "launches": tuple(sum(u["counts"][i] for r in rs for u in r["updates"])
                               + ref_counts[i] for i in range(3))}
+
+
+def multiprocess_pp_split(device, root: Path, workdir: Path, learned: dict) -> dict:
+    """Phase 27 (a): the pp flagship under ``MHPS_MESH`` across
+    ``MHPS_RANKS`` ranks, one entry each (pp and fsdp both cross: a stage
+    and half of the ends a rank, hops within the pp groups, gathers and
+    reduce-scatters within the fsdp groups), and the same mesh across the
+    rank chain's ``MH_RANKS`` ranks of two entries (fsdp alone crosses,
+    the stages hand off inside a rank), each through
+    :func:`multiprocess_pp`: the
+    first update's gathered params (sha256) and metrics bit-equal between
+    the two, both within phase 5's bars of one process's pipelined update
+    (:func:`multiprocess_pp`'s holds), and every rank holding its shard of
+    each end that the rules split over fsdp."""
+    four = multiprocess_pp(device, root, workdir / "four", learned, MHPS_MESH, MHPS_RANKS,
+                           timed=MHPS_TIMED)
+    two = multiprocess_pp(device, root, workdir / "two", learned, MHPS_MESH, MH_RANKS,
+                          local=2, timed=0)
+    if four["cross"] != ("fsdp", "pp") or two["cross"] != ("fsdp",):
+        raise AssertionError(f"phase 27 (a): crossing axes {four['cross']}, {two['cross']}")
+    if four["first_full"] != two["first_full"]:
+        raise AssertionError(f"phase 27 (a): the first update across {MHPS_RANKS} ranks "
+                             f"differs from the same mesh across {MH_RANKS} ranks of two "
+                             f"entries: {four['first_full']} vs {two['first_full']}")
+    scatters = [split["scatters"] for split in four["split"] + two["split"]]
+    if min(scatters) == 0:
+        raise AssertionError(f"phase 27 (a): reduce-scatters a rank {scatters}; every rank's "
+                             "fsdp-split ends reduce-scatter their gradients")
+    held = [h["split_ends"] for h in four["holdings"] + two["holdings"]]
+    if not four["split_ends"] or held != [four["split_ends"]] * len(held):
+        raise AssertionError(f"phase 27 (a): split ends held {held}, expected "
+                             f"{four['split_ends']} a rank")
+    return {"four": four, "two": two}
+
+
+def print_pp_split(ps: dict, card: str) -> None:
+    """Phase 27 (a)'s lines (:func:`multiprocess_pp_split`): each layout's
+    gates, and each rank's holdings, launches and collectives."""
+    for tag, r in (("four", ps["four"]), ("two", ps["two"])):
+        ranks_n = len(r["stages"])
+        print(f"[mh-pp-split] (a) the pp flagship under {r['mesh']} across {ranks_n} ranks "
+              f"of {MHPS_RANKS // ranks_n} entr{'y' if ranks_n == MHPS_RANKS else 'ies'} "
+              f"({r['backend']}, {', '.join(r['cards'])}; crossing {list(r['cross'])}, "
+              f"stages {r['stages']}, {r['micro']} microbatches a data group): phase 5's "
+              f"first batch broadcast bit-equal; the ranks' gathered params (sha256 "
+              f"{r['digest']}...) equal after each of {r['updates']} update(s), each "
+              f"fsdp coordinate's ends equal across its ranks; launches per rank per update "
+              f"{r['counts']}, summing to one process's {r['ref_counts']}; K4-K6 none; vs "
+              f"one process's pipelined {r['mesh']} update "
+              f"{'bit-equal' if r['bit_equal'] else 'not bit-equal'}: max metric diff "
+              f"{r['metric_err']:.3e}, max param diff {r['param_err']:.3e}, mean "
+              f"{r['mean_diff_share']:.4f} of the movement (phase 5's bars); first update "
+              f"digest {r['first_digest']}...", flush=True)
+        for rank, (h, comm, split, red) in enumerate(zip(r["holdings"], r["comm"],
+                                                         r["split"], r["reduces"])):
+            print(f"[mh-pp-split] ({tag}) rank {rank}: holds (stage params, their moments, "
+                  f"ends params, their moments) ({h['stage_bytes']}, "
+                  f"{h['stage_moment_bytes']}, {h['ends_bytes']}, {h['ends_moment_bytes']}) "
+                  f"bytes of the whole {r['whole_bytes']} ({h['split_ends']} ends split), no "
+                  f"bytes of layers {h['absent_layers']}; K1/K2/K3 per update "
+                  f"{r['counts'][rank]}; last update: {comm['sends']} sends "
+                  f"({comm['send_bytes']} bytes), {comm['recvs']} receives "
+                  f"({comm['recv_bytes']} bytes) in {1e3 * comm['hop_seconds']:.2f} ms, "
+                  f"{comm['broadcasts']} broadcasts ({comm['broadcast_bytes']} bytes) in "
+                  f"{1e3 * comm['broadcast_seconds']:.2f} ms, {split['gathers']} gathers "
+                  f"({split['gather_bytes']} bytes) in {1e3 * split['gather_seconds']:.2f} "
+                  f"ms, {split['scatters']} reduce-scatters ({split['scatter_bytes']} bytes, "
+                  f"{split['deferred']} held until the autograd engine was done) "
+                  f"in {1e3 * split['scatter_seconds']:.2f} ms, {red['calls']} data-group "
+                  f"all-reduces ({red['bytes']} bytes) in {1e3 * red['s']:.2f} ms (host "
+                  f"clock, synced); first update {r['first_ms'][rank]:.2f} ms"
+                  + (f", (not gated) {r['ms'][rank]:.2f} ms per update over {MHPS_TIMED}"
+                     if tag == "four" and MHPS_TIMED else "")
+                  + f" beside one process's pipelined {r['ref_ms']:.2f} on {card}",
+                  flush=True)
+    print(f"[mh-pp-split] (a) the update across {MHPS_RANKS} ranks bit-equal to the same "
+          f"mesh across {MH_RANKS} ranks of two entries (gathered params sha256 and "
+          f"metrics)", flush=True)
 
 
 # Phase 26: the port's static-analysis gate, run as a user runs it.
@@ -9316,6 +9492,12 @@ def main() -> int:
     mhr = tuple(mr["launches"][i] + sum(c[i] for c in mrs["counts"]) for i in range(3, 6))
 
     print(f"[time] phase 24 at {time.perf_counter() - t_run:.1f} s", flush=True)
+    # Phase 27's four rank processes start now and come up while phases
+    # 24-26 run (with four cards they also take phases 24 and 25's
+    # four-rank jobs).
+    global RANK_CHAIN4
+    RANK_CHAIN4 = RankChain(root, root / "build" / "chip_smoke_rank_chain4",
+                            torch.cuda.device_count() >= MHPS_RANKS, MHPS_RANKS)
     # 24. fsdp, ep and tp across the ranks: each rank holds its own shards,
     # split parameters gather and reduce-scatter between the processes
     t24 = time.perf_counter()
@@ -9432,17 +9614,16 @@ def main() -> int:
           f"trajectories sent = accepted = trained; (not gated) seconds per wave "
           f"{[round(x, 2) for x in ps25['seconds']]} on {card}", flush=True)
     print(f"[mh-pp] phase 25 in {time.perf_counter() - t25:.1f} s", flush=True)
-    print(f"[time] rank chain: ranks ready (CUDA context and kernels) in "
-          f"{RANK_CHAIN.ready_seconds()} s of their own, the jobs of phases 22-25 in "
-          + ", ".join(f"{flag} {sec:.1f} s" for flag, sec in RANK_CHAIN.job_seconds)
-          + f"; chaos_server starts to a first status {SERVER_UP_S} s",
-          flush=True)
-    close_rank_chain()
     mhp_fwd, mhp_dq, mhp_dkv = (
         mhp_launches[i] + sum(c[i] for part in ps25["counts"] for c in part) for i in range(3))
     mhp_fwd += ps25["agent_k1"]
 
     print(f"[time] phase 26 at {time.perf_counter() - t_run:.1f} s", flush=True)
+    # Phase 27 (b)'s four server ranks start now and come up while phases 26
+    # and 27 (a) run.
+    server27 = started(multiprocess_server_steps(
+        device, root, root / "build" / "chip_smoke_mh_pp_split_server", MHPS_MESH,
+        MHPS_SERVER_UPDATES, 0, PP_ARCH, MHPS_RANKS))
     # 26. the static-analysis gate: the port's analyzer on this host (no JAX)
     sa = static_analysis(root)
     print(f"[analysis] python -m relayrl_tpu_torch.analysis (torchlint over "
@@ -9451,6 +9632,38 @@ def main() -> int:
           f"{sa['findings']} (new), {sa['baselined']} baselined; suppressions by code "
           f"{sa['suppressed']}; torch, jax and relayrl_tpu not loaded; "
           f"{sa['seconds']:.2f} s on the host of {card}", flush=True)
+
+    print(f"[time] phase 27 at {time.perf_counter() - t_run:.1f} s", flush=True)
+    # 27. the pipeline across the ranks beside a crossing fsdp axis: each
+    # rank holds one stage and half of the ends; hops within its pp group,
+    # gathers and reduce-scatters within its fsdp group
+    t27 = time.perf_counter()
+    ps = multiprocess_pp_split(device, root, root / "build" / "chip_smoke_mh_pp_split",
+                               learned)
+    print_pp_split(ps, card)
+    pss = finish(server27)
+    print(f"[mh-pp-split] (b) a {MHPS_RANKS}-rank TrainingServer with learner.mesh "
+          f"{MHPS_MESH} and the pp flagship, fed by {MH_LANES} agent lanes: "
+          f"{MHPS_SERVER_UPDATES} update(s), a collective checkpoint (its train state equal, "
+          f"tensor for tensor, to a single-process save of it); every version installed "
+          f"by the agent and served through K1 ({pss['agent_k1']} launches), each "
+          f"published bundle sha256-equal to the {MHPS_RANKS} ranks' gathered params; ranks "
+          f"at version {pss['version']} (sha256 {pss['digest']}...); launches per rank "
+          f"{pss['counts']}; {pss['sent']} trajectories sent = accepted = trained; (not "
+          f"gated) seconds per wave {[round(x, 2) for x in pss['seconds']]} on {card}",
+          flush=True)
+    print(f"[mh-pp-split] phase 27 in {time.perf_counter() - t27:.1f} s", flush=True)
+    print(f"[time] rank chains: ranks ready (CUDA context and kernels) in "
+          f"{RANK_CHAIN.ready_seconds()} and {RANK_CHAIN4.ready_seconds()} s of their own, "
+          f"the jobs of phases 22-27 in "
+          + ", ".join(f"{flag} {sec:.1f} s" for flag, sec in
+                      RANK_CHAIN.job_seconds + RANK_CHAIN4.job_seconds)
+          + f"; chaos_server starts to a first status {SERVER_UP_S} s", flush=True)
+    close_rank_chain()
+    mhps_fwd, mhps_dq, mhps_dkv = (
+        ps["four"]["launches"][i] + ps["two"]["launches"][i]
+        + sum(c[i] for part in pss["counts"] for c in part) for i in range(3))
+    mhps_fwd += pss["agent_k1"]
     print(f"[time] run {time.perf_counter() - t_run:.1f} s", flush=True)
 
     kernels = [{
@@ -9461,7 +9674,7 @@ def main() -> int:
         "launches": (run["launches"] + fwd + r_fwd + decode["launches"] + a_fwd + d_fwd
                      + ga_fwd + g_fwd + fa_fwd + f_fwd + p_fwd + fam_fwd + anakin_fwd
                      + serving_fwd + s_fwd + rlhf_gen + rlhf_learn + traced_fwd + mesh_fwd
-                     + mh_fwd + mhs_fwd + mhp_fwd),
+                     + mh_fwd + mhs_fwd + mhp_fwd + mhps_fwd),
         "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd,
                              "decode_vs_window": decode["launches"],
                              "distributed_agent": a_fwd, "distributed_server": d_fwd,
@@ -9484,7 +9697,8 @@ def main() -> int:
                              "traced_rlhf": trl["launches"][0],
                              "profiled_update": pu["counts"][0],
                              "mesh_learner": mesh_fwd, "multiprocess_learner": mh_fwd,
-                             "multiprocess_split": mhs_fwd, "multiprocess_pp": mhp_fwd},
+                             "multiprocess_split": mhs_fwd, "multiprocess_pp": mhp_fwd,
+                             "multiprocess_pp_split": mhps_fwd},
         **main_flash,
     }, {
         "name": "flash_dq",
@@ -9492,7 +9706,7 @@ def main() -> int:
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:223",
         "launches": (dq + r_dq + d_dq + g_dq + f_dq + p_dq + m_dq + pp_dq + a_ddq + s_dq
-                     + rlhf_learn + traced_dq + mesh_dq + mh_dq + mhs_dq + mhp_dq),
+                     + rlhf_learn + traced_dq + mesh_dq + mh_dq + mhs_dq + mhp_dq + mhps_dq),
         "launches_by_path": {"learner": dq, "local_loop": r_dq, "distributed_server": d_dq,
                              "guardrails_server": g_dq, "fleet_server": f_dq,
                              "ppo_learner": p_dq, "offpolicy": off_counts[1],
@@ -9502,7 +9716,7 @@ def main() -> int:
                              "traced_fleet_server": t_dq, "traced_rlhf": trl["launches"][1],
                              "profiled_update": pu["counts"][1], "mesh_learner": mesh_dq,
                              "multiprocess_learner": mh_dq, "multiprocess_split": mhs_dq,
-                             "multiprocess_pp": mhp_dq},
+                             "multiprocess_pp": mhp_dq, "multiprocess_pp_split": mhps_dq},
         **main_bwd["flash_dq"],
     }, {
         "name": "flash_dkv",
@@ -9511,7 +9725,7 @@ def main() -> int:
         "replaces": "relayrl_tpu/ops/flash.py:255",
         "launches": (dkv + r_dkv + d_dkv + g_dkv + f_dkv + p_dkv + m_dkv + pp_dkv + a_ddkv
                      + s_dkv + rlhf_learn + traced_dkv + mesh_dkv + mh_dkv + mhs_dkv
-                     + mhp_dkv),
+                     + mhp_dkv + mhps_dkv),
         "launches_by_path": {"learner": dkv, "local_loop": r_dkv,
                              "distributed_server": d_dkv, "guardrails_server": g_dkv,
                              "fleet_server": f_dkv, "ppo_learner": p_dkv,
@@ -9522,7 +9736,7 @@ def main() -> int:
                              "traced_fleet_server": t_dkv, "traced_rlhf": trl["launches"][2],
                              "profiled_update": pu["counts"][2], "mesh_learner": mesh_dkv,
                              "multiprocess_learner": mh_dkv, "multiprocess_split": mhs_dkv,
-                             "multiprocess_pp": mhp_dkv},
+                             "multiprocess_pp": mhp_dkv, "multiprocess_pp_split": mhps_dkv},
         **main_bwd["flash_dkv"],
     }] + [{
         "name": name,

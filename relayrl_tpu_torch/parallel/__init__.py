@@ -7,8 +7,8 @@ there binds the moving ``jax.shard_map`` API; its single-controller
 counterparts are :func:`~relayrl_tpu_torch.parallel.ring.run_ring` and
 :func:`~relayrl_tpu_torch.parallel.pipeline.pipeline_apply`. Across
 processes (:mod:`~relayrl_tpu_torch.parallel.distributed`, a
-``torch.distributed`` process group) every axis of a mesh may span them
-(``pp`` beside dp alone).
+``torch.distributed`` process group) every axis of a mesh may span them,
+``pp`` beside any other (each rank's blocks a sub-grid of the mesh).
 """
 
 from relayrl_tpu_torch.parallel.mesh import (

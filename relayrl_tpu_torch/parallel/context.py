@@ -27,6 +27,11 @@ group each is the identity, so one update serves one process and many.
 Where a split of the model crosses processes (fsdp, ep or tp shards,
 pipeline stages) a process holds only its part of the gradient, and a
 global norm is the sum of the parts' squares (:func:`grad_sq_norm`).
+A bucketed gather's reduce-scatter waits for the autograd engine and runs
+inside :func:`dp_gradients`, in the forward's order
+(:func:`defer_scatter`): beside a pipeline across processes each rank
+then meets its hops, its reduce-scatters and its data group's sums in
+that order, whatever order the engine took.
 
 A layer whose work splits over an ``ep`` or ``tp`` axis that crosses
 processes (the MoE's expert groups, the tp MLP pair) runs its part of the
@@ -139,6 +144,44 @@ def _sum_flat(group, grads: list[torch.Tensor]) -> list[torch.Tensor]:
     return out
 
 
+def defer_scatter(order: int, comm, dim: int, grad: torch.Tensor,
+                  leaves: list, parts) -> bool:
+    """Hold a bucketed gather's reduce-scatter (:class:`~relayrl_tpu_torch.
+    parallel.sharding._Gathered`: ``grad`` is this rank's gradient of the
+    whole, ``order`` its gather's place among the forward's, ``leaves``
+    the shards its block was joined from over ``parts``, ``(dim, count)``
+    pairs outermost first) for the running :func:`dp_gradients` to take
+    once the autograd engine is done. False outside ``dp_gradients``: the
+    caller reduce-scatters in its own backward."""
+    sink = getattr(_state, "scatters", None)
+    if sink is None:
+        return False
+    sink.append((order, comm, dim, grad, leaves, parts))
+    return True
+
+
+def _scatter_deferred(sink: list, params: list, grads: list) -> list:
+    """The reduce-scatters :func:`defer_scatter` held, in the order of
+    their gathers, each one's block gradient cut back onto the shards in
+    ``params`` that the block was joined from; counted on
+    :data:`~relayrl_tpu_torch.parallel.distributed.COMM` as ``deferred``."""
+    from relayrl_tpu_torch.parallel.distributed import COMM
+
+    grads = list(grads)
+    index = {id(p): i for i, p in enumerate(params)}
+    for _, comm, dim, grad, leaves, parts in sorted(sink, key=lambda entry: entry[0]):
+        pieces = [comm.reduce_scatter(list(grad.chunk(comm.size, dim=dim)))]
+        COMM.deferred += 1
+        for d, n in parts:
+            pieces = [c for p in pieces for c in p.chunk(n, dim=d)]
+        for leaf, g in zip(leaves, pieces):
+            i = index.get(id(leaf))
+            if i is not None:
+                g = g.to(leaf.device)
+                grads[i] = g if grads[i] is None else grads[i] + g
+    return grads
+
+
 def dp_gradients(loss: torch.Tensor | None, params: list) -> list[torch.Tensor]:
     """The gradients of ``loss`` over ``params``, summed over the
     data-parallel group: the one place every optimizer step of every
@@ -151,15 +194,31 @@ def dp_gradients(loss: torch.Tensor | None, params: list) -> list[torch.Tensor]:
     them in the gather's reduce-scatter: it is summed over the dp ranks
     alone. Where ``params`` hold a pipeline stage's, the leaves
     :func:`hold_for_backward` registered since the last call are asked
-    too."""
+    too.
+
+    A bucketed gather's reduce-scatter (:func:`defer_scatter`) runs after
+    the autograd engine, in the order of the forward's gathers: each rank
+    meets first its pipeline hops (ordered by their token chain), then
+    these reduce-scatters, then the sums over the data group, whatever
+    order the engine ran the rest in; every rank of an fsdp group holds
+    the same stages and runs the same sequence. The engine runs every
+    node on this thread (``set_multithreading_enabled(False)``): a CUDA
+    tensor's backward would otherwise run on the engine's device thread,
+    which does not see this thread's held reduce-scatters."""
     held, _state.held = getattr(_state, "held", []), []
     if not any(axis == "pp" for p in params for axis, _ in getattr(p, "split_comms", ())):
         held = []
     if loss is None:
         grads = [None] * len(params)
     else:
-        grads = torch.autograd.grad(loss, list(params) + held,
-                                    allow_unused=True)[:len(params)]
+        _state.scatters = sink = []
+        try:
+            with torch.autograd.set_multithreading_enabled(False):
+                grads = torch.autograd.grad(loss, list(params) + held,
+                                            allow_unused=True)[:len(params)]
+        finally:
+            _state.scatters = None
+        grads = _scatter_deferred(sink, params, grads)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
     group = current_dp_group()
     if group is None or not grads:
@@ -181,7 +240,11 @@ def grad_sq_norm(grads: list[torch.Tensor], params: list) -> torch.Tensor:
     the squares of such leaves are summed over the ranks of each axis
     they split over (``split_comms``, set by the placement), one
     all-reduce an axis, and every other leaf counts once, as the replica
-    it is. What GSPMD computes for ``optax.clip_by_global_norm`` in the
+    it is. Under ``{"fsdp": 2, "pp": 2}`` across 4 ranks a stage leaf's
+    squares sum over the rank's pp group (once per pp line: after
+    :func:`dp_gradients` the ranks of a stage hold its same gradient) and
+    a split end's over its fsdp group (once per fsdp group, not once per
+    pp rank). What GSPMD computes for ``optax.clip_by_global_norm`` in the
     JAX package; the plain sum of squares without a crossing split."""
     whole = torch.zeros((), dtype=torch.float32, device=grads[0].device if grads else None)
     parts: dict[tuple, torch.Tensor] = {}

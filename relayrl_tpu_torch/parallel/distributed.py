@@ -384,6 +384,9 @@ class SplitComm:
     def reset(self) -> None:
         self.gathers = self.gather_bytes = 0
         self.scatters = self.scatter_bytes = 0
+        # Of the reduce-scatters, those held until the autograd engine
+        # was done (context.defer_scatter).
+        self.deferred = 0
         self.reduces = self.reduce_bytes = 0
         self.gather_seconds = self.scatter_seconds = self.reduce_seconds = 0.0
 

@@ -55,14 +55,21 @@ alone. Where ``sp`` spans processes too, the local sub-mesh keeps the
 other ranks' shards of the ring: the ring attends this rank's time chunks
 and gathers the outputs, so the rest of the model runs replicated on
 every rank of a ring, its gradients equal there with no sum (:mod:`.ring`).
-Where ``pp`` spans processes (beside dp alone), each process places and
-steps only its own stages' layers, with their Adam moments: another
-rank's layer stays a ``meta`` tensor of its shape (no bytes), left out of
-the optimizers, and :class:`~relayrl_tpu_torch.parallel.sharding.Stages`
-reads it whole from its owner (:func:`whole_optimizer_state` its
-moments); the pipeline hops activations between the ranks
-(:mod:`.pipeline`), and the replicated ends compute on every rank of the
-pp group, their gradients equal there with no sum.
+Where ``pp`` spans processes, each process places and steps only its own
+stages' layers, with their Adam moments: another rank's layer stays a
+``meta`` tensor of its shape (no bytes), left out of the optimizers, and
+:class:`~relayrl_tpu_torch.parallel.sharding.Stages` reads it whole from
+its owner in the rank's pp group (:func:`whole_optimizer_state` its
+moments); the pipeline hops activations between the ranks of that group
+(:mod:`.pipeline`), and the ends compute on every rank of the pp group,
+their gradients equal there with no sum. Beside a crossing fsdp axis
+(``{"dp": 1, "fsdp": 2, "pp": 2}`` over 4 ranks) a stage has one holder
+per fsdp coordinate and the ends are split over fsdp: each rank holds
+its stage and its shards of the ends, the stage's gradients sum over the
+data group at its pp coordinate, the ends' reduce-scatter over its fsdp
+group (after the hops, :func:`~relayrl_tpu_torch.parallel.context.
+dp_gradients`). A crossing ep, tp or sp axis beside it splits no leaf of
+the pipeline family: its ranks hold and compute replicas.
 """
 
 from __future__ import annotations

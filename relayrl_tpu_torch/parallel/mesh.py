@@ -40,11 +40,15 @@ ranks that hold the others (:mod:`relayrl_tpu_torch.parallel.ring`), a
 split parameter keeps the shards at this rank's coordinates and gathers
 the others' (:mod:`relayrl_tpu_torch.parallel.sharding`), and the
 pipeline runs this rank's stages and hops to the ranks of the others
-(:mod:`relayrl_tpu_torch.parallel.pipeline`). A crossing pp axis does not
-compose with a crossing fsdp, ep, tp or sp axis (their collectives would
-interleave with the pipeline's hops): such a spec raises
-:class:`CrossProcessAxisError`, ROADMAP.md queue 1 item 11. Every
-process's block must be a sub-grid of the mesh (:func:`make_mesh`).
+(:mod:`relayrl_tpu_torch.parallel.pipeline`). A crossing pp axis composes
+with a crossing fsdp, ep, tp or sp axis: ``{"dp": 1, "fsdp": 2, "pp": 2}``
+over 4 processes of 1 gives the pp groups (0, 1) and (2, 3), one per fsdp
+coordinate, and the fsdp groups (0, 2) and (1, 3), one per pp coordinate;
+each rank holds one stage and half of every split parameter outside the
+stack, its pipeline hops within its pp group and its gathers within its
+fsdp group. Every process's block must be a sub-grid of the mesh
+(:func:`make_mesh`; else :class:`CrossProcessAxisError`, ROADMAP.md queue
+1 item 11).
 
 Config form (``learner.mesh``): ``{"dp": -1, "fsdp": 1, "ep": 1, "tp": 1,
 "sp": 1, "pp": 1}`` where -1 means "fill with the remaining devices".
@@ -63,13 +67,9 @@ AXES = ("dp", "fsdp", "ep", "tp", "sp", "pp")
 # The axes whose coordinates may go to different processes.
 CROSS_PROCESS_AXES = ("dp", "fsdp", "ep", "tp", "sp", "pp")
 
-# The axes a crossing pp axis does not compose with when they cross too.
-_NOT_BESIDE_PP = ("fsdp", "ep", "tp", "sp")
-
 
 class CrossProcessAxisError(ValueError):
-    """A process's block of devices is not a sub-grid of the mesh, or
-    ``pp`` crosses processes beside a crossing fsdp, ep, tp or sp axis
+    """A process's block of devices is not a sub-grid of the mesh
     (ROADMAP.md queue 1 item 11)."""
 
 
@@ -192,14 +192,16 @@ class Mesh:
 
     def axis_devices(self, axis: str, **coords: int) -> list[torch.device]:
         """The devices along ``axis`` for one group of the other axes: each
-        other axis at its coordinate in ``coords``, 0 where none is given
-        (an axis the caller does not split over holds replicas). Another
-        rank's entry is None."""
+        other axis at its coordinate in ``coords``, at :attr:`home`'s where
+        none is given (0 in a single process: an axis the caller does not
+        split over holds replicas; across processes this process's own
+        line, whose owners :meth:`axis_owners` gives). Another rank's entry
+        is None."""
         unknown = set(coords) - set(self.axis_names) | ({axis} & set(coords))
         if unknown:
             raise ValueError(f"bad coordinates {sorted(unknown)} for axis {axis!r}")
-        index = tuple(slice(None) if ax == axis else coords.get(ax, 0)
-                      for ax in self.axis_names)
+        index = tuple(slice(None) if ax == axis else coords.get(ax, h)
+                      for ax, h in zip(self.axis_names, self.home))
         return list(self.devices[index])
 
     def __repr__(self) -> str:
@@ -268,13 +270,6 @@ def make_mesh(spec: Mapping[str, int] | None = None,
             f"block of {n} devices is not a sub-grid of the mesh (it must hold "
             "whole trailing axes and an equal part of the next; ROADMAP.md "
             "queue 1 item 11)")
-    beside = [ax for ax in mesh.cross_axes if ax in _NOT_BESIDE_PP]
-    if "pp" in mesh.cross_axes and beside:
-        raise CrossProcessAxisError(
-            f"mesh {shape} over {world} processes of {n} devices: pp crosses "
-            f"processes beside {beside}; the pipeline across processes runs "
-            "beside dp alone (pp with a crossing fsdp, ep, tp or sp is "
-            "ROADMAP.md queue 1 item 11)")
     if world > 1:
         distributed.form_axis_groups(mesh)
     return mesh

@@ -29,9 +29,11 @@ schedule, each stage's saved tensors on its own device.
 
 When the ``pp`` axis spans processes (:mod:`relayrl_tpu_torch.parallel.
 mesh`), each rank holds a contiguous block of the stages
-(``mesh.shard_indices("pp")``) and drives only those, on the same ticks
-(:func:`_across_processes`). Where a stage's successor lies on another
-rank, a :class:`StageHop` (the ring's hop, one way) sends its microbatch
+(``mesh.shard_indices("pp")``) of its own line of the axis
+(``mesh.axis_devices("pp")``; one line per coordinate of a crossing
+fsdp, ep, tp or sp axis, each its own pp group) and drives only those,
+on the same ticks (:func:`_across_processes`). Where a stage's
+successor lies on another rank, a :class:`StageHop` (the ring's hop, one way) sends its microbatch
 activation downstream and the successor's rank receives it (an
 activation of the shape and dtype of the microbatch; the last stage
 sends nothing), staged through host memory where gloo carries CUDA
@@ -56,7 +58,13 @@ for wherever it asks a stage's, so every rank runs the whole chain's
 backward for a loss that trains the stages (with the embedding frozen,
 the last stage's rank would otherwise prune its hops and stage 0's rank
 wait on them). One pipelined forward per backward: two in one graph
-would be ordered by the engine alone. The hops and broadcasts are
+would be ordered by the engine alone. Beside a crossing fsdp axis the
+ends' gathers come before the chain (one all-gather as the forward
+starts) and their reduce-scatters after it: ``dp_gradients`` takes them
+once the engine has run the chain's backward, in the gathers' order
+(:func:`~relayrl_tpu_torch.parallel.context.defer_scatter`), so a rank
+meets its hops, then its reduce-scatters, then the data group's sums,
+as every partner in each of its groups does. The hops and broadcasts are
 counted on :data:`COMM`.
 """
 

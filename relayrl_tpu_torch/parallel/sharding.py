@@ -44,7 +44,13 @@ their blocks from :func:`split_blocks`, this process's blocks along the
 axis with the group over which they sum their partial results. A layer of
 a pipeline stage is never split: where ``pp`` crosses processes a process
 holds its own stages' layers whole and none of the others'
-(:class:`Stages`).
+(:class:`Stages`), beside a crossing fsdp axis too, where each stage has
+one holder per fsdp coordinate and the parameters outside the stack are
+split over fsdp (a rank its stage and its shards of the ends). Inside
+:func:`~relayrl_tpu_torch.parallel.context.dp_gradients` a bucketed
+gather's reduce-scatter runs after the autograd engine, in the order of
+the forward's gathers (:class:`_Gathered`), so it never meets a pipeline
+hop out of turn.
 """
 
 from __future__ import annotations
@@ -263,33 +269,57 @@ class _Gather(torch.autograd.Function):
         return out, None, None, None
 
 
+# The forward order of the bucketed gathers (what orders their deferred
+# reduce-scatters).
+_GATHER_ORDER = itertools.count()
+
+
 class _Gathered(_Gather):
     """A :class:`_Gather` whose forward was taken with others in one
     all-gather (``whole``, a one-element list: the whole tensor, gathered
     without autograd); the backward is this parameter's own, so a
-    backward reaches only the parameters its loss depends on."""
+    backward reaches only the parameters its loss depends on. Inside
+    :func:`~relayrl_tpu_torch.parallel.context.dp_gradients` a summed
+    backward does not reduce-scatter in the autograd engine: it hands this
+    rank's gradient of the whole to ``dp_gradients``, which reduce-scatters
+    every such gradient once the engine is done, in the order of their
+    gathers (:func:`~relayrl_tpu_torch.parallel.context.defer_scatter`), so
+    the reduce-scatters never interleave with a pipeline's hops, and cuts
+    each block's gradient back onto ``joined``'s shards (``(shards,
+    parts)``: the leaves the block was joined from by :func:`_cat`)."""
 
     @staticmethod
-    def forward(ctx, x, dim, comm, summed, whole):
+    def forward(ctx, x, dim, comm, summed, whole, joined):
         ctx.dim, ctx.comm, ctx.summed = dim, comm, summed
+        ctx.order = next(_GATHER_ORDER)
+        ctx.joined = joined
         return whole[0]
 
     @staticmethod
     def backward(ctx, grad):
-        return (*_Gather.backward(ctx, grad), None)
+        from relayrl_tpu_torch.parallel.context import defer_scatter
+
+        if ctx.summed and defer_scatter(ctx.order, ctx.comm, ctx.dim, grad, *ctx.joined):
+            return None, None, None, None, None, None
+        return (*_Gather.backward(ctx, grad), None, None)
 
 
 def _gather_bucket(comm, members) -> list[torch.Tensor]:
     """``members`` (``(Shards, dim, block)``: each this rank's block of a
-    parameter split along ``dim`` over the ranks of ``comm``, one dtype)
-    -> each parameter whole, differentiable, from one all-gather."""
+    parameter split along ``dim`` over the ranks of ``comm``, one dtype;
+    or ``(Shards, dim, block, (shards, parts))`` where the block was
+    joined from the leaves ``shards`` by :func:`_cat` over ``parts``) ->
+    each parameter whole, differentiable, from one all-gather."""
     with torch.no_grad():
-        parts = comm.all_gather(torch.cat([b.reshape(-1) for _, _, b in members]))
+        parts = comm.all_gather(torch.cat([m[2].reshape(-1) for m in members]))
     out, offset = [], 0
-    for spec, dim, block in members:
+    for spec, dim, block, *joined in members:
+        if not joined and block.grad_fn is not None:
+            raise ValueError("a joined block needs the shards it was joined from")
         n = block.numel()
         whole = torch.cat([p[offset:offset + n].view(block.shape) for p in parts], dim=dim)
-        out.append(_Gathered.apply(block, dim, comm, spec.spec[dim] in _SUMMED_AXES, [whole]))
+        out.append(_Gathered.apply(block, dim, comm, spec.spec[dim] in _SUMMED_AXES, [whole],
+                                   joined[0] if joined else ([block], ())))
         offset += n
     return out
 
@@ -312,13 +342,16 @@ def install_gather_buckets(module: nn.Module) -> None:
         for owner, leaf, spec in members:
             shards = shard_tensors(owner, leaf)
             home = shards[0].device
-            block = _cat([t.to(home) for t in shards], spec._local_parts())
+            parts = spec._local_parts()
+            block = _cat([t.to(home) for t in shards], parts)
             k = next(k for k, c in enumerate(spec.comms) if c is not None)
             comm = spec.comms[k]
             key = (id(comm.group), comm.rank, comm.size, block.dtype, home)
-            buckets.setdefault(key, (comm, []))[1].append((spec, spec.dims[k], block))
+            buckets.setdefault(key, (comm, []))[1].append(
+                (spec, spec.dims[k], block, (shards, parts)))
         for comm, bucket in buckets.values():
-            for (spec, _, _), whole in zip(bucket, _gather_bucket(comm, bucket)):
+            for member, whole in zip(bucket, _gather_bucket(comm, bucket)):
+                spec = member[0]
                 spec.gathered = whole.to(spec.compute)
 
     def drop(_module, _args, _output) -> None:
@@ -474,12 +507,14 @@ class Shards(nn.Module):
 
 class Stages:
     """A pipeline module's stages where ``pp`` crosses processes: ``comm``
-    is the pp group (:class:`~relayrl_tpu_torch.parallel.distributed.
-    AxisGroup`), ``owners`` each stage's member of it, ``stage_of`` each
-    stacked parameter's stage by name. This rank holds its own stages'
-    layers on their devices; another rank's stage is a ``meta`` tensor of
-    the layer's shape and dtype (no bytes), read whole from its owner by
-    :meth:`gather`."""
+    is this rank's pp group (:class:`~relayrl_tpu_torch.parallel.
+    distributed.AxisGroup`: the line of the pp axis through its other
+    coordinates, so each fsdp coordinate has its own holder of a stage),
+    ``owners`` each stage's member of it, ``stage_of`` each stacked
+    parameter's stage by name. This rank holds its own stages' layers on
+    their devices; another rank's stage is a ``meta`` tensor of the
+    layer's shape and dtype (no bytes), read whole from its owner in the
+    group by :meth:`gather`."""
 
     def __init__(self, comm, owners: Sequence[int], stage_of: dict[str, int]):
         self.comm, self.owners, self.stage_of = comm, list(owners), dict(stage_of)

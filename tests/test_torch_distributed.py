@@ -176,13 +176,51 @@ def test_pp_across_processes_builds(monkeypatch, spec, n, world, cross, first_ow
                                                  ({"dp": 1, "fsdp": 2, "pp": 2}, 1, 4, "fsdp"),
                                                  ({"dp": 1, "ep": 2, "pp": 4}, 2, 4, "ep"),
                                                  ({"dp": 1, "tp": 2, "pp": 2}, 1, 4, "tp")])
-def test_pp_beside_a_crossing_split_refused(monkeypatch, spec, n, world, beside):
-    """A crossing pp axis runs beside dp alone: beside a crossing fsdp,
-    ep, tp or sp the mesh raises the named error, naming that axis."""
-    _topology(monkeypatch, 0, world)
-    with pytest.raises(CrossProcessAxisError,
-                       match=rf"pp crosses processes beside \['{beside}'\].*queue 1 item 11"):
-        make_mesh(spec, [torch.device("cpu")] * n)
+def test_pp_beside_a_crossing_split_builds(monkeypatch, spec, n, world, beside):
+    """A crossing pp axis beside a crossing fsdp, ep, tp or sp axis: 4
+    ranks, the split axis's coordinate the rank's half (ranks 0-1 at 0,
+    2-3 at 1), its pp coordinates the rank's block of the line. On every
+    rank: the crossing axes; each axis's owners through the rank; a pp
+    group per split coordinate, (0, 1) and (2, 3), and a split group per
+    pp coordinate, (0, 2) and (1, 3); the rank's stages and their devices
+    (its own line's, the other rank's None); the data group (the fsdp
+    group where fsdp crosses, with no dp group under it; none where the
+    split axis is a replica axis, its ranks holding the same rows); and
+    the groups every rank forms, in one order: the split axis's, then
+    pp's (the data plane's are the fsdp groups already formed)."""
+    import torch.distributed as dist
+
+    per = spec["pp"] // 2  # stages a rank
+    for rank in range(world):
+        _topology(monkeypatch, rank, world)
+        monkeypatch.setattr(distributed, "_runtime",
+                            distributed._Runtime(rank, world, [], "gloo", None))
+        formed = []
+        monkeypatch.setattr(dist, "new_group",
+                            lambda ranks, timeout=None: formed.append(tuple(ranks)) or object())
+        mesh = make_mesh(spec, [torch.device("cpu")] * n)
+        assert mesh.cross_axes == (beside, "pp")
+        split, line = rank // 2, 2 * (rank // 2)
+        assert list(mesh.axis_owners(beside)) == [rank % 2, rank % 2 + 2]
+        assert list(mesh.axis_owners("pp")) == [line + s // per for s in range(spec["pp"])]
+        assert mesh.axis_ranks(beside) == (rank % 2, rank % 2 + 2)
+        assert mesh.axis_ranks("pp") == (line, line + 1)
+        assert mesh.axis_groups(beside) == [(0, 2), (1, 3)]
+        assert mesh.axis_groups("pp") == [(0, 1), (2, 3)]
+        stages = list(range((rank % 2) * per, (rank % 2 + 1) * per))
+        assert mesh.shard_indices("pp") == stages
+        assert mesh.shard_indices(beside) == [split]
+        assert [d is not None for d in mesh.axis_devices("pp")] == [
+            s in stages for s in range(spec["pp"])]
+        assert formed == [(0, 2), (1, 3), (0, 1), (2, 3)]
+        assert set(distributed._runtime.groups) == set(formed)
+        group = distributed.data_parallel_group(mesh)
+        if beside == "fsdp":
+            assert (group.rank, group.size, group.ranks) == (split, 2, (rank % 2, rank % 2 + 2))
+            assert group.dp is None and mesh.data_block == (split, split + 1)
+        else:
+            assert group is None and mesh.data_block == (0, 1)
+        distributed.shutdown_distributed()
 
 
 # (spec, devices a process, processes, crossing axes, each crossing
@@ -659,3 +697,255 @@ def test_last_stage_sends_nothing(n_ranks, logs):
     hand-off. Each rank's backward runs its hand-offs in reverse."""
     _, _, hops = _pipeline_ranks(n_ranks, n_ranks)
     assert [hop.log for hop in hops] == logs
+
+
+class CollectiveOrderError(AssertionError):
+    """Two members of a group met one collective at different places of
+    their own sequences of cross-process pieces."""
+
+
+class _Ranks:
+    """What the four thread-ranks of :func:`_split_pipeline_ranks` share:
+    each rank's count of the cross-process pieces it met (pipeline hops
+    and broadcasts, the fsdp group's collectives, in one sequence), and
+    the event that a failed rank sets, so its partners stop waiting."""
+
+    def __init__(self, n, timeout):
+        import threading
+
+        self.seq = [0] * n
+        self.abort = threading.Event()
+        self.timeout = timeout
+        self.log = [[] for _ in range(n)]
+
+    def piece(self, rank, what):
+        self.seq[rank] += 1
+        self.log[rank].append(what)
+        return self.seq[rank]
+
+    def get(self, box, what):
+        """``box``'s next item, waiting until a partner fails or the
+        timeout passes (a named error, not a hang)."""
+        import queue
+        import time
+
+        deadline = time.monotonic() + self.timeout
+        while True:
+            try:
+                return box.get(timeout=0.02)
+            except queue.Empty:
+                if self.abort.is_set():
+                    raise RuntimeError(f"{what}: a partner failed") from None
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{what}: nothing after {self.timeout} s") from None
+
+
+class _OrderedPipeHop:
+    """A pp group's hop between two thread-ranks (``members``, global
+    ranks in stage order) whose every hand-off carries the sender's place
+    in its sequence; the receiver raises :class:`CollectiveOrderError`
+    when it meets the hand-off at another place of its own."""
+
+    def __init__(self, shared, boxes, members, rank):
+        self.shared, self.boxes, self.members = shared, boxes, members
+        self.me = rank
+        self.rank = members.index(rank)
+        self.up = members[self.rank - 1] if self.rank > 0 else None
+        self.down = members[self.rank + 1] if self.rank < len(members) - 1 else None
+        self.first, self.last = 0, len(members) - 1
+
+    def _check(self, got, mine, what):
+        theirs, tensors = got
+        if theirs != mine:
+            raise CollectiveOrderError(f"rank {self.me} met {what} as its piece {mine}, "
+                                       f"its partner as piece {theirs}")
+        return tensors
+
+    def exchange(self, tensors, device, reverse=False, like=None):
+        mine = self.shared.piece(self.me, ("hop", reverse))
+        to = self.up if reverse else self.down
+        if tensors:
+            self.boxes[to][reverse].put((mine, [t.detach().clone() for t in tensors]))
+        if not like:
+            return ()
+        got = self._check(self.shared.get(self.boxes[self.me][reverse], "a hop"), mine,
+                          "a hop")
+        return tuple(t.to(device) for t in got)
+
+    def broadcast(self, t, src, like, device):
+        mine = self.shared.piece(self.me, ("broadcast", src))
+        if self.rank == src:
+            for r in self.members:
+                if r != self.me:
+                    self.boxes[r]["bcast"].put((mine, t.detach().clone()))
+            return t.detach().clone().to(device)
+        got = self.shared.get(self.boxes[self.me]["bcast"], "a broadcast")
+        return self._check(got, mine, "a broadcast").to(device)
+
+
+class _OrderedGroup:
+    """An fsdp group of two thread-ranks (also their data group): each
+    collective is a barrier at which the members compare their places in
+    their sequences (:class:`CollectiveOrderError` when they differ)."""
+
+    dp = None
+
+    def __init__(self, shared, members, rank, slots, barrier):
+        self.shared, self.members, self.me = shared, members, rank
+        self.rank, self.size = members.index(rank), len(members)
+        self.slots, self.barrier = slots, barrier
+
+    def _exchange(self, t, what):
+        import threading
+
+        mine = self.shared.piece(self.me, what)
+        self.slots[self.rank] = (mine, what, t.detach().clone())
+        try:
+            self.barrier.wait(timeout=self.shared.timeout)
+        except threading.BrokenBarrierError:
+            raise RuntimeError(f"{what}: a partner failed") from None
+        seen = [(s[0], s[1]) for s in self.slots]
+        got = [s[2].clone() for s in self.slots]
+        try:
+            self.barrier.wait(timeout=self.shared.timeout)
+        except threading.BrokenBarrierError:
+            raise RuntimeError(f"{what}: a partner failed") from None
+        if len(set(seen)) != 1:
+            raise CollectiveOrderError(f"ranks {self.members} met a collective as "
+                                       f"{seen} (place, kind)")
+        return got
+
+    def all_gather(self, t):
+        return self._exchange(t, "all_gather")
+
+    def all_reduce(self, flat):
+        flat.copy_(sum(self._exchange(flat, "all_reduce")))
+        return flat
+
+    def reduce_scatter(self, chunks):
+        flat = torch.cat([c.reshape(-1) for c in chunks])
+        n = chunks[self.rank].numel()
+        total = sum(self._exchange(flat, "reduce_scatter"))
+        return total[self.rank * n:(self.rank + 1) * n].reshape(chunks[self.rank].shape)
+
+
+def _split_pipeline_ranks(eager_rank=None, timeout=20.0):
+    """A tanh MLP of 4 layers pipelined over 2 stages, its input embedded
+    by ``E`` and its output read by a head ``H``, both split in half over
+    fsdp 2: four thread-ranks, rank ``r`` at stage ``r % 2`` and fsdp
+    coordinate ``r // 2`` (pp groups (0, 1), (2, 3); fsdp groups, also
+    the data groups, (0, 2), (1, 3)), fsdp coordinate ``f`` feeding its
+    own 4 rows in 2 microbatches. Each rank gathers its halves of ``E``
+    and ``H`` in one all-gather, pipelines, and takes its gradients by
+    ``dp_gradients`` (its stage's layers summed over the data group, its
+    halves of ``E`` and ``H`` reduce-scattered). ``eager_rank`` instead
+    reduce-scatters ``H``'s gradient as soon as the engine has it (an
+    overlapping fsdp's habit: the head's backward, before its hops). Returns the
+    single-process gradients (``E``, ``H``, every layer's), each rank's
+    gradients (or None where it failed), the errors, each rank's sequence
+    and the seconds the ranks took."""
+    import queue
+    import threading
+    import time
+    from types import SimpleNamespace
+
+    from relayrl_tpu_torch.parallel import context, pipeline_apply
+    from relayrl_tpu_torch.parallel.sharding import _gather_bucket
+
+    gen = torch.Generator().manual_seed(1)
+    E0, H0 = torch.randn(8, 8, generator=gen) * 0.5, torch.randn(8, 8, generator=gen) * 0.5
+    ws = [torch.randn(8, 8, generator=gen) * 0.4 for _ in range(4)]
+    rows = [torch.randn(4, 8, generator=gen) for _ in range(2)]
+    g_out = [torch.randn(4, 8, generator=gen) for _ in range(2)]
+    spec = SimpleNamespace(spec=("fsdp", None))
+
+    def stage(layers, h):
+        for w in layers:
+            h = torch.tanh(h @ w)
+        return h
+
+    E, H = E0.clone().requires_grad_(), H0.clone().requires_grad_()
+    layers = [w.clone().requires_grad_() for w in ws]
+    loss = sum(((stage(layers, x @ E) @ H) * g).sum() for x, g in zip(rows, g_out))
+    want = torch.autograd.grad(loss, [E, H] + layers)
+
+    shared = _Ranks(4, timeout)
+    boxes = [{False: queue.Queue(), True: queue.Queue(), "bcast": queue.Queue()}
+             for _ in range(4)]
+    slots = [[None, None], [None, None]]
+    barriers = [threading.Barrier(2), threading.Barrier(2)]
+    got, errors = [None] * 4, []
+
+    def rank_main(r):
+        s, f = r % 2, r // 2
+        try:
+            group = _OrderedGroup(shared, (s, s + 2), r, slots[s], barriers[s])
+            hop = _OrderedPipeHop(shared, boxes, (2 * f, 2 * f + 1), r)
+            halves = [E0.chunk(2)[f].clone().requires_grad_(),
+                      H0.chunk(2)[f].clone().requires_grad_()]
+            for h in halves:
+                h.summed_over_fsdp = True
+            mine = [w.clone().requires_grad_() for w in ws[2 * s:2 * s + 2]]
+            for w in mine:
+                w.split_comms = (("pp", hop),)
+            whole_e, whole_h = _gather_bucket(group, [(spec, 0, h) for h in halves])
+            y = pipeline_apply(stage, [None] * 2 * s + mine + [None] * (2 - 2 * s),
+                               rows[f] @ whole_e, _pipe_mesh(2, s), n_microbatches=2, hop=hop)
+            out = y @ whole_h
+            if r == eager_rank:
+                # H's gradient reduce-scattered where the head's backward
+                # computes it, the first node the engine runs.
+                def eager(grads, _):
+                    group.reduce_scatter(list(grads[1].chunk(2)))
+
+                out.grad_fn.register_hook(eager)
+            with context.use_dp_group(group):
+                got[r] = context.dp_gradients((out * g_out[f]).sum(), halves + mine)
+        except Exception as e:  # reported by the caller's assert
+            errors.append(e)
+            shared.abort.set()
+            for b in barriers:
+                b.abort()
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=rank_main, args=(r,)) for r in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=3 * timeout)
+    assert not any(t.is_alive() for t in threads), "a thread-rank hung"
+    return want, got, errors, shared.log, time.monotonic() - t0
+
+
+def test_pipeline_beside_a_split_over_thread_ranks():
+    """Four thread-ranks, a pp line per fsdp coordinate and an fsdp group
+    per pp coordinate: every rank meets each collective at the same place
+    of its sequence as its partners (the harness raises otherwise), its
+    backward meets its hops, then its reduce-scatters, then the data
+    group's sum; its halves of ``E`` and ``H`` take the single-process
+    gradients' halves and its stage's layers theirs (within 1e-6: each
+    data group's rows summed apart, then added)."""
+    want, got, errors, log, _ = _split_pipeline_ranks()
+    assert not errors, errors
+    for r in range(4):
+        s, f = r % 2, r // 2
+        for g, w in zip(got[r][:2], want[:2]):
+            torch.testing.assert_close(g, w.chunk(2)[f], rtol=0, atol=1e-6)
+        for g, w in zip(got[r][2:], want[2 + 2 * s:4 + 2 * s]):
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+        kinds = [k if isinstance(k, str) else k[0] for k in log[r]]
+        backward = kinds[kinds.index("broadcast") + 1:]
+        assert backward[-3:] == ["reduce_scatter", "reduce_scatter", "all_reduce"], log[r]
+        assert "reduce_scatter" not in backward[:-3], log[r]
+
+
+@pytest.mark.parametrize("eager_rank", [0, 3])
+def test_split_collective_swapped_with_a_hop_is_caught(eager_rank):
+    """A rank that reduce-scatters ``H``'s gradient as soon as the engine
+    has it meets that collective before its backward hops, where its fsdp
+    partner meets it after them: the group's check raises
+    :class:`CollectiveOrderError` within the harness's timeout, and every
+    thread-rank ends (no hang)."""
+    _, _, errors, _, seconds = _split_pipeline_ranks(eager_rank, timeout=10.0)
+    assert any(isinstance(e, CollectiveOrderError) for e in errors), errors
+    assert seconds < 10.0, seconds

@@ -285,5 +285,73 @@ def test_split_comm_counts_reset():
     distributed.COMM.reset()
     assert distributed.COMM.as_dict() == {
         "gathers": 0, "gather_bytes": 0, "scatters": 0, "scatter_bytes": 0,
-        "reduces": 0, "reduce_bytes": 0, "gather_seconds": 0.0,
+        "deferred": 0, "reduces": 0, "reduce_bytes": 0, "gather_seconds": 0.0,
         "scatter_seconds": 0.0, "reduce_seconds": 0.0}
+
+
+def _defer_bucketed_reduce_scatters(device):
+    from types import SimpleNamespace
+
+    from relayrl_tpu_torch.parallel.sharding import _gather_bucket
+
+    gen = torch.Generator().manual_seed(5)
+    wholes = [torch.randn(4, 6, generator=gen), torch.randn(8, 3, generator=gen)]
+    ups = [[torch.randn(4, 6, generator=gen), torch.randn(8, 3, generator=gen)]
+           for _ in range(2)]
+    spec = SimpleNamespace(spec=("fsdp", None))
+
+    def rank_fn(group):
+        order = []
+        scatter = group.reduce_scatter
+
+        def logged(chunks):
+            # Held back from the engine: no autograd node is running now.
+            order.append((tuple(chunks[0].shape), torch._C._current_autograd_node() is None))
+            return scatter(chunks)
+
+        group.reduce_scatter = logged
+        first = wholes[0].chunk(2)[group.rank].to(device).requires_grad_()
+        second = [c.to(device).requires_grad_() for c in wholes[1].chunk(4)[2 * group.rank:
+                                                                           2 * group.rank + 2]]
+        got = _gather_bucket(group, [(spec, 0, first),
+                                     (spec, 0, torch.cat(second), (second, [(0, 2)]))])
+        up = [u.to(device) for u in ups[group.rank]]
+        # The second parameter's gradient first in the engine's order.
+        loss = (got[0] * up[0]).sum() + (got[1] * up[1]).sum() * torch.ones((), device=device)
+        grads = context.dp_gradients(loss, [first, *second])
+        return order, [g.device for g in grads], [g.cpu() for g in grads]
+
+    for rank, (order, devices, grads) in enumerate(_run_ranks(2, rank_fn)):
+        assert order == [((2, 6), True), ((4, 3), True)]
+        assert devices == [device] * 3
+        total = [ups[0][k] + ups[1][k] for k in range(2)]
+        assert torch.equal(grads[0], total[0].chunk(2)[rank])
+        mine = total[1].chunk(4)[2 * rank:2 * rank + 2]
+        assert torch.equal(grads[1], mine[0]) and torch.equal(grads[2], mine[1])
+
+
+def test_dp_gradients_defer_bucketed_reduce_scatters():
+    """Inside ``dp_gradients`` a bucketed gather's reduce-scatter waits for
+    the autograd engine, then runs in the order of the forward's gathers
+    (whatever order the engine reached them in), and its block's gradient
+    is cut back onto the shards the block was joined from: one parameter
+    held as a leaf block, one as a block joined from two shards. Each
+    rank's gradients are the sums over the ranks at its blocks."""
+    _defer_bucketed_reduce_scatters(torch.device("cpu"))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the autograd engine runs a CUDA "
+                    "tensor's backward on its device thread only on a card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def test_dp_gradients_defer_bucketed_reduce_scatters_on_cuda(cuda_device):
+    """The same on CUDA tensors, whose backward nodes the autograd engine
+    runs on its device thread unless ``dp_gradients`` keeps them on the
+    calling thread: there the reduce-scatters would not be held back (that
+    thread does not see the caller's held list) and the two thread-ranks'
+    would wait on each other on the one device thread."""
+    _defer_bucketed_reduce_scatters(cuda_device)
