@@ -404,7 +404,38 @@ Phases, each of which fails the run:
    8-lane agent: 1 update and a collective checkpoint equal to a
    single-process save; every version installed by the agent, served
    through K1 and sha256-equal to the 4 ranks' gathered params; exact
-   accounting.
+   accounting;
+28. process blocks that are not a sub-grid of the mesh: 3 mesh entries
+   a rank on its card (gloo on one card; nccl with a card each), a
+   12-row batch of phase 5's first wave broadcast bit for bit. (a) The
+   flagship under ``{"dp": 3, "fsdp": 2}`` over the 2 rank processes
+   (rank 0 holds dp 0 and fsdp 0 of dp 1), from phase 5's initial params,
+   one update then 1 timed; (b) the ring flagship under ``{"dp": 3, "sp":
+   2}`` over the same ranks, one update (dp 1's ring crosses; rank 0
+   accounts for its rows), and one PPO update of it there (12 rows in 8
+   minibatches of 3, each rank's rows of a minibatch grouped by data
+   cell: both holders of dp 1 feed its ring the same rows, none in some
+   minibatches). Each is held to this process's update of the
+   same spec over 6 entries of the card at phase 5's bars, bit-equality
+   reported; the ranks' params sha256-equal after every update; every
+   rank's parameter and moment bytes those of the blocks at its own
+   entries (in (a) both fsdp coordinates: the whole, no gather and no
+   reduce-scatter); (a) 336/4/4 a rank an update as one process's; (b)
+   K4/K5/K6 a rank from its shards' causal pairs on each line it holds,
+   summing to one process's, its hops and their bytes the schedule's on
+   the line that crosses, one broadcast of the lead's output gradient a
+   layer; the PPO update's minibatch rows counted alike by both holders
+   of each cell. (c) The flagship as a 2-rank ``TrainingServer`` with
+   ``learner.mesh`` ``{"dp": 3, "fsdp": 2}`` fed by a 12-lane agent (an
+   epoch a wave): 1 update and a collective checkpoint equal to a
+   single-process save; every version installed by the agent, served
+   through K1 and sha256-equal to both ranks' gathered params; exact
+   accounting. (d) The ring flagship under ``{"dp": 3, "sp": 4}`` over
+   phase 27's 4 rank processes, one update, held as (b) against one
+   process's update over 12 entries: every ring crosses, ranks 1 and 2
+   sit in two. Prints the gathers, reduce-scatters, data-group
+   all-reduces, hops, ring gathers and lead broadcasts with their bytes
+   and ms per rank.
 
 Phases 3 and 6 also hold every kernel to its plain version at head dims
 128 and 256 (bf16 and f32, [8, 256, 4, 128], [8, 256, 2, 256], [8, 64, 4,
@@ -853,6 +884,27 @@ MHPS_MESH = {"dp": 1, "fsdp": 2, "pp": 2}
 MHPS_RANKS = 4
 MHPS_TIMED = 1
 MHPS_SERVER_UPDATES = 1
+# Process blocks that straddle the mesh's lines (phase 28), MHG_ENTRIES
+# mesh entries a rank on its card, a MHG_ROWS-row batch of phase 5's first
+# wave: (a) the flagship under MHG_MESH over the MH_RANKS ranks (rank 0
+# holds dp 0 and fsdp 0 of dp 1), one update from phase 5's initial params
+# then MHG_TIMED timed; (b) the ring flagship under MHG_RING_MESH over the
+# same ranks, one update (dp 1's ring crosses); (c) the flagship as a
+# MH_RANKS-rank TrainingServer under MHG_MESH, an epoch of MHG_ROWS
+# episodes, MHG_SERVER_UPDATES update(s) and a collective checkpoint; (d)
+# the ring flagship under MHG_RING4_MESH over the MHPS_RANKS ranks, one
+# update (every ring crosses; ranks 1 and 2 sit in two).
+MHG_MESH = {"dp": 3, "fsdp": 2}
+MHG_RING_MESH = {"dp": 3, "sp": 2}
+MHG_RING4_MESH = {"dp": 3, "sp": 4}
+MHG_ENTRIES = 3
+MHG_ROWS = 12
+MHG_TIMED = 1
+MHG_SERVER_UPDATES = 1
+# (b) also runs one PPO update of the ring flagship under MHG_RING_MESH:
+# the MHG_ROWS rows cut into minibatches of 3, 2 sweeps (8 minibatch
+# steps), each rank's rows of a minibatch grouped by data cell.
+MHG_PPO_HP = {**PPO_HP, "traj_per_epoch": MHG_ROWS, "train_iters": 2}
 
 
 def _dtype_name(dtype) -> str:
@@ -6322,10 +6374,11 @@ def on_mesh(mesh):
     return wrap
 
 
-def one_update(algo, params0, batch, device, wrap=None, plain_attn=None):
+def one_update(algo, params0, batch, device, wrap=None, plain_attn=None, idx_sets=None):
     """The first update of ``algo``'s kind from ``params0`` with fresh Adam
-    (:func:`update_parts`), through the kernels or with every block's
-    attention ``plain_attn``; ``wrap`` wraps the update. Returns
+    (:func:`update_parts`; PPO on ``idx_sets``), through the kernels or
+    with every block's attention ``plain_attn``; ``wrap`` wraps the
+    update. Returns
     ``((params by logical name, metrics), state, K1-K3 launches, steps,
     update)``; the launches are the update's alone."""
     import torch
@@ -6337,7 +6390,7 @@ def one_update(algo, params0, batch, device, wrap=None, plain_attn=None):
     if plain_attn is not None:
         for block in params.layers():
             block.attn_fn = plain_attn
-    state, update, steps = update_parts(algo, algo.policy, params)
+    state, update, steps = update_parts(algo, algo.policy, params, idx_sets)
     if wrap is not None:
         update = wrap(update)
     zero_flash_counts()
@@ -6808,10 +6861,11 @@ class RankChain:
     """``n`` rank processes (``chip_smoke.py --mh-chain RANK DIR``,
     ``subprocess``, never a fork of this CUDA process) started once, ahead
     of the phases whose jobs they run one after another: the two-rank jobs
-    of phases 22-25 and 27 (``--mh-rank``, ``--mh-ring-rank``,
-    ``--mh-split-rank``, ``--mh-pp-rank``) on ``MH_RANKS`` ranks started
-    before phase 21, phase 27's four-rank job (and phases 24 and 25's with
-    four cards) on ``MHPS_RANKS`` ranks started before phase 24: each rank
+    of phases 22-25, 27 and 28 (``--mh-rank``, ``--mh-ring-rank``,
+    ``--mh-split-rank``, ``--mh-pp-rank``, ``--mh-subgrid-rank``) on
+    ``MH_RANKS`` ranks started before phase 21, phases 27 and 28's
+    four-rank jobs (and phases 24 and 25's with four cards) on
+    ``MHPS_RANKS`` ranks started before phase 24: each rank
     process starts, imports torch, creates its CUDA context and loads the
     kernels once, while earlier phases run, instead of once a phase. A job
     is a file ``DIR/job<N>.json`` with each rank's argv and env; a rank
@@ -6883,7 +6937,7 @@ class RankChain:
                 what = (f"rank {failed[0]} exited {codes[failed[0]]}" if failed else
                         f"rank {dead[0]}'s process exited {self.procs[dead[0]].returncode}"
                         if dead else f"ranks still running after {timeout_s:.0f} s")
-                raise AssertionError(f"phase 22-27 job {args(0)[0]}: {what}:\n{tails()}")
+                raise AssertionError(f"phase 22-28 job {args(0)[0]}: {what}:\n{tails()}")
             time.sleep(0.05)
         self.job_seconds.append((str(args(0)[0]), time.perf_counter() - t0))
 
@@ -6961,7 +7015,8 @@ def mh_chain_main(rank: int, chaindir: Path) -> int:
     torch.cuda.synchronize()
     (chaindir / f"ready{rank}").write_text(f"{time.perf_counter() - t0:.3f}")
     mains = {"--mh-rank": mh_rank_main, "--mh-ring-rank": mh_ring_rank_main,
-             "--mh-split-rank": mh_split_rank_main, "--mh-pp-rank": mh_pp_rank_main}
+             "--mh-split-rank": mh_split_rank_main, "--mh-pp-rank": mh_pp_rank_main,
+             "--mh-subgrid-rank": mh_subgrid_rank_main}
     n = 0
     while not (chaindir / "stop").exists():
         job = chaindir / f"job{n}.json"
@@ -7229,7 +7284,8 @@ def multiprocess_server(*args, **kwargs) -> dict:
 
 def multiprocess_server_steps(device, root: Path, workdir: Path, mesh: dict | None = None,
                               updates: int = MH_SERVER_UPDATES, resume_updates: int = 0,
-                              arch: dict = SLICE_ARCH, ranks_n: int = MH_RANKS):
+                              arch: dict = SLICE_ARCH, ranks_n: int = MH_RANKS,
+                              entries: int = 1, epoch: int = MH_LANES):
     """A generator (:func:`started`, :func:`finish`) that yields once, while
     its rank servers start, and returns its result. Phase 22 (b): phase 11's learner as a two-rank ``TrainingServer``
     (``examples/chaos_server.py`` per rank, the default config, the
@@ -7251,7 +7307,10 @@ def multiprocess_server_steps(device, root: Path, workdir: Path, mesh: dict | No
     the ranks: each rank then launches its stages' share, and the agent
     runs every layer a dispatch (the pipeline family's readout). Phase 27
     (b) passes ``ranks_n`` 4 and a mesh whose fsdp and pp axes both cross
-    the ranks (a stage and half of the ends a rank)."""
+    the ranks (a stage and half of the ends a rank). Phase 28 (c) passes
+    ``entries`` 3 (a rank's mesh entries on its card, ``local_device_ids``)
+    and an ``epoch`` of 12 episodes (the agent's lanes) under a mesh whose
+    process blocks straddle its lines."""
     import shutil
 
     import torch
@@ -7272,7 +7331,7 @@ def multiprocess_server_steps(device, root: Path, workdir: Path, mesh: dict | No
     hyperparams = {"model_kind": arch["kind"], "seed": SEED,
                    **{k: v for k, v in arch.items()
                       if k not in ("kind", "has_critic", "precision")},
-                   **LEARNER}
+                   **LEARNER, "traj_per_epoch": epoch}
     ckpt_dir = workdir / "checkpoints"
     cards = torch.cuda.device_count() >= ranks_n
     n_layers = arch["n_layers"]
@@ -7281,7 +7340,7 @@ def multiprocess_server_steps(device, root: Path, workdir: Path, mesh: dict | No
         from relayrl_tpu_torch.parallel import resolve_microbatches
 
         per_pass = n_layers // mesh["pp"] * resolve_microbatches(
-            LEARNER["traj_per_epoch"] // (mesh.get("dp", 1) * mesh.get("fsdp", 1)),
+            epoch // (mesh.get("dp", 1) * mesh.get("fsdp", 1)),
             mesh["pp"])
     per_update = (per_pass * (4 + LEARNER["train_vf_iters"]), per_pass, per_pass)
     per_dispatch = n_layers if arch["kind"] == PP_ARCH["kind"] else n_layers - 1
@@ -7297,6 +7356,8 @@ def multiprocess_server_steps(device, root: Path, workdir: Path, mesh: dict | No
                    "act_dim": int(env.action_space.n), "hyperparams": hyperparams,
                    "scratch": str(workdir / f"rank{rank}"),
                    "checkpoint_every": updates,
+                   **({"local_device_ids": [SERVER_DEVICE_ID] * entries} if entries > 1
+                      else {}),
                    "config": {"learner": {"precision": arch["precision"],
                                           "checkpoint_dir": str(ckpt_dir),
                                           **({"mesh": mesh} if mesh else {})}},
@@ -7349,10 +7410,10 @@ def multiprocess_server_steps(device, root: Path, workdir: Path, mesh: dict | No
         yield
         for s in servers:
             s.wait(lambda st: True, "the rank to come up", timeout_s=MH_TIMEOUT_S)
-        agent = VectorAgent(num_envs=MH_LANES, config_path=str(agent_config), seed=SEED,
+        agent = VectorAgent(num_envs=epoch, config_path=str(agent_config), seed=SEED,
                             probe=False, device=device,
                             model_path=str(workdir / "client_model.rlx"), **agent_addrs)
-        venv = SyncVectorEnv([lambda: RecallEnv(LEARNER_HORIZON, N_CUES)] * MH_LANES)
+        venv = SyncVectorEnv([lambda: RecallEnv(LEARNER_HORIZON, N_CUES)] * epoch)
         waves, seconds, agent_k1, dispatches = 0, [], 0, 0
 
         def train(servers, first, last):
@@ -7392,7 +7453,7 @@ def multiprocess_server_steps(device, root: Path, workdir: Path, mesh: dict | No
             row = finals[0]["accounting"]["agents"].get(lane)
             if row != {"max_seq": sent[lane], "accepted": sent[lane], "contiguous": True}:
                 raise AssertionError(f"(b) accounting of {lane}: {row}, sent {sent[lane]}")
-        if (finals[0]["stats"]["trajectories"] != updates * LEARNER["traj_per_epoch"]
+        if (finals[0]["stats"]["trajectories"] != updates * epoch
                 or finals[0]["accounting"]["duplicates"]):
             raise AssertionError(f"(b) trajectories {finals[0]['stats']}, duplicates "
                                  f"{finals[0]['accounting']['duplicates']} for "
@@ -7429,9 +7490,8 @@ def multiprocess_server_steps(device, root: Path, workdir: Path, mesh: dict | No
             # The agent's spool replays what it sent before the teardown; the
             # restored ledger drops those replays (counted as duplicates), so
             # the resumed server trains only the new epochs.
-            if (sum(sent.values()) != total * LEARNER["traj_per_epoch"]
-                    or finals[0]["stats"]["trajectories"]
-                    != resume_updates * LEARNER["traj_per_epoch"]):
+            if (sum(sent.values()) != total * epoch
+                    or finals[0]["stats"]["trajectories"] != resume_updates * epoch):
                 raise AssertionError(f"(b) {sum(sent.values())} trajectories sent for {total} "
                                      f"updates; after the resume {finals[0]['stats']}")
             counts.append(counts_b)
@@ -8537,6 +8597,405 @@ def print_pp_split(ps: dict, card: str) -> None:
 
 
 # Phase 26: the port's static-analysis gate, run as a user runs it.
+def straddle_holdings(state, mesh, rank: int, device) -> dict:
+    """What this rank holds: every parameter leaf's bytes and its Adam
+    moments' beside the bytes of the blocks at the rank's own entries of
+    ``mesh`` (a split parameter's blocks counted from ``mesh.owners``,
+    every other parameter whole). Fails where a leaf is not on
+    ``device``, the bytes differ, or the moments are not twice the
+    parameters."""
+    import numpy as np
+
+    from relayrl_tpu_torch.parallel.mesh import AXES
+    from relayrl_tpu_torch.parallel.sharding import placement, shard_tensors
+
+    moments = {}
+    for opt in (state.pi_opt, state.vf_opt):
+        for p, st in opt.state.items():
+            moments[id(p)] = sum(v.numel() * v.element_size() for v in st.values()
+                                 if hasattr(v, "ndim") and v.ndim)
+    entries = np.argwhere(mesh.owners == rank)
+    out = {"param_bytes": 0, "moment_bytes": 0, "block_bytes": 0, "whole_bytes": 0,
+           "split": 0}
+    for name, p in state.params.named_parameters():
+        if p.device != device:
+            raise AssertionError(f"phase 28: rank {rank}'s {name} on {p.device}")
+        out["param_bytes"] += p.numel() * p.element_size()
+        out["moment_bytes"] += moments.get(id(p), 0)
+        if ".parametrizations." not in f".{name}":
+            out["block_bytes"] += p.numel() * p.element_size()
+            out["whole_bytes"] += p.numel() * p.element_size()
+    for module in state.params.modules():
+        for leaf in list(getattr(module, "parametrizations", None) or {}):
+            spec = placement(module, leaf)
+            grids = [(e,) if isinstance(e, str) else tuple(e) for e in spec.spec
+                     if e is not None]
+            blocks = {tuple(int(np.ravel_multi_index([at[AXES.index(a)] for a in g],
+                                                     [mesh.shape[a] for a in g]))
+                            for g in grids) for at in entries}
+            whole = math.prod(spec.shape) * shard_tensors(module, leaf)[0].element_size()
+            out["block_bytes"] += len(blocks) * whole // math.prod(spec.parts)
+            out["whole_bytes"] += whole
+            out["split"] += 1
+    if out["param_bytes"] != out["block_bytes"] or \
+            out["moment_bytes"] != 2 * out["param_bytes"]:
+        raise AssertionError(f"phase 28: rank {rank} holds {out}")
+    return out
+
+
+def mh_subgrid_rank_main(rank: int, port: int, workdir: Path) -> int:
+    """One rank of phase 28 (a), (b) and (d) (``chip_smoke.py
+    --mh-subgrid-rank RANK PORT WORKDIR``, started by
+    :func:`multiprocess_subgrid`): forms the process group and, for each
+    case of ``WORKDIR/cases.pt``, builds the case's learner, checks its
+    initial params against the parent's, places a fresh-Adam state on the
+    case's mesh (``MHG_ENTRIES`` entries on the rank's card; its process
+    blocks straddle the mesh's lines), receives the coordinator's batch
+    through the broadcast and trains one update, then ``timed`` more;
+    records its cells and lines, the metrics, the launches, the
+    collectives (``distributed.COMM``, ``ring.COMM``, the data group's
+    all-reduces synced apart on the first update), the gathered params
+    and their digest, and what it holds (:func:`straddle_holdings`).
+    Writes ``WORKDIR/rank<RANK>.pt``."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from relayrl_tpu_torch.algorithms.onpolicy import read_metrics
+    from relayrl_tpu_torch.parallel import (
+        broadcast_from_coordinator,
+        distributed,
+        initialize_distributed,
+        make_mesh,
+        make_sharded_update,
+        place_state,
+        ring,
+    )
+    from relayrl_tpu_torch.weights import logical_state, params_to_jax
+
+    spec = torch.load(workdir / "cases.pt", weights_only=False)
+    info = initialize_distributed(f"127.0.0.1:{port}", spec["ranks"], rank)
+    if info != {"multi_host": True, "process_id": rank, "num_processes": spec["ranks"]}:
+        raise AssertionError(f"rank {rank}: topology {info}")
+    device = rank_device()
+    out = {"backend": distributed.backend(), "card": torch.cuda.get_device_name(device),
+           "cases": {}}
+    from relayrl_tpu_torch.algorithms import ppo
+
+    dp_minibatch, fed = ppo.dp_minibatch, []
+
+    def record(idx, global_rows):
+        # Each minibatch's rows a cell of this rank holds (PPO's cases).
+        local, rows = dp_minibatch(idx, global_rows)
+        fed.append(rows)
+        return local, rows
+
+    ppo.dp_minibatch = record
+    for name, case in spec["cases"].items():
+        algo = build_learner(device, workdir / f"rank{rank}_{name}", case["arch"],
+                             case["algorithm"], case["hp"])
+        if _digest(params_to_jax(algo.state.params)) != case["params0"]:
+            raise AssertionError(f"rank {rank} {name}: initial params differ from the parent's")
+        state, update, _ = update_parts(algo, algo.policy, copy.deepcopy(algo.state.params),
+                                        case["idx_sets"])
+        fed.clear()
+        mesh = make_mesh(case["mesh"], [device] * MHG_ENTRIES)
+        sharded = make_sharded_update(update, mesh, state, shard_time=case["shard_time"])
+        state = place_state(state, mesh)
+        want = case["batch"]
+        batch = broadcast_from_coordinator(
+            want if rank == 0 else {k: np.zeros_like(v) for k, v in want.items()})
+        if not all(np.array_equal(batch[k], want[k]) and batch[k].dtype == want[k].dtype
+                   for k in want):
+            raise AssertionError(f"rank {rank} {name}: the broadcast batch differs")
+
+        def step(synced: bool) -> dict:
+            nonlocal state
+            zero_flash_counts()
+            zero_ring_counts()
+            distributed.COMM.reset()
+            ring.COMM.reset()
+            stats, undo = _allreduce_timer() if synced else ({}, lambda: None)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = sharded(state, batch)
+                metrics = read_metrics(metrics)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+            finally:
+                undo()
+            return {"ms": ms, "metrics": metrics, "counts": flash_counts() + ring_counts(),
+                    "comm": distributed.COMM.as_dict(), "ring": ring.COMM.as_dict(),
+                    "allreduce": stats, "digest": _digest(params_to_jax(state.params))}
+
+        first = step(synced=True)
+        first["params"] = {k: v.detach().cpu().clone()
+                           for k, v in logical_state(state.params).items()}
+        result = {"cross": mesh.cross_axes, "straddles": mesh.straddles,
+                  "cells": mesh.cells, "accountable": mesh.accountable_cells,
+                  "shards": ([mesh.shard_indices("sp", line) for line in mesh.lines("sp")]
+                             if "sp" in mesh.cross_axes else []),
+                  "crossing": ([len(mesh.axis_ranks("sp", line)) > 1
+                                for line in mesh.lines("sp")]
+                               if "sp" in mesh.cross_axes else []),
+                  "updates": [first], "fed": list(fed),
+                  "holdings": straddle_holdings(state, mesh, rank, device)}
+        for _ in range(case["timed"]):
+            result["updates"].append(step(synced=False))
+        out["cases"][name] = result
+    torch.save(out, workdir / f"rank{rank}.pt")
+    distributed.barrier()
+    distributed.shutdown_distributed()
+    print(f"[mh-subgrid-rank {rank}] done ({out['backend']} on {out['card']})", flush=True)
+    return 0
+
+
+def subgrid_batch(learned: dict) -> dict:
+    """A ``MHG_ROWS``-row epoch batch of phase 5's first wave, padded by an
+    ``EpochBuffer`` as the learner pads it (its first ``MHG_ROWS``
+    episodes)."""
+    import numpy as np
+
+    from relayrl_tpu_torch.data import EpochBuffer
+
+    algo = learned["algo"]
+    buf = EpochBuffer(algo.obs_dim, algo.act_dim, MHG_ROWS, buckets=algo.buffer.buckets)
+    for records in learned["first_wave"][:MHG_ROWS]:
+        buf.add_episode(records)
+    return {k: np.array(v) for k, v in buf.drain().as_dict().items()}
+
+
+def multiprocess_subgrid(device, root: Path, workdir: Path, learned: dict, sp: dict,
+                         ranks_n: int = MH_RANKS) -> dict:
+    """Phase 28 (a) and (b) over ``MH_RANKS`` ranks, (d) over
+    ``MHPS_RANKS`` (``ranks_n`` picks): the rank processes
+    (:func:`mh_subgrid_rank_main`), ``MHG_ENTRIES`` mesh entries each, on
+    :func:`subgrid_batch`, broadcast bit for bit. Each case is held to
+    this process's update of the same spec over as many entries of the
+    card (the same function: one process's reductions over the whole
+    batch against the ranks' parts summed over the data group) at phase
+    5's bars, with bit-equality reported; the ranks' params sha256-equal
+    after every update; every rank's bytes its blocks' with their moments
+    (:func:`straddle_holdings`). (a) the flagship under ``MHG_MESH``: each
+    rank holds both fsdp coordinates (every split parameter whole, no
+    gather, no reduce-scatter), K1/K2/K3 336/4/4 a rank an update as one
+    process's (each launch covers a rank's rows); (b) and (d) the ring
+    flagship under ``MHG_RING_MESH`` and ``MHG_RING4_MESH`` with
+    ``shard_time``: a rank's K4/K5/K6 those of its shards' causal pairs on
+    every line it holds, summing over the ranks to one process's; its
+    hops and their bytes the schedule's on each line that crosses, none
+    on a whole one; one broadcast of the lead's output gradient a layer
+    on each crossing line. (b) also runs one PPO update of the ring
+    flagship under ``MHG_RING_MESH`` (``MHG_PPO_HP``, on this process's
+    index sets): each minibatch's rows of a cell counted alike by every
+    rank that holds it, each rank launching K4/K5/K6."""
+    import shutil
+
+    import torch
+
+    from relayrl_tpu_torch.ops.flash import KERNEL_HEAD_DIMS
+    from relayrl_tpu_torch.parallel import make_mesh, make_sharded_update
+    from relayrl_tpu_torch.weights import params_to_jax
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    batch = subgrid_batch(learned)
+    n_layers = SLICE_ARCH["n_layers"]
+    evaluates = 4 + LEARNER["train_vf_iters"]
+    ring_arch = {**SLICE_ARCH, "attention": "ring"}
+    cases, refs = {}, {}
+    specs = ({"flash": (MHG_MESH, learned, SLICE_ARCH, False, MHG_TIMED),
+              "ring": (MHG_RING_MESH, sp, ring_arch, True, 0),
+              "ring_ppo": (MHG_RING_MESH, None, ring_arch, False, 0)} if ranks_n == MH_RANKS
+             else {"ring4": (MHG_RING4_MESH, sp, ring_arch, True, 0)})
+    for name, (mesh_spec, source, arch, shard_time, timed) in specs.items():
+        algorithm, hp, idx = "REINFORCE", LEARNER, None
+        if source is None:
+            from relayrl_tpu_torch.algorithms.ppo import draw_minibatches
+
+            algorithm, hp = "PPO", MHG_PPO_HP
+            algo = build_learner(device, workdir / f"ref_{name}", arch, algorithm, hp)
+            params0 = copy.deepcopy(algo.state.params)
+            idx, _ = draw_minibatches(algo.state.rng, MHG_ROWS, algo.train_iters,
+                                      algo.minibatch_count)
+        else:
+            algo, params0 = source["algo"], source["params0"]
+        n = math.prod(mesh_spec.values())
+        ref_mesh = make_mesh(mesh_spec, [device] * n)
+        zero_ring_counts()
+        wrap = (on_mesh(ref_mesh) if not shard_time else
+                (lambda u, m=ref_mesh: make_sharded_update(u, m, None, shard_time=True)))
+        side, _, flash, steps, update = one_update(algo, params0, batch, device, wrap,
+                                                   idx_sets=idx)
+        ref_counts = flash + ring_counts()
+        ref_ms = None
+        if timed:
+            from relayrl_tpu_torch.parallel import place_state
+
+            state, _, _ = update_parts(algo, algo.policy, copy.deepcopy(params0))
+            ref_ms, _ = update_ms(update, place_state(state, ref_mesh), batch, device)
+        cases[name] = {"arch": arch, "mesh": mesh_spec, "batch": batch, "timed": timed,
+                       "shard_time": shard_time, "params0": _digest(params_to_jax(params0)),
+                       "algorithm": algorithm, "hp": hp, "idx_sets": idx}
+        refs[name] = (side, ref_counts, params0, steps, ref_ms)
+    torch.save({"ranks": ranks_n, "cases": cases}, workdir / "cases.pt")
+    port = _free_port()
+    cards = torch.cuda.device_count() >= ranks_n
+    envs = [mh_rank_env(r, port, cards, ranks_n) for r in range(ranks_n)]
+    t0 = time.perf_counter()
+    run_ranks(root, workdir, lambda r: ["--mh-subgrid-rank", r, port, workdir], envs)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(ranks_n)]
+    backends = {r["backend"] for r in ranks}
+    want_backend = "nccl" if cards else "gloo"
+    if backends != {want_backend}:
+        raise AssertionError(f"phase 28: backends {backends}; the rule says {want_backend}")
+    out = {"wall": wall, "backend": want_backend, "cards": [r["card"] for r in ranks],
+           "cases": {}}
+    H = SLICE_ARCH["n_heads"]
+    # The ring hops its chunks zero-padded to a kernel head dim.
+    D = min(d for d in KERNEL_HEAD_DIMS if d >= SLICE_ARCH["d_model"] // H)
+    for name, (ref_side, ref_counts, params0, steps, ref_ms) in refs.items():
+        rs = [r["cases"][name] for r in ranks]
+        mesh_spec = cases[name]["mesh"]
+        what = f"phase 28 {name} under {mesh_spec} across {ranks_n} ranks"
+        for i in range(len(rs[0]["updates"])):
+            if len({r["updates"][i]["digest"] for r in rs}) != 1 \
+                    or len({str(r["updates"][i]["metrics"]) for r in rs}) != 1:
+                raise AssertionError(f"{what}, update {i + 1}: the ranks' params or "
+                                     "metrics differ")
+        if not all(r["straddles"] for r in rs):
+            raise AssertionError(f"{what}: a rank's mesh does not straddle")
+        accounted = sorted(c for r in rs for c in r["accountable"])
+        cells = mesh_spec["dp"] * mesh_spec.get("fsdp", 1)
+        if accounted != list(range(cells)):
+            raise AssertionError(f"{what}: the ranks account for cells {accounted}")
+        counts = [[u["counts"] for u in r["updates"]] for r in rs]
+        hops = []
+        if cases[name]["algorithm"] == "PPO":
+            # Each minibatch's rows grouped by data cell: every rank that
+            # holds a cell counts its rows alike (what its ring hops and
+            # gathers); each rank launched the ring's kernels.
+            idx = cases[name]["idx_sets"]
+            for k in range(len(idx)):
+                per_cell = {}
+                for rank, r in enumerate(rs):
+                    for cell, n_rows in zip(r["cells"], r["fed"][k]):
+                        if per_cell.setdefault(cell, n_rows) != n_rows:
+                            raise AssertionError(f"{what}: minibatch {k}, cell {cell}: "
+                                                 f"rank {rank} holds {n_rows} rows, "
+                                                 f"another {per_cell[cell]}")
+                if sum(per_cell.values()) != idx.shape[1]:
+                    raise AssertionError(f"{what}: minibatch {k} fed {per_cell}")
+            if any(min(c[0][3:]) == 0 for c in counts):
+                raise AssertionError(f"{what}: launches per rank {counts}")
+            hops = [tuple(r["updates"][0]["ring"][k] for k in ("hops", "hop_bytes", "leads"))
+                    for r in rs]
+        elif "sp" in mesh_spec:
+            n_sp = mesh_spec["sp"]
+            C = LEARNER["bucket_lengths"][0] // n_sp
+            B = len(batch["valid"]) // mesh_spec["dp"]
+            line_hops = ring_hop_bytes(B, C, H, D, n_sp, n_layers, evaluates)
+            for rank, r in enumerate(rs):
+                pairs = sum(ring_pairs(shards) for shards in r["shards"])
+                expected = (0, 0, 0, evaluates * n_layers * pairs, n_layers * pairs,
+                            n_layers * pairs)
+                if any(c != expected for c in counts[rank]):
+                    raise AssertionError(f"{what}: rank {rank} (shards {r['shards']}) "
+                                         f"launches {counts[rank]}; expected {expected}")
+                crossing = sum(r["crossing"])
+                ring = r["updates"][0]["ring"]
+                want = (crossing * line_hops[0], crossing * line_hops[1],
+                        crossing * n_layers)
+                got = (ring["hops"], ring["hop_bytes"], ring["leads"])
+                if got != want:
+                    raise AssertionError(f"{what}: rank {rank} hops, bytes, lead "
+                                         f"broadcasts {got}; expected {want}")
+                hops.append(got)
+            total = tuple(sum(c[0][i] for c in counts) for i in range(6))
+            if total != ref_counts:
+                raise AssertionError(f"{what}: the ranks' launches {total}; one process "
+                                     f"{ref_counts}")
+        else:
+            expected = (n_layers * evaluates, n_layers, n_layers)
+            if any(c[:3] != expected for cs in counts for c in cs) or \
+                    ref_counts[:3] != expected:
+                raise AssertionError(f"{what}: launches per rank per update {counts}, one "
+                                     f"process {ref_counts}; expected {expected}")
+            for rank, r in enumerate(rs):
+                comm = r["updates"][0]["comm"]
+                if comm["gathers"] or comm["scatters"] or r["holdings"]["block_bytes"] \
+                        != r["holdings"]["whole_bytes"]:
+                    raise AssertionError(f"{what}: rank {rank} gathers {comm['gathers']}, "
+                                         f"reduce-scatters {comm['scatters']}, holds "
+                                         f"{r['holdings']}")
+        got = ({k: v.to(device) for k, v in rs[0]["updates"][0]["params"].items()},
+               rs[0]["updates"][0]["metrics"])
+        held = hold_update(got, ref_side, params0, steps, f"{what} vs one process")
+        held["bit_equal"] = (all(torch.equal(got[0][k], v) for k, v in ref_side[0].items())
+                             and got[1] == ref_side[1])
+        out["cases"][name] = {
+            **held, "mesh": mesh_spec, "cells": [r["cells"] for r in rs],
+            "fed": [r["fed"] for r in rs],
+            "accountable": [r["accountable"] for r in rs],
+            "shards": [r["shards"] for r in rs],
+            "counts": [c[0] for c in counts], "ref_counts": ref_counts, "hops": hops,
+            "launches": tuple(sum(c[i] for cs in counts for c in cs) + ref_counts[i]
+                              for i in range(6)),
+            "first_ms": [r["updates"][0]["ms"] for r in rs],
+            "ms": ([sum(u["ms"] for u in r["updates"][1:]) / (len(r["updates"]) - 1)
+                    for r in rs] if len(rs[0]["updates"]) > 1 else None),
+            "ref_ms": ref_ms,
+            "comm": [r["updates"][0]["comm"] for r in rs],
+            "ring": [r["updates"][0]["ring"] for r in rs],
+            "allreduce": [r["updates"][0]["allreduce"] for r in rs],
+            "holdings": [r["holdings"] for r in rs],
+            "digest": rs[0]["updates"][-1]["digest"][:16]}
+    return out
+
+
+def print_subgrid(result: dict, ranks_n: int, card: str) -> None:
+    """Phase 28 (a), (b) or (d)'s lines."""
+    for name, r in result["cases"].items():
+        held = (f"{'bit-equal to it' if r['bit_equal'] else 'not bit-equal to it'}: max "
+                f"metric diff {r['metric_err']:.3e}, max param diff {r['param_err']:.3e}, "
+                f"mean {r['mean_diff_share']:.4f} of the movement (phase 5's bars)")
+        print(f"[mh-subgrid] {name} under {r['mesh']} across {ranks_n} ranks of "
+              f"{MHG_ENTRIES} entries ({result['backend']}, {', '.join(result['cards'])}): "
+              f"cells {r['cells']}, accounting for {r['accountable']}"
+              + (f", sp shards by line {r['shards']}" if r["shards"][0] else "")
+              + (f", each minibatch's rows by cell per rank {r['fed']} (a PPO update, "
+                 f"{len(r['fed'][0])} minibatches)" if r["fed"][0] else "")
+              + f"; {MHG_ROWS}-row batch broadcast bit-equal; ranks' params sha256 "
+              f"{r['digest']}... equal after every update; launches per rank per update "
+              f"{[c[:3] if name == 'flash' else c[3:] for c in r['counts']]}, one process "
+              f"{r['ref_counts'][:3] if name == 'flash' else r['ref_counts'][3:]}; vs one "
+              f"process's {r['mesh']} update {held}", flush=True)
+        for rank, (h, comm, rc, ar) in enumerate(zip(r["holdings"], r["comm"], r["ring"],
+                                                     r["allreduce"])):
+            print(f"[mh-subgrid] {name} rank {rank}: holds {h['param_bytes']} parameter "
+                  f"and {h['moment_bytes']} moment bytes, its blocks' (the whole "
+                  f"{h['whole_bytes']}; {h['split']} split leaves); first update "
+                  f"{comm['gathers']} gathers ({comm['gather_bytes']} bytes, "
+                  f"{1e3 * comm['gather_seconds']:.2f} ms), {comm['scatters']} "
+                  f"reduce-scatters ({comm['scatter_bytes']} bytes, "
+                  f"{1e3 * comm['scatter_seconds']:.2f} ms), {ar['calls']} data-group "
+                  f"all-reduces ({ar['bytes']} bytes, {1e3 * ar['s']:.2f} ms, synced), "
+                  f"{rc['hops']} hops ({rc['hop_bytes']} bytes, "
+                  f"{1e3 * rc['hop_seconds']:.2f} ms), {rc['gathers']} ring gathers "
+                  f"({rc['gather_bytes']} bytes, {1e3 * rc['gather_seconds']:.2f} ms), "
+                  f"{rc['leads']} lead broadcasts ({rc['lead_bytes']} bytes, "
+                  f"{1e3 * rc['lead_seconds']:.2f} ms) (host clock); first update "
+                  f"{r['first_ms'][rank]:.2f} ms"
+                  + (f", (not gated) {r['ms'][rank]:.2f} ms per update over {MHG_TIMED} "
+                     f"beside one process's {r['ref_ms']:.2f}" if r["ms"] else "")
+                  + f" on {card}", flush=True)
+
+
 ANALYSIS_TIMEOUT_S = 300
 _ANALYSIS_SCRIPT = """
 import json, sys
@@ -9653,9 +10112,40 @@ def main() -> int:
           f"gated) seconds per wave {[round(x, 2) for x in pss['seconds']]} on {card}",
           flush=True)
     print(f"[mh-pp-split] phase 27 in {time.perf_counter() - t27:.1f} s", flush=True)
+
+    print(f"[time] phase 28 at {time.perf_counter() - t_run:.1f} s", flush=True)
+    # 28. process blocks that straddle the mesh's lines: 3 entries a rank,
+    # a rank holding the cells the owners give it, line by line
+    t28 = time.perf_counter()
+    server28 = started(multiprocess_server_steps(
+        device, root, root / "build" / "chip_smoke_mh_subgrid_server", MHG_MESH,
+        MHG_SERVER_UPDATES, 0, SLICE_ARCH, MH_RANKS, MHG_ENTRIES, MHG_ROWS))
+    mg = multiprocess_subgrid(device, root, root / "build" / "chip_smoke_mh_subgrid",
+                              learned, sp)
+    print_subgrid(mg, MH_RANKS, card)
+    mg4 = multiprocess_subgrid(device, root, root / "build" / "chip_smoke_mh_subgrid4",
+                               learned, sp, MHPS_RANKS)
+    print_subgrid(mg4, MHPS_RANKS, card)
+    gs = finish(server28)
+    print(f"[mh-subgrid] (c) a {MH_RANKS}-rank TrainingServer with learner.mesh {MHG_MESH} "
+          f"({MHG_ENTRIES} entries a rank) and the flagship, fed by {MHG_ROWS} agent lanes "
+          f"(an epoch a wave): {MHG_SERVER_UPDATES} update(s), a collective checkpoint (its "
+          f"train state equal, tensor for tensor, to a single-process save of it); every "
+          f"version installed by the agent and served through K1 ({gs['agent_k1']} "
+          f"launches), each published bundle sha256-equal to both ranks' gathered params; "
+          f"ranks at version {gs['version']} (sha256 {gs['digest']}...); launches per rank "
+          f"{gs['counts']}; {gs['sent']} trajectories sent = accepted = trained; (not gated) "
+          f"seconds per wave {[round(x, 2) for x in gs['seconds']]} on {card}", flush=True)
+    print(f"[mh-subgrid] phase 28 in {time.perf_counter() - t28:.1f} s", flush=True)
+    mhg_fwd, mhg_dq, mhg_dkv = (
+        mg["cases"]["flash"]["launches"][i] + sum(c[i] for part in gs["counts"] for c in part)
+        for i in range(3))
+    mhg_fwd += gs["agent_k1"]
+    mhg_ring = tuple(mg["cases"]["ring"]["launches"][i] + mg["cases"]["ring_ppo"]["launches"][i]
+                     + mg4["cases"]["ring4"]["launches"][i] for i in range(3, 6))
     print(f"[time] rank chains: ranks ready (CUDA context and kernels) in "
           f"{RANK_CHAIN.ready_seconds()} and {RANK_CHAIN4.ready_seconds()} s of their own, "
-          f"the jobs of phases 22-27 in "
+          f"the jobs of phases 22-28 in "
           + ", ".join(f"{flag} {sec:.1f} s" for flag, sec in
                       RANK_CHAIN.job_seconds + RANK_CHAIN4.job_seconds)
           + f"; chaos_server starts to a first status {SERVER_UP_S} s", flush=True)
@@ -9674,7 +10164,7 @@ def main() -> int:
         "launches": (run["launches"] + fwd + r_fwd + decode["launches"] + a_fwd + d_fwd
                      + ga_fwd + g_fwd + fa_fwd + f_fwd + p_fwd + fam_fwd + anakin_fwd
                      + serving_fwd + s_fwd + rlhf_gen + rlhf_learn + traced_fwd + mesh_fwd
-                     + mh_fwd + mhs_fwd + mhp_fwd + mhps_fwd),
+                     + mh_fwd + mhs_fwd + mhp_fwd + mhps_fwd + mhg_fwd),
         "launches_by_path": {"serving": run["launches"], "learner": fwd, "local_loop": r_fwd,
                              "decode_vs_window": decode["launches"],
                              "distributed_agent": a_fwd, "distributed_server": d_fwd,
@@ -9698,7 +10188,8 @@ def main() -> int:
                              "profiled_update": pu["counts"][0],
                              "mesh_learner": mesh_fwd, "multiprocess_learner": mh_fwd,
                              "multiprocess_split": mhs_fwd, "multiprocess_pp": mhp_fwd,
-                             "multiprocess_pp_split": mhps_fwd},
+                             "multiprocess_pp_split": mhps_fwd,
+                             "multiprocess_subgrid": mhg_fwd},
         **main_flash,
     }, {
         "name": "flash_dq",
@@ -9706,7 +10197,8 @@ def main() -> int:
         "source": "relayrl_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "relayrl_tpu/ops/flash.py:223",
         "launches": (dq + r_dq + d_dq + g_dq + f_dq + p_dq + m_dq + pp_dq + a_ddq + s_dq
-                     + rlhf_learn + traced_dq + mesh_dq + mh_dq + mhs_dq + mhp_dq + mhps_dq),
+                     + rlhf_learn + traced_dq + mesh_dq + mh_dq + mhs_dq + mhp_dq + mhps_dq
+                     + mhg_dq),
         "launches_by_path": {"learner": dq, "local_loop": r_dq, "distributed_server": d_dq,
                              "guardrails_server": g_dq, "fleet_server": f_dq,
                              "ppo_learner": p_dq, "offpolicy": off_counts[1],
@@ -9716,7 +10208,8 @@ def main() -> int:
                              "traced_fleet_server": t_dq, "traced_rlhf": trl["launches"][1],
                              "profiled_update": pu["counts"][1], "mesh_learner": mesh_dq,
                              "multiprocess_learner": mh_dq, "multiprocess_split": mhs_dq,
-                             "multiprocess_pp": mhp_dq, "multiprocess_pp_split": mhps_dq},
+                             "multiprocess_pp": mhp_dq, "multiprocess_pp_split": mhps_dq,
+                             "multiprocess_subgrid": mhg_dq},
         **main_bwd["flash_dq"],
     }, {
         "name": "flash_dkv",
@@ -9725,7 +10218,7 @@ def main() -> int:
         "replaces": "relayrl_tpu/ops/flash.py:255",
         "launches": (dkv + r_dkv + d_dkv + g_dkv + f_dkv + p_dkv + m_dkv + pp_dkv + a_ddkv
                      + s_dkv + rlhf_learn + traced_dkv + mesh_dkv + mh_dkv + mhs_dkv
-                     + mhp_dkv + mhps_dkv),
+                     + mhp_dkv + mhps_dkv + mhg_dkv),
         "launches_by_path": {"learner": dkv, "local_loop": r_dkv,
                              "distributed_server": d_dkv, "guardrails_server": g_dkv,
                              "fleet_server": f_dkv, "ppo_learner": p_dkv,
@@ -9736,24 +10229,26 @@ def main() -> int:
                              "traced_fleet_server": t_dkv, "traced_rlhf": trl["launches"][2],
                              "profiled_update": pu["counts"][2], "mesh_learner": mesh_dkv,
                              "multiprocess_learner": mh_dkv, "multiprocess_split": mhs_dkv,
-                             "multiprocess_pp": mhp_dkv, "multiprocess_pp_split": mhps_dkv},
+                             "multiprocess_pp": mhp_dkv, "multiprocess_pp_split": mhps_dkv,
+                             "multiprocess_subgrid": mhg_dkv},
         **main_bwd["flash_dkv"],
     }] + [{
         "name": name,
         "route": "cuda",
         "source": "relayrl_tpu_torch/csrc/ring_flash.cu",
         "replaces": replaces,
-        "launches": sp_launches + mp_ring,
+        "launches": sp_launches + mp_ring + mp_subgrid,
         "launches_by_path": {"sp_learner": sp_launches, "offpolicy": off, "pixel": pix,
-                             "multiprocess_ring": mp_ring},
+                             "multiprocess_ring": mp_ring,
+                             "multiprocess_subgrid": mp_subgrid},
         **main_ring[name],
-    } for name, replaces, sp_launches, off, pix, mp_ring in (
+    } for name, replaces, sp_launches, off, pix, mp_ring, mp_subgrid in (
         ("ring_chunk_fwd", "relayrl_tpu/parallel/ring_flash.py:86", ring_fwd, off_counts[3],
-         pix_counts[3], mhr[0]),
+         pix_counts[3], mhr[0], mhg_ring[0]),
         ("ring_chunk_dq", "relayrl_tpu/parallel/ring_flash.py:119", ring_dq, off_counts[4],
-         pix_counts[4], mhr[1]),
+         pix_counts[4], mhr[1], mhg_ring[1]),
         ("ring_chunk_dkv", "relayrl_tpu/parallel/ring_flash.py:147", ring_dkv,
-         off_counts[5], pix_counts[5], mhr[2]))]
+         off_counts[5], pix_counts[5], mhr[2], mhg_ring[2]))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -9798,6 +10293,8 @@ if __name__ == "__main__":
         sys.exit(mh_split_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     if sys.argv[1:2] == ["--mh-pp-rank"]:
         sys.exit(mh_pp_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
+    if sys.argv[1:2] == ["--mh-subgrid-rank"]:
+        sys.exit(mh_subgrid_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     if sys.argv[1:2] == ["--nccl-shared-card-probe"]:
         sys.exit(nccl_shared_card_probe(int(sys.argv[2]), int(sys.argv[3])))
     if sys.argv[1:2] in (["--recall-sweep"], ["--moe-golden-sweep"]):

@@ -42,9 +42,10 @@ from relayrl_tpu_torch.ops import gae_advantages, masked_mean_std, normalize_adv
 from relayrl_tpu_torch.parallel.context import (
     dp_global_rows,
     dp_gradients,
-    dp_row_range,
+    dp_minibatch,
     dp_size,
     dp_sum,
+    use_cell_rows,
 )
 
 
@@ -148,13 +149,15 @@ def make_ppo_update(policy, clip_ratio: float, ent_coef: float,
         adv = normalize_advantages(adv, valid)
 
         counts = None
+        cells = [None] * len(idx_sets)
         if dp_size() > 1:
             # idx_sets index the global batch's rows: this process keeps
-            # the ones it holds (maybe none), and each minibatch's count is
+            # the ones it holds (maybe none), grouped by data cell so that
+            # a ring gets its cell's rows, and each minibatch's count is
             # the global one.
-            start, stop_row = dp_row_range(dp_global_rows(valid.shape[0]))
-            idx_sets = [(idx[(idx >= start) & (idx < stop_row)] - start).to(valid.device)
-                        for idx in idx_sets.cpu()]
+            global_rows = dp_global_rows(valid.shape[0])
+            idx_sets, cells = zip(*(dp_minibatch(idx, global_rows) for idx in idx_sets.cpu()))
+            idx_sets = [idx.to(valid.device) for idx in idx_sets]
             counts, = dp_sum(torch.stack([valid.index_select(0, idx).sum()
                                           for idx in idx_sets]))
         else:
@@ -172,7 +175,7 @@ def make_ppo_update(policy, clip_ratio: float, ent_coef: float,
                 _step_partitions(state.pi_opt, state.vf_opt, None, stop)
                 pi_loss = v_loss = entropy = approx_kl = clip_frac = n * 0
             else:
-                with torch.enable_grad():
+                with torch.enable_grad(), use_cell_rows(cells[i]):
                     logp, ent, v = policy.evaluate(params, o, a, m)
                     ratio = torch.exp(logp - lp_old)
                     clipped = torch.clamp(ratio, 1.0 - clip_ratio, 1.0 + clip_ratio)

@@ -31,7 +31,14 @@ A bucketed gather's reduce-scatter waits for the autograd engine and runs
 inside :func:`dp_gradients`, in the forward's order
 (:func:`defer_scatter`): beside a pipeline across processes each rank
 then meets its hops, its reduce-scatters and its data group's sums in
-that order, whatever order the engine took.
+that order, whatever order the engine took. Where process blocks
+straddle the mesh's lines the data group is every process and a
+process's rows may overlap another's (those it does not account for
+carry a zero ``valid`` mask); a minibatch then keeps its rows grouped by
+data cell (:func:`dp_minibatch`), and the forward reads each cell's
+count (:func:`cell_rows`) to hand a ring its cell's rows, so every
+process that holds a cell feeds its ring the same rows in the same
+order.
 
 A layer whose work splits over an ``ep`` or ``tp`` axis that crosses
 processes (the MoE's expert groups, the tp MLP pair) runs its part of the
@@ -85,6 +92,25 @@ def use_dp_group(group):
         _state.dp_group = prev
 
 
+def cell_rows() -> tuple[int, ...] | None:
+    """How many rows each of this process's data cells has in the running
+    forward, in cell order (:func:`use_cell_rows`); None: the rows split
+    evenly over them."""
+    return getattr(_state, "cell_rows", None)
+
+
+@contextlib.contextmanager
+def use_cell_rows(rows):
+    """Run a forward over rows grouped by data cell, ``rows`` of each
+    (:func:`dp_minibatch`; None: an even split)."""
+    prev = cell_rows()
+    _state.cell_rows = None if rows is None else tuple(int(r) for r in rows)
+    try:
+        yield
+    finally:
+        _state.cell_rows = prev
+
+
 def dp_size() -> int:
     group = current_dp_group()
     return 1 if group is None else group.size
@@ -109,11 +135,14 @@ def dp_sum(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
 
 def dp_mean(x: torch.Tensor) -> torch.Tensor:
     """This process's share of the global batch's mean of ``x`` (its rows'
-    mean over the group's size; ``x.mean()`` without a group): summed over
-    the group (:func:`dp_sum`, or through :func:`dp_gradients`) it is the
-    mean over every process's rows."""
+    mean times its share of the data cells; ``x.mean()`` without a
+    group): summed over the group (:func:`dp_sum`, or through
+    :func:`dp_gradients`) it is the mean over every process's rows."""
     group = current_dp_group()
-    return x.mean() if group is None else x.mean() / group.size
+    if group is None:
+        return x.mean()
+    _, count, total = _cells(group)
+    return x.mean() / (total / count)
 
 
 def hold_for_backward(leaf: torch.Tensor) -> None:
@@ -322,20 +351,43 @@ def leave_split(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _LeaveSplit.apply(x, group)
 
 
+def _cells(group) -> tuple[int, int, int]:
+    """``group``'s :attr:`~relayrl_tpu_torch.parallel.distributed.
+    DataParallelGroup.cells`: ``(first, count, total)``."""
+    if group is None:
+        return 0, 1, 1
+    cells = getattr(group, "cells", None)
+    return (group.rank, 1, group.size) if cells is None else cells
+
+
 def dp_global_rows(local_rows: int) -> int:
     """The global batch's rows, from this process's (the batch splits
-    evenly over the group)."""
-    return local_rows * dp_size()
+    evenly over the data cells)."""
+    _, count, total = _cells(current_dp_group())
+    return local_rows // count * total
 
 
 def dp_row_range(global_rows: int) -> tuple[int, int]:
-    """This process's rows of a global batch: ``[start, stop)``, its
-    contiguous block (dp coordinates go to processes in blocks)."""
-    group = current_dp_group()
-    if group is None:
-        return 0, global_rows
-    per = global_rows // group.size
-    return group.rank * per, (group.rank + 1) * per
+    """This process's rows of a global batch: ``[start, stop)``, the rows
+    of its data cells (contiguous: its entries are)."""
+    first, count, total = _cells(current_dp_group())
+    per = global_rows // total
+    return first * per, (first + count) * per
+
+
+def dp_minibatch(idx: torch.Tensor, global_rows: int) -> tuple[torch.Tensor, list[int]]:
+    """This process's part of a minibatch drawn over the global batch's
+    ``global_rows`` (``idx``, global row indices in the minibatch's order):
+    the local indices of the rows it holds, grouped by data cell in cell
+    order and in the minibatch's order within each cell (so every process
+    that holds a cell sees its rows alike), and each of its cells' count
+    of them (for :func:`use_cell_rows`)."""
+    first, count, total = _cells(current_dp_group())
+    per = global_rows // total
+    idx = idx[(idx >= first * per) & (idx < (first + count) * per)] - first * per
+    cell = torch.div(idx, per, rounding_mode="floor")
+    order = torch.sort(cell, stable=True).indices
+    return idx[order], torch.bincount(cell, minlength=count).tolist()
 
 
 def dp_rows(x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,9 @@ pipeline), over which activations and their gradients hop between stages,
 the pipeline's output and the feed's gradient are broadcast, and a
 stage's parameters and moments are read from their owner
 (:mod:`relayrl_tpu_torch.parallel.pipeline`, :meth:`AxisGroup.broadcast`).
+A rank whose block straddles an axis's lines sits in one group per line
+(:func:`axis_group`'s ``line``); its data group is every rank
+(:func:`data_parallel_group`).
 
 Resolution order for each knob: explicit argument > environment variable
 (``RELAYRL_COORDINATOR`` / ``RELAYRL_NUM_PROCESSES`` /
@@ -343,11 +346,19 @@ def form_axis_groups(mesh) -> None:
                                     timeout=datetime.timedelta(seconds=TIMEOUT_S)))
 
 
-def axis_group(mesh, axis):
+def axis_group(mesh, axis, line=None):
     """This process's group over ``axis`` of ``mesh`` (a name, or a tuple
-    of names for their plane; formed by :func:`form_axis_groups`), None
-    when the axis stays in this process."""
-    ranks = mesh.axis_ranks(axis)
+    of names for their plane; formed by :func:`form_axis_groups`) on
+    ``line`` (a :meth:`~relayrl_tpu_torch.parallel.mesh.Mesh.lines` entry:
+    a rank whose block straddles the axis's lines has one group per line;
+    default: the line through its home coordinates), None when the line
+    stays in this process."""
+    return _process_group(mesh.axis_ranks(axis, line), axis)
+
+
+def _process_group(ranks: tuple[int, ...], axis):
+    """The process group of ``ranks`` (formed by :func:`form_axis_groups`
+    as a group over ``axis``), None for one rank."""
     if len(ranks) == 1:
         return None
     if _runtime is not None and len(ranks) == _runtime.world:
@@ -506,22 +517,29 @@ class DataParallelGroup(AxisGroup):
     (:mod:`relayrl_tpu_torch.parallel.context`): ``rank`` is this
     process's block of the batch, ``size`` the number of blocks. ``dp``
     is the group over the dp axis alone (None when dp does not cross):
-    the sum of a gradient whose fsdp gather summed it over fsdp already."""
+    the sum of a gradient whose fsdp gather summed it over fsdp already.
+    ``cells`` is ``(first, count, total)``: this process's data cells
+    ``[first, first + count)`` of ``total`` (None: one a member, in group
+    order). Where process blocks straddle the mesh's lines the group is
+    every process and a process's cells can overlap another's (its rows
+    of those it does not account for carry a zero ``valid`` mask)."""
 
     dp: "DataParallelGroup | None" = None
+    cells: tuple[int, int, int] | None = None
 
 
-def axis_comm(mesh, axis, cls=AxisGroup) -> AxisGroup | None:
+def axis_comm(mesh, axis, cls=AxisGroup, line=None) -> AxisGroup | None:
     """This process's :class:`AxisGroup` (or ``cls``) over ``axis`` of
-    ``mesh`` (a name or a tuple of names), None when the axis stays in
-    this process."""
-    ranks = mesh.axis_ranks(axis)
+    ``mesh`` (a name or a tuple of names) on ``line`` (default: through
+    its home coordinates; see :func:`axis_group`), None when the line
+    stays in this process."""
+    ranks = mesh.axis_ranks(axis, line)
     if len(ranks) == 1:
         return None
     if _runtime is None:
         raise RuntimeError("initialize_distributed has not started a "
                            "multi-process group")
-    return cls(ranks.index(_runtime.rank), len(ranks), axis_group(mesh, axis), ranks)
+    return cls(ranks.index(_runtime.rank), len(ranks), axis_group(mesh, axis, line), ranks)
 
 
 def data_parallel_group(mesh) -> DataParallelGroup | None:
@@ -530,11 +548,22 @@ def data_parallel_group(mesh) -> DataParallelGroup | None:
     fsdp coordinate of ``mesh`` (both consume batch). None when neither
     crosses processes (e.g. ``{"dp": 1, "sp": 8}`` or ``{"dp": 1, "ep":
     2}``: every rank holds every row and the same gradients, with no
-    sum)."""
+    sum). Where process blocks straddle the mesh's lines, every process
+    (:attr:`~relayrl_tpu_torch.parallel.mesh.Mesh.data_ranks`). Its
+    :attr:`DataParallelGroup.cells` are this process's data cells; each
+    cell's rows count once, on the process that accounts for them."""
     if _runtime is None:
         raise RuntimeError("initialize_distributed has not started a "
                            "multi-process group")
-    group = axis_comm(mesh, ("dp", "fsdp"), DataParallelGroup)
-    if group is not None and "fsdp" in mesh.cross_axes:
+    ranks = mesh.data_ranks
+    if len(ranks) == 1:
+        return None
+    group = DataParallelGroup(ranks.index(_runtime.rank), len(ranks),
+                              _process_group(ranks, ("dp", "fsdp")), ranks)
+    cells = mesh.cells
+    group.cells = (cells[0], len(cells), mesh.shape["dp"] * mesh.shape["fsdp"])
+    if "fsdp" in mesh.cross_axes and not mesh.straddles:
+        # Straddling blocks hold every fsdp block (sharding._held_blocks):
+        # no gather sums over fsdp there.
         group.dp = axis_comm(mesh, "dp", DataParallelGroup)
     return group

@@ -69,13 +69,20 @@ its stage and its shards of the ends, the stage's gradients sum over the
 data group at its pp coordinate, the ends' reduce-scatter over its fsdp
 group (after the hops, :func:`~relayrl_tpu_torch.parallel.context.
 dp_gradients`). A crossing ep, tp or sp axis beside it splits no leaf of
-the pipeline family: its ranks hold and compute replicas.
+the pipeline family: its ranks hold and compute replicas. Where process
+blocks straddle the mesh's lines (``{"dp": 3, "sp": 2}`` over 2
+processes of 3), each process keeps the rows of every data cell it holds
+an entry of, and a cell two processes of one data group share counts on
+its lowest holder only (the other computes it with a zero ``valid``
+mask, :attr:`~relayrl_tpu_torch.parallel.mesh.Mesh.accountable_cells`);
+the data group is then every process.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn.utils import parametrize
@@ -301,7 +308,9 @@ def place_batch(batch: dict, mesh: Mesh, shard_time: bool = False) -> dict:
     mesh over several processes ``batch`` is the whole batch and this
     process keeps the rows (dim 0) of its dp x fsdp cells
     (:attr:`Mesh.data_block`): all of them when neither dp nor fsdp
-    crosses processes."""
+    crosses processes. The rows of a cell that another process of its
+    data group accounts for (where process blocks straddle the mesh's
+    lines) keep a zero ``valid`` mask (:func:`_account`)."""
     _check_splits(mesh, batch, batch_shardings(mesh, batch, shard_time))
     if mesh.process_count > 1:
         rows = {len(v) for v in batch.values()}
@@ -309,9 +318,31 @@ def place_batch(batch: dict, mesh: Mesh, shard_time: bool = False) -> dict:
             raise ValueError(f"batch arrays disagree on their rows: {sorted(rows)}")
         per = rows.pop() // (mesh.shape["dp"] * mesh.shape["fsdp"])
         start, stop = mesh.data_block
-        batch = {k: v[start * per:stop * per] for k, v in batch.items()}
+        batch = _account({k: v[start * per:stop * per] for k, v in batch.items()},
+                         mesh, start, per)
     return {k: torch.as_tensor(v, device=mesh.first_device)
             for k, v in batch.items()}
+
+
+def _account(batch: dict, mesh: Mesh, start: int, per: int) -> dict:
+    """This process's rows (its cells from ``start``, ``per`` rows a cell)
+    with the ``valid`` mask zeroed on the cells it holds but does not
+    account for (:attr:`Mesh.accountable_cells`): it computes them, as
+    another process's partner on their lines, but their losses and
+    statistics count on that process. An update that reads no ``valid``
+    mask cannot hold a cell two processes share."""
+    others = sorted(set(mesh.cells) - set(mesh.accountable_cells))
+    if not others:
+        return batch
+    if "valid" not in batch:
+        raise ValueError(f"mesh {mesh.shape}: rank {mesh.process_index} shares data cells "
+                         f"{others} with another process, and a batch without a 'valid' "
+                         "mask cannot count their rows once")
+    valid = batch["valid"]
+    valid = valid.clone() if torch.is_tensor(valid) else np.array(valid, copy=True)
+    for cell in others:
+        valid[(cell - start) * per:(cell - start + 1) * per] = 0
+    return {**batch, "valid": valid}
 
 
 def _is_moment(value) -> bool:

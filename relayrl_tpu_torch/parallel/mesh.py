@@ -46,9 +46,28 @@ over 4 processes of 1 gives the pp groups (0, 1) and (2, 3), one per fsdp
 coordinate, and the fsdp groups (0, 2) and (1, 3), one per pp coordinate;
 each rank holds one stage and half of every split parameter outside the
 stack, its pipeline hops within its pp group and its gathers within its
-fsdp group. Every process's block must be a sub-grid of the mesh
-(:func:`make_mesh`; else :class:`CrossProcessAxisError`, ROADMAP.md queue
-1 item 11).
+fsdp group.
+
+A process's block need not be a sub-grid of the mesh: ``{"dp": 3, "sp":
+2}`` over 2 processes of 3 gives rank 0 dp 0 whole and sp 0 of dp 1, rank
+1 sp 1 of dp 1 and dp 2 whole, so the two ranks hold different lines of
+the sp axis (:attr:`Mesh.straddles`). A rank then holds exactly the cells
+that :attr:`Mesh.owners` gives it, line by line (:meth:`Mesh.lines`, a
+per-line :meth:`Mesh.shard_indices` and :meth:`Mesh.axis_ranks`), and
+keeps the rows of every data cell it touches (:attr:`Mesh.cells`), which
+can be another rank's too. Its data group is then every rank
+(:attr:`Mesh.data_ranks`): each data cell's rows count once, for its
+lowest holder (:attr:`Mesh.accountable_cells`), and every other holder
+computes them with their ``valid`` mask zeroed (:func:`~relayrl_tpu_torch.
+parallel.learner.place_batch`). A ring runs one span per data cell,
+hopping on the lines that cross, and a minibatch's rows go to their
+cells' spans (:func:`~relayrl_tpu_torch.parallel.ring.over_spans`). Two
+layouts stay refused (:class:`CrossProcessAxisError`, ROADMAP.md queue
+1): a straddled pipeline axis, and a split parameter that a rank would
+hold only in part while its entries straddle the split axis's lines
+(``{"dp": 1, "fsdp": 2, "tp": 3}`` over 3 processes of 2 builds, and
+placing a model with a leaf split over fsdp or tp raises on every rank;
+:mod:`~relayrl_tpu_torch.parallel.sharding`).
 
 Config form (``learner.mesh``): ``{"dp": -1, "fsdp": 1, "ep": 1, "tp": 1,
 "sp": 1, "pp": 1}`` where -1 means "fill with the remaining devices".
@@ -56,6 +75,7 @@ Config form (``learner.mesh``): ``{"dp": -1, "fsdp": 1, "ep": 1, "tp": 1,
 
 from __future__ import annotations
 
+import itertools
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -69,8 +89,9 @@ CROSS_PROCESS_AXES = ("dp", "fsdp", "ep", "tp", "sp", "pp")
 
 
 class CrossProcessAxisError(ValueError):
-    """A process's block of devices is not a sub-grid of the mesh
-    (ROADMAP.md queue 1 item 11)."""
+    """A process's block of devices straddles the lines of a pipeline
+    axis that crosses processes, or would hold a split parameter in part
+    across such lines (ROADMAP.md queue 1)."""
 
 
 class Mesh:
@@ -81,12 +102,14 @@ class Mesh:
     with one dimension per axis. A mesh over ``process_count`` processes
     holds this process's (``process_index``) devices where ``owners``, the
     int array of each coordinate's rank, says it owns them, and None
-    elsewhere."""
+    elsewhere; ``straddles`` says that some process's block is not a
+    sub-grid (the module docstring)."""
 
     axis_names = AXES
 
     def __init__(self, devices: np.ndarray, process_count: int = 1,
-                 process_index: int = 0, owners: np.ndarray | None = None):
+                 process_index: int = 0, owners: np.ndarray | None = None,
+                 straddles: bool = False):
         if devices.ndim != len(AXES):
             raise ValueError(f"device array of rank {devices.ndim} for axes {AXES}")
         self.devices = devices
@@ -94,6 +117,9 @@ class Mesh:
         self.process_count, self.process_index = process_count, process_index
         self.owners = (np.full(devices.shape, process_index) if owners is None
                        else owners)
+        self.straddles = straddles
+        # The mesh this one is a process's sub-mesh of (:attr:`local`).
+        self.parent = self
 
     def owner(self, **coords: int) -> int:
         """The rank that owns the coordinate (an axis not given at 0)."""
@@ -111,12 +137,35 @@ class Mesh:
         return tuple(int(i) for i in np.unravel_index(
             int(np.argmax(self.owners == self.process_index)), self.owners.shape))
 
-    def axis_owners(self, axis: str) -> np.ndarray:
-        """The owning rank of each coordinate along ``axis`` through
+    def _line_index(self, axis, line: tuple | None = None) -> tuple:
+        """The index of one line along ``axis`` (a name or a tuple of
+        names): ``line`` (a :meth:`lines` entry), else the line through
         :attr:`home`."""
-        index = list(self.home)
-        index[AXES.index(axis)] = slice(None)
-        return self.owners[tuple(index)]
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        base = self.home if line is None else line
+        return tuple(slice(None) if ax in axes else int(c) for ax, c in zip(AXES, base))
+
+    def lines(self, axis) -> list[tuple]:
+        """The lines along ``axis`` (a name or a tuple of names) on which
+        this process holds an entry, in row-major order: each a tuple over
+        :data:`AXES`, None at ``axis`` and the other axes' coordinates
+        elsewhere. One line for a process whose block is a sub-grid that
+        ``axis`` does not leave; several where its block straddles the
+        axis's lines."""
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        others = [ax for ax in AXES if ax not in axes]
+        out = []
+        for coord in itertools.product(*(range(self.shape[ax]) for ax in others)):
+            at = dict(zip(others, coord))
+            line = tuple(None if ax in axes else at[ax] for ax in AXES)
+            if (self.owners[self._line_index(axes, line)] == self.process_index).any():
+                out.append(line)
+        return out
+
+    def axis_owners(self, axis: str, line: tuple | None = None) -> np.ndarray:
+        """The owning rank of each coordinate along ``axis`` on ``line``
+        (a :meth:`lines` entry; default: through :attr:`home`)."""
+        return self.owners[self._line_index(axis, line)]
 
     def _plane(self, axes) -> np.ndarray:
         """Owners with ``axes`` (a name or a tuple of names) last,
@@ -127,15 +176,14 @@ class Mesh:
                             range(-len(axes), 0))
         return moved.reshape(-1, int(np.prod([self.shape[a] for a in axes])))
 
-    def axis_ranks(self, axis) -> tuple[int, ...]:
+    def axis_ranks(self, axis, line: tuple | None = None) -> tuple[int, ...]:
         """The ranks along ``axis`` (a name, or a tuple of names for their
-        plane) through this process's coordinates, in coordinate order:
-        the processes of its group over that axis (its dp group differs
-        only in the dp coordinate; its sp group holds one ring; its
-        ``("dp", "fsdp")`` group shares every coordinate but those two)."""
-        axes = (axis,) if isinstance(axis, str) else tuple(axis)
-        index = tuple(slice(None) if ax in axes else h
-                      for ax, h in zip(AXES, self.home))
+        plane) on ``line`` (a :meth:`lines` entry; default: through this
+        process's home coordinates), in coordinate order: the processes
+        of its group over that axis (its dp group differs only in the dp
+        coordinate; its sp group holds one ring; its ``("dp", "fsdp")``
+        group shares every coordinate but those two)."""
+        index = self._line_index(axis, line)
         return tuple(dict.fromkeys(int(r) for r in self.owners[index].reshape(-1)))
 
     def axis_groups(self, axis) -> list[tuple[int, ...]]:
@@ -145,11 +193,13 @@ class Mesh:
         return sorted({tuple(dict.fromkeys(int(r) for r in line))
                        for line in self._plane(axis)})
 
-    def shard_indices(self, axis: str) -> list[int]:
-        """This process's coordinates along ``axis`` through :attr:`home`
-        (its global shard indices of the ``sp`` ring; all of them where
-        the axis stays in the process)."""
-        return [i for i, r in enumerate(self.axis_owners(axis)) if r == self.process_index]
+    def shard_indices(self, axis: str, line: tuple | None = None) -> list[int]:
+        """This process's coordinates along ``axis`` on ``line`` (a
+        :meth:`lines` entry; default: through :attr:`home`): its global
+        shard indices of that ``sp`` ring; all of them where the line
+        stays in the process."""
+        return [i for i, r in enumerate(self.axis_owners(axis, line))
+                if r == self.process_index]
 
     @property
     def dp_block(self) -> tuple[int, int]:
@@ -158,30 +208,64 @@ class Mesh:
         mine = np.flatnonzero((rows == self.process_index).any(axis=1))
         return int(mine[0]), int(mine[-1]) + 1
 
+    def _cells(self) -> np.ndarray:
+        return self.owners.reshape(self.shape["dp"] * self.shape["fsdp"], -1)
+
+    @property
+    def cells(self) -> list[int]:
+        """The cells of the ``(dp, fsdp)`` plane (flat, dp outermost) at
+        which this process holds an entry: the batch's blocks whose rows
+        it computes, contiguous (a process's entries are)."""
+        return [int(c) for c in np.flatnonzero((self._cells() == self.process_index)
+                                               .any(axis=1))]
+
+    @property
+    def data_ranks(self) -> tuple[int, ...]:
+        """The ranks of this process's data group, which sum its gradients
+        and statistics: those along the ``(dp, fsdp)`` plane through its
+        home coordinates, every rank where process blocks straddle the
+        mesh's lines (a rank's cells then lie on several of the plane's
+        lines)."""
+        if self.straddles:
+            return tuple(range(self.process_count))
+        return self.axis_ranks(("dp", "fsdp"))
+
+    @property
+    def accountable_cells(self) -> list[int]:
+        """Of :attr:`cells`, those whose rows count for this process: the
+        cells whose lowest holder among :attr:`data_ranks` it is. In a
+        sub-grid block that is every cell (each cell of its data group's
+        plane has one holder there); where blocks straddle lines, a cell
+        two processes share counts on the lower one."""
+        ranks = set(self.data_ranks)
+        return [c for c in self.cells
+                if min(int(r) for r in self._cells()[c] if int(r) in ranks)
+                == self.process_index]
+
     @property
     def data_block(self) -> tuple[int, int]:
-        """This process's cells of the ``(dp, fsdp)`` plane, the batch's
-        blocks (dp outermost), ``[start, stop)``: what it keeps of a
-        batch split over dp x fsdp."""
-        cells = self.owners.reshape(self.shape["dp"] * self.shape["fsdp"], -1)
-        mine = np.flatnonzero((cells == self.process_index).any(axis=1))
-        return int(mine[0]), int(mine[-1]) + 1
+        """This process's :attr:`cells`, ``[start, stop)``: what it keeps
+        of a batch split over dp x fsdp."""
+        cells = self.cells
+        return cells[0], cells[-1] + 1
 
     @property
     def local(self) -> "Mesh":
         """This process's sub-mesh: its block of dp coordinates, every
         other axis whole (the mesh itself for one process). Where only dp
         crosses, a single-process mesh of this process's devices; where
-        another axis crosses too, the other ranks' entries along it stay,
-        None, with their owners."""
+        another axis crosses too, or the block straddles lines, the other
+        ranks' entries stay, None, with their owners."""
         if self.process_count == 1:
             return self
         start, stop = self.dp_block
         owners = self.owners[start:stop]
         if (owners == self.process_index).all():
             return Mesh(self.devices[start:stop])
-        return Mesh(self.devices[start:stop], self.process_count,
-                    self.process_index, owners)
+        local = Mesh(self.devices[start:stop], self.process_count,
+                     self.process_index, owners, self.straddles)
+        local.parent = self
+        return local
 
     @property
     def first_device(self) -> torch.device:
@@ -190,16 +274,31 @@ class Mesh:
         local = self.local
         return local.devices[local.home]
 
-    def axis_devices(self, axis: str, **coords: int) -> list[torch.device]:
-        """The devices along ``axis`` for one group of the other axes: each
-        other axis at its coordinate in ``coords``, at :attr:`home`'s where
-        none is given (0 in a single process: an axis the caller does not
-        split over holds replicas; across processes this process's own
-        line, whose owners :meth:`axis_owners` gives). Another rank's entry
-        is None."""
+    def device_at(self, **coords: int) -> torch.device | None:
+        """This process's device at ``coords``, every other axis at
+        :attr:`home`'s coordinate; where that entry is another rank's, the
+        first entry (row-major) at ``coords`` that this process holds.
+        None when it holds none."""
+        index = tuple(coords.get(ax, h) for ax, h in zip(AXES, self.home))
+        if self.devices[index] is not None:
+            return self.devices[index]
+        at = tuple(coords[ax] if ax in coords else slice(None) for ax in AXES)
+        held = np.flatnonzero((self.owners[at] == self.process_index).reshape(-1))
+        return self.devices[at].reshape(-1)[held[0]] if held.size else None
+
+    def axis_devices(self, axis: str, line: tuple | None = None,
+                     **coords: int) -> list[torch.device]:
+        """The devices along ``axis`` for one group of the other axes: on
+        ``line`` (a :meth:`lines` entry), else each other axis at its
+        coordinate in ``coords``, at :attr:`home`'s where none is given (0
+        in a single process: an axis the caller does not split over holds
+        replicas; across processes this process's own line, whose owners
+        :meth:`axis_owners` gives). Another rank's entry is None."""
         unknown = set(coords) - set(self.axis_names) | ({axis} & set(coords))
         if unknown:
             raise ValueError(f"bad coordinates {sorted(unknown)} for axis {axis!r}")
+        if line is not None:
+            return list(self.devices[self._line_index(axis, line)])
         index = tuple(slice(None) if ax == axis else coords.get(ax, h)
                       for ax, h in zip(self.axis_names, self.home))
         return list(self.devices[index])
@@ -263,13 +362,14 @@ def make_mesh(spec: Mapping[str, int] | None = None,
     owners = (np.arange(world * n) // n).reshape(dims)
     arr = np.empty(world * n, dtype=object)
     arr[rank * n:(rank + 1) * n] = devices
-    mesh = Mesh(arr.reshape(dims), world, rank, owners)
-    if not _is_sub_grid(dims, n):
+    straddles = world > 1 and not _is_sub_grid(dims, n)
+    mesh = Mesh(arr.reshape(dims), world, rank, owners, straddles)
+    if straddles and "pp" in mesh.cross_axes:
         raise CrossProcessAxisError(
             f"mesh {shape} over {world} processes of {n} devices: a process's "
-            f"block of {n} devices is not a sub-grid of the mesh (it must hold "
-            "whole trailing axes and an equal part of the next; ROADMAP.md "
-            "queue 1 item 11)")
+            f"block of {n} devices straddles the lines of the pipeline axis, "
+            "which crosses processes (only a sub-grid block may hold part of a "
+            "pipeline; ROADMAP.md queue 1)")
     if world > 1:
         distributed.form_axis_groups(mesh)
     return mesh
@@ -302,11 +402,3 @@ def single_device_mesh(device=None) -> Mesh:
 def data_axes(mesh: Mesh) -> tuple[str, ...]:
     """Axes the batch dimension shards over (dp and fsdp both consume batch)."""
     return tuple(ax for ax in ("dp", "fsdp") if mesh.shape[ax] > 1)
-
-
-def local_data_groups(mesh: Mesh) -> int:
-    """How many batch blocks of ``mesh``'s dp x fsdp split this process
-    computes: every one on a single-process mesh, its own where dp or
-    fsdp crosses processes (a layer that splits its rows by data group
-    splits this process's rows into these)."""
-    return int(np.prod([len(mesh.shard_indices(ax)) for ax in data_axes(mesh)]))

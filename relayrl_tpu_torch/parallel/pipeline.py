@@ -76,7 +76,7 @@ from typing import Callable, Sequence
 import torch
 
 from relayrl_tpu_torch.parallel.context import hold_for_backward
-from relayrl_tpu_torch.parallel.mesh import Mesh, local_data_groups
+from relayrl_tpu_torch.parallel.mesh import Mesh
 from relayrl_tpu_torch.parallel.ring import RingHop, run_ring
 
 
@@ -318,7 +318,8 @@ def pipeline_apply(stage_fn: Callable, stage_params: Sequence, x: torch.Tensor,
     per = n_layers // n_stages
     layers = [stage_params[s * per:(s + 1) * per] for s in range(n_stages)]
     devices = mesh.axis_devices(axis)
-    n_groups = local_data_groups(mesh)
+    # The batch blocks of the dp x fsdp split this process computes.
+    n_groups = len(mesh.cells)
     if x.shape[0] % n_groups:
         raise ValueError(f"batch of {x.shape[0]} rows does not split into "
                          f"{n_groups} data groups")

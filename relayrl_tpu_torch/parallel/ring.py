@@ -51,6 +51,7 @@ from typing import Generator, NamedTuple, Sequence
 import torch
 
 from relayrl_tpu_torch.ops.attention import attention_block_combine, finalize_attention
+from relayrl_tpu_torch.parallel.context import cell_rows
 from relayrl_tpu_torch.parallel.mesh import Mesh
 
 _NEG_INF = -1e30
@@ -67,6 +68,9 @@ class RingComm:
     def reset(self) -> None:
         self.hops = self.hop_bytes = self.gathers = self.gather_bytes = 0
         self.hop_seconds = self.gather_seconds = 0.0
+        # A straddled line's output gradient, broadcast from its lead.
+        self.leads = self.lead_bytes = 0
+        self.lead_seconds = 0.0
 
     def as_dict(self) -> dict:
         return dict(vars(self))
@@ -202,12 +206,19 @@ def run_ring(bodies: Sequence[Generator], devices: Sequence[torch.device],
 class RingSpan(NamedTuple):
     """The shards of one ring that this process drives: their devices
     and global indices in ring order, the ring's size, and (when the
-    ring spans processes) the hop to the other ranks."""
+    ring spans processes) the hop to the other ranks and ``counts``, the
+    number of shards each rank of the ring holds, in ring order (None:
+    equal). ``lead`` is the global rank whose losses count for the ring's
+    rows where two ranks of the ring share a data group, as where process
+    blocks straddle the mesh's lines (its lowest holder; None: every rank
+    of the ring computes the same losses, each in its own data group)."""
 
     devices: tuple
     indices: tuple
     size: int
     hop: RingHop | None = None
+    lead: int | None = None
+    counts: tuple | None = None
 
 
 def whole_ring(devices: Sequence[torch.device]) -> RingSpan:
@@ -216,24 +227,64 @@ def whole_ring(devices: Sequence[torch.device]) -> RingSpan:
 
 
 def ring_spans(mesh: Mesh, axis_name: str, batch_axes: Sequence[str]) -> list[RingSpan]:
-    """This process's part of each ring of ``mesh``
-    (:func:`ring_groups`); where ``axis_name`` crosses processes, the one
-    ring of this process's dp coordinate, its shards and its hop."""
-    groups = ring_groups(mesh, axis_name, batch_axes)
+    """This process's part of each ring of ``mesh``, one a data cell in
+    cell order (:func:`ring_groups`); where ``axis_name`` crosses
+    processes, one span per line of it that this process holds shards of,
+    in line order: the whole ring where the line stays in the process,
+    else its shards with the hop over the line's group."""
     if axis_name not in mesh.cross_axes:
-        return [whole_ring(devices) for devices in groups]
+        return [whole_ring(devices) for devices in ring_groups(mesh, axis_name, batch_axes)]
     from relayrl_tpu_torch.parallel import distributed
 
-    if len(groups) != 1:
-        raise ValueError(f"mesh {mesh.shape}: a ring across processes with "
-                         f"{len(groups)} batch groups in one process")
-    indices, owners = mesh.shard_indices(axis_name), mesh.axis_owners(axis_name)
-    n = len(owners)
-    devices = [groups[0][i] for i in indices]
-    hop = RingHop(int(owners[(indices[-1] + 1) % n]), int(owners[(indices[0] - 1) % n]),
-                  distributed.axis_group(mesh, axis_name),
-                  distributed.stages_through_host(devices[0]))
-    return [RingSpan(tuple(devices), tuple(indices), n, hop)]
+    beside = [ax for ax in mesh.axis_names
+              if ax != axis_name and ax not in batch_axes and mesh.shape[ax] > 1]
+    if mesh.straddles and beside:
+        # A rank would hold rings of several replicas.
+        raise ValueError(f"mesh {mesh.shape}: a ring whose process blocks straddle the "
+                         f"mesh's lines beside {beside}")
+    # Other axes hold replicas, computed once: the lines through home's.
+    lines = [line for line in mesh.lines(axis_name)
+             if all(c is None or ax in batch_axes or c == h
+                    for ax, c, h in zip(mesh.axis_names, line, mesh.home))]
+    # A cell that two ranks of one data group hold counts on the lower
+    # (Mesh.accountable_cells): on such a line that rank leads.
+    data = set(mesh.data_ranks) - {mesh.process_index}
+    spans = []
+    for line in lines:
+        owners = [int(r) for r in mesh.axis_owners(axis_name, line)]
+        devices = mesh.axis_devices(axis_name, line)
+        if set(owners) == {mesh.process_index}:
+            spans.append(whole_ring(devices))
+            continue
+        indices, n = mesh.shard_indices(axis_name, line), len(owners)
+        hop = RingHop(owners[(indices[-1] + 1) % n], owners[(indices[0] - 1) % n],
+                      distributed.axis_group(mesh, axis_name, line),
+                      distributed.stages_through_host(devices[indices[0]]))
+        spans.append(RingSpan(tuple(devices[i] for i in indices), tuple(indices), n, hop,
+                              min(owners) if data & set(owners) else None,
+                              tuple(owners.count(r) for r in dict.fromkeys(owners))))
+    return spans
+
+
+def from_lead(grad: torch.Tensor, span: RingSpan) -> torch.Tensor:
+    """``grad`` as the lead of ``span`` holds it, on every rank of the
+    ring: one broadcast of its bytes over the ring's group (the other
+    ranks' are zero, their rows' losses counting on the lead)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    buf = grad.detach().contiguous().clone().reshape(-1).view(torch.uint8)
+    dist.broadcast(buf, src=span.lead, group=span.hop.group)
+    COMM.leads += 1
+    COMM.lead_bytes += buf.numel()
+    COMM.lead_seconds += time.perf_counter() - t0
+    return buf.view(grad.dtype).view(grad.shape)
+
+
+def _leads(span: RingSpan) -> bool:
+    from relayrl_tpu_torch.parallel import distributed
+
+    return span.lead is None or span.lead == distributed.process_index()
 
 
 def gather_time(parts: Sequence[torch.Tensor], span: RingSpan) -> list[torch.Tensor]:
@@ -251,9 +302,18 @@ def gather_time(parts: Sequence[torch.Tensor], span: RingSpan) -> list[torch.Ten
     buf = _pack(parts)
     if distributed.stages_through_host(device):
         buf = buf.cpu()
-    blocks = [torch.empty_like(buf) for _ in range(span.size // len(span.indices))]
+    m = len(span.indices)
+    counts = span.counts or (m,) * (span.size // m)
+    # Ranks of a straddled line hold unequal numbers of shards: each
+    # rank's bytes padded to the most any holds.
+    size = buf.numel() // m * max(counts)
+    if size > buf.numel():
+        buf = torch.cat([buf, buf.new_zeros(size - buf.numel())])
+    blocks = [torch.empty_like(buf) for _ in counts]
     dist.all_gather(blocks, buf, group=span.hop.group)
-    per_rank = [_unpack(b.to(device), parts) for b in blocks]
+    per_rank = [_unpack(b.to(device), [
+        torch.empty((p.shape[0], p.shape[1] // m * c, *p.shape[2:]), dtype=p.dtype,
+                    device="meta") for p in parts]) for b, c in zip(blocks, counts)]
     out = [torch.cat([rank[j] for rank in per_rank], dim=1) for j in range(len(parts))]
     COMM.gathers += 1
     COMM.gather_bytes += buf.numel() * len(blocks)
@@ -269,7 +329,8 @@ def _chunk(x: torch.Tensor, span: RingSpan, i: int) -> torch.Tensor:
 class _Scatter(torch.autograd.Function):
     """Replicated q, k, v -> this rank's time chunks of each (q's, then
     k's, then v's); the backward gathers the chunks' gradients over the
-    ring's ranks, so every rank holds the whole dq, dk and dv."""
+    ring's ranks, so every rank holds the whole dq, dk and dv (on a
+    straddled line only its lead keeps them: the others' zero)."""
 
     @staticmethod
     def forward(ctx, span, *qkv):
@@ -280,13 +341,18 @@ class _Scatter(torch.autograd.Function):
     def backward(ctx, *grads):
         span, m = ctx.span, len(ctx.span.indices)
         blocks = [torch.cat(grads[j * m:(j + 1) * m], dim=1) for j in range(3)]
-        return (None, *gather_time(blocks, span))
+        whole = gather_time(blocks, span)
+        if not _leads(span):
+            # The lead carries the line's rows into the layers before.
+            whole = [torch.zeros_like(g) for g in whole]
+        return (None, *whole)
 
 
 class _Gather(torch.autograd.Function):
     """This rank's output chunks -> the whole output, gathered over the
     ring's ranks; the backward takes this rank's chunks of the
-    (replicated) gradient."""
+    (replicated) gradient, on a straddled line of the lead's
+    (:func:`from_lead`)."""
 
     @staticmethod
     def forward(ctx, span, *outs):
@@ -295,6 +361,8 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        if ctx.span.lead is not None:
+            grad = from_lead(grad, ctx.span)
         return (None, *(_chunk(grad, ctx.span, i) for i in ctx.span.indices))
 
 
@@ -386,6 +454,45 @@ def ring_attention_sharded(q_shards: Sequence[torch.Tensor],
     return run_ring(bodies, span.devices, span.hop)
 
 
+def over_spans(spans: Sequence[RingSpan], sharded):
+    """Global-view attention ``[B, T, H, D] -> [B, T, H, D]`` over this
+    process's rings: ``sharded(qs, ks, vs, devices, span)`` runs one ring
+    (``span`` None for a ring every shard of which is here). Each ring
+    attends its data cell's rows: the counts :func:`~relayrl_tpu_torch.
+    parallel.context.cell_rows` gives (a minibatch's), else an even split;
+    a ring with none is skipped, as every rank that holds its cell skips
+    it. The rings run in span order (where process blocks straddle the
+    mesh's lines, whole and crossing rings mix, in line order: every rank
+    of a crossing ring meets it at the same place); a crossing ring
+    attends this rank's chunks of its rows and gathers the output
+    (:func:`across_processes`). The output lands on the input's device."""
+    def ring(q, k, v):
+        rows = cell_rows()
+        if rows is None:
+            if q.shape[0] % len(spans):
+                raise ValueError(f"{q.shape[0]} rows do not split over {len(spans)} rings")
+            rows = (q.shape[0] // len(spans),) * len(spans)
+        if len(rows) != len(spans) or sum(rows) != q.shape[0]:
+            raise ValueError(f"rows {rows} of {len(spans)} data cells for {q.shape[0]} rows")
+        outs, start = [], 0
+        for span, n in zip(spans, rows):
+            part = [x[start:start + n] for x in (q, k, v)]
+            start += n
+            if n == 0:
+                continue
+            if span.hop is None:
+                devices = list(span.devices)
+                (qs,), (ks,), (vs,) = (shard_split(x, [devices]) for x in part)
+                outs.append(shard_gather([sharded(qs, ks, vs, devices, None)], q.device))
+            else:
+                outs.append(across_processes(
+                    *part, span,
+                    lambda qs, ks, vs, span=span: sharded(qs, ks, vs, span.devices, span)
+                ).to(q.device))
+        return torch.cat(outs, dim=0) if outs else torch.zeros_like(q)
+    return ring
+
+
 def make_ring_attention(mesh: Mesh, axis_name: str = "sp",
                         causal: bool = True, batch_axes=("dp", "fsdp")):
     """Global-view ring attention ``[B, T, H, D] -> [B, T, H, D]``: time
@@ -393,17 +500,6 @@ def make_ring_attention(mesh: Mesh, axis_name: str = "sp",
     actually has (>1); the output lands on the input's device. Where the
     axis spans processes, this rank attends its chunks of the replicated
     inputs and every rank of the ring gets the whole output."""
-    spans = ring_spans(mesh, axis_name, batch_axes)
-    if spans[0].hop is not None:
-        span = spans[0]
-        return lambda q, k, v: across_processes(
-            q, k, v, span,
-            lambda qs, ks, vs: ring_attention_sharded(qs, ks, vs, span.devices,
-                                                      causal, span))
-    groups = [list(sp.devices) for sp in spans]
-
-    def ring(q, k, v):
-        shards = zip(*(shard_split(x, groups) for x in (q, k, v)), groups)
-        return shard_gather([ring_attention_sharded(qs, ks, vs, devices, causal)
-                             for qs, ks, vs, devices in shards], q.device)
-    return ring
+    return over_spans(ring_spans(mesh, axis_name, batch_axes),
+                      lambda qs, ks, vs, devices, span: ring_attention_sharded(
+                          qs, ks, vs, devices, causal, span))

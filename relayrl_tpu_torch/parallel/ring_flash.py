@@ -93,11 +93,9 @@ from relayrl_tpu_torch.ops.flash import (
 from relayrl_tpu_torch.parallel.mesh import Mesh
 from relayrl_tpu_torch.parallel.ring import (
     RingSpan,
-    across_processes,
+    over_spans,
     ring_spans,
     run_ring,
-    shard_gather,
-    shard_split,
     whole_ring,
 )
 
@@ -515,19 +513,9 @@ def chunked_flash_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _make_ring_flash(mesh: Mesh, axis_name: str, causal: bool, batch_axes,
                      calls: ChunkCalls):
-    spans = ring_spans(mesh, axis_name, batch_axes)
-    if spans[0].hop is not None:
-        span = spans[0]
-        return lambda q, k, v: across_processes(
-            q, k, v, span,
-            lambda qs, ks, vs: _ring_flash(qs, ks, vs, span.devices, causal, calls, span))
-    groups = [list(sp.devices) for sp in spans]
-
-    def ring(q, k, v):
-        shards = zip(*(shard_split(x, groups) for x in (q, k, v)), groups)
-        return shard_gather([_ring_flash(qs, ks, vs, devices, causal, calls)
-                             for qs, ks, vs, devices in shards], q.device)
-    return ring
+    return over_spans(ring_spans(mesh, axis_name, batch_axes),
+                      lambda qs, ks, vs, devices, span: _ring_flash(
+                          qs, ks, vs, devices, causal, calls, span))
 
 
 def make_ring_flash_attention(mesh: Mesh, axis_name: str = "sp",

@@ -50,7 +50,15 @@ split over fsdp (a rank its stage and its shards of the ends). Inside
 :func:`~relayrl_tpu_torch.parallel.context.dp_gradients` a bucketed
 gather's reduce-scatter runs after the autograd engine, in the order of
 the forward's gathers (:class:`_Gathered`), so it never meets a pipeline
-hop out of turn.
+hop out of turn. Where process blocks straddle the mesh's lines
+(``{"dp": 3, "fsdp": 2}`` over 2 processes of 3) a process holds the
+blocks at its own entries, on whichever line it holds them: there every
+process holds each block of the split parameters, which stay local. A
+split parameter that some process would hold only in part while its
+entries straddle the split axis's lines (``{"fsdp": 2, "tp": 3}`` over 3
+processes of 2) is refused on every process
+(:class:`~relayrl_tpu_torch.parallel.mesh.CrossProcessAxisError`,
+ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -208,16 +216,12 @@ def mesh_device(mesh: Mesh, **coords: int) -> torch.device:
     """The device at ``coords``, every other axis at this process's first
     coordinate (0 on a mesh of one process). A coordinate another process
     owns raises: its device is not this process's to use."""
-    index = tuple(coords.get(ax, h) for ax, h in zip(AXES, mesh.home))
-    device = mesh.devices[index]
+    device = mesh.device_at(**coords)
     if device is None:
+        index = tuple(coords.get(ax, h) for ax, h in zip(AXES, mesh.home))
         raise ValueError(f"mesh coordinates {coords} belong to rank "
                          f"{int(mesh.owners[index])}, not to rank {mesh.process_index}")
     return device
-
-
-def _owner_at(mesh: Mesh, coords: dict) -> int:
-    return int(mesh.owners[tuple(coords.get(ax, h) for ax, h in zip(AXES, mesh.home))])
 
 
 def _coords(mesh: Mesh, axes: tuple[str, ...], block: int) -> dict[str, int]:
@@ -324,6 +328,70 @@ def _gather_bucket(comm, members) -> list[torch.Tensor]:
     return out
 
 
+def _blocks_held(mesh: Mesh, rank: int, grids, fixed: dict) -> list[tuple[int, ...]]:
+    """The blocks (one index per split dim, each over its ``grids`` axes)
+    at the entries of ``mesh`` that ``rank`` owns at the ``fixed``
+    coordinates, sorted."""
+    out = set()
+    for entry in np.argwhere(mesh.owners == rank):
+        at = dict(zip(AXES, (int(i) for i in entry)))
+        if all(at[ax] == c for ax, c in fixed.items()):
+            out.add(tuple(int(np.ravel_multi_index([at[a] for a in axes],
+                                                   [mesh.shape[a] for a in axes]))
+                          for axes in grids))
+    return sorted(out)
+
+
+def _line_groups(mesh: Mesh, rank: int, axis: str, fixed: dict) -> set[tuple[int, ...]]:
+    """The groups of ranks along ``axis`` on each line through the entries
+    of ``mesh`` that ``rank`` owns at the ``fixed`` coordinates."""
+    out = set()
+    for entry in np.argwhere(mesh.owners == rank):
+        if all(int(entry[AXES.index(ax)]) == c for ax, c in fixed.items()):
+            line = tuple(slice(None) if ax == axis else int(i) for ax, i in zip(AXES, entry))
+            out.add(tuple(dict.fromkeys(int(r) for r in mesh.owners[line])))
+    return out
+
+
+def _held_blocks(mesh: Mesh, spec: Spec, dims, parts, fixed: dict) -> list[tuple[int, int]]:
+    """This process's blocks ``[lo, hi)`` along each split dim of a
+    parameter: those at its own entries of the whole mesh at the ``fixed``
+    coordinates. Each process must hold an equal contiguous block along
+    each dim, all of it on lines of one group where the dim's axis crosses
+    (the group it gathers over). Every process checks every process's
+    blocks, so where one cannot hold them so (a split parameter held in
+    part by a process whose entries straddle the axis's lines, ROADMAP.md
+    queue 1) all raise together."""
+    from relayrl_tpu_torch.parallel.mesh import CrossProcessAxisError
+
+    whole = mesh.parent
+    grids = [_axes(spec[d]) for d in dims]
+    mine = None
+    for rank in range(whole.process_count):
+        held = _blocks_held(whole, rank, grids, fixed)
+        if not held:
+            if rank == whole.process_index:
+                raise ValueError(f"rank {rank} holds no block of {spec} at {fixed}")
+            continue
+        ranges = [sorted({b[k] for b in held}) for k in range(len(dims))]
+        local = [(r[0], r[-1] + 1) for r in ranges]
+        fits = held == list(itertools.product(*ranges)) and all(
+            r == list(range(lo, hi)) and p % (hi - lo) == 0
+            and (hi - lo == p or len(axes) == 1 and len(_line_groups(whole, rank, axes[0],
+                                                                     fixed)) == 1)
+            for r, (lo, hi), p, axes in zip(ranges, local, parts, grids))
+        if not fits:
+            raise CrossProcessAxisError(
+                f"mesh {whole.shape} over {whole.process_count} processes: rank {rank} "
+                f"holds blocks {held} of a parameter split {spec} over {parts}, not an "
+                "equal contiguous block on lines of one group along each split axis (a "
+                "split parameter held in part where process blocks straddle the mesh's "
+                "lines; ROADMAP.md queue 1)")
+        if rank == whole.process_index:
+            mine = local
+    return mine
+
+
 def install_gather_buckets(module: nn.Module) -> None:
     """Gather ``module``'s bucketed parameters (:attr:`Shards.bucketed`)
     whole as each of its forwards starts, one all-gather per group of
@@ -372,7 +440,8 @@ class Shards(nn.Module):
     ``devices`` holds each one's device and ``coords`` its mesh
     coordinates. Along a split dim whose axis crosses processes this
     process holds the blocks ``local[k]`` (``[lo, hi)``) of ``parts[k]``
-    and gathers the rest over ``comms[k]``."""
+    and gathers the rest over ``comms[k]``: the blocks at its own entries,
+    on whichever of its lines they lie (:func:`_held_blocks`)."""
 
     def __init__(self, shape: Sequence[int], spec: Spec, mesh: Mesh,
                  fixed: dict[str, int], compute: torch.device):
@@ -384,34 +453,25 @@ class Shards(nn.Module):
         self.dims = [d for d, e in enumerate(self.spec) if e is not None]
         self.parts = [math.prod(mesh.shape[a] for a in _axes(self.spec[d]))
                       for d in self.dims]
-        self.local, self.comms = [], []
+        # The whole tensor while a forward of the placed module runs, when
+        # it was gathered in a bucket (install_gather_buckets).
+        self.gathered = None
         for d, parts in zip(self.dims, self.parts):
             if self.shape[d] % parts:
                 raise ValueError(f"dim {d} of {self.shape} does not split in {parts}")
+        self.local = _held_blocks(mesh, self.spec, self.dims, self.parts, fixed)
+        self.comms = []
+        for d, parts, (lo, hi) in zip(self.dims, self.parts, self.local):
             axes = _axes(self.spec[d])
-            mine = [b for b in range(parts)
-                    if _owner_at(mesh, {**fixed, **_coords(mesh, axes, b)})
-                    == mesh.process_index]
-            lo, hi = mine[0], mine[-1] + 1
-            if mine != list(range(lo, hi)) or parts % (hi - lo):
-                raise ValueError(f"rank {mesh.process_index} holds blocks {mine} of "
-                                 f"{parts} along {axes}: not an equal contiguous block")
             comm = None
             if hi - lo < parts:
-                if len(axes) != 1:
-                    raise ValueError(f"dim {d} split over {axes} crosses processes: "
-                                     "only a dim split over one axis may")
                 from relayrl_tpu_torch.parallel.distributed import axis_comm
 
                 comm = axis_comm(mesh, axes[0])
                 if comm is None or comm.size != parts // (hi - lo):
                     raise ValueError(f"no process group of {parts // (hi - lo)} "
                                      f"ranks over {axes[0]}")
-            self.local.append((lo, hi))
             self.comms.append(comm)
-        # The whole tensor while a forward of the placed module runs, when
-        # it was gathered in a bucket (install_gather_buckets).
-        self.gathered = None
         self.coords = []
         self.devices = []
         for block in itertools.product(*(range(lo, hi) for lo, hi in self.local)):

@@ -385,11 +385,21 @@ def test_dp_and_sp_across_four_processes(monkeypatch, rank):
 
 def test_blocks_that_split_a_line_unevenly_refused(monkeypatch):
     """Blocks of 2 devices over ``{"fsdp": 2, "tp": 3}`` are no sub-grid
-    (a block would hold the end of one fsdp line and the start of the
-    next), now that fsdp and tp may cross."""
-    _topology(monkeypatch, 0, 3)
-    with pytest.raises(CrossProcessAxisError, match="sub-grid.*queue 1 item 11"):
-        make_mesh({"dp": 1, "fsdp": 2, "tp": 3}, [torch.device("cpu")] * 2)
+    (rank 1 holds the end of fsdp 0's tp line and the start of fsdp 1's):
+    the mesh builds, rank 1 holding tp 2 on its first line and tp 0 on
+    its second, in the tp groups (0, 1) and (1, 2) and the fsdp groups
+    (1, 2) and (0, 1). Only such blocks across a pipeline axis stay
+    refused."""
+    _topology(monkeypatch, 1, 3)
+    mesh = make_mesh({"dp": 1, "fsdp": 2, "tp": 3}, [torch.device("cpu")] * 2)
+    assert mesh.straddles and mesh.cross_axes == ("fsdp", "tp")
+    lines = mesh.lines("tp")
+    assert [mesh.shard_indices("tp", line) for line in lines] == [[2], [0]]
+    assert [mesh.axis_ranks("tp", line) for line in lines] == [(0, 1), (1, 2)]
+    assert [mesh.axis_ranks("fsdp", line) for line in mesh.lines("fsdp")] == [(0, 1), (1, 2)]
+    assert mesh.cells == [0, 1] and mesh.accountable_cells == [1]
+    with pytest.raises(CrossProcessAxisError, match="pipeline.*queue 1"):
+        make_mesh({"dp": 1, "fsdp": 2, "pp": 3}, [torch.device("cpu")] * 2)
 
 
 @pytest.mark.parametrize("spec,n,world,size,dp", [({"dp": 1, "fsdp": 2}, 1, 2, 2, False),
@@ -426,13 +436,24 @@ def test_local_device_ids_name_a_rank_s_mesh_entries():
 
 
 def test_uneven_process_blocks_refused(monkeypatch):
-    """Blocks of 3 devices over a ``{"dp": 3, "sp": 2}`` mesh split a dp
-    row between processes unevenly (only dp and sp cross, but a ring would
-    hold 1 shard on one rank and 1 on the other of a row the first rank
-    also holds)."""
+    """Blocks of 3 devices over a ``{"dp": 3, "sp": 2}`` mesh split dp 1's
+    ring between processes: the mesh builds, rank 0 holding dp 0's ring
+    whole and shard 0 of dp 1's, keeping both cells' rows and accounting
+    for both; its local mesh keeps rank 1's entry of dp 1 as None. The
+    same blocks across a pipeline axis (``{"dp": 3, "pp": 2}``) stay
+    refused."""
     _two_process_topology(monkeypatch, 0)
-    with pytest.raises(CrossProcessAxisError, match="queue 1 item 11"):
-        make_mesh({"dp": 3, "sp": 2}, [torch.device("cpu")] * 3)
+    mesh = make_mesh({"dp": 3, "sp": 2}, [torch.device("cpu")] * 3)
+    assert mesh.straddles and mesh.cross_axes == ("dp", "sp")
+    lines = mesh.lines("sp")
+    assert [mesh.shard_indices("sp", line) for line in lines] == [[0, 1], [0]]
+    assert [mesh.axis_ranks("sp", line) for line in lines] == [(0,), (0, 1)]
+    assert mesh.cells == mesh.accountable_cells == [0, 1]
+    local = mesh.local
+    assert local.shape["dp"] == 2 and local.devices[1, 0, 0, 0, 1, 0] is None
+    assert sum(d is not None for d in local.devices.flat) == 3
+    with pytest.raises(CrossProcessAxisError, match="pipeline.*queue 1"):
+        make_mesh({"dp": 3, "pp": 2}, [torch.device("cpu")] * 3)
 
 
 class _QueueHop:
@@ -947,5 +968,238 @@ def test_split_collective_swapped_with_a_hop_is_caught(eager_rank):
     :class:`CollectiveOrderError` within the harness's timeout, and every
     thread-rank ends (no hang)."""
     _, _, errors, _, seconds = _split_pipeline_ranks(eager_rank, timeout=10.0)
+    assert any(isinstance(e, CollectiveOrderError) for e in errors), errors
+    assert seconds < 10.0, seconds
+
+
+class _LineOrder:
+    """What the thread-ranks of :func:`_straddled_ring_ranks` share: each
+    rank's pass (forward: lines ascending; backward: descending) and the
+    last line it met in it; a rank that meets an earlier line after a
+    later one in its forward (a later one after an earlier one in its
+    backward) is caught by every partner it meets there."""
+
+    def __init__(self, n, timeout):
+        import threading
+
+        self.passes = [None] * n
+        self.last = [None] * n
+        self.abort = threading.Event()
+        self.timeout = timeout
+        self.log = [[] for _ in range(n)]
+
+    def begin(self, rank, direction):
+        self.passes[rank], self.last[rank] = direction, None
+
+    def meet(self, rank, line, what):
+        prev = self.last[rank]
+        self.last[rank] = line
+        self.log[rank].append((what, line))
+        return (self.passes[rank], prev)
+
+    @staticmethod
+    def check(stamps, line, ranks):
+        for (direction, prev), r in zip(stamps, ranks):
+            late = prev is not None and (prev > line if direction == "forward"
+                                         else prev < line)
+            if late:
+                raise CollectiveOrderError(
+                    f"rank {r} met line {line} after line {prev} in its {direction}")
+
+
+class _LineGroup:
+    """One line's ring across thread-ranks (``members``, global ranks in
+    ring order): the hop between them, the all-gather and the broadcast,
+    each checking every member's line order (:class:`_LineOrder`)."""
+
+    def __init__(self, shared, line, members):
+        import queue
+        import threading
+
+        self.shared, self.line, self.members = shared, line, tuple(members)
+        self.boxes = {r: {False: queue.Queue(), True: queue.Queue()} for r in members}
+        self.slots = [None] * len(members)
+        self.barrier = threading.Barrier(len(members))
+
+    def _get(self, box, what):
+        import queue
+        import time
+
+        deadline = time.monotonic() + self.shared.timeout
+        while True:
+            try:
+                return box.get(timeout=0.02)
+            except queue.Empty:
+                if self.shared.abort.is_set():
+                    raise RuntimeError(f"{what}: a partner failed") from None
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{what}: nothing after {self.shared.timeout} s") \
+                        from None
+
+    def exchange(self, me, tensors, device, reverse):
+        i = self.members.index(me)
+        n = len(self.members)
+        to = self.members[(i - 1) % n if reverse else (i + 1) % n]
+        stamp = self.shared.meet(me, self.line, "hop")
+        self.boxes[to][reverse].put((me, stamp, [t.detach().clone() for t in tensors]))
+        sender, theirs, got = self._get(self.boxes[me][reverse], "a hop")
+        _LineOrder.check([stamp, theirs], self.line, [me, sender])
+        return tuple(t.to(device) for t in got)
+
+    def collective(self, me, value, what):
+        import threading
+
+        stamp = self.shared.meet(me, self.line, what)
+        self.slots[self.members.index(me)] = (me, stamp, value)
+        for _ in range(2):
+            try:
+                self.barrier.wait(timeout=self.shared.timeout)
+            except threading.BrokenBarrierError:
+                raise RuntimeError(f"{what}: a partner failed") from None
+            if _ == 0:
+                slots = list(self.slots)
+        _LineOrder.check([s[1] for s in slots], self.line, [s[0] for s in slots])
+        return [s[2] for s in slots]
+
+
+class _LineHop:
+    """A ring span's hop for one thread-rank (``RingSpan.hop``): its
+    exchanges go through the line's :class:`_LineGroup`; ``group`` is the
+    line group itself, which the patched all-gather and broadcast take."""
+
+    def __init__(self, group, me):
+        self.group, self.me = group, me
+
+    def exchange(self, tensors, device, reverse=False, like=None):
+        return self.group.exchange(self.me, tensors, device, reverse)
+
+
+def _straddled_ring_ranks(monkeypatch, swap_rank=None, timeout=20.0):
+    """``{"dp": 3, "sp": 4}`` over 4 thread-ranks of 3 entries (the owners
+    ``[[0, 0, 0, 1], [1, 1, 2, 2], [2, 3, 3, 3]]``): every ring crosses,
+    ranks 1 and 2 sit in two rings each. Each rank drives its lines'
+    rings through ``ring.over_spans`` (the flash ring's plain versions, one
+    row a data cell, T 32 in chunks of 8) and backpropagates its output
+    gradient on the rows it leads (zeros on the others: their losses
+    count on the lead). ``swap_rank`` drives its two lines in the other
+    order. Returns the single-process output and q, k, v gradients, each
+    rank's (or None where it failed), the errors, each rank's log and the
+    seconds the ranks took."""
+    import threading
+    import time
+
+    from relayrl_tpu_torch.parallel import ring, ring_flash
+
+    owners = np.arange(12).reshape(3, 4) // 3
+    T, H, D, n = 32, 2, 8, 4
+    gen = torch.Generator().manual_seed(3)
+    qkv = [torch.randn(3, T, H, D, generator=gen) for _ in range(3)]
+    g_out = torch.randn(3, T, H, D, generator=gen)
+    cpu = torch.device("cpu")
+
+    def sharded(qs, ks, vs, devices, span):
+        return ring_flash._ring_flash(qs, ks, vs, devices, True, ring_flash.CHUNK_CALLS, span)
+
+    def run(spans, rows):
+        leaves = [x[rows].clone().requires_grad_() for x in qkv]
+        return ring.over_spans(spans, sharded)(*leaves), leaves
+
+    out, leaves = run([ring.whole_ring([cpu] * n)] * 3, slice(0, 3))
+    torch.autograd.backward(out, g_out)
+    want = (out.detach(), [x.grad for x in leaves])
+
+    shared = _LineOrder(4, timeout)
+    groups = {line: _LineGroup(shared, line, tuple(dict.fromkeys(int(r) for r in owners[line])))
+              for line in range(3)}
+    local = threading.local()
+    monkeypatch.setattr(distributed, "process_index", lambda: local.rank)
+
+    def all_gather(out_list, t, group=None):
+        for o, v in zip(out_list, group.collective(local.rank, t.detach().clone(),
+                                                   "all_gather")):
+            o.copy_(v)
+
+    def broadcast(t, src, group=None):
+        got = group.collective(local.rank, t.detach().clone(), "broadcast")
+        t.copy_(got[group.members.index(src)])
+
+    monkeypatch.setattr(torch.distributed, "all_gather", all_gather)
+    monkeypatch.setattr(torch.distributed, "broadcast", broadcast)
+    got, errors = [None] * 4, []
+
+    def rank_main(r):
+        local.rank = r
+        try:
+            lines = [line for line in range(3) if r in owners[line]]
+            spans = []
+            for line in lines:
+                row = [int(o) for o in owners[line]]
+                if set(row) == {r}:
+                    spans.append(ring.whole_ring([cpu] * n))
+                    continue
+                idx = [i for i, o in enumerate(row) if o == r]
+                spans.append(ring.RingSpan((cpu,) * len(idx), tuple(idx), n,
+                                           _LineHop(groups[line], r), min(row),
+                                           tuple(row.count(o) for o in dict.fromkeys(row))))
+            shared.begin(r, "forward")
+            if r == swap_rank:
+                # Each line a call, the later one first.
+                runs = [run([span], slice(line, line + 1))
+                        for line, span in zip(lines[::-1], spans[::-1])][::-1]
+            else:
+                # Every line in one call: over_spans drives them in turn.
+                runs = [run(spans, slice(lines[0], lines[-1] + 1))]
+            shared.begin(r, "backward")
+            grads = [g_out[line:line + 1] if int(owners[line].min()) == r
+                     else torch.zeros_like(g_out[line:line + 1]) for line in lines]
+            if r != swap_rank:
+                grads = [torch.cat(grads)]
+            torch.autograd.backward([out for out, _ in runs], grads)
+            got[r] = (torch.cat([out for out, _ in runs]).detach(),
+                      [torch.cat([lv[j].grad for _, lv in runs]) for j in range(3)], lines)
+        except Exception as e:  # reported by the caller's assert
+            errors.append(e)
+            shared.abort.set()
+            for g in groups.values():
+                g.barrier.abort()
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=rank_main, args=(r,)) for r in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=3 * timeout)
+    assert not any(t.is_alive() for t in threads), "a thread-rank hung"
+    return want, got, errors, shared.log, time.monotonic() - t0
+
+
+def test_ranks_in_two_rings_keep_line_order(monkeypatch):
+    """``{"dp": 3, "sp": 4}`` over 4 thread-ranks: ranks 1 and 2 each sit
+    in two crossing rings. Every rank meets its rings' hops, gathers and
+    broadcasts in ascending line order in the forward and descending in
+    the backward (the harness raises otherwise); each rank's output rows
+    equal the single-process ring's bit for bit, and each line's q, k, v
+    gradients are on its lead (the others zero), equal to the single
+    process's."""
+    want, got, errors, log, _ = _straddled_ring_ranks(monkeypatch)
+    assert not errors, errors
+    owners = np.arange(12).reshape(3, 4) // 3
+    for r in range(4):
+        out, grads, lines = got[r]
+        assert torch.equal(out, want[0][lines[0]:lines[-1] + 1])
+        for i, line in enumerate(lines):
+            for g, w in zip(grads, want[1]):
+                lead = int(owners[line].min()) == r
+                assert torch.equal(g[i], w[line] if lead else torch.zeros_like(w[line]))
+    assert {line for _, line in log[1]} == {0, 1} and {line for _, line in log[2]} == {1, 2}
+
+
+@pytest.mark.parametrize("swap_rank", [1, 2])
+def test_a_rank_that_swaps_its_two_rings_is_caught(monkeypatch, swap_rank):
+    """A rank in two crossing rings that drives the later line first
+    meets the earlier line's ring after it: a partner there raises
+    :class:`CollectiveOrderError` within the harness's timeout, and every
+    thread-rank ends (no hang)."""
+    _, _, errors, _, seconds = _straddled_ring_ranks(monkeypatch, swap_rank, timeout=10.0)
     assert any(isinstance(e, CollectiveOrderError) for e in errors), errors
     assert seconds < 10.0, seconds
